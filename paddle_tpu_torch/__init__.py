@@ -1,8 +1,9 @@
 """paddle_tpu_torch — the PyTorch + CUDA port of paddle_tpu.
 
 The same Fluid-style surface as ``paddle_tpu`` (``import paddle_tpu_torch
-as fluid``): Program / Block / Op / Variable IR, layers, Executor,
-inference predictor and serving engine, with op functions in ``torch`` and
+as fluid``): Program / Block / Op / Variable IR, layers, ``append_backward``
+and optimizers, Executor, inference predictor and serving engine, with op
+functions in ``torch`` and
 the Pallas TPU kernels rewritten by hand in CUDA C++ for Hopper
 (``csrc/``). Entry points run on the card (``cuda:0``) unless the caller
 asks for the CPU (``CPUPlace()``, ``AnalysisConfig.disable_gpu()``).
@@ -20,6 +21,8 @@ from .framework import (Parameter, Program, Variable,  # noqa: F401
 from . import initializer  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from . import layers  # noqa: F401
+from . import optimizer  # noqa: F401
+from . import backward  # noqa: F401
 from .layers.io import fluid_data as data  # noqa: F401
 from . import models  # noqa: F401
 from . import io  # noqa: F401

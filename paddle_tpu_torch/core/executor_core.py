@@ -11,7 +11,13 @@ fetch copies a result back.
   on that device seeded per (executor seed, step, op id), or from its
   ``seed`` attr when that is set, as the JAX package derives its seeds.
 - Intermediates are freed after their last use (the eager-deletion plan),
-  except feeds, fetches and persistables.
+  except feeds, fetches and persistables. The plan counts every reader,
+  so a forward activation that a grad op reads lives until that grad op.
+- Grad ops: a slot bound to ``""`` or ``"@EMPTY@"`` reads as None, every
+  op learns which output slots it binds (``BOUND_OUTPUTS_ATTR``), and an
+  output list may hold None where a grad is not produced (nothing is
+  written for it). A grad op draws its RNG stream from its forward op's
+  id (``_fwd_op_id``), so both see the same random numbers.
 
 Whole-program capture (CUDA graphs) and LoD propagation come with later
 slices (ROADMAP.md).
@@ -23,7 +29,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from .registry import DEVICE_ATTR, GENERATOR_ATTR, OpInfoMap
+from .registry import (BOUND_OUTPUTS_ATTR, DEVICE_ATTR, GENERATOR_ATTR,
+                       OpInfoMap)
 from .scope import Scope
 from .tensor import LoDTensor
 
@@ -44,6 +51,9 @@ class RNGState:
         self.step += 1
 
 
+_UNBOUND = ("", "@EMPTY@")
+
+
 class CoreExecutor:
     def __init__(self, device: torch.device):
         self.device = device
@@ -51,6 +61,8 @@ class CoreExecutor:
         self._gc_plans: Dict = {}
 
     def _read(self, scope: Scope, name: str):
+        if name in _UNBOUND:
+            return None
         var = scope.find_var(name)
         if var is None or not var.is_initialized():
             return None
@@ -73,10 +85,13 @@ class CoreExecutor:
         attrs = dict(info.attrs)
         attrs.update(op.attrs)
         attrs[DEVICE_ATTR] = self.device
+        attrs[BOUND_OUTPUTS_ATTR] = tuple(
+            s.name for s in info.outputs if op.output(s.name))
         if info.needs_rng:
             seed = int(attrs.get("seed", 0) or 0)
             if seed <= 0:
-                seed = self.rng.next_seed(op._id or 0)
+                seed = self.rng.next_seed(
+                    attrs.get("_fwd_op_id", op._id or 0))
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             attrs[GENERATOR_ATTR] = gen
@@ -92,7 +107,8 @@ class CoreExecutor:
                 continue
             vals = o if slot.duplicable else [o]
             for n, v in zip(op.output(slot.name), vals):
-                self._write(scope, n, v)
+                if v is not None and n not in _UNBOUND:
+                    self._write(scope, n, v)
 
     @staticmethod
     def _build_gc_plan(block, protect):
@@ -104,7 +120,7 @@ class CoreExecutor:
                 last_use[name] = i
         plan: Dict[int, list] = {}
         for name, i in last_use.items():
-            if name in protect:
+            if name in protect or name in _UNBOUND:
                 continue
             v = block._find_var_recursive(name)
             if v is None or v.persistable:

@@ -6,20 +6,30 @@ function ``fn(ins, attrs) -> outs`` over ``torch`` tensors: ``ins`` and
 unbound dispensable slot to None). The registered ``attrs`` are the op's
 defaults; the executor overlays the op's own attrs on them.
 
-Executors pass two reserved attrs that are never serialized:
-``DEVICE_ATTR`` is the ``torch.device`` creation ops build on, and
-``GENERATOR_ATTR`` the seeded ``torch.Generator`` a ``needs_rng`` op draws
-from. Shape inference runs the same ``fn`` on ``meta`` tensors.
+Executors pass reserved attrs that are never serialized: ``DEVICE_ATTR``
+is the ``torch.device`` creation ops build on, ``GENERATOR_ATTR`` the
+seeded ``torch.Generator`` a ``needs_rng`` op draws from, and
+``BOUND_OUTPUTS_ATTR`` the output slots the op binds. Shape inference runs
+the same ``fn`` on ``meta`` tensors.
 
-This slice registers forward ops only; grad makers and the auto-VJP grad
-ops come with the training slice.
+Gradients, as in the JAX package: an op registered with ``grad="auto"``
+(the default) gets a ``<type>_grad`` op that re-runs the forward ``fn``
+and differentiates it (``_vjp_grad_impl``: ``torch.autograd.grad`` on
+fresh leaves where JAX calls ``jax.vjp``); ``grad=None`` ops are never
+differentiated; a callable ``grad`` is a grad maker that emits the
+backward ops itself.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 DEVICE_ATTR = "_device"
 GENERATOR_ATTR = "_generator"
+BOUND_OUTPUTS_ATTR = "_bound_outputs"  # tuple of output slots bound in desc
+
+GRAD_SUFFIX = "@GRAD"
 
 
 class Slot:
@@ -49,13 +59,20 @@ def Out(name, **kw):
 class OpInfo:
     def __init__(self, type: str, fn: Callable, inputs: Sequence[Slot],
                  outputs: Sequence[Slot], attrs: Optional[Dict] = None,
-                 needs_rng: bool = False):
+                 grad: object = "auto", needs_rng: bool = False):
         self.type = type
         self.fn = fn
         self.inputs = tuple(inputs)
         self.outputs = tuple(outputs)
         self.attrs = dict(attrs or {})
+        self.grad = grad  # "auto" | None | maker(block, op, pending, finalize)
         self.needs_rng = needs_rng
+
+    def input_slot(self, name) -> Optional[Slot]:
+        for s in self.inputs:
+            if s.name == name:
+                return s
+        return None
 
 
 class OpInfoMap:
@@ -106,12 +123,141 @@ def _ensure_ops_loaded():
 
 
 def register_op(type: str, inputs: Sequence[Slot], outputs: Sequence[Slot],
-                attrs: Optional[Dict] = None, needs_rng: bool = False):
-    """Decorator: register ``fn(ins, attrs) -> outs`` as an operator."""
+                attrs: Optional[Dict] = None, grad: object = "auto",
+                needs_rng: bool = False):
+    """Decorator: register ``fn(ins, attrs) -> outs`` as an operator, and
+    its auto-VJP ``<type>_grad`` op when ``grad == "auto"``."""
 
     def deco(fn):
-        OpInfoMap.instance().insert(
-            OpInfo(type, fn, inputs, outputs, attrs, needs_rng=needs_rng))
+        info = OpInfo(type, fn, inputs, outputs, attrs, grad=grad,
+                      needs_rng=needs_rng)
+        OpInfoMap.instance().insert(info)
+        if grad == "auto":
+            _register_auto_grad_for(info)
         return fn
 
     return deco
+
+
+# -- the auto-VJP grad op ------------------------------------------------------
+
+# op types whose fn is a pure auto-VJP (differentiable again: the substrate
+# for grad-of-grad registration on demand)
+_AUTO_VJP_TYPES: set = set()
+
+
+def _register_auto_grad_for(info: OpInfo):
+    grad_type = info.type + "_grad"
+    if OpInfoMap.instance()._map.get(grad_type) is not None:
+        return
+    # forward inputs, the outputs' grads; out: the inputs' grads
+    grad_inputs = [Slot(s.name, duplicable=s.duplicable, dispensable=True,
+                        no_grad=s.no_grad) for s in info.inputs]
+    grad_inputs += [Slot(s.name + GRAD_SUFFIX, duplicable=s.duplicable,
+                         dispensable=True) for s in info.outputs]
+    grad_outputs = [Slot(s.name + GRAD_SUFFIX, duplicable=s.duplicable,
+                         dispensable=True) for s in info.inputs]
+
+    def grad_fn(ins, attrs, _info=info):
+        return _vjp_grad_impl(_info, ins, attrs)
+
+    OpInfoMap.instance().insert(OpInfo(
+        grad_type, grad_fn, grad_inputs, grad_outputs,
+        attrs=dict(info.attrs), grad=None, needs_rng=info.needs_rng))
+    _AUTO_VJP_TYPES.add(grad_type)
+
+
+def ensure_grad_op(op_type: str) -> bool:
+    """Register ``<op_type>_grad`` on demand when ``op_type`` is itself an
+    auto-VJP grad op (the static double-grad path). True when the grad op
+    exists afterwards."""
+    m = OpInfoMap.instance()
+    if m.has(op_type + "_grad"):
+        return True
+    if op_type not in _AUTO_VJP_TYPES:
+        return False
+    _register_auto_grad_for(m.get(op_type))
+    return True
+
+
+def _is_float(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_floating_point()
+
+
+def _vjp_grad_impl(info: OpInfo, ins: Dict, attrs: Dict):
+    """Generic backward: re-run ``info.fn`` with autograd on, with respect
+    to the floating forward inputs whose ``<slot>@GRAD`` output is bound,
+    and pull the outputs' grads back through it. A missing output grad
+    counts as zeros; an input the outputs do not depend on gets zeros.
+    Integer inputs are never differentiated."""
+    bound = set(attrs.get(BOUND_OUTPUTS_ATTR) or ())
+    fwd_ins = {s.name: ins.get(s.name) for s in info.inputs}
+
+    # (slot, index or None) leaves to differentiate with respect to
+    wrt: List[Tuple[str, Optional[int]]] = []
+    for s in info.inputs:
+        want = (not bound) or (s.name + GRAD_SUFFIX) in bound
+        v = fwd_ins.get(s.name)
+        if s.no_grad or not want or v is None:
+            continue
+        if s.duplicable:
+            wrt.extend((s.name, i) for i, x in enumerate(v) if _is_float(x))
+        elif _is_float(v):
+            wrt.append((s.name, None))
+    if not wrt:
+        return {}
+
+    fwd_attrs = {k: v for k, v in attrs.items() if k != BOUND_OUTPUTS_ATTR}
+    rebuilt = {s.name: (list(fwd_ins[s.name]) if s.duplicable
+                        and fwd_ins.get(s.name) is not None
+                        else fwd_ins.get(s.name)) for s in info.inputs}
+    # Run as the grad op of a grad op (grad of grad), this call's inputs
+    # already carry the outer call's graph (one leaf per slot, made by the
+    # outer call): keep it, and build a graph of this backward too, so
+    # that the outer call can differentiate it.
+    nested = any(isinstance(t, torch.Tensor) and t.requires_grad
+                 for v in ins.values()
+                 for t in (v if isinstance(v, list) else [v]))
+    leaves = []
+    for n, i in wrt:
+        x = rebuilt[n] if i is None else rebuilt[n][i]
+        if not x.requires_grad:
+            x = x.detach().requires_grad_(True)
+        leaves.append(x)
+        if i is None:
+            rebuilt[n] = x
+        else:
+            rebuilt[n][i] = x
+    with torch.enable_grad():
+        outs = info.fn(rebuilt, fwd_attrs)
+
+    # each produced output that depends on a leaf, with its cotangent
+    # (reshaped to the output: the loss grad is [1] where mean gives 0-d)
+    ys, cots = [], []
+    for s in info.outputs:
+        o = outs.get(s.name)
+        if o is None:
+            continue
+        g = ins.get(s.name + GRAD_SUFFIX)
+        os_ = o if s.duplicable else [o]
+        gs = (g if g is not None else [None] * len(os_)) if s.duplicable \
+            else [g]
+        for y, gy in zip(os_, gs):
+            if not (isinstance(y, torch.Tensor) and y.requires_grad):
+                continue
+            ys.append(y)
+            cots.append(torch.zeros_like(y) if gy is None
+                        else gy.to(y.dtype).reshape(y.shape))
+    grads = (torch.autograd.grad(ys, leaves, cots, allow_unused=True,
+                                 create_graph=nested)
+             if ys else [None] * len(leaves))
+
+    result: Dict[str, object] = {}
+    for (n, i), x, g in zip(wrt, leaves, grads):
+        g = torch.zeros_like(x) if g is None else g
+        key = n + GRAD_SUFFIX
+        if info.input_slot(n).duplicable:
+            result.setdefault(key, [None] * len(fwd_ins[n]))[i] = g
+        else:
+            result[key] = g
+    return result

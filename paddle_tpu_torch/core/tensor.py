@@ -34,6 +34,10 @@ class LoDTensor:
     def numpy(self) -> np.ndarray:
         return self._array.detach().cpu().numpy()
 
+    def __array__(self, dtype=None, copy=None):
+        arr = self.numpy()
+        return arr if dtype is None else arr.astype(dtype)
+
     def shape(self):
         return tuple(self._array.shape) if self._array is not None else ()
 

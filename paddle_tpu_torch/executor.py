@@ -1,8 +1,10 @@
 """``Executor`` — the user-facing program runner.
 
-Counterpart of ``paddle_tpu/executor.py``. ``run`` stages numpy feeds onto
-the executor's device, runs the program op by op through
-``core.CoreExecutor`` and copies fetches back as numpy arrays.
+Counterpart of ``paddle_tpu/executor.py``. ``run`` applies the single-chip
+fusion rewrite a program asks for (``core.fusion``; the fused optimizer
+update under ``PADDLE_TPU_FUSED_OPTIMIZER``), stages numpy feeds onto the
+executor's device, runs the program op by op through ``core.CoreExecutor``
+and copies fetches back as numpy arrays.
 
 The place decides the device. With no place the executor runs on the card
 (``CUDAPlace(0)``); ``CPUPlace()`` asks for the CPU. On the card the
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 from . import framework
 from .core import CoreExecutor, CUDAPlace, global_scope
+from .core.fusion import maybe_rewrite_single_chip
 
 
 class Executor:
@@ -33,5 +36,6 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         if program is None:
             program = framework.default_main_program()
+        maybe_rewrite_single_chip(program, scope, self.device)
         return self._core.run_program(program, scope, feed or {},
                                       list(fetch_list or []), return_numpy)

@@ -17,7 +17,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from .core import dtypes as _dt
-from .core.registry import DEVICE_ATTR, OpInfoMap
+from .core.registry import DEVICE_ATTR, GRAD_SUFFIX, OpInfoMap
 from .utils import unique_name
 
 _SENTINEL = 1223  # stands in for -1 (unknown batch) during shape inference
@@ -67,8 +67,21 @@ class Parameter(Variable):
         super().__init__(block, shape=shape, dtype=dtype, **kwargs)
 
 
+class OpRole:
+    """Op phase tags, the JAX package's values."""
+
+    Forward = 0x0000
+    Backward = 0x0001
+    Optimize = 0x0002
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
+
+
 class Operator:
-    """One op in a Block: (type, slot -> var names, attrs)."""
+    """One op in a Block: (type, slot -> var names, attrs), tagged with
+    the role of the phase that appended it (forward, backward, optimize)."""
 
     def __init__(self, block, type, inputs=None, outputs=None, attrs=None):
         self.block = block
@@ -77,6 +90,8 @@ class Operator:
         self.outputs: Dict[str, List[str]] = {}
         self.attrs: Dict[str, object] = dict(attrs or {})
         self._id = None  # set by Block.append_op
+        prog = getattr(block, "program", None) if block is not None else None
+        self._role = getattr(prog, "_current_role", OpRole.Forward)
         for slot, arg in (inputs or {}).items():
             self.inputs[slot] = _to_name_list(arg)
         for slot, arg in (outputs or {}).items():
@@ -234,10 +249,29 @@ class Program:
         self._current_block_idx = 0
         self._op_id = 0
         self.random_seed = 0
+        # op-role bookkeeping of the backward and optimizer passes
+        self._appending_grad_times = 0
+        self._current_role = OpRole.Forward
 
     def _next_op_id(self):
         self._op_id += 1
         return self._op_id
+
+    @contextlib.contextmanager
+    def _role_guard(self, role):
+        """Ops appended inside carry ``role``."""
+        prev = self._current_role
+        self._current_role = role
+        try:
+            yield
+        finally:
+            self._current_role = prev
+
+    def _optimized_guard(self, param_and_grads=None):
+        return self._role_guard(OpRole.Optimize)
+
+    def _backward_role_guard(self):
+        return self._role_guard(OpRole.Backward)
 
     def global_block(self) -> Block:
         return self.blocks[0]
@@ -258,12 +292,14 @@ class Program:
 
     def clone(self, for_test: bool = False) -> "Program":
         """A copy with its own blocks, vars and ops. ``for_test`` sets
-        ``is_test`` on ops that have it; the backward and optimizer ops
-        it prunes in the JAX package come with the training slice."""
+        ``is_test`` on ops that have it; pruning the backward and
+        optimizer ops by their role, as the JAX package does, is not yet
+        ported (ROADMAP.md, queue 1)."""
         p = Program()
         p.blocks = []
         p._op_id = self._op_id
         p.random_seed = self.random_seed
+        p._appending_grad_times = self._appending_grad_times
         for b in self.blocks:
             p.blocks.append(Block(p, b.idx, b.parent_idx))
         for b, nb in zip(self.blocks, p.blocks):
@@ -276,6 +312,7 @@ class Program:
                 nop.inputs = {k: list(v) for k, v in op.inputs.items()}
                 nop.outputs = {k: list(v) for k, v in op.outputs.items()}
                 nop._id = op._id
+                nop._role = op._role
                 if for_test and "is_test" in nop.attrs:
                     nop.attrs["is_test"] = True
                 nb.ops.append(nop)

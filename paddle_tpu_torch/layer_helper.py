@@ -49,6 +49,14 @@ class LayerHelper:
     def bias_attr(self):
         return ParamAttr._to_attr(self.kwargs.get("bias_attr"))
 
+    def multiple_param_attr(self, length):
+        """One ParamAttr per input: the given list, or copies of one."""
+        attr = self.param_attr
+        if isinstance(attr, ParamAttr):
+            attr = [attr] + [ParamAttr(**attr.__dict__.copy())
+                             for _ in range(length - 1)]
+        return attr
+
     def input_dtype(self, input_param_name="input"):
         dtype = None
         for v in self.input(input_param_name):
@@ -79,6 +87,14 @@ class LayerHelper:
         attr.initializer(sp, self.startup_program.global_block())
         return main_block.create_parameter(name=name, shape=shape,
                                            dtype=dtype, **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        """Declare ``var`` in the startup program and append its init op
+        there."""
+        sb = self.startup_program.global_block()
+        sv = sb.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
+                           persistable=True)
+        return initializer(sv, sb)
 
     def create_variable_for_type_inference(self, dtype, stop_gradient=False):
         return self.block.create_var(

@@ -1,6 +1,6 @@
-"""Layers of the serving slice: ``fc`` (:125), ``embedding`` (:167),
-``layer_norm`` (:552), ``reshape``, ``transpose`` and ``elementwise_add``
-of ``paddle_tpu/layers/nn.py``. Each emits the same ops, slots, attrs and
+"""Layers ``fc`` (:125), ``embedding`` (:167), ``layer_norm`` (:552),
+``mean`` (:971), ``reshape``, ``transpose`` and ``elementwise_add`` of
+``paddle_tpu/layers/nn.py``. Each emits the same ops, slots, attrs and
 parameter names as its JAX counterpart."""
 from __future__ import annotations
 
@@ -9,31 +9,35 @@ import math
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "layer_norm", "reshape", "transpose",
+__all__ = ["fc", "embedding", "layer_norm", "mean", "reshape", "transpose",
            "elementwise_add"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """Fully connected: ``mul`` + bias ``elementwise_add`` + activation.
-    One input only; the multi-input form needs ``sum`` (a later slice)."""
+    """Fully connected: ``mul`` per input, ``sum`` of several, bias
+    ``elementwise_add``, activation."""
     helper = LayerHelper("fc", input=input, param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name)
     dtype = helper.input_dtype()
     inputs = helper.input()
-    if len(inputs) != 1:
-        raise NotImplementedError(
-            "fc over %d inputs needs the `sum` op, not yet ported "
-            "(ROADMAP.md, queue 1)" % len(inputs))
-    inp = inputs[0]
-    w = helper.create_parameter(
-        attr=helper.param_attr,
-        shape=[math.prod(inp.shape[num_flatten_dims:]), size], dtype=dtype)
-    pre_bias = helper.create_variable_for_type_inference(dtype)
-    helper.append_op("mul", inputs={"X": [inp], "Y": [w]},
-                     outputs={"Out": [pre_bias]},
-                     attrs={"x_num_col_dims": num_flatten_dims,
-                            "y_num_col_dims": 1})
+    mul_results = []
+    for inp, attr in zip(inputs, helper.multiple_param_attr(len(inputs))):
+        w = helper.create_parameter(
+            attr=attr, shape=[math.prod(inp.shape[num_flatten_dims:]), size],
+            dtype=dtype)
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op("mul", inputs={"X": [inp], "Y": [w]},
+                         outputs={"Out": [tmp]},
+                         attrs={"x_num_col_dims": num_flatten_dims,
+                                "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op("sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]}, attrs={})
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
@@ -83,6 +87,14 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                      attrs={"epsilon": epsilon,
                             "begin_norm_axis": begin_norm_axis})
     return helper.append_activation(out)
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mean", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={})
+    return out
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False,

@@ -1,2 +1,3 @@
 """Models of the port, built from its layers."""
+from . import gpt  # noqa: F401
 from . import transformer  # noqa: F401

@@ -3,6 +3,9 @@
 from . import activation_ops  # noqa: F401
 from . import elementwise_ops  # noqa: F401
 from . import fused_ops  # noqa: F401
+from . import loss_ops  # noqa: F401
+from . import math_ops  # noqa: F401
 from . import matmul_ops  # noqa: F401
 from . import norm_ops  # noqa: F401
+from . import optimizer_ops  # noqa: F401
 from . import tensor_ops  # noqa: F401

@@ -1,0 +1,46 @@
+"""``softmax_with_cross_entropy`` (counterpart of
+``paddle_tpu/ops/loss_ops.py:64``): the numerically stable form, log-softmax
+over ``axis`` then the label's entry, with the same slots and attrs. Hard
+labels equal to ``ignore_index`` give a loss of 0; soft labels take the
+full cross entropy. Its grad is the auto-VJP op."""
+from __future__ import annotations
+
+import torch
+
+from ..core.registry import In, Out, register_op
+
+
+def _label_xent(logp, label, ignore_index=-100, soft=False):
+    if soft:
+        return -(label * logp).sum(dim=-1, keepdim=True)
+    lbl = label
+    if lbl.dim() == logp.dim() and lbl.shape[-1] == 1:
+        lbl = lbl.squeeze(-1)
+    keep = (lbl != ignore_index)[..., None]
+    idx = torch.where(keep[..., 0], lbl, torch.zeros_like(lbl))
+    picked = torch.gather(logp, -1, idx[..., None].long())
+    return torch.where(keep, -picked, torch.zeros_like(picked))
+
+
+@register_op(
+    "softmax_with_cross_entropy",
+    inputs=[In("Logits"), In("Label", no_grad=True)],
+    outputs=[Out("Softmax"), Out("Loss")],
+    attrs={"soft_label": False, "ignore_index": -100,
+           "numeric_stable_mode": True, "axis": -1},
+)
+def _softmax_with_cross_entropy(ins, attrs):
+    logits, label = ins["Logits"], ins["Label"]
+    axis = attrs.get("axis", -1)
+    soft = attrs.get("soft_label", False)
+    ignore = attrs.get("ignore_index", -100)
+    logp = torch.log_softmax(logits, dim=axis)
+    softmax = torch.exp(logp)
+    if axis not in (-1, logits.dim() - 1):
+        # move the class axis last for the gather, then back
+        lbl = label.movedim(axis, -1) if soft else label
+        loss = _label_xent(logp.movedim(axis, -1), lbl, ignore, soft)
+        loss = loss.movedim(-1, axis)
+    else:
+        loss = _label_xent(logp, label, ignore, soft)
+    return {"Softmax": softmax, "Loss": loss}

@@ -2,7 +2,9 @@
 
 Counterparts of ``fill_constant`` (:31), ``uniform_random`` (:69),
 ``reshape2`` (:224), ``transpose2`` (:248) and ``lookup_table`` (:680) in
-``paddle_tpu/ops/tensor_ops.py``, with the same slots and attrs. Creation
+``paddle_tpu/ops/tensor_ops.py``, with the same slots and attrs, and of
+``lookup_table``'s grad maker and dense ``lookup_table_grad`` (:631-677),
+whose scatter-add becomes ``index_add_``. Creation
 ops build on the executor's device (``DEVICE_ATTR``); ``uniform_random``
 draws from the seeded ``torch.Generator`` the executor hands it
 (``GENERATOR_ATTR``), so the numbers differ from ``jax.random``'s but the
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..core import dtypes as _dt
+from ..backward import bind_partial_grad
 from ..core.registry import DEVICE_ATTR, GENERATOR_ATTR, In, Out, register_op
 
 
@@ -23,6 +26,7 @@ from ..core.registry import DEVICE_ATTR, GENERATOR_ATTR, In, Out, register_op
     outputs=[Out("Out")],
     attrs={"shape": [], "dtype": 5, "value": 0.0, "force_cpu": False,
            "str_value": ""},
+    grad=None,
 )
 def _fill_constant(ins, attrs):
     dt = _dt.to_torch_dtype(attrs["dtype"])
@@ -42,6 +46,7 @@ def _fill_constant(ins, attrs):
     inputs=[In("ShapeTensor", dispensable=True, no_grad=True)],
     outputs=[Out("Out")],
     attrs={"shape": [], "min": -1.0, "max": 1.0, "seed": 0, "dtype": 5},
+    grad=None,
     needs_rng=True,
 )
 def _uniform_random(ins, attrs):
@@ -92,12 +97,68 @@ def _transpose2(ins, attrs):
     return {"Out": x.permute(*attrs["axis"]), "XShape": _xshape(x)}
 
 
+def _wrap_ids(ids, rows):
+    """Ids with [-V, 0) counted from the end, and where they fall in
+    [0, V)."""
+    wrapped = torch.where(ids < 0, ids + rows, ids)
+    return wrapped, (wrapped >= 0) & (wrapped < rows)
+
+
+def _lookup_table_grad_maker(block, op, pending, finalize):
+    """Emit the dense ``lookup_table_grad`` op for W (the embedding's
+    ``is_sparse`` form, SelectedRows grads, comes with a later slice)."""
+    og = finalize(op.output("Out")[0])
+    if og is None:
+        return
+    if op.attrs.get("is_sparse"):
+        raise NotImplementedError(
+            "embedding(is_sparse=True) grads (SelectedRows) are not yet "
+            "ported (ROADMAP.md, queue 1)")
+    w = op.input("W")[0]
+    gname = bind_partial_grad(block, pending, w)
+    block.append_op(
+        "lookup_table_grad",
+        {"W": [w], "Ids": [op.input("Ids")[0]], "Out@GRAD": [og]},
+        {"W@GRAD": [gname]},
+        {"padding_idx": op.attrs.get("padding_idx", -1), "is_v2": False},
+        infer_shape=False)
+
+
+@register_op(
+    "lookup_table_grad",
+    inputs=[In("W", no_grad=True), In("Ids", no_grad=True),
+            In("Out@GRAD", no_grad=True)],
+    outputs=[Out("W@GRAD")],
+    attrs={"padding_idx": -1, "is_v2": False},
+    grad=None,
+)
+def _lookup_table_grad(ins, attrs):
+    """dW: the rows of Out@GRAD summed into the rows of W they were read
+    from (``index_add_``, which on the card sums in no fixed order).
+    Rows read at ``padding_idx`` contribute nothing, nor do ids outside
+    [-V, V), as JAX's scatter drops them."""
+    w, ids, og = ins["W"], ins["Ids"], ins["Out@GRAD"]
+    if not attrs.get("is_v2") and ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    rows = w.shape[0]
+    wrapped, keep = _wrap_ids(ids, rows)
+    pad = attrs.get("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        keep = keep & (ids != pad)
+    flat = (og.to(w.dtype) * keep[..., None].to(w.dtype)).reshape(
+        -1, w.shape[-1])
+    g = torch.zeros_like(w)
+    g.index_add_(0, wrapped.clamp(0, rows - 1).reshape(-1), flat)
+    return {"W@GRAD": g}
+
+
 @register_op(
     "lookup_table",
     inputs=[In("W"), In("Ids", no_grad=True)],
     outputs=[Out("Out")],
     attrs={"padding_idx": -1, "is_sparse": False, "is_distributed": False,
            "remote_prefetch": False},
+    grad=_lookup_table_grad_maker,
 )
 def _lookup_table(ins, attrs):
     """Rows of W at Ids (a trailing Ids dim of 1 is dropped). Rows at
@@ -108,8 +169,7 @@ def _lookup_table(ins, attrs):
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
     rows = w.shape[0]
-    wrapped = torch.where(ids < 0, ids + rows, ids)
-    in_range = (wrapped >= 0) & (wrapped < rows)
+    wrapped, in_range = _wrap_ids(ids, rows)
     out = torch.nn.functional.embedding(wrapped.clamp(0, rows - 1), w)
     out = torch.where(in_range[..., None], out,
                       torch.full_like(out, float("nan")))

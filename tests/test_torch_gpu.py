@@ -7,7 +7,13 @@ a host without a CUDA device. On the card:
 
 Kernels are held against their plain PyTorch versions on the same card
 inputs: float32 within 2e-5 (float32 sums in another order), bfloat16 O
-within 2e-2 (two bfloat16 rounding steps near 1), LSE within 2e-5.
+within 2e-2 (two bfloat16 rounding steps near 1), LSE within 2e-5. The
+backward kernels (K2/K3): dQ, dK, dV within 2e-5 of their scale in
+float32, 1e-2 of their scale in bfloat16 (one rounding step of 2^-8
+relative, twice). The fused optimizer kernel (K4) is bitwise equal to its
+plain version. The narrow gpt twin trains three steps on the card and on
+the CPU with losses within 1e-4 relative (float32, TF32 off; the card's
+products and embedding grad sum in another order).
 """
 import numpy as np
 import pytest
@@ -15,8 +21,9 @@ import torch
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
-from paddle_tpu_torch.models import transformer
+from paddle_tpu_torch.models import gpt, transformer
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
 from paddle_tpu_torch.ops.cuda import support
 
 pytestmark = pytest.mark.gpu
@@ -111,3 +118,122 @@ def test_small_encoder_served_on_the_card_matches_the_cpu(cuda, tmp_path):
     cfg.disable_gpu()
     (want,) = create_paddle_predictor(cfg).run(feed)
     np.testing.assert_allclose(got.data, want.data, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", [128, 100])
+def test_flash_backward_kernels_match_plain_version(cuda, D, dtype, causal,
+                                                    S):
+    g = torch.Generator().manual_seed(S + D + 1)
+    B, H = 4, 3
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g).to(dtype).to(cuda)
+                   for _ in range(4))
+    lens = torch.tensor([0, 1, S // 2, S], dtype=torch.int32, device=cuda)
+    o, lse = fa.flash_attention(q, k, v, causal, None, lens)
+    before = (fa.DQ_LAUNCHES.value, fa.DKV_LAUNCHES.value)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal, None,
+                                      lens)
+    torch.cuda.synchronize()
+    assert (fa.DQ_LAUNCHES.value, fa.DKV_LAUNCHES.value) == (
+        before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, causal,
+                                                 None, lens)
+    rel = 2e-5 if dtype == torch.float32 else 1e-2
+    for a, b in zip(got, want):
+        scale = max(float(b.float().abs().max()), 1.0)
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=rel * scale)
+        assert (a[0] == 0).all()  # length 0: no key seen, no grad
+    assert (got[1][1, :, 1:] == 0).all() and (got[2][1, :, 1:] == 0).all()
+
+
+def test_autograd_function_launches_the_backward_kernels(cuda):
+    q, k, v = (torch.randn(2, 2, 64, 64, device=cuda, requires_grad=True)
+               for _ in range(3))
+    before = {n: support.COUNTERS[n].value for n in (
+        "flash_attention_forward", "flash_attention_backward_dq",
+        "flash_attention_backward_dkv")}
+    out = fa.FlashAttentionFunction.apply(q, k, v, None, True, None)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    after = {n: support.COUNTERS[n].value - before[n] for n in before}
+    assert after == dict.fromkeys(before, 1)
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+@pytest.mark.parametrize("op_type,nesterov", [
+    ("sgd", False), ("momentum", False), ("momentum", True),
+    ("adam", False), ("adamw", False)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_optimizer_kernel_is_bitwise_plain(cuda, op_type, nesterov,
+                                                 offset):
+    """Odd size, and (offset 1) buffers off 16-byte alignment, so both the
+    float4 path and the scalar path run."""
+    n = 100003
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    base = [torch.randn(n + offset, device=cuda, generator=gen)
+            for _ in range(4)]
+    p, g, sa, sb = (b[offset:] for b in base)
+    sb = sb.abs()
+    lr = torch.tensor([1e-3], device=cuda)
+    b1p = torch.tensor([0.81], device=cuda)
+    b2p = torch.tensor([0.998], device=cuda)
+    attrs = {"mu": 0.9, "use_nesterov": nesterov, "beta1": 0.9,
+             "beta2": 0.999, "epsilon": 1e-8, "weight_decay": 0.01}
+    want = fo.fused_optimizer_update_reference(
+        op_type, attrs, p, g, lr.reshape(()), sa, sb, b1p.reshape(()),
+        b2p.reshape(()))
+    before = fo.LAUNCHES.value
+    got = fo.fused_optimizer_update(op_type, attrs, p, g, lr, sa, sb, b1p,
+                                    b2p)
+    torch.cuda.synchronize()
+    assert fo.LAUNCHES.value == before + 1
+    assert got[0] is p  # updated in place
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+def _train_twin(place, init, feeds):
+    main, startup, loss, _ = gpt.build_gpt_long(**TWIN, seed=1)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    if init is None:
+        exe.run(startup, scope=scope)
+        init = {v.name: scope.find_var(v.name).get_tensor().numpy()
+                for v in main.global_block().vars.values() if v.persistable}
+    else:
+        fluid.io.scope_from_numpy(scope, init, place)
+    losses = [float(np.asarray(exe.run(main, feed=f, fetch_list=[loss],
+                                       scope=scope)[0]).reshape(-1)[0])
+              for f in feeds]
+    return init, losses, main
+
+
+# the tests' narrow gpt with 2 heads of 64, the smallest head the
+# kernels take
+TWIN = dict(batch=2, seq_len=32, d_model=128, n_heads=2, n_layers=2,
+            vocab=128)
+
+
+def test_narrow_gpt_trains_on_the_card_as_on_the_cpu(cuda, monkeypatch):
+    monkeypatch.setenv("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    rng = np.random.RandomState(0)
+    feeds = [gpt.random_batch(rng, TWIN["batch"], TWIN["seq_len"],
+                              TWIN["vocab"]) for _ in range(3)]
+    init, cpu_losses, cpu_main = _train_twin(fluid.CPUPlace(), None, feeds)
+    support.reset_launch_counts()
+    _, card_losses, card_main = _train_twin(fluid.CUDAPlace(0), init, feeds)
+    counts = support.launch_counts()
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-4)
+    assert counts["flash_attention_forward"] == 2 * 2 * 3
+    assert counts["flash_attention_backward_dq"] == 2 * 3
+    assert counts["flash_attention_backward_dkv"] == 2 * 3
+    assert counts["fused_optimizer_update"] == 3
+    layouts = [[op.attrs["layout"] for op in m.global_block().ops
+                if op.type == "fused_optimizer"]
+               for m in (cpu_main, card_main)]
+    assert layouts == [["chain"], ["flat"]]
