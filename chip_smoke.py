@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py
 
-Run from the repository root. It drives the port's two main paths at full
-width, serving (BERT-base) and training (gpt_long), and holds each
-hand-written CUDA kernel against its plain PyTorch version on the card.
-Phases, one or more lines each:
+Run from the repository root. It drives the port's three main paths at
+full width, serving (BERT-base), training (gpt_long) and ResNet-50 training,
+and holds each hand-written CUDA kernel against its plain PyTorch version
+on the card. Phases, one or more lines each:
 
 1. card and settings: name and power limit (nvidia-smi), torch version;
-   TF32 off for float32 products;
+   TF32 off for float32 products and for cuDNN;
 2. build and probe: compile every kernel source with nvcc (timed as
    set-up) and hold the probe kernel (K7, x + 1) against its plain version;
 3. K1, flash-attention forward, against its plain version at the serving
@@ -59,9 +59,32 @@ Phases, one or more lines each:
    through CPUPlace() from the same persistables: the losses and the
    first step's grads must agree, and the card run must go through K1,
    K2, K3 and K4;
-9. one JSON line {"kernels": [...]} with each kernel's launches on the
+9. K5, the fused implicit-GEMM conv, against its plain version at the 19
+   distinct shapes of ResNet-50's 44 routed convs at batch 128 (plain
+   convs, as the path runs them) and at epilogue cases (scale/shift,
+   residual, relu; float32 and bfloat16; an odd B*H*W; Cout 128 and 130):
+   largest error against the output's scale; per shape and summed over
+   the 44 convs of one forward, the kernel's time, the plain version's,
+   cuDNN's (F.conv2d on channels-last tensors, TF32 off: a yardstick the
+   port never calls) and the bound;
+10. ResNet-50 training: bench.py's script (NHWC, 224x224, batch 128,
+   class_dim 1000, MomentumOptimizer(0.1, 0.9), float32) with
+   FLAGS_use_pallas_conv=all and PADDLE_TPU_FUSED_OPTIMIZER set, seeded
+   random weights, images and labels: the startup on the card, one
+   warm-up step, then 5 steps on one batch with the launch counts zeroed
+   just before and read just after. The program must hold one
+   fused_optimizer op, every loss must be finite, K5 must run 44 times a
+   step (the conv grads run cuDNN's backward alone) and K4 once; step
+   time, images/s and peak memory, a torch.profiler window over one step,
+   then the same 5 steps with FLAGS_use_pallas_conv=off (every conv on
+   cuDNN) as a yardstick of K5 end to end;
+11. a narrow twin (ResNet-50 NHWC at 64x64, batch 4, class_dim 10, lr
+   1e-3) trained 3 steps on the card and through CPUPlace(), each step
+   from the CPU run's state before it: the losses and the first step's
+   grads must agree, and the card run must launch K5 44 times a step;
+12. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside), error, times and bound;
-10. the last line: {"ok": true, "device": {...}}.
+13. the last line: {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero without the last line. Without a
 CUDA device it exits 2 and prints no result.
@@ -111,6 +134,23 @@ TWIN_RTOL = 1e-4
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 BWD_SHAPE = (2, 16, 4096, 64)   # the training path's attention
 K4_SIZE = 83912704              # the training path's flat Adam buffer
+# ResNet-50 training (bench.py's _build_resnet50 / bench_resnet50), NHWC
+# with every viable conv routed to K5, and its narrow twin
+RESNET_BATCH = 128
+RESNET_STEPS = 5
+RESNET_TWIN = dict(batch=4, image_size=64, class_dim=10, learning_rate=1e-3)
+# K5 vs its plain version, relative to the output's largest magnitude:
+# float32 sums of up to 4608 products in another order (observed ~3e-6);
+# bfloat16 rounds y once (2^-8 relative), twice allowed
+K5_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# ResNet twin, card vs CPU, each step from the same state: the loss (a
+# forward quantity) within 1e-4 relative; the step-1 grads within 0.04
+# relative L2 per tensor, since at this size float32 rounding flips a few
+# ReLU / max-pool decisions whose effect batch norm spreads into every
+# grad. tests/test_torch_resnet_training.py holds the port to the JAX
+# package with the same limit: 2.6 times the largest reading between the
+# packages (0.0154), below what a filter grad 5% too large scores (0.050)
+RESNET_TWIN_GRAD_RELL2 = 0.04
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -597,7 +637,8 @@ K4_ATTRS = {"mu": 0.9, "beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
             "weight_decay": 0.01}
 
 
-def k4_case(fo, op_type, n, nesterov, seed):
+def k4_case(fo, op_type, n, nesterov, seed, lr=1e-4, mu=K4_ATTRS["mu"],
+            phase=6):
     """Run K4 and its plain version on the same card buffers; raise unless
     every output is bitwise equal. Returns the case's buffers."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -605,8 +646,8 @@ def k4_case(fo, op_type, n, nesterov, seed):
                    for _ in range(3))
     sb = torch.randn(n, device="cuda", generator=g).abs()
     lr, b1p, b2p = (torch.tensor([v], device="cuda")
-                    for v in (1e-4, 0.81, 0.998))
-    attrs = dict(K4_ATTRS, use_nesterov=nesterov)
+                    for v in (lr, 0.81, 0.998))
+    attrs = dict(K4_ATTRS, use_nesterov=nesterov, mu=mu)
     want = fo.fused_optimizer_update_reference(
         op_type, attrs, p, grad, lr.reshape(()), sa, sb, b1p.reshape(()),
         b2p.reshape(()))
@@ -619,8 +660,8 @@ def k4_case(fo, op_type, n, nesterov, seed):
             raise RuntimeError(
                 "K4 %s (nesterov=%s, n=%d) is not bitwise equal to its "
                 "plain version" % (op_type, nesterov, n))
-    log("phase 6 K4 %s nesterov=%s n=%d: bitwise equal"
-        % (op_type, nesterov, n))
+    log("phase %d K4 %s nesterov=%s n=%d lr %g mu %g: bitwise equal"
+        % (phase, op_type, nesterov, n, lr.item(), mu))
     return p, grad, sa, sb, lr, b1p, b2p, attrs
 
 
@@ -812,11 +853,349 @@ def phase_twin(fluid, support):
                            "%g" % (rel, grad_rel))
 
 
+# -- phase 9: the fused implicit-GEMM conv (K5) -----------------------------
+
+def resnet_routed_convs(fluid, batch):
+    """[(x shape, w HWIO shape, stride, padding, count)] of the convs that
+    FLAGS_use_pallas_conv=all routes in ResNet-50 NHWC at ``batch``."""
+    from paddle_tpu_torch.models.resnet import build_resnet_train
+    from paddle_tpu_torch.ops.cuda import conv as k5
+
+    main, _, _ = build_resnet_train(batch)
+    block = main.global_block()
+    counts = {}
+    for op in block.ops:
+        if op.type != "conv2d":
+            continue
+        x = tuple(block.var(op.input("Input")[0]).shape)
+        o, i, kh, kw = block.var(op.input("Filter")[0]).shape
+        stride, pad = op.attrs["strides"][0], op.attrs["paddings"][0]
+        if k5.route_pallas("all", x, (kh, kw, i, o), stride,
+                           op.attrs["groups"], op.attrs["dilations"],
+                           op.attrs["data_format"]):
+            key = (x, (kh, kw, i, o), stride, pad)
+            counts[key] = counts.get(key, 0) + 1
+    return [k + (n,) for k, n in counts.items()]
+
+
+def k5_inputs(x_shape, w_shape, stride, pad, dtype, epilogue, seed):
+    g = torch.Generator().manual_seed(seed)
+    KH, KW, Cin, Cout = w_shape
+    x = torch.randn(x_shape, generator=g).to(dtype).cuda()
+    w = (torch.randn(w_shape, generator=g)
+         * (2.0 / (KH * KW * Cin)) ** 0.5).to(dtype).cuda()
+    if not epilogue:
+        return x, w, {}
+    B, H, W, _ = x_shape
+    out = (B, (H + 2 * pad - KH) // stride + 1,
+           (W + 2 * pad - KW) // stride + 1, Cout)
+    return x, w, {"scale": (torch.rand(Cout, generator=g) + 0.5).cuda(),
+                  "shift": torch.randn(Cout, generator=g).cuda(),
+                  "residual": torch.randn(out, generator=g).to(dtype).cuda(),
+                  "relu": True}
+
+
+def k5_check(k5, x_shape, w_shape, stride, pad, dtype, epilogue, seed):
+    x, w, kw = k5_inputs(x_shape, w_shape, stride, pad, dtype, epilogue,
+                         seed)
+    y = k5.conv2d_bn_act(x, w, stride=stride, padding=pad, **kw)
+    torch.cuda.synchronize()
+    ref = k5.conv2d_bn_act_reference(x, w, stride=stride, padding=pad, **kw)
+    err = (y.float() - ref.float()).abs().max().item()
+    rel = err / max(ref.float().abs().max().item(), 1e-30)
+    if not (rel <= K5_TOL[dtype] and bool(torch.isfinite(y.float()).all())):
+        raise RuntimeError(
+            "K5 disagrees with its plain version (x %s, w %s, stride %d, pad "
+            "%d, %s, epilogue %s): error %g, %g of the output's scale (tol "
+            "%g)" % (x_shape, w_shape, stride, pad, dtype, epilogue, err,
+                     rel, K5_TOL[dtype]))
+    return x, w, kw, y, err, rel
+
+
+def k5_work(x_shape, w_shape, stride, pad):
+    """(bytes, FLOPs) of one plain float32 conv: x, w read once, y
+    written once; 2 FLOPs per multiply-add."""
+    B, H, W, Cin = x_shape
+    KH, KW, _, Cout = w_shape
+    Ho = (H + 2 * pad - KH) // stride + 1
+    Wo = (W + 2 * pad - KW) // stride + 1
+    nbytes = 4 * (B * H * W * Cin + KH * KW * Cin * Cout + B * Ho * Wo * Cout)
+    return nbytes, 2.0 * B * Ho * Wo * Cout * KH * KW * Cin
+
+
+def phase_conv(fluid, k5):
+    F = torch.nn.functional
+    shapes = resnet_routed_convs(fluid, RESNET_BATCH)
+    n_convs = sum(c[-1] for c in shapes)
+    if len(shapes) != 19 or n_convs != 44:
+        raise RuntimeError("expected 44 routed convs of 19 shapes, got %d of "
+                           "%d" % (n_convs, len(shapes)))
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    tot_bytes = tot_flops = 0.0
+    errs, rels = [], []
+    for i, (xs, ws, stride, pad, count) in enumerate(shapes):
+        x, w, _, y, err, rel = k5_check(k5, xs, ws, stride, pad,
+                                        torch.float32, False, seed=50 + i)
+        errs.append(err)
+        rels.append(rel)
+        xc = x.permute(0, 3, 1, 2)                 # channels-last views
+        wc = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        row = {"x": list(xs), "w_hwio": list(ws), "stride": stride,
+               "pad": pad, "count": count, "err": err, "rel_err": rel}
+        row["ms"] = time_ms(lambda: k5.conv2d_bn_act(
+            x, w, stride=stride, padding=pad), iters=20, warmup=3)
+        row["plain_ms"] = time_ms(lambda: k5.conv2d_bn_act_reference(
+            x, w, stride=stride, padding=pad), iters=5, warmup=1)
+        row["library_ms"] = time_ms(lambda: F.conv2d(
+            xc, wc, None, stride, pad), iters=20, warmup=3)
+        nbytes, flops = k5_work(xs, ws, stride, pad)
+        row["bound_ms"], by = bound(nbytes, flops, PEAK_FLOPS[torch.float32])
+        row["bound_by"] = by
+        row["tflops"] = flops / row["ms"] / 1e9
+        for k in tot:
+            tot[k] += count * row[k]
+        tot_bytes += count * nbytes
+        tot_flops += count * flops
+        log("phase 9 K5 %s" % json.dumps(row))
+        del x, w, y, xc, wc
+    torch.cuda.empty_cache()
+    # the bound of the whole forward's routed work, from its summed bytes
+    # and FLOPs
+    bound_ms, bound_by = bound(tot_bytes, tot_flops,
+                               PEAK_FLOPS[torch.float32])
+    # the epilogue and the edges: scale/shift, residual, relu; bf16; an
+    # odd B*H*W; Cout 128 (one column tile) and 130 (the scalar path)
+    cases = [((3, 13, 13, 128), (3, 3, 128, 128), 1, 1),
+             ((3, 13, 13, 256), (1, 1, 256, 130), 2, 0),
+             ((2, 28, 28, 512), (1, 1, 512, 2048), 1, 0),
+             ((5, 7, 9, 128), (3, 3, 128, 64), 2, 1)]
+    by_dtype, abs_by_dtype = {}, {"float32": max(errs)}
+    for j, (xs, ws, stride, pad) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            _, _, _, _, err, rel = k5_check(k5, xs, ws, stride, pad, dtype,
+                                            True, seed=80 + j)
+            key = str(dtype).replace("torch.", "")
+            by_dtype[key] = max(by_dtype.get(key, 0.0), rel)
+            abs_by_dtype[key] = max(abs_by_dtype.get(key, 0.0), err)
+            errs.append(err)
+            log("phase 9 K5 epilogue x %s w %s stride %d pad %d %s: error "
+                "%g, %g of scale" % (xs, ws, stride, pad, key, err, rel))
+    log("phase 9 K5 over the %d routed convs of one forward (batch %d): "
+        "%.3f ms (plain %.3f, cuDNN %.3f, bound %.3f ms by %s: %.4g GB, "
+        "%.4g GFLOP); card %s"
+        % (n_convs, RESNET_BATCH, tot["ms"], tot["plain_ms"],
+           tot["library_ms"], bound_ms, bound_by, tot_bytes / 1e9,
+           tot_flops / 1e9, card_line()))
+    return {"name": "conv2d_bn_act", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/conv2d_bn_act.cu",
+            "replaces": "paddle_tpu/ops/pallas/conv.py:97",
+            "max_abs_err": max(errs), "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": tot["library_ms"],
+            "max_abs_err_by_dtype": abs_by_dtype,
+            "rel_err_max": max(rels), "rel_err_max_by_dtype": by_dtype,
+            "covers": "the %d routed convs of one ResNet-50 NHWC forward at "
+                      "batch %d, float32, summed" % (n_convs, RESNET_BATCH),
+            "library_covers": "F.conv2d (cuDNN) on channels-last tensors, "
+                              "TF32 off"}
+
+
+# -- phase 10: ResNet-50 training -------------------------------------------
+
+def phase_resnet(fluid, support, fo):
+    from paddle_tpu_torch.models.resnet import build_resnet_train, random_batch
+
+    os.environ.setdefault("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    fluid.set_flags({"FLAGS_use_pallas_conv": "all"})
+    np.random.seed(SEED + 4)   # the executor's RNG seed comes from numpy
+    t0 = time.perf_counter()
+    main, startup, loss = build_resnet_train(RESNET_BATCH)
+    n_built = len(main.global_block().ops)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters()
+                   if p.trainable)
+    exe = fluid.Executor()  # the card
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = random_batch(np.random.RandomState(SEED + 5), RESNET_BATCH)
+
+    def step():
+        (out,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                         return_numpy=False)
+        return out
+
+    first = float(step().numpy().reshape(-1)[0])  # warm-up (and rewrite)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    ops = [op.type for op in main.global_block().ops]
+    if ops.count("fused_optimizer") != 1 or "momentum" in ops:
+        raise RuntimeError("expected one fused_optimizer op and no momentum, "
+                           "got %d and %d" % (ops.count("fused_optimizer"),
+                                              ops.count("momentum")))
+
+    def run_steps():
+        torch.cuda.reset_peak_memory_stats()
+        support.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = [step() for _ in range(RESNET_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (support.launch_counts(), wall,
+                [float(o.numpy().reshape(-1)[0]) for o in outs],
+                torch.cuda.max_memory_allocated())
+
+    counts, wall, losses, peak = run_steps()
+    log("phase 10 ResNet-50 NHWC float32, batch %d: %d parameters, %d ops "
+        "as built, %d after the fused-optimizer rewrite, setup (build, "
+        "startup, warm-up step) %.2f s, warm-up loss %.6f"
+        % (RESNET_BATCH, n_params, n_built, len(ops), t_setup, first))
+    log("phase 10 losses over %d steps on one batch (lr 0.1, reported, not "
+        "gated): %s" % (RESNET_STEPS, ", ".join("%.6f" % x for x in losses)))
+    if not np.isfinite(losses).all():
+        raise RuntimeError("ResNet-50 loss not finite: %s" % losses)
+    want = {"conv2d_bn_act": 44 * RESNET_STEPS,
+            "fused_optimizer_update": RESNET_STEPS}
+    bad = {k: (counts.get(k), n) for k, n in want.items()
+           if counts.get(k) != n}
+    if bad:
+        raise RuntimeError("ResNet launches (got, want): %s" % bad)
+    step_ms = wall / RESNET_STEPS * 1e3
+    log("phase 10 %d steps: step %.3f ms, %.2f images/s, "
+        "max_memory_allocated %d bytes; launches %s; card %s"
+        % (RESNET_STEPS, step_ms, RESNET_BATCH / wall * RESNET_STEPS, peak,
+           json.dumps(counts), card_line()))
+    wall_ms, busy_ms, kernels = profile_step(step)
+    log("phase 10 profile, one step: wall %.3f ms, device busy %.3f ms, "
+        "idle share %s" % (wall_ms, busy_ms,
+                           "%.3f" % (1 - busy_ms / wall_ms) if busy_ms else
+                           "not measured (no device time in the trace)"))
+    for t_ms, count, name in kernels[:12]:
+        log("phase 10 profile   %9.3f ms  %5d x  %s"
+            % (t_ms, count, name[:110]))
+    # the yardstick: every conv on cuDNN, same program, same batch
+    fluid.set_flags({"FLAGS_use_pallas_conv": "off"})
+    try:
+        off_counts, off_wall, off_losses, off_peak = run_steps()
+    finally:
+        fluid.set_flags({"FLAGS_use_pallas_conv": "all"})
+    if off_counts.get("conv2d_bn_act") or not np.isfinite(off_losses).all():
+        raise RuntimeError("FLAGS_use_pallas_conv=off run: K5 launched %s, "
+                           "losses %s" % (off_counts.get("conv2d_bn_act"),
+                                          off_losses))
+    log("phase 10 yardstick, FLAGS_use_pallas_conv=off (all 53 convs on "
+        "cuDNN), %d more steps: step %.3f ms, %.2f images/s, "
+        "max_memory_allocated %d bytes; losses %s"
+        % (RESNET_STEPS, off_wall / RESNET_STEPS * 1e3,
+           RESNET_BATCH / off_wall * RESNET_STEPS, off_peak,
+           ", ".join("%.6f" % x for x in off_losses)))
+    del exe, scope
+    torch.cuda.empty_cache()
+    return counts, k4_at_resnet(fo, main)
+
+
+def k4_at_resnet(fo, main):
+    """K4's momentum case against its plain version (bitwise) at the flat
+    size and attrs of the path's one fused_optimizer op, and its time."""
+    (op,) = [op for op in main.global_block().ops
+             if op.type == "fused_optimizer"]
+    n, mu = op.attrs["padded_size"], op.attrs["mu"]
+    if op.attrs["op_type"] != "momentum" or op.attrs["use_nesterov"]:
+        raise RuntimeError("expected plain momentum, got %s" % op.attrs)
+    p, grad, v, _, lr, _, _, attrs = k4_case(
+        fo, "momentum", n, False, seed=42, lr=0.1, mu=mu, phase=10)
+    ms = time_ms(lambda: fo.fused_optimizer_update(
+        "momentum", attrs, p, grad, lr, v), iters=20, warmup=3)
+    plain_ms = time_ms(lambda: fo.fused_optimizer_update_reference(
+        "momentum", attrs, p, grad, lr.reshape(()), v), iters=5, warmup=1)
+    # param and velocity read and written, grad read: 5 float32 streams
+    b_ms, b_by = bound(5 * 4 * n, 4 * n, PEAK_FLOPS[torch.float32])
+    log("phase 10 K4 momentum over %d elements (lr 0.1, mu %g): %.4f ms "
+        "(plain %.4f, bound %.4f ms by %s)" % (n, mu, ms, plain_ms, b_ms,
+                                               b_by))
+    del p, grad, v
+    torch.cuda.empty_cache()
+    return {"n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": 0.0}
+
+
+# -- phase 11: the ResNet narrow twin, card against CPU ---------------------
+
+def phase_resnet_twin(fluid, support):
+    from paddle_tpu_torch.models.resnet import build_resnet_train, random_batch
+
+    cfg = RESNET_TWIN
+    rng = np.random.RandomState(SEED + 6)
+    feeds = [random_batch(rng, cfg["batch"], cfg["image_size"],
+                          cfg["class_dim"]) for _ in range(TWIN_STEPS)]
+
+    def build():
+        return build_resnet_train(cfg["batch"], cfg["image_size"],
+                                  cfg["class_dim"],
+                                  learning_rate=cfg["learning_rate"],
+                                  seed=SEED + 7)
+
+    def state(main, scope):
+        return {v.name: scope.find_var(v.name).get_tensor().numpy()
+                for v in main.global_block().vars.values()
+                if v.persistable and scope.find_var(v.name) is not None
+                and scope.find_var(v.name).is_initialized()}
+
+    fluid.set_flags({"FLAGS_use_pallas_conv": "all"})
+    main, startup, loss = build()
+    grad_names = [p.name + "@GRAD" for p in main.all_parameters()
+                  if p.trainable]
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    states, cpu_losses, cpu_grads = [state(main, scope)], [], None
+    for i, feed in enumerate(feeds):
+        res = exe.run(main, feed=feed, scope=scope,
+                      fetch_list=[loss] + (grad_names if i == 0 else []))
+        cpu_losses.append(float(np.asarray(res[0]).reshape(-1)[0]))
+        if i == 0:
+            cpu_grads = res[1:]
+        states.append(state(main, scope))
+    main, _, loss = build()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    support.reset_launch_counts()
+    card_losses, card_grads = [], None
+    for i, feed in enumerate(feeds):
+        fluid.io.scope_from_numpy(scope, states[i], fluid.CUDAPlace(0))
+        res = exe.run(main, feed=feed, scope=scope,
+                      fetch_list=[loss] + (grad_names if i == 0 else []))
+        card_losses.append(float(np.asarray(res[0]).reshape(-1)[0]))
+        if i == 0:
+            card_grads = res[1:]
+    counts = support.launch_counts()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    rel_l2 = [float(np.linalg.norm(np.asarray(a, np.float64)
+                                   - np.asarray(b, np.float64))
+                    / max(np.linalg.norm(np.asarray(b, np.float64)), 1e-30))
+              for a, b in zip(card_grads, cpu_grads)]
+    log("phase 11 ResNet-50 twin %s, %d steps, each from the CPU run's "
+        "state: card losses %s, CPU losses %s, largest relative difference "
+        "%.3g (limit %g); %d step-1 grads, relative L2 median %.3g, max "
+        "%.3g (limit %g); card launches %s"
+        % (json.dumps(cfg), TWIN_STEPS, card_losses, cpu_losses, rel,
+           TWIN_RTOL, len(rel_l2), float(np.median(rel_l2)), max(rel_l2),
+           RESNET_TWIN_GRAD_RELL2, json.dumps(counts)))
+    if counts.get("conv2d_bn_act") != 44 * TWIN_STEPS or \
+            counts.get("fused_optimizer_update") != TWIN_STEPS:
+        raise RuntimeError("the ResNet twin's card launches %s, want K5 %d "
+                           "and K4 %d" % (counts, 44 * TWIN_STEPS,
+                                          TWIN_STEPS))
+    if not (rel <= TWIN_RTOL and max(rel_l2) <= RESNET_TWIN_GRAD_RELL2):
+        raise RuntimeError("card and CPU ResNet training disagree: loss %g, "
+                           "grads %g" % (rel, max(rel_l2)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
         return 2
     import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.cuda import conv as k5
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
     from paddle_tpu_torch.ops.cuda import support
@@ -835,10 +1214,14 @@ def main() -> int:
     k4 = phase_fused_optimizer(fo)
     training = phase_training(fluid, support)
     phase_twin(fluid, support)
-    kernels = (probe, flash, k2, k3, k4)
+    conv = phase_conv(fluid, k5)
+    resnet, k4["resnet_momentum"] = phase_resnet(fluid, support, fo)
+    phase_resnet_twin(fluid, support)
+    kernels = (probe, flash, k2, k3, k4, conv)
     for kern in kernels:
         by_path = {"serving": serving.get(kern["name"], 0),
-                   "training": training.get(kern["name"], 0)}
+                   "training": training.get(kern["name"], 0),
+                   "resnet": resnet.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

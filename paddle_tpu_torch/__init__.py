@@ -14,6 +14,7 @@ ROADMAP.md lists what is ported and what is still to come.
 from . import framework  # noqa: F401
 from .core import (CPUPlace, CUDAPlace, LoDTensor, Scope,  # noqa: F401
                    TPUPlace, global_scope, scope_guard)
+from .core.flags import get_flags, set_flags  # noqa: F401
 from .executor import Executor  # noqa: F401
 from .framework import (Parameter, Program, Variable,  # noqa: F401
                         default_main_program, default_startup_program,

@@ -15,9 +15,11 @@ the same ``fn`` on ``meta`` tensors.
 Gradients, as in the JAX package: an op registered with ``grad="auto"``
 (the default) gets a ``<type>_grad`` op that re-runs the forward ``fn``
 and differentiates it (``_vjp_grad_impl``: ``torch.autograd.grad`` on
-fresh leaves where JAX calls ``jax.vjp``); ``grad=None`` ops are never
-differentiated; a callable ``grad`` is a grad maker that emits the
-backward ops itself.
+fresh leaves where JAX calls ``jax.vjp``), or, where the op passes
+``grad_fn``, runs that hand-written function over the same slots instead
+(``conv2d``: its backward convs alone, with no forward re-run);
+``grad=None`` ops are never differentiated; a callable ``grad`` is a grad
+maker that emits the backward ops itself.
 """
 from __future__ import annotations
 
@@ -124,16 +126,17 @@ def _ensure_ops_loaded():
 
 def register_op(type: str, inputs: Sequence[Slot], outputs: Sequence[Slot],
                 attrs: Optional[Dict] = None, grad: object = "auto",
-                needs_rng: bool = False):
+                needs_rng: bool = False, grad_fn: Optional[Callable] = None):
     """Decorator: register ``fn(ins, attrs) -> outs`` as an operator, and
-    its auto-VJP ``<type>_grad`` op when ``grad == "auto"``."""
+    its ``<type>_grad`` op when ``grad == "auto"``: the auto-VJP, or
+    ``grad_fn(ins, attrs)`` over the same slots when given."""
 
     def deco(fn):
         info = OpInfo(type, fn, inputs, outputs, attrs, grad=grad,
                       needs_rng=needs_rng)
         OpInfoMap.instance().insert(info)
         if grad == "auto":
-            _register_auto_grad_for(info)
+            _register_auto_grad_for(info, grad_fn)
         return fn
 
     return deco
@@ -141,12 +144,14 @@ def register_op(type: str, inputs: Sequence[Slot], outputs: Sequence[Slot],
 
 # -- the auto-VJP grad op ------------------------------------------------------
 
-# op types whose fn is a pure auto-VJP (differentiable again: the substrate
-# for grad-of-grad registration on demand)
+# grad op types whose fn torch can differentiate again, the auto-VJP or a
+# ``grad_fn`` of differentiable torch ops: the substrate for grad-of-grad
+# registration on demand
 _AUTO_VJP_TYPES: set = set()
 
 
-def _register_auto_grad_for(info: OpInfo):
+def _register_auto_grad_for(info: OpInfo,
+                            grad_fn: Optional[Callable] = None):
     grad_type = info.type + "_grad"
     if OpInfoMap.instance()._map.get(grad_type) is not None:
         return
@@ -158,11 +163,11 @@ def _register_auto_grad_for(info: OpInfo):
     grad_outputs = [Slot(s.name + GRAD_SUFFIX, duplicable=s.duplicable,
                          dispensable=True) for s in info.inputs]
 
-    def grad_fn(ins, attrs, _info=info):
+    def auto_vjp(ins, attrs, _info=info):
         return _vjp_grad_impl(_info, ins, attrs)
 
     OpInfoMap.instance().insert(OpInfo(
-        grad_type, grad_fn, grad_inputs, grad_outputs,
+        grad_type, grad_fn or auto_vjp, grad_inputs, grad_outputs,
         attrs=dict(info.attrs), grad=None, needs_rng=info.needs_rng))
     _AUTO_VJP_TYPES.add(grad_type)
 

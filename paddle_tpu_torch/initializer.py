@@ -1,8 +1,10 @@
-"""Parameter initializers used by ``fc``, ``embedding`` and ``layer_norm``.
+"""Parameter initializers used by the ported layers.
 
-Counterpart of the ``Constant``, ``Uniform`` and ``Xavier`` initializers of
-``paddle_tpu/initializer.py``: each appends the same init op with the same
-attrs to the startup program block that holds the parameter.
+Counterpart of the ``Constant``, ``Uniform``, ``Normal`` and ``Xavier``
+initializers of ``paddle_tpu/initializer.py``: each appends the same init
+op with the same attrs to the startup program block that holds the
+parameter. ``Normal`` (``gaussian_random``) is ``conv2d``'s default weight
+init, ``Normal(0, sqrt(2 / fan_in))``.
 """
 from __future__ import annotations
 
@@ -48,6 +50,21 @@ class UniformInitializer(Initializer):
             infer_shape=False)
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self._mean, self._std, self._seed_ = loc, scale, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            "gaussian_random",
+            outputs={"Out": var},
+            attrs={"shape": list(var.shape), "mean": self._mean,
+                   "std": self._std,
+                   "seed": self._seed_ or self._seed(block),
+                   "dtype": _dt.dtype_to_enum(var.dtype)},
+            infer_shape=False)
+
+
 def _fan_in_out(var):
     shape = var.shape
     if len(shape) < 2:
@@ -59,20 +76,19 @@ def _fan_in_out(var):
 
 
 class XavierInitializer(Initializer):
-    """Uniform Xavier (the default weight initializer). The normal form
-    needs ``gaussian_random``, which comes with a later slice."""
+    """Xavier: uniform (the default weight initializer) or normal."""
 
     def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
-        if not uniform:
-            raise NotImplementedError(
-                "XavierInitializer(uniform=False) needs gaussian_random, "
-                "not yet ported (ROADMAP.md, queue 1)")
-        self._fan_in, self._fan_out, self._seed_ = fan_in, fan_out, seed
+        self._uniform, self._fan_in, self._fan_out, self._seed_ = (
+            uniform, fan_in, fan_out, seed)
 
     def __call__(self, var, block):
         fi, fo = _fan_in_out(var)
         fan_in = self._fan_in if self._fan_in is not None else fi
         fan_out = self._fan_out if self._fan_out is not None else fo
-        limit = math.sqrt(6.0 / (fan_in + fan_out))
-        return UniformInitializer(-limit, limit, self._seed_)(var, block)
+        if self._uniform:
+            limit = math.sqrt(6.0 / (fan_in + fan_out))
+            return UniformInitializer(-limit, limit, self._seed_)(var, block)
+        std = math.sqrt(2.0 / (fan_in + fan_out))
+        return NormalInitializer(0.0, std, self._seed_)(var, block)
 

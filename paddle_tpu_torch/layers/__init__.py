@@ -1,12 +1,12 @@
 """``layers`` — the graph-building API of the ported slices."""
 from .extras import flash_attention  # noqa: F401
 from .io import data, fluid_data  # noqa: F401
-from .loss import softmax_with_cross_entropy  # noqa: F401
+from .loss import cross_entropy, softmax_with_cross_entropy  # noqa: F401
 from .math_op_patch import monkey_patch_variable
 from .nn import *  # noqa: F401,F403
 from .nn import __all__ as _nn_all
 
 monkey_patch_variable()
 
-__all__ = (["data", "fluid_data", "flash_attention",
+__all__ = (["data", "fluid_data", "flash_attention", "cross_entropy",
             "softmax_with_cross_entropy"] + _nn_all)

@@ -1,10 +1,22 @@
-"""``softmax_with_cross_entropy`` (counterpart of
-``paddle_tpu/layers/loss.py:34``): the same op, slots and attrs."""
+"""``cross_entropy`` and ``softmax_with_cross_entropy`` (counterparts of
+``paddle_tpu/layers/loss.py:22`` and ``:34``): the same ops, slots and
+attrs."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["softmax_with_cross_entropy"]
+__all__ = ["cross_entropy", "softmax_with_cross_entropy"]
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy", input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,

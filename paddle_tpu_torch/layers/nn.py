@@ -1,16 +1,33 @@
-"""Layers ``fc`` (:125), ``embedding`` (:167), ``layer_norm`` (:552),
-``mean`` (:971), ``reshape``, ``transpose`` and ``elementwise_add`` of
-``paddle_tpu/layers/nn.py``. Each emits the same ops, slots, attrs and
-parameter names as its JAX counterpart."""
+"""Layers ``fc`` (:125), ``embedding`` (:167), ``conv2d`` (:204),
+``pool2d`` (:413), ``batch_norm`` (:485), ``layer_norm`` (:552),
+``softmax`` (:661), ``mean`` (:971), ``relu`` (:1023), ``reshape``,
+``transpose`` and ``elementwise_add`` of ``paddle_tpu/layers/nn.py``. Each
+emits the same ops, slots, attrs and parameter names as its JAX
+counterpart."""
 from __future__ import annotations
 
 import math
 
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
-__all__ = ["fc", "embedding", "layer_norm", "mean", "reshape", "transpose",
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+           "softmax", "mean", "relu", "reshape", "transpose",
            "elementwise_add"]
+
+
+def _pair(x, n=2):
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x] * n
+
+
+def _single_out_op(helper, op_type, inputs, attrs):
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    helper.append_op(op_type, inputs=inputs, outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -60,6 +77,97 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return tmp
 
 
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """2-D convolution, filter ``[num_filters, C / groups, KH, KW]`` with
+    the default init ``Normal(0, sqrt(2 / fan_in))``."""
+    helper = LayerHelper("conv2d", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    groups = groups or 1
+    filter_size = _pair(filter_size)
+    num_channels = input.shape[1] if data_format == "NCHW" \
+        else input.shape[-1]
+    fan_in = num_channels * filter_size[0] * filter_size[1] // groups
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[num_filters, num_channels // groups] + filter_size,
+        dtype=dtype,
+        default_initializer=NormalInitializer(0.0, (2.0 / fan_in) ** 0.5))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    op_type = "depthwise_conv2d" if (
+        groups == num_channels and num_filters % num_channels == 0
+        and not use_cudnn) else "conv2d"
+    helper.append_op(
+        op_type, inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups,
+               "use_cudnn": use_cudnn, "data_format": data_format})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None, data_format="NCHW"):
+    helper = LayerHelper("pool2d", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "strides": _pair(pool_stride),
+               "paddings": _pair(pool_padding),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive, "data_format": data_format})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=True,
+               use_global_stats=False):
+    """Batch norm; the running mean and variance are non-trainable
+    parameters that the op's ``MeanOut`` / ``VarianceOut`` write back."""
+    helper = LayerHelper("batch_norm", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    shape = [input.shape[1] if data_layout == "NCHW" else input.shape[-1]]
+    scale = helper.create_parameter(
+        attr=helper.param_attr, shape=shape, dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=shape,
+                                   dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        attr=ParamAttr(name=moving_mean_name, trainable=False),
+        shape=shape, dtype=dtype,
+        default_initializer=ConstantInitializer(0.0))
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        attr=ParamAttr(name=moving_variance_name, trainable=False),
+        shape=shape, dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    variance.stop_gradient = True
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
@@ -87,6 +195,16 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                      attrs={"epsilon": epsilon,
                             "begin_norm_axis": begin_norm_axis})
     return helper.append_activation(out)
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    helper = LayerHelper("softmax", input=input, name=name)
+    return _single_out_op(helper, "softmax", {"X": [input]}, {"axis": axis})
+
+
+def relu(x, name=None):
+    helper = LayerHelper("relu", input=x, name=name)
+    return _single_out_op(helper, "relu", {"X": [x]}, {})
 
 
 def mean(x, name=None):

@@ -1,5 +1,7 @@
-"""``gelu`` (counterpart of ``paddle_tpu/ops/activation_ops.py:55``): the
-exact erf form unless ``approximate`` asks for the tanh form."""
+"""``relu``, ``gelu`` and ``softmax`` (counterparts of
+``paddle_tpu/ops/activation_ops.py:29``, ``:55`` and ``:107``). ``gelu`` is
+the exact erf form unless ``approximate`` asks for the tanh form. Their
+grads are the auto-VJP (relu's is 0 at 0, as ``jax.nn.relu``'s)."""
 from __future__ import annotations
 
 import torch
@@ -7,8 +9,19 @@ import torch
 from ..core.registry import In, Out, register_op
 
 
+@register_op("relu", inputs=[In("X")], outputs=[Out("Out")])
+def _relu(ins, attrs):
+    return {"Out": torch.relu(ins["X"])}
+
+
 @register_op("gelu", inputs=[In("X")], outputs=[Out("Out")],
              attrs={"approximate": False})
 def _gelu(ins, attrs):
     approx = "tanh" if attrs.get("approximate", False) else "none"
     return {"Out": torch.nn.functional.gelu(ins["X"], approximate=approx)}
+
+
+@register_op("softmax", inputs=[In("X")], outputs=[Out("Out")],
+             attrs={"axis": -1, "use_cudnn": False, "use_mkldnn": False})
+def _softmax(ins, attrs):
+    return {"Out": torch.softmax(ins["X"], dim=attrs.get("axis", -1))}

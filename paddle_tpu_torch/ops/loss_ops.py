@@ -1,8 +1,11 @@
-"""``softmax_with_cross_entropy`` (counterpart of
-``paddle_tpu/ops/loss_ops.py:64``): the numerically stable form, log-softmax
-over ``axis`` then the label's entry, with the same slots and attrs. Hard
-labels equal to ``ignore_index`` give a loss of 0; soft labels take the
-full cross entropy. Its grad is the auto-VJP op."""
+"""``cross_entropy`` and ``softmax_with_cross_entropy`` (counterparts of
+``paddle_tpu/ops/loss_ops.py:33`` and ``:64``), with the same slots and
+attrs. ``cross_entropy`` takes probabilities, clipped to [1e-20, 1] before
+the log as the reference does (max then min, so a value on a bound splits
+its grad as JAX's ``clip`` does); ``softmax_with_cross_entropy`` is the
+numerically stable form, log-softmax over ``axis`` then the label's entry.
+Hard labels equal to ``ignore_index`` give a loss of 0; soft labels take
+the full cross entropy. Both grads are the auto-VJP op."""
 from __future__ import annotations
 
 import torch
@@ -20,6 +23,21 @@ def _label_xent(logp, label, ignore_index=-100, soft=False):
     idx = torch.where(keep[..., 0], lbl, torch.zeros_like(lbl))
     picked = torch.gather(logp, -1, idx[..., None].long())
     return torch.where(keep, -picked, torch.zeros_like(picked))
+
+
+@register_op(
+    "cross_entropy",
+    inputs=[In("X"), In("Label", no_grad=True)],
+    outputs=[Out("Y")],
+    attrs={"soft_label": False, "ignore_index": -100},
+)
+def _cross_entropy(ins, attrs):
+    x, label = ins["X"], ins["Label"]
+    lo = torch.tensor(1e-20, dtype=x.dtype, device=x.device)
+    hi = torch.tensor(1.0, dtype=x.dtype, device=x.device)
+    logp = torch.log(torch.minimum(torch.maximum(x, lo), hi))
+    return {"Y": _label_xent(logp, label, attrs.get("ignore_index", -100),
+                             attrs.get("soft_label", False))}
 
 
 @register_op(

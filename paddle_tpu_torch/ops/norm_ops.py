@@ -1,6 +1,20 @@
-"""``layer_norm`` (counterpart of ``paddle_tpu/ops/norm_ops.py:105``):
-normalise over the dims from ``begin_norm_axis`` on, then scale and shift;
-``Mean`` and ``Variance`` are flattened over the leading dims."""
+"""``batch_norm`` and ``layer_norm`` (counterparts of
+``paddle_tpu/ops/norm_ops.py:18`` and ``:105``).
+
+``batch_norm`` keeps the five-output contract: ``Y``; ``MeanOut`` and
+``VarianceOut``, the running statistics, bound to the same variables as
+``Mean`` and ``Variance`` (the executor writes every output back to the
+scope, so they update in place there); ``SavedMean`` and ``SavedVariance``,
+the latter the inverse standard deviation. It is written out in plain torch
+ops in the JAX package's order, not ``F.batch_norm``: the running update is
+``running * momentum + batch * (1 - momentum)`` with the biased batch
+variance, where torch's ``momentum`` weights the new value and its
+running variance is unbiased. Cross-replica statistics (``_sync_stats``)
+raise until the parallel package is ported.
+
+``layer_norm`` normalises over the dims from ``begin_norm_axis`` on, then
+scales and shifts; ``Mean`` and ``Variance`` are flattened over the leading
+dims."""
 from __future__ import annotations
 
 import math
@@ -8,6 +22,77 @@ import math
 import torch
 
 from ..core.registry import In, Out, register_op
+
+
+@register_op(
+    "batch_norm",
+    inputs=[
+        In("X"),
+        In("Scale"),
+        In("Bias"),
+        In("Mean", no_grad=True),
+        In("Variance", no_grad=True),
+        In("MomentumTensor", dispensable=True, no_grad=True),
+    ],
+    outputs=[
+        Out("Y"),
+        Out("MeanOut", no_grad=True),
+        Out("VarianceOut", no_grad=True),
+        Out("SavedMean", no_grad=True),
+        Out("SavedVariance", no_grad=True),
+        Out("ReserveSpace", dispensable=True, no_grad=True),
+    ],
+    attrs={
+        "momentum": 0.9,
+        "epsilon": 1e-5,
+        "is_test": False,
+        "data_layout": "NCHW",
+        "use_global_stats": False,
+        "trainable_statistics": False,
+        "fuse_with_relu": False,
+        "use_mkldnn": False,
+    },
+)
+def _batch_norm(ins, attrs):
+    x = ins["X"]
+    scale, bias = ins["Scale"], ins["Bias"]
+    mean, var = ins["Mean"], ins["Variance"]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    layout = attrs.get("data_layout", "NCHW")
+    use_global = attrs.get("is_test", False) or attrs.get(
+        "use_global_stats", False)
+
+    c_axis = 1 if layout == "NCHW" else x.dim() - 1
+    red = tuple(i for i in range(x.dim()) if i != c_axis)
+    bshape = [1] * x.dim()
+    bshape[c_axis] = x.shape[c_axis]
+
+    if use_global:
+        use_mean, use_var = mean, var
+        mean_out, var_out = mean, var
+    else:
+        if attrs.get("_sync_stats"):
+            raise NotImplementedError(
+                "batch_norm with cross-replica statistics (_sync_stats) "
+                "needs the parallel package, not yet ported (ROADMAP.md, "
+                "queue 1)")
+        use_mean = x.mean(dim=red)
+        use_var = (x - use_mean.reshape(bshape)).square().mean(dim=red)
+        mean_out = mean * momentum + use_mean * (1 - momentum)
+        var_out = var * momentum + use_var * (1 - momentum)
+
+    inv_std = torch.rsqrt(use_var + eps)
+    y = ((x - use_mean.reshape(bshape)) * (scale * inv_std).reshape(bshape)
+         + bias.reshape(bshape))
+    return {
+        "Y": y,
+        "MeanOut": mean_out,
+        "VarianceOut": var_out,
+        "SavedMean": use_mean,
+        "SavedVariance": inv_std,  # the reference saves the inverse std
+        "ReserveSpace": None,
+    }
 
 
 @register_op(

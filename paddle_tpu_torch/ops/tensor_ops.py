@@ -1,14 +1,15 @@
 """Tensor creation / shaping / indexing ops.
 
 Counterparts of ``fill_constant`` (:31), ``uniform_random`` (:69),
+``gaussian_random`` (:90),
 ``reshape2`` (:224), ``transpose2`` (:248) and ``lookup_table`` (:680) in
 ``paddle_tpu/ops/tensor_ops.py``, with the same slots and attrs, and of
 ``lookup_table``'s grad maker and dense ``lookup_table_grad`` (:631-677),
 whose scatter-add becomes ``index_add_``. Creation
 ops build on the executor's device (``DEVICE_ATTR``); ``uniform_random``
 draws from the seeded ``torch.Generator`` the executor hands it
-(``GENERATOR_ATTR``), so the numbers differ from ``jax.random``'s but the
-distribution is the same.
+(``GENERATOR_ATTR``), and so does ``gaussian_random``, so the numbers
+differ from ``jax.random``'s but the distribution is the same.
 """
 from __future__ import annotations
 
@@ -54,6 +55,22 @@ def _uniform_random(ins, attrs):
     u = torch.rand(tuple(attrs["shape"]), generator=attrs[GENERATOR_ATTR],
                    dtype=torch.float32, device=attrs[DEVICE_ATTR])
     return {"Out": (u * (hi - lo) + lo).to(_dt.to_torch_dtype(attrs["dtype"]))}
+
+
+@register_op(
+    "gaussian_random",
+    inputs=[],
+    outputs=[Out("Out")],
+    attrs={"shape": [], "mean": 0.0, "std": 1.0, "seed": 0, "dtype": 5},
+    grad=None,
+    needs_rng=True,
+)
+def _gaussian_random(ins, attrs):
+    out = torch.randn(tuple(attrs["shape"]),
+                      generator=attrs.get(GENERATOR_ATTR),
+                      dtype=torch.float32, device=attrs[DEVICE_ATTR])
+    out = out * attrs.get("std", 1.0) + attrs.get("mean", 0.0)
+    return {"Out": out.to(_dt.to_torch_dtype(attrs["dtype"]))}
 
 
 def _reshape_shape(x, shape_attr):

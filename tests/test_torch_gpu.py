@@ -13,7 +13,10 @@ float32, 1e-2 of their scale in bfloat16 (one rounding step of 2^-8
 relative, twice). The fused optimizer kernel (K4) is bitwise equal to its
 plain version. The narrow gpt twin trains three steps on the card and on
 the CPU with losses within 1e-4 relative (float32, TF32 off; the card's
-products and embedding grad sum in another order).
+products and embedding grad sum in another order). The fused
+implicit-GEMM conv (K5) agrees with its plain version within 2e-5 of the
+output's largest magnitude in float32 (sums of up to 4608 products in
+another order) and 1e-2 in bfloat16 (y rounded once, twice allowed).
 """
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ import torch
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
 from paddle_tpu_torch.models import gpt, transformer
+from paddle_tpu_torch.ops.cuda import conv as k5
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
 from paddle_tpu_torch.ops.cuda import support
@@ -34,6 +38,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -237,3 +242,152 @@ def test_narrow_gpt_trains_on_the_card_as_on_the_cpu(cuda, monkeypatch):
                 if op.type == "fused_optimizer"]
                for m in (cpu_main, card_main)]
     assert layouts == [["chain"], ["flat"]]
+
+
+# ResNet-50's routed conv shapes (x H=W, Cin, K, Cout, stride, pad), each
+# run here at batch 2
+RESNET_K5_SHAPES = [
+    (7, 512, 1, 2048, 1, 0), (7, 512, 3, 512, 1, 1), (7, 2048, 1, 512, 1, 0),
+    (14, 256, 1, 1024, 1, 0), (14, 256, 3, 256, 1, 1),
+    (14, 512, 3, 512, 2, 1), (14, 1024, 1, 256, 1, 0),
+    (14, 1024, 1, 512, 1, 0), (14, 1024, 1, 2048, 2, 0),
+    (28, 128, 1, 512, 1, 0), (28, 128, 3, 128, 1, 1),
+    (28, 256, 3, 256, 2, 1), (28, 512, 1, 128, 1, 0),
+    (28, 512, 1, 256, 1, 0), (28, 512, 1, 1024, 2, 0),
+    (56, 128, 3, 128, 2, 1), (56, 256, 1, 64, 1, 0),
+    (56, 256, 1, 128, 1, 0), (56, 256, 1, 512, 2, 0)]
+K5_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _k5_case(cuda, B, H, W, Cin, K, Cout, stride, pad, dtype, epilogue,
+             seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, H, W, Cin, generator=g).to(dtype).to(cuda)
+    w = (torch.randn(K, K, Cin, Cout, generator=g)
+         * (2.0 / (K * K * Cin)) ** 0.5).to(dtype).to(cuda)
+    kw = {}
+    if epilogue:
+        Ho = (H + 2 * pad - K) // stride + 1
+        Wo = (W + 2 * pad - K) // stride + 1
+        kw = {"scale": torch.rand(Cout, generator=g).to(cuda) + 0.5,
+              "shift": torch.randn(Cout, generator=g).to(cuda),
+              "residual": torch.randn(B, Ho, Wo, Cout,
+                                      generator=g).to(dtype).to(cuda),
+              "relu": True}
+    return x, w, kw
+
+
+def _k5_close(cuda, x, w, kw, stride, pad, dtype):
+    before = k5.LAUNCHES.value
+    y = k5.conv2d_bn_act(x, w, stride=stride, padding=pad, **kw)
+    torch.cuda.synchronize()
+    assert k5.LAUNCHES.value == before + 1
+    ref = k5.conv2d_bn_act_reference(x, w, stride=stride, padding=pad, **kw)
+    assert y.dtype == dtype and y.shape == ref.shape
+    scale = float(ref.float().abs().max())
+    torch.testing.assert_close(y.float(), ref.float(), rtol=0,
+                               atol=K5_TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("shape", RESNET_K5_SHAPES)
+def test_conv_kernel_matches_plain_at_resnet_shapes(cuda, shape):
+    H, Cin, K, Cout, stride, pad = shape
+    x, w, kw = _k5_case(cuda, 2, H, H, Cin, K, Cout, stride, pad,
+                        torch.float32, False)
+    _k5_close(cuda, x, w, kw, stride, pad, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # B, H, W, Cin, K, Cout, stride, pad: odd B*H*W, Cout 128, 130 (the
+    # scalar path), 3 and 2048, stride 2 with odd sizes
+    (3, 13, 13, 128, 3, 128, 1, 1), (1, 9, 7, 256, 1, 130, 2, 0),
+    (5, 7, 9, 128, 3, 3, 2, 1), (2, 4, 4, 512, 1, 2048, 1, 0),
+    (1, 1, 1, 128, 1, 128, 1, 0), (3, 11, 5, 384, 3, 200, 2, 1)])
+def test_conv_kernel_epilogue_and_odd_sizes(cuda, dtype, case):
+    B, H, W, Cin, K, Cout, stride, pad = case
+    for epilogue in (False, True):
+        x, w, kw = _k5_case(cuda, B, H, W, Cin, K, Cout, stride, pad, dtype,
+                            epilogue, seed=B + H)
+        _k5_close(cuda, x, w, kw, stride, pad, dtype)
+
+
+def test_conv_kernel_takes_misaligned_and_strided_views(cuda):
+    x, w, kw = _k5_case(cuda, 2, 6, 6, 128, 3, 64, 1, 1, torch.float32,
+                        True)
+    base = torch.zeros(x.numel() + 1, device=cuda)
+    x_off = base[1:].view_as(x).copy_(x)           # 4 bytes off 16
+    w_t = w.permute(0, 1, 3, 2).contiguous().permute(0, 1, 3, 2)
+    assert x_off.data_ptr() % 16 and not w_t.is_contiguous()
+    y = k5.conv2d_bn_act(x_off, w_t, stride=1, padding=1, **kw)
+    ref = k5.conv2d_bn_act_reference(x, w, stride=1, padding=1, **kw)
+    torch.testing.assert_close(y, ref, rtol=0,
+                               atol=2e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("x,w,stride,match", [
+    ((1, 8, 8, 128), (3, 3, 128, 128), 3, "stride 1 or 2"),
+    ((1, 8, 8, 64), (3, 3, 64, 128), 1, "Cin % 128"),
+    ((1, 8, 8, 128), (5, 5, 128, 128), 1, "1x1 or 3x3")])
+def test_conv_kernel_refuses_what_it_does_not_take(cuda, x, w, stride,
+                                                   match):
+    with pytest.raises(ValueError, match=match):
+        k5.conv2d_bn_act(torch.zeros(x, device=cuda),
+                         torch.zeros(w, device=cuda), stride=stride)
+    h = torch.zeros((1, 8, 8, 128), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k5.conv2d_bn_act(h, torch.zeros((1, 1, 128, 8), device=cuda,
+                                        dtype=torch.float16))
+
+
+def test_conv_kernel_never_reaches_the_plain_version_on_the_card(
+        cuda, monkeypatch):
+    calls = []
+    monkeypatch.setattr(k5, "conv2d_bn_act_reference",
+                        lambda *a, **kw: calls.append(1))
+    x, w, _ = _k5_case(cuda, 2, 8, 8, 128, 1, 64, 1, 0, torch.float32,
+                       False)
+    before = k5.LAUNCHES.value
+    y = k5.pallas_conv(x.requires_grad_(True), w.requires_grad_(True), 1, 0)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert calls == [] and k5.LAUNCHES.value == before + 1
+    assert torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all()
+
+
+def test_routed_conv2d_op_launches_k5_once_per_forward(cuda):
+    old = fluid.get_flags("FLAGS_use_pallas_conv")
+    fluid.set_flags({"FLAGS_use_pallas_conv": "all"})
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data(name="x", shape=[2, 8, 8, 128], dtype="float32")
+            x.stop_gradient = False
+            y = fluid.layers.conv2d(x, 64, 3, padding=1, bias_attr=False,
+                                    data_format="NHWC")
+            loss = fluid.layers.mean(y)
+            fluid.backward.append_backward(loss)
+        feed = {"x": np.random.RandomState(0).rand(2, 8, 8, 128).astype(
+            "float32")}
+        outs = {}
+        for name, place in (("cpu", fluid.CPUPlace()), ("card", cuda)):
+            exe = fluid.Executor(place if name == "cpu"
+                                 else fluid.CUDAPlace(0))
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            if name == "card":
+                fluid.io.scope_from_numpy(scope, init, fluid.CUDAPlace(0))
+            else:
+                init = {"conv2d.w_0": scope.find_var(
+                    "conv2d.w_0").get_tensor().numpy()}
+            before = k5.LAUNCHES.value
+            outs[name] = exe.run(main, feed=feed, scope=scope,
+                                 fetch_list=[y, "conv2d.w_0@GRAD",
+                                             "x@GRAD"])
+            launched = k5.LAUNCHES.value - before
+        assert launched == 1  # the forward only: conv2d_grad runs cuDNN
+        for got, want in zip(outs["card"], outs["cpu"]):
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=2e-5 * np.abs(want).max())
+    finally:
+        fluid.set_flags(old)
