@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Run from the repository root. It drives the port's three main paths at
-full width, serving (BERT-base), training (gpt_long) and ResNet-50 training,
-and holds each hand-written CUDA kernel against its plain PyTorch version
-on the card. Phases, one or more lines each:
+Run from the repository root. It drives the port's four main paths at
+full width, serving (BERT-base), training (gpt_long), ResNet-50 training and
+streaming decode (the continuous-batching engine at gpt_long's width), and
+holds each hand-written CUDA kernel against its plain PyTorch version on
+the card. Phases, one or more lines each:
 
 1. card and settings: name and power limit (nvidia-smi), torch version;
    TF32 off for float32 products and for cuDNN;
@@ -82,15 +83,52 @@ on the card. Phases, one or more lines each:
    1e-3) trained 3 steps on the card and through CPUPlace(), each step
    from the CPU run's state before it: the losses and the first step's
    grads must agree, and the card run must launch K5 44 times a step;
-12. one JSON line {"kernels": [...]} with each kernel's launches on the
+12. K6, paged decode attention, against its plain version on float32,
+   bfloat16 and int8 arenas: the decode path's 32 rows of 16 heads of 64
+   (block 16, contexts spread over 0..4096 with 0, 1, 15, 16, 17 and
+   4096), the prefill form (512 rows sharing one table, lengths
+   1537..2048) and the default geometry (2 heads of 8): largest error
+   against the output's scale, a row alone bit for bit as in the batch,
+   the prefill form's rows bit for bit the same through the decode
+   kernel, and at the first two the kernel's time, the plain version's,
+   torch's scaled_dot_product_attention over K/V gathered dense and
+   padded, with a length mask (a yardstick the port never calls) with the
+   gather's own time, the bound, and SDPA over jagged real lengths (the
+   decode path) or the decode kernel's time (the prefill form);
+13. the decode path: DecodeEngine at gpt_long's width (2 layers, 16
+   heads of 64, vocab 8192; an arena of 8192 blocks of 16 tokens, f32;
+   max_batch_size 32, prefill chunks of 512) on cuda:0 with seeded
+   weights, 64 streams submitted at once (prompts of 128-2048 tokens,
+   max_tokens 32-256, seeded, no eos): every stream must deliver indices
+   0..n-1 exactly once and finish with max_tokens; launch counts are
+   zeroed (and the probe memo cleared) just before the engine is built
+   and read after the last stream ends: K6 must run num_layers x (decode
+   steps + prefill chunks) times, as the engine's counters give them, and
+   the probe once; a throwaway engine first runs the same traffic, so
+   every timed run is warm; tokens/s, TTFT and ITL p50/p99, peak memory,
+   the engine's host time split into model passes and its own work, then
+   the same streams through static wait-for-all waves of 32 on the same
+   model (the port of tools/serving_bench.py's _static_waitforall), five
+   runs each interleaved with the engine's: continuous batching must run
+   fewer model passes, decode fewer rows and beat the waves (median
+   walls), and every run's tokens must equal the engine's bit for bit; then a
+   torch.profiler window over 30 decode steps of 32 streams;
+14. invariance: 4 of those streams decoded alone, inside the 32-wide
+   batch and through an arena small enough to preempt and re-prefill
+   them must give identical tokens; a narrow twin at the default
+   geometry on the card and through CPUPlace() must agree wherever the
+   CPU's top-2 logit gap exceeds 1e-3; 16 streams on bf16 and on int8
+   arenas must finish clean with K6 launched as the counters predict;
+15. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside), error, times and bound;
-13. the last line: {"ok": true, "device": {...}}.
+16. the last line: {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero without the last line. Without a
 CUDA device it exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -154,6 +192,32 @@ RESNET_TWIN_GRAD_RELL2 = 0.04
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the decode path (phases 12-14): TinyDecodeLM at the width of the repo's
+# causal LM, gpt_long (bench.py:794: 2 layers, 16 heads of 64, vocab
+# 8192), with contexts up to its 4096: 16 KiB of float32 K/V per token, an
+# arena of 8192 blocks of 16 tokens (2 GiB) for 32 sequences
+DECODE = dict(num_layers=2, num_heads=16, head_dim=64, vocab_size=8192,
+              kv_blocks=8192, max_batch_size=32, prefill_chunk_tokens=512,
+              max_prompt_tokens=4096)
+N_STREAMS = 64
+# engine and static-wave runs, interleaved and all warm: the host's clock
+# on a shared machine wanders by tens of percent from one run to the next,
+# so the race compares the medians of five runs a side
+RACE_RUNS = 5
+PROMPT_RANGE = (128, 2048)
+MAX_TOKENS_RANGE = (32, 256)
+# the engine's default geometry (2 layers, 2 heads of 8, vocab 97)
+DECODE_TWIN = dict(num_layers=2, num_heads=2, head_dim=8, vocab_size=97,
+                   kv_blocks=128, max_batch_size=8)
+# card vs CPU logits of the twin: float32 sums in other orders (the CPU
+# tests read about 1e-6 between the port and the JAX package)
+DECODE_TWIN_TOL = 1e-4
+K6_BT = 16
+K6_EDGE_LENS = (0, 1, 15, 16, 17, 4096)
+# K6 vs its plain version, relative to the output's largest magnitude, for
+# every storage: both widen the same stored bits exactly and sum float32 in
+# other orders
+K6_TOL = 2e-5
 
 
 def log(msg: str) -> None:
@@ -1190,6 +1254,614 @@ def phase_resnet_twin(fluid, support):
                            "grads %g" % (rel, max(rel_l2)))
 
 
+# -- phase 12: paged decode attention (K6) ----------------------------------
+
+def k6_case(dev, B, H, D, bt, lens, storage, shared, seed, num_blocks=None):
+    """Seeded operands of one K6 call: arenas of ``storage`` with blocks
+    scattered over them, -1 padded tables (one shared table in the prefill
+    form, row t reading the first ``lens[t]`` tokens of one sequence)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    seqs = [max(lens)] if shared else list(lens)
+    need = sum(-(-n // bt) for n in seqs)
+    nb = num_blocks or need + 3
+    shape = (nb, bt, H, D)
+    if storage == "int8":
+        ka, va = (torch.randint(-127, 128, shape, device=dev, generator=g,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = ((torch.rand(nb, H, device=dev, generator=g) + 0.5) / 127
+                  for _ in range(2))
+    else:
+        ka, va = (torch.randn(shape, device=dev, generator=g)
+                  for _ in range(2))
+        ks = vs = None
+        if storage == "bf16":
+            ka, va, ks, vs = ka.bfloat16(), va.bfloat16(), "bf16", "bf16"
+    perm = torch.randperm(nb, device=dev, generator=g).to(torch.int32)
+    width = max(1, max(-(-n // bt) for n in seqs))
+    table = torch.full((len(seqs), width), -1, dtype=torch.int32,
+                       device=dev)
+    used = 0
+    for b, n in enumerate(seqs):
+        k = -(-n // bt)
+        table[b, :k] = perm[used:used + k]
+        used += k
+    return dict(q=torch.randn(B, H, D, device=dev, generator=g),
+                k_arena=ka, v_arena=va, k_scales=ks, v_scales=vs,
+                block_tables=table,
+                seq_lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+                block_tokens=bt)
+
+
+def k6_work(case, shared):
+    """(bytes, FLOPs) of one K6 call: K, V (and int8 scales) of the tokens
+    the rows read, each read once (the prefill form's rows share one
+    sequence), q read, out written, tables and lengths read; 4 D FLOPs per
+    (row, head, token)."""
+    q, ka = case["q"], case["k_arena"]
+    B, H, D = q.shape
+    bt = case["block_tokens"]
+    lens = [int(n) for n in case["seq_lens"].tolist()]
+    toks = max(lens) if shared else sum(lens)
+    blocks = sum(-(-n // bt) for n in ([max(lens)] if shared else lens))
+    nbytes = (2 * toks * H * D * ka.element_size() + 2 * B * H * D * 4
+              + blocks * 4 + B * 4)
+    if ka.dtype == torch.int8:
+        nbytes += 2 * blocks * H * 4
+    return nbytes, 4.0 * D * H * sum(lens)
+
+
+def k6_dense(case, shared):
+    """The yardstick's operands: q as [B, H, 1, D] (one sequence's queries
+    as [1, H, B, D] in the prefill form), K and V gathered dense in float32
+    as [B or 1, H, L, D], and the boolean length mask."""
+    q, ka, va = case["q"], case["k_arena"], case["v_arena"]
+    B, H, D = q.shape
+    bt = case["block_tokens"]
+    table, lens = case["block_tables"], case["seq_lens"].long()
+    L = int(lens.max())
+    pos = torch.arange(L, device=q.device)
+    col = (pos // bt).clamp(max=table.shape[1] - 1)
+    blk = table.long()[:, col].clamp(min=0)                   # [rows, L]
+    idx = blk * bt + pos % bt
+
+    def gather():
+        out = []
+        for arena, s in ((ka, case["k_scales"]), (va, case["v_scales"])):
+            x = arena.reshape(-1, H, D)[idx].float()          # [rows, L, H, D]
+            if isinstance(s, torch.Tensor):
+                x = x * s[blk][..., None]
+            out.append(x.transpose(1, 2).contiguous())
+        return out
+
+    if shared:
+        qd = q.transpose(0, 1)[None]                          # [1, H, B, D]
+        mask = (pos[None, :] < lens[:, None])[None, None]     # [1, 1, B, L]
+    else:
+        qd = q[:, :, None, :]
+        mask = (pos[None, :] < lens[:, None])[:, None, None, :]
+    return qd, mask, gather
+
+
+def k6_check(k6, dev, label, B, H, D, bt, lens, storage, shared, seed,
+             timed, num_blocks=None):
+    case = k6_case(dev, B, H, D, bt, lens, storage, shared, seed, num_blocks)
+    got = k6.paged_decode_attention(**case)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    want = k6.paged_attention_reference(**case)
+    err = (got - want).abs().max().item()
+    rel = err / max(want.abs().max().item(), 1e-30)
+    if not (rel <= K6_TOL and bool(torch.isfinite(got).all())):
+        raise RuntimeError("K6 disagrees with its plain version (%s, %s): "
+                           "error %g, %g of the output's scale (tol %g)"
+                           % (label, storage, err, rel, K6_TOL))
+    # a row alone gives the bits it gives in the batch
+    b = B // 2
+    one = dict(case, q=case["q"][b:b + 1].contiguous(),
+               seq_lens=case["seq_lens"][b:b + 1].contiguous(),
+               block_tables=case["block_tables"][
+                   0 if shared else b:(0 if shared else b) + 1].contiguous())
+    if not torch.equal(k6.paged_decode_attention(**one)[0], got[b]):
+        raise RuntimeError("K6's row %d alone differs from the batch's (%s, "
+                           "%s)" % (b, label, storage))
+    # the prefill form's rows, each given its own copy of the table, take
+    # the decode form's kernel: the same bits
+    wide = dict(case, block_tables=case["block_tables"].expand(
+        B, -1).contiguous()) if shared else None
+    if shared and not torch.equal(k6.paged_decode_attention(**wide), got):
+        raise RuntimeError("K6's decode form differs from its prefill form "
+                           "(%s, %s)" % (label, storage))
+    row = {"case": label, "storage": storage, "B": B, "H": H, "D": D,
+           "block_tokens": bt, "err": err, "rel_err": rel}
+    if timed:
+        row["ms"] = time_ms(lambda: k6.paged_decode_attention(**case),
+                            iters=20, warmup=3)
+        row["plain_ms"] = time_ms(
+            lambda: k6.paged_attention_reference(**case), iters=2, warmup=1)
+        qd, mask, gather = k6_dense(case, shared)
+        kd, vd = gather()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["gather_ms"] = time_ms(gather, iters=10, warmup=2)
+        row["library_ms"] = time_ms(lambda: sdpa(qd, kd, vd, attn_mask=mask),
+                                    iters=10, warmup=2)
+        if shared:
+            row["decode_form_ms"] = time_ms(
+                lambda: k6.paged_decode_attention(**wide), iters=20,
+                warmup=3)
+        else:
+            row["library_jagged_ms"] = k6_jagged_sdpa_ms(qd, kd, vd, case)
+        del kd, vd
+        nbytes, flops = k6_work(case, shared)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
+                                                 PEAK_FLOPS[torch.float32])
+        row["gbytes"], row["gflop"] = nbytes / 1e9, flops / 1e9
+    log("phase 12 K6 %s" % json.dumps(row))
+    return row
+
+
+def k6_jagged_sdpa_ms(qd, kd, vd, case):
+    """The yardstick without the padding: one SDPA call over nested
+    (jagged) tensors holding each row's own length of K/V (rows of length
+    0 left out, as they need no work); None where this torch has no such
+    kernel."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    keep = [(b, n) for b, n in enumerate(case["seq_lens"].tolist()) if n]
+
+    def jagged(x, keys):    # [rows, H, length, D] of the kept rows
+        return torch.nested.nested_tensor(
+            [x[b, :, :n if keys else 1].transpose(0, 1) for b, n in keep],
+            layout=torch.jagged).transpose(1, 2)
+
+    try:
+        q, k, v = jagged(qd, False), jagged(kd, True), jagged(vd, True)
+        return time_ms(lambda: sdpa(q, k, v), iters=10, warmup=2)
+    except (RuntimeError, NotImplementedError) as exc:
+        log("phase 12 jagged SDPA unavailable: %s" % str(exc)[:200])
+        return None
+
+
+def k6_decode_lens(rng, n, top):
+    return [min(n_, top) for n_ in K6_EDGE_LENS] + [
+        int(x) for x in rng.randint(0, top + 1, n - len(K6_EDGE_LENS))]
+
+
+def phase_paged_attention(k6, dev=torch.device("cuda"), timed=True,
+                          width=None):
+    """K6 against its plain version at the decode path's shapes (32 rows,
+    contexts spread over 0..4096), its prefill form (512 rows sharing one
+    table) and the default geometry (2 heads of 8), on f32, bf16 and int8
+    arenas."""
+    w = width or dict(B=32, H=16, D=64, top=4096, T=512, start=1536,
+                      num_blocks=DECODE["kv_blocks"])
+    rng = np.random.RandomState(SEED + 8)
+    lens = k6_decode_lens(rng, w["B"], w["top"])
+    rows = []
+    for i, storage in enumerate(("f32", "bf16", "int8")):
+        rows.append(k6_check(k6, dev, "decode", w["B"], w["H"], w["D"],
+                             K6_BT, lens, storage, False, 60 + i, timed,
+                             w["num_blocks"]))
+        rows.append(k6_check(k6, dev, "prefill", w["T"], w["H"], w["D"],
+                             K6_BT, [w["start"] + t + 1
+                                     for t in range(w["T"])],
+                             storage, True, 63 + i, timed))
+        rows.append(k6_check(k6, dev, "default_geometry", 9, 2, 8, K6_BT,
+                             [0, 1, 15, 16, 17, 40, 3, 100, 7], storage,
+                             False, 66 + i, False))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    main, prefill = rows[0], rows[1]
+    by_storage = {}
+    for r in rows:
+        by_storage[r["storage"]] = max(by_storage.get(r["storage"], 0.0),
+                                       r["err"])
+    keys = ("ms", "plain_ms", "library_ms", "library_jagged_ms",
+            "gather_ms", "decode_form_ms", "bound_ms", "bound_by")
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/paged_attention.py:153",
+            "max_abs_err": max(by_storage.values()),
+            "max_abs_err_by_storage": by_storage,
+            "rel_err_max": max(r["rel_err"] for r in rows),
+            **{k: main[k] for k in keys if k in main},
+            "shape": {"B": w["B"], "H": w["H"], "D": w["D"],
+                      "block_tokens": K6_BT, "lens_max": max(lens),
+                      "lens_sum": sum(lens)},
+            "library_covers": "F.scaled_dot_product_attention over K/V "
+                              "gathered dense in float32, every row padded "
+                              "to the longest with a length mask; the "
+                              "gather is gather_ms; library_jagged_ms is "
+                              "SDPA over nested tensors of the real "
+                              "lengths; the prefill form's decode_form_ms "
+                              "is the decode kernel on its rows",
+            "prefill_form": {k: prefill[k] for k in keys if k in prefill},
+            "by_storage": {r["storage"]: {k: r[k] for k in keys if k in r}
+                           for r in rows if r["case"] == "decode"}}
+
+
+# -- phase 13: the decode path ----------------------------------------------
+
+def decode_specs(rng, n, prompt_range, tokens_range, vocab):
+    """Seeded streams: (prompt, max_tokens)."""
+    specs = []
+    for _ in range(n):
+        plen = int(rng.randint(prompt_range[0], prompt_range[1] + 1))
+        specs.append(([int(t) for t in rng.randint(1, vocab, size=plen)],
+                      int(rng.randint(tokens_range[0], tokens_range[1] + 1))))
+    return specs
+
+
+def drain(streams, specs, what):
+    """Each stream's tokens; raise unless every stream delivered indices
+    0..n-1 exactly once and finished with max_tokens."""
+    outs = []
+    for i, (s, (_, n)) in enumerate(zip(streams, specs)):
+        evs = list(s)
+        idx = [e["index"] for e in evs if e["type"] == "token"]
+        if idx != list(range(n)) or evs[-1].get("reason") != "max_tokens":
+            raise RuntimeError("%s stream %d: indices %s... (want 0..%d "
+                               "once), finish %s" % (what, i, idx[:8], n - 1,
+                                                     evs[-1]))
+        outs.append([e["token"] for e in evs if e["type"] == "token"])
+    return outs
+
+
+def k6_launches_expected(engine):
+    st = engine.stats()
+    return engine.config.cache.num_layers * (
+        st["serving.decode_steps"] + st["serving.prefill_chunks"])
+
+
+def decode_window(engine, specs, steps, dev):
+    """Device busy and idle share under torch.profiler over ``steps``
+    decode steps of a full batch (its prompts already prefilled)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    streams = [engine.submit(p, max_tokens=steps + 16) for p, _ in specs]
+    for s in streams:           # first token: the prompt is resident
+        next(iter(s))
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        s0 = engine.steps
+        t0 = time.perf_counter()
+        while engine.steps < s0 + steps and \
+                engine.health_doc()["active_streams"]:
+            time.sleep(0.002)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        n_steps = engine.steps - s0
+    for s in streams:
+        list(s)
+    kernels = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t_us = getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+        kernels.append((t_us / 1e3, e.count, e.key))
+    kernels.sort(reverse=True)
+    return wall_ms, sum(k[0] for k in kernels), n_steps, kernels
+
+
+def static_model(cfg, place):
+    """The yardstick's model and cache: the engine's, built apart."""
+    from paddle_tpu_torch.serving.decode import PagedKVCache, TinyDecodeLM
+
+    cache = PagedKVCache(cfg.cache, place)
+    return TinyDecodeLM(cache, vocab_size=cfg.vocab_size,
+                        seed=cfg.model_seed, eos_token=None,
+                        rows=cfg.pass_rows, logit_rows=max(cfg.ladder))
+
+
+def static_waves(model, specs, wave):
+    """The baseline continuous batching replaces (the port of
+    tools/serving_bench.py:313 ``_static_waitforall``): streams admitted in
+    fixed waves, each prompt prefilled whole, then every member decodes
+    EVERY step until the longest member finishes. Returns (wall seconds,
+    each stream's tokens, passes of the model, rows of its decode
+    passes)."""
+    cache = model.cache
+    toks, passes, rows = [], model.passes, 0
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    gc.collect()
+    t0 = time.perf_counter()
+    for start in range(0, len(specs), wave):
+        group = specs[start:start + wave]
+        ids, last, out = [], [], []
+        for i, (prompt, _) in enumerate(group):
+            sid = "w%d" % i
+            cache.register(sid)
+            h = model.prefill_chunk(sid, prompt)
+            last.append(model.next_token(h, len(prompt)))
+            ids.append(sid)
+            out.append([last[-1]])
+        steps = max(n for _, n in group) - 1
+        rows += len(group) * steps
+        for _ in range(steps):
+            _, nxt = model.decode_step(ids, last, pad_to=wave)
+            last = [int(t) for t in nxt]
+            for o, t in zip(out, last):
+                o.append(t)
+        for sid in ids:
+            cache.release(sid)
+        toks += [o[:n] for o, (_, n) in zip(out, group)]
+    wall = time.perf_counter() - t0
+    return wall, toks, model.passes - passes, rows
+
+
+def engine_burst(engine, specs, tag):
+    """Every stream submitted at once; the client looks every 50 ms for
+    the last finish event, then reads every stream. (A client thread that
+    woke on each token would take the interpreter lock from the step
+    thread hundreds of times a second.) Returns (each stream's tokens,
+    seconds from the first submit to the last finish, the host seconds
+    the engine spent in token steps and in their model passes)."""
+    gc.collect()
+    st0 = engine.step_seconds, engine.pass_seconds
+    t0 = time.monotonic()
+    streams = [engine.submit(p, max_tokens=n, request_id="%s%d" % (tag, i))
+               for i, (p, n) in enumerate(specs)]
+    while any(s.finish is None for s in streams):
+        time.sleep(0.05)
+    outs = drain(streams, specs, "engine")
+    return (outs, max(s.finished_at for s in streams) - t0,
+            engine.step_seconds - st0[0], engine.pass_seconds - st0[1])
+
+
+def phase_decode(fluid, support, dev=torch.device("cuda"), cfg_kw=None,
+                 n_streams=N_STREAMS, prompt_range=PROMPT_RANGE,
+                 tokens_range=MAX_TOKENS_RANGE, window_steps=30):
+    """The decode path at full width: 64 streams at once through
+    DecodeEngine.submit, then the static waves and the engine again,
+    RACE_RUNS times each, interleaved."""
+    from paddle_tpu_torch.serving.decode import DecodeConfig, DecodeEngine
+
+    cfg_kw = dict(cfg_kw or DECODE)
+    place = fluid.CPUPlace() if dev.type == "cpu" else fluid.CUDAPlace(0)
+    cfg = DecodeConfig(**cfg_kw, eos_token=None, max_waiting=2 * n_streams,
+                       place=place)
+    rng = np.random.RandomState(SEED + 9)
+    specs = decode_specs(rng, n_streams, prompt_range, tokens_range,
+                         cfg.vocab_size)
+    cuda = dev.type == "cuda"
+    # warm the path (kernels, product shapes, the allocator's blocks, the
+    # pinned staging buffers) with the timed traffic itself, on a
+    # throwaway engine, before anything is counted or timed; the memory it
+    # frees stays in the allocator's cache for the engines that follow
+    warm = DecodeEngine(cfg).start()
+    engine_burst(warm, specs, "warm")
+    warm.stop()
+    del warm
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    support.forget_probes()  # the engine's construction probes again
+    support.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = DecodeEngine(cfg).start()
+    t_build = time.perf_counter() - t0
+    outs, wall, step_s, pass_s = engine_burst(engine, specs, "a")
+    passes = engine.model.passes
+    counts = support.launch_counts()
+    st = engine.stats()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    want = k6_launches_expected(engine) if cuda else 0
+    if counts.get("paged_decode_attention", 0) != want or \
+            counts.get("probe_add_one", 0) != (1 if cuda else 0):
+        raise RuntimeError("decode launches %s; want K6 %d (%d layers x "
+                           "(%d decode steps + %d prefill chunks)) and the "
+                           "probe once" % (counts, want,
+                                           cfg.cache.num_layers,
+                                           st["serving.decode_steps"],
+                                           st["serving.prefill_chunks"]))
+    if st["serving.stream_errors"]:
+        raise RuntimeError("stream errors: %d" % st["serving.stream_errors"])
+    tokens = sum(n for _, n in specs)
+    ttft, itl = st["serving.ttft_ms"], st["serving.itl_ms"]
+    log("phase 13 decode engine %s (products on %d rows, logits on %d): "
+        "built in %.2f s; %d streams (prompts %d-%d tokens, %d prompt "
+        "tokens; max_tokens %d-%d) at once, warm: %d tokens in %.3f s, "
+        "%.1f tokens/s; TTFT p50 %.1f p99 %.1f ms; ITL p50 %.2f p99 %.2f "
+        "ms; %d decode steps (batch mean %.1f), %d prefill chunks, %d "
+        "preemptions; max_memory_allocated %d bytes; launches %s"
+        % (json.dumps(cfg_kw), cfg.pass_rows, max(cfg.ladder), t_build,
+           n_streams, prompt_range[0], prompt_range[1],
+           sum(len(p) for p, _ in specs), tokens_range[0], tokens_range[1],
+           tokens, wall, tokens / wall, ttft["p50"], ttft["p99"],
+           itl["p50"], itl["p99"], st["serving.decode_steps"],
+           st["serving.decode_batch"]["mean"], st["serving.prefill_chunks"],
+           st["serving.preemptions"], peak, json.dumps(counts)))
+    # the yardstick, interleaved with more engine runs
+    model = static_model(cfg, place)
+    wave = max(cfg.ladder)
+    walls, s_walls, runs = [wall], [], [outs]
+    splits = [(step_s, pass_s)]
+    for i in range(RACE_RUNS):
+        s_wall, s_toks, s_passes, s_rows = static_waves(model, specs, wave)
+        s_walls.append(s_wall)
+        runs.append(s_toks)
+        if i + 1 < RACE_RUNS:
+            outs_i, wall_i, step_i, pass_i = engine_burst(engine, specs,
+                                                          "r%d" % i)
+            walls.append(wall_i)
+            runs.append(outs_i)
+            splits.append((step_i, pass_i))
+    rows = int(st["serving.decode_batch"]["sum"])
+    ratio = float(np.median(s_walls) / np.median(walls))
+    log("phase 13 yardstick, static waves of %d (wait for all) on the same "
+        "model, interleaved with the engine: static %s s, mean %.1f "
+        "tokens/s; engine %s s, mean %.1f tokens/s; continuous batching "
+        "%.3fx on the host clock (median walls); it ran %d model passes "
+        "decoding %d rows "
+        "where the static waves ran %d passes decoding %d rows (their "
+        "finished members' included)"
+        % (wave, ", ".join("%.3f" % w for w in s_walls),
+           len(s_walls) * tokens / sum(s_walls),
+           ", ".join("%.3f" % w for w in walls),
+           len(walls) * tokens / sum(walls), ratio, passes, rows, s_passes,
+           s_rows))
+    log("phase 13 the engine's host time, run by run: %s" % "; ".join(
+        "wall %.3f s = steps %.3f s (model passes %.3f s, the engine's own "
+        "work %.3f s) + between steps %.3f s" % (w, a, b, a - b, w - a)
+        for w, (a, b) in zip(walls, splits)))
+    if not (passes < s_passes and rows < s_rows):
+        raise RuntimeError("continuous batching ran %d passes of %d rows, "
+                           "the static waves %d of %d" % (passes, rows,
+                                                          s_passes, s_rows))
+    if ratio <= 1.0:
+        raise RuntimeError("continuous batching (%s s) did not beat the "
+                           "static waves (%s s)" % (walls, s_walls))
+    if any(r != outs for r in runs):
+        bad = [i for i, (a, b) in enumerate(zip(runs[1], outs)) if a != b]
+        raise RuntimeError("static waves and the engine decoded other "
+                           "tokens for streams %s" % bad[:8])
+    log("phase 13 every stream's tokens equal its static-wave decode (the "
+        "prompt in one chunk, a fixed batch of %d) bit for bit, in every "
+        "run" % wave)
+    del model
+    wall_ms, busy_ms, n_steps, kernels = decode_window(
+        engine, specs[:wave], window_steps, dev)
+    log("phase 13 profile, %d decode steps of %d streams: wall %.3f ms, "
+        "device busy %.3f ms, idle share %s" % (
+            n_steps, wave, wall_ms, busy_ms,
+            "%.3f" % (1 - busy_ms / wall_ms) if busy_ms else
+            "not measured (no device time in the trace)"))
+    for t_ms, count, name in kernels[:8]:
+        log("phase 13 profile   %9.3f ms  %5d x  %s"
+            % (t_ms, count, name[:110]))
+    engine.stop()
+    del engine
+    if cuda:
+        torch.cuda.empty_cache()
+    return counts, specs, outs, {
+        "tokens_per_s": len(walls) * tokens / sum(walls),
+        "static_tokens_per_s": len(s_walls) * tokens / sum(s_walls),
+        "passes": passes, "static_passes": s_passes, "rows": rows,
+        "static_rows": s_rows,
+        "ttft_ms_p50": ttft["p50"], "ttft_ms_p99": ttft["p99"],
+        "itl_ms_p50": itl["p50"], "itl_ms_p99": itl["p99"],
+        "peak_bytes": peak, "decode_steps": st["serving.decode_steps"],
+        "prefill_chunks": st["serving.prefill_chunks"],
+        "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+        "race_ratio": ratio, "engine_walls_s": walls,
+        "static_walls_s": s_walls,
+        "engine_step_s": [a for a, _ in splits],
+        "engine_pass_s": [b for _, b in splits]}
+
+
+# -- phase 14: invariance on the card ----------------------------------------
+
+def run_streams(fluid, cfg_kw, specs, place, at_once=True, **extra):
+    """Each stream's tokens through a fresh engine, and its stats."""
+    from paddle_tpu_torch.serving.decode import DecodeConfig, DecodeEngine
+
+    cfg = DecodeConfig(**dict(cfg_kw, **extra), eos_token=None,
+                       max_waiting=2 * len(specs), place=place)
+    engine = DecodeEngine(cfg).start()
+    try:
+        if at_once:
+            streams = [engine.submit(p, max_tokens=n) for p, n in specs]
+            outs = drain(streams, specs, "engine")
+        else:
+            outs = [drain([engine.submit(p, max_tokens=n)], [(p, n)],
+                          "alone")[0] for p, n in specs]
+        return outs, engine.stats()
+    finally:
+        engine.stop()
+
+
+def reference_gaps(fluid, prompt, tokens, cfg_kw):
+    """Top-2 logit gap of the CPU model at each generated position, the
+    stream fed back (teacher forcing)."""
+    from paddle_tpu_torch.serving.decode import (DecodeConfig, PagedKVCache,
+                                                 TinyDecodeLM)
+
+    cfg = DecodeConfig(**cfg_kw)
+    cache = PagedKVCache(cfg.cache, fluid.CPUPlace())
+    model = TinyDecodeLM(cache, vocab_size=cfg.vocab_size,
+                         seed=cfg.model_seed, eos_token=None,
+                         rows=cfg.pass_rows, logit_rows=max(cfg.ladder))
+    cache.register("s")
+    logits = [model.logits1(model.prefill_chunk("s", prompt), len(prompt))]
+    for t in tokens[:-1]:
+        logits.append(model.decode_step(["s"], [t])[0][0])
+    return [float(top[1] - top[0]) for top in
+            (torch.sort(lg).values[-2:] for lg in logits)]
+
+
+def phase_invariance(fluid, support, specs, batched, dev=torch.device("cuda"),
+                     cfg_kw=None, twin_kw=None):
+    """Exact invariance on the card, the narrow twin against the CPU, and
+    short bf16 and int8 runs."""
+    cfg_kw = dict(cfg_kw or DECODE)
+    place = fluid.CPUPlace() if dev.type == "cpu" else fluid.CUDAPlace(0)
+    four = specs[:4]
+    alone, _ = run_streams(fluid, cfg_kw, four, place, at_once=False)
+    # room for the four prompts and one block more: the streams must
+    # evict each other as they grow, and the first can always finish
+    bt = cfg_kw.get("kv_block_tokens", 16)
+    need = [-(-(len(p) + n) // bt) for p, n in four]
+    small = max(sum(-(-len(p) // bt) for p, _ in four) + 1, max(need))
+    if small >= sum(need):
+        raise RuntimeError("streams %s fit a %d-block arena together"
+                           % (need, small))
+    tight, st = run_streams(fluid, cfg_kw, four, place, kv_blocks=small)
+    if st["serving.preemptions"] < 1:
+        raise RuntimeError("the %d-block arena preempted nothing" % small)
+    if not (alone == batched[:4] == tight):
+        raise RuntimeError("the 4 streams' tokens differ alone / in the "
+                           "%d-wide batch / after preemption"
+                           % cfg_kw["max_batch_size"])
+    log("phase 14 4 streams (prompts %s, max_tokens %s): tokens identical "
+        "decoded alone, inside the %d-wide batch of phase 13 and through a "
+        "%d-block arena with %d preemptions and re-prefills"
+        % ([len(p) for p, _ in four], [n for _, n in four],
+           cfg_kw["max_batch_size"], small, st["serving.preemptions"]))
+
+    twin_kw = dict(twin_kw or DECODE_TWIN)
+    rng = np.random.RandomState(SEED + 10)
+    twin_specs = decode_specs(rng, 8, (5, 40), (24, 24),
+                              twin_kw["vocab_size"])
+    card, _ = run_streams(fluid, twin_kw, twin_specs, place)
+    cpu, _ = run_streams(fluid, twin_kw, twin_specs, fluid.CPUPlace())
+    compared = total = 0
+    for (prompt, n), a, b in zip(twin_specs, card, cpu):
+        total += n
+        for i, gap in enumerate(reference_gaps(fluid, prompt, b, twin_kw)):
+            if gap <= 10 * DECODE_TWIN_TOL:
+                break  # the CPU itself is too close to call
+            if a[i] != b[i]:
+                raise RuntimeError("twin stream %s: card %s, CPU %s at %d "
+                                   "(gap %g)" % (prompt, a, b, i, gap))
+            compared += 1
+    log("phase 14 narrow twin %s, 8 streams on the card and the CPU: %d of "
+        "%d tokens compared (top-2 gap over %g), all equal; identical "
+        "streams: %d of 8" % (json.dumps(twin_kw), compared, total,
+                              10 * DECODE_TWIN_TOL,
+                              sum(a == b for a, b in zip(card, cpu))))
+    if compared < 0.9 * total:
+        raise RuntimeError("the twin compared only %d of %d tokens"
+                           % (compared, total))
+
+    quant_specs = [(p, min(n, 32)) for p, n in specs[:16]]
+    for dtype in ("bf16", "int8"):
+        support.reset_launch_counts()
+        outs, st = run_streams(fluid, cfg_kw, quant_specs, place,
+                               kv_dtype=dtype)
+        want = cfg_kw["num_layers"] * (st["serving.decode_steps"]
+                                       + st["serving.prefill_chunks"])
+        got = support.launch_counts().get("paged_decode_attention", 0)
+        if dev.type == "cuda" and got != want or st["serving.stream_errors"]:
+            raise RuntimeError("%s run: K6 launched %d, want %d; stream "
+                               "errors %d" % (dtype, got, want,
+                                              st["serving.stream_errors"]))
+        same = sum(a == b[:len(a)] for a, b in zip(outs, batched[:16]))
+        log("phase 14 %s arena, 16 streams of 32 tokens: clean, K6 %d "
+            "launches; %d of 16 streams equal the f32 run's first 32 "
+            "tokens" % (dtype, got, same))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -1198,6 +1870,7 @@ def main() -> int:
     from paddle_tpu_torch.ops.cuda import conv as k5
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
+    from paddle_tpu_torch.ops.cuda import paged_attention as k6
     from paddle_tpu_torch.ops.cuda import support
 
     card = card_line()
@@ -1217,11 +1890,15 @@ def main() -> int:
     conv = phase_conv(fluid, k5)
     resnet, k4["resnet_momentum"] = phase_resnet(fluid, support, fo)
     phase_resnet_twin(fluid, support)
-    kernels = (probe, flash, k2, k3, k4, conv)
+    paged = phase_paged_attention(k6)
+    decode, specs, outs, paged["decode_path"] = phase_decode(fluid, support)
+    phase_invariance(fluid, support, specs, outs)
+    kernels = (probe, flash, k2, k3, k4, conv, paged)
     for kern in kernels:
         by_path = {"serving": serving.get(kern["name"], 0),
                    "training": training.get(kern["name"], 0),
-                   "resnet": resnet.get(kern["name"], 0)}
+                   "resnet": resnet.get(kern["name"], 0),
+                   "decode": decode.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

@@ -13,29 +13,30 @@ parameters, since ``layer_norm`` normalises over S x D from its default
 is written.
 
 The script runs in float32 here; bench.py's bfloat16 (``mp.decorate``)
-needs AMP, a later slice. ``fluid`` is the package that builds it, this
-one by default: the tests build the same script under ``paddle_tpu`` to
-hold the two against each other.
+needs AMP, a later slice. It builds with this package only; the tests
+write the same script against each package to hold the two against each
+other.
 """
 from __future__ import annotations
+
+from .. import framework, layers, optimizer
+from ..layers.io import fluid_data
+from ..utils import unique_name
 
 GPT_LONG = dict(batch=2, seq_len=4096, d_model=1024, n_heads=16,
                 n_layers=2, vocab=8192)
 
 
 def build_gpt_long(batch, seq_len, d_model=1024, n_heads=16, n_layers=2,
-                   vocab=8192, learning_rate=1e-4, seed=0, fluid=None):
+                   vocab=8192, learning_rate=1e-4, seed=0):
     """(main, startup, loss, params_grads) of the training program, built
     under fresh names; ``seed`` is the startup program's random seed."""
-    if fluid is None:
-        import paddle_tpu_torch as fluid
-    layers = fluid.layers
     head = d_model // n_heads
-    main, startup = fluid.Program(), fluid.Program()
+    main, startup = framework.Program(), framework.Program()
     startup.random_seed = seed
-    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
-        ids = fluid.data(name="ids", shape=[batch, seq_len], dtype="int64")
-        lbl = fluid.data(name="lbl", shape=[batch * seq_len, 1],
+    with unique_name.guard(), framework.program_guard(main, startup):
+        ids = fluid_data(name="ids", shape=[batch, seq_len], dtype="int64")
+        lbl = fluid_data(name="lbl", shape=[batch * seq_len, 1],
                          dtype="int64")
         x = layers.embedding(ids, size=(vocab, d_model))
         for _ in range(n_layers):
@@ -59,7 +60,7 @@ def build_gpt_long(batch, seq_len, d_model=1024, n_heads=16, n_layers=2,
         logits = layers.fc(layers.layer_norm(x), vocab, num_flatten_dims=2)
         loss = layers.mean(layers.softmax_with_cross_entropy(
             layers.reshape(logits, [batch * seq_len, vocab]), lbl))
-        _, params_grads = fluid.optimizer.AdamOptimizer(
+        _, params_grads = optimizer.AdamOptimizer(
             learning_rate).minimize(loss)
     return main, startup, loss, params_grads
 

@@ -2,7 +2,9 @@
 histograms.
 
 The metric families are those of ``paddle_tpu/serving/metrics.py`` that the
-one-shot engine records; the classes are a small copy of the
+one-shot engine and the decode engine record, plus
+``serving.prefill_chunks`` (prompt chunks prefilled: with the decode steps
+it predicts the paged-attention launches); the classes are a small copy of the
 ``Counter``/``Gauge``/``Histogram`` of ``paddle_tpu/observability/
 registry.py`` (exact count/sum/min/max plus a bounded uniform reservoir
 for percentiles). Each ``ServingEngine`` owns its own ``MetricsRegistry``,
@@ -17,7 +19,9 @@ from typing import Dict, List, Optional
 __all__ = ["REQUESTS", "REJECTED", "DEADLINE_EXPIRED", "ERRORS",
            "BATCH_ERRORS", "BATCHES", "PADDING_WASTE", "BATCH_SIZE",
            "QUEUE_MS", "TOTAL_MS", "QUEUE_DEPTH", "DEDUP_HITS",
-           "Counter", "Gauge", "Histogram", "MetricsRegistry"]
+           "STREAMS", "TTFT_MS", "ITL_MS", "TOKENS", "PREFILL_TOKENS",
+           "PREFILL_CHUNKS", "DECODE_STEPS", "DECODE_BATCH", "KV_OCCUPANCY",
+           "PREEMPTIONS", "STREAM_RESUMES", "STREAM_ERRORS", "Counter", "Gauge", "Histogram", "MetricsRegistry"]
 
 REQUESTS = "serving.requests"                  # admitted requests
 REJECTED = "serving.rejected"                  # admission-control rejections
@@ -31,10 +35,26 @@ QUEUE_MS = "serving.queue_ms"                  # submit -> dispatch wait
 TOTAL_MS = "serving.total_ms"                  # submit -> result latency
 QUEUE_DEPTH = "serving.queue_depth"            # requests waiting now
 DEDUP_HITS = "serving.dedup_hits"              # idempotent request-id joins
+# the decode engine's families
+STREAMS = "serving.streams"                    # admitted decode streams
+TTFT_MS = "serving.ttft_ms"                    # submit -> first token
+ITL_MS = "serving.itl_ms"                      # gap between two tokens
+TOKENS = "serving.tokens"                      # generated tokens
+PREFILL_TOKENS = "serving.prefill_tokens"      # prompt tokens prefilled
+PREFILL_CHUNKS = "serving.prefill_chunks"      # prompt chunks prefilled
+DECODE_STEPS = "serving.decode_steps"          # batched decode steps
+DECODE_BATCH = "serving.decode_batch"          # real rows per decode step
+KV_OCCUPANCY = "serving.kv_occupancy"          # used share of the KV arena
+PREEMPTIONS = "serving.preemptions"            # sequences evicted
+STREAM_RESUMES = "serving.stream_resumes"      # submits with resume_from > 0
+STREAM_ERRORS = "serving.stream_errors"        # streams ended by an error
 
 _COUNTERS = (REQUESTS, REJECTED, DEADLINE_EXPIRED, ERRORS, BATCH_ERRORS,
-             BATCHES, PADDING_WASTE, DEDUP_HITS)
-_HISTOGRAMS = (BATCH_SIZE, QUEUE_MS, TOTAL_MS)
+             BATCHES, PADDING_WASTE, DEDUP_HITS, STREAMS, TOKENS,
+             PREFILL_TOKENS, PREFILL_CHUNKS, DECODE_STEPS, PREEMPTIONS,
+             STREAM_RESUMES, STREAM_ERRORS)
+_GAUGES = (QUEUE_DEPTH, KV_OCCUPANCY)
+_HISTOGRAMS = (BATCH_SIZE, QUEUE_MS, TOTAL_MS, TTFT_MS, ITL_MS, DECODE_BATCH)
 
 
 def reservoir_quantile(sorted_vals, q: float):
@@ -99,18 +119,23 @@ class Histogram:
         self._lock = threading.Lock()
 
     def observe(self, v) -> None:
-        v = float(v)
+        self.observe_many((v,))
+
+    def observe_many(self, vs) -> None:
+        """Observe each of ``vs`` in turn, under one lock."""
         with self._lock:
-            self.count += 1
-            self.sum += v
-            self.min = v if self.min is None else min(self.min, v)
-            self.max = v if self.max is None else max(self.max, v)
-            if len(self._reservoir) < self.RESERVOIR:
-                self._reservoir.append(v)
-            else:
-                j = self._rng.randrange(self.count)
-                if j < self.RESERVOIR:
-                    self._reservoir[j] = v
+            for v in vs:
+                v = float(v)
+                self.count += 1
+                self.sum += v
+                self.min = v if self.min is None else min(self.min, v)
+                self.max = v if self.max is None else max(self.max, v)
+                if len(self._reservoir) < self.RESERVOIR:
+                    self._reservoir.append(v)
+                else:
+                    j = int(self._rng.random() * self.count)
+                    if j < self.RESERVOIR:
+                        self._reservoir[j] = v
 
     def snapshot(self) -> Dict:
         with self._lock:
@@ -155,14 +180,18 @@ class MetricsRegistry:
     def observe(self, name: str, v) -> None:
         self.histogram(name).observe(v)
 
+    def set_gauge(self, name: str, v) -> None:
+        self.gauge(name).set(v)
+
     def set_queue_depth(self, n: int) -> None:
-        self.gauge(QUEUE_DEPTH).set(n)
+        self.set_gauge(QUEUE_DEPTH, n)
 
     def snapshot(self) -> Dict:
-        """The serving counters, queue depth and latency histograms as a
-        plain dict (the ``ServingEngine.stats()`` payload)."""
+        """The serving counters, gauges and latency histograms as a plain
+        dict (the ``stats()`` payload of either engine)."""
         out = {name: self.counter(name).value for name in _COUNTERS}
-        out[QUEUE_DEPTH] = self.gauge(QUEUE_DEPTH).value
+        for name in _GAUGES:
+            out[name] = self.gauge(name).value
         for name in _HISTOGRAMS:
             out[name] = self.histogram(name).snapshot()
         return out

@@ -16,7 +16,13 @@ the CPU with losses within 1e-4 relative (float32, TF32 off; the card's
 products and embedding grad sum in another order). The fused
 implicit-GEMM conv (K5) agrees with its plain version within 2e-5 of the
 output's largest magnitude in float32 (sums of up to 4608 products in
-another order) and 1e-2 in bfloat16 (y rounded once, twice allowed).
+another order) and 1e-2 in bfloat16 (y rounded once, twice allowed). Paged
+decode attention (K6) agrees with its plain version within 2e-5 of the
+output's largest magnitude on float32, bfloat16 and int8 arenas (both
+widen the same stored bits exactly), and a row alone gives the bits it
+gives in a batch. The decode engine on the card launches K6 as its
+counters predict and its streams do not change with the batch, the prefill
+chunking or a preemption.
 """
 import numpy as np
 import pytest
@@ -28,7 +34,9 @@ from paddle_tpu_torch.models import gpt, transformer
 from paddle_tpu_torch.ops.cuda import conv as k5
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
+from paddle_tpu_torch.ops.cuda import paged_attention as k6
 from paddle_tpu_torch.ops.cuda import support
+from paddle_tpu_torch.serving.decode import DecodeConfig, DecodeEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -391,3 +399,162 @@ def test_routed_conv2d_op_launches_k5_once_per_forward(cuda):
                                        atol=2e-5 * np.abs(want).max())
     finally:
         fluid.set_flags(old)
+
+
+# -- paged decode attention (K6) and the decode engine -------------------------
+
+K6_TOL = 2e-5  # every storage: both sides widen the same stored bits
+
+
+def _k6_case(cuda, B, H, D, bt, lens, storage, shared, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    seqs = [max(lens)] if shared else list(lens)
+    nb = sum(-(-n // bt) for n in seqs) + 3
+    shape = (nb, bt, H, D)
+    if storage == "int8":
+        ka, va = (torch.randint(-127, 128, shape, device=cuda, generator=g,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = ((torch.rand(nb, H, device=cuda, generator=g) + 0.5) / 127
+                  for _ in range(2))
+    else:
+        ka, va = (torch.randn(shape, device=cuda, generator=g)
+                  for _ in range(2))
+        ks = vs = None
+        if storage == "bf16":
+            ka, va, ks, vs = ka.bfloat16(), va.bfloat16(), "bf16", "bf16"
+    perm = torch.randperm(nb, device=cuda, generator=g).to(torch.int32)
+    width = max(1, max(-(-n // bt) for n in seqs))
+    table = torch.full((len(seqs), width), -1, dtype=torch.int32,
+                       device=cuda)
+    used = 0
+    for b, n in enumerate(seqs):
+        k = -(-n // bt)
+        table[b, :k] = perm[used:used + k]
+        used += k
+    return dict(q=torch.randn(B, H, D, device=cuda, generator=g),
+                k_arena=ka, v_arena=va, k_scales=ks, v_scales=vs,
+                block_tables=table, block_tokens=bt,
+                seq_lens=torch.tensor(lens, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("form", [
+    # (B, H, D, block_tokens, lengths or None for the prefill form)
+    (6, 16, 64, 16, [0, 1, 15, 16, 17, 300]),
+    (20, 16, 64, 16, None),
+    (9, 2, 8, 16, [0, 1, 15, 16, 17, 40, 3, 100, 7]),
+    (5, 3, 200, 4, [9, 0, 1, 3, 4]),
+    (7, 2, 31, 8, None)])
+def test_paged_kernel_matches_plain_version(cuda, storage, form):
+    B, H, D, bt, lens = form
+    shared = lens is None
+    if shared:
+        lens = [40 + t + 1 for t in range(B)]
+    case = _k6_case(cuda, B, H, D, bt, lens, storage, shared, seed=B + D)
+    before = k6.LAUNCHES.value
+    got = k6.paged_decode_attention(**case)
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES.value == before + 1
+    want = k6.paged_attention_reference(**case)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=K6_TOL * scale)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert (got[b] == 0).all()
+    # a row alone: the bits it has in the batch (and in the other form)
+    for b in (0, B - 1):
+        one = dict(case, q=case["q"][b:b + 1].contiguous(),
+                   seq_lens=case["seq_lens"][b:b + 1].contiguous(),
+                   block_tables=case["block_tables"][
+                       0 if shared else b:(0 if shared else b) + 1])
+        assert torch.equal(k6.paged_decode_attention(**one)[0], got[b])
+
+
+def test_paged_kernel_refuses_what_it_does_not_take(cuda):
+    case = _k6_case(cuda, 2, 2, 8, 4, [3, 5], "f32", False, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        k6.paged_decode_attention(**dict(
+            case, q=torch.zeros(2, 2, 300, device=cuda),
+            k_arena=torch.zeros(4, 4, 2, 300, device=cuda),
+            v_arena=torch.zeros(4, 4, 2, 300, device=cuda)))
+    with pytest.raises(ValueError, match="backend"):
+        k6.paged_decode_attention(**case, backend="dense")
+    with pytest.raises(ValueError, match="float32 q"):
+        k6.paged_decode_attention(**dict(case, q=case["q"].double()))
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.paged_decode_attention(**dict(
+            case, k_arena=case["k_arena"].transpose(1, 2).contiguous()
+            .transpose(1, 2)))
+
+
+def test_paged_kernel_never_reaches_the_plain_version_on_the_card(
+        cuda, monkeypatch):
+    calls = []
+    monkeypatch.setattr(k6, "paged_attention_reference",
+                        lambda *a, **kw: calls.append(1))
+    for storage in ("f32", "bf16", "int8"):
+        case = _k6_case(cuda, 4, 2, 8, 4, [3, 0, 9, 4], storage, False, 1)
+        out = k6.paged_decode_attention(**case)
+        assert torch.isfinite(out).all()
+    assert calls == []
+
+
+def _decode_cfg(place, **kw):
+    kw.setdefault("kv_blocks", 128)
+    kw.setdefault("eos_token", None)
+    return DecodeConfig(place=place, **kw)
+
+
+def _stream_tokens(engine, specs):
+    streams = [engine.submit(p, max_tokens=n) for p, n in specs]
+    return [[e["token"] for e in s if e["type"] == "token"] for s in streams]
+
+
+def test_decode_engine_on_the_card_launches_k6_and_agrees(cuda):
+    rng = np.random.RandomState(3)
+    specs = [([int(t) for t in rng.randint(1, 97, size=n)], 12)
+             for n in (3, 9, 20, 33, 5, 14)]
+    support.reset_launch_counts()
+    card = DecodeEngine(_decode_cfg(fluid.CUDAPlace(0))).start()
+    try:
+        assert card.device.type == "cuda"
+        got = _stream_tokens(card, specs)
+        st = card.stats()
+    finally:
+        card.stop()
+    assert support.launch_counts()["paged_decode_attention"] == 2 * (
+        st["serving.decode_steps"] + st["serving.prefill_chunks"])
+    cpu = DecodeEngine(_decode_cfg(fluid.CPUPlace())).start()
+    try:
+        want = _stream_tokens(cpu, specs)
+    finally:
+        cpu.stop()
+    # float32 on both sides; at this size no top-2 gap is within rounding
+    assert got == want
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "bf16", "int8"])
+def test_decode_engine_tokens_do_not_depend_on_batch_or_preemption(
+        cuda, kv_dtype):
+    rng = np.random.RandomState(4)
+    specs = [([int(t) for t in rng.randint(1, 97, size=n)], 20)
+             for n in (30, 17, 41, 25)]
+
+    def run(together, **kw):
+        # one block size throughout: int8 scales are per block
+        e = DecodeEngine(_decode_cfg(fluid.CUDAPlace(0), kv_dtype=kv_dtype,
+                                     max_batch_size=4, kv_block_tokens=4,
+                                     **kw)).start()
+        try:
+            if together:
+                return _stream_tokens(e, specs), e.stats()
+            return [_stream_tokens(e, [s])[0] for s in specs], e.stats()
+        finally:
+            e.stop()
+
+    alone, _ = run(False)
+    # 20 blocks of 4 hold the longest stream (16 blocks), not all four
+    tight, st = run(True, kv_blocks=20)
+    assert st["serving.preemptions"] >= 1
+    chunked, _ = run(True, prefill_chunk_tokens=5)
+    assert alone == tight == chunked

@@ -2,8 +2,9 @@
 
 A narrow version of bench.py's gpt_long (``_build_gpt_long``: batch 2,
 S 32, d_model 64, 2 heads, 2 layers, vocab 128; causal flash attention,
-Adam 1e-4, float32) is built by one script, the port's
-``models.gpt.build_gpt_long``, under both packages. The JAX
+Adam 1e-4, float32) is built by one script, ``build_gpt`` here, under
+both packages; the port's ``models.gpt.build_gpt_long`` must emit the
+same program. The JAX
 startup runs, every persistable (parameters, learning rate, moments, beta
 powers) is carried into the port's scope with ``io.scope_from_numpy``, and
 both train on the same numpy batches:
@@ -44,11 +45,52 @@ PARAM_ATOL_PER_STEP = 2 * LR
 KNOB = "PADDLE_TPU_FUSED_OPTIMIZER"
 
 
-def build_gpt(pkg):
-    main, startup, loss, params_grads = gpt.build_gpt_long(
-        BATCH, SEQ, D_MODEL, HEADS, LAYERS, VOCAB, learning_rate=LR, seed=1,
-        fluid=pkg)
+def build_gpt(pkg, batch=BATCH, seq_len=SEQ, d_model=D_MODEL, n_heads=HEADS,
+              n_layers=LAYERS, vocab=VOCAB):
+    """bench.py's gpt_long script (``_build_gpt_long``) under ``pkg``:
+    (main, startup, loss, params_grads)."""
+    layers = pkg.layers
+    head = d_model // n_heads
+    main, startup = pkg.Program(), pkg.Program()
+    startup.random_seed = 1
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        ids = pkg.data(name="ids", shape=[batch, seq_len], dtype="int64")
+        lbl = pkg.data(name="lbl", shape=[batch * seq_len, 1], dtype="int64")
+        x = layers.embedding(ids, size=(vocab, d_model))
+        for _ in range(n_layers):
+            h = layers.layer_norm(x)
+            q, k, v = (layers.fc(h, d_model, num_flatten_dims=2)
+                       for _ in range(3))
+
+            def heads(t):
+                t = layers.reshape(t, [batch, seq_len, n_heads, head])
+                return layers.transpose(t, [0, 2, 1, 3])
+
+            ctx = layers.flash_attention(heads(q), heads(k), heads(v),
+                                         causal=True)
+            ctx = layers.transpose(ctx, [0, 2, 1, 3])
+            ctx = layers.reshape(ctx, [batch, seq_len, d_model])
+            x = x + layers.fc(ctx, d_model, num_flatten_dims=2)
+            m = layers.fc(layers.layer_norm(x), d_model * 4,
+                          num_flatten_dims=2, act="gelu")
+            x = x + layers.fc(m, d_model, num_flatten_dims=2)
+        logits = layers.fc(layers.layer_norm(x), vocab, num_flatten_dims=2)
+        loss = layers.mean(layers.softmax_with_cross_entropy(
+            layers.reshape(logits, [batch * seq_len, vocab]), lbl))
+        _, params_grads = pkg.optimizer.AdamOptimizer(LR).minimize(loss)
     return main, startup, loss, params_grads
+
+
+def test_build_gpt_long_is_the_bench_script():
+    """The port's builder emits exactly this file's script."""
+    want = build_gpt(fluid)
+    got = gpt.build_gpt_long(BATCH, SEQ, D_MODEL, HEADS, LAYERS, VOCAB,
+                             learning_rate=LR, seed=1)
+    for w, g in zip(want[:2], got[:2]):
+        assert _op_seq(g) == _op_seq(w) and g.random_seed == w.random_seed
+    assert got[2].name == want[2].name
+    assert [(p.name, g.name) for p, g in got[3]] == \
+        [(p.name, g.name) for p, g in want[3]]
 
 
 def batches(n, seed=0):
