@@ -9,8 +9,8 @@
 // they recompute the probabilities P = exp(scale * Q K^T - LSE) tile by tile
 // and return
 //
-//   dQ = scale * (P * (dO V^T - delta)) K            (K2)
-//   dV = P^T dO,  dK = scale * (P * (dO V^T - delta))^T Q   (K3)
+//   dQ = scale * (P * (dO V^T - delta)) K                     (K2)
+//   dV = P^T dO,  dK = scale * (P * (dO V^T - delta))^T Q     (K3)
 //
 // with the forward's masks: causal (key k visible to query q iff k <= q)
 // and per-batch key lengths (keys at or past lengths[b] are invisible). A
@@ -21,31 +21,62 @@
 //
 // What bounds it on this card. Per (batch, head) K2 does three S x S x D
 // products and K3 four, against O(S D) bytes: at the training shape (S =
-// 4096, D = 64, causal) that is hundreds of FLOP per byte, so both are
-// bound by operations. Like the forward, this first version runs its
-// products on the float32 CUDA cores (67 TFLOP/s); wgmma and TMA are later
-// work. What the design keeps from the Pallas kernels is that the S x S
-// matrices never reach device memory, and that no two blocks write the same
-// output, so there are no atomics and every run gives the same bits:
+// 4096, D = 64, causal) hundreds of FLOP per byte, so both are bound by
+// operations. For float32 the least time is that of float32-accurate
+// products on the tensor cores: the 3xTF32 split (below) at a third of the
+// dense TF32 rate, 494.7 / 3 = 165 TFLOP/s, the route PyTorch's own float32
+// SDPA backward takes. bfloat16 runs at the bf16 rate, 989 TFLOP/s. No two
+// blocks write the same output, so there are no atomics and every run gives
+// the same bits; the S x S matrices never reach device memory.
 //
-//  * K2: one block of 128 threads per (64-row query tile, batch * head);
-//    two threads share a query row, each owning the interleaved half of the
-//    keys of a tile and of the columns of dQ. Q (scaled) and dO of the tile
-//    are staged once; the block walks 64-key tiles of K and V, stopping at
-//    the length and, with `causal`, at the end of the query tile. dS goes
-//    through one shared row per query; dQ stays in registers.
-//  * K3: one block of 128 threads per (64-key tile, batch * head); two
-//    threads share a key, each owning the interleaved half of the query
-//    rows of a tile and of the columns of dK and dV. K and V of the tile
-//    are staged once; the block walks 64-row query tiles from the
-//    diagonal (with `causal`) to S. P^T and dS^T go through shared rows;
-//    dK and dV stay in registers. A key tile wholly past the length writes
-//    zeros without walking.
+// Design:
+//  * Products on the tensor cores with mma.sync. float32 splits each
+//    operand x into hi = tf32(x) (round to nearest) and lo = x - hi, and
+//    sums lo*hi + hi*lo + hi*hi in float32 with m16n8k8.tf32 (3xTF32): one
+//    TF32 pass alone keeps about three decimal digits and misses the
+//    float32 limit. The tensor cores round their sums toward zero, so the
+//    twelve products of four depth steps sum from zero and join the
+//    running sum by a float32 add (rounding to nearest); summed in place,
+//    the sums drifted past the float32 limit over a walk of 4096 keys.
+//    The split happens in registers as a fragment is loaded (three integer
+//    and float operations an element; lo is left for the tensor cores to
+//    cut to tf32), not once per staged tile, which would double the
+//    shared memory and halve the blocks an SM holds.
+//    bfloat16 runs m16n8k16.bf16 with float32 accumulators; P and dS are
+//    rounded to bf16 for the second products, as in FA2.
+//  * Each warp owns 16 rows: query rows in K2, keys in K3. A block is 4
+//    warps over a 64-row tile and walks the other axis: K2 64-key tiles of
+//    K and V, K3 query tiles of Q, dO, LSE and delta (64 rows at D = 64, 32
+//    at D = 128, to keep dK, dV, S and dP in registers). S and dP of the
+//    warp's rows are computed into registers; P and dS are formed there with
+//    the masks and feed the second products straight from registers. The
+//    accumulator layout of m16n8k16 is its A-operand layout; for m16n8k8
+//    it is not, so the depth index of those products is permuted (logical
+//    column t is column 2t of an 8-wide tile, t + 4 is 2t + 1) and the B
+//    operand's rows are read in the same order. K3 works on S^T, so all
+//    four of its products stay within the warp's keys.
+//  * dQ (K2) and dK, dV (K3) accumulate in float32 registers over the whole
+//    walk and are written once.
+//  * Streamed tiles arrive by cp.async (16 bytes a thread; LSE and delta 4)
+//    into a ring of two stages: tile t + 1 loads while tile t computes.
+//    Rows past the end are zero-filled by the copy.
+//  * Shared rows are padded (float32 by 4 words, bf16 by 8 elements) so
+//    that every fragment load of a warp, row- or column-wise, hits 32
+//    distinct banks; bf16 column-wise fragments come from ldmatrix.trans.
+//  * Shared memory: K2 6 tiles of 64 rows (Q, dO, two stages of K and V),
+//    K3 K and V plus two stages of Q, dO, LSE and delta: 104 KB at D = 64
+//    in float32, two blocks an SM.
+//  * Causal balance: blockIdx.x is the (batch, head) and blockIdx.y the
+//    tile, so every head's longest walks start first: K2 takes the query
+//    tiles from the last, K3 the key tiles from the first.
 //
-// Shared tiles are float32 with rows padded to D + 1 so that the column
-// reads of a warp fall in distinct banks. The kernels launch on the
-// caller's stream, allocate nothing and do not synchronise. Each entry
-// point returns the cudaError_t of its launch.
+// Later work: wgmma (TF32 wgmma wants both operands K-major in shared
+// memory, which dV = P^T dO and dK = dS^T Q are not), TMA loads with
+// mbarriers, warp specialisation, and a persistent grid.
+//
+// The kernels launch on the caller's stream, allocate nothing and do not
+// synchronise. Each entry point returns the cudaError_t of its launch. Q,
+// K, V and dO must be 16-byte aligned (the wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,233 +86,556 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;            // query rows per tile
-constexpr int kBlockK = 64;            // keys per tile
-constexpr int kThreads = 128;          // two threads per row (or key)
-constexpr int kPStride = 65;           // padded row of a P / dS tile
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int kThreads = 128;  // four warps
+constexpr int kRows = 64;      // rows a block owns: 16 a warp
+constexpr int kWarpRows = 16;
 
 __device__ __forceinline__ int key_length(const int* lengths, int bh, int H,
                                           int S) {
   return lengths == nullptr ? S : min(S, max(lengths[bh / H], 0));
 }
 
-// rows [r0, r0 + 64) of a [S, D] slice into a [64][D + 1] float tile,
-// times `mul`; rows at or past `end` read as zeros
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0,
-                                      int end, float mul) {
-  for (int i = threadIdx.x; i < 64 * D; i += kThreads) {
-    const int r = i / D, c = i - r * D;
-    dst[r * (D + 1) + c] =
-        r0 + r < end ? to_float(src[int64_t(r0 + r) * D + c]) * mul : 0.f;
+// ------------------------------------------------------- asynchronous copies
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, or 16 zeros when !valid (the source is then not read)
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + ROWS) of a [S, D] slice into a [ROWS][STRIDE] tile; rows
+// at or past `end` are zero-filled
+template <typename T, int D, int ROWS, int STRIDE>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
+                                          int end) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = D / kVec;
+  static_assert(ROWS * kChunks % kThreads == 0, "tile split");
+#pragma unroll
+  for (int j = 0; j < ROWS * kChunks / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int r = i / kChunks, c = (i % kChunks) * kVec;
+    const bool ok = r0 + r < end;
+    cp_async_16(dst + r * STRIDE + c,
+                src + int64_t(ok ? r0 + r : 0) * D + c, ok);
   }
 }
 
-template <int D>
-__device__ __forceinline__ float dot_rows(const float* a, const float* b) {
-  float s = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < D; ++d) s += a[d] * b[d];
-  return s;
+// ------------------------------------------------------------ mma fragments
+
+// cvt.rna.tf32.f32 for finite x, which is all these kernels see: the 13
+// low mantissa bits rounded to nearest, ties away from zero. Two integer
+// operations; the conversion instruction compiles to several on sm_90a.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c = a * b, the sum starting from zero
+__device__ __forceinline__ void mma_tf32_zero(float* c, const uint32_t* a,
+                                              const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Lane roles of every fragment below: g = lane / 4 is the row (A, C) or
+// column (B) group, t = lane % 4 the position inside it. An accumulator
+// tile acc[n][4] of a 16-row strip holds (g, 8n + 2t), (g, 8n + 2t + 1),
+// (g + 8, 8n + 2t), (g + 8, 8n + 2t + 1).
+__device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
+__device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
+
+// float32 through 3xTF32 (m16n8k8)
+struct Tf32x3 {
+  using T = float;
+  static constexpr int kDepth = 8;
+  static constexpr int kPad = 4;  // row stride = 4 (mod 32) words
+  struct A {
+    uint32_t hi[4], lo[4];
+  };
+  struct B {
+    uint32_t hi[2], lo[2];
+  };
+
+  // hi = tf32(x) rounded to nearest; lo = x - hi exactly, passed as it
+  // is: the tensor cores read a tf32 operand's top 19 bits, which cuts lo
+  // to tf32 toward zero, an error of at most 2^-21 |x| whose sign follows
+  // lo's and so averages out. Rounding lo as well gave the same errors on
+  // the card and took longer.
+  static __device__ __forceinline__ void split(float x, uint32_t& hi,
+                                               uint32_t& lo) {
+    hi = to_tf32(x);
+    lo = __float_as_uint(x - __uint_as_float(hi));
+  }
+  // A = s[0:16][k0:k0+8], row-major
+  static __device__ __forceinline__ A load_a(const float* s, int stride,
+                                             int k0) {
+    const float* r = s + lane_g() * stride + k0 + lane_t();
+    A a;
+    split(r[0], a.hi[0], a.lo[0]);
+    split(r[8 * stride], a.hi[1], a.lo[1]);
+    split(r[4], a.hi[2], a.lo[2]);
+    split(r[8 * stride + 4], a.hi[3], a.lo[3]);
+    return a;
+  }
+  // B[k][n] = s[n0 + n][k0 + k]
+  static __device__ __forceinline__ B load_b_nk(const float* s, int stride,
+                                                int n0, int k0) {
+    const float* r = s + (n0 + lane_g()) * stride + k0 + lane_t();
+    B b;
+    split(r[0], b.hi[0], b.lo[0]);
+    split(r[4], b.hi[1], b.lo[1]);
+    return b;
+  }
+  // B[k][n] = s[k0 + k][n0 + n] with the depth permuted as in from_acc:
+  // logical rows t and t + 4 are rows 2t and 2t + 1
+  static __device__ __forceinline__ B load_b_kn(const float* s, int stride,
+                                                int k0, int n0) {
+    const float* r = s + (k0 + 2 * lane_t()) * stride + n0 + lane_g();
+    B b;
+    split(r[0], b.hi[0], b.lo[0]);
+    split(r[stride], b.hi[1], b.lo[1]);
+    return b;
+  }
+  // A = columns [8 kc, 8 kc + 8) of an accumulator strip, permuted
+  static __device__ __forceinline__ A from_acc(const float (*acc)[4],
+                                               int kc) {
+    A a;
+    split(acc[kc][0], a.hi[0], a.lo[0]);
+    split(acc[kc][2], a.hi[1], a.lo[1]);
+    split(acc[kc][1], a.hi[2], a.lo[2]);
+    split(acc[kc][3], a.hi[3], a.lo[3]);
+    return a;
+  }
+  // c += sum over j < kGroup of a[j] * b[j]. The tensor cores round their
+  // float32 sums toward zero, and relative to the running sum that drifts
+  // past the float32 limit over a long walk (or a peaked softmax); so the
+  // twelve products of four steps sum from zero, small ones first, and
+  // reach c by a float32 add, which rounds to nearest. (Fewer steps a
+  // partial gave the same errors on the card and took longer.)
+  static constexpr int kGroup = 4;
+  static __device__ __forceinline__ void mma(float* c, const A* a,
+                                             const B* b) {
+    float part[4];
+    mma_tf32_zero(part, a[0].lo, b[0].hi);
+    mma_tf32(part, a[0].hi, b[0].lo);
+#pragma unroll
+    for (int j = 1; j < kGroup; ++j) {
+      mma_tf32(part, a[j].lo, b[j].hi);
+      mma_tf32(part, a[j].hi, b[j].lo);
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) mma_tf32(part, a[j].hi, b[j].hi);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += part[e];
+  }
+  static __device__ __forceinline__ void store2(float* p, float x,
+                                                float y) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  }
+};
+
+// bfloat16 (m16n8k16)
+struct Bf16 {
+  using T = __nv_bfloat16;
+  static constexpr int kDepth = 16;
+  static constexpr int kPad = 8;  // row stride = 4 (mod 32) words
+  struct A {
+    uint32_t r[4];
+  };
+  struct B {
+    uint32_t r[2];
+  };
+
+  static __device__ __forceinline__ uint32_t ld32(const T* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ A load_a(const T* s, int stride,
+                                             int k0) {
+    const T* r = s + lane_g() * stride + k0 + 2 * lane_t();
+    return A{{ld32(r), ld32(r + 8 * stride), ld32(r + 8),
+              ld32(r + 8 * stride + 8)}};
+  }
+  static __device__ __forceinline__ B load_b_nk(const T* s, int stride,
+                                                int n0, int k0) {
+    const T* r = s + (n0 + lane_g()) * stride + k0 + 2 * lane_t();
+    return B{{ld32(r), ld32(r + 8)}};
+  }
+  // rows k0..k0+15 of s, columns n0..n0+7, transposed by ldmatrix: lanes
+  // 0-7 address rows k0..k0+7, lanes 8-15 rows k0+8..k0+15
+  static __device__ __forceinline__ B load_b_kn(const T* s, int stride,
+                                                int k0, int n0) {
+    const T* r = s + (k0 + (threadIdx.x & 15)) * stride + n0;
+    B b;
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+        : "=r"(b.r[0]), "=r"(b.r[1])
+        : "r"(smem_addr(r)));
+    return b;
+  }
+  // A = columns [16 kc, 16 kc + 16): accumulator tiles 2 kc and 2 kc + 1
+  static __device__ __forceinline__ A from_acc(const float (*acc)[4],
+                                               int kc) {
+    const float* x = acc[2 * kc];
+    const float* y = acc[2 * kc + 1];
+    return A{{pack(x[0], x[1]), pack(x[2], x[3]), pack(y[0], y[1]),
+              pack(y[2], y[3])}};
+  }
+  static constexpr int kGroup = 1;
+  static __device__ __forceinline__ void mma(float* c, const A* a,
+                                             const B* b) {
+    mma_bf16(c, a->r, b->r);
+  }
+  static __device__ __forceinline__ void store2(T* p, float x, float y) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+  }
+};
+
+// acc[0:16][0:8 NT] += a[0:16][0:K] * b[0:8 NT][0:K]^T, both in shared;
+// kGroup steps of depth at a time
+template <class Op, int K, int NT>
+__device__ __forceinline__ void gemm_nk(float (*acc)[4],
+                                        const typename Op::T* a,
+                                        const typename Op::T* b,
+                                        int stride) {
+  constexpr int kStep = Op::kDepth, kG = Op::kGroup;
+  static_assert(K % (kStep * kG) == 0, "depth steps");
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += kStep * kG) {
+    typename Op::A fa[kG];
+#pragma unroll
+    for (int j = 0; j < kG; ++j) fa[j] = Op::load_a(a, stride, k0 + j * kStep);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      typename Op::B fb[kG];
+#pragma unroll
+      for (int j = 0; j < kG; ++j)
+        fb[j] = Op::load_b_nk(b, stride, 8 * n, k0 + j * kStep);
+      Op::mma(acc[n], fa, fb);
+    }
+  }
+}
+
+// acc[0:16][0:8 NT] += p[0:16][0:K] * b[0:K][0:8 NT]: p an accumulator
+// strip in registers, b in shared
+template <class Op, int K, int NT>
+__device__ __forceinline__ void gemm_kn(float (*acc)[4],
+                                        const float (*p)[4],
+                                        const typename Op::T* b,
+                                        int stride) {
+  constexpr int kStep = Op::kDepth, kG = Op::kGroup;
+  static_assert(K % (kStep * kG) == 0, "depth steps");
+#pragma unroll
+  for (int kc = 0; kc < K / kStep; kc += kG) {
+    typename Op::A fa[kG];
+#pragma unroll
+    for (int j = 0; j < kG; ++j) fa[j] = Op::from_acc(p, kc + j);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      typename Op::B fb[kG];
+#pragma unroll
+      for (int j = 0; j < kG; ++j)
+        fb[j] = Op::load_b_kn(b, stride, (kc + j) * kStep, 8 * n);
+      Op::mma(acc[n], fa, fb);
+    }
+  }
+}
+
+// an accumulator strip [16][8 NT] times `mul` into rows r0.. of a [S, D]
+// slice, rows at or past S skipped
+template <class Op, int NT>
+__device__ __forceinline__ void store_strip(typename Op::T* dst,
+                                            const float (*acc)[4], int r0,
+                                            int S, int D, float mul) {
+  const int ra = r0 + lane_g(), rb = ra + 8;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int c = 8 * n + 2 * lane_t();
+    if (ra < S)
+      Op::store2(dst + int64_t(ra) * D + c, acc[n][0] * mul,
+                 acc[n][1] * mul);
+    if (rb < S)
+      Op::store2(dst + int64_t(rb) * D + c, acc[n][2] * mul,
+                 acc[n][3] * mul);
+  }
+}
+
+// K3's streamed tile of queries: 64 at D = 64, 32 at D = 128
 template <int D>
+constexpr int kDkvCols = D == 64 ? 64 : 32;
+
+template <class Op, int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (size_t(4) * 64 * (D + 1) + kBlockQ * kPStride);
+  // Q, dO, and two stages of K and V
+  return sizeof(typename Op::T) * size_t(6) * kRows * (D + Op::kPad);
 }
 
-template <int D>
+template <class Op, int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) *
-         (size_t(4) * 64 * (D + 1) + 2 * kBlockK * kPStride + 2 * kBlockQ);
+  // K, V, two stages of Q and dO, two stages of LSE and delta
+  return sizeof(typename Op::T) * size_t(2 * kRows + 4 * kDkvCols<D>) *
+             (D + Op::kPad) +
+         sizeof(float) * 4 * kDkvCols<D>;
 }
 
 // ---------------------------------------------------------------- K2: dQ
 
-template <typename T, int D>
+template <class Op, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const typename Op::T* __restrict__ q,
+                    const typename Op::T* __restrict__ k,
+                    const typename Op::T* __restrict__ v,
+                    const typename Op::T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const int* __restrict__ lengths, T* __restrict__ dq,
-                    int H, int S, int causal, float scale) {
-  constexpr int kStride = D + 1;
-  constexpr int kHalfD = D / 2;
-  constexpr int kHalfK = kBlockK / 2;
-  extern __shared__ float smem[];
-  float* qs = smem;                      // [kBlockQ][kStride], Q * scale
-  float* dos = qs + kBlockQ * kStride;   // [kBlockQ][kStride], dO
-  float* ks = dos + kBlockQ * kStride;   // [kBlockK][kStride]
-  float* vs = ks + kBlockK * kStride;    // [kBlockK][kStride]
-  float* dss = vs + kBlockK * kStride;   // [kBlockQ][kPStride], dS
+                    const int* __restrict__ lengths,
+                    typename Op::T* __restrict__ dq, int H, int S,
+                    int causal, float scale) {
+  using T = typename Op::T;
+  constexpr int kStride = D + Op::kPad;
+  constexpr int kCols = 64;          // keys per streamed tile
+  constexpr int kNT = kCols / 8;     // 8-wide tiles of S and dP
+  constexpr int kDT = D / 8;         // 8-wide tiles of dQ
+  constexpr int kTile = kRows * kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [kRows][kStride]
+  T* dos = qs + kTile;                     // [kRows][kStride]
+  T* kv = dos + kTile;  // stage s: K at kv + 2 s kTile, V after it
 
-  const int tid = threadIdx.x;
-  const int row = tid >> 1;
-  const int half = tid & 1;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int qrow = q0 + row;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest first
+  const int warp = threadIdx.x >> 5;
   const int64_t base = int64_t(bh) * S * D;
-
   const int kv_len = key_length(lengths, bh, H, S);
-  const int kv_end = causal ? min(kv_len, q0 + kBlockQ) : kv_len;
+  const int kv_end = causal ? min(kv_len, q0 + kRows) : kv_len;
+  const int n_tiles = (kv_end + kCols - 1) / kCols;
 
-  stage<T, D>(qs, q + base, q0, S, scale);
-  stage<T, D>(dos, dout + base, q0, S, 1.f);
-  const float row_lse = qrow < S ? lse[int64_t(bh) * S + qrow] : 0.f;
-  const float row_delta = qrow < S ? delta[int64_t(bh) * S + qrow] : 0.f;
-
-  float acc[kHalfD];
+  float acc[kDT][4];
 #pragma unroll
-  for (int i = 0; i < kHalfD; ++i) acc[i] = 0.f;
+  for (int n = 0; n < kDT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed (and Q, dO staged)
-    stage<T, D>(ks, k + base, k0, kv_end, 1.f);
-    stage<T, D>(vs, v + base, k0, kv_end, 1.f);
-    __syncthreads();
+  if (n_tiles > 0) {
+    load_tile<T, D, kRows, kStride>(qs, q + base, q0, S);
+    load_tile<T, D, kRows, kStride>(dos, dout + base, q0, S);
+    load_tile<T, D, kCols, kStride>(kv, k + base, 0, kv_end);
+    load_tile<T, D, kCols, kStride>(kv + kTile, v + base, 0, kv_end);
+    cp_async_commit();
 
-    const float* qr = qs + row * kStride;
-    const float* dr = dos + row * kStride;
-#pragma unroll 4
-    for (int jj = 0; jj < kHalfK; ++jj) {
-      const int j = 2 * jj + half;
-      const int kpos = k0 + j;
-      const bool vis = qrow < S && kpos < kv_len && (!causal || kpos <= qrow);
-      float ds = 0.f;
-      if (vis) {
-        const float p = expf(dot_rows<D>(qr, ks + j * kStride) - row_lse);
-        ds = p * (dot_rows<D>(dr, vs + j * kStride) - row_delta);
+    const int qa = q0 + warp * kWarpRows + lane_g(), qb = qa + 8;
+    const float lse_a = qa < S ? lse[int64_t(bh) * S + qa] : 0.f;
+    const float lse_b = qb < S ? lse[int64_t(bh) * S + qb] : 0.f;
+    const float del_a = qa < S ? delta[int64_t(bh) * S + qa] : 0.f;
+    const float del_b = qb < S ? delta[int64_t(bh) * S + qb] : 0.f;
+    const T* qw = qs + warp * kWarpRows * kStride;
+    const T* dow = dos + warp * kWarpRows * kStride;
+
+    for (int it = 0; it < n_tiles; ++it) {
+      if (it + 1 < n_tiles) {  // the next tile loads while this one runs
+        T* nxt = kv + ((it + 1) & 1) * 2 * kTile;
+        load_tile<T, D, kCols, kStride>(nxt, k + base, (it + 1) * kCols,
+                                        kv_end);
+        load_tile<T, D, kCols, kStride>(nxt + kTile, v + base,
+                                        (it + 1) * kCols, kv_end);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
-      dss[row * kPStride + j] = ds;
-    }
-    __syncwarp();  // both halves of the dS row are written (same warp)
+      __syncthreads();
+      const T* ks = kv + (it & 1) * 2 * kTile;
+      const T* vs = ks + kTile;
+      const int k0 = it * kCols;
 
-    const float* dsr = dss + row * kPStride;
-    for (int j = 0; j < kBlockK; ++j) {
-      const float ds = dsr[j];
-      const float* kr = ks + j * kStride + half;
+      float s[kNT][4], dp[kNT][4];
 #pragma unroll
-      for (int i = 0; i < kHalfD; ++i) acc[i] += ds * kr[2 * i];
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      gemm_nk<Op, D, kNT>(s, qw, ks, kStride);
+      gemm_nk<Op, D, kNT>(dp, dow, vs, kStride);
+      // every key of the tile visible to every row of the block: no mask
+      const bool open = k0 + kCols <= kv_len && q0 + kRows <= S &&
+                        (!causal || k0 + kCols <= q0 + 1);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? qa : qb;
+          const int key = k0 + 8 * n + 2 * lane_t() + (e & 1);
+          const bool vis =
+              open || (row < S && key < kv_len && (!causal || key <= row));
+          const float p =
+              vis ? expf(s[n][e] * scale - (e < 2 ? lse_a : lse_b)) : 0.f;
+          s[n][e] = p * (dp[n][e] - (e < 2 ? del_a : del_b));  // dS
+        }
+      gemm_kn<Op, kCols, kDT>(acc, s, ks, kStride);
+      __syncthreads();  // this stage is consumed before it is refilled
     }
   }
-
-  if (qrow < S) {
-    T* out = dq + base + int64_t(qrow) * D + half;
-#pragma unroll
-    for (int i = 0; i < kHalfD; ++i) out[2 * i] = from_float<T>(acc[i] * scale);
-  }
+  store_strip<Op, kDT>(dq + base, acc, q0 + warp * kWarpRows, S, D, scale);
 }
 
 // ---------------------------------------------------------- K3: dK and dV
 
-template <typename T, int D>
+template <class Op, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const typename Op::T* __restrict__ q,
+                     const typename Op::T* __restrict__ k,
+                     const typename Op::T* __restrict__ v,
+                     const typename Op::T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     const int* __restrict__ lengths, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int S, int causal,
-                     float scale) {
-  constexpr int kStride = D + 1;
-  constexpr int kHalfD = D / 2;
-  constexpr int kHalfQ = kBlockQ / 2;
-  extern __shared__ float smem[];
-  float* ks = smem;                      // [kBlockK][kStride]
-  float* vs = ks + kBlockK * kStride;    // [kBlockK][kStride]
-  float* qs = vs + kBlockK * kStride;    // [kBlockQ][kStride], Q * scale
-  float* dos = qs + kBlockQ * kStride;   // [kBlockQ][kStride], dO
-  float* pts = dos + kBlockQ * kStride;  // [kBlockK][kPStride], P^T
-  float* dst = pts + kBlockK * kPStride; // [kBlockK][kPStride], dS^T
-  float* lse_s = dst + kBlockK * kPStride;  // [kBlockQ]
-  float* delta_s = lse_s + kBlockQ;         // [kBlockQ]
+                     const int* __restrict__ lengths,
+                     typename Op::T* __restrict__ dk,
+                     typename Op::T* __restrict__ dv, int H, int S,
+                     int causal, float scale) {
+  using T = typename Op::T;
+  constexpr int kStride = D + Op::kPad;
+  constexpr int kCols = kDkvCols<D>;  // queries per streamed tile
+  constexpr int kNT = kCols / 8;        // 8-wide tiles of S^T and dP^T
+  constexpr int kDT = D / 8;            // 8-wide tiles of dK and dV
+  constexpr int kKeyTile = kRows * kStride;
+  constexpr int kQTile = kCols * kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [kRows][kStride]
+  T* vs = ks + kKeyTile;                   // [kRows][kStride]
+  T* qd = vs + kKeyTile;  // stage s: Q at qd + 2 s kQTile, dO after it
+  float* stats = reinterpret_cast<float*>(qd + 4 * kQTile);
+  // stage s: LSE at stats + 2 s kCols, delta after it
 
-  const int tid = threadIdx.x;
-  const int key = tid >> 1;    // key inside the tile
-  const int half = tid & 1;    // which interleaved half this thread owns
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kBlockK;
-  const int kpos = k0 + key;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kRows;  // the first key tiles walk longest
+  const int warp = threadIdx.x >> 5;
   const int64_t base = int64_t(bh) * S * D;
+  const int64_t row_base = int64_t(bh) * S;
   const int kv_len = key_length(lengths, bh, H, S);
 
-  float dk_acc[kHalfD], dv_acc[kHalfD];
+  float dk_acc[kDT][4], dv_acc[kDT][4];
 #pragma unroll
-  for (int i = 0; i < kHalfD; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int n = 0; n < kDT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
   if (k0 < kv_len) {  // else no query sees this tile: dK = dV = 0
-    stage<T, D>(ks, k + base, k0, kv_len, 1.f);
-    stage<T, D>(vs, v + base, k0, kv_len, 1.f);
-    // with `causal`, query tiles above this key tile see none of it
-    const int q_begin = causal ? (k0 / kBlockQ) * kBlockQ : 0;
-    const float* kr = ks + key * kStride;
-    const float* vr = vs + key * kStride;
-    for (int q0 = q_begin; q0 < S; q0 += kBlockQ) {
-      __syncthreads();  // the previous tile is consumed (and K, V staged)
-      stage<T, D>(qs, q + base, q0, S, scale);
-      stage<T, D>(dos, dout + base, q0, S, 1.f);
-      if (tid < kBlockQ) {
-        const bool in = q0 + tid < S;
-        lse_s[tid] = in ? lse[int64_t(bh) * S + q0 + tid] : 0.f;
-        delta_s[tid] = in ? delta[int64_t(bh) * S + q0 + tid] : 0.f;
+    // with `causal`, queries before the key tile see none of it
+    const int q_begin = causal ? (k0 / kCols) * kCols : 0;
+    const int n_tiles = (S - q_begin + kCols - 1) / kCols;
+    auto load_stage = [&](int it) {
+      T* qs = qd + (it & 1) * 2 * kQTile;
+      float* st = stats + (it & 1) * 2 * kCols;
+      const int i0 = q_begin + it * kCols;
+      load_tile<T, D, kCols, kStride>(qs, q + base, i0, S);
+      load_tile<T, D, kCols, kStride>(qs + kQTile, dout + base, i0, S);
+      for (int i = threadIdx.x; i < kCols; i += kThreads) {
+        const bool ok = i0 + i < S;
+        const int64_t r = row_base + (ok ? i0 + i : 0);
+        cp_async_4(st + i, lse + r, ok);
+        cp_async_4(st + kCols + i, delta + r, ok);
+      }
+    };
+    load_tile<T, D, kRows, kStride>(ks, k + base, k0, kv_len);
+    load_tile<T, D, kRows, kStride>(vs, v + base, k0, kv_len);
+    load_stage(0);
+    cp_async_commit();
+
+    const int ka = k0 + warp * kWarpRows + lane_g(), kb = ka + 8;
+    const T* kw = ks + warp * kWarpRows * kStride;
+    const T* vw = vs + warp * kWarpRows * kStride;
+
+    for (int it = 0; it < n_tiles; ++it) {
+      if (it + 1 < n_tiles) {  // the next tile loads while this one runs
+        load_stage(it + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
       __syncthreads();
+      const T* qs = qd + (it & 1) * 2 * kQTile;
+      const T* dos = qs + kQTile;
+      const float* lse_s = stats + (it & 1) * 2 * kCols;
+      const float* del_s = lse_s + kCols;
+      const int i0 = q_begin + it * kCols;
 
-#pragma unroll 4
-      for (int ii = 0; ii < kHalfQ; ++ii) {
-        const int i = 2 * ii + half;
-        const int qpos = q0 + i;
-        const bool vis = qpos < S && kpos < kv_len && (!causal || kpos <= qpos);
-        float p = 0.f, ds = 0.f;
-        if (vis) {
-          p = expf(dot_rows<D>(qs + i * kStride, kr) - lse_s[i]);
-          ds = p * (dot_rows<D>(dos + i * kStride, vr) - delta_s[i]);
-        }
-        pts[key * kPStride + i] = p;
-        dst[key * kPStride + i] = ds;
-      }
-      __syncwarp();  // both halves of this key's rows are written
-
-      const float* pr = pts + key * kPStride;
-      const float* dr = dst + key * kPStride;
-      for (int i = 0; i < kBlockQ; ++i) {
-        const float p = pr[i], ds = dr[i];
-        const float* dor = dos + i * kStride + half;
-        const float* qr = qs + i * kStride + half;
+      float s[kNT][4], dp[kNT][4];  // S^T, dP^T: [key][query]
 #pragma unroll
-        for (int c = 0; c < kHalfD; ++c) {
-          dv_acc[c] += p * dor[2 * c];
-          dk_acc[c] += ds * qr[2 * c];  // Q is staged times scale
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      gemm_nk<Op, D, kNT>(s, kw, qs, kStride);
+      gemm_nk<Op, D, kNT>(dp, vw, dos, kStride);
+      // every query of the tile sees every key of the block: no mask
+      const bool open = i0 + kCols <= S && k0 + kRows <= kv_len &&
+                        (!causal || k0 + kRows <= i0 + 1);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = e < 2 ? ka : kb;
+          const int col = 8 * n + 2 * lane_t() + (e & 1);
+          const int qpos = i0 + col;
+          const bool vis = open || (qpos < S && key < kv_len &&
+                                    (!causal || key <= qpos));
+          const float p = vis ? expf(s[n][e] * scale - lse_s[col]) : 0.f;
+          s[n][e] = p;                             // P^T
+          dp[n][e] = p * (dp[n][e] - del_s[col]);  // dS^T
         }
-      }
+      gemm_kn<Op, kCols, kDT>(dv_acc, s, dos, kStride);
+      gemm_kn<Op, kCols, kDT>(dk_acc, dp, qs, kStride);
+      __syncthreads();  // this stage is consumed before it is refilled
     }
   }
-
-  if (kpos < S) {
-    T* dko = dk + base + int64_t(kpos) * D + half;
-    T* dvo = dv + base + int64_t(kpos) * D + half;
-#pragma unroll
-    for (int c = 0; c < kHalfD; ++c) {
-      dko[2 * c] = from_float<T>(dk_acc[c]);
-      dvo[2 * c] = from_float<T>(dv_acc[c]);
-    }
-  }
+  const int r0 = k0 + warp * kWarpRows;
+  store_strip<Op, kDT>(dk + base, dk_acc, r0, S, D, scale);
+  store_strip<Op, kDT>(dv + base, dv_acc, r0, S, D, 1.f);
 }
 
 constexpr int kMaxDevices = 64;
@@ -306,17 +660,18 @@ cudaError_t raise_smem_limit_once(Kernel kernel, size_t bytes,
   return err;
 }
 
-template <typename T, int D>
+template <class Op, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       const int* lengths, void* dq, int B, int H, int S,
                       int causal, float scale, cudaStream_t stream) {
+  using T = typename Op::T;
   static std::atomic<bool> done[kMaxDevices];
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  const size_t smem = dq_smem_bytes<D>();
+  auto kernel = flash_bwd_dq_kernel<Op, D>;
+  const size_t smem = dq_smem_bytes<Op, D>();
   cudaError_t err = raise_smem_limit_once(kernel, smem, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
+  const dim3 grid(B * H, (S + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
@@ -324,18 +679,19 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <class Op, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, const int* lengths, void* dk,
                        void* dv, int B, int H, int S, int causal, float scale,
                        cudaStream_t stream) {
+  using T = typename Op::T;
   static std::atomic<bool> done[kMaxDevices];
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
-  const size_t smem = dkv_smem_bytes<D>();
+  auto kernel = flash_bwd_dkv_kernel<Op, D>;
+  const size_t smem = dkv_smem_bytes<Op, D>();
   cudaError_t err = raise_smem_limit_once(kernel, smem, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlockK - 1) / kBlockK, B * H);
+  const dim3 grid(B * H, (S + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
@@ -348,9 +704,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q, k, v, dout, dq: contiguous [B, H, S, D] of float32 (is_bf16 = 0) or
-// bfloat16 (is_bf16 = 1); lse, delta: [B*H, S] float32; lengths: [B] int32
-// on the device, or null. D must be 64 or 128.
+// q, k, v, dout, dq: contiguous, 16-byte aligned [B, H, S, D] of float32
+// (is_bf16 = 0) or bfloat16 (is_bf16 = 1); lse, delta: [B*H, S] float32;
+// lengths: [B] int32 on the device, or null. D must be 64 or 128, and
+// ceil(S / 64) at most 65535.
 int paddle_flash_attention_backward_dq(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const float* lse, const float* delta,
@@ -360,13 +717,13 @@ int paddle_flash_attention_backward_dq(const void* q, const void* k,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64 && !is_bf16)
-    return launch_dq<float, 64>(q, k, v, dout, lse, delta, lengths, dq, B, H, S, causal, scale, st);
+    return launch_dq<Tf32x3, 64>(q, k, v, dout, lse, delta, lengths, dq, B, H, S, causal, scale, st);
   if (D == 128 && !is_bf16)
-    return launch_dq<float, 128>(q, k, v, dout, lse, delta, lengths, dq, B, H, S, causal, scale, st);
+    return launch_dq<Tf32x3, 128>(q, k, v, dout, lse, delta, lengths, dq, B, H, S, causal, scale, st);
   if (D == 64 && is_bf16)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, lengths, dq, B, H, S, causal, scale, st);
+    return launch_dq<Bf16, 64>(q, k, v, dout, lse, delta, lengths, dq, B, H, S, causal, scale, st);
   if (D == 128 && is_bf16)
-    return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, lengths, dq, B, H, S, causal, scale, st);
+    return launch_dq<Bf16, 128>(q, k, v, dout, lse, delta, lengths, dq, B, H, S, causal, scale, st);
   return int(cudaErrorInvalidValue);
 }
 
@@ -380,13 +737,13 @@ int paddle_flash_attention_backward_dkv(const void* q, const void* k,
                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64 && !is_bf16)
-    return launch_dkv<float, 64>(q, k, v, dout, lse, delta, lengths, dk, dv, B, H, S, causal, scale, st);
+    return launch_dkv<Tf32x3, 64>(q, k, v, dout, lse, delta, lengths, dk, dv, B, H, S, causal, scale, st);
   if (D == 128 && !is_bf16)
-    return launch_dkv<float, 128>(q, k, v, dout, lse, delta, lengths, dk, dv, B, H, S, causal, scale, st);
+    return launch_dkv<Tf32x3, 128>(q, k, v, dout, lse, delta, lengths, dk, dv, B, H, S, causal, scale, st);
   if (D == 64 && is_bf16)
-    return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, lengths, dk, dv, B, H, S, causal, scale, st);
+    return launch_dkv<Bf16, 64>(q, k, v, dout, lse, delta, lengths, dk, dv, B, H, S, causal, scale, st);
   if (D == 128 && is_bf16)
-    return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, lengths, dk, dv, B, H, S, causal, scale, st);
+    return launch_dkv<Bf16, 128>(q, k, v, dout, lse, delta, lengths, dk, dv, B, H, S, causal, scale, st);
   return int(cudaErrorInvalidValue);
 }
 

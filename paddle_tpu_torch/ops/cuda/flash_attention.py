@@ -17,7 +17,11 @@ as the JAX package does). A row that sees no key gets O = 0.
 lengths)`` returns ``(dQ, dK, dV)``: ``delta = rowsum(dO * O)`` in plain
 torch (the JAX package also leaves it outside Pallas), then K2 for dQ and
 K3 for dK and dV. A row that sees no key gets dQ = 0; keys past the length
-get dK = dV = 0.
+get dK = dV = 0. K2 and K3 run their products on the tensor cores (float32
+through the 3xTF32 split, float32-accurate; bfloat16 directly) and load
+their tiles with 16-byte asynchronous copies, so on top of the forward's
+limits they take Q, K, V and dO 16-byte aligned and S up to 65535 tiles
+of 64.
 
 ``FlashAttentionFunction`` is the ``torch.autograd.Function`` around them,
 the counterpart of the ``jax.custom_vjp`` there: its forward runs K1 and
@@ -217,9 +221,23 @@ def _load_bwd_kernels():
     return _bwd_kernels
 
 
+# K2/K3 copy 16 bytes at a time and launch one block row per 64-row tile
+BWD_ALIGN = 16
+BWD_MAX_S = 65535 * 64
+
+
 def _check_backward_args(q, k, v, out, lse, dout):
     B, H, S, _ = q.shape
     _check_kernel_args(q, {"k": k, "v": v, "out": out, "dout": dout})
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        if t.data_ptr() % BWD_ALIGN:
+            raise ValueError("flash_attention backward kernels take %s "
+                             "%d-byte aligned, got address %% %d = %d"
+                             % (name, BWD_ALIGN, BWD_ALIGN,
+                                t.data_ptr() % BWD_ALIGN))
+    if S > BWD_MAX_S:
+        raise ValueError("flash_attention backward kernels take S <= %d "
+                         "(65535 tiles of 64), got %d" % (BWD_MAX_S, S))
     if lse.shape != (B * H, S) or lse.dtype != torch.float32 \
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError("flash_attention backward takes LSE as contiguous "

@@ -12,6 +12,15 @@ of P from LSE, products summed in another order over at most 64 terms).
 The autograd Function is held to ``torch.autograd`` through the plain
 forward within 1e-5 as well (the same float32 math, differentiated by
 hand on one side and by autograd on the other).
+
+The card's K2/K3 run float32 products through the 3xTF32 split. An
+emulation here (TF32 rounding to nearest on the mantissa bits, then
+lo*hi + hi*lo + hi*hi) run through the plain backward's five products
+stays within the card tests' float32 limit, 2e-5 of each grad's largest
+magnitude, against the plain backward, also with peaked softmaxes (Q times
+8), whether lo is rounded to nearest or cut toward zero (the kernels leave
+it for the tensor cores to cut); one TF32 pass (hi*hi) goes over it by
+far.
 """
 import numpy as np
 import pytest
@@ -114,3 +123,100 @@ def test_backward_wrapper_refuses_other_devices():
     lse = torch.empty((2, 8), device="meta")
     with pytest.raises(ValueError, match="meta"):
         port_fa.flash_attention_backward(x, x, x, x, lse, x)
+
+
+F32_LIMIT = 2e-5   # the card tests' float32 limit for K2/K3
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10 mantissa bits), to nearest, ties away
+    from zero: what ``cvt.rna.tf32.f32`` gives."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_toward_zero(x):
+    """float32 cut to TF32 toward zero: what the tensor cores read of an
+    operand whose 13 low bits are not clear."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, passes, lo_cut=_tf32):
+    """einsum of TF32 operands: one pass (hi*hi) or the 3xTF32 split
+    (lo*hi + hi*lo + hi*hi, hi = tf32(x), lo = lo_cut(x - hi))."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if passes == 3:
+        al, bl = lo_cut(a - ah), lo_cut(b - bh)
+        out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + out
+    return out
+
+
+def _emulated_backward(q, k, v, out, lse, do, causal, scale, passes,
+                       lo_cut=_tf32):
+    """The plain backward with every product emulated as the card's
+    kernels run it (scale applied after Q K^T and to dQ, dK at the end)."""
+    B, H, S, _ = q.shape
+
+    def mm(eq, a, b):
+        return _tf32_product(eq, a, b, passes, lo_cut)
+
+    s = mm("bhqd,bhkd->bhqk", q, k) * scale
+    vis = port_fa._visible(S, causal, None, q.device)
+    p = torch.where(vis, torch.exp(s - lse.reshape(B, H, S, 1)),
+                    torch.zeros_like(s))
+    delta = (do * out).sum(dim=-1, keepdim=True)
+    ds = p * (mm("bhqd,bhkd->bhqk", do, v) - delta)
+    dv = mm("bhqk,bhqd->bhkd", p, do)
+    dq = mm("bhqk,bhkd->bhqd", ds, k) * scale
+    dk = mm("bhqk,bhqd->bhkd", ds, q) * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("lo_cut", ["nearest", "toward_zero"])
+@pytest.mark.parametrize("peak", [1.0, 8.0])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_split_keeps_the_float32_limit_and_one_pass_does_not(
+        causal, S, D, peak, lo_cut):
+    """lo rounded to nearest, or left for the tensor cores to cut toward
+    zero as the kernels leave it: either way within the limit."""
+    cut = {"nearest": _tf32, "toward_zero": _tf32_toward_zero}[lo_cut]
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(S, D, seed=S + D))
+    q = q * peak
+    scale = float(D) ** -0.5
+    out, lse = port_fa.flash_attention_reference(q, k, v, causal, scale)
+    want = port_fa.flash_attention_backward_reference(q, k, v, out, lse, do,
+                                                      causal, scale)
+
+    def worst(passes):
+        got = _emulated_backward(q, k, v, out, lse, do, causal, scale,
+                                 passes, cut)
+        return max(float((g - w).abs().max())
+                   / max(float(w.abs().max()), 1.0)
+                   for g, w in zip(got, want))
+
+    assert worst(3) <= F32_LIMIT
+    assert worst(1) > 10 * F32_LIMIT
+
+
+def test_tf32_rounding_is_to_nearest_on_the_mantissa():
+    one = 1.0 + 2.0 ** -10     # representable in TF32
+    x = torch.tensor([1.0 + 2.0 ** -11,            # tie: away from zero
+                      1.0 + 2.0 ** -11 - 2.0 ** -20,  # below the tie
+                      -(1.0 + 2.0 ** -11), one], dtype=torch.float32)
+    want = torch.tensor([one, 1.0, -one, one], dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
+
+
+def test_backward_kernel_limits_raise_naming_the_limit():
+    x = torch.zeros(2 * 4 * 64 + 1)[1:].view(1, 2, 4, 64)  # 4 bytes off
+    lse = torch.zeros(2, 4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        port_fa._check_backward_args(x, x, x, x, lse, x)
+    S = port_fa.BWD_MAX_S + 1
+    y = torch.empty((1, 1, S, 64), device="meta")
+    with pytest.raises(ValueError, match="S <= %d" % port_fa.BWD_MAX_S):
+        port_fa._check_backward_args(y, y, y, y,
+                                     torch.empty((1, S), device="meta"), y)
