@@ -13,13 +13,20 @@ the card. Phases, one or more lines each:
    TF32 off for float32 products and for cuDNN;
 2. build and probe: compile every kernel source with nvcc (timed as
    set-up) and hold the probe kernel (K7, x + 1) against its plain version;
+   its time and torch.add's, both as back-to-back calls issued by the host
+   (CUDA events) and as each kernel's own device time (torch.profiler's
+   kernel records);
 3. K1, flash-attention forward, against its plain version at the serving
    shape B=8, H=12, S=128, D=64 with key lengths spread over 0..128,
-   causal off and on, float32 and bfloat16 (and D=128 for correctness),
-   and at the training shape B=2, H=16, S=4096, D=64 causal float32:
-   largest error of O and of LSE on rows that see a key, kernel time,
-   plain time, the time of torch's scaled_dot_product_attention with the
-   same boolean mask (a yardstick the port never calls), and the bound;
+   causal off and on, float32 and bfloat16, the same at D=128, S_q 128
+   queries over S_kv 256 keys (cross-attention, float32, lengths), and at
+   the training shape B=2, H=16, S=4096, D=64 causal, float32 and
+   bfloat16: largest error of O and of LSE on rows that see a key, kernel
+   time (CUDA events around back-to-back calls, and the profiler's device
+   time a call, which the host's issue rate does not cap), achieved
+   TFLOP/s and GB/s (from the device time), plain time, the time of
+   torch's scaled_dot_product_attention with the same boolean mask (a
+   yardstick the port never calls; both ways), and the bound;
 4. the serving path: BERT-base (12 layers, 12 heads, d_model 768, d_ff
    3072, vocab 30522, max_len 512, T=128) built with seeded random
    weights on the card, saved, loaded by create_paddle_predictor and
@@ -79,7 +86,10 @@ the card. Phases, one or more lines each:
    step (the conv grads run cuDNN's backward alone) and K4 once; step
    time, images/s and peak memory, a torch.profiler window over one step,
    then the same 5 steps with FLAGS_use_pallas_conv=off (every conv on
-   cuDNN) as a yardstick of K5 end to end;
+   cuDNN) as a yardstick of K5 end to end; then K4's momentum case at the
+   path's flat size, bitwise against its plain version, and
+   torch._fused_sgd_ (the same update; a yardstick the port never calls)
+   on the same buffers, within float32 rounding of K4 and timed;
 11. a narrow twin (ResNet-50 NHWC at 64x64, batch 4, class_dim 10, lr
    1e-3) trained 3 steps on the card and through CPUPlace(), each step
    from the CPU run's state before it: the losses and the first step's
@@ -91,7 +101,9 @@ the card. Phases, one or more lines each:
    1537..2048) and the default geometry (2 heads of 8): largest error
    against the output's scale, a row alone bit for bit as in the batch,
    the prefill form's rows bit for bit the same through the decode
-   kernel, and at the first two the kernel's time, the plain version's,
+   kernel, and at the first two the kernel's time (events and device
+   time, as in phase 3), its achieved GB/s and TFLOP/s, the plain
+   version's,
    torch's scaled_dot_product_attention over K/V gathered dense and
    padded, with a length mask (a yardstick the port never calls) with the
    gather's own time, the bound, and SDPA over jagged real lengths (the
@@ -182,6 +194,10 @@ RESNET_TWIN = dict(batch=4, image_size=64, class_dim=10, learning_rate=1e-3)
 # float32 sums of up to 4608 products in another order (observed ~3e-6);
 # bfloat16 rounds y once (2^-8 relative), twice allowed
 K5_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# torch._fused_sgd_ vs K4's momentum update, relative to each buffer's
+# largest magnitude: the same float32 formula, rounded in another order
+# (a fused multiply-add or not: a few ulps)
+SGD_TOL = 1e-6
 # ResNet twin, card vs CPU, each step from the same state: the loss (a
 # forward quantity) within 1e-4 relative; the step-1 grads within 0.04
 # relative L2 per tensor, since at this size float32 rounding flips a few
@@ -197,6 +213,11 @@ RESNET_TWIN_GRAD_RELL2 = 0.04
 # the least time the card can take for a float32 product
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 494.7e12 / 3, torch.bfloat16: 989e12}
+# K6 multiplies a float32 q (and P) by K (and V) as stored: a bf16 or int8
+# operand is exact in TF32, so a float32-accurate product takes two TF32
+# passes (lo*b + hi*b), not three, and its least time is at 494.7 / 2
+K6_PEAK_FLOPS = {"f32": 494.7e12 / 3, "bf16": 494.7e12 / 2,
+                 "int8": 494.7e12 / 2}
 # the decode path (phases 12-14): TinyDecodeLM at the width of the repo's
 # causal LM, gpt_long (bench.py:794: 2 layers, 16 heads of 64, vocab
 # 8192), with contexts up to its 4096: 16 KiB of float32 K/V per token, an
@@ -252,6 +273,34 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms_per_call(fn, calls: int = 200):
+    """Mean device time of one call of ``fn`` (every kernel and copy it
+    launches), from the profiler's device records over ``calls`` calls;
+    None when the trace holds no device time. Unlike CUDA events around
+    back-to-back calls, it does not read the host's issue rate when a
+    call's kernels are shorter than its host work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        total_us += getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+        count += e.count
+    return total_us / 1e3 / calls if count and total_us else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else "%.5f ms" % ms
+
+
 def bound(bytes_moved: float, flops: float, peak_flops: float):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -276,26 +325,36 @@ def phase_build_and_probe(support):
     ms = time_ms(lambda: support.probe_add_one(x), iters=1000)
     plain_ms = time_ms(lambda: support.add_one_reference(x), iters=1000)
     lib_ms = time_ms(lambda: torch.add(x, 1.0), iters=1000)
+    # the events above time how fast the host issues back-to-back calls;
+    # the profiler's kernel records give each kernel's own device time
+    dev_ms = device_ms_per_call(lambda: support.probe_add_one(x))
+    lib_dev_ms = device_ms_per_call(lambda: torch.add(x, 1.0))
     b_ms, b_by = bound(2 * x.numel() * 4, x.numel(),
                        PEAK_FLOPS[torch.float32])
-    log("phase 2 probe [8,128] f32: max_abs_err %g, %.5f ms (plain %.5f, "
-        "torch.add %.5f, bound %.6f ms by %s)"
-        % (err, ms, plain_ms, lib_ms, b_ms, b_by))
+    log("phase 2 probe [8,128] f32: max_abs_err %g, %.5f ms a call issued "
+        "back to back (plain %.5f, torch.add %.5f), device time a launch "
+        "%s (torch.add's kernel %s), bound %.6f ms by %s"
+        % (err, ms, plain_ms, lib_ms, fmt_ms(dev_ms), fmt_ms(lib_dev_ms),
+           b_ms, b_by))
     return {"name": "probe_add_one", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/probe.cu",
             "replaces": "paddle_tpu/ops/pallas/support.py:35",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+            "ms_covers": "host issue of back-to-back calls (CUDA events); "
+                         "device_ms is the kernel's own time"}
 
 
 # -- phase 3: flash-attention forward (K1) ----------------------------------
 
-def k1_work(shape, lengths, causal, dtype):
+def k1_work(shape, lengths, causal, dtype, s_kv=None):
     """Bytes and FLOPs these inputs need: every query row read, keys and
     values only below each batch's length, O and LSE written once."""
     B, H, S, D = shape
+    s_kv = S if s_kv is None else s_kv
     esize = torch.tensor([], dtype=dtype).element_size()
-    lens = [min(max(int(n), 0), S) for n in lengths]
+    lens = [min(max(int(n), 0), s_kv) for n in lengths]
     bytes_moved = (B * H * S * D * esize * 2            # Q read, O written
                    + 2 * H * sum(lens) * D * esize      # K, V read
                    + B * H * S * 4 + B * 4)             # LSE, lengths
@@ -306,14 +365,15 @@ def k1_work(shape, lengths, causal, dtype):
     return bytes_moved, 4.0 * D * H * visible
 
 
-def k1_inputs(shape, dtype, seed):
+def k1_inputs(shape, dtype, seed, s_kv=None):
     g = torch.Generator().manual_seed(seed)
-    return [torch.randn(shape, generator=g).to(dtype).cuda()
-            for _ in range(3)]
+    kv_shape = shape[:2] + (shape[2] if s_kv is None else s_kv, shape[3])
+    return [torch.randn(s, generator=g).to(dtype).cuda()
+            for s in (shape, kv_shape, kv_shape)]
 
 
-def k1_check(fa, shape, lengths, causal, dtype, seed, timed):
-    q, k, v = k1_inputs(shape, dtype, seed)
+def k1_check(fa, shape, lengths, causal, dtype, seed, timed, s_kv=None):
+    q, k, v = k1_inputs(shape, dtype, seed, s_kv)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     o, lse = fa.flash_attention(q, k, v, causal, None, lens)
     torch.cuda.synchronize()
@@ -326,16 +386,19 @@ def k1_check(fa, shape, lengths, causal, dtype, seed, timed):
     if not (err_o <= tol and err_lse <= LSE_TOL
             and bool(torch.isfinite(o.float()).all())):
         raise RuntimeError(
-            "K1 disagrees with its plain version (%s, causal=%s, D=%d): "
-            "O err %g (tol %g), LSE err %g (tol %g)"
-            % (dtype, causal, shape[-1], err_o, tol, err_lse, LSE_TOL))
-    row = {"dtype": str(dtype).replace("torch.", ""), "causal": causal,
+            "K1 disagrees with its plain version (%s, causal=%s, shape %s, "
+            "S_kv %s): O err %g (tol %g), LSE err %g (tol %g)"
+            % (dtype, causal, shape, k.shape[2], err_o, tol, err_lse,
+               LSE_TOL))
+    row = {"shape": list(shape), "s_kv": k.shape[2],
+           "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "D": shape[-1], "err_o": err_o, "err_lse": err_lse}
     if timed:
-        pos = torch.arange(S, device="cuda")
+        pos = torch.arange(k.shape[2], device="cuda")
         mask = (pos[None, None, None, :] < lens[:, None, None, None])
         if causal:
-            mask = mask & (pos[:, None] >= pos[None, :])
+            mask = mask & (torch.arange(S, device="cuda")[:, None]
+                           >= pos[None, :])
         sdpa = torch.nn.functional.scaled_dot_product_attention
         long = S >= 1024
         row["ms"] = time_ms(lambda: fa.flash_attention(
@@ -347,10 +410,52 @@ def k1_check(fa, shape, lengths, causal, dtype, seed, timed):
         row["library_ms"] = time_ms(lambda: sdpa(q, k, v, attn_mask=mask),
                                     iters=5 if long else 200,
                                     warmup=2 if long else 20)
-        nbytes, flops = k1_work(shape, lengths, causal, dtype)
+        row["device_ms"] = device_ms_per_call(lambda: fa.flash_attention(
+            q, k, v, causal, None, lens), calls=5 if long else 200)
+        row["library_device_ms"] = device_ms_per_call(
+            lambda: sdpa(q, k, v, attn_mask=mask), calls=5 if long else 200)
+        nbytes, flops = k1_work(shape, lengths, causal, dtype, k.shape[2])
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
                                                  PEAK_FLOPS[dtype])
+        # rates from the device time where the profiler measured it
+        t = row["device_ms"] or row["ms"]
+        row["tflops"] = flops / t / 1e9
+        row["gbytes_per_s"] = nbytes / t / 1e6
     log("phase 3 K1 %s" % json.dumps(row))
+    return row
+
+
+def k1_peaked(fa, D, causal):
+    """Q times 8 over 2048 keys, float32: peaked softmaxes, scores and LSE
+    in the tens. K1 is held to KERNEL_TOL and LSE_TOL of the function
+    evaluated in float64; the float32 plain version's own distance from
+    it is recorded beside (at these magnitudes it is as large as the
+    limit, so it cannot referee it)."""
+    q, k, v = k1_inputs((2, 3, 2048, D), torch.float32, seed=9)
+    q = q * 8
+    o, lse = fa.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double() * D ** -0.5, k.double())
+    if causal:
+        s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool,
+                                      device=s.device).tril(), float("-inf"))
+    xo = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v.double())
+    xlse = torch.logsumexp(s, -1).reshape(lse.shape)
+
+    def err(a, b):
+        return (a.double() - b).abs().max().item()
+
+    row = {"D": D, "causal": causal, "lse_max": xlse.abs().max().item(),
+           "err_o": err(o, xo), "err_lse": err(lse, xlse),
+           "plain_err_o": err(ro, xo), "plain_err_lse": err(rlse, xlse),
+           "err_o_vs_plain": err(o, ro.double()),
+           "err_lse_vs_plain": err(lse, rlse.double())}
+    log("phase 3 K1 peaked %s" % json.dumps(row))
+    if not (row["err_o"] <= KERNEL_TOL[torch.float32]
+            and row["err_lse"] <= LSE_TOL):
+        raise RuntimeError("K1 misses the float32 limit with peaked "
+                           "softmaxes: %s" % json.dumps(row))
     return row
 
 
@@ -362,17 +467,27 @@ def phase_flash(fa):
                                  seed=len(rows), timed=True))
     for dtype in (torch.float32, torch.bfloat16):
         rows.append(k1_check(fa, K1_SHAPE[:3] + (128,), K1_LENGTHS, False,
-                             dtype, seed=10, timed=False))
-    # the training path's attention: full lengths, causal
+                             dtype, seed=10, timed=True))
+    # cross-attention: S_q 128 queries over S_kv 256 keys, key lengths
+    rows.append(k1_check(fa, K1_SHAPE, [2 * n for n in K1_LENGTHS], False,
+                         torch.float32, seed=12, timed=True,
+                         s_kv=2 * K1_SHAPE[2]))
+    # the training path's attention: full lengths, causal; and in bf16
     train = k1_check(fa, BWD_SHAPE, [BWD_SHAPE[2]] * BWD_SHAPE[0], True,
                      torch.float32, seed=11, timed=True)
     rows.append(train)
+    rows.append(k1_check(fa, BWD_SHAPE, [BWD_SHAPE[2]] * BWD_SHAPE[0], True,
+                         torch.bfloat16, seed=13, timed=True))
+    peaked = [k1_peaked(fa, D, causal) for D in (64, 128)
+              for causal in (True, False)]
     torch.cuda.empty_cache()
     by_dtype = {}
     for r in rows:  # O and LSE, every dtype, causal setting and D
         by_dtype[r["dtype"]] = max(by_dtype.get(r["dtype"], 0.0),
                                    r["err_o"], r["err_lse"])
     main = rows[0]  # float32, causal off: what the encoder runs
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "tflops",
+            "device_ms", "library_device_ms")
     return {"name": "flash_attention_forward", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/flash_attention.py:184",
@@ -380,9 +495,16 @@ def phase_flash(fa):
             "max_abs_err_by_dtype": by_dtype, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"],
-            "training_shape": {k: train[k] for k in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+            "library_ms": main["library_ms"], "tflops": main["tflops"],
+            "device_ms": main["device_ms"],
+            "library_device_ms": main["library_device_ms"],
+            "ms_covers": "back-to-back calls (CUDA events), which at the "
+                         "serving shape read the host's issue rate; "
+                         "device_ms is the device time a call",
+            "training_shape": {k: train[k] for k in keys},
+            "peaked_vs_float64": peaked,
+            "timed": [{k: r[k] for k in ("shape", "s_kv", "dtype", "causal")
+                       + keys} for r in rows]}
 
 
 # -- phase 4: the serving path ------------------------------------------------
@@ -1195,13 +1317,42 @@ def k4_at_resnet(fo, main):
         "momentum", attrs, p, grad, lr.reshape(()), v), iters=5, warmup=1)
     # param and velocity read and written, grad read: 5 float32 streams
     b_ms, b_by = bound(5 * 4 * n, 4 * n, PEAK_FLOPS[torch.float32])
+    lib_ms, lib_err = fused_sgd_yardstick(fo, p, grad, lr, v, attrs)
     log("phase 10 K4 momentum over %d elements (lr 0.1, mu %g): %.4f ms "
-        "(plain %.4f, bound %.4f ms by %s)" % (n, mu, ms, plain_ms, b_ms,
-                                               b_by))
+        "(plain %.4f, torch._fused_sgd_ %.4f, bound %.4f ms by %s); "
+        "torch._fused_sgd_ agrees within %.3g of the scale (limit %g)"
+        % (n, mu, ms, plain_ms, lib_ms, b_ms, b_by, lib_err, SGD_TOL))
     del p, grad, v
     torch.cuda.empty_cache()
     return {"n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": 0.0}
+            "bound_by": b_by, "max_abs_err": 0.0, "library_ms": lib_ms,
+            "library_covers": "torch._fused_sgd_ (momentum, dampening 0, "
+                              "not Nesterov: the same update)",
+            "library_rel_err": lib_err}
+
+
+def fused_sgd_yardstick(fo, p, grad, lr, v, attrs):
+    """torch._fused_sgd_ on copies of K4's momentum buffers: its result
+    against K4's (within float32 rounding: both compute v = mu v + g, p =
+    p - lr v, in other roundings), and its time. The port never calls
+    it."""
+    mu = attrs["mu"]
+    lib = [t.clone() for t in (p, v)]
+    want = fo.fused_optimizer_update("momentum", attrs, p.clone(), grad, lr,
+                                     v.clone())
+    kw = dict(weight_decay=0.0, momentum=mu, lr=float(lr.item()),
+              dampening=0.0, nesterov=False, maximize=False,
+              is_first_step=False)
+    torch._fused_sgd_([lib[0]], [grad], [lib[1]], **kw)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+              for a, b in zip(lib, want[:2]))
+    if not err <= SGD_TOL:
+        raise RuntimeError("torch._fused_sgd_ and K4 momentum disagree: %g "
+                           "of the scale (limit %g)" % (err, SGD_TOL))
+    ms = time_ms(lambda: torch._fused_sgd_([lib[0]], [grad], [lib[1]],
+                                           **kw), iters=20, warmup=3)
+    return ms, err
 
 
 # -- phase 11: the ResNet narrow twin, card against CPU ---------------------
@@ -1406,6 +1557,10 @@ def k6_check(k6, dev, label, B, H, D, bt, lens, storage, shared, seed,
         row["gather_ms"] = time_ms(gather, iters=10, warmup=2)
         row["library_ms"] = time_ms(lambda: sdpa(qd, kd, vd, attn_mask=mask),
                                     iters=10, warmup=2)
+        row["device_ms"] = device_ms_per_call(
+            lambda: k6.paged_decode_attention(**case), calls=20)
+        row["library_device_ms"] = device_ms_per_call(
+            lambda: sdpa(qd, kd, vd, attn_mask=mask), calls=10)
         if shared:
             row["decode_form_ms"] = time_ms(
                 lambda: k6.paged_decode_attention(**wide), iters=20,
@@ -1415,8 +1570,11 @@ def k6_check(k6, dev, label, B, H, D, bt, lens, storage, shared, seed,
         del kd, vd
         nbytes, flops = k6_work(case, shared)
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
-                                                 PEAK_FLOPS[torch.float32])
+                                                 K6_PEAK_FLOPS[storage])
         row["gbytes"], row["gflop"] = nbytes / 1e9, flops / 1e9
+        t = row["device_ms"] or row["ms"]
+        row["gbytes_per_s"] = nbytes / t / 1e6
+        row["tflops"] = flops / t / 1e9
     log("phase 12 K6 %s" % json.dumps(row))
     return row
 
@@ -1477,7 +1635,8 @@ def phase_paged_attention(k6, dev=torch.device("cuda"), timed=True,
         by_storage[r["storage"]] = max(by_storage.get(r["storage"], 0.0),
                                        r["err"])
     keys = ("ms", "plain_ms", "library_ms", "library_jagged_ms",
-            "gather_ms", "decode_form_ms", "bound_ms", "bound_by")
+            "gather_ms", "decode_form_ms", "bound_ms", "bound_by",
+            "gbytes_per_s", "tflops", "device_ms", "library_device_ms")
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/paged_attention.py:153",
@@ -1497,7 +1656,10 @@ def phase_paged_attention(k6, dev=torch.device("cuda"), timed=True,
                               "is the decode kernel on its rows",
             "prefill_form": {k: prefill[k] for k in keys if k in prefill},
             "by_storage": {r["storage"]: {k: r[k] for k in keys if k in r}
-                           for r in rows if r["case"] == "decode"}}
+                           for r in rows if r["case"] == "decode"},
+            "prefill_by_storage": {
+                r["storage"]: {k: r[k] for k in keys if k in r}
+                for r in rows if r["case"] == "prefill"}}
 
 
 # -- phase 13: the decode path ----------------------------------------------

@@ -113,6 +113,15 @@ class OpInfoMap:
         return sorted(self._map)
 
 
+def op_attr_names(type: str):
+    """The attr names ``type`` was registered with (none for an op type
+    the port does not register)."""
+    try:
+        return OpInfoMap.instance().get(type).attrs.keys()
+    except KeyError:
+        return ()
+
+
 _ops_loaded = False
 
 

@@ -29,7 +29,8 @@
 // blocks write the same output, so there are no atomics and every run gives
 // the same bits; the S x S matrices never reach device memory.
 //
-// Design:
+// Design (the fragment code is in csrc/tensor_core.cuh, shared with K1
+// and K6):
 //  * Products on the tensor cores with mma.sync. float32 splits each
 //    operand x into hi = tf32(x) (round to nearest) and lo = x - hi, and
 //    sums lo*hi + hi*lo + hi*hi in float32 with m16n8k8.tf32 (3xTF32): one
@@ -78,11 +79,7 @@
 // synchronise. Each entry point returns the cudaError_t of its launch. Q,
 // K, V and dO must be 16-byte aligned (the wrapper checks).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -93,298 +90,6 @@ constexpr int kWarpRows = 16;
 __device__ __forceinline__ int key_length(const int* lengths, int bh, int H,
                                           int S) {
   return lengths == nullptr ? S : min(S, max(lengths[bh / H], 0));
-}
-
-// ------------------------------------------------------- asynchronous copies
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes, or 16 zeros when !valid (the source is then not read)
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows [r0, r0 + ROWS) of a [S, D] slice into a [ROWS][STRIDE] tile; rows
-// at or past `end` are zero-filled
-template <typename T, int D, int ROWS, int STRIDE>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
-                                          int end) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
-  static_assert(ROWS * kChunks % kThreads == 0, "tile split");
-#pragma unroll
-  for (int j = 0; j < ROWS * kChunks / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i / kChunks, c = (i % kChunks) * kVec;
-    const bool ok = r0 + r < end;
-    cp_async_16(dst + r * STRIDE + c,
-                src + int64_t(ok ? r0 + r : 0) * D + c, ok);
-  }
-}
-
-// ------------------------------------------------------------ mma fragments
-
-// cvt.rna.tf32.f32 for finite x, which is all these kernels see: the 13
-// low mantissa bits rounded to nearest, ties away from zero. Two integer
-// operations; the conversion instruction compiles to several on sm_90a.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c = a * b, the sum starting from zero
-__device__ __forceinline__ void mma_tf32_zero(float* c, const uint32_t* a,
-                                              const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.f));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Lane roles of every fragment below: g = lane / 4 is the row (A, C) or
-// column (B) group, t = lane % 4 the position inside it. An accumulator
-// tile acc[n][4] of a 16-row strip holds (g, 8n + 2t), (g, 8n + 2t + 1),
-// (g + 8, 8n + 2t), (g + 8, 8n + 2t + 1).
-__device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
-__device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
-
-// float32 through 3xTF32 (m16n8k8)
-struct Tf32x3 {
-  using T = float;
-  static constexpr int kDepth = 8;
-  static constexpr int kPad = 4;  // row stride = 4 (mod 32) words
-  struct A {
-    uint32_t hi[4], lo[4];
-  };
-  struct B {
-    uint32_t hi[2], lo[2];
-  };
-
-  // hi = tf32(x) rounded to nearest; lo = x - hi exactly, passed as it
-  // is: the tensor cores read a tf32 operand's top 19 bits, which cuts lo
-  // to tf32 toward zero, an error of at most 2^-21 |x| whose sign follows
-  // lo's and so averages out. Rounding lo as well gave the same errors on
-  // the card and took longer.
-  static __device__ __forceinline__ void split(float x, uint32_t& hi,
-                                               uint32_t& lo) {
-    hi = to_tf32(x);
-    lo = __float_as_uint(x - __uint_as_float(hi));
-  }
-  // A = s[0:16][k0:k0+8], row-major
-  static __device__ __forceinline__ A load_a(const float* s, int stride,
-                                             int k0) {
-    const float* r = s + lane_g() * stride + k0 + lane_t();
-    A a;
-    split(r[0], a.hi[0], a.lo[0]);
-    split(r[8 * stride], a.hi[1], a.lo[1]);
-    split(r[4], a.hi[2], a.lo[2]);
-    split(r[8 * stride + 4], a.hi[3], a.lo[3]);
-    return a;
-  }
-  // B[k][n] = s[n0 + n][k0 + k]
-  static __device__ __forceinline__ B load_b_nk(const float* s, int stride,
-                                                int n0, int k0) {
-    const float* r = s + (n0 + lane_g()) * stride + k0 + lane_t();
-    B b;
-    split(r[0], b.hi[0], b.lo[0]);
-    split(r[4], b.hi[1], b.lo[1]);
-    return b;
-  }
-  // B[k][n] = s[k0 + k][n0 + n] with the depth permuted as in from_acc:
-  // logical rows t and t + 4 are rows 2t and 2t + 1
-  static __device__ __forceinline__ B load_b_kn(const float* s, int stride,
-                                                int k0, int n0) {
-    const float* r = s + (k0 + 2 * lane_t()) * stride + n0 + lane_g();
-    B b;
-    split(r[0], b.hi[0], b.lo[0]);
-    split(r[stride], b.hi[1], b.lo[1]);
-    return b;
-  }
-  // A = columns [8 kc, 8 kc + 8) of an accumulator strip, permuted
-  static __device__ __forceinline__ A from_acc(const float (*acc)[4],
-                                               int kc) {
-    A a;
-    split(acc[kc][0], a.hi[0], a.lo[0]);
-    split(acc[kc][2], a.hi[1], a.lo[1]);
-    split(acc[kc][1], a.hi[2], a.lo[2]);
-    split(acc[kc][3], a.hi[3], a.lo[3]);
-    return a;
-  }
-  // c += sum over j < kGroup of a[j] * b[j]. The tensor cores round their
-  // float32 sums toward zero, and relative to the running sum that drifts
-  // past the float32 limit over a long walk (or a peaked softmax); so the
-  // twelve products of four steps sum from zero, small ones first, and
-  // reach c by a float32 add, which rounds to nearest. (Fewer steps a
-  // partial gave the same errors on the card and took longer.)
-  static constexpr int kGroup = 4;
-  static __device__ __forceinline__ void mma(float* c, const A* a,
-                                             const B* b) {
-    float part[4];
-    mma_tf32_zero(part, a[0].lo, b[0].hi);
-    mma_tf32(part, a[0].hi, b[0].lo);
-#pragma unroll
-    for (int j = 1; j < kGroup; ++j) {
-      mma_tf32(part, a[j].lo, b[j].hi);
-      mma_tf32(part, a[j].hi, b[j].lo);
-    }
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) mma_tf32(part, a[j].hi, b[j].hi);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] += part[e];
-  }
-  static __device__ __forceinline__ void store2(float* p, float x,
-                                                float y) {
-    *reinterpret_cast<float2*>(p) = make_float2(x, y);
-  }
-};
-
-// bfloat16 (m16n8k16)
-struct Bf16 {
-  using T = __nv_bfloat16;
-  static constexpr int kDepth = 16;
-  static constexpr int kPad = 8;  // row stride = 4 (mod 32) words
-  struct A {
-    uint32_t r[4];
-  };
-  struct B {
-    uint32_t r[2];
-  };
-
-  static __device__ __forceinline__ uint32_t ld32(const T* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-  static __device__ __forceinline__ A load_a(const T* s, int stride,
-                                             int k0) {
-    const T* r = s + lane_g() * stride + k0 + 2 * lane_t();
-    return A{{ld32(r), ld32(r + 8 * stride), ld32(r + 8),
-              ld32(r + 8 * stride + 8)}};
-  }
-  static __device__ __forceinline__ B load_b_nk(const T* s, int stride,
-                                                int n0, int k0) {
-    const T* r = s + (n0 + lane_g()) * stride + k0 + 2 * lane_t();
-    return B{{ld32(r), ld32(r + 8)}};
-  }
-  // rows k0..k0+15 of s, columns n0..n0+7, transposed by ldmatrix: lanes
-  // 0-7 address rows k0..k0+7, lanes 8-15 rows k0+8..k0+15
-  static __device__ __forceinline__ B load_b_kn(const T* s, int stride,
-                                                int k0, int n0) {
-    const T* r = s + (k0 + (threadIdx.x & 15)) * stride + n0;
-    B b;
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-        : "=r"(b.r[0]), "=r"(b.r[1])
-        : "r"(smem_addr(r)));
-    return b;
-  }
-  // A = columns [16 kc, 16 kc + 16): accumulator tiles 2 kc and 2 kc + 1
-  static __device__ __forceinline__ A from_acc(const float (*acc)[4],
-                                               int kc) {
-    const float* x = acc[2 * kc];
-    const float* y = acc[2 * kc + 1];
-    return A{{pack(x[0], x[1]), pack(x[2], x[3]), pack(y[0], y[1]),
-              pack(y[2], y[3])}};
-  }
-  static constexpr int kGroup = 1;
-  static __device__ __forceinline__ void mma(float* c, const A* a,
-                                             const B* b) {
-    mma_bf16(c, a->r, b->r);
-  }
-  static __device__ __forceinline__ void store2(T* p, float x, float y) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-  }
-};
-
-// acc[0:16][0:8 NT] += a[0:16][0:K] * b[0:8 NT][0:K]^T, both in shared;
-// kGroup steps of depth at a time
-template <class Op, int K, int NT>
-__device__ __forceinline__ void gemm_nk(float (*acc)[4],
-                                        const typename Op::T* a,
-                                        const typename Op::T* b,
-                                        int stride) {
-  constexpr int kStep = Op::kDepth, kG = Op::kGroup;
-  static_assert(K % (kStep * kG) == 0, "depth steps");
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += kStep * kG) {
-    typename Op::A fa[kG];
-#pragma unroll
-    for (int j = 0; j < kG; ++j) fa[j] = Op::load_a(a, stride, k0 + j * kStep);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      typename Op::B fb[kG];
-#pragma unroll
-      for (int j = 0; j < kG; ++j)
-        fb[j] = Op::load_b_nk(b, stride, 8 * n, k0 + j * kStep);
-      Op::mma(acc[n], fa, fb);
-    }
-  }
-}
-
-// acc[0:16][0:8 NT] += p[0:16][0:K] * b[0:K][0:8 NT]: p an accumulator
-// strip in registers, b in shared
-template <class Op, int K, int NT>
-__device__ __forceinline__ void gemm_kn(float (*acc)[4],
-                                        const float (*p)[4],
-                                        const typename Op::T* b,
-                                        int stride) {
-  constexpr int kStep = Op::kDepth, kG = Op::kGroup;
-  static_assert(K % (kStep * kG) == 0, "depth steps");
-#pragma unroll
-  for (int kc = 0; kc < K / kStep; kc += kG) {
-    typename Op::A fa[kG];
-#pragma unroll
-    for (int j = 0; j < kG; ++j) fa[j] = Op::from_acc(p, kc + j);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      typename Op::B fb[kG];
-#pragma unroll
-      for (int j = 0; j < kG; ++j)
-        fb[j] = Op::load_b_kn(b, stride, (kc + j) * kStep, 8 * n);
-      Op::mma(acc[n], fa, fb);
-    }
-  }
 }
 
 // an accumulator strip [16][8 NT] times `mul` into rows r0.. of a [S, D]
@@ -463,10 +168,10 @@ flash_bwd_dq_kernel(const typename Op::T* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   if (n_tiles > 0) {
-    load_tile<T, D, kRows, kStride>(qs, q + base, q0, S);
-    load_tile<T, D, kRows, kStride>(dos, dout + base, q0, S);
-    load_tile<T, D, kCols, kStride>(kv, k + base, 0, kv_end);
-    load_tile<T, D, kCols, kStride>(kv + kTile, v + base, 0, kv_end);
+    load_tile<kThreads, T, D, kRows, kStride>(qs, q + base, q0, S);
+    load_tile<kThreads, T, D, kRows, kStride>(dos, dout + base, q0, S);
+    load_tile<kThreads, T, D, kCols, kStride>(kv, k + base, 0, kv_end);
+    load_tile<kThreads, T, D, kCols, kStride>(kv + kTile, v + base, 0, kv_end);
     cp_async_commit();
 
     const int qa = q0 + warp * kWarpRows + lane_g(), qb = qa + 8;
@@ -480,10 +185,10 @@ flash_bwd_dq_kernel(const typename Op::T* __restrict__ q,
     for (int it = 0; it < n_tiles; ++it) {
       if (it + 1 < n_tiles) {  // the next tile loads while this one runs
         T* nxt = kv + ((it + 1) & 1) * 2 * kTile;
-        load_tile<T, D, kCols, kStride>(nxt, k + base, (it + 1) * kCols,
-                                        kv_end);
-        load_tile<T, D, kCols, kStride>(nxt + kTile, v + base,
-                                        (it + 1) * kCols, kv_end);
+        load_tile<kThreads, T, D, kCols, kStride>(
+            nxt, k + base, (it + 1) * kCols, kv_end);
+        load_tile<kThreads, T, D, kCols, kStride>(
+            nxt + kTile, v + base, (it + 1) * kCols, kv_end);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -572,8 +277,9 @@ flash_bwd_dkv_kernel(const typename Op::T* __restrict__ q,
       T* qs = qd + (it & 1) * 2 * kQTile;
       float* st = stats + (it & 1) * 2 * kCols;
       const int i0 = q_begin + it * kCols;
-      load_tile<T, D, kCols, kStride>(qs, q + base, i0, S);
-      load_tile<T, D, kCols, kStride>(qs + kQTile, dout + base, i0, S);
+      load_tile<kThreads, T, D, kCols, kStride>(qs, q + base, i0, S);
+      load_tile<kThreads, T, D, kCols, kStride>(qs + kQTile, dout + base, i0,
+                                                S);
       for (int i = threadIdx.x; i < kCols; i += kThreads) {
         const bool ok = i0 + i < S;
         const int64_t r = row_base + (ok ? i0 + i : 0);
@@ -581,8 +287,8 @@ flash_bwd_dkv_kernel(const typename Op::T* __restrict__ q,
         cp_async_4(st + kCols + i, delta + r, ok);
       }
     };
-    load_tile<T, D, kRows, kStride>(ks, k + base, k0, kv_len);
-    load_tile<T, D, kRows, kStride>(vs, v + base, k0, kv_len);
+    load_tile<kThreads, T, D, kRows, kStride>(ks, k + base, k0, kv_len);
+    load_tile<kThreads, T, D, kRows, kStride>(vs, v + base, k0, kv_len);
     load_stage(0);
     cp_async_commit();
 
@@ -638,38 +344,16 @@ flash_bwd_dkv_kernel(const typename Op::T* __restrict__ q,
   store_strip<Op, kDT>(dv + base, dv_acc, r0, S, D, 1.f);
 }
 
-constexpr int kMaxDevices = 64;
-
-// The staged tiles exceed the default 48 KB of dynamic shared memory, so
-// each kernel instantiation raises its limit once per device, not per
-// launch. Two threads racing here both set the same value, which is
-// harmless.
-template <typename Kernel>
-cudaError_t raise_smem_limit_once(Kernel kernel, size_t bytes,
-                                  std::atomic<bool>* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire))
-    return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(bytes));
-  if (err == cudaSuccess && dev < kMaxDevices)
-    done[dev].store(true, std::memory_order_release);
-  return err;
-}
-
 template <class Op, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       const int* lengths, void* dq, int B, int H, int S,
                       int causal, float scale, cudaStream_t stream) {
   using T = typename Op::T;
-  static std::atomic<bool> done[kMaxDevices];
+  static std::atomic<size_t> done[kMaxDevices];
   auto kernel = flash_bwd_dq_kernel<Op, D>;
   const size_t smem = dq_smem_bytes<Op, D>();
-  cudaError_t err = raise_smem_limit_once(kernel, smem, done);
+  cudaError_t err = raise_smem_limit(kernel, smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (S + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -686,10 +370,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dv, int B, int H, int S, int causal, float scale,
                        cudaStream_t stream) {
   using T = typename Op::T;
-  static std::atomic<bool> done[kMaxDevices];
+  static std::atomic<size_t> done[kMaxDevices];
   auto kernel = flash_bwd_dkv_kernel<Op, D>;
   const size_t smem = dkv_smem_bytes<Op, D>();
-  cudaError_t err = raise_smem_limit_once(kernel, smem, done);
+  cudaError_t err = raise_smem_limit(kernel, smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (S + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(

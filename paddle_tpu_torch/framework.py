@@ -17,7 +17,8 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from .core import dtypes as _dt
-from .core.registry import DEVICE_ATTR, GRAD_SUFFIX, OpInfoMap
+from .core.registry import (DEVICE_ATTR, GRAD_SUFFIX, OpInfoMap,
+                            op_attr_names)
 from .utils import unique_name
 
 _SENTINEL = 1223  # stands in for -1 (unknown batch) during shape inference
@@ -291,10 +292,10 @@ class Program:
                 yield v
 
     def clone(self, for_test: bool = False) -> "Program":
-        """A copy with its own blocks, vars and ops. ``for_test`` sets
-        ``is_test`` on ops that have it; pruning the backward and
-        optimizer ops by their role, as the JAX package does, is not yet
-        ported (ROADMAP.md, queue 1)."""
+        """A copy with its own blocks, vars and ops. ``for_test`` drops the
+        backward and optimizer ops (by their role) and the op types in
+        ``_TRAIN_ONLY_SKIP``, and sets ``is_test`` on every op whose
+        registered attrs name it, as the JAX package does."""
         p = Program()
         p.blocks = []
         p._op_id = self._op_id
@@ -308,12 +309,15 @@ class Program:
                 nv.block = nb
                 nb.vars[name] = nv
             for op in b.ops:
+                if for_test and (op.type in _TRAIN_ONLY_SKIP or op._role & (
+                        OpRole.Backward | OpRole.Optimize)):
+                    continue
                 nop = Operator(nb, op.type, None, None, dict(op.attrs))
                 nop.inputs = {k: list(v) for k, v in op.inputs.items()}
                 nop.outputs = {k: list(v) for k, v in op.outputs.items()}
                 nop._id = op._id
                 nop._role = op._role
-                if for_test and "is_test" in nop.attrs:
+                if for_test and "is_test" in op_attr_names(op.type):
                     nop.attrs["is_test"] = True
                 nb.ops.append(nop)
         return p
@@ -322,6 +326,9 @@ class Program:
         return "Program(%d blocks, %d ops)" % (
             len(self.blocks), sum(len(b.ops) for b in self.blocks))
 
+
+# op types dropped by clone(for_test=True), the JAX package's set
+_TRAIN_ONLY_SKIP: set = set()
 
 _main_program_ = Program()
 _startup_program_ = Program()

@@ -7,21 +7,26 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: the forward
 ``_flash_bwd_dkv_kernel``, K3) is ``paddle_tpu_torch/csrc/flash_attention_bwd.cu``.
 Each source says what bounds it on the card and how its design answers that.
 
-``flash_attention(q, k, v, causal, scale, lengths)`` takes ``[B, H, S, D]``
-tensors and returns ``(O, LSE)``: O in q's type, LSE ``[B*H, S]`` float32.
-``lengths`` ([B] int) hides keys at or past ``lengths[b]`` from row b;
-query rows past the length are computed like any other (mask the consumer,
-as the JAX package does). A row that sees no key gets O = 0.
+``flash_attention(q, k, v, causal, scale, lengths)`` takes q ``[B, H, S_q,
+D]`` and k, v ``[B, H, S_kv, D]`` (S_kv = S_q under ``causal``, whose mask
+is square, as in the JAX package) and returns ``(O, LSE)``: O in q's type,
+LSE ``[B*H, S_q]`` float32. ``lengths`` ([B] int) hides keys at or past
+``lengths[b]`` from row b; query rows past the length are computed like any
+other (mask the consumer, as the JAX package does). A row that sees no key
+gets O = 0.
 
 ``flash_attention_backward(q, k, v, out, lse, dout, causal, scale,
 lengths)`` returns ``(dQ, dK, dV)``: ``delta = rowsum(dO * O)`` in plain
 torch (the JAX package also leaves it outside Pallas), then K2 for dQ and
 K3 for dK and dV. A row that sees no key gets dQ = 0; keys past the length
-get dK = dV = 0. K2 and K3 run their products on the tensor cores (float32
-through the 3xTF32 split, float32-accurate; bfloat16 directly) and load
-their tiles with 16-byte asynchronous copies, so on top of the forward's
-limits they take Q, K, V and dO 16-byte aligned and S up to 65535 tiles
-of 64.
+get dK = dV = 0.
+
+All three kernels run their products on the tensor cores (float32 through
+the 3xTF32 split, float32-accurate; bfloat16 directly) and load their
+tiles with 16-byte asynchronous copies, so they take contiguous, 16-byte
+aligned tensors of float32 or bfloat16, D 64 or 128, B*H up to 65535 and
+S up to 65535 tiles of 64. K2 and K3 take S_q = S_kv only; on the card a
+rectangular backward raises (its plain version takes any S_kv).
 
 ``FlashAttentionFunction`` is the ``torch.autograd.Function`` around them,
 the counterpart of the ``jax.custom_vjp`` there: its forward runs K1 and
@@ -43,6 +48,8 @@ from . import support
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
+ALIGN = 16              # K1-K3 copy their tiles 16 bytes at a time
+MAX_S = 65535 * 64      # K1-K3 launch one block row per 64-row tile
 DTYPES = (torch.float32, torch.bfloat16)
 
 LAUNCHES = support.launch_counter("flash_attention_forward")
@@ -52,26 +59,37 @@ _kernel = None
 _bwd_kernels = None
 
 
-def _check_shapes(q, k, v, lengths):
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+def _check_shapes(q, k, v, lengths, causal=False):
+    """Raise unless q is [B, H, S_q, D] and k, v [B, H, S_kv, D] of one
+    shape; causal attention takes S_q = S_kv only (its mask is the
+    square one of positions q >= k, as in the JAX package)."""
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or \
+            k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(
-            "flash_attention takes q, k, v of one shape [B, H, S, D], got "
-            "%s, %s, %s" % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+            "flash_attention takes q of [B, H, S_q, D] and k, v of one "
+            "shape [B, H, S_kv, D], got %s, %s, %s"
+            % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+    if causal and k.shape[2] != q.shape[2]:
+        raise ValueError(
+            "causal flash_attention takes S_q = S_kv (its mask is "
+            "[S, S]), got S_q %d and S_kv %d" % (q.shape[2], k.shape[2]))
     if lengths is not None and tuple(lengths.shape) != (q.shape[0],):
         raise ValueError("lengths must be [B] = [%d], got %s"
                          % (q.shape[0], tuple(lengths.shape)))
 
 
-def _visible(S, causal, lengths, device):
-    """[B or 1, 1, S, S] bool: key visible to query."""
-    pos = torch.arange(S, device=device)
-    vis = torch.ones((S, S), dtype=torch.bool, device=device)
+def _visible(S, causal, lengths, device, S_kv=None):
+    """[B or 1, 1, S, S_kv] bool: key visible to query (S_kv = S unless
+    given)."""
+    S_kv = S if S_kv is None else S_kv
+    kpos = torch.arange(S_kv, device=device)
+    vis = torch.ones((S, S_kv), dtype=torch.bool, device=device)
     if causal:
-        vis = pos[:, None] >= pos[None, :]
+        vis = torch.arange(S, device=device)[:, None] >= kpos[None, :]
     vis = vis[None, None]
     if lengths is not None:
         lens = lengths.to(device=device, dtype=torch.int64)
-        vis = vis & (pos[None, None, None, :] < lens[:, None, None, None])
+        vis = vis & (kpos[None, None, None, :] < lens[:, None, None, None])
     return vis
 
 
@@ -82,13 +100,13 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of the kernel: the same masks, the same float32
     softmax with Q scaled first, the same O = 0 / LSE for rows that see no
-    key. Any S, any D."""
-    _check_shapes(q, k, v, lengths)
+    key. Any S_q, S_kv (equal under ``causal``), any D."""
+    _check_shapes(q, k, v, lengths, causal)
     B, H, S, D = q.shape
     if scale is None:
         scale = float(D) ** -0.5
     s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
-    vis = _visible(S, causal, lengths, q.device)
+    vis = _visible(S, causal, lengths, q.device, k.shape[2])
     s = torch.where(vis, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(vis, torch.exp(s - m), torch.zeros_like(s))
@@ -105,14 +123,14 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout,
     """Plain torch version of K2 and K3: the same masks, probabilities
     recomputed from LSE in float32 with Q scaled first as in the forward,
     masked elements p = 0. Returns (dQ, dK, dV) in the input types."""
-    _check_shapes(q, k, v, lengths)
+    _check_shapes(q, k, v, lengths, causal)
     B, H, S, D = q.shape
     if scale is None:
         scale = float(D) ** -0.5
     qs = q.float() * scale
     kf, vf, do = k.float(), v.float(), dout.float()
     s = torch.einsum("bhqd,bhkd->bhqk", qs, kf)
-    vis = _visible(S, causal, lengths, q.device)
+    vis = _visible(S, causal, lengths, q.device, k.shape[2])
     p = torch.where(vis, torch.exp(s - lse.reshape(B, H, S, 1)),
                     torch.zeros_like(s))
     delta = (do * out.float()).sum(dim=-1, keepdim=True)
@@ -128,7 +146,7 @@ def _load_kernel():
     if _kernel is None:
         lib = support.load_library("flash_attention")
         fn = lib.paddle_flash_attention_forward
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel = (lib, fn)
@@ -159,6 +177,9 @@ def _check_kernel_args(q, others):
     if B * H > 65535:
         raise ValueError("flash_attention kernel takes B*H <= 65535, got %d"
                          % (B * H))
+    if S > MAX_S:
+        raise ValueError("flash_attention kernels take S <= %d (65535 "
+                         "tiles of 64), got %d" % (MAX_S, S))
 
 
 def _lengths_ptr(lengths, dev):
@@ -168,10 +189,19 @@ def _lengths_ptr(lengths, dev):
     return lengths, lengths.data_ptr()
 
 
+def _check_aligned(what, tensors):
+    for name, t in tensors.items():
+        if t.data_ptr() % ALIGN:
+            raise ValueError("%s: %s must be %d-byte aligned, got address "
+                             "%% %d = %d" % (what, name, ALIGN, ALIGN,
+                                             t.data_ptr() % ALIGN))
+
+
 def _launch(q, k, v, causal, scale, lengths):
     B, H, S, D = q.shape
     dev = q.device
     _check_kernel_args(q, {"k": k, "v": v})
+    _check_aligned("flash_attention kernel", {"q": q, "k": k, "v": v})
     out = torch.empty_like(q)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=dev)
     if q.numel() == 0:
@@ -181,7 +211,7 @@ def _launch(q, k, v, causal, scale, lengths):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens_ptr,
-                  out.data_ptr(), lse.data_ptr(), B, H, S, D,
+                  out.data_ptr(), lse.data_ptr(), B, H, S, k.shape[2], D,
                   int(q.dtype == torch.bfloat16), int(bool(causal)),
                   float(scale), stream)
     support.check_launch(lib, "paddle_flash_attention", code)
@@ -193,9 +223,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     lengths: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O, LSE) of attention over ``[B, H, S, D]``: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
-    _check_shapes(q, k, v, lengths)
+    """(O, LSE) of attention of ``[B, H, S_q, D]`` queries over ``[B, H,
+    S_kv, D]`` keys and values: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    _check_shapes(q, k, v, lengths, causal)
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     if q.device.type == "cpu":
@@ -221,23 +252,17 @@ def _load_bwd_kernels():
     return _bwd_kernels
 
 
-# K2/K3 copy 16 bytes at a time and launch one block row per 64-row tile
-BWD_ALIGN = 16
-BWD_MAX_S = 65535 * 64
-
 
 def _check_backward_args(q, k, v, out, lse, dout):
     B, H, S, _ = q.shape
+    if k.shape[2] != S:
+        raise ValueError("flash_attention backward kernels (K2, K3) take "
+                         "S_q = S_kv, got S_q %d and S_kv %d: their "
+                         "rectangular form is not written yet"
+                         % (S, k.shape[2]))
     _check_kernel_args(q, {"k": k, "v": v, "out": out, "dout": dout})
-    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
-        if t.data_ptr() % BWD_ALIGN:
-            raise ValueError("flash_attention backward kernels take %s "
-                             "%d-byte aligned, got address %% %d = %d"
-                             % (name, BWD_ALIGN, BWD_ALIGN,
-                                t.data_ptr() % BWD_ALIGN))
-    if S > BWD_MAX_S:
-        raise ValueError("flash_attention backward kernels take S <= %d "
-                         "(65535 tiles of 64), got %d" % (BWD_MAX_S, S))
+    _check_aligned("flash_attention backward kernels",
+                   {"q": q, "k": k, "v": v, "dout": dout})
     if lse.shape != (B * H, S) or lse.dtype != torch.float32 \
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError("flash_attention backward takes LSE as contiguous "
@@ -315,7 +340,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     """(dQ, dK, dV) of attention over ``[B, H, S, D]`` given the forward's
     O and LSE and the output gradient dO: K2 and K3 for CUDA tensors, the
     plain version for CPU tensors."""
-    _check_shapes(q, k, v, lengths)
+    _check_shapes(q, k, v, lengths, causal)
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     if q.device.type == "cpu":

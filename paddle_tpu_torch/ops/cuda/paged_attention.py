@@ -17,7 +17,10 @@ Storage, as ``k_scales``/``v_scales`` say: None for float32 arenas,
 ``"bf16"`` for bfloat16 arenas (``torch.bfloat16``, whose bits are the
 reference's uint16 patterns), or ``[num_blocks, H]`` float32 per-(block,
 head) scales for int8 codes. On a CUDA tensor every storage reaches the
-kernel, which widens tile by tile; the Pallas path took float32 only.
+kernel, which stages tiles as stored and widens them as it reads them;
+the Pallas path took float32 only. The kernel copies a token row in
+pieces of ``copy_width(D, element_size)`` bytes, so each arena's base
+must be aligned to that width (a fresh tensor always is).
 
 On CPU tensors ``paged_decode_attention`` runs the plain version
 (``paged_attention_reference``); on CUDA tensors it launches the kernel or
@@ -100,6 +103,16 @@ def paged_attention_reference(q, k_arena, v_arena, block_tables, seq_lens,
     return out
 
 
+def copy_width(D: int, element_size: int) -> int:
+    """Bytes one copy of the kernel moves: the widest of 16, 8, 4, 2 and 1
+    that divides a token row of D elements. Each arena's base must be
+    aligned to it."""
+    width = 16
+    while (D * element_size) % width:
+        width //= 2
+    return width
+
+
 def _load_kernel():
     global _kernel
     if _kernel is None:
@@ -137,6 +150,14 @@ def _launch(q, k_arena, v_arena, block_tables, seq_lens, block_tokens,
         if not t.is_contiguous():
             raise ValueError("paged attention kernel takes contiguous "
                              "tensors (%s is not)" % name)
+    width = copy_width(D, k_arena.element_size())
+    for name, t in (("k_arena", k_arena), ("v_arena", v_arena)):
+        if t.data_ptr() % width:
+            raise ValueError(
+                "paged attention kernel takes %s aligned to %d bytes (the "
+                "copy width of a %d-byte token row), got address %% %d = %d"
+                % (name, width, D * k_arena.element_size(), width,
+                   t.data_ptr() % width))
     for s in scales:
         if s.dtype != torch.float32 or \
                 tuple(s.shape) != (k_arena.shape[0], H):

@@ -5,8 +5,9 @@ port is a CUDA C++ source under ``paddle_tpu_torch/csrc/`` with a plain C
 interface. At first use each source is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library under ``paddle_tpu_torch/_build/``
 and loaded with ``ctypes``; sources build in parallel, one ``nvcc`` each.
-A library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and never confused with an old build.
+A library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and
+never confused with an old build.
 
 ``ensure_kernels(device)`` is the counterpart of ``pallas_supported``: it
 builds every source and launches the probe kernel (``x + 1`` over
@@ -89,10 +90,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / ("%s.cu" % name)
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / ("lib%s-%s.so" % (name, digest[:12]))
+    """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
+    source, of the shared headers (``csrc/*.cuh``) and of the flags."""
+    digest = hashlib.sha256((CSRC_DIR / ("%s.cu" % name)).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / ("lib%s-%s.so" % (name, digest.hexdigest()[:12]))
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:

@@ -215,8 +215,8 @@ def test_backward_kernel_limits_raise_naming_the_limit():
     lse = torch.zeros(2, 4)
     with pytest.raises(ValueError, match="16-byte aligned"):
         port_fa._check_backward_args(x, x, x, x, lse, x)
-    S = port_fa.BWD_MAX_S + 1
+    S = port_fa.MAX_S + 1
     y = torch.empty((1, 1, S, 64), device="meta")
-    with pytest.raises(ValueError, match="S <= %d" % port_fa.BWD_MAX_S):
+    with pytest.raises(ValueError, match="S <= %d" % port_fa.MAX_S):
         port_fa._check_backward_args(y, y, y, y,
                                      torch.empty((1, S), device="meta"), y)

@@ -22,7 +22,13 @@ another order) and 1e-2 in bfloat16 (y rounded once, twice allowed). Paged
 decode attention (K6) agrees with its plain version within 2e-5 of the
 output's largest magnitude on float32, bfloat16 and int8 arenas (both
 widen the same stored bits exactly), and a row alone gives the bits it
-gives in a batch. The decode engine on the card launches K6 as its
+gives in a batch and through either form (the prefill form's shared
+table or a table a row), at D 8 to 256 and blocks of 1, 16 and 17
+tokens. K1 also takes S_kv != S_q (not causal), holds the float32 limit
+with peaked softmaxes (Q times 8, D 64 and 128; against the exact float64
+values, which the float32 plain version misses by as much there), and
+gives the same bits twice; K1 and
+K6 refuse a misaligned tensor. The decode engine on the card launches K6 as its
 counters predict and its streams do not change with the batch, the prefill
 chunking or a preemption.
 """
@@ -103,6 +109,92 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     z = torch.zeros(1, 8, 2, 64, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(z, z, z)
+
+
+def _k1_inputs(cuda, shape, dtype, seed, s_kv=None):
+    g = torch.Generator().manual_seed(seed)
+    kv = shape[:2] + (shape[2] if s_kv is None else s_kv, shape[3])
+    return [torch.randn(s, generator=g).to(dtype).to(cuda)
+            for s in (shape, kv, kv)]
+
+
+def _k1_check(cuda, q, k, v, causal, lens, tol):
+    o, lse = fa.flash_attention(q, k, v, causal, None, lens)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal, None, lens)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol)
+    H = q.shape[1]
+    seen = (torch.ones(q.shape[0], dtype=torch.bool, device=cuda)
+            if lens is None else (lens > 0)).repeat_interleave(H)
+    torch.testing.assert_close(lse[seen], rlse[seen], rtol=2e-5, atol=2e-5)
+    return o, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_q,s_kv", [(128, 256), (100, 37), (1, 65)])
+def test_flash_kernel_takes_rectangular_keys(cuda, dtype, s_q, s_kv):
+    q, k, v = _k1_inputs(cuda, (3, 2, s_q, 64), dtype, s_q + s_kv, s_kv)
+    lens = torch.tensor([0, s_kv // 2 + 1, s_kv], dtype=torch.int32,
+                        device=cuda)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    o, lse = _k1_check(cuda, q, k, v, False, lens, tol)
+    assert o.shape == q.shape and lse.shape == (6, s_q)
+    assert (o[0] == 0).all()
+    with pytest.raises(ValueError, match="S_q = S_kv"):
+        fa.flash_attention(q, k, v, True)
+
+
+@pytest.mark.parametrize("S", [1, 65, 4097])
+def test_flash_kernel_causal_ragged_lengths(cuda, S):
+    q, k, v = _k1_inputs(cuda, (2, 2, S, 64), torch.float32, S)
+    lens = torch.tensor([S, S // 2 + 1], dtype=torch.int32, device=cuda)
+    _k1_check(cuda, q, k, v, True, lens, 2e-5)
+    _k1_check(cuda, q, k, v, True, None, 2e-5)
+
+
+def test_flash_kernel_d128_bf16_and_bitwise_repeatable(cuda):
+    q, k, v = _k1_inputs(cuda, (2, 3, 300, 128), torch.bfloat16, 7)
+    lens = torch.tensor([300, 123], dtype=torch.int32, device=cuda)
+    for causal in (False, True):
+        o, lse = _k1_check(cuda, q, k, v, causal, lens, 2e-2)
+        o2, lse2 = fa.flash_attention(q, k, v, causal, None, lens)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def _k1_exact(q, k, v, causal):
+    """O and LSE of the plain version's function evaluated in float64."""
+    S, D = q.shape[2], q.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double() * D ** -0.5, k.double())
+    vis = fa._visible(S, causal, None, q.device, k.shape[2])
+    s = s.masked_fill(~vis, float("-inf"))
+    o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v.double())
+    return o, torch.logsumexp(s, -1).reshape(-1, S)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernel_float32_limit_with_peaked_softmax(cuda, D):
+    """Q times 8 gives peaked softmaxes, with scores and LSE in the tens:
+    the forward's 3xTF32 products and its float32 running sums keep O and
+    LSE within 2e-5 absolute (KERNEL_TOL, LSE_TOL) of the exact values
+    over 2048 keys. They are held to the function evaluated in float64,
+    not to the float32 plain version: at LSE near 46 that version is
+    itself up to 2.3e-5 from the exact LSE, so it cannot referee a 2e-5
+    limit there."""
+    q, k, v = _k1_inputs(cuda, (2, 3, 2048, D), torch.float32, 9)
+    q = q * 8
+    for causal in (True, False):
+        o, lse = fa.flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        xo, xlse = _k1_exact(q, k, v, causal)
+        assert float((o.double() - xo).abs().max()) <= 2e-5
+        assert float((lse.double() - xlse).abs().max()) <= 2e-5
+
+
+def test_flash_kernel_refuses_misaligned_tensors(cuda):
+    q = torch.zeros(2 * 8 * 64 + 1, device=cuda)[1:].view(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(q, q, q)
 
 
 def test_small_encoder_served_on_the_card_matches_the_cpu(cuda, tmp_path):
@@ -541,6 +633,43 @@ def test_paged_kernel_matches_plain_version(cuda, storage, form):
                    block_tables=case["block_tables"][
                        0 if shared else b:(0 if shared else b) + 1])
         assert torch.equal(k6.paged_decode_attention(**one)[0], got[b])
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("D", [8, 64, 128, 256])
+@pytest.mark.parametrize("bt", [1, 16, 17])
+def test_paged_kernel_forms_give_the_same_bits(cuda, storage, D, bt):
+    """A prefill chunk's rows (one shared table, lengths start + t + 1, so
+    rows end inside, at and past tiles that cross blocks) give the same
+    bits through the decode form, each row with its own copy of the
+    table, and agree with the plain version."""
+    B, H = 70, 2
+    lens = [30 + t for t in range(B)]
+    case = _k6_case(cuda, B, H, D, bt, lens, storage, True, seed=D + bt)
+    got = k6.paged_decode_attention(**case)
+    wide = dict(case, block_tables=case["block_tables"].expand(
+        B, -1).contiguous())
+    assert torch.equal(k6.paged_decode_attention(**wide), got)
+    want = k6.paged_attention_reference(**case)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=K6_TOL * scale)
+
+
+@pytest.mark.parametrize("storage,D", [("f32", 64), ("bf16", 64),
+                                       ("int8", 64), ("f32", 30),
+                                       ("int8", 8)])
+def test_paged_kernel_refuses_a_misaligned_arena(cuda, storage, D):
+    """An arena view one element off the copy width's alignment (16 bytes
+    for 16-byte rows, 8 for f32 D 30 and int8 D 8) raises."""
+    case = _k6_case(cuda, 2, 2, D, 4, [3, 5], storage, False, 0)
+    ka = case["k_arena"]
+    width = k6.copy_width(D, ka.element_size())
+    assert width > ka.element_size()
+    flat = torch.zeros(ka.numel() + 1, dtype=ka.dtype, device=cuda)
+    shifted = flat[1:].view(ka.shape)
+    shifted.copy_(ka)
+    with pytest.raises(ValueError, match="aligned to %d bytes" % width):
+        k6.paged_decode_attention(**dict(case, k_arena=shifted))
 
 
 def test_paged_kernel_refuses_what_it_does_not_take(cuda):

@@ -141,3 +141,80 @@ def test_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="arenas"):
         k6.paged_decode_attention(q, ka.half(), va.half(), table, lens,
                                   block_tokens=BT)
+
+
+# The card's K6 runs its products on the tensor cores: a float32 operand
+# through the 3xTF32 split (lo*hi + hi*lo + hi*hi, hi = tf32(x) rounded to
+# nearest, lo = x - hi cut toward zero), a bf16 or int8 operand (exact in
+# TF32) times both halves of the other; int8 scales multiply after the
+# product. An emulation of that arithmetic through the plain version's two
+# products stays within K6's limit, 2e-5 of the output's largest
+# magnitude, on every storage; one TF32 pass (hi*hi) does not.
+def _tf32(x):
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_toward_zero(x):
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, passes):
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if passes == 3:
+        al, bl = _tf32_toward_zero(a - ah), _tf32_toward_zero(b - bh)
+        out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + out
+    return out
+
+
+def _emulated_kernel(q, k_arena, v_arena, tables, lens, scales, bt, passes):
+    """Each row as K6 computes it: stored values widened exactly (codes
+    for int8), S = q K^T, the key scale per column, P times the value
+    scale per column before P V."""
+    B, H, D = q.shape
+    scale = float(D) ** -0.5
+    out = torch.zeros(B, H, D)
+    for b, n in enumerate(lens):
+        if n == 0:
+            continue
+        ids = tables[b if tables.shape[0] > 1 else 0, :-(-n // bt)].long()
+        tok_blocks = ids.repeat_interleave(bt)[:n]
+        k = k_arena[ids].reshape(-1, H, D)[:n].float()
+        v = v_arena[ids].reshape(-1, H, D)[:n].float()
+        s = _tf32_product("hd,thd->ht", q[b], k, passes)
+        if scales is not None:
+            s = s * scales[0][tok_blocks].T
+        s = s * scale
+        p = torch.exp(s - s.amax(dim=1, keepdim=True))
+        l = p.sum(dim=1, keepdim=True)
+        if scales is not None:
+            p = p * scales[1][tok_blocks].T
+        out[b] = _tf32_product("ht,thd->hd", p, v, passes) / l
+    return out
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_tensor_core_arithmetic_keeps_k6_limit_and_one_pass_does_not(
+        storage):
+    D = 64
+    _, _, port_args, port_kw, lens = _inputs(storage, D, "ragged", seed=17)
+    q, ka, va, table, _ = port_args
+    want = k6.paged_attention_reference(*port_args, block_tokens=BT,
+                                        **port_kw)
+    scales = (None if storage != "int8"
+              else (port_kw["k_scales"], port_kw["v_scales"]))
+
+    def rel(passes):
+        got = _emulated_kernel(q, ka, va, table, lens, scales, BT, passes)
+        return float((got - want).abs().max()) / float(want.abs().max())
+
+    assert rel(3) <= TOL
+    assert rel(1) > TOL
+
+
+@pytest.mark.parametrize("D,esize,width", [
+    (64, 4, 16), (64, 2, 16), (64, 1, 16), (30, 4, 8), (31, 4, 4),
+    (31, 2, 2), (8, 1, 8), (31, 1, 1)])
+def test_copy_width_is_the_widest_that_divides_a_token_row(D, esize, width):
+    assert k6.copy_width(D, esize) == width

@@ -306,3 +306,58 @@ def test_grad_of_grad_matches_the_jax_package():
         scale = max(float(np.abs(w).max()), GRAD_FLOOR)
         np.testing.assert_allclose(g, w, rtol=0, atol=GRAD_RTOL * scale,
                                    err_msg=name)
+
+
+def _sgd_program(pkg):
+    """fc(size=1) -> mean -> SGDOptimizer(0.5).minimize, and a batch_norm
+    whose op is built without its ``is_test`` attr."""
+    main, startup = pkg.Program(), pkg.Program()
+    startup.random_seed = 1
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        x = pkg.data(name="x", shape=[4, 3], dtype="float32")
+        loss = pkg.layers.mean(pkg.layers.fc(x, 1))
+        pkg.optimizer.SGDOptimizer(0.5).minimize(loss)
+    return main, startup, loss
+
+
+def _bn_program(pkg):
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        x = pkg.data(name="x", shape=[2, 3, 4, 4], dtype="float32")
+        pkg.layers.batch_norm(x)
+    (op,) = [op for op in main.global_block().ops if op.type == "batch_norm"]
+    del op.attrs["is_test"]
+    return main
+
+
+def test_clone_for_test_prunes_as_the_jax_package():
+    """clone(for_test=True) drops the backward and optimizer ops by role
+    and sets is_test wherever the op type's registered attrs name it; one
+    run of the clone changes no persistable."""
+    jmain, _, _ = _sgd_program(jfluid)
+    pmain, pstartup, ploss = _sgd_program(fluid)
+    jtest, ptest = jmain.clone(for_test=True), pmain.clone(for_test=True)
+    jtypes = [op.type for op in jtest.global_block().ops]
+    assert [op.type for op in ptest.global_block().ops] == jtypes
+    assert len(jtypes) == 3 and len(pmain.global_block().ops) == 9
+    # the original keeps its ops
+    assert [op.type for op in pmain.global_block().ops] == \
+        [op.type for op in jmain.global_block().ops]
+
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(pstartup, scope=scope)
+    before = persistables(pmain, scope)
+    x = np.random.RandomState(0).rand(4, 3).astype("float32")
+    (l0,) = exe.run(ptest, feed={"x": x}, fetch_list=[ploss], scope=scope)
+    assert np.isfinite(l0).all()
+    after = persistables(pmain, scope)
+    assert sorted(after) == sorted(before) and len(before) >= 3
+    for name, want in before.items():
+        np.testing.assert_array_equal(after[name], want, err_msg=name)
+
+    for pkg in (jfluid, fluid):
+        bn = _bn_program(pkg)
+        assert "is_test" not in bn.global_block().ops[0].attrs
+        (op,) = bn.clone(for_test=True).global_block().ops
+        assert op.type == "batch_norm" and op.attrs["is_test"] is True
