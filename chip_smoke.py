@@ -70,12 +70,14 @@ the card. Phases, one or more lines each:
    K2, K3 and K4;
 9. K5, the fused implicit-GEMM conv, against its plain version at the 19
    distinct shapes of ResNet-50's 44 routed convs at batch 128 (plain
-   convs, as the path runs them) and at epilogue cases (scale/shift,
-   residual, relu; float32 and bfloat16; an odd B*H*W; Cout 128 and 130):
-   largest error against the output's scale; per shape and summed over
-   the 44 convs of one forward, the kernel's time, the plain version's,
-   cuDNN's (F.conv2d on channels-last tensors, TF32 off: a yardstick the
-   port never calls) and the bound;
+   convs, as the path runs them), in float32 and bfloat16, and at
+   epilogue cases (scale/shift, residual, relu; float32 and bfloat16; an
+   odd B*H*W; Cout 128 and 130): largest error against the output's
+   scale; per shape (with the tile configuration the wrapper chose and
+   the achieved TFLOP/s) and summed over the 44 convs of one forward, the
+   kernel's time, the plain version's (float32), cuDNN's (F.conv2d on
+   channels-last tensors of the same type, TF32 off: a yardstick the port
+   never calls) and the bound of each type;
 10. ResNet-50 training: bench.py's script (NHWC, 224x224, batch 128,
    class_dim 1000, MomentumOptimizer(0.1, 0.9), float32) with
    FLAGS_use_pallas_conv=all and PADDLE_TPU_FUSED_OPTIMIZER set, seeded
@@ -198,6 +200,10 @@ K5_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # largest magnitude: the same float32 formula, rounded in another order
 # (a fused multiply-add or not: a few ulps)
 SGD_TOL = 1e-6
+# K4 momentum against torch._fused_sgd_ at ResNet's flat size: rounds of
+# K4, _fused_sgd_, _fused_sgd_, K4, so that both meet the same drift of
+# the card's clock and power; each side's median and spread (max - min)
+K4_ROUNDS = 5
 # ResNet twin, card vs CPU, each step from the same state: the loss (a
 # forward quantity) within 1e-4 relative; the step-1 grads within 0.04
 # relative L2 per tensor, since at this size float32 rounding flips a few
@@ -1120,14 +1126,15 @@ def k5_check(k5, x_shape, w_shape, stride, pad, dtype, epilogue, seed):
     return x, w, kw, y, err, rel
 
 
-def k5_work(x_shape, w_shape, stride, pad):
-    """(bytes, FLOPs) of one plain float32 conv: x, w read once, y
-    written once; 2 FLOPs per multiply-add."""
+def k5_work(x_shape, w_shape, stride, pad, itemsize=4):
+    """(bytes, FLOPs) of one plain conv: x, w read once, y written once,
+    ``itemsize`` bytes an element; 2 FLOPs per multiply-add."""
     B, H, W, Cin = x_shape
     KH, KW, _, Cout = w_shape
     Ho = (H + 2 * pad - KH) // stride + 1
     Wo = (W + 2 * pad - KW) // stride + 1
-    nbytes = 4 * (B * H * W * Cin + KH * KW * Cin * Cout + B * Ho * Wo * Cout)
+    nbytes = itemsize * (B * H * W * Cin + KH * KW * Cin * Cout
+                         + B * Ho * Wo * Cout)
     return nbytes, 2.0 * B * Ho * Wo * Cout * KH * KW * Cin
 
 
@@ -1138,47 +1145,62 @@ def phase_conv(fluid, k5):
     if len(shapes) != 19 or n_convs != 44:
         raise RuntimeError("expected 44 routed convs of 19 shapes, got %d of "
                            "%d" % (n_convs, len(shapes)))
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
-    tot_bytes = tot_flops = 0.0
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bf16_ms=0.0,
+               bf16_library_ms=0.0)
+    work = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
     errs, rels = [], []
+    by_dtype, abs_by_dtype = {}, {}
     for i, (xs, ws, stride, pad, count) in enumerate(shapes):
-        x, w, _, y, err, rel = k5_check(k5, xs, ws, stride, pad,
-                                        torch.float32, False, seed=50 + i)
-        errs.append(err)
-        rels.append(rel)
-        xc = x.permute(0, 3, 1, 2)                 # channels-last views
-        wc = w.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
+        B, H, W, _ = xs
+        M = (B * ((H + 2 * pad - ws[0]) // stride + 1)
+             * ((W + 2 * pad - ws[1]) // stride + 1))
         row = {"x": list(xs), "w_hwio": list(ws), "stride": stride,
-               "pad": pad, "count": count, "err": err, "rel_err": rel}
-        row["ms"] = time_ms(lambda: k5.conv2d_bn_act(
-            x, w, stride=stride, padding=pad), iters=20, warmup=3)
-        row["plain_ms"] = time_ms(lambda: k5.conv2d_bn_act_reference(
-            x, w, stride=stride, padding=pad), iters=5, warmup=1)
-        row["library_ms"] = time_ms(lambda: F.conv2d(
-            xc, wc, None, stride, pad), iters=20, warmup=3)
-        nbytes, flops = k5_work(xs, ws, stride, pad)
-        row["bound_ms"], by = bound(nbytes, flops, PEAK_FLOPS[torch.float32])
-        row["bound_by"] = by
-        row["tflops"] = flops / row["ms"] / 1e9
+               "pad": pad, "count": count}
+        for dtype, pre in ((torch.float32, ""), (torch.bfloat16, "bf16_")):
+            key = str(dtype).replace("torch.", "")
+            row[pre + "tile"] = k5.TILES[k5.choose_tile(M, ws[3], dtype)]
+            x, w, _, y, err, rel = k5_check(k5, xs, ws, stride, pad, dtype,
+                                            False, seed=50 + i)
+            errs.append(err)
+            rels.append(rel)
+            by_dtype[key] = max(by_dtype.get(key, 0.0), rel)
+            abs_by_dtype[key] = max(abs_by_dtype.get(key, 0.0), err)
+            xc = x.permute(0, 3, 1, 2)                 # channels-last views
+            wc = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            row[pre + "err"], row[pre + "rel_err"] = err, rel
+            row[pre + "ms"] = time_ms(lambda: k5.conv2d_bn_act(
+                x, w, stride=stride, padding=pad), iters=20, warmup=3)
+            if dtype == torch.float32:
+                row["plain_ms"] = time_ms(
+                    lambda: k5.conv2d_bn_act_reference(
+                        x, w, stride=stride, padding=pad), iters=5,
+                    warmup=1)
+            row[pre + "library_ms"] = time_ms(lambda: F.conv2d(
+                xc, wc, None, stride, pad), iters=20, warmup=3)
+            nbytes, flops = k5_work(xs, ws, stride, pad, x.element_size())
+            row[pre + "bound_ms"], row[pre + "bound_by"] = bound(
+                nbytes, flops, PEAK_FLOPS[dtype])
+            row[pre + "tflops"] = flops / row[pre + "ms"] / 1e9
+            work[dtype][0] += count * nbytes
+            work[dtype][1] += count * flops
+            del x, w, y, xc, wc
         for k in tot:
             tot[k] += count * row[k]
-        tot_bytes += count * nbytes
-        tot_flops += count * flops
         log("phase 9 K5 %s" % json.dumps(row))
-        del x, w, y, xc, wc
     torch.cuda.empty_cache()
     # the bound of the whole forward's routed work, from its summed bytes
     # and FLOPs
-    bound_ms, bound_by = bound(tot_bytes, tot_flops,
+    bound_ms, bound_by = bound(*work[torch.float32],
                                PEAK_FLOPS[torch.float32])
+    bf16_bound_ms, bf16_bound_by = bound(*work[torch.bfloat16],
+                                         PEAK_FLOPS[torch.bfloat16])
     # the epilogue and the edges: scale/shift, residual, relu; bf16; an
     # odd B*H*W; Cout 128 (one column tile) and 130 (the scalar path)
     cases = [((3, 13, 13, 128), (3, 3, 128, 128), 1, 1),
              ((3, 13, 13, 256), (1, 1, 256, 130), 2, 0),
              ((2, 28, 28, 512), (1, 1, 512, 2048), 1, 0),
              ((5, 7, 9, 128), (3, 3, 128, 64), 2, 1)]
-    by_dtype, abs_by_dtype = {}, {"float32": max(errs)}
     for j, (xs, ws, stride, pad) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             _, _, _, _, err, rel = k5_check(k5, xs, ws, stride, pad, dtype,
@@ -1190,23 +1212,30 @@ def phase_conv(fluid, k5):
             log("phase 9 K5 epilogue x %s w %s stride %d pad %d %s: error "
                 "%g, %g of scale" % (xs, ws, stride, pad, key, err, rel))
     log("phase 9 K5 over the %d routed convs of one forward (batch %d): "
-        "%.3f ms (plain %.3f, cuDNN %.3f, bound %.3f ms by %s: %.4g GB, "
-        "%.4g GFLOP); card %s"
+        "float32 %.3f ms (plain %.3f, cuDNN %.3f, bound %.3f ms by %s: "
+        "%.4g GB, %.4g GFLOP); bfloat16 %.3f ms (cuDNN %.3f, bound %.3f ms "
+        "by %s: %.4g GB); card %s"
         % (n_convs, RESNET_BATCH, tot["ms"], tot["plain_ms"],
-           tot["library_ms"], bound_ms, bound_by, tot_bytes / 1e9,
-           tot_flops / 1e9, card_line()))
+           tot["library_ms"], bound_ms, bound_by,
+           work[torch.float32][0] / 1e9, work[torch.float32][1] / 1e9,
+           tot["bf16_ms"], tot["bf16_library_ms"], bf16_bound_ms,
+           bf16_bound_by, work[torch.bfloat16][0] / 1e9, card_line()))
     return {"name": "conv2d_bn_act", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/conv2d_bn_act.cu",
             "replaces": "paddle_tpu/ops/pallas/conv.py:97",
             "max_abs_err": max(errs), "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": tot["library_ms"],
+            "bf16_ms": tot["bf16_ms"],
+            "bf16_library_ms": tot["bf16_library_ms"],
+            "bf16_bound_ms": bf16_bound_ms,
             "max_abs_err_by_dtype": abs_by_dtype,
             "rel_err_max": max(rels), "rel_err_max_by_dtype": by_dtype,
             "covers": "the %d routed convs of one ResNet-50 NHWC forward at "
-                      "batch %d, float32, summed" % (n_convs, RESNET_BATCH),
-            "library_covers": "F.conv2d (cuDNN) on channels-last tensors, "
-                              "TF32 off"}
+                      "batch %d, float32 (bf16_*: bfloat16), summed"
+                      % (n_convs, RESNET_BATCH),
+            "library_covers": "F.conv2d (cuDNN) on channels-last tensors "
+                              "of the same type, TF32 off"}
 
 
 # -- phase 10: ResNet-50 training -------------------------------------------
@@ -1311,21 +1340,35 @@ def k4_at_resnet(fo, main):
         raise RuntimeError("expected plain momentum, got %s" % op.attrs)
     p, grad, v, _, lr, _, _, attrs = k4_case(
         fo, "momentum", n, False, seed=42, lr=0.1, mu=mu, phase=10)
-    ms = time_ms(lambda: fo.fused_optimizer_update(
-        "momentum", attrs, p, grad, lr, v), iters=20, warmup=3)
+    calls = {"k4": lambda: fo.fused_optimizer_update(
+        "momentum", attrs, p, grad, lr, v)}
+    calls["fused_sgd"], lib_err = fused_sgd_yardstick(fo, p, grad, lr, v,
+                                                      attrs)
+    rounds = {"k4": [], "fused_sgd": []}
+    for _ in range(K4_ROUNDS):
+        for side in ("k4", "fused_sgd", "fused_sgd", "k4"):
+            rounds[side].append(time_ms(calls[side], iters=20, warmup=3))
+    med = {k: float(np.median(r)) for k, r in rounds.items()}
+    spread = {k: max(r) - min(r) for k, r in rounds.items()}
+    ms, lib_ms = med["k4"], med["fused_sgd"]
     plain_ms = time_ms(lambda: fo.fused_optimizer_update_reference(
         "momentum", attrs, p, grad, lr.reshape(()), v), iters=5, warmup=1)
     # param and velocity read and written, grad read: 5 float32 streams
     b_ms, b_by = bound(5 * 4 * n, 4 * n, PEAK_FLOPS[torch.float32])
-    lib_ms, lib_err = fused_sgd_yardstick(fo, p, grad, lr, v, attrs)
-    log("phase 10 K4 momentum over %d elements (lr 0.1, mu %g): %.4f ms "
-        "(plain %.4f, torch._fused_sgd_ %.4f, bound %.4f ms by %s); "
-        "torch._fused_sgd_ agrees within %.3g of the scale (limit %g)"
-        % (n, mu, ms, plain_ms, lib_ms, b_ms, b_by, lib_err, SGD_TOL))
-    del p, grad, v
+    log("phase 10 K4 momentum over %d elements (lr 0.1, mu %g), %d rounds "
+        "of K4, torch._fused_sgd_, torch._fused_sgd_, K4: K4 median %.4f ms "
+        "(spread %.4f), torch._fused_sgd_ median %.4f ms (spread %.4f); "
+        "plain %.4f, bound %.4f ms by %s; torch._fused_sgd_ agrees within "
+        "%.3g of the scale (limit %g); readings %s; card %s"
+        % (n, mu, K4_ROUNDS, ms, spread["k4"], lib_ms, spread["fused_sgd"],
+           plain_ms, b_ms, b_by, lib_err, SGD_TOL, json.dumps(rounds),
+           card_line()))
+    del p, grad, v, calls
     torch.cuda.empty_cache()
     return {"n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": 0.0, "library_ms": lib_ms,
+            "ms_spread": spread["k4"], "library_ms_spread":
+            spread["fused_sgd"], "rounds": K4_ROUNDS,
             "library_covers": "torch._fused_sgd_ (momentum, dampening 0, "
                               "not Nesterov: the same update)",
             "library_rel_err": lib_err}
@@ -1334,8 +1377,8 @@ def k4_at_resnet(fo, main):
 def fused_sgd_yardstick(fo, p, grad, lr, v, attrs):
     """torch._fused_sgd_ on copies of K4's momentum buffers: its result
     against K4's (within float32 rounding: both compute v = mu v + g, p =
-    p - lr v, in other roundings), and its time. The port never calls
-    it."""
+    p - lr v, in other roundings), and a call of it on the copies, to be
+    timed. The port never calls it."""
     mu = attrs["mu"]
     lib = [t.clone() for t in (p, v)]
     want = fo.fused_optimizer_update("momentum", attrs, p.clone(), grad, lr,
@@ -1350,9 +1393,8 @@ def fused_sgd_yardstick(fo, p, grad, lr, v, attrs):
     if not err <= SGD_TOL:
         raise RuntimeError("torch._fused_sgd_ and K4 momentum disagree: %g "
                            "of the scale (limit %g)" % (err, SGD_TOL))
-    ms = time_ms(lambda: torch._fused_sgd_([lib[0]], [grad], [lib[1]],
-                                           **kw), iters=20, warmup=3)
-    return ms, err
+    return (lambda: torch._fused_sgd_([lib[0]], [grad], [lib[1]], **kw),
+            err)
 
 
 # -- phase 11: the ResNet narrow twin, card against CPU ---------------------

@@ -1,7 +1,8 @@
 // Tensor-core fragments and asynchronous copies for NVIDIA Hopper (sm_90a),
 // shared by the flash-attention forward (K1, flash_attention.cu), its
-// backward (K2/K3, flash_attention_bwd.cu) and paged attention (K6,
-// paged_attention.cu). Each of those sources builds alone into its own
+// backward (K2/K3, flash_attention_bwd.cu), the fused conv (K5,
+// conv2d_bn_act.cu) and paged attention (K6, paged_attention.cu). Each of
+// those sources builds alone into its own
 // library and includes this header once; the build hashes the header's
 // bytes with each source's (ops/cuda/support.library_path).
 //
@@ -119,6 +120,16 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Four 8x8 matrices of 16-bit elements by ldmatrix.x4, lanes 8i..8i+7
+// addressing the rows of matrix i (each row 16 bytes, 16-byte aligned):
+// lane l receives, of matrix i, row l / 4, 32-bit word l % 4
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(row)));
+}
+
 // Lane roles of every fragment below: g = lane / 4 is the row (A, C) or
 // column (B) group, t = lane % 4 the position inside it. An accumulator
 // tile acc[n][4] of a 16-row strip holds (g, 8n + 2t), (g, 8n + 2t + 1),
@@ -159,6 +170,19 @@ struct Tf32x3 {
     split(r[8 * stride + 4], a.hi[3], a.lo[3]);
     return a;
   }
+  // load_a's fragment by one ldmatrix.x4: rows 16-byte aligned
+  // (stride % 4 == 0, k0 % 4 == 0); lanes 0-15 address rows 0-15 at k0,
+  // lanes 16-31 the same rows at k0 + 4
+  static __device__ __forceinline__ A load_a_x4(const float* s, int stride,
+                                                int k0) {
+    const int l = threadIdx.x & 31;
+    uint32_t v[4];
+    ldmatrix_x4(v, s + (l & 15) * stride + k0 + (l >> 4) * 4);
+    A a;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(__uint_as_float(v[i]), a.hi[i], a.lo[i]);
+    return a;
+  }
   // B[k][n] = s[n0 + n][k0 + k]
   static __device__ __forceinline__ B load_b_nk(const float* s, int stride,
                                                 int n0, int k0) {
@@ -176,6 +200,17 @@ struct Tf32x3 {
     B b;
     split(r[0], b.hi[0], b.lo[0]);
     split(r[stride], b.hi[1], b.lo[1]);
+    return b;
+  }
+  // B[k][n] = s[k0 + k][n0 + n] with the depth in order (logical rows t
+  // and t + 4 are rows t and t + 4): pairs with load_a, not from_acc
+  static __device__ __forceinline__ B load_b_rows(const float* s,
+                                                  int stride, int k0,
+                                                  int n0) {
+    const float* r = s + (k0 + lane_t()) * stride + n0 + lane_g();
+    B b;
+    split(r[0], b.hi[0], b.lo[0]);
+    split(r[4 * stride], b.hi[1], b.lo[1]);
     return b;
   }
   // A = columns [8 kc, 8 kc + 8) of an accumulator strip, permuted (the
@@ -219,6 +254,19 @@ struct Tf32x3 {
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[e] += part[e];
   }
+  // one depth step of such a group, for a caller that keeps a partial a
+  // tile and adds it to its sum after kGroup steps: part = a * b on the
+  // group's first step (from zero), part += a * b after it; lo*hi, hi*lo,
+  // then hi*hi
+  static __device__ __forceinline__ void mma_step(float* part, const A& a,
+                                                  const B& b, bool first) {
+    if (first)
+      mma_tf32_zero(part, a.lo, b.hi);
+    else
+      mma_tf32(part, a.lo, b.hi);
+    mma_tf32(part, a.hi, b.lo);
+    mma_tf32(part, a.hi, b.hi);
+  }
   static __device__ __forceinline__ void store2(float* p, float x,
                                                 float y) {
     *reinterpret_cast<float2*>(p) = make_float2(x, y);
@@ -249,6 +297,16 @@ struct Bf16 {
     const T* r = s + lane_g() * stride + k0 + 2 * lane_t();
     return A{{ld32(r), ld32(r + 8 * stride), ld32(r + 8),
               ld32(r + 8 * stride + 8)}};
+  }
+  // load_a's fragment by one ldmatrix.x4: rows 16-byte aligned
+  // (stride % 8 == 0, k0 % 8 == 0); lanes 0-15 address rows 0-15 at k0,
+  // lanes 16-31 the same rows at k0 + 8
+  static __device__ __forceinline__ A load_a_x4(const T* s, int stride,
+                                                int k0) {
+    const int l = threadIdx.x & 31;
+    A a;
+    ldmatrix_x4(a.r, s + (l & 15) * stride + k0 + (l >> 4) * 8);
+    return a;
   }
   static __device__ __forceinline__ B load_b_nk(const T* s, int stride,
                                                 int n0, int k0) {

@@ -46,6 +46,26 @@ CIN_ALIGN = 128
 LAUNCHES = support.launch_counter("conv2d_bn_act")
 _kernel = None
 
+# The kernel's tile configurations, ``Tile<0..2>`` in
+# csrc/conv2d_bn_act.cu: (BM output pixels, BN output channels).
+TILES = ((128, 128), (128, 64), (64, 128))
+SMS = 132   # an H100 SXM's streaming multiprocessors
+
+
+def choose_tile(M: int, N: int, dtype: torch.dtype = torch.float32) -> int:
+    """Index into ``TILES`` for a GEMM of M output pixels by N channels in
+    ``dtype``, from the kernel's timings at ResNet-50's 19 shapes
+    (tools/torch_conv_tiles.py; the source's header note has the reasons):
+    128x64 for N <= 64, so that half of each block is not zeros; in
+    float32 64x128 when 128x128 blocks would not fill two waves of the
+    card (one such block an SM), so that half-size blocks share out the
+    last wave; else 128x128."""
+    if N <= 64:
+        return 1
+    if dtype == torch.float32 and -(-M // 128) * -(-N // 128) < 2 * SMS:
+        return 2
+    return 0
+
 
 def output_size(n: int, k: int, stride: int, padding: int) -> int:
     return (n + 2 * padding - k) // stride + 1
@@ -142,7 +162,7 @@ def _load_kernel():
         lib = support.load_library("conv2d_bn_act")
         fn = lib.paddle_conv2d_bn_act
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 13 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel = (lib, fn)
     return _kernel
@@ -155,9 +175,15 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(x, w, scale, shift, stride, padding, relu, residual):
+def _launch(x, w, scale, shift, stride, padding, relu, residual, tile):
     out_shape = check_scope(x.shape, w.shape, stride, padding,
                             None if residual is None else residual.shape)
+    B, H_out, W_out, Cout = out_shape
+    if tile is None:
+        tile = choose_tile(B * H_out * W_out, Cout, x.dtype)
+    elif tile not in range(len(TILES)):
+        raise ValueError("conv2d_bn_act: tile %r, the kernel has %d"
+                         % (tile, len(TILES)))
     if x.dtype not in DTYPES:
         raise ValueError("conv2d_bn_act takes float32 or bfloat16, got %s"
                          % x.dtype)
@@ -183,7 +209,7 @@ def _launch(x, w, scale, shift, stride, padding, relu, residual):
                   scale.data_ptr(), shift.data_ptr(),
                   None if residual is None else residual.data_ptr(),
                   y.data_ptr(), B, H, W, Cin, KH, KW, Cout, stride, padding,
-                  out_shape[1], out_shape[2], int(bool(relu)), stream)
+                  H_out, W_out, int(bool(relu)), tile, stream)
     support.check_launch(lib, "paddle_conv2d_bn_act", code)
     LAUNCHES.inc()
     return y
@@ -193,16 +219,20 @@ def conv2d_bn_act(x: torch.Tensor, w: torch.Tensor,
                   scale: Optional[torch.Tensor] = None,
                   shift: Optional[torch.Tensor] = None, *, stride: int = 1,
                   padding: int = 0, relu: bool = False,
-                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  residual: Optional[torch.Tensor] = None,
+                  tile: Optional[int] = None) -> torch.Tensor:
     """Fused conv(+scale/shift)(+residual)(+relu), NHWC: the kernel on a
-    CUDA tensor, the plain version on a CPU tensor."""
+    CUDA tensor, the plain version on a CPU tensor. ``tile`` forces one of
+    the kernel's ``TILES`` (None: ``choose_tile``); every one gives the
+    same bits, since each output sums its products in the same order."""
     if x.device.type == "cpu":
         return conv2d_bn_act_reference(x, w, scale, shift, stride=stride,
                                        padding=padding, relu=relu,
                                        residual=residual)
     if x.device.type != "cuda":
         raise ValueError("conv2d_bn_act: tensor on %s" % x.device)
-    return _launch(x, w, scale, shift, stride, padding, relu, residual)
+    return _launch(x, w, scale, shift, stride, padding, relu, residual,
+                   tile)
 
 
 def conv_backward(grad_out, x, w, stride, padding, dilation=(1, 1),

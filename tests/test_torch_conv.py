@@ -13,6 +13,13 @@ against the JAX package's Pallas kernel in interpret mode.
   ResNet-50's 53 NHWC convs (0 / 13 / 44 routed under off / auto / all,
   19 distinct routed shapes) and shapes no route takes.
 - Shapes outside the kernel's scope raise, on any device.
+- The card's float32 arithmetic, emulated: 3xTF32 products summed in
+  groups of one 32-channel step from zero (toward zero, as the tensor
+  cores round) and added to the running sum in float32 stay within 2e-5
+  of the output's scale of the plain version at K 4608 and 1024; one TF32
+  pass does not.
+- ``choose_tile`` gives each of ResNet-50's 19 routed shapes a tile
+  configuration, and Cout 64 a 64-wide one.
 """
 import numpy as np
 import pytest
@@ -208,3 +215,125 @@ def test_flags_table_matches_the_jax_package():
     assert set(pflags._DEFS) == set(jflags._DEFS)
     for name, (default, _) in jflags._DEFS.items():
         assert pflags._DEFS[name][0] == default, name
+
+
+# The card's K5 runs float32 products as 3xTF32 on mma.sync.m16n8k8:
+# hi = tf32(x) rounded to nearest, lo = x - hi cut to tf32 toward zero by
+# the tensor cores; the products of one 32-channel step (four depth steps
+# of 8: lo*hi, hi*lo, hi*hi each) sum from zero into a partial, each mma
+# rounding its sum toward zero, and the partial joins the running sum by a
+# float32 add (to nearest). The emulation below repeats that order on the
+# im2col matrix, with each mma's sum taken exactly and then rounded.
+F32_LIMIT = 2e-5
+GROUP, DEPTH = 32, 8
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32`` gives."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_toward_zero(x):
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _float32_toward_zero(x64):
+    f = x64.to(torch.float32)
+    over = f.to(torch.float64).abs() > x64.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _im2col(x, KH, KW, stride, pad):
+    """[B*H_out*W_out, KH*KW*Cin], taps in w's row order."""
+    B, H, W, Cin = x.shape
+    Ho = (H + 2 * pad - KH) // stride + 1
+    Wo = (W + 2 * pad - KW) // stride + 1
+    xp = torch.nn.functional.pad(x, (0, 0, pad, pad, pad, pad))
+    cols = [xp[:, r:r + (Ho - 1) * stride + 1:stride,
+               c:c + (Wo - 1) * stride + 1:stride, :].reshape(-1, Cin)
+            for r in range(KH) for c in range(KW)]
+    return torch.cat(cols, dim=1)
+
+
+def _emulated_conv(x, w, stride, pad, passes):
+    KH, KW, Cin, Cout = w.shape
+    a = _im2col(x, KH, KW, stride, pad)
+    b = w.reshape(KH * KW * Cin, Cout)
+    acc = torch.zeros(a.shape[0], Cout, dtype=torch.float32)
+    for g0 in range(0, b.shape[0], GROUP):
+        part = torch.zeros_like(acc)
+        for k in range(g0, g0 + GROUP, DEPTH):
+            ak, bk = a[:, k:k + DEPTH], b[k:k + DEPTH]
+            ah, bh = _tf32(ak), _tf32(bk)
+            terms = [(ah, bh)]
+            if passes == 3:
+                terms = [(_tf32_toward_zero(ak - ah), bh),
+                         (ah, _tf32_toward_zero(bk - bh)), (ah, bh)]
+            for p, q in terms:
+                part = _float32_toward_zero(
+                    part.double() + p.double() @ q.double())
+        acc = acc + part
+    B, H, W, _ = x.shape
+    return acc.reshape(B, (H + 2 * pad - KH) // stride + 1,
+                       (W + 2 * pad - KW) // stride + 1, Cout)
+
+
+@pytest.mark.parametrize("x_shape,w_shape,pad", [
+    ((2, 7, 7, 512), (3, 3, 512, 512), 1),      # K 4608
+    ((2, 14, 14, 1024), (1, 1, 1024, 256), 0),  # K 1024
+])
+def test_3xtf32_conv_keeps_the_float32_limit_and_one_pass_does_not(
+        x_shape, w_shape, pad):
+    rng = np.random.RandomState(x_shape[-1] + w_shape[0])
+    KH, KW, Cin, _ = w_shape
+    x = torch.from_numpy(rng.randn(*x_shape).astype("float32"))
+    w = torch.from_numpy((rng.randn(*w_shape)
+                          * (2.0 / (KH * KW * Cin)) ** 0.5).astype("float32"))
+    want = k5.conv2d_bn_act_reference(x, w, stride=1, padding=pad)
+    limit = F32_LIMIT * float(want.abs().max())
+
+    def error(passes):
+        return float((_emulated_conv(x, w, 1, pad, passes) - want)
+                     .abs().max())
+
+    assert error(3) <= limit
+    assert error(1) > limit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_resnet50_shape_gets_a_tile_and_cout_64_a_narrow_one(dtype):
+    shapes = {c[:4] for c in _resnet50_convs()
+              if k5.route_pallas("all", *c[:3], *c[4:])}
+    assert len(shapes) == 19
+    chosen = {}
+    for x, w, stride, pad in shapes:
+        B, H, W, _ = x
+        M = B * k5.output_size(H, w[0], stride, pad) * k5.output_size(
+            W, w[1], stride, pad)
+        tile = k5.choose_tile(M, w[3], dtype)
+        assert tile in range(len(k5.TILES))
+        bm, bn = k5.TILES[tile]
+        chosen[(M, w[3])] = (bm, bn)
+        if w[3] == 64:
+            assert bn == 64
+        # no shape leaves a block's worth of columns idle
+        assert -(-w[3] // bn) * bn - w[3] < bn
+    # float32's 196 blocks of 128x128 at M 6,272 by N 512 take 64-row ones
+    assert chosen[(6272, 512)] == ((64, 128) if dtype == torch.float32
+                                   else (128, 128))
+    assert chosen[(401408, 128)] == (128, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N", [(1, 1), (1, 130), (98, 3), (401408, 64),
+                                 (6272, 2048), (10 ** 7, 4096)])
+def test_choose_tile_takes_any_size(M, N, dtype):
+    assert k5.choose_tile(M, N, dtype) in range(len(k5.TILES))
+
+
+def test_a_tile_outside_the_table_raises_on_the_card_path():
+    with pytest.raises(ValueError, match="tile"):
+        k5._launch(torch.zeros(1, 4, 4, 128), torch.zeros(1, 1, 128, 8),
+                   None, None, 1, 0, False, None, len(k5.TILES))

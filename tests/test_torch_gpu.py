@@ -485,6 +485,42 @@ def test_conv_kernel_epilogue_and_odd_sizes(cuda, dtype, case):
         _k5_close(cuda, x, w, kw, stride, pad, dtype)
 
 
+def test_conv_kernel_float32_limit_at_k4608_against_float64(cuda):
+    """K 4608, the deepest routed reduction: the 3xTF32 products, summed
+    from zero a 32-channel step at a time and added in float32, keep y
+    within 2e-5 of the output's scale of the conv evaluated in float64."""
+    x, w, kw = _k5_case(cuda, 8, 7, 7, 512, 3, 512, 1, 1, torch.float32,
+                        False, seed=3)
+    y = k5.conv2d_bn_act(x, w, stride=1, padding=1)
+    torch.cuda.synchronize()
+    exact = torch.nn.functional.conv2d(
+        x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+        padding=1).permute(0, 2, 3, 1)
+    scale = float(exact.abs().max())
+    assert float((y.double() - exact).abs().max()) <= 2e-5 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", range(len(k5.TILES)))
+def test_conv_kernel_gives_the_same_bits_twice_for_each_tile(cuda, dtype,
+                                                              tile):
+    """Two runs of a tile configuration give the same bits, and every
+    configuration those of the wrapper's choice: each output sums its
+    products in the same order whatever the tile."""
+    # an M tail (3 * 13 * 13 = 507 rows) and an N tail (Cout 200)
+    x, w, kw = _k5_case(cuda, 3, 13, 13, 256, 3, 200, 1, 1, dtype, True,
+                        seed=7)
+    a = k5.conv2d_bn_act(x, w, stride=1, padding=1, tile=tile, **kw)
+    b = k5.conv2d_bn_act(x, w, stride=1, padding=1, tile=tile, **kw)
+    chosen = k5.conv2d_bn_act(x, w, stride=1, padding=1, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, chosen)
+    ref = k5.conv2d_bn_act_reference(x, w, stride=1, padding=1, **kw)
+    torch.testing.assert_close(a.float(), ref.float(), rtol=0,
+                               atol=K5_TOL[dtype] * float(ref.float().abs()
+                                                          .max()))
+
+
 def test_conv_kernel_takes_misaligned_and_strided_views(cuda):
     x, w, kw = _k5_case(cuda, 2, 6, 6, 128, 3, 64, 1, 1, torch.float32,
                         True)
