@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Run from the repository root. It drives the port's four main paths at
-full width, serving (BERT-base), training (gpt_long), ResNet-50 training and
-streaming decode (the continuous-batching engine at gpt_long's width), and
-holds each hand-written CUDA kernel against its plain PyTorch version on
-the card. Phases, one or more lines each:
+Run from the repository root. It drives the port's six main paths at
+full width, serving (BERT-base), training (gpt_long), ResNet-50 training,
+streaming decode (the continuous-batching engine at gpt_long's width),
+Transformer-base WMT training and BERT-base masked-LM training, and holds
+each hand-written CUDA kernel against its plain PyTorch version on the
+card. Phases, one or more lines each:
 
 1. card and settings: name and power limit (nvidia-smi), torch version;
    TF32 off for float32 products and for cuDNN;
@@ -134,9 +135,33 @@ the card. Phases, one or more lines each:
    geometry on the card and through CPUPlace() must agree wherever the
    CPU's top-2 logit gap exceeds 1e-3; 16 streams on bf16 and on int8
    arenas must finish clean with K6 launched as the counters predict;
-15. one JSON line {"kernels": [...]} with each kernel's launches on the
+15. K1, K2 and K3 at the WMT path's self-attention shape (B 64, H 8, S
+   256, D 64, float32) with the lengths of phase 16's feed: the encoder's
+   form (source lengths, not causal) and the decoder's (target lengths,
+   causal), each held to its plain version under the limits of phases 3
+   and 5 and timed (CUDA events and the profiler's device time) against
+   its bound and SDPA under the same boolean mask, forward and backward;
+16. Transformer-base WMT training: bench.py's script (batch 64, seq 256,
+   6+6 layers, d_model 512, 8 heads of 64, d_ff 2048, vocab 32000,
+   93,586,688 parameters; source and target lengths drawn from
+   [128, 256] as bench.py draws them; the loss over non-pad target
+   tokens; Adam 1e-4, float32) run as phase 7 runs gpt_long: one
+   fused_optimizer op, the loss finite and the last below the first
+   and the warm-up's, and K1, K2, K3 and K4 launched exactly 120, 60,
+   60 and 5 times in 5 steps (12 flash ops a step, each running K1 in
+   its forward and again in its grad op); step time, non-pad target
+   tokens/s, peak memory and a profile of one step;
+17. BERT-base masked-LM training: bench.py's script (batch 32, seq 128,
+   12 layers, 12 heads of 64, d_ff 3072, vocab 30522, 20 masked
+   positions; 132,066,618 parameters) the same way: dense attention,
+   so K1 never runs, and K4 5 times;
+18. the narrow twins of both scripts (WMT 2+2 layers, BERT 2; d_model
+   128, 2 heads of 64, vocab 512; every WMT batch holds the lengths S
+   and S / 2), card against CPU as in phase 8, with K1/K2/K3 launched
+   8/4/4 times a step on the WMT twin;
+19. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside), error, times and bound;
-16. the last line: {"ok": true, "device": {...}}.
+20. the last line: {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero without the last line. Without a
 CUDA device it exits 2 and prints no result.
@@ -187,6 +212,13 @@ TWIN_RTOL = 1e-4
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 BWD_SHAPE = (2, 16, 4096, 64)   # the training path's attention
 K4_SIZE = 83912704              # the training path's flat Adam buffer
+# the WMT path's self-attention (bench.py's WMT: batch 64, 8 heads of 64,
+# seq 256), and the narrow transformer twins: 2 heads of 64, the smallest
+# head the kernels take
+WMT_ATTN = (64, 8, 256, 64)
+TRANSFORMER_TWIN = dict(vocab=512, num_layers=2, num_heads=2, d_model=128,
+                        d_ff=512)
+TRANSFORMER_TWIN_BATCH = (2, 32)   # batch, seq
 # ResNet-50 training (bench.py's _build_resnet50 / bench_resnet50), NHWC
 # with every viable conv routed to K5, and its narrow twin
 RESNET_BATCH = 128
@@ -378,7 +410,20 @@ def k1_inputs(shape, dtype, seed, s_kv=None):
             for s in (shape, kv_shape, kv_shape)]
 
 
-def k1_check(fa, shape, lengths, causal, dtype, seed, timed, s_kv=None):
+def sdpa_mask(lens, S, s_kv, causal):
+    """The boolean attn_mask [B, 1, S, s_kv] that gives SDPA the kernels'
+    masks: keys below each row's length, and on or below the diagonal
+    under ``causal``."""
+    pos = torch.arange(s_kv, device="cuda")
+    mask = (pos[None, None, None, :] < lens[:, None, None, None])
+    if causal:
+        mask = mask & (torch.arange(S, device="cuda")[:, None]
+                       >= pos[None, :])
+    return mask
+
+
+def k1_check(fa, shape, lengths, causal, dtype, seed, timed, s_kv=None,
+             phase=3):
     q, k, v = k1_inputs(shape, dtype, seed, s_kv)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     o, lse = fa.flash_attention(q, k, v, causal, None, lens)
@@ -400,11 +445,7 @@ def k1_check(fa, shape, lengths, causal, dtype, seed, timed, s_kv=None):
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "D": shape[-1], "err_o": err_o, "err_lse": err_lse}
     if timed:
-        pos = torch.arange(k.shape[2], device="cuda")
-        mask = (pos[None, None, None, :] < lens[:, None, None, None])
-        if causal:
-            mask = mask & (torch.arange(S, device="cuda")[:, None]
-                           >= pos[None, :])
+        mask = sdpa_mask(lens, S, k.shape[2], causal)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         long = S >= 1024
         row["ms"] = time_ms(lambda: fa.flash_attention(
@@ -427,7 +468,7 @@ def k1_check(fa, shape, lengths, causal, dtype, seed, timed, s_kv=None):
         t = row["device_ms"] or row["ms"]
         row["tflops"] = flops / t / 1e9
         row["gbytes_per_s"] = nbytes / t / 1e6
-    log("phase 3 K1 %s" % json.dumps(row))
+    log("phase %d K1 %s" % (phase, json.dumps(row)))
     return row
 
 
@@ -726,7 +767,7 @@ def bwd_work(shape, lengths, causal, dtype):
             (common + 2 * t, 4 * 2 * D * pairs))
 
 
-def bwd_check(fa, shape, lengths, causal, dtype, seed, timed):
+def bwd_check(fa, shape, lengths, causal, dtype, seed, timed, phase=5):
     q, k, v = k1_inputs(shape, dtype, seed)
     g = torch.Generator().manual_seed(seed + 100)
     do = torch.randn(shape, generator=g).to(dtype).cuda()
@@ -778,7 +819,16 @@ def bwd_check(fa, shape, lengths, causal, dtype, seed, timed):
             lambda: fa.flash_attention_backward_reference(
                 q, k, v, o, lse, do, causal, None, lens),
             iters=3 if shape[2] >= 1024 else 20, warmup=1)
-        row["library_ms"] = sdpa_backward_ms(q, k, v, do, causal, iters)
+        mask = None if lens is None else sdpa_mask(lens, shape[2],
+                                                   shape[2], causal)
+        row["library_ms"], row["library_device_ms"] = sdpa_backward_ms(
+            q, k, v, do, causal, iters, mask)
+        row["device_ms_dq"] = device_ms_per_call(
+            lambda: fa.launch_backward_dq(q, k, v, do, lse, delta, causal,
+                                          scale, lens), calls=iters)
+        row["device_ms_dkv"] = device_ms_per_call(
+            lambda: fa.launch_backward_dkv(q, k, v, do, lse, delta, causal,
+                                           scale, lens), calls=iters)
         (b2, f2), (b3, f3) = bwd_work(shape, lengths, causal, dtype)
         row["bound_dq_ms"], row["bound_dq_by"] = bound(b2, f2,
                                                        PEAK_FLOPS[dtype])
@@ -786,26 +836,31 @@ def bwd_check(fa, shape, lengths, causal, dtype, seed, timed):
                                                          PEAK_FLOPS[dtype])
         row["tflops_dq"] = f2 / row["ms_dq"] / 1e9
         row["tflops_dkv"] = f3 / row["ms_dkv"] / 1e9
-        log("phase 5 K2 %.4f ms (%.1f TFLOP/s), bound %.4f ms; K3 %.4f ms "
+        log("phase %d K2 %.4f ms (%.1f TFLOP/s), bound %.4f ms; K3 %.4f ms "
             "(%.1f TFLOP/s), bound %.4f ms; SDPA backward (all three grads) "
             "%.4f ms; plain %.3f ms" % (
-                row["ms_dq"], row["tflops_dq"], row["bound_dq_ms"],
+                phase, row["ms_dq"], row["tflops_dq"], row["bound_dq_ms"],
                 row["ms_dkv"], row["tflops_dkv"], row["bound_dkv_ms"],
                 row["library_ms"], row["plain_ms"]))
     torch.cuda.empty_cache()
-    log("phase 5 K2/K3 %s" % json.dumps(row))
+    log("phase %d K2/K3 %s" % (phase, json.dumps(row)))
     return row
 
 
-def sdpa_backward_ms(q, k, v, do, causal, iters):
-    """Device time of the backward of torch's scaled_dot_product_attention
-    (is_causal) on the same tensors."""
+def sdpa_backward_ms(q, k, v, do, causal, iters, mask=None):
+    """Time of the backward of torch's scaled_dot_product_attention on the
+    same tensors, under ``is_causal`` or, where given, the boolean
+    ``mask``: (CUDA events, the profiler's device time a call)."""
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-    out = torch.nn.functional.scaled_dot_product_attention(
-        *leaves, is_causal=causal)
-    return time_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                               retain_graph=True),
-                   iters=iters, warmup=2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = (sdpa(*leaves, is_causal=causal) if mask is None
+           else sdpa(*leaves, attn_mask=mask))
+
+    def backward():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    return (time_ms(backward, iters=iters, warmup=2),
+            device_ms_per_call(backward, calls=iters))
 
 
 def phase_flash_backward(fa):
@@ -936,22 +991,21 @@ def profile_step(run):
     return wall_ms, sum(k[0] for k in kernels), kernels
 
 
-def phase_training(fluid, support):
-    from paddle_tpu_torch.models import gpt
-
-    # bench.py's fast paths (_enable_fast_paths): an explicit setting wins
-    os.environ.setdefault("PADDLE_TPU_FUSED_OPTIMIZER", "1")
-    np.random.seed(SEED)
+def train_path(fluid, support, phase, name, built, feed, want, tokens):
+    """Train one path on the card: the startup, one warm-up step (which
+    applies the fused-optimizer rewrite), then TRAIN_STEPS steps on one
+    batch with the launch counts zeroed just before and read just after.
+    The program must hold one fused_optimizer op and no adam op, every
+    loss must be finite and the last below the first and the warm-up's,
+    and the launches must be ``want``. Logs step time, ``tokens`` a step
+    per second, peak memory and a profile of one step; returns the
+    launch counts and those numbers."""
     t0 = time.perf_counter()
-    cfg = gpt.GPT_LONG
-    main, startup, loss, params_grads = gpt.build_gpt_long(
-        **cfg, seed=SEED + 1)
+    main, startup, loss, params_grads = built()
     n_params = sum(int(np.prod(p.shape)) for p, _ in params_grads)
     exe = fluid.Executor()  # the card
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    feed = gpt.random_batch(np.random.RandomState(SEED), cfg["batch"],
-                            cfg["seq_len"], cfg["vocab"])
 
     def step():
         (out,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
@@ -963,9 +1017,10 @@ def phase_training(fluid, support):
     t_setup = time.perf_counter() - t0
     ops = [op.type for op in main.global_block().ops]
     if ops.count("fused_optimizer") != 1 or "adam" in ops:
-        raise RuntimeError("expected one fused_optimizer op and no adam, "
-                           "got %d and %d" % (ops.count("fused_optimizer"),
-                                              ops.count("adam")))
+        raise RuntimeError("%s: expected one fused_optimizer op and no "
+                           "adam, got %d and %d"
+                           % (name, ops.count("fused_optimizer"),
+                              ops.count("adam")))
     torch.cuda.reset_peak_memory_stats()
     support.reset_launch_counts()
     t0 = time.perf_counter()
@@ -975,53 +1030,75 @@ def phase_training(fluid, support):
     counts = support.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [float(o.numpy().reshape(-1)[0]) for o in outs]
-    log("phase 7 gpt_long float32: %d parameters, %d ops, setup (build, "
+    log("phase %d %s float32: %d parameters, %d ops, setup (build, "
         "startup, warm-up step) %.2f s, warm-up loss %.6f"
-        % (n_params, len(ops), t_setup, first))
-    log("phase 7 losses over %d steps on one batch: %s" % (
-        TRAIN_STEPS, ", ".join("%.6f" % x for x in losses)))
-    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise RuntimeError("training did not fall: %s" % losses)
+        % (phase, name, n_params, len(ops), t_setup, first))
+    log("phase %d losses over %d steps on one batch: %s" % (
+        phase, TRAIN_STEPS, ", ".join("%.6f" % x for x in losses)))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and losses[-1] < first):
+        raise RuntimeError("%s training did not fall: warm-up %s, then %s"
+                           % (name, first, losses))
+    bad = {k: (counts.get(k, 0), n) for k, n in want.items()
+           if counts.get(k, 0) != n}
+    if bad:
+        raise RuntimeError("%s training launches (got, want): %s"
+                           % (name, bad))
+    step_ms = wall / TRAIN_STEPS * 1e3
+    log("phase %d %d steps: step %.3f ms, %.1f tokens/s (%d tokens a "
+        "step), max_memory_allocated %d bytes; launches %s; card %s"
+        % (phase, TRAIN_STEPS, step_ms, tokens / wall * TRAIN_STEPS, tokens,
+           peak, json.dumps(counts), card_line()))
+    wall_ms, busy_ms, kernels = profile_step(step)
+    log("phase %d profile, one step: wall %.3f ms, device busy %.3f ms, "
+        "idle share %s" % (phase, wall_ms, busy_ms,
+                           "%.3f" % (1 - busy_ms / wall_ms) if busy_ms else
+                           "not measured (no device time in the trace)"))
+    for t_ms, count, kname in kernels[:10]:
+        log("phase %d profile   %9.3f ms  %5d x  %s"
+            % (phase, t_ms, count, kname[:110]))
+    del exe, scope, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"n_params": n_params, "ops": len(ops),
+                    "step_ms": step_ms, "tokens_per_s":
+                    tokens / wall * TRAIN_STEPS, "peak_bytes": peak,
+                    "losses": [first] + losses}
+
+
+def phase_training(fluid, support):
+    from paddle_tpu_torch.models import gpt
+
+    # bench.py's fast paths (_enable_fast_paths): an explicit setting wins
+    os.environ.setdefault("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    np.random.seed(SEED)
+    cfg = gpt.GPT_LONG
+    feed = gpt.random_batch(np.random.RandomState(SEED), cfg["batch"],
+                            cfg["seq_len"], cfg["vocab"])
     want = {"flash_attention_forward": 4 * TRAIN_STEPS,
             "flash_attention_backward_dq": 2 * TRAIN_STEPS,
             "flash_attention_backward_dkv": 2 * TRAIN_STEPS,
             "fused_optimizer_update": TRAIN_STEPS}
-    bad = {k: (counts.get(k), n) for k, n in want.items()
-           if counts.get(k) != n}
-    if bad:
-        raise RuntimeError("training launches (got, want): %s" % bad)
-    tokens = cfg["batch"] * cfg["seq_len"]
-    step_ms = wall / TRAIN_STEPS * 1e3
-    log("phase 7 %d steps: step %.3f ms, %.1f tokens/s (%d tokens a step), "
-        "max_memory_allocated %d bytes; launches %s; card %s"
-        % (TRAIN_STEPS, step_ms, tokens / wall * TRAIN_STEPS, tokens, peak,
-           json.dumps(counts), card_line()))
-    wall_ms, busy_ms, kernels = profile_step(step)
-    log("phase 7 profile, one step: wall %.3f ms, device busy %.3f ms, idle "
-        "share %s" % (wall_ms, busy_ms,
-                      "%.3f" % (1 - busy_ms / wall_ms) if busy_ms else
-                      "not measured (no device time in the trace)"))
-    for t_ms, count, name in kernels[:10]:
-        log("phase 7 profile   %9.3f ms  %5d x  %s"
-            % (t_ms, count, name[:110]))
-    del exe, scope, outs
-    torch.cuda.empty_cache()
+    counts, _ = train_path(
+        fluid, support, 7, "gpt_long",
+        lambda: gpt.build_gpt_long(**cfg, seed=SEED + 1), feed, want,
+        cfg["batch"] * cfg["seq_len"])
     return counts
 
 
 # -- phase 8: the narrow twin, card against CPU -----------------------------
 
-def phase_twin(fluid, support):
-    from paddle_tpu_torch.models import gpt
-
-    rng = np.random.RandomState(SEED + 2)
-    feeds = [gpt.random_batch(rng, GPT_TWIN["batch"], GPT_TWIN["seq_len"],
-                              GPT_TWIN["vocab"]) for _ in range(TWIN_STEPS)]
+def twin_check(fluid, support, phase, name, build, feeds, want):
+    """Train ``build()``'s program TWIN_STEPS steps through CPUPlace() and
+    on the card from the CPU startup's persistables: the losses within
+    TWIN_RTOL relative, the step-1 grads within TWIN_RTOL of their scale
+    (the larger of their largest magnitude and 1e-3: grads that are zero
+    by symmetry, such as the key bias's, are rounding noise on both
+    sides), and the card run's launches ``want``."""
     init, losses, grads = None, {}, {}
-    for name, place in (("cpu", fluid.CPUPlace()),
+    for side, place in (("cpu", fluid.CPUPlace()),
                         ("card", fluid.CUDAPlace(0))):
-        main, startup, loss, params_grads = gpt.build_gpt_long(
-            **GPT_TWIN, seed=SEED + 3)
+        main, startup, loss, params_grads = build()
         grad_names = [g.name for _, g in params_grads]
         exe = fluid.Executor(place)
         scope = fluid.Scope()
@@ -1033,38 +1110,46 @@ def phase_twin(fluid, support):
         else:
             fluid.io.scope_from_numpy(scope, init, place)
         support.reset_launch_counts()
-        losses[name] = []
+        losses[side] = []
         for i, feed in enumerate(feeds):
             res = exe.run(main, feed=feed, scope=scope,
                           fetch_list=[loss] + (grad_names if i == 0 else []))
-            losses[name].append(float(np.asarray(res[0]).reshape(-1)[0]))
+            losses[side].append(float(np.asarray(res[0]).reshape(-1)[0]))
             if i == 0:
-                grads[name] = res[1:]
+                grads[side] = res[1:]
         counts = support.launch_counts()
-    want = {"flash_attention_forward": 4 * TWIN_STEPS,
-            "flash_attention_backward_dq": 2 * TWIN_STEPS,
-            "flash_attention_backward_dkv": 2 * TWIN_STEPS,
-            "fused_optimizer_update": TWIN_STEPS}
-    if any(counts.get(k) != n for k, n in want.items()):
+    if any(counts.get(k, 0) != n for k, n in want.items()):
         raise RuntimeError("the card twin's launches %s, want %s"
                            % (counts, want))
     rel = max(abs(a - b) / abs(b)
               for a, b in zip(losses["card"], losses["cpu"]))
-    # step-1 grads, against the larger of their scale and 1e-3 (grads
-    # that are zero by symmetry, such as the key bias's, are rounding
-    # noise on both sides)
     grad_rel = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
                                                     1e-3)
                    for a, b in zip(grads["card"], grads["cpu"]))
-    log("phase 8 narrow twin %s, %d steps: card losses %s, CPU losses %s, "
+    log("phase %d narrow twin %s, %d steps: card losses %s, CPU losses %s, "
         "largest relative difference %.3g (limit %g); %d step-1 grads, "
         "largest difference %.3g of their scale (limit %g); card launches "
-        "%s" % (json.dumps(GPT_TWIN), TWIN_STEPS, losses["card"],
-                losses["cpu"], rel, TWIN_RTOL, len(grads["cpu"]), grad_rel,
-                TWIN_RTOL, json.dumps(counts)))
+        "%s" % (phase, name, TWIN_STEPS, losses["card"], losses["cpu"], rel,
+                TWIN_RTOL, len(grads["cpu"]), grad_rel, TWIN_RTOL,
+                json.dumps({k: v for k, v in counts.items() if v})))
     if not (rel <= TWIN_RTOL and grad_rel <= TWIN_RTOL):
-        raise RuntimeError("card and CPU training disagree: loss %g, grads "
-                           "%g" % (rel, grad_rel))
+        raise RuntimeError("card and CPU training disagree (%s): loss %g, "
+                           "grads %g" % (name, rel, grad_rel))
+
+
+def phase_twin(fluid, support):
+    from paddle_tpu_torch.models import gpt
+
+    rng = np.random.RandomState(SEED + 2)
+    feeds = [gpt.random_batch(rng, GPT_TWIN["batch"], GPT_TWIN["seq_len"],
+                              GPT_TWIN["vocab"]) for _ in range(TWIN_STEPS)]
+    want = {"flash_attention_forward": 4 * TWIN_STEPS,
+            "flash_attention_backward_dq": 2 * TWIN_STEPS,
+            "flash_attention_backward_dkv": 2 * TWIN_STEPS,
+            "fused_optimizer_update": TWIN_STEPS}
+    twin_check(fluid, support, 8, json.dumps(GPT_TWIN),
+               lambda: gpt.build_gpt_long(**GPT_TWIN, seed=SEED + 3),
+               feeds, want)
 
 
 # -- phase 9: the fused implicit-GEMM conv (K5) -----------------------------
@@ -2088,6 +2173,115 @@ def phase_invariance(fluid, support, specs, batched, dev=torch.device("cuda"),
             "tokens" % (dtype, got, same))
 
 
+# -- phase 15: K1, K2 and K3 at the WMT path's attention shape ---------------
+
+def phase_wmt_attention(fa, feed):
+    """K1, K2 and K3 at WMT's self-attention (B 64, H 8, S 256, D 64,
+    float32) with the WMT phase's own lengths: the encoder's form (source
+    lengths, not causal) and the decoder's (target lengths, causal). Each
+    held to its plain version, timed (CUDA events and the profiler's
+    device time), bounded, and timed against SDPA under the same boolean
+    mask, forward and backward."""
+    out = {}
+    for form, lens, causal, seed in (("encoder", "slen", False, 50),
+                                     ("decoder", "tlen", True, 51)):
+        lengths = [int(n) for n in feed[lens]]
+        fwd = k1_check(fa, WMT_ATTN, lengths, causal, torch.float32, seed,
+                       timed=True, phase=15)
+        bwd = bwd_check(fa, WMT_ATTN, lengths, causal, torch.float32,
+                        seed + 10, timed=True, phase=15)
+        out[form] = (fwd, bwd)
+        log("phase 15 WMT %s form (causal=%s, lengths %d..%d, mean %.1f): "
+            "K1 %.4f ms (device %s, bound %.4f by %s), SDPA %.4f (device "
+            "%s); K2 %.4f (device %s, bound %.4f), K3 %.4f (device %s, "
+            "bound %.4f), SDPA backward %.4f (device %s); card %s"
+            % (form, causal, min(lengths), max(lengths), np.mean(lengths),
+               fwd["ms"], fmt_ms(fwd["device_ms"]), fwd["bound_ms"],
+               fwd["bound_by"], fwd["library_ms"],
+               fmt_ms(fwd["library_device_ms"]), bwd["ms_dq"],
+               fmt_ms(bwd["device_ms_dq"]), bwd["bound_dq_ms"],
+               bwd["ms_dkv"], fmt_ms(bwd["device_ms_dkv"]),
+               bwd["bound_dkv_ms"], bwd["library_ms"],
+               fmt_ms(bwd["library_device_ms"]), card_line()))
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phases 16-18: Transformer-base WMT and BERT-base MLM training ----------
+
+def phase_wmt(fluid, support, feed):
+    """bench.py's WMT script at full width (batch 64, seq 256, 6+6 layers,
+    d_model 512, 8 heads of 64, d_ff 2048, vocab 32000) with bench.py's
+    lengths: 12 flash ops a step, each K1 twice (its forward, and again in
+    its grad op's auto-VJP), K2 and K3 once; K4 once."""
+    from paddle_tpu_torch.models import transformer
+
+    w = transformer.WMT
+    per_step = 12
+    want = {"flash_attention_forward": 2 * per_step * TRAIN_STEPS,
+            "flash_attention_backward_dq": per_step * TRAIN_STEPS,
+            "flash_attention_backward_dkv": per_step * TRAIN_STEPS,
+            "fused_optimizer_update": TRAIN_STEPS}
+    return train_path(
+        fluid, support, 16, "wmt",
+        lambda: transformer.build_transformer_wmt(
+            **w, use_lengths=True, seed=SEED + 5),
+        feed, want, int(feed["tlen"].sum()))
+
+
+def phase_bert(fluid, support):
+    """bench.py's BERT-base masked-LM script (batch 32, seq 128, 12 layers
+    of 12 heads of 64, d_ff 3072, vocab 30522, 20 masked positions): dense
+    attention (T 128 < 2048, no lengths), so no flash kernel; K4 once a
+    step."""
+    from paddle_tpu_torch.models import transformer
+
+    b = transformer.BERT_BASE
+    feed = transformer.bert_batch(np.random.RandomState(SEED), b["batch"],
+                                  b["seq_len"], b["vocab"], b["masked"])
+    want = {"flash_attention_forward": 0, "flash_attention_backward_dq": 0,
+            "flash_attention_backward_dkv": 0,
+            "fused_optimizer_update": TRAIN_STEPS}
+    return train_path(fluid, support, 17, "bert",
+                      lambda: transformer.build_bert_base(**b,
+                                                          seed=SEED + 6),
+                      feed, want, b["batch"] * b["seq_len"])
+
+
+def phase_transformer_twins(fluid, support):
+    """The narrow WMT (2+2 layers) and BERT (2 layers) scripts, d_model
+    128, 2 heads of 64 (the smallest head K1-K3 take), vocab 512, card
+    against CPU; every WMT batch holds the lengths S and S / 2."""
+    from paddle_tpu_torch.models import transformer
+
+    rng = np.random.RandomState(SEED + 7)
+    batch, seq = TRANSFORMER_TWIN_BATCH
+    feeds = [transformer.wmt_batch(rng, batch, seq, TRANSFORMER_TWIN["vocab"])
+             for _ in range(TWIN_STEPS)]
+    for f in feeds:
+        f["slen"][:2] = (seq, seq // 2)
+        f["tlen"][:2] = (seq // 2, seq)
+    flash_ops = 2 * TRANSFORMER_TWIN["num_layers"]
+    want = {"flash_attention_forward": 2 * flash_ops * TWIN_STEPS,
+            "flash_attention_backward_dq": flash_ops * TWIN_STEPS,
+            "flash_attention_backward_dkv": flash_ops * TWIN_STEPS,
+            "fused_optimizer_update": TWIN_STEPS}
+    twin_check(fluid, support, 18, "wmt %s" % json.dumps(TRANSFORMER_TWIN),
+               lambda: transformer.build_transformer_wmt(
+                   batch, seq, **TRANSFORMER_TWIN, seed=SEED + 8),
+               feeds, want)
+    feeds = [transformer.bert_batch(rng, batch, seq,
+                                    TRANSFORMER_TWIN["vocab"], 5)
+             for _ in range(TWIN_STEPS)]
+    feeds[0]["mpos"][0, :2] = 3  # a repeated row
+    want = {"flash_attention_forward": 0,
+            "fused_optimizer_update": TWIN_STEPS}
+    twin_check(fluid, support, 18, "bert %s" % json.dumps(TRANSFORMER_TWIN),
+               lambda: transformer.build_bert_base(
+                   batch, seq, masked=5, **TRANSFORMER_TWIN, seed=SEED + 9),
+               feeds, want)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -2119,12 +2313,43 @@ def main() -> int:
     paged = phase_paged_attention(k6)
     decode, specs, outs, paged["decode_path"] = phase_decode(fluid, support)
     phase_invariance(fluid, support, specs, outs)
+    from paddle_tpu_torch.models import transformer
+
+    w = transformer.WMT
+    wmt_feed = transformer.wmt_batch(np.random.RandomState(SEED),
+                                     w["batch"], w["seq_len"], w["vocab"])
+    wmt_attn = phase_wmt_attention(fa, wmt_feed)
+    for form, (fwd, bwd) in wmt_attn.items():
+        flash.setdefault("wmt_shape", {})[form] = {
+            k: fwd[k] for k in ("shape", "causal", "ms", "device_ms",
+                                "plain_ms", "library_ms",
+                                "library_device_ms", "bound_ms", "bound_by",
+                                "tflops", "err_o", "err_lse")}
+        for kern, tag in ((k2, "dq"), (k3, "dkv")):
+            kern.setdefault("wmt_shape", {})[form] = {
+                "shape": bwd["shape"], "causal": bwd["causal"],
+                "ms": bwd["ms_" + tag], "device_ms": bwd["device_ms_" + tag],
+                "bound_ms": bwd["bound_%s_ms" % tag],
+                "bound_by": bwd["bound_%s_by" % tag],
+                "tflops": bwd["tflops_" + tag], "plain_ms": bwd["plain_ms"],
+                "library_ms": bwd["library_ms"],
+                "library_device_ms": bwd["library_device_ms"],
+                "rel_err_max": bwd["rel_err_max"],
+                "plain_covers": "dQ, dK and dV",
+                "library_covers": "dQ, dK and dV (SDPA backward, the "
+                                  "same boolean mask)"}
+    wmt, wmt_run = phase_wmt(fluid, support, wmt_feed)
+    bert, bert_run = phase_bert(fluid, support)
+    log("phases 16-17 %s" % json.dumps({"wmt": wmt_run, "bert": bert_run}))
+    phase_transformer_twins(fluid, support)
     kernels = (probe, flash, k2, k3, k4, conv, paged)
     for kern in kernels:
         by_path = {"serving": serving.get(kern["name"], 0),
                    "training": training.get(kern["name"], 0),
                    "resnet": resnet.get(kern["name"], 0),
-                   "decode": decode.get(kern["name"], 0)}
+                   "decode": decode.get(kern["name"], 0),
+                   "wmt": wmt.get(kern["name"], 0),
+                   "bert": bert.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

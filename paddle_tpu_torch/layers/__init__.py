@@ -5,8 +5,15 @@ from .loss import cross_entropy, softmax_with_cross_entropy  # noqa: F401
 from .math_op_patch import monkey_patch_variable
 from .nn import *  # noqa: F401,F403
 from .nn import __all__ as _nn_all
+from .ops import *  # noqa: F401,F403
+from .ops import __all__ as _ops_all
+from .sequence_lod import *  # noqa: F401,F403
+from .sequence_lod import __all__ as _seq_all
+from .tensor import *  # noqa: F401,F403
+from .tensor import __all__ as _tensor_all
 
 monkey_patch_variable()
 
 __all__ = (["data", "fluid_data", "flash_attention", "cross_entropy",
-            "softmax_with_cross_entropy"] + _nn_all)
+            "softmax_with_cross_entropy"] + _nn_all + _ops_all + _seq_all
+           + _tensor_all)

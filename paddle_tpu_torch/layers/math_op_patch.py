@@ -1,27 +1,82 @@
-"""``Variable.__add__`` / ``__radd__`` (counterpart of
-``paddle_tpu/layers/math_op_patch.py:64-65``): ``x + y`` of two Variables
-appends ``elementwise_add`` with ``axis=-1``. The scalar forms and the
-other operators need ``scale`` and the other elementwise ops, which come
-with a later slice (ROADMAP.md)."""
+"""Operator overloads of ``Variable`` (counterpart of
+``paddle_tpu/layers/math_op_patch.py:13-75``): ``+ - * / // % **`` and
+unary ``-`` append ``elementwise_*`` ops with ``axis=-1``, and a Python
+number on the right of ``+ - * /`` (or the left of ``+ - *``) becomes a
+``scale`` op, as in the JAX package; any other number is a
+``fill_constant`` of x's shape. The comparisons need ``control_flow``'s
+compare ops, which come with a later slice (ROADMAP.md)."""
 from __future__ import annotations
 
 from .. import framework
 from ..layer_helper import LayerHelper
 
 
-def _add(x, y):
+def _scalar_op(var, scale, bias):
+    helper = LayerHelper("scale", input=var)
+    out = helper.create_variable_for_type_inference(var.dtype)
+    helper.append_op("scale", inputs={"X": [var]}, outputs={"Out": [out]},
+                     attrs={"scale": float(scale), "bias": float(bias)})
+    return out
+
+
+def _binary_op(op_type, x, y, reverse=False):
     if not isinstance(y, framework.Variable):
-        raise NotImplementedError(
-            "Variable + %s needs the `scale` op, not yet ported "
-            "(ROADMAP.md, queue 1)" % type(y).__name__)
-    helper = LayerHelper("elementwise_add", input=x)
+        if op_type == "elementwise_add":
+            return _scalar_op(x, 1.0, y)
+        if op_type == "elementwise_sub":
+            if reverse:
+                return _scalar_op(x, -1.0, y)
+            return _scalar_op(x, 1.0, -y)
+        if op_type == "elementwise_mul":
+            return _scalar_op(x, y, 0.0)
+        if op_type == "elementwise_div" and not reverse:
+            return _scalar_op(x, 1.0 / y, 0.0)
+        from .tensor import fill_constant
+
+        y = fill_constant(list(x.shape) if x.shape else [1], x.dtype, y)
+    if reverse:
+        x, y = y, x
+    helper = LayerHelper(op_type, input=x)
     out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("elementwise_add", inputs={"X": [x], "Y": [y]},
+    helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [out]}, attrs={"axis": -1})
     return out
 
 
+def _cmp_op(op_type):
+    def impl(self, other):
+        raise NotImplementedError(
+            "Variable comparison needs the %r op of control_flow, not yet "
+            "ported (ROADMAP.md, queue 1)" % op_type)
+
+    return impl
+
+
 def monkey_patch_variable(cls=None):
     cls = cls or framework.Variable
-    cls.__add__ = _add
-    cls.__radd__ = _add
+
+    def _make(op_type, reverse=False):
+        def impl(self, other):
+            return _binary_op(op_type, self, other, reverse)
+
+        return impl
+
+    cls.__add__ = _make("elementwise_add")
+    cls.__radd__ = _make("elementwise_add")
+    cls.__sub__ = _make("elementwise_sub")
+    cls.__rsub__ = lambda self, other: _binary_op(
+        "elementwise_sub", self, other, reverse=True) if isinstance(
+        other, framework.Variable) else _scalar_op(
+        _scalar_op(self, -1.0, 0.0), 1.0, other)
+    cls.__mul__ = _make("elementwise_mul")
+    cls.__rmul__ = _make("elementwise_mul")
+    cls.__truediv__ = _make("elementwise_div")
+    cls.__rtruediv__ = _make("elementwise_div", reverse=True)
+    cls.__floordiv__ = _make("elementwise_floordiv")
+    cls.__mod__ = _make("elementwise_mod")
+    cls.__pow__ = _make("elementwise_pow")
+    cls.__neg__ = lambda self: _scalar_op(self, -1.0, 0.0)
+    cls.__lt__ = _cmp_op("less_than")
+    cls.__le__ = _cmp_op("less_equal")
+    cls.__gt__ = _cmp_op("greater_than")
+    cls.__ge__ = _cmp_op("greater_equal")

@@ -1,9 +1,10 @@
 """Layers ``fc`` (:125), ``embedding`` (:167), ``conv2d`` (:204),
 ``pool2d`` (:413), ``batch_norm`` (:485), ``layer_norm`` (:552),
-``softmax`` (:661), ``mean`` (:971), ``relu`` (:1023), ``reshape``,
-``transpose`` and ``elementwise_add`` of ``paddle_tpu/layers/nn.py``. Each
-emits the same ops, slots, attrs and parameter names as its JAX
-counterpart."""
+``softmax`` (:661), ``matmul`` (:671), ``expand`` (:811), ``gather``
+(:842), ``reduce_sum`` (:931), ``mean`` (:971), ``relu`` (:1023),
+``reshape``, ``transpose`` and ``elementwise_add`` / ``_sub`` / ``_mul`` /
+``_div`` (:1159-1172) of ``paddle_tpu/layers/nn.py``. Each emits the same
+ops, slots, attrs and parameter names as its JAX counterpart."""
 from __future__ import annotations
 
 import math
@@ -13,8 +14,9 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
-           "softmax", "mean", "relu", "reshape", "transpose",
-           "elementwise_add"]
+           "softmax", "matmul", "expand", "gather", "reduce_sum", "mean",
+           "relu", "reshape", "transpose", "elementwise_add",
+           "elementwise_sub", "elementwise_mul", "elementwise_div"]
 
 
 def _pair(x, n=2):
@@ -202,6 +204,38 @@ def softmax(input, use_cudnn=False, name=None, axis=-1):
     return _single_out_op(helper, "softmax", {"X": [input]}, {"axis": axis})
 
 
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
+           name=None):
+    helper = LayerHelper("matmul", input=x, name=name)
+    return _single_out_op(helper, "matmul", {"X": [x], "Y": [y]},
+                          {"transpose_X": transpose_x,
+                           "transpose_Y": transpose_y,
+                           "alpha": float(alpha)})
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", input=x, name=name)
+    return _single_out_op(helper, "expand", {"X": [x]},
+                          {"expand_times": list(expand_times)})
+
+
+def gather(input, index, overwrite=True, name=None):
+    helper = LayerHelper("gather", input=input, name=name)
+    return _single_out_op(helper, "gather", {"X": [input], "Index": [index]},
+                          {"overwrite": overwrite})
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", input=input, name=name)
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        dims = dim if isinstance(dim, (list, tuple)) else [dim]
+        attrs = {"dim": list(dims), "keep_dim": keep_dim,
+                 "reduce_all": False}
+    return _single_out_op(helper, "reduce_sum", {"X": [input]}, attrs)
+
+
 def relu(x, name=None):
     helper = LayerHelper("relu", input=x, name=name)
     return _single_out_op(helper, "relu", {"X": [x]}, {})
@@ -238,9 +272,25 @@ def transpose(x, perm, name=None):
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", input=x, act=act, name=name)
+def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, input=x, act=act, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("elementwise_add", inputs={"X": [x], "Y": [y]},
+    helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [out]}, attrs={"axis": axis})
     return helper.append_activation(out)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)

@@ -9,4 +9,6 @@ from . import math_ops  # noqa: F401
 from . import matmul_ops  # noqa: F401
 from . import norm_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import reduce_ops  # noqa: F401
+from . import sequence_ops  # noqa: F401
 from . import tensor_ops  # noqa: F401

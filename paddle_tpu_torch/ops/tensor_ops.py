@@ -1,11 +1,16 @@
 """Tensor creation / shaping / indexing ops.
 
 Counterparts of ``fill_constant`` (:31), ``uniform_random`` (:69),
-``gaussian_random`` (:90),
-``reshape2`` (:224), ``transpose2`` (:248) and ``lookup_table`` (:680) in
+``gaussian_random`` (:90), ``assign`` (:120), ``assign_value`` (:132),
+``reshape2`` (:224), ``transpose2`` (:248), ``expand`` (:483), ``gather``
+(:575), ``lookup_table`` (:680) and ``range`` (:954) in
 ``paddle_tpu/ops/tensor_ops.py``, with the same slots and attrs, and of
 ``lookup_table``'s grad maker and dense ``lookup_table_grad`` (:631-677),
-whose scatter-add becomes ``index_add_``. Creation
+whose scatter-add becomes ``index_add_``. ``gather``'s auto-VJP grad is a
+scatter-add too (autograd's ``index_select`` backward), so repeated
+indices sum. ``range`` is a host op in the JAX package (its output's
+length depends on its inputs' values); here it is an ordinary op that
+reads its three scalars. Creation
 ops build on the executor's device (``DEVICE_ATTR``); ``uniform_random``
 draws from the seeded ``torch.Generator`` the executor hands it
 (``GENERATOR_ATTR``), and so does ``gaussian_random``, so the numbers
@@ -194,3 +199,86 @@ def _lookup_table(ins, attrs):
     if pad is not None and pad >= 0:
         out = out * (ids != pad)[..., None].to(out.dtype)
     return {"Out": out}
+
+
+@register_op("assign", inputs=[In("X")], outputs=[Out("Out")])
+def _assign(ins, attrs):
+    # a copy: the fused optimizer updates parameters in place
+    return {"Out": ins["X"].clone()}
+
+
+@register_op(
+    "assign_value",
+    inputs=[],
+    outputs=[Out("Out")],
+    attrs={"shape": [], "dtype": 5, "fp32_values": [], "int32_values": [],
+           "int64_values": [], "bool_values": []},
+    grad=None,
+)
+def _assign_value(ins, attrs):
+    dt = _dt.to_torch_dtype(attrs["dtype"])
+    shape = tuple(attrs["shape"])
+    dev = attrs[DEVICE_ATTR]
+    for k in ("fp32_values", "int32_values", "int64_values", "bool_values"):
+        vals = attrs.get(k)
+        if vals:
+            # built on the host, then one copy to the device
+            return {"Out": torch.tensor(vals).to(dt).reshape(shape).to(dev)}
+    return {"Out": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+@register_op(
+    "expand",
+    inputs=[In("X"), In("ExpandTimes", dispensable=True, no_grad=True)],
+    outputs=[Out("Out")],
+    attrs={"expand_times": []},
+)
+def _expand(ins, attrs):
+    """``np.tile``: X repeated ``expand_times[i]`` times along dim i (a
+    shorter list repeats the trailing dims)."""
+    x = ins["X"]
+    times = list(attrs["expand_times"])
+    times = [1] * (x.dim() - len(times)) + times
+    return {"Out": x.repeat(*times)}
+
+
+@register_op(
+    "gather",
+    inputs=[In("X"), In("Index", no_grad=True)],
+    outputs=[Out("Out")],
+    attrs={"overwrite": True},
+)
+def _gather(ins, attrs):
+    """Rows of X at the flattened Index, as ``jnp.take(X, Index, axis=0)``:
+    an index in [-N, 0) counts from the end, any other outside [0, N)
+    gives a NaN row (a float X) and no grad."""
+    x, idx = ins["X"], ins["Index"].reshape(-1)
+    rows = x.shape[0]
+    wrapped, in_range = _wrap_ids(idx, rows)
+    out = torch.index_select(x, 0, wrapped.clamp(0, rows - 1))
+    if x.is_floating_point():
+        fill = torch.full_like(out, float("nan"))
+        keep = in_range.reshape((-1,) + (1,) * (x.dim() - 1))
+        out = torch.where(keep, out, fill)
+    return {"Out": out}
+
+
+@register_op(
+    "range",
+    inputs=[In("Start", no_grad=True), In("End", no_grad=True),
+            In("Step", no_grad=True)],
+    outputs=[Out("Out")],
+    grad=None,
+)
+def _range(ins, attrs):
+    """``np.arange(start, end, step)`` in Start's type. Reading the three
+    scalars off the card (one copy) waits for the work queued before
+    them."""
+    start = ins["Start"]
+    if start.device.type == "meta":  # the length depends on the values
+        raise ValueError("range: the output's length depends on its "
+                         "inputs' values (build with infer_shape=False)")
+    vals = torch.cat([ins[s].reshape(1).to(start.dtype)
+                      for s in ("Start", "End", "Step")]).tolist()
+    return {"Out": torch.arange(*vals, dtype=start.dtype,
+                                device=start.device)}

@@ -15,7 +15,10 @@ float32 limit holds for the kernels' 3xTF32 products and not for one TF32
 pass. The fused optimizer kernel (K4) is bitwise equal to its
 plain version. The narrow gpt twin trains three steps on the card and on
 the CPU with losses within 1e-4 relative (float32, TF32 off; the card's
-products and embedding grad sum in another order). The fused
+products and embedding grad sum in another order), and so do the narrow
+Transformer-base WMT (with lengths, K1/K2/K3 launched 8/4/4 times a step)
+and BERT masked-LM twins, whose gather, matmul, scale and sequence_mask
+ops agree with the CPU op by op. The fused
 implicit-GEMM conv (K5) agrees with its plain version within 2e-5 of the
 output's largest magnitude in float32 (sums of up to 4608 products in
 another order) and 1e-2 in bfloat16 (y rounded once, twice allowed). Paged
@@ -415,6 +418,123 @@ def test_narrow_gpt_trains_on_the_card_as_on_the_cpu(cuda, monkeypatch):
                 if op.type == "fused_optimizer"]
                for m in (cpu_main, card_main)]
     assert layouts == [["chain"], ["flat"]]
+
+
+# the narrow transformer scripts (bench.py's WMT with lengths, and BERT's
+# masked LM), 2 heads of 64
+TRANSFORMER_TWIN = dict(vocab=512, num_layers=2, num_heads=2, d_model=128,
+                        d_ff=512)
+
+
+def _transformer_twin(script):
+    rng = np.random.RandomState(1)
+    if script == "wmt":
+        feeds = [transformer.wmt_batch(rng, 2, 32, 512) for _ in range(3)]
+        for f in feeds:  # the lengths S and S / 2 in every batch
+            f["slen"][:] = (32, 16)
+            f["tlen"][:] = (16, 32)
+        return (lambda: transformer.build_transformer_wmt(
+            2, 32, **TRANSFORMER_TWIN, seed=2)), feeds
+    feeds = [transformer.bert_batch(rng, 2, 32, 512, 5) for _ in range(3)]
+    feeds[0]["mpos"][0, :2] = 3  # a repeated row
+    return (lambda: transformer.build_bert_base(
+        2, 32, masked=5, **TRANSFORMER_TWIN, seed=2)), feeds
+
+
+def _train_program(build, place, init, feeds):
+    """Losses of three steps and the step-1 grads, and the per-step launch
+    counts of the last step."""
+    main, startup, loss, pg = build()
+    grad_names = [g.name for _, g in pg]
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    if init is None:
+        exe.run(startup, scope=scope)
+        init = {v.name: scope.find_var(v.name).get_tensor().numpy()
+                for v in main.global_block().vars.values() if v.persistable}
+    else:
+        fluid.io.scope_from_numpy(scope, init, place)
+    losses, grads = [], None
+    for i, feed in enumerate(feeds):
+        support.reset_launch_counts()
+        res = exe.run(main, feed=feed, scope=scope,
+                      fetch_list=[loss] + (grad_names if i == 0 else []))
+        losses.append(float(np.asarray(res[0]).reshape(-1)[0]))
+        if i == 0:
+            grads = [np.asarray(r) for r in res[1:]]
+    return init, losses, grads, support.launch_counts()
+
+
+@pytest.mark.parametrize("script", ["wmt", "bert"])
+def test_narrow_transformers_train_on_the_card_as_on_the_cpu(
+        cuda, monkeypatch, script):
+    """Losses within 1e-4 relative and the step-1 grads within 1e-4 of
+    their scale (at least 1e-3), as the gpt twin: float32 with TF32 off,
+    products and the gather / embedding scatter-adds sum in another order
+    on the card. The WMT twin's 4 flash ops launch K1, K2 and K3 8, 4 and
+    4 times a step; BERT's dense attention launches none."""
+    monkeypatch.setenv("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    build, feeds = _transformer_twin(script)
+    init, cpu_losses, cpu_grads, _ = _train_program(
+        build, fluid.CPUPlace(), None, feeds)
+    _, card_losses, card_grads, counts = _train_program(
+        build, fluid.CUDAPlace(0), init, feeds)
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-4)
+    for a, b in zip(card_grads, cpu_grads):
+        scale = max(float(np.abs(b).max()), 1e-3)
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * scale)
+    flash = 4 if script == "wmt" else 0
+    assert counts["flash_attention_forward"] == 2 * flash
+    assert counts["flash_attention_backward_dq"] == flash
+    assert counts["flash_attention_backward_dkv"] == flash
+    assert counts["fused_optimizer_update"] == 1
+
+
+@pytest.mark.parametrize("case", ["gather", "matmul", "scale",
+                                  "sequence_mask"])
+def test_transformer_ops_on_the_card_match_the_cpu(cuda, case):
+    """Each op function on card tensors against the same function on CPU
+    tensors: float32 within 1e-5 of the output's scale (TF32 off; sums in
+    another order), integer and boolean outputs equal; gather's grad (a
+    scatter-add with repeated indices) too."""
+    from paddle_tpu_torch.core.registry import DEVICE_ATTR, OpInfoMap
+
+    g = torch.Generator().manual_seed(3)
+    if case == "gather":
+        ins = {"X": torch.randn(640, 96, generator=g),
+               "Index": torch.tensor([5, 7, 5, 5, 639, 0, 7] * 30)}
+        attrs = {}
+    elif case == "matmul":
+        ins = {"X": torch.randn(4, 8, 128, 64, generator=g),
+               "Y": torch.randn(4, 8, 96, 64, generator=g)}
+        attrs = {"transpose_Y": True, "alpha": 0.125}
+    elif case == "scale":
+        ins = {"X": (torch.rand(8, 256, generator=g) > 0.5).float()}
+        attrs = {"scale": 1e9, "bias": -1.0, "bias_after_scale": False}
+    else:
+        ins = {"X": torch.tensor([0, 1, 128, 255, 256, 300],
+                                 dtype=torch.int32)}
+        attrs = {"maxlen": 256, "out_dtype": 5}
+    types = [case] + (["gather_grad"] if case == "gather" else [])
+    for op_type in types:
+        info = OpInfoMap.instance().get(op_type)
+        run_ins = dict(ins)
+        if op_type == "gather_grad":
+            run_ins["Out@GRAD"] = torch.randn(210, 96, generator=g)
+        outs = {}
+        for dev in ("cpu", cuda):
+            full = dict(info.attrs, **attrs)
+            full[DEVICE_ATTR] = torch.device(dev)
+            res = info.fn({k: v.to(dev) for k, v in run_ins.items()}, full)
+            outs[str(dev)] = {k: v.cpu() for k, v in res.items()}
+        for slot, want in outs["cpu"].items():
+            got = outs[str(cuda)][slot]
+            assert got.dtype == want.dtype and got.shape == want.shape
+            if want.is_floating_point():
+                scale = max(want.abs().max().item(), 1.0)
+                assert (got - want).abs().max().item() <= 1e-5 * scale
+            else:
+                assert torch.equal(got, want)
 
 
 # ResNet-50's routed conv shapes (x H=W, Cin, K, Cout, stride, pad), each
