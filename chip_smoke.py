@@ -8,7 +8,13 @@ full width, serving (BERT-base), training (gpt_long), ResNet-50 training,
 streaming decode (the continuous-batching engine at gpt_long's width),
 Transformer-base WMT training and BERT-base masked-LM training, and holds
 each hand-written CUDA kernel against its plain PyTorch version on the
-card. Phases, one or more lines each:
+card. Serving and the training paths run through ``Executor.run``'s
+default route, which runs a program's first step eagerly, captures the
+second into a CUDA graph and replays it from then on; each path also
+times the op-by-op interpreter (``exe._core.run_program``) on the same
+program and batch as a yardstick, and must capture once a program (once
+a ladder bucket when serving) and fall back never. Phases, one or more
+lines each:
 
 1. card and settings: name and power limit (nvidia-smi), torch version;
    TF32 off for float32 products and for cuDNN;
@@ -35,11 +41,15 @@ card. Phases, one or more lines each:
    1-4 rows, first all at once, then the same 256 one at a time; launch
    counts are zeroed after the model is saved and read just after the
    engine stops, and the probe memo is cleared with them, so the
-   predictor's own executor launches the probe; every output must be
-   finite, K1 must run 12 times per dispatched batch and the probe once,
-   and some requests are re-run through a CPU predictor and compared;
-   then a torch.profiler window over served batches says where device
-   time goes;
+   predictor's own executor launches the probe; the engine's warm-up
+   must capture one graph per ladder bucket (1, 2, 4, 8) and the traffic
+   none; every output must be finite, K1 must run 12 times per dispatch
+   (two warm-up dispatches a bucket, then every batch) and the probe
+   once, and some requests are re-run through a CPU predictor and
+   compared; then a torch.profiler window over served batches says where
+   device time goes, and batch 8 through the captured predictor and
+   through the interpreter gives each route's time, sequences/s, idle
+   share and peak memory;
 5. K2 and K3, flash-attention backward (dQ; dK and dV), against their
    plain version at the training shape B=2, H=16, S=4096, D=64 causal
    float32, and at the serving shape with its key lengths, causal off and
@@ -60,15 +70,19 @@ card. Phases, one or more lines each:
    float32 with seeded random weights, ids and labels, built with
    fluid.layers, AdamOptimizer.minimize (append_backward) and run by
    Executor().run with PADDLE_TPU_FUSED_OPTIMIZER set as bench.py sets it:
-   the startup on the card, one warm-up step, then 5 steps on one batch
-   with the launch counts zeroed just before and read just after. The
-   program must hold one fused_optimizer op, the loss must be finite and
-   fall, and K1, K2, K3 and K4 must run 20, 10, 10 and 5 times; step time,
-   tokens/s and peak memory, then a torch.profiler window over one step;
+   the startup on the card, one warm-up step (eager), the interpreter's
+   yardstick (3 timed steps, a profile of one), then 5 steps on one batch
+   through the default route (a capture, then 4 replays) with the launch
+   counts zeroed just before and read just after. The program must hold
+   one fused_optimizer op, the route must capture once, the losses must
+   be finite, distinct and fall, and K1, K2, K3 and K4 must run 20, 10,
+   10 and 5 times; the replayed step's time, tokens/s and peak memory,
+   a torch.profiler window over one replay, and the same numbers of the
+   interpreter beside them;
 8. a narrow twin of the training script trained 3 steps on the card and
    through CPUPlace() from the same persistables: the losses and the
    first step's grads must agree, and the card run must go through K1,
-   K2, K3 and K4;
+   K2, K3 and K4 and capture its last two steps' program once;
 9. K5, the fused implicit-GEMM conv, against its plain version at the 19
    distinct shapes of ResNet-50's 44 routed convs at batch 128 (plain
    convs, as the path runs them), in float32 and bfloat16, and at
@@ -82,21 +96,27 @@ card. Phases, one or more lines each:
 10. ResNet-50 training: bench.py's script (NHWC, 224x224, batch 128,
    class_dim 1000, MomentumOptimizer(0.1, 0.9), float32) with
    FLAGS_use_pallas_conv=all and PADDLE_TPU_FUSED_OPTIMIZER set, seeded
-   random weights, images and labels: the startup on the card, one
-   warm-up step, then 5 steps on one batch with the launch counts zeroed
-   just before and read just after. The program must hold one
-   fused_optimizer op, every loss must be finite, K5 must run 44 times a
-   step (the conv grads run cuDNN's backward alone) and K4 once; step
-   time, images/s and peak memory, a torch.profiler window over one step,
-   then the same 5 steps with FLAGS_use_pallas_conv=off (every conv on
-   cuDNN) as a yardstick of K5 end to end; then K4's momentum case at the
+   random weights, images and labels, run as phase 7 runs gpt_long (a
+   warm-up, the interpreter's yardstick, then a capture and 4 replays
+   with the launch counts zeroed just before and read just after). The
+   program must hold one fused_optimizer op, the route must capture
+   once, every loss must be finite, K5 must run 44 times a step (the conv
+   grads run cuDNN's backward alone) and K4 once; step time, images/s,
+   idle share and peak memory of both routes, a torch.profiler window
+   over one replay, then the same program with FLAGS_use_pallas_conv=off
+   (every conv on cuDNN; the flag changes the step, which runs eagerly,
+   then is captured and replayed) as a yardstick of K5 end to end, and 4
+   replays whose image batches an AsyncDeviceFeeder stages on the card
+   ahead of each step; then K4's momentum case at the
    path's flat size, bitwise against its plain version, and
    torch._fused_sgd_ (the same update; a yardstick the port never calls)
    on the same buffers, within float32 rounding of K4 and timed;
 11. a narrow twin (ResNet-50 NHWC at 64x64, batch 4, class_dim 10, lr
    1e-3) trained 3 steps on the card and through CPUPlace(), each step
    from the CPU run's state before it: the losses and the first step's
-   grads must agree, and the card run must launch K5 44 times a step;
+   grads must agree, and the card run must launch K5 44 times a step and
+   capture once (its third step replays the persistables the scope was
+   given);
 12. K6, paged decode attention, against its plain version on float32,
    bfloat16 and int8 arenas: the decode path's 32 rows of 16 heads of 64
    (block 16, contexts spread over 0..4096 with 0, 1, 15, 16, 17 and
@@ -146,11 +166,12 @@ card. Phases, one or more lines each:
    93,586,688 parameters; source and target lengths drawn from
    [128, 256] as bench.py draws them; the loss over non-pad target
    tokens; Adam 1e-4, float32) run as phase 7 runs gpt_long: one
-   fused_optimizer op, the loss finite and the last below the first
-   and the warm-up's, and K1, K2, K3 and K4 launched exactly 120, 60,
-   60 and 5 times in 5 steps (12 flash ops a step, each running K1 in
-   its forward and again in its grad op); step time, non-pad target
-   tokens/s, peak memory and a profile of one step;
+   fused_optimizer op, one capture, the losses finite, distinct and the
+   last below the first and the warm-up's, and K1, K2, K3 and K4
+   launched exactly 120, 60, 60 and 5 times in 5 steps (12 flash ops a
+   step, each running K1 in its forward and again in its grad op); step
+   time, non-pad target tokens/s, idle share and peak memory of both
+   routes and a profile of one replay;
 17. BERT-base masked-LM training: bench.py's script (batch 32, seq 128,
    12 layers, 12 heads of 64, d_ff 3072, vocab 30522, 20 masked
    positions; 132,066,618 parameters) the same way: dense attention,
@@ -159,9 +180,13 @@ card. Phases, one or more lines each:
    128, 2 heads of 64, vocab 512; every WMT batch holds the lengths S
    and S / 2), card against CPU as in phase 8, with K1/K2/K3 launched
    8/4/4 times a step on the WMT twin;
-19. one JSON line {"kernels": [...]} with each kernel's launches on the
+19. random numbers under capture: uniform_random [-2, 3) over
+   [1024, 1024] feeding an elementwise_add, an eager run, a capture,
+   then replays: the 4 replays must draw anew, inside the range, and give
+   the interpreter's bits for the same executor seed and steps;
+20. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside), error, times and bound;
-20. the last line: {"ok": true, "device": {...}}.
+21. the last line: {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero without the last line. Without a
 CUDA device it exits 2 and prints no result.
@@ -202,6 +227,7 @@ K1_LENGTHS = (0, 1, 37, 64, 100, 128, 77, 128)
 GPT_TWIN = dict(batch=2, seq_len=32, d_model=128, n_heads=2, n_layers=2,
                 vocab=128)
 TRAIN_STEPS = 5
+INTERP_STEPS = 3      # the interpreter's yardstick steps on each path
 TWIN_STEPS = 3
 # card vs CPU twin losses: float32 with TF32 off; products, softmax and the
 # embedding grad (index_add_) sum in another order on the card
@@ -624,17 +650,17 @@ def pcts(lat_s):
     return np.percentile(ms, 50), np.percentile(ms, 99), ms.max()
 
 
-def profile_window(pred, feed, iters=3):
-    """Device time by kernel over ``iters`` predictor runs of one batch."""
+def profile_window(run, feed, iters=3):
+    """Device time by kernel over ``iters`` runs of one batch."""
     from torch.profiler import ProfilerActivity, profile
 
-    pred.run(feed)
+    run(feed)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            pred.run(feed)
+            run(feed)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
@@ -649,7 +675,22 @@ def profile_window(pred, feed, iters=3):
     return wall_ms, busy_ms, kernels
 
 
+def timed_runs(run, feed, n=20):
+    """Mean wall ms of ``n`` runs of ``feed`` after one untimed, ending in a
+    synchronise, and their peak memory."""
+    run(feed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run(feed)
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) / n * 1e3,
+            torch.cuda.max_memory_allocated())
+
+
 def phase_serving(fluid, support):
+    from paddle_tpu_torch.core import compiler_engine as ce
     from paddle_tpu_torch.inference import (AnalysisConfig,
                                             create_paddle_predictor)
     from paddle_tpu_torch.serving import ServingConfig, ServingEngine
@@ -666,27 +707,36 @@ def phase_serving(fluid, support):
         torch.cuda.reset_peak_memory_stats()
         support.forget_probes()  # the predictor's executor probes again
         support.reset_launch_counts()
+        ce.reset_counters()
         t0 = time.perf_counter()
         pred = create_paddle_predictor(AnalysisConfig(d))  # the card
         engine = ServingEngine(pred, ServingConfig(max_batch_size=MAX_BATCH,
                                                    max_queue=N_REQUESTS))
         engine.start()
         t_load = time.perf_counter() - t0
+        warm_traces = ce.counters()["executor.jit_traces"]
         outs, lat, wall = serve_burst(engine, reqs)
         lat_seq = serve_one_at_a_time(engine, reqs)
         engine.stop()
         counts = support.launch_counts()
+        counters = ce.counters()
         stats = engine.stats()
         peak = torch.cuda.max_memory_allocated()
-        log("phase 4 built %d ops, init + save %.2f s, load + warmup %.2f s"
+        log("phase 4 built %d ops, init + save %.2f s, load + warmup "
+            "(an eager run and a capture a bucket) %.2f s"
             % (n_ops, t_build, t_load))
 
         batches = stats["serving.batches"]
-        warm = len(engine.warmed_buckets)
+        ladder = engine.config.policy.ladder
+        warm = len(engine.warmed_buckets) * pred.warmup_runs
+        if warm_traces != len(ladder):
+            raise RuntimeError("the warm-up captured %d graphs for a ladder "
+                               "of %d" % (warm_traces, len(ladder)))
+        check_one_capture("serving", counters, len(ladder))
         want = BERT["num_layers"] * (warm + batches)
         if counts["flash_attention_forward"] != want:
-            raise RuntimeError("K1 ran %d times, expected 12 x (%d warmup + "
-                               "%d batches) = %d"
+            raise RuntimeError("K1 ran %d times, expected 12 x (%d warmup "
+                               "dispatches + %d batches) = %d"
                                % (counts["flash_attention_forward"], warm,
                                   batches, want))
         if counts["probe_add_one"] != 1:
@@ -702,9 +752,10 @@ def phase_serving(fluid, support):
                                    % (arr.shape, np.isfinite(arr).all()))
         rows_served = sum(f["src_ids"].shape[0] for f in reqs)
         log("phase 4 served %d requests at once (%d rows) then the same %d "
-            "one at a time, in %d batches after %d warmup dispatches; "
-            "launches %s" % (len(reqs), rows_served, len(reqs), batches, warm,
-                             json.dumps(counts)))
+            "one at a time, in %d batches after %d warmup dispatches "
+            "(buckets %s); launches %s; counters %s"
+            % (len(reqs), rows_served, len(reqs), batches, warm, ladder,
+               json.dumps(counts), json.dumps(counters)))
         log("phase 4 at once (%d requests): latency p50 %.3f ms p99 %.3f ms "
             "max %.3f ms, %.2f sequences/s over %.3f s"
             % (len(lat), *pcts(lat), rows_served / wall, wall))
@@ -728,15 +779,33 @@ def phase_serving(fluid, support):
 
         feed8 = {n: np.concatenate([r[n] for r in reqs])[:MAX_BATCH]
                  for n in reqs[0]}
-        wall_ms, busy_ms, kernels = profile_window(pred, feed8)
+        wall_ms, busy_ms, kernels = profile_window(pred.run, feed8)
         log("phase 4 profile, 3 runs of batch %d: wall %.3f ms, device "
             "busy %.3f ms, idle share %s"
-            % (MAX_BATCH, wall_ms, busy_ms,
-               "%.3f" % (1 - busy_ms / wall_ms) if busy_ms else
-               "not measured (no device time in the trace)"))
+            % (MAX_BATCH, wall_ms, busy_ms, idle(wall_ms, busy_ms)))
         for t_ms, count, name in kernels[:8]:
             log("phase 4 profile   %9.3f ms  %5d x  %s"
                 % (t_ms, count, name[:110]))
+
+        # the interpreter on the same program and batch
+        def interp_run(feed):
+            return pred._exe._core.run_program(
+                pred._program, pred._scope, feed, pred._fetch_vars)
+
+        cap_ms, cap_peak = timed_runs(pred.run, feed8)
+        int_ms, int_peak = timed_runs(interp_run, feed8)
+        i_wall, i_busy, _ = profile_window(interp_run, feed8)
+        cap = {"step_ms": cap_ms, "peak_bytes": cap_peak,
+               "reserved_bytes": torch.cuda.memory_reserved()}
+        interp = {"step_ms": int_ms, "peak_bytes": int_peak,
+                  "idle_share": idle(i_wall, i_busy)}
+        log_route_pair(4, "predictor batch %d" % MAX_BATCH, cap, interp,
+                       busy_ms, wall_ms, "sequences", MAX_BATCH)
+        run = route_numbers(cap, interp, busy_ms, wall_ms, MAX_BATCH)
+        log("phase 4 run %s" % json.dumps(
+            {**run, "p50_one_at_a_time_ms": pcts(lat_seq)[0],
+             "p99_one_at_a_time_ms": pcts(lat_seq)[1],
+             "burst_sequences_per_s": rows_served / wall}))
     return counts
 
 
@@ -991,15 +1060,106 @@ def profile_step(run):
     return wall_ms, sum(k[0] for k in kernels), kernels
 
 
+def idle(wall_ms, busy_ms):
+    return ("%.3f" % (1 - busy_ms / wall_ms) if busy_ms else
+            "not measured (no device time in the trace)")
+
+
+def interpreter_yardstick(run, steps=INTERP_STEPS):
+    """The op-by-op interpreter on the same program and batch (``run``
+    calls ``exe._core.run_program``): one untimed step, then ``steps``
+    timed ones, their peak memory and a profile of one more."""
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        run()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    wall_ms, busy_ms, _ = profile_step(run)
+    return {"step_ms": step_ms, "peak_bytes": peak,
+            "profile_wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": idle(wall_ms, busy_ms)}
+
+
+def captured_steps(ce, support, step, n):
+    """``n`` steps through ``Executor.run`` with the launch counts and
+    counters zeroed just before and read just after: the first captures
+    the step's CUDA graph (timed alone), the rest replay it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    support.reset_launch_counts()
+    ce.reset_counters()
+    t0 = time.perf_counter()
+    outs = [step()]
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    outs += [step() for _ in range(n - 1)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (n - 1) * 1e3
+    return {"outs": outs, "counts": support.launch_counts(),
+            "counters": ce.counters(), "capture_ms": capture_ms,
+            "step_ms": step_ms,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved()}
+
+
+def check_one_capture(name, counters, want_traces=1):
+    if counters["executor.jit_traces"] != want_traces or \
+            counters["executor.compile_fallbacks"]:
+        raise RuntimeError("%s: %d captures and %d fallbacks, want %d and 0"
+                           % (name, counters["executor.jit_traces"],
+                              counters["executor.compile_fallbacks"],
+                              want_traces))
+
+
+def log_route_pair(phase, name, cap, interp, busy_ms, wall_ms, unit, per):
+    """The captured step beside the interpreter's, same program, batch
+    and card."""
+    log("phase %d %s captured vs interpreted: step %.3f vs %.3f ms "
+        "(%.2fx), %.1f vs %.1f %s/s, idle share %s vs %s, "
+        "max_memory_allocated %d vs %d bytes (memory_reserved %d with the "
+        "graph)%s; card %s"
+        % (phase, name, cap["step_ms"], interp["step_ms"],
+           interp["step_ms"] / cap["step_ms"], per / cap["step_ms"] * 1e3,
+           per / interp["step_ms"] * 1e3, unit, idle(wall_ms, busy_ms),
+           interp["idle_share"], cap["peak_bytes"], interp["peak_bytes"],
+           cap["reserved_bytes"],
+           "; capture %.3f ms" % cap["capture_ms"] if "capture_ms" in cap
+           else "", card_line()))
+
+
+def route_numbers(cap, interp, busy_ms, wall_ms, per):
+    """The numbers of both routes, for the path's JSON line."""
+    return {"step_ms": cap["step_ms"], "per_s": per / cap["step_ms"] * 1e3,
+            "capture_ms": cap.get("capture_ms"),
+            "peak_bytes": cap["peak_bytes"],
+            "idle_share": idle(wall_ms, busy_ms),
+            "interpreter": {"step_ms": interp["step_ms"],
+                            "per_s": per / interp["step_ms"] * 1e3,
+                            "peak_bytes": interp["peak_bytes"],
+                            "idle_share": interp["idle_share"]}}
+
+
 def train_path(fluid, support, phase, name, built, feed, want, tokens):
     """Train one path on the card: the startup, one warm-up step (which
-    applies the fused-optimizer rewrite), then TRAIN_STEPS steps on one
-    batch with the launch counts zeroed just before and read just after.
-    The program must hold one fused_optimizer op and no adam op, every
-    loss must be finite and the last below the first and the warm-up's,
-    and the launches must be ``want``. Logs step time, ``tokens`` a step
-    per second, peak memory and a profile of one step; returns the
-    launch counts and those numbers."""
+    applies the fused-optimizer rewrite and runs the step eagerly), the
+    interpreter's yardstick on the same program and batch, then
+    TRAIN_STEPS steps through the default route (the first captures the
+    step's CUDA graph, the rest replay it) with the launch counts zeroed
+    just before and read just after. The program must hold one
+    fused_optimizer op and no adam op, the route must capture once and
+    fall back never, every loss must be finite, distinct and the last
+    below the first and the warm-up's, and the launches must be ``want``.
+    Logs the captured and interpreted step time, ``tokens`` a step per
+    second, idle share and peak memory and a profile of one replay;
+    returns the launch counts and those numbers."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+
     t0 = time.perf_counter()
     main, startup, loss, params_grads = built()
     n_params = sum(int(np.prod(p.shape)) for p, _ in params_grads)
@@ -1021,48 +1181,48 @@ def train_path(fluid, support, phase, name, built, feed, want, tokens):
                            "adam, got %d and %d"
                            % (name, ops.count("fused_optimizer"),
                               ops.count("adam")))
-    torch.cuda.reset_peak_memory_stats()
-    support.reset_launch_counts()
-    t0 = time.perf_counter()
-    outs = [step() for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = support.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(o.numpy().reshape(-1)[0]) for o in outs]
+    interp = interpreter_yardstick(
+        lambda: exe._core.run_program(main, scope, feed, [loss], False))
+    cap = captured_steps(ce, support, step, TRAIN_STEPS)
+    counts = cap["counts"]
+    losses = [float(o.numpy().reshape(-1)[0]) for o in cap["outs"]]
     log("phase %d %s float32: %d parameters, %d ops, setup (build, "
         "startup, warm-up step) %.2f s, warm-up loss %.6f"
         % (phase, name, n_params, len(ops), t_setup, first))
-    log("phase %d losses over %d steps on one batch: %s" % (
-        phase, TRAIN_STEPS, ", ".join("%.6f" % x for x in losses)))
+    log("phase %d losses over %d steps on one batch (after the warm-up "
+        "and %d interpreted steps): %s" % (phase, TRAIN_STEPS,
+                                           INTERP_STEPS + 2,
+                        ", ".join("%.6f" % x for x in losses)))
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]
-            and losses[-1] < first):
+            and losses[-1] < first and len(set(losses)) == len(losses)):
         raise RuntimeError("%s training did not fall: warm-up %s, then %s"
                            % (name, first, losses))
+    check_one_capture(name, cap["counters"])
     bad = {k: (counts.get(k, 0), n) for k, n in want.items()
            if counts.get(k, 0) != n}
     if bad:
         raise RuntimeError("%s training launches (got, want): %s"
                            % (name, bad))
-    step_ms = wall / TRAIN_STEPS * 1e3
-    log("phase %d %d steps: step %.3f ms, %.1f tokens/s (%d tokens a "
-        "step), max_memory_allocated %d bytes; launches %s; card %s"
-        % (phase, TRAIN_STEPS, step_ms, tokens / wall * TRAIN_STEPS, tokens,
-           peak, json.dumps(counts), card_line()))
+    log("phase %d %d steps (1 capture, %d replays): step %.3f ms, %.1f "
+        "tokens/s (%d tokens a step), max_memory_allocated %d bytes; "
+        "launches %s; counters %s; card %s"
+        % (phase, TRAIN_STEPS, TRAIN_STEPS - 1, cap["step_ms"],
+           tokens / cap["step_ms"] * 1e3, tokens, cap["peak_bytes"],
+           json.dumps(counts), json.dumps(cap["counters"]), card_line()))
     wall_ms, busy_ms, kernels = profile_step(step)
-    log("phase %d profile, one step: wall %.3f ms, device busy %.3f ms, "
-        "idle share %s" % (phase, wall_ms, busy_ms,
-                           "%.3f" % (1 - busy_ms / wall_ms) if busy_ms else
-                           "not measured (no device time in the trace)"))
+    log("phase %d profile, one replay: wall %.3f ms, device busy %.3f ms, "
+        "idle share %s" % (phase, wall_ms, busy_ms, idle(wall_ms, busy_ms)))
     for t_ms, count, kname in kernels[:10]:
         log("phase %d profile   %9.3f ms  %5d x  %s"
             % (phase, t_ms, count, kname[:110]))
-    del exe, scope, outs
+    log_route_pair(phase, name, cap, interp, busy_ms, wall_ms, "tokens",
+                   tokens)
+    run = route_numbers(cap, interp, busy_ms, wall_ms, tokens)
+    exe.close()
+    del exe, scope, cap
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, {"n_params": n_params, "ops": len(ops),
-                    "step_ms": step_ms, "tokens_per_s":
-                    tokens / wall * TRAIN_STEPS, "peak_bytes": peak,
+    return counts, {"n_params": n_params, "ops": len(ops), **run,
                     "losses": [first] + losses}
 
 
@@ -1095,6 +1255,8 @@ def twin_check(fluid, support, phase, name, build, feeds, want):
     (the larger of their largest magnitude and 1e-3: grads that are zero
     by symmetry, such as the key bias's, are rounding noise on both
     sides), and the card run's launches ``want``."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+
     init, losses, grads = None, {}, {}
     for side, place in (("cpu", fluid.CPUPlace()),
                         ("card", fluid.CUDAPlace(0))):
@@ -1110,6 +1272,7 @@ def twin_check(fluid, support, phase, name, build, feeds, want):
         else:
             fluid.io.scope_from_numpy(scope, init, place)
         support.reset_launch_counts()
+        ce.reset_counters()
         losses[side] = []
         for i, feed in enumerate(feeds):
             res = exe.run(main, feed=feed, scope=scope,
@@ -1118,6 +1281,8 @@ def twin_check(fluid, support, phase, name, build, feeds, want):
             if i == 0:
                 grads[side] = res[1:]
         counts = support.launch_counts()
+    # steps 2 and 3 fetch the loss alone: an eager run, then a capture
+    check_one_capture("twin " + name, ce.counters())
     if any(counts.get(k, 0) != n for k, n in want.items()):
         raise RuntimeError("the card twin's launches %s, want %s"
                            % (counts, want))
@@ -1326,6 +1491,7 @@ def phase_conv(fluid, k5):
 # -- phase 10: ResNet-50 training -------------------------------------------
 
 def phase_resnet(fluid, support, fo):
+    from paddle_tpu_torch.core import compiler_engine as ce
     from paddle_tpu_torch.models.resnet import build_resnet_train, random_batch
 
     os.environ.setdefault("PADDLE_TPU_FUSED_OPTIMIZER", "1")
@@ -1355,18 +1521,11 @@ def phase_resnet(fluid, support, fo):
                            "got %d and %d" % (ops.count("fused_optimizer"),
                                               ops.count("momentum")))
 
-    def run_steps():
-        torch.cuda.reset_peak_memory_stats()
-        support.reset_launch_counts()
-        t0 = time.perf_counter()
-        outs = [step() for _ in range(RESNET_STEPS)]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        return (support.launch_counts(), wall,
-                [float(o.numpy().reshape(-1)[0]) for o in outs],
-                torch.cuda.max_memory_allocated())
-
-    counts, wall, losses, peak = run_steps()
+    interp = interpreter_yardstick(
+        lambda: exe._core.run_program(main, scope, feed, [loss], False))
+    cap = captured_steps(ce, support, step, RESNET_STEPS)
+    counts = cap["counts"]
+    losses = [float(o.numpy().reshape(-1)[0]) for o in cap["outs"]]
     log("phase 10 ResNet-50 NHWC float32, batch %d: %d parameters, %d ops "
         "as built, %d after the fused-optimizer rewrite, setup (build, "
         "startup, warm-up step) %.2f s, warm-up loss %.6f"
@@ -1375,44 +1534,82 @@ def phase_resnet(fluid, support, fo):
         "gated): %s" % (RESNET_STEPS, ", ".join("%.6f" % x for x in losses)))
     if not np.isfinite(losses).all():
         raise RuntimeError("ResNet-50 loss not finite: %s" % losses)
+    check_one_capture("ResNet-50", cap["counters"])
     want = {"conv2d_bn_act": 44 * RESNET_STEPS,
             "fused_optimizer_update": RESNET_STEPS}
     bad = {k: (counts.get(k), n) for k, n in want.items()
            if counts.get(k) != n}
     if bad:
         raise RuntimeError("ResNet launches (got, want): %s" % bad)
-    step_ms = wall / RESNET_STEPS * 1e3
-    log("phase 10 %d steps: step %.3f ms, %.2f images/s, "
-        "max_memory_allocated %d bytes; launches %s; card %s"
-        % (RESNET_STEPS, step_ms, RESNET_BATCH / wall * RESNET_STEPS, peak,
-           json.dumps(counts), card_line()))
+    log("phase 10 %d steps (1 capture, %d replays): step %.3f ms, %.2f "
+        "images/s, max_memory_allocated %d bytes; launches %s; counters %s; "
+        "card %s" % (RESNET_STEPS, RESNET_STEPS - 1, cap["step_ms"],
+                     RESNET_BATCH / cap["step_ms"] * 1e3, cap["peak_bytes"],
+                     json.dumps(counts), json.dumps(cap["counters"]),
+                     card_line()))
     wall_ms, busy_ms, kernels = profile_step(step)
-    log("phase 10 profile, one step: wall %.3f ms, device busy %.3f ms, "
-        "idle share %s" % (wall_ms, busy_ms,
-                           "%.3f" % (1 - busy_ms / wall_ms) if busy_ms else
-                           "not measured (no device time in the trace)"))
+    log("phase 10 profile, one replay: wall %.3f ms, device busy %.3f ms, "
+        "idle share %s" % (wall_ms, busy_ms, idle(wall_ms, busy_ms)))
     for t_ms, count, name in kernels[:12]:
         log("phase 10 profile   %9.3f ms  %5d x  %s"
             % (t_ms, count, name[:110]))
-    # the yardstick: every conv on cuDNN, same program, same batch
+    log_route_pair(10, "ResNet-50", cap, interp, busy_ms, wall_ms,
+                   "images", RESNET_BATCH)
+    run = route_numbers(cap, interp, busy_ms, wall_ms, RESNET_BATCH)
+    run["fed_step_ms"] = fed_replays(exe, main, scope, loss, feed)
+    log("phase 10 replays fed by AsyncDeviceFeeder (the 77 MB image batch "
+        "staged on a side stream from pinned memory): step %.3f ms, %.2f "
+        "images/s, against %.3f ms from numpy feeds"
+        % (run["fed_step_ms"], RESNET_BATCH / run["fed_step_ms"] * 1e3,
+           cap["step_ms"]))
+    # the yardstick: every conv on cuDNN, same program, same batch; the
+    # flag changes the step, so it runs eagerly once, then is captured
     fluid.set_flags({"FLAGS_use_pallas_conv": "off"})
     try:
-        off_counts, off_wall, off_losses, off_peak = run_steps()
+        step()
+        off = captured_steps(ce, support, step, RESNET_STEPS)
     finally:
         fluid.set_flags({"FLAGS_use_pallas_conv": "all"})
-    if off_counts.get("conv2d_bn_act") or not np.isfinite(off_losses).all():
+    off_losses = [float(o.numpy().reshape(-1)[0]) for o in off["outs"]]
+    check_one_capture("ResNet-50 off", off["counters"])
+    if off["counts"].get("conv2d_bn_act") or \
+            not np.isfinite(off_losses).all():
         raise RuntimeError("FLAGS_use_pallas_conv=off run: K5 launched %s, "
-                           "losses %s" % (off_counts.get("conv2d_bn_act"),
+                           "losses %s" % (off["counts"].get("conv2d_bn_act"),
                                           off_losses))
     log("phase 10 yardstick, FLAGS_use_pallas_conv=off (all 53 convs on "
-        "cuDNN), %d more steps: step %.3f ms, %.2f images/s, "
+        "cuDNN), captured, %d more steps: step %.3f ms, %.2f images/s, "
         "max_memory_allocated %d bytes; losses %s"
-        % (RESNET_STEPS, off_wall / RESNET_STEPS * 1e3,
-           RESNET_BATCH / off_wall * RESNET_STEPS, off_peak,
+        % (RESNET_STEPS, off["step_ms"],
+           RESNET_BATCH / off["step_ms"] * 1e3, off["peak_bytes"],
            ", ".join("%.6f" % x for x in off_losses)))
+    log("phase 10 run %s" % json.dumps({**run, "off_step_ms":
+                                        off["step_ms"]}))
+    exe.close()
+    del cap, off
     del exe, scope
     torch.cuda.empty_cache()
     return counts, k4_at_resnet(fo, main)
+
+
+def fed_replays(exe, main, scope, loss, feed):
+    """Mean wall ms of RESNET_STEPS - 1 replays whose feeds an
+    AsyncDeviceFeeder staged on the card ahead of each step (one untimed
+    step first); the route copies a staged feed into its buffer on the
+    card."""
+    from paddle_tpu_torch.core.native_feed import AsyncDeviceFeeder
+
+    with AsyncDeviceFeeder(iter([feed] * RESNET_STEPS), depth=2) as fdr:
+        batches = iter(fdr)
+        exe.run(main, feed=next(batches), fetch_list=[loss], scope=scope,
+                return_numpy=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches:
+            exe.run(main, feed=batch, fetch_list=[loss], scope=scope,
+                    return_numpy=False)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / (RESNET_STEPS - 1) * 1e3
 
 
 def k4_at_resnet(fo, main):
@@ -1485,6 +1682,7 @@ def fused_sgd_yardstick(fo, p, grad, lr, v, attrs):
 # -- phase 11: the ResNet narrow twin, card against CPU ---------------------
 
 def phase_resnet_twin(fluid, support):
+    from paddle_tpu_torch.core import compiler_engine as ce
     from paddle_tpu_torch.models.resnet import build_resnet_train, random_batch
 
     cfg = RESNET_TWIN
@@ -1523,6 +1721,7 @@ def phase_resnet_twin(fluid, support):
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
     support.reset_launch_counts()
+    ce.reset_counters()
     card_losses, card_grads = [], None
     for i, feed in enumerate(feeds):
         fluid.io.scope_from_numpy(scope, states[i], fluid.CUDAPlace(0))
@@ -1532,6 +1731,9 @@ def phase_resnet_twin(fluid, support):
         if i == 0:
             card_grads = res[1:]
     counts = support.launch_counts()
+    # every step loads the CPU run's state into the scope: the captured
+    # third step copies the replaced persistables into its buffers
+    check_one_capture("ResNet-50 twin", ce.counters())
     rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
     rel_l2 = [float(np.linalg.norm(np.asarray(a, np.float64)
                                    - np.asarray(b, np.float64))
@@ -2282,6 +2484,61 @@ def phase_transformer_twins(fluid, support):
                feeds, want)
 
 
+# -- phase 19: random numbers under capture ---------------------------------
+
+RNG_SHAPE = (1024, 1024)
+RNG_RANGE = (-2.0, 3.0)
+
+
+def phase_rng(fluid):
+    """A program with uniform_random feeding an elementwise_add, run through
+    the default route: the eager run, the capture, then replays. Each of
+    the 4 replays must draw anew, inside [min, max), and give the
+    interpreter's bits for the same executor seed and step."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        x = fluid.data(name="x", shape=list(RNG_SHAPE), dtype="float32")
+        blk = main.global_block()
+        u = blk.create_var(name="u", shape=RNG_SHAPE, dtype="float32")
+        blk.append_op("uniform_random", outputs={"Out": [u]},
+                      attrs={"shape": list(RNG_SHAPE), "min": RNG_RANGE[0],
+                             "max": RNG_RANGE[1], "seed": 0, "dtype": 5},
+                      infer_shape=False)
+        y = fluid.layers.elementwise_add(x, u)
+    feed = {"x": np.zeros(RNG_SHAPE, "float32")}
+    draws = {}
+    for route in ("captured", "interpreter"):
+        exe = fluid.Executor()
+        exe._core.rng.seed = SEED + 11
+        scope = fluid.Scope()
+        ce.reset_counters()
+        if route == "captured":
+            draws[route] = [exe.run(main, feed=feed, fetch_list=[y],
+                                    scope=scope)[0] for _ in range(6)]
+            check_one_capture("rng", ce.counters())
+        else:
+            draws[route] = [exe._core.run_program(main, scope, feed, [y])[0]
+                            for _ in range(6)]
+        exe.close()
+    replays = draws["captured"][2:]
+    distinct = len({d.tobytes() for d in replays})
+    lo = min(float(d.min()) for d in replays)
+    hi = max(float(d.max()) for d in replays)
+    same = all(a.tobytes() == b.tobytes()
+               for a, b in zip(draws["captured"], draws["interpreter"]))
+    log("phase 19 uniform_random [%g, %g) %s under capture: %d replays, %d "
+        "distinct draws, min %.6f max %.6f, the interpreter's bits: %s"
+        % (RNG_RANGE[0], RNG_RANGE[1], RNG_SHAPE, len(replays), distinct, lo,
+           hi, same))
+    if distinct != len(replays) or lo < RNG_RANGE[0] or \
+            hi >= RNG_RANGE[1] or not same:
+        raise RuntimeError("random numbers under capture: %d distinct of %d, "
+                           "range [%g, %g], same as the interpreter %s"
+                           % (distinct, len(replays), lo, hi, same))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -2342,6 +2599,7 @@ def main() -> int:
     bert, bert_run = phase_bert(fluid, support)
     log("phases 16-17 %s" % json.dumps({"wmt": wmt_run, "bert": bert_run}))
     phase_transformer_twins(fluid, support)
+    phase_rng(fluid)
     kernels = (probe, flash, k2, k3, k4, conv, paged)
     for kern in kernels:
         by_path = {"serving": serving.get(kern["name"], 0),

@@ -2,14 +2,21 @@
 
 Counterpart of ``paddle_tpu/core/executor_core.py``: for each op of a
 block, read its inputs from the scope, call its function, write its outputs
-back. PyTorch runs eagerly, so there is no per-op compile cache; kernels
-queue on the device's current stream and the host loop runs ahead until a
-fetch copies a result back.
+back. ``Executor.run`` takes this route under ``FLAGS_check_nan_inf``, for
+a program that the whole-program route declines (a host op that does not
+fold, an op that is not registered; ``compiler_engine.untraceable_reasons``)
+and for LoD feeds; every other program runs through
+``core/compiler_engine`` (a CUDA graph on the card), which calls the same
+ops through the helpers below. PyTorch runs eagerly, so there is no per-op
+compile cache; kernels queue on the device's current stream and the host
+loop runs ahead until a fetch copies a result back.
 
 - Every op gets the executor's ``torch.device`` (``DEVICE_ATTR``) for the
   tensors it creates; an op marked ``needs_rng`` gets a ``torch.Generator``
   on that device seeded per (executor seed, step, op id), or from its
   ``seed`` attr when that is set, as the JAX package derives its seeds.
+- A host op (``OpInfo.host_fn``) reads and writes the scope itself through
+  ``_read_var`` / ``_write_var``, the names the JAX package's host ops call.
 - Intermediates are freed after their last use (the eager-deletion plan),
   except feeds, fetches and persistables. The plan counts every reader,
   so a forward activation that a grad op reads lives until that grad op.
@@ -19,11 +26,11 @@ fetch copies a result back.
   written for it). A grad op draws its RNG stream from its forward op's
   id (``_fwd_op_id``), so both see the same random numbers.
 
-Whole-program capture (CUDA graphs) and LoD propagation come with later
-slices (ROADMAP.md).
+LoD propagation comes with the LoD ops (ROADMAP.md).
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -54,13 +61,83 @@ class RNGState:
 _UNBOUND = ("", "@EMPTY@")
 
 
+def op_attrs(info, op, device: torch.device) -> Dict:
+    """The attrs an op's function is called with: the registered defaults,
+    the op's own attrs, the device and the bound output slots."""
+    attrs = dict(info.attrs)
+    attrs.update(op.attrs)
+    attrs[DEVICE_ATTR] = device
+    attrs[BOUND_OUTPUTS_ATTR] = tuple(
+        s.name for s in info.outputs if op.output(s.name))
+    return attrs
+
+
+def rng_seed(rng: RNGState, attrs: Dict, op) -> int:
+    """This step's seed of an RNG op: its ``seed`` attr when set, else one
+    folded from the step and the op's id (its forward op's, for a grad
+    op)."""
+    seed = int(attrs.get("seed", 0) or 0)
+    if seed > 0:
+        return seed
+    return rng.next_seed(attrs.get("_fwd_op_id", op._id or 0))
+
+
+def gather_inputs(info, op, read) -> Dict:
+    """Slot -> value (a list for a duplicable slot, None when unbound), each
+    name read through ``read``."""
+    ins = {}
+    for slot in info.inputs:
+        names = op.input(slot.name)
+        if not names:
+            ins[slot.name] = None
+            continue
+        vals = [read(n) for n in names]
+        ins[slot.name] = vals if slot.duplicable else vals[0]
+    return ins
+
+
+def call_op(info, op, ins: Dict, attrs: Dict) -> Dict:
+    try:
+        return info.fn(ins, attrs)
+    except Exception as e:
+        e.add_note("in op %r (id %s), inputs %s, outputs %s"
+                   % (op.type, op._id, op.inputs, op.outputs))
+        raise
+
+
+def output_pairs(info, op, outs: Dict):
+    """(name, value) of every output the op produced and binds."""
+    for slot in info.outputs:
+        o = outs.get(slot.name)
+        if o is None:
+            continue
+        vals = o if slot.duplicable else [o]
+        for n, v in zip(op.output(slot.name), vals):
+            if v is not None and n not in _UNBOUND:
+                yield n, v
+
+
 class CoreExecutor:
     def __init__(self, device: torch.device):
         self.device = device
         self.rng = RNGState()
         self._gc_plans: Dict = {}
+        # the whole-program route's caches (core/compiler_engine): step
+        # functions, captured graphs, the keys run once eagerly, and the
+        # stream graphs are captured on
+        self.steps: "OrderedDict" = OrderedDict()
+        self.graphs: "OrderedDict" = OrderedDict()
+        self.warm: "OrderedDict" = OrderedDict()
+        self.capture_stream = None
 
-    def _read(self, scope: Scope, name: str):
+    def close(self) -> None:
+        """Drop the step functions and free the captured graphs."""
+        self.graphs.clear()
+        self.warm.clear()
+        self.steps.clear()
+        self.capture_stream = None
+
+    def _read_var(self, scope: Scope, name: str):
         if name in _UNBOUND:
             return None
         var = scope.find_var(name)
@@ -69,49 +146,28 @@ class CoreExecutor:
         h = var.raw()
         return h.array if isinstance(h, LoDTensor) else h
 
-    def _write(self, scope: Scope, name: str, value) -> None:
-        scope.var(name).set(LoDTensor(value))
+    def _write_var(self, scope: Scope, name: str, value) -> None:
+        if name in _UNBOUND or value is None:
+            return
+        scope.var(name).set(value if isinstance(value, LoDTensor)
+                            else LoDTensor(value))
 
     def run_op(self, op, scope: Scope) -> None:
         info = OpInfoMap.instance().get(op.type)
-        ins = {}
-        for slot in info.inputs:
-            names = op.input(slot.name)
-            if not names:
-                ins[slot.name] = None
-                continue
-            vals = [self._read(scope, n) for n in names]
-            ins[slot.name] = vals if slot.duplicable else vals[0]
-        attrs = dict(info.attrs)
-        attrs.update(op.attrs)
-        attrs[DEVICE_ATTR] = self.device
-        attrs[BOUND_OUTPUTS_ATTR] = tuple(
-            s.name for s in info.outputs if op.output(s.name))
+        if info.host_fn is not None:
+            info.host_fn(self, op, scope)
+            return
+        ins = gather_inputs(info, op, lambda n: self._read_var(scope, n))
+        attrs = op_attrs(info, op, self.device)
         if info.needs_rng:
-            seed = int(attrs.get("seed", 0) or 0)
-            if seed <= 0:
-                seed = self.rng.next_seed(
-                    attrs.get("_fwd_op_id", op._id or 0))
             gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
+            gen.manual_seed(rng_seed(self.rng, attrs, op))
             attrs[GENERATOR_ATTR] = gen
-        try:
-            outs = info.fn(ins, attrs)
-        except Exception as e:
-            e.add_note("in op %r (id %s), inputs %s, outputs %s"
-                       % (op.type, op._id, op.inputs, op.outputs))
-            raise
-        for slot in info.outputs:
-            o = outs.get(slot.name)
-            if o is None:
-                continue
-            vals = o if slot.duplicable else [o]
-            for n, v in zip(op.output(slot.name), vals):
-                if v is not None and n not in _UNBOUND:
-                    self._write(scope, n, v)
+        for n, v in output_pairs(info, op, call_op(info, op, ins, attrs)):
+            self._write_var(scope, n, v)
 
     @staticmethod
-    def _build_gc_plan(block, protect):
+    def build_gc_plan(block, protect):
         """Op index -> names whose last use that op is (never feeds,
         fetches or persistables)."""
         last_use: Dict[str, int] = {}
@@ -133,13 +189,14 @@ class CoreExecutor:
                     return_numpy: bool = True):
         feed = feed or {}
         for name, value in feed.items():
+            lod = None
             if isinstance(value, LoDTensor):
-                value = value.array
+                value, lod = value.array, value.lod()
             if isinstance(value, torch.Tensor):
                 value = value.to(self.device)
             else:
                 value = torch.tensor(np.asarray(value), device=self.device)
-            self._write(scope, name, value)
+            self._write_var(scope, name, LoDTensor(value, lod))
         fetch_names = [f if isinstance(f, str) else f.name
                        for f in (fetch_list or [])]
         block = program.global_block()
@@ -147,7 +204,7 @@ class CoreExecutor:
                tuple(fetch_names))
         plan = self._gc_plans.get(key)
         if plan is None:
-            plan = self._build_gc_plan(block, set(feed) | set(fetch_names))
+            plan = self.build_gc_plan(block, set(feed) | set(fetch_names))
             if len(self._gc_plans) >= 64:
                 self._gc_plans.pop(next(iter(self._gc_plans)))
             self._gc_plans[key] = plan

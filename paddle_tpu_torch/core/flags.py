@@ -98,6 +98,15 @@ def get_flags(flags: Union[str, List[str]]):
     return out
 
 
+# bumped whenever set_flags changes a value: a flag may route an op (the
+# conv route), so the whole-program route keys its step functions on it
+_version = [0]
+
+
+def version() -> int:
+    return _version[0]
+
+
 def set_flags(flags: Dict[str, object]):
     """fluid.set_flags."""
     for n, v in flags.items():
@@ -105,8 +114,11 @@ def set_flags(flags: Dict[str, object]):
         if key not in _values:
             raise ValueError("unknown flag %r" % n)
         default = _DEFS[key][0]
+        old = _values[key]
         _values[key] = _coerce(default, v) if isinstance(v, str) else \
             type(default)(v) if not isinstance(default, str) else str(v)
+        if _values[key] != old:
+            _version[0] += 1
         _apply(key)
 
 

@@ -6,6 +6,12 @@ function ``fn(ins, attrs) -> outs`` over ``torch`` tensors: ``ins`` and
 unbound dispensable slot to None). The registered ``attrs`` are the op's
 defaults; the executor overlays the op's own attrs on them.
 
+A host op (``register_host_op``) has no ``fn``: its ``host_fn(executor,
+op, scope)`` reads and writes the scope itself, on the host, as the JAX
+package's host ops do. ``range`` is one (its output's length depends on its
+inputs' values); it is ``const_foldable``, so the whole-program route
+evaluates it once when its inputs are constants (``core/compiler_engine``).
+
 Executors pass reserved attrs that are never serialized: ``DEVICE_ATTR``
 is the ``torch.device`` creation ops build on, ``GENERATOR_ATTR`` the
 seeded ``torch.Generator`` a ``needs_rng`` op draws from, and
@@ -61,7 +67,10 @@ def Out(name, **kw):
 class OpInfo:
     def __init__(self, type: str, fn: Callable, inputs: Sequence[Slot],
                  outputs: Sequence[Slot], attrs: Optional[Dict] = None,
-                 grad: object = "auto", needs_rng: bool = False):
+                 grad: object = "auto", needs_rng: bool = False,
+                 needs_lod: bool = False, side_effect: bool = False,
+                 host_fn: Optional[Callable] = None,
+                 const_foldable: bool = False):
         self.type = type
         self.fn = fn
         self.inputs = tuple(inputs)
@@ -69,6 +78,12 @@ class OpInfo:
         self.attrs = dict(attrs or {})
         self.grad = grad  # "auto" | None | maker(block, op, pending, finalize)
         self.needs_rng = needs_rng
+        self.needs_lod = needs_lod
+        self.side_effect = side_effect  # not pure (host ops, prints)
+        self.host_fn = host_fn  # host_fn(executor, op, scope); no fn
+        # a deterministic host op whose output depends only on its inputs:
+        # with constant inputs the compiler engine evaluates it once
+        self.const_foldable = const_foldable
 
     def input_slot(self, name) -> Optional[Slot]:
         for s in self.inputs:
@@ -147,6 +162,22 @@ def register_op(type: str, inputs: Sequence[Slot], outputs: Sequence[Slot],
         if grad == "auto":
             _register_auto_grad_for(info, grad_fn)
         return fn
+
+    return deco
+
+
+def register_host_op(type: str, inputs: Sequence[Slot],
+                     outputs: Sequence[Slot], attrs: Optional[Dict] = None,
+                     grad: object = None, const_foldable: bool = False):
+    """Decorator: register ``host_fn(executor, op, scope)`` as an op that
+    runs on the host against the scope (``executor._read_var`` /
+    ``_write_var``), never inside a captured graph."""
+
+    def deco(host_fn):
+        OpInfoMap.instance().insert(OpInfo(
+            type, None, inputs, outputs, attrs, grad=grad, side_effect=True,
+            host_fn=host_fn, const_foldable=const_foldable))
+        return host_fn
 
     return deco
 

@@ -199,8 +199,11 @@ class Block:
 
 def infer_op_shapes(block: Block, op: Operator) -> None:
     """Set output var shapes/dtypes by running the op's function on
-    ``meta`` tensors built from its inputs' metadata."""
+    ``meta`` tensors built from its inputs' metadata. A host op has no
+    function to run: its caller sets the shapes."""
     info = OpInfoMap.instance().get(op.type)
+    if info.fn is None:
+        return
 
     def meta_of(name):
         v = block.var(name)

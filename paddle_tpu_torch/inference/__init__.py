@@ -3,7 +3,11 @@
 Counterpart of ``paddle_tpu/inference/__init__.py``. A predictor loads a
 saved inference model once, keeps its parameters resident on its device
 and serves ``run()``; one predictor may be shared by many serving threads,
-and its run lock serializes the dispatch (one device stream).
+and its run lock serializes the dispatch (one device stream). ``run`` goes
+through the executor's whole-program route: on the card each batch shape
+is run once eagerly, then captured into a CUDA graph and replayed
+(``warmup_runs`` runs of a shape reach the replay; the serving engine's
+warm-up runs each ladder bucket that often).
 
 ``AnalysisConfig`` runs on the card by default; ``disable_gpu()`` asks for
 the CPU. ``switch_ir_optim`` is recorded: the IR passes of the JAX package
@@ -85,6 +89,12 @@ class PaddlePredictor:
     @property
     def device(self):
         return self._exe.device
+
+    @property
+    def warmup_runs(self) -> int:
+        """Runs of one batch shape before ``run`` replays a captured
+        graph."""
+        return self._exe.runs_to_capture
 
     def get_input_names(self) -> List[str]:
         return list(self._feed_names)

@@ -17,6 +17,10 @@ its kernel or an exception, never a fallback.
 
 Each kernel wrapper owns a ``LaunchCounter`` that it increments where it
 launches its kernel, so a run can show that it went through the kernels.
+A launch on a stream that is capturing a CUDA graph runs nothing: inside
+``recording_launches(stream)`` it is recorded instead of counted, and the
+graph's owner adds the record on every replay (``count_replay``), so that
+``launch_counts()`` counts the kernels the card ran.
 """
 from __future__ import annotations
 
@@ -26,8 +30,9 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator
 
 import torch
 
@@ -49,8 +54,14 @@ class LaunchCounter:
         self._lock = threading.Lock()
 
     def inc(self) -> None:
+        if _recordings and _record(self.name):
+            return
         with self._lock:
             self._n += 1
+
+    def add(self, n: int) -> None:
+        with self._lock:
+            self._n += n
 
     @property
     def value(self) -> int:
@@ -67,6 +78,43 @@ COUNTERS: Dict[str, LaunchCounter] = {}
 
 def launch_counter(name: str) -> LaunchCounter:
     return COUNTERS.setdefault(name, LaunchCounter(name))
+
+
+# capturing stream (its cudaStream_t as an int) -> kernel name -> launches
+# recorded there. A kernel launches on the current stream, which is the
+# capture stream on the capturing thread and on autograd's device thread
+# alike (the backward runs on its forward's stream).
+_recordings: Dict[int, Dict[str, int]] = {}
+_recordings_lock = threading.Lock()
+
+
+def _record(name: str) -> bool:
+    rec = _recordings.get(torch.cuda.current_stream().cuda_stream)
+    if rec is None:
+        return False
+    with _recordings_lock:
+        rec[name] = rec.get(name, 0) + 1
+    return True
+
+
+@contextmanager
+def recording_launches(stream: "torch.cuda.Stream") -> Iterator[Dict]:
+    """Record, not count, the launches made on ``stream`` inside the
+    block (a graph capture): yields the record, kernel name -> launches."""
+    rec: Dict[str, int] = {}
+    with _recordings_lock:
+        _recordings[stream.cuda_stream] = rec
+    try:
+        yield rec
+    finally:
+        with _recordings_lock:
+            del _recordings[stream.cuda_stream]
+
+
+def count_replay(launches: Dict[str, int]) -> None:
+    """Count one replay of a graph that recorded ``launches``."""
+    for name, n in launches.items():
+        launch_counter(name).add(n)
 
 
 def reset_launch_counts() -> None:

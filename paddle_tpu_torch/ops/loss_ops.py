@@ -33,8 +33,9 @@ def _label_xent(logp, label, ignore_index=-100, soft=False):
 )
 def _cross_entropy(ins, attrs):
     x, label = ins["X"], ins["Label"]
-    lo = torch.tensor(1e-20, dtype=x.dtype, device=x.device)
-    hi = torch.tensor(1.0, dtype=x.dtype, device=x.device)
+    # filled on the device: a copy from the host cannot be captured
+    lo = torch.full((), 1e-20, dtype=x.dtype, device=x.device)
+    hi = torch.full((), 1.0, dtype=x.dtype, device=x.device)
     logp = torch.log(torch.minimum(torch.maximum(x, lo), hi))
     return {"Y": _label_xent(logp, label, attrs.get("ignore_index", -100),
                              attrs.get("soft_label", False))}

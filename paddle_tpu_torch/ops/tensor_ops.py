@@ -8,9 +8,8 @@ Counterparts of ``fill_constant`` (:31), ``uniform_random`` (:69),
 ``lookup_table``'s grad maker and dense ``lookup_table_grad`` (:631-677),
 whose scatter-add becomes ``index_add_``. ``gather``'s auto-VJP grad is a
 scatter-add too (autograd's ``index_select`` backward), so repeated
-indices sum. ``range`` is a host op in the JAX package (its output's
-length depends on its inputs' values); here it is an ordinary op that
-reads its three scalars. Creation
+indices sum. ``range`` is a host op, as in the JAX package (its output's
+length depends on its inputs' values). Creation
 ops build on the executor's device (``DEVICE_ATTR``); ``uniform_random``
 draws from the seeded ``torch.Generator`` the executor hands it
 (``GENERATOR_ATTR``), and so does ``gaussian_random``, so the numbers
@@ -22,7 +21,8 @@ import torch
 
 from ..core import dtypes as _dt
 from ..backward import bind_partial_grad
-from ..core.registry import DEVICE_ATTR, GENERATOR_ATTR, In, Out, register_op
+from ..core.registry import (DEVICE_ATTR, GENERATOR_ATTR, In, Out,
+                             register_host_op, register_op)
 
 
 @register_op(
@@ -263,22 +263,22 @@ def _gather(ins, attrs):
     return {"Out": out}
 
 
-@register_op(
+@register_host_op(
     "range",
     inputs=[In("Start", no_grad=True), In("End", no_grad=True),
             In("Step", no_grad=True)],
     outputs=[Out("Out")],
-    grad=None,
+    const_foldable=True,
 )
-def _range(ins, attrs):
-    """``np.arange(start, end, step)`` in Start's type. Reading the three
-    scalars off the card (one copy) waits for the work queued before
-    them."""
-    start = ins["Start"]
-    if start.device.type == "meta":  # the length depends on the values
-        raise ValueError("range: the output's length depends on its "
-                         "inputs' values (build with infer_shape=False)")
-    vals = torch.cat([ins[s].reshape(1).to(start.dtype)
-                      for s in ("Start", "End", "Step")]).tolist()
-    return {"Out": torch.arange(*vals, dtype=start.dtype,
-                                device=start.device)}
+def _range(executor, op, scope):
+    """``np.arange(start, end, step)`` in Start's type, on Start's device.
+    The output's length depends on the inputs' values, so this is a host
+    op (as in the JAX package): reading the three scalars off the card
+    (one copy) waits for the work queued before them. With constant
+    inputs the whole-program route folds it (``core/compiler_engine``)."""
+    start, end, step = (executor._read_var(scope, op.input(s)[0])
+                        for s in ("Start", "End", "Step"))
+    vals = torch.cat([t.reshape(1).to(start.dtype)
+                      for t in (start, end, step)]).tolist()
+    executor._write_var(scope, op.output("Out")[0], torch.arange(
+        *vals, dtype=start.dtype, device=start.device))

@@ -10,8 +10,10 @@ another thread. What the bare predictor lacks:
   with ``ServerOverloaded``;
 - **deadlines**: a request past its deadline is dropped when its batch
   forms, before a dispatch is spent on it;
-- **warmup**: ``start()`` runs one dispatch per ladder bucket, on zero
-  feeds derived from the program's feed vars;
+- **warmup**: ``start()`` runs each ladder bucket, on zero feeds derived
+  from the program's feed vars, as often as the predictor needs before it
+  replays (``warmup_runs``: on the card the eager run and the capture of
+  the bucket's CUDA graph), so that traffic captures nothing;
 - **graceful drain**: ``stop()`` refuses new work, finishes what is
   queued, then joins the workers;
 - **lifecycle**: ``health()`` is ``starting | warming | serving |
@@ -292,15 +294,18 @@ class ServingEngine:
         return arrs, n_rows
 
     def _warmup(self) -> None:
-        """One dispatch per ladder bucket before traffic arrives."""
+        """Each ladder bucket, ``warmup_runs`` dispatches, before traffic
+        arrives."""
         if self._spec is None:
             return
+        runs = getattr(self._predictor, "warmup_runs", 1)
         warmed = []
         for bucket in self.config.policy.ladder:
             feed = {n: np.broadcast_to(
                         v, (bucket,) + tuple(v.shape[1:])).copy()
                     for n, v in self._spec.items()}
-            self._predictor.run(feed)
+            for _ in range(runs):
+                self._predictor.run(feed)
             warmed.append(bucket)
         self.warmed_buckets = tuple(warmed)
 

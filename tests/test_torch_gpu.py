@@ -34,12 +34,28 @@ gives the same bits twice; K1 and
 K6 refuse a misaligned tensor. The decode engine on the card launches K6 as its
 counters predict and its streams do not change with the batch, the prefill
 chunking or a preemption.
+
+The whole-program route (``core/compiler_engine``) captures a program once
+per shape and replays it: a captured narrow BERT step gives the
+interpreter's losses within 1e-6 relative (the gather and embedding grads
+sum by atomics, in another order each run, so not bitwise); one capture
+serves five steps and each replay counts the kernels it launches; a
+replay draws the interpreter's random numbers bit for bit, new ones each
+step; a host constant (``assign_value``) is made outside the graph; a
+graph captured on another thread replays on this one; the
+serving engine's warm-up captures one graph per ladder bucket and a burst
+after it captures none; ``Executor.close()`` gives the graphs' memory
+back.
 """
+import gc
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu_torch as fluid
+from paddle_tpu_torch.core import compiler_engine as ce
 from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
 from paddle_tpu_torch.models import gpt, transformer
 from paddle_tpu_torch.ops.cuda import conv as k5
@@ -916,3 +932,224 @@ def test_decode_engine_tokens_do_not_depend_on_batch_or_preemption(
     assert st["serving.preemptions"] >= 1
     chunked, _ = run(True, prefill_chunk_tokens=5)
     assert alone == tight == chunked
+
+
+# -- the whole-program route: CUDA graph capture ---------------------------
+
+def _persistables(main, scope):
+    return {v.name: scope.find_var(v.name).get_tensor().numpy()
+            for v in main.global_block().vars.values()
+            if v.persistable and scope.find_var(v.name) is not None
+            and scope.find_var(v.name).is_initialized()}
+
+
+def test_captured_bert_step_matches_the_interpreter(cuda):
+    build, feeds = _transformer_twin("bert")
+    main, startup, loss, _ = build()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = _persistables(main, scope)
+    ce.reset_counters()
+    captured = [float(np.asarray(exe.run(main, feed=f, fetch_list=[loss],
+                                         scope=scope)[0]).reshape(-1)[0])
+                for f in feeds]
+    assert ce.counters()["executor.jit_traces"] == 1
+    scope2 = fluid.Scope()
+    fluid.io.scope_from_numpy(scope2, init, fluid.CUDAPlace(0))
+    interp = [float(np.asarray(exe._core.run_program(
+        main, scope2, f, [loss])[0]).reshape(-1)[0]) for f in feeds]
+    np.testing.assert_allclose(captured, interp, rtol=1e-6, atol=0)
+    want = _persistables(main, scope2)
+    for name, got in _persistables(main, scope).items():
+        scale = max(float(np.abs(want[name]).max()), 1e-3)
+        np.testing.assert_allclose(got, want[name], rtol=0,
+                                   atol=1e-4 * scale, err_msg=name)
+
+
+def test_one_capture_serves_five_steps_and_replays_count_launches(
+        cuda, monkeypatch):
+    monkeypatch.setenv("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    main, startup, loss, _ = gpt.build_gpt_long(**TWIN, seed=1)
+    feed = gpt.random_batch(np.random.RandomState(0), TWIN["batch"],
+                            TWIN["seq_len"], TWIN["vocab"])
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    ce.reset_counters()
+    support.reset_launch_counts()
+    losses = []
+    for step in range(5):
+        before = support.launch_counts()
+        (out,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                         return_numpy=False)
+        after = support.launch_counts()
+        delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        assert delta == {"flash_attention_forward": 4,
+                         "flash_attention_backward_dq": 2,
+                         "flash_attention_backward_dkv": 2,
+                         "fused_optimizer_update": 1}, (step, delta)
+        losses.append(out)
+    c = ce.counters()
+    assert (c["executor.compiles"], c["executor.jit_traces"],
+            c["executor.steps"], c["executor.compile_fallbacks"]) == \
+        (1, 1, 5, 0)
+    vals = [float(o.numpy().reshape(-1)[0]) for o in losses]
+    assert len(set(vals)) == 5 and vals[-1] < vals[0], vals
+
+
+def _uniform_program(seed=0):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[64, 32], dtype="float32")
+        blk = main.global_block()
+        u = blk.create_var(name="u", shape=(64, 32), dtype="float32")
+        blk.append_op("uniform_random", outputs={"Out": [u]},
+                      attrs={"shape": [64, 32], "min": -2.0, "max": 3.0,
+                             "seed": seed, "dtype": 5}, infer_shape=False)
+        y = fluid.layers.elementwise_add(x, u)
+    return main, y
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_replays_draw_what_the_interpreter_draws(cuda, seed):
+    main, y = _uniform_program(seed)
+    feed = {"x": np.zeros((64, 32), "float32")}
+    draws = {}
+    for mode in ("captured", "interp"):
+        exe = fluid.Executor()
+        exe._core.rng.seed = 12345
+        ce.reset_counters()
+        run = (exe.run if mode == "captured" else
+               lambda p, feed, fetch_list, scope: exe._core.run_program(
+                   p, scope, feed, fetch_list))
+        scope = fluid.Scope()
+        draws[mode] = [run(main, feed=feed, fetch_list=[y],
+                           scope=scope)[0] for _ in range(5)]
+        if mode == "captured":
+            assert ce.counters()["executor.jit_traces"] == 1
+    assert [d.tobytes() for d in draws["captured"]] == \
+        [d.tobytes() for d in draws["interp"]]
+    got = draws["captured"]
+    assert all(((d >= -2.0) & (d < 3.0)).all() for d in got)
+    distinct = len({d.tobytes() for d in got})
+    assert distinct == (1 if seed else 5)  # a fixed seed draws the same
+
+
+def test_a_host_constant_is_made_outside_the_captured_graph(cuda):
+    """``assign_value`` copies its values from the host, which a graph
+    cannot capture: the route makes it once, before the capture (the WMT
+    script's causal-bias form has one)."""
+    vals = np.arange(12, dtype="float32").reshape(3, 4) / 7.0
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        x = fluid.data(name="x", shape=[3, 4], dtype="float32")
+        c = fluid.layers.assign(vals)
+        y = fluid.layers.elementwise_mul(x, c)
+    assert "assign_value" in [op.type for op in main.global_block().ops]
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    rng = np.random.RandomState(0)
+    ce.reset_counters()
+    for _ in range(4):
+        f = {"x": rng.rand(3, 4).astype("float32")}
+        (got,) = exe.run(main, feed=f, fetch_list=[y], scope=scope)
+        np.testing.assert_array_equal(got, f["x"] * vals)
+    assert ce.counters()["executor.jit_traces"] == 1
+
+
+def test_a_graph_captured_on_a_worker_thread_replays_here(cuda):
+    main, y = _uniform_program(seed=3)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    rng = np.random.RandomState(0)
+    feeds = [{"x": rng.rand(64, 32).astype("float32")} for _ in range(4)]
+    out, errors = [], []
+
+    def worker():
+        try:
+            for f in feeds[:2]:  # the eager run, then the capture
+                out.append(exe.run(main, feed=f, fetch_list=[y],
+                                   scope=scope)[0])
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    ce.reset_counters()
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and not errors, errors
+    for f in feeds[2:]:
+        out.append(exe.run(main, feed=f, fetch_list=[y], scope=scope)[0])
+    assert ce.counters()["executor.jit_traces"] == 1
+    interp = fluid.Scope()
+    for f, o in zip(feeds, out):  # a fixed seed: the same u every step
+        (want,) = exe._core.run_program(main, interp, f, [y])
+        assert o.tobytes() == want.tobytes()
+
+
+def test_serving_warmup_captures_each_bucket_and_a_burst_none(cuda,
+                                                              tmp_path):
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    T = 32
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src = fluid.data(name="src_ids", shape=[-1, T], dtype="int64")
+        pos = fluid.data(name="pos_ids", shape=[-1, T], dtype="int64")
+        lens = fluid.data(name="lengths", shape=[-1], dtype="int32")
+        enc = transformer.transformer_encoder(
+            src, pos, 101, max_len=64, num_layers=2, num_heads=2,
+            d_model=128, d_ff=256, is_test=True, src_lengths=lens)
+    exe = fluid.Executor()
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        fluid.io.save_inference_model(str(tmp_path),
+                                      ["src_ids", "pos_ids", "lengths"],
+                                      [enc], exe, main_program=main)
+    pred = create_paddle_predictor(AnalysisConfig(str(tmp_path)))
+    ce.reset_counters()
+    engine = ServingEngine(pred, ServingConfig(max_batch_size=8,
+                                               max_queue=64))
+    engine.start()
+    assert ce.counters()["executor.jit_traces"] == 4  # buckets 1, 2, 4, 8
+    rng = np.random.RandomState(0)
+    reqs = []
+    for _ in range(40):
+        rows = int(rng.randint(1, 4))
+        reqs.append({"src_ids": rng.randint(0, 101, (rows, T)).astype(
+                         "int64"),
+                     "pos_ids": np.tile(np.arange(T), (rows, 1)).astype(
+                         "int64"),
+                     "lengths": rng.randint(1, T + 1, rows).astype("int32")})
+    futures = [engine.submit(r) for r in reqs]
+    outs = [f.result(timeout=120) for f in futures]
+    engine.stop()
+    assert ce.counters()["executor.jit_traces"] == 4
+    assert ce.counters()["executor.compile_fallbacks"] == 0
+    cfg = AnalysisConfig(str(tmp_path))
+    cfg.disable_gpu()
+    cpu = create_paddle_predictor(cfg)
+    for r, o in list(zip(reqs, outs))[:4]:
+        (want,) = cpu.run(r)
+        (got,) = o.values()
+        np.testing.assert_allclose(got, want.data, rtol=1e-4, atol=1e-4)
+
+
+def test_close_gives_the_graphs_memory_back(cuda):
+    build, feeds = _transformer_twin("wmt")
+    main, startup, loss, _ = build()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    for f in feeds:
+        exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+    assert len(exe._core.graphs) == 1
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    exe.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert not exe._core.graphs
+    assert torch.cuda.memory_reserved() < held

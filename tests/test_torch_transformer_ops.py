@@ -283,8 +283,9 @@ def _range_program(pkg, start, end, step, dtype):
                                   (10, 2, -3, "int64")],
                          ids=lambda a: "%s_%s_%s_%s" % a)
 def test_range(args):
-    """``range`` is a host op in the JAX package and an ordinary op here:
-    one program each, run through each package's executor."""
+    """``range`` is a host op in both packages (constant inputs fold on
+    the whole-program route): one program each, run through each
+    package's executor."""
     jmain, jout = _range_program(jfluid, *args)
     pmain, pout = _range_program(fluid, *args)
     assert jout.shape == pout.shape
