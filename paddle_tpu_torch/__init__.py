@@ -26,6 +26,7 @@ from . import optimizer  # noqa: F401
 from . import backward  # noqa: F401
 from .layers.io import fluid_data as data  # noqa: F401
 from . import models  # noqa: F401
+from . import contrib  # noqa: F401
 from . import io  # noqa: F401
 from . import inference  # noqa: F401
 from . import serving  # noqa: F401

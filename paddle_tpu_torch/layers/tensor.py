@@ -1,5 +1,5 @@
-"""Tensor-creation layers ``cast`` (:69), ``assign`` (:98),
-``fill_constant`` (:125) and ``range`` (:211) of
+"""Tensor-creation layers ``create_global_var`` (:56), ``cast`` (:69),
+``assign`` (:98), ``fill_constant`` (:125) and ``range`` (:211) of
 ``paddle_tpu/layers/tensor.py``: the same ops, slots and attrs."""
 from __future__ import annotations
 
@@ -11,7 +11,22 @@ from .. import framework
 from ..core import dtypes as _dt
 from ..layer_helper import LayerHelper
 
-__all__ = ["cast", "assign", "fill_constant", "range"]
+__all__ = ["create_global_var", "cast", "assign", "fill_constant", "range"]
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A var of the main program's global block, set to ``value`` by a
+    ``fill_constant`` op in the startup program; it takes no grad."""
+    from ..initializer import ConstantInitializer
+
+    helper = LayerHelper("global_var", name=name)
+    var = helper.main_program.global_block().create_var(
+        dtype=dtype, shape=list(shape), persistable=persistable,
+        name=name or framework.unique_name.generate("global_var"))
+    var.stop_gradient = True
+    helper.set_variable_initializer(var, ConstantInitializer(float(value)))
+    return var
 
 
 def cast(x, dtype):

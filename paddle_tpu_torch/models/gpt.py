@@ -12,14 +12,17 @@ parameters, since ``layer_norm`` normalises over S x D from its default
 ``begin_norm_axis=1`` and so carries S * D scales and biases, as the model
 is written.
 
-The script runs in float32 here; bench.py's bfloat16 (``mp.decorate``)
-needs AMP, a later slice. It builds with this package only; the tests
-write the same script against each package to hold the two against each
-other.
+With ``use_bf16`` (bench.py's default) the optimizer is wrapped in
+``contrib.mixed_precision.decorate``, as bench.py wraps it: the products
+run in bfloat16 on float32 master parameters, ``flash_attention`` (on no
+AMP list) in float32; ``use_bf16=False`` is bench.py's ``--no-bf16``
+float32 program. It builds with this package only; the tests write the
+same script against each package to hold the two against each other.
 """
 from __future__ import annotations
 
 from .. import framework, layers, optimizer
+from ..contrib import mixed_precision as mp
 from ..layers.io import fluid_data
 from ..utils import unique_name
 
@@ -28,9 +31,10 @@ GPT_LONG = dict(batch=2, seq_len=4096, d_model=1024, n_heads=16,
 
 
 def build_gpt_long(batch, seq_len, d_model=1024, n_heads=16, n_layers=2,
-                   vocab=8192, learning_rate=1e-4, seed=0):
+                   vocab=8192, learning_rate=1e-4, seed=0, use_bf16=True):
     """(main, startup, loss, params_grads) of the training program, built
-    under fresh names; ``seed`` is the startup program's random seed."""
+    under fresh names; ``seed`` is the startup program's random seed,
+    ``use_bf16`` wraps the optimizer in ``mp.decorate``."""
     head = d_model // n_heads
     main, startup = framework.Program(), framework.Program()
     startup.random_seed = seed
@@ -60,8 +64,10 @@ def build_gpt_long(batch, seq_len, d_model=1024, n_heads=16, n_layers=2,
         logits = layers.fc(layers.layer_norm(x), vocab, num_flatten_dims=2)
         loss = layers.mean(layers.softmax_with_cross_entropy(
             layers.reshape(logits, [batch * seq_len, vocab]), lbl))
-        _, params_grads = optimizer.AdamOptimizer(
-            learning_rate).minimize(loss)
+        opt = optimizer.AdamOptimizer(learning_rate)
+        if use_bf16:
+            opt = mp.decorate(opt)
+        _, params_grads = opt.minimize(loss)
     return main, startup, loss, params_grads
 
 

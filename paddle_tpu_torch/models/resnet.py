@@ -105,13 +105,17 @@ def resnet_cifar(input, class_dim=10, n=3, is_test=False):
 
 def build_resnet_train(batch, image_size=224, class_dim=1000, depth=50,
                        data_format="NHWC", learning_rate=0.1, momentum=0.9,
-                       seed=0):
+                       seed=0, use_bf16=False):
     """(main, startup, loss) of bench.py's ResNet training script
     (``_build_resnet50``, bench.py:43-65): images and int64 labels, the
     ResNet, the mean cross entropy of its softmax, and
     ``MomentumOptimizer(learning_rate, momentum).minimize``, built under
     fresh names; ``seed`` is the startup program's random seed (0 draws
-    one per op from the executor)."""
+    one per op from the executor). ``use_bf16`` wraps the optimizer in
+    ``contrib.mixed_precision.decorate``, as bench.py runs the script by
+    default (``_build_resnet50``'s own default is False): the convs and the fc
+    product in bfloat16, batch norm and the loss in float32, float32
+    master parameters."""
     import paddle_tpu_torch as fluid
 
     img_shape = ([batch, 3, image_size, image_size] if data_format == "NCHW"
@@ -123,8 +127,11 @@ def build_resnet_train(batch, image_size=224, class_dim=1000, depth=50,
         label = fluid.data(name="label", shape=[batch, 1], dtype="int64")
         pred = resnet(img, class_dim, depth, data_format=data_format)
         loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
-        fluid.optimizer.MomentumOptimizer(
-            learning_rate=learning_rate, momentum=momentum).minimize(loss)
+        opt = fluid.optimizer.MomentumOptimizer(
+            learning_rate=learning_rate, momentum=momentum)
+        if use_bf16:
+            opt = fluid.contrib.mixed_precision.decorate(opt)
+        opt.minimize(loss)
     return main, startup, loss
 
 

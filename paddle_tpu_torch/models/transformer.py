@@ -13,8 +13,11 @@ the additive masks, ``softmax``, ``matmul``.
 
 ``build_transformer_wmt`` and ``build_bert_base`` are bench.py's
 ``_build_transformer_wmt`` (:490-538) and ``_build_bert_base`` (:422-449),
-built with this package only and trained with ``AdamOptimizer``, in
-float32 (bench.py's bfloat16 needs AMP, a later slice); ``*_batch`` make
+built with this package only and trained with ``AdamOptimizer``, wrapped
+in ``contrib.mixed_precision.decorate`` under ``use_bf16`` (bench.py's
+default: bfloat16 products on float32 master parameters, with
+``flash_attention`` in float32 as the AMP lists leave it;
+``use_bf16=False`` is the ``--no-bf16`` float32 program); ``*_batch`` make
 their feeds as bench.py's ``bench_*`` functions do. Dropout (the
 ``dropout`` op) comes with a later slice: ``dropout > 0`` raises.
 """
@@ -23,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import framework, layers, optimizer
+from ..contrib import mixed_precision as mp
 from ..layer_helper import LayerHelper
 from ..layers.io import fluid_data
 from ..utils import unique_name
@@ -233,14 +237,19 @@ def transformer_wmt(src_ids, src_pos, tgt_ids, tgt_pos, vocab_size,
     return layers.fc(y, size=vocab_size, num_flatten_dims=2)
 
 
+def _optimizer(learning_rate, use_bf16):
+    opt = optimizer.AdamOptimizer(learning_rate)
+    return mp.decorate(opt) if use_bf16 else opt
+
+
 def build_transformer_wmt(batch, seq_len, use_lengths=True, vocab=32000,
                           num_layers=6, num_heads=8, d_model=512, d_ff=2048,
-                          learning_rate=1e-4, seed=0):
+                          learning_rate=1e-4, seed=0, use_bf16=True):
     """(main, startup, loss, params_grads) of bench.py's WMT script under
     fresh names: with ``use_lengths``, the loss is the softmax cross
     entropy summed over non-pad target tokens over their count (plus
     1e-6), else its mean. ``seed`` is the startup program's random
-    seed."""
+    seed; ``use_bf16`` wraps the optimizer in ``mp.decorate``."""
     main, startup = framework.Program(), framework.Program()
     startup.random_seed = seed
     with unique_name.guard(), framework.program_guard(main, startup):
@@ -269,8 +278,7 @@ def build_transformer_wmt(batch, seq_len, use_lengths=True, vocab=32000,
                 layers.reduce_sum(w) + 1e-6)
         else:
             loss = layers.mean(ce)
-        _, params_grads = optimizer.AdamOptimizer(
-            learning_rate).minimize(loss)
+        _, params_grads = _optimizer(learning_rate, use_bf16).minimize(loss)
     return main, startup, loss, params_grads
 
 
@@ -293,11 +301,12 @@ def wmt_batch(rng, batch, seq_len, vocab=32000, use_lengths=True):
 
 def build_bert_base(batch, seq_len, vocab=30522, num_layers=12,
                     num_heads=12, d_model=768, d_ff=3072, masked=20,
-                    learning_rate=1e-4, seed=0):
+                    learning_rate=1e-4, seed=0, use_bf16=True):
     """(main, startup, loss, params_grads) of bench.py's BERT masked-LM
     script under fresh names: the mean softmax cross entropy of the
     vocabulary logits at ``masked`` positions a row. ``seed`` is the
-    startup program's random seed."""
+    startup program's random seed; ``use_bf16`` wraps the optimizer in
+    ``mp.decorate``."""
     M = masked
     main, startup = framework.Program(), framework.Program()
     startup.random_seed = seed
@@ -314,8 +323,7 @@ def build_bert_base(batch, seq_len, vocab=30522, num_layers=12,
         loss = layers.mean(layers.softmax_with_cross_entropy(
             layers.reshape(logits, [batch * M, vocab]),
             layers.reshape(labels, [batch * M, 1])))
-        _, params_grads = optimizer.AdamOptimizer(
-            learning_rate).minimize(loss)
+        _, params_grads = _optimizer(learning_rate, use_bf16).minimize(loss)
     return main, startup, loss, params_grads
 
 

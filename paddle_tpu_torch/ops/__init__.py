@@ -1,6 +1,7 @@
 """Op functions of the port. Importing this package registers every op
 (``core.registry`` imports it at the first registry lookup)."""
 from . import activation_ops  # noqa: F401
+from . import amp_ops  # noqa: F401
 from . import conv_ops  # noqa: F401
 from . import elementwise_ops  # noqa: F401
 from . import fused_ops  # noqa: F401

@@ -44,6 +44,8 @@ from . import support
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CIN_ALIGN = 128
 LAUNCHES = support.launch_counter("conv2d_bn_act")
+# the launches of the bfloat16 form alone (also counted in LAUNCHES)
+LAUNCHES_BF16 = support.launch_counter("conv2d_bn_act_bf16")
 _kernel = None
 
 # The kernel's tile configurations, ``Tile<0..2>`` in
@@ -212,6 +214,8 @@ def _launch(x, w, scale, shift, stride, padding, relu, residual, tile):
                   H_out, W_out, int(bool(relu)), tile, stream)
     support.check_launch(lib, "paddle_conv2d_bn_act", code)
     LAUNCHES.inc()
+    if x.dtype == torch.bfloat16:
+        LAUNCHES_BF16.inc()
     return y
 
 

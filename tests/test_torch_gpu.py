@@ -46,6 +46,16 @@ graph captured on another thread replays on this one; the
 serving engine's warm-up captures one graph per ladder bucket and a burst
 after it captures none; ``Executor.close()`` gives the graphs' memory
 back.
+
+Mixed precision (``contrib.mixed_precision``) on the card: the settings
+keep bfloat16 GEMMs' split-K sums in float32; a dynamically scaled AMP
+step on the captured route skips an update whose feed holds an inf
+(every master bitwise unchanged, the scale shrunk), updates again on the
+next clean batch, and captures nothing new; the narrow ResNet-50 NHWC
+AMP twin launches K5 in bfloat16 only (44 a step) and its losses stay
+within 0.15 relative of the CPU run's from the same state (the bound of
+``test_torch_amp_training.py``: ResNet-50 at batch 4 is chaotic to
+bfloat16 rounding).
 """
 import gc
 import threading
@@ -74,6 +84,9 @@ def cuda():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bfloat16 products sum their split-K partials in float32, as XLA does
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     return torch.device("cuda")
 
 
@@ -395,7 +408,8 @@ def test_fused_optimizer_kernel_is_bitwise_plain(cuda, op_type, nesterov,
 
 
 def _train_twin(place, init, feeds):
-    main, startup, loss, _ = gpt.build_gpt_long(**TWIN, seed=1)
+    main, startup, loss, _ = gpt.build_gpt_long(**TWIN, seed=1,
+                                                use_bf16=False)
     exe = fluid.Executor(place)
     scope = fluid.Scope()
     if init is None:
@@ -450,11 +464,11 @@ def _transformer_twin(script):
             f["slen"][:] = (32, 16)
             f["tlen"][:] = (16, 32)
         return (lambda: transformer.build_transformer_wmt(
-            2, 32, **TRANSFORMER_TWIN, seed=2)), feeds
+            2, 32, **TRANSFORMER_TWIN, seed=2, use_bf16=False)), feeds
     feeds = [transformer.bert_batch(rng, 2, 32, 512, 5) for _ in range(3)]
     feeds[0]["mpos"][0, :2] = 3  # a repeated row
     return (lambda: transformer.build_bert_base(
-        2, 32, masked=5, **TRANSFORMER_TWIN, seed=2)), feeds
+        2, 32, masked=5, **TRANSFORMER_TWIN, seed=2, use_bf16=False)), feeds
 
 
 def _train_program(build, place, init, feeds):
@@ -970,7 +984,8 @@ def test_captured_bert_step_matches_the_interpreter(cuda):
 def test_one_capture_serves_five_steps_and_replays_count_launches(
         cuda, monkeypatch):
     monkeypatch.setenv("PADDLE_TPU_FUSED_OPTIMIZER", "1")
-    main, startup, loss, _ = gpt.build_gpt_long(**TWIN, seed=1)
+    main, startup, loss, _ = gpt.build_gpt_long(**TWIN, seed=1,
+                                                use_bf16=False)
     feed = gpt.random_batch(np.random.RandomState(0), TWIN["batch"],
                             TWIN["seq_len"], TWIN["vocab"])
     exe = fluid.Executor()
@@ -1153,3 +1168,96 @@ def test_close_gives_the_graphs_memory_back(cuda):
     torch.cuda.empty_cache()
     assert not exe._core.graphs
     assert torch.cuda.memory_reserved() < held
+
+
+def test_bf16_gemm_partial_sums_stay_float32(cuda):
+    assert not torch.backends.cuda.matmul.\
+        allow_bf16_reduced_precision_reduction
+
+
+def _amp_mlp(dyn):
+    """tests/test_amp.py's MLP under ``mp.decorate`` with dynamic loss
+    scaling from 2**10, shrinking after one overflowing step."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 3
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[64, 32], dtype="float32")
+        y = fluid.data(name="y", shape=[64, 1], dtype="int64")
+        h = fluid.layers.fc(x, 64, act="relu")
+        pred = fluid.layers.fc(h, 10, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, y))
+        opt = fluid.contrib.mixed_precision.decorate(
+            fluid.optimizer.SGD(0.5), use_dynamic_loss_scaling=dyn,
+            init_loss_scaling=2 ** 10, decr_every_n_nan_or_inf=1)
+        opt.minimize(loss)
+    return main, startup, loss, opt
+
+
+def test_amp_inf_step_on_the_captured_route_skips_and_shrinks(cuda):
+    main, startup, loss, opt = _amp_mlp(dyn=True)
+    rng = np.random.RandomState(0)
+    xb = rng.randn(64, 32).astype("float32")
+    feed = {"x": xb, "y": rng.randint(0, 10, (64, 1)).astype("int64")}
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    for _ in range(3):  # eager, capture, replay
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    ce.reset_counters()
+    params = [p.name for p in main.all_parameters()]
+    scale = opt.get_loss_scaling().name
+    before = _persistables(main, scope)
+    bad = dict(feed, x=xb.copy())
+    bad["x"][5, 7] = np.inf
+    exe.run(main, feed=bad, fetch_list=[loss], scope=scope)
+    after = _persistables(main, scope)
+    for n in params:
+        np.testing.assert_array_equal(after[n], before[n], err_msg=n)
+    assert after[scale][0] < before[scale][0]
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    again = _persistables(main, scope)
+    assert all(not np.array_equal(again[n], after[n]) for n in params)
+    c = ce.counters()
+    assert (c["executor.jit_traces"], c["executor.compile_fallbacks"],
+            c["executor.steps"]) == (0, 0, 2)
+
+
+def test_resnet_amp_twin_launches_k5_in_bf16_only(cuda, monkeypatch):
+    """ResNet-50 NHWC at 64x64, batch 4, class_dim 10, lr 1e-3 under
+    ``mp.decorate``, three steps on the card, each from the CPU run's
+    state before it."""
+    from paddle_tpu_torch.models.resnet import build_resnet_train, \
+        random_batch
+
+    monkeypatch.setenv("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    old = fluid.get_flags("FLAGS_use_pallas_conv")
+    fluid.set_flags({"FLAGS_use_pallas_conv": "all"})
+    try:
+        rng = np.random.RandomState(5)
+        feeds = [random_batch(rng, 4, 64, 10) for _ in range(3)]
+        losses, states = {}, []
+        for side, place in (("cpu", fluid.CPUPlace()),
+                            ("card", fluid.CUDAPlace(0))):
+            main, startup, loss = build_resnet_train(
+                4, 64, 10, learning_rate=1e-3, seed=6, use_bf16=True)
+            exe = fluid.Executor(place)
+            scope = fluid.Scope()
+            if side == "cpu":
+                exe.run(startup, scope=scope)
+            support.reset_launch_counts()
+            losses[side] = []
+            for i, feed in enumerate(feeds):
+                if side == "cpu":
+                    states.append(_persistables(main, scope))
+                else:
+                    fluid.io.scope_from_numpy(scope, states[i], place)
+                (out,) = exe.run(main, feed=feed, fetch_list=[loss],
+                                 scope=scope)
+                losses[side].append(float(np.asarray(out).reshape(-1)[0]))
+            counts = support.launch_counts()
+    finally:
+        fluid.set_flags(old)
+    assert counts["conv2d_bn_act"] == counts["conv2d_bn_act_bf16"] == 44 * 3
+    assert counts["fused_optimizer_update"] == 3
+    assert np.isfinite(losses["card"]).all()
+    np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=0.15)

@@ -55,8 +55,9 @@ CONFIGS = {"resnet50_nhwc": dict(depth=50, data_format="NHWC",
                                  image_size=64)}
 
 
-def build(pkg, cfg, batch=BATCH, classes=CLASSES):
-    """bench.py's ResNet script (``_build_resnet50``) under ``pkg``."""
+def build(pkg, cfg, batch=BATCH, classes=CLASSES, use_bf16=False):
+    """bench.py's ResNet script (``_build_resnet50``) under ``pkg``;
+    ``use_bf16`` wraps the optimizer in ``mp.decorate``."""
     size, fmt = cfg["image_size"], cfg["data_format"]
     img_shape = ([batch, 3, size, size] if fmt == "NCHW"
                  else [batch, size, size, 3])
@@ -68,8 +69,10 @@ def build(pkg, cfg, batch=BATCH, classes=CLASSES):
         pred = pkg.models.resnet(img, classes, cfg["depth"],
                                  data_format=fmt)
         loss = pkg.layers.mean(pkg.layers.cross_entropy(pred, label))
-        pkg.optimizer.MomentumOptimizer(learning_rate=LR,
-                                        momentum=0.9).minimize(loss)
+        opt = pkg.optimizer.MomentumOptimizer(learning_rate=LR, momentum=0.9)
+        if use_bf16:
+            opt = pkg.contrib.mixed_precision.decorate(opt)
+        opt.minimize(loss)
     return main, startup, loss
 
 

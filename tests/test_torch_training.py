@@ -46,9 +46,10 @@ KNOB = "PADDLE_TPU_FUSED_OPTIMIZER"
 
 
 def build_gpt(pkg, batch=BATCH, seq_len=SEQ, d_model=D_MODEL, n_heads=HEADS,
-              n_layers=LAYERS, vocab=VOCAB):
+              n_layers=LAYERS, vocab=VOCAB, use_bf16=False):
     """bench.py's gpt_long script (``_build_gpt_long``) under ``pkg``:
-    (main, startup, loss, params_grads)."""
+    (main, startup, loss, params_grads); ``use_bf16`` wraps the optimizer
+    in ``mp.decorate`` as bench.py does by default."""
     layers = pkg.layers
     head = d_model // n_heads
     main, startup = pkg.Program(), pkg.Program()
@@ -77,7 +78,10 @@ def build_gpt(pkg, batch=BATCH, seq_len=SEQ, d_model=D_MODEL, n_heads=HEADS,
         logits = layers.fc(layers.layer_norm(x), vocab, num_flatten_dims=2)
         loss = layers.mean(layers.softmax_with_cross_entropy(
             layers.reshape(logits, [batch * seq_len, vocab]), lbl))
-        _, params_grads = pkg.optimizer.AdamOptimizer(LR).minimize(loss)
+        opt = pkg.optimizer.AdamOptimizer(LR)
+        if use_bf16:
+            opt = pkg.contrib.mixed_precision.decorate(opt)
+        _, params_grads = opt.minimize(loss)
     return main, startup, loss, params_grads
 
 
@@ -85,7 +89,7 @@ def test_build_gpt_long_is_the_bench_script():
     """The port's builder emits exactly this file's script."""
     want = build_gpt(fluid)
     got = gpt.build_gpt_long(BATCH, SEQ, D_MODEL, HEADS, LAYERS, VOCAB,
-                             learning_rate=LR, seed=1)
+                             learning_rate=LR, seed=1, use_bf16=False)
     for w, g in zip(want[:2], got[:2]):
         assert _op_seq(g) == _op_seq(w) and g.random_seed == w.random_seed
     assert got[2].name == want[2].name

@@ -54,8 +54,10 @@ SCRIPTS = ["wmt_lengths", "wmt_causal_bias", "bert"]
 
 
 def build_wmt(pkg, use_lengths, batch=BATCH, seq_len=SEQ, vocab=64,
-              num_layers=2, num_heads=2, d_model=32, d_ff=64):
-    """bench.py's WMT script (``_build_transformer_wmt``) under ``pkg``."""
+              num_layers=2, num_heads=2, d_model=32, d_ff=64,
+              use_bf16=False):
+    """bench.py's WMT script (``_build_transformer_wmt``) under ``pkg``;
+    ``use_bf16`` wraps the optimizer in ``mp.decorate``."""
     L = pkg.layers
     main, startup = pkg.Program(), pkg.Program()
     startup.random_seed = 1
@@ -82,13 +84,18 @@ def build_wmt(pkg, use_lengths, batch=BATCH, seq_len=SEQ, vocab=64,
                 L.reduce_sum(w) + 1e-6)
         else:
             loss = L.mean(ce)
-        _, params_grads = pkg.optimizer.AdamOptimizer(LR).minimize(loss)
+        opt = pkg.optimizer.AdamOptimizer(LR)
+        if use_bf16:
+            opt = pkg.contrib.mixed_precision.decorate(opt)
+        _, params_grads = opt.minimize(loss)
     return main, startup, loss, params_grads
 
 
 def build_bert(pkg, batch=BATCH, seq_len=SEQ, vocab=64, num_layers=2,
-               num_heads=2, d_model=32, d_ff=64, masked=MASKED):
-    """bench.py's BERT script (``_build_bert_base``) under ``pkg``."""
+               num_heads=2, d_model=32, d_ff=64, masked=MASKED,
+               use_bf16=False):
+    """bench.py's BERT script (``_build_bert_base``) under ``pkg``;
+    ``use_bf16`` wraps the optimizer in ``mp.decorate``."""
     L = pkg.layers
     main, startup = pkg.Program(), pkg.Program()
     startup.random_seed = 1
@@ -105,14 +112,17 @@ def build_bert(pkg, batch=BATCH, seq_len=SEQ, vocab=64, num_layers=2,
         loss = L.mean(L.softmax_with_cross_entropy(
             L.reshape(logits, [batch * masked, vocab]),
             L.reshape(labels, [batch * masked, 1])))
-        _, params_grads = pkg.optimizer.AdamOptimizer(LR).minimize(loss)
+        opt = pkg.optimizer.AdamOptimizer(LR)
+        if use_bf16:
+            opt = pkg.contrib.mixed_precision.decorate(opt)
+        _, params_grads = opt.minimize(loss)
     return main, startup, loss, params_grads
 
 
-def build(pkg, script):
+def build(pkg, script, use_bf16=False):
     if script == "bert":
-        return build_bert(pkg)
-    return build_wmt(pkg, script == "wmt_lengths")
+        return build_bert(pkg, use_bf16=use_bf16)
+    return build_wmt(pkg, script == "wmt_lengths", use_bf16=use_bf16)
 
 
 def feeds(script):
@@ -156,11 +166,12 @@ def test_builders_emit_the_bench_programs(script):
     with jfluid.unique_name.guard():
         if script == "bert":
             want = bench._build_bert_base(2, 16)
-            got = T.build_bert_base(2, 16)
+            got = T.build_bert_base(2, 16, use_bf16=False)
         else:
             lens = script == "wmt_lengths"
             want = bench._build_transformer_wmt(2, 16, use_lengths=lens)
-            got = T.build_transformer_wmt(2, 16, use_lengths=lens)
+            got = T.build_transformer_wmt(2, 16, use_lengths=lens,
+                                          use_bf16=False)
     for w, g in zip(want[:2], got[:2]):
         assert _op_seq(g) == _op_seq(w)
     assert got[2].name == want[2].name
@@ -194,11 +205,12 @@ def test_narrow_builders_are_the_scripts(script):
     want = build(fluid, script)
     if script == "bert":
         got = T.build_bert_base(BATCH, SEQ, masked=MASKED,
-                                learning_rate=LR, seed=1, **NARROW)
+                                learning_rate=LR, seed=1, use_bf16=False,
+                                **NARROW)
     else:
         got = T.build_transformer_wmt(
             BATCH, SEQ, use_lengths=script == "wmt_lengths",
-            learning_rate=LR, seed=1, **NARROW)
+            learning_rate=LR, seed=1, use_bf16=False, **NARROW)
     for w, g in zip(want[:2], got[:2]):
         assert _op_seq(g) == _op_seq(w) and g.random_seed == w.random_seed
     assert [(p.name, g.name) for p, g in got[3]] == \
