@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Run from the repository root. It drives the port's six main paths at
+Run from the repository root. It drives the port's seven main paths at
 full width, serving (BERT-base), training (gpt_long), ResNet-50 training,
 streaming decode (the continuous-batching engine at gpt_long's width),
 Transformer-base WMT training and BERT-base masked-LM training (each
 training path in float32, bench.py's --no-bf16, and again under
-contrib.mixed_precision's bfloat16 AMP, bench.py's default), and holds
+contrib.mixed_precision's bfloat16 AMP, bench.py's default) and Wide&Deep
+training (float32, as bench.py runs it), and holds
 each hand-written CUDA kernel against its plain PyTorch version on the
 card. Serving and the training paths run through ``Executor.run``'s
 default route, which runs a program's first step eagerly, captures the
@@ -74,7 +75,7 @@ lines each:
    vocab 8192, batch 2, seq 4096; causal flash attention; Adam 1e-4) in
    float32 with seeded random weights, ids and labels, built with
    fluid.layers, AdamOptimizer.minimize (append_backward) and run by
-   Executor().run with PADDLE_TPU_FUSED_OPTIMIZER set as bench.py sets it:
+   Executor().run with bench.py's three knobs (below) set:
    the startup on the card, one warm-up step (eager), the interpreter's
    yardstick (3 timed steps, a profile of one), then 5 steps on one batch
    through the default route (a capture, then 4 replays) with the launch
@@ -100,7 +101,7 @@ lines each:
    never calls) and the bound of each type;
 10. ResNet-50 training: bench.py's script (NHWC, 224x224, batch 128,
    class_dim 1000, MomentumOptimizer(0.1, 0.9), float32) with
-   FLAGS_use_pallas_conv=all and PADDLE_TPU_FUSED_OPTIMIZER set, seeded
+   FLAGS_use_pallas_conv=all and bench.py's three knobs set, seeded
    random weights, images and labels, run as phase 7 runs gpt_long (a
    warm-up, the interpreter's yardstick, then a capture and 4 replays
    with the launch counts zeroed just before and read just after). The
@@ -215,9 +216,46 @@ lines each:
    AMP_TWIN_LOSS_RTOL (the card's spread: it sums bfloat16 products in
    other orders), the launches as in those phases (K5's all bfloat16),
    one capture each; every twin is read before the phase fails;
-25. one JSON line {"kernels": [...]} with each kernel's launches on the
+25. the epilogue pass off and on: the narrow twins of gpt_long, WMT,
+   BERT and ResNet-50, a narrow encoder with dropout 0.1
+   (upscale_in_train, so its attention runs dense) and an MLP whose
+   fc(gelu) -> dropout chain fuses whole, each 3 steps through
+   the default route (eager, capture, replay) with
+   PADDLE_TPU_FUSED_EPILOGUE off and on, from the same state and executor
+   seed: the losses and every persistable after must be bitwise equal
+   (the JAX package's contract for the pass), with one capture each and
+   the same launches;
+26. dropout under capture: dropout (p 0.1, upscale_in_train) -> mean over
+   [4096, 1024] with its backward, an eager run, a capture and 4 replays:
+   every replay draws a new mask, keeps 1 - p of the elements within 5
+   binomial standard deviations, X@GRAD equals Out@GRAD times the mask
+   over 1 - p bit for bit, and every fetch is the interpreter's bits for
+   the same executor seed;
+27. Wide&Deep training: bench.py's script (batch 2048, vocab 100000, 26
+   sparse slots, 13 dense features, embeddings of 16, hidden (64, 32),
+   Adam 1e-3; 41,629,794 parameters in 34 tensors) on bench.py's fixed
+   batch, run as phase 7 runs gpt_long: two fused_bias_act ops, one
+   fused_optimizer op, one capture, K4 exactly 5 launches in 5 steps,
+   losses finite and falling; step time, examples/s, idle share, peak
+   memory and capture time beside the interpreter's; then K4's adam at
+   the path's flat size, bitwise against its plain version and in rounds
+   against torch._fused_adam_ (a yardstick the port never calls), with
+   each one's device time a launch and the bytes bound;
+28. the narrow Wide&Deep twin (vocab 1000, 4 slots, batch 64), card
+   against CPU as in phase 8;
+29. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside), error, times and bound;
-26. the last line: {"ok": true, "device": {...}}.
+30. the last line: {"ok": true, "device": {...}}.
+
+Every training phase (7, 10, 16, 17, 20-23 and 27) sets bench.py's three
+knobs as its _enable_fast_paths does (PADDLE_TPU_FUSED_OPTIMIZER,
+PADDLE_TPU_FUSED_EPILOGUE and PADDLE_TPU_ASYNC_FEED, each unless already
+set), so it runs the program bench.py runs: after the epilogue pass and
+the optimizer pass. Each prints its op count after both passes and its
+fused_bias_act and fused_residual_layer_norm ops, which must be the JAX
+package's pass's counts (float32 / AMP: gpt_long 2+4 / 0, ResNet-50 16 /
+16, WMT 12+32 / 0+2, BERT 12+25 / 0+1, Wide&Deep 2). The twins (phases
+8, 11, 18, 24 and 28) run with the knobs set too.
 
 Any failure raises and exits non-zero without the last line. Without a
 CUDA device it exits 2 and prints no result.
@@ -232,6 +270,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1185,8 +1224,38 @@ def route_numbers(cap, interp, busy_ms, wall_ms, per):
                             "idle_share": interp["idle_share"]}}
 
 
+# bench.py's _enable_fast_paths (bench.py:1358-1366), which every bench.py
+# child calls before it builds; an explicit setting wins
+FAST_PATHS = ("PADDLE_TPU_FUSED_OPTIMIZER", "PADDLE_TPU_FUSED_EPILOGUE",
+              "PADDLE_TPU_ASYNC_FEED")
+# (fused_bias_act, fused_residual_layer_norm) ops the epilogue pass leaves
+# in bench.py's programs, float32 and AMP: the JAX package's pass leaves
+# the same (tests/test_torch_epilogue.py); under AMP the casts break most
+# chains
+EPILOGUE_CHAINS = {"gpt_long": ((2, 4), (0, 0)), "resnet": ((16, 0), (16, 0)),
+                   "wmt": ((12, 32), (0, 2)), "bert": ((12, 25), (0, 1)),
+                   "wide_deep": ((2, 0), None)}
+
+
+def bench_fast_paths():
+    for k in FAST_PATHS:
+        os.environ.setdefault(k, "1")
+
+
+def check_chains(phase, name, ops, want):
+    """The epilogue pass's fused ops in a program after its first run."""
+    got = (ops.count("fused_bias_act"),
+           ops.count("fused_residual_layer_norm"))
+    log("phase %d %s after the epilogue and optimizer passes: %d ops, %d "
+        "fused_bias_act and %d fused_residual_layer_norm (want %d and %d)"
+        % (phase, name, len(ops), got[0], got[1], want[0], want[1]))
+    if got != tuple(want):
+        raise RuntimeError("%s: fused epilogue ops %s, want %s"
+                           % (name, got, want))
+
+
 def train_path(fluid, support, phase, name, built, feed, want, tokens,
-               f32=None):
+               f32=None, chains=None, unit="tokens"):
     """Train one path on the card: the startup, one warm-up step (which
     applies the fused-optimizer rewrite and runs the step eagerly), the
     interpreter's yardstick on the same program and batch, then
@@ -1201,7 +1270,9 @@ def train_path(fluid, support, phase, name, built, feed, want, tokens,
     returns the launch counts and those numbers. ``f32``, the numbers of
     the same script's float32 path from this call, marks an AMP path:
     ``amp_report`` then logs both side by side, the casts and the GEMM
-    kernels, and checks that flash attention stayed float32."""
+    kernels, and checks that flash attention stayed float32. ``chains``
+    is the (fused_bias_act, fused_residual_layer_norm) count the epilogue
+    pass must leave; ``unit`` names what ``tokens`` counts."""
     from paddle_tpu_torch.core import compiler_engine as ce
 
     t0 = time.perf_counter()
@@ -1225,6 +1296,8 @@ def train_path(fluid, support, phase, name, built, feed, want, tokens,
                            "adam, got %d and %d"
                            % (name, ops.count("fused_optimizer"),
                               ops.count("adam")))
+    if chains is not None:
+        check_chains(phase, name, ops, chains)
     interp = interpreter_yardstick(
         lambda: exe._core.run_program(main, scope, feed, [loss], False))
     cap = captured_steps(ce, support, step, TRAIN_STEPS)
@@ -1249,18 +1322,19 @@ def train_path(fluid, support, phase, name, built, feed, want, tokens,
         raise RuntimeError("%s training launches (got, want): %s"
                            % (name, bad))
     log("phase %d %d steps (1 capture, %d replays): step %.3f ms, %.1f "
-        "tokens/s (%d tokens a step), max_memory_allocated %d bytes; "
+        "%s/s (%d %s a step), max_memory_allocated %d bytes; "
         "launches %s; counters %s; card %s"
         % (phase, TRAIN_STEPS, TRAIN_STEPS - 1, cap["step_ms"],
-           tokens / cap["step_ms"] * 1e3, tokens, cap["peak_bytes"],
-           json.dumps(counts), json.dumps(cap["counters"]), card_line()))
+           tokens / cap["step_ms"] * 1e3, unit, tokens, unit,
+           cap["peak_bytes"], json.dumps(counts), json.dumps(cap["counters"]),
+           card_line()))
     wall_ms, busy_ms, kernels = profile_step(step)
     log("phase %d profile, one replay: wall %.3f ms, device busy %.3f ms, "
         "idle share %s" % (phase, wall_ms, busy_ms, idle(wall_ms, busy_ms)))
     for t_ms, count, kname in kernels[:10]:
         log("phase %d profile   %9.3f ms  %5d x  %s"
             % (phase, t_ms, count, kname[:110]))
-    log_route_pair(phase, name, cap, interp, busy_ms, wall_ms, "tokens",
+    log_route_pair(phase, name, cap, interp, busy_ms, wall_ms, unit,
                    tokens)
     run = route_numbers(cap, interp, busy_ms, wall_ms, tokens)
     if f32 is not None:
@@ -1279,8 +1353,7 @@ def phase_training(fluid, support, phase=7, f32=None):
     path's numbers ``f32``, under mp.decorate (bench.py's default)."""
     from paddle_tpu_torch.models import gpt
 
-    # bench.py's fast paths (_enable_fast_paths): an explicit setting wins
-    os.environ.setdefault("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    bench_fast_paths()
     np.random.seed(SEED)
     cfg = gpt.GPT_LONG
     feed = gpt.random_batch(np.random.RandomState(SEED), cfg["batch"],
@@ -1293,7 +1366,8 @@ def phase_training(fluid, support, phase=7, f32=None):
         fluid, support, phase, "gpt_long" + ("" if f32 is None else " AMP"),
         lambda: gpt.build_gpt_long(**cfg, seed=SEED + 1,
                                    use_bf16=f32 is not None),
-        feed, want, cfg["batch"] * cfg["seq_len"], f32=f32)
+        feed, want, cfg["batch"] * cfg["seq_len"], f32=f32,
+        chains=EPILOGUE_CHAINS["gpt_long"][f32 is not None])
 
 
 # -- phase 8: the narrow twin, card against CPU -----------------------------
@@ -1555,7 +1629,7 @@ def phase_resnet(fluid, support, fo, phase=10, f32=None, k5_bf16=None):
 
     amp = f32 is not None
     tag = "ResNet-50" + (" AMP" if amp else "")
-    os.environ.setdefault("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    bench_fast_paths()
     fluid.set_flags({"FLAGS_use_pallas_conv": "all"})
     np.random.seed(SEED + 4)   # the executor's RNG seed comes from numpy
     t0 = time.perf_counter()
@@ -1586,6 +1660,7 @@ def phase_resnet(fluid, support, fo, phase=10, f32=None, k5_bf16=None):
                            "momentum, got %d and %d; conv inputs %s"
                            % (tag, ops.count("fused_optimizer"),
                               ops.count("momentum"), sorted(conv_in)))
+    check_chains(phase, tag, ops, EPILOGUE_CHAINS["resnet"][amp])
 
     interp = interpreter_yardstick(
         lambda: exe._core.run_program(main, scope, feed, [loss], False))
@@ -1593,8 +1668,8 @@ def phase_resnet(fluid, support, fo, phase=10, f32=None, k5_bf16=None):
     counts = cap["counts"]
     losses = [float(o.numpy().reshape(-1)[0]) for o in cap["outs"]]
     log("phase %d %s NHWC %s, batch %d: %d parameters, %d ops as built, %d "
-        "after the fused-optimizer rewrite, setup (build, startup, warm-up "
-        "step) %.2f s, warm-up loss %.6f"
+        "after the epilogue and optimizer passes, setup (build, startup, "
+        "warm-up step) %.2f s, warm-up loss %.6f"
         % (phase, tag, "bf16 AMP" if amp else "float32", RESNET_BATCH,
            n_params, n_built, len(ops), t_setup, first))
     log("phase %d losses over %d steps on one batch (lr 0.1, reported, not "
@@ -2511,6 +2586,7 @@ def phase_wmt(fluid, support, feed, phase=16, f32=None):
     mp.decorate given the float32 path's numbers ``f32``."""
     from paddle_tpu_torch.models import transformer
 
+    bench_fast_paths()
     w = transformer.WMT
     per_step = 12
     want = {"flash_attention_forward": 2 * per_step * TRAIN_STEPS,
@@ -2521,7 +2597,8 @@ def phase_wmt(fluid, support, feed, phase=16, f32=None):
         fluid, support, phase, "wmt" + ("" if f32 is None else " AMP"),
         lambda: transformer.build_transformer_wmt(
             **w, use_lengths=True, seed=SEED + 5, use_bf16=f32 is not None),
-        feed, want, int(feed["tlen"].sum()), f32=f32)
+        feed, want, int(feed["tlen"].sum()), f32=f32,
+        chains=EPILOGUE_CHAINS["wmt"][f32 is not None])
 
 
 def phase_bert(fluid, support, phase=17, f32=None):
@@ -2532,6 +2609,7 @@ def phase_bert(fluid, support, phase=17, f32=None):
     ``f32``."""
     from paddle_tpu_torch.models import transformer
 
+    bench_fast_paths()
     b = transformer.BERT_BASE
     feed = transformer.bert_batch(np.random.RandomState(SEED), b["batch"],
                                   b["seq_len"], b["vocab"], b["masked"])
@@ -2542,7 +2620,8 @@ def phase_bert(fluid, support, phase=17, f32=None):
                       "bert" + ("" if f32 is None else " AMP"),
                       lambda: transformer.build_bert_base(
                           **b, seed=SEED + 6, use_bf16=f32 is not None),
-                      feed, want, b["batch"] * b["seq_len"], f32=f32)
+                      feed, want, b["batch"] * b["seq_len"], f32=f32,
+                      chains=EPILOGUE_CHAINS["bert"][f32 is not None])
 
 
 def phase_transformer_twins(fluid, support):
@@ -2847,6 +2926,384 @@ def phase_amp_twins(fluid, support):
         raise RuntimeError("card and CPU AMP training disagree: %s"
                            % "; ".join(bad))
 
+# -- phase 25: the epilogue pass on and off, bitwise ------------------------
+
+EPILOGUE_STEPS = 3
+# the dropout-bearing narrow encoder of phase 25: BERT's encoder at the
+# transformer twins' width, dropout 0.1 (upscale_in_train) on the attention
+# weights and before both residual adds, so attention runs dense
+DROPOUT_ENCODER = dict(batch=2, seq_len=32, num_layers=2, num_heads=2,
+                       d_model=128, d_ff=512, vocab=512, dropout=0.1)
+
+
+def dropout_encoder(fluid, seed):
+    """(main, startup, loss) of the narrow encoder with dropout, Adam."""
+    from paddle_tpu_torch.models import transformer
+
+    c = DROPOUT_ENCODER
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = seed
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.data(name="ids", shape=[c["batch"], c["seq_len"]],
+                         dtype="int64")
+        pos = fluid.data(name="pos", shape=[c["batch"], c["seq_len"]],
+                         dtype="int64")
+        enc = transformer.transformer_encoder(
+            ids, pos, c["vocab"], max_len=c["seq_len"],
+            num_layers=c["num_layers"], num_heads=c["num_heads"],
+            d_model=c["d_model"], d_ff=c["d_ff"], dropout=c["dropout"])
+        loss = fluid.layers.mean(fluid.layers.reduce_sum(enc, dim=-1))
+        fluid.optimizer.AdamOptimizer(1e-4).minimize(loss)
+    return main, startup, loss
+
+
+def mlp_dropout(fluid, seed):
+    """(main, startup, loss): fc(gelu) -> dropout(0.3) -> fc(softmax), the
+    chain the epilogue pass absorbs whole, dropout included; Adam."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = seed
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[64, 256], dtype="float32")
+        lbl = fluid.data(name="lbl", shape=[64, 1], dtype="int64")
+        h = fluid.layers.fc(x, size=512, act="gelu")
+        h = fluid.layers.dropout(h, dropout_prob=0.3)
+        pred = fluid.layers.fc(h, size=10, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, lbl))
+        fluid.optimizer.AdamOptimizer(1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def card_state(main, scope):
+    """Every initialized persistable, as numpy (bfloat16 widened)."""
+    out = {}
+    for v in main.global_block().vars.values():
+        var = scope.find_var(v.name) if v.persistable else None
+        if var is not None and var.is_initialized():
+            out[v.name] = var.get_tensor().array.float().cpu().numpy()
+    return out
+
+
+def epilogue_run(fluid, support, build, feeds, init, knob):
+    """EPILOGUE_STEPS steps of ``build()``'s program on the card through
+    the default route (eager, capture, replays) from ``init`` with the
+    executor seed fixed, PADDLE_TPU_FUSED_EPILOGUE set to ``knob``: the
+    losses, the persistables after, the program's op types, the captures
+    and the launches."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+
+    os.environ["PADDLE_TPU_FUSED_EPILOGUE"] = knob
+    main, _, loss = build()[:3]
+    exe = fluid.Executor()
+    exe._core.rng.seed = SEED + 21
+    scope = fluid.Scope()
+    fluid.io.scope_from_numpy(scope, init, fluid.CUDAPlace(0))
+    support.reset_launch_counts()
+    ce.reset_counters()
+    losses = [np.asarray(exe.run(main, feed=f, fetch_list=[loss],
+                                 scope=scope)[0]) for f in feeds]
+    out = {"losses": losses, "state": card_state(main, scope),
+           "types": [op.type for op in main.global_block().ops],
+           "counters": ce.counters(), "counts": support.launch_counts()}
+    exe.close()
+    return out
+
+
+def bitwise_diffs(a, b):
+    """Names whose bits differ between two runs' losses and states."""
+    bad = ["loss %d" % i for i, (x, y) in enumerate(zip(a["losses"],
+                                                       b["losses"]))
+           if x.tobytes() != y.tobytes()]
+    if a["state"].keys() != b["state"].keys():
+        bad.append("persistable names")
+    bad += [n for n in sorted(a["state"])
+            if n in b["state"]
+            and a["state"][n].tobytes() != b["state"][n].tobytes()]
+    return bad
+
+
+def epilogue_cases(fluid):
+    """(name, build, feeds, flag) of the narrow programs of phase 25."""
+    from paddle_tpu_torch.models import gpt, transformer
+    from paddle_tpu_torch.models.resnet import build_resnet_train, random_batch
+
+    rng = np.random.RandomState(SEED + 20)
+    n = EPILOGUE_STEPS
+    batch, seq = TRANSFORMER_TWIN_BATCH
+    wmt_feeds = [transformer.wmt_batch(rng, batch, seq,
+                                       TRANSFORMER_TWIN["vocab"])
+                 for _ in range(n)]
+    for f in wmt_feeds:
+        f["slen"][:2] = (seq, seq // 2)
+        f["tlen"][:2] = (seq // 2, seq)
+    c = DROPOUT_ENCODER
+    pos = np.tile(np.arange(c["seq_len"]), (c["batch"], 1)).astype("int64")
+    return [
+        ("gpt_long", lambda: gpt.build_gpt_long(**GPT_TWIN, seed=SEED + 3,
+                                                use_bf16=False),
+         [gpt.random_batch(rng, GPT_TWIN["batch"], GPT_TWIN["seq_len"],
+                           GPT_TWIN["vocab"]) for _ in range(n)], "off"),
+        ("wmt", lambda: transformer.build_transformer_wmt(
+            batch, seq, **TRANSFORMER_TWIN, seed=SEED + 8, use_bf16=False),
+         wmt_feeds, "off"),
+        ("bert", lambda: transformer.build_bert_base(
+            batch, seq, masked=5, **TRANSFORMER_TWIN, seed=SEED + 9,
+            use_bf16=False),
+         [transformer.bert_batch(rng, batch, seq, TRANSFORMER_TWIN["vocab"],
+                                 5) for _ in range(n)], "off"),
+        ("resnet", lambda: build_resnet_train(
+            RESNET_TWIN["batch"], RESNET_TWIN["image_size"],
+            RESNET_TWIN["class_dim"],
+            learning_rate=RESNET_TWIN["learning_rate"], seed=SEED + 7),
+         [random_batch(rng, RESNET_TWIN["batch"], RESNET_TWIN["image_size"],
+                       RESNET_TWIN["class_dim"]) for _ in range(n)], "all"),
+        ("dropout_encoder", lambda: dropout_encoder(fluid, SEED + 22),
+         [{"ids": rng.randint(0, c["vocab"], (c["batch"], c["seq_len"]))
+           .astype("int64"), "pos": pos} for _ in range(n)], "off"),
+        ("mlp_dropout", lambda: mlp_dropout(fluid, SEED + 28),
+         [{"x": rng.rand(64, 256).astype("float32"),
+           "lbl": rng.randint(0, 10, (64, 1)).astype("int64")}
+          for _ in range(n)], "off"),
+    ]
+
+
+def phase_epilogue_on_off(fluid, support):
+    """The narrow gpt, WMT, BERT and ResNet-50 twins, a narrow encoder
+    with dropout 0.1 (its add -> dropout chains have no activation, so its
+    dropouts stay ops) and an MLP whose fc(gelu) -> dropout chain fuses
+    whole, each EPILOGUE_STEPS steps on the card with the
+    epilogue pass off and on, from the same state and executor seed: the
+    losses and every persistable after must be bitwise equal (the JAX
+    package's contract for the pass), each run must capture once, and
+    the kernels must launch alike."""
+    # index_add_ (the embedding and gather grads) sums by atomics on the
+    # card, in another order each run; its deterministic form keeps the
+    # pass-off program's own bits fixed from run to run, so that a
+    # difference can only be the pass's (cuBLAS, on one stream, already
+    # is; warn_only keeps it from asking for a workspace setting)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            return epilogue_on_off_cases(fluid, support)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def epilogue_on_off_cases(fluid, support):
+    results = {}
+    for name, build, feeds, conv in epilogue_cases(fluid):
+        fluid.set_flags({"FLAGS_use_pallas_conv": conv})
+        main, startup, _ = build()[:3]
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        os.environ["PADDLE_TPU_FUSED_EPILOGUE"] = "0"
+        exe.run(startup, scope=scope)
+        init = card_state(main, scope)
+        exe.close()
+        off, on = (epilogue_run(fluid, support, build, feeds, init, k)
+                   for k in ("0", "1"))
+        bad = bitwise_diffs(off, on)
+        fused = (on["types"].count("fused_bias_act"),
+                 on["types"].count("fused_residual_layer_norm"))
+        absorbed = on["types"].count("dropout") - off["types"].count(
+            "dropout")
+        log("phase 25 %s, %d steps off and on: %d and %d ops, %d "
+            "fused_bias_act and %d fused_residual_layer_norm (%d dropout ops "
+            "absorbed), losses off %s on %s, %d persistables compared, "
+            "bitwise equal: %s; captures %d and %d; launches %s and %s"
+            % (name, EPILOGUE_STEPS, len(off["types"]), len(on["types"]),
+               fused[0], fused[1], -absorbed,
+               [float(x) for x in off["losses"]],
+               [float(x) for x in on["losses"]], len(on["state"]),
+               "yes" if not bad else "no (%s)" % ", ".join(bad[:8]),
+               off["counters"]["executor.jit_traces"],
+               on["counters"]["executor.jit_traces"],
+               json.dumps({k: v for k, v in off["counts"].items() if v}),
+               json.dumps({k: v for k, v in on["counts"].items() if v})))
+        results[name] = {"bitwise": not bad, "differ": bad, "fused": fused}
+        if bad or not sum(fused) or off["counts"] != on["counts"] or any(
+                r["counters"]["executor.jit_traces"] != 1 for r in (off, on)):
+            raise RuntimeError("epilogue pass on and off disagree on %s: %s"
+                               % (name, bad or "fused %s, launches %s / %s"
+                                  % (fused, off["counts"], on["counts"])))
+    os.environ["PADDLE_TPU_FUSED_EPILOGUE"] = "1"
+    fluid.set_flags({"FLAGS_use_pallas_conv": "all"})
+    return results
+
+
+# -- phase 26: dropout under capture ----------------------------------------
+
+DROPOUT_SHAPE = (4096, 1024)
+DROPOUT_P = 0.1
+
+
+def phase_dropout(fluid):
+    """dropout (upscale_in_train) -> mean with its backward, run through
+    the default route (an eager run, a capture, 4 replays) and through the
+    interpreter with the same executor seed: each replay draws a new mask,
+    keeps 1 - p of the elements within 5 binomial standard deviations,
+    X@GRAD is Out@GRAD times the mask over 1 - p bit for bit, and every
+    fetch is the interpreter's bits."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+
+    p = DROPOUT_P
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        x = fluid.data(name="x", shape=list(DROPOUT_SHAPE), dtype="float32")
+        x.stop_gradient = False
+        d = fluid.layers.dropout(x, dropout_prob=p,
+                                 dropout_implementation="upscale_in_train")
+        loss = fluid.layers.mean(d)
+        fluid.backward.append_backward(loss)
+    mask = [op for op in main.global_block().ops
+            if op.type == "dropout"][0].output("Mask")[0]
+    feed = {"x": np.random.RandomState(SEED + 23).randn(*DROPOUT_SHAPE)
+            .astype("float32")}
+    fetch = [mask, "x@GRAD", loss.name + "@GRAD"]
+    runs = {}
+    for route in ("captured", "interpreter"):
+        exe = fluid.Executor()
+        exe._core.rng.seed = SEED + 24
+        scope = fluid.Scope()
+        ce.reset_counters()
+        if route == "captured":
+            runs[route] = [exe.run(main, feed=feed, fetch_list=fetch,
+                                   scope=scope) for _ in range(6)]
+            check_one_capture("dropout", ce.counters())
+        else:
+            runs[route] = [exe._core.run_program(main, scope, feed, fetch)
+                           for _ in range(6)]
+        exe.close()
+    replays = runs["captured"][2:]
+    n = int(np.prod(DROPOUT_SHAPE))
+    sigma = (n * p * (1 - p)) ** 0.5
+    kept = [float(m.sum()) for m, _, _ in replays]
+    distinct = len({m.tobytes() for m, _, _ in replays})
+    grad_ok = True
+    for m, gx, gl in replays:
+        d_out = torch.full(m.shape, float(np.asarray(gl).reshape(-1)[0]) / n)
+        want = d_out * torch.from_numpy(m) / (1 - p)
+        grad_ok &= np.asarray(gx).tobytes() == want.numpy().tobytes()
+    same = all(np.asarray(u).tobytes() == np.asarray(v).tobytes()
+               for a, b in zip(runs["captured"], runs["interpreter"])
+               for u, v in zip(a, b))
+    worst = max(abs(k - n * (1 - p)) / sigma for k in kept)
+    log("phase 26 dropout p %g over %s under capture: %d replays, %d "
+        "distinct masks, kept %s of %d (1 - p expects %.1f; largest "
+        "deviation %.2f binomial sigmas, limit 5), X@GRAD = Out@GRAD x mask "
+        "/ (1 - p) bitwise: %s, the interpreter's bits: %s"
+        % (p, DROPOUT_SHAPE, len(replays), distinct,
+           [int(k) for k in kept], n, n * (1 - p), worst, grad_ok, same))
+    if distinct != len(replays) or worst > 5 or not grad_ok or not same:
+        raise RuntimeError("dropout under capture: %d distinct of %d, %.2f "
+                           "sigmas, grad %s, interpreter %s"
+                           % (distinct, len(replays), worst, grad_ok, same))
+    return {"distinct": distinct, "sigmas": worst}
+
+
+# -- phases 27-28: Wide&Deep ------------------------------------------------
+
+# the narrow Wide&Deep twin, card against CPU
+WIDE_DEEP_TWIN = dict(batch=64, vocab=1000, slots=4)
+
+
+def phase_wide_deep(fluid, support, fo):
+    """bench.py's Wide&Deep script at full width (batch 2048, vocab 100000,
+    26 sparse slots, 13 dense, embeddings of 16, hidden (64, 32), Adam
+    1e-3: 41,629,794 parameters in 34 tensors) on bench.py's fixed batch,
+    run as phase 7 runs gpt_long with bench.py's knobs: one capture, K4
+    launched exactly 5 times in 5 steps, two fused chains, losses finite
+    and falling. Then K4's adam at the path's flat size against its plain
+    version (bitwise) and torch._fused_adam_, timed."""
+    wd = sys.modules["paddle_tpu_torch.models.wide_deep"]
+
+    bench_fast_paths()
+    cfg = wd.WIDE_DEEP
+    feed = wd.random_batch(np.random.RandomState(0), cfg["batch"],
+                           cfg["vocab"], cfg["slots"], cfg["dense_dim"])
+    built = []
+
+    def build():
+        built.append(wd.build_wide_deep(**cfg, seed=SEED + 25))
+        return built[-1]
+
+    want = {"flash_attention_forward": 0, "conv2d_bn_act": 0,
+            "fused_optimizer_update": TRAIN_STEPS}
+    counts, run = train_path(fluid, support, 27, "wide_deep", build, feed,
+                             want, cfg["batch"],
+                             chains=EPILOGUE_CHAINS["wide_deep"][0],
+                             unit="examples")
+    (op,) = [op for op in built[0][0].global_block().ops
+             if op.type == "fused_optimizer"]
+    run["k4"] = k4_at_wide_deep(fo, op)
+    log("phase 27 run %s" % json.dumps(run))
+    return counts, run
+
+
+def k4_at_wide_deep(fo, op):
+    """K4's adam at the flat size of the Wide&Deep path's one
+    fused_optimizer op: bitwise against its plain version, then rounds of
+    K4, torch._fused_adam_, torch._fused_adam_, K4 on the same buffers
+    (medians and spreads), each one's device time a launch, and the
+    bytes bound (param, m1 and m2 read and written, grad read: 28 bytes
+    an element)."""
+    n = op.attrs["padded_size"]
+    if op.attrs["op_type"] != "adam":
+        raise RuntimeError("expected adam, got %s" % op.attrs)
+    p, grad, m1, m2, lr, b1p, b2p, attrs = k4_case(fo, "adam", n, False,
+                                                   seed=43, lr=1e-3,
+                                                   phase=27)
+    step = torch.tensor(1.0, device="cuda")
+    calls = {"k4": lambda: fo.fused_optimizer_update(
+        "adam", attrs, p, grad, lr, m1, m2, b1p, b2p),
+        "fused_adam": lambda: torch._fused_adam_(
+            [p], [grad], [m1], [m2], [], [step], lr=1e-3, beta1=0.9,
+            beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+            maximize=False)}
+    rounds = {"k4": [], "fused_adam": []}
+    for _ in range(K4_ROUNDS):
+        for side in ("k4", "fused_adam", "fused_adam", "k4"):
+            rounds[side].append(time_ms(calls[side], iters=20, warmup=3))
+    med = {k: float(np.median(r)) for k, r in rounds.items()}
+    spread = {k: max(r) - min(r) for k, r in rounds.items()}
+    dev = {k: device_ms_per_call(f, calls=50) for k, f in calls.items()}
+    plain_ms = time_ms(lambda: fo.fused_optimizer_update_reference(
+        "adam", attrs, p, grad, lr.reshape(()), m1, m2, b1p.reshape(()),
+        b2p.reshape(())), iters=5, warmup=1)
+    b_ms, b_by = bound(7 * 4 * n, 15 * n, PEAK_FLOPS[torch.float32])
+    log("phase 27 K4 adam over %d elements (the path's flat buffer), %d "
+        "rounds of K4, torch._fused_adam_, torch._fused_adam_, K4: K4 "
+        "median %.4f ms (spread %.4f), device %s a launch; "
+        "torch._fused_adam_ median %.4f ms (spread %.4f), device %s; plain "
+        "%.4f ms; bound %.4f ms by %s; readings %s; card %s"
+        % (n, K4_ROUNDS, med["k4"], spread["k4"], fmt_ms(dev["k4"]),
+           med["fused_adam"], spread["fused_adam"], fmt_ms(dev["fused_adam"]),
+           plain_ms, b_ms, b_by, json.dumps(rounds), card_line()))
+    del p, grad, m1, m2, calls
+    torch.cuda.empty_cache()
+    return {"n": n, "ms": med["k4"], "ms_spread": spread["k4"],
+            "device_ms": dev["k4"], "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": 0.0,
+            "library_ms": med["fused_adam"],
+            "library_ms_spread": spread["fused_adam"],
+            "library_device_ms": dev["fused_adam"], "rounds": K4_ROUNDS,
+            "library_covers": "torch._fused_adam_ (another formula)"}
+
+
+def phase_wide_deep_twin(fluid, support):
+    """The narrow Wide&Deep script (vocab 1000, 4 slots, batch 64), card
+    against CPU as in phase 8."""
+    wd = sys.modules["paddle_tpu_torch.models.wide_deep"]
+
+    c = WIDE_DEEP_TWIN
+    rng = np.random.RandomState(SEED + 26)
+    feeds = [wd.random_batch(rng, c["batch"], c["vocab"], c["slots"])
+             for _ in range(TWIN_STEPS)]
+    twin_check(fluid, support, 28, "wide_deep %s" % json.dumps(c),
+               lambda: wd.build_wide_deep(c["batch"], c["vocab"],
+                                          c["slots"], seed=SEED + 27),
+               feeds, {"fused_optimizer_update": TWIN_STEPS})
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2928,6 +3385,11 @@ def main() -> int:
         {"gpt_long": gpt_amp_run, "resnet": resnet_amp_run,
          "wmt": wmt_amp_run, "bert": bert_amp_run}))
     phase_amp_twins(fluid, support)
+    phase_epilogue_on_off(fluid, support)
+    phase_dropout(fluid)
+    wide_deep, wide_deep_run = phase_wide_deep(fluid, support, fo)
+    k4["wide_deep"] = wide_deep_run["k4"]
+    phase_wide_deep_twin(fluid, support)
     conv["bf16_on_path_device_ms"] = (resnet_amp_run["k5_on_path_ms"]
                                       / resnet_amp_run["k5_on_path_launches"])
     conv["bf16_on_path_covers"] = (
@@ -2944,7 +3406,8 @@ def main() -> int:
                    "training_amp": gpt_amp.get(kern["name"], 0),
                    "resnet_amp": resnet_amp.get(kern["name"], 0),
                    "wmt_amp": wmt_amp.get(kern["name"], 0),
-                   "bert_amp": bert_amp.get(kern["name"], 0)}
+                   "bert_amp": bert_amp.get(kern["name"], 0),
+                   "wide_deep": wide_deep.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

@@ -24,6 +24,11 @@ package's names and results (``_program_version``, ``_block_rw``,
   the end of the captured region each updated state var is copied into
   its buffer unless it already is that memory (K4 updates in place).
   Fetches are copied out of the graph's pool before ``run`` returns.
+- Feeds are never written into the scope, as in the JAX package: a run
+  that leaves out a feed the program reads raises ``RuntimeError(
+  "variable %r must be fed or initialized in scope")``, on the card after
+  a capture too. A fetched name, a fed one included, is written into the
+  scope after the run, as the JAX route writes its fetches.
 - RNG: each RNG op draws from its own generator, registered with the graph
   and seeded before every replay with the seed the interpreter would use
   this step (``executor_core.rng_seed``), so a replay draws exactly what
@@ -40,7 +45,9 @@ package's names and results (``_program_version``, ``_block_rw``,
 The counters keep the JAX package's names in ``COUNTERS`` (the
 observability registry is not ported yet): ``executor.compiles`` (new
 step functions), ``executor.jit_traces`` (captures),
-``executor.compile_fallbacks`` and ``executor.steps``.
+``executor.compile_fallbacks`` and ``executor.steps``, and the fusion
+passes' ``fusion.epilogue_chains`` and ``fusion.optimizer_groups``
+(``core/fusion.py``).
 
 The port has no ``while`` / ``conditional_block`` op yet: the analysis
 walks their sub-blocks as the JAX package does, and their tracing waits
@@ -53,7 +60,6 @@ import weakref
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
-import numpy as np
 import torch
 
 from . import flags
@@ -61,7 +67,7 @@ from .executor_core import (_UNBOUND, CoreExecutor, call_op, gather_inputs,
                             op_attrs, output_pairs, rng_seed)
 from .registry import GENERATOR_ATTR, OpInfoMap
 from .scope import Scope
-from .tensor import LoDTensor
+from .tensor import LoDTensor, stage_feed
 
 # step functions of one executor (op tables and plans: light), LRU
 _CACHE_CAP = 128
@@ -73,7 +79,9 @@ _GRAPH_CAP = 16
 COUNTERS: Dict[str, int] = {"executor.compiles": 0,
                             "executor.jit_traces": 0,
                             "executor.compile_fallbacks": 0,
-                            "executor.steps": 0}
+                            "executor.steps": 0,
+                            "fusion.epilogue_chains": 0,
+                            "fusion.optimizer_groups": 0}
 _counters_lock = threading.Lock()
 
 
@@ -398,8 +406,8 @@ class _Step:
                         gen.manual_seed(rng_seed(rng, attrs, op))
                         attrs[GENERATOR_ATTR] = gen
                 ins = gather_inputs(info, op, env.get)
-                for n, v in output_pairs(info, op,
-                                         call_op(info, op, ins, attrs)):
+                outs = call_op(info, op, ins, attrs, "compiled trace")
+                for n, v in output_pairs(info, op, outs):
                     env[n] = v
             for n in drops:
                 env.pop(n, None)
@@ -410,7 +418,7 @@ class _Step:
         for kind, i, op, info, attrs, _, _ in self.ops:
             if kind == _CONST:
                 outs = call_op(info, op, gather_inputs(info, op, dict().get),
-                               attrs)
+                               attrs, "compiled trace")
                 consts[i] = dict(output_pairs(info, op, outs))
         return consts
 
@@ -514,17 +522,16 @@ class _Graph:
 
 
 def _stage_feeds(feed: Dict) -> Dict[str, torch.Tensor]:
-    """Feed values as tensors where they lie (numpy arrays stay on the
-    host, without a copy); a LoD feed raises: it takes the interpreter."""
+    """Feed values as tensors where they lie (``tensor.stage_feed``: numpy
+    arrays stay on the host, float64 becomes float32); a LoD feed raises:
+    it takes the interpreter."""
     vals = {}
     for name, value in feed.items():
         if isinstance(value, LoDTensor):
             if value.lod():
                 raise LoDFeed("LoD feeds use the interpreter")
             value = value.array
-        if not isinstance(value, torch.Tensor):
-            value = torch.from_numpy(np.ascontiguousarray(np.asarray(value)))
-        vals[name] = value
+        vals[name] = stage_feed(value)
     return vals
 
 
@@ -597,7 +604,6 @@ def _run_eager(core, step: _Step, scope: Scope, feeds: Dict) -> Dict:
     env = {n: _scope_tensor(scope, n) for n in step.state_names}
     for n, v in feeds.items():
         env[n] = v.to(core.device, copy=True)
-        scope.var(n).set(LoDTensor(env[n]))  # as the interpreter does
     step.run(env, core.rng)
     core.rng.advance()
     for n in step.out_state_names:
@@ -624,8 +630,6 @@ def _run_on_card(core, step: _Step, scope: Scope, feeds: Dict) -> Dict:
         _lru_put(core.graphs, sig, graph, _GRAPH_CAP)
     graph.replay(step, core, feeds)
     core.rng.advance()
-    for n, buf in graph.feeds.items():
-        scope.var(n).set(LoDTensor(buf))
     for n, buf in graph.state.items():
         var = scope.var(n)
         h = var.raw()

@@ -24,7 +24,18 @@ loop runs ahead until a fetch copies a result back.
   op learns which output slots it binds (``BOUND_OUTPUTS_ATTR``), and an
   output list may hold None where a grad is not produced (nothing is
   written for it). A grad op draws its RNG stream from its forward op's
-  id (``_fwd_op_id``), so both see the same random numbers.
+  id (``_fwd_op_id``), so both see the same random numbers, and a fused
+  forward op from the id of the RNG op it absorbed (``_rng_op_id``, set by
+  ``core.fusion.apply_fused_epilogues``), so that a pre-built
+  ``dropout_grad`` sees the fused op's mask.
+- Feeds are written into the scope (a later run that leaves one out reads
+  the last value, as the JAX package's interpreter does), staged by
+  ``core.tensor.stage_feed``: float64 becomes float32.
+- Under ``FLAGS_check_nan_inf`` every floating output of each op is
+  checked after the op runs; the first that holds an inf or a nan raises
+  ``EnforceNotMet``, as in the JAX package. Every failure inside an op is
+  annotated with the op's type, inputs and outputs
+  (``enforce.annotate_op_error``).
 
 LoD propagation comes with the LoD ops (ROADMAP.md).
 """
@@ -36,10 +47,12 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .enforce import EnforceNotMet, annotate_op_error
+from .flags import flag
 from .registry import (BOUND_OUTPUTS_ATTR, DEVICE_ATTR, GENERATOR_ATTR,
                        OpInfoMap)
 from .scope import Scope
-from .tensor import LoDTensor
+from .tensor import LoDTensor, stage_feed
 
 
 class RNGState:
@@ -74,12 +87,14 @@ def op_attrs(info, op, device: torch.device) -> Dict:
 
 def rng_seed(rng: RNGState, attrs: Dict, op) -> int:
     """This step's seed of an RNG op: its ``seed`` attr when set, else one
-    folded from the step and the op's id (its forward op's, for a grad
-    op)."""
+    folded from the step and an op id: the forward op's for a grad op
+    (``_fwd_op_id``), the absorbed RNG op's for a fused forward op
+    (``_rng_op_id``), else the op's own."""
     seed = int(attrs.get("seed", 0) or 0)
     if seed > 0:
         return seed
-    return rng.next_seed(attrs.get("_fwd_op_id", op._id or 0))
+    return rng.next_seed(attrs.get("_fwd_op_id",
+                                   attrs.get("_rng_op_id", op._id or 0)))
 
 
 def gather_inputs(info, op, read) -> Dict:
@@ -96,12 +111,12 @@ def gather_inputs(info, op, read) -> Dict:
     return ins
 
 
-def call_op(info, op, ins: Dict, attrs: Dict) -> Dict:
+def call_op(info, op, ins: Dict, attrs: Dict,
+            phase: str = "execution") -> Dict:
     try:
         return info.fn(ins, attrs)
     except Exception as e:
-        e.add_note("in op %r (id %s), inputs %s, outputs %s"
-                   % (op.type, op._id, op.inputs, op.outputs))
+        annotate_op_error(e, op, phase)
         raise
 
 
@@ -153,9 +168,17 @@ class CoreExecutor:
                             else LoDTensor(value))
 
     def run_op(self, op, scope: Scope) -> None:
+        try:
+            self._run_op_impl(op, scope)
+        except Exception as e:
+            annotate_op_error(e, op, "execution")
+            raise
+
+    def _run_op_impl(self, op, scope: Scope) -> None:
         info = OpInfoMap.instance().get(op.type)
         if info.host_fn is not None:
             info.host_fn(self, op, scope)
+            self._maybe_check_nan_inf(op, scope)
             return
         ins = gather_inputs(info, op, lambda n: self._read_var(scope, n))
         attrs = op_attrs(info, op, self.device)
@@ -165,6 +188,20 @@ class CoreExecutor:
             attrs[GENERATOR_ATTR] = gen
         for n, v in output_pairs(info, op, call_op(info, op, ins, attrs)):
             self._write_var(scope, n, v)
+        self._maybe_check_nan_inf(op, scope)
+
+    def _maybe_check_nan_inf(self, op, scope: Scope) -> None:
+        """``FLAGS_check_nan_inf``: every floating output of the op just
+        run must be finite (the reference's operator.cc check)."""
+        if not flag("check_nan_inf"):
+            return
+        for n in op.output_arg_names:
+            t = self._read_var(scope, n)
+            if isinstance(t, torch.Tensor) and t.is_floating_point() \
+                    and not bool(torch.isfinite(t).all()):
+                raise EnforceNotMet(
+                    "Operator %r output %r contains Inf/Nan "
+                    "(FLAGS_check_nan_inf)" % (op.type, n))
 
     @staticmethod
     def build_gc_plan(block, protect):
@@ -192,11 +229,10 @@ class CoreExecutor:
             lod = None
             if isinstance(value, LoDTensor):
                 value, lod = value.array, value.lod()
-            if isinstance(value, torch.Tensor):
-                value = value.to(self.device)
-            else:
-                value = torch.tensor(np.asarray(value), device=self.device)
-            self._write_var(scope, name, LoDTensor(value, lod))
+            # a host array is copied, never aliased by the scope
+            staged = stage_feed(value).to(
+                self.device, copy=not isinstance(value, torch.Tensor))
+            self._write_var(scope, name, LoDTensor(staged, lod))
         fetch_names = [f if isinstance(f, str) else f.name
                        for f in (fetch_list or [])]
         block = program.global_block()

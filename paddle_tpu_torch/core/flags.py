@@ -4,7 +4,9 @@ Counterpart of ``paddle_tpu/core/flags.py``, with its own copy of the
 table: each flag is initialised from the environment variable of the same
 name (or its alias) at import, and ``fluid.set_flags`` changes it later.
 ``FLAGS_use_pallas_conv`` routes NHWC convs to the hand-written
-implicit-GEMM kernel (K5, ``ops/cuda/conv.py``). ``FLAGS_cudnn_deterministic``
+implicit-GEMM kernel (K5, ``ops/cuda/conv.py``). ``FLAGS_check_nan_inf``
+sends a run to the op-by-op interpreter, which checks every op's floating
+outputs (``core/executor_core.py``). ``FLAGS_cudnn_deterministic``
 sets ``torch.backends.cudnn.deterministic`` for the convs that stay on
 cuDNN. The others are accepted so that scripts written for the JAX package
 run unchanged, and do nothing here, as most already did there.
@@ -16,7 +18,10 @@ from typing import Dict, List, Union
 
 # name -> (default, doc). "(no-op)" = accepted, does nothing in the port.
 _DEFS = {
-    "FLAGS_check_nan_inf": (False, "scan op outputs for nan/inf (no-op)"),
+    "FLAGS_check_nan_inf": (False, "scan op outputs for nan/inf: the run "
+                            "takes the interpreter, which raises "
+                            "EnforceNotMet at the first op whose float "
+                            "output holds one"),
     "FLAGS_benchmark": (False, "sync + time every op (no-op)"),
     "FLAGS_eager_delete_tensor_gb": (-1.0, "eager var deletion (no-op: the "
                                      "executor frees every intermediate "

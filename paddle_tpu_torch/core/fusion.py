@@ -1,22 +1,38 @@
-"""Single-chip fusion rewrite: the fused optimizer update.
+"""Single-chip fusion rewrites: the fused optimizer update and the fused
+epilogues.
 
-Counterpart of the optimizer half of ``paddle_tpu/core/fusion.py``
-(``fused_optimizer_mode:76``, ``maybe_rewrite_single_chip:98``,
-``apply_fused_optimizer:143``): each sgd / momentum / adam / adamw
-instance's per-parameter update ops collapse into ONE ``fused_optimizer``
-op. In the ``flat`` layout the instance's state is re-laid into flat
-zero-padded vars and one K4 kernel launch (``ops/cuda/fused_optimizer.py``)
-updates every parameter element per step; the ``chain`` layout keeps the
-per-parameter state and applies the same math pair by pair.
+Counterpart of ``paddle_tpu/core/fusion.py``:
 
-``PADDLE_TPU_FUSED_OPTIMIZER`` (read at a program's first run, default
-off): unset or off leaves programs alone; a truthy value is ``auto``,
-which picks ``flat`` exactly when the executor's device is a CUDA card,
-where K4 runs, and ``chain`` on the CPU; ``flat`` / ``chain`` force a
-layout.
+- ``apply_fused_optimizer`` (``:143``): each sgd / momentum / adam /
+  adamw instance's per-parameter update ops collapse into ONE
+  ``fused_optimizer`` op. In the ``flat`` layout the instance's state is
+  re-laid into flat zero-padded vars and one K4 kernel launch
+  (``ops/cuda/fused_optimizer.py``) updates every parameter element per
+  step; the ``chain`` layout keeps the per-parameter state and applies
+  the same math pair by pair.
+- ``apply_fused_epilogues`` (``:350``): adjacent forward chains
+  ``elementwise_add -> {relu, gelu, tanh, sigmoid} [-> dropout]`` and
+  ``elementwise_add -> layer_norm`` collapse into ``fused_bias_act`` and
+  ``fused_residual_layer_norm`` (``ops/fused_ops.py``), which compose the
+  same registered functions and re-emit every intermediate the pre-built
+  backward reads: the same bits, fewer ops.
 
-The JAX package's ``checked_rewrite`` contract check, its observability
-counter and the fused-epilogue pass are not ported yet (ROADMAP.md).
+Knobs, read at a program's first run and baked in (``bench.py``'s
+``_enable_fast_paths`` turns both on):
+
+- ``PADDLE_TPU_FUSED_OPTIMIZER``: unset or off leaves programs alone; a
+  truthy value is ``auto``, which picks ``flat`` exactly when the
+  executor's device is a CUDA card, where K4 runs, and ``chain`` on the
+  CPU; ``flat`` / ``chain`` force a layout.
+- ``PADDLE_TPU_FUSED_EPILOGUE``: a truthy value fuses the epilogues.
+
+``maybe_rewrite_single_chip`` applies the epilogue pass first, then the
+optimizer pass, as the JAX package does. Each pass counts what it fused
+in ``compiler_engine.COUNTERS`` (``fusion.epilogue_chains``,
+``fusion.optimizer_groups``) and moves the program's version on, so the
+step functions and captured graphs key on the rewritten program. The JAX
+package's ``checked_rewrite`` contract check is not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,11 +43,13 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from . import compiler_engine as _ce
 from .tensor import LoDTensor
 
 __all__ = ["fused_optimizer_mode", "fused_optimizer_enabled",
-           "maybe_rewrite_single_chip", "apply_fused_optimizer",
-           "FUSED_OPTIMIZER_TYPES", "LANE_PAD"]
+           "fused_epilogue_enabled", "maybe_rewrite_single_chip",
+           "apply_fused_optimizer", "apply_fused_epilogues",
+           "FUSED_OPTIMIZER_TYPES", "EPILOGUE_ACTS", "LANE_PAD"]
 
 # optimizer op types the fused update supports, with the state slots each
 # folds into the flat StateA / StateB vars
@@ -41,6 +59,8 @@ FUSED_OPTIMIZER_TYPES: Dict[str, Tuple[str, ...]] = {
     "adam": ("Moment1", "Moment2"),
     "adamw": ("Moment1", "Moment2"),
 }
+
+EPILOGUE_ACTS = ("relu", "gelu", "tanh", "sigmoid")
 
 # flat state is zero-padded to a multiple of this, the JAX package's
 # layout (its TPU kernel tiles [rows, 128]); K4 itself takes any size
@@ -65,16 +85,25 @@ def fused_optimizer_enabled() -> bool:
     return fused_optimizer_mode() is not None
 
 
+def fused_epilogue_enabled() -> bool:
+    """``PADDLE_TPU_FUSED_EPILOGUE``: truthy fuses the epilogues."""
+    raw = os.environ.get("PADDLE_TPU_FUSED_EPILOGUE")
+    return bool(raw) and raw.strip().lower() in _TRUTHY
+
+
 def maybe_rewrite_single_chip(program, scope, device: torch.device) -> None:
-    """Executor entry point, called on every run. The knob is read at a
+    """Executor entry point, called on every run. The knobs are read at a
     program's first run and baked in; later runs only resync the flat
-    state after a startup re-run."""
+    state after a startup re-run. The epilogue pass runs first, then the
+    optimizer pass."""
     state = getattr(program, "_sc_fusion", None)
     if state is not None:
         if state and scope is not None:
             resync_sharded_state(program, scope)
         return
     mode = fused_optimizer_mode()
+    if fused_epilogue_enabled():
+        apply_fused_epilogues(program)
     n_opt = 0
     if mode is not None:
         n_opt = apply_fused_optimizer(program, scope, device, layout=mode)
@@ -283,4 +312,143 @@ def apply_fused_optimizer(program, scope, device: torch.device,
             new_ops.append(op)
     block.ops = new_ops
     program._fused_optimizer_groups = n_groups
+    program._next_op_id()  # a new version: caches key on the rewrite
+    _ce.inc("fusion.optimizer_groups", n_groups)
     return n_groups
+
+
+# -- fused epilogues ----------------------------------------------------------
+
+def _single_writer_names(ops) -> set:
+    """Names that exactly one op of ``ops`` writes."""
+    counts: Dict[str, int] = {}
+    for op in ops:
+        for n in op.output_arg_names:
+            if n:
+                counts[n] = counts.get(n, 0) + 1
+    return {n for n, c in counts.items() if c == 1}
+
+
+def _first_backward_index(ops) -> int:
+    """Index of the first backward op: one that carries ``_fwd_op_id`` or
+    writes a ``@GRAD`` name (``len(ops)`` when there is none)."""
+    from .registry import GRAD_SUFFIX
+
+    for i, op in enumerate(ops):
+        if "_fwd_op_id" in op.attrs or any(
+                GRAD_SUFFIX in n for n in op.output_arg_names if n):
+            return i
+    return len(ops)
+
+
+def apply_fused_epilogues(program) -> int:
+    """Collapse adjacent forward epilogue chains into the fused ops:
+
+    - ``elementwise_add -> act`` (act in EPILOGUE_ACTS), optionally
+      ``-> dropout``  =>  ``fused_bias_act``
+    - ``elementwise_add -> layer_norm``  =>  ``fused_residual_layer_norm``
+
+    Only intermediates written once fuse (a name written twice is not a
+    private edge of the chain), only before the first backward op, and
+    the fused op emits every intermediate under its original name, so the
+    pre-built grad ops read what they were built against. A fused dropout
+    carries the absorbed op's id as ``_rng_op_id`` (not ``_fwd_op_id``,
+    which marks backward ops) and so draws its mask. Returns the number
+    of chains fused."""
+    if getattr(program, "_fused_epilogue_applied", False):
+        return 0
+    program._fused_epilogue_applied = True
+    from .. import framework
+
+    block = program.global_block()
+    ops = block.ops
+    single = _single_writer_names(ops)
+    bwd_start = _first_backward_index(ops)
+
+    fused: List[Tuple[int, int, object]] = []  # (start, end exclusive, op)
+    i = 0
+    while i < bwd_start - 1:
+        op_a = ops[i]
+        if op_a.type != "elementwise_add" or len(op_a.output("Out")) != 1:
+            i += 1
+            continue
+        a_out = op_a.output("Out")[0]
+        if a_out not in single:
+            i += 1
+            continue
+        op_b = ops[i + 1]
+        new_op = None
+        if op_b.type in EPILOGUE_ACTS and op_b.input("X") == [a_out] \
+                and len(op_b.output("Out")) == 1:
+            b_out = op_b.output("Out")[0]
+            if b_out not in single:
+                i += 1
+                continue
+            attrs = {"act": op_b.type,
+                     "axis": op_a.attrs.get("axis", -1),
+                     "approximate": bool(op_b.attrs.get("approximate",
+                                                        False)),
+                     "alpha": op_b.attrs.get("alpha", 0.02),
+                     "dropout_prob": -1.0}
+            outputs = {"Out": [b_out], "AddOut": [a_out]}
+            end = i + 2
+            op_c = ops[i + 2] if i + 2 < bwd_start else None
+            if (op_c is not None and op_c.type == "dropout"
+                    and op_c.input("X") == [b_out]
+                    and not op_c.input("Seed")
+                    and len(op_c.output("Out")) == 1
+                    and op_c.output("Out")[0] in single):
+                attrs.update({
+                    "dropout_prob": float(
+                        op_c.attrs.get("dropout_prob", 0.5)),
+                    "is_test": bool(op_c.attrs.get("is_test", False)),
+                    "fix_seed": bool(op_c.attrs.get("fix_seed", False)),
+                    "seed": int(op_c.attrs.get("seed", 0) or 0),
+                    "dropout_implementation": op_c.attrs.get(
+                        "dropout_implementation", "downgrade_in_infer"),
+                    "_rng_op_id": op_c._id or 0,
+                })
+                outputs = {"Out": op_c.output("Out"), "AddOut": [a_out],
+                           "ActOut": [b_out]}
+                if op_c.output("Mask"):
+                    outputs["Mask"] = op_c.output("Mask")
+                end = i + 3
+            new_op = framework.Operator(
+                block, "fused_bias_act",
+                {"X": op_a.input("X"), "Y": op_a.input("Y")},
+                outputs, attrs)
+        elif op_b.type == "layer_norm" and op_b.input("X") == [a_out] \
+                and len(op_b.output("Y")) == 1 \
+                and op_b.output("Y")[0] in single:
+            outputs = {"Out": op_b.output("Y"), "AddOut": [a_out],
+                       "Mean": op_b.output("Mean"),
+                       "Variance": op_b.output("Variance")}
+            new_op = framework.Operator(
+                block, "fused_residual_layer_norm",
+                {"X": op_a.input("X"), "Y": op_a.input("Y"),
+                 "Scale": op_b.input("Scale"), "Bias": op_b.input("Bias")},
+                outputs,
+                {"axis": op_a.attrs.get("axis", -1),
+                 "epsilon": op_b.attrs.get("epsilon", 1e-5),
+                 "begin_norm_axis": op_b.attrs.get("begin_norm_axis", 1)})
+            end = i + 2
+        if new_op is None:
+            i += 1
+            continue
+        new_op._id = program._next_op_id()
+        fused.append((i, end, new_op))
+        i = end
+
+    if not fused:
+        return 0
+    new_ops: List = []
+    k = 0
+    for start, end, op in fused:
+        new_ops.extend(ops[k:start])
+        new_ops.append(op)
+        k = end
+    new_ops.extend(ops[k:])
+    block.ops = new_ops
+    program._next_op_id()  # a new version: caches key on the rewrite
+    _ce.inc("fusion.epilogue_chains", len(fused))
+    return len(fused)

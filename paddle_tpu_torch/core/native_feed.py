@@ -12,7 +12,8 @@ On the card each batch is copied from pinned host memory with
 ``non_blocking`` copies on a side stream, and an event recorded after the
 copies; the consumer's stream waits on that event before the feed is read.
 On the CPU (``device`` a CPU place or device) a batch is staged as CPU
-tensors.
+tensors. Each value is staged by ``core.tensor.stage_feed``, the rule
+``Executor.run`` applies: float64 becomes float32.
 
 The C++ multi-slot reader (``NativeMultiSlotFeed``) waits for the dataset
 port (ROADMAP.md).
@@ -23,8 +24,9 @@ import os
 import queue
 import threading
 
-import numpy as np
 import torch
+
+from .tensor import stage_feed
 
 __all__ = ["AsyncDeviceFeeder", "async_feed_enabled"]
 
@@ -70,8 +72,7 @@ class AsyncDeviceFeeder:
         self._thread.start()
 
     def _stage(self, batch):
-        host = {k: torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
-                for k, v in batch.items()}
+        host = {k: stage_feed(v) for k, v in batch.items()}
         if self._stream is None:
             return {k: t.clone() for k, t in host.items()}, None
         with torch.cuda.stream(self._stream):

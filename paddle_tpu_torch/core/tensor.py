@@ -4,6 +4,10 @@ Counterpart of ``LoDTensor`` in ``paddle_tpu/core/tensor.py``: a thin
 host-side holder of a ``torch.Tensor`` plus the LoD (nested sequence
 offsets) as host metadata. The serving slice feeds dense tensors only;
 LoD-consuming ops and ``SelectedRows`` come with later slices.
+
+``stage_feed`` is the one rule by which every route (the interpreter, the
+whole-program route and ``AsyncDeviceFeeder``) turns a feed value into a
+tensor.
 """
 from __future__ import annotations
 
@@ -51,3 +55,18 @@ class LoDTensor:
     def __repr__(self):
         return "LoDTensor(shape=%s, dtype=%s, lod=%s)" % (
             self.shape(), self.dtype(), self._lod)
+
+
+def stage_feed(value) -> torch.Tensor:
+    """A feed value as a tensor where it lies: a tensor as given, anything
+    else through ``np.asarray`` onto the host (without a copy where numpy
+    allows). float64, and so a list of Python floats, becomes float32, as
+    the JAX package stages feeds with x64 off; every other type stays as
+    fed, int64 included (torch keeps it, where the JAX package makes it
+    int32: the int64 hazard of ROADMAP.md's North star)."""
+    if isinstance(value, torch.Tensor):
+        return value.float() if value.dtype == torch.float64 else value
+    arr = np.asarray(value)
+    if arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr))

@@ -1,13 +1,15 @@
 """``Executor`` — the user-facing program runner.
 
 Counterpart of ``paddle_tpu/executor.py``. ``run`` applies the single-chip
-fusion rewrite a program asks for (``core.fusion``; the fused optimizer
-update under ``PADDLE_TPU_FUSED_OPTIMIZER``), then dispatches to either
+fusion rewrites a program asks for (``core.fusion``: the fused epilogues
+under ``PADDLE_TPU_FUSED_EPILOGUE``, then the fused optimizer update under
+``PADDLE_TPU_FUSED_OPTIMIZER``), then dispatches to either
 
 - the whole-program route (the default: ``core/compiler_engine``; on the
   card one CUDA graph captured per program and shapes, then replayed; on
   the CPU the same step function run eagerly), or
-- the op-by-op ``core.CoreExecutor``, under ``FLAGS_check_nan_inf``, for a
+- the op-by-op ``core.CoreExecutor``, under ``FLAGS_check_nan_inf`` (which
+  it checks after every op), for a
   program that ``untraceable_reasons`` names a blocking op in (a host op
   that does not fold, an op that is not registered), and for LoD feeds.
   A program of 64 or more ops that falls to it warns, naming the blocking

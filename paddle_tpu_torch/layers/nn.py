@@ -2,9 +2,10 @@
 ``pool2d`` (:413), ``batch_norm`` (:485), ``layer_norm`` (:552),
 ``softmax`` (:661), ``matmul`` (:671), ``expand`` (:811), ``gather``
 (:842), ``reduce_sum`` (:931), ``mean`` (:971), ``relu`` (:1023),
-``reshape``, ``transpose`` and ``elementwise_add`` / ``_sub`` / ``_mul`` /
-``_div`` (:1159-1172) of ``paddle_tpu/layers/nn.py``. Each emits the same
-ops, slots, attrs and parameter names as its JAX counterpart."""
+``reshape``, ``transpose``, ``dropout`` (:641), ``slice`` (:785) and
+``elementwise_add`` / ``_sub`` / ``_mul`` / ``_div`` (:1159-1172) of
+``paddle_tpu/layers/nn.py``. Each emits the same ops, slots, attrs and
+parameter names as its JAX counterpart."""
 from __future__ import annotations
 
 import math
@@ -15,8 +16,9 @@ from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
            "softmax", "matmul", "expand", "gather", "reduce_sum", "mean",
-           "relu", "reshape", "transpose", "elementwise_add",
-           "elementwise_sub", "elementwise_mul", "elementwise_div"]
+           "relu", "reshape", "transpose", "dropout", "slice",
+           "elementwise_add", "elementwise_sub", "elementwise_mul",
+           "elementwise_div"]
 
 
 def _pair(x, n=2):
@@ -269,6 +271,33 @@ def transpose(x, perm, name=None):
     helper.append_op("transpose2", inputs={"X": [x]},
                      outputs={"Out": [out], "XShape": [xshape]},
                      attrs={"axis": list(perm)})
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op("dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob,
+                            "is_test": is_test,
+                            "fix_seed": seed is not None,
+                            "seed": seed or 0,
+                            "dropout_implementation":
+                                dropout_implementation})
+    return out
+
+
+def slice(input, axes, starts, ends, name=None):
+    helper = LayerHelper("slice", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends), "decrease_axis": []})
     return out
 
 

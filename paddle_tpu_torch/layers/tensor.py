@@ -1,5 +1,5 @@
-"""Tensor-creation layers ``create_global_var`` (:56), ``cast`` (:69),
-``assign`` (:98), ``fill_constant`` (:125) and ``range`` (:211) of
+"""Tensor layers ``create_global_var`` (:56), ``cast`` (:69), ``concat``
+(:82), ``assign`` (:98), ``fill_constant`` (:125) and ``range`` (:211) of
 ``paddle_tpu/layers/tensor.py``: the same ops, slots and attrs."""
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ from .. import framework
 from ..core import dtypes as _dt
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_global_var", "cast", "assign", "fill_constant", "range"]
+__all__ = ["create_global_var", "cast", "concat", "assign", "fill_constant",
+           "range"]
 
 
 def create_global_var(shape, value, dtype, persistable=False,
@@ -35,6 +36,14 @@ def cast(x, dtype):
     helper.append_op("cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"in_dtype": _dt.dtype_to_enum(x.dtype),
                             "out_dtype": _dt.dtype_to_enum(dtype)})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", inputs={"X": list(input)},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out
 
 

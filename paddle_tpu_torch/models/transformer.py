@@ -18,8 +18,13 @@ in ``contrib.mixed_precision.decorate`` under ``use_bf16`` (bench.py's
 default: bfloat16 products on float32 master parameters, with
 ``flash_attention`` in float32 as the AMP lists leave it;
 ``use_bf16=False`` is the ``--no-bf16`` float32 program); ``*_batch`` make
-their feeds as bench.py's ``bench_*`` functions do. Dropout (the
-``dropout`` op) comes with a later slice: ``dropout > 0`` raises.
+their feeds as bench.py's ``bench_*`` functions do. With ``dropout > 0``
+(bench.py's scripts use 0) the model adds ``dropout`` ops
+(``upscale_in_train``) where the JAX model does: on the attention weights
+of the dense path, and on the encoder's attention and feed-forward
+outputs before their residual adds; attention that would take the flash
+op takes the dense path instead, and ``use_flash=True`` with dropout in
+training raises, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -35,13 +40,6 @@ WMT = dict(batch=64, seq_len=256, vocab=32000, num_layers=6, num_heads=8,
            d_model=512, d_ff=2048)
 BERT_BASE = dict(batch=32, seq_len=128, vocab=30522, num_layers=12,
                  num_heads=12, d_model=768, d_ff=3072, masked=20)
-
-
-def _no_dropout(dropout):
-    if dropout:
-        raise NotImplementedError(
-            "dropout > 0 needs the dropout op, not yet ported (ROADMAP.md, "
-            "queue 1)")
 
 
 def _dense(x, size, act=None):
@@ -119,7 +117,6 @@ def multi_head_attention(q_in, num_heads, d_model, dropout=0.0,
                          infer_shape=False)
         ctx.shape = (B, num_heads, T, head)
     else:
-        _no_dropout(dropout)
         q = layers.scale(q, scale=float(head) ** -0.5)
         scores = layers.matmul(q, k, transpose_y=True)  # [B, H, T, T_kv]
         if attn_bias is not None:
@@ -130,7 +127,12 @@ def multi_head_attention(q_in, num_heads, d_model, dropout=0.0,
         if causal:
             scores = layers.elementwise_add(
                 scores, _causal_bias(T, dtype=scores.dtype))
-        ctx = layers.matmul(layers.softmax(scores), v)  # [B, H, T, head]
+        weights = layers.softmax(scores)
+        if dropout:
+            weights = layers.dropout(
+                weights, dropout_prob=dropout, is_test=is_test,
+                dropout_implementation="upscale_in_train")
+        ctx = layers.matmul(weights, v)  # [B, H, T, head]
     ctx = layers.transpose(ctx, [0, 2, 1, 3])
     ctx = layers.reshape(ctx, [B, T, d_model])
     return _dense(ctx, d_model)
@@ -138,13 +140,18 @@ def multi_head_attention(q_in, num_heads, d_model, dropout=0.0,
 
 def encoder_layer(x, num_heads, d_model, d_ff, dropout=0.0, is_test=False,
                   attn_bias=None, kv_lengths=None):
-    _no_dropout(dropout)
     attn = multi_head_attention(x, num_heads, d_model, dropout, is_test,
                                 attn_bias, kv_lengths=kv_lengths)
+    if dropout:
+        attn = layers.dropout(attn, dropout_prob=dropout, is_test=is_test,
+                              dropout_implementation="upscale_in_train")
     x = layers.layer_norm(layers.elementwise_add(x, attn),
                           begin_norm_axis=2)
     ff = _dense(x, d_ff, act="gelu")
     ff = _dense(ff, d_model)
+    if dropout:
+        ff = layers.dropout(ff, dropout_prob=dropout, is_test=is_test,
+                            dropout_implementation="upscale_in_train")
     return layers.layer_norm(layers.elementwise_add(x, ff),
                              begin_norm_axis=2)
 

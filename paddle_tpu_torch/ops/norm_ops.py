@@ -1,5 +1,5 @@
-"""``batch_norm`` and ``layer_norm`` (counterparts of
-``paddle_tpu/ops/norm_ops.py:18`` and ``:105``).
+"""``batch_norm``, ``layer_norm`` and ``dropout`` (counterparts of
+``paddle_tpu/ops/norm_ops.py:18``, ``:105`` and ``:183``).
 
 ``batch_norm`` keeps the five-output contract: ``Y``; ``MeanOut`` and
 ``VarianceOut``, the running statistics, bound to the same variables as
@@ -14,14 +14,27 @@ raise until the parallel package is ported.
 
 ``layer_norm`` normalises over the dims from ``begin_norm_axis`` on, then
 scales and shifts; ``Mean`` and ``Variance`` are flattened over the leading
-dims."""
+dims.
+
+``dropout`` keeps an element with probability ``1 - dropout_prob``: its
+``Mask`` (X's type, 1 kept, 0 dropped) comes from uniform draws of the
+``torch.Generator`` the executor seeds for it (``GENERATOR_ATTR``, on the
+executor's device, from its ``seed`` attr when set, else from the
+executor's seed, the step and the op's id), so the numbers differ from
+``jax.random``'s and the contract is the distribution and the mask: the
+grad op (the auto-VJP, which re-runs this function with a generator
+seeded alike) multiplies by the forward's mask. ``upscale_in_train``
+scales the kept elements by ``1 / (1 - p)`` in training (zeros at
+``p >= 1``) and passes X through under ``is_test``;
+``downgrade_in_infer`` keeps them as they are in training and scales X by
+``1 - p`` under ``is_test``, where no mask is drawn."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from ..core.registry import In, Out, register_op
+from ..core.registry import GENERATOR_ATTR, In, Out, register_op
 
 
 @register_op(
@@ -119,3 +132,33 @@ def _layer_norm(ins, attrs):
     lead = math.prod(x.shape[:axis])
     return {"Y": y, "Mean": mean.reshape(lead),
             "Variance": var.reshape(lead)}
+
+
+@register_op(
+    "dropout",
+    inputs=[In("X"), In("Seed", dispensable=True, no_grad=True)],
+    outputs=[Out("Out"), Out("Mask", no_grad=True)],
+    attrs={
+        "dropout_prob": 0.5,
+        "is_test": False,
+        "fix_seed": False,
+        "seed": 0,
+        "dropout_implementation": "downgrade_in_infer",
+    },
+    needs_rng=True,
+)
+def _dropout(ins, attrs):
+    x = ins["X"]
+    p = attrs.get("dropout_prob", 0.5)
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if attrs.get("is_test", False):
+        out = x if impl == "upscale_in_train" else x * (1.0 - p)
+        return {"Out": out, "Mask": None}
+    u = torch.rand(x.shape, generator=attrs.get(GENERATOR_ATTR),
+                   dtype=torch.float32, device=x.device)
+    mask = (u < 1.0 - p).to(x.dtype)
+    if impl == "upscale_in_train":
+        out = torch.zeros_like(x) if p >= 1.0 else x * mask / (1.0 - p)
+    else:
+        out = x * mask
+    return {"Out": out, "Mask": mask}

@@ -3,8 +3,9 @@
 Counterparts of ``fill_constant`` (:31), ``uniform_random`` (:69),
 ``gaussian_random`` (:90), ``assign`` (:120), ``assign_value`` (:132),
 ``reshape2`` (:224), ``transpose2`` (:248), ``expand`` (:483), ``gather``
-(:575), ``lookup_table`` (:680) and ``range`` (:954) in
-``paddle_tpu/ops/tensor_ops.py``, with the same slots and attrs, and of
+(:575), ``lookup_table`` (:680), ``concat`` (:384), ``slice`` (:439) and
+``range`` (:954) in ``paddle_tpu/ops/tensor_ops.py``, with the same slots
+and attrs, and of
 ``lookup_table``'s grad maker and dense ``lookup_table_grad`` (:631-677),
 whose scatter-add becomes ``index_add_``. ``gather``'s auto-VJP grad is a
 scatter-add too (autograd's ``index_select`` backward), so repeated
@@ -16,6 +17,8 @@ draws from the seeded ``torch.Generator`` the executor hands it
 differ from ``jax.random``'s but the distribution is the same.
 """
 from __future__ import annotations
+
+import builtins
 
 import torch
 
@@ -260,6 +263,53 @@ def _gather(ins, attrs):
         fill = torch.full_like(out, float("nan"))
         keep = in_range.reshape((-1,) + (1,) * (x.dim() - 1))
         out = torch.where(keep, out, fill)
+    return {"Out": out}
+
+
+@register_op(
+    "concat",
+    inputs=[In("X", duplicable=True),
+            In("AxisTensor", dispensable=True, no_grad=True)],
+    outputs=[Out("Out")],
+    attrs={"axis": 0},
+)
+def _concat(ins, attrs):
+    """The X list joined along ``axis`` (negative counts from the end).
+    The JAX op never reads ``AxisTensor``; here a bound one raises rather
+    than being ignored."""
+    if ins.get("AxisTensor") is not None:
+        raise NotImplementedError(
+            "concat's AxisTensor input is not supported; set the axis attr")
+    return {"Out": torch.cat(list(ins["X"]), dim=attrs.get("axis", 0))}
+
+
+@register_op(
+    "slice",
+    inputs=[In("Input"), In("StartsTensor", dispensable=True, no_grad=True),
+            In("EndsTensor", dispensable=True, no_grad=True)],
+    outputs=[Out("Out")],
+    attrs={"axes": [], "starts": [], "ends": [], "decrease_axis": [],
+           "infer_flags": []},
+)
+def _slice(ins, attrs):
+    """Input[starts:ends] along ``axes``: a negative bound counts from the
+    end (clamped at 0), one past the dim clamps to it; the axes in
+    ``decrease_axis`` are squeezed away. As the JAX op, it reads the
+    attrs only (not ``StartsTensor`` / ``EndsTensor``)."""
+    x = ins["Input"]
+    idx = [builtins.slice(None)] * x.dim()
+    for ax, st, en in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        d = x.shape[ax]
+        st = max(st + d, 0) if st < 0 else min(st, d)
+        en = max(en + d, 0) if en < 0 else min(en, d)
+        idx[ax] = builtins.slice(st, en)
+    out = x[tuple(idx)]
+    dec = attrs.get("decrease_axis") or []
+    if dec:
+        if any(out.shape[a] != 1 for a in dec):
+            raise ValueError("slice: decrease_axis %s of a slice of shape "
+                             "%s is not of size 1" % (dec, tuple(out.shape)))
+        out = out.squeeze(tuple(dec))
     return {"Out": out}
 
 

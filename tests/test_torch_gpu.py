@@ -56,6 +56,18 @@ AMP twin launches K5 in bfloat16 only (44 a step) and its losses stay
 within 0.15 relative of the CPU run's from the same state (the bound of
 ``test_torch_amp_training.py``: ResNet-50 at batch 4 is chaotic to
 bfloat16 rounding).
+
+Slice 11 on the card: after a capture, a run that leaves out a feed raises
+the JAX package's error (feeds are never written into the scope) and a
+float64 feed runs in float32; ``FLAGS_check_nan_inf`` raises
+``EnforceNotMet`` at the op whose output holds an inf; ``dropout`` under
+capture draws a new mask every replay, keeps 1 - p of the elements within
+5 binomial standard deviations, its grad is Out@GRAD times the forward's
+mask over 1 - p bit for bit, and every fetch equals the interpreter's
+bits for the same executor seed; the narrow Wide&Deep twin (vocab 1000, 4
+slots, batch 64, both fusion passes on) trains 3 steps on the card with
+one capture and K4 launched 3 times, its losses within 1e-4 relative of
+the CPU run's.
 """
 import gc
 import threading
@@ -1261,3 +1273,145 @@ def test_resnet_amp_twin_launches_k5_in_bf16_only(cuda, monkeypatch):
     assert counts["fused_optimizer_update"] == 3
     assert np.isfinite(losses["card"]).all()
     np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=0.15)
+
+
+# -- the repaired faults, dropout and Wide&Deep on the card -----------------
+
+def _sum_program():
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        x = fluid.data(name="x", shape=[2, 3], dtype="float32")
+        y = fluid.data(name="y", shape=[2, 3], dtype="float32")
+        out = fluid.layers.reduce_sum(fluid.layers.elementwise_add(x, y))
+    return main, out
+
+
+def test_a_left_out_feed_raises_after_a_capture(cuda):
+    main, out = _sum_program()
+    exe = fluid.Executor()
+    ones = np.ones((2, 3), "float32")
+    for fetch, left_out in ((["y", out], "x"), ([out], "y")):
+        scope = fluid.Scope()
+        ce.reset_counters()
+        for _ in range(3):  # eager, capture, replay
+            res = exe.run(main, feed={"x": ones, "y": 2 * ones},
+                          fetch_list=fetch, scope=scope)
+            assert float(res[-1]) == 18.0
+            if len(res) == 2:  # a fetched feed returns the fed value
+                np.testing.assert_array_equal(res[0], 2 * ones)
+        assert ce.counters()["executor.jit_traces"] == 1
+        # a fetch is written into the scope (as the JAX route writes its
+        # fetches), a feed never: leave out the one never fetched
+        kept = {"x": ones, "y": ones}
+        del kept[left_out]
+        with pytest.raises(RuntimeError) as err:
+            exe.run(main, feed=kept, fetch_list=[out], scope=scope)
+        assert str(err.value) == ("variable %r must be fed or initialized "
+                                  "in scope" % left_out)
+
+
+def test_a_float64_feed_runs_in_float32_on_the_card(cuda):
+    main, out = _sum_program()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    for _ in range(3):
+        (got,) = exe.run(main, feed={"x": np.ones((2, 3)),
+                                     "y": [[1.0] * 3] * 2},
+                         fetch_list=[out], scope=scope)
+        assert got.dtype == np.float32 and float(got) == 12.0
+
+
+def test_check_nan_inf_raises_on_the_card(cuda):
+    from paddle_tpu_torch.core.enforce import EnforceNotMet
+
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        x = fluid.data(name="x", shape=[2, 3], dtype="float32")
+        y = fluid.data(name="y", shape=[2, 3], dtype="float32")
+        out = fluid.layers.reduce_sum(fluid.layers.elementwise_div(x, y))
+    exe = fluid.Executor()
+    fluid.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        with pytest.raises(EnforceNotMet) as err:
+            exe.run(main, feed={"x": np.ones((2, 3), "float32"),
+                                "y": np.zeros((2, 3), "float32")},
+                    fetch_list=[out], scope=fluid.Scope())
+    finally:
+        fluid.set_flags({"FLAGS_check_nan_inf": False})
+    assert str(err.value).startswith(
+        "Operator 'elementwise_div' output 'elementwise_div.tmp_0' "
+        "contains Inf/Nan (FLAGS_check_nan_inf)")
+
+
+def test_dropout_under_capture_draws_anew_and_the_grad_sees_its_mask(cuda):
+    p = 0.3
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        x = fluid.data(name="x", shape=[256, 512], dtype="float32")
+        x.stop_gradient = False
+        d = fluid.layers.dropout(x, dropout_prob=p,
+                                 dropout_implementation="upscale_in_train")
+        loss = fluid.layers.mean(d)
+        fluid.backward.append_backward(loss)
+    mask = [op for op in main.global_block().ops
+            if op.type == "dropout"][0].output("Mask")[0]
+    feed = {"x": np.random.RandomState(0).randn(256, 512).astype("float32")}
+    fetch = [mask, "x@GRAD", loss.name + "@GRAD"]
+    runs = {}
+    for route in ("captured", "interp"):
+        exe = fluid.Executor()
+        exe._core.rng.seed = 4242
+        scope = fluid.Scope()
+        ce.reset_counters()
+        if route == "captured":
+            runs[route] = [exe.run(main, feed=feed, fetch_list=fetch,
+                                   scope=scope) for _ in range(6)]
+            assert ce.counters()["executor.jit_traces"] == 1
+        else:
+            runs[route] = [exe._core.run_program(main, scope, feed, fetch)
+                           for _ in range(6)]
+    replays = runs["captured"][2:]
+    assert len({m.tobytes() for m, _, _ in replays}) == len(replays)
+    n = feed["x"].size
+    for m, gx, gl in replays:
+        kept = float(m.sum())
+        assert abs(kept - n * (1 - p)) <= 5 * (n * p * (1 - p)) ** 0.5
+        d_out = torch.full(m.shape, float(np.asarray(gl).reshape(-1)[0]) / n)
+        want = d_out * torch.from_numpy(m) / (1 - p)
+        np.testing.assert_array_equal(gx, want.numpy())
+    for a, b in zip(runs["captured"], runs["interp"]):
+        for u, v in zip(a, b):
+            assert np.asarray(u).tobytes() == np.asarray(v).tobytes()
+
+
+def test_narrow_wide_deep_trains_on_the_card_as_on_the_cpu(cuda,
+                                                           monkeypatch):
+    import sys
+
+    wd = sys.modules["paddle_tpu_torch.models.wide_deep"]
+    monkeypatch.setenv("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    monkeypatch.setenv("PADDLE_TPU_FUSED_EPILOGUE", "1")
+    rng = np.random.RandomState(3)
+    feeds = [wd.random_batch(rng, 64, 1000, 4) for _ in range(3)]
+    init, losses = None, {}
+    for side, place in (("cpu", fluid.CPUPlace()),
+                        ("card", fluid.CUDAPlace(0))):
+        main, startup, loss, _ = wd.build_wide_deep(64, 1000, 4, seed=1)
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        if init is None:
+            exe.run(startup, scope=scope)
+            init = _persistables(main, scope)
+        else:
+            fluid.io.scope_from_numpy(scope, init, place)
+        support.reset_launch_counts()
+        ce.reset_counters()
+        losses[side] = [float(np.asarray(exe.run(
+            main, feed=f, fetch_list=[loss], scope=scope)[0]).reshape(-1)[0])
+            for f in feeds]
+    types = [op.type for op in main.global_block().ops]
+    assert types.count("fused_bias_act") == 2
+    assert types.count("fused_optimizer") == 1
+    assert support.launch_counts()["fused_optimizer_update"] == 3
+    assert ce.counters()["executor.jit_traces"] == 1
+    np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-4)
