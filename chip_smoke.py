@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py
 
-Run from the repository root. It drives the port's seven main paths at
-full width, serving (BERT-base), training (gpt_long), ResNet-50 training,
+Run from the repository root. It drives the port's main paths at full
+width, serving (BERT-base), training (gpt_long), ResNet-50 training,
 streaming decode (the continuous-batching engine at gpt_long's width),
 Transformer-base WMT training and BERT-base masked-LM training (each
 training path in float32, bench.py's --no-bf16, and again under
-contrib.mixed_precision's bfloat16 AMP, bench.py's default) and Wide&Deep
-training (float32, as bench.py runs it), and holds
-each hand-written CUDA kernel against its plain PyTorch version on the
-card. Serving and the training paths run through ``Executor.run``'s
+contrib.mixed_precision's bfloat16 AMP, bench.py's default), Wide&Deep
+training (float32, as bench.py runs it) and bench.py's three dygraph
+configs through ``fluid.dygraph.guard()`` (eager, and lazy: a CUDA graph a
+step), and holds each hand-written CUDA kernel against its plain PyTorch
+version on the card. Serving and the training paths run through ``Executor.run``'s
 default route, which runs a program's first step eagerly, captures the
 second into a CUDA graph and replays it from then on; each path also
 times the op-by-op interpreter (``exe._core.run_program``) on the same
@@ -243,9 +244,47 @@ lines each:
    each one's device time a launch and the bytes bound;
 28. the narrow Wide&Deep twin (vocab 1000, 4 slots, batch 64), card
    against CPU as in phase 8;
-29. one JSON line {"kernels": [...]} with each kernel's launches on the
-   main paths (by path beside), error, times and bound;
-30. the last line: {"ok": true, "device": {...}}.
+29. dygraph_mlp (bench.py:637-687: batch 256, 784-256(relu)-256(relu)-10,
+   Adam 1e-3, seeded weights) through fluid.dygraph.guard() on the card,
+   eager: a guard entering launches the probe once; 3 warm-up steps,
+   each timed alone, then 30 back to back with the launch counts and the
+   lazy counters zeroed just before and read just after, and a profile
+   of one more: steps/s, examples/s, step time, idle share, peak memory,
+   the losses, which must be finite and fall;
+30. dygraph_mlp_lazy, the same in lazy mode (one flush a step: the
+   step's first flush runs eagerly, its second is captured into a CUDA
+   graph, the rest replay it): one capture in the warm-up, none and one
+   replay a step in the timed window, the capture's time, and every loss
+   within rtol 1e-5, atol 1e-6 of phase 29's (tests/test_lazy_dygraph.py's
+   tolerance);
+31. dygraph_bert (bench.py:690-773: 12 layers, d_model 768, 12 heads,
+   vocab 30522, batch 32, seq 128, Adam 1e-4; 132.0 M parameters; the
+   logits of all 4096 tokens) lazy, bench.py's default: 2 warm-up steps
+   (an eager flush, a capture), 8 timed replays, tokens/s, step time,
+   idle share, peak and capture time; then eager beside it (1 warm-up, 2
+   timed), whose losses must be the lazy run's within 1e-4;
+32. the dygraph flash encoder: phase 31's step from the same weights with
+   layers.flash_attention(q, k, v) in place of the dense attention. First
+   K1, K2 and K3 alone at its attention shape (B 32, H 12, S 128, D 64,
+   float32, not causal, no lengths) against their plain versions,
+   timed, bounded and beside SDPA; then one eager step's grads of every
+   parameter, flash against dense, within 1e-4 of each parameter's
+   largest grad; then training eager (1 warm-up step, 1 timed) and lazy
+   (2 warm-up, 8 timed back to back, as phase 31): K1/K2/K3 exactly
+   12/12/12 in every warm-up step and 12 x 8 in the timed window (the
+   tape's pullback runs K2/K3 over the forward's saved O and LSE; K1
+   never runs twice), step 1's loss within 1e-4 of the dense form's
+   (TF32 off), step times beside phase 31's. Phases 29-32 also print
+   Python's garbage collections a timed step and their time;
+33. narrow dygraph twins, card against CPU from the same weights, eager
+   and lazy, 3 steps: the MLP under NoamDecay (SGD; the rate changes every
+   replayed step), a 2-layer BERT (d_model 128, 2 heads of 64, vocab 512)
+   dense and flash with lengths (Momentum), and the dygraph LeNet (SGD):
+   losses and parameters within 1e-4;
+34. one JSON line {"kernels": [...]} with each kernel's launches on the
+   main paths (by path beside, the dygraph paths too), error, times and
+   bound;
+35. the last line: {"ok": true, "device": {...}}.
 
 Every training phase (7, 10, 16, 17, 20-23 and 27) sets bench.py's three
 knobs as its _enable_fast_paths does (PADDLE_TPU_FUSED_OPTIMIZER,
@@ -493,11 +532,13 @@ def phase_build_and_probe(support):
 
 def k1_work(shape, lengths, causal, dtype, s_kv=None):
     """Bytes and FLOPs these inputs need: every query row read, keys and
-    values only below each batch's length, O and LSE written once."""
+    values only below each batch's length (all of them without lengths),
+    O and LSE written once."""
     B, H, S, D = shape
     s_kv = S if s_kv is None else s_kv
     esize = torch.tensor([], dtype=dtype).element_size()
-    lens = [min(max(int(n), 0), s_kv) for n in lengths]
+    lens = ([s_kv] * B if lengths is None
+            else [min(max(int(n), 0), s_kv) for n in lengths])
     bytes_moved = (B * H * S * D * esize * 2            # Q read, O written
                    + 2 * H * sum(lens) * D * esize      # K, V read
                    + B * H * S * 4 + B * 4)             # LSE, lengths
@@ -530,14 +571,18 @@ def sdpa_mask(lens, S, s_kv, causal):
 def k1_check(fa, shape, lengths, causal, dtype, seed, timed, s_kv=None,
              phase=3):
     q, k, v = k1_inputs(shape, dtype, seed, s_kv)
-    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device="cuda"))
     o, lse = fa.flash_attention(q, k, v, causal, None, lens)
     torch.cuda.synchronize()
     ro, rlse = fa.flash_attention_reference(q, k, v, causal, None, lens)
     B, H, S, _ = shape
     err_o = (o.float() - ro.float()).abs().max().item()
-    seen = (lens > 0)[:, None, None].expand(B, H, S).reshape(B * H, S)
-    err_lse = (lse - rlse).abs()[seen].max().item()
+    err_lse = (lse - rlse).abs()
+    if lens is not None:
+        seen = (lens > 0)[:, None, None].expand(B, H, S).reshape(B * H, S)
+        err_lse = err_lse[seen]
+    err_lse = err_lse.max().item()
     tol = KERNEL_TOL[dtype]
     if not (err_o <= tol and err_lse <= LSE_TOL
             and bool(torch.isfinite(o.float()).all())):
@@ -548,9 +593,11 @@ def k1_check(fa, shape, lengths, causal, dtype, seed, timed, s_kv=None,
                LSE_TOL))
     row = {"shape": list(shape), "s_kv": k.shape[2],
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-           "D": shape[-1], "err_o": err_o, "err_lse": err_lse}
+           "lengths": lengths is not None, "D": shape[-1], "err_o": err_o,
+           "err_lse": err_lse}
     if timed:
-        mask = sdpa_mask(lens, S, k.shape[2], causal)
+        mask = None if lens is None else sdpa_mask(lens, S, k.shape[2],
+                                                   causal)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         long = S >= 1024
         row["ms"] = time_ms(lambda: fa.flash_attention(
@@ -3305,6 +3352,568 @@ def phase_wide_deep_twin(fluid, support):
                feeds, {"fused_optimizer_update": TWIN_STEPS})
 
 
+# -- phases 29-33: dygraph ----------------------------------------------------
+
+# bench.py's three dygraph configs (bench.py:637-773) and their schedules
+DY_MLP = dict(batch=256, dims=(784, 256, 256, 10))
+DY_MLP_LR, DY_MLP_WARMUP, DY_MLP_ITERS = 1e-3, 3, 30
+DY_BERT = dict(batch=32, seq=128, n_layers=12, d_model=768, n_heads=12,
+               vocab=30522)
+DY_BERT_LR, DY_BERT_WARMUP, DY_BERT_ITERS = 1e-4, 2, 8
+DY_EAGER_ITERS = 2      # the eager yardstick beside the lazy BERT
+DY_FLASH_ITERS = 8      # timed lazy steps of the flash encoder
+# tests/test_lazy_dygraph.py:55: lazy losses against eager ones
+DY_LAZY_RTOL, DY_LAZY_ATOL = 1e-5, 1e-6
+DY_FLASH_RTOL = 1e-4    # step 1, flash against dense attention, TF32 off
+# one step's grads, flash against dense, as a share of each parameter's
+# largest grad, floored at DY_GRAD_FLOOR of the largest grad of all (a
+# key bias's grad is zero but for rounding); the H100 read 5.75e-6 at
+# most, median 7.7e-7
+DY_FLASH_GRAD_RTOL, DY_GRAD_FLOOR = 1e-4, 1e-3
+DY_TWIN_RTOL = 1e-4     # card against CPU, losses and parameters
+DY_TWIN_BERT = dict(batch=4, seq=32, n_layers=2, d_model=128, n_heads=2,
+                    vocab=512)
+DY_TWIN_LENGTHS = np.array([32, 17, 32, 5], dtype="int32")
+K123 = ("flash_attention_forward", "flash_attention_backward_dq",
+        "flash_attention_backward_dkv")
+
+
+def dy_weights(params, seed):
+    """Seeded weights for every matrix and filter (Xavier-normal scale, from
+    a CPU generator, so the CPU and the card get the same numbers); biases
+    and norm scales keep their constant initial values."""
+    g = torch.Generator().manual_seed(seed)
+    for p in params:
+        shape = tuple(p.shape)
+        if len(shape) < 2:
+            continue
+        fan_in = int(np.prod(shape[1:])) if len(shape) > 2 else shape[0]
+        fan_out = shape[0] if len(shape) > 2 else shape[1]
+        std = (2.0 / (fan_in + fan_out)) ** 0.5
+        p.set_value(torch.randn(shape, generator=g) * std)
+
+
+def dy_mlp_script(fluid, batch, dims, seed=SEED + 30):
+    """bench.py's dygraph_mlp (bench.py:637-687) under the port: its
+    layers (seeded), its batch and its step: forward, backward, minimize,
+    clear the grads."""
+    D = fluid.dygraph
+    layers = [D.Linear(dims[i], dims[i + 1],
+                       act="relu" if i < len(dims) - 2 else None)
+              for i in range(len(dims) - 1)]
+    params = [p for lyr in layers for p in lyr.parameters()]
+    dy_weights(params, seed)
+    rng = np.random.RandomState(SEED)
+    x = rng.rand(batch, dims[0]).astype("float32")
+    y = rng.randint(0, dims[-1], (batch, 1)).astype("int64")
+
+    def step(opt):
+        h = D.to_variable(x)
+        for lyr in layers:
+            h = lyr(h)
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            h, D.to_variable(y)))
+        loss.backward()
+        opt.minimize(loss, parameter_list=params)
+        for p in params:
+            p.clear_gradient()
+        return loss
+
+    return params, step
+
+
+def dy_bert_script(fluid, batch, seq, n_layers, d_model, n_heads, vocab,
+                   seed=SEED + 31, attention="dense", lengths=None):
+    """bench.py's dygraph_bert (bench.py:690-773) under the port: its
+    layers (seeded), its batch and its step; ``attention="flash"`` puts
+    ``layers.flash_attention(q, k, v, lengths=...)`` where the dense
+    matmul-softmax-matmul stands. ``step.forward()`` is the step's loss
+    alone."""
+    D, L = fluid.dygraph, fluid.layers
+    head = d_model // n_heads
+    emb = D.Embedding(size=[vocab, d_model])
+    pos = D.Embedding(size=[seq, d_model])
+    blocks = []
+    for _ in range(n_layers):
+        blocks.append({
+            "q": D.Linear(d_model, d_model), "k": D.Linear(d_model, d_model),
+            "v": D.Linear(d_model, d_model), "o": D.Linear(d_model, d_model),
+            "ln1": D.LayerNorm(d_model),
+            "f1": D.Linear(d_model, d_model * 4, act="gelu"),
+            "f2": D.Linear(d_model * 4, d_model),
+            "ln2": D.LayerNorm(d_model)})
+    out_proj = D.Linear(d_model, vocab)
+    params = [p for b in blocks for lyr in b.values()
+              for p in lyr.parameters()]
+    params += emb.parameters() + pos.parameters() + out_proj.parameters()
+    dy_weights(params, seed)
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, vocab, (batch, seq)).astype("int64")
+    pids = np.tile(np.arange(seq), (batch, 1)).astype("int64")
+    lbl = rng.randint(0, vocab, (batch * seq, 1)).astype("int64")
+
+    def heads_of(t):
+        t = L.reshape(t, [batch, seq, n_heads, head])
+        return L.transpose(t, [0, 2, 1, 3])
+
+    def forward():
+        x = emb(D.to_variable(ids)) + pos(D.to_variable(pids))
+        for b in blocks:
+            q, k, v = heads_of(b["q"](x)), heads_of(b["k"](x)), \
+                heads_of(b["v"](x))
+            if attention == "flash":
+                ctx = L.flash_attention(
+                    q, k, v, lengths=None if lengths is None
+                    else D.to_variable(lengths))
+            else:
+                s = L.matmul(q, k, transpose_y=True,
+                             alpha=float(head) ** -0.5)
+                ctx = L.matmul(L.softmax(s), v)
+            ctx = L.reshape(L.transpose(ctx, [0, 2, 1, 3]),
+                            [batch, seq, d_model])
+            x = b["ln1"](x + b["o"](ctx))
+            x = b["ln2"](x + b["f2"](b["f1"](x)))
+        logits = L.reshape(out_proj(x), [batch * seq, vocab])
+        return L.mean(L.softmax_with_cross_entropy(logits,
+                                                   D.to_variable(lbl)))
+
+    def step(opt):
+        loss = forward()
+        loss.backward()
+        opt.minimize(loss, parameter_list=params)
+        for p in params:
+            p.clear_gradient()
+        return loss
+
+    step.forward = forward
+    return params, step
+
+
+def gc_pauses():
+    """Record Python's cyclic garbage collections while it is on: a list
+    of [seconds, generation], and the callback to remove after."""
+    pauses = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            pauses.append([time.perf_counter(), info["generation"]])
+        elif pauses:
+            pauses[-1][0] = time.perf_counter() - pauses[-1][0]
+
+    gc.callbacks.append(on_gc)
+    return pauses, on_gc
+
+
+def dy_train(fluid, support, phase, name, lazy, make, lr, warmup, iters,
+             per, unit):
+    """Train a dygraph script on the card (``guard()``, no place) with
+    bench.py's schedule: ``warmup`` steps, each timed alone and synced,
+    with its own launch counts (under lazy: the first flush of the step's
+    key runs eagerly, the second is captured), then ``iters`` steps back
+    to back ending in a read of the last loss, with the launch counts and
+    the lazy counters zeroed just before and read just after and Python's
+    garbage collections recorded, then a profile of one more step.
+    Returns the numbers."""
+    from paddle_tpu_torch.dygraph import lazy as lz
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with fluid.dygraph.guard(lazy=lazy):
+        params, step = make()
+        n_params = sum(int(np.prod(p.shape)) for p in params)
+        opt = fluid.optimizer.AdamOptimizer(lr, parameter_list=params)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        lz.reset_counters()
+        losses, warm_ms, step_counts = [], [], []
+        for _ in range(warmup):
+            support.reset_launch_counts()
+            t = time.perf_counter()
+            losses.append(step(opt))
+            float(losses[-1])
+            warm_ms.append((time.perf_counter() - t) * 1e3)
+            step_counts.append(support.launch_counts())
+        warm = lz.counters()
+        lz.reset_counters()
+        support.reset_launch_counts()
+        pauses, on_gc = gc_pauses()
+        try:
+            t = time.perf_counter()
+            for _ in range(iters):
+                losses.append(step(opt))
+            float(losses[-1])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t) / iters * 1e3
+        finally:
+            gc.callbacks.remove(on_gc)
+        counts = support.launch_counts()
+        timed = lz.counters()
+        peak = torch.cuda.max_memory_allocated()
+        wall_ms, busy_ms, kernels = profile_step(lambda: float(step(opt)))
+        del params, step, opt
+    losses = [float(v) for v in losses]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mode = "lazy" if lazy else "eager"
+    collector = {"collections_a_step": [
+        sum(1 for _, g in pauses if g == gen) / iters for gen in range(3)],
+        "ms_a_step": [sum(t for t, g in pauses if g == gen) * 1e3 / iters
+                      for gen in range(3)]}
+    log("phase %d %s (%s): %d parameters, setup %.2f s, warm-up steps %s "
+        "ms, losses %s" % (phase, name, mode, n_params, setup_s,
+                          ", ".join("%.3f" % m for m in warm_ms),
+                          ", ".join("%.6f" % x for x in losses)))
+    log("phase %d %s (%s) %d steps: step %.3f ms, %.3f steps/s, %.1f %s/s; "
+        "idle share %s (profiled step: wall %.3f ms, device busy %.3f ms); "
+        "max_memory_allocated %d bytes; lazy counters warm-up %s, timed %s; "
+        "launches %s; Python's garbage collections by generation, a step: "
+        "%s, taking %s ms; card %s"
+        % (phase, name, mode, iters, step_ms, 1e3 / step_ms,
+           per / step_ms * 1e3, unit, idle(wall_ms, busy_ms), wall_ms,
+           busy_ms, peak, json.dumps(warm), json.dumps(timed),
+           json.dumps({k: v for k, v in counts.items() if v}),
+           collector["collections_a_step"],
+           ", ".join("%.3f" % m for m in collector["ms_a_step"]),
+           card_line()))
+    for t_ms, count, kname in kernels[:6]:
+        log("phase %d profile   %9.3f ms  %5d x  %s"
+            % (phase, t_ms, count, kname[:110]))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise RuntimeError("%s (%s) did not train: %s" % (name, mode, losses))
+    if lazy:
+        # the first flush of the step's key ran eagerly, the second was
+        # captured; the timed steps replay it, one replay a step
+        if warm["lazy.captures"] != 1 or timed["lazy.captures"] or \
+                timed["lazy.recompiles"] or timed["lazy.replays"] != iters \
+                or timed["lazy.flushes"] != iters:
+            raise RuntimeError("%s lazy: counters warm-up %s, timed %s; want "
+                               "one capture in the warm-up and one replay a "
+                               "timed step" % (name, warm, timed))
+    elif any(warm.values()) or any(timed.values()):
+        raise RuntimeError("%s eager ran the lazy engine: %s %s"
+                           % (name, warm, timed))
+    return {"n_params": n_params, "step_ms": step_ms,
+            "steps_per_s": 1e3 / step_ms, "per_s": per / step_ms * 1e3,
+            "unit": unit, "idle_share": idle(wall_ms, busy_ms),
+            "busy_ms": busy_ms, "profile_wall_ms": wall_ms,
+            "peak_bytes": peak, "warm_ms": warm_ms,
+            "capture_ms": warm_ms[1] if lazy else None,
+            "losses": losses, "counts": counts, "step_counts": step_counts,
+            "counters": {"warm_up": warm, "timed": timed},
+            "garbage_collections": collector}
+
+
+def phase_dygraph_guard_probe(fluid, support):
+    """A guard entering on the card builds the kernels and launches the
+    probe (K7) once."""
+    support.forget_probes()
+    support.reset_launch_counts()
+    with fluid.dygraph.guard():
+        pass
+    counts = support.launch_counts()
+    if counts.get("probe_add_one") != 1:
+        raise RuntimeError("entering a dygraph guard launched the probe %s "
+                           "times, want 1" % counts.get("probe_add_one"))
+    log("phase 29 dygraph guard on the card: probe launched once")
+    return {"probe_add_one": 1}
+
+
+def phase_dygraph_mlp(fluid, support):
+    """Phases 29-30: dygraph_mlp eager, then lazy (dygraph_mlp_lazy), from
+    the same weights: the lazy losses equal the eager ones within the JAX
+    package's lazy-against-eager tolerance."""
+    c = DY_MLP
+    runs = {}
+    for phase, lazy in ((29, False), (30, True)):
+        runs[lazy] = dy_train(
+            fluid, support, phase, "dygraph_mlp" + ("_lazy" if lazy else ""),
+            lazy, lambda: dy_mlp_script(fluid, **c), DY_MLP_LR,
+            DY_MLP_WARMUP, DY_MLP_ITERS, c["batch"], "examples")
+    eager = np.asarray(runs[False]["losses"])
+    err = float(np.max(np.abs(np.asarray(runs[True]["losses"]) - eager)
+                       / (DY_LAZY_ATOL / DY_LAZY_RTOL + np.abs(eager))))
+    log("phase 30 dygraph_mlp lazy against eager, %d losses: largest "
+        "|lazy - eager| / (atol / rtol + |eager|) %.3g (limit rtol %g, "
+        "atol %g); step %.4f ms lazy against %.4f eager (%.2fx); capture "
+        "%.3f ms; card %s"
+        % (len(runs[False]["losses"]), err, DY_LAZY_RTOL, DY_LAZY_ATOL,
+           runs[True]["step_ms"], runs[False]["step_ms"],
+           runs[False]["step_ms"] / runs[True]["step_ms"],
+           runs[True]["capture_ms"], card_line()))
+    np.testing.assert_allclose(runs[True]["losses"], runs[False]["losses"],
+                               rtol=DY_LAZY_RTOL, atol=DY_LAZY_ATOL)
+    return runs[False], runs[True]
+
+
+def phase_dygraph_bert(fluid, support):
+    """Phase 31: dygraph_bert at full width, lazy (bench.py's default):
+    one capture in the warm-up, one replay a timed step; then eager
+    beside it as a yardstick."""
+    c = DY_BERT
+    tokens = c["batch"] * c["seq"]
+    lazy = dy_train(fluid, support, 31, "dygraph_bert", True,
+                    lambda: dy_bert_script(fluid, **c), DY_BERT_LR,
+                    DY_BERT_WARMUP, DY_BERT_ITERS, tokens, "tokens")
+    eager = dy_train(fluid, support, 31, "dygraph_bert", False,
+                     lambda: dy_bert_script(fluid, **c), DY_BERT_LR, 1,
+                     DY_EAGER_ITERS, tokens, "tokens")
+    n = len(eager["losses"])
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(lazy["losses"][:n], eager["losses"]))
+    log("phase 31 dygraph_bert lazy against eager: step %.3f ms against "
+        "%.3f (%.2fx), %.1f against %.1f tokens/s; the first %d losses "
+        "%.3g apart (relative); capture %.3f ms; card %s"
+        % (lazy["step_ms"], eager["step_ms"],
+           eager["step_ms"] / lazy["step_ms"], lazy["per_s"],
+           eager["per_s"], n, rel, lazy["capture_ms"], card_line()))
+    if rel > DY_FLASH_RTOL:
+        raise RuntimeError("dygraph_bert lazy and eager losses differ by "
+                           "%.3g" % rel)
+    return lazy, eager
+
+
+def dy_bert_grads(fluid, attention):
+    """Step 1's loss and every parameter's grad (numpy) of the full-width
+    encoder, one eager forward and backward on the card from the seeded
+    weights."""
+    with fluid.dygraph.guard():
+        params, step = dy_bert_script(fluid, **DY_BERT, attention=attention)
+        loss = step.forward()
+        loss.backward()
+        out = float(loss), [p.gradient() for p in params]
+        del params, step, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dygraph_flash(fluid, support, fa, dense_lazy, dense_eager):
+    """Phase 32: dygraph_bert's step with layers.flash_attention in place
+    of the dense attention, from the same weights. First K1, K2 and K3
+    alone at the encoder's attention (B 32, H 12, S 128, D 64, float32,
+    not causal, no lengths) against their plain versions, timed and
+    bounded; then one eager step's grads of every parameter, flash
+    against dense, within DY_FLASH_GRAD_RTOL (what K2/K3 compute through
+    the tape reaches every grad below the first attention); then
+    training: step 1's loss within DY_FLASH_RTOL of the dense form's,
+    K1/K2/K3 exactly 12/12/12 in every warm-up step and 12 x the steps in
+    the timed window, eager and lazy (the tape's pullback runs K2 and K3
+    on the forward's saved O and LSE; no second K1), the timed window back
+    to back as phase 31's."""
+    c = DY_BERT
+    shape = (c["batch"], c["n_heads"], c["seq"], c["d_model"] // c["n_heads"])
+    fwd = k1_check(fa, shape, None, False, torch.float32, seed=60,
+                   timed=True, phase=32)
+    bwd = bwd_check(fa, shape, None, False, torch.float32, seed=61,
+                    timed=True, phase=32)
+    log("phase 32 K1/K2/K3 at the dygraph encoder's attention %s (float32, "
+        "not causal, no lengths): K1 O err %.3g, LSE err %.3g, %.4f ms "
+        "(device %s, bound %.4f by %s), SDPA %.4f (device %s); K2/K3 "
+        "largest relative error %.3g, K2 %.4f (device %s, bound %.4f), K3 "
+        "%.4f (device %s, bound %.4f), SDPA backward %.4f (device %s); "
+        "card %s"
+        % (list(shape), fwd["err_o"], fwd["err_lse"], fwd["ms"],
+           fmt_ms(fwd["device_ms"]), fwd["bound_ms"], fwd["bound_by"],
+           fwd["library_ms"], fmt_ms(fwd["library_device_ms"]),
+           bwd["rel_err_max"], bwd["ms_dq"], fmt_ms(bwd["device_ms_dq"]),
+           bwd["bound_dq_ms"], bwd["ms_dkv"], fmt_ms(bwd["device_ms_dkv"]),
+           bwd["bound_dkv_ms"], bwd["library_ms"],
+           fmt_ms(bwd["library_device_ms"]), card_line()))
+    want = {k: c["n_layers"] for k in K123}
+    support.reset_launch_counts()
+    loss_f, g_flash = dy_bert_grads(fluid, "flash")
+    counts = support.launch_counts()
+    loss_d, g_dense = dy_bert_grads(fluid, "dense")
+    if {k: counts.get(k, 0) for k in K123} != want:
+        raise RuntimeError("flash encoder grads: launches %s, want %s"
+                           % (counts, want))
+    top = max(float(np.abs(g).max()) for g in g_dense)
+    errs = [float(np.abs(a - b).max())
+            / max(float(np.abs(b).max()), DY_GRAD_FLOOR * top)
+            for a, b in zip(g_flash, g_dense)]
+    worst = int(np.argmax(errs))
+    log("phase 32 grads flash against dense, %d parameters: largest error "
+        "%.3g of the parameter's largest grad (parameter %d, shape %s; "
+        "limit %g; scale floor %g of the largest grad, %.4g); median %.3g; "
+        "losses %.6f and %.6f"
+        % (len(errs), errs[worst], worst, list(g_dense[worst].shape),
+           DY_FLASH_GRAD_RTOL, DY_GRAD_FLOOR, top, float(np.median(errs)),
+           loss_f, loss_d))
+    del g_flash, g_dense
+    if errs[worst] > DY_FLASH_GRAD_RTOL:
+        raise RuntimeError("flash encoder grads differ from the dense "
+                           "form's by %.3g (parameter %d)"
+                           % (errs[worst], worst))
+    tokens = c["batch"] * c["seq"]
+    make = lambda: dy_bert_script(fluid, **c, attention="flash")  # noqa
+    eager = dy_train(fluid, support, 32, "dygraph_bert flash", False, make,
+                     DY_BERT_LR, 1, 1, tokens, "tokens")
+    lazy = dy_train(fluid, support, 32, "dygraph_bert flash", True, make,
+                    DY_BERT_LR, DY_BERT_WARMUP, DY_FLASH_ITERS, tokens,
+                    "tokens")
+    for run, iters in ((eager, 1), (lazy, DY_FLASH_ITERS)):
+        for i, sc in enumerate(run["step_counts"]):
+            got = {k: sc.get(k, 0) for k in K123}
+            if got != want:
+                raise RuntimeError("flash encoder warm-up step %d launches "
+                                   "%s, want %s" % (i + 1, got, want))
+        got = {k: run["counts"].get(k, 0) for k in K123}
+        if got != {k: n * iters for k, n in want.items()}:
+            raise RuntimeError("flash encoder timed window of %d steps "
+                               "launches %s, want %s a step"
+                               % (iters, got, want))
+    rels = [abs(run["losses"][0] - dense_lazy["losses"][0])
+            / abs(dense_lazy["losses"][0]) for run in (eager, lazy)]
+    log("phase 32 dygraph flash encoder: K1/K2/K3 %d/%d/%d a step (%d "
+        "eager, %d lazy steps); step-1 loss %.6f eager, %.6f lazy against "
+        "dense %.6f: %.3g and %.3g relative (limit %g); lazy step %.3f ms "
+        "against dense %.3f ms, eager %.3f against %.3f, both windows back "
+        "to back; card %s"
+        % (want[K123[0]], want[K123[1]], want[K123[2]],
+           len(eager["losses"]), len(lazy["losses"]),
+           eager["losses"][0], lazy["losses"][0], dense_lazy["losses"][0],
+           rels[0], rels[1], DY_FLASH_RTOL, lazy["step_ms"],
+           dense_lazy["step_ms"], eager["step_ms"], dense_eager["step_ms"],
+           card_line()))
+    if max(rels) > DY_FLASH_RTOL:
+        raise RuntimeError("flash and dense attention step-1 losses differ "
+                           "by %s" % rels)
+    counts = {k: sum(sc.get(k, 0) for run in (eager, lazy)
+                     for sc in run["step_counts"] + [run["counts"]])
+              for k in K123}
+    return counts, eager, lazy, (fwd, bwd)
+
+
+def dy_twin_run(fluid, place, lazy, make, make_opt):
+    with fluid.dygraph.guard(place, lazy=lazy):
+        params, step = make()
+        opt = make_opt(params)
+        losses = [float(step(opt)) for _ in range(TWIN_STEPS)]
+        return losses, [p.numpy() for p in params]
+
+
+def phase_dygraph_twins(fluid, support):
+    """Phase 33: narrow dygraph twins trained TWIN_STEPS steps on the card,
+    eagerly and lazily (an eager flush, a capture, a replay), and on the
+    CPU from the same weights: losses within DY_TWIN_RTOL relative, every
+    parameter within DY_TWIN_RTOL of its largest magnitude (float32, TF32
+    off; SGD and Momentum, whose update is smooth in the grads). The MLP
+    runs under NoamDecay, whose rate changes every replayed step."""
+    D = fluid.dygraph
+    b = DY_TWIN_BERT
+    twins = {
+        "mlp NoamDecay SGD": (
+            lambda: dy_mlp_script(fluid, **DY_MLP),
+            lambda ps: fluid.optimizer.SGDOptimizer(
+                D.NoamDecay(d_model=256, warmup_steps=2), parameter_list=ps)),
+        "bert 2 layers dense, Momentum": (
+            lambda: dy_bert_script(fluid, **b),
+            lambda ps: fluid.optimizer.MomentumOptimizer(
+                0.05, 0.9, parameter_list=ps)),
+        "bert 2 layers flash with lengths, Momentum": (
+            lambda: dy_bert_script(fluid, **b, attention="flash",
+                                   lengths=DY_TWIN_LENGTHS),
+            lambda ps: fluid.optimizer.MomentumOptimizer(
+                0.05, 0.9, parameter_list=ps)),
+        "lenet SGD": (lambda: dy_lenet_script(fluid),
+                      lambda ps: fluid.optimizer.SGDOptimizer(
+                          0.05, parameter_list=ps)),
+    }
+    worst = 0.0
+    for name, (make, make_opt) in twins.items():
+        cpu = dy_twin_run(fluid, fluid.CPUPlace(), False, make, make_opt)
+        for lazy in (False, True):
+            support.reset_launch_counts()
+            card = dy_twin_run(fluid, fluid.CUDAPlace(0), lazy, make,
+                               make_opt)
+            counts = support.launch_counts()
+            rel = max(abs(a - c) / abs(c) for a, c in zip(card[0], cpu[0]))
+            prel = max(float(np.abs(a - c).max())
+                       / max(float(np.abs(c).max()), 1e-3)
+                       for a, c in zip(card[1], cpu[1]))
+            worst = max(worst, rel, prel)
+            log("phase 33 twin %s %s: card losses %s, CPU %s; losses %.3g "
+                "apart, parameters %.3g of their scale (limit %g); launches "
+                "%s" % (name, "lazy" if lazy else "eager", card[0], cpu[0],
+                        rel, prel, DY_TWIN_RTOL,
+                        json.dumps({k: v for k, v in counts.items() if v})))
+            if "flash" in name and any(
+                    counts.get(k, 0) != b["n_layers"] * TWIN_STEPS
+                    for k in K123):
+                raise RuntimeError("twin %s: launches %s" % (name, counts))
+            if rel > DY_TWIN_RTOL or prel > DY_TWIN_RTOL:
+                raise RuntimeError("dygraph twin %s (%s): card and CPU "
+                                   "disagree, losses %g, parameters %g"
+                                   % (name, lazy, rel, prel))
+    return worst
+
+
+def dy_lenet_script(fluid, batch=8, seed=SEED + 33):
+    """The JAX package's dygraph LeNet (tests/test_models_e2e.py:116):
+    Conv2D/Pool2D/Linear, cross_entropy over its softmax; a seeded batch
+    of 28x28 images."""
+    D = fluid.dygraph
+
+    class LeNet(D.Layer):
+        def __init__(self):
+            super().__init__()
+            self.c1 = D.Conv2D(1, 6, 5, act="relu")
+            self.p1 = D.Pool2D(2, pool_type="max", pool_stride=2)
+            self.c2 = D.Conv2D(6, 16, 5, act="relu")
+            self.p2 = D.Pool2D(2, pool_type="max", pool_stride=2)
+            self.f1 = D.Linear(256, 120, act="relu")
+            self.f2 = D.Linear(120, 84, act="relu")
+            self.f3 = D.Linear(84, 10, act="softmax")
+
+        def forward(self, x):
+            h = self.p2(self.c2(self.p1(self.c1(x))))
+            h = fluid.layers.reshape(h, [h.shape[0], -1])
+            return self.f3(self.f2(self.f1(h)))
+
+    model = LeNet()
+    params = model.parameters()
+    dy_weights(params, seed)
+    rng = np.random.RandomState(SEED + 34)
+    x = rng.rand(batch, 1, 28, 28).astype("float32")
+    y = rng.randint(0, 10, (batch, 1)).astype("int64")
+
+    def step(opt):
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(
+            model(D.to_variable(x)), D.to_variable(y)))
+        loss.backward()
+        opt.minimize(loss)
+        model.clear_gradients()
+        return loss
+
+    return params, step
+
+
+def attention_rows(flash, k2, k3, path, form, fwd, bwd):
+    """File K1's and K2/K3's readings at a path's own attention shape
+    under the kernels' entries, ``entry[path][form]``."""
+    flash.setdefault(path, {})[form] = {
+        k: fwd[k] for k in ("shape", "causal", "lengths", "ms", "device_ms",
+                            "plain_ms", "library_ms", "library_device_ms",
+                            "bound_ms", "bound_by", "tflops", "err_o",
+                            "err_lse")}
+    for kern, tag in ((k2, "dq"), (k3, "dkv")):
+        kern.setdefault(path, {})[form] = {
+            "shape": bwd["shape"], "causal": bwd["causal"],
+            "lengths": bwd["lengths"], "ms": bwd["ms_" + tag],
+            "device_ms": bwd["device_ms_" + tag],
+            "bound_ms": bwd["bound_%s_ms" % tag],
+            "bound_by": bwd["bound_%s_by" % tag],
+            "tflops": bwd["tflops_" + tag], "plain_ms": bwd["plain_ms"],
+            "library_ms": bwd["library_ms"],
+            "library_device_ms": bwd["library_device_ms"],
+            "rel_err_max": bwd["rel_err_max"],
+            "plain_covers": "dQ, dK and dV",
+            "library_covers": "dQ, dK and dV (SDPA backward, the same "
+                              "mask)"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -3351,24 +3960,7 @@ def main() -> int:
                                      w["batch"], w["seq_len"], w["vocab"])
     wmt_attn = phase_wmt_attention(fa, wmt_feed)
     for form, (fwd, bwd) in wmt_attn.items():
-        flash.setdefault("wmt_shape", {})[form] = {
-            k: fwd[k] for k in ("shape", "causal", "ms", "device_ms",
-                                "plain_ms", "library_ms",
-                                "library_device_ms", "bound_ms", "bound_by",
-                                "tflops", "err_o", "err_lse")}
-        for kern, tag in ((k2, "dq"), (k3, "dkv")):
-            kern.setdefault("wmt_shape", {})[form] = {
-                "shape": bwd["shape"], "causal": bwd["causal"],
-                "ms": bwd["ms_" + tag], "device_ms": bwd["device_ms_" + tag],
-                "bound_ms": bwd["bound_%s_ms" % tag],
-                "bound_by": bwd["bound_%s_by" % tag],
-                "tflops": bwd["tflops_" + tag], "plain_ms": bwd["plain_ms"],
-                "library_ms": bwd["library_ms"],
-                "library_device_ms": bwd["library_device_ms"],
-                "rel_err_max": bwd["rel_err_max"],
-                "plain_covers": "dQ, dK and dV",
-                "library_covers": "dQ, dK and dV (SDPA backward, the "
-                                  "same boolean mask)"}
+        attention_rows(flash, k2, k3, "wmt_shape", form, fwd, bwd)
     wmt, wmt_run = phase_wmt(fluid, support, wmt_feed)
     bert, bert_run = phase_bert(fluid, support)
     log("phases 16-17 %s" % json.dumps({"wmt": wmt_run, "bert": bert_run}))
@@ -3390,6 +3982,23 @@ def main() -> int:
     wide_deep, wide_deep_run = phase_wide_deep(fluid, support, fo)
     k4["wide_deep"] = wide_deep_run["k4"]
     phase_wide_deep_twin(fluid, support)
+    # dygraph: bench.py's three dygraph configs and the flash encoder
+    dy_probe = phase_dygraph_guard_probe(fluid, support)
+    dy_mlp, dy_mlp_lazy = phase_dygraph_mlp(fluid, support)
+    dy_bert, dy_bert_eager = phase_dygraph_bert(fluid, support)
+    dy_flash, dy_flash_eager, dy_flash_lazy, (fwd, bwd) = \
+        phase_dygraph_flash(fluid, support, fa, dy_bert, dy_bert_eager)
+    attention_rows(flash, k2, k3, "dygraph_shape", "encoder", fwd, bwd)
+    phase_dygraph_twins(fluid, support)
+    log("phases 29-32 %s" % json.dumps({
+        name: {k: v for k, v in run.items()
+               if k not in ("counts", "step_counts", "losses")}
+        for name, run in (("dygraph_mlp", dy_mlp),
+                          ("dygraph_mlp_lazy", dy_mlp_lazy),
+                          ("dygraph_bert", dy_bert),
+                          ("dygraph_bert_eager", dy_bert_eager),
+                          ("dygraph_flash_eager", dy_flash_eager),
+                          ("dygraph_flash_lazy", dy_flash_lazy))}))
     conv["bf16_on_path_device_ms"] = (resnet_amp_run["k5_on_path_ms"]
                                       / resnet_amp_run["k5_on_path_launches"])
     conv["bf16_on_path_covers"] = (
@@ -3407,7 +4016,13 @@ def main() -> int:
                    "resnet_amp": resnet_amp.get(kern["name"], 0),
                    "wmt_amp": wmt_amp.get(kern["name"], 0),
                    "bert_amp": bert_amp.get(kern["name"], 0),
-                   "wide_deep": wide_deep.get(kern["name"], 0)}
+                   "wide_deep": wide_deep.get(kern["name"], 0),
+                   "dygraph_guard": dy_probe.get(kern["name"], 0),
+                   "dygraph_mlp": dy_mlp["counts"].get(kern["name"], 0),
+                   "dygraph_mlp_lazy": dy_mlp_lazy["counts"].get(
+                       kern["name"], 0),
+                   "dygraph_bert": dy_bert["counts"].get(kern["name"], 0),
+                   "dygraph_flash": dy_flash.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

@@ -2,7 +2,8 @@
 
 The same Fluid-style surface as ``paddle_tpu`` (``import paddle_tpu_torch
 as fluid``): Program / Block / Op / Variable IR, layers, ``append_backward``
-and optimizers, Executor, inference predictor and serving engine, with op
+and optimizers, Executor, inference predictor and serving engine, the
+imperative mode (``dygraph``: ``fluid.dygraph.guard()``), with op
 functions in ``torch`` and
 the Pallas TPU kernels rewritten by hand in CUDA C++ for Hopper
 (``csrc/``). Entry points run on the card (``cuda:0``) unless the caller
@@ -30,4 +31,5 @@ from . import contrib  # noqa: F401
 from . import io  # noqa: F401
 from . import inference  # noqa: F401
 from . import serving  # noqa: F401
+from . import dygraph  # noqa: F401
 from .utils import unique_name  # noqa: F401

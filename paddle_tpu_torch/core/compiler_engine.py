@@ -41,6 +41,9 @@ package's names and results (``_program_version``, ``_block_rw``,
   in the JAX package (``executor.py``).
 - Kernel launches made while capturing are recorded, not counted, and
   counted on every replay (``ops/cuda/support.recording_launches``).
+  The capture, the replay, the memory pool an executor's graphs share and
+  how many stay captured are ``core/cuda_graph``'s, shared with the lazy
+  dygraph queue.
 
 The counters keep the JAX package's names in ``COUNTERS`` (the
 observability registry is not ported yet): ``executor.compiles`` (new
@@ -63,18 +66,16 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import torch
 
 from . import flags
+from .cuda_graph import CapturedGraph, same_memory
 from .executor_core import (_UNBOUND, CoreExecutor, call_op, gather_inputs,
                             op_attrs, output_pairs, rng_seed)
 from .registry import GENERATOR_ATTR, OpInfoMap
 from .scope import Scope
 from .tensor import LoDTensor, stage_feed
 
-# step functions of one executor (op tables and plans: light), LRU
+# step functions of one executor (op tables and plans: light), LRU;
+# its captured graphs are a core/cuda_graph.GraphCache
 _CACHE_CAP = 128
-# captured graphs of one executor: each keeps a private memory pool that
-# holds a whole step's activations, so few are kept; an evicted graph is
-# captured again at its next run
-_GRAPH_CAP = 16
 
 COUNTERS: Dict[str, int] = {"executor.compiles": 0,
                             "executor.jit_traces": 0,
@@ -423,11 +424,6 @@ class _Step:
         return consts
 
 
-def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
-            and a.stride() == b.stride() and a.dtype == b.dtype)
-
-
 def _scope_tensor(scope: Scope, name: str):
     var = scope.find_var(name)
     if var is None or not var.is_initialized():
@@ -436,15 +432,13 @@ def _scope_tensor(scope: Scope, name: str):
     return h.array if isinstance(h, LoDTensor) else h
 
 
-class _Graph:
+class _Graph(CapturedGraph):
     """One captured step: the graph, the static feed and state buffers it
     reads and writes, its fetches (in its pool), the generators it draws
     from and the kernel launches it makes."""
 
     def __init__(self, step: _Step, core, scope: Scope,
                  feeds: Dict[str, torch.Tensor]):
-        from ..ops.cuda import support
-
         dev = core.device
         self.scope = weakref.ref(scope)
         self.state: Dict[str, torch.Tensor] = {}
@@ -463,33 +457,27 @@ class _Graph:
         for n, v in feeds.items():
             self.feeds[n].copy_(v)
         self.gens = {i: torch.Generator(device=dev) for i in step.rng_ops}
-        self.graph = torch.cuda.CUDAGraph()
-        for g in self.gens.values():
-            self.graph.register_generator_state(g)
         # outside the graph, on the current stream, before the capture's
         # synchronize
         self.consts = step.run_consts()
-        if core.capture_stream is None:
-            core.capture_stream = torch.cuda.Stream(dev)
-        stream = core.capture_stream
         env = {n: self.state[n] for n in step.state_names}
         env.update(self.feeds)
-        with support.recording_launches(stream) as launches:
-            with torch.cuda.graph(self.graph, stream=stream,
-                                  capture_error_mode="thread_local"):
-                step.run(env, None, gens=self.gens, consts=self.consts)
-                for n in step.out_state_names:
-                    new, buf = env.get(n), self.state[n]
-                    if new is None or new is buf or _same_memory(new, buf):
-                        continue
-                    if new.shape != buf.shape or new.dtype != buf.dtype:
-                        raise RuntimeError(
-                            "state %r changes from %s %s to %s %s in one "
-                            "step; a captured step keeps its state's "
-                            "shapes" % (n, tuple(buf.shape), buf.dtype,
-                                        tuple(new.shape), new.dtype))
-                    buf.copy_(new)
-        self.launches = dict(launches)
+
+        def body():
+            step.run(env, None, gens=self.gens, consts=self.consts)
+            for n in step.out_state_names:
+                new, buf = env.get(n), self.state[n]
+                if new is None or new is buf or same_memory(new, buf):
+                    continue
+                if new.shape != buf.shape or new.dtype != buf.dtype:
+                    raise RuntimeError(
+                        "state %r changes from %s %s to %s %s in one "
+                        "step; a captured step keeps its state's "
+                        "shapes" % (n, tuple(buf.shape), buf.dtype,
+                                    tuple(new.shape), new.dtype))
+                buf.copy_(new)
+
+        self.capture(core.graphs, body, self.gens.values())
         self.fetches = {n: env[n] for n in step.fetch_names if n in env}
 
     def stage_state(self, step: _Step, scope: Scope) -> bool:
@@ -511,14 +499,11 @@ class _Graph:
         return True
 
     def replay(self, step: _Step, core, feeds: Dict[str, torch.Tensor]):
-        from ..ops.cuda import support
-
         for n, v in feeds.items():
             self.feeds[n].copy_(v)
         for i, (op, attrs) in step.rng_ops.items():
             self.gens[i].manual_seed(rng_seed(core.rng, attrs, op))
-        support.count_replay(self.launches)
-        self.graph.replay()
+        self.launch()
 
 
 def _stage_feeds(feed: Dict) -> Dict[str, torch.Tensor]:
@@ -615,10 +600,10 @@ def _run_eager(core, step: _Step, scope: Scope, feeds: Dict) -> Dict:
 def _run_on_card(core, step: _Step, scope: Scope, feeds: Dict) -> Dict:
     sig = (step.key, id(scope), tuple(
         (n, tuple(v.shape), v.dtype) for n, v in sorted(feeds.items())))
-    graph = _lru_get(core.graphs, sig)
+    graph = core.graphs.get(sig)
     if graph is not None and (graph.scope() is not scope
                               or not graph.stage_state(step, scope)):
-        del core.graphs[sig]  # another scope at this id, or new shapes
+        core.graphs.drop(sig)  # another scope at this id, or new shapes
         core.warm.pop(sig, None)
         graph = None
     if graph is None:
@@ -627,7 +612,7 @@ def _run_on_card(core, step: _Step, scope: Scope, feeds: Dict) -> Dict:
             return _run_eager(core, step, scope, feeds)
         inc("executor.jit_traces")
         graph = _Graph(step, core, scope, feeds)
-        _lru_put(core.graphs, sig, graph, _GRAPH_CAP)
+        core.graphs.put(sig, graph)
     graph.replay(step, core, feeds)
     core.rng.advance()
     for n, buf in graph.state.items():

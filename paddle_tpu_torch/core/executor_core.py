@@ -47,6 +47,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .cuda_graph import GraphCache
 from .enforce import EnforceNotMet, annotate_op_error
 from .flags import flag
 from .registry import (BOUND_OUTPUTS_ATTR, DEVICE_ATTR, GENERATOR_ATTR,
@@ -138,19 +139,16 @@ class CoreExecutor:
         self.rng = RNGState()
         self._gc_plans: Dict = {}
         # the whole-program route's caches (core/compiler_engine): step
-        # functions, captured graphs, the keys run once eagerly, and the
-        # stream graphs are captured on
+        # functions, captured graphs and the keys run once eagerly
         self.steps: "OrderedDict" = OrderedDict()
-        self.graphs: "OrderedDict" = OrderedDict()
+        self.graphs = GraphCache(self.device)
         self.warm: "OrderedDict" = OrderedDict()
-        self.capture_stream = None
 
     def close(self) -> None:
         """Drop the step functions and free the captured graphs."""
         self.graphs.clear()
         self.warm.clear()
         self.steps.clear()
-        self.capture_stream = None
 
     def _read_var(self, scope: Scope, name: str):
         if name in _UNBOUND:

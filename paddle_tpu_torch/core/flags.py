@@ -42,8 +42,8 @@ _DEFS = {
                               "implicit-GEMM kernel (K5): off | auto (only "
                               "the expansion 1x1 class) | all (every "
                               "viable shape)"),
-    "FLAGS_dygraph_lazy": (False, "lazy dygraph flush (no-op: dygraph is "
-                           "not ported)"),
+    "FLAGS_dygraph_lazy": (False, "dygraph.guard() default: queue eager "
+                           "ops and flush once a step (dygraph/lazy.py)"),
     "FLAGS_tpu_metrics": (False, "runtime observability layer (no-op: not "
                           "ported). Env alias: PADDLE_TPU_METRICS"),
 }

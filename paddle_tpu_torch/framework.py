@@ -7,6 +7,9 @@ program built or saved by either package means the same in the other.
 Shape inference runs each op's own function on ``meta`` tensors (shape and
 dtype, no data) where the JAX package calls ``jax.eval_shape``. An unknown
 dim (-1) rides through as a sentinel size and comes back as -1.
+
+``in_dygraph_mode`` / ``_dygraph_tracer`` / ``_current_expected_place``
+name the imperative mode's tracer and place (``dygraph.guard`` sets them).
 """
 from __future__ import annotations
 
@@ -372,3 +375,27 @@ def program_guard(main_program: Program,
         switch_main_program(old_main)
         if old_startup is not None:
             switch_startup_program(old_startup)
+
+
+# -- dygraph mode (the tracer ``dygraph.guard`` sets; framework.py:531-556) --
+
+_dygraph_tracer_ = None
+_dygraph_place_ = None
+
+
+def in_dygraph_mode() -> bool:
+    return _dygraph_tracer_ is not None
+
+
+def _dygraph_tracer():
+    return _dygraph_tracer_
+
+
+def _current_expected_place():
+    """The dygraph guard's place; outside a guard, the card, as every
+    entry point of the port defaults to it."""
+    from .core.place import CUDAPlace
+
+    if _dygraph_place_ is not None:
+        return _dygraph_place_
+    return CUDAPlace(0)

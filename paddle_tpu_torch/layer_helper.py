@@ -1,9 +1,13 @@
 """LayerHelper: the bridge from ``layers.*`` calls to Block ops.
 
-Counterpart of ``paddle_tpu/layer_helper.py`` (static graph only; dygraph
-comes with a later slice). Parameters are declared in the startup program
-with their init op and mirrored into the main program, under the same
-names the JAX package gives them (``fc.w_0``, ``embedding.w_0``, ...).
+Counterpart of ``paddle_tpu/layer_helper.py``. Parameters are declared in
+the startup program with their init op and mirrored into the main program,
+under the same names the JAX package gives them (``fc.w_0``,
+``embedding.w_0``, ...). In dygraph mode (``dygraph.guard``) the same
+calls run eagerly, as in the JAX package (:85-166): a parameter is made at
+once by its initializer's op (``ParamBase.create``) and kept in the
+tracer's registry by name, an output is an empty ``VarBase``, and
+``append_op`` is ``Tracer.trace_op``, which fills the outputs it is given.
 """
 from __future__ import annotations
 
@@ -77,6 +81,17 @@ class LayerHelper:
                                    else XavierInitializer())
         attr._with_initializer(default_initializer)
         name = attr.name or unique_name.generate("%s.w" % self._name_prefix)
+        if framework.in_dygraph_mode():
+            from .dygraph.varbase import ParamBase
+
+            tracer = framework._dygraph_tracer()
+            existing = tracer.get_parameter(name)
+            if existing is not None:
+                return existing
+            p = ParamBase.create(name, shape, dtype or "float32",
+                                 attr.initializer, trainable=attr.trainable)
+            tracer.register_parameter(p)
+            return p
         main_block = self.main_program.global_block()
         if main_block.has_var_local(name):
             return main_block.vars[name]
@@ -90,13 +105,22 @@ class LayerHelper:
 
     def set_variable_initializer(self, var, initializer):
         """Declare ``var`` in the startup program and append its init op
-        there."""
+        there; in dygraph mode, make it at once."""
+        if framework.in_dygraph_mode():
+            from .dygraph.varbase import ParamBase
+
+            return ParamBase.create(var.name, var.shape, var.dtype,
+                                    initializer)
         sb = self.startup_program.global_block()
         sv = sb.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
                            persistable=True)
         return initializer(sv, sb)
 
     def create_variable_for_type_inference(self, dtype, stop_gradient=False):
+        if framework.in_dygraph_mode():
+            from .dygraph.varbase import VarBase
+
+            return VarBase(None, stop_gradient=stop_gradient)
         return self.block.create_var(
             name=unique_name.generate(".".join([self._name_prefix, "tmp"])),
             dtype=_dt.convert_dtype(dtype or "float32"), shape=None,
@@ -104,6 +128,9 @@ class LayerHelper:
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None,
                   infer_shape=True):
+        if framework.in_dygraph_mode():
+            return framework._dygraph_tracer().trace_op(
+                type, inputs or {}, outputs or {}, attrs or {})
         return self.block.append_op(type, inputs, outputs, attrs,
                                     infer_shape=infer_shape)
 

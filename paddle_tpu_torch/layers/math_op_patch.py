@@ -3,8 +3,9 @@
 unary ``-`` append ``elementwise_*`` ops with ``axis=-1``, and a Python
 number on the right of ``+ - * /`` (or the left of ``+ - *``) becomes a
 ``scale`` op, as in the JAX package; any other number is a
-``fill_constant`` of x's shape. The comparisons need ``control_flow``'s
-compare ops, which come with a later slice (ROADMAP.md)."""
+``fill_constant`` of x's shape. ``< <= > >=`` append the compare ops of
+``ops/compare_ops.py``; ``==`` and ``!=`` stay identity, as in the JAX
+package."""
 from __future__ import annotations
 
 from .. import framework
@@ -44,10 +45,23 @@ def _binary_op(op_type, x, y, reverse=False):
 
 
 def _cmp_op(op_type):
+    """``x < y`` and the like: a number on the right becomes a
+    ``fill_constant`` of x's shape and type, and the compare op writes a
+    bool var that takes no grad (the JAX package's ``_cmp_op`` and
+    ``control_flow._cmp_layer``)."""
+
     def impl(self, other):
-        raise NotImplementedError(
-            "Variable comparison needs the %r op of control_flow, not yet "
-            "ported (ROADMAP.md, queue 1)" % op_type)
+        if not isinstance(other, framework.Variable):
+            from .tensor import fill_constant
+
+            other = fill_constant(list(self.shape) if self.shape else [1],
+                                  self.dtype, other)
+        helper = LayerHelper(op_type, input=self)
+        out = helper.create_variable_for_type_inference("bool",
+                                                        stop_gradient=True)
+        helper.append_op(op_type, inputs={"X": [self], "Y": [other]},
+                         outputs={"Out": [out]})
+        return out
 
     return impl
 

@@ -2,6 +2,7 @@
 (``core.registry`` imports it at the first registry lookup)."""
 from . import activation_ops  # noqa: F401
 from . import amp_ops  # noqa: F401
+from . import compare_ops  # noqa: F401
 from . import conv_ops  # noqa: F401
 from . import elementwise_ops  # noqa: F401
 from . import fused_ops  # noqa: F401

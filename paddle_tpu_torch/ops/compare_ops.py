@@ -1,0 +1,32 @@
+"""Comparison ops ``equal``, ``not_equal``, ``less_than``, ``less_equal``,
+``greater_than`` and ``greater_equal`` (counterparts of
+``paddle_tpu/ops/compare_ops.py:13-32``): the same slots and attrs, a bool
+``Out``, never differentiated. ``Variable`` and ``VarBase`` comparisons
+(``layers/math_op_patch.py``, ``dygraph/math_patch.py``) append them."""
+from __future__ import annotations
+
+import torch
+
+from ..core.registry import In, Out, register_op
+
+
+def _cmp(name, f):
+    @register_op(
+        name,
+        inputs=[In("X", no_grad=True), In("Y", no_grad=True)],
+        outputs=[Out("Out")],
+        attrs={"axis": -1, "force_cpu": False},
+        grad=None,
+    )
+    def _op(ins, attrs, _f=f):
+        return {"Out": _f(ins["X"], ins["Y"])}
+
+    return _op
+
+
+_cmp("equal", torch.eq)
+_cmp("not_equal", torch.ne)
+_cmp("less_than", torch.lt)
+_cmp("less_equal", torch.le)
+_cmp("greater_than", torch.gt)
+_cmp("greater_equal", torch.ge)

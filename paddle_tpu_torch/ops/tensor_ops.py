@@ -3,11 +3,12 @@
 Counterparts of ``fill_constant`` (:31), ``uniform_random`` (:69),
 ``gaussian_random`` (:90), ``assign`` (:120), ``assign_value`` (:132),
 ``reshape2`` (:224), ``transpose2`` (:248), ``expand`` (:483), ``gather``
-(:575), ``lookup_table`` (:680), ``concat`` (:384), ``slice`` (:439) and
-``range`` (:954) in ``paddle_tpu/ops/tensor_ops.py``, with the same slots
-and attrs, and of
-``lookup_table``'s grad maker and dense ``lookup_table_grad`` (:631-677),
-whose scatter-add becomes ``index_add_``. ``gather``'s auto-VJP grad is a
+(:575), ``lookup_table`` (:680), ``lookup_table_v2`` (:694), ``concat``
+(:384), ``slice`` (:439) and ``range`` (:954) in
+``paddle_tpu/ops/tensor_ops.py``, with the same slots and attrs, and of
+``lookup_table``'s grad maker and the dense ``lookup_table_grad`` and
+``lookup_table_v2_grad`` (:631-677), whose scatter-add becomes
+``index_add_``. ``gather``'s auto-VJP grad is a
 scatter-add too (autograd's ``index_select`` backward), so repeated
 indices sum. ``range`` is a host op, as in the JAX package (its output's
 length depends on its inputs' values). Creation
@@ -142,21 +143,14 @@ def _lookup_table_grad_maker(block, op, pending, finalize):
     w = op.input("W")[0]
     gname = bind_partial_grad(block, pending, w)
     block.append_op(
-        "lookup_table_grad",
+        op.type + "_grad",
         {"W": [w], "Ids": [op.input("Ids")[0]], "Out@GRAD": [og]},
         {"W@GRAD": [gname]},
-        {"padding_idx": op.attrs.get("padding_idx", -1), "is_v2": False},
+        {"padding_idx": op.attrs.get("padding_idx", -1),
+         "is_v2": op.type == "lookup_table_v2"},
         infer_shape=False)
 
 
-@register_op(
-    "lookup_table_grad",
-    inputs=[In("W", no_grad=True), In("Ids", no_grad=True),
-            In("Out@GRAD", no_grad=True)],
-    outputs=[Out("W@GRAD")],
-    attrs={"padding_idx": -1, "is_v2": False},
-    grad=None,
-)
 def _lookup_table_grad(ins, attrs):
     """dW: the rows of Out@GRAD summed into the rows of W they were read
     from (``index_add_``, which on the card sums in no fixed order).
@@ -177,6 +171,18 @@ def _lookup_table_grad(ins, attrs):
     return {"W@GRAD": g}
 
 
+for _lt_gtype, _lt_v2 in (("lookup_table_grad", False),
+                          ("lookup_table_v2_grad", True)):
+    register_op(
+        _lt_gtype,
+        inputs=[In("W", no_grad=True), In("Ids", no_grad=True),
+                In("Out@GRAD", no_grad=True)],
+        outputs=[Out("W@GRAD")],
+        attrs={"padding_idx": -1, "is_v2": _lt_v2},
+        grad=None,
+    )(_lookup_table_grad)
+
+
 @register_op(
     "lookup_table",
     inputs=[In("W"), In("Ids", no_grad=True)],
@@ -190,18 +196,36 @@ def _lookup_table(ins, attrs):
     ``padding_idx`` are zero. As with ``jnp.take``, an id in [-V, 0)
     counts from the end and any other id outside [0, V) gives a NaN row;
     it never faults the device."""
-    w, ids = ins["W"], ins["Ids"]
+    ids = ins["Ids"]
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
+    return {"Out": _embedding_lookup(ins["W"], ids,
+                                     attrs.get("padding_idx", -1))}
+
+
+@register_op(
+    "lookup_table_v2",
+    inputs=[In("W"), In("Ids", no_grad=True)],
+    outputs=[Out("Out")],
+    attrs={"padding_idx": -1, "is_sparse": False, "is_distributed": False},
+    grad=_lookup_table_grad_maker,
+)
+def _lookup_table_v2(ins, attrs):
+    """``lookup_table`` without the squeeze: Out is Ids' shape plus W's
+    row (the dygraph ``Embedding``'s op)."""
+    return {"Out": _embedding_lookup(ins["W"], ins["Ids"],
+                                     attrs.get("padding_idx", -1))}
+
+
+def _embedding_lookup(w, ids, pad):
     rows = w.shape[0]
     wrapped, in_range = _wrap_ids(ids, rows)
     out = torch.nn.functional.embedding(wrapped.clamp(0, rows - 1), w)
     out = torch.where(in_range[..., None], out,
                       torch.full_like(out, float("nan")))
-    pad = attrs.get("padding_idx", -1)
     if pad is not None and pad >= 0:
         out = out * (ids != pad)[..., None].to(out.dtype)
-    return {"Out": out}
+    return out
 
 
 @register_op("assign", inputs=[In("X")], outputs=[Out("Out")])

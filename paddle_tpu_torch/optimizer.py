@@ -8,7 +8,11 @@ its learning-rate var and accumulators declared in both programs and
 initialised in the startup program. The same ops, slots, attrs and var
 names as the JAX package.
 
-Clip and regularizer classes, the other optimizers and dygraph come with
+In dygraph mode ``minimize`` is ``dygraph/backward_utils.dygraph_minimize``
+(one update op per parameter, state in ``_dygraph_state``), and
+``state_dict`` / ``set_dict`` read and write that state. The learning rate
+may be a dygraph decay (``dygraph.NoamDecay`` and the rest), called once a
+step. Clip and regularizer classes and the other optimizers come with
 later slices (ROADMAP.md).
 """
 from __future__ import annotations
@@ -39,6 +43,7 @@ class Optimizer:
         self._name = name
         self._accumulators: Dict[str, Dict[str, framework.Variable]] = {}
         self._learning_rate_map: Dict[int, framework.Variable] = {}
+        self._dygraph_state: Dict[str, object] = {}
         self.helper = None
 
     # -- learning rate ----------------------------------------------------
@@ -123,9 +128,31 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        if framework.in_dygraph_mode():
+            from .dygraph import backward_utils
+
+            return backward_utils.dygraph_minimize(
+                self, loss, parameter_list or self._parameter_list)
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
         return self.apply_gradients(params_grads), params_grads
+
+    # -- dygraph state ----------------------------------------------------
+    def state_dict(self):
+        """The dygraph state: ``<param>_<slot>`` -> VarBase."""
+        return dict(self._dygraph_state)
+
+    def set_dict(self, state):
+        """Take dygraph state from VarBases or numpy arrays (a
+        ``load_dygraph`` result)."""
+        from .dygraph.varbase import VarBase
+
+        for k, v in state.items():
+            if not isinstance(v, VarBase):
+                v = VarBase(v, name=k, stop_gradient=True, persistable=True)
+            self._dygraph_state[k] = v
+
+    set_state_dict = set_dict
 
 
 class SGDOptimizer(Optimizer):

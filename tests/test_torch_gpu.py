@@ -68,6 +68,14 @@ bits for the same executor seed; the narrow Wide&Deep twin (vocab 1000, 4
 slots, batch 64, both fusion passes on) trains 3 steps on the card with
 one capture and K4 launched 3 times, its losses within 1e-4 relative of
 the CPU run's.
+
+Dygraph on the card (``fluid.dygraph.guard()``): lazy mode captures a
+repeated step once (an eager flush first, then a replay a step) and a
+one-off structure never; under NoamDecay the replayed steps give the
+eager card run's parameters (the rate is a graph input); a flash
+encoder's tape launches K1/K2/K3 once each per layer a step, eager and
+lazy; a narrow encoder trained lazily on the card agrees with the CPU
+within 1e-4.
 """
 import gc
 import threading
@@ -1415,3 +1423,145 @@ def test_narrow_wide_deep_trains_on_the_card_as_on_the_cpu(cuda,
     assert support.launch_counts()["fused_optimizer_update"] == 3
     assert ce.counters()["executor.jit_traces"] == 1
     np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-4)
+
+
+# -- dygraph on the card ---------------------------------------------------------
+
+def _dy_encoder_run(place, lazy, steps, make_opt, attention="dense",
+                    lengths=None, batch=4, seq=32, d=128, heads=2, vocab=64,
+                    layers=2, counts_per_step=False):
+    """A narrow dygraph BERT-like encoder (d_model 128, 2 heads of 64)
+    trained ``steps`` steps from seeded weights under ``guard(place,
+    lazy)``: the losses, the parameters and (optionally) each step's
+    launches."""
+    from paddle_tpu_torch.dygraph import lazy as lz
+
+    D, L = fluid.dygraph, fluid.layers
+    with D.guard(place, lazy=lazy):
+        emb = D.Embedding(size=[vocab, d])
+        blocks = [{"q": D.Linear(d, d), "k": D.Linear(d, d),
+                   "v": D.Linear(d, d), "ln": D.LayerNorm(d)}
+                  for _ in range(layers)]
+        out = D.Linear(d, vocab)
+        params = emb.parameters() + [p for b in blocks for lyr in b.values()
+                                     for p in lyr.parameters()] \
+            + out.parameters()
+        rng = np.random.RandomState(11)
+        for p in params:
+            if len(p.shape) >= 2:
+                p.set_value((rng.randn(*p.shape) * 0.05).astype("float32"))
+        ids = rng.randint(0, vocab, (batch, seq)).astype("int64")
+        lbl = rng.randint(0, vocab, (batch * seq, 1)).astype("int64")
+        opt = make_opt(params)
+        h = d // heads
+
+        def split(t):
+            return L.transpose(L.reshape(t, [batch, seq, heads, h]),
+                               [0, 2, 1, 3])
+
+        lz.reset_counters()
+        losses, per_step = [], []
+        for _ in range(steps):
+            support.reset_launch_counts()
+            x = emb(D.to_variable(ids))
+            for b in blocks:
+                q, k, v = split(b["q"](x)), split(b["k"](x)), split(b["v"](x))
+                if attention == "flash":
+                    ctx = L.flash_attention(
+                        q, k, v, lengths=None if lengths is None
+                        else D.to_variable(lengths))
+                else:
+                    ctx = L.matmul(L.softmax(L.matmul(
+                        q, k, transpose_y=True, alpha=h ** -0.5)), v)
+                ctx = L.reshape(L.transpose(ctx, [0, 2, 1, 3]),
+                                [batch, seq, d])
+                x = b["ln"](x + ctx)
+            loss = L.mean(L.softmax_with_cross_entropy(
+                L.reshape(out(x), [batch * seq, vocab]), D.to_variable(lbl)))
+            loss.backward()
+            opt.minimize(loss, parameter_list=params)
+            for p in params:
+                p.clear_gradient()
+            losses.append(float(loss))
+            per_step.append(support.launch_counts())
+        return losses, [p.numpy() for p in params], per_step, lz.counters()
+
+
+def _momentum(params):
+    return fluid.optimizer.MomentumOptimizer(0.05, 0.9,
+                                             parameter_list=params)
+
+
+def test_lazy_dygraph_captures_a_repeated_key_once_and_a_one_off_never(cuda):
+    """Five steps of one structure: an eager flush, one capture, then a
+    replay a step; a step of another shape afterwards is a one-off key
+    and captures nothing."""
+    from paddle_tpu_torch.dygraph import lazy as lz
+
+    _, _, _, c = _dy_encoder_run(None, True, 5, _momentum)
+    assert c["lazy.captures"] == 1 and c["lazy.replays"] == 4, c
+    assert c["lazy.recompiles"] == 1 and c["lazy.cache_hits"] == 4, c
+    _, _, _, c = _dy_encoder_run(None, True, 1, _momentum, batch=2)
+    assert c["lazy.captures"] == 0 and c["lazy.replays"] == 0, c
+    assert lz.counters()["lazy.flushes"] == 1
+
+
+def test_lazy_dygraph_rate_is_an_input_across_replays(cuda):
+    """Under NoamDecay the rate changes every step: the replayed steps
+    give the eager card run's parameters (the same kernels)."""
+    def noam(params):
+        return fluid.optimizer.SGDOptimizer(
+            fluid.dygraph.NoamDecay(d_model=128, warmup_steps=2),
+            parameter_list=params)
+
+    le, pe, _, _ = _dy_encoder_run(None, False, 5, noam)
+    ll, pl, _, c = _dy_encoder_run(None, True, 5, noam)
+    assert c["lazy.replays"] == 4
+    np.testing.assert_allclose(ll, le, rtol=1e-6)
+    for a, b in zip(pl, pe):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-6 * max(np.abs(b).max(), 1e-3))
+    # a rate baked into the graph would give other parameters
+    _, pf, _, _ = _dy_encoder_run(None, True, 5, lambda ps:
+                                  fluid.optimizer.SGDOptimizer(
+                                      0.02, parameter_list=ps))
+    assert any(not np.allclose(a, b) for a, b in zip(pl, pf))
+
+
+@pytest.mark.parametrize("lazy", [False, True], ids=["eager", "lazy"])
+def test_dygraph_flash_launches_k1_k3_through_the_tape(cuda, lazy):
+    """Each flash op runs K1 once forward and its tape pullback K2 and K3
+    once: 2/2/2 launches a step for 2 layers, eager and lazy (the lazy
+    backward pulls through the forward's saved graph, never a second
+    K1), and the losses are the dense attention's within 1e-4."""
+    lengths = np.array([32, 17, 32, 5], dtype="int32")
+    losses, _, per_step, _ = _dy_encoder_run(None, lazy, 3, _momentum,
+                                             attention="flash")
+    for counts in per_step:
+        assert [counts.get(k, 0) for k in (
+            "flash_attention_forward", "flash_attention_backward_dq",
+            "flash_attention_backward_dkv")] == [2, 2, 2], counts
+    dense, _, _, _ = _dy_encoder_run(None, lazy, 3, _momentum)
+    np.testing.assert_allclose(losses, dense, rtol=1e-4)
+    _, _, per_step, _ = _dy_encoder_run(None, lazy, 2, _momentum,
+                                        attention="flash", lengths=lengths)
+    assert all(c.get("flash_attention_forward") == 2 for c in per_step)
+
+
+@pytest.mark.parametrize("attention", ["dense", "flash"])
+def test_dygraph_twin_card_against_cpu(cuda, attention):
+    """The narrow encoder trained 3 steps lazily on the card (an eager
+    flush, a capture, a replay) and eagerly on the CPU from the same
+    weights: losses within 1e-4 relative, parameters within 1e-4 of their
+    scale (float32, TF32 off)."""
+    lengths = np.array([32, 17, 32, 5], dtype="int32") \
+        if attention == "flash" else None
+    lc, pc, _, c = _dy_encoder_run(None, True, 3, _momentum,
+                                   attention=attention, lengths=lengths)
+    lh, ph, _, _ = _dy_encoder_run(fluid.CPUPlace(), False, 3, _momentum,
+                                   attention=attention, lengths=lengths)
+    assert c["lazy.captures"] == 1
+    np.testing.assert_allclose(lc, lh, rtol=1e-4)
+    for a, b in zip(pc, ph):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-4 * max(np.abs(b).max(), 1e-3))
