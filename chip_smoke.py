@@ -9,15 +9,18 @@ streaming decode (the continuous-batching engine at gpt_long's width),
 Transformer-base WMT training and BERT-base masked-LM training (each
 training path in float32, bench.py's --no-bf16, and again under
 contrib.mixed_precision's bfloat16 AMP, bench.py's default), Wide&Deep
-training (float32, as bench.py runs it) and bench.py's three dygraph
+training (float32, as bench.py runs it), bench.py's three dygraph
 configs through ``fluid.dygraph.guard()`` (eager, and lazy: a CUDA graph a
-step), and holds each hand-written CUDA kernel against its plain PyTorch
-version on the card. Serving and the training paths run through ``Executor.run``'s
-default route, which runs a program's first step eagerly, captures the
-second into a CUDA graph and replays it from then on; each path also
-times the op-by-op interpreter (``exe._core.run_program``) on the same
-program and batch as a yardstick, and must capture once a program (once
-a ladder bucket when serving) and fall back never. Phases, one or more
+step) and the published training recipes of BERT-base (AdamW or LAMB, a
+global-norm clip, a warm-up over a linear decay), ResNet-50 (Momentum, L2
+decay, a piecewise rate) and gpt_long under recompute, and holds each
+hand-written CUDA kernel against its plain PyTorch version on the card.
+Serving and the training paths run through ``Executor.run``'s default
+route, which runs a program's first step eagerly, captures the second
+into a CUDA graph and replays it from then on; each path up to phase 27
+also times the op-by-op interpreter (``exe._core.run_program``) on the
+same program and batch as a yardstick, and must capture once a program
+(once a ladder bucket when serving) and fall back never. Phases, one or more
 lines each:
 
 1. card and settings: name and power limit (nvidia-smi), torch version;
@@ -281,20 +284,63 @@ lines each:
    replayed step), a 2-layer BERT (d_model 128, 2 heads of 64, vocab 512)
    dense and flash with lengths (Momentum), and the dygraph LeNet (SGD):
    losses and parameters within 1e-4;
-34. one JSON line {"kernels": [...]} with each kernel's launches on the
-   main paths (by path beside, the dygraph paths too), error, times and
-   bound;
-35. the last line: {"ok": true, "device": {...}}.
+34. BERT-base MLM (phase 23's script, weights and batch: batch 32, seq
+   128, 12 layers, bf16 AMP) under BERT's recipe: AdamW(weight_decay
+   0.01), a global-norm clip at 1.0 and linear_lr_warmup(4 steps, 0 to
+   1e-4) over polynomial_decay(1e-4, 12 steps, to 0, power 1), the
+   paper's 10,000 warm-up steps cut to 4 so that the window crosses both
+   phases: an eager step, the capture, then 10 replays back to back with
+   the launch counts zeroed just before and read just after (K4 exactly
+   once a step: the adamw group fused, its rate the schedule's output
+   inside the graph), a profile of one more; the op count after both
+   passes and the fused chains must be the JAX package's (1658 ops, 0
+   fused_bias_act, 1 fused_residual_layer_norm, 1 fused_optimizer), the
+   rate fetched at every step the schedule's, the losses finite and
+   falling; step time, tokens/s, idle share, peak, capture time;
+35. the same under LambOptimizer(lamb_weight_decay 0.01), the same clip
+   and schedule: K4 never (LAMB stays one op a parameter), 1855 ops;
+36. ResNet-50 (phase 21's script, batch 128, NHWC, FLAGS_use_pallas_conv
+   all, bf16 AMP) under Goyal et al.'s recipe: Momentum(0.9) with L2
+   decay 1e-4 and piecewise_decay([3, 6], [0.1, 0.01, 0.001]), epochs 30
+   and 60 cut to steps 3 and 6: K5 44 a step (all bf16) and K4 1; the
+   loss held finite (at lr 0.1 it sticks at cross_entropy's clamp) and
+   the rates are the gate; 1008 ops, 16 fused_bias_act, 1
+   fused_optimizer;
+37. gpt_long (phase 20's script, weights and batch) under mp.decorate(
+   RecomputeOptimizer(Adam(1e-4))), checkpoints at each block's residual
+   output: K1 6 a step (the forward, the recomputed forward and each
+   flash grad op, whose auto-VJP re-runs the forward), K2/K3 2, K4 1;
+   330 ops, 1 fused_optimizer; the first loss phase 20's within 1e-6,
+   the step time and peak beside phase 20's;
+38. narrow twins, card against CPU from the same state (losses, fetched
+   rates and persistables within 1e-4 of their scale): each new optimizer
+   (LarsMomentum, Adagrad, Adamax, Dpsgd, DecayedAdagrad, Adadelta,
+   RMSProp plain and centered, Ftrl at two lr_powers, Lamb) on a 16-64-1
+   MLP, 3 steps through the captured route and the card's interpreter;
+   the eight schedules over 12 steps; each clip class, set_gradient_clip,
+   L1 and L2 decay and BERT's recipe on the MLP; a per-parameter rate
+   (one K4 group, launched once a step, and one adam op left, as the JAX
+   pass groups them); a 2-layer BERT (d_model 128) under recompute
+   against the CPU, and with dropout 0.1 against itself without
+   recompute on the card, same executor seed (the recomputed dropout
+   draws the forward's mask: within 1e-5); the TruncatedNormal, MSRA,
+   NumpyArray and Bilinear initializers drawn on the card (the last two
+   the CPU's bit for bit, the first two within the CPU tests'
+   distribution bounds);
+39. one JSON line {"kernels": [...]} with each kernel's launches on the
+   main paths (by path beside, the dygraph and recipe paths too), error,
+   times and bound;
+40. the last line: {"ok": true, "device": {...}}.
 
-Every training phase (7, 10, 16, 17, 20-23 and 27) sets bench.py's three
-knobs as its _enable_fast_paths does (PADDLE_TPU_FUSED_OPTIMIZER,
+Every training phase (7, 10, 16, 17, 20-23, 27 and 34-37) sets bench.py's
+three knobs as its _enable_fast_paths does (PADDLE_TPU_FUSED_OPTIMIZER,
 PADDLE_TPU_FUSED_EPILOGUE and PADDLE_TPU_ASYNC_FEED, each unless already
 set), so it runs the program bench.py runs: after the epilogue pass and
 the optimizer pass. Each prints its op count after both passes and its
 fused_bias_act and fused_residual_layer_norm ops, which must be the JAX
 package's pass's counts (float32 / AMP: gpt_long 2+4 / 0, ResNet-50 16 /
 16, WMT 12+32 / 0+2, BERT 12+25 / 0+1, Wide&Deep 2). The twins (phases
-8, 11, 18, 24 and 28) run with the knobs set too.
+8, 11, 18, 24, 28 and 38) run with the knobs set too.
 
 Any failure raises and exits non-zero without the last line. Without a
 CUDA device it exits 2 and prints no result.
@@ -3914,6 +3960,673 @@ def attention_rows(flash, k2, k3, path, form, fwd, bwd):
                               "mask)"}
 
 
+# -- phases 34-38: the training recipes (slice 13) --------------------------
+
+# an eager step, then the capture; then the timed replays, back to back
+RECIPE_WARMUP = 2
+RECIPE_STEPS = 10
+# BERT's recipe (Devlin et al. 2018, A.2): linear warm-up to 1e-4, then a
+# linear decay to 0; the 10,000 warm-up steps cut to 4 and the decay to 12
+# steps, so that the window crosses both
+BERT_RECIPE_LR = dict(peak=1e-4, warmup_steps=4, decay_steps=12)
+# Goyal et al. 2017: the rate cut 10x at epochs 30 and 60, here at steps 3
+# and 6, so that a 10-step window crosses both
+RESNET_RECIPE_LR = dict(boundaries=[3, 6], values=[0.1, 0.01, 0.001])
+# (ops after both passes, fused_bias_act, fused_residual_layer_norm,
+# fused_optimizer) the JAX package's passes leave in the same programs at
+# full width (tests/test_torch_recompute.py holds the port to them)
+RECIPE_PASSES = {"bert_adamw": (1658, 0, 1, 1), "bert_lamb": (1855, 0, 1, 0),
+                 "resnet_goyal": (1008, 16, 0, 1),
+                 "gpt_recompute": (330, 0, 0, 1)}
+# fetched rate against the schedule's formula: a float32 op chain on the
+# step, an ulp or two off the exact value (the CPU tests read 1.2e-7
+# between the port and the JAX package)
+RECIPE_RATE_RTOL = 1e-6
+# phase 37's first loss against phase 20's: the same weights, batch and
+# forward ops, recompute or not
+RECOMPUTE_LOSS_RTOL = 1e-6
+# phase 38: the narrow MLP of tests/test_torch_clip_regularizer.py, wider
+RECIPE_MLP = dict(batch=32, inputs=16, hidden=64)
+RECIPE_TWIN_STEPS = 3
+SCHEDULE_STEPS = 12
+# recompute against none on the card, same executor seed and dropout
+# masks: the same values but the embedding grad's atomics (another sum
+# order each run)
+RECOMPUTE_TWIN_RTOL = 1e-5
+def bert_recipe_lr(fluid):
+    L, c = fluid.layers, BERT_RECIPE_LR
+    return L.linear_lr_warmup(
+        L.polynomial_decay(c["peak"], decay_steps=c["decay_steps"],
+                           end_learning_rate=0.0, power=1.0),
+        warmup_steps=c["warmup_steps"], start_lr=0.0, end_lr=c["peak"])
+
+
+def bert_recipe_rate(step):
+    """The rate of step 1, 2, ... by the schedule's formula."""
+    c = BERT_RECIPE_LR
+    if step < c["warmup_steps"]:
+        return c["peak"] * step / c["warmup_steps"]
+    return c["peak"] * (1 - min(step, c["decay_steps"]) / c["decay_steps"])
+
+
+def resnet_recipe_lr(fluid):
+    c = RESNET_RECIPE_LR
+    return fluid.layers.piecewise_decay(c["boundaries"], c["values"])
+
+
+def resnet_recipe_rate(step):
+    c = RESNET_RECIPE_LR
+    for b, v in zip(c["boundaries"], c["values"]):
+        if step < b:
+            return v
+    return c["values"][-1]
+
+
+def check_rates(phase, name, got, rate_of):
+    want = [rate_of(s) for s in range(1, len(got) + 1)]
+    bad = [(s + 1, g, w) for s, (g, w) in enumerate(zip(got, want))
+           if abs(g - w) > RECIPE_RATE_RTOL * abs(w) + 1e-12]
+    if bad:
+        raise RuntimeError("phase %d %s: fetched rates off the schedule "
+                           "(step, got, want): %s" % (phase, name, bad))
+
+
+def recipe_path(fluid, support, phase, name, build, feed, want, per, unit,
+                rate_of, falls=True):
+    """One recipe on the card through ``Executor.run``'s default route:
+    ``build()`` -> (main, startup, loss, lr var); RECIPE_WARMUP steps (an
+    eager one, which applies both passes, and the capture), then
+    RECIPE_STEPS replays back to back with the launch counts zeroed just
+    before and read just after (``want`` a step), then a profile of one
+    more. Every step fetches the loss and the rate, read after the
+    window: the rates must be the schedule's, the losses finite (and
+    falling, with ``falls``); the program after the passes must hold
+    RECIPE_PASSES[name]."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+
+    t0 = time.perf_counter()
+    main, startup, loss, lr = build()
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters()
+                   if p.trainable)
+    exe = fluid.Executor()  # the card
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    fetched = []
+
+    def step():
+        out = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope,
+                      return_numpy=False)
+        fetched.append(out)
+        return out
+
+    ce.reset_counters()
+    step()  # eager: applies the epilogue and optimizer passes
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    ops = [op.type for op in main.global_block().ops]
+    got = (len(ops), ops.count("fused_bias_act"),
+           ops.count("fused_residual_layer_norm"),
+           ops.count("fused_optimizer"))
+    log("phase %d %s after the epilogue and optimizer passes: %d ops, %d "
+        "fused_bias_act, %d fused_residual_layer_norm, %d fused_optimizer "
+        "(the JAX package's passes: %s)" % ((phase, name) + got
+                                            + (RECIPE_PASSES[name],)))
+    if got != RECIPE_PASSES[name]:
+        raise RuntimeError("%s: after the passes %s, want %s"
+                           % (name, got, RECIPE_PASSES[name]))
+    # the peak covers the capture and the replays, as captured_steps'
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step()  # the capture (and its first replay)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    support.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(RECIPE_STEPS):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / RECIPE_STEPS * 1e3
+    counts = support.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_one_capture(name, ce.counters())
+    bad = {k: (counts.get(k, 0), n * RECIPE_STEPS) for k, n in want.items()
+           if counts.get(k, 0) != n * RECIPE_STEPS}
+    if bad:
+        raise RuntimeError("%s launches in %d replays (got, want): %s"
+                           % (name, RECIPE_STEPS, bad))
+    wall_ms, busy_ms, kernels = profile_step(step)
+    losses = [float(o[0].numpy().reshape(-1)[0]) for o in fetched]
+    rates = [float(o[1].numpy().reshape(-1)[0]) for o in fetched]
+    log("phase %d %s: %d parameters, setup (build, startup, eager step) "
+        "%.2f s, capture %.3f ms" % (phase, name, n_params, t_setup,
+                                     capture_ms))
+    log("phase %d %s rates fetched at steps 1-%d: %s" % (
+        phase, name, len(rates), ", ".join("%.9g" % r for r in rates)))
+    log("phase %d %s losses: %s" % (phase, name, ", ".join(
+        "%.6f" % x for x in losses)))
+    check_rates(phase, name, rates, rate_of)
+    if not np.isfinite(losses).all() or (falls and
+                                         not losses[-1] < losses[0]):
+        raise RuntimeError("%s: losses %s" % (name, losses))
+    log("phase %d %s %d replays: step %.3f ms, %.1f %s/s (%d a step), "
+        "idle share %s (one replay's profile: wall %.3f, busy %.3f ms), "
+        "max_memory_allocated %d bytes; launches %s; card %s"
+        % (phase, name, RECIPE_STEPS, step_ms, per / step_ms * 1e3, unit,
+           per, idle(wall_ms, busy_ms), wall_ms, busy_ms, peak,
+           json.dumps({k: v for k, v in counts.items() if v}), card_line()))
+    for t_ms, count, kname in kernels[:6]:
+        log("phase %d profile   %9.3f ms  %5d x  %s"
+            % (phase, t_ms, count, kname[:110]))
+    exe.close()
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"n_params": n_params, "ops": got[0], "step_ms": step_ms,
+                    "per_s": per / step_ms * 1e3, "capture_ms": capture_ms,
+                    "idle_share": idle(wall_ms, busy_ms),
+                    "busy_ms": busy_ms, "peak_bytes": peak,
+                    "losses": losses, "rates": rates}
+
+
+def phase_bert_recipe(fluid, support, lamb=False):
+    """Phases 34 and 35: bench.py's BERT-base MLM (config 3) at full
+    width, bf16 AMP, under BERT's recipe: AdamW(weight_decay=0.01) (K4
+    once a step), or LambOptimizer(lamb_weight_decay=0.01) (one op a
+    parameter: K4 never), each with a global-norm clip at 1.0 and the
+    warm-up over a linear decay."""
+    from paddle_tpu_torch.models import transformer
+
+    bench_fast_paths()
+    b = transformer.BERT_BASE
+    feed = transformer.bert_batch(np.random.RandomState(SEED), b["batch"],
+                                  b["seq_len"], b["vocab"], b["masked"])
+
+    def build():
+        held = []
+
+        def make_opt():
+            held.append(bert_recipe_lr(fluid))
+            clip = fluid.clip.GradientClipByGlobalNorm(1.0)
+            if lamb:
+                return fluid.optimizer.LambOptimizer(
+                    held[0], lamb_weight_decay=0.01, grad_clip=clip)
+            return fluid.optimizer.AdamW(held[0], weight_decay=0.01,
+                                         grad_clip=clip)
+
+        main, startup, loss, _ = transformer.build_bert_base(
+            **b, seed=SEED + 6, use_bf16=True, optimizer_fn=make_opt)
+        return main, startup, loss, held[0]
+
+    want = {k: 0 for k in K123}
+    want["fused_optimizer_update"] = 0 if lamb else 1
+    return recipe_path(fluid, support, 35 if lamb else 34,
+                       "bert_lamb" if lamb else "bert_adamw", build, feed,
+                       want, b["batch"] * b["seq_len"], "tokens",
+                       bert_recipe_rate)
+
+
+def phase_resnet_recipe(fluid, support):
+    """Phase 36: bench.py's ResNet-50 (NHWC, 224x224, batch 128,
+    FLAGS_use_pallas_conv=all) in bf16 AMP under Goyal et al.'s recipe:
+    Momentum 0.9 with L2 decay 1e-4 and the piecewise rate. At lr 0.1 the
+    loss sticks at cross_entropy's clamp (ROADMAP queue 3), so the loss is
+    held finite and the rates are the gate."""
+    from paddle_tpu_torch.models.resnet import build_resnet_train, random_batch
+
+    bench_fast_paths()
+    fluid.set_flags({"FLAGS_use_pallas_conv": "all"})
+    np.random.seed(SEED + 4)   # the executor's RNG seed comes from numpy
+    feed = random_batch(np.random.RandomState(SEED + 5), RESNET_BATCH)
+
+    def build():
+        held = []
+
+        def make_opt():
+            held.append(resnet_recipe_lr(fluid))
+            return fluid.optimizer.Momentum(
+                held[0], 0.9, regularization=fluid.regularizer.L2Decay(1e-4))
+
+        main, startup, loss = build_resnet_train(
+            RESNET_BATCH, use_bf16=True, optimizer_fn=make_opt)
+        return main, startup, loss, held[0]
+
+    want = {"conv2d_bn_act": 44, "conv2d_bn_act_bf16": 44,
+            "fused_optimizer_update": 1}
+    return recipe_path(fluid, support, 36, "resnet_goyal", build, feed, want,
+                       RESNET_BATCH, "images", resnet_recipe_rate,
+                       falls=False)
+
+
+def phase_gpt_recompute(fluid, support, amp_run):
+    """Phase 37: gpt_long at full width under mp.decorate(
+    RecomputeOptimizer(Adam(1e-4))), checkpoints at each block's residual
+    output, from phase 20's weights and batch: K1 runs in the forward,
+    again in the recomputed forward and again in each flash grad op (its
+    auto-VJP re-runs the forward: phase 20 launches 4 a step), so 6 a
+    step; K2/K3 2, K4 1. The first loss must be phase 20's; the step time
+    and peak are printed beside phase 20's."""
+    from paddle_tpu_torch.models import gpt
+
+    bench_fast_paths()
+    np.random.seed(SEED)
+    cfg = gpt.GPT_LONG
+    feed = gpt.random_batch(np.random.RandomState(SEED), cfg["batch"],
+                            cfg["seq_len"], cfg["vocab"])
+
+    def build():
+        main, startup, loss, _ = gpt.build_gpt_long(
+            **cfg, seed=SEED + 1, use_bf16=True, recompute=True)
+        lr = [v for n, v in main.global_block().vars.items()
+              if n.startswith("learning_rate")]
+        return main, startup, loss, lr[0]
+
+    want = {"flash_attention_forward": 6, "flash_attention_backward_dq": 2,
+            "flash_attention_backward_dkv": 2, "fused_optimizer_update": 1}
+    counts, run = recipe_path(
+        fluid, support, 37, "gpt_recompute", build, feed, want,
+        cfg["batch"] * cfg["seq_len"], "tokens", lambda s: 1e-4)
+    first, ref = run["losses"][0], amp_run["losses"][0]
+    log("phase 37 gpt_long AMP under recompute beside phase 20 (same "
+        "weights, batch): first loss %.9g vs %.9g (relative %.3g, limit "
+        "%g); step %.3f vs %.3f ms; max_memory_allocated %d vs %d bytes "
+        "(%.2f vs %.2f GB)" % (first, ref, abs(first - ref) / abs(ref),
+                               RECOMPUTE_LOSS_RTOL, run["step_ms"],
+                               amp_run["step_ms"], run["peak_bytes"],
+                               amp_run["peak_bytes"],
+                               run["peak_bytes"] / 1e9,
+                               amp_run["peak_bytes"] / 1e9))
+    if abs(first - ref) > RECOMPUTE_LOSS_RTOL * abs(ref):
+        raise RuntimeError("recompute changed the first loss: %r vs %r"
+                           % (first, ref))
+    return counts, run
+
+
+# -- phase 38: the narrow recipe twins, card against CPU --------------------
+
+def recipe_mlp(fluid, make_opt, w1_lr=1.0, before=None, seed=SEED + 40):
+    """(main, startup, loss, extra fetches) of a narrow MLP (RECIPE_MLP: 16
+    -> 64 relu -> 1, the mean squared error) under ``make_opt()``; the
+    rate is fetched when it is a var."""
+    c = RECIPE_MLP
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = seed
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[c["batch"], c["inputs"]],
+                       dtype="float32")
+        y = fluid.data(name="y", shape=[c["batch"], 1], dtype="float32")
+        h = fluid.layers.fc(x, c["hidden"], act="relu",
+                            param_attr=fluid.ParamAttr(learning_rate=w1_lr))
+        loss = fluid.layers.mean(fluid.layers.square(
+            fluid.layers.fc(h, 1) - y))
+        if before is not None:
+            before(main)
+        opt = make_opt()
+        opt.minimize(loss)
+    lr = opt._learning_rate
+    return main, startup, loss, ([lr] if isinstance(lr, fluid.Variable)
+                                 else [])
+
+
+def recipe_mlp_feeds(n, seed=SEED + 41):
+    c = RECIPE_MLP
+    rng = np.random.RandomState(seed)
+    w = rng.randn(c["inputs"], 1).astype("float32")
+    feeds = []
+    for _ in range(n):
+        x = rng.randn(c["batch"], c["inputs"]).astype("float32")
+        feeds.append({"x": x, "y": x @ w})
+    return feeds
+
+
+def recipe_run(fluid, place, build, feeds, init, route="default",
+               exe_seed=None):
+    """Train ``build()``'s program a step a feed on ``place`` from
+    ``init`` (None: run the startup): (losses, extra fetches, state,
+    launches, captures, main)."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+    from paddle_tpu_torch.ops.cuda import support
+
+    main, startup, loss, extra = build()
+    exe = fluid.Executor(place)
+    if exe_seed is not None:
+        exe._core.rng.seed = exe_seed
+    scope = fluid.Scope()
+    if init is None:
+        exe.run(startup, scope=scope)
+    else:
+        fluid.io.scope_from_numpy(scope, init, place)
+    support.reset_launch_counts()
+    ce.reset_counters()
+    outs = []
+    for feed in feeds:
+        fetch = [loss] + list(extra)
+        if route == "interpreted":
+            res = exe._core.run_program(main, scope, feed, fetch, True)
+        else:
+            res = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        outs.append([np.asarray(r).astype(np.float64) for r in res])
+    state = card_state(main, scope)
+    counts = support.launch_counts()
+    captures = ce.counters()["executor.jit_traces"]
+    exe.close()
+    return outs, state, counts, captures, main
+
+
+def state_gap(a, b):
+    """The largest difference of the persistables both runs hold, each
+    over its scale (largest magnitude, at least 1e-3)."""
+    gap = 0.0
+    for n in sorted(set(a) & set(b)):
+        scale = max(float(np.abs(b[n]).max(initial=0.0)), 1e-3)
+        gap = max(gap, float(np.abs(a[n] - b[n]).max(initial=0.0)) / scale)
+    return gap
+
+
+def recipe_twin(fluid, name, build, feeds, routes=("default", "interpreted"),
+                want=None):
+    """``build()``'s program through CPUPlace() and on the card by each
+    route from the CPU startup's state: losses, extra fetches (rates) and
+    persistables within TWIN_RTOL of their scale. Returns the card's
+    launches on the default route."""
+    init = _init_state(fluid, build)
+    cpu = recipe_run(fluid, fluid.CPUPlace(), build, feeds, init)
+    launches = None
+    for route in routes:
+        card = recipe_run(fluid, fluid.CUDAPlace(0), build, feeds, init,
+                          route)
+        loss_gap = max(abs(c[0].reshape(-1)[0] - g[0].reshape(-1)[0])
+                       / max(abs(g[0].reshape(-1)[0]), 1e-6)
+                       for c, g in zip(card[0], cpu[0]))
+        # each extra fetch (a rate) over its largest magnitude in the run
+        fetch_gap = 0.0
+        for j in range(1, len(cpu[0][0])):
+            cv = np.array([c[j] for c in card[0]])
+            gv = np.array([g[j] for g in cpu[0]])
+            fetch_gap = max(fetch_gap, float(np.abs(cv - gv).max())
+                            / max(float(np.abs(gv).max()), 1e-12))
+        gap = state_gap(card[1], cpu[1])
+        log("phase 38 %s %s: losses %s (CPU %s), largest loss gap %.3g, "
+            "fetch gap %.3g, state gap %.3g of scale (limit %g); %d "
+            "captures; launches %s" % (
+                name, route, [round(float(c[0].reshape(-1)[0]), 6)
+                              for c in card[0]],
+                [round(float(g[0].reshape(-1)[0]), 6) for g in cpu[0]],
+                loss_gap, fetch_gap, gap, TWIN_RTOL, card[3],
+                json.dumps({k: v for k, v in card[2].items() if v})))
+        if not (loss_gap <= TWIN_RTOL and fetch_gap <= TWIN_RTOL
+                and gap <= TWIN_RTOL):
+            raise RuntimeError("phase 38 %s %s: card and CPU disagree "
+                               "(loss %g, fetches %g, state %g)"
+                               % (name, route, loss_gap, fetch_gap, gap))
+        if route == "default":
+            launches = card[2]
+            if card[3] != 1:
+                raise RuntimeError("phase 38 %s: %d captures, want 1"
+                                   % (name, card[3]))
+            if want is not None and any(card[2].get(k, 0) != n
+                                        for k, n in want.items()):
+                raise RuntimeError("phase 38 %s launches %s, want %s"
+                                   % (name, card[2], want))
+    return launches
+
+
+def _init_state(fluid, build):
+    main, startup, _, _ = build()
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    out = {}
+    for v in main.global_block().vars.values():
+        var = scope.find_var(v.name) if v.persistable else None
+        if var is not None and var.is_initialized():
+            out[v.name] = var.get_tensor().numpy()
+    return out
+
+
+def _recipe_optimizers(fluid):
+    O = fluid.optimizer
+    return {
+        "lars_momentum": lambda: O.LarsMomentumOptimizer(0.5, 0.9),
+        "adagrad": lambda: O.Adagrad(0.1, initial_accumulator_value=0.1),
+        "adamax": lambda: O.Adamax(0.05),
+        "dpsgd": lambda: O.DpsgdOptimizer(0.1, clip=1.0),
+        "decayed_adagrad": lambda: O.DecayedAdagradOptimizer(0.1),
+        "adadelta": lambda: O.Adadelta(0.1, rho=0.9),
+        "rmsprop": lambda: O.RMSProp(0.01, momentum=0.5),
+        "rmsprop_centered": lambda: O.RMSPropOptimizer(0.01, centered=True),
+        "ftrl": lambda: O.Ftrl(0.1, l1=0.01, l2=0.01),
+        "ftrl_lr_power": lambda: O.FtrlOptimizer(0.1, l1=0.01,
+                                                 lr_power=-0.25),
+        "lamb": lambda: O.LambOptimizer(0.05, lamb_weight_decay=0.01),
+    }
+
+
+def _recipe_schedules(fluid):
+    L = fluid.layers
+    return {
+        "noam": lambda: L.noam_decay(64, warmup_steps=4, learning_rate=2.0),
+        "exponential": lambda: L.exponential_decay(0.1, 3, 0.5),
+        "natural_exp_staircase": lambda: L.natural_exp_decay(
+            0.1, 3, 0.5, staircase=True),
+        "inverse_time": lambda: L.inverse_time_decay(0.1, 3, 0.5),
+        "polynomial_cycle": lambda: L.polynomial_decay(
+            0.1, 5, 0.001, power=1.0, cycle=True),
+        "piecewise": lambda: resnet_recipe_lr(fluid),
+        "cosine": lambda: L.cosine_decay(0.1, step_each_epoch=3, epochs=4),
+        "warmup_over_polynomial": lambda: bert_recipe_lr(fluid),
+    }
+
+
+def _schedule_program(fluid, make):
+    """A program of the schedule alone; its rate is the fetched "loss"."""
+    def build():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            lr = make()
+        return main, startup, lr, []
+
+    return build
+
+
+def _clip_cases(fluid):
+    C, R, O = fluid.clip, fluid.regularizer, fluid.optimizer
+
+    def set_clip(clip):
+        return lambda main: C.set_gradient_clip(clip, program=main)
+
+    return {
+        "grad_clip_by_value": (lambda: O.SGD(0.5, grad_clip=C.GradientClipByValue(
+            0.05, -0.02)), None),
+        "grad_clip_by_norm": (lambda: O.SGD(0.5, grad_clip=C.GradientClipByNorm(
+            0.1)), None),
+        "grad_clip_by_global_norm": (lambda: O.SGD(
+            0.5, grad_clip=C.GradientClipByGlobalNorm(0.5)), None),
+        "set_gradient_clip": (lambda: O.SGD(0.5),
+                              set_clip(C.GradientClipByGlobalNorm(0.5))),
+        "l1_decay": (lambda: O.Momentum(0.1, 0.9,
+                                        regularization=R.L1Decay(0.01)),
+                     None),
+        "l2_decay": (lambda: O.Momentum(0.1, 0.9,
+                                        regularization=R.L2Decay(0.01)),
+                     None),
+        "bert_recipe": (lambda: O.AdamW(
+            bert_recipe_lr(fluid), weight_decay=0.01,
+            grad_clip=C.GradientClipByGlobalNorm(1.0)), None),
+    }
+
+
+def twin_bert_recompute(fluid, recompute, dropout):
+    """(main, startup, loss, []) of a 2-layer BERT (TRANSFORMER_TWIN:
+    d_model 128, 2 heads of 64, vocab 512) under Momentum (Adam would move
+    an element whose grad is rounding noise by a sign-like step, which a
+    sum order flips), checkpoints at each encoder layer's output under
+    ``recompute``."""
+    from paddle_tpu_torch.models import transformer
+
+    batch, seq = TRANSFORMER_TWIN_BATCH
+    c = TRANSFORMER_TWIN
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED + 42
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src = fluid.data(name="src", shape=[batch, seq], dtype="int64")
+        pos = fluid.data(name="pos", shape=[batch, seq], dtype="int64")
+        mpos = fluid.data(name="mpos", shape=[batch, 5], dtype="int64")
+        labels = fluid.data(name="labels", shape=[batch, 5, 1],
+                            dtype="int64")
+        logits = transformer.bert_base_pretrain(
+            src, pos, mpos, vocab_size=c["vocab"], max_len=seq,
+            num_layers=c["num_layers"], num_heads=c["num_heads"],
+            d_model=c["d_model"], d_ff=c["d_ff"], dropout=dropout)
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.reshape(logits, [batch * 5, c["vocab"]]),
+            fluid.layers.reshape(labels, [batch * 5, 1])))
+        opt = fluid.optimizer.Momentum(0.01, 0.9)
+        if recompute:
+            norms = [op.output("Y")[0] for op in main.global_block().ops
+                     if op.type == "layer_norm"]
+            opt = fluid.optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints([main.global_block().var(n)
+                                  for n in norms[2::2]])
+        opt.minimize(loss)
+    return main, startup, loss, []
+
+
+def _twin_init_draws(fluid, place):
+    """The four initializers' parameters drawn by a startup run on
+    ``place``: name -> numpy."""
+    I = fluid.initializer
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED + 43
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[2, 400], dtype="float32")
+        for name, init in (
+                ("truncated_normal", I.TruncatedNormal(loc=0.5, scale=2.0)),
+                ("msra_uniform", I.MSRA()),
+                ("msra_normal", I.MSRAInitializer(uniform=False, fan_in=50)),
+                ("numpy_array", I.NumpyArrayInitializer(
+                    np.arange(400 * 500, dtype="float32").reshape(400, 500)
+                    / 7e4))):
+            fluid.layers.fc(x, 500, param_attr=fluid.ParamAttr(
+                name=name, initializer=init), bias_attr=False)
+        w = startup.global_block().create_var(
+            name="bilinear", shape=(4, 2, 6, 6), dtype="float32",
+            persistable=True)
+        I.Bilinear()(w, startup.global_block())
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    return {n: scope.find_var(n).get_tensor().numpy() for n in (
+        "truncated_normal", "msra_uniform", "msra_normal", "numpy_array",
+        "bilinear")}
+
+
+def _check_draws(draws):
+    """The CPU tests' distribution bounds (tests/test_torch_initializers.py)
+    on 200,000 values a parameter; returns the readings."""
+    import math
+
+    n = 400 * 500
+    t = draws["truncated_normal"]
+    se = 0.87962566 * 2.0 / math.sqrt(n)
+    reads = {"truncated_normal_range": [float(t.min()), float(t.max())],
+             "truncated_normal_mean_in_se": abs(float(t.mean()) - 0.5) / se,
+             "truncated_normal_std_ratio": float(t.std()) / (0.87962566 * 2)}
+    u, limit = draws["msra_uniform"], math.sqrt(6.0 / 400)
+    reads["msra_uniform_max_over_limit"] = float(np.abs(u).max()) / limit
+    reads["msra_uniform_std_ratio"] = float(u.std()) / (limit / math.sqrt(3))
+    g = draws["msra_normal"]
+    reads["msra_normal_std_ratio"] = float(g.std()) / math.sqrt(2.0 / 50)
+    ok = (t.min() > 0.5 - 4.0 and t.max() < 0.5 + 4.0
+          and reads["truncated_normal_mean_in_se"] < 5
+          and abs(reads["truncated_normal_std_ratio"] - 1) < 0.01
+          and reads["msra_uniform_max_over_limit"] <= 1
+          and abs(reads["msra_uniform_std_ratio"] - 1) < 0.01
+          and abs(reads["msra_normal_std_ratio"] - 1) < 0.01)
+    return ok, reads
+
+
+def phase_recipe_twins(fluid, support):
+    """Phase 38: the narrow recipe twins, card against CPU from the same
+    state (TWIN_RTOL of scale): each new optimizer op type one step at a
+    time for RECIPE_TWIN_STEPS steps, through the captured route and the
+    card's interpreter; each schedule over SCHEDULE_STEPS steps (the
+    fetched rates); each clip class and both regularizers; a
+    per-parameter rate (one K4 group and one adam op, as the JAX pass
+    leaves them); a 2-layer BERT under recompute against the CPU, and with
+    dropout 0.1 against itself without recompute on the card (the same
+    masks); the four new initializers drawn on the card."""
+    bench_fast_paths()
+    feeds = recipe_mlp_feeds(RECIPE_TWIN_STEPS)
+    for name, make in sorted(_recipe_optimizers(fluid).items()):
+        recipe_twin(fluid, name, lambda m=make: recipe_mlp(fluid, m), feeds)
+    for name, make in sorted(_recipe_schedules(fluid).items()):
+        recipe_twin(fluid, "schedule " + name, _schedule_program(fluid, make),
+                    [{}] * SCHEDULE_STEPS, routes=("default",))
+    for name, (make, before) in sorted(_clip_cases(fluid).items()):
+        recipe_twin(fluid, name, lambda m=make, b=before: recipe_mlp(
+            fluid, m, before=b), feeds)
+    launches = recipe_twin(
+        fluid, "per-parameter rate",
+        lambda: recipe_mlp(fluid, lambda: fluid.optimizer.Adam(0.01),
+                           w1_lr=2.0), feeds, routes=("default",),
+        want={"fused_optimizer_update": RECIPE_TWIN_STEPS})
+    main = recipe_mlp(fluid, lambda: fluid.optimizer.Adam(0.01), w1_lr=2.0)[0]
+    from paddle_tpu_torch.core import fusion
+
+    groups = fusion.apply_fused_optimizer(main, fluid.Scope(),
+                                          torch.device("cpu"),
+                                          layout="chain")
+    types = [op.type for op in main.global_block().ops]
+    log("phase 38 per-parameter rate: %d K4 group (the JAX pass's: 1) and "
+        "%d adam op left; K4 launched %d times in %d steps"
+        % (groups, types.count("adam"),
+           launches.get("fused_optimizer_update", 0), RECIPE_TWIN_STEPS))
+    if groups != 1 or types.count("adam") != 1:
+        raise RuntimeError("per-parameter rate: %d groups, %d adam ops"
+                           % (groups, types.count("adam")))
+    rng = np.random.RandomState(SEED + 44)
+    from paddle_tpu_torch.models import transformer
+
+    batch, seq = TRANSFORMER_TWIN_BATCH
+    bfeeds = [transformer.bert_batch(rng, batch, seq,
+                                     TRANSFORMER_TWIN["vocab"], 5)
+              for _ in range(RECIPE_TWIN_STEPS)]
+    recipe_twin(fluid, "bert recompute",
+                lambda: twin_bert_recompute(fluid, True, 0.0), bfeeds,
+                routes=("default",))
+    init = _init_state(fluid, lambda: twin_bert_recompute(fluid, False, 0.1))
+    runs = {rc: recipe_run(fluid, fluid.CUDAPlace(0),
+                           lambda r=rc: twin_bert_recompute(fluid, r, 0.1),
+                           bfeeds, init, exe_seed=SEED + 45)
+            for rc in (False, True)}
+    losses = {rc: [float(o[0].reshape(-1)[0]) for o in r[0]]
+              for rc, r in runs.items()}
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses[True],
+                                                  losses[False]))
+    sgap = state_gap(runs[True][1], runs[False][1])
+    log("phase 38 bert recompute with dropout 0.1 on the card against no "
+        "recompute (same executor seed): losses %s vs %s, largest gap "
+        "%.3g, state gap %.3g (limit %g)" % (losses[True], losses[False],
+                                             gap, sgap,
+                                             RECOMPUTE_TWIN_RTOL))
+    if not (gap <= RECOMPUTE_TWIN_RTOL and sgap <= RECOMPUTE_TWIN_RTOL):
+        raise RuntimeError("recompute with dropout changed the training "
+                           "(loss %g, state %g)" % (gap, sgap))
+    card = _twin_init_draws(fluid, fluid.CUDAPlace(0))
+    cpu = _twin_init_draws(fluid, fluid.CPUPlace())
+    exact = all(np.array_equal(card[n], cpu[n])
+                for n in ("numpy_array", "bilinear"))
+    ok, reads = _check_draws(card)
+    log("phase 38 initializers on the card: NumpyArray and Bilinear the "
+        "CPU's bit for bit: %s; TruncatedNormal (truncated_gaussian_random) "
+        "and MSRA draws %s" % (exact, json.dumps(reads)))
+    if not (exact and ok):
+        raise RuntimeError("phase 38 initializers on the card: exact %s, "
+                           "distribution %s" % (exact, reads))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -3990,6 +4703,15 @@ def main() -> int:
         phase_dygraph_flash(fluid, support, fa, dy_bert, dy_bert_eager)
     attention_rows(flash, k2, k3, "dygraph_shape", "encoder", fwd, bwd)
     phase_dygraph_twins(fluid, support)
+    # the training recipes at full width, bf16 AMP, then their narrow twins
+    bert_recipe, bert_recipe_run = phase_bert_recipe(fluid, support)
+    bert_lamb, bert_lamb_run = phase_bert_recipe(fluid, support, lamb=True)
+    resnet_recipe, resnet_recipe_run = phase_resnet_recipe(fluid, support)
+    gpt_rc, gpt_rc_run = phase_gpt_recompute(fluid, support, gpt_amp_run)
+    phase_recipe_twins(fluid, support)
+    log("phases 34-37 %s" % json.dumps(
+        {"bert_adamw": bert_recipe_run, "bert_lamb": bert_lamb_run,
+         "resnet_goyal": resnet_recipe_run, "gpt_recompute": gpt_rc_run}))
     log("phases 29-32 %s" % json.dumps({
         name: {k: v for k, v in run.items()
                if k not in ("counts", "step_counts", "losses")}
@@ -4022,7 +4744,11 @@ def main() -> int:
                    "dygraph_mlp_lazy": dy_mlp_lazy["counts"].get(
                        kern["name"], 0),
                    "dygraph_bert": dy_bert["counts"].get(kern["name"], 0),
-                   "dygraph_flash": dy_flash.get(kern["name"], 0)}
+                   "dygraph_flash": dy_flash.get(kern["name"], 0),
+                   "bert_recipe": bert_recipe.get(kern["name"], 0),
+                   "bert_lamb": bert_lamb.get(kern["name"], 0),
+                   "resnet_recipe": resnet_recipe.get(kern["name"], 0),
+                   "gpt_recompute": gpt_rc.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

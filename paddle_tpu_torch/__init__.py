@@ -24,7 +24,10 @@ from . import initializer  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from . import layers  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import regularizer  # noqa: F401
+from . import clip  # noqa: F401
 from . import backward  # noqa: F401
+from .backward import gradients  # noqa: F401
 from .layers.io import fluid_data as data  # noqa: F401
 from . import models  # noqa: F401
 from . import contrib  # noqa: F401

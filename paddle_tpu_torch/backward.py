@@ -1,16 +1,23 @@
-"""Static-graph autodiff: ``append_backward``.
+"""Static-graph autodiff: ``append_backward`` and ``gradients``.
 
 Counterpart of ``paddle_tpu/backward.py`` (``append_backward:106``,
-``_append_backward_impl:192``, ``make_finalize:297``, ``_emit_grad_ops:329``):
-walk the block's ops on the path from the parameters to the loss in
-reverse, append each op's ``<type>_grad`` op (the registry's auto-VJP op,
-or what the op's grad maker emits), sum a var's partial grads where it
-fans out to several consumers, and respect ``stop_gradient`` and
-``no_grad_set``. The same op sequence, slots and var names as the JAX
-package, so the two build the same training program.
+``_emit_recompute_ops:149``, ``_append_backward_impl:192``,
+``make_finalize:297``, ``_emit_grad_ops:329``, ``gradients:561``): walk
+the block's ops on the path from the parameters to the loss in reverse,
+append each op's ``<type>_grad`` op (the registry's auto-VJP op, or what
+the op's grad maker emits), sum a var's partial grads where it fans out to
+several consumers, and respect ``stop_gradient`` and ``no_grad_set``. The
+same op sequence, slots and var names as the JAX package, so the two build
+the same training program.
 
-Recompute (``checkpoints``) and the backward of ``while`` loops come with
-a later slice (ROADMAP.md); asking for recompute raises.
+Recompute (``checkpoints``): before the grad ops, every op on the path
+that writes a name other than a checkpoint is appended again with its
+outputs renamed ``<name>@RECOMPUTE``, and the grad ops read those
+recomputed values, so only the checkpoints (and what the path reads from
+outside) are kept from the forward for the backward. A re-emitted op
+carries the original's id as ``_fwd_op_id``, so a recomputed ``dropout``
+draws the forward's mask. The backward of ``while`` loops comes with the
+control-flow ops (ROADMAP.md); a program holding one raises.
 """
 from __future__ import annotations
 
@@ -101,11 +108,7 @@ def bind_partial_grad(block, pending, var_name: str) -> str:
 def append_backward(loss, parameter_list=None, no_grad_set=None,
                     callbacks=None, checkpoints=None):
     """Append grad ops computing d(loss)/d(var); returns
-    ``[(param, param_grad_var)]``."""
-    if checkpoints:
-        raise NotImplementedError(
-            "append_backward(checkpoints=...) (recompute) is not yet "
-            "ported (ROADMAP.md, queue 1)")
+    ``[(param, param_grad_var)]``. ``checkpoints`` turns on recompute."""
     block = loss.block
     program = block.program
     program._appending_grad_times += 1
@@ -116,14 +119,55 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
     try:
         with program._backward_role_guard():
             return _append_backward_impl(loss, block, program,
-                                         parameter_list, no_grad_set)
+                                         parameter_list, no_grad_set,
+                                         checkpoints)
     finally:
         _PASS_STATE.clear()
         _PASS_STATE.update(prev)
 
 
+def _emit_recompute_ops(block, path, checkpoints) -> Dict[str, str]:
+    """Append renamed copies of the path's forward ops (checkpoint vars and
+    vars made outside the path are read as they are); returns the old ->
+    new name map the grad ops read forward values through."""
+    keep = {c.name if hasattr(c, "name") else str(c) for c in checkpoints}
+    rename: Dict[str, str] = {}
+    for idx in path:
+        op = block.ops[idx]
+        if not any(n and n not in keep for n in op.output_arg_names):
+            continue  # writes checkpoints only: stored, not recomputed
+        new_inputs = {slot: [rename.get(n, n) for n in names]
+                      for slot, names in op.inputs.items()}
+        new_outputs = {}
+        for slot, names in op.outputs.items():
+            outs = []
+            for n in names:
+                if not n:
+                    outs.append(n)
+                    continue
+                # never the original name: a checkpoint's stored value is
+                # read under it, and a persistable output (batch norm's
+                # running stats) must not update twice
+                nn = n + "@RECOMPUTE"
+                if nn not in block.vars:
+                    v = block._find_var_recursive(n)
+                    nv = block.create_var(
+                        name=nn, shape=None if v is None else v.shape,
+                        dtype="float32" if v is None else v.dtype)
+                    nv.stop_gradient = True
+                if n not in keep:
+                    rename[n] = nn
+                outs.append(nn)
+            new_outputs[slot] = outs
+        attrs = dict(op.attrs)
+        attrs.setdefault("_fwd_op_id", op._id or 0)
+        block.append_op(op.type, inputs=new_inputs, outputs=new_outputs,
+                        attrs=attrs, infer_shape=False)
+    return rename
+
+
 def _append_backward_impl(loss, block, program, parameter_list=None,
-                          no_grad_set=None):
+                          no_grad_set=None, checkpoints=None):
     no_grad = {v.name for b in program.blocks for v in b.vars.values()
                if v.stop_gradient}
     no_grad |= {n if isinstance(n, str) else n.name
@@ -145,6 +189,9 @@ def _append_backward_impl(loss, block, program, parameter_list=None,
                             if n not in no_grad)
 
     path = _find_op_path(block, loss.name, req)
+    recompute_rename: Dict[str, str] = {}
+    if checkpoints:
+        recompute_rename = _emit_recompute_ops(block, path, checkpoints)
 
     # seed d(loss)/d(loss) = 1
     loss_grad_name = grad_name_for(loss.name)
@@ -158,7 +205,7 @@ def _append_backward_impl(loss, block, program, parameter_list=None,
     pending: Dict[str, List[str]] = {loss.name: [loss_grad_name]}
     finalize = make_finalize(block, pending)
     _emit_grad_ops(block, [block.ops[i] for i in path], pending, finalize,
-                   diffable, no_grad)
+                   diffable, no_grad, recompute_rename)
 
     # finalize the leaves (parameters and data): merge their partial grads
     params_and_grads = []
@@ -194,8 +241,12 @@ def make_finalize(block, pending: Dict[str, List[str]]):
     return finalize
 
 
-def _emit_grad_ops(block, fwd_ops, pending, finalize, diffable, no_grad):
-    """Reverse-walk ``fwd_ops`` appending grad ops into ``block``."""
+def _emit_grad_ops(block, fwd_ops, pending, finalize, diffable, no_grad,
+                   recompute_rename=None):
+    """Reverse-walk ``fwd_ops`` appending grad ops into ``block``. Forward
+    values are read through ``recompute_rename``; grads keep the original
+    names."""
+    rn = recompute_rename or {}
     for op in reversed(fwd_ops):
         info = _op_info(op.type)
         if info is None:
@@ -223,14 +274,15 @@ def _emit_grad_ops(block, fwd_ops, pending, finalize, diffable, no_grad):
 
         # inputs: the forward inputs, the outputs' grads, and forward
         # outputs that a hand-written grad op reads by slot name
-        g_inputs = {slot.name: list(op.input(slot.name))
+        g_inputs = {slot.name: [rn.get(n, n) for n in op.input(slot.name)]
                     for slot in info.inputs if op.input(slot.name)}
         g_inputs.update(out_grads)
         for slot in ginfo.inputs:
             if slot.name in g_inputs or slot.name.endswith(GRAD_SUFFIX):
                 continue
             if slot.name in op.outputs:
-                g_inputs[slot.name] = list(op.outputs[slot.name])
+                g_inputs[slot.name] = [rn.get(n, n)
+                                       for n in op.outputs[slot.name]]
 
         # outputs: a fresh partial-grad name per differentiable input var;
         # no_grad slots (labels, lengths) are never bound
@@ -251,6 +303,27 @@ def _emit_grad_ops(block, fwd_ops, pending, finalize, diffable, no_grad):
         g_attrs["_fwd_op_id"] = op._id
         block.append_op(grad_type, g_inputs, g_outputs, g_attrs,
                         infer_shape=False)
+
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    """``fluid.gradients``: d(targets)/d(inputs), one target, as the JAX
+    package takes; None for an input the target does not reach."""
+    if not isinstance(targets, (list, tuple)):
+        targets = [targets]
+    if not isinstance(inputs, (list, tuple)):
+        inputs = [inputs]
+    assert len(targets) == 1, "multi-target gradients arrive with a later wave"
+    loss = targets[0]
+    block = loss.block
+    append_backward(loss, parameter_list=[v.name for v in inputs]
+                    if all(isinstance(v, framework.Variable) for v in inputs)
+                    else None,
+                    no_grad_set=no_grad_set)
+    outs = []
+    for v in inputs:
+        gname = framework.grad_var_name(v.name)
+        outs.append(block.var(gname) if block.has_var(gname) else None)
+    return outs
 
 
 def _op_info(op_type):

@@ -1,8 +1,10 @@
 """The dygraph optimizer step: one registered update op per parameter.
 
 Counterpart of ``paddle_tpu/dygraph/backward_utils.py``: ``minimize``
-runs ``sgd``, ``momentum``, ``adam`` or ``adamw`` per parameter on its
-grad (eagerly, or queued under lazy dygraph), as the JAX package does:
+runs ``sgd``, ``momentum``, ``adam``, ``adamw``, ``lamb`` or ``adagrad``
+per parameter on its grad (eagerly, or queued under lazy dygraph), as the
+JAX package does (:67-86), and raises for any other optimizer, as it
+does:
 the flat fused update (K4) is a static-program rewrite and takes no part
 here. The learning rate is a ``[1]`` float32 tensor made each step from
 the optimizer's rate (a decay object is called once a step), so under a
@@ -49,6 +51,10 @@ def _update_spec(opt, p):
         return "momentum", {"mu": opt._momentum,
                             "use_nesterov": opt._use_nesterov}, \
             {"Velocity": "velocity"}
+    if isinstance(opt, O.AdagradOptimizer):
+        _get_state(opt, p.name, "moment", p,
+                   fill=opt._initial_accumulator_value)
+        return "adagrad", {"epsilon": opt._epsilon}, {"Moment": "moment"}
     if isinstance(opt, O.AdamOptimizer):
         _get_state(opt, p.name, "moment1", p)
         _get_state(opt, p.name, "moment2", p)
@@ -57,16 +63,15 @@ def _update_spec(opt, p):
         attrs = {"beta1": opt._beta1, "beta2": opt._beta2,
                  "epsilon": opt._epsilon}
         op_type = "adam"
-        if isinstance(opt, O.AdamW):
-            op_type = "adamw"
+        if isinstance(opt, (O.AdamW, O.LambOptimizer)):
+            op_type = "adamw" if isinstance(opt, O.AdamW) else "lamb"
             attrs["weight_decay"] = opt._weight_decay
         return op_type, attrs, {"Moment1": "moment1", "Moment2": "moment2",
                                 "Beta1Pow": "beta1pow",
                                 "Beta2Pow": "beta2pow"}
     raise NotImplementedError(
-        "the dygraph update of %s is not ported yet: the port has SGD, "
-        "Momentum, Adam and AdamW (ROADMAP.md, queue 1 item 3)"
-        % type(opt).__name__)
+        "dygraph path for %s arrives with a later wave (ROADMAP.md, "
+        "queue 1 item 5)" % type(opt).__name__)
 
 
 def dygraph_minimize(opt, loss, parameter_list=None):

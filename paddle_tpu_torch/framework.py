@@ -164,6 +164,9 @@ class Block:
                              % (name, self.idx))
         return v
 
+    def has_var(self, name: str) -> bool:
+        return self._find_var_recursive(name) is not None
+
     def has_var_local(self, name: str) -> bool:
         return name in self.vars
 

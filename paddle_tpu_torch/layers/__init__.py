@@ -1,6 +1,10 @@
 """``layers`` — the graph-building API of the ported slices."""
+from .control_flow import *  # noqa: F401,F403
+from .control_flow import __all__ as _cf_all
 from .extras import flash_attention  # noqa: F401
 from .io import data, fluid_data  # noqa: F401
+from .learning_rate_scheduler import *  # noqa: F401,F403
+from .learning_rate_scheduler import __all__ as _lrs_all
 from .loss import cross_entropy, softmax_with_cross_entropy  # noqa: F401
 from .math_op_patch import monkey_patch_variable
 from .nn import *  # noqa: F401,F403
@@ -16,4 +20,4 @@ monkey_patch_variable()
 
 __all__ = (["data", "fluid_data", "flash_attention", "cross_entropy",
             "softmax_with_cross_entropy"] + _nn_all + _ops_all + _seq_all
-           + _tensor_all)
+           + _tensor_all + _cf_all + _lrs_all)

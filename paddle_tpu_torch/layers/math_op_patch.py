@@ -51,17 +51,14 @@ def _cmp_op(op_type):
     ``control_flow._cmp_layer``)."""
 
     def impl(self, other):
+        from .control_flow import _cmp_layer
+
         if not isinstance(other, framework.Variable):
             from .tensor import fill_constant
 
             other = fill_constant(list(self.shape) if self.shape else [1],
                                   self.dtype, other)
-        helper = LayerHelper(op_type, input=self)
-        out = helper.create_variable_for_type_inference("bool",
-                                                        stop_gradient=True)
-        helper.append_op(op_type, inputs={"X": [self], "Y": [other]},
-                         outputs={"Out": [out]})
-        return out
+        return _cmp_layer(op_type, self, other)
 
     return impl
 

@@ -2,8 +2,9 @@
 ``pool2d`` (:413), ``batch_norm`` (:485), ``layer_norm`` (:552),
 ``softmax`` (:661), ``matmul`` (:671), ``expand`` (:811), ``gather``
 (:842), ``reduce_sum`` (:931), ``mean`` (:971), ``relu`` (:1023),
-``reshape``, ``transpose``, ``dropout`` (:641), ``slice`` (:785) and
-``elementwise_add`` / ``_sub`` / ``_mul`` / ``_div`` (:1159-1172) of
+``reshape``, ``transpose``, ``dropout`` (:641), ``slice`` (:785),
+``clip`` (:959), ``clip_by_norm`` (:965) and ``elementwise_add`` /
+``_sub`` / ``_mul`` / ``_div`` / ``_min`` (:1159-1180) of
 ``paddle_tpu/layers/nn.py``. Each emits the same ops, slots, attrs and
 parameter names as its JAX counterpart."""
 from __future__ import annotations
@@ -18,7 +19,7 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
            "softmax", "matmul", "expand", "gather", "reduce_sum", "mean",
            "relu", "reshape", "transpose", "dropout", "slice",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
-           "elementwise_div"]
+           "elementwise_div", "elementwise_min", "clip", "clip_by_norm"]
 
 
 def _pair(x, n=2):
@@ -323,3 +324,19 @@ def elementwise_mul(x, y, axis=-1, act=None, name=None):
 
 def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", input=x, name=name)
+    return _single_out_op(helper, "clip", {"X": [x]},
+                          {"min": float(min), "max": float(max)})
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", input=x, name=name)
+    return _single_out_op(helper, "clip_by_norm", {"X": [x]},
+                          {"max_norm": float(max_norm)})

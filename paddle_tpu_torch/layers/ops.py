@@ -1,11 +1,16 @@
-"""``scale`` (counterpart of ``paddle_tpu/layers/ops.py:42``) and the
-unary layers ``tanh`` and ``sigmoid``, made as the JAX package's
-``_make_unary`` (:24) makes them."""
+"""``scale`` (counterpart of ``paddle_tpu/layers/ops.py:42``), ``pow``
+(:55), ``increment`` (:102) and the unary layers ``tanh``, ``sigmoid``,
+``exp``, ``log``, ``sqrt``, ``abs``, ``square``, ``ceil``, ``floor``,
+``cos`` and ``sign``, made as the JAX package's ``_make_unary`` (:24)
+makes them."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["tanh", "sigmoid", "scale"]
+_UNARY = ["tanh", "sigmoid", "exp", "log", "sqrt", "abs", "square", "ceil",
+          "floor", "cos", "sign"]
+
+__all__ = _UNARY + ["scale", "pow", "increment"]
 
 
 def _make_unary(op_type):
@@ -20,8 +25,8 @@ def _make_unary(op_type):
     return layer
 
 
-tanh = _make_unary("tanh")
-sigmoid = _make_unary("sigmoid")
+for _name in _UNARY:
+    globals()[_name] = _make_unary(_name)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
@@ -32,3 +37,19 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
                      attrs={"scale": float(scale), "bias": float(bias),
                             "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
+
+
+def pow(x, factor=1.0, name=None):
+    helper = LayerHelper("pow", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("pow", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"factor": float(factor)})
+    return out
+
+
+def increment(x, value=1.0, in_place=True):
+    helper = LayerHelper("increment", input=x)
+    out = x if in_place else helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("increment", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"step": float(value)})
+    return out

@@ -18,6 +18,12 @@ run in bfloat16 on float32 master parameters, ``flash_attention`` (on no
 AMP list) in float32; ``use_bf16=False`` is bench.py's ``--no-bf16``
 float32 program. It builds with this package only; the tests write the
 same script against each package to hold the two against each other.
+
+``optimizer_fn`` builds another optimizer in Adam's place (a training
+recipe: a learning-rate schedule, a clip, weight decay), called inside the
+program guard; ``recompute`` wraps the optimizer in
+``RecomputeOptimizer`` with each block's residual output as a checkpoint
+(inside ``mp.decorate`` under ``use_bf16``).
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ GPT_LONG = dict(batch=2, seq_len=4096, d_model=1024, n_heads=16,
 
 
 def build_gpt_long(batch, seq_len, d_model=1024, n_heads=16, n_layers=2,
-                   vocab=8192, learning_rate=1e-4, seed=0, use_bf16=True):
+                   vocab=8192, learning_rate=1e-4, seed=0, use_bf16=True,
+                   optimizer_fn=None, recompute=False):
     """(main, startup, loss, params_grads) of the training program, built
     under fresh names; ``seed`` is the startup program's random seed,
     ``use_bf16`` wraps the optimizer in ``mp.decorate``."""
@@ -43,6 +50,7 @@ def build_gpt_long(batch, seq_len, d_model=1024, n_heads=16, n_layers=2,
         lbl = fluid_data(name="lbl", shape=[batch * seq_len, 1],
                          dtype="int64")
         x = layers.embedding(ids, size=(vocab, d_model))
+        checkpoints = []
         for _ in range(n_layers):
             h = layers.layer_norm(x)
             q = layers.fc(h, d_model, num_flatten_dims=2)
@@ -61,10 +69,15 @@ def build_gpt_long(batch, seq_len, d_model=1024, n_heads=16, n_layers=2,
             m = layers.layer_norm(x)
             m = layers.fc(m, d_model * 4, num_flatten_dims=2, act="gelu")
             x = x + layers.fc(m, d_model, num_flatten_dims=2)
+            checkpoints.append(x)
         logits = layers.fc(layers.layer_norm(x), vocab, num_flatten_dims=2)
         loss = layers.mean(layers.softmax_with_cross_entropy(
             layers.reshape(logits, [batch * seq_len, vocab]), lbl))
-        opt = optimizer.AdamOptimizer(learning_rate)
+        opt = (optimizer_fn() if optimizer_fn is not None
+               else optimizer.AdamOptimizer(learning_rate))
+        if recompute:
+            opt = optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(checkpoints)
         if use_bf16:
             opt = mp.decorate(opt)
         _, params_grads = opt.minimize(loss)

@@ -105,7 +105,7 @@ def resnet_cifar(input, class_dim=10, n=3, is_test=False):
 
 def build_resnet_train(batch, image_size=224, class_dim=1000, depth=50,
                        data_format="NHWC", learning_rate=0.1, momentum=0.9,
-                       seed=0, use_bf16=False):
+                       seed=0, use_bf16=False, optimizer_fn=None):
     """(main, startup, loss) of bench.py's ResNet training script
     (``_build_resnet50``, bench.py:43-65): images and int64 labels, the
     ResNet, the mean cross entropy of its softmax, and
@@ -115,7 +115,8 @@ def build_resnet_train(batch, image_size=224, class_dim=1000, depth=50,
     ``contrib.mixed_precision.decorate``, as bench.py runs the script by
     default (``_build_resnet50``'s own default is False): the convs and the fc
     product in bfloat16, batch norm and the loss in float32, float32
-    master parameters."""
+    master parameters. ``optimizer_fn`` builds another optimizer in
+    Momentum's place (a training recipe), inside the program guard."""
     import paddle_tpu_torch as fluid
 
     img_shape = ([batch, 3, image_size, image_size] if data_format == "NCHW"
@@ -127,8 +128,9 @@ def build_resnet_train(batch, image_size=224, class_dim=1000, depth=50,
         label = fluid.data(name="label", shape=[batch, 1], dtype="int64")
         pred = resnet(img, class_dim, depth, data_format=data_format)
         loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
-        opt = fluid.optimizer.MomentumOptimizer(
-            learning_rate=learning_rate, momentum=momentum)
+        opt = (optimizer_fn() if optimizer_fn is not None
+               else fluid.optimizer.MomentumOptimizer(
+                   learning_rate=learning_rate, momentum=momentum))
         if use_bf16:
             opt = fluid.contrib.mixed_precision.decorate(opt)
         opt.minimize(loss)

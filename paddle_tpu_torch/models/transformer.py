@@ -244,8 +244,9 @@ def transformer_wmt(src_ids, src_pos, tgt_ids, tgt_pos, vocab_size,
     return layers.fc(y, size=vocab_size, num_flatten_dims=2)
 
 
-def _optimizer(learning_rate, use_bf16):
-    opt = optimizer.AdamOptimizer(learning_rate)
+def _optimizer(learning_rate, use_bf16, optimizer_fn=None):
+    opt = (optimizer_fn() if optimizer_fn is not None
+           else optimizer.AdamOptimizer(learning_rate))
     return mp.decorate(opt) if use_bf16 else opt
 
 
@@ -308,12 +309,14 @@ def wmt_batch(rng, batch, seq_len, vocab=32000, use_lengths=True):
 
 def build_bert_base(batch, seq_len, vocab=30522, num_layers=12,
                     num_heads=12, d_model=768, d_ff=3072, masked=20,
-                    learning_rate=1e-4, seed=0, use_bf16=True):
+                    learning_rate=1e-4, seed=0, use_bf16=True,
+                    optimizer_fn=None):
     """(main, startup, loss, params_grads) of bench.py's BERT masked-LM
     script under fresh names: the mean softmax cross entropy of the
     vocabulary logits at ``masked`` positions a row. ``seed`` is the
     startup program's random seed; ``use_bf16`` wraps the optimizer in
-    ``mp.decorate``."""
+    ``mp.decorate``; ``optimizer_fn`` builds another optimizer in Adam's
+    place (a training recipe), inside the program guard."""
     M = masked
     main, startup = framework.Program(), framework.Program()
     startup.random_seed = seed
@@ -330,7 +333,8 @@ def build_bert_base(batch, seq_len, vocab=30522, num_layers=12,
         loss = layers.mean(layers.softmax_with_cross_entropy(
             layers.reshape(logits, [batch * M, vocab]),
             layers.reshape(labels, [batch * M, 1])))
-        _, params_grads = _optimizer(learning_rate, use_bf16).minimize(loss)
+        _, params_grads = _optimizer(learning_rate, use_bf16,
+                                     optimizer_fn).minimize(loss)
     return main, startup, loss, params_grads
 
 

@@ -1,14 +1,22 @@
-"""``scale`` (:14), ``sum`` (:33), ``mean`` (:64) and ``cast`` (:93) of
-``paddle_tpu/ops/math_ops.py``: ``scale`` is ``x * scale + bias``, or
-``(x + bias) * scale`` under ``bias_after_scale=False``, in x's type;
-``sum`` adds its dense inputs in order (the backward's merge of partial
-grads); ``mean`` is the 0-d mean of every element; ``cast`` converts to
-``out_dtype``. All take the auto-VJP grad op.
+"""``scale`` (:14), ``sum`` (:33), ``mean`` (:64), ``clip`` (:70),
+``clip_by_norm`` (:80), ``cast`` (:93), ``increment`` (:127) and
+``squared_l2_norm`` (:138) of ``paddle_tpu/ops/math_ops.py``: ``scale`` is
+``x * scale + bias``, or ``(x + bias) * scale`` under
+``bias_after_scale=False``, in x's type; ``sum`` adds its dense inputs in
+order (the backward's merge of partial grads); ``mean`` is the 0-d mean of
+every element; ``clip`` bounds x to [min, max]; ``clip_by_norm`` scales x
+by ``max_norm / ||x||`` where its L2 norm exceeds ``max_norm``; ``cast``
+converts to ``out_dtype``; ``increment`` adds ``step`` in x's type (the
+learning-rate schedules' step counter, int64 here where the JAX package,
+x64 off, keeps int32); ``squared_l2_norm`` is the [1] sum of squares (the
+global-norm clip's terms). All take the auto-VJP grad op.
 
 ``cast`` reads only ``out_dtype``: ``in_dtype`` records the input var's
 type at build time, which the JAX package (x64 off) may give as int32
 for an int64 tensor."""
 from __future__ import annotations
+
+import torch
 
 from ..core import dtypes as _dt
 from ..core.registry import In, Out, register_op
@@ -56,6 +64,23 @@ def _mean(ins, attrs):
     return {"Out": ins["X"].mean()}
 
 
+@register_op("clip", inputs=[In("X")], outputs=[Out("Out")],
+             attrs={"min": 0.0, "max": 0.0})
+def _clip(ins, attrs):
+    return {"Out": torch.clamp(ins["X"], attrs["min"], attrs["max"])}
+
+
+@register_op("clip_by_norm", inputs=[In("X")], outputs=[Out("Out")],
+             attrs={"max_norm": 1.0})
+def _clip_by_norm(ins, attrs):
+    x = ins["X"]
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp_min(norm, 1e-12), 1.0)
+    return {"Out": x * scale}
+
+
 @register_op(
     "cast",
     inputs=[In("X")],
@@ -64,3 +89,21 @@ def _mean(ins, attrs):
 )
 def _cast(ins, attrs):
     return {"Out": ins["X"].to(_dt.to_torch_dtype(attrs["out_dtype"]))}
+
+
+@register_op("increment", inputs=[In("X")], outputs=[Out("Out")],
+             attrs={"step": 1.0})
+def _increment(ins, attrs):
+    # the step takes x's type first (an integer counter truncates it), as
+    # jnp.asarray(step, dtype=x.dtype) does; a Python number, so that no
+    # scalar is copied to the card
+    x = ins["X"]
+    step = attrs.get("step", 1.0)
+    if not x.is_floating_point():
+        step = int(step)
+    return {"Out": (x + step).to(x.dtype)}
+
+
+@register_op("squared_l2_norm", inputs=[In("X")], outputs=[Out("Out")])
+def _squared_l2_norm(ins, attrs):
+    return {"Out": torch.sum(torch.square(ins["X"])).reshape(1)}

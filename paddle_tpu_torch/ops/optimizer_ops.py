@@ -1,8 +1,15 @@
-"""Optimizer update ops: ``sgd``, ``momentum``, ``adam``, ``adamw`` and
+"""Optimizer update ops: ``sgd``, ``momentum``, ``lars_momentum``,
+``adam``, ``adamw``, ``adamax``, ``adagrad``, ``decayed_adagrad``,
+``adadelta``, ``rmsprop``, ``ftrl``, ``lamb``, ``dpsgd`` and
 ``fused_optimizer``.
 
-Counterparts of ``paddle_tpu/ops/optimizer_ops.py`` (:45, :62, :109, :139
-and :341-458), with the same slots and attrs. Param and moment inputs are
+Counterparts of ``paddle_tpu/ops/optimizer_ops.py`` (:45, :62, :100, :109,
+:139, :171, :189, :207, :230, :262, :299, :308, :471 and :341-458), with
+the same slots and attrs. ``lamb`` and ``lars_momentum`` take two full
+reductions a parameter (its norm and its update's or grad's), so they stay
+one op a parameter: the fused pass leaves them alone, as the JAX pass
+does. ``dpsgd`` clips the grad by its norm and adds no noise, as the JAX
+op (which omits the noise) does. Param and moment inputs are
 re-bound through the same-named ``*Out`` outputs, so the executor's write
 back is the update. None is ever differentiated (``grad=None``).
 
@@ -102,6 +109,184 @@ def _adamw(ins, attrs):
 _op("adamw", _ADAM_IN, _ADAM_OUT,
     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8, "weight_decay": 0.01},
     _adamw)
+
+
+def _lars_momentum(ins, attrs):
+    mu = attrs.get("mu", 0.9)
+    lars_coeff = attrs.get("lars_coeff", 0.001)
+    wd = attrs.get("lars_weight_decay", 0.0005)
+    eps = attrs.get("epsilon", 0.0)
+    p, g, v = ins["Param"], ins["Grad"], ins["Velocity"]
+    p_norm = torch.sqrt(torch.sum(torch.square(p)))
+    g_norm = torch.sqrt(torch.sum(torch.square(g)))
+    local_lr = torch.where((p_norm > 0) & (g_norm > 0),
+                           lars_coeff * p_norm / (g_norm + wd * p_norm + eps),
+                           torch.ones_like(p_norm))
+    v_out = mu * v + _lr(ins) * local_lr * (g + wd * p)
+    return {"ParamOut": p - v_out, "VelocityOut": v_out}
+
+
+_op("lars_momentum", ["Param", "Grad", "Velocity", "LearningRate"],
+    ["ParamOut", "VelocityOut"],
+    {"mu": 0.9, "lars_coeff": 0.001, "lars_weight_decay": 0.0005,
+     "epsilon": 0.0}, _lars_momentum)
+
+
+def _adamax(ins, attrs):
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    g = ins["Grad"]
+    m = b1 * ins["Moment"] + (1 - b1) * g
+    inf_norm = torch.maximum(b2 * ins["InfNorm"], torch.abs(g))
+    b1pow = ins["Beta1Pow"].reshape(())
+    lr = _lr(ins) / (1 - b1pow)
+    p_out = ins["Param"] - lr * m / (inf_norm + eps)
+    return {"ParamOut": p_out, "MomentOut": m, "InfNormOut": inf_norm}
+
+
+_op("adamax", ["Param", "Grad", "LearningRate", "Moment", "InfNorm",
+               "Beta1Pow"],
+    ["ParamOut", "MomentOut", "InfNormOut"],
+    {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}, _adamax)
+
+
+def _adagrad(ins, attrs):
+    eps = attrs.get("epsilon", 1e-6)
+    g = ins["Grad"]
+    moment = ins["Moment"] + torch.square(g)
+    p_out = ins["Param"] - _lr(ins) * g / (torch.sqrt(moment) + eps)
+    return {"ParamOut": p_out, "MomentOut": moment}
+
+
+_op("adagrad", ["Param", "Grad", "Moment", "LearningRate"],
+    ["ParamOut", "MomentOut"], {"epsilon": 1e-6}, _adagrad)
+
+
+def _decayed_adagrad(ins, attrs):
+    decay = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    g = ins["Grad"]
+    moment = decay * ins["Moment"] + (1 - decay) * torch.square(g)
+    p_out = ins["Param"] - _lr(ins) * g / (torch.sqrt(moment) + eps)
+    return {"ParamOut": p_out, "MomentOut": moment}
+
+
+_op("decayed_adagrad", ["Param", "Grad", "Moment", "LearningRate"],
+    ["ParamOut", "MomentOut"], {"decay": 0.95, "epsilon": 1e-6},
+    _decayed_adagrad)
+
+
+def _adadelta(ins, attrs):
+    rho = attrs.get("rho", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    g = ins["Grad"]
+    avg_sq = rho * ins["AvgSquaredGrad"] + (1 - rho) * torch.square(g)
+    update = -torch.sqrt((ins["AvgSquaredUpdate"] + eps)
+                         / (avg_sq + eps)) * g
+    avg_upd = rho * ins["AvgSquaredUpdate"] + (1 - rho) * torch.square(update)
+    return {"ParamOut": ins["Param"] + update, "AvgSquaredGradOut": avg_sq,
+            "AvgSquaredUpdateOut": avg_upd}
+
+
+_op("adadelta", ["Param", "Grad", "AvgSquaredGrad", "AvgSquaredUpdate"],
+    ["ParamOut", "AvgSquaredGradOut", "AvgSquaredUpdateOut"],
+    {"rho": 0.95, "epsilon": 1e-6}, _adadelta)
+
+
+def _rmsprop(ins, attrs):
+    eps = attrs.get("epsilon", 1e-10)
+    decay = attrs.get("decay", 0.9)
+    momentum = attrs.get("momentum", 0.0)
+    g = ins["Grad"]
+    ms = decay * ins["MeanSquare"] + (1 - decay) * torch.square(g)
+    if attrs.get("centered", False):
+        mg = decay * ins["MeanGrad"] + (1 - decay) * g
+        denom = ms - torch.square(mg) + eps
+    else:
+        mg = ins["MeanGrad"]
+        denom = ms + eps
+    mom = momentum * ins["Moment"] + _lr(ins) * g * torch.rsqrt(denom)
+    return {"ParamOut": ins["Param"] - mom, "MomentOut": mom,
+            "MeanSquareOut": ms, "MeanGradOut": mg}
+
+
+_op("rmsprop", ["Param", "Grad", "LearningRate", "Moment", "MeanSquare",
+                "MeanGrad"],
+    ["ParamOut", "MomentOut", "MeanSquareOut", "MeanGradOut"],
+    {"epsilon": 1e-10, "decay": 0.9, "momentum": 0.0, "centered": False},
+    _rmsprop)
+
+
+def _ftrl(ins, attrs):
+    l1 = attrs.get("l1", 0.0)
+    l2 = attrs.get("l2", 0.0)
+    lr_power = attrs.get("lr_power", -0.5)
+    g = ins["Grad"]
+    lr = _lr(ins)
+    sq_accum = ins["SquaredAccumulator"]
+    new_accum = sq_accum + torch.square(g)
+    if lr_power == -0.5:
+        sigma = (torch.sqrt(new_accum) - torch.sqrt(sq_accum)) / lr
+    else:
+        sigma = (torch.pow(new_accum, -lr_power)
+                 - torch.pow(sq_accum, -lr_power)) / lr
+    lin_out = ins["LinearAccumulator"] + g - sigma * ins["Param"]
+    # the shrink's denominator takes 2 * l2, as the JAX op's
+    if lr_power == -0.5:
+        x = 2.0 * l2 + torch.sqrt(new_accum) / lr
+    else:
+        x = 2.0 * l2 + torch.pow(new_accum, -lr_power) / lr
+    pre = torch.clamp(lin_out, -l1, l1) - lin_out
+    p_out = torch.where(torch.abs(lin_out) > l1, pre / x,
+                        torch.zeros_like(pre))
+    return {"ParamOut": p_out, "SquaredAccumOut": new_accum,
+            "LinearAccumOut": lin_out}
+
+
+_op("ftrl", ["Param", "SquaredAccumulator", "LinearAccumulator", "Grad",
+             "LearningRate"],
+    ["ParamOut", "SquaredAccumOut", "LinearAccumOut"],
+    {"l1": 0.0, "l2": 0.0, "lr_power": -0.5}, _ftrl)
+
+
+def _lamb(ins, attrs):
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-6)
+    wd = attrs.get("weight_decay", 0.01)
+    p, g = ins["Param"], ins["Grad"]
+    m1 = b1 * ins["Moment1"] + (1 - b1) * g
+    m2 = b2 * ins["Moment2"] + (1 - b2) * torch.square(g)
+    b1pow = ins["Beta1Pow"].reshape(())
+    b2pow = ins["Beta2Pow"].reshape(())
+    m1_hat = m1 / (1 - b1pow)
+    m2_hat = m2 / (1 - b2pow)
+    r = m1_hat / (torch.sqrt(m2_hat) + eps) + wd * p
+    p_norm = torch.sqrt(torch.sum(torch.square(p)))
+    r_norm = torch.sqrt(torch.sum(torch.square(r)))
+    ratio = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm, 1.0)
+    return {"ParamOut": p - _lr(ins) * ratio * r, "Moment1Out": m1,
+            "Moment2Out": m2,
+            "Beta1PowOut": (b1pow * b1).reshape(ins["Beta1Pow"].shape),
+            "Beta2PowOut": (b2pow * b2).reshape(ins["Beta2Pow"].shape)}
+
+
+_op("lamb", _ADAM_IN, _ADAM_OUT,
+    {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6, "weight_decay": 0.01},
+    _lamb)
+
+
+def _dpsgd(ins, attrs):
+    clip = attrs.get("clip", 10.0)
+    g = ins["Grad"]
+    norm = torch.sqrt(torch.sum(torch.square(g)))
+    scale = torch.clamp(clip / torch.clamp_min(norm, 1e-12), max=1.0)
+    return {"ParamOut": ins["Param"] - _lr(ins) * g * scale}
+
+
+_op("dpsgd", ["Param", "Grad", "LearningRate"], ["ParamOut"],
+    {"clip": 10.0, "batch_size": 16.0, "sigma": 1.0, "seed": 0}, _dpsgd)
 
 
 @register_op(

@@ -1,10 +1,11 @@
 """Tensor creation / shaping / indexing ops.
 
 Counterparts of ``fill_constant`` (:31), ``uniform_random`` (:69),
-``gaussian_random`` (:90), ``assign`` (:120), ``assign_value`` (:132),
+``gaussian_random`` (:90), ``truncated_gaussian_random`` (:107),
+``assign`` (:120), ``assign_value`` (:132),
 ``reshape2`` (:224), ``transpose2`` (:248), ``expand`` (:483), ``gather``
 (:575), ``lookup_table`` (:680), ``lookup_table_v2`` (:694), ``concat``
-(:384), ``slice`` (:439) and ``range`` (:954) in
+(:384), ``slice`` (:439), ``where`` (:882) and ``range`` (:954) in
 ``paddle_tpu/ops/tensor_ops.py``, with the same slots and attrs, and of
 ``lookup_table``'s grad maker and the dense ``lookup_table_grad`` and
 ``lookup_table_v2_grad`` (:631-677), whose scatter-add becomes
@@ -14,12 +15,16 @@ indices sum. ``range`` is a host op, as in the JAX package (its output's
 length depends on its inputs' values). Creation
 ops build on the executor's device (``DEVICE_ATTR``); ``uniform_random``
 draws from the seeded ``torch.Generator`` the executor hands it
-(``GENERATOR_ATTR``), and so does ``gaussian_random``, so the numbers
-differ from ``jax.random``'s but the distribution is the same.
+(``GENERATOR_ATTR``), and so do ``gaussian_random`` and
+``truncated_gaussian_random`` (a standard normal cut at two standard
+deviations, drawn by the inverse CDF as ``jax.random.truncated_normal``
+draws it), so the numbers differ from ``jax.random``'s but the
+distribution is the same.
 """
 from __future__ import annotations
 
 import builtins
+import math
 
 import torch
 
@@ -79,6 +84,28 @@ def _gaussian_random(ins, attrs):
                       generator=attrs.get(GENERATOR_ATTR),
                       dtype=torch.float32, device=attrs[DEVICE_ATTR])
     out = out * attrs.get("std", 1.0) + attrs.get("mean", 0.0)
+    return {"Out": out.to(_dt.to_torch_dtype(attrs["dtype"]))}
+
+
+@register_op(
+    "truncated_gaussian_random",
+    inputs=[],
+    outputs=[Out("Out")],
+    attrs={"shape": [], "mean": 0.0, "std": 1.0, "seed": 0, "dtype": 5},
+    grad=None,
+    needs_rng=True,
+)
+def _truncated_gaussian_random(ins, attrs):
+    # u uniform over [erf(-2 / sqrt2), erf(2 / sqrt2)), then sqrt2 *
+    # erfinv(u), kept strictly inside (-2, 2)
+    sqrt2 = 2.0 ** 0.5
+    lo, hi = math.erf(-2.0 / sqrt2), math.erf(2.0 / sqrt2)
+    u = torch.rand(tuple(attrs["shape"]), generator=attrs.get(GENERATOR_ATTR),
+                   dtype=torch.float32, device=attrs[DEVICE_ATTR])
+    z = torch.erfinv(u * (hi - lo) + lo) * sqrt2
+    edge = math.nextafter(2.0, 0.0)
+    z = torch.clamp(z, -edge, edge)
+    out = z * attrs.get("std", 1.0) + attrs.get("mean", 0.0)
     return {"Out": out.to(_dt.to_torch_dtype(attrs["dtype"]))}
 
 
@@ -356,3 +383,12 @@ def _range(executor, op, scope):
                       for t in (start, end, step)]).tolist()
     executor._write_var(scope, op.output("Out")[0], torch.arange(
         *vals, dtype=start.dtype, device=start.device))
+
+
+@register_op(
+    "where",
+    inputs=[In("Condition", no_grad=True), In("X"), In("Y")],
+    outputs=[Out("Out")],
+)
+def _where(ins, attrs):
+    return {"Out": torch.where(ins["Condition"], ins["X"], ins["Y"])}

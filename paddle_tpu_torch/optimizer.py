@@ -1,19 +1,27 @@
-"""Optimizers: ``SGD``, ``Momentum``, ``Adam`` and ``AdamW``.
+"""Optimizers.
 
-Counterpart of ``paddle_tpu/optimizer.py`` (``Optimizer:60-211``,
-``SGDOptimizer:227``, ``MomentumOptimizer:239``, ``AdamOptimizer:313``,
-``AdamW:356``): ``minimize(loss)`` runs ``append_backward`` and then, under
-the program's optimize role, appends one update op per (param, grad) with
+Counterpart of ``paddle_tpu/optimizer.py``: the ``Optimizer`` base
+(``:60-224``) and ``SGD`` (:227), ``Momentum`` (:239), ``LarsMomentum``
+(:262), ``Adagrad`` (:288), ``Adam`` (:313), ``AdamW`` (:356), ``Adamax``
+(:367), ``Dpsgd`` (:407), ``DecayedAdagrad`` (:426), ``Adadelta`` (:448),
+``RMSProp`` (:473), ``Ftrl`` (:505), ``Lamb`` (:531) and ``Recompute``
+(:612), with the aliases of :1065-1072. ``minimize(loss)`` runs
+``append_backward`` and then, under the program's optimize role, clips the
+grads (``grad_clip=``, else the clips ``set_gradient_clip`` gave), adds
+the regularizers' decay and appends one update op per (param, grad) with
 its learning-rate var and accumulators declared in both programs and
-initialised in the startup program. The same ops, slots, attrs and var
-names as the JAX package.
+initialised in the startup program. A parameter whose ``learning_rate``
+attr is not 1.0 gets its own rate, a ``scale`` op of the global one. The
+learning rate may be a Variable (``layers.polynomial_decay`` and the
+other schedules). The same ops, slots, attrs and var names as the JAX
+package.
 
 In dygraph mode ``minimize`` is ``dygraph/backward_utils.dygraph_minimize``
 (one update op per parameter, state in ``_dygraph_state``), and
 ``state_dict`` / ``set_dict`` read and write that state. The learning rate
 may be a dygraph decay (``dygraph.NoamDecay`` and the rest), called once a
-step. Clip and regularizer classes and the other optimizers come with
-later slices (ROADMAP.md).
+step. ``DGCMomentum``, ``Pipeline``, ``ExponentialMovingAverage``,
+``ModelAverage`` and ``Lookahead`` come with later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -21,25 +29,27 @@ from typing import Dict, Optional
 
 from . import framework
 from .backward import append_backward
-from .clip import append_gradient_clip_ops
+from .clip import GradientClipByGlobalNorm, append_gradient_clip_ops
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 from .utils import unique_name
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
-           "MomentumOptimizer", "Adam", "AdamOptimizer", "AdamW"]
+           "MomentumOptimizer", "LarsMomentumOptimizer", "Adagrad",
+           "AdagradOptimizer", "Adam", "AdamOptimizer", "AdamW", "Adamax",
+           "AdamaxOptimizer", "DpsgdOptimizer", "DecayedAdagradOptimizer",
+           "Adadelta", "AdadeltaOptimizer", "RMSProp", "RMSPropOptimizer",
+           "Ftrl", "FtrlOptimizer", "LambOptimizer", "RecomputeOptimizer"]
 
 
 class Optimizer:
     def __init__(self, learning_rate, parameter_list=None, regularization=None,
                  grad_clip=None, name=None):
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "grad_clip is not yet ported (ROADMAP.md, queue 1)")
         self._learning_rate = learning_rate
         self._parameter_list = parameter_list
         self.regularization = regularization
+        self._grad_clip = grad_clip
         self._name = name
         self._accumulators: Dict[str, Dict[str, framework.Variable]] = {}
         self._learning_rate_map: Dict[int, framework.Variable] = {}
@@ -67,13 +77,19 @@ class Optimizer:
         return self._learning_rate_map.get(id(program))
 
     def _create_param_lr(self, param_and_grad):
+        """The rate of one parameter: the global rate, or a ``scale`` op of
+        it by the parameter's ``learning_rate`` attr when that is not
+        1.0 (a var of its own)."""
+        base = self._global_learning_rate()
         param_lr = getattr(param_and_grad[0], "optimize_attr",
                            {}).get("learning_rate", 1.0)
-        if param_lr != 1.0:
-            raise NotImplementedError(
-                "a per-parameter learning rate needs the `scale` op, not "
-                "yet ported (ROADMAP.md, queue 1)")
-        return self._global_learning_rate()
+        if param_lr == 1.0:
+            return base
+        block = framework.default_main_program().global_block()
+        out = block.create_var(dtype=base.dtype, shape=base.shape)
+        block.append_op("scale", inputs={"X": [base]}, outputs={"Out": [out]},
+                        attrs={"scale": float(param_lr)})
+        return out
 
     # -- accumulators -----------------------------------------------------
     def _add_accumulator(self, name, param, dtype=None, fill_value=0.0,
@@ -101,6 +117,9 @@ class Optimizer:
     def _append_optimize_op(self, block, param_and_grad):
         raise NotImplementedError
 
+    def _finish_update(self, block, params_grads):
+        pass
+
     # -- main entry points ------------------------------------------------
     def backward(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, callbacks=None):
@@ -108,14 +127,28 @@ class Optimizer:
                                no_grad_set, callbacks)
 
     def apply_gradients(self, params_grads):
-        # the update ops append into the default main program, so that is
-        # the program whose role flips to Optimize
+        # the clip, regularization and update ops append into the default
+        # main program, so that is the program whose role flips to Optimize
         with framework.default_main_program()._optimized_guard():
-            params_grads = sorted(params_grads, key=lambda x: x[0].name)
+            return self._apply_gradients_impl(params_grads)
+
+    def _apply_gradients_impl(self, params_grads):
+        """Clip, then regularize, then update, as the JAX package does."""
+        params_grads = sorted(params_grads, key=lambda x: x[0].name)
+        clip = self._grad_clip
+        if clip is None:
             params_grads = append_gradient_clip_ops(params_grads)
-            params_grads = append_regularization_ops(params_grads,
-                                                     self.regularization)
-            return self._create_optimization_pass(params_grads)
+        elif isinstance(clip, GradientClipByGlobalNorm):
+            ctx = {}
+            for p, g in params_grads:
+                clip._process_context(ctx, p, g)
+            params_grads = clip._create_operators_group(ctx, params_grads)
+        else:
+            params_grads = [clip._create_operators(p, g)
+                            for p, g in params_grads]
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
+        return self._create_optimization_pass(params_grads)
 
     def _create_optimization_pass(self, params_grads):
         block = framework.default_main_program().current_block()
@@ -123,8 +156,10 @@ class Optimizer:
         self._create_global_learning_rate()
         self._create_accumulators(
             block, [p for p, g in params_grads if g is not None])
-        return [self._append_optimize_op(block, pg) for pg in params_grads
-                if pg[1] is not None and getattr(pg[0], "trainable", True)]
+        ops = [self._append_optimize_op(block, pg) for pg in params_grads
+               if pg[1] is not None and getattr(pg[0], "trainable", True)]
+        self._finish_update(block, params_grads)
+        return ops
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
@@ -241,6 +276,287 @@ class AdamW(AdamOptimizer):
         return {"weight_decay": self._weight_decay}
 
 
+class LarsMomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        velocity = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "lars_momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [velocity],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p], "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                   "lars_weight_decay": self._lars_weight_decay},
+            infer_shape=False)
+
+
+class AdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6,
+                 initial_accumulator_value=0.0, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._epsilon = epsilon
+        self._initial_accumulator_value = initial_accumulator_value
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p,
+                                  fill_value=self._initial_accumulator_value)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        moment = self._get_accumulator("moment", p)
+        return block.append_op(
+            "adagrad",
+            inputs={"Param": [p], "Grad": [g], "Moment": [moment],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p], "MomentOut": [moment]},
+            attrs={"epsilon": self._epsilon},
+            infer_shape=False)
+
+
+class AdamaxOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+            self._add_accumulator("beta1_pow_acc", p, fill_value=self._beta1,
+                                  shape=(1,))
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        moment = self._get_accumulator("moment", p)
+        inf_norm = self._get_accumulator("inf_norm", p)
+        return block.append_op(
+            "adamax",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._create_param_lr(param_and_grad)],
+                    "Moment": [moment], "InfNorm": [inf_norm],
+                    "Beta1Pow": [self._get_accumulator("beta1_pow_acc", p)]},
+            outputs={"ParamOut": [p], "MomentOut": [moment],
+                     "InfNormOut": [inf_norm]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon},
+            infer_shape=False)
+
+    def _finish_update(self, block, params_grads):
+        """beta1 ** t advances after the updates, one ``scale`` op a
+        parameter."""
+        for p, g in params_grads:
+            if g is None:
+                continue
+            b1p = self._get_accumulator("beta1_pow_acc", p)
+            block.append_op("scale", inputs={"X": [b1p]},
+                            outputs={"Out": [b1p]},
+                            attrs={"scale": self._beta1}, infer_shape=False)
+
+
+class DpsgdOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, clip=10.0, batch_size=16.0,
+                 sigma=1.0, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._clip, self._batch_size, self._sigma = clip, batch_size, sigma
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "dpsgd",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p]},
+            attrs={"clip": self._clip, "batch_size": self._batch_size,
+                   "sigma": self._sigma},
+            infer_shape=False)
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._decay, self._epsilon = decay, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        moment = self._get_accumulator("moment", p)
+        return block.append_op(
+            "decayed_adagrad",
+            inputs={"Param": [p], "Grad": [g], "Moment": [moment],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p], "MomentOut": [moment]},
+            attrs={"decay": self._decay, "epsilon": self._epsilon},
+            infer_shape=False)
+
+
+class AdadeltaOptimizer(Optimizer):
+    """Adadelta takes no learning rate in its update op (the JAX op's
+    slots); its rate var is still declared, as in the JAX package."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("__avg_squared_grad", p)
+            self._add_accumulator("__avg_squared_update", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        asg = self._get_accumulator("__avg_squared_grad", p)
+        asu = self._get_accumulator("__avg_squared_update", p)
+        return block.append_op(
+            "adadelta",
+            inputs={"Param": [p], "Grad": [g], "AvgSquaredGrad": [asg],
+                    "AvgSquaredUpdate": [asu]},
+            outputs={"ParamOut": [p], "AvgSquaredGradOut": [asg],
+                     "AvgSquaredUpdateOut": [asu]},
+            attrs={"epsilon": self._epsilon, "rho": self._rho},
+            infer_shape=False)
+
+
+class RMSPropOptimizer(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("momentum", p)
+            self._add_accumulator("mean_square", p)
+            self._add_accumulator("mean_grad", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        mom = self._get_accumulator("momentum", p)
+        ms = self._get_accumulator("mean_square", p)
+        mg = self._get_accumulator("mean_grad", p)
+        return block.append_op(
+            "rmsprop",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._create_param_lr(param_and_grad)],
+                    "Moment": [mom], "MeanSquare": [ms], "MeanGrad": [mg]},
+            outputs={"ParamOut": [p], "MomentOut": [mom],
+                     "MeanSquareOut": [ms], "MeanGradOut": [mg]},
+            attrs={"epsilon": self._epsilon, "decay": self._rho,
+                   "momentum": self._momentum, "centered": self._centered},
+            infer_shape=False)
+
+
+class FtrlOptimizer(Optimizer):
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("squared", p)
+            self._add_accumulator("linear", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        sq = self._get_accumulator("squared", p)
+        lin = self._get_accumulator("linear", p)
+        return block.append_op(
+            "ftrl",
+            inputs={"Param": [p], "Grad": [g],
+                    "SquaredAccumulator": [sq], "LinearAccumulator": [lin],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p], "SquaredAccumOut": [sq],
+                     "LinearAccumOut": [lin]},
+            attrs={"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power},
+            infer_shape=False)
+
+
+class LambOptimizer(AdamOptimizer):
+    """LAMB: Adam's moments, the update scaled by ||param|| / ||update||.
+    ``exclude_from_weight_decay_fn`` is stored and not applied, as in the
+    JAX package: every parameter takes ``lamb_weight_decay``."""
+
+    _type = "lamb"
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6,
+                 exclude_from_weight_decay_fn=None, **kwargs):
+        super().__init__(learning_rate, beta1=beta1, beta2=beta2,
+                         epsilon=epsilon, **kwargs)
+        self._weight_decay = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _extra_attrs(self):
+        return {"weight_decay": self._weight_decay}
+
+
+class RecomputeOptimizer(Optimizer):
+    """Activation recomputation around another optimizer: only the
+    checkpoint activations (``_set_checkpoints``) are kept for the
+    backward; ``append_backward(checkpoints=...)`` re-emits each forward
+    op between them at the start of the backward, and the grad ops read
+    the recomputed values. The update is the wrapped optimizer's."""
+
+    def __init__(self, optimizer):
+        self._optimizer = optimizer
+        self._checkpoints = None
+        # the shared-state surface the base class reads
+        self._parameter_list = getattr(optimizer, "_parameter_list", None)
+        self._grad_clip = getattr(optimizer, "_grad_clip", None)
+        self.regularization = getattr(optimizer, "regularization", None)
+
+    def _set_checkpoints(self, checkpoints):
+        if not isinstance(checkpoints, (list, tuple)):
+            raise ValueError("checkpoints must be a list of Variables")
+        self._checkpoints = list(checkpoints)
+
+    def load(self, state):
+        raise NotImplementedError(
+            "load function is not supported by Recompute Optimizer")
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        if self._checkpoints is None:
+            raise ValueError("_set_checkpoints must be called first")
+        return append_backward(
+            loss, parameter_list or self._parameter_list, no_grad_set,
+            callbacks, checkpoints=self._checkpoints)
+
+    def apply_gradients(self, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def apply_optimize(self, loss, startup_program, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        return self.apply_gradients(params_grads), params_grads
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer

@@ -76,6 +76,15 @@ eager card run's parameters (the rate is a graph input); a flash
 encoder's tape launches K1/K2/K3 once each per layer a step, eager and
 lazy; a narrow encoder trained lazily on the card agrees with the CPU
 within 1e-4.
+
+The training recipe on the card (slice 13): a scheduled learning rate
+advances across the replays of one captured graph (its step counters are
+state buffers) and gives the CPU's rates within 1e-6; K4 reads a rate
+computed inside the graph, and its updates agree with the CPU's within
+1e-4 of each parameter's scale; a per-parameter rate leaves one K4 group
+and one per-parameter adam op; the narrow gpt under recompute launches
+K1/K2/K3/K4 6/2/2/1 times a step and gives the losses of the run without
+recompute.
 """
 import gc
 import threading
@@ -1565,3 +1574,155 @@ def test_dygraph_twin_card_against_cpu(cuda, attention):
     for a, b in zip(pc, ph):
         np.testing.assert_allclose(a, b, rtol=0,
                                    atol=1e-4 * max(np.abs(b).max(), 1e-3))
+
+
+# -- the training recipe on the card (slice 13) ----------------------------------
+
+def _recipe_mlp(make_opt, w1_lr=1.0, seed=1):
+    """An MLP (16 -> 64 relu -> 1, mean squared error) under
+    ``make_opt()``'s optimizer; returns (main, startup, loss, lr var or
+    None)."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = seed
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[32, 16], dtype="float32")
+        y = fluid.data(name="y", shape=[32, 1], dtype="float32")
+        h = fluid.layers.fc(x, 64, act="relu", param_attr=fluid.ParamAttr(
+            learning_rate=w1_lr))
+        loss = fluid.layers.mean(fluid.layers.square(
+            fluid.layers.fc(h, 1) - y))
+        opt = make_opt()
+        opt.minimize(loss)
+    lr = opt._learning_rate
+    return main, startup, loss, lr if isinstance(lr, fluid.Variable) \
+        else None
+
+
+def _recipe_feeds(n, seed=4):
+    rng = np.random.RandomState(seed)
+    w = rng.randn(16, 1).astype("float32")
+    out = []
+    for _ in range(n):
+        x = rng.randn(32, 16).astype("float32")
+        out.append({"x": x, "y": x @ w})
+    return out
+
+
+def _warm_poly_adam():
+    L = fluid.layers
+    lr = L.linear_lr_warmup(
+        L.polynomial_decay(0.01, decay_steps=6, end_learning_rate=0.0,
+                           power=1.0), warmup_steps=2, start_lr=0.0,
+        end_lr=0.01)
+    return fluid.optimizer.Adam(
+        lr, grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0))
+
+
+def _card_and_cpu(build, feeds):
+    """Train ``build()``'s program through CPUPlace() and on the card from
+    the CPU startup's state; (losses, rates, state, launches, counters)
+    of each side."""
+    init, out = None, {}
+    for side, place in (("cpu", fluid.CPUPlace()),
+                        ("card", fluid.CUDAPlace(0))):
+        main, startup, loss, lr = build()
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        if init is None:
+            exe.run(startup, scope=scope)
+            init = _persistables(main, scope)
+        else:
+            fluid.io.scope_from_numpy(scope, init, place)
+        support.reset_launch_counts()
+        ce.reset_counters()
+        fetch = [loss] + ([lr] if lr is not None else [])
+        res = [exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+               for f in feeds]
+        out[side] = ([float(np.asarray(r[0]).reshape(-1)[0]) for r in res],
+                     [float(np.asarray(r[-1]).reshape(-1)[0]) for r in res],
+                     _persistables(main, scope), support.launch_counts(),
+                     ce.counters(), main)
+    return out
+
+
+def test_a_scheduled_rate_advances_across_replays(cuda, monkeypatch):
+    """One capture, then replays: each replay advances the step counters
+    (state buffers at fixed addresses) and fetches the schedule's next
+    rate, the CPU run's; the counters land back in the scope."""
+    monkeypatch.setenv("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    out = _card_and_cpu(lambda: _recipe_mlp(_warm_poly_adam), _recipe_feeds(8))
+    cpu, card = out["cpu"], out["card"]
+    assert card[4]["executor.jit_traces"] == 1
+    # warm-up to 0.01 over 2 steps, then the linear decay to 0 at step 6
+    want = [0.005 * s if s < 2 else 0.01 * (1 - min(s, 6) / 6)
+            for s in range(1, 9)]
+    np.testing.assert_allclose(card[1], want, rtol=1e-6, atol=1e-12)
+    # the card may fuse a scale's multiply-add: an ulp or so
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+    counters = [n for n in card[2] if n.startswith("@LR_DECAY_COUNTER@")]
+    assert len(counters) == 2
+    assert all(int(card[2][n].reshape(-1)[0]) == 8 for n in counters)
+
+
+def test_k4_reads_a_rate_computed_in_the_graph(cuda, monkeypatch):
+    """K4 (the flat fused Adam) reads the schedule's rate from device
+    memory: every replay's update is the CPU's per-parameter update at
+    that step's rate."""
+    monkeypatch.setenv("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    out = _card_and_cpu(lambda: _recipe_mlp(_warm_poly_adam), _recipe_feeds(6))
+    cpu, card = out["cpu"], out["card"]
+    assert card[3]["fused_optimizer_update"] == 6
+    assert [op.type for op in card[5].global_block().ops].count(
+        "fused_optimizer") == 1
+    for n, want in cpu[2].items():
+        if n in card[2] and want.dtype == np.float32 and \
+                not n.startswith("fused_opt_"):
+            scale = max(float(np.abs(want).max()), 1e-3)
+            np.testing.assert_allclose(card[2][n], want, rtol=0,
+                                       atol=1e-4 * scale, err_msg=n)
+
+
+def test_per_parameter_rate_k4_groups(cuda, monkeypatch):
+    """A parameter at twice the rate gets its own rate var: K4 updates the
+    other three in one group (one launch a step) and the fourth stays a
+    per-parameter adam op, as the JAX pass groups them."""
+    monkeypatch.setenv("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    out = _card_and_cpu(lambda: _recipe_mlp(
+        lambda: fluid.optimizer.Adam(0.01), w1_lr=2.0), _recipe_feeds(4))
+    cpu, card = out["cpu"], out["card"]
+    types = [op.type for op in card[5].global_block().ops]
+    assert types.count("fused_optimizer") == 1 and types.count("adam") == 1
+    assert card[3]["fused_optimizer_update"] == 4
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+
+
+def test_recompute_launches_on_a_small_causal_program(cuda, monkeypatch):
+    """The narrow gpt under RecomputeOptimizer: K1 runs in the forward,
+    again in the recomputed forward and again in each flash grad op (its
+    auto-VJP re-runs the forward), so 6 a step with 2 layers; K2/K3 2 a
+    step, K4 1; the losses are the run without recompute's (the first
+    within 1e-6; the card's embedding grad sums by atomics in another
+    order each run, so the later ones within 1e-5)."""
+    monkeypatch.setenv("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    feed = gpt.random_batch(np.random.RandomState(0), TWIN["batch"],
+                            TWIN["seq_len"], TWIN["vocab"])
+    runs = {}
+    for rc in (False, True):
+        main, startup, loss, _ = gpt.build_gpt_long(
+            **TWIN, seed=1, use_bf16=False, recompute=rc)
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        support.reset_launch_counts()
+        runs[rc] = [float(np.asarray(exe.run(
+            main, feed=feed, fetch_list=[loss], scope=scope)[0]).reshape(
+                -1)[0]) for _ in range(3)]
+        counts = support.launch_counts()
+        want = {"flash_attention_forward": (6 if rc else 4) * 3,
+                "flash_attention_backward_dq": 2 * 3,
+                "flash_attention_backward_dkv": 2 * 3,
+                "fused_optimizer_update": 3}
+        assert {k: counts.get(k, 0) for k in want} == want, (rc, counts)
+    np.testing.assert_allclose(runs[True][0], runs[False][0], rtol=1e-6)
+    np.testing.assert_allclose(runs[True], runs[False], rtol=1e-5)
