@@ -11,9 +11,11 @@ training path in float32, bench.py's --no-bf16, and again under
 contrib.mixed_precision's bfloat16 AMP, bench.py's default), Wide&Deep
 training (float32, as bench.py runs it), bench.py's three dygraph
 configs through ``fluid.dygraph.guard()`` (eager, and lazy: a CUDA graph a
-step) and the published training recipes of BERT-base (AdamW or LAMB, a
+step), the published training recipes of BERT-base (AdamW or LAMB, a
 global-norm clip, a warm-up over a linear decay), ResNet-50 (Momentum, L2
-decay, a piecewise rate) and gpt_long under recompute, and holds each
+decay, a piecewise rate) and gpt_long under recompute, PaddleNLP's
+seq2seq base model (training and beam decoding) and While loops trained
+through while_grad, and holds each
 hand-written CUDA kernel against its plain PyTorch version on the card.
 Serving and the training paths run through ``Executor.run``'s default
 route, which runs a program's first step eagerly, captures the second
@@ -327,12 +329,55 @@ lines each:
    NumpyArray and Bilinear initializers drawn on the card (the last two
    the CPU's bit for bit, the first two within the CPU tests'
    distribution bounds);
-39. one JSON line {"kernels": [...]} with each kernel's launches on the
-   main paths (by path beside, the dygraph and recipe paths too), error,
-   times and bound;
-40. the last line: {"ok": true, "device": {...}}.
+39. PaddleNLP's seq2seq base model (no attention; IWSLT'15 en-vi: a
+   2-layer LSTM encoder and decoder of 512, embeddings 512, vocabularies
+   17191 and 7709, batch 128, sentences cut to 50, dropout 0.2, uniform
+   init +-0.1, Adam 1e-3 under a global-norm clip of 5.0; 25,092,608
+   parameters) written as a user script: a stacked RNNCell of two
+   LSTMCells each side, rnn with the source and target lengths (drawn
+   from 10-50, padded to 50; ids from the seed; a target's last token
+   the end id, as the source's reader lays it out),
+   softmax_with_cross_entropy masked by the target lengths. An executor
+   enters the card (K7 once),
+   an eager step (both passes: 6095 ops, 1 fused_optimizer, the JAX
+   package's counts), the capture, 5 replays back to back (K4 exactly
+   once a step: the clip keeps one group), more replays to 20 steps and a
+   profile of one: losses finite and falling, capture time, step time,
+   target tokens/s, idle share and peak memory; then K4's adam at the
+   path's flat size (its fused_optimizer op's padded size) bitwise
+   against its plain version, timed beside torch._fused_adam_ and the
+   bound;
+40. its beam decode: a new encoder rnn and a BeamSearchDecoder (beam 10,
+   start 0, end 1) with dynamic_decode(max_step_num=50), sharing phase
+   39's trained weights by name, at batch 128 (an executor entering the
+   card, K7 once; eager, capture, 5 timed replays): op count, capture
+   time, decode time a batch, decoded tokens/s (batch x beam x steps, and
+   the tokens before each beam's end token), the beams that ended (at
+   least one must), idle share and peak; then at batch 8 on the card
+   (eager and captured) against the port on the CPU with the same
+   weights and source, step by step: the same hypotheses, scores within
+   1e-4, up to a row's first step where the K-th and (K+1)-th best
+   candidates lie within 1e-4 (counted as excluded), and at least one
+   beam ended on each side;
+41. While on the card: tests/test_while_grad.py's recurrence h = tanh(h W
+   + x) at B 128, D 512, 50 trips trained 6 SGD steps through while_grad
+   (the interpreter: one counted fallback) against the same computation
+   unrolled (captured), and each against the CPU: losses and W within
+   1e-4 relative; the forward alone (clone for test); then IfElse over a
+   [N, 1] mask, cond, an array_write / array_read loop and a zero-trip
+   while, each against the CPU; each with its route and time a trip (a
+   step where it has no trips), and the second step's time (the
+   capture, where the route captures);
+42. narrow twins, card against CPU from the same state, as phase 38: the
+   seq2seq training step with dropout 0, the book's GRU encoder-decoder
+   (and its beam decode, ids equal), cudnn_lstm bidirectional over 2
+   layers, StaticRNN and rnn(is_reverse=True) with lengths;
+43. one JSON line {"kernels": [...]} with each kernel's launches on the
+   main paths (by path beside, the dygraph, recipe, seq2seq and while
+   paths too), error, times and bound;
+44. the last line: {"ok": true, "device": {...}}.
 
-Every training phase (7, 10, 16, 17, 20-23, 27 and 34-37) sets bench.py's
+Every training phase (7, 10, 16, 17, 20-23, 27, 34-37 and 39) sets bench.py's
 three knobs as its _enable_fast_paths does (PADDLE_TPU_FUSED_OPTIMIZER,
 PADDLE_TPU_FUSED_EPILOGUE and PADDLE_TPU_ASYNC_FEED, each unless already
 set), so it runs the program bench.py runs: after the epilogue pass and
@@ -340,7 +385,7 @@ the optimizer pass. Each prints its op count after both passes and its
 fused_bias_act and fused_residual_layer_norm ops, which must be the JAX
 package's pass's counts (float32 / AMP: gpt_long 2+4 / 0, ResNet-50 16 /
 16, WMT 12+32 / 0+2, BERT 12+25 / 0+1, Wide&Deep 2). The twins (phases
-8, 11, 18, 24, 28 and 38) run with the knobs set too.
+8, 11, 18, 24, 28, 38 and 42) run with the knobs set too.
 
 Any failure raises and exits non-zero without the last line. Without a
 CUDA device it exits 2 and prints no result.
@@ -3328,14 +3373,15 @@ def phase_wide_deep(fluid, support, fo):
                              unit="examples")
     (op,) = [op for op in built[0][0].global_block().ops
              if op.type == "fused_optimizer"]
-    run["k4"] = k4_at_wide_deep(fo, op)
+    run["k4"] = k4_at_path(fo, op, 27, "Wide&Deep")
     log("phase 27 run %s" % json.dumps(run))
     return counts, run
 
 
-def k4_at_wide_deep(fo, op):
-    """K4's adam at the flat size of the Wide&Deep path's one
-    fused_optimizer op: bitwise against its plain version, then rounds of
+def k4_at_path(fo, op, phase, path):
+    """K4's adam at the flat size of a training path's one
+    fused_optimizer op (``path`` names it in the log line): bitwise
+    against its plain version, then rounds of
     K4, torch._fused_adam_, torch._fused_adam_, K4 on the same buffers
     (medians and spreads), each one's device time a launch, and the
     bytes bound (param, m1 and m2 read and written, grad read: 28 bytes
@@ -3345,7 +3391,7 @@ def k4_at_wide_deep(fo, op):
         raise RuntimeError("expected adam, got %s" % op.attrs)
     p, grad, m1, m2, lr, b1p, b2p, attrs = k4_case(fo, "adam", n, False,
                                                    seed=43, lr=1e-3,
-                                                   phase=27)
+                                                   phase=phase)
     step = torch.tensor(1.0, device="cuda")
     calls = {"k4": lambda: fo.fused_optimizer_update(
         "adam", attrs, p, grad, lr, m1, m2, b1p, b2p),
@@ -3364,12 +3410,12 @@ def k4_at_wide_deep(fo, op):
         "adam", attrs, p, grad, lr.reshape(()), m1, m2, b1p.reshape(()),
         b2p.reshape(())), iters=5, warmup=1)
     b_ms, b_by = bound(7 * 4 * n, 15 * n, PEAK_FLOPS[torch.float32])
-    log("phase 27 K4 adam over %d elements (the path's flat buffer), %d "
-        "rounds of K4, torch._fused_adam_, torch._fused_adam_, K4: K4 "
+    log("phase %d K4 adam over %d elements (the %s path's flat buffer), "
+        "%d rounds of K4, torch._fused_adam_, torch._fused_adam_, K4: K4 "
         "median %.4f ms (spread %.4f), device %s a launch; "
         "torch._fused_adam_ median %.4f ms (spread %.4f), device %s; plain "
         "%.4f ms; bound %.4f ms by %s; readings %s; card %s"
-        % (n, K4_ROUNDS, med["k4"], spread["k4"], fmt_ms(dev["k4"]),
+        % (phase, n, path, K4_ROUNDS, med["k4"], spread["k4"], fmt_ms(dev["k4"]),
            med["fused_adam"], spread["fused_adam"], fmt_ms(dev["fused_adam"]),
            plain_ms, b_ms, b_by, json.dumps(rounds), card_line()))
     del p, grad, m1, m2, calls
@@ -4325,7 +4371,7 @@ def state_gap(a, b):
 
 
 def recipe_twin(fluid, name, build, feeds, routes=("default", "interpreted"),
-                want=None):
+                want=None, phase=38):
     """``build()``'s program through CPUPlace() and on the card by each
     route from the CPU startup's state: losses, extra fetches (rates) and
     persistables within TWIN_RTOL of their scale. Returns the card's
@@ -4347,28 +4393,29 @@ def recipe_twin(fluid, name, build, feeds, routes=("default", "interpreted"),
             fetch_gap = max(fetch_gap, float(np.abs(cv - gv).max())
                             / max(float(np.abs(gv).max()), 1e-12))
         gap = state_gap(card[1], cpu[1])
-        log("phase 38 %s %s: losses %s (CPU %s), largest loss gap %.3g, "
+        log("phase %d %s %s: losses %s (CPU %s), largest loss gap %.3g, "
             "fetch gap %.3g, state gap %.3g of scale (limit %g); %d "
             "captures; launches %s" % (
-                name, route, [round(float(c[0].reshape(-1)[0]), 6)
+                phase, name, route, [round(float(c[0].reshape(-1)[0]), 6)
                               for c in card[0]],
                 [round(float(g[0].reshape(-1)[0]), 6) for g in cpu[0]],
                 loss_gap, fetch_gap, gap, TWIN_RTOL, card[3],
                 json.dumps({k: v for k, v in card[2].items() if v})))
         if not (loss_gap <= TWIN_RTOL and fetch_gap <= TWIN_RTOL
                 and gap <= TWIN_RTOL):
-            raise RuntimeError("phase 38 %s %s: card and CPU disagree "
+            raise RuntimeError("phase %d %s %s: card and CPU disagree "
                                "(loss %g, fetches %g, state %g)"
-                               % (name, route, loss_gap, fetch_gap, gap))
+                               % (phase, name, route, loss_gap, fetch_gap,
+                                  gap))
         if route == "default":
             launches = card[2]
             if card[3] != 1:
-                raise RuntimeError("phase 38 %s: %d captures, want 1"
-                                   % (name, card[3]))
+                raise RuntimeError("phase %d %s: %d captures, want 1"
+                                   % (phase, name, card[3]))
             if want is not None and any(card[2].get(k, 0) != n
                                         for k, n in want.items()):
-                raise RuntimeError("phase 38 %s launches %s, want %s"
-                                   % (name, card[2], want))
+                raise RuntimeError("phase %d %s launches %s, want %s"
+                                   % (phase, name, card[2], want))
     return launches
 
 
@@ -4627,6 +4674,927 @@ def phase_recipe_twins(fluid, support):
                            "distribution %s" % (exact, reads))
 
 
+# -- phases 39-42: the recurrent family and control flow (slice 14) ---------
+
+# PaddleNLP's seq2seq base model, the one without attention
+# (PaddlePaddle/models, PaddleNLP/seq2seq/seq2seq, IWSLT'15 en-vi, Paddle
+# 1.7's fluid.layers.rnn / BeamSearchDecoder / dynamic_decode): a 2-layer
+# LSTM encoder and decoder of 512, embeddings of 512, vocabularies 17191
+# and 7709, batch 128, sentences cut to 50 tokens, dropout 0.2, uniform
+# init +-0.1, Adam 1e-3 under a global-norm clip of 5.0, beam 10. The
+# corpus is not in the repository: token ids and lengths (10-50) are drawn
+# from the seed
+SEQ2SEQ = dict(batch=128, seq=50, hidden=512, layers=2, src_vocab=17191,
+               trg_vocab=7709, dropout=0.2)
+SEQ2SEQ_LENGTHS = (10, 50)
+SEQ2SEQ_BEAM = 10
+SEQ2SEQ_DECODE_STEPS = 50
+SEQ2SEQ_STEPS = 20   # losses over 20 steps: eager, capture, 18 replays
+SEQ2SEQ_TIMED = 5    # of which 5 back to back are timed
+# (ops after both passes, fused_bias_act, fused_residual_layer_norm,
+# fused_optimizer): the JAX package's passes leave the same in the same
+# program (tests/test_torch_rnn.py builds both at this width)
+SEQ2SEQ_PASSES = (6095, 0, 0, 1)
+SEQ2SEQ_PARAMS = 25092608
+# phase 40 holds the card's beams to the CPU's at batch 8 wherever the
+# gap between the K-th and (K+1)-th best candidates exceeds this (it
+# decides which hypotheses stay in the beam)
+BEAM_CHECK_BATCH = 8
+BEAM_GAP = 1e-4
+# phase 41: tests/test_while_grad.py's recurrence at the seq2seq's width
+WHILE_SHAPE = dict(batch=128, width=512, trips=50)
+WHILE_STEPS = 6      # an eager step, the capture (unrolled), 4 timed
+WHILE_RTOL = 1e-4
+# phase 42: the narrow twins, card against CPU (TWIN_RTOL)
+SEQ2SEQ_TWIN = dict(batch=4, seq=8, hidden=32, layers=2, src_vocab=53,
+                    trg_vocab=41, dropout=0.0)
+
+
+def seq2seq_cell(fluid, prefix, cfg, dropout, init=None):
+    """PaddleNLP's EncoderCell / DecoderCell: LSTMCells stacked, a dropout
+    (upscale_in_train) after each when ``dropout`` > 0; the states flat,
+    [h0, c0, h1, c1]; the parameters named ``<prefix>_l<i>_w`` / ``_b``,
+    so that the decode program shares the trained ones."""
+    from paddle_tpu_torch.layers.rnn import LSTMCell, RNNCell
+
+    H, NL = cfg["hidden"], cfg["layers"]
+
+    class StackedLSTM(RNNCell):
+        def __init__(self):
+            self.cells = [LSTMCell(H, param_attr=fluid.ParamAttr(
+                name="%s_l%d_w" % (prefix, i), initializer=init),
+                bias_attr=fluid.ParamAttr(name="%s_l%d_b" % (prefix, i),
+                                          initializer=init))
+                for i in range(NL)]
+
+        def call(self, inputs, states):
+            new = []
+            for i, cell in enumerate(self.cells):
+                out, (h, c) = cell.call(inputs, states[2 * i:2 * i + 2])
+                inputs = fluid.layers.dropout(
+                    out, dropout, dropout_implementation="upscale_in_train") \
+                    if dropout > 0 else out
+                new += [h, c]
+            return inputs, new
+
+        @property
+        def state_shape(self):
+            return [[H]] * (2 * NL)
+
+    return StackedLSTM()
+
+
+def seq2seq_train_script(fluid, cfg):
+    """The training program as a user writes it: embeddings, ``rnn`` over
+    the stacked cells with the source and target lengths, the output
+    projection, softmax_with_cross_entropy masked by the target lengths
+    (a mean over the batch, a sum over time), Adam under the clip."""
+    from paddle_tpu_torch.layers.rnn import rnn
+
+    L = fluid.layers
+    B, T, H = cfg["batch"], cfg["seq"], cfg["hidden"]
+    init = fluid.initializer.UniformInitializer(-0.1, 0.1)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src = fluid.data(name="src", shape=[B, T], dtype="int64")
+        src_len = fluid.data(name="src_len", shape=[B], dtype="int64")
+        trg = fluid.data(name="trg", shape=[B, T], dtype="int64")
+        trg_len = fluid.data(name="trg_len", shape=[B], dtype="int64")
+        label = fluid.data(name="label", shape=[B, T, 1], dtype="int64")
+        src_emb = L.embedding(src, size=[cfg["src_vocab"], H],
+                              param_attr=fluid.ParamAttr(
+                                  name="source_embedding", initializer=init))
+        trg_emb = L.embedding(trg, size=[cfg["trg_vocab"], H],
+                              param_attr=fluid.ParamAttr(
+                                  name="target_embedding", initializer=init))
+        _, enc_final = rnn(seq2seq_cell(fluid, "enc", cfg, cfg["dropout"],
+                                        init),
+                           src_emb, sequence_length=src_len)
+        dec_out, _ = rnn(seq2seq_cell(fluid, "dec", cfg, cfg["dropout"],
+                                      init),
+                         trg_emb, initial_states=enc_final,
+                         sequence_length=trg_len)
+        logits = L.fc(L.reshape(dec_out, [B * T, H]), size=cfg["trg_vocab"],
+                      param_attr=fluid.ParamAttr(name="output_w",
+                                                 initializer=init),
+                      bias_attr=False)
+        loss = L.softmax_with_cross_entropy(logits,
+                                            L.reshape(label, [B * T, 1]))
+        mask = L.sequence_mask(trg_len, maxlen=T, dtype="float32")
+        loss = L.elementwise_mul(L.reshape(loss, [B, T]), mask)
+        loss = L.reduce_sum(L.reduce_mean(loss, dim=[0]))
+        fluid.optimizer.AdamOptimizer(
+            1e-3, grad_clip=fluid.clip.GradientClipByGlobalNorm(5.0)
+        ).minimize(loss)
+    return main, startup, loss
+
+
+def seq2seq_decode_script(fluid, cfg, batch, record=False):
+    """The decode program: a new encoder ``rnn`` and a BeamSearchDecoder
+    (beam 10, start 0, end 1) with ``dynamic_decode(max_step_num=50)``,
+    sharing the trained embeddings, cells and projection by name, as
+    tests/test_book.py:287-308 does. Returns (main, startup, [ids [B, 50,
+    K], log_probs, lengths], steps) where, with ``record``, ``steps`` are
+    the stacked per-step predicted ids, parent ids and scores [50, B, K]
+    and the K+1 best candidates' scores [50, B, K+1] (an extra top_k
+    beside the decoder's own, read by nothing else)."""
+    import contextlib
+
+    from paddle_tpu_torch.layers import nn as layers_nn
+    from paddle_tpu_torch.layers.rnn import (BeamSearchDecoder,
+                                             dynamic_decode, rnn)
+
+    L = fluid.layers
+    cfg = dict(cfg, batch=batch)
+    H, TV, K = cfg["hidden"], cfg["trg_vocab"], SEQ2SEQ_BEAM
+    wider = []
+
+    class Recording(BeamSearchDecoder):
+        def finalize(self, outputs, final_states, sequence_lengths):
+            self.stacked = outputs
+            return super().finalize(outputs, final_states, sequence_lengths)
+
+    @contextlib.contextmanager
+    def recording_topk():
+        real = layers_nn.topk
+
+        def topk(input, k, name=None):
+            wider.append(real(input, k + 1)[0])
+            return real(input, k, name)
+
+        layers_nn.topk = topk
+        try:
+            yield
+        finally:
+            layers_nn.topk = real
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src = fluid.data(name="src", shape=[batch, cfg["seq"]], dtype="int64")
+        src_len = fluid.data(name="src_len", shape=[batch], dtype="int64")
+        src_emb = L.embedding(src, size=[cfg["src_vocab"], H],
+                              param_attr=fluid.ParamAttr(
+                                  name="source_embedding"))
+        _, enc_final = rnn(seq2seq_cell(fluid, "enc", cfg, 0.0), src_emb,
+                           sequence_length=src_len)
+        dec = (Recording if record else BeamSearchDecoder)(
+            seq2seq_cell(fluid, "dec", cfg, 0.0), start_token=0,
+            end_token=1, beam_size=K,
+            embedding_fn=lambda ids: L.embedding(
+                ids, size=[TV, H],
+                param_attr=fluid.ParamAttr(name="target_embedding")),
+            output_fn=lambda x: L.fc(
+                x, size=TV, param_attr=fluid.ParamAttr(name="output_w"),
+                bias_attr=False))
+        with recording_topk() if record else contextlib.nullcontext():
+            outs, states = dynamic_decode(dec, inits=enc_final,
+                                          max_step_num=SEQ2SEQ_DECODE_STEPS)
+        steps = None
+        if record:
+            s = dec.stacked
+            steps = [s.predicted_ids, s.parent_ids, s.scores,
+                     L.stack(wider, axis=0)]
+    return main, startup, [outs, states.log_probs, states.lengths], steps
+
+
+def seq2seq_batch(rng, cfg, batch):
+    """Seeded sentences as PaddleNLP's seq2seq reader lays them out:
+    lengths in SEQ2SEQ_LENGTHS (at most the width), ids from 2 up (0
+    starts, 1 ends a sentence), padded with the end id. A target of
+    ``trg_len`` tokens is ``trg_len - 1`` words and the end id, all inside
+    the loss's mask; the decoder reads it shifted right behind the start
+    id."""
+    T = cfg["seq"]
+    lo, hi = SEQ2SEQ_LENGTHS
+    hi = min(hi, T)
+    lo = min(lo, hi)
+    src_len = rng.randint(lo, hi + 1, batch).astype("int64")
+    trg_len = rng.randint(lo, hi + 1, batch).astype("int64")
+    src = rng.randint(2, cfg["src_vocab"], (batch, T)).astype("int64")
+    trg = rng.randint(2, cfg["trg_vocab"], (batch, T)).astype("int64")
+    pos = np.arange(T)[None, :]
+    src[pos >= src_len[:, None]] = 1
+    trg[pos >= trg_len[:, None] - 1] = 1
+    trg_in = np.concatenate([np.zeros((batch, 1), "int64"), trg[:, :-1]], 1)
+    return {"src": src, "src_len": src_len, "trg": trg_in,
+            "trg_len": trg_len, "label": trg[:, :, None]}
+
+
+def new_card_executor(fluid, support):
+    """An executor on the card with the probe memo cleared: entering the
+    card launches K7 once."""
+    support.forget_probes()
+    before = support.launch_counts().get("probe_add_one", 0)
+    exe = fluid.Executor()
+    probes = support.launch_counts().get("probe_add_one", 0) - before
+    if probes != 1:
+        raise RuntimeError("an executor entering the card launched the "
+                           "probe %d times, want 1" % probes)
+    return exe
+
+
+def phase_seq2seq_train(fluid, support, fo):
+    """Phase 39: the seq2seq base model trains at full width on the card
+    through Executor.run's default route with bench.py's three knobs set:
+    an eager step (both passes), the capture, then replays; the launch
+    counts zeroed before the executor is made and read after the last
+    step. K4 must run once a step (the clip keeps one group), K7 once.
+    Then K4's adam at the path's flat size against its plain version
+    (bitwise) and torch._fused_adam_, timed."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+
+    bench_fast_paths()
+    np.random.seed(SEED + 60)  # the executor's RNG seed comes from numpy
+    cfg = SEQ2SEQ
+    feed = seq2seq_batch(np.random.RandomState(SEED + 61), cfg, cfg["batch"])
+    tokens = int(feed["trg_len"].sum())
+    t0 = time.perf_counter()
+    main, startup, loss = seq2seq_train_script(fluid, cfg)
+    build_s = time.perf_counter() - t0
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    if n_params != SEQ2SEQ_PARAMS:
+        raise RuntimeError("seq2seq: %d parameters, want %d"
+                           % (n_params, SEQ2SEQ_PARAMS))
+    support.reset_launch_counts()
+    exe = new_card_executor(fluid, support)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    fetched = []
+
+    def step():
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False)
+        fetched.append(out[0])
+        return out
+
+    ce.reset_counters()
+    t0 = time.perf_counter()
+    step()  # eager: applies the epilogue and optimizer passes
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    ops = [op.type for op in main.global_block().ops]
+    got = (len(ops), ops.count("fused_bias_act"),
+           ops.count("fused_residual_layer_norm"), ops.count("fused_optimizer"))
+    log("phase 39 seq2seq after the epilogue and optimizer passes: %d ops, "
+        "%d fused_bias_act, %d fused_residual_layer_norm, %d "
+        "fused_optimizer (the JAX package's passes: %s); %d lstm_unit, %d "
+        "lstm_unit_grad, %d dropout" % (got + (SEQ2SEQ_PASSES,
+                                               ops.count("lstm_unit"),
+                                               ops.count("lstm_unit_grad"),
+                                               ops.count("dropout"))))
+    if got != SEQ2SEQ_PASSES:
+        raise RuntimeError("seq2seq: after the passes %s, want %s"
+                           % (got, SEQ2SEQ_PASSES))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    step()  # the capture (and its first replay)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    before = support.launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(SEQ2SEQ_TIMED):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / SEQ2SEQ_TIMED * 1e3
+    after = support.launch_counts()
+    k4_a_step = (after.get("fused_optimizer_update", 0)
+                 - before.get("fused_optimizer_update", 0)) / SEQ2SEQ_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    check_one_capture("seq2seq", ce.counters())
+    if k4_a_step != 1:
+        raise RuntimeError("seq2seq: K4 ran %s times a step, want 1"
+                           % k4_a_step)
+    while len(fetched) < SEQ2SEQ_STEPS - 1:
+        step()
+    wall_ms, busy_ms, kernels = profile_step(step)
+    counts = support.launch_counts()
+    losses = [float(o.numpy().reshape(-1)[0]) for o in fetched]
+    log("phase 39 seq2seq base (%s): %d parameters, build %.2f s, eager "
+        "step %.1f ms, capture %.3f ms" % (json.dumps(cfg), n_params, build_s,
+                                           eager_ms, capture_ms))
+    log("phase 39 losses over %d steps on one batch: %s" % (
+        len(losses), ", ".join("%.4f" % x for x in losses)))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise RuntimeError("seq2seq training did not fall: %s" % losses)
+    log("phase 39 seq2seq %d replays back to back: step %.3f ms, %.1f "
+        "target tokens/s (%d target tokens a step), idle share %s (one "
+        "replay's profile: wall %.3f, busy %.3f ms; back to back, 1 - busy "
+        "/ step = %s), max_memory_allocated %d bytes (%.2f GB, of which "
+        "%.2f GB were held before the capture); K4 %d a step (it reads the "
+        "learning rate from device memory); launches %s; card %s"
+        % (SEQ2SEQ_TIMED, step_ms, tokens / step_ms * 1e3, tokens,
+           idle(wall_ms, busy_ms), wall_ms, busy_ms, idle(step_ms, busy_ms),
+           peak, peak / 1e9, held / 1e9, k4_a_step,
+           json.dumps({k: v for k, v in counts.items() if v}), card_line()))
+    for t_ms, count, kname in kernels[:8]:
+        log("phase 39 profile   %9.3f ms  %5d x  %s"
+            % (t_ms, count, kname[:110]))
+    exe.close()
+    (op,) = [op for op in main.global_block().ops
+             if op.type == "fused_optimizer"]
+    k4 = k4_at_path(fo, op, 39, "seq2seq")
+    run = {"n_params": n_params, "ops": got[0], "step_ms": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3, "capture_ms": capture_ms,
+           "idle_share": idle(wall_ms, busy_ms),
+           "idle_back_to_back": idle(step_ms, busy_ms), "busy_ms": busy_ms,
+           "peak_bytes": peak, "held_bytes": held, "losses": losses,
+           "k4": k4}
+    return counts, run, scope
+
+
+def beams_ended(ids, where):
+    """The beams of decoded ids [B, steps, K] that reached the end id (1);
+    raises when none did: the finished-beam branch must run."""
+    n = int((ids == 1).any(axis=1).sum())
+    if n == 0:
+        raise RuntimeError("seq2seq decode, %s: no beam ended" % where)
+    return n
+
+
+def beam_prefixes(ids, parents):
+    """Each step's hypotheses, row by row: the tokens of beam k at step t
+    back to the start, followed through the parent ids."""
+    T, B, K = ids.shape
+    prev = [[()] * K for _ in range(B)]
+    steps = []
+    for t in range(T):
+        prev = [[prev[b][int(parents[t, b, k])] + (int(ids[t, b, k]),)
+                 for k in range(K)] for b in range(B)]
+        steps.append(prev)
+    return steps
+
+
+def beam_steps_agree(card, cpu):
+    """The card's beams against the CPU's, step by step (arrays [T, B, K]
+    of predicted ids, parent ids and scores, and [T, B, K+1] of the best
+    scores): wherever the gap between a row's K-th and (K+1)-th
+    candidates (the CPU's) exceeds BEAM_GAP, up to the row's first step
+    where it does not, the card must hold the same K hypotheses (token
+    sequences back to the start, so an order swap inside the beam counts
+    as agreement) with scores within BEAM_GAP of their scale. Returns
+    (row-steps compared, row-steps excluded)."""
+    T, B, K = cpu[0].shape
+    gap = cpu[3][:, :, K - 1] - cpu[3][:, :, K]
+    got, want = beam_prefixes(card[0], card[1]), beam_prefixes(cpu[0],
+                                                                cpu[1])
+    compared = excluded = 0
+    for b in range(B):
+        near = np.nonzero(gap[:, b] <= BEAM_GAP)[0]
+        t_end = int(near[0]) if len(near) else T
+        for t in range(t_end):
+            g = dict(zip(got[t][b], card[2][t, b]))
+            w = dict(zip(want[t][b], cpu[2][t, b]))
+            if set(g) != set(w):
+                raise RuntimeError(
+                    "beam hypotheses differ at batch row %d, step %d (the "
+                    "K-th and (K+1)-th candidates %.3g apart)"
+                    % (b, t, gap[t, b]))
+            scale = max(1.0, max(abs(float(v)) for v in w.values()))
+            if max(abs(float(g[h]) - float(w[h])) for h in w) > \
+                    BEAM_GAP * scale:
+                raise RuntimeError("beam scores differ at batch row %d, "
+                                   "step %d" % (b, t))
+        compared += t_end
+        excluded += T - t_end
+    return compared, excluded
+
+
+def phase_seq2seq_decode(fluid, support, train_scope):
+    """Phase 40: the decode program at batch 128 on the trained weights
+    (eager run, capture, then SEQ2SEQ_TIMED replays timed), then at batch
+    8 on the card and through CPUPlace() with the same weights and source,
+    held step by step (``beam_steps_agree``)."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+    from paddle_tpu_torch.core.tensor import LoDTensor
+
+    cfg = SEQ2SEQ
+    B, K, steps = cfg["batch"], SEQ2SEQ_BEAM, SEQ2SEQ_DECODE_STEPS
+    feed = seq2seq_batch(np.random.RandomState(SEED + 62), cfg, B)
+    feed = {"src": feed["src"], "src_len": feed["src_len"]}
+    t0 = time.perf_counter()
+    main, startup, fetch, _ = seq2seq_decode_script(fluid, cfg, B)
+    build_s = time.perf_counter() - t0
+    support.reset_launch_counts()
+    exe = new_card_executor(fluid, support)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    shared = [v.name for v in main.global_block().vars.values()
+              if v.persistable and train_scope.find_var(v.name) is not None]
+    for n in shared:  # the trained weights, by name
+        scope.var(n).set(LoDTensor(train_scope.find_var(n).get_tensor()
+                                   .array))
+    ce.reset_counters()
+
+    def run():
+        return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                       return_numpy=False)
+
+    t0 = time.perf_counter()
+    run()  # eager
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    run()  # the capture
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(SEQ2SEQ_TIMED):
+        out = run()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / SEQ2SEQ_TIMED * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    check_one_capture("seq2seq decode", ce.counters())
+    wall_ms, busy_ms, kernels = profile_step(run)
+    counts = support.launch_counts()
+    ids, lp, lengths = (o.numpy() for o in out)
+    if ids.shape != (B, steps, K) or ids.min() < 0 or \
+            ids.max() >= cfg["trg_vocab"] or not np.isfinite(lp).all():
+        raise RuntimeError("decode output: shape %s, ids %d..%d"
+                           % (ids.shape, ids.min(), ids.max()))
+    ended = ids == 1
+    before_end = np.where(ended.any(axis=1), ended.argmax(axis=1), steps)
+    n_ended = beams_ended(ids, "batch %d on the card" % B)
+    ops = len(main.global_block().ops)
+    log("phase 40 seq2seq beam decode (batch %d, beam %d, %d steps): %d "
+        "ops, %d weights shared with phase 39, build %.2f s, eager %.1f ms, "
+        "capture %.3f ms" % (B, K, steps, ops, len(shared), build_s,
+                             eager_ms, capture_ms))
+    log("phase 40 decode %d replays: %.3f ms a batch, %.1f decoded "
+        "tokens/s (batch x beam x steps = %d), %.1f tokens/s before each "
+        "beam's end token (%d; %d of %d beams ended), idle share %s (one "
+        "replay's profile: wall "
+        "%.3f, busy %.3f ms; back to back, 1 - busy / step = %s), "
+        "max_memory_allocated %d bytes (%.2f GB, of which %.2f GB were held "
+        "before the capture); launches %s; card %s"
+        % (SEQ2SEQ_TIMED, decode_ms, B * K * steps / decode_ms * 1e3,
+           B * K * steps, before_end.sum() / decode_ms * 1e3,
+           before_end.sum(), n_ended, B * K, idle(wall_ms, busy_ms),
+           wall_ms, busy_ms,
+           idle(decode_ms, busy_ms), peak, peak / 1e9, held / 1e9,
+           json.dumps({k: v for k, v in counts.items() if v}), card_line()))
+    for t_ms, count, kname in kernels[:8]:
+        log("phase 40 profile   %9.3f ms  %5d x  %s"
+            % (t_ms, count, kname[:110]))
+    # batch 8: the card against the CPU, same weights and source
+    weights = {n: train_scope.find_var(n).get_tensor().numpy()
+               for n in shared}
+    small = {k: v[:BEAM_CHECK_BATCH] for k, v in feed.items()}
+    sides = {}
+    for side, place in (("cpu", fluid.CPUPlace()), ("card", None)):
+        cmain, cstartup, cfetch, csteps = seq2seq_decode_script(
+            fluid, cfg, BEAM_CHECK_BATCH, record=True)
+        cexe = fluid.Executor(fluid.CPUPlace()) if side == "cpu" else exe
+        cscope = fluid.Scope()
+        cexe.run(cstartup, scope=cscope)
+        fluid.io.scope_from_numpy(cscope, weights, place or
+                                  fluid.CUDAPlace(0))
+        runs = [[np.asarray(r) for r in cexe.run(
+            cmain, feed=small, fetch_list=cfetch + csteps, scope=cscope)]
+            for _ in range(1 if side == "cpu" else 2)]  # card: eager, capture
+        sides[side] = runs
+    cpu = sides["cpu"][0]
+    small_ended = beams_ended(cpu[0], "batch %d on the CPU"
+                              % BEAM_CHECK_BATCH)
+    for i, card in enumerate(sides["card"]):
+        card_ended = beams_ended(card[0], "batch %d on the card"
+                                 % BEAM_CHECK_BATCH)
+        compared, excluded = beam_steps_agree(card[3:], cpu[3:])
+        log("phase 40 batch %d card (%s) against CPU: %d row-steps held "
+            "equal (the beam's hypotheses; scores within %g), %d excluded "
+            "from a row's first step whose K-th and (K+1)-th candidates lie "
+            "within %g; beams ended %d on the card, %d on the CPU, of %d; "
+            "final ids equal on %d of %d rows" % (
+                BEAM_CHECK_BATCH, ("eager", "captured")[i], compared,
+                BEAM_GAP, excluded, BEAM_GAP, card_ended, small_ended,
+                BEAM_CHECK_BATCH * K,
+                sum(np.array_equal(card[0][b], cpu[0][b])
+                    for b in range(BEAM_CHECK_BATCH)), BEAM_CHECK_BATCH))
+    exe.close()
+    run_numbers = {"ops": ops, "decode_ms": decode_ms,
+                   "tokens_per_s": B * K * steps / decode_ms * 1e3,
+                   "tokens_before_end_per_s": float(before_end.sum())
+                   / decode_ms * 1e3, "capture_ms": capture_ms,
+                   "idle_share": idle(wall_ms, busy_ms),
+                   "idle_back_to_back": idle(decode_ms, busy_ms),
+                   "busy_ms": busy_ms, "peak_bytes": peak, "held_bytes": held,
+                   "beams_ended": n_ended,
+                   "beam_check": {"compared": compared,
+                                  "excluded": excluded,
+                                  "beams_ended": small_ended}}
+    return counts, run_numbers
+
+
+def while_script(fluid, cfg, unrolled=False, trips=None, name="w_while"):
+    """tests/test_while_grad.py's recurrence: h_{t+1} = tanh(h_t W + x),
+    the loss mean(h_T), SGD; in a While, or unrolled."""
+    B, D = cfg["batch"], cfg["width"]
+    trips = cfg["trips"] if trips is None else trips
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[B, D], dtype="float32")
+        w = L.create_parameter([D, D], "float32", name=name)
+        h = L.fill_constant([B, D], "float32", 0.0)
+        if unrolled:
+            h.stop_gradient = False
+            for _ in range(trips):
+                h = L.tanh(L.elementwise_add(L.matmul(h, w), x))
+        else:
+            i = L.fill_constant([1], "int64", 0)
+            n = L.fill_constant([1], "int64", trips)
+            cond = L.less_than(i, n)
+            with L.While(cond).block():
+                nh = L.tanh(L.elementwise_add(L.matmul(h, w), x))
+                L.assign(nh, h)
+                L.increment(i, value=1, in_place=True)
+                L.less_than(i, n, cond=cond)
+        loss = L.reduce_mean(h)
+        fluid.optimizer.SGDOptimizer(0.5).minimize(loss)
+    return main, startup, loss, [w]
+
+
+def route_of(counters):
+    return ("interpreter" if counters["executor.compile_fallbacks"]
+            else "captured" if counters["executor.jit_traces"]
+            else "whole-program, eager")
+
+
+def card_and_cpu_steps(fluid, support, exe, build, feeds, init=None):
+    """``build()``'s program a step a feed through CPUPlace() and on the
+    card (``exe``) from the same state: (CPU fetches, card fetches, card
+    route, card ms a step from the third on (after the eager run and the
+    capture, where the route captures), card state, CPU state, card ms of
+    the second step (the capture, where the route captures))."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+
+    main, startup, loss, extra = build()
+    fetch = [loss] + list(extra)
+    out = {}
+    for side, place in (("cpu", fluid.CPUPlace()), ("card", None)):
+        e = fluid.Executor(fluid.CPUPlace()) if side == "cpu" else exe
+        scope = fluid.Scope()
+        if init is None:
+            e.run(startup, scope=scope)
+            init = {v.name: scope.find_var(v.name).get_tensor().numpy()
+                    for v in main.global_block().vars.values()
+                    if v.persistable and scope.find_var(v.name) is not None}
+        else:
+            e.run(startup, scope=scope)
+            fluid.io.scope_from_numpy(scope, init, place or
+                                      fluid.CUDAPlace(0))
+        ce.reset_counters()
+        res, marks = [], []
+        for i, feed in enumerate(feeds):
+            if i in (1, 2):  # around the capture; then the steps after it
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            res.append([np.asarray(r) for r in e.run(
+                main, feed=feed, fetch_list=fetch, scope=scope)])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - marks[1]) / (len(feeds) - 2) * 1e3
+        out[side] = (res, route_of(ce.counters()), ms,
+                     card_state(main, scope), (marks[1] - marks[0]) * 1e3)
+    return out["cpu"][0], out["card"][0], out["card"][1], out["card"][2], \
+        out["card"][3], out["cpu"][3], out["card"][4]
+
+
+def rel_gap(a, b):
+    return float(np.abs(np.asarray(a, np.float64) - b).max(initial=0.0)) / \
+        max(float(np.abs(b).max(initial=0.0)), 1e-6)
+
+
+def phase_while(fluid, support):
+    """Phase 41: While on the card. The recurrence at B 128, D 512, T 50
+    trains WHILE_STEPS SGD steps through while_grad (the interpreter route,
+    one counted fallback) against the same computation unrolled (captured),
+    from the same weights: losses and W within WHILE_RTOL relative. Then
+    IfElse, cond, an array loop and a zero-trip while, each on the card
+    against the CPU. Each prints its route and time a trip (a step)."""
+    cfg = WHILE_SHAPE
+    support.reset_launch_counts()
+    exe = new_card_executor(fluid, support)
+    rng = np.random.RandomState(SEED + 63)
+    feeds = [{"x": rng.randn(cfg["batch"], cfg["width"]).astype("float32")}
+             for _ in range(WHILE_STEPS)]
+    init = {"w_while": (rng.randn(cfg["width"], cfg["width"])
+                        / np.sqrt(cfg["width"])).astype("float32")}
+    runs = {}
+    for name, unrolled in (("while", False), ("unrolled", True)):
+        build = (lambda u=unrolled: while_script(fluid, cfg, unrolled=u))
+        cpu, card, route, ms, state, cpu_state, second_ms = \
+            card_and_cpu_steps(fluid, support, exe, build, feeds, init)
+        runs[name] = (card, route, ms, state, second_ms)
+        gap = max(rel_gap(c[0], g[0]) for c, g in zip(card, cpu))
+        log("phase 41 %s (B %d, D %d, %d trips) on the card by the %s: "
+            "losses %s; card against CPU: loss gap %.3g, W gap %.3g; %.3f "
+            "ms a step over the %d steps after the second, %.4f ms a trip "
+            "(forward and backward); the second step (the capture, where "
+            "the route captures) %.3f ms; card %s"
+            % (name, cfg["batch"], cfg["width"], cfg["trips"], route,
+               [round(float(c[0].reshape(-1)[0]), 7) for c in card], gap,
+               rel_gap(state["w_while"], cpu_state["w_while"]), ms,
+               len(feeds) - 2, ms / cfg["trips"], second_ms, card_line()))
+        if gap > WHILE_RTOL:
+            raise RuntimeError("phase 41 %s: card and CPU differ by %g"
+                               % (name, gap))
+    (wc, wroute, wms, wstate, _), (uc, uroute, ums, ustate, ucapture) = \
+        runs["while"], runs["unrolled"]
+    loss_gap = max(rel_gap(a[0], b[0]) for a, b in zip(wc, uc))
+    w_gap = rel_gap(wstate["w_while"], ustate["w_while"])
+    moved = rel_gap(wstate["w_while"], init["w_while"])
+    log("phase 41 while_grad against the unrolled program on the card: "
+        "loss gap %.3g, W gap %.3g of its scale (limit %g), W moved %.3g; "
+        "routes %s and %s; %.3f vs %.3f ms a step" % (
+            loss_gap, w_gap, WHILE_RTOL, moved, wroute, uroute, wms, ums))
+    if not (loss_gap <= WHILE_RTOL and w_gap <= WHILE_RTOL and moved > 0
+            and wroute == "interpreter" and uroute == "captured"):
+        raise RuntimeError("phase 41: while against unrolled: loss %g, W %g,"
+                           " moved %g, routes %s/%s" % (
+                               loss_gap, w_gap, moved, wroute, uroute))
+    # the forward alone (clone for test: no snapshots, no backward)
+    main, startup, loss, _ = while_script(fluid, cfg)
+    test = main.clone(for_test=True)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    exe.run(test, feed=feeds[0], fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in feeds:
+        exe.run(test, feed=f, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) / len(feeds) * 1e3
+    log("phase 41 while forward alone (is_test, no snapshots): %.3f ms a "
+        "run, %.4f ms a trip (one condition read a trip); card %s"
+        % (fwd_ms, fwd_ms / cfg["trips"], card_line()))
+    others = {}
+    for name, build, trips, feeds_c in control_flow_cases(fluid, rng):
+        cpu, card, route, ms, _, _, _ = card_and_cpu_steps(
+            fluid, support, exe, build, feeds_c)
+        gap = max(rel_gap(c[i], g[i]) for c, g in zip(card, cpu)
+                  for i in range(len(g)))
+        per = "%.4f ms a trip" % (ms / trips) if trips else \
+            "%.3f ms a step" % ms
+        log("phase 41 %s on the card by the %s: card against CPU gap %.3g "
+            "(limit %g); %s; card %s" % (name, route, gap, WHILE_RTOL, per,
+                                         card_line()))
+        if gap > WHILE_RTOL:
+            raise RuntimeError("phase 41 %s: card and CPU differ by %g"
+                               % (name, gap))
+        others[name] = {"route": route, "ms": ms, "trips": trips}
+    counts = support.launch_counts()
+    exe.close()
+    return counts, {"while": {"route": wroute, "step_ms": wms,
+                              "ms_a_trip": wms / cfg["trips"],
+                              "forward_ms_a_trip": fwd_ms / cfg["trips"]},
+                    "unrolled": {"route": uroute, "step_ms": ums,
+                                 "capture_ms": ucapture},
+                    "loss_gap": loss_gap, "w_gap": w_gap, **others}
+
+
+def control_flow_cases(fluid, rng):
+    """(name, build, trips, feeds): IfElse over a [N, 1] mask, cond, an
+    array loop (steps read from an array, outputs written to one) and a
+    zero-trip while, each trained with SGD."""
+    L = fluid.layers
+    N, D = 64, 32
+
+    def ifelse():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data(name="x", shape=[N, D], dtype="float32")
+            label = fluid.data(name="label", shape=[N, 1], dtype="float32")
+            cond = L.less_than(label, L.fill_constant([1], "float32", 0.0))
+            ie = L.IfElse(cond)
+            with ie.true_block():
+                ie.output(L.fc(ie.input(x), size=16, act="tanh"))
+            with ie.false_block():
+                ie.output(L.scale(L.fc(ie.input(x), size=16), 2.0))
+            (out,) = ie()
+            loss = L.mean(out)
+            fluid.optimizer.SGD(0.5).minimize(loss)
+        return main, startup, loss, [out]
+
+    def cond():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data(name="x", shape=[N, D], dtype="float32")
+            flag = fluid.data(name="flag", shape=[N, 16], dtype="bool")
+            h = L.fc(x, size=16)
+            out = L.cond(flag, lambda: L.tanh(h), lambda: L.scale(h, 3.0))
+            loss = L.mean(out)
+            fluid.optimizer.SGD(0.5).minimize(loss)
+        return main, startup, loss, [out]
+
+    def array_loop(trips=8):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data(name="x", shape=[trips, N, D], dtype="float32")
+            w = L.create_parameter([D, D], "float32", name="w_arr")
+            steps = None
+            for t in range(trips):
+                xt = L.reshape(L.slice(x, axes=[0], starts=[t],
+                                       ends=[t + 1]), [N, D])
+                steps = L.array_write(xt, L.fill_constant([1], "int64", t),
+                                      array=steps)
+            outs = L.create_array("float32")
+            h = L.fill_constant([N, D], "float32", 0.0)
+            i = L.fill_constant([1], "int64", 0)
+            n = L.fill_constant([1], "int64", trips)
+            c = L.less_than(i, n)
+            with L.While(c).block():
+                xt = L.array_read(steps, i)
+                xt.shape = (N, D)
+                nh = L.tanh(L.elementwise_add(L.matmul(h, w), xt))
+                L.assign(nh, h)
+                L.array_write(nh, i, array=outs)
+                L.increment(i, value=1, in_place=True)
+                L.less_than(i, n, cond=c)
+            last = L.array_read(outs, L.fill_constant([1], "int64",
+                                                      trips - 1))
+            last.shape = (N, D)
+            loss = L.reduce_mean(last)
+            fluid.optimizer.SGD(0.5).minimize(loss)
+        return main, startup, loss, [w]
+
+    def zero_trip():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data(name="x", shape=[N, D], dtype="float32")
+            w = L.create_parameter([D, D], "float32", name="w_z")
+            h = L.matmul(x, w)
+            i = L.fill_constant([1], "int64", 5)
+            n = L.fill_constant([1], "int64", 3)
+            c = L.less_than(i, n)
+            with L.While(c).block():
+                L.assign(L.scale(h, scale=2.0), h)
+                L.increment(i, value=1, in_place=True)
+                L.less_than(i, n, cond=c)
+            loss = L.reduce_mean(h)
+            fluid.optimizer.SGD(0.1).minimize(loss)
+        return main, startup, loss, [w]
+
+    f = lambda *s: rng.randn(*s).astype("float32")  # noqa: E731
+    n = WHILE_STEPS
+    return [
+        ("IfElse", ifelse, 0, [{"x": f(N, D), "label": f(N, 1)}
+                                for _ in range(n)]),
+        ("cond", cond, 0, [{"x": f(N, D), "flag": rng.rand(N, 16) > 0.5}
+                            for _ in range(n)]),
+        ("array loop", array_loop, 8, [{"x": f(8, N, D)} for _ in range(n)]),
+        ("zero-trip while", zero_trip, 0, [{"x": f(N, D)}
+                                           for _ in range(n)]),
+    ]
+
+
+def phase_recurrent_twins(fluid, support):
+    """Phase 42: at narrow width, on the card against the port through
+    CPUPlace() from the same state (recipe_twin, TWIN_RTOL): the seq2seq
+    training step with dropout 0, the book's GRU encoder-decoder (then its
+    beam decode, ids equal), cudnn_lstm bidirectional over 2 layers,
+    StaticRNN and rnn(is_reverse=True) with lengths."""
+    from paddle_tpu_torch.layers.rnn import (BeamSearchDecoder, GRUCell,
+                                             StaticRNN, dynamic_decode, rnn)
+
+    L = fluid.layers
+    rng = np.random.RandomState(SEED + 64)
+    cfg = SEQ2SEQ_TWIN
+    steps = RECIPE_TWIN_STEPS
+    want = {"fused_optimizer_update": steps}
+
+    def s2s():
+        main, startup, loss = seq2seq_train_script(fluid, cfg)
+        return main, startup, loss, []
+
+    recipe_twin(fluid, "seq2seq (dropout 0)", s2s,
+                [seq2seq_batch(rng, cfg, cfg["batch"]) for _ in range(steps)],
+                routes=("default",), want=want, phase=42)
+    B, T, V, E, H, K = 4, 8, 30, 16, 32, 3
+
+    def mt():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            src = fluid.data(name="src", shape=[B, T], dtype="int64")
+            trg_in = fluid.data(name="trg_in", shape=[B, T], dtype="int64")
+            trg_out = fluid.data(name="trg_out", shape=[B, T], dtype="int64")
+            emb = L.embedding(src, size=[V, E],
+                              param_attr=fluid.ParamAttr(name="semb"))
+            _, enc_final = rnn(GRUCell(hidden_size=H, name="enc"), emb)
+            dec_out, _ = rnn(GRUCell(hidden_size=H, name="dec"),
+                             L.embedding(trg_in, size=[V, E],
+                                         param_attr=fluid.ParamAttr(
+                                             name="temb")),
+                             initial_states=enc_final)
+            logits = L.fc(L.reshape(dec_out, [B * T, H]), size=V,
+                          param_attr=fluid.ParamAttr(name="out_w"),
+                          bias_attr=False)
+            loss = L.mean(L.cross_entropy(L.softmax(logits),
+                                          L.reshape(trg_out, [B * T, 1])))
+            fluid.optimizer.AdamOptimizer(5e-3).minimize(loss)
+        return main, startup, loss, []
+
+    mt_feeds = [{k: rng.randint(0, V, (B, T)).astype("int64")
+                 for k in ("src", "trg_in", "trg_out")} for _ in range(steps)]
+    recipe_twin(fluid, "GRU encoder-decoder", mt, mt_feeds,
+                routes=("default",), want=want, phase=42)
+
+    def mt_decode():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            src = fluid.data(name="src", shape=[B, T], dtype="int64")
+            emb = L.embedding(src, size=[V, E],
+                              param_attr=fluid.ParamAttr(name="semb"))
+            _, enc_final = rnn(GRUCell(hidden_size=H, name="enc"), emb)
+            dec = BeamSearchDecoder(
+                GRUCell(hidden_size=H, name="dec"), start_token=0,
+                end_token=1, beam_size=K,
+                embedding_fn=lambda ids: L.embedding(
+                    ids, size=[V, E], param_attr=fluid.ParamAttr(
+                        name="temb")),
+                output_fn=lambda x: L.fc(
+                    x, size=V, param_attr=fluid.ParamAttr(name="out_w"),
+                    bias_attr=False))
+            outs, states = dynamic_decode(dec, inits=enc_final,
+                                          max_step_num=T)
+        return main, startup, outs, [states.log_probs]
+
+    init = _init_state(fluid, mt_decode)
+    got = {}
+    for side, place in (("cpu", fluid.CPUPlace()),
+                        ("card", fluid.CUDAPlace(0))):
+        outs = recipe_run(fluid, place, mt_decode,
+                          [{"src": mt_feeds[0]["src"]}] * 2, init)[0]
+        got[side] = outs
+    same = all(np.array_equal(c[0], g[0]) for c, g in zip(got["card"],
+                                                          got["cpu"]))
+    gap = max(rel_gap(c[1], g[1]) for c, g in zip(got["card"], got["cpu"]))
+    log("phase 42 GRU beam decode (beam %d, %d steps), card against CPU: "
+        "ids equal %s, scores gap %.3g (limit %g)" % (K, T, same, gap,
+                                                      TWIN_RTOL))
+    if not (same and gap <= TWIN_RTOL):
+        raise RuntimeError("phase 42 GRU beam decode: card and CPU differ")
+    Tl, Bl, Dl, Hl = 6, 4, 8, 16
+
+    def cudnn_lstm():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data(name="x", shape=[Tl, Bl, Dl], dtype="float32")
+            h0 = L.fill_constant([4, Bl, Hl], "float32", 0.0)
+            c0 = L.fill_constant([4, Bl, Hl], "float32", 0.0)
+            out, _, _ = L.lstm(x, h0, c0, Tl, Hl, num_layers=2,
+                               is_bidirec=True)
+            loss = L.mean(L.square(out))
+            fluid.optimizer.AdamOptimizer(1e-2).minimize(loss)
+        return main, startup, loss, []
+
+    def static_rnn():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data(name="x", shape=[Tl, Bl, Dl], dtype="float32")
+            srnn = StaticRNN()
+            with srnn.step():
+                w = srnn.step_input(x)
+                prev = srnn.memory(shape=[-1, Hl], batch_ref=w)
+                h = L.fc([w, prev], size=Hl, act="tanh")
+                srnn.update_memory(prev, h)
+                srnn.step_output(h)
+            loss = L.mean(L.square(srnn()))
+            fluid.optimizer.AdamOptimizer(1e-2).minimize(loss)
+        return main, startup, loss, []
+
+    def reverse_rnn():
+        from paddle_tpu_torch.layers.rnn import LSTMCell
+
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data(name="x", shape=[Bl, Tl, Dl], dtype="float32")
+            lens = fluid.data(name="lens", shape=[Bl], dtype="int64")
+            out, _ = rnn(LSTMCell(Hl), x, sequence_length=lens,
+                         is_reverse=True)
+            loss = L.mean(L.square(out))
+            fluid.optimizer.AdamOptimizer(1e-2).minimize(loss)
+        return main, startup, loss, []
+
+    f = lambda *s: rng.randn(*s).astype("float32")  # noqa: E731
+    for name, build, feeds in (
+            ("cudnn_lstm bidirectional, 2 layers", cudnn_lstm,
+             [{"x": f(Tl, Bl, Dl)} for _ in range(steps)]),
+            ("StaticRNN", static_rnn,
+             [{"x": f(Tl, Bl, Dl)} for _ in range(steps)]),
+            ("rnn(is_reverse=True) with lengths", reverse_rnn,
+             [{"x": f(Bl, Tl, Dl),
+               "lens": np.array([6, 2, 4, 1], "int64")}
+              for _ in range(steps)])):
+        recipe_twin(fluid, name, build, feeds, routes=("default",),
+                    phase=42)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -4709,6 +5677,16 @@ def main() -> int:
     resnet_recipe, resnet_recipe_run = phase_resnet_recipe(fluid, support)
     gpt_rc, gpt_rc_run = phase_gpt_recompute(fluid, support, gpt_amp_run)
     phase_recipe_twins(fluid, support)
+    # the recurrent family and control flow: seq2seq at full width, While
+    s2s, s2s_run, s2s_scope = phase_seq2seq_train(fluid, support, fo)
+    k4["seq2seq_shape"] = s2s_run["k4"]
+    s2s_dec, s2s_dec_run = phase_seq2seq_decode(fluid, support, s2s_scope)
+    del s2s_scope
+    loops, loops_run = phase_while(fluid, support)
+    phase_recurrent_twins(fluid, support)
+    log("phases 39-41 %s" % json.dumps(
+        {"seq2seq": s2s_run, "seq2seq_decode": s2s_dec_run,
+         "while": loops_run}))
     log("phases 34-37 %s" % json.dumps(
         {"bert_adamw": bert_recipe_run, "bert_lamb": bert_lamb_run,
          "resnet_goyal": resnet_recipe_run, "gpt_recompute": gpt_rc_run}))
@@ -4748,7 +5726,10 @@ def main() -> int:
                    "bert_recipe": bert_recipe.get(kern["name"], 0),
                    "bert_lamb": bert_lamb.get(kern["name"], 0),
                    "resnet_recipe": resnet_recipe.get(kern["name"], 0),
-                   "gpt_recompute": gpt_rc.get(kern["name"], 0)}
+                   "gpt_recompute": gpt_rc.get(kern["name"], 0),
+                   "seq2seq": s2s.get(kern["name"], 0),
+                   "seq2seq_decode": s2s_dec.get(kern["name"], 0),
+                   "while": loops.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

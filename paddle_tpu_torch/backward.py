@@ -16,8 +16,17 @@ outputs renamed ``<name>@RECOMPUTE``, and the grad ops read those
 recomputed values, so only the checkpoints (and what the path reads from
 outside) are kept from the forward for the backward. A re-emitted op
 carries the original's id as ``_fwd_op_id``, so a recomputed ``dropout``
-draws the forward's mask. The backward of ``while`` loops comes with the
-control-flow ops (ROADMAP.md); a program holding one raises.
+draws the forward's mask.
+
+``while`` (``_emit_while_grad``, the JAX package's :434): the body's ops
+go through the same engine into a grad sub-block, and one ``while_grad``
+host op replays the body a saved trip at a time in reverse
+(``ops/control_flow_ops.py``). A while op's inputs and outputs for the
+path and the diffable set are what its body reads and writes of the
+parent's vars (``_op_io``); a float var the body rewrites is no longer
+the stop-gradient constant its initializer made (unless the caller's
+``no_grad_set`` names it). The body must write each carry once a trip,
+after every read of it (the RNN pattern).
 """
 from __future__ import annotations
 
@@ -28,22 +37,38 @@ from .core import dtypes as _dt
 from .core.registry import GRAD_SUFFIX, OpInfoMap, ensure_grad_op
 
 
+def _op_io(block, op):
+    """(inputs, outputs) of an op for the dataflow: a while op declares
+    no tensors itself, so its body's reads and writes of the parent's
+    vars count as its own."""
+    if op.type == "while" and op.attrs.get("sub_block") is not None:
+        written, read_first = framework.block_rw(op.attrs["sub_block"])
+        ins = [n for n in read_first
+               if block._find_var_recursive(n) is not None]
+        outs = [n for n in written
+                if block._find_var_recursive(n) is not None]
+        return (list(op.input_arg_names) + ins,
+                list(op.output_arg_names) + outs)
+    return list(op.input_arg_names), list(op.output_arg_names)
+
+
 def _find_op_path(block, loss_name: str, req: Set[str]) -> List[int]:
     """Indices of ops that both depend on a grad-requiring var and
     contribute to the loss."""
     contributes: Set[str] = set(req)
     fwd_ops: Set[int] = set()
     for i, op in enumerate(block.ops):
-        if any(n in contributes for n in op.input_arg_names):
+        ins, outs = _op_io(block, op)
+        if any(n in contributes for n in ins):
             fwd_ops.add(i)
-            contributes.update(op.output_arg_names)
+            contributes.update(outs)
     needed: Set[str] = {loss_name}
     path: List[int] = []
     for i in reversed(range(len(block.ops))):
-        op = block.ops[i]
-        if i in fwd_ops and any(n in needed for n in op.output_arg_names):
+        ins, outs = _op_io(block, block.ops[i])
+        if i in fwd_ops and any(n in needed for n in outs):
             path.append(i)
-            needed.update(op.input_arg_names)
+            needed.update(ins)
     return list(reversed(path))
 
 
@@ -170,17 +195,28 @@ def _append_backward_impl(loss, block, program, parameter_list=None,
                           no_grad_set=None, checkpoints=None):
     no_grad = {v.name for b in program.blocks for v in b.vars.values()
                if v.stop_gradient}
-    no_grad |= {n if isinstance(n, str) else n.name
-                for n in (no_grad_set or ())}
-    if any(op.type == "while" for op in block.ops):
-        raise NotImplementedError(
-            "the backward of while loops is not yet ported (ROADMAP.md, "
-            "queue 1)")
+    user_no_grad = {n if isinstance(n, str) else n.name
+                    for n in (no_grad_set or ())}
+    no_grad |= user_no_grad
+    # a float var a while body rewrites carries grads through the loop,
+    # though its initializer (fill_constant) made it stop-gradient
+    for op in block.ops:
+        if op.type == "while" and op.attrs.get("sub_block") is not None:
+            for n in framework.block_rw(op.attrs["sub_block"])[0]:
+                v = block._find_var_recursive(n)
+                if v is not None and _is_float_var(v) \
+                        and n not in user_no_grad:
+                    no_grad.discard(n)
 
     req = _requires_grad_set(block, parameter_list, no_grad)
     # propagate requires-grad forward through the op list
     diffable: Set[str] = set(req)
     for op in block.ops:
+        if op.type == "while":
+            ins, outs = _op_io(block, op)
+            if any(n in diffable for n in ins):
+                diffable.update(n for n in outs if n not in no_grad)
+            continue
         info = _op_info(op.type)
         if info is None or info.grad is None and not _has_grad_op(op.type):
             continue
@@ -220,10 +256,14 @@ def _append_backward_impl(loss, block, program, parameter_list=None,
     return params_and_grads
 
 
-def make_finalize(block, pending: Dict[str, List[str]]):
+def make_finalize(block, pending: Dict[str, List[str]],
+                  clear_on_merge: bool = False):
     """Finalize closure: merge a var's pending partial grads into its
     canonical @GRAD name (a ``sum`` op) and return that name, or None when
-    the var has no grad."""
+    the var has no grad. ``clear_on_merge`` empties the pending list after
+    the merge: inside a while grad block one name is both a carry's
+    incoming grad (used by its writer's grad) and later the partials of
+    its pre-trip value, which must not count the first again."""
 
     def finalize(var_name: str) -> Optional[str]:
         glist = pending.get(var_name)
@@ -231,11 +271,13 @@ def make_finalize(block, pending: Dict[str, List[str]]):
             return None
         canonical = grad_name_for(var_name)
         if len(glist) == 1 and glist[0] == canonical:
+            if clear_on_merge:
+                pending[var_name] = []
             return canonical
         _ensure_grad_var(block, var_name, canonical)
         block.append_op("sum", inputs={"X": list(glist)},
                         outputs={"Out": canonical}, infer_shape=False)
-        pending[var_name] = [canonical]
+        pending[var_name] = [] if clear_on_merge else [canonical]
         return canonical
 
     return finalize
@@ -248,6 +290,9 @@ def _emit_grad_ops(block, fwd_ops, pending, finalize, diffable, no_grad,
     names."""
     rn = recompute_rename or {}
     for op in reversed(fwd_ops):
+        if op.type == "while":
+            _emit_while_grad(block, op, pending, finalize, diffable, no_grad)
+            continue
         info = _op_info(op.type)
         if info is None:
             continue
@@ -303,6 +348,104 @@ def _emit_grad_ops(block, fwd_ops, pending, finalize, diffable, no_grad,
         g_attrs["_fwd_op_id"] = op._id
         block.append_op(grad_type, g_inputs, g_outputs, g_attrs,
                         infer_shape=False)
+
+
+def _is_float_var(v) -> bool:
+    if v is None or v.dtype is None:
+        return True  # unknown: the runtime decides
+    return str(v.dtype).startswith(("float", "bfloat"))
+
+
+def _emit_while_grad(block, op, pending, finalize, diffable, no_grad):
+    """The backward of one while op: a grad sub-block built from the body
+    by ``_emit_grad_ops``, and one ``while_grad`` op that runs it a saved
+    trip at a time, threading the carries' grads and summing the other
+    targets' grads over the trips."""
+    sub = op.attrs.get("sub_block")
+    if sub is None:
+        return
+    program = block.program
+    written_all, read_first = framework.block_rw(sub)
+    parent_written = sorted(n for n in written_all
+                            if block._find_var_recursive(n) is not None)
+    parent_read = sorted(n for n in read_first
+                         if block._find_var_recursive(n) is not None)
+    carries = sorted(set(parent_written) & set(read_first))
+
+    # the grads of the loop's outputs (their final values), used up here:
+    # the ops before the loop get the pre-loop grads from while_grad
+    incoming = {}
+    for w in parent_written:
+        if not _is_float_var(block._find_var_recursive(w)):
+            continue
+        g = finalize(w)
+        if g is not None:
+            incoming[w] = g
+            pending[w] = []
+    if not incoming:
+        return
+
+    targets = [r for r in parent_read
+               if r in diffable and r not in no_grad
+               and _is_float_var(block._find_var_recursive(r))]
+    # every float carry threads its grad through the trips, stop-gradient
+    # or not: without it each replayed trip would be seeded with the
+    # final output's grad
+    float_carries = [c for c in carries
+                     if _is_float_var(block._find_var_recursive(c))]
+    thread_targets = sorted(set(targets) | set(float_carries))
+    if not thread_targets:
+        return
+    no_grad2 = set(no_grad) - set(float_carries)
+    diffable2 = set(diffable) | set(thread_targets)
+    for bop in sub.ops:
+        if any(n in diffable2 for n in bop.input_arg_names):
+            diffable2.update(n for n in bop.output_arg_names
+                             if n not in no_grad2)
+
+    gblock = program._create_block()
+    gblock.forward_block_idx = sub.idx
+    pending2: Dict[str, List[str]] = {}
+    seed_names = {}
+    # every float carry is seeded, with an outer grad or not: a carry with
+    # no consumer outside may still pass grad between carries
+    seeded = sorted(set(incoming) | set(float_carries))
+    for w in seeded:
+        gname = grad_name_for(w)
+        _ensure_grad_var(gblock, w, gname)
+        pending2[w] = [gname]
+        seed_names[w] = gname
+    finalize2 = make_finalize(gblock, pending2, clear_on_merge=True)
+    _emit_grad_ops(gblock, list(sub.ops), pending2, finalize2, diffable2,
+                   no_grad2)
+    inner_grads = {}
+    for r in thread_targets:
+        g = finalize2(r)
+        if g is not None:
+            inner_grads[r] = g
+    program._rollback()
+    if not inner_grads:
+        return
+
+    tgt_list = sorted(inner_grads)
+    # grads leave the loop for the diffable targets only; a carry's that
+    # is plumbing stays inside
+    out_tgt_list = [r for r in tgt_list if r in targets]
+    outer_out = [bind_partial_grad(block, pending, r) for r in out_tgt_list]
+    gop = framework.Operator(
+        block, "while_grad",
+        {"OutGrads": [incoming.get(w, "@EMPTY@") for w in seeded]},
+        {"InGrads": outer_out},
+        {"sub_block": gblock, "fwd_block": sub,
+         "snap_var": "@WHILE_SNAPS@%d" % (op._id or 0),
+         "written": seeded,
+         "seed_names": [seed_names[w] for w in seeded],
+         "targets": tgt_list,
+         "inner_grads": [inner_grads[r] for r in tgt_list],
+         "out_targets": out_tgt_list,
+         "carries": carries})
+    gop._id = program._next_op_id()
+    block.ops.append(gop)
 
 
 def gradients(targets, inputs, target_gradients=None, no_grad_set=None):

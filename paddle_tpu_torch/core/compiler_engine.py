@@ -4,9 +4,9 @@ fetch names, state names, flags) and replayed.
 
 Counterpart of ``paddle_tpu/core/compiler_engine.py``, where the block is
 traced once into one jitted XLA function. The analysis half keeps the JAX
-package's names and results (``_program_version``, ``_block_rw``,
-``_analyze``, ``_fold_plan``, ``_fold_block_values``,
-``untraceable_reasons``). The execution half is the torch form:
+package's names and results (``_program_version``, ``_analyze``,
+``_fold_plan``, ``_fold_block_values``, ``untraceable_reasons``; its
+``_block_rw`` is ``framework.block_rw``). The execution half is the torch form:
 
 - ``step(state, feeds) -> (fetches, new_state)`` walks the block's ops in
   program order over an env dict, with the interpreter's op calls and its
@@ -52,9 +52,17 @@ step functions), ``executor.jit_traces`` (captures),
 passes' ``fusion.epilogue_chains`` and ``fusion.optimizer_groups``
 (``core/fusion.py``).
 
-The port has no ``while`` / ``conditional_block`` op yet: the analysis
-walks their sub-blocks as the JAX package does, and their tracing waits
-for the control-flow ops (ROADMAP.md).
+Control flow: the analysis walks ``while`` / ``conditional_block``
+sub-blocks as the JAX package does, but where the JAX package lowers them
+to ``lax.while_loop`` / ``lax.cond`` this route declines them: a CUDA
+graph cannot hold a trip count the data decides. ``untraceable_reasons``
+names each such op (``"while (control flow)"``), the executor counts the
+program in ``executor.compile_fallbacks`` and runs it on the interpreter,
+whose host ops (``ops/control_flow_ops.py``) run the body once a trip in
+a child scope, reading the condition off the card once a trip. The
+results are those of the JAX package's compiled route. A graph of the
+body replayed a trip, and CUDA graph conditional nodes, are later work
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -65,6 +73,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
+from ..framework import block_rw
 from . import flags
 from .cuda_graph import CapturedGraph, same_memory
 from .executor_core import (_UNBOUND, CoreExecutor, call_op, gather_inputs,
@@ -124,45 +133,6 @@ def _program_version(program) -> Tuple:
 
 _analysis_cache: "OrderedDict" = OrderedDict()
 _ANALYSIS_CAP = 1024
-_block_rw_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
-def _block_rw(block) -> Tuple[Set[str], Set[str]]:
-    """(written, read-before-written) over a block, recursing through
-    while/conditional sub-blocks (their external reads are this block's
-    reads; their writes land in parent vars by name). Memoized per block,
-    invalidated by its op count."""
-    hit = _block_rw_cache.get(block)
-    if hit is not None and hit[0] == len(block.ops):
-        return hit[1]
-    result = _block_rw_impl(block)
-    _block_rw_cache[block] = (len(block.ops), result)
-    return result
-
-
-def _block_rw_impl(block) -> Tuple[Set[str], Set[str]]:
-    written: Set[str] = set()
-    read_first: Set[str] = set()
-    for op in block.ops:
-        sb = op.attrs.get("sub_block")
-        if op.type in ("while", "conditional_block") and sb is not None:
-            sw, sr = _block_rw(sb)
-            for n in sr | set(op.input_arg_names):
-                if n and n not in written:
-                    read_first.add(n)
-            for n in sw | set(op.output_arg_names):
-                if n:
-                    written.add(n)
-            continue
-        for n in op.input_arg_names:
-            if n and n not in written:
-                read_first.add(n)
-        for n in op.output_arg_names:
-            if n:
-                written.add(n)
-    return written, read_first
-
-
 def _analyze(program):
     """(read-before-write set, written set, written persistables), cached
     per program version."""
@@ -170,7 +140,7 @@ def _analyze(program):
     hit = _lru_get(_analysis_cache, key)
     if hit is not None:
         return hit
-    written, read_first = _block_rw(program.global_block())
+    written, read_first = block_rw(program.global_block())
     block = program.global_block()
     persist_written = frozenset(
         n for n in written
@@ -190,7 +160,7 @@ def _writer_count(block) -> Dict[str, int]:
                 count[n] = count.get(n, 0) + 1
         sb = op.attrs.get("sub_block")
         if op.type in ("while", "conditional_block") and sb is not None:
-            for n in _block_rw(sb)[0]:
+            for n in block_rw(sb)[0]:
                 count[n] = count.get(n, 0) + 1
     return count
 
@@ -290,7 +260,9 @@ def block_is_traceable(block) -> bool:
 
 def untraceable_reasons(block) -> List[str]:
     """Blocking op types (with reason tags) that keep this block off the
-    whole-program route; the executor's fallback warning names them."""
+    whole-program route; the executor's fallback warning names them. Over
+    the JAX package's reasons, every while and conditional_block op with
+    a sub-block blocks (``"while (control flow)"``)."""
     infos = OpInfoMap.instance()
     fold_idxs = _fold_plan(block)[0]
     reasons: List[str] = []
@@ -300,6 +272,7 @@ def untraceable_reasons(block) -> List[str]:
             if sb is None:
                 reasons.append("%s (no sub_block)" % op.type)
             else:
+                reasons.append("%s (control flow)" % op.type)
                 reasons.extend("%s>%s" % (op.type, r)
                                for r in untraceable_reasons(sb))
             continue

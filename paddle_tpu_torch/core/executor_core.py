@@ -31,6 +31,11 @@ loop runs ahead until a fetch copies a result back.
 - Feeds are written into the scope (a later run that leaves one out reads
   the last value, as the JAX package's interpreter does), staged by
   ``core.tensor.stage_feed``: float64 becomes float32.
+- ``run_block(block, scope)`` runs a sub-block's ops in the scope it is
+  given; the control-flow host ops (``ops/control_flow_ops.py``) call it
+  with a child scope, once a trip of a ``while`` and once for a taken
+  ``conditional_block``. A name a sub-block touches is never freed by the
+  eager-deletion plan of its program's global block.
 - Under ``FLAGS_check_nan_inf`` every floating output of each op is
   checked after the op runs; the first that holds an inf or a nan raises
   ``EnforceNotMet``, as in the JAX package. Every failure inside an op is
@@ -53,7 +58,7 @@ from .flags import flag
 from .registry import (BOUND_OUTPUTS_ATTR, DEVICE_ATTR, GENERATOR_ATTR,
                        OpInfoMap)
 from .scope import Scope
-from .tensor import LoDTensor, stage_feed
+from .tensor import LoDTensor, LoDTensorArray, stage_feed
 
 
 class RNGState:
@@ -162,8 +167,8 @@ class CoreExecutor:
     def _write_var(self, scope: Scope, name: str, value) -> None:
         if name in _UNBOUND or value is None:
             return
-        scope.var(name).set(value if isinstance(value, LoDTensor)
-                            else LoDTensor(value))
+        scope.var(name).set(value if isinstance(
+            value, (LoDTensor, LoDTensorArray)) else LoDTensor(value))
 
     def run_op(self, op, scope: Scope) -> None:
         try:
@@ -201,10 +206,23 @@ class CoreExecutor:
                     "Operator %r output %r contains Inf/Nan "
                     "(FLAGS_check_nan_inf)" % (op.type, n))
 
+    def run_block(self, block, scope: Scope) -> None:
+        """Run ``block``'s ops in ``scope``, in order, freeing nothing."""
+        for op in block.ops:
+            self.run_op(op, scope)
+
     @staticmethod
     def build_gc_plan(block, protect):
         """Op index -> names whose last use that op is (never feeds,
-        fetches or persistables)."""
+        fetches, persistables, or a name a sub-block of the program
+        touches: a while or conditional body reads and writes the
+        parent's vars by name)."""
+        protect = set(protect)
+        prog = getattr(block, "program", None)
+        for sub in (prog.blocks[1:] if prog is not None else ()):
+            for op in sub.ops:
+                protect.update(op.input_arg_names)
+                protect.update(op.output_arg_names)
         last_use: Dict[str, int] = {}
         for i, op in enumerate(block.ops):
             for name in op.input_arg_names + op.output_arg_names:

@@ -1,15 +1,17 @@
 """Variable + Scope.
 
 Counterpart of ``paddle_tpu/core/scope.py``: a type-erased variable holder
-and the scope, with the same ``global_scope`` / ``scope_guard`` pair. The
-serving slice needs one flat scope; child scopes come with control flow.
+and the scope, with the same ``global_scope`` / ``scope_guard`` pair. A
+scope may have a parent (``new_scope``): ``find_var`` looks through the
+parents, ``var`` and ``find_local_var`` only here. The control-flow ops
+run a sub-block in a child scope and drop it (``drop_kids``) afterwards.
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Dict, List, Optional
 
-from .tensor import LoDTensor
+from .tensor import LoDTensor, LoDTensorArray
 
 
 class Variable:
@@ -31,6 +33,14 @@ class Variable:
                             % type(self._holder))
         return self._holder
 
+    def get_lod_tensor_array(self) -> LoDTensorArray:
+        if self._holder is None:
+            self._holder = LoDTensorArray()
+        if not isinstance(self._holder, LoDTensorArray):
+            raise TypeError("variable holds %s, not LoDTensorArray"
+                            % type(self._holder))
+        return self._holder
+
     def set(self, holder):
         self._holder = holder
 
@@ -39,8 +49,10 @@ class Variable:
 
 
 class Scope:
-    def __init__(self):
+    def __init__(self, parent: Optional["Scope"] = None):
         self._vars: Dict[str, Variable] = {}
+        self._parent = parent
+        self._kids: List["Scope"] = []
 
     def var(self, name: str) -> Variable:
         """Find in this scope only, create if absent."""
@@ -51,6 +63,13 @@ class Scope:
         return v
 
     def find_var(self, name: str) -> Optional[Variable]:
+        """Here, else in the parents."""
+        v = self._vars.get(name)
+        if v is None and self._parent is not None:
+            return self._parent.find_var(name)
+        return v
+
+    def find_local_var(self, name: str) -> Optional[Variable]:
         return self._vars.get(name)
 
     def erase(self, name: str) -> None:
@@ -58,6 +77,20 @@ class Scope:
 
     def local_var_names(self) -> List[str]:
         return list(self._vars)
+
+    def new_scope(self) -> "Scope":
+        kid = Scope(self)
+        self._kids.append(kid)
+        return kid
+
+    def drop_kids(self) -> None:
+        self._kids = []
+
+    def drop_kid(self, kid: "Scope") -> None:
+        self._kids.remove(kid)
+
+    def parent(self) -> Optional["Scope"]:
+        return self._parent
 
 
 _global_scope = Scope()

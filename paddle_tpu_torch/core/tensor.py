@@ -2,7 +2,8 @@
 
 Counterpart of ``LoDTensor`` in ``paddle_tpu/core/tensor.py``: a thin
 host-side holder of a ``torch.Tensor`` plus the LoD (nested sequence
-offsets) as host metadata. The serving slice feeds dense tensors only;
+offsets) as host metadata, and ``LoDTensorArray``, the list the tensor
+arrays (``create_array`` / ``array_write`` / ``array_read``) hold.
 LoD-consuming ops and ``SelectedRows`` come with later slices.
 
 ``stage_feed`` is the one rule by which every route (the interpreter, the
@@ -55,6 +56,10 @@ class LoDTensor:
     def __repr__(self):
         return "LoDTensor(shape=%s, dtype=%s, lod=%s)" % (
             self.shape(), self.dtype(), self._lod)
+
+
+class LoDTensorArray(list):
+    """A growable list of LoDTensors: the value of a tensor array."""
 
 
 def stage_feed(value) -> torch.Tensor:

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import contextlib
 import copy
-from typing import Dict, List, Optional, Sequence
+import weakref
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -132,6 +133,8 @@ class Block:
         self.program = program
         self.idx = idx
         self.parent_idx = parent_idx
+        # a grad block built from a block's ops (a while body's) names it
+        self.forward_block_idx = -1
         self.vars: Dict[str, Variable] = {}
         self.ops: List[Operator] = []
 
@@ -201,6 +204,33 @@ class Block:
     def __repr__(self):
         return "Block(%d, %d ops, %d vars)" % (self.idx, len(self.ops),
                                                len(self.vars))
+
+
+_block_rw_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def block_rw(block: Block) -> Tuple[Set[str], Set[str]]:
+    """(written, read-before-written) over a block, recursing through
+    while/conditional sub-blocks (their external reads are this block's
+    reads; their writes land in parent vars by name). Memoized per block,
+    invalidated by its op count."""
+    hit = _block_rw_cache.get(block)
+    if hit is not None and hit[0] == len(block.ops):
+        return hit[1]
+    written: Set[str] = set()
+    read_first: Set[str] = set()
+    for op in block.ops:
+        sb = op.attrs.get("sub_block")
+        if op.type in ("while", "conditional_block") and sb is not None:
+            sw, sr = block_rw(sb)
+            ins, outs = sr | set(op.input_arg_names), \
+                sw | set(op.output_arg_names)
+        else:
+            ins, outs = op.input_arg_names, op.output_arg_names
+        read_first.update(n for n in ins if n and n not in written)
+        written.update(n for n in outs if n)
+    _block_rw_cache[block] = (len(block.ops), (written, read_first))
+    return written, read_first
 
 
 def infer_op_shapes(block: Block, op: Operator) -> None:
@@ -291,6 +321,18 @@ class Program:
 
     def block(self, idx: int) -> Block:
         return self.blocks[idx]
+
+    def _create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """A new block under the current one (or ``parent_idx``), made
+        current: the body of a while, a conditional or a StaticRNN step."""
+        parent = self._current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self._current_block_idx = b.idx
+        return b
+
+    def _rollback(self):
+        self._current_block_idx = self.current_block().parent_idx
 
     def all_parameters(self) -> List[Parameter]:
         return self.global_block().all_parameters

@@ -127,7 +127,8 @@ def _serialize_program(program) -> Dict:
     for b in program.blocks:
         ops = []
         for op in b.ops:
-            attrs = {k: list(v) if isinstance(v, tuple) else v
+            attrs = {k: {"__block__": v.idx} if isinstance(v, framework.Block)
+                     else list(v) if isinstance(v, tuple) else v
                      for k, v in op.attrs.items()}
             ops.append({"type": op.type, "inputs": op.inputs,
                         "outputs": op.outputs, "attrs": attrs,
@@ -170,13 +171,10 @@ def _deserialize_program(data: Dict) -> framework.Program:
                     type=vd.get("type", "lod_tensor"))
             b.vars[name] = v
         for od in bd["ops"]:
-            if any(isinstance(v, dict) and "__block__" in v
-                   for v in (od.get("attrs") or {}).values()):
-                raise NotImplementedError(
-                    "op %r refers to a sub-block; control flow is not yet "
-                    "ported (ROADMAP.md, queue 1)" % od["type"])
-            op = framework.Operator(b, od["type"], None, None,
-                                    od.get("attrs") or {})
+            attrs = {k: program.blocks[v["__block__"]]
+                     if isinstance(v, dict) and "__block__" in v else v
+                     for k, v in (od.get("attrs") or {}).items()}
+            op = framework.Operator(b, od["type"], None, None, attrs)
             op.inputs = {k: list(v) for k, v in od["inputs"].items()}
             op.outputs = {k: list(v) for k, v in od["outputs"].items()}
             op._id = od.get("id")

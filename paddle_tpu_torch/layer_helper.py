@@ -37,6 +37,10 @@ class LayerHelper:
     def block(self):
         return self.main_program.current_block()
 
+    def unique_var_name(self, key="tmp"):
+        return unique_name.generate("%s_%s.%s" % (
+            self._name_prefix, "", key)).replace("_.", ".")
+
     def input(self, input_param_name="input"):
         inputs = self.kwargs.get(input_param_name, [])
         if inputs is None:

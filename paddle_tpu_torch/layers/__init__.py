@@ -1,7 +1,8 @@
 """``layers`` — the graph-building API of the ported slices."""
 from .control_flow import *  # noqa: F401,F403
 from .control_flow import __all__ as _cf_all
-from .extras import flash_attention  # noqa: F401
+from .extras import *  # noqa: F401,F403
+from .extras import __all__ as _extras_all
 from .io import data, fluid_data  # noqa: F401
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .learning_rate_scheduler import __all__ as _lrs_all
@@ -11,6 +12,8 @@ from .nn import *  # noqa: F401,F403
 from .nn import __all__ as _nn_all
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops_all
+from .rnn import *  # noqa: F401,F403
+from .rnn import __all__ as _rnn_all
 from .sequence_lod import *  # noqa: F401,F403
 from .sequence_lod import __all__ as _seq_all
 from .tensor import *  # noqa: F401,F403
@@ -18,6 +21,6 @@ from .tensor import __all__ as _tensor_all
 
 monkey_patch_variable()
 
-__all__ = (["data", "fluid_data", "flash_attention", "cross_entropy",
-            "softmax_with_cross_entropy"] + _nn_all + _ops_all + _seq_all
-           + _tensor_all + _cf_all + _lrs_all)
+__all__ = (["data", "fluid_data", "cross_entropy",
+            "softmax_with_cross_entropy"] + _extras_all + _nn_all + _ops_all
+           + _seq_all + _tensor_all + _cf_all + _lrs_all + _rnn_all)

@@ -1,11 +1,15 @@
-"""``flash_attention`` (counterpart of ``paddle_tpu/layers/extras.py:960``):
-fused attention over ``[B, H, S, D]``, the hand-written CUDA kernels on the
-card. ``lengths`` ([B] int) masks padded keys inside the kernel."""
+"""``flash_attention`` (:960), ``gru_unit`` (:489), ``lstm_unit`` (:520),
+``Print`` (:760) and ``gather_tree`` (:782) of
+``paddle_tpu/layers/extras.py``: the same ops, slots, attrs and parameter
+names. ``flash_attention`` is fused attention over ``[B, H, S, D]``, the
+hand-written CUDA kernels on the card; ``lengths`` ([B] int) masks padded
+keys inside the kernel."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "gru_unit", "lstm_unit", "Print",
+           "gather_tree"]
 
 
 def flash_attention(q, k, v, causal=False, scale=0.0, lengths=None):
@@ -16,4 +20,86 @@ def flash_attention(q, k, v, causal=False, scale=0.0, lengths=None):
         ins["Lengths"] = [lengths]
     helper.append_op("flash_attention", inputs=ins, outputs={"Out": [out]},
                      attrs={"causal": bool(causal), "scale": float(scale)})
+    return out
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid",
+             origin_mode=False):
+    """One GRU step over the projected ``input`` [B, size]; returns
+    (hidden, reset hidden prev, gate)."""
+    helper = LayerHelper("gru_unit", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr)
+    dtype = helper.input_dtype()
+    d = size // 3
+    w = helper.create_parameter(attr=helper.param_attr, shape=[d, 3 * d],
+                                dtype=dtype)
+    inputs = {"Input": [input], "HiddenPrev": [hidden], "Weight": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[1, 3 * d], dtype=dtype,
+            is_bias=True)]
+    gate = helper.create_variable_for_type_inference(dtype)
+    rhp = helper.create_variable_for_type_inference(dtype)
+    hid = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("gru_unit", inputs=inputs,
+                     outputs={"Gate": [gate], "ResetHiddenPrev": [rhp],
+                              "Hidden": [hid]},
+                     attrs={"origin_mode": origin_mode}, infer_shape=False)
+    b = int(hidden.shape[0])
+    hid.shape = (b, d)
+    rhp.shape = (b, d)
+    gate.shape = (b, 3 * d)
+    return hid, rhp, gate
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """One LSTM step: an ``fc`` over [x, h_prev] to the four gates, then
+    the ``lstm_unit`` op; returns (h, c)."""
+    from .nn import fc
+    from .tensor import concat
+
+    helper = LayerHelper("lstm_unit", input=x_t)
+    d = int(cell_t_prev.shape[-1])
+    gates = fc(concat([x_t, hidden_t_prev], axis=1), size=4 * d,
+               param_attr=param_attr, bias_attr=bias_attr)
+    c = helper.create_variable_for_type_inference(x_t.dtype)
+    h = helper.create_variable_for_type_inference(x_t.dtype)
+    helper.append_op("lstm_unit",
+                     inputs={"X": [gates], "C_prev": [cell_t_prev]},
+                     outputs={"C": [c], "H": [h]},
+                     attrs={"forget_bias": forget_bias}, infer_shape=False)
+    c.shape = tuple(cell_t_prev.shape)
+    h.shape = tuple(cell_t_prev.shape)
+    return h, c
+
+
+def Print(input, first_n=-1, message=None, summarize=20,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=True,
+          print_phase="both"):
+    helper = LayerHelper("print", input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "print", inputs={"In": [input]}, outputs={"Out": [out]},
+        attrs={"first_n": first_n, "message": message or "",
+               "summarize": summarize,
+               "print_tensor_name": print_tensor_name,
+               "print_tensor_type": print_tensor_type,
+               "print_tensor_shape": print_tensor_shape,
+               "print_tensor_lod": print_tensor_lod,
+               "print_phase": print_phase.upper()},
+        infer_shape=False)
+    out.shape = tuple(input.shape or ())
+    return out
+
+
+def gather_tree(ids, parents):
+    helper = LayerHelper("gather_tree", input=ids)
+    out = helper.create_variable_for_type_inference(ids.dtype)
+    helper.append_op("gather_tree",
+                     inputs={"Ids": [ids], "Parents": [parents]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    out.shape = tuple(ids.shape)
     return out

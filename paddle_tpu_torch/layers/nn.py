@@ -3,8 +3,11 @@
 ``softmax`` (:661), ``matmul`` (:671), ``expand`` (:811), ``gather``
 (:842), ``reduce_sum`` (:931), ``mean`` (:971), ``relu`` (:1023),
 ``reshape``, ``transpose``, ``dropout`` (:641), ``slice`` (:785),
-``clip`` (:959), ``clip_by_norm`` (:965) and ``elementwise_add`` /
-``_sub`` / ``_mul`` / ``_div`` / ``_min`` (:1159-1180) of
+``clip`` (:959), ``clip_by_norm`` (:965), ``elementwise_add`` /
+``_sub`` / ``_mul`` / ``_div`` / ``_min`` / ``_mod`` / ``_floordiv``
+(:1159-1191), ``squeeze`` (:747), ``unsqueeze`` (:758), ``stack``
+(:823), ``one_hot`` (:868), ``topk`` (:877), ``reduce_mean`` /
+``reduce_max`` / ``reduce_min`` (:939-947) and ``where`` (:1111) of
 ``paddle_tpu/layers/nn.py``. Each emits the same ops, slots, attrs and
 parameter names as its JAX counterpart."""
 from __future__ import annotations
@@ -19,7 +22,10 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
            "softmax", "matmul", "expand", "gather", "reduce_sum", "mean",
            "relu", "reshape", "transpose", "dropout", "slice",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
-           "elementwise_div", "elementwise_min", "clip", "clip_by_norm"]
+           "elementwise_div", "elementwise_min", "clip", "clip_by_norm",
+           "elementwise_mod", "elementwise_floordiv", "squeeze", "unsqueeze",
+           "stack", "one_hot", "topk", "reduce_mean", "reduce_max",
+           "reduce_min", "where"]
 
 
 def _pair(x, n=2):
@@ -228,15 +234,31 @@ def gather(input, index, overwrite=True, name=None):
                           {"overwrite": overwrite})
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", input=input, name=name)
+def _reduce(op_type, input, dim, keep_dim, name):
+    helper = LayerHelper(op_type, input=input, name=name)
     if dim is None:
         attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
     else:
         dims = dim if isinstance(dim, (list, tuple)) else [dim]
         attrs = {"dim": list(dims), "keep_dim": keep_dim,
                  "reduce_all": False}
-    return _single_out_op(helper, "reduce_sum", {"X": [input]}, attrs)
+    return _single_out_op(helper, op_type, {"X": [input]}, attrs)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
 
 
 def relu(x, name=None):
@@ -340,3 +362,73 @@ def clip_by_norm(x, max_norm, name=None):
     helper = LayerHelper("clip_by_norm", input=x, name=name)
     return _single_out_op(helper, "clip_by_norm", {"X": [x]},
                           {"max_norm": float(max_norm)})
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mod", x, y, axis, act, name)
+
+
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_floordiv", x, y, axis, act, name)
+
+
+def _shape_op(op_type, input, axes, name):
+    helper = LayerHelper(op_type, input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(op_type, inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axes": list(axes)})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    return _shape_op("squeeze2", input, axes, name)
+
+
+def unsqueeze(input, axes, name=None):
+    return _shape_op("unsqueeze2", input, axes, name)
+
+
+def stack(x, axis=0, name=None):
+    from .. import framework
+
+    if isinstance(x, framework.Variable):
+        x = [x]
+    helper = LayerHelper("stack", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op("stack", inputs={"X": list(x)}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    helper = LayerHelper("one_hot", input=input)
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op("one_hot", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"depth": depth,
+                            "allow_out_of_range": allow_out_of_range})
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", input=input, name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64",
+                                                        stop_gradient=True)
+    helper.append_op("top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    return values, indices
+
+
+def where(condition, x, y, name=None):
+    """``x`` where ``condition`` holds, else ``y`` (the JAX package's
+    one-argument form, ``where_index``, is not ported)."""
+    helper = LayerHelper("where", input=condition, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("where", inputs={"Condition": [condition], "X": [x],
+                                      "Y": [y]},
+                     outputs={"Out": [out]})
+    return out

@@ -1,5 +1,6 @@
-"""Tensor layers ``create_global_var`` (:56), ``cast`` (:69), ``concat``
-(:82), ``assign`` (:98), ``fill_constant`` (:125) and ``range`` (:211) of
+"""Tensor layers ``create_parameter`` (:44), ``create_global_var`` (:56),
+``cast`` (:69), ``concat`` (:82), ``assign`` (:98), ``fill_constant``
+(:125) and ``range`` (:211) of
 ``paddle_tpu/layers/tensor.py``: the same ops, slots and attrs."""
 from __future__ import annotations
 
@@ -11,8 +12,20 @@ from .. import framework
 from ..core import dtypes as _dt
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_global_var", "cast", "concat", "assign", "fill_constant",
+__all__ = ["create_parameter", "create_global_var", "cast", "concat", "assign", "fill_constant",
            "range"]
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    from ..param_attr import ParamAttr
+
+    helper = LayerHelper("create_parameter", param_attr=attr, name=name)
+    attr = ParamAttr._to_attr(attr)
+    if name is not None and attr.name is None:
+        attr.name = name
+    return helper.create_parameter(attr, list(shape), dtype, is_bias,
+                                   default_initializer)
 
 
 def create_global_var(shape, value, dtype, persistable=False,

@@ -3,6 +3,7 @@
 from . import activation_ops  # noqa: F401
 from . import amp_ops  # noqa: F401
 from . import compare_ops  # noqa: F401
+from . import control_flow_ops  # noqa: F401
 from . import conv_ops  # noqa: F401
 from . import elementwise_ops  # noqa: F401
 from . import fused_ops  # noqa: F401
@@ -12,5 +13,6 @@ from . import matmul_ops  # noqa: F401
 from . import norm_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import reduce_ops  # noqa: F401
+from . import rnn_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import tensor_ops  # noqa: F401

@@ -5,8 +5,12 @@ Counterparts of ``fill_constant`` (:31), ``uniform_random`` (:69),
 ``assign`` (:120), ``assign_value`` (:132),
 ``reshape2`` (:224), ``transpose2`` (:248), ``expand`` (:483), ``gather``
 (:575), ``lookup_table`` (:680), ``lookup_table_v2`` (:694), ``concat``
-(:384), ``slice`` (:439), ``where`` (:882) and ``range`` (:954) in
-``paddle_tpu/ops/tensor_ops.py``, with the same slots and attrs, and of
+(:384), ``slice`` (:439), ``where`` (:882), ``range`` (:954),
+``fill_zeros_like`` (:150), ``squeeze2`` (:357), ``unsqueeze2`` (:371),
+``stack`` (:417), ``one_hot`` (:742) and ``top_k`` (:798) in
+``paddle_tpu/ops/tensor_ops.py`` and ``gather_tree``
+(``paddle_tpu/ops/misc_ops.py:638``, the beam backtrace over ``[T, B,
+W]``), with the same slots and attrs, and of
 ``lookup_table``'s grad maker and the dense ``lookup_table_grad`` and
 ``lookup_table_v2_grad`` (:631-677), whose scatter-add becomes
 ``index_add_``. ``gather``'s auto-VJP grad is a
@@ -20,6 +24,13 @@ draws from the seeded ``torch.Generator`` the executor hands it
 deviations, drawn by the inverse CDF as ``jax.random.truncated_normal``
 draws it), so the numbers differ from ``jax.random``'s but the
 distribution is the same.
+
+``top_k`` breaks ties as ``jax.lax.top_k`` does, the lower index first
+(``torch.topk`` promises no order among equal values on the card, and a
+finished beam offers V-1 candidates of equal score): over floating
+values it takes ``torch.topk`` of unique int64 keys, the value's bits
+mapped to an integer that orders as the floats do, above the index
+reversed; other types go through a stable descending sort.
 """
 from __future__ import annotations
 
@@ -392,3 +403,135 @@ def _range(executor, op, scope):
 )
 def _where(ins, attrs):
     return {"Out": torch.where(ins["Condition"], ins["X"], ins["Y"])}
+
+
+@register_op(
+    "fill_zeros_like",
+    inputs=[In("X", no_grad=True)],
+    outputs=[Out("Out")],
+    grad=None,
+)
+def _fill_zeros_like(ins, attrs):
+    return {"Out": torch.zeros_like(ins["X"])}
+
+
+def _squeeze_axes(x, explicit, op_name):
+    """The axes squeeze drops: every size-1 dim when none are listed,
+    else the listed ones (in [-ndim, ndim), each of size 1; at shape
+    inference an unknown dim passes), as the JAX package resolves them."""
+    from ..framework import _SENTINEL
+
+    if not explicit:
+        return sorted(i for i, d in enumerate(x.shape) if d == 1)
+    axes = set()
+    for a in (int(a) for a in explicit):
+        if not -x.dim() <= a < x.dim():
+            raise ValueError("%s: axis %d out of range for input of rank %d"
+                             % (op_name, a, x.dim()))
+        axes.add(a + x.dim() if a < 0 else a)
+    at_infer = x.device.type == "meta"
+    bad = [a for a in sorted(axes) if x.shape[a] != 1
+           and not (at_infer and x.shape[a] == _SENTINEL)]
+    if bad:
+        raise ValueError(
+            "%s: axes %r have size != 1 in input shape %r (each explicitly "
+            "listed axis must have size 1)" % (op_name, bad, tuple(x.shape)))
+    return sorted(axes)
+
+
+@register_op(
+    "squeeze2",
+    inputs=[In("X")],
+    outputs=[Out("Out"), Out("XShape", no_grad=True)],
+    attrs={"axes": []},
+)
+def _squeeze2(ins, attrs):
+    x = ins["X"]
+    axes = _squeeze_axes(x, attrs.get("axes"), "squeeze2")
+    shape = [d for i, d in enumerate(x.shape) if i not in axes]
+    return {"Out": x.reshape(shape), "XShape": _xshape(x)}
+
+
+@register_op(
+    "unsqueeze2",
+    inputs=[In("X")],
+    outputs=[Out("Out"), Out("XShape", no_grad=True)],
+    attrs={"axes": []},
+)
+def _unsqueeze2(ins, attrs):
+    x = ins["X"]
+    out = x
+    for a in sorted(attrs["axes"]):
+        out = out.unsqueeze(a)
+    return {"Out": out, "XShape": _xshape(x)}
+
+
+@register_op(
+    "stack",
+    inputs=[In("X", duplicable=True)],
+    outputs=[Out("Y")],
+    attrs={"axis": 0},
+)
+def _stack(ins, attrs):
+    return {"Y": torch.stack(list(ins["X"]), dim=attrs.get("axis", 0))}
+
+
+@register_op(
+    "one_hot",
+    inputs=[In("X", no_grad=True)],
+    outputs=[Out("Out")],
+    attrs={"depth": 1, "dtype": 5, "allow_out_of_range": False},
+    grad=None,
+)
+def _one_hot(ins, attrs):
+    """A trailing dim of 1 is dropped; an id outside [0, depth) gives a
+    row of zeros, as ``jax.nn.one_hot``."""
+    x = ins["X"]
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    depth = int(attrs["depth"])
+    classes = torch.arange(depth, dtype=x.dtype, device=x.device)
+    return {"Out": (x.unsqueeze(-1) == classes).to(
+        _dt.to_torch_dtype(attrs.get("dtype", 5)))}
+
+
+@register_op(
+    "top_k",
+    inputs=[In("X"), In("K", dispensable=True, no_grad=True)],
+    outputs=[Out("Out"), Out("Indices", no_grad=True)],
+    attrs={"k": 1},
+)
+def _top_k(ins, attrs):
+    x, k = ins["X"], attrs.get("k", 1)
+    if x.dtype in (torch.float32, torch.bfloat16, torch.float16):
+        # one top-k over unique int64 keys: the value's bits made to order
+        # as the floats do, then the index, reversed, so that the lower
+        # index of two equal values ranks first
+        bits = x.float().view(torch.int32)
+        ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+        low = 0xFFFFFFFF - torch.arange(x.shape[-1], device=x.device)
+        top = torch.topk(ordered * (1 << 32) + low, k, dim=-1).values
+        idx = 0xFFFFFFFF - (top & 0xFFFFFFFF)
+    else:
+        idx = torch.sort(x, dim=-1, descending=True,
+                         stable=True).indices[..., :k]
+    return {"Out": torch.gather(x, -1, idx), "Indices": idx}
+
+
+@register_op(
+    "gather_tree",
+    inputs=[In("Ids", no_grad=True), In("Parents", no_grad=True)],
+    outputs=[Out("Out")],
+    grad=None,
+)
+def _gather_tree(ins, attrs):
+    """Walk the parent pointers from the last step: step t of beam w is
+    the id its ancestor at t chose."""
+    ids, parents = ins["Ids"], ins["Parents"]
+    t, b, w = ids.shape
+    beams = torch.arange(w, device=ids.device).expand(b, w)
+    outs = [None] * t
+    for s in range(t - 1, -1, -1):
+        outs[s] = torch.gather(ids[s], 1, beams)
+        beams = torch.gather(parents[s], 1, beams).long()
+    return {"Out": torch.stack(outs, 0)}

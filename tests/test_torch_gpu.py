@@ -85,6 +85,18 @@ computed inside the graph, and its updates agree with the CPU's within
 and one per-parameter adam op; the narrow gpt under recompute launches
 K1/K2/K3/K4 6/2/2/1 times a step and gives the losses of the run without
 recompute.
+
+The recurrent family and control flow on the card (slice 14): each new op
+(the shape and selection ops, the logical ops, ``gather_tree`` and the
+cells ``lstm_unit``, ``gru_unit``, ``cudnn_lstm``, forward and, where it
+has one, grad) gives its CPU result on the same inputs, within 1e-5 of the
+output's scale in float32 (TF32 off; products summed in another order)
+and exactly for integer and boolean outputs; ``top_k`` breaks planted ties
+lower index first on a row of 77,090 candidates; a ``while`` program takes
+the interpreter (one counted fallback, no capture) and, trained through
+``while_grad``, gives the CPU's losses and weights within 1e-5; the
+seq2seq beam decode at batch 8 gives the CPU's ids and scores within
+1e-5 (random weights, no near-tie at the beam's edge at this seed).
 """
 import gc
 import threading
@@ -1726,3 +1738,189 @@ def test_recompute_launches_on_a_small_causal_program(cuda, monkeypatch):
         assert {k: counts.get(k, 0) for k in want} == want, (rc, counts)
     np.testing.assert_allclose(runs[True][0], runs[False][0], rtol=1e-6)
     np.testing.assert_allclose(runs[True], runs[False], rtol=1e-5)
+
+
+# -- slice 14: the recurrent family and control flow -------------------------
+
+def _slice14_cases():
+    g = np.random.RandomState(14)
+    f = lambda *s: g.randn(*s).astype("float32")  # noqa: E731
+    lstm_w = f(2 * (4 * 24 + 6 * 24 + 24) + 2 * (12 * 24 + 6 * 24 + 24))
+    return {
+        "squeeze2": ({"X": f(3, 1, 4, 1)}, {"axes": [1, 3]}, "Out"),
+        "unsqueeze2": ({"X": f(3, 4)}, {"axes": [0, 2]}, "Out"),
+        "stack": ({"X": [f(3, 4), f(3, 4)]}, {"axis": 1}, "Y"),
+        "top_k": ({"X": f(5, 40)}, {"k": 6}, "Out"),
+        "one_hot": ({"X": g.randint(-1, 8, (6, 1))}, {"depth": 7}, None),
+        "gather_tree": ({"Ids": g.randint(0, 50, (6, 3, 4)),
+                         "Parents": g.randint(0, 4, (6, 3, 4))}, {}, None),
+        "logical_or": ({"X": g.rand(4, 5) > 0.5, "Y": g.rand(4, 5) > 0.5},
+                       {}, None),
+        "logical_not": ({"X": g.rand(4, 5) > 0.5}, {}, None),
+        "lstm_unit": ({"X": f(5, 24), "C_prev": f(5, 6)},
+                      {"forget_bias": 1.0}, "H"),
+        "gru_unit": ({"Input": f(5, 18), "HiddenPrev": f(5, 6),
+                      "Weight": f(6, 18), "Bias": f(1, 18)},
+                     {"origin_mode": False}, "Hidden"),
+        "cudnn_lstm": ({"Input": f(5, 3, 4), "InitH": f(4, 3, 6),
+                        "InitC": f(4, 3, 6), "W": lstm_w * 0.3},
+                       {"hidden_size": 6, "num_layers": 2,
+                        "is_bidirec": True, "input_size": 4}, "Out"),
+    }
+
+
+def _op_on(device, op_type, ins, attrs, grad_of):
+    from paddle_tpu_torch.core.registry import (DEVICE_ATTR, GENERATOR_ATTR,
+                                                OpInfoMap)
+
+    def put(v):
+        return [put(x) for x in v] if isinstance(v, list) else \
+            torch.from_numpy(np.array(v)).to(device)
+
+    ops = OpInfoMap.instance()
+    info = ops.get(op_type)
+    a = dict(info.attrs, **attrs)
+    a[DEVICE_ATTR] = device
+    if info.needs_rng:
+        a[GENERATOR_ATTR] = torch.Generator(device=device).manual_seed(0)
+    t_ins = {k: put(v) for k, v in ins.items()}
+    outs = info.fn(t_ins, a)
+    res = {k: [x.cpu() for x in v] if isinstance(v, list) else v.cpu()
+           for k, v in outs.items() if v is not None}
+    if grad_of is not None:
+        g_ins = dict(t_ins)
+        g_ins[grad_of + "@GRAD"] = torch.ones_like(outs[grad_of]) * 0.5
+        gouts = ops.get(op_type + "_grad").fn(g_ins, a)
+        res.update({"grad:" + k: v.cpu() for k, v in gouts.items()
+                    if isinstance(v, torch.Tensor)})
+    return res
+
+
+@pytest.mark.parametrize("op_type", sorted(_slice14_cases()))
+def test_slice14_op_on_the_card_gives_its_cpu_result(cuda, op_type):
+    ins, attrs, grad_of = _slice14_cases()[op_type]
+    want = _op_on(torch.device("cpu"), op_type, ins, attrs, grad_of)
+    got = _op_on(cuda, op_type, ins, attrs, grad_of)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        gs = got[k] if isinstance(got[k], list) else [got[k]]
+        ws = want[k] if isinstance(want[k], list) else [want[k]]
+        for a, b in zip(gs, ws):
+            if b.is_floating_point():
+                scale = max(float(b.abs().max()), 1.0) if b.numel() else 1.0
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
+            else:
+                assert torch.equal(a, b), k
+
+
+def test_top_k_ties_on_the_card(cuda):
+    """Rows of 77,090 candidates (beam 10 x vocab 7709) drawn from four
+    values: the card's indices are the stable descending order's, lower
+    index first, as on the CPU."""
+    from paddle_tpu_torch.core.registry import DEVICE_ATTR, OpInfoMap
+
+    g = np.random.RandomState(3)
+    x = g.choice([-1e9, -3.0, -2.5, 0.0], size=(16, 77090)).astype("float32")
+    info = OpInfoMap.instance().get("top_k")
+    out = info.fn({"X": torch.from_numpy(x).to(cuda)},
+                  {"k": 10, DEVICE_ATTR: cuda})
+    want = np.argsort(-x, axis=1, kind="stable")[:, :10]
+    np.testing.assert_array_equal(out["Indices"].cpu().numpy(), want)
+
+
+def _while_rnn_program(trips=4, B=3, D=5):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[B, D], dtype="float32")
+        w = fluid.layers.create_parameter([D, D], "float32", name="w_rnn")
+        h = fluid.layers.fill_constant([B, D], "float32", 0.0)
+        i = fluid.layers.fill_constant([1], "int64", 0)
+        n = fluid.layers.fill_constant([1], "int64", trips)
+        cond = fluid.layers.less_than(i, n)
+        with fluid.layers.While(cond).block():
+            nh = fluid.layers.tanh(fluid.layers.elementwise_add(
+                fluid.layers.matmul(h, w), x))
+            fluid.layers.assign(nh, h)
+            fluid.layers.increment(i, value=1, in_place=True)
+            fluid.layers.less_than(i, n, cond=cond)
+        loss = fluid.layers.reduce_mean(h)
+        fluid.optimizer.SGDOptimizer(0.5).minimize(loss)
+    return main, startup, loss, None
+
+
+def test_while_on_the_card_takes_the_interpreter_and_trains_as_the_cpu(cuda):
+    feeds = [{"x": np.random.RandomState(s).randn(3, 5).astype("float32")}
+             for s in range(3)]
+    out = _card_and_cpu(_while_rnn_program, feeds)
+    cpu, card = out["cpu"], out["card"]
+    assert card[4]["executor.compile_fallbacks"] == 1
+    assert card[4]["executor.jit_traces"] == 0
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5, atol=1e-6)
+    w_card, w_cpu = card[2]["w_rnn"], cpu[2]["w_rnn"]
+    np.testing.assert_allclose(w_card, w_cpu, rtol=0,
+                               atol=1e-5 * max(1.0, np.abs(w_cpu).max()))
+
+
+def _decode_program(B=8, T=7, H=16, V=29, K=4, steps=9):
+    from paddle_tpu_torch.layers.rnn import (BeamSearchDecoder, LSTMCell,
+                                             RNNCell, dynamic_decode, rnn)
+
+    L = fluid.layers
+
+    class Stacked(RNNCell):
+        def __init__(self, prefix):
+            self.cells = [LSTMCell(H, param_attr=fluid.ParamAttr(
+                name="%s_l%d_w" % (prefix, i)), bias_attr=fluid.ParamAttr(
+                name="%s_l%d_b" % (prefix, i))) for i in range(2)]
+
+        def call(self, inputs, states):
+            new = []
+            for i, cell in enumerate(self.cells):
+                inputs, (h, c) = cell.call(inputs, states[2 * i:2 * i + 2])
+                new += [h, c]
+            return inputs, new
+
+        @property
+        def state_shape(self):
+            return [[H]] * 4
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = fluid.data(name="src", shape=[B, T], dtype="int64")
+        src_len = fluid.data(name="src_len", shape=[B], dtype="int64")
+        emb = L.embedding(src, size=[V, H], param_attr=fluid.ParamAttr(
+            name="source_embedding"))
+        _, enc_final = rnn(Stacked("enc"), emb, sequence_length=src_len)
+        dec = BeamSearchDecoder(
+            Stacked("dec"), start_token=0, end_token=1, beam_size=K,
+            embedding_fn=lambda ids: L.embedding(
+                ids, size=[V, H],
+                param_attr=fluid.ParamAttr(name="target_embedding")),
+            output_fn=lambda x: L.fc(x, size=V, param_attr=fluid.ParamAttr(
+                name="output_w"), bias_attr=False))
+        outs, states = dynamic_decode(dec, inits=enc_final,
+                                      max_step_num=steps)
+    return main, startup, [outs, states.log_probs]
+
+
+def test_beam_decode_at_batch_8_on_the_card_gives_the_cpu_ids(cuda):
+    main, startup, fetch = _decode_program()
+    g = np.random.RandomState(8)
+    feed = {"src": g.randint(0, 29, (8, 7)).astype("int64"),
+            "src_len": g.randint(2, 8, 8).astype("int64")}
+    res, init = {}, None
+    for side, place in (("cpu", fluid.CPUPlace()), ("card", fluid.CUDAPlace(0))):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        if init is None:
+            exe.run(startup, scope=scope)
+            init = _persistables(main, scope)
+        else:
+            fluid.io.scope_from_numpy(scope, init, place)
+        res[side] = [exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+                     for _ in range(3)]  # eager, capture, replay
+    for card in res["card"]:
+        np.testing.assert_array_equal(card[0], res["cpu"][0][0])
+        np.testing.assert_allclose(card[1], res["cpu"][0][1], rtol=0,
+                                   atol=1e-5 * max(1.0, float(np.abs(
+                                       res["cpu"][0][1]).max())))

@@ -73,14 +73,18 @@ def run_steps(exe, main, scope, feeds, fetch):
             for feed in feeds]
 
 
-def train_both(build, feeds, exe_seed=None):
+def train_both(build, feeds, exe_seed=None, jax_seed=None):
     """``build(pkg) -> (main, startup, fetch_list)`` under both packages;
-    the JAX startup runs, its persistables are carried into the port, and
-    both run one step a feed. Returns ((JAX fetches, JAX state), (port
-    fetches, port state), (JAX main, port main))."""
+    the JAX startup runs (its executor's RNG seeded with ``jax_seed``
+    where given, else from numpy's global state), its persistables are
+    carried into the port, and both run one step a feed. Returns ((JAX
+    fetches, JAX state), (port fetches, port state), (JAX main, port
+    main))."""
     jmain, jstartup, jfetch = build(jfluid)
     pmain, _, pfetch = build(fluid)
     jexe = jfluid.Executor(jfluid.CPUPlace())
+    if jax_seed is not None:
+        jexe._core.rng.seed = jax_seed
     jscope = jfluid.Scope()
     jexe.run(jstartup, scope=jscope)
     pexe = fluid.Executor(fluid.CPUPlace())

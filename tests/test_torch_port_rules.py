@@ -104,3 +104,47 @@ def test_chip_smoke_refuses_a_cardless_host():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+_IMPORT_RECURRENT = r"""
+import sys
+from paddle_tpu_torch.layers import control_flow, rnn  # noqa: F401
+from paddle_tpu_torch.ops import control_flow_ops, rnn_ops  # noqa: F401
+from paddle_tpu_torch.core import scope  # noqa: F401
+import paddle_tpu_torch as fluid
+for name in ("While", "IfElse", "cond", "create_array", "array_write",
+             "array_read", "array_length", "StaticRNN", "LSTMCell",
+             "GRUCell", "rnn", "BeamSearchDecoder", "dynamic_decode",
+             "lstm", "lstm_unit", "gru_unit", "gather_tree", "topk",
+             "stack", "squeeze", "unsqueeze", "logical_or"):
+    assert hasattr(fluid.layers, name), name
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+assert not bad, bad
+"""
+
+
+_RECURRENT_MODULES = ("ops/rnn_ops.py", "ops/control_flow_ops.py",
+                      "layers/rnn.py", "layers/control_flow.py",
+                      "core/scope.py", "backward.py")
+
+
+def test_recurrent_and_control_flow_modules_name_no_jax():
+    """The modules of the recurrent and control-flow slice name neither
+    jax nor the JAX package in an import line."""
+    for module in _RECURRENT_MODULES:
+        with open(os.path.join(REPO, "paddle_tpu_torch", module)) as f:
+            imports = [ln.strip() for ln in f
+                       if ln.strip().startswith(("import ", "from "))]
+        assert not [ln for ln in imports
+                    if ln.split()[1].split(".")[0] in (
+                        "jax", "jaxlib", "paddle_tpu")], (module, imports)
+
+
+def test_recurrent_and_control_flow_modules_import_no_jax():
+    """Those modules load, with the layers they export, without pulling
+    jax or the JAX package in."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _IMPORT_RECURRENT], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
