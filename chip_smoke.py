@@ -14,8 +14,9 @@ configs through ``fluid.dygraph.guard()`` (eager, and lazy: a CUDA graph a
 step), the published training recipes of BERT-base (AdamW or LAMB, a
 global-norm clip, a warm-up over a linear decay), ResNet-50 (Momentum, L2
 decay, a piecewise rate) and gpt_long under recompute, PaddleNLP's
-seq2seq base model (training and beam decoding) and While loops trained
-through while_grad, and holds each
+seq2seq base model (training and beam decoding), While loops trained
+through while_grad and the Fluid book's understand_sentiment nets over
+LoD input with sparse embedding grads, and holds each
 hand-written CUDA kernel against its plain PyTorch version on the card.
 Serving and the training paths run through ``Executor.run``'s default
 route, which runs a program's first step eagerly, captures the second
@@ -372,12 +373,42 @@ lines each:
    seq2seq training step with dropout 0, the book's GRU encoder-decoder
    (and its beam decode, ids equal), cudnn_lstm bidirectional over 2
    layers, StaticRNN and rnn(is_reverse=True) with lengths;
-43. one JSON line {"kernels": [...]} with each kernel's launches on the
-   main paths (by path beside, the dygraph, recipe, seq2seq and while
-   paths too), error, times and bound;
-44. the last line: {"ok": true, "device": {...}}.
+43. the Fluid book's understand_sentiment stacked_lstm_net at its width
+   (vocabulary 5,148, embeddings 128, dynamic_lstm(size=512) three deep,
+   alternating direction, 2 classes, batch 128, Adagrad(0.002),
+   is_sparse=True; lengths uniform in [16, 464] from the seed): an
+   executor entering the card (K7 once), one warm-up step and 5 timed
+   steps on one batch through Executor.run, which takes the interpreter
+   (the sparse grad's host op and the fc over LoD decline the lowering,
+   counted and named): step time, tokens/s, idle share, peak, the ops a
+   step and the vars that carry a LoD; the losses finite and falling;
+44. convolution_net at the same width (two sequence_conv_pool, filters 3
+   and 4, tanh, sqrt pooling): as published (is_sparse, the interpreter,
+   5 steps on one batch, falling), then with is_sparse=False through the
+   LoD lowering: three batches of other lengths in the 512 bucket, the
+   first again three times, two in the 256 bucket (eager, capture,
+   replays; one capture a bucket, zero declines), every loss within 1e-5
+   relative of the card interpreter's on the same batch from the same
+   state; the lowered replay's step time beside the interpreter's and the
+   published form's;
+45. narrow twins (vocabulary 200, embeddings 16, hidden 32, batch 8), card
+   against CPU: every LoD op with a grad (sequence_pool's seven types over
+   ties, softmax, expand, expand_as, pad, reshape, concat, im2sequence,
+   sequence_conv with and without trainable padding, lstm, gru, the padded
+   twins), forward and grads within 1e-4 of scale; the host LoD ops in a
+   program; one is_sparse step of each net under SGD (with
+   PADDLE_TPU_FUSED_OPTIMIZER=flat: the dense parameters in one K4 group,
+   the table's sgd op apart) and Adagrad, the SelectedRows rows equal and
+   values within 1e-5; a SelectedRows holding an inf under
+   FLAGS_check_nan_inf raises EnforceNotMet;
+46. one JSON line {"kernels": [...]} with each kernel's launches on the
+   main paths (by path beside, the dygraph, recipe, seq2seq, while and
+   sentiment paths too), error, times and bound;
+47. the last line: {"ok": true, "device": {...}}.
 
-Every training phase (7, 10, 16, 17, 20-23, 27, 34-37 and 39) sets bench.py's
+Phases 43-45 run the book's scripts as the book does, with those knobs
+unset (phase 45 sets PADDLE_TPU_FUSED_OPTIMIZER for its SGD twins). Every
+training phase (7, 10, 16, 17, 20-23, 27, 34-37 and 39) sets bench.py's
 three knobs as its _enable_fast_paths does (PADDLE_TPU_FUSED_OPTIMIZER,
 PADDLE_TPU_FUSED_EPILOGUE and PADDLE_TPU_ASYNC_FEED, each unless already
 set), so it runs the program bench.py runs: after the epilogue pass and
@@ -1255,13 +1286,17 @@ def phase_fused_optimizer(fo):
 
 # -- phase 7: the training path ---------------------------------------------
 
-def profile_step(run):
-    """Device time by kernel over one training step."""
+def profile_step(run, host_ops=True):
+    """Device time by kernel over one training step. ``host_ops=False``
+    records the kernels alone: a step of some 100,000 launches (phase 43)
+    would spend a minute in post-processing the host-side events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if host_ops:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -5595,6 +5630,619 @@ def phase_recurrent_twins(fluid, support):
                     phase=42)
 
 
+# -- phases 43-45: LoD and sparse embeddings (the book's understand_sentiment)
+
+# the Fluid book's chapter 06 settings (train_stacked_lstm.py, train_conv.py;
+# Paddle v1.7 tests/book/notest_understand_sentiment.py): imdb.word_dict()
+# gives 5,148 words; lengths drawn from the seed around IMDB's mean review
+SENTIMENT = dict(vocab=5148, emb=128, hid=512, stacked=3, classes=2,
+                 batch=128, lr=0.002, lengths=(16, 464))
+SENTIMENT_STEPS = 5        # timed interpreter steps, after one warm-up
+SENTIMENT_TWIN = dict(vocab=200, emb=16, hid=32, stacked=3, classes=2,
+                      batch=8, lr=0.002, lengths=(1, 12))
+LOWERED_RTOL = 1e-5        # the lowered replay against the interpreter
+SPARSE_TWIN_RTOL = 1e-5    # SelectedRows values, card against CPU
+OP_TWIN_RTOL = 1e-4        # an op and its grads, card against CPU
+
+
+def sentiment_script(fluid, net, cfg, is_sparse=True, opt="adagrad"):
+    """stacked_lstm_net or convolution_net as the book writes them: (main,
+    startup, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED + 70
+    L = fluid.layers
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        data = L.data(name="words", shape=[1], dtype="int64", lod_level=1)
+        label = L.data(name="label", shape=[1], dtype="int64")
+        emb = L.embedding(input=data, size=[cfg["vocab"], cfg["emb"]],
+                          is_sparse=is_sparse)
+        if net == "conv":
+            pools = [fluid.nets.sequence_conv_pool(
+                input=emb, num_filters=cfg["hid"], filter_size=k,
+                act="tanh", pool_type="sqrt") for k in (3, 4)]
+            pred = L.fc(input=pools, size=cfg["classes"], act="softmax")
+        else:
+            fc1 = L.fc(input=emb, size=cfg["hid"])
+            lstm1, _ = L.dynamic_lstm(input=fc1, size=cfg["hid"])
+            inputs = [fc1, lstm1]
+            for i in range(2, cfg["stacked"] + 1):
+                fc = L.fc(input=inputs, size=cfg["hid"])
+                lstm, _ = L.dynamic_lstm(input=fc, size=cfg["hid"],
+                                         is_reverse=(i % 2) == 0)
+                inputs = [fc, lstm]
+            pred = L.fc(input=[L.sequence_pool(input=inputs[0],
+                                               pool_type="max"),
+                               L.sequence_pool(input=inputs[1],
+                                               pool_type="max")],
+                        size=cfg["classes"], act="softmax")
+        loss = L.mean(L.cross_entropy(input=pred, label=label))
+        make = (fluid.optimizer.AdagradOptimizer if opt == "adagrad"
+                else fluid.optimizer.SGD)
+        make(learning_rate=cfg["lr"]).minimize(loss)
+    return main, startup, loss
+
+
+def sentiment_batch(fluid, rng, cfg, lengths=None):
+    """Ragged ids and labels from ``rng``; the lengths uniform in
+    cfg["lengths"] (or ``lengths``), recorded and never cut."""
+    lo, hi = lengths or cfg["lengths"]
+    lens = rng.randint(lo, hi + 1, cfg["batch"])
+    ids = rng.randint(0, cfg["vocab"], (int(lens.sum()), 1)).astype("int64")
+    return {"words": fluid.create_lod_tensor(ids, [lens.tolist()]),
+            "label": rng.randint(0, cfg["classes"],
+                                 (cfg["batch"], 1)).astype("int64")}
+
+
+class book_knobs_off:
+    """The book runs these scripts without bench.py's knobs: the fusion
+    passes off inside (a fused epilogue is no op the LoD lowering takes),
+    as they were set outside."""
+
+    def __enter__(self):
+        self.saved = {k: os.environ.pop(k, None) for k in FAST_PATHS}
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is not None:
+                os.environ[k] = v
+
+
+def lod_vars_spy(core):
+    """Record every name the interpreter writes with a LoD."""
+    from paddle_tpu_torch.core.tensor import LoDTensor
+
+    seen = set()
+    orig = core._write_var
+
+    def spy(scope, name, value, lod=None):
+        if lod or (isinstance(value, LoDTensor) and value.lod()):
+            seen.add(name)
+        orig(scope, name, value, lod)
+
+    core._write_var = spy
+    return seen, lambda: setattr(core, "_write_var", orig)
+
+
+def interpreter_steps(exe, main, scope, feeds, loss, fetch=()):
+    """One step a feed on the interpreter, each timed alone: (losses,
+    step ms, the other fetches of the last step)."""
+    losses, times, res = [], [], None
+    for feed in feeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = exe._core.run_program(main, scope, feed, [loss] + list(fetch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(res[0]).reshape(-1)[0]))
+    return losses, times, res[1:]
+
+
+def phase_sentiment_lstm(fluid, support):
+    """Phase 43: stacked_lstm_net at the book's width on the card, five
+    Adagrad steps on one batch through Executor.run (the interpreter: its
+    sparse grad's host op and the fc over LoD decline the lowering)."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+
+    cfg = SENTIMENT
+    rng = np.random.RandomState(SEED + 70)
+    feed = sentiment_batch(fluid, rng, cfg)
+    lens = feed["words"].recursive_sequence_lengths()[0]
+    tokens = int(sum(lens))
+    with book_knobs_off():
+        main, startup, loss = sentiment_script(fluid, "stacked_lstm", cfg)
+        support.reset_launch_counts()
+        exe = new_card_executor(fluid, support)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        ce.reset_counters()
+        losses, times = [], []
+        lod_vars, undo = lod_vars_spy(exe._core)
+        for step in range(SENTIMENT_STEPS + 1):
+            torch.cuda.synchronize()
+            if step == 1:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (l,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(l).reshape(-1)[0]))
+            if step == 0:
+                undo()
+        peak = torch.cuda.max_memory_allocated()
+        c = ce.counters()
+        t_prof = time.perf_counter()
+        wall_ms, busy_ms, kernels = profile_step(
+            lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
+            host_ops=False)
+        prof_s = time.perf_counter() - t_prof
+        counts = support.launch_counts()
+        exe.close()
+    ops = [op.type for op in main.global_block().ops]
+    step_ms = float(np.median(times[1:]))
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    log("phase 43 stacked_lstm_net (%s; %d parameters): %d ops a step (%d "
+        "lstm, %d lstm_grad, %d sequence_pool, 1 lookup_table_sparse_grad: "
+        "%d), %d vars carry a LoD in a step (%s ...); route %s, declines "
+        "%s" % (json.dumps(cfg), n_params, len(ops), ops.count("lstm"),
+                ops.count("lstm_grad"), ops.count("sequence_pool"),
+                ops.count("lookup_table_sparse_grad"), len(lod_vars),
+                ", ".join(sorted(lod_vars)[:6]), route_of(c),
+                json.dumps(ce.declines())))
+    log("phase 43 batch of %d sequences, lengths %d..%d (mean %.1f), %d "
+        "tokens; losses %s" % (cfg["batch"], min(lens), max(lens),
+                               tokens / len(lens), tokens,
+                               ", ".join("%.5f" % x for x in losses)))
+    log("phase 43 stacked_lstm_net on the interpreter: warm-up step %.1f "
+        "ms, then steps %s ms (median %.1f ms), %.1f tokens/s, idle share "
+        "%s (one step's profile: wall %.1f, busy %.1f ms, %.1f s with "
+        "its post-processing), max_memory_allocated %d bytes (%.2f GB); "
+        "launches %s; card %s"
+        % (times[0], ", ".join("%.1f" % t for t in times[1:]), step_ms,
+           tokens / step_ms * 1e3, idle(wall_ms, busy_ms), wall_ms, busy_ms,
+           prof_s, peak, peak / 1e9,
+           json.dumps({k: v for k, v in counts.items() if v}), card_line()))
+    for t_ms, count, kname in kernels[:6]:
+        log("phase 43 profile   %9.3f ms  %6d x  %s"
+            % (t_ms, count, kname[:100]))
+    if "words" not in lod_vars or len(lod_vars) < 10:
+        raise RuntimeError("phase 43: LoD reached only %s" % sorted(lod_vars))
+    if c["executor.compile_fallbacks"] != 1 or c["executor.jit_traces"]:
+        raise RuntimeError("phase 43: want the interpreter, counters %s" % c)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise RuntimeError("phase 43: losses did not fall: %s" % losses)
+    return counts, {"step_ms": step_ms, "tokens_per_s": tokens / step_ms
+                    * 1e3, "tokens": tokens, "ops": len(ops),
+                    "lod_vars": len(lod_vars), "idle_share": idle(
+                        wall_ms, busy_ms), "peak_bytes": peak,
+                    "losses": losses, "n_params": n_params}
+
+
+def phase_sentiment_conv(fluid, support):
+    """Phase 44: convolution_net at the book's width: as published
+    (is_sparse, interpreter, five steps on one batch), then with a dense
+    embedding grad through the LoD lowering: batches in the 512 bucket
+    (eager, capture, replays), two more in the 256 bucket, each loss
+    against the card interpreter's on the same batch from the same
+    state."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+    from paddle_tpu_torch.core.lod_lowering import bucket_len
+
+    cfg = SENTIMENT
+    rng = np.random.RandomState(SEED + 71)
+    one = sentiment_batch(fluid, rng, cfg)
+    tokens = int(one["words"].array.shape[0])
+    with book_knobs_off():
+        support.reset_launch_counts()
+        exe = new_card_executor(fluid, support)
+        main, startup, loss = sentiment_script(fluid, "conv", cfg)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        init = card_state(main, scope)
+        ce.reset_counters()
+        sparse_losses, sparse_times = [], []
+        for _ in range(SENTIMENT_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (l,) = exe.run(main, feed=one, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            sparse_times.append((time.perf_counter() - t0) * 1e3)
+            sparse_losses.append(float(np.asarray(l).reshape(-1)[0]))
+        sparse_c, sparse_declines = ce.counters(), ce.declines()
+        # the dense-grad form through the lowering
+        dmain, _, dloss = sentiment_script(fluid, "conv", cfg,
+                                           is_sparse=False)
+        big = [sentiment_batch(fluid, rng, cfg) for _ in range(3)]
+        small = [sentiment_batch(fluid, rng, cfg, (16, 256))
+                 for _ in range(2)]
+        # three batches of other lengths in one bucket, the first again
+        # three times (its loss must fall), two in a smaller bucket
+        feeds = big + [big[0]] * 3 + small
+        buckets = [bucket_len(max(f["words"].recursive_sequence_lengths()[0]))
+                   for f in feeds]
+        lscope = fluid.Scope()
+        fluid.io.scope_from_numpy(lscope, init, fluid.CUDAPlace(0))
+        ce.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        lowered, ltimes = [], []
+        for feed in feeds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (l,) = exe.run(dmain, feed=feed, fetch_list=[dloss],
+                           scope=lscope)
+            torch.cuda.synchronize()
+            ltimes.append((time.perf_counter() - t0) * 1e3)
+            lowered.append(float(np.asarray(l).reshape(-1)[0]))
+        lpeak = torch.cuda.max_memory_allocated()
+        lc, ldeclines = ce.counters(), ce.declines()
+        wall_ms, busy_ms, _ = profile_step(lambda: exe.run(
+            dmain, feed=big[0], fetch_list=[dloss], scope=lscope))
+        iscope = fluid.Scope()
+        fluid.io.scope_from_numpy(iscope, init, fluid.CUDAPlace(0))
+        interp, itimes, _ = interpreter_steps(exe, dmain, iscope, feeds,
+                                              dloss)
+        counts = support.launch_counts()
+        exe.close()
+    replay_ms = float(np.median(ltimes[2:6]))
+    sparse_ms = float(np.median(sparse_times[1:]))
+    interp_ms = float(np.median(itimes[2:6]))
+    gaps = [abs(a - b) / abs(b) for a, b in zip(lowered, interp)]
+    log("phase 44 convolution_net as published (is_sparse, Adagrad %g): "
+        "route %s, declines %s; losses over %d steps on one batch of %d "
+        "tokens: %s; warm-up %.1f ms, step %.1f ms (median), %.1f tokens/s"
+        % (cfg["lr"], route_of(sparse_c), json.dumps(sparse_declines),
+           len(sparse_losses), tokens,
+           ", ".join("%.5f" % x for x in sparse_losses), sparse_times[0],
+           sparse_ms, tokens / sparse_ms * 1e3))
+    log("phase 44 convolution_net dense grad through the LoD lowering: %d "
+        "lowered clone(s), %d declines %s, %d captures, buckets %s; "
+        "losses %s; interpreter on the same batches %s; largest gap %.3g "
+        "(limit %g)" % (lc["lod_lowering.lowered"],
+                        lc["lod_lowering.declines"], json.dumps(ldeclines),
+                        lc["executor.jit_traces"], buckets,
+                        ", ".join("%.6f" % x for x in lowered),
+                        ", ".join("%.6f" % x for x in interp), max(gaps),
+                        LOWERED_RTOL))
+    log("phase 44 step times: lowered %s ms (eager, capture, replays; the "
+        "replays of the 512 bucket median %.2f ms, %.1f tokens/s), the "
+        "interpreter on the same program %.1f ms (median), the published "
+        "sparse form %.1f ms: lowered replay %.1fx faster than the "
+        "interpreter; idle share of a replay %s (wall %.2f, busy %.2f ms); "
+        "max_memory_allocated %d bytes; launches %s; card %s"
+        % (", ".join("%.1f" % t for t in ltimes), replay_ms,
+           tokens / replay_ms * 1e3, interp_ms, sparse_ms,
+           interp_ms / replay_ms, idle(wall_ms, busy_ms), wall_ms, busy_ms,
+           lpeak, json.dumps({k: v for k, v in counts.items() if v}),
+           card_line()))
+    if sparse_c["executor.compile_fallbacks"] != 1 or \
+            sparse_c["lod_lowering.declines"] != 1:
+        raise RuntimeError("phase 44: the sparse form must decline once "
+                           "and interpret: %s %s" % (sparse_c,
+                                                     sparse_declines))
+    if (lc["lod_lowering.lowered"], lc["lod_lowering.declines"],
+            lc["executor.compile_fallbacks"],
+            lc["executor.jit_traces"]) != (1, 0, 0, len(set(buckets))):
+        raise RuntimeError("phase 44: lowering counters %s, declines %s, "
+                           "buckets %s" % (lc, ldeclines, buckets))
+    if max(gaps) > LOWERED_RTOL:
+        raise RuntimeError("phase 44: lowered %s against interpreted %s"
+                           % (lowered, interp))
+    if not (np.isfinite(sparse_losses + lowered).all()
+            and sparse_losses[-1] < sparse_losses[0]
+            and lowered[3] > lowered[4] > lowered[5]):
+        raise RuntimeError("phase 44: losses did not fall: %s, %s"
+                           % (sparse_losses, lowered))
+    return counts, {"sparse_step_ms": sparse_ms, "lowered_replay_ms":
+                    replay_ms, "interpreter_ms": interp_ms,
+                    "tokens": tokens, "buckets": sorted(set(buckets)),
+                    "captures": lc["executor.jit_traces"],
+                    "declines": lc["lod_lowering.declines"],
+                    "max_gap": max(gaps), "idle_share": idle(wall_ms,
+                                                             busy_ms),
+                    "peak_bytes": lpeak, "losses": lowered}
+
+
+def lod_op_cases(rng):
+    """(op, inputs, attrs, the output whose grad is pulled back) of every
+    ported LoD op with a grad, at the twin's width over 8 ragged
+    sequences."""
+    lens = rng.randint(1, 12, 8).tolist()
+    rows, n, d = sum(lens), len(lens), 16
+    lod = ((tuple(int(v) for v in np.cumsum([0] + lens)),),)
+    f = lambda *s: rng.randn(*s).astype("float32")  # noqa: E731
+    ties = rng.randint(-2, 3, (rows, d)).astype("float32")
+    cases = {}
+    for pool in ("SUM", "AVERAGE", "SQRT", "MAX", "MIN", "LAST", "FIRST"):
+        x = ties if pool in ("MAX", "MIN") else f(rows, d)
+        cases["sequence_pool_" + pool.lower()] = (
+            "sequence_pool", {"X": x}, {"pooltype": pool, "_lod_X": lod},
+            "Out")
+        cases["sequence_pool_padded_" + pool.lower()] = (
+            "sequence_pool_padded", {"X": f(n, 12, d),
+                                     "Length": np.array(lens, "int64")},
+            {"pooltype": pool}, "Out")
+    half = ((tuple(int(v) for v in np.cumsum([0] + [1] * n)),),)
+    cases.update({
+        "sequence_softmax": ("sequence_softmax", {"X": f(rows, 1)},
+                             {"_lod_X": lod}, "Out"),
+        "sequence_expand": ("sequence_expand", {"X": f(n, d),
+                                                "Y": f(rows, 1)},
+                            {"_lod_X": half, "_lod_Y": lod}, "Out"),
+        "sequence_expand_as": ("sequence_expand_as", {"X": f(n, d),
+                                                      "Y": f(rows, 1)},
+                               {"_lod_Y": lod}, "Out"),
+        "sequence_pad": ("sequence_pad", {"X": f(rows, d),
+                                          "PadValue": f(1)},
+                         {"_lod_X": lod, "padded_length": 12}, "Out"),
+        "sequence_reshape": ("sequence_reshape", {"X": f(rows, d)},
+                             {"_lod_X": lod, "new_dim": 8}, "Out"),
+        "sequence_concat": ("sequence_concat", {"X": [f(rows, d),
+                                                      f(rows, d)]},
+                            {"_lod_X": (lod[0], lod[0])}, "Out"),
+        "im2sequence": ("im2sequence", {"X": f(2, 3, 8, 8)},
+                        {"kernels": [3, 3], "strides": [2, 2],
+                         "paddings": [1, 1, 1, 1]}, "Out"),
+        "sequence_conv": ("sequence_conv", {"X": f(rows, d),
+                                            "Filter": f(3 * d, 32) * 0.2},
+                          {"_lod_X": lod}, "Out"),
+        "sequence_conv_trainable": (
+            "sequence_conv", {"X": f(rows, d), "Filter": f(3 * d, 32) * 0.2,
+                              "PaddingData": f(2, d)},
+            {"_lod_X": lod, "paddingTrainable": True}, "Out"),
+        "lstm": ("lstm", {"Input": f(rows, 4 * d), "Weight": f(d, 4 * d)
+                          * 0.3, "Bias": f(1, 7 * d) * 0.3},
+                 {"_lod_Input": lod, "is_reverse": True}, "Hidden"),
+        "gru": ("gru", {"Input": f(rows, 3 * d), "H0": f(n, d),
+                        "Weight": f(d, 3 * d) * 0.3, "Bias": f(1, 3 * d)},
+                {"_lod_Input": lod, "origin_mode": True}, "Hidden"),
+        "sequence_softmax_padded": (
+            "sequence_softmax_padded", {"X": f(n, 12, 1),
+                                        "Length": np.array(lens, "int64")},
+            {}, "Out"),
+        "sequence_conv_padded": (
+            "sequence_conv_padded", {"X": f(n, 12, d),
+                                     "Filter": f(3 * d, 32) * 0.2,
+                                     "Length": np.array(lens, "int64")},
+            {}, "Out"),
+        "sequence_expand_padded": (
+            "sequence_expand_padded", {"X": f(n, d), "Y": f(n, 12, 1),
+                                       "Length": np.array(lens, "int64")},
+            {}, "Out"),
+        "sequence_pad_padded": (
+            "sequence_pad_padded", {"X": f(n, 12, d), "PadValue": f(1),
+                                    "Length": np.array(lens, "int64")},
+            {"padded_length": 10}, "Out"),
+        "sequence_concat_padded": (
+            "sequence_concat_padded",
+            {"X": [f(n, 12, d), f(n, 12, d)],
+             "Length": [np.array(lens, "int64"),
+                        np.array(lens[::-1], "int64")]}, {}, "Out"),
+    })
+    return cases
+
+
+def op_on(device, op_type, ins, attrs, grad_of):
+    """The op and its registered grad op (Out@GRAD a fixed ramp) on
+    ``device``: every output and input grad, on the host."""
+    from paddle_tpu_torch.core.registry import DEVICE_ATTR, OpInfoMap
+
+    def put(v):
+        return [put(x) for x in v] if isinstance(v, list) else \
+            torch.from_numpy(np.array(v)).to(device)
+
+    ops = OpInfoMap.instance()
+    a = dict(ops.get(op_type).attrs, **attrs)
+    a[DEVICE_ATTR] = device
+    t_ins = {k: put(v) for k, v in ins.items()}
+    outs = ops.get(op_type).fn(t_ins, a)
+    res = {k: v.cpu() for k, v in outs.items()
+           if isinstance(v, torch.Tensor)}
+    y = outs[grad_of]
+    g_ins = dict(t_ins)
+    g_ins[grad_of + "@GRAD"] = torch.linspace(
+        -1, 1, y.numel(), device=device).reshape(y.shape)
+    for k, v in ops.get(op_type + "_grad").fn(g_ins, a).items():
+        for i, t in enumerate(v if isinstance(v, list) else [v]):
+            if isinstance(t, torch.Tensor):
+                res["%s[%d]" % (k, i)] = t.cpu()
+    return res
+
+
+def sparse_twin_step(fluid, net, opt, place, init, feed):
+    """One step of the narrow net on ``place`` from ``init``: (loss, the
+    SelectedRows' rows, its values, the state after, the program,
+    launches)."""
+    from paddle_tpu_torch.ops.cuda import support
+
+    main, startup, loss = sentiment_script(fluid, net, SENTIMENT_TWIN,
+                                           opt=opt)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    fluid.io.scope_from_numpy(scope, init, place)
+    support.reset_launch_counts()
+    (l, _) = exe.run(main, feed=feed, scope=scope,
+                     fetch_list=[loss, "embedding.w_0@GRAD"])
+    sr = scope.find_var("embedding.w_0@GRAD").raw()
+    out = (float(np.asarray(l).reshape(-1)[0]), list(sr.rows()),
+           sr.get_tensor().array.cpu().numpy(), card_state(main, scope),
+           main, support.launch_counts())
+    exe.close()
+    return out
+
+
+def phase_lod_twins(fluid, support):
+    """Phase 45: at the twin's width, the port on the card against the
+    port on the CPU: every LoD op with a grad, forward and grads within
+    OP_TWIN_RTOL of scale; the host ops through a program; one is_sparse
+    step of each net under SGD (PADDLE_TPU_FUSED_OPTIMIZER=flat: the
+    dense parameters in one K4 group, the table out of it) and Adagrad,
+    the SelectedRows rows equal and values within SPARSE_TWIN_RTOL; a
+    SelectedRows holding an inf under FLAGS_check_nan_inf raises."""
+    rng = np.random.RandomState(SEED + 72)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    worst = (0.0, None)
+    cases = lod_op_cases(rng)
+    for name, (op, ins, attrs, grad_of) in sorted(cases.items()):
+        want = op_on(cpu, op, ins, attrs, grad_of)
+        got = op_on(cuda, op, ins, attrs, grad_of)
+        if sorted(got) != sorted(want):
+            raise RuntimeError("phase 45 %s: outputs %s, CPU %s"
+                               % (name, sorted(got), sorted(want)))
+        for k in want:
+            gap = float((got[k] - want[k]).abs().max()) / max(
+                float(want[k].abs().max()), 1e-3)
+            if gap > worst[0]:
+                worst = (gap, "%s %s" % (name, k))
+            if gap > OP_TWIN_RTOL:
+                raise RuntimeError("phase 45 %s %s: card against CPU %.3g "
+                                   "of scale" % (name, k, gap))
+    log("phase 45 %d LoD op cases and their grads, card against CPU: "
+        "largest gap %.3g of scale (%s; limit %g)"
+        % (len(cases), worst[0], worst[1], OP_TWIN_RTOL))
+    host_twin(fluid, rng)
+    feed = sentiment_batch(fluid, rng, SENTIMENT_TWIN)
+    with book_knobs_off():
+        for net in ("stacked_lstm", "conv"):
+            for opt in ("sgd", "adagrad"):
+                if opt == "sgd":
+                    os.environ["PADDLE_TPU_FUSED_OPTIMIZER"] = "flat"
+                try:
+                    main, startup, _ = sentiment_script(
+                        fluid, net, SENTIMENT_TWIN, opt=opt)
+                    init = _init_state_of(fluid, main, startup)
+                    cpu_r = sparse_twin_step(fluid, net, opt,
+                                             fluid.CPUPlace(), init, feed)
+                    card_r = sparse_twin_step(fluid, net, opt,
+                                              fluid.CUDAPlace(0), init, feed)
+                finally:
+                    os.environ.pop("PADDLE_TPU_FUSED_OPTIMIZER", None)
+                check_sparse_twin(net, opt, cpu_r, card_r)
+    check_nan_inf_sparse(fluid)
+
+
+def _init_state_of(fluid, main, startup):
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    return card_state(main, scope)
+
+
+def check_sparse_twin(net, opt, cpu_r, card_r):
+    loss_gap = abs(card_r[0] - cpu_r[0]) / abs(cpu_r[0])
+    val_gap = float(np.abs(card_r[2] - cpu_r[2]).max()) / max(
+        float(np.abs(cpu_r[2]).max()), 1e-3)
+    state_gap_ = state_gap(card_r[3], cpu_r[3])
+    ops = card_r[4].global_block().ops
+    fused = [op for op in ops if op.type == "fused_optimizer"]
+    sparse_updates = [op.type for op in ops
+                      if op.input("Param") == ["embedding.w_0"]]
+    log("phase 45 %s %s is_sparse step, card against CPU: loss gap %.3g, "
+        "SelectedRows rows equal %s (%d rows), values gap %.3g, state gap "
+        "%.3g of scale (limits %g, %g); the table's update %s, %d "
+        "fused_optimizer op(s) over %s; launches %s"
+        % (net, opt, loss_gap, card_r[1] == cpu_r[1], len(cpu_r[1]),
+           val_gap, state_gap_, SPARSE_TWIN_RTOL, OP_TWIN_RTOL,
+           sparse_updates, len(fused),
+           [p for op in fused for p in op.input("Param")][:4],
+           json.dumps({k: v for k, v in card_r[5].items() if v})))
+    if card_r[1] != cpu_r[1] or val_gap > SPARSE_TWIN_RTOL \
+            or loss_gap > SPARSE_TWIN_RTOL or state_gap_ > OP_TWIN_RTOL:
+        raise RuntimeError("phase 45 %s %s: the sparse step differs on the "
+                           "card" % (net, opt))
+    want_k4 = 1 if opt == "sgd" else 0
+    if len(fused) != want_k4 or sparse_updates != [opt] or \
+            card_r[5].get("fused_optimizer_update", 0) != want_k4:
+        raise RuntimeError("phase 45 %s %s: the table must keep its own %s "
+                           "op beside %d K4 group(s): %s, launches %s"
+                           % (net, opt, opt, want_k4, sparse_updates,
+                              card_r[5]))
+
+
+def host_twin(fluid, rng):
+    """The host LoD ops (sequence_unpad, sequence_slice,
+    sequence_enumerate, sequence_erase, lod_reset) in one program, card
+    against CPU: equal values and LoDs."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[-1, 4], dtype="float32",
+                       lod_level=1)
+        ids = fluid.data(name="ids", shape=[-1, 1], dtype="int64",
+                         lod_level=1)
+        padded = fluid.data(name="padded", shape=[-1, 6, 4],
+                            dtype="float32")
+        plen = fluid.data(name="plen", shape=[-1], dtype="int64")
+        off = fluid.data(name="off", shape=[-1, 1], dtype="int64")
+        ln = fluid.data(name="ln", shape=[-1, 1], dtype="int64")
+        outs = [L.sequence_unpad(padded, plen),
+                L.sequence_slice(x, off, ln),
+                L.sequence_enumerate(ids, win_size=3, pad_value=7),
+                L.sequence_erase(ids, tokens=[2, 5]),
+                L.lod_reset(padded, target_lod=[0, 1, 3]),
+                L.sequence_pool(L.lod_reset(x, y=ids), "sum")]
+    lens = [3, 1, 6, 2]
+    feed = {"x": fluid.create_lod_tensor(
+        rng.randn(sum(lens), 4).astype("float32"), [lens]),
+        "ids": fluid.create_lod_tensor(
+            rng.randint(0, 8, (sum(lens), 1)).astype("int64"), [lens]),
+        "padded": rng.randn(3, 6, 4).astype("float32"),
+        "plen": np.array([2, 6, 1], "int64"),
+        "off": np.array([[1], [0], [2], [0]], "int64"),
+        "ln": np.array([[2], [1], [3], [2]], "int64")}
+    res = {}
+    for side, place in (("cpu", fluid.CPUPlace()),
+                        ("card", fluid.CUDAPlace(0))):
+        exe = fluid.Executor(place)
+        exe.run(startup, scope=fluid.Scope())
+        res[side] = exe.run(main, feed=feed, fetch_list=outs,
+                            scope=fluid.Scope(), return_numpy=False)
+        exe.close()
+    for k, (c, g) in enumerate(zip(res["cpu"], res["card"])):
+        if c.lod() != g.lod() or not np.allclose(c.numpy(), g.numpy(),
+                                                 rtol=0, atol=1e-6):
+            raise RuntimeError("phase 45 host op %d: card %s %s, CPU %s %s"
+                               % (k, g.lod(), g.numpy(), c.lod(),
+                                  c.numpy()))
+    log("phase 45 host LoD ops (sequence_unpad, sequence_slice, "
+        "sequence_enumerate, sequence_erase, lod_reset twice) on the card: "
+        "the CPU's values and LoDs %s"
+        % [c.lod() for c in res["cpu"]])
+
+
+def check_nan_inf_sparse(fluid):
+    from paddle_tpu_torch.core.enforce import EnforceNotMet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        w = fluid.layers.create_parameter([20, 4], "float32", name="w_inf")
+        ids = fluid.data(name="ids", shape=[3, 1], dtype="int64")
+        og = fluid.data(name="og", shape=[3, 4], dtype="float32")
+        blk = main.global_block()
+        g = blk.create_var(name="w_inf@GRAD", type="selected_rows")
+        blk.append_op("lookup_table_sparse_grad",
+                      inputs={"W": [w], "Ids": [ids], "Out@GRAD": [og]},
+                      outputs={"W@GRAD": [g]}, infer_shape=False)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    bad = np.ones((3, 4), "float32")
+    bad[1, 2] = np.inf
+    fluid.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        try:
+            exe.run(main, feed={"ids": np.array([[1], [2], [3]], "int64"),
+                                "og": bad}, fetch_list=[], scope=scope)
+        except EnforceNotMet as e:
+            log("phase 45 a SelectedRows holding an inf under "
+                "FLAGS_check_nan_inf raises EnforceNotMet on the card: %s"
+                % str(e).splitlines()[0][:120])
+        else:
+            raise RuntimeError("phase 45: an inf SelectedRows passed "
+                               "FLAGS_check_nan_inf")
+    finally:
+        fluid.set_flags({"FLAGS_check_nan_inf": False})
+        exe.close()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -5684,6 +6332,12 @@ def main() -> int:
     del s2s_scope
     loops, loops_run = phase_while(fluid, support)
     phase_recurrent_twins(fluid, support)
+    # LoD and sparse embeddings: the book's understand_sentiment nets
+    senti_lstm, senti_lstm_run = phase_sentiment_lstm(fluid, support)
+    senti_conv, senti_conv_run = phase_sentiment_conv(fluid, support)
+    phase_lod_twins(fluid, support)
+    log("phases 43-44 %s" % json.dumps(
+        {"stacked_lstm": senti_lstm_run, "convolution": senti_conv_run}))
     log("phases 39-41 %s" % json.dumps(
         {"seq2seq": s2s_run, "seq2seq_decode": s2s_dec_run,
          "while": loops_run}))
@@ -5729,7 +6383,9 @@ def main() -> int:
                    "gpt_recompute": gpt_rc.get(kern["name"], 0),
                    "seq2seq": s2s.get(kern["name"], 0),
                    "seq2seq_decode": s2s_dec.get(kern["name"], 0),
-                   "while": loops.get(kern["name"], 0)}
+                   "while": loops.get(kern["name"], 0),
+                   "sentiment_lstm": senti_lstm.get(kern["name"], 0),
+                   "sentiment_conv": senti_conv.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

@@ -13,8 +13,9 @@ This package imports neither ``jax`` nor anything of ``paddle_tpu``.
 ROADMAP.md lists what is ported and what is still to come.
 """
 from . import framework  # noqa: F401
-from .core import (CPUPlace, CUDAPlace, LoDTensor, Scope,  # noqa: F401
-                   TPUPlace, global_scope, scope_guard)
+from .core import (CPUPlace, CUDAPlace, LoDTensor,  # noqa: F401
+                   LoDTensorArray, Scope, TPUPlace, global_scope,
+                   scope_guard)
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .executor import Executor  # noqa: F401
 from .framework import (Parameter, Program, Variable,  # noqa: F401
@@ -35,4 +36,9 @@ from . import io  # noqa: F401
 from . import inference  # noqa: F401
 from . import serving  # noqa: F401
 from . import dygraph  # noqa: F401
+from . import nets  # noqa: F401
+from . import lod_tensor  # noqa: F401
+from .lod_tensor import (create_lod_tensor,  # noqa: F401
+                         create_random_int_lodtensor)
+from .data_feeder import DataFeeder  # noqa: F401
 from .utils import unique_name  # noqa: F401

@@ -274,7 +274,10 @@ def make_finalize(block, pending: Dict[str, List[str]],
             if clear_on_merge:
                 pending[var_name] = []
             return canonical
-        _ensure_grad_var(block, var_name, canonical)
+        gv = _ensure_grad_var(block, var_name, canonical)
+        if all(getattr(block._find_var_recursive(g), "type", "")
+               == "selected_rows" for g in glist):
+            gv.type = "selected_rows"  # a sum of sparse grads stays sparse
         block.append_op("sum", inputs={"X": list(glist)},
                         outputs={"Out": canonical}, infer_shape=False)
         pending[var_name] = [] if clear_on_merge else [canonical]

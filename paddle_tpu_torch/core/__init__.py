@@ -3,4 +3,4 @@ registry and the op-by-op interpreter."""
 from .executor_core import CoreExecutor  # noqa: F401
 from .place import CPUPlace, CUDAPlace, Place, TPUPlace  # noqa: F401
 from .scope import Scope, global_scope, scope_guard  # noqa: F401
-from .tensor import LoDTensor  # noqa: F401
+from .tensor import LoDTensor, LoDTensorArray, SelectedRows  # noqa: F401

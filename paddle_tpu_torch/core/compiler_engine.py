@@ -48,9 +48,11 @@ package's names and results (``_program_version``, ``_analyze``,
 The counters keep the JAX package's names in ``COUNTERS`` (the
 observability registry is not ported yet): ``executor.compiles`` (new
 step functions), ``executor.jit_traces`` (captures),
-``executor.compile_fallbacks`` and ``executor.steps``, and the fusion
+``executor.compile_fallbacks`` and ``executor.steps``, the fusion
 passes' ``fusion.epilogue_chains`` and ``fusion.optimizer_groups``
-(``core/fusion.py``).
+(``core/fusion.py``), and the LoD lowering's ``lod_lowering.lowered``
+(lowered clones built) and ``lod_lowering.declines`` (each named in
+``declines()``; ``core/lod_lowering.py``).
 
 Control flow: the analysis walks ``while`` / ``conditional_block``
 sub-blocks as the JAX package does, but where the JAX package lowers them
@@ -91,7 +93,11 @@ COUNTERS: Dict[str, int] = {"executor.compiles": 0,
                             "executor.compile_fallbacks": 0,
                             "executor.steps": 0,
                             "fusion.epilogue_chains": 0,
-                            "fusion.optimizer_groups": 0}
+                            "fusion.optimizer_groups": 0,
+                            "lod_lowering.lowered": 0,
+                            "lod_lowering.declines": 0}
+# each LoD-lowering decline by name ("<op type>: <reason>")
+DECLINES: Dict[str, int] = {}
 _counters_lock = threading.Lock()
 
 
@@ -109,6 +115,19 @@ def reset_counters() -> None:
     with _counters_lock:
         for k in COUNTERS:
             COUNTERS[k] = 0
+        DECLINES.clear()
+
+
+def count_decline(name: str) -> None:
+    """One LoD-lowering decline, by name."""
+    with _counters_lock:
+        COUNTERS["lod_lowering.declines"] += 1
+        DECLINES[name] = DECLINES.get(name, 0) + 1
+
+
+def declines() -> Dict[str, int]:
+    with _counters_lock:
+        return dict(DECLINES)
 
 
 def _lru_get(cache, key):

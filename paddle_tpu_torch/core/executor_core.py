@@ -42,7 +42,18 @@ loop runs ahead until a fetch copies a result back.
   annotated with the op's type, inputs and outputs
   (``enforce.annotate_op_error``).
 
-LoD propagation comes with the LoD ops (ROADMAP.md).
+- LoD, as in the JAX interpreter (its ``executor_core.py:164-330``):
+  every op's inputs' LoDs are collected; a ``needs_lod`` op (and its grad
+  op) gets them as ``attrs['_lod_<slot>']``; each output is written with
+  the LoD its ``infer_lod`` names (``"propagate"``: the first input slot
+  whose var carries one and is not persistable), and with none otherwise,
+  so a reused name never keeps a stale LoD. A propagated LoD attaches only
+  where the output's rows match it, and never to a persistable: a table
+  grad or a parameter must not carry a sequence LoD into later batches.
+- A ``SelectedRows`` (the embedding's ``is_sparse`` grad) is read and
+  written as it is; the ops that take one (``sum``, the update ops)
+  branch on it, as the JAX package's op bodies do.
+  ``FLAGS_check_nan_inf`` checks its values too.
 """
 from __future__ import annotations
 
@@ -56,9 +67,9 @@ from .cuda_graph import GraphCache
 from .enforce import EnforceNotMet, annotate_op_error
 from .flags import flag
 from .registry import (BOUND_OUTPUTS_ATTR, DEVICE_ATTR, GENERATOR_ATTR,
-                       OpInfoMap)
+                       LOD_ATTR_PREFIX, OpInfoMap)
 from .scope import Scope
-from .tensor import LoDTensor, LoDTensorArray, stage_feed
+from .tensor import LoDTensor, LoDTensorArray, SelectedRows, stage_feed
 
 
 class RNGState:
@@ -117,6 +128,66 @@ def gather_inputs(info, op, read) -> Dict:
     return ins
 
 
+def gather_inputs_and_lods(info, op, scope):
+    """``gather_inputs`` from a scope, with each slot's LoDs: (ins, slot ->
+    tuple of each name's LoD as nested tuples, for the slots where one
+    carries a LoD)."""
+    ins, in_lods = {}, {}
+    for slot in info.inputs:
+        names = op.input(slot.name)
+        if not names:
+            ins[slot.name] = None
+            continue
+        vals, lods = [], []
+        for n in names:
+            var = scope.find_var(n) if n not in _UNBOUND else None
+            h = var.raw() if var is not None and var.is_initialized() \
+                else None
+            if isinstance(h, LoDTensor):
+                vals.append(h.array)
+                lods.append(tuple(tuple(level) for level in h.lod()))
+            else:
+                vals.append(h)
+                lods.append(())
+        if any(lods):
+            in_lods[slot.name] = tuple(lods)
+        ins[slot.name] = vals if slot.duplicable else vals[0]
+    return ins, in_lods
+
+
+def infer_out_lods(info, op, in_lods: Dict, attrs: Dict) -> Dict:
+    """(output slot, index) -> the LoD the op's ``infer_lod`` gives it."""
+    if info.infer_lod is None:
+        return {}
+    if callable(info.infer_lod):
+        return dict(info.infer_lod(in_lods, attrs) or {})
+    blk = op.block
+    for slot in info.inputs:
+        lods = in_lods.get(slot.name)
+        if not (lods and lods[0]):
+            continue
+        bv = blk._find_var_recursive(op.input(slot.name)[0])
+        if bv is not None and bv.persistable:
+            continue  # a parameter (lookup_table's W) is never the source
+        return {(s.name, i): lods[0] for s in info.outputs
+                for i in range(len(op.output(s.name)))}
+    return {}
+
+
+def _lod_for(op, name, value, lod):
+    """``lod`` where it may attach to output ``name``: its last level
+    must end at the value's row count, and the var must not be
+    persistable."""
+    if not lod or not isinstance(value, torch.Tensor):
+        return None
+    if value.dim() == 0 or int(value.shape[0]) != int(lod[-1][-1]):
+        return None
+    bv = op.block._find_var_recursive(name)
+    if bv is not None and bv.persistable:
+        return None
+    return lod
+
+
 def call_op(info, op, ins: Dict, attrs: Dict,
             phase: str = "execution") -> Dict:
     try:
@@ -164,11 +235,12 @@ class CoreExecutor:
         h = var.raw()
         return h.array if isinstance(h, LoDTensor) else h
 
-    def _write_var(self, scope: Scope, name: str, value) -> None:
+    def _write_var(self, scope: Scope, name: str, value, lod=None) -> None:
         if name in _UNBOUND or value is None:
             return
         scope.var(name).set(value if isinstance(
-            value, (LoDTensor, LoDTensorArray)) else LoDTensor(value))
+            value, (LoDTensor, LoDTensorArray, SelectedRows))
+            else LoDTensor(value, lod))
 
     def run_op(self, op, scope: Scope) -> None:
         try:
@@ -183,14 +255,29 @@ class CoreExecutor:
             info.host_fn(self, op, scope)
             self._maybe_check_nan_inf(op, scope)
             return
-        ins = gather_inputs(info, op, lambda n: self._read_var(scope, n))
+        ins, in_lods = gather_inputs_and_lods(info, op, scope)
         attrs = op_attrs(info, op, self.device)
+        if info.needs_lod:
+            for k, v in in_lods.items():
+                attrs[LOD_ATTR_PREFIX + k] = v
         if info.needs_rng:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(rng_seed(self.rng, attrs, op))
             attrs[GENERATOR_ATTR] = gen
-        for n, v in output_pairs(info, op, call_op(info, op, ins, attrs)):
-            self._write_var(scope, n, v)
+        outs = call_op(info, op, ins, attrs)
+        out_lods = infer_out_lods(info, op, in_lods, attrs) \
+            if in_lods or callable(info.infer_lod) else {}
+        for slot in info.outputs:
+            o = outs.get(slot.name)
+            if o is None:
+                continue
+            vals = o if slot.duplicable else [o]
+            for i, (n, v) in enumerate(zip(op.output(slot.name), vals)):
+                if v is None or n in _UNBOUND:
+                    continue
+                lod = out_lods.get((slot.name, i))
+                self._write_var(scope, n, v,
+                                _lod_for(op, n, v, lod) if lod else None)
         self._maybe_check_nan_inf(op, scope)
 
     def _maybe_check_nan_inf(self, op, scope: Scope) -> None:
@@ -200,6 +287,8 @@ class CoreExecutor:
             return
         for n in op.output_arg_names:
             t = self._read_var(scope, n)
+            if isinstance(t, SelectedRows):
+                t = t.get_tensor().array  # a sparse grad's values
             if isinstance(t, torch.Tensor) and t.is_floating_point() \
                     and not bool(torch.isfinite(t).all()):
                 raise EnforceNotMet(
@@ -272,5 +361,7 @@ class CoreExecutor:
             if var is None or not var.is_initialized():
                 raise RuntimeError("fetch variable %r not produced" % name)
             h = var.raw()
+            if isinstance(h, SelectedRows):  # fetched dense, as in JAX
+                h = LoDTensor(h.to_dense())
             results.append(h.numpy() if return_numpy else h)
         return results

@@ -18,6 +18,15 @@ seeded ``torch.Generator`` a ``needs_rng`` op draws from, and
 ``BOUND_OUTPUTS_ATTR`` the output slots the op binds. Shape inference runs
 the same ``fn`` on ``meta`` tensors.
 
+LoD (ragged sequences as offset tables) travels on the host, as in the
+JAX package: the interpreter passes a ``needs_lod`` op its inputs' LoDs
+as ``attrs['_lod_<slot>']`` (``LOD_ATTR_PREFIX``), and gives its outputs
+the LoD ``infer_lod`` names: ``"propagate"`` (the default: the first
+non-persistable input's), ``None`` (none) or a callable ``(in_lods,
+attrs) -> {(slot, index): lod}``. A host op's outputs carry what it
+writes. An auto-VJP grad op inherits its forward's ``needs_lod``, so it
+sees the same LoDs, and propagates none.
+
 Gradients, as in the JAX package: an op registered with ``grad="auto"``
 (the default) gets a ``<type>_grad`` op that re-runs the forward ``fn``
 and differentiates it (``_vjp_grad_impl``: ``torch.autograd.grad`` on
@@ -36,6 +45,7 @@ import torch
 DEVICE_ATTR = "_device"
 GENERATOR_ATTR = "_generator"
 BOUND_OUTPUTS_ATTR = "_bound_outputs"  # tuple of output slots bound in desc
+LOD_ATTR_PREFIX = "_lod_"
 
 GRAD_SUFFIX = "@GRAD"
 
@@ -70,7 +80,8 @@ class OpInfo:
                  grad: object = "auto", needs_rng: bool = False,
                  needs_lod: bool = False, side_effect: bool = False,
                  host_fn: Optional[Callable] = None,
-                 const_foldable: bool = False):
+                 const_foldable: bool = False,
+                 infer_lod: object = "propagate"):
         self.type = type
         self.fn = fn
         self.inputs = tuple(inputs)
@@ -79,6 +90,7 @@ class OpInfo:
         self.grad = grad  # "auto" | None | maker(block, op, pending, finalize)
         self.needs_rng = needs_rng
         self.needs_lod = needs_lod
+        self.infer_lod = infer_lod  # "propagate" | None | callable
         self.side_effect = side_effect  # not pure (host ops, prints)
         self.host_fn = host_fn  # host_fn(executor, op, scope); no fn
         # a deterministic host op whose output depends only on its inputs:
@@ -150,14 +162,16 @@ def _ensure_ops_loaded():
 
 def register_op(type: str, inputs: Sequence[Slot], outputs: Sequence[Slot],
                 attrs: Optional[Dict] = None, grad: object = "auto",
-                needs_rng: bool = False, grad_fn: Optional[Callable] = None):
+                needs_rng: bool = False, grad_fn: Optional[Callable] = None,
+                needs_lod: bool = False, infer_lod: object = "propagate"):
     """Decorator: register ``fn(ins, attrs) -> outs`` as an operator, and
     its ``<type>_grad`` op when ``grad == "auto"``: the auto-VJP, or
     ``grad_fn(ins, attrs)`` over the same slots when given."""
 
     def deco(fn):
         info = OpInfo(type, fn, inputs, outputs, attrs, grad=grad,
-                      needs_rng=needs_rng)
+                      needs_rng=needs_rng, needs_lod=needs_lod,
+                      infer_lod=infer_lod)
         OpInfoMap.instance().insert(info)
         if grad == "auto":
             _register_auto_grad_for(info, grad_fn)
@@ -176,7 +190,7 @@ def register_host_op(type: str, inputs: Sequence[Slot],
     def deco(host_fn):
         OpInfoMap.instance().insert(OpInfo(
             type, None, inputs, outputs, attrs, grad=grad, side_effect=True,
-            host_fn=host_fn, const_foldable=const_foldable))
+            host_fn=host_fn, const_foldable=const_foldable, infer_lod=None))
         return host_fn
 
     return deco
@@ -208,7 +222,8 @@ def _register_auto_grad_for(info: OpInfo,
 
     OpInfoMap.instance().insert(OpInfo(
         grad_type, grad_fn or auto_vjp, grad_inputs, grad_outputs,
-        attrs=dict(info.attrs), grad=None, needs_rng=info.needs_rng))
+        attrs=dict(info.attrs), grad=None, needs_rng=info.needs_rng,
+        needs_lod=info.needs_lod, infer_lod=None))
     _AUTO_VJP_TYPES.add(grad_type)
 
 

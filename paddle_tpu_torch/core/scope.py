@@ -11,7 +11,7 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, List, Optional
 
-from .tensor import LoDTensor, LoDTensorArray
+from .tensor import LoDTensor, LoDTensorArray, SelectedRows
 
 
 class Variable:
@@ -30,6 +30,14 @@ class Variable:
             self._holder = LoDTensor()
         if not isinstance(self._holder, LoDTensor):
             raise TypeError("variable holds %s, not LoDTensor"
+                            % type(self._holder))
+        return self._holder
+
+    def get_selected_rows(self) -> SelectedRows:
+        if self._holder is None:
+            self._holder = SelectedRows()
+        if not isinstance(self._holder, SelectedRows):
+            raise TypeError("variable holds %s, not SelectedRows"
                             % type(self._holder))
         return self._holder
 

@@ -240,6 +240,22 @@ def infer_op_shapes(block: Block, op: Operator) -> None:
     info = OpInfoMap.instance().get(op.type)
     if info.fn is None:
         return
+    if info.needs_lod:
+        # a LoD op's output rows depend on the fed sequence lengths, which
+        # are runtime information: every output takes [-1, trailing dims
+        # of the first input], as in the JAX package
+        first = next((block._find_var_recursive(op.input(s.name)[0])
+                      for s in info.inputs if op.input(s.name)), None)
+        for slot in info.outputs:
+            for n in op.output(slot.name):
+                v = block._find_var_recursive(n)
+                if v is None:
+                    v = block.create_var(name=n)
+                if v.shape is None and first is not None \
+                        and first.shape is not None:
+                    v.shape = (-1,) + tuple(first.shape[1:])
+                v.op = op
+        return
 
     def meta_of(name):
         v = block.var(name)

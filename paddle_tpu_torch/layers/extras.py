@@ -1,7 +1,8 @@
 """``flash_attention`` (:960), ``gru_unit`` (:489), ``lstm_unit`` (:520),
-``Print`` (:760) and ``gather_tree`` (:782) of
-``paddle_tpu/layers/extras.py``: the same ops, slots, attrs and parameter
-names. ``flash_attention`` is fused attention over ``[B, H, S, D]``, the
+``Print`` (:760), ``gather_tree`` (:782), ``lod_reset`` (:606),
+``sequence_slice`` (:689), ``sequence_unpad`` (:703) and ``im2sequence``
+(:714) of ``paddle_tpu/layers/extras.py``: the same ops, slots, attrs and
+parameter names. ``flash_attention`` is fused attention over ``[B, H, S, D]``, the
 hand-written CUDA kernels on the card; ``lengths`` ([B] int) masks padded
 keys inside the kernel."""
 from __future__ import annotations
@@ -9,7 +10,8 @@ from __future__ import annotations
 from ..layer_helper import LayerHelper
 
 __all__ = ["flash_attention", "gru_unit", "lstm_unit", "Print",
-           "gather_tree"]
+           "gather_tree", "lod_reset", "sequence_slice", "sequence_unpad",
+           "im2sequence"]
 
 
 def flash_attention(q, k, v, causal=False, scale=0.0, lengths=None):
@@ -102,4 +104,67 @@ def gather_tree(ids, parents):
                      inputs={"Ids": [ids], "Parents": [parents]},
                      outputs={"Out": [out]}, infer_shape=False)
     out.shape = tuple(ids.shape)
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None):
+    """x's rows with a new LoD: Y's (its LoD, else its values) or
+    ``target_lod``."""
+    helper = LayerHelper("lod_reset", input=x)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.lod_level = 1
+    inputs = {"X": [x]}
+    attrs = {}
+    if y is not None:
+        inputs["Y"] = [y]
+    else:
+        attrs["target_lod"] = [int(v) for v in (target_lod or [])]
+    helper.append_op("lod_reset", inputs=inputs, outputs={"Out": [out]},
+                     attrs=attrs, infer_shape=False)
+    out.shape = tuple(x.shape)
+    return out
+
+
+def sequence_slice(input, offset, length, name=None):
+    helper = LayerHelper("sequence_slice", input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.lod_level = 1
+    out.shape = (-1,) + tuple(input.shape[1:])
+    helper.append_op("sequence_slice",
+                     inputs={"X": [input], "Offset": [offset],
+                             "Length": [length]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def sequence_unpad(x, length, name=None):
+    helper = LayerHelper("sequence_unpad", input=x)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.lod_level = 1
+    out.shape = (-1,) + tuple(x.shape[2:])
+    helper.append_op("sequence_unpad",
+                     inputs={"X": [x], "Length": [length]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    if input_image_size is not None:
+        raise NotImplementedError(
+            "im2sequence with per-sample input_image_size is not "
+            "supported (nor in the JAX package)")
+
+    def pair(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+    helper = LayerHelper("im2sequence", input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pads = pair(padding)
+    helper.append_op(
+        "im2sequence", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"kernels": pair(filter_size), "strides": pair(stride),
+               "paddings": pads * 2 if len(pads) == 2 else pads,
+               "out_stride": pair(out_stride)},
+        infer_shape=False)
     return out

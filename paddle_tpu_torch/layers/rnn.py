@@ -18,8 +18,12 @@ parameters once an instance, so every step shares them by name.
 ``[batch * beam, ...]``; its selection is ``topk`` over beam x vocab and
 its backtrace the ``gather_tree`` op.
 
-The LoD half, ``dynamic_lstm``, ``dynamic_gru`` and the ``beam_search`` /
-``beam_search_decode`` ops, waits for the LoD slice (ROADMAP.md).
+The LoD layers ``dynamic_lstm`` (:21) and ``dynamic_gru`` (:57) take the
+pre-projected rows ([T, size] for the LSTM, whose hidden width is size /
+4; [T, 3 * size] for the GRU) and emit one ``lstm`` / ``gru`` op each
+(``ops/rnn_ops.py``); their outputs keep the input's LoD. The LoD
+``beam_search`` / ``beam_search_decode`` ops are still to come
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -28,7 +32,72 @@ from collections import namedtuple as _namedtuple
 from ..layer_helper import LayerHelper
 
 __all__ = ["lstm", "StaticRNN", "RNNCell", "LSTMCell", "GRUCell", "rnn",
-           "Decoder", "BeamSearchDecoder", "dynamic_decode"]
+           "Decoder", "BeamSearchDecoder", "dynamic_decode", "dynamic_lstm",
+           "dynamic_gru"]
+
+
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=True, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None):
+    """The LoD LSTM over pre-projected [T, size] rows: (hidden, cell),
+    each [T, size / 4] with the input's LoD."""
+    helper = LayerHelper("lstm", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    d = size // 4
+    weight = helper.create_parameter(attr=helper.param_attr,
+                                     shape=[d, 4 * d], dtype=dtype)
+    bias = helper.create_parameter(
+        attr=helper.bias_attr,
+        shape=[1, 7 * d] if use_peepholes else [1, 4 * d], dtype=dtype,
+        is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input], "Weight": [weight], "Bias": [bias]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    if c_0 is not None:
+        inputs["C0"] = [c_0]
+    helper.append_op(
+        "lstm", inputs=inputs, outputs={"Hidden": [hidden], "Cell": [cell]},
+        attrs={"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+               "gate_activation": gate_activation,
+               "cell_activation": cell_activation,
+               "candidate_activation": candidate_activation},
+        infer_shape=False)
+    for v in (hidden, cell):
+        v.shape = tuple(input.shape[:-1]) + (d,)
+        v.lod_level = input.lod_level
+    return hidden, cell
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", h_0=None, origin_mode=False,
+                name=None):
+    """The LoD GRU over pre-projected [T, 3 * size] rows: hidden [T,
+    size] with the input's LoD."""
+    helper = LayerHelper("gru", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dtype = helper.input_dtype()
+    weight = helper.create_parameter(attr=helper.param_attr,
+                                     shape=[size, 3 * size], dtype=dtype)
+    bias = helper.create_parameter(attr=helper.bias_attr,
+                                   shape=[1, 3 * size], dtype=dtype,
+                                   is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input], "Weight": [weight], "Bias": [bias]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    helper.append_op(
+        "gru", inputs=inputs, outputs={"Hidden": [hidden]},
+        attrs={"activation": candidate_activation,
+               "gate_activation": gate_activation,
+               "is_reverse": is_reverse, "origin_mode": origin_mode},
+        infer_shape=False)
+    hidden.shape = tuple(input.shape[:-1]) + (size,)
+    hidden.lod_level = input.lod_level
+    return hidden
 
 
 def lstm(input, init_h, init_c, max_len, hidden_size, num_layers,

@@ -2,8 +2,10 @@
 ``clip_by_norm`` (:80), ``cast`` (:93), ``increment`` (:127) and
 ``squared_l2_norm`` (:138) of ``paddle_tpu/ops/math_ops.py``: ``scale`` is
 ``x * scale + bias``, or ``(x + bias) * scale`` under
-``bias_after_scale=False``, in x's type; ``sum`` adds its dense inputs in
-order (the backward's merge of partial grads); ``mean`` is the 0-d mean of
+``bias_after_scale=False``, in x's type; ``sum`` adds its inputs in
+order (the backward's merge of partial grads), over SelectedRows as the
+JAX op does: all sparse inputs concatenate their rows, a mix adds the
+sparse ones made dense; ``mean`` is the 0-d mean of
 every element; ``clip`` bounds x to [min, max]; ``clip_by_norm`` scales x
 by ``max_norm / ||x||`` where its L2 norm exceeds ``max_norm``; ``cast``
 converts to ``out_dtype``; ``increment`` adds ``step`` in x's type (the
@@ -20,6 +22,7 @@ import torch
 
 from ..core import dtypes as _dt
 from ..core.registry import In, Out, register_op
+from ..core.tensor import LoDTensor, SelectedRows
 
 
 @register_op(
@@ -53,6 +56,15 @@ def _scale(ins, attrs):
 )
 def _sum(ins, attrs):
     xs = [x for x in ins["X"] if x is not None]
+    if any(isinstance(x, SelectedRows) for x in xs):
+        if all(isinstance(x, SelectedRows) for x in xs):
+            # rows and values concatenated; duplicates add up when used
+            vals = torch.cat([x.get_tensor().array for x in xs])
+            return {"Out": SelectedRows(
+                rows=[r for x in xs for r in x.rows()],
+                height=xs[0].height(), value=LoDTensor(vals))}
+        xs = [x.to_dense() if isinstance(x, SelectedRows) else x
+              for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x

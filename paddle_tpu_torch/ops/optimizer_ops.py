@@ -14,7 +14,12 @@ re-bound through the same-named ``*Out`` outputs, so the executor's write
 back is the update. None is ever differentiated (``grad=None``).
 
 The per-parameter ops are the update math in plain torch, term for term
-as in JAX (they are no Pallas kernel there either). ``fused_optimizer``
+as in JAX (they are no Pallas kernel there either). A ``SelectedRows``
+grad (an ``is_sparse`` embedding's) updates only its rows under ``sgd``
+(``index_add``, :46-55), is made dense (duplicate rows summed) under
+``momentum``, ``adam`` (and ``adamw``, which runs it), ``adagrad`` and
+``rmsprop`` (``_maybe_densify_grad``,
+:33), and raises under the rest, as in the JAX package. ``fused_optimizer``
 applies one optimizer instance's update to all its parameters at once
 (``core/fusion.py`` builds it), in one of two layouts:
 
@@ -37,14 +42,31 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import In, Out, register_op
+from ..core.tensor import SelectedRows
 from .cuda.fused_optimizer import (fused_optimizer_update,
                                    fused_optimizer_update_reference)
 
 
-def _op(name, inputs, outputs, attrs, fn):
+def _op(name, inputs, outputs, attrs, fn, sparse=None):
+    """Register an update op. A ``SelectedRows`` grad (the embedding's
+    ``is_sparse`` grad) reaches ``fn`` as it is where ``sparse`` is
+    ``"rows"``, is made dense first where it is ``"densify"``, and raises
+    otherwise: the same ops take one as in the JAX package."""
+
+    def body(ins, attrs):
+        g = ins.get("Grad")
+        if isinstance(g, SelectedRows):
+            if sparse is None:
+                raise TypeError(
+                    "%s takes no SelectedRows grad (an is_sparse "
+                    "embedding's), as in the JAX package" % name)
+            if sparse == "densify":
+                ins = dict(ins, Grad=g.to_dense())
+        return fn(ins, attrs)
+
     register_op(name, inputs=[In(i) for i in inputs],
                 outputs=[Out(o) for o in outputs], attrs=attrs,
-                grad=None)(fn)
+                grad=None)(body)
 
 
 def _lr(ins):
@@ -52,10 +74,17 @@ def _lr(ins):
 
 
 def _sgd(ins, attrs):
-    return {"ParamOut": ins["Param"] - _lr(ins) * ins["Grad"]}
+    g = ins["Grad"]
+    if isinstance(g, SelectedRows):
+        # only the touched rows move; duplicate rows add up
+        vals = g.get_tensor().array
+        return {"ParamOut": ins["Param"].index_add(
+            0, g.rows_on(vals.device), -_lr(ins) * vals)}
+    return {"ParamOut": ins["Param"] - _lr(ins) * g}
 
 
-_op("sgd", ["Param", "Grad", "LearningRate"], ["ParamOut"], {}, _sgd)
+_op("sgd", ["Param", "Grad", "LearningRate"], ["ParamOut"], {}, _sgd,
+    sparse="rows")
 
 
 def _momentum(ins, attrs):
@@ -71,7 +100,8 @@ def _momentum(ins, attrs):
 _op("momentum", ["Param", "Grad", "Velocity", "LearningRate"],
     ["ParamOut", "VelocityOut"],
     {"mu": 0.9, "use_nesterov": False, "regularization_method": "",
-     "regularization_coeff": 0.0}, _momentum)
+     "regularization_coeff": 0.0}, _momentum,
+    sparse="densify")
 
 
 def _adam(ins, attrs):
@@ -96,7 +126,8 @@ _ADAM_OUT = ["ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
              "Beta2PowOut"]
 _op("adam", _ADAM_IN, _ADAM_OUT,
     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8, "lazy_mode": False,
-     "min_row_size_to_use_multithread": 1000}, _adam)
+     "min_row_size_to_use_multithread": 1000}, _adam,
+    sparse="densify")
 
 
 def _adamw(ins, attrs):
@@ -108,7 +139,7 @@ def _adamw(ins, attrs):
 
 _op("adamw", _ADAM_IN, _ADAM_OUT,
     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8, "weight_decay": 0.01},
-    _adamw)
+    _adamw, sparse="densify")
 
 
 def _lars_momentum(ins, attrs):
@@ -160,7 +191,8 @@ def _adagrad(ins, attrs):
 
 
 _op("adagrad", ["Param", "Grad", "Moment", "LearningRate"],
-    ["ParamOut", "MomentOut"], {"epsilon": 1e-6}, _adagrad)
+    ["ParamOut", "MomentOut"], {"epsilon": 1e-6}, _adagrad,
+    sparse="densify")
 
 
 def _decayed_adagrad(ins, attrs):
@@ -215,7 +247,8 @@ _op("rmsprop", ["Param", "Grad", "LearningRate", "Moment", "MeanSquare",
                 "MeanGrad"],
     ["ParamOut", "MomentOut", "MeanSquareOut", "MeanGradOut"],
     {"epsilon": 1e-10, "decay": 0.9, "momentum": 0.0, "centered": False},
-    _rmsprop)
+    _rmsprop,
+    sparse="densify")
 
 
 def _ftrl(ins, attrs):

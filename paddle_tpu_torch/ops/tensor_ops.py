@@ -13,7 +13,11 @@ Counterparts of ``fill_constant`` (:31), ``uniform_random`` (:69),
 W]``), with the same slots and attrs, and of
 ``lookup_table``'s grad maker and the dense ``lookup_table_grad`` and
 ``lookup_table_v2_grad`` (:631-677), whose scatter-add becomes
-``index_add_``. ``gather``'s auto-VJP grad is a
+``index_add_``; under ``is_sparse`` the grad maker emits the host op
+``lookup_table_sparse_grad`` (:715), whose W@GRAD is a ``SelectedRows``
+(rows the looked-up ids, values Out@GRAD's rows), and
+``merge_selected_rows`` (:983) sums a SelectedRows' duplicate rows.
+``gather``'s auto-VJP grad is a
 scatter-add too (autograd's ``index_select`` backward), so repeated
 indices sum. ``range`` is a host op, as in the JAX package (its output's
 length depends on its inputs' values). Creation
@@ -37,12 +41,14 @@ from __future__ import annotations
 import builtins
 import math
 
+import numpy as np
 import torch
 
 from ..core import dtypes as _dt
 from ..backward import bind_partial_grad
 from ..core.registry import (DEVICE_ATTR, GENERATOR_ATTR, In, Out,
                              register_host_op, register_op)
+from ..core.tensor import LoDTensor, SelectedRows
 
 
 @register_op(
@@ -169,19 +175,20 @@ def _wrap_ids(ids, rows):
 
 
 def _lookup_table_grad_maker(block, op, pending, finalize):
-    """Emit the dense ``lookup_table_grad`` op for W (the embedding's
-    ``is_sparse`` form, SelectedRows grads, comes with a later slice)."""
+    """W's grad: the dense ``lookup_table_grad`` op, or under
+    ``is_sparse`` the host op ``lookup_table_sparse_grad``, whose grad var
+    is typed ``selected_rows`` (so the fused optimizer pass leaves its
+    update alone)."""
     og = finalize(op.output("Out")[0])
     if og is None:
         return
-    if op.attrs.get("is_sparse"):
-        raise NotImplementedError(
-            "embedding(is_sparse=True) grads (SelectedRows) are not yet "
-            "ported (ROADMAP.md, queue 1)")
     w = op.input("W")[0]
     gname = bind_partial_grad(block, pending, w)
+    sparse = bool(op.attrs.get("is_sparse"))
+    if sparse:
+        block.var(gname).type = "selected_rows"
     block.append_op(
-        op.type + "_grad",
+        "lookup_table_sparse_grad" if sparse else op.type + "_grad",
         {"W": [w], "Ids": [op.input("Ids")[0]], "Out@GRAD": [og]},
         {"W@GRAD": [gname]},
         {"padding_idx": op.attrs.get("padding_idx", -1),
@@ -219,6 +226,53 @@ for _lt_gtype, _lt_v2 in (("lookup_table_grad", False),
         attrs={"padding_idx": -1, "is_v2": _lt_v2},
         grad=None,
     )(_lookup_table_grad)
+
+
+@register_host_op(
+    "lookup_table_sparse_grad",
+    inputs=[In("W", no_grad=True), In("Ids", no_grad=True),
+            In("Out@GRAD", no_grad=True)],
+    outputs=[Out("W@GRAD")],
+    attrs={"padding_idx": -1, "is_v2": False},
+)
+def _lookup_table_sparse_grad(executor, op, scope):
+    """W's grad as a SelectedRows: the looked-up ids as rows (read to the
+    host, where a SelectedRows keeps them) and Out@GRAD's rows as values,
+    without the rows read at ``padding_idx``; the values stay on the
+    device."""
+    w = executor._read_var(scope, op.input("W")[0])
+    ids = executor._read_var(scope, op.input("Ids")[0])
+    og = executor._read_var(scope, op.input("Out@GRAD")[0])
+    if not op.attrs.get("is_v2") and ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids[..., 0]
+    rows = ids.reshape(-1)
+    vals = og.reshape(-1, w.shape[-1]).to(w.dtype)
+    pad = op.attrs.get("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        keep = rows != pad
+        rows, vals = rows[keep], vals[keep]
+    executor._write_var(scope, op.output("W@GRAD")[0], SelectedRows(
+        rows=rows, height=int(w.shape[0]), value=LoDTensor(vals)))
+
+
+@register_host_op(
+    "merge_selected_rows",
+    inputs=[In("X", no_grad=True)],
+    outputs=[Out("Out")],
+)
+def _merge_selected_rows(executor, op, scope):
+    """A SelectedRows with each row once, duplicates summed."""
+    sr = scope.find_var(op.input("X")[0]).raw()
+    if not isinstance(sr, SelectedRows):
+        raise TypeError("merge_selected_rows expects SelectedRows input")
+    vals = sr.get_tensor().array
+    uniq, inv = np.unique(np.asarray(sr.rows(), dtype=np.int64),
+                          return_inverse=True)
+    merged = torch.zeros((len(uniq),) + tuple(vals.shape[1:]),
+                         dtype=vals.dtype, device=vals.device).index_add_(
+        0, torch.from_numpy(inv.reshape(-1)).to(vals.device), vals)
+    scope.var(op.output("Out")[0]).set(SelectedRows(
+        rows=uniq.tolist(), height=sr.height(), value=LoDTensor(merged)))
 
 
 @register_op(

@@ -77,6 +77,14 @@ encoder's tape launches K1/K2/K3 once each per layer a step, eager and
 lazy; a narrow encoder trained lazily on the card agrees with the CPU
 within 1e-4.
 
+LoD on the card (slice 15): each LoD op and its grad (sequence_pool MAX
+over ties, sequence_conv with trainable padding, lstm, gru, the padded
+twins) gives its CPU result within 1e-5 of scale; an ``is_sparse``
+embedding's SelectedRows grad has the CPU's rows and values and its sgd
+the CPU's table; a lowered LoD program (convolution_net's shape) is
+captured once for a bucket, declines nothing and gives the card
+interpreter's losses within 1e-5 relative.
+
 The training recipe on the card (slice 13): a scheduled learning rate
 advances across the replays of one captured graph (its step counters are
 state buffers) and gives the CPU's rates within 1e-6; K4 reads a rate
@@ -1924,3 +1932,170 @@ def test_beam_decode_at_batch_8_on_the_card_gives_the_cpu_ids(cuda):
         np.testing.assert_allclose(card[1], res["cpu"][0][1], rtol=0,
                                    atol=1e-5 * max(1.0, float(np.abs(
                                        res["cpu"][0][1]).max())))
+
+
+# -- slice 15: LoD, sparse embeddings and the LoD lowering --------------
+
+_LENS15 = [3, 1, 7, 2, 5]
+
+
+def _slice15_cases():
+    g = np.random.RandomState(15)
+    f = lambda *s: g.randn(*s).astype("float32")  # noqa: E731
+    lod = ((tuple(int(v) for v in np.cumsum([0] + _LENS15)),),)
+    rows = sum(_LENS15)
+    ties = g.randint(-2, 3, (rows, 4)).astype("float32")
+    n = len(_LENS15)
+    lens = np.array(_LENS15, "int64")
+    # case -> (op, inputs, attrs, the output whose grad is pulled back)
+    return {
+        "sequence_pool_max_ties": (
+            "sequence_pool", {"X": ties},
+            {"pooltype": "MAX", "_lod_X": lod}, "Out"),
+        "sequence_pool_sqrt": (
+            "sequence_pool", {"X": f(rows, 4)},
+            {"pooltype": "SQRT", "_lod_X": lod}, "Out"),
+        "sequence_softmax": (
+            "sequence_softmax", {"X": f(rows, 1)}, {"_lod_X": lod}, "Out"),
+        "sequence_expand_as": (
+            "sequence_expand_as", {"X": f(n, 4), "Y": f(rows, 1)},
+            {"_lod_Y": lod}, "Out"),
+        "sequence_pad": (
+            "sequence_pad", {"X": f(rows, 4), "PadValue": f(1)},
+            {"_lod_X": lod, "padded_length": 8}, "Out"),
+        "sequence_conv": (
+            "sequence_conv",
+            {"X": f(rows, 4), "Filter": f(12, 5), "PaddingData": f(2, 4)},
+            {"_lod_X": lod, "paddingTrainable": True}, "Out"),
+        "lstm": (
+            "lstm", {"Input": f(rows, 16), "Weight": f(4, 16) * 0.5,
+                     "Bias": f(1, 28) * 0.5},
+            {"_lod_Input": lod, "is_reverse": True}, "Hidden"),
+        "gru": (
+            "gru", {"Input": f(rows, 12), "Weight": f(4, 12) * 0.5,
+                    "Bias": f(1, 12)},
+            {"_lod_Input": lod, "origin_mode": True}, "Hidden"),
+        "sequence_pool_padded": (
+            "sequence_pool_padded", {"X": f(n, 8, 4), "Length": lens},
+            {"pooltype": "MAX"}, "Out"),
+        "sequence_conv_padded": (
+            "sequence_conv_padded",
+            {"X": f(n, 8, 4), "Filter": f(12, 5), "Length": lens}, {},
+            "Out"),
+    }
+
+
+@pytest.mark.parametrize("op_type", sorted(_slice15_cases()))
+def test_slice15_lod_op_on_the_card_gives_its_cpu_result(cuda, op_type):
+    """A LoD op and its grad op (whose ``_lod_<slot>`` attrs are its
+    forward's) on the card against the CPU, within 1e-5 of scale."""
+    name, ins, attrs, grad_of = _slice15_cases()[op_type]
+    want = _op_on(torch.device("cpu"), name, ins, attrs, grad_of)
+    got = _op_on(cuda, name, ins, attrs, grad_of)
+    assert sorted(got) == sorted(want) and len(want) >= 2
+    for k in want:
+        scale = max(float(want[k].abs().max()), 1.0)
+        torch.testing.assert_close(got[k], want[k], rtol=0,
+                                   atol=1e-5 * scale)
+
+
+def _sparse_sgd_program():
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.data(name="ids", shape=[-1, 1], dtype="int64",
+                         lod_level=1)
+        lab = fluid.data(name="lab", shape=[-1, 1], dtype="int64")
+        emb = fluid.layers.embedding(ids, size=[50, 8], is_sparse=True,
+                                     param_attr=fluid.ParamAttr(name="t_emb"))
+        pooled = fluid.layers.sequence_pool(emb, "sum")
+        pred = fluid.layers.fc(pooled, size=3, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, lab))
+        fluid.optimizer.SGD(learning_rate=0.5).minimize(loss)
+    return main, startup, loss
+
+
+def test_selected_rows_grad_and_its_sgd_on_the_card(cuda):
+    """The sparse grad's rows are the ids on both sides, its values and
+    the updated table within 1e-5 of scale (duplicate rows sum by
+    atomics on the card)."""
+    g = np.random.RandomState(5)
+    lens = [4, 6, 1, 9]
+    feeds = [{"ids": fluid.create_lod_tensor(
+        g.randint(0, 7, (sum(lens), 1)).astype("int64"), [lens]),
+        "lab": g.randint(0, 3, (4, 1)).astype("int64")} for _ in range(3)]
+    res, init = {}, None
+    for side, place in (("cpu", fluid.CPUPlace()),
+                        ("card", fluid.CUDAPlace(0))):
+        main, startup, loss = _sparse_sgd_program()
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        if init is None:
+            exe.run(startup, scope=scope)
+            init = _persistables(main, scope)
+        else:
+            fluid.io.scope_from_numpy(scope, init, place)
+        out = []
+        for feed in feeds:
+            exe.run(main, feed=feed, fetch_list=[loss, "t_emb@GRAD"],
+                    scope=scope)
+            sr = scope.find_var("t_emb@GRAD").raw()
+            assert sr.get_tensor().array.device.type == place.device().type
+            out.append((list(sr.rows()), sr.get_tensor().numpy(),
+                        sr.to_dense().cpu().numpy()))
+        res[side] = (out, scope.find_var("t_emb").get_tensor().numpy())
+    for (rc, vc, dc), (rg, vg, dg) in zip(res["cpu"][0], res["card"][0]):
+        assert rg == rc
+        np.testing.assert_allclose(vg, vc, rtol=0, atol=1e-5 * max(
+            1.0, np.abs(vc).max()))
+        np.testing.assert_allclose(dg, dc, rtol=0, atol=1e-5 * max(
+            1.0, np.abs(dc).max()))
+    np.testing.assert_allclose(res["card"][1], res["cpu"][1], rtol=0,
+                               atol=1e-5 * max(1.0, np.abs(
+                                   res["cpu"][1]).max()))
+
+
+def _lowered_conv_program():
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.data(name="ids", shape=[-1, 1], dtype="int64",
+                         lod_level=1)
+        lab = fluid.data(name="lab", shape=[-1, 1], dtype="int64")
+        emb = fluid.layers.embedding(ids, size=[40, 8])
+        pools = [fluid.nets.sequence_conv_pool(emb, num_filters=6,
+                                               filter_size=k, act="tanh",
+                                               pool_type="sqrt")
+                 for k in (3, 4)]
+        pred = fluid.layers.fc(pools, size=2, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, lab))
+        fluid.optimizer.AdagradOptimizer(0.05).minimize(loss)
+    return main, startup, loss
+
+
+def test_a_lowered_lod_program_is_captured_on_the_card(cuda):
+    """convolution_net's shape with a dense embedding grad: one lowered
+    clone, one capture for the batches of one bucket (their lengths
+    differ: a feed, never a constant of the graph), zero declines, and the
+    card interpreter's losses within 1e-5 relative."""
+    g = np.random.RandomState(6)
+    feeds = []
+    for _ in range(4):
+        lens = g.randint(9, 17, 6).tolist()  # all in the 16 bucket
+        feeds.append({"ids": fluid.create_lod_tensor(
+            g.randint(0, 40, (sum(lens), 1)).astype("int64"), [lens]),
+            "lab": g.randint(0, 2, (6, 1)).astype("int64")})
+    main, startup, loss = _lowered_conv_program()
+    exe = fluid.Executor()
+    scope, scope2 = fluid.Scope(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = _persistables(main, scope)
+    fluid.io.scope_from_numpy(scope2, init, fluid.CUDAPlace(0))
+    ce.reset_counters()
+    lowered = [float(np.asarray(exe.run(main, feed=f, fetch_list=[loss],
+                                        scope=scope)[0]).reshape(-1)[0])
+               for f in feeds]
+    c = ce.counters()
+    assert (c["lod_lowering.lowered"], c["lod_lowering.declines"],
+            c["executor.compile_fallbacks"], c["executor.jit_traces"]) == \
+        (1, 0, 0, 1), (c, ce.declines())
+    interp = [float(np.asarray(exe._core.run_program(
+        main, scope2, f, [loss])[0]).reshape(-1)[0]) for f in feeds]
+    np.testing.assert_allclose(lowered, interp, rtol=1e-5, atol=0)

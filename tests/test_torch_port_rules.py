@@ -148,3 +148,54 @@ def test_recurrent_and_control_flow_modules_import_no_jax():
     res = subprocess.run([sys.executable, "-c", _IMPORT_RECURRENT], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+_IMPORT_LOD = r"""
+import sys
+from paddle_tpu_torch.core import lod_lowering, tensor  # noqa: F401
+from paddle_tpu_torch.ops import lod_utils, sequence_ops  # noqa: F401
+import paddle_tpu_torch as fluid
+for name in ("sequence_pool", "sequence_conv", "sequence_enumerate",
+             "sequence_erase", "sequence_first_step", "sequence_last_step",
+             "sequence_softmax", "sequence_expand", "sequence_expand_as",
+             "sequence_pad", "sequence_unpad", "sequence_reshape",
+             "sequence_concat", "sequence_slice", "im2sequence", "lod_reset",
+             "dynamic_lstm", "dynamic_gru"):
+    assert hasattr(fluid.layers, name), name
+for name in ("create_lod_tensor", "create_random_int_lodtensor",
+             "DataFeeder", "nets", "lod_tensor"):
+    assert hasattr(fluid, name), name
+assert hasattr(fluid.nets, "sequence_conv_pool")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+assert not bad, bad
+"""
+
+_LOD_MODULES = ("core/tensor.py", "core/registry.py", "core/executor_core.py",
+                "core/lod_lowering.py", "executor.py", "ops/lod_utils.py",
+                "ops/sequence_ops.py", "ops/tensor_ops.py",
+                "ops/optimizer_ops.py", "ops/math_ops.py",
+                "layers/sequence_lod.py", "layers/extras.py", "nets.py",
+                "lod_tensor.py", "data_feeder.py")
+
+
+def test_lod_and_sparse_modules_name_no_jax():
+    """The modules of the LoD and SelectedRows slice name neither jax nor
+    the JAX package in an import line, and say nothing is still to come
+    that this slice brought."""
+    for module in _LOD_MODULES:
+        with open(os.path.join(REPO, "paddle_tpu_torch", module)) as f:
+            text = f.read()
+        imports = [ln.strip() for ln in text.splitlines()
+                   if ln.strip().startswith(("import ", "from "))]
+        assert not [ln for ln in imports
+                    if ln.split()[1].split(".")[0] in (
+                        "jax", "jaxlib", "paddle_tpu")], (module, imports)
+        assert "later slice" not in text, module
+
+
+def test_lod_and_sparse_modules_import_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _IMPORT_LOD], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
