@@ -16,7 +16,9 @@ global-norm clip, a warm-up over a linear decay), ResNet-50 (Momentum, L2
 decay, a piecewise rate) and gpt_long under recompute, PaddleNLP's
 seq2seq base model (training and beam decoding), While loops trained
 through while_grad and the Fluid book's understand_sentiment nets over
-LoD input with sparse embedding grads, and holds each
+LoD input with sparse embedding grads, five more book chapters saved
+and served from the reference's protobuf format, BERT-base served from
+it, and a gpt_long checkpoint resumed, and holds each
 hand-written CUDA kernel against its plain PyTorch version on the card.
 Serving and the training paths run through ``Executor.run``'s default
 route, which runs a program's first step eagerly, captures the second
@@ -401,18 +403,57 @@ lines each:
    the table's sgd op apart) and Adagrad, the SelectedRows rows equal and
    values within 1e-5; a SelectedRows holding an inf under
    FLAGS_check_nan_inf raises EnforceNotMet;
-46. one JSON line {"kernels": [...]} with each kernel's launches on the
-   main paths (by path beside, the dygraph, recipe, seq2seq, while and
-   sentiment paths too), error, times and bound;
-47. the last line: {"ok": true, "device": {...}}.
+46. the Fluid book (models/book.py at the book's widths over the
+   published tables, bench.py's knobs set): fit_a_line and
+   machine_translation on this package's dataset readers, word2vec
+   (PTB's 2073 words), recommender_system (MovieLens-1M's 6040 users and
+   3952 movies) and label_semantic_roles (CoNLL-05's 44068 words, 3162
+   verbs and 59 labels, sentences of 32 words) on seeded ids over those
+   tables; each on a new card executor (K7 once), 20 steps through
+   Executor.run's default route cycling through 4 batches and a profiled
+   21st (one capture, K4 exactly 21 launches, the losses finite and each
+   batch's falling from its first visit to its last); then its inference
+   model (machine_translation's beam-2 decoder over 8 steps, whose new cells'
+   parameters join the trained scope; label_semantic_roles' test program
+   with crf_decoding and chunk_eval) saved in the protobuf format twice,
+   one tensor file a var and __model__ + a combined __params__, each
+   loaded by create_paddle_predictor(AnalysisConfig(dir)) with
+   set_prog_file / set_params_file on the card and answering one batch,
+   which must equal the program's clone(for_test=True) on the same batch
+   and scope bitwise (or within 1e-6 relative where a float attribute's
+   float32 rounding on the wire moved a value; the phase names it): step
+   time, examples/s, idle share, save ms and bytes, load ms, K4;
+47. BERT-base (phase 4's model and requests) saved as __model__ + a
+   combined __params__ and as JSON, each loaded into a predictor on the
+   card; both answer the 256 requests one at a time and every protobuf
+   answer must be the JSON one's (as phase 46); K1 exactly 12 x 256 on
+   the protobuf predictor; save and load seconds, bytes and MB/s;
+48. gpt_long's float32 program (phase 7's, about 1.0 GB of persistables
+   with Adam's flat state): two uninterrupted runs of 3 steps from one
+   seed, the first with a save_checkpoint after steps 1 and 2; in a fresh
+   scope on a new executor, load_checkpoint and the same third step:
+   every loaded persistable equal to the saved one bitwise, the third
+   step's loss bitwise, every persistable after it bitwise slice by slice
+   (a flat optimizer var by its layout's per-parameter offsets), or within
+   RESUME_RTOL of the slice's scale where the two uninterrupted runs'
+   first steps already differ (atomic adds); a flipped byte in the
+   newest checkpoint raises CheckpointCorrupt and load_latest falls back
+   to step 1; save and load seconds and GB/s; the temporary directories
+   are deleted;
+49. one JSON line {"kernels": [...]} with each kernel's launches on the
+   main paths (by path beside, the dygraph, recipe, seq2seq, while,
+   sentiment, book_*, bert_proto and checkpoint paths too), error, times
+   and bound;
+50. the last line: {"ok": true, "device": {...}}.
 
 Phases 43-45 run the book's scripts as the book does, with those knobs
 unset (phase 45 sets PADDLE_TPU_FUSED_OPTIMIZER for its SGD twins). Every
-training phase (7, 10, 16, 17, 20-23, 27, 34-37 and 39) sets bench.py's
-three knobs as its _enable_fast_paths does (PADDLE_TPU_FUSED_OPTIMIZER,
-PADDLE_TPU_FUSED_EPILOGUE and PADDLE_TPU_ASYNC_FEED, each unless already
-set), so it runs the program bench.py runs: after the epilogue pass and
-the optimizer pass. Each prints its op count after both passes and its
+training phase (7, 10, 16, 17, 20-23, 27, 34-37, 39, 46 and 48) sets
+bench.py's three knobs as its _enable_fast_paths does
+(PADDLE_TPU_FUSED_OPTIMIZER, PADDLE_TPU_FUSED_EPILOGUE and
+PADDLE_TPU_ASYNC_FEED, each unless already set), so it runs the program
+bench.py runs: after the epilogue pass and the optimizer pass. Each
+prints its op count after both passes and its
 fused_bias_act and fused_residual_layer_norm ops, which must be the JAX
 package's pass's counts (float32 / AMP: gpt_long 2+4 / 0, ResNet-50 16 /
 16, WMT 12+32 / 0+2, BERT 12+25 / 0+1, Wide&Deep 2). The twins (phases
@@ -6243,6 +6284,521 @@ def check_nan_inf_sparse(fluid):
         exe.close()
 
 
+# -- phases 46-48: save, load and the Fluid book ------------------------------
+
+# the Fluid 1.7 book scripts' widths (python/paddle/fluid/tests/book/)
+# over the published tables (book.PUBLISHED); where test_book.py's
+# structure differs, test_book.py's is run (PERF.md section 4 lists each
+# cut). label_semantic_roles: SGD at the book's 0.01 (its exponential
+# decay halves it only after 100,000 steps), sentences of 32 words.
+BOOK = {
+    "fit_a_line": dict(batch=20, lr=0.001),
+    "word2vec": dict(batch=32, embed=32, hidden=256, lr=0.001,
+                     optimizer="sgd"),
+    "recommender_system": dict(batch=256, uid_embed=32, feat_embed=16,
+                               mov_embed=32, hidden=200, act="tanh"),
+    "machine_translation": dict(batch=16, seq=8, vocab=30000, embed=16,
+                                hidden=32),
+    "label_semantic_roles": dict(batch=10, seq=32, embed=32, mark=5,
+                                 hidden=512, lr=0.01),
+}
+MT_BEAM = 2
+BOOK_STEPS = 20
+BOOK_POOL = 4      # batches a chapter cycles through, each seen 5 times
+ATTR_RTOL = 1e-6   # where a float attribute's float32 rounding moves a value
+CKPT_STEPS = 2     # gpt_long steps before the checkpoint
+# a slice of gpt_long's state that one step from one state gives in
+# other bits (the embedding table and its Adam moments: its grad sums by
+# atomic adds) is held after a resumed step within this share of its
+# scale: about 8x the largest such gap read on an H100, where two
+# uninterrupted runs' first steps differed there by 7.3e-08 to 1.27e-07
+RESUME_RTOL = 1e-6
+
+
+def rounded_float_attrs(program):
+    """(op type, attr) of every float attribute whose float32 value, the
+    one the protobuf format keeps, is another number."""
+    out = set()
+    for b in program.blocks:
+        for op in b.ops:
+            for k, v in op.attrs.items():
+                vs = v if isinstance(v, (list, tuple)) else [v]
+                if any(isinstance(x, float) and float(np.float32(x)) != x
+                       for x in vs) and not k.startswith("_"):
+                    out.add("%s.%s" % (op.type, k))
+    return sorted(out)
+
+
+def same_answers(phase, what, got, want, rounded):
+    """Bitwise, or within ATTR_RTOL of each output's scale where the saved
+    program holds a float attribute that float32 rounding moved."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise RuntimeError("phase %d %s: %s %s against %s %s"
+                               % (phase, what, g.shape, g.dtype, w.shape,
+                                  w.dtype))
+        if np.array_equal(g, w, equal_nan=True):
+            continue
+        if not rounded or not np.issubdtype(w.dtype, np.floating):
+            raise RuntimeError("phase %d %s: the answers differ in their "
+                               "bits (no float attribute was rounded)"
+                               % (phase, what))
+        gap = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+        worst = max(worst, gap)
+        if gap > ATTR_RTOL:
+            raise RuntimeError("phase %d %s: %.3g relative, over %g (rounded "
+                               "attributes %s)" % (phase, what, gap,
+                                                   ATTR_RTOL, rounded))
+    return "bitwise" if worst == 0.0 else "within %.3g (rounded %s)" % (
+        worst, ", ".join(rounded))
+
+
+def dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def save_and_serve(fluid, phase, name, exe, scope, prog, feed_names, targets,
+                   feed, tmp):
+    """Save ``prog``'s inference model in the protobuf format twice (one
+    tensor file a var; ``__model__`` + a combined ``__params__``), load
+    each through ``create_paddle_predictor`` into its own scope on the
+    card, and hold each answer to ``prog.clone(for_test=True)`` on the
+    same batch and scope."""
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+
+    want = exe.run(prog.clone(for_test=True), feed=feed,
+                   fetch_list=targets, scope=scope)
+    sub = {k: feed[k] for k in feed_names}
+    rounded = rounded_float_attrs(prog)
+    out = {}
+    for form, params in (("separate", None), ("combined", "__params__")):
+        d = os.path.join(tmp, "%s_%s" % (name, form))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(d, feed_names, targets, exe,
+                                          main_program=prog,
+                                          model_filename="__model__",
+                                          params_filename=params)
+        t_save = time.perf_counter() - t0
+        cfg = AnalysisConfig(d)
+        cfg.set_prog_file("__model__")
+        cfg.set_params_file(params)
+        t0 = time.perf_counter()
+        pred = create_paddle_predictor(cfg)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        if pred.device.type != "cuda":
+            raise RuntimeError("phase %d: the predictor is on %s"
+                               % (phase, pred.device))
+        got = [t.data for t in pred.run(sub)]
+        out[form] = {"save_ms": t_save * 1e3, "load_ms": t_load * 1e3,
+                     "bytes": dir_bytes(d), "files": len(os.listdir(d)),
+                     "answer": same_answers(phase, "%s %s" % (name, form),
+                                            got, want, rounded)}
+        pred._exe.close()
+    return out
+
+
+def book_train(fluid, support, name, chapter, feeds, exe, scope):
+    """BOOK_STEPS steps of ``chapter`` through Executor.run's default
+    route, cycling through the BOOK_POOL batches ``feeds``, then a profile
+    of one more: (losses, step ms of the replays, idle share). Each
+    batch's loss must fall from its first visit to its last."""
+    losses, times = [], []
+    for i in range(BOOK_STEPS):
+        feed = feeds[i % BOOK_POOL]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (l,) = exe.run(chapter.main, feed=feed, fetch_list=[chapter.loss],
+                       scope=scope)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(l).reshape(-1)[0]))
+    wall_ms, busy_ms, _ = profile_step(lambda: exe.run(
+        chapter.main, feed=feeds[BOOK_STEPS % BOOK_POOL],
+        fetch_list=[chapter.loss], scope=scope))
+    first, last = losses[:BOOK_POOL], losses[-BOOK_POOL:]
+    if not (np.isfinite(losses).all()
+            and all(b < a for a, b in zip(first, last))):
+        raise RuntimeError("phase 46 %s: losses did not fall: %s"
+                           % (name, losses))
+    return losses, float(np.median(times[2:])), idle(wall_ms, busy_ms)
+
+
+def phase_book(fluid, support):
+    """Phase 46: five chapters of the Fluid book at the book's widths over
+    the published tables, with bench.py's knobs set, 20 steps each, then
+    their inference models saved in the protobuf format and answered by
+    predictors on the card. fit_a_line and machine_translation read this
+    package's dataset readers, whose tables are the published ones; the
+    other three draw seeded ids over the published tables, which their
+    offline readers' small dictionaries do not fill."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+    from paddle_tpu_torch.models import book
+
+    bench_fast_paths()
+    counts_by_path, runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, cfg in BOOK.items():
+            np.random.seed(SEED + 80)
+            cfg = dict(cfg, **book.PUBLISHED.get(name, {}))
+            chapter = book.CHAPTERS[name](fluid, **cfg)
+            if name in book.PUBLISHED:
+                feeds = book.seeded_batches(
+                    name, BOOK_POOL, np.random.RandomState(SEED + 80), cfg)
+            else:
+                feeds = list(book.batches(
+                    name, cfg["batch"], seq=cfg.get("seq"),
+                    vocab=cfg.get("vocab", 30)))[:BOOK_POOL]
+            support.reset_launch_counts()
+            ce.reset_counters()
+            exe, scope = new_card_executor(fluid, support), fluid.Scope()
+            exe.run(chapter.startup, scope=scope)
+            losses, step_ms, idle_share = book_train(
+                fluid, support, name, chapter, feeds, exe, scope)
+            counts = support.launch_counts()
+            c = ce.counters()
+            if counts.get("fused_optimizer_update", 0) != BOOK_STEPS + 1:
+                raise RuntimeError("phase 46 %s: K4 ran %s times in %d steps"
+                                   % (name, counts.get(
+                                       "fused_optimizer_update"),
+                                      BOOK_STEPS + 1))
+            check_one_capture("phase 46 " + name, c)
+            prog, feed_names, targets = (chapter.infer or chapter.main,
+                                         chapter.feed_names, chapter.targets)
+            feed = feeds[0]
+            if name == "machine_translation":
+                prog, dstartup, ids = book.mt_decode(
+                    fluid, beam=MT_BEAM, **{k: cfg[k] for k in (
+                        "batch", "seq", "vocab", "embed", "hidden")})
+                dscope = fluid.Scope()
+                exe.run(dstartup, scope=dscope)
+                for n in dscope.local_var_names():  # the new cells' params
+                    if scope.find_var(n) is None:
+                        scope.var(n).set(dscope.find_var(n).raw())
+                feed_names, targets = ["src"], [ids]
+            served = save_and_serve(fluid, 46, name, exe, scope, prog,
+                                    feed_names, targets, feed, tmp)
+            exe.close()
+            counts_by_path["book_" + name] = counts
+            runs[name] = {"step_ms": step_ms,
+                          "examples_per_s": cfg["batch"] / step_ms * 1e3,
+                          "idle_share": idle_share,
+                          "k4": counts.get("fused_optimizer_update", 0),
+                          "loss_first": losses[0], "loss_last": losses[-1],
+                          **{"%s_%s" % (form, k): v
+                             for form, r in served.items()
+                             for k, v in r.items()}}
+            log("phase 46 %s (%s): %d steps, losses %.5f -> %.5f, step "
+                "%.3f ms (median of the replays), %.1f examples/s, idle "
+                "share %s, K4 %d; saved one file a var %.1f ms %d bytes "
+                "(%d files), loaded %.1f ms, answer %s; saved combined %.1f "
+                "ms %d bytes, loaded %.1f ms, answer %s; card %s"
+                % (name, json.dumps(cfg), BOOK_STEPS + 1, losses[0],
+                   losses[-1], step_ms, cfg["batch"] / step_ms * 1e3,
+                   idle_share, runs[name]["k4"],
+                   served["separate"]["save_ms"], served["separate"]["bytes"],
+                   served["separate"]["files"], served["separate"]["load_ms"],
+                   served["separate"]["answer"], served["combined"]["save_ms"],
+                   served["combined"]["bytes"], served["combined"]["load_ms"],
+                   served["combined"]["answer"], card_line()))
+    return counts_by_path, runs
+
+
+def phase_bert_proto(fluid, support):
+    """Phase 47: phase 4's BERT-base saved by the port as ``__model__`` +
+    a combined ``__params__`` and as JSON, loaded into two predictors,
+    each answering phase 4's 256 requests one at a time; every answer of
+    the protobuf-format predictor must be the JSON one's."""
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+
+    np.random.seed(SEED)
+    torch.manual_seed(SEED)
+    reqs = make_requests(np.random.RandomState(SEED))
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = fluid.data(name="src_ids", shape=[-1, SEQ_LEN], dtype="int64")
+        pos = fluid.data(name="pos_ids", shape=[-1, SEQ_LEN], dtype="int64")
+        lens = fluid.data(name="lengths", shape=[-1], dtype="int32")
+        enc = fluid.models.transformer.transformer_encoder(
+            src, pos, is_test=True, src_lengths=lens, **BERT)
+    feeds = ["src_ids", "pos_ids", "lengths"]
+    rounded = rounded_float_attrs(main)
+    with tempfile.TemporaryDirectory() as tmp:
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        jd, pd = os.path.join(tmp, "json"), os.path.join(tmp, "proto")
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(jd, feeds, [enc], exe,
+                                          main_program=main)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fluid.io.save_inference_model(pd, feeds, [enc], exe,
+                                          main_program=main,
+                                          model_filename="__model__",
+                                          params_filename="__params__")
+            t_save = time.perf_counter() - t0
+        exe.close()
+        del scope
+        nbytes = dir_bytes(pd)
+        answers = {}
+        for form, d in (("json", jd), ("proto", pd)):
+            cfg = AnalysisConfig(d)
+            if form == "proto":
+                cfg.set_prog_file("__model__")
+                cfg.set_params_file("__params__")
+            support.forget_probes()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred = create_paddle_predictor(cfg)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            support.reset_launch_counts()
+            t0 = time.perf_counter()
+            answers[form] = [pred.run(r)[0].data for r in reqs]
+            t_serve = time.perf_counter() - t0
+            counts = support.launch_counts()
+            pred._exe.close()
+            del pred
+            torch.cuda.empty_cache()
+            if form == "proto":
+                proto_counts, proto_load, proto_serve = counts, t_load, \
+                    t_serve
+    want = BERT["num_layers"] * N_REQUESTS
+    if proto_counts.get("flash_attention_forward", 0) != want:
+        raise RuntimeError("phase 47: K1 ran %s times, want 12 x %d = %d"
+                           % (proto_counts.get("flash_attention_forward"),
+                              N_REQUESTS, want))
+    verdict = set()
+    for i, (got, ref) in enumerate(zip(answers["proto"], answers["json"])):
+        if not np.isfinite(got).all():
+            raise RuntimeError("phase 47: request %d is not finite" % i)
+        verdict.add(same_answers(47, "request %d" % i, [got], [ref],
+                                 rounded))
+    run = {"save_s": t_save, "load_s": proto_load, "bytes": nbytes,
+           "save_mb_per_s": nbytes / t_save / 1e6,
+           "load_mb_per_s": nbytes / proto_load / 1e6,
+           "serve_s": proto_serve, "k1": proto_counts.get(
+               "flash_attention_forward", 0),
+           "answers": sorted(verdict)}
+    log("phase 47 BERT-base as __model__ + __params__ (%d bytes): saved in "
+        "%.3f s (%.1f MB/s), loaded by a predictor in %.3f s (%.1f MB/s); "
+        "%d requests one at a time in %.2f s, K1 %d (12 a dispatch); "
+        "answers against the JSON-format predictor's: %s; rounded float "
+        "attributes %s; card %s"
+        % (nbytes, t_save, run["save_mb_per_s"], proto_load,
+           run["load_mb_per_s"], N_REQUESTS, proto_serve, run["k1"],
+           ", ".join(sorted(verdict)), rounded or "none", card_line()))
+    return proto_counts, run
+
+
+def scope_snapshot(scope, names):
+    return {n: scope.find_var(n).get_tensor().array.detach().clone()
+            for n in names}
+
+
+def flat_members(program, name, numel):
+    """[(member, start, stop)] of persistable ``name``: the per-parameter
+    slices of a flat optimizer var at the offsets of the program's flat
+    layout, its padding last; any other var whole."""
+    layout = getattr(program, "_sharded_flat_layout", None) or {}
+    if name not in layout:
+        return [(name, 0, numel)]
+    srcs, total, padded, _, _ = layout[name]
+    blk, out, at = program.global_block(), [], 0
+    for sn in srcs:
+        size = int(np.prod(blk.var(sn).shape))
+        out.append((sn, at, at + size))
+        at += size
+    if at != total or padded != numel:
+        raise RuntimeError("phase 48: %s's layout covers %d of %d (padded "
+                           "%d, the tensor %d)" % (name, at, total, padded,
+                                                   numel))
+    return out + [(name + ".padding", total, padded)]
+
+
+def slice_gap(a, b):
+    """max |a - b| over max |a|, the slice's scale."""
+    return float((a - b).abs().max() / a.abs().max().clamp(min=1e-30))
+
+
+def gpt_long_run(fluid, support, cfg, feed, steps, root=None):
+    """gpt_long's float32 program from its seeded startup on a new card
+    executor, ``steps`` steps; with ``root``, a save_checkpoint after each
+    of the first CKPT_STEPS. Returns (program, loss var, persistable
+    names, the startup's persistables, the persistables after the first
+    step, the checkpoint's directory, the persistables it holds, the last
+    step's loss, the persistables after it, the last save's seconds)."""
+    from paddle_tpu_torch import checkpoint as ck
+    from paddle_tpu_torch.models import gpt
+
+    main, startup, loss, _ = gpt.build_gpt_long(**cfg, seed=SEED + 1,
+                                                use_bf16=False)
+    exe, scope = new_card_executor(fluid, support), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = scope_snapshot(scope, sorted(
+        v.name for v in startup.list_vars() if v.persistable))
+    d = saved = t_save = None
+    for step in range(1, steps + 1):
+        (l,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        if step == 1:
+            # the rewritten program's persistables (the flat optimizer
+            # state the fusion passes made at its first run)
+            names = sorted(v.name for v in main.list_vars()
+                           if v.persistable)
+            first = scope_snapshot(scope, names)
+        if root is not None and step <= CKPT_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with fluid.scope_guard(scope):
+                d = ck.save_checkpoint(exe, root, step, main)
+            t_save = time.perf_counter() - t0
+            if step == CKPT_STEPS:
+                saved = scope_snapshot(scope, names)
+    after = scope_snapshot(scope, names)
+    exe.close()
+    return (main, loss, names, init, first, d, saved, np.asarray(l), after,
+            t_save)
+
+
+def phase_checkpoint(fluid, support):
+    """Phase 48: gpt_long's float32 program (phase 7's): two uninterrupted
+    runs of three steps from the same seed, the first saving a checkpoint
+    after steps 1 and 2; in a fresh scope on a new executor,
+    load_checkpoint and the same third step. The resumed step starts from
+    the first run's state after step 2, bitwise, so it is held to that
+    run's third step bitwise, except in the slices where one step from
+    one state already differs: those where the two uninterrupted runs
+    differ after their first step. Then a flipped byte."""
+    from paddle_tpu_torch import checkpoint as ck
+    from paddle_tpu_torch.models import gpt
+
+    bench_fast_paths()
+    np.random.seed(SEED)
+    cfg = gpt.GPT_LONG
+    feed = gpt.random_batch(np.random.RandomState(SEED), cfg["batch"],
+                            cfg["seq_len"], cfg["vocab"])
+    steps = CKPT_STEPS + 1
+    support.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as root:
+        (main, loss, names, init_a, first_a, d, saved, l_a, after_a,
+         t_save) = gpt_long_run(fluid, support, cfg, feed, steps, root)
+        nbytes = dir_bytes(d)
+        _, _, names2, init_a2, first_a2, _, _, l_a2, after_a2, _ = \
+            gpt_long_run(fluid, support, cfg, feed, steps)
+        if names2 != names or any(not torch.equal(init_a[n], init_a2[n])
+                                  for n in init_a):
+            raise RuntimeError("phase 48: the two uninterrupted runs do "
+                               "not start from the same persistables")
+        del init_a, init_a2
+        exe, scope = new_card_executor(fluid, support), fluid.Scope()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            step = ck.load_checkpoint(exe, root, main)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        if step != CKPT_STEPS:
+            raise RuntimeError("phase 48: loaded step %s" % step)
+        bad = [n for n in names if not torch.equal(
+            scope.find_var(n).get_tensor().array, saved[n])]
+        if bad:
+            raise RuntimeError("phase 48: loaded persistables differ from "
+                               "the saved ones: %s" % bad[:5])
+        del saved
+        (l_b,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        after_b = scope_snapshot(scope, names)
+        exe.close()
+        del scope
+        counts = support.launch_counts()
+        if not np.array_equal(np.asarray(l_b), l_a):
+            raise RuntimeError("phase 48: the third step's loss %r, "
+                               "uninterrupted %r" % (l_b, l_a))
+        # each slice that the two uninterrupted runs' first steps give in
+        # the same bits is held bitwise; a slice where they differ (atomic
+        # adds) within RESUME_RTOL of its scale. After three steps the two
+        # runs differ in more slices: the first step's differences reach
+        # every later grad.
+        noisy, worst, spread, n_slices = {}, 0.0, {}, 0
+        for n in names:
+            a, a2 = after_a[n].reshape(-1), after_a2[n].reshape(-1)
+            f, f2 = first_a[n].reshape(-1), first_a2[n].reshape(-1)
+            b = after_b[n].reshape(-1)
+            for m, lo, hi in flat_members(main, n, a.numel()):
+                n_slices += 1
+                if not torch.equal(a[lo:hi], a2[lo:hi]):
+                    spread[m] = slice_gap(a[lo:hi], a2[lo:hi])
+                if torch.equal(f[lo:hi], f2[lo:hi]):
+                    if not torch.equal(a[lo:hi], b[lo:hi]):
+                        raise RuntimeError(
+                            "phase 48: %s after the resumed step differs "
+                            "from the uninterrupted run's, and one step "
+                            "from one state gives it bitwise" % m)
+                    continue
+                gap = slice_gap(a[lo:hi], b[lo:hi])
+                noisy[m] = {"one_step": slice_gap(f[lo:hi], f2[lo:hi]),
+                            "resumed": gap}
+                worst = max(worst, gap)
+                if gap > RESUME_RTOL:
+                    raise RuntimeError("phase 48: %s %.3g of its scale "
+                                       "after the resumed step, over %g"
+                                       % (m, gap, RESUME_RTOL))
+        del after_a, after_a2, after_b, first_a, first_a2
+        # a flipped byte in the newest checkpoint: typed, and load_latest
+        # falls back one rotation
+        p = os.path.join(d, "__params__.npz")
+        with open(p, "r+b") as f:
+            f.seek(os.path.getsize(p) // 2)
+            b = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([b[0] ^ 0xFF]))
+        try:
+            ck.verify_manifest(d)
+            raise RuntimeError("phase 48: a flipped byte verified")
+        except ck.CheckpointCorrupt:
+            pass
+        exe, scope = new_card_executor(fluid, support), fluid.Scope()
+        with fluid.scope_guard(scope):
+            fell_back = ck.load_checkpoint(exe, root, main)
+        exe.close()
+        del scope
+        if fell_back != CKPT_STEPS - 1:
+            raise RuntimeError("phase 48: load_latest gave step %s after the "
+                               "flip, want %d" % (fell_back, CKPT_STEPS - 1))
+    torch.cuda.empty_cache()
+    run = {"bytes": nbytes, "save_s": t_save, "load_s": t_load,
+           "save_gb_per_s": nbytes / t_save / 1e9,
+           "load_gb_per_s": nbytes / t_load / 1e9,
+           "uninterrupted_losses_equal": bool(np.array_equal(l_a, l_a2)),
+           "noisy_slices": noisy, "noisy_worst_rel": worst,
+           "slices": n_slices, "differing_after_three_steps": len(spread),
+           "worst_after_three_steps": max(spread.values(), default=0.0),
+           "fell_back_to": fell_back}
+    log("phase 48 gpt_long checkpoint (%d persistables, %d bytes): saved in "
+        "%.2f s (%.3f GB/s), loaded in %.2f s (%.3f GB/s); loaded "
+        "persistables bitwise the saved ones; the resumed third step's loss "
+        "bitwise the uninterrupted run's (a second uninterrupted run's "
+        "third loss %s); after it, of %d slices, every one bitwise except "
+        "those the two uninterrupted runs' first steps differ in: %s (of "
+        "each slice's scale, run against run after one step and resumed "
+        "against uninterrupted after the third; limit %g); after three "
+        "steps the two uninterrupted runs differ in %d slices, worst %.3g "
+        "of scale; a flipped byte raised CheckpointCorrupt and load_latest "
+        "fell back to step %d; launches %s; card %s"
+        % (len(names), nbytes, t_save, run["save_gb_per_s"], t_load,
+           run["load_gb_per_s"],
+           "equal" if run["uninterrupted_losses_equal"] else "differs",
+           n_slices, json.dumps(noisy) if noisy else "none", RESUME_RTOL,
+           len(spread), run["worst_after_three_steps"], fell_back,
+           json.dumps({k: v for k, v in counts.items() if v}), card_line()))
+    return counts, run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -6336,6 +6892,13 @@ def main() -> int:
     senti_lstm, senti_lstm_run = phase_sentiment_lstm(fluid, support)
     senti_conv, senti_conv_run = phase_sentiment_conv(fluid, support)
     phase_lod_twins(fluid, support)
+    # save, load and the Fluid book
+    book_counts, book_run = phase_book(fluid, support)
+    bert_proto, bert_proto_run = phase_bert_proto(fluid, support)
+    ckpt, ckpt_run = phase_checkpoint(fluid, support)
+    log("phases 46-48 %s" % json.dumps(
+        {"book": book_run, "bert_proto": bert_proto_run,
+         "checkpoint": ckpt_run}))
     log("phases 43-44 %s" % json.dumps(
         {"stacked_lstm": senti_lstm_run, "convolution": senti_conv_run}))
     log("phases 39-41 %s" % json.dumps(
@@ -6385,7 +6948,11 @@ def main() -> int:
                    "seq2seq_decode": s2s_dec.get(kern["name"], 0),
                    "while": loops.get(kern["name"], 0),
                    "sentiment_lstm": senti_lstm.get(kern["name"], 0),
-                   "sentiment_conv": senti_conv.get(kern["name"], 0)}
+                   "sentiment_conv": senti_conv.get(kern["name"], 0),
+                   **{path: c.get(kern["name"], 0)
+                      for path, c in book_counts.items()},
+                   "bert_proto": bert_proto.get(kern["name"], 0),
+                   "checkpoint": ckpt.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

@@ -33,6 +33,9 @@ from .layers.io import fluid_data as data  # noqa: F401
 from . import models  # noqa: F401
 from . import contrib  # noqa: F401
 from . import io  # noqa: F401
+from .io import load, save  # noqa: F401
+from . import checkpoint  # noqa: F401
+from . import dataset  # noqa: F401
 from . import inference  # noqa: F401
 from . import serving  # noqa: F401
 from . import dygraph  # noqa: F401

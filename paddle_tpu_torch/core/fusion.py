@@ -157,8 +157,12 @@ def _src_token(scope, name):
 
 def resync_sharded_state(program, scope) -> int:
     """After a startup re-run reset the retired per-param state vars (every
-    source var's tensor replaced since the splice), rebuild the flat state
-    from them. Returns the number of flat vars rebuilt."""
+    source var's tensor replaced since the splice by a new one), rebuild
+    the flat state from them. A scope that holds none of them (a fresh
+    scope a checkpoint of the rewritten program was loaded into: the flat
+    vars are its persistables, the per-param ones are not) keeps its flat
+    state; the JAX package's rule (``parallel/collectives.py:590``) would
+    zero it there. Returns the number of flat vars rebuilt."""
     layout = getattr(program, "_sharded_flat_layout", None)
     if not layout:
         return 0
@@ -170,7 +174,7 @@ def resync_sharded_state(program, scope) -> int:
         old = tokens[flat_name]
         signal = [(o, c) for o, c in zip(old, cur)
                   if o is not None or c is not None]
-        if not signal or any(o is c for o, c in signal):
+        if not signal or any(o is c or c is None for o, c in signal):
             continue
         device = scope.find_var(flat_name).raw().array.device
         scope.var(flat_name).set(LoDTensor(_splice_flat_state(

@@ -10,7 +10,11 @@ row set (host row ids, a value tensor, a height: the embedding's
 
 ``stage_feed`` is the one rule by which every route (the interpreter, the
 whole-program route and ``AsyncDeviceFeeder``) turns a feed value into a
-tensor.
+tensor. ``to_host_array`` / ``from_host_array`` are the one rule by which
+saved files hold tensors: numpy cannot name bfloat16, so a bfloat16 tensor
+goes to the host as its raw 16-bit words under numpy's ``|V2``, the layout
+a JAX-saved bfloat16 array has in an ``.npz``, and comes back as
+``torch.bfloat16``.
 """
 from __future__ import annotations
 
@@ -177,3 +181,29 @@ def stage_feed(value) -> torch.Tensor:
     if arr.dtype == np.float64:
         arr = arr.astype(np.float32)
     return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def to_host_array(t) -> np.ndarray:
+    """A tensor (or array) as a host numpy array; bfloat16 as ``|V2``."""
+    if isinstance(t, LoDTensor):
+        t = t.array
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def from_host_array(arr, device=None) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (the host when None): a
+    ``|V2`` or ``bfloat16`` array is read as bfloat16 bits, everything
+    else keeps its numpy dtype."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2 or \
+            arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+                             .copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    return t if device is None else t.to(device)

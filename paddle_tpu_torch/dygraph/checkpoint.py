@@ -14,7 +14,7 @@ import os
 
 import numpy as np
 
-from ..io import _atomic_write_bytes
+from ..checkpoint import atomic_write_bytes
 from .varbase import VarBase
 
 __all__ = ["save_dygraph", "load_dygraph"]
@@ -28,7 +28,7 @@ def save_dygraph(state_dict, model_path):
               for k, v in state_dict.items()}
     buf = io.BytesIO()
     np.savez(buf, **arrays)
-    _atomic_write_bytes(model_path + suffix + ".npz", buf.getvalue())
+    atomic_write_bytes(model_path + suffix + ".npz", buf.getvalue())
 
 
 def load_dygraph(model_path):

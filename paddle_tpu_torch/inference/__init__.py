@@ -10,9 +10,12 @@ is run once eagerly, then captured into a CUDA graph and replayed
 warm-up runs each ladder bucket that often).
 
 ``AnalysisConfig`` runs on the card by default; ``disable_gpu()`` asks for
-the CPU. ``switch_ir_optim`` is recorded: the IR passes of the JAX package
-(``ir.py`` FcFusePass, ConvBnFusePass) come with a later slice, so the
-predictor runs the program as saved. The zero-copy tensor surface comes
+the CPU. ``set_prog_file`` / ``set_params_file`` name the model's files
+inside its directory, as ``load_inference_model`` takes them (a protobuf
+``__model__`` and a combined params file, say). ``switch_ir_optim`` is
+recorded: the IR passes of the JAX package (``ir.py`` FcFusePass,
+ConvBnFusePass) come with a later slice, so the predictor runs the
+program as saved. The zero-copy tensor surface comes
 later too.
 """
 from __future__ import annotations
@@ -29,12 +32,28 @@ __all__ = ["AnalysisConfig", "PaddleTensor", "PaddlePredictor",
 class AnalysisConfig:
     def __init__(self, model_dir=None, params_file=None):
         self._model_dir = model_dir
+        self._prog_file = None
         self._params_file = params_file
         self._use_gpu = True
         self._ir_optim = True
 
+    def set_model(self, model_dir, params_file=None):
+        self._model_dir = model_dir
+        self._params_file = params_file
+
     def model_dir(self):
         return self._model_dir
+
+    # the reference's SetProgFile / prog_file: file names inside
+    # model_dir, a protobuf ``__model__`` and its combined params stream
+    def set_prog_file(self, prog_file):
+        self._prog_file = prog_file
+
+    def set_params_file(self, params_file):
+        self._params_file = params_file
+
+    def prog_file(self):
+        return self._prog_file
 
     def params_file(self):
         return self._params_file
@@ -84,6 +103,7 @@ class PaddlePredictor:
             (self._program, self._feed_names,
              self._fetch_vars) = io.load_inference_model(
                  config.model_dir(), self._exe,
+                 model_filename=config.prog_file(),
                  params_filename=config.params_file())
 
     @property

@@ -6,8 +6,11 @@ from .extras import __all__ as _extras_all
 from .io import data, fluid_data  # noqa: F401
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .learning_rate_scheduler import __all__ as _lrs_all
-from .loss import cross_entropy, softmax_with_cross_entropy  # noqa: F401
+from .loss import *  # noqa: F401,F403
+from .loss import __all__ as _loss_all
 from .math_op_patch import monkey_patch_variable
+from .metric_op import *  # noqa: F401,F403
+from .metric_op import __all__ as _metric_all
 from .nn import *  # noqa: F401,F403
 from .nn import __all__ as _nn_all
 from .ops import *  # noqa: F401,F403

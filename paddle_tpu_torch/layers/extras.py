@@ -1,8 +1,9 @@
 """``flash_attention`` (:960), ``gru_unit`` (:489), ``lstm_unit`` (:520),
 ``Print`` (:760), ``gather_tree`` (:782), ``lod_reset`` (:606),
-``sequence_slice`` (:689), ``sequence_unpad`` (:703) and ``im2sequence``
-(:714) of ``paddle_tpu/layers/extras.py``: the same ops, slots, attrs and
-parameter names. ``flash_attention`` is fused attention over ``[B, H, S, D]``, the
+``sequence_slice`` (:689), ``sequence_unpad`` (:703), ``im2sequence``
+(:714), ``cos_sim`` (:186), ``linear_chain_crf`` (:623), ``crf_decoding``
+(:654) and ``chunk_eval`` (:1012) of ``paddle_tpu/layers/extras.py``: the
+same ops, slots, attrs and parameter names. ``flash_attention`` is fused attention over ``[B, H, S, D]``, the
 hand-written CUDA kernels on the card; ``lengths`` ([B] int) masks padded
 keys inside the kernel."""
 from __future__ import annotations
@@ -11,7 +12,8 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["flash_attention", "gru_unit", "lstm_unit", "Print",
            "gather_tree", "lod_reset", "sequence_slice", "sequence_unpad",
-           "im2sequence"]
+           "im2sequence", "cos_sim", "linear_chain_crf", "crf_decoding",
+           "chunk_eval"]
 
 
 def flash_attention(q, k, v, causal=False, scale=0.0, lengths=None):
@@ -168,3 +170,103 @@ def im2sequence(input, filter_size=1, stride=1, padding=0,
                "out_stride": pair(out_stride)},
         infer_shape=False)
     return out
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper("cos_sim", input=X)
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op("cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]},
+                     infer_shape=False)
+    if X.shape is not None:
+        out.shape = (int(X.shape[0]), 1)
+    return out
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """The CRF's negative log-likelihood over dense ``[B, T, K]`` input;
+    creates the ``[K+2, K]`` transition parameter. ``length`` is not
+    taken, as in the JAX package: pad the labels with the repeated last
+    label (the padded tail's NLL is then constant in the emissions)."""
+    if length is not None:
+        raise NotImplementedError(
+            "linear_chain_crf(length=...) is not supported; pad labels "
+            "with the repeated final label instead")
+    helper = LayerHelper("linear_chain_crf", input=input,
+                         param_attr=param_attr)
+    dtype = helper.input_dtype()
+    k = int(input.shape[-1])
+    trans = helper.create_parameter(attr=helper.param_attr,
+                                    shape=[k + 2, k], dtype=dtype)
+    alpha, em_exps, tr_exps, ll = (
+        helper.create_variable_for_type_inference(dtype) for _ in range(4))
+    helper.append_op(
+        "linear_chain_crf",
+        inputs={"Emission": [input], "Transition": [trans],
+                "Label": [label]},
+        outputs={"Alpha": [alpha], "EmissionExps": [em_exps],
+                 "TransitionExps": [tr_exps], "LogLikelihood": [ll]},
+        infer_shape=False)
+    ll.shape = (int(input.shape[0]) if len(input.shape) == 3 else 1, 1)
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None, length=None):
+    """Viterbi decode with the transition ``linear_chain_crf`` learned:
+    the parameter ``param_attr`` names, else the newest ``[K+2, K]``
+    parameter of the program (name it where there are several CRFs)."""
+    from ..param_attr import ParamAttr
+
+    helper = LayerHelper("crf_decoding", input=input)
+    name = param_attr.name if isinstance(param_attr, ParamAttr) else None
+    blk = helper.main_program.global_block()
+    trans = blk._find_var_recursive(name) if name else None
+    if trans is None:
+        k = int(input.shape[-1])
+        matches = [p for p in blk.all_parameters
+                   if p.shape and len(p.shape) == 2
+                   and p.shape[0] == k + 2 and p.shape[1] == k]
+        trans = matches[-1] if matches else None
+    if trans is None:
+        raise ValueError("crf_decoding: no transition parameter found; "
+                         "run linear_chain_crf first or name the param")
+    out = helper.create_variable_for_type_inference("int64")
+    inputs = {"Emission": [input], "Transition": [trans]}
+    if label is not None:
+        inputs["Label"] = [label]
+    helper.append_op("crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [out]}, infer_shape=False)
+    out.shape = tuple(input.shape[:-1])
+    return out
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """Chunk precision, recall and F1 and the three chunk counts
+    (reference layers/nn.py:866, the NER evaluation layer)."""
+    helper = LayerHelper("chunk_eval", input=input)
+
+    def mk(dtype):
+        v = helper.create_variable_for_type_inference(dtype,
+                                                      stop_gradient=True)
+        v.shape = (1,)
+        return v
+
+    precision, recall, f1 = mk("float32"), mk("float32"), mk("float32")
+    n_infer, n_label, n_correct = mk("int64"), mk("int64"), mk("int64")
+    inputs = {"Inference": [input], "Label": [label]}
+    if seq_length is not None:
+        inputs["SeqLength"] = [seq_length]
+    helper.append_op(
+        "chunk_eval", inputs=inputs,
+        outputs={"Precision": [precision], "Recall": [recall],
+                 "F1-Score": [f1], "NumInferChunks": [n_infer],
+                 "NumLabelChunks": [n_label],
+                 "NumCorrectChunks": [n_correct]},
+        attrs={"num_chunk_types": int(num_chunk_types),
+               "chunk_scheme": chunk_scheme,
+               "excluded_chunk_types": list(excluded_chunk_types or [])},
+        infer_shape=False)
+    return precision, recall, f1, n_infer, n_label, n_correct

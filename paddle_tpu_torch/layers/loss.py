@@ -1,11 +1,12 @@
-"""``cross_entropy`` and ``softmax_with_cross_entropy`` (counterparts of
-``paddle_tpu/layers/loss.py:22`` and ``:34``): the same ops, slots and
-attrs."""
+"""``cross_entropy``, ``softmax_with_cross_entropy``, ``square_error_cost``
+and ``mse_loss`` (counterparts of ``paddle_tpu/layers/loss.py:22``,
+``:34``, ``:62`` and ``:144``): the same ops, slots and attrs."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["cross_entropy", "softmax_with_cross_entropy"]
+__all__ = ["cross_entropy", "softmax_with_cross_entropy",
+           "square_error_cost", "mse_loss"]
 
 
 def cross_entropy(input, label, soft_label=False, ignore_index=-100):
@@ -34,3 +35,18 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax
     return loss
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost", input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("square_error_cost",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def mse_loss(input, label):
+    from .nn import reduce_mean
+
+    return reduce_mean(square_error_cost(input, label))

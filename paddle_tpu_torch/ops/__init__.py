@@ -5,11 +5,16 @@ from . import amp_ops  # noqa: F401
 from . import compare_ops  # noqa: F401
 from . import control_flow_ops  # noqa: F401
 from . import conv_ops  # noqa: F401
+from . import crf_ops  # noqa: F401
 from . import elementwise_ops  # noqa: F401
+from . import eval_ops  # noqa: F401
 from . import fused_ops  # noqa: F401
+from . import io_ops  # noqa: F401
 from . import loss_ops  # noqa: F401
 from . import math_ops  # noqa: F401
 from . import matmul_ops  # noqa: F401
+from . import metrics_ops  # noqa: F401
+from . import misc_ops  # noqa: F401
 from . import norm_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import reduce_ops  # noqa: F401

@@ -1,5 +1,6 @@
-"""``conv2d`` and ``pool2d`` (counterparts of ``paddle_tpu/ops/conv_ops.py``
-``:112`` and ``:318``), in NCHW and NHWC, with the same slots and attrs.
+"""``conv2d``, ``depthwise_conv2d`` and ``pool2d`` (counterparts of
+``paddle_tpu/ops/conv_ops.py`` ``:112``, ``:142`` and ``:318``), in NCHW and
+NHWC, with the same slots and attrs.
 
 ``conv2d`` routes by ``FLAGS_use_pallas_conv`` (``_maybe_pallas_conv``, as
 ``:61``): a routed conv runs the hand-written implicit-GEMM kernel K5
@@ -220,6 +221,29 @@ def _conv2d(ins, attrs):
                   else (1, 1, 1, -1))
         out = out + ins["Bias"].reshape(bshape)
     return {"Output": out}
+
+
+@register_op(
+    "depthwise_conv2d",
+    inputs=[In("Input"), In("Filter")],
+    outputs=[Out("Output")],
+    attrs=dict(_CONV_ATTRS),
+)
+def _depthwise_conv2d(ins, attrs):
+    """One group an input channel, the channel axis read from the layout
+    (``paddle_tpu/ops/conv_ops.py:142``, which runs ``lax`` outside any
+    Pallas kernel); the ``groups`` attr is not read. Its grad is the
+    auto-VJP."""
+    x = ins["Input"]
+    data_format = _data_format(attrs)
+    return {"Output": _conv_nd(
+        x, ins["Filter"],
+        attrs.get("strides", [1, 1]),
+        attrs.get("paddings", [0, 0]),
+        attrs.get("dilations", [1, 1]),
+        x.shape[-1] if data_format == "NHWC" else x.shape[1],
+        data_format,
+        attrs.get("padding_algorithm", "EXPLICIT"))}
 
 
 _POOL_ATTRS = {

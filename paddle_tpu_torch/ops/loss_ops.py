@@ -1,11 +1,14 @@
 """``cross_entropy`` and ``softmax_with_cross_entropy`` (counterparts of
-``paddle_tpu/ops/loss_ops.py:33`` and ``:64``), with the same slots and
+``paddle_tpu/ops/loss_ops.py:33`` and ``:64``), ``square_error_cost`` and
+``squared_l2_distance`` (``:105``, ``:115``), with the same slots and
 attrs. ``cross_entropy`` takes probabilities, clipped to [1e-20, 1] before
 the log as the reference does (max then min, so a value on a bound splits
 its grad as JAX's ``clip`` does); ``softmax_with_cross_entropy`` is the
 numerically stable form, log-softmax over ``axis`` then the label's entry.
 Hard labels equal to ``ignore_index`` give a loss of 0; soft labels take
-the full cross entropy. Both grads are the auto-VJP op."""
+the full cross entropy. ``squared_l2_distance`` sums the squared
+difference over the last axis and also gives the difference. Every grad
+is the auto-VJP op."""
 from __future__ import annotations
 
 import torch
@@ -63,3 +66,23 @@ def _softmax_with_cross_entropy(ins, attrs):
     else:
         loss = _label_xent(logp, label, ignore, soft)
     return {"Softmax": softmax, "Loss": loss}
+
+
+@register_op(
+    "square_error_cost",
+    inputs=[In("X"), In("Y")],
+    outputs=[Out("Out")],
+)
+def _square_error_cost(ins, attrs):
+    return {"Out": torch.square(ins["X"] - ins["Y"])}
+
+
+@register_op(
+    "squared_l2_distance",
+    inputs=[In("X"), In("Y")],
+    outputs=[Out("Out"), Out("sub_result", no_grad=True)],
+)
+def _squared_l2_distance(ins, attrs):
+    sub = ins["X"] - ins["Y"]
+    return {"Out": torch.square(sub).sum(dim=-1, keepdim=True),
+            "sub_result": sub}

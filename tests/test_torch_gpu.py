@@ -2099,3 +2099,152 @@ def test_a_lowered_lod_program_is_captured_on_the_card(cuda):
     interp = [float(np.asarray(exe._core.run_program(
         main, scope2, f, [loss])[0]).reshape(-1)[0]) for f in feeds]
     np.testing.assert_allclose(lowered, interp, rtol=1e-5, atol=0)
+
+
+# -- slice 16: save, load and the book's ops on the card ---------------------
+
+def _slice16_cases():
+    g = np.random.RandomState(16)
+
+    def f(*shape):
+        return g.randn(*shape).astype("float32")
+
+    lab = g.randint(0, 5, (3, 9)).astype("int64")
+    return {
+        "linear_chain_crf": (
+            "linear_chain_crf", {"Emission": f(3, 9, 5),
+                                 "Transition": f(7, 5) * 0.5, "Label": lab},
+            {}, "LogLikelihood"),
+        "crf_decoding": (
+            "crf_decoding", {"Emission": f(3, 9, 5), "Transition": f(7, 5)},
+            {}, None),
+        "crf_decoding_label": (
+            "crf_decoding", {"Emission": f(3, 9, 5), "Transition": f(7, 5),
+                             "Label": lab}, {}, None),
+        "cos_sim": ("cos_sim", {"X": f(6, 4), "Y": f(6, 4)}, {}, "Out"),
+        "square_error_cost": ("square_error_cost",
+                              {"X": f(6, 4), "Y": f(6, 4)}, {}, "Out"),
+        "depthwise_conv2d": (
+            "depthwise_conv2d", {"Input": f(2, 7, 6, 4),
+                                 "Filter": f(8, 1, 3, 3)},
+            {"data_format": "NHWC", "paddings": [1, 1], "groups": 4},
+            "Output"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_slice16_cases()))
+def test_slice16_op_on_the_card_gives_its_cpu_result(cuda, case):
+    """The CRF ops (the Viterbi path exactly), cos_sim, square_error_cost
+    and depthwise_conv2d with their grads, card against CPU, within 1e-5
+    of scale."""
+    name, ins, attrs, grad_of = _slice16_cases()[case]
+    want = _op_on(torch.device("cpu"), name, ins, attrs, grad_of)
+    got = _op_on(cuda, name, ins, attrs, grad_of)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if not want[k].is_floating_point():
+            assert torch.equal(got[k], want[k]), k
+            continue
+        scale = max(float(want[k].abs().max()), 1.0)
+        torch.testing.assert_close(got[k], want[k], rtol=0,
+                                   atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("params", [None, "__params__"])
+def test_a_protobuf_model_loads_onto_the_card(cuda, tmp_path, params):
+    """Saved on the CPU in the reference's format, loaded by a predictor
+    on the card: every parameter lands on the card, the answers are the
+    CPU's within 1e-5 relative."""
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[-1, 6], dtype="float32")
+        pred = fluid.layers.fc(fluid.layers.fc(x, 16, act="relu"), 3,
+                               act="softmax")
+    xv = np.random.RandomState(2).rand(5, 6).astype("float32")
+    exe = fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        (want,) = exe.run(main, feed={"x": xv}, fetch_list=[pred])
+        fluid.io.save_inference_model(str(tmp_path), ["x"], [pred], exe,
+                                      main_program=main,
+                                      model_filename="__model__",
+                                      params_filename=params)
+    cfg = AnalysisConfig(str(tmp_path))
+    cfg.set_prog_file("__model__")
+    cfg.set_params_file(params)
+    p = create_paddle_predictor(cfg)
+    assert p.device.type == "cuda"
+    for n in p._scope.local_var_names():
+        assert p._scope.find_var(n).get_tensor().array.is_cuda, n
+    (got,) = p.run({"x": xv})
+    np.testing.assert_allclose(got.data, want, rtol=1e-5, atol=0)
+
+
+def test_a_checkpoint_loads_onto_the_card(cuda, tmp_path):
+    """A checkpoint saved on the CPU (an Adam program under a schedule:
+    its step counter int64) loads onto the card's executor: every
+    persistable on the card, bitwise the saved values, and the next step's
+    loss the CPU's within 1e-5 relative."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[4, 3], dtype="float32")
+        loss = fluid.layers.mean(fluid.layers.fc(x, 5))
+        lr = fluid.layers.exponential_decay(0.1, decay_steps=2,
+                                            decay_rate=0.5)
+        fluid.optimizer.AdamOptimizer(lr).minimize(loss)
+    xv = np.random.RandomState(3).rand(4, 3).astype("float32")
+    cpu = fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(fluid.Scope()):
+        cpu.run(startup)
+        cpu.run(main, feed={"x": xv}, fetch_list=[loss])
+        fluid.checkpoint.save_checkpoint(cpu, str(tmp_path), 1, main)
+        saved = _persistables(main, fluid.global_scope())
+        (want,) = cpu.run(main, feed={"x": xv}, fetch_list=[loss])
+    exe = fluid.Executor()
+    with fluid.scope_guard(fluid.Scope()):
+        assert fluid.checkpoint.load_checkpoint(exe, str(tmp_path),
+                                                main) == 1
+        scope = fluid.global_scope()
+        for n, v in saved.items():
+            t = scope.find_var(n).get_tensor().array
+            assert t.is_cuda, n
+            np.testing.assert_array_equal(t.cpu().numpy(), v, err_msg=n)
+        (got,) = exe.run(main, feed={"x": xv}, fetch_list=[loss])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+
+
+def test_load_without_an_executor_keeps_the_card(cuda, tmp_path):
+    """``fluid.load`` and ``load_persistables`` given no executor after a
+    startup on the card: every parameter stays on the card, bitwise the
+    saved values; a var the scope lacks lands on the card too."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[4, 3], dtype="float32")
+        loss = fluid.layers.mean(fluid.layers.fc(x, 5))
+        fluid.optimizer.AdamOptimizer(0.1).minimize(loss)
+    path = str(tmp_path / "model")
+    with fluid.scope_guard(fluid.Scope()):
+        fluid.Executor().run(startup)
+        saved = _persistables(main, fluid.global_scope())
+        fluid.save(main, path)
+        fluid.io.save_persistables(None, str(tmp_path / "vars"), main)
+    for load in (lambda: fluid.load(main, path),
+                 lambda: fluid.io.load_persistables(
+                     None, str(tmp_path / "vars"), main)):
+        with fluid.scope_guard(fluid.Scope()):
+            fluid.Executor().run(startup)
+            load()
+            scope = fluid.global_scope()
+            for n, v in saved.items():
+                t = scope.find_var(n).get_tensor().array
+                assert t.is_cuda, n
+                np.testing.assert_array_equal(t.cpu().numpy(), v,
+                                              err_msg=n)
+    with fluid.scope_guard(fluid.Scope()):
+        fluid.load(main, path)
+        for n in saved:
+            assert fluid.global_scope().find_var(
+                n).get_tensor().array.is_cuda, n

@@ -243,6 +243,11 @@ def test_a_declined_lowering_is_named_counted_and_interpreted(what):
     for pkg in (jfluid, fluid):
         main, startup, out = _decline_case(pkg, what)
         exe, scope = pkg.Executor(pkg.CPUPlace()), pkg.Scope()
+        if pkg is jfluid:
+            # the JAX startup's weights come from its executor's RNG, which
+            # draws its seed from numpy's global state unless it is set:
+            # pinned, the case no longer depends on what ran before it
+            exe._core.rng.seed = 90
         exe.run(startup, scope=scope)
         if pkg is fluid:
             init = {v.name: np.asarray(jscope.find_var(v.name).get_tensor())
