@@ -18,7 +18,8 @@ seq2seq base model (training and beam decoding), While loops trained
 through while_grad and the Fluid book's understand_sentiment nets over
 LoD input with sparse embedding grads, five more book chapters saved
 and served from the reference's protobuf format, BERT-base served from
-it, and a gpt_long checkpoint resumed, and holds each
+it, a gpt_long checkpoint resumed, and RNNsearch trained on DynamicRNN
+and beam-decoded through While, and holds each
 hand-written CUDA kernel against its plain PyTorch version on the card.
 Serving and the training paths run through ``Executor.run``'s default
 route, which runs a program's first step eagerly, captures the second
@@ -440,15 +441,35 @@ lines each:
    newest checkpoint raises CheckpointCorrupt and load_latest falls back
    to step 1; save and load seconds and GB/s; the temporary directories
    are deleted;
-49. one JSON line {"kernels": [...]} with each kernel's launches on the
+49. RNNsearch (Bahdanau et al., the Fluid models repository's
+   DynamicRNN script, models/rnn_search.py: embeddings 512, a
+   bidirectional dynamic_lstm encoder of 512, a DynamicRNN decoder of 512
+   with simple_attention over its two static inputs, dictionaries of
+   30,000, Adam 2e-4; about 55 M parameters) trains 20 steps cycling 4
+   seeded batches of 64 sentences (10-50 tokens, source and target drawn
+   independently) on the card, its while on the interpreter, then a
+   profiled step: step ms, target tokens/s, idle share, peak; each
+   batch's loss falls, the encoder's parameters move (their grads pass
+   reorder_lod_tensor_by_rank's grad), K4 once a step; a narrow twin's
+   step 1 (dictionaries 1000, widths 64, batch 8), card against CPU
+   within 1e-4; then K4 at the path's flat size, as phase 39;
+50. its generator (a While over arrays of ids, scores, states and the
+   padded encoder rows, sequence_expand by the scores' LoD, attention and
+   lstm_step, top-3 of the softmax, beam_search, is_empty, then
+   beam_search_decode) at batch 64 x beam 3, up to 50 trips, on phase
+   49's weights: ms a batch, trips, sentences ended (nonzero); the same
+   batch with an end id outside the dictionary, all 50 trips (ms a batch,
+   a trip); batch 4 at full width card against CPU: ids and both LoD
+   levels equal, scores within 1e-4 of scale;
+51. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside, the dygraph, recipe, seq2seq, while,
-   sentiment, book_*, bert_proto and checkpoint paths too), error, times
-   and bound;
-50. the last line: {"ok": true, "device": {...}}.
+   sentiment, book_*, bert_proto, checkpoint and rnn_search paths too),
+   error, times and bound;
+52. the last line: {"ok": true, "device": {...}}.
 
 Phases 43-45 run the book's scripts as the book does, with those knobs
 unset (phase 45 sets PADDLE_TPU_FUSED_OPTIMIZER for its SGD twins). Every
-training phase (7, 10, 16, 17, 20-23, 27, 34-37, 39, 46 and 48) sets
+training phase (7, 10, 16, 17, 20-23, 27, 34-37, 39, 46, 48 and 49) sets
 bench.py's three knobs as its _enable_fast_paths does
 (PADDLE_TPU_FUSED_OPTIMIZER, PADDLE_TPU_FUSED_EPILOGUE and
 PADDLE_TPU_ASYNC_FEED, each unless already set), so it runs the program
@@ -6799,6 +6820,290 @@ def phase_checkpoint(fluid, support):
     return counts, run
 
 
+# -- phases 49-50: RNNsearch on DynamicRNN and the LoD beam search ----------
+
+RNN_SEARCH_STEPS = 20      # steps cycling RNN_SEARCH_POOL seeded batches
+RNN_SEARCH_POOL = 4
+# the card's first step against the port's CPU run, at a width the CPU
+# takes in seconds (dictionaries 1000, widths 64, batch 8)
+RNN_SEARCH_TWIN = dict(src_dict=1000, trg_dict=1000, emb=64, enc=64, dec=64,
+                       batch=8)
+RNN_SEARCH_TWIN_RTOL = 1e-4
+RNN_SEARCH_CHECK_BATCH = 4  # generation, card against CPU, full width
+RNN_SEARCH_GEN_RUNS = 3     # timed generation runs after a warm one
+RNN_SEARCH_SCORE_TOL = 1e-4
+ENCODER_PARAMS = ("src_emb", "fwd_proj_w", "bwd_proj_w", "fwd_lstm_w",
+                  "boot_w")
+
+
+def rnn_search_twin_loss(fluid, rs):
+    """Step 1's loss of the narrow RNNsearch twin through CPUPlace() and
+    on the card, from the CPU startup's state."""
+    cfg = dict(rs.RNN_SEARCH, **RNN_SEARCH_TWIN)
+    main, startup, loss = rs.train_program(fluid, cfg)
+    feed = rs.train_batch(fluid, np.random.RandomState(SEED + 92), cfg)
+    cpu = fluid.Executor(fluid.CPUPlace())
+    cscope = fluid.Scope()
+    cpu.run(startup, scope=cscope)
+    init = {v.name: cscope.find_var(v.name).get_tensor().numpy()
+            for v in main.global_block().vars.values()
+            if v.persistable and cscope.find_var(v.name) is not None
+            and cscope.find_var(v.name).is_initialized()}
+    (want,) = cpu.run(main, feed=feed, fetch_list=[loss], scope=cscope)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    fluid.io.scope_from_numpy(scope, init, fluid.CUDAPlace(0))
+    (got,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    exe.close()
+    want, got = float(np.ravel(want)[0]), float(np.ravel(got)[0])
+    gap = abs(got - want) / max(abs(want), 1e-12)
+    if not gap <= RNN_SEARCH_TWIN_RTOL:
+        raise RuntimeError("phase 49 twin: step 1's loss %.7f on the card, "
+                           "%.7f on the CPU (%.3g relative)" % (got, want,
+                                                                gap))
+    return {"cpu": want, "card": got, "rel_gap": gap, "cfg": cfg}
+
+
+def phase_rnn_search_train(fluid, support, fo):
+    """Phase 49: RNNsearch trains at its published widths on the card
+    through Executor.run (its while takes the interpreter: one counted
+    fallback), bench.py's knobs set (Adam's update is one fused_optimizer
+    op, K4 once a step), 20 steps cycling 4 seeded batches, then a
+    profiled step. Each batch's loss must fall from its first visit to
+    its last, and the encoder (the source embedding, the LSTMs' input fc,
+    the boot fc) must have moved: its grads come through
+    reorder_lod_tensor_by_rank's grad. Then step 1 of a narrow twin, card
+    against CPU, and K4 at the path's flat size."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+    from paddle_tpu_torch.models import rnn_search as rs
+
+    bench_fast_paths()
+    cfg = rs.RNN_SEARCH
+    rng = np.random.RandomState(SEED + 90)
+    feeds = [rs.train_batch(fluid, rng, cfg) for _ in range(RNN_SEARCH_POOL)]
+    tokens = [int(sum(f["label"].recursive_sequence_lengths()[0]))
+              for f in feeds]
+    t0 = time.perf_counter()
+    main, startup, loss = rs.train_program(fluid, cfg)
+    build_s = time.perf_counter() - t0
+    n_params = rs.n_params(main)
+    support.reset_launch_counts()
+    ce.reset_counters()
+    exe, scope = new_card_executor(fluid, support), fluid.Scope()
+    exe.run(startup, scope=scope)
+    before = {n: scope.find_var(n).get_tensor().array.clone()
+              for n in ENCODER_PARAMS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    losses, times = [], []
+    pauses, on_gc = gc_pauses()
+    for i in range(RNN_SEARCH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (l,) = exe.run(main, feed=feeds[i % RNN_SEARCH_POOL],
+                       fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(l).reshape(-1)[0]))
+    gc.callbacks.remove(on_gc)
+    gc_ms = sum(p[0] for p in pauses) * 1e3 / RNN_SEARCH_STEPS
+    gc_full = sum(1 for p in pauses if p[1] == 2) / RNN_SEARCH_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    wall_ms, busy_ms, kernels = profile_step(lambda: exe.run(
+        main, feed=feeds[0], fetch_list=[loss], scope=scope), host_ops=False)
+    counts = support.launch_counts()
+    c = ce.counters()
+    ops = [op.type for op in main.global_block().ops]
+    first, last = losses[:RNN_SEARCH_POOL], losses[-RNN_SEARCH_POOL:]
+    if not (np.isfinite(losses).all()
+            and all(b < a for a, b in zip(first, last))):
+        raise RuntimeError("phase 49 RNNsearch: a batch's loss did not fall: "
+                           "%s" % losses)
+    k4 = counts.get("fused_optimizer_update", 0)
+    if k4 != RNN_SEARCH_STEPS + 1 or ops.count("fused_optimizer") != 1:
+        raise RuntimeError("phase 49 RNNsearch: K4 ran %d times in %d steps "
+                           "(%d fused_optimizer ops)" % (
+                               k4, RNN_SEARCH_STEPS + 1,
+                               ops.count("fused_optimizer")))
+    if c.get("executor.compile_fallbacks", 0) < 1 or \
+            c.get("executor.jit_traces", 0):
+        raise RuntimeError("phase 49 RNNsearch: the while program should "
+                           "take the interpreter: %s" % c)
+    moved = {n: float((scope.find_var(n).get_tensor().array
+                       - before[n]).abs().max()) for n in ENCODER_PARAMS}
+    if not all(v > 0 for v in moved.values()):
+        raise RuntimeError("phase 49 RNNsearch: the encoder did not move: %s"
+                           % moved)
+    step_ms = float(np.median(times[1:]))
+    rates = [tokens[i % RNN_SEARCH_POOL] / t * 1e3
+             for i, t in enumerate(times)][1:]
+    twin = rnn_search_twin_loss(fluid, rs)
+    log("phase 49 RNNsearch (%s): %d parameters, build %.2f s, %d ops after "
+        "the passes (%d fused_optimizer); %d steps cycling %d batches of "
+        "%s target tokens: losses %s" % (
+            json.dumps({k: v for k, v in cfg.items() if k != "lr"}),
+            n_params, build_s, len(ops), ops.count("fused_optimizer"),
+            RNN_SEARCH_STEPS, RNN_SEARCH_POOL, tokens,
+            ", ".join("%.4f" % x for x in losses)))
+    log("phase 49 RNNsearch step %.1f ms (median of steps 2-%d; first %.1f "
+        "ms; all %s), %.1f target tokens/s (median), idle share %s (one "
+        "profiled step: wall %.1f, busy %.1f ms), Python's garbage "
+        "collections %.1f ms and %.2f full ones a step, "
+        "max_memory_allocated %d bytes (%.2f GB, of which %.2f GB were held "
+        "before the steps); K4 %d (once a step); interpreter fallbacks %d; "
+        "encoder moved %s; twin step 1 loss card %.7f, CPU %.7f (%.2g "
+        "relative, limit %g); launches %s; card %s" % (
+            step_ms, RNN_SEARCH_STEPS, times[0],
+            ", ".join("%.0f" % t for t in times), float(np.median(rates)),
+            idle(wall_ms, busy_ms), wall_ms, busy_ms, gc_ms, gc_full, peak,
+            peak / 1e9, held / 1e9, k4,
+            c.get("executor.compile_fallbacks", 0), json.dumps(moved),
+            twin["card"], twin["cpu"], twin["rel_gap"],
+            RNN_SEARCH_TWIN_RTOL,
+            json.dumps({k: v for k, v in counts.items() if v}), card_line()))
+    for t_ms, count, kname in kernels[:8]:
+        log("phase 49 profile   %9.3f ms  %6d x  %s"
+            % (t_ms, count, kname[:110]))
+    exe.close()
+    (op,) = [op for op in main.global_block().ops
+             if op.type == "fused_optimizer"]
+    k4_path = k4_at_path(fo, op, 49, "RNNsearch")
+    run = {"n_params": n_params, "step_ms": step_ms,
+           "step_ms_all": times, "tokens_per_s": float(np.median(rates)),
+           "tokens": tokens, "idle_share": idle(wall_ms, busy_ms),
+           "busy_ms": busy_ms, "wall_ms": wall_ms, "peak_bytes": peak,
+           "held_bytes": held, "gc_ms_a_step": gc_ms,
+           "gc_full_a_step": gc_full, "losses": losses, "k4_launches": k4,
+           "encoder_moved": moved, "twin": twin, "k4": k4_path}
+    return counts, run, scope
+
+
+def rnn_search_generate(exe, scope, cfg, feed, gen):
+    """One run of the generator ``gen`` (program, [sentence ids, sentence
+    scores, the ids array]): (sentence ids, sentence scores, trips, ended
+    sentences), the trips from the ids array's length."""
+    ids, scores, arr = exe.run(gen[0], feed=feed, fetch_list=gen[1],
+                               scope=scope, return_numpy=False)
+    sent = ids.lod()[1]
+    flat = ids.numpy().reshape(-1)
+    ended = sum(1 for a, b in zip(sent[:-1], sent[1:])
+                if b > a and flat[b - 1] == cfg["end"])
+    return ids, scores, len(arr) - 1, ended
+
+
+def phase_rnn_search_generate(fluid, support, train_scope):
+    """Phase 50: the RNNsearch generator at batch 64 x beam 3, up to 50
+    trips, on phase 49's trained weights: a warm run, then timed runs;
+    ms a batch, the trips taken and the sentences that ended (nonzero).
+    Then the same batch with an end id no step selects, all 50 trips.
+    Then batch 4 at full width on the card and through CPUPlace() from
+    the same weights: ids and both LoD levels equal, scores within 1e-4
+    of their scale."""
+    from paddle_tpu_torch.models import rnn_search as rs
+
+    cfg = rs.RNN_SEARCH
+    t0 = time.perf_counter()
+    main, startup, ids, scores = rs.generate_program(fluid, cfg)
+    build_s = time.perf_counter() - t0
+    (dec,) = [op for op in main.global_block().ops
+              if op.type == "beam_search_decode"]
+    gen = (main, [ids, scores, dec.input("Ids")[0]])
+    shared = [v.name for v in main.global_block().vars.values()
+              if v.persistable and train_scope.find_var(v.name) is not None]
+    weights = {n: train_scope.find_var(n).get_tensor().numpy()
+               for n in shared}
+    support.reset_launch_counts()
+    exe, scope = new_card_executor(fluid, support), fluid.Scope()
+    exe.run(startup, scope=scope)
+    fluid.io.scope_from_numpy(scope, weights, fluid.CUDAPlace(0))
+    feed = rs.source_batch(fluid, np.random.RandomState(SEED + 91), cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rnn_search_generate(exe, scope, cfg, feed, gen)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    times = []
+    for _ in range(RNN_SEARCH_GEN_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rnn_search_generate(exe, scope, cfg, feed, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = support.launch_counts()
+    sent_ids, sent_scores, trips, ended = out
+    n_sent = len(sent_ids.lod()[1]) - 1
+    if ended == 0 or not np.isfinite(sent_scores.numpy()).all() or \
+            sent_ids.lod()[0][-1] != n_sent:
+        raise RuntimeError("phase 50 RNNsearch generation: %d of %d "
+                           "sentences ended, LoD %s" % (
+                               ended, n_sent, sent_ids.lod()[0][-8:]))
+    # the same batch with an end id no step can select: every trip of
+    # max_len, the decoder's cost a trip when nothing ends
+    never = dict(cfg, end=cfg["trg_dict"])
+    nmain, nstartup, nids, nscores = rs.generate_program(fluid, never)
+    (ndec,) = [op for op in nmain.global_block().ops
+               if op.type == "beam_search_decode"]
+    ngen = (nmain, [nids, nscores, ndec.input("Ids")[0]])
+    full_times = []
+    for _ in range(1 + RNN_SEARCH_GEN_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, full_trips, _ = rnn_search_generate(exe, scope, never, feed,
+                                                  ngen)
+        torch.cuda.synchronize()
+        full_times.append((time.perf_counter() - t0) * 1e3)
+    if full_trips != cfg["max_len"]:
+        raise RuntimeError("phase 50: %d trips with no end, want %d"
+                           % (full_trips, cfg["max_len"]))
+    full_ms = float(np.median(full_times[1:]))
+    # batch 4 at full width: the card against the CPU
+    small = rs.source_batch(fluid, np.random.RandomState(SEED + 93), cfg,
+                            n=RNN_SEARCH_CHECK_BATCH)
+    sides = {}
+    for side, sexe, place in (("cpu", fluid.Executor(fluid.CPUPlace()),
+                               fluid.CPUPlace()),
+                              ("card", exe, fluid.CUDAPlace(0))):
+        sscope = fluid.Scope()
+        sexe.run(startup, scope=sscope)
+        fluid.io.scope_from_numpy(sscope, weights, place)
+        i, s, t, e = rnn_search_generate(sexe, sscope, cfg, small, gen)
+        sides[side] = (i.numpy(), i.lod(), s.numpy(), t, e)
+    cpu, card = sides["cpu"], sides["card"]
+    scale = max(1.0, float(np.abs(cpu[2]).max()))
+    gap = float(np.abs(card[2] - cpu[2]).max()) if card[2].shape == \
+        cpu[2].shape else float("inf")
+    if not (np.array_equal(card[0], cpu[0]) and card[1] == cpu[1]
+            and gap <= RNN_SEARCH_SCORE_TOL * scale):
+        raise RuntimeError("phase 50 batch %d: card and CPU differ (LoDs "
+                           "%s / %s, score gap %.3g)" % (
+                               RNN_SEARCH_CHECK_BATCH, card[1], cpu[1], gap))
+    exe.close()
+    gen_ms = float(np.median(times))
+    log("phase 50 RNNsearch generation (batch %d, beam %d, up to %d trips): "
+        "build %.2f s, %d weights from phase 49; first run %.1f ms, %d "
+        "runs %s ms, median %.1f ms a batch; %d trips, %d sentences, %d "
+        "ended (end id %d); batch %d card against CPU: ids and both LoD "
+        "levels equal (%d trips, %d ended), scores %.2g apart (limit %g of "
+        "scale %.3g); with an end id outside the dictionary (nothing ends): "
+        "%d trips, runs %s ms, median %.1f ms a batch, %.2f ms a trip; "
+        "launches %s; card %s" % (
+            cfg["batch"], cfg["beam"], cfg["max_len"], build_s, len(shared),
+            first_ms, RNN_SEARCH_GEN_RUNS,
+            ", ".join("%.1f" % t for t in times), gen_ms, trips, n_sent,
+            ended, cfg["end"], RNN_SEARCH_CHECK_BATCH, card[3], card[4], gap,
+            RNN_SEARCH_SCORE_TOL, scale, full_trips,
+            ", ".join("%.1f" % t for t in full_times), full_ms,
+            full_ms / full_trips,
+            json.dumps({k: v for k, v in counts.items() if v}), card_line()))
+    run = {"ms_a_batch": gen_ms, "runs_ms": times, "first_ms": first_ms,
+           "trips": trips, "sentences": n_sent, "ended": ended,
+           "full_trips": full_trips, "full_ms_a_batch": full_ms,
+           "full_runs_ms": full_times,
+           "check": {"trips": card[3], "ended": card[4], "score_gap": gap}}
+    return counts, run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -6896,6 +7201,14 @@ def main() -> int:
     book_counts, book_run = phase_book(fluid, support)
     bert_proto, bert_proto_run = phase_bert_proto(fluid, support)
     ckpt, ckpt_run = phase_checkpoint(fluid, support)
+    # DynamicRNN and the LoD beam search: RNNsearch trains and generates
+    rs_train, rs_run, rs_scope = phase_rnn_search_train(fluid, support, fo)
+    k4["rnn_search_shape"] = rs_run["k4"]
+    rs_gen, rs_gen_run = phase_rnn_search_generate(fluid, support, rs_scope)
+    del rs_scope
+    log("phases 49-50 %s" % json.dumps(
+        {"rnn_search": {k: v for k, v in rs_run.items() if k != "k4"},
+         "rnn_search_generate": rs_gen_run}))
     log("phases 46-48 %s" % json.dumps(
         {"book": book_run, "bert_proto": bert_proto_run,
          "checkpoint": ckpt_run}))
@@ -6952,7 +7265,9 @@ def main() -> int:
                    **{path: c.get(kern["name"], 0)
                       for path, c in book_counts.items()},
                    "bert_proto": bert_proto.get(kern["name"], 0),
-                   "checkpoint": ckpt.get(kern["name"], 0)}
+                   "checkpoint": ckpt.get(kern["name"], 0),
+                   "rnn_search": rs_train.get(kern["name"], 0),
+                   "rnn_search_generate": rs_gen.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

@@ -7,8 +7,11 @@ emitting the same ops, slots and attrs. ``While`` builds its body in a
 sub-block run by the ``while`` host op (``ops/control_flow_ops.py``);
 ``cond`` builds both branches and merges them with ``where``, as the JAX
 package does; ``IfElse`` partitions rows by a ``[N, 1]`` bool mask
-(``split_lod_tensor`` / ``merge_lod_tensor``). ``DynamicRNN`` waits for
-the LoD slice (ROADMAP.md).
+(``split_lod_tensor`` / ``merge_lod_tensor``). ``DynamicRNN`` (:305) runs
+a block once a step over ragged sequences, longest first, through the
+rank-table host ops (``ops/rank_table_ops.py``) and a ``while``; its
+``static_input`` is the reordered input shrunk to the sequences still
+active, as the reference's is (the JAX package's is not shrunk).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from ..layer_helper import LayerHelper
 __all__ = ["While", "less_than", "less_equal", "greater_than",
            "greater_equal", "equal", "not_equal", "array_write", "array_read",
            "array_length", "create_array", "logical_and", "logical_or",
-           "logical_xor", "logical_not", "cond", "IfElse"]
+           "logical_xor", "logical_not", "cond", "IfElse", "DynamicRNN"]
 
 
 def _cmp_layer(op_type, x, y, cond=None):
@@ -255,3 +258,211 @@ class IfElse:
                 infer_shape=False)
             merged.append(out)
         return merged
+
+
+class DynamicRNN:
+    """A recurrence over LoD sequences of different lengths: the block
+    runs once a step, on the rows of the sequences still active at that
+    step, longest sequence first (``lod_rank_table``). ``step_input``
+    splits a LoD input into a time-major array (``lod_tensor_to_array``)
+    and reads step t of it; ``memory`` keeps a state that shrinks with the
+    active set (``shrink_rnn_memory``), booted from ``init`` in rank order
+    (``reorder_lod_tensor_by_rank``) or filled with ``value``;
+    ``static_input`` gives every step the input's whole sequences, in rank
+    order, those of the active sequences only; ``output`` collects a
+    var each step, and calling the object returns it as one LoD tensor
+    in the input's sequence order (``array_to_lod_tensor``). The parent
+    block gets the rank table, the counter, the condition and one
+    ``while`` op::
+
+        drnn = fluid.layers.DynamicRNN()
+        with drnn.block():
+            word = drnn.step_input(sentence)
+            prev = drnn.memory(shape=[H])
+            hidden = fluid.layers.fc([word, prev], H, act="tanh")
+            drnn.update_memory(prev, hidden)
+            drnn.output(hidden)
+        out = drnn()
+    """
+
+    BEFORE_RNN = 0
+    IN_RNN = 1
+    AFTER_RNN = 2
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("dynamic_rnn", name=name)
+        self.status = DynamicRNN.BEFORE_RNN
+        self._main = self.helper.main_program
+        self._parent_block = None
+        self._rnn_block = None
+        self._rank_table = None
+        self._max_len = None
+        self._step_idx = None
+        self._cond = None
+        self._mem_updates = []   # (boot name, new var)
+        self._outputs = []       # (array var, step var)
+
+    @contextlib.contextmanager
+    def block(self):
+        self._parent_block = self._main.current_block()
+        self._rnn_block = self._main._create_block()
+        self.status = DynamicRNN.IN_RNN
+        try:
+            yield
+        finally:
+            self._close_block()
+
+    def _parent_op(self, type, inputs, outputs, attrs=None):
+        return self._parent_block.append_op(type, inputs, outputs,
+                                            dict(attrs or {}),
+                                            infer_shape=False)
+
+    def _parent_var(self, hint, **kw):
+        return self._parent_block.create_var(
+            name=framework.unique_name.generate(hint), **kw)
+
+    def _ensure_loop_state(self, x):
+        """The first ``step_input`` puts the rank table, the counter and
+        the condition in the parent block."""
+        if self._rank_table is not None:
+            return
+        self._rank_table = self._parent_var("drnn_rank_table")
+        self._parent_op("lod_rank_table", {"X": [x]},
+                        {"Out": [self._rank_table]}, {"level": 0})
+        self._max_len = self._parent_var("drnn_max_len", dtype="int64",
+                                         shape=(1,))
+        self._parent_op("max_sequence_len",
+                        {"RankTable": [self._rank_table]},
+                        {"Out": [self._max_len]})
+        self._step_idx = self._parent_var("drnn_i", dtype="int64",
+                                          shape=(1,))
+        self._parent_op("fill_constant", {}, {"Out": [self._step_idx]},
+                        {"shape": [1], "value": 0.0, "dtype": 3})
+        self._cond = self._parent_var("drnn_cond", dtype="bool", shape=(1,))
+        self._parent_op("less_than",
+                        {"X": [self._step_idx], "Y": [self._max_len]},
+                        {"Out": [self._cond]})
+
+    def _shrink(self, boot, dtype, shape):
+        mem = self.helper.create_variable_for_type_inference(dtype)
+        self.helper.append_op(
+            "shrink_rnn_memory",
+            inputs={"X": [boot], "RankTable": [self._rank_table],
+                    "I": [self._step_idx]},
+            outputs={"Out": [mem]}, infer_shape=False)
+        mem.shape = (-1,) + tuple(shape)
+        mem.dtype = dtype
+        return mem
+
+    def step_input(self, x, level=0):
+        if self.status != DynamicRNN.IN_RNN:
+            raise ValueError("step_input must be called inside block()")
+        self._ensure_loop_state(x)
+        arr = self._parent_var("drnn_in_arr", type="lod_tensor_array",
+                               dtype=x.dtype)
+        self._parent_op("lod_tensor_to_array",
+                        {"X": [x], "RankTable": [self._rank_table]},
+                        {"Out": [arr]})
+        step = self.helper.create_variable_for_type_inference(x.dtype)
+        self.helper.append_op("read_from_array",
+                              inputs={"X": [arr], "I": [self._step_idx]},
+                              outputs={"Out": [step]}, infer_shape=False)
+        step.shape = (-1,) + tuple(x.shape[1:]) if x.shape else None
+        step.dtype = x.dtype
+        return step
+
+    def static_input(self, x):
+        """X's sequences in rank order, those still active at this step
+        (the reference's ``shrink_memory`` of the reordered input)."""
+        if self._rank_table is None:
+            raise ValueError("call step_input before static_input "
+                             "(the rank table comes from it)")
+        reordered = self._parent_var("drnn_static", dtype=x.dtype,
+                                     shape=x.shape)
+        self._parent_op("reorder_lod_tensor_by_rank",
+                        {"X": [x], "RankTable": [self._rank_table]},
+                        {"Out": [reordered]})
+        return self._shrink(reordered, x.dtype, tuple(x.shape[1:]))
+
+    def memory(self, init=None, shape=None, value=0.0, dtype="float32"):
+        if self.status != DynamicRNN.IN_RNN:
+            raise ValueError("memory must be called inside block()")
+        if self._rank_table is None:
+            raise ValueError("call step_input before memory")
+        if init is not None:
+            boot = self._parent_var("drnn_boot", dtype=init.dtype,
+                                    shape=init.shape)
+            self._parent_op("reorder_lod_tensor_by_rank",
+                            {"X": [init], "RankTable": [self._rank_table]},
+                            {"Out": [boot]})
+            dtype = init.dtype
+        else:
+            from ..core import dtypes as _dt
+
+            boot = self._parent_var("drnn_boot", dtype=dtype,
+                                    shape=(-1,) + tuple(shape or ()))
+            self._parent_op("rank_table_boot_memory",
+                            {"RankTable": [self._rank_table]},
+                            {"Out": [boot]},
+                            {"shape": list(shape or []),
+                             "value": float(value),
+                             "dtype": _dt.dtype_to_enum(dtype)})
+        mem = self._shrink(boot, dtype, tuple(shape or boot.shape[1:] or ()))
+        mem._drnn_boot = boot.name
+        return mem
+
+    def update_memory(self, ex_mem, new_mem):
+        boot = getattr(ex_mem, "_drnn_boot", None)
+        if boot is None:
+            raise ValueError("update_memory takes the var memory() "
+                             "returned")
+        self._mem_updates.append((boot, new_mem))
+
+    def output(self, *outputs):
+        if self.status != DynamicRNN.IN_RNN:
+            raise ValueError("output must be called inside block()")
+        for o in outputs:
+            arr = self._parent_var("drnn_out_arr", type="lod_tensor_array",
+                                   dtype=o.dtype)
+            self._parent_op("create_lod_tensor_array", {}, {"Out": [arr]})
+            self._outputs.append((arr, o))
+
+    def _close_block(self):
+        blk = self._main.current_block()
+        for arr, o in self._outputs:
+            blk.append_op("write_to_array",
+                          inputs={"X": [o], "I": [self._step_idx]},
+                          outputs={"Out": [arr]}, infer_shape=False)
+        for boot_name, new_mem in self._mem_updates:
+            blk.append_op("assign", inputs={"X": [new_mem]},
+                          outputs={"Out": [boot_name]}, infer_shape=False)
+        blk.append_op("increment", inputs={"X": [self._step_idx]},
+                      outputs={"Out": [self._step_idx]},
+                      attrs={"step": 1.0}, infer_shape=False)
+        blk.append_op("less_than",
+                      inputs={"X": [self._step_idx], "Y": [self._max_len]},
+                      outputs={"Out": [self._cond]}, infer_shape=False)
+        self._main._rollback()
+        self._parent_block.append_op(
+            "while", inputs={"Condition": [self._cond]}, outputs={},
+            attrs={"sub_block": self._rnn_block, "is_test": False},
+            infer_shape=False)
+        self.status = DynamicRNN.AFTER_RNN
+
+    def __call__(self):
+        if self.status != DynamicRNN.AFTER_RNN:
+            raise ValueError("call the DynamicRNN after its block ends")
+        if not self._outputs:
+            raise ValueError("DynamicRNN has no output()")
+        results = []
+        for arr, o in self._outputs:
+            out = self._parent_block.create_var(
+                name=framework.unique_name.generate("drnn_out"),
+                dtype=o.dtype, lod_level=1,
+                shape=(-1,) + tuple(o.shape[1:] if o.shape else ()))
+            self._parent_block.append_op(
+                "array_to_lod_tensor",
+                inputs={"X": [arr], "RankTable": [self._rank_table]},
+                outputs={"Out": [out]}, infer_shape=False)
+            results.append(out)
+        return results[0] if len(results) == 1 else results

@@ -2,18 +2,27 @@
 ``Print`` (:760), ``gather_tree`` (:782), ``lod_reset`` (:606),
 ``sequence_slice`` (:689), ``sequence_unpad`` (:703), ``im2sequence``
 (:714), ``cos_sim`` (:186), ``linear_chain_crf`` (:623), ``crf_decoding``
-(:654) and ``chunk_eval`` (:1012) of ``paddle_tpu/layers/extras.py``: the
-same ops, slots, attrs and parameter names. ``flash_attention`` is fused attention over ``[B, H, S, D]``, the
-hand-written CUDA kernels on the card; ``lengths`` ([B] int) masks padded
-keys inside the kernel."""
+(:654), ``chunk_eval`` (:1012), ``size`` (:322), ``is_empty`` (:333),
+``while_loop`` (:436), ``sequence_reverse`` (:581),
+``get_tensor_from_selected_rows`` (:592) and ``merge_selected_rows``
+(:596) of ``paddle_tpu/layers/extras.py``: the same ops, slots, attrs and
+parameter names. ``is_empty`` counts the elements through ``shape`` and
+``reduce_prod``, as the JAX layer does, not through the ``is_empty`` op;
+``while_loop`` is a ``While`` whose body assigns the new loop vars over
+the old and recomputes the condition. ``flash_attention`` is fused
+attention over ``[B, H, S, D]``, the hand-written CUDA kernels on the
+card; ``lengths`` ([B] int) masks padded keys inside the kernel."""
 from __future__ import annotations
 
+from .. import framework
 from ..layer_helper import LayerHelper
 
 __all__ = ["flash_attention", "gru_unit", "lstm_unit", "Print",
            "gather_tree", "lod_reset", "sequence_slice", "sequence_unpad",
            "im2sequence", "cos_sim", "linear_chain_crf", "crf_decoding",
-           "chunk_eval"]
+           "chunk_eval", "size", "is_empty", "while_loop",
+           "sequence_reverse", "get_tensor_from_selected_rows",
+           "merge_selected_rows"]
 
 
 def flash_attention(q, k, v, causal=False, scale=0.0, lengths=None):
@@ -270,3 +279,69 @@ def chunk_eval(input, label, chunk_scheme, num_chunk_types,
                "excluded_chunk_types": list(excluded_chunk_types or [])},
         infer_shape=False)
     return precision, recall, f1, n_infer, n_label, n_correct
+
+
+def size(input):
+    """The element count at run time, int64, from the ``shape`` op (a -1
+    dim is known only then)."""
+    from .nn import reduce_prod, shape
+    from .tensor import cast
+
+    return cast(reduce_prod(cast(shape(input), "int64")), "int64")
+
+
+def is_empty(x, cond=None):
+    from .control_flow import equal
+    from .tensor import assign, cast, fill_constant
+
+    zero = fill_constant([1], "int64", 0)
+    out = equal(cast(size(x), "int64"), zero)
+    if cond is not None:
+        assign(out, output=cond)
+        return cond
+    return out
+
+
+def while_loop(cond, body, loop_vars, is_test=False, name=None):
+    from .control_flow import While
+    from .tensor import assign
+
+    c = cond(*loop_vars)
+    w = While(c)  # the JAX layer's: is_test is not passed on
+    with w.block():
+        new_vars = body(*loop_vars)
+        if not isinstance(new_vars, (list, tuple)):
+            new_vars = [new_vars]
+        for old, new in zip(loop_vars, new_vars):
+            assign(new, output=old)
+        assign(cond(*loop_vars), output=c)
+    return list(loop_vars)
+
+
+def sequence_reverse(x, name=None):
+    helper = LayerHelper("sequence_reverse", input=x)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.lod_level = getattr(x, "lod_level", 0)
+    helper.append_op("sequence_reverse", inputs={"X": [x]},
+                     outputs={"Y": [out]}, infer_shape=False)
+    out.shape = tuple(x.shape) if x.shape else None
+    return out
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    helper = LayerHelper("get_tensor_from_selected_rows", input=x,
+                         name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("get_tensor_from_selected_rows", inputs={"X": [x]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def merge_selected_rows(x, name=None):
+    helper = LayerHelper("merge_selected_rows", input=x)
+    out = helper.main_program.current_block().create_var(
+        name=framework.unique_name.generate("merged_sr"),
+        type="selected_rows", dtype=x.dtype)
+    helper.append_op("merge_selected_rows", inputs={"X": [x]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out

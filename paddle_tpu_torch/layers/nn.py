@@ -7,13 +7,17 @@
 ``_sub`` / ``_mul`` / ``_div`` / ``_min`` / ``_mod`` / ``_floordiv``
 (:1159-1191), ``squeeze`` (:747), ``unsqueeze`` (:758), ``stack``
 (:823), ``one_hot`` (:868), ``topk`` (:877), ``reduce_mean`` /
-``reduce_max`` / ``reduce_min`` (:939-947) and ``where`` (:1111) of
+``reduce_max`` / ``reduce_min`` (:939-947), ``where`` (:1111),
+``split`` (:769), ``shape`` (:914), ``reduce_prod`` / ``reduce_all`` /
+``reduce_any`` (:947-955), ``elementwise_max`` / ``_pow`` (:1175,
+:1183), ``gaussian_random`` (:1214) and ``uniform_random`` (:1228) of
 ``paddle_tpu/layers/nn.py``. Each emits the same ops, slots, attrs and
 parameter names as its JAX counterpart."""
 from __future__ import annotations
 
 import math
 
+from ..core import dtypes as _dt
 from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
@@ -25,7 +29,9 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
            "elementwise_div", "elementwise_min", "clip", "clip_by_norm",
            "elementwise_mod", "elementwise_floordiv", "squeeze", "unsqueeze",
            "stack", "one_hot", "topk", "reduce_mean", "reduce_max",
-           "reduce_min", "where"]
+           "reduce_min", "where", "split", "shape", "reduce_prod",
+           "reduce_all", "reduce_any", "elementwise_max", "elementwise_pow",
+           "gaussian_random", "uniform_random"]
 
 
 def _pair(x, n=2):
@@ -432,3 +438,73 @@ def where(condition, x, y, name=None):
                                       "Y": [y]},
                      outputs={"Out": [out]})
     return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", input=input, name=name)
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        attrs = {"num": num, "sections": [], "axis": dim}
+    else:
+        num = len(num_or_sections)
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": dim}
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(num)]
+    helper.append_op("split", inputs={"X": [input]}, outputs={"Out": outs},
+                     attrs=attrs)
+    return outs
+
+
+def shape(input):
+    helper = LayerHelper("shape", input=input)
+    out = helper.create_variable_for_type_inference("int32",
+                                                    stop_gradient=True)
+    helper.append_op("shape", inputs={"Input": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
+
+
+def reduce_all(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_all", input, dim, keep_dim, name)
+
+
+def reduce_any(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_any", input, dim, keep_dim, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def _random(op_type, shape, dtype, name, **attrs):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    # no shape inference: a draw needs the executor's generator, which a
+    # meta run has not
+    helper.append_op(op_type, inputs={}, outputs={"Out": [out]},
+                     attrs=dict(attrs, shape=list(shape),
+                                dtype=_dt.dtype_to_enum(dtype)),
+                     infer_shape=False)
+    out.shape = tuple(shape)
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32",
+                    name=None):
+    return _random("gaussian_random", shape, dtype, name, mean=mean,
+                   std=std, seed=seed)
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0,
+                   name=None):
+    return _random("uniform_random", shape, dtype, name, min=min, max=max,
+                   seed=seed)

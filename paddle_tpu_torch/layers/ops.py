@@ -1,14 +1,14 @@
 """``scale`` (counterpart of ``paddle_tpu/layers/ops.py:42``), ``pow``
 (:55), ``increment`` (:102) and the unary layers ``tanh``, ``sigmoid``,
 ``exp``, ``log``, ``sqrt``, ``abs``, ``square``, ``ceil``, ``floor``,
-``cos`` and ``sign``, made as the JAX package's ``_make_unary`` (:24)
-makes them."""
+``cos``, ``sign`` and ``gelu``, made as the JAX package's
+``_make_unary`` (:24) makes them."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
 _UNARY = ["tanh", "sigmoid", "exp", "log", "sqrt", "abs", "square", "ceil",
-          "floor", "cos", "sign"]
+          "floor", "cos", "sign", "gelu"]
 
 __all__ = _UNARY + ["scale", "pow", "increment"]
 

@@ -21,9 +21,10 @@ its backtrace the ``gather_tree`` op.
 The LoD layers ``dynamic_lstm`` (:21) and ``dynamic_gru`` (:57) take the
 pre-projected rows ([T, size] for the LSTM, whose hidden width is size /
 4; [T, 3 * size] for the GRU) and emit one ``lstm`` / ``gru`` op each
-(``ops/rnn_ops.py``); their outputs keep the input's LoD. The LoD
-``beam_search`` / ``beam_search_decode`` ops are still to come
-(ROADMAP.md).
+(``ops/rnn_ops.py``); their outputs keep the input's LoD. ``beam_search``
+(:701) and ``beam_search_decode`` (:733) emit the LoD beam-search host
+ops (``ops/beam_search_ops.py``) that a ``While`` loop of the Fluid
+seq2seq API calls once a step and once after it.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["lstm", "StaticRNN", "RNNCell", "LSTMCell", "GRUCell", "rnn",
            "Decoder", "BeamSearchDecoder", "dynamic_decode", "dynamic_lstm",
-           "dynamic_gru"]
+           "dynamic_gru", "beam_search", "beam_search_decode"]
 
 
 def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
@@ -685,3 +686,45 @@ def dynamic_decode(decoder, inits=None, max_step_num=None,
         else:
             final_outputs = _batch_major(final_outputs)
     return final_outputs, final_states
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, is_accumulated=True, name=None,
+                return_parent_idx=False):
+    """One LoD beam-search step: the top ``beam_size`` candidates of each
+    source sentence, from each prefix's candidates (``ids``, ``scores``)."""
+    helper = LayerHelper("beam_search", input=pre_ids, name=name)
+    selected_ids = helper.create_variable_for_type_inference("int64")
+    selected_scores = helper.create_variable_for_type_inference("float32")
+    inputs = {"pre_ids": [pre_ids], "pre_scores": [pre_scores],
+              "scores": [scores]}
+    if ids is not None:
+        inputs["ids"] = [ids]
+    outputs = {"selected_ids": [selected_ids],
+               "selected_scores": [selected_scores]}
+    if return_parent_idx:
+        parent_idx = helper.create_variable_for_type_inference("int32")
+        outputs["parent_idx"] = [parent_idx]
+    helper.append_op("beam_search", inputs=inputs, outputs=outputs,
+                     attrs={"level": level, "beam_size": beam_size,
+                            "end_id": end_id,
+                            "is_accumulated": is_accumulated},
+                     infer_shape=False)
+    if return_parent_idx:
+        return selected_ids, selected_scores, parent_idx
+    return selected_ids, selected_scores
+
+
+def beam_search_decode(ids, scores, beam_size, end_id, name=None):
+    """The whole hypotheses, backtraced from the arrays of each step's
+    ``beam_search`` outputs."""
+    helper = LayerHelper("beam_search_decode", input=ids, name=name)
+    sentence_ids = helper.create_variable_for_type_inference("int64")
+    sentence_scores = helper.create_variable_for_type_inference("float32")
+    helper.append_op("beam_search_decode",
+                     inputs={"Ids": [ids], "Scores": [scores]},
+                     outputs={"SentenceIds": [sentence_ids],
+                              "SentenceScores": [sentence_scores]},
+                     attrs={"beam_size": beam_size, "end_id": end_id},
+                     infer_shape=False)
+    return sentence_ids, sentence_scores

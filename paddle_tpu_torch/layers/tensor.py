@@ -1,6 +1,7 @@
 """Tensor layers ``create_parameter`` (:44), ``create_global_var`` (:56),
-``cast`` (:69), ``concat`` (:82), ``assign`` (:98), ``fill_constant``
-(:125) and ``range`` (:211) of
+``cast`` (:69), ``concat`` (:82), ``sums`` (:90), ``assign`` (:98),
+``fill_constant`` (:125), ``ones`` / ``zeros`` (:156-161),
+``zeros_like`` (:172) and ``range`` (:211) of
 ``paddle_tpu/layers/tensor.py``: the same ops, slots and attrs."""
 from __future__ import annotations
 
@@ -12,8 +13,9 @@ from .. import framework
 from ..core import dtypes as _dt
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "create_global_var", "cast", "concat", "assign", "fill_constant",
-           "range"]
+__all__ = ["create_parameter", "create_global_var", "cast", "concat",
+           "assign", "fill_constant", "range", "sums", "ones", "zeros",
+           "zeros_like"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -118,4 +120,29 @@ def range(start, end, step, dtype="float32"):
                      inputs={"Start": [_to_var(start)], "End": [_to_var(end)],
                              "Step": [_to_var(step)]},
                      outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum", input=input)
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("sum", inputs={"X": list(input)}, outputs={"Out": [out]})
+    return out
+
+
+def ones(shape, dtype="float32", force_cpu=False):
+    return fill_constant(shape, dtype, 1.0, force_cpu)
+
+
+def zeros(shape, dtype="float32", force_cpu=False):
+    return fill_constant(shape, dtype, 0.0, force_cpu)
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("fill_zeros_like", input=x)
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("fill_zeros_like", inputs={"X": [x]},
+                     outputs={"Out": [out]})
     return out

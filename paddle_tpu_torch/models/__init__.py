@@ -10,3 +10,4 @@ from .transformer import (bert_base_pretrain, transformer_encoder,  # noqa: F401
 # module is ``paddle_tpu_torch.models.wide_deep`` in ``sys.modules``
 from .wide_deep import build_wide_deep, random_batch, wide_deep  # noqa: F401
 from . import book  # noqa: F401
+from . import rnn_search  # noqa: F401

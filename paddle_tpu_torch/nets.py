@@ -1,13 +1,13 @@
 """Composite network blocks: ``simple_img_conv_pool``,
-``img_conv_group`` and ``sequence_conv_pool`` (:72) of
-``paddle_tpu/nets.py``, compositions of the port's layers that emit the
-JAX package's ops. ``glu`` (it needs ``split``) and
-``scaled_dot_product_attention`` are still to come (ROADMAP.md)."""
+``img_conv_group``, ``sequence_conv_pool`` (:72), ``glu`` (:81) and
+``scaled_dot_product_attention`` (:87) of ``paddle_tpu/nets.py``,
+compositions of the port's layers that emit the JAX package's ops."""
 from __future__ import annotations
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool",
+           "glu", "scaled_dot_product_attention"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -73,3 +73,50 @@ def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                                     param_attr=param_attr, act=act,
                                     bias_attr=bias_attr)
     return layers.sequence_pool(input=conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    """The gated linear unit: ``input`` split in two along ``dim``, a *
+    sigmoid(b)."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """Multi-head scaled dot-product attention over dense [B, L, D]
+    tensors: heads split and merged by reshape and transpose, softmax(Q
+    K^T / sqrt(d)) V by two ``matmul`` ops."""
+    if len(queries.shape) != 3 or len(keys.shape) != 3 or \
+            len(values.shape) != 3:
+        raise ValueError("inputs must be 3-D [batch, len, dim]")
+    d_model = int(queries.shape[-1])
+    if d_model % num_heads != 0:
+        raise ValueError("hidden size %d not divisible by num_heads %d"
+                         % (d_model, num_heads))
+
+    def split_heads(x):
+        if num_heads == 1:
+            return x
+        b, n = x.shape[0], x.shape[1]
+        reshaped = layers.reshape(
+            x, shape=[int(b), int(n), num_heads, d_model // num_heads])
+        return layers.transpose(reshaped, perm=[0, 2, 1, 3])
+
+    def merge_heads(x):
+        if num_heads == 1:
+            return x
+        t = layers.transpose(x, perm=[0, 2, 1, 3])
+        return layers.reshape(
+            t, shape=[int(t.shape[0]), int(t.shape[1]),
+                      int(t.shape[2]) * int(t.shape[3])])
+
+    q, k, v = split_heads(queries), split_heads(keys), split_heads(values)
+    key_dim = float(d_model // num_heads)
+    product = layers.matmul(layers.scale(q, scale=key_dim ** -0.5), k,
+                            transpose_y=True)
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate,
+                                 is_test=False)
+    return merge_heads(layers.matmul(weights, v))

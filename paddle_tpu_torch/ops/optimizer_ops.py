@@ -1,7 +1,11 @@
 """Optimizer update ops: ``sgd``, ``momentum``, ``lars_momentum``,
 ``adam``, ``adamw``, ``adamax``, ``adagrad``, ``decayed_adagrad``,
 ``adadelta``, ``rmsprop``, ``ftrl``, ``lamb``, ``dpsgd`` and
-``fused_optimizer``.
+``fused_optimizer``; and the parameter-averaging ops ``ema_accumulate``,
+``ema_adaptive_decay``, ``lookahead_update`` and
+``model_average_accumulate`` (``paddle_tpu/ops/optimizer_ops.py:590-669``)
+that ``ExponentialMovingAverage``, ``LookaheadOptimizer`` and
+``ModelAverage`` append after the update.
 
 Counterparts of ``paddle_tpu/ops/optimizer_ops.py`` (:45, :62, :100, :109,
 :139, :171, :189, :207, :230, :262, :299, :308, :471 and :341-458), with
@@ -388,3 +392,73 @@ def _fused_optimizer(ins, attrs):
             result[slot + "Out"] = [(t.reshape(()) * b).reshape(t.shape)
                                     for t in ins[slot]]
     return result
+
+
+@register_op(
+    "ema_accumulate",
+    inputs=[In("Param", no_grad=True), In("Shadow", no_grad=True),
+            In("Decay", dispensable=True, no_grad=True)],
+    outputs=[Out("ShadowOut")],
+    attrs={"decay": 0.999},
+)
+def _ema_accumulate(ins, attrs):
+    """shadow = decay * shadow + (1 - decay) * param; a Decay input (the
+    ``thres_steps`` schedule's) overrides the attr."""
+    d = ins.get("Decay")
+    d = attrs.get("decay", 0.999) if d is None else d.reshape(())
+    return {"ShadowOut": d * ins["Shadow"] + (1.0 - d) * ins["Param"]}
+
+
+@register_op(
+    "ema_adaptive_decay",
+    inputs=[In("ThresSteps", no_grad=True)],
+    outputs=[Out("Decay")],
+    attrs={"decay": 0.999},
+)
+def _ema_adaptive_decay(ins, attrs):
+    """min(decay, (1 + t) / (10 + t)), the ``thres_steps`` warm-up."""
+    t = ins["ThresSteps"].reshape(()).to(torch.float32)
+    d = torch.minimum(torch.tensor(float(attrs.get("decay", 0.999)),
+                                   dtype=torch.float32, device=t.device),
+                      (1.0 + t) / (10.0 + t))
+    return {"Decay": d.reshape(1)}
+
+
+@register_op(
+    "lookahead_update",
+    inputs=[In("Param", no_grad=True), In("Slow", no_grad=True),
+            In("Step", no_grad=True)],
+    outputs=[Out("ParamOut"), Out("SlowOut")],
+    attrs={"alpha": 0.5, "k": 5},
+)
+def _lookahead_update(ins, attrs):
+    """Every k steps: slow += alpha * (fast - slow), fast = slow; a
+    ``where`` on the step, so it needs no host read."""
+    p, slow, step = ins["Param"], ins["Slow"], ins["Step"]
+    sync = (step.reshape(()).to(torch.int32) % int(attrs.get("k", 5))) == 0
+    slow_new = slow + attrs.get("alpha", 0.5) * (p - slow)
+    return {"ParamOut": torch.where(sync, slow_new, p),
+            "SlowOut": torch.where(sync, slow_new, slow)}
+
+
+@register_op(
+    "model_average_accumulate",
+    inputs=[In("Param", no_grad=True), In("Sum", no_grad=True),
+            In("Count", no_grad=True), In("NumUpdates", no_grad=True)],
+    outputs=[Out("SumOut"), Out("CountOut")],
+    attrs={"average_window": 0.15, "min_average_window": 10000,
+           "max_average_window": 10000},
+)
+def _model_average_accumulate(ins, attrs):
+    """The sliding window's parameter sum: once the count passes both
+    ``min_average_window`` and min(``max_average_window``, updates *
+    ``average_window``), the window restarts at the current parameter."""
+    p, s, c = ins["Param"], ins["Sum"], ins["Count"]
+    upd = ins["NumUpdates"].reshape(())
+    window = torch.clamp(upd * attrs.get("average_window", 0.15),
+                         max=float(attrs.get("max_average_window", 10000)))
+    c_new = c + 1.0
+    cn = c_new.reshape(())
+    restart = (cn >= attrs.get("min_average_window", 10000)) & (cn >= window)
+    return {"SumOut": torch.where(restart, p, s + p),
+            "CountOut": torch.where(restart, torch.ones_like(c), c_new)}

@@ -86,8 +86,10 @@ def _lstm_direction(x, h, c, wx, wh, b, hidden, reverse):
     xs = torch.flip(x, [0]) if reverse else x
     xp = torch.einsum("tnd,dk->tnk", xs, wx) + b[None, None, :]
     hs = []
-    for t in range(xp.shape[0]):
-        g = xp[t] + torch.matmul(h, wh)
+    # unbind, not xp[t]: a slice's backward writes a full-size zero
+    # tensor a step (quadratic in T); unbind's stacks the grads once
+    for x_t in xp.unbind(0):
+        g = x_t + torch.matmul(h, wh)
         cand = torch.tanh(g[:, :hidden])
         ig = torch.sigmoid(g[:, hidden:2 * hidden])
         fg = torch.sigmoid(g[:, 2 * hidden:3 * hidden])

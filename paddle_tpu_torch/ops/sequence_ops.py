@@ -20,7 +20,11 @@ device, where the JAX package builds static index tables at trace time:
   input, in order), ``sequence_conv`` (a context window of
   ``contextLength`` rows from ``contextStart``, zero or trainable
   ``PaddingData`` rows outside the sequence, times ``Filter``) and
-  ``im2sequence`` (patches through ``unfold``) are ops with the
+  ``im2sequence`` (patches through ``unfold``), ``sequence_reverse``
+  (``paddle_tpu/ops/misc_ops.py:507``: each sequence's rows reversed,
+  axis 0 flipped without a LoD) and ``sequence_scatter``
+  (``paddle_tpu/ops/tail_ops2.py:139``: row i of X takes the Updates of
+  sequence i of Ids' LoD, added at the columns Ids names) are ops with the
   registry's auto-VJP grad.
 - ``sequence_unpad`` (and its grad), ``sequence_slice``,
   ``sequence_enumerate``, ``sequence_erase`` and ``lod_reset`` are host
@@ -179,6 +183,40 @@ def _sequence_expand_as(ins, attrs):
     y_off = attrs.get(_LOD + "Y")[0][-1]
     return {"Out": x.index_select(0, host_index(
         np.repeat(np.arange(len(y_off) - 1), seq_lens(y_off)), x.device))}
+
+
+@register_op("sequence_reverse", inputs=[In("X")], outputs=[Out("Y")],
+             needs_lod=True)
+def _sequence_reverse(ins, attrs):
+    x = ins["X"]
+    offsets = lod_offsets(attrs, "X")
+    if offsets is None:
+        return {"Y": torch.flip(x, dims=[0])}
+    idx = [r for i in range(len(offsets) - 1)
+           for r in range(offsets[i + 1] - 1, offsets[i] - 1, -1)]
+    return {"Y": x.index_select(0, host_index(idx, x.device))}
+
+
+@register_op(
+    "sequence_scatter",
+    inputs=[In("X"), In("Ids", no_grad=True), In("Updates")],
+    outputs=[Out("Out")],
+    needs_lod=True,
+)
+def _sequence_scatter(ins, attrs):
+    x = ins["X"]
+    ids = ins["Ids"].reshape(-1).to(torch.int64)
+    upd = ins["Updates"].reshape(-1)
+    offsets = lod_offsets(attrs, "Ids")
+    if offsets is None:
+        raise ValueError("sequence_scatter requires LoD on Ids")
+    if len(offsets) - 1 != x.shape[0]:
+        raise ValueError(
+            "sequence_scatter: Ids has %d sequences but X has %d rows"
+            % (len(offsets) - 1, x.shape[0]))
+    flat = seg_ids(offsets, x.device) * x.shape[1] + ids
+    return {"Out": x.reshape(-1).index_add(0, flat, upd.to(x.dtype))
+            .reshape(x.shape)}
 
 
 @register_op(

@@ -16,7 +16,10 @@ W]``), with the same slots and attrs, and of
 ``index_add_``; under ``is_sparse`` the grad maker emits the host op
 ``lookup_table_sparse_grad`` (:715), whose W@GRAD is a ``SelectedRows``
 (rows the looked-up ids, values Out@GRAD's rows), and
-``merge_selected_rows`` (:983) sums a SelectedRows' duplicate rows.
+``merge_selected_rows`` (:983) sums a SelectedRows' duplicate rows and
+``get_tensor_from_selected_rows`` (:999) returns its value rows. ``split``
+(:395), ``shape`` (:770) and ``is_empty``
+(``paddle_tpu/ops/tail_ops3.py:120``) are the JAX ops' too.
 ``gather``'s auto-VJP grad is a
 scatter-add too (autograd's ``index_select`` backward), so repeated
 indices sum. ``range`` is a host op, as in the JAX package (its output's
@@ -273,6 +276,68 @@ def _merge_selected_rows(executor, op, scope):
         0, torch.from_numpy(inv.reshape(-1)).to(vals.device), vals)
     scope.var(op.output("Out")[0]).set(SelectedRows(
         rows=uniq.tolist(), height=sr.height(), value=LoDTensor(merged)))
+
+
+@register_host_op(
+    "get_tensor_from_selected_rows",
+    inputs=[In("X", no_grad=True)],
+    outputs=[Out("Out")],
+)
+def _get_tensor_from_selected_rows(executor, op, scope):
+    """A SelectedRows' value rows as a dense tensor."""
+    sr = scope.find_var(op.input("X")[0]).raw()
+    if not isinstance(sr, SelectedRows):
+        raise TypeError("expects SelectedRows input")
+    executor._write_var(scope, op.output("Out")[0], sr.get_tensor().array)
+
+
+@register_op(
+    "split",
+    inputs=[In("X")],
+    outputs=[Out("Out", duplicable=True)],
+    attrs={"num": 0, "sections": [], "axis": 0},
+)
+def _split(ins, attrs):
+    """X cut along ``axis`` into ``num`` equal parts, or into
+    ``sections`` (one of which may be -1, the rest)."""
+    x = ins["X"]
+    axis = attrs.get("axis", 0)
+    sections = list(attrs.get("sections") or [])
+    if sections:
+        known = builtins.sum(s for s in sections if s > 0)
+        sections = [s if s > 0 else int(x.shape[axis]) - known
+                    for s in sections]
+        return {"Out": list(torch.split(x, sections, dim=axis))}
+    num, size = attrs["num"], int(x.shape[axis])
+    if size % num:
+        raise ValueError("split: dim %d of size %d does not divide into %d"
+                         % (axis, size, num))
+    return {"Out": list(torch.split(x, size // num, dim=axis))}
+
+
+@register_op(
+    "shape",
+    inputs=[In("Input", no_grad=True)],
+    outputs=[Out("Out")],
+    grad=None,
+)
+def _shape(ins, attrs):
+    """Input's dims, int32 (the JAX package's type)."""
+    x = ins["Input"]
+    return {"Out": torch.tensor(list(x.shape), dtype=torch.int32,
+                                device=x.device)}
+
+
+@register_op(
+    "is_empty",
+    inputs=[In("X", no_grad=True)],
+    outputs=[Out("Out")],
+    grad=None,
+)
+def _is_empty(ins, attrs):
+    """A bool scalar: X holds no element."""
+    x = ins["X"]
+    return {"Out": torch.tensor(x.numel() == 0, device=x.device)}
 
 
 @register_op(

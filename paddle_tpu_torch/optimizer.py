@@ -20,8 +20,12 @@ In dygraph mode ``minimize`` is ``dygraph/backward_utils.dygraph_minimize``
 (one update op per parameter, state in ``_dygraph_state``), and
 ``state_dict`` / ``set_dict`` read and write that state. The learning rate
 may be a dygraph decay (``dygraph.NoamDecay`` and the rest), called once a
-step. ``DGCMomentum``, ``Pipeline``, ``ExponentialMovingAverage``,
-``ModelAverage`` and ``Lookahead`` come with later slices (ROADMAP.md).
+step. ``ExponentialMovingAverage`` (:864), ``ModelAverage`` (:947) and
+``LookaheadOptimizer`` (:1011) append their averaging ops after the
+update; the first two swap the parameters for their averages under
+``apply()`` and back under ``restore()``, in place (the tensors keep their
+addresses, so a captured step reads the swapped values). ``DGCMomentum``
+and ``Pipeline`` come with later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -40,7 +44,9 @@ __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
            "AdagradOptimizer", "Adam", "AdamOptimizer", "AdamW", "Adamax",
            "AdamaxOptimizer", "DpsgdOptimizer", "DecayedAdagradOptimizer",
            "Adadelta", "AdadeltaOptimizer", "RMSProp", "RMSPropOptimizer",
-           "Ftrl", "FtrlOptimizer", "LambOptimizer", "RecomputeOptimizer"]
+           "Ftrl", "FtrlOptimizer", "LambOptimizer", "RecomputeOptimizer",
+           "ExponentialMovingAverage", "ModelAverage",
+           "LookaheadOptimizer"]
 
 
 class Optimizer:
@@ -550,6 +556,250 @@ class RecomputeOptimizer(Optimizer):
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
         return self.apply_gradients(params_grads), params_grads
+
+
+class _ParamSwapper:
+    """``apply()`` / ``restore()``: each parameter's tensor in the global
+    scope overwritten with its replacement, in place, and back."""
+
+    def __init__(self):
+        self._backups = {}
+
+    def _param_names(self):
+        raise NotImplementedError
+
+    def _replacement(self, scope, pname):
+        """The replacement tensor for ``pname``, or None to skip it."""
+        raise NotImplementedError
+
+    def apply(self, executor=None, need_restore=True):
+        import contextlib
+
+        @contextlib.contextmanager
+        def _ctx():
+            from .core.scope import global_scope
+
+            scope = global_scope()
+            for pname in self._param_names():
+                pv = scope.find_var(pname)
+                if pv is None:
+                    continue
+                repl = self._replacement(scope, pname)
+                if repl is None:
+                    continue
+                arr = pv.get_tensor().array
+                self._backups[pname] = arr.clone()
+                arr.copy_(repl)
+            try:
+                yield
+            finally:
+                if need_restore:
+                    self.restore(executor)
+
+        return _ctx()
+
+    def restore(self, executor=None):
+        from .core.scope import global_scope
+
+        scope = global_scope()
+        for pname, saved in self._backups.items():
+            pv = scope.find_var(pname)
+            if pv is not None:
+                pv.get_tensor().array.copy_(saved)
+        self._backups = {}
+
+
+def _trainable(params):
+    return [p for p in params if getattr(p, "trainable", True)]
+
+
+def _host_scalar(scope, var):
+    v = scope.find_var(var.name)
+    if v is None or not v.is_initialized():
+        return None
+    return float(v.get_tensor().array.reshape(-1)[0].item())
+
+
+class ExponentialMovingAverage(_ParamSwapper):
+    """Shadows updated each step by ``update()``'s ``ema_accumulate`` ops;
+    ``apply()`` swaps in the bias-corrected shadows, ema / (1 -
+    decay^t)."""
+
+    def __init__(self, decay=0.999, thres_steps=None, name=None):
+        super().__init__()
+        self._decay = decay
+        self._thres_steps = thres_steps
+        self._name = name or ""
+        self._shadows = {}  # param name -> shadow var
+        self._decay_pow = None
+
+    def _param_names(self):
+        return list(self._shadows)
+
+    def update(self):
+        from .layers.tensor import create_global_var
+
+        program = framework.default_main_program()
+        block = program.global_block()
+        params = _trainable(block.all_parameters)
+        # the optimize role: clone(for_test=True) prunes these
+        with program._optimized_guard():
+            self._decay_pow = create_global_var(
+                name=unique_name.generate(self._name + "ema_decay_pow"),
+                shape=[1], value=1.0, dtype="float32", persistable=True)
+            decay_inputs = {}
+            if self._thres_steps is not None:
+                decay_var = block.create_var(
+                    name=unique_name.generate("ema_decay"), shape=(1,),
+                    dtype="float32")
+                block.append_op(
+                    "ema_adaptive_decay",
+                    inputs={"ThresSteps": [self._thres_steps]},
+                    outputs={"Decay": [decay_var]},
+                    attrs={"decay": float(self._decay)}, infer_shape=False)
+                decay_inputs = {"Decay": [decay_var]}
+                block.append_op(
+                    "elementwise_mul",
+                    inputs={"X": [self._decay_pow], "Y": [decay_var]},
+                    outputs={"Out": [self._decay_pow]},
+                    attrs={"axis": -1}, infer_shape=False)
+            else:
+                block.append_op(
+                    "scale", inputs={"X": [self._decay_pow]},
+                    outputs={"Out": [self._decay_pow]},
+                    attrs={"scale": float(self._decay)}, infer_shape=False)
+            for p in params:
+                shadow = create_global_var(
+                    name=self._name + p.name + ".ema", shape=p.shape,
+                    dtype=p.dtype, value=0.0, persistable=True)
+                self._shadows[p.name] = shadow
+                block.append_op(
+                    "ema_accumulate",
+                    inputs=dict({"Param": [p], "Shadow": [shadow]},
+                                **decay_inputs),
+                    outputs={"ShadowOut": [shadow]},
+                    attrs={"decay": self._decay}, infer_shape=False)
+
+    def _replacement(self, scope, pname):
+        sv = scope.find_var(self._shadows[pname].name)
+        if sv is None or not sv.is_initialized():
+            return None
+        correction = 1.0
+        if self._decay_pow is not None:
+            dp = _host_scalar(scope, self._decay_pow)
+            if dp is not None and 1.0 - dp > 1e-12:
+                correction = 1.0 - dp
+        return sv.get_tensor().array / correction
+
+
+class ModelAverage(Optimizer, _ParamSwapper):
+    """The average of each parameter over a sliding window of steps: the
+    sum restarts once its count passes min(``max_average_window``,
+    updates * ``average_window_rate``) and ``min_average_window``;
+    ``apply()`` swaps in sum / count."""
+
+    def __init__(self, average_window_rate=0.15, min_average_window=10000,
+                 max_average_window=10000, regularization=None, name=None):
+        from .layers.tensor import create_global_var
+
+        Optimizer.__init__(self, learning_rate=0.0,
+                           regularization=regularization, name=name)
+        _ParamSwapper.__init__(self)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        self._sums = {}
+        self._counts = {}
+        program = framework.default_main_program()
+        block = program.global_block()
+        with program._optimized_guard():
+            upd = create_global_var(
+                name=unique_name.generate("avg_num_updates"), shape=[1],
+                dtype="float32", value=0.0, persistable=True)
+            block.append_op("increment", inputs={"X": [upd]},
+                            outputs={"Out": [upd]}, attrs={"step": 1.0},
+                            infer_shape=False)
+            for p in _trainable(block.all_parameters):
+                s = create_global_var(
+                    name=p.name + ".avg_sum", shape=p.shape, dtype=p.dtype,
+                    value=0.0, persistable=True)
+                c = create_global_var(
+                    name=p.name + ".avg_cnt", shape=[1], dtype="float32",
+                    value=0.0, persistable=True)
+                self._sums[p.name] = s
+                self._counts[p.name] = c
+                block.append_op(
+                    "model_average_accumulate",
+                    inputs={"Param": [p], "Sum": [s], "Count": [c],
+                            "NumUpdates": [upd]},
+                    outputs={"SumOut": [s], "CountOut": [c]},
+                    attrs={"average_window": self.average_window,
+                           "min_average_window": self.min_average_window,
+                           "max_average_window": self.max_average_window},
+                    infer_shape=False)
+
+    def _param_names(self):
+        return list(self._sums)
+
+    def _replacement(self, scope, pname):
+        sv = scope.find_var(self._sums[pname].name)
+        if sv is None or not sv.is_initialized():
+            return None
+        cnt = _host_scalar(scope, self._counts[pname])
+        if not cnt or cnt <= 0:
+            return None
+        return sv.get_tensor().array / cnt
+
+
+class LookaheadOptimizer:
+    """The inner optimizer steps the fast weights every step; every k
+    steps the slow weights move ``alpha`` of the way to the fast ones and
+    the fast weights take their value (one ``lookahead_update`` op a
+    parameter, after the update)."""
+
+    def __init__(self, inner_optimizer, alpha=0.5, k=5):
+        if inner_optimizer is None:
+            raise ValueError("inner optimizer can not be None")
+        if not 0.0 <= alpha <= 1.0:
+            raise ValueError("alpha should be in [0, 1]")
+        if not (isinstance(k, int) and k > 0):
+            raise ValueError("k should be a positive integer")
+        self.inner_optimizer = inner_optimizer
+        self.alpha = alpha
+        self.k = k
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from .layers.tensor import create_global_var
+
+        result = self.inner_optimizer.minimize(
+            loss, startup_program=startup_program,
+            parameter_list=parameter_list, no_grad_set=no_grad_set)
+        block = loss.block
+        params = _trainable(block.program.global_block().all_parameters)
+        startup = framework.default_startup_program().global_block()
+        with block.program._optimized_guard():
+            step = create_global_var(
+                name=unique_name.generate("lookahead_step"), shape=[1],
+                dtype="int32", value=0, persistable=True)
+            block.append_op("increment", inputs={"X": [step]},
+                            outputs={"Out": [step]}, attrs={"step": 1.0},
+                            infer_shape=False)
+            for p in params:
+                slow = create_global_var(
+                    name=p.name + ".slow", shape=p.shape, dtype=p.dtype,
+                    value=0.0, persistable=True)
+                # the slow weights start at the parameters
+                startup.append_op("assign", inputs={"X": [p.name]},
+                                  outputs={"Out": [slow.name]},
+                                  infer_shape=False)
+                block.append_op(
+                    "lookahead_update",
+                    inputs={"Param": [p], "Slow": [slow], "Step": [step]},
+                    outputs={"ParamOut": [p], "SlowOut": [slow]},
+                    attrs={"alpha": self.alpha, "k": self.k},
+                    infer_shape=False)
+        return result
 
 
 SGD = SGDOptimizer

@@ -2248,3 +2248,208 @@ def test_load_without_an_executor_keeps_the_card(cuda, tmp_path):
         for n in saved:
             assert fluid.global_scope().find_var(
                 n).get_tensor().array.is_cuda, n
+
+
+# -- slice 17: DynamicRNN and the LoD beam search --------------------------
+
+
+def _rnn_search_twin(generate=False):
+    from paddle_tpu_torch.models import rnn_search
+
+    cfg = rnn_search.NARROW
+    if generate:
+        return rnn_search.generate_program(fluid, cfg), cfg, rnn_search
+    return rnn_search.train_program(fluid, cfg), cfg, rnn_search
+
+
+def test_slice17_dynamic_rnn_step_keeps_every_tensor_on_the_card(
+        cuda, monkeypatch):
+    """Every tensor a narrow RNNsearch step makes lies on the card: each
+    LoDTensor built while it runs, the scope's vars and the while's
+    snapshots after it; three steps give the CPU's losses."""
+    from paddle_tpu_torch.core.tensor import LoDTensor, LoDTensorArray
+
+    (main, startup, loss), cfg, rs = _rnn_search_twin()
+    feeds = [rs.train_batch(fluid, np.random.RandomState(70 + i), cfg)
+             for i in range(3)]
+    cpu = fluid.Executor(fluid.CPUPlace())
+    cscope = fluid.Scope()
+    cpu.run(startup, scope=cscope)
+    init = _persistables(main, cscope)
+    want = [float(np.ravel(cpu.run(main, feed=f, fetch_list=[loss],
+                                   scope=cscope)[0])[0]) for f in feeds]
+    made = set()
+    init_fn = LoDTensor.__init__
+
+    def spy(self, array=None, lod=None):
+        if isinstance(array, torch.Tensor):
+            made.add(array.device.type)
+        init_fn(self, array, lod)
+
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    fluid.io.scope_from_numpy(scope, init, fluid.CUDAPlace(0))
+    monkeypatch.setattr(LoDTensor, "__init__", spy)
+    got = [float(np.ravel(exe.run(main, feed=f, fetch_list=[loss],
+                                  scope=scope)[0])[0]) for f in feeds]
+    monkeypatch.undo()
+    assert made == {"cuda"}, made
+
+    def devices(h):
+        if isinstance(h, LoDTensor):
+            return {h.array.device.type}
+        if isinstance(h, LoDTensorArray):
+            return set().union(*[devices(i) for i in h if i is not None])
+        if isinstance(h, list):  # a while's snapshots
+            return set().union(*[devices(v) for snap in h
+                                 for v in snap.values()])
+        return set()
+
+    seen = set()
+    for name in scope.local_var_names():
+        seen |= devices(scope.find_var(name).raw())
+    assert seen == {"cuda"}, seen
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_slice17_beam_search_ops_on_the_card_give_their_cpu_result(cuda):
+    """A step under a two-level LoD (one row ended), then the backtrace
+    of three steps, on card tensors and on CPU tensors."""
+    from paddle_tpu_torch.core.tensor import LoDTensor, LoDTensorArray
+
+    lod = [[0, 1, 2], [0, 2, 4]]
+    ins = {"pre_ids": np.array([[5], [6], [0], [8]], "int64"),
+           "pre_scores": np.array([[-1.0], [-2.0], [-0.75], [-4.0]],
+                                  "float32"),
+           "ids": np.array([[11, 12], [13, 14], [15, 16], [17, 18]],
+                           "int64"),
+           "scores": np.array([[-1.5, -2.5], [-1.0, -3.0], [-0.5, -0.5],
+                               [-4.0, -4.5]], "float32")}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        prog = fluid.Program()
+        blk = prog.global_block()
+        for n in list(ins) + ["sel_ids", "sel_scores", "sent_ids",
+                              "sent_scores"]:
+            blk.create_var(name=n, persistable=True)
+        blk.create_var(name="ids_arr", persistable=True,
+                       type="lod_tensor_array")
+        blk.create_var(name="scores_arr", persistable=True,
+                       type="lod_tensor_array")
+        blk.append_op("beam_search", {k: [k] for k in ins},
+                      {"selected_ids": ["sel_ids"],
+                       "selected_scores": ["sel_scores"]},
+                      {"level": 0, "beam_size": 2, "end_id": 0},
+                      infer_shape=False)
+        blk.append_op("beam_search_decode",
+                      {"Ids": ["ids_arr"], "Scores": ["scores_arr"]},
+                      {"SentenceIds": ["sent_ids"],
+                       "SentenceScores": ["sent_scores"]},
+                      {"beam_size": 2, "end_id": 1}, infer_shape=False)
+        scope = fluid.Scope()
+        for k, v in ins.items():
+            scope.var(k).set(LoDTensor(torch.from_numpy(v).to(dev),
+                                       lod if k in ("ids", "scores")
+                                       else None))
+        for name, dt in (("ids_arr", torch.int64),
+                         ("scores_arr", torch.float32)):
+            arr = LoDTensorArray()
+            for step_lod, data in (([[0, 1, 2], [0, 1, 2]], [0, 0]),
+                                   ([[0, 1, 2], [0, 2, 4]], [2, 3, 4, 5]),
+                                   ([[0, 2, 4], [0, 1, 2, 3, 4]],
+                                    [1, 1, 3, 5])):
+                arr.append(LoDTensor(torch.tensor(data, dtype=dt).reshape(
+                    -1, 1).to(dev), step_lod))
+            scope.var(name).set(arr)
+        exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                             else fluid.CUDAPlace(0))
+        exe._core.run_program(prog, scope)
+        res = {}
+        for n in ("sel_ids", "sel_scores", "sent_ids", "sent_scores"):
+            h = scope.find_var(n).get_tensor()
+            assert h.array.device.type == dev, n
+            res[n] = (h.numpy(), h.lod())
+        out[dev] = res
+    for n, (v, lod_) in out["cpu"].items():
+        np.testing.assert_array_equal(out["cuda"][n][0], v, err_msg=n)
+        assert out["cuda"][n][1] == lod_, n
+
+
+def test_slice17_rnn_search_generation_on_the_card_gives_the_cpus(cuda):
+    """The narrow generator at beam 3 (the end id's bias raised by 1.5 so
+    beams end), from the same weights on the card and the CPU."""
+    (main, startup, ids, scores), cfg, rs = _rnn_search_twin(generate=True)
+    cpu = fluid.Executor(fluid.CPUPlace())
+    cscope = fluid.Scope()
+    cpu.run(startup, scope=cscope)
+    init = _persistables(main, cscope)
+    init["out_b"] = init["out_b"] + np.float32(1.5) * (
+        np.arange(init["out_b"].shape[-1]) == cfg["end"])
+    got = {}
+    for side, exe, place in (("cpu", cpu, fluid.CPUPlace()),
+                             ("card", fluid.Executor(), fluid.CUDAPlace(0))):
+        scope = fluid.Scope()
+        fluid.io.scope_from_numpy(scope, init, place)
+        feed = rs.source_batch(fluid, np.random.RandomState(71), cfg)
+        i, s = exe.run(main, feed=feed, fetch_list=[ids, scores],
+                       scope=scope, return_numpy=False)
+        got[side] = (np.asarray(i), i.lod(), np.asarray(s))
+    cpu_ids, cpu_lod, cpu_scores = got["cpu"]
+    np.testing.assert_array_equal(got["card"][0], cpu_ids)
+    assert got["card"][1] == cpu_lod and len(cpu_lod) == 2
+    scale = max(1.0, float(np.abs(cpu_scores).max()))
+    assert float(np.abs(got["card"][2] - cpu_scores).max()) <= 1e-5 * scale
+    assert (cpu_ids.reshape(-1) == cfg["end"]).any()
+
+
+def test_slice17_moving_average_swaps_the_captured_buffers(cuda):
+    """Three captured SGD steps with an ExponentialMovingAverage: apply()
+    writes the averages into the parameters' own buffers (the graph's
+    addresses) and a captured evaluation reads them; restore() writes the
+    trained values back; both as on the CPU."""
+    def build():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data(name="x", shape=[8, 3], dtype="float32")
+            pred = fluid.layers.fc(x, 2, param_attr=fluid.ParamAttr(
+                name="ema_w"), bias_attr=False)
+            loss = fluid.layers.mean(fluid.layers.square(pred))
+            test = main.clone(for_test=True)
+            fluid.optimizer.SGD(0.1).minimize(loss)
+            ema = fluid.optimizer.ExponentialMovingAverage(0.5)
+            ema.update()
+        return main, startup, loss, test, ema
+
+    xs = [np.random.RandomState(72 + i).rand(8, 3).astype("float32")
+          for i in range(3)]
+    out, init = {}, None
+    for side, place in (("cpu", fluid.CPUPlace()),
+                        ("card", fluid.CUDAPlace(0))):
+        main, startup, loss, test, ema = build()
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            if init is None:
+                exe.run(startup)
+                init = _persistables(main, scope)
+            else:
+                fluid.io.scope_from_numpy(scope, init, place)
+            for x in xs:
+                exe.run(main, feed={"x": x}, fetch_list=[loss])
+            w = scope.find_var("ema_w").get_tensor().array
+            ptr, trained = w.data_ptr(), w.cpu().numpy().copy()
+            with ema.apply(exe):
+                assert scope.find_var("ema_w").get_tensor().array \
+                    .data_ptr() == ptr
+                evals = [float(np.ravel(exe.run(
+                    test, feed={"x": xs[0]}, fetch_list=[loss.name])[0])[0])
+                    for _ in range(2)]
+                averaged = scope.find_var("ema_w").get_tensor().numpy() \
+                    .copy()
+            np.testing.assert_array_equal(
+                scope.find_var("ema_w").get_tensor().numpy(), trained,
+                err_msg="restored on the %s" % side)
+        out[side] = (evals, averaged, trained)
+    for a, b in zip(out["card"], out["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
+    assert np.abs(out["card"][1] - out["card"][2]).max() > 1e-6

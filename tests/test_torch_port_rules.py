@@ -199,3 +199,48 @@ def test_lod_and_sparse_modules_import_no_jax():
     res = subprocess.run([sys.executable, "-c", _IMPORT_LOD], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+_SLICE17_MODULES = ("ops/rank_table_ops.py", "ops/beam_search_ops.py",
+                    "models/rnn_search.py", "layers/control_flow.py",
+                    "layers/rnn.py", "layers/nn.py", "layers/extras.py",
+                    "layers/tensor.py", "nets.py", "optimizer.py")
+
+_IMPORT_SLICE17 = r"""
+import importlib, sys
+module = sys.argv[1]
+importlib.import_module("paddle_tpu_torch." + module[:-3].replace("/", "."))
+import paddle_tpu_torch as fluid
+for name in ("DynamicRNN", "beam_search", "beam_search_decode", "is_empty",
+             "split", "elementwise_max", "elementwise_pow", "gelu",
+             "uniform_random", "gaussian_random", "reduce_prod",
+             "reduce_all", "reduce_any", "zeros", "ones", "zeros_like",
+             "sums", "while_loop"):
+    assert hasattr(fluid.layers, name), name
+for name in ("glu", "scaled_dot_product_attention"):
+    assert hasattr(fluid.nets, name), name
+for name in ("ExponentialMovingAverage", "ModelAverage",
+             "LookaheadOptimizer"):
+    assert hasattr(fluid.optimizer, name), name
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("module", _SLICE17_MODULES)
+def test_slice17_module_imports_no_jax(module):
+    """Each module of the DynamicRNN and LoD beam-search slice names
+    neither jax nor the JAX package in an import line, loads alone without
+    pulling either in, and the package then has the slice's names."""
+    with open(os.path.join(REPO, "paddle_tpu_torch", module)) as f:
+        text = f.read()
+    imports = [ln.strip() for ln in text.splitlines()
+               if ln.strip().startswith(("import ", "from "))]
+    assert not [ln for ln in imports if ln.split()[1].split(".")[0] in (
+        "jax", "jaxlib", "paddle_tpu")], (module, imports)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _IMPORT_SLICE17, module],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
