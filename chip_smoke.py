@@ -18,8 +18,10 @@ seq2seq base model (training and beam decoding), While loops trained
 through while_grad and the Fluid book's understand_sentiment nets over
 LoD input with sparse embedding grads, five more book chapters saved
 and served from the reference's protobuf format, BERT-base served from
-it, a gpt_long checkpoint resumed, and RNNsearch trained on DynamicRNN
-and beam-decoded through While, and holds each
+it, a gpt_long checkpoint resumed, RNNsearch trained on DynamicRNN
+and beam-decoded through While, and the serving front (the predictor's
+IR passes on BERT-base and ResNet-50, the HTTP server, streaming decode
+through a replica fleet with a failover), and holds each
 hand-written CUDA kernel against its plain PyTorch version on the card.
 Serving and the training paths run through ``Executor.run``'s default
 route, which runs a program's first step eagerly, captures the second
@@ -461,11 +463,43 @@ lines each:
    batch with an end id outside the dictionary, all 50 trips (ms a batch,
    a trip); batch 4 at full width card against CPU: ids and both LoD
    levels equal, scores within 1e-4 of scale;
-51. one JSON line {"kernels": [...]} with each kernel's launches on the
+51. the serving front: phase 4's BERT-base encoder, answering each
+   sequence's [CLS] row (what a BERT server returns), saved as __model__
+   + __params__ and loaded twice, AnalysisConfig's IR passes on (the
+   default: ConvBnFusePass, FcFusePass) and off, each predictor entering
+   the card (K7 once) behind a ServingEngine: its fc and mul op counts;
+   one capture a ladder bucket and no fallback; K1 exactly 12 a dispatch;
+   the 256 requests one at a time on both, the answers with the passes on
+   within 1e-5 of scale of those with them off; then the passes-on engine
+   at once in process, and behind start_http_server(engine, "127.0.0.1",
+   0): the 256 requests over POST /predict one at a time (each answer the
+   in-process one bit for bit) and all at once (a client thread each,
+   within 1e-5 of scale), p50/p99 and sequences/s beside the in-process
+   numbers; GET /healthz and GET /metrics carry the JAX package's
+   families;
+52. ResNet-50 inference (NHWC, 224², class 1000, batch 32) under
+   FLAGS_use_pallas_conv=all: its clone(for_test=True) with seeded
+   weights and seeded nonzero running means, variances, scales and
+   shifts, saved (its logits the answer) and loaded with the IR passes on
+   and off: 53 batch norms against none, K5 44 float32 launches a batch
+   on both, the answers within 1e-4 of scale; ms a batch (A B B A, 10 batches each), images/s,
+   device busy and idle share, on against off;
+53. streaming decode over HTTP and through a fleet: phase 13's 64 streams
+   through one DecodeEngine (gpt_long's width) behind POST /generate, a
+   client thread a stream; then through a FleetRouter over two
+   DecodeEngine replicas on the card, each behind its own HTTP server,
+   one replica stopped (engine and server) once it holds 16 streams
+   mid-way (a token out, more to come; or at 60% of the tokens); every stream's tokens must be phase 13's in-process
+   greedy tokens, indices 0..n-1 once, and the router must have resumed
+   streams; tokens/s, TTFT and ITL p50/p99 (the client's clock) beside
+   phase 13's, K6 by replica (each layers x (decode steps + prefill
+   chunks)) and K7 once an engine;
+54. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside, the dygraph, recipe, seq2seq, while,
-   sentiment, book_*, bert_proto, checkpoint and rnn_search paths too),
+   sentiment, book_*, bert_proto, checkpoint, rnn_search, serving_ir,
+   serving_http, resnet_infer, decode_http and fleet_generate paths too),
    error, times and bound;
-52. the last line: {"ok": true, "device": {...}}.
+55. the last line: {"ok": true, "device": {...}}.
 
 Phases 43-45 run the book's scripts as the book does, with those knobs
 unset (phase 45 sets PADDLE_TPU_FUSED_OPTIMIZER for its SGD twins). Every
@@ -493,6 +527,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 import warnings
 
 import numpy as np
@@ -7104,6 +7139,686 @@ def phase_rnn_search_generate(fluid, support, train_scope):
     return counts, run
 
 
+# -- phases 51-53: the serving front ------------------------------------------
+
+HTTP_TIMEOUT = 600
+# passes on against off (phase 51): ``fc`` runs the chain's own ``mul``
+# and bias add, so the answers are expected bitwise; the limit is float32
+# summed in another order
+IR_TOL = 1e-5
+# the HTTP burst's batches are not the in-process burst's, and another
+# bucket's GEMM may sum in another order
+BURST_TOL = 1e-5
+RESNET_INFER = dict(batch=32, image_size=224, class_dim=1000)
+# ResNet-50's 53 conv + batch-norm pairs folded against unfolded, float32
+RESNET_IR_TOL = 1e-4
+RESNET_INFER_RUNS = 10
+# the fleet stops a replica once it holds this many streams mid-way (a
+# token out, more to come), or, failing that, once the replicas have made
+# FLEET_STOP_SHARE of the tokens: a stop at a share of the tokens alone
+# found one replica's streams still in their prompts' prefill, or done
+FLEET_STOP_MID = 16
+FLEET_STOP_SHARE = 0.6
+SERVING_FAMILIES = ("serving_requests", "serving_batches",
+                    "serving_batch_size", "serving_queue_ms",
+                    "serving_total_ms", "serving_queue_depth")
+
+
+def post_json(base, path, body):
+    """One POST of encoded JSON ``body``: (status, parsed reply)."""
+    req = urllib.request.Request(base + path, body,
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+        return r.status, json.loads(r.read())
+
+
+def http_bodies(reqs):
+    return [json.dumps({"inputs": {n: v.tolist() for n, v in r.items()}}
+                       ).encode() for r in reqs]
+
+
+def http_answer(doc):
+    (arr,) = doc["outputs"].values()
+    return np.asarray(arr, dtype="float32")
+
+
+def http_one_at_a_time(base, bodies):
+    outs, lat = [], []
+    for body in bodies:
+        t0 = time.perf_counter()
+        status, doc = post_json(base, "/predict", body)
+        lat.append(time.perf_counter() - t0)
+        if status != 200:
+            raise RuntimeError("HTTP %d: %s" % (status, doc))
+        outs.append(http_answer(doc))
+    return outs, lat
+
+
+def http_burst(base, bodies):
+    """Every request at once, a client thread each; latency is the
+    thread's send to its parsed answer."""
+    outs, lat = [None] * len(bodies), [None] * len(bodies)
+    errors = []
+
+    def client(i):
+        try:
+            t0 = time.perf_counter()
+            status, doc = post_json(base, "/predict", bodies[i])
+            lat[i] = time.perf_counter() - t0
+            outs[i] = http_answer(doc)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append("request %d: %r" % (i, e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HTTP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError("HTTP burst: %s" % errors[:4])
+    return outs, lat, wall
+
+
+def scaled_gap(got, want):
+    """Largest |got - want| over want's largest magnitude (at least 1)."""
+    return max(float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1.0)
+               for g, w in zip(got, want))
+
+
+def bert_cls_program(fluid):
+    """Phase 4's BERT-base encoder answering each sequence's first row,
+    the [CLS] position: what a BERT server returns (the whole hidden states
+    would be 98,304 floats a row of JSON)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = fluid.data(name="src_ids", shape=[-1, SEQ_LEN], dtype="int64")
+        pos = fluid.data(name="pos_ids", shape=[-1, SEQ_LEN], dtype="int64")
+        lens = fluid.data(name="lengths", shape=[-1], dtype="int32")
+        enc = fluid.models.transformer.transformer_encoder(
+            src, pos, is_test=True, src_lengths=lens, **BERT)
+        first = fluid.layers.slice(enc, axes=[1], starts=[0], ends=[1])
+        cls = fluid.layers.reshape(first, [-1, BERT["d_model"]])
+    return main, startup, ["src_ids", "pos_ids", "lengths"], cls
+
+
+def op_counts(program):
+    types = [op.type for op in program.global_block().ops]
+    return {t: types.count(t) for t in ("fc", "mul", "elementwise_add",
+                                         "conv2d", "batch_norm")}
+
+
+def serving_predictor(fluid, support, d, ir_optim, dev):
+    """A predictor of the model in ``d`` entering ``dev`` (the card: the
+    probe once), its config's IR passes on or off."""
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+
+    cfg = AnalysisConfig(d)
+    cfg.set_prog_file("__model__")
+    cfg.set_params_file("__params__")
+    cfg.switch_ir_optim(ir_optim)
+    if dev.type == "cpu":
+        cfg.disable_gpu()
+    support.forget_probes()
+    before = support.launch_counts().get("probe_add_one", 0)
+    t0 = time.perf_counter()
+    pred = create_paddle_predictor(cfg)
+    t_load = time.perf_counter() - t0
+    probes = support.launch_counts().get("probe_add_one", 0) - before
+    if dev.type == "cuda" and probes != 1:
+        raise RuntimeError("a predictor entering the card launched the "
+                           "probe %d times, want 1" % probes)
+    return pred, t_load
+
+
+def in_process_one_at_a_time(engine, reqs):
+    outs, lat = [], []
+    for feed in reqs:
+        t0 = time.perf_counter()
+        (arr,) = engine.predict(feed, timeout=HTTP_TIMEOUT).values()
+        lat.append(time.perf_counter() - t0)
+        outs.append(arr)
+    return outs, lat
+
+
+def check_k1_dispatches(what, counts, engine, warm_dispatches):
+    """K1 exactly 12 times a dispatch: ``warm_dispatches`` plus the
+    engine's batches since its counters began."""
+    want = BERT["num_layers"] * (warm_dispatches
+                                 + engine.stats()["serving.batches"])
+    if counts.get("flash_attention_forward", 0) != want:
+        raise RuntimeError("%s: K1 ran %s times, want %d"
+                           % (what, counts.get("flash_attention_forward"),
+                              want))
+
+
+def phase_serving_http(fluid, support, dev=torch.device("cuda")):
+    """Phase 51: BERT-base from __model__ + __params__, loaded with the IR
+    passes on and off; both on the captured route; the answers agree; the
+    passes-on engine behind start_http_server answers the 256 requests one
+    at a time and at once, each HTTP answer the in-process one."""
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.core import compiler_engine as ce
+    from paddle_tpu_torch.serving import (ServingConfig, ServingEngine,
+                                          start_http_server)
+
+    cuda = dev.type == "cuda"
+    np.random.seed(SEED)
+    torch.manual_seed(SEED)
+    reqs = make_requests(np.random.RandomState(SEED))
+    rows = sum(r["src_ids"].shape[0] for r in reqs)
+    main, startup, feeds, cls = bert_cls_program(fluid)
+    run, ir_counts, answers = {}, {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        exe = fluid.Executor(fluid.CUDAPlace(0) if cuda
+                             else fluid.CPUPlace())
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(d, feeds, [cls], exe,
+                                          main_program=main,
+                                          model_filename="__model__",
+                                          params_filename="__params__")
+        exe.close()
+        del scope
+        for form in ("off", "on"):
+            support.reset_launch_counts()
+            pred, t_load = serving_predictor(fluid, support, d,
+                                             form == "on", dev)
+            ops = op_counts(pred._program)
+            ce.reset_counters()
+            engine = ServingEngine(pred, ServingConfig(
+                max_batch_size=MAX_BATCH, max_queue=N_REQUESTS)).start()
+            warm = len(engine.warmed_buckets) * pred.warmup_runs
+            n_buckets = len(engine.config.policy.ladder) if cuda else 0
+            check_one_capture("phase 51 passes %s warm-up" % form,
+                              ce.counters(), n_buckets)
+            answers[form], lat = in_process_one_at_a_time(engine, reqs)
+            if form == "on":
+                outs_b, lat_b, wall_b = serve_burst(engine, reqs)
+                burst = [next(iter(o.values())) for o in outs_b]
+            check_one_capture("phase 51 passes %s" % form, ce.counters(),
+                              n_buckets)
+            counts = support.launch_counts()
+            if cuda:
+                check_k1_dispatches("phase 51 passes %s" % form, counts,
+                                    engine, warm)
+            for k, v in counts.items():
+                ir_counts[k] = ir_counts.get(k, 0) + v
+            run[form] = {"ops": ops, "load_s": t_load,
+                         "p50_ms": pcts(lat)[0], "p99_ms": pcts(lat)[1],
+                         "batches": engine.stats()["serving.batches"],
+                         "warm_dispatches": warm}
+            log("phase 51 BERT-base, IR passes %s: %s; loaded in %.3f s; "
+                "warm-up %d dispatches and %d captures (buckets %s), 0 "
+                "fallbacks; %d requests one at a time in process: p50 %.3f "
+                "ms p99 %.3f ms; card %s"
+                % (form, json.dumps(ops), t_load, warm,
+                   ce.counters()["executor.jit_traces"],
+                   engine.config.policy.ladder, len(reqs),
+                   *pcts(lat)[:2], card_line()))
+            if form == "off":
+                engine.stop()
+                del engine, pred
+                if cuda:
+                    torch.cuda.empty_cache()
+        if run["on"]["ops"]["fc"] == 0 or run["on"]["ops"]["mul"] != 0 or \
+                run["off"]["ops"]["fc"] != 0:
+            raise RuntimeError("phase 51: op counts on %s, off %s"
+                               % (run["on"]["ops"], run["off"]["ops"]))
+        ir_gap = scaled_gap(answers["on"], answers["off"])
+        if not ir_gap <= IR_TOL:
+            raise RuntimeError("phase 51: passes on and off differ by %g "
+                               "of scale (limit %g)" % (ir_gap, IR_TOL))
+        for i, a in enumerate(answers["on"]):
+            if a.shape != (reqs[i]["src_ids"].shape[0], BERT["d_model"]) \
+                    or not np.isfinite(a).all():
+                raise RuntimeError("phase 51: bad answer %d: %s" % (i,
+                                                                    a.shape))
+        burst_gap = scaled_gap(burst, answers["on"])
+        if not burst_gap <= BURST_TOL:
+            raise RuntimeError("phase 51: the in-process burst differs from "
+                               "one at a time by %g of scale" % burst_gap)
+        # the same engine behind HTTP
+        observability.reset()
+        server, _ = start_http_server(engine, host="127.0.0.1", port=0)
+        base = "http://127.0.0.1:%d" % server.server_address[1]
+        try:
+            bodies = http_bodies(reqs)
+            support.reset_launch_counts()
+            b0 = engine.stats()["serving.batches"]
+            h_outs, h_lat = http_one_at_a_time(base, bodies)
+            hb_outs, hb_lat, hb_wall = http_burst(base, bodies)
+            http_counts = support.launch_counts()
+            http_batches = engine.stats()["serving.batches"] - b0
+            with urllib.request.urlopen(base + "/healthz",
+                                        timeout=HTTP_TIMEOUT) as r:
+                health = (r.status, json.loads(r.read()))
+            with urllib.request.urlopen(base + "/metrics",
+                                        timeout=HTTP_TIMEOUT) as r:
+                metrics = r.read().decode()
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.stop()
+    want = BERT["num_layers"] * http_batches
+    if cuda and http_counts.get("flash_attention_forward", 0) != want:
+        raise RuntimeError("phase 51 HTTP: K1 ran %s times, want 12 x %d"
+                           % (http_counts, http_batches))
+    same = sum(h.tobytes() == a.tobytes()
+               for h, a in zip(h_outs, answers["on"]))
+    if same != len(reqs):
+        raise RuntimeError("phase 51: %d of %d HTTP answers (one at a time) "
+                           "are not the in-process ones" % (len(reqs) - same,
+                                                            len(reqs)))
+    hb_gap = scaled_gap(hb_outs, answers["on"])
+    if not hb_gap <= BURST_TOL:
+        raise RuntimeError("phase 51: the HTTP burst differs by %g of scale"
+                           % hb_gap)
+    missing = [f for f in SERVING_FAMILIES
+               if "# TYPE paddle_tpu_%s " % f not in metrics]
+    if health[0] != 200 or health[1].get("status") != "serving" or \
+            health[1].get("engine_kind") != "oneshot" or missing:
+        raise RuntimeError("phase 51: /healthz %s, /metrics lacks %s"
+                           % (health, missing))
+    run["http"] = {"p50_ms": pcts(h_lat)[0], "p99_ms": pcts(h_lat)[1],
+                   "burst_p50_ms": pcts(hb_lat)[0],
+                   "burst_p99_ms": pcts(hb_lat)[1],
+                   "burst_sequences_per_s": rows / hb_wall,
+                   "batches": http_batches}
+    run["in_process"] = {"p50_ms": run["on"]["p50_ms"],
+                         "p99_ms": run["on"]["p99_ms"],
+                         "burst_p50_ms": pcts(lat_b)[0],
+                         "burst_p99_ms": pcts(lat_b)[1],
+                         "burst_sequences_per_s": rows / wall_b}
+    run["ir_gap"], run["burst_gap"], run["http_burst_gap"] = \
+        ir_gap, burst_gap, hb_gap
+    log("phase 51 answers: passes on against off %.3g of scale (limit %g); "
+        "the in-process burst against one at a time %.3g; HTTP one at a "
+        "time equal to in process bit for bit (%d of %d), the HTTP burst "
+        "%.3g of scale (limit %g)"
+        % (ir_gap, IR_TOL, burst_gap, same, len(reqs), hb_gap, BURST_TOL))
+    log("phase 51 %d requests (%d rows), HTTP against in process: one at a "
+        "time p50 %.3f vs %.3f ms, p99 %.3f vs %.3f ms; at once p50 %.3f vs "
+        "%.3f ms, p99 %.3f vs %.3f ms, %.1f vs %.1f sequences/s; HTTP "
+        "batches %d, K1 %d (12 a dispatch); /healthz %s; /metrics carries "
+        "%s; card %s"
+        % (len(reqs), rows, run["http"]["p50_ms"], run["in_process"]["p50_ms"],
+           run["http"]["p99_ms"], run["in_process"]["p99_ms"],
+           run["http"]["burst_p50_ms"], run["in_process"]["burst_p50_ms"],
+           run["http"]["burst_p99_ms"], run["in_process"]["burst_p99_ms"],
+           run["http"]["burst_sequences_per_s"],
+           run["in_process"]["burst_sequences_per_s"], http_batches,
+           http_counts.get("flash_attention_forward", 0),
+           json.dumps(health[1]), ", ".join(SERVING_FAMILIES), card_line()))
+    if cuda:
+        torch.cuda.empty_cache()
+    return ir_counts, http_counts, run
+
+
+def phase_resnet_infer(fluid, support, dev=torch.device("cuda"),
+                       cfg=None, runs=RESNET_INFER_RUNS):
+    """Phase 52: ResNet-50 inference, NHWC, its clone(for_test=True) saved
+    and loaded with the IR passes on and off under
+    FLAGS_use_pallas_conv=all: K5 44 a batch on both, the batch norms
+    folded away on one, the answers within RESNET_IR_TOL of scale."""
+    import importlib
+
+    resnet = importlib.import_module("paddle_tpu_torch.models.resnet")
+    cfg = dict(cfg or RESNET_INFER)
+    cuda = dev.type == "cuda"
+    b, size = cfg["batch"], cfg["image_size"]
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED + 52
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.data(name="img", shape=[-1, size, size, 3],
+                         dtype="float32")
+        resnet.resnet(img, cfg["class_dim"], 50, data_format="NHWC")
+    infer = main.clone(for_test=True)
+    # the answer is the logits: random weights through 50 layers saturate
+    # the softmax, which would hide a gap
+    (softmax,) = [op for op in infer.global_block().ops
+                  if op.type == "softmax"]
+    logits = infer.global_block().var(softmax.input("X")[0])
+    rng = np.random.RandomState(SEED + 52)
+    feed = {"img": rng.randn(b, size, size, 3).astype("float32")}
+    flags = fluid.get_flags(["FLAGS_use_pallas_conv"])
+    fluid.set_flags({"FLAGS_use_pallas_conv": "all"})
+    out, times, counts, run = {}, {}, {}, {}
+    # the path's launches: each predictor's probe and its counted batch
+    path = {}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            exe = fluid.Executor(fluid.CUDAPlace(0) if cuda
+                                 else fluid.CPUPlace())
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            # seeded nonzero running statistics and affine terms: the fold
+            # is not the identity
+            for op in infer.global_block().ops:
+                if op.type != "batch_norm":
+                    continue
+                for slot, draw in (("Mean", lambda n: rng.randn(n) * 0.1),
+                                   ("Variance",
+                                    lambda n: rng.uniform(0.5, 1.5, n)),
+                                   ("Scale",
+                                    lambda n: rng.uniform(0.5, 1.5, n)),
+                                   ("Bias", lambda n: rng.randn(n) * 0.1)):
+                    t = scope.find_var(op.input(slot)[0]).get_tensor()
+                    t.set(torch.from_numpy(draw(t.array.shape[0]).astype(
+                        "float32")).to(t.array.device))
+            with fluid.scope_guard(scope):
+                fluid.io.save_inference_model(
+                    d, ["img"], [logits], exe, main_program=infer,
+                    model_filename="__model__", params_filename="__params__")
+            exe.close()
+            del scope
+            preds = {}
+            for form in ("on", "off"):
+                before = support.launch_counts()
+                preds[form], t_load = serving_predictor(
+                    fluid, support, d, form == "on", dev)
+                for k, v in support.launch_counts().items():
+                    path[k] = path.get(k, 0) + v - before.get(k, 0)
+                run[form] = {"ops": op_counts(preds[form]._program),
+                             "load_s": t_load}
+                p = preds[form]
+                for _ in range(p.warmup_runs):      # eager, then capture
+                    p.run(feed)
+                support.reset_launch_counts()
+                out[form] = p.run(feed)[0].data
+                c = support.launch_counts()
+                if cuda and (c.get("conv2d_bn_act", 0) != 44
+                             or c.get("conv2d_bn_act_bf16", 0)):
+                    raise RuntimeError("phase 52 passes %s: K5 %s a batch, "
+                                       "want 44 float32" % (form, c))
+                counts[form] = c
+                for k, v in c.items():
+                    path[k] = path.get(k, 0) + v
+            if run["on"]["ops"]["batch_norm"] != 0 or \
+                    run["off"]["ops"]["batch_norm"] != 53:
+                raise RuntimeError("phase 52: batch_norm ops on %d, off %d"
+                                   % (run["on"]["ops"]["batch_norm"],
+                                      run["off"]["ops"]["batch_norm"]))
+            gap = scaled_gap([out["on"]], [out["off"]])
+            if not (gap <= RESNET_IR_TOL and np.isfinite(out["on"]).all()):
+                raise RuntimeError("phase 52: folded and unfolded answers "
+                                   "differ by %g of scale" % gap)
+            # A B B A, each `runs` batches after one untimed, warm
+            for form in ("on", "off", "off", "on"):
+                if cuda:
+                    ms, _ = timed_runs(preds[form].run, feed, runs)
+                else:
+                    t0 = time.perf_counter()
+                    for _ in range(runs):
+                        preds[form].run(feed)
+                    ms = (time.perf_counter() - t0) / runs * 1e3
+                times.setdefault(form, []).append(ms)
+            for form in ("on", "off"):
+                run[form]["ms"] = times[form]
+                if cuda:
+                    wall_ms, busy_ms, _ = profile_window(preds[form].run,
+                                                         feed)
+                    run[form]["idle_share"] = idle(wall_ms, busy_ms)
+                    run[form]["busy_ms_a_batch"] = busy_ms / 3
+    finally:
+        fluid.set_flags(flags)
+    run["gap"] = gap
+    log("phase 52 ResNet-50 inference (NHWC %d², batch %d, class %d, "
+        "FLAGS_use_pallas_conv=all), IR passes on against off: ops %s vs "
+        "%s; K5 %d vs %d launches a batch (float32); answers %.3g of scale "
+        "apart (limit %g); ms a batch %s vs %s (A B B A, %d batches each), "
+        "%.1f vs %.1f images/s; device busy a batch %s vs %s ms, idle share "
+        "%s vs %s; card %s"
+        % (size, b, cfg["class_dim"], json.dumps(run["on"]["ops"]),
+           json.dumps(run["off"]["ops"]),
+           counts["on"].get("conv2d_bn_act", 0),
+           counts["off"].get("conv2d_bn_act", 0), gap, RESNET_IR_TOL,
+           ", ".join("%.3f" % t for t in times["on"]),
+           ", ".join("%.3f" % t for t in times["off"]), runs,
+           b / np.mean(times["on"]) * 1e3, b / np.mean(times["off"]) * 1e3,
+           "%.3f" % run["on"].get("busy_ms_a_batch", float("nan")),
+           "%.3f" % run["off"].get("busy_ms_a_batch", float("nan")),
+           run["on"].get("idle_share"), run["off"].get("idle_share"),
+           card_line()))
+    del preds
+    if cuda:
+        torch.cuda.empty_cache()
+    return path, run
+
+
+def stream_client(stream_fn, i, record, lock):
+    """Drain one stream (an iterator of events), recording the time of
+    each token event's arrival."""
+    t0 = time.perf_counter()
+    evs, times = [], []
+    for ev in stream_fn():
+        if ev.get("type") == "token":
+            times.append(time.perf_counter())
+        evs.append(ev)
+    with lock:
+        record[i] = (t0, times, evs)
+
+
+def http_generate(base, prompt, n, rid):
+    body = json.dumps({"prompt": prompt, "max_tokens": n}).encode()
+    req = urllib.request.Request(base + "/generate", body,
+                                 {"Content-Type": "application/json",
+                                  "X-Request-Id": rid}, method="POST")
+    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+        for line in r:
+            if line.strip():
+                yield json.loads(line)
+
+
+def stream_numbers(record, specs, outs, what):
+    """Check every stream against the in-process greedy tokens (indices
+    0..n-1 once, in order, max_tokens), then tokens/s, TTFT and ITL from
+    the client's clock."""
+    ttft, itl = [], []
+    first, last = None, None
+    for i, (prompt, n) in enumerate(specs):
+        t0, times, evs = record[i]
+        idx = [e["index"] for e in evs if e["type"] == "token"]
+        toks = [e["token"] for e in evs if e["type"] == "token"]
+        if idx != list(range(n)) or evs[-1].get("reason") != "max_tokens" \
+                or toks != outs[i]:
+            raise RuntimeError(
+                "%s stream %d: indices %s..., finish %s, tokens equal to "
+                "the in-process stream: %s" % (what, i, idx[:8], evs[-1],
+                                               toks == outs[i]))
+        ttft.append((times[0] - t0) * 1e3)
+        itl += list(np.diff(times) * 1e3)
+        first = t0 if first is None else min(first, t0)
+        last = times[-1] if last is None else max(last, times[-1])
+    tokens = sum(n for _, n in specs)
+    return {"tokens": tokens, "wall_s": last - first,
+            "tokens_per_s": tokens / (last - first),
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p99": float(np.percentile(ttft, 99)),
+            "itl_ms_p50": float(np.percentile(itl, 50)),
+            "itl_ms_p99": float(np.percentile(itl, 99))}
+
+
+def run_clients(specs, stream_fns):
+    record, lock = {}, threading.Lock()
+    threads = [threading.Thread(target=stream_client,
+                                args=(fn, i, record, lock))
+               for i, fn in enumerate(stream_fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HTTP_TIMEOUT)
+    if len(record) != len(specs):
+        raise RuntimeError("%d of %d streams did not finish"
+                           % (len(specs) - len(record), len(specs)))
+    return record
+
+
+def streams_mid_way(engine):
+    """Streams of ``engine`` that have emitted a token and not finished,
+    read without the engine's lock: a count to choose a moment by, not a
+    check."""
+    return sum(1 for e in list(engine._entries.values()) if e.seq.generated)
+
+
+def new_decode_engine(support, cfg, dev):
+    """A DecodeEngine entering ``dev`` (the card: the probe once)."""
+    from paddle_tpu_torch.serving.decode import DecodeEngine
+
+    support.forget_probes()
+    before = support.launch_counts().get("probe_add_one", 0)
+    engine = DecodeEngine(cfg).start()
+    probes = support.launch_counts().get("probe_add_one", 0) - before
+    if dev.type == "cuda" and probes != 1:
+        raise RuntimeError("a decode engine entering the card launched the "
+                           "probe %d times, want 1" % probes)
+    return engine
+
+
+def phase_decode_http(fluid, support, specs, outs, decode_run,
+                      dev=torch.device("cuda"), cfg_kw=None):
+    """Phase 53: phase 13's streams through one DecodeEngine behind
+    /generate, then through a FleetRouter over two DecodeEngine replicas
+    on the one card, each behind its own HTTP server, one of them stopped
+    part way; every stream's tokens must be the in-process ones."""
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.observability import flight
+    from paddle_tpu_torch.serving import (FleetConfig, FleetRouter,
+                                          start_http_server)
+    from paddle_tpu_torch.serving.decode import DecodeConfig
+
+    cuda = dev.type == "cuda"
+    cfg_kw = dict(cfg_kw or DECODE)
+    place = fluid.CUDAPlace(0) if cuda else fluid.CPUPlace()
+    cfg = DecodeConfig(**cfg_kw, eos_token=None,
+                       max_waiting=2 * len(specs), place=place)
+    run = {}
+    # one engine behind /generate
+    support.reset_launch_counts()
+    engine = new_decode_engine(support, cfg, dev)
+    server, _ = start_http_server(engine, host="127.0.0.1", port=0)
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    try:
+        record = run_clients(specs, [
+            (lambda p=p, n=n, i=i: http_generate(base, p, n, "h%d" % i))
+            for i, (p, n) in enumerate(specs)])
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+    http_counts = support.launch_counts()
+    want = k6_launches_expected(engine) if cuda else 0
+    if http_counts.get("paged_decode_attention", 0) != want:
+        raise RuntimeError("phase 53 /generate: K6 %s, want %d"
+                           % (http_counts, want))
+    run["http"] = stream_numbers(record, specs, outs, "phase 53 /generate")
+    run["http"]["k6"] = want
+    del engine
+    # two replicas and a router; one replica stops part way
+    support.reset_launch_counts()
+    observability.reset()
+    flight.clear()
+    engines, servers = [], []
+    for _ in range(2):
+        e = new_decode_engine(support, cfg, dev)
+        s, _ = start_http_server(e, host="127.0.0.1", port=0)
+        engines.append(e)
+        servers.append(s)
+    eps = ["127.0.0.1:%d" % s.server_address[1] for s in servers]
+    # a prober on a host this busy waits long before it ejects: a stream
+    # fails over on its own transport error, not on a probe
+    router = FleetRouter(eps, FleetConfig(
+        max_queue=1 << 20, request_timeout_s=HTTP_TIMEOUT,
+        stream_stall_s=60.0, health_interval_ms=1000,
+        eject_after=3)).start()
+    tokens = sum(n for _, n in specs)
+    done = threading.Event()
+    stopped = {}
+
+    def stopper():
+        """Stop the replica with the most streams mid-way once it holds
+        FLEET_STOP_MID of them, or once the replicas have made
+        FLEET_STOP_SHARE of the tokens."""
+        while not done.is_set():
+            made = sum(e.metrics.snapshot()["serving.tokens"]
+                       for e in engines)
+            mid = [streams_mid_way(e) for e in engines]
+            if max(mid) >= FLEET_STOP_MID or \
+                    made >= tokens * FLEET_STOP_SHARE:
+                break
+            time.sleep(0.002)
+        j = int(np.argmax(mid))
+        # the engine first, at once: its live streams end mid-way, as a
+        # dying replica's do; then its server
+        engines[j].stop(drain=False)
+        stopped.update(index=j, mid_way=mid[j], at_tokens=made,
+                       stream_errors=engines[j].stats()[
+                           "serving.stream_errors"])
+        servers[j].shutdown()
+        servers[j].server_close()
+
+    killer = threading.Thread(target=stopper)
+    killer.start()
+    try:
+        record = run_clients(specs, [
+            (lambda p=p, n=n, i=i: router.generate(p, max_tokens=n,
+                                                   request_id="f%d" % i))
+            for i, (p, n) in enumerate(specs)])
+    finally:
+        done.set()
+        killer.join(HTTP_TIMEOUT)
+        router.stop()
+        for j, (s, e) in enumerate(zip(servers, engines)):
+            if j != stopped.get("index"):
+                s.shutdown()
+                s.server_close()
+                e.stop()
+    fleet_counts = support.launch_counts()
+    per_replica = [k6_launches_expected(e) if cuda else 0 for e in engines]
+    if fleet_counts.get("paged_decode_attention", 0) != sum(per_replica):
+        raise RuntimeError("phase 53 fleet: K6 %s, want %s"
+                           % (fleet_counts, per_replica))
+    run["fleet"] = stream_numbers(record, specs, outs, "phase 53 fleet")
+    resumes = [ev for ev in flight.events()
+               if ev[1] == "serving.stream_resume"]
+    run["fleet"].update(
+        k6_by_replica=per_replica, stopped=stopped,
+        router_resumes=len(resumes),
+        stream_resumes=observability.counter_value("serving.stream_resumes"),
+        ejections=observability.counter_value("serving.replica_ejections",
+                                              cause="dead"))
+    if not resumes or run["fleet"]["stream_resumes"] <= 0:
+        raise RuntimeError("phase 53 fleet: no stream resumed (%s)"
+                           % run["fleet"])
+    for tag, r in (("/generate", run["http"]), ("fleet", run["fleet"])):
+        log("phase 53 %s, %d streams (%d tokens): %.1f tokens/s (phase 13 "
+            "in process %.1f); TTFT p50 %.1f p99 %.1f ms (%.1f / %.1f); ITL "
+            "p50 %.2f p99 %.2f ms (%.2f / %.2f); every stream's tokens equal "
+            "the in-process stream's, indices 0..n-1 once; card %s"
+            % (tag, len(specs), r["tokens"], r["tokens_per_s"],
+               decode_run["tokens_per_s"], r["ttft_ms_p50"],
+               r["ttft_ms_p99"], decode_run["ttft_ms_p50"],
+               decode_run["ttft_ms_p99"], r["itl_ms_p50"], r["itl_ms_p99"],
+               decode_run["itl_ms_p50"], decode_run["itl_ms_p99"],
+               card_line()))
+    log("phase 53 fleet: replica %d stopped once the replicas had made %d "
+        "of %d tokens, %d streams mid-way on it, %d streams ended by the "
+        "stop; the router resumed %d streams (serving.stream_resumes %d, "
+        "ejections %d); K6 launches by replica %s, /generate's engine %d"
+        % (stopped["index"], stopped["at_tokens"], tokens,
+           stopped["mid_way"], stopped["stream_errors"], len(resumes),
+           run["fleet"]["stream_resumes"], run["fleet"]["ejections"],
+           per_replica, run["http"]["k6"]))
+    del engines, servers, router
+    if cuda:
+        torch.cuda.empty_cache()
+    return http_counts, fleet_counts, run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -7206,6 +7921,14 @@ def main() -> int:
     k4["rnn_search_shape"] = rs_run["k4"]
     rs_gen, rs_gen_run = phase_rnn_search_generate(fluid, support, rs_scope)
     del rs_scope
+    # the serving front: the IR passes, HTTP, the fleet
+    serving_ir, serving_http, http_run = phase_serving_http(fluid, support)
+    resnet_infer, resnet_infer_run = phase_resnet_infer(fluid, support)
+    decode_http, fleet_gen, decode_http_run = phase_decode_http(
+        fluid, support, specs, outs, paged["decode_path"])
+    log("phases 51-53 %s" % json.dumps(
+        {"serving_http": http_run, "resnet_infer": resnet_infer_run,
+         "decode_http": decode_http_run}))
     log("phases 49-50 %s" % json.dumps(
         {"rnn_search": {k: v for k, v in rs_run.items() if k != "k4"},
          "rnn_search_generate": rs_gen_run}))
@@ -7267,7 +7990,12 @@ def main() -> int:
                    "bert_proto": bert_proto.get(kern["name"], 0),
                    "checkpoint": ckpt.get(kern["name"], 0),
                    "rnn_search": rs_train.get(kern["name"], 0),
-                   "rnn_search_generate": rs_gen.get(kern["name"], 0)}
+                   "rnn_search_generate": rs_gen.get(kern["name"], 0),
+                   "serving_ir": serving_ir.get(kern["name"], 0),
+                   "serving_http": serving_http.get(kern["name"], 0),
+                   "resnet_infer": resnet_infer.get(kern["name"], 0),
+                   "decode_http": decode_http.get(kern["name"], 0),
+                   "fleet_generate": fleet_gen.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

@@ -28,11 +28,10 @@ package verifies and loads in the other. The contract:
 ``io.py``'s var-level saves and inference models use this module's
 manifest and atomic writes: there is one copy of that code.
 
-The JAX package feeds ``checkpoint.save_ms`` / ``checkpoint.bytes`` /
-``checkpoint.delta_bytes`` / ``checkpoint.shards_reused`` /
-``checkpoint.corrupt`` into its observability registry; the port has no
-registry yet (ROADMAP.md, queue 1), so ``_observe`` and ``_count`` are
-named no-ops at the same call sites. The round-fenced ``RoundStore`` and
+``checkpoint.save_ms`` / ``checkpoint.bytes`` / ``checkpoint.delta_bytes``
+/ ``checkpoint.shards_reused`` / ``checkpoint.corrupt`` record into the
+observability registry unconditionally, as in the JAX package. The
+round-fenced ``RoundStore`` and
 the ``job_*`` restore functions come with the parameter server.
 """
 from __future__ import annotations
@@ -46,6 +45,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from . import observability as _obs
 from .observability import flight as _flight
 
 __all__ = ["CheckpointCorrupt", "MANIFEST_NAME", "SCOPE_VARS_NAME",
@@ -68,13 +68,11 @@ class CheckpointCorrupt(RuntimeError):
 
 
 def _observe(name: str, v) -> None:
-    """A histogram observation; a no-op until the port's observability
-    registry exists."""
+    _obs.histogram(name).observe(v)
 
 
 def _count(name: str, n: int = 1, **labels) -> None:
-    """A counter increment; a no-op until the port's observability
-    registry exists."""
+    _obs.counter(name, **labels).inc(n)
 
 
 def _fsync_file(path: str) -> None:

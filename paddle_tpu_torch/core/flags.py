@@ -44,8 +44,10 @@ _DEFS = {
                               "viable shape)"),
     "FLAGS_dygraph_lazy": (False, "dygraph.guard() default: queue eager "
                            "ops and flush once a step (dygraph/lazy.py)"),
-    "FLAGS_tpu_metrics": (False, "runtime observability layer (no-op: not "
-                          "ported). Env alias: PADDLE_TPU_METRICS"),
+    "FLAGS_tpu_metrics": (False, "arm the runtime observability layer "
+                          "(paddle_tpu_torch/observability: the guarded "
+                          "metrics helpers and the span buffer). Env "
+                          "alias: PADDLE_TPU_METRICS"),
 }
 
 # secondary env names honored at init (the primary is FLAGS_<name>)
@@ -67,11 +69,16 @@ def _coerce(default, raw: str):
 
 
 def _apply(key: str) -> None:
-    """Hand a flag that steers torch to torch."""
+    """Hand a flag that steers torch to torch, and the metrics flag to the
+    observability layer."""
     if key == "FLAGS_cudnn_deterministic":
         import torch
 
         torch.backends.cudnn.deterministic = bool(_values[key])
+    elif key == "FLAGS_tpu_metrics":
+        from .. import observability
+
+        (observability.enable if _values[key] else observability.disable)()
 
 
 def _init_from_env():

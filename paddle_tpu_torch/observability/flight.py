@@ -11,8 +11,8 @@ off. Recording is unconditional and cheap: one ``deque.append``.
 Event shape: ``(ts_us, kind, fields)``: ``ts_us`` is
 ``time.perf_counter()`` in microseconds, ``kind`` a dotted string
 (``serving.kv_preempt``), ``fields`` a small dict of json-safe scalars or
-None. Dumping the ring to disk and the crash hook come with the rest of
-observability in a later slice.
+None. Dumping the ring to disk and the crash hook wait for the job-level
+dump (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 

@@ -1,6 +1,13 @@
-"""Fused ops: ``fused_bias_act``, ``fused_residual_layer_norm`` and
-``flash_attention`` (counterparts of ``paddle_tpu/ops/fused_ops.py:117``,
-``:165`` and ``:193``).
+"""Fused ops: ``fc``, ``fused_bias_act``, ``fused_residual_layer_norm`` and
+``flash_attention`` (counterparts of ``paddle_tpu/ops/fused_ops.py:84``,
+``:117``, ``:165`` and ``:193``).
+
+``fc`` is what ``ir.FcFusePass`` turns ``mul -> elementwise_add [->
+relu]`` into when the inference predictor loads a model: it flattens
+``Input`` at ``in_num_col_dims`` and runs the registered ``mul``, the bias
+add and ``relu``, in that order, so it gives the chain's bits. It is a
+device op (the whole-program route captures it) with the auto-VJP grad,
+as the JAX op has.
 
 The two epilogue ops are what ``core.fusion.apply_fused_epilogues`` turns
 a forward chain into: ``elementwise_add -> act [-> dropout]`` and
@@ -30,6 +37,27 @@ from .cuda.flash_attention import FlashAttentionFunction
 
 def _registry_fn(op_type):
     return OpInfoMap.instance().get(op_type).fn
+
+
+@register_op(
+    "fc",
+    inputs=[In("Input"), In("W"), In("Bias", dispensable=True)],
+    outputs=[Out("Out")],
+    attrs={"in_num_col_dims": 1, "activation_type": ""},
+)
+def _fc(ins, attrs):
+    k = int(attrs.get("in_num_col_dims", 1))
+    out = _registry_fn("mul")({"X": ins["Input"], "Y": ins["W"]},
+                              {"x_num_col_dims": k,
+                               "y_num_col_dims": 1})["Out"]
+    if ins.get("Bias") is not None:
+        out = out + ins["Bias"].reshape(-1)
+    act = attrs.get("activation_type", "")
+    if act == "relu":
+        out = _registry_fn("relu")({"X": out}, {})["Out"]
+    elif act:
+        raise NotImplementedError("fc activation %r" % act)
+    return {"Out": out}
 
 
 @register_op(

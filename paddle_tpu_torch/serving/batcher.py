@@ -6,8 +6,9 @@ arrivals into one feed, padded up to a fixed ladder of batch sizes
 (powers of two up to ``max_batch_size`` by default). On the card a fixed
 ladder bounds the set of shapes the kernels see, which warmup covers
 before traffic arrives; results are sliced back per request so callers
-never see the padding. The ladder replanning of the JAX package comes
-with a later slice.
+never see the padding. ``plan_ladder`` fits a ladder to observed
+real-rows-per-batch; the JAX package's steering hook that calls it waits
+for the rest of its observability (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -19,10 +20,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .metrics import MetricsRegistry
+from .metrics import EngineMetrics
 
 __all__ = ["BatchPolicy", "DynamicBatcher", "PendingRequest",
-           "default_ladder", "pick_bucket"]
+           "default_ladder", "pick_bucket", "plan_ladder"]
 
 
 def default_ladder(max_batch_size: int) -> Tuple[int, ...]:
@@ -79,17 +80,20 @@ class BatchPolicy:
 
 class PendingRequest:
     """One queued request: feed, row count, future, deadline, enqueue
-    time."""
+    time, and the submitter's trace context (``trace_ctx``), which the
+    dispatching worker thread cannot read from the submitter's thread."""
 
-    __slots__ = ("feed", "rows", "future", "deadline", "t_enqueue")
+    __slots__ = ("feed", "rows", "future", "deadline", "t_enqueue",
+                 "trace_ctx")
 
     def __init__(self, feed: Dict[str, np.ndarray], rows: int,
-                 deadline: Optional[float] = None):
+                 deadline: Optional[float] = None, trace_ctx=None):
         self.feed = feed
         self.rows = int(rows)
         self.future: Future = Future()
         self.deadline = deadline          # time.monotonic() timestamp
         self.t_enqueue = time.monotonic()
+        self.trace_ctx = trace_ctx
 
 
 class DynamicBatcher:
@@ -99,12 +103,12 @@ class DynamicBatcher:
     (``next_batch``). A request is never split across batches."""
 
     def __init__(self, policy: BatchPolicy, max_queue: int = 64,
-                 metrics: Optional[MetricsRegistry] = None):
+                 metrics: Optional[EngineMetrics] = None):
         if max_queue < 1:
             raise ValueError("max_queue must be >= 1")
         self.policy = policy
         self.max_queue = int(max_queue)
-        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.metrics = metrics if metrics is not None else EngineMetrics()
         self._queue: "deque[PendingRequest]" = deque()
         self._cond = threading.Condition()
         self._closed = False
@@ -207,3 +211,34 @@ class DynamicBatcher:
             arrs[name] = arr
         return [{name: arr[off:off + rows] for name, arr in arrs.items()}
                 for off, rows in slices]
+
+
+def plan_ladder(max_batch_size: int, batch_rows: Sequence[int],
+                max_rungs: int = 6) -> Tuple[int, ...]:
+    """A bucket ladder fitted to observed real-rows-per-batch: distinct
+    quantile rungs (p25/p50/p75/p90/max observed) plus the
+    ``max_batch_size`` cap, validated as ``BatchPolicy`` validates a
+    ladder; ``default_ladder`` when no usable observation exists. Fewer,
+    better-placed rungs pad less while the set of shapes (and of captured
+    graphs) stays ``len(ladder)``."""
+    if max_batch_size < 1:
+        raise ValueError("max_batch_size must be >= 1, got %r"
+                         % max_batch_size)
+    rows = sorted(min(max_batch_size, max(1, int(r)))
+                  for r in batch_rows
+                  if isinstance(r, (int, float)) and r > 0)
+    if not rows:
+        return default_ladder(max_batch_size)
+    rungs = {max_batch_size}
+    for q in (0.25, 0.5, 0.75, 0.9, 1.0):
+        # ceil-style index: the rung must cover the quantile's batches
+        rungs.add(rows[min(len(rows) - 1,
+                           int(np.ceil(q * (len(rows) - 1))))])
+    ladder = tuple(sorted(rungs))
+    if len(ladder) > max_rungs:
+        # keep the cap and the largest rungs
+        ladder = ladder[-max_rungs:]
+        if ladder[-1] != max_batch_size:
+            ladder = tuple(sorted(set(ladder) | {max_batch_size}))
+    BatchPolicy(max_batch_size=max_batch_size, ladder=ladder)  # validate
+    return ladder

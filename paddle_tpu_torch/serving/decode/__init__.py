@@ -18,8 +18,9 @@ step over a growing KV history, so this package schedules per TOKEN STEP:
   front (``DecodeStream`` iterators, TTFT/ITL histograms,
   ``(request_id, token_index)`` resume, drain/stop lifecycle).
 
-The HTTP ``/generate`` front and the fleet's streaming failover come with a
-later slice.
+``serving.http`` serves a ``DecodeEngine`` over ``POST /generate``, and
+``serving.fleet.FleetRouter.generate`` fails a stream over between decode
+replicas from the next undelivered token index.
 """
 from __future__ import annotations
 

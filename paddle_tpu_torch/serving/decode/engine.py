@@ -5,7 +5,9 @@ the card (``cuda:0``) unless ``DecodeConfig(place=CPUPlace())`` asks for the
 CPU; built on the card it builds the port's CUDA kernels and runs the probe
 (``ops/cuda/support.ensure_kernels``) and raises if that fails. The cache
 arenas and the model live on that device; the step thread reads the new
-tokens back once a step. Each engine keeps its own ``MetricsRegistry``.
+tokens back once a step. Its metrics record into the process registry (what
+``GET /metrics`` serves) and into the engine's own view, which ``stats()``
+reads (``serving/metrics.EngineMetrics``).
 
 One step thread owns the cache, the model, and the scheduler; clients
 talk to it through ``submit()`` which returns a ``DecodeStream`` —
@@ -39,6 +41,7 @@ latch it uses for one-shot requests.
 """
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -229,11 +232,7 @@ class DecodeEngine:
             from ...ops.cuda.support import ensure_kernels
 
             ensure_kernels(self.device)
-        self.metrics = M.MetricsRegistry()
-        # the per-token families, looked up once
-        self._ttft = self.metrics.histogram(M.TTFT_MS)
-        self._itl = self.metrics.histogram(M.ITL_MS)
-        self._tokens = self.metrics.counter(M.TOKENS)
+        self.metrics = M.EngineMetrics()
         self.cache = PagedKVCache(self.config.cache, place)
         # every product runs at one row count, the most a pass carries,
         # and the logits at the largest bucket's, so a row's bits do not
@@ -261,11 +260,11 @@ class DecodeEngine:
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._seq_counter = 0
-        # hints for the step thread, counted under their own lock:
-        # submits waiting for the engine lock, and cancel() calls ever
-        # (against the count the last reap saw)
+        # hints for the step thread, counted under their own lock: callers
+        # waiting for the engine lock (submit, stop), and cancel() calls
+        # ever (against the count the last reap saw)
         self._hint_lock = threading.Lock()
-        self._submitters = 0
+        self._waiters = 0
         self._cancels = self._cancels_seen = 0
         self.steps = 0
         # host seconds in token steps, and in their model passes: what is
@@ -286,7 +285,7 @@ class DecodeEngine:
 
     def stop(self, drain: bool = True,
              timeout_s: float = 30.0) -> None:
-        with self._lock:
+        with self._waiting(), self._lock:
             if self._phase == "stopped":
                 return
             self._phase = "draining"
@@ -376,14 +375,20 @@ class DecodeEngine:
         rid = request_id or ("stream-%d-%d"
                              % (id(self), time.monotonic_ns()))
 
-        with self._hint_lock:
-            self._submitters += 1
-        try:
+        with self._waiting():
             return self._admit(prompt, n_max, rid, cost_class, deadline_s,
                                resume_from)
+
+    @contextlib.contextmanager
+    def _waiting(self):
+        """Count the caller among those waiting for the engine lock."""
+        with self._hint_lock:
+            self._waiters += 1
+        try:
+            yield
         finally:
             with self._hint_lock:
-                self._submitters -= 1
+                self._waiters -= 1
 
     def _admit(self, prompt, n_max, rid, cost_class, deadline_s,
                resume_from) -> DecodeStream:
@@ -477,10 +482,11 @@ class DecodeEngine:
                 self.steps += 1
                 self.metrics.set_gauge(M.KV_OCCUPANCY,
                                        self.cache.occupancy())
-            # let a submit waiting on the lock in before the next step: a
+            # let a caller waiting on the lock in before the next step: a
             # step on the card takes milliseconds, and without a pause the
-            # thread takes the lock straight back and starves submitters
-            if self._submitters:
+            # thread takes the lock straight back and starves a submit, or
+            # a stop until every stream has finished
+            if self._waiters:
                 time.sleep(0)
 
     def _run_step(self, plan, entries: Dict[str, _Entry]) -> None:
@@ -650,10 +656,10 @@ class DecodeEngine:
                 with self._lock:
                     self._finish(entry, "max_tokens")
         if ttft:
-            self._ttft.observe_many(ttft)
+            self.metrics.observe_many(M.TTFT_MS, ttft)
         if itl:
-            self._itl.observe_many(itl)
-        self._tokens.inc(len(pairs))
+            self.metrics.observe_many(M.ITL_MS, itl)
+        self.metrics.inc(M.TOKENS, len(pairs))
 
     def _note_cancel(self) -> None:
         with self._hint_lock:

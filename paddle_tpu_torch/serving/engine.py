@@ -17,11 +17,18 @@ another thread. What the bare predictor lacks:
 - **graceful drain**: ``stop()`` refuses new work, finishes what is
   queued, then joins the workers;
 - **lifecycle**: ``health()`` is ``starting | warming | serving |
-  draining | stopped``;
+  draining | stopped``, and ``health_doc()`` is the ``/healthz`` body
+  (``engine_kind`` ``oneshot``, the queue depth);
 - **idempotent request ids**: a duplicate of a pending or recently
-  finished id joins the original's future.
+  finished id joins the original's future;
+- **trace context**: ``submit`` captures the caller's
+  ``observability.distributed.current()`` (the HTTP front sets it a
+  request), and the worker records a ``serving.dispatch`` span under it
+  once the batch has run; ``cost_class`` is accepted, as the fleet
+  router sends it, and ignored (one engine has no priority lanes).
 
-The HTTP front and the distributed-trace hooks come with a later slice.
+Metrics record into the process registry and the engine's own view
+(``metrics.EngineMetrics``); ``stats()`` reads the engine's.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..observability import distributed as _dtrace
 from . import metrics as _m
 from .batcher import BatchPolicy, DynamicBatcher, PendingRequest
 
@@ -101,7 +109,7 @@ class ServingEngine:
     def __init__(self, predictor, config: Optional[ServingConfig] = None,
                  sample_feed: Optional[Dict[str, np.ndarray]] = None):
         self.config = config or ServingConfig()
-        self.metrics = _m.MetricsRegistry()
+        self.metrics = _m.EngineMetrics()
         self._predictor = predictor
         self._input_names = list(predictor.get_input_names())
         self._batcher = DynamicBatcher(self.config.policy,
@@ -183,6 +191,12 @@ class ServingEngine:
             return "warming"
         return "starting"
 
+    def health_doc(self) -> Dict:
+        """The ``/healthz`` body: ``engine_kind`` tells a prober a
+        one-shot replica from a decode one."""
+        return {"status": self.health(), "engine_kind": "oneshot",
+                "queue_depth": self._batcher.depth()}
+
     # -- request path ------------------------------------------------------
 
     def _join_duplicate(self, request_id: str) -> Optional[Future]:
@@ -196,9 +210,13 @@ class ServingEngine:
 
     def submit(self, feed: Dict[str, np.ndarray],
                deadline_ms: Optional[float] = None,
-               request_id: Optional[str] = None) -> Future:
+               request_id: Optional[str] = None,
+               cost_class: Optional[str] = None) -> Future:
         """Queue one request (arrays WITH leading batch axis). Returns a
-        Future resolving to a dict name -> ndarray of its rows."""
+        Future resolving to a dict name -> ndarray of its rows.
+        ``cost_class`` is accepted for the fleet router's sake and
+        ignored."""
+        del cost_class  # one engine: no shed lanes
         if not self._started or self._stopping:
             raise EngineStopped("engine is not accepting requests")
         rid = None
@@ -217,7 +235,8 @@ class ServingEngine:
             deadline_ms = self.config.default_deadline_ms
         deadline = (time.monotonic() + deadline_ms / 1e3
                     if deadline_ms is not None else None)
-        pending = PendingRequest(feed, rows, deadline)
+        pending = PendingRequest(feed, rows, deadline,
+                                 trace_ctx=_dtrace.current())
         if rid is not None:
             # register before the enqueue: of two racing duplicates the
             # loser must find the winner's future
@@ -247,10 +266,11 @@ class ServingEngine:
     def predict(self, feed: Dict[str, np.ndarray],
                 deadline_ms: Optional[float] = None,
                 timeout: Optional[float] = None,
-                request_id: Optional[str] = None) -> Dict[str, np.ndarray]:
+                request_id: Optional[str] = None,
+                cost_class: Optional[str] = None) -> Dict[str, np.ndarray]:
         """Blocking submit().result()."""
-        return self.submit(feed, deadline_ms,
-                           request_id=request_id).result(timeout)
+        return self.submit(feed, deadline_ms, request_id=request_id,
+                           cost_class=cost_class).result(timeout)
 
     def stats(self) -> Dict:
         out = self.metrics.snapshot()
@@ -343,6 +363,7 @@ class ServingEngine:
 
     def _dispatch(self, batch: List[PendingRequest]) -> None:
         now = time.monotonic()
+        t0_perf = time.perf_counter()
         live = []
         for p in batch:
             if p.deadline is not None and now > p.deadline:
@@ -383,6 +404,12 @@ class ServingEngine:
                 self._fail(p, err)
             return
         done = time.monotonic()
+        for p in live:
+            # one span a co-batched request, under its own trace
+            if p.trace_ctx is not None:
+                _dtrace.record_span("serving.dispatch", t0_perf,
+                                    cat="serving", ctx=p.trace_ctx,
+                                    bucket=bucket, rows=p.rows)
         for p, result in zip(live, results):
             self.metrics.observe(_m.TOTAL_MS, (done - p.t_enqueue) * 1e3)
             try:

@@ -1,197 +1,174 @@
-"""Serving metrics: names, and a small registry of counters, gauges and
-histograms.
+"""Serving metric names and their always-on recording helpers.
 
-The metric families are those of ``paddle_tpu/serving/metrics.py`` that the
-one-shot engine and the decode engine record, plus
-``serving.prefill_chunks`` (prompt chunks prefilled: with the decode steps
-it predicts the paged-attention launches); the classes are a small copy of the
-``Counter``/``Gauge``/``Histogram`` of ``paddle_tpu/observability/
-registry.py`` (exact count/sum/min/max plus a bounded uniform reservoir
-for percentiles). Each ``ServingEngine`` owns its own ``MetricsRegistry``,
-so two engines in one process never mix their counts.
+Counterpart of ``paddle_tpu/serving/metrics.py``. Serving records
+unconditionally into the process registry (``observability.metrics()``),
+so ``GET /metrics`` and ``observability.dump_prometheus()`` always see live
+numbers: the module functions ``inc`` / ``observe`` / ``set_gauge`` /
+``set_queue_depth`` / ``snapshot`` are the JAX package's, and the fleet
+router records through them. Handles are fetched from the registry on
+every write, so ``observability.reset()`` cannot leave a writer holding a
+metric a dump no longer reads.
+
+Each engine also keeps a view of its own (``EngineMetrics``): every write
+goes to the process registry and to the engine's private registry, and
+``stats()`` reads the private one, so two engines in one process (two
+replicas on one card, say) still report their own counts.
+
+The families are the JAX package's, plus ``serving.prefill_chunks``
+(prompt chunks prefilled: with the decode steps it predicts the
+paged-attention launches):
+
+=================================  =======================================
+``serving.requests``               counter: admitted requests
+``serving.rejected``               counter: admission-control rejections
+``serving.deadline_expired``       counter: dropped before dispatch
+``serving.errors``                 counter: dispatch failures (per req)
+``serving.batch_errors``           counter: predictor-failed batches
+``serving.batches``                counter: dispatched micro-batches
+``serving.padding_waste``          counter: padded rows (bucket - real)
+``serving.batch_size``             histogram: real rows per micro-batch
+``serving.queue_ms``               histogram: submit -> dispatch wait
+``serving.total_ms``               histogram: submit -> result latency
+``serving.queue_depth``            gauge: requests waiting right now
+``serving.dedup_hits``             counter: idempotent request-id joins
+``serving.shed{class=}``           counter: cost-class load sheds (fleet)
+``serving.hedges``                 counter: hedged attempts launched
+``serving.hedge_wasted``           counter: hedge losers (result discarded)
+``serving.fleet_retries``          counter: re-dispatches after a failure
+``serving.replica_ejections{cause=}``  counter: replicas pulled from
+                                   rotation (dead | draining)
+``serving.replica_rejoins``        counter: ejected replicas back serving
+``serving.streams``                counter: accepted decode streams
+``serving.ttft_ms``                histogram: submit -> first token
+``serving.itl_ms``                 histogram: gap between emitted tokens
+``serving.tokens``                 counter: decode tokens emitted
+``serving.prefill_tokens``         counter: prompt tokens prefilled
+``serving.prefill_chunks``         counter: prompt chunks prefilled
+``serving.decode_steps``           counter: batched decode steps run
+``serving.decode_batch``           histogram: real rows per decode step
+``serving.kv_occupancy``           gauge: used / total KV-cache blocks
+``serving.preemptions``            counter: sequences evicted under KV
+                                   pressure (re-prefilled later)
+``serving.stream_resumes``         counter: streams resumed from a token
+                                   index > 0
+``serving.stream_errors``          counter: streams finished by an error
+=================================  =======================================
 """
 from __future__ import annotations
 
-import random
-import threading
-from typing import Dict, List, Optional
+from .. import observability as _obs
+from ..observability.registry import MetricsRegistry
 
-__all__ = ["REQUESTS", "REJECTED", "DEADLINE_EXPIRED", "ERRORS",
-           "BATCH_ERRORS", "BATCHES", "PADDING_WASTE", "BATCH_SIZE",
-           "QUEUE_MS", "TOTAL_MS", "QUEUE_DEPTH", "DEDUP_HITS",
-           "STREAMS", "TTFT_MS", "ITL_MS", "TOKENS", "PREFILL_TOKENS",
-           "PREFILL_CHUNKS", "DECODE_STEPS", "DECODE_BATCH", "KV_OCCUPANCY",
-           "PREEMPTIONS", "STREAM_RESUMES", "STREAM_ERRORS", "Counter", "Gauge", "Histogram", "MetricsRegistry"]
+__all__ = [
+    "REQUESTS", "REJECTED", "DEADLINE_EXPIRED", "ERRORS",
+    "BATCH_ERRORS", "BATCHES", "PADDING_WASTE", "BATCH_SIZE",
+    "QUEUE_MS", "TOTAL_MS", "QUEUE_DEPTH", "DEDUP_HITS",
+    "SHED", "HEDGES", "HEDGE_WASTED", "FLEET_RETRIES",
+    "REPLICA_EJECTIONS", "REPLICA_REJOINS",
+    "STREAMS", "TTFT_MS", "ITL_MS", "TOKENS", "PREFILL_TOKENS",
+    "PREFILL_CHUNKS", "DECODE_STEPS", "DECODE_BATCH", "KV_OCCUPANCY",
+    "PREEMPTIONS", "STREAM_RESUMES", "STREAM_ERRORS",
+    "inc", "observe", "set_gauge", "set_queue_depth", "snapshot",
+    "EngineMetrics",
+]
 
-REQUESTS = "serving.requests"                  # admitted requests
-REJECTED = "serving.rejected"                  # admission-control rejections
-DEADLINE_EXPIRED = "serving.deadline_expired"  # dropped before dispatch
-ERRORS = "serving.errors"                      # failed requests
-BATCH_ERRORS = "serving.batch_errors"          # predictor-failed batches
-BATCHES = "serving.batches"                    # dispatched micro-batches
-PADDING_WASTE = "serving.padding_waste"        # padded rows (bucket - real)
-BATCH_SIZE = "serving.batch_size"              # real rows per micro-batch
-QUEUE_MS = "serving.queue_ms"                  # submit -> dispatch wait
-TOTAL_MS = "serving.total_ms"                  # submit -> result latency
-QUEUE_DEPTH = "serving.queue_depth"            # requests waiting now
-DEDUP_HITS = "serving.dedup_hits"              # idempotent request-id joins
-# the decode engine's families
-STREAMS = "serving.streams"                    # admitted decode streams
-TTFT_MS = "serving.ttft_ms"                    # submit -> first token
-ITL_MS = "serving.itl_ms"                      # gap between two tokens
-TOKENS = "serving.tokens"                      # generated tokens
-PREFILL_TOKENS = "serving.prefill_tokens"      # prompt tokens prefilled
-PREFILL_CHUNKS = "serving.prefill_chunks"      # prompt chunks prefilled
-DECODE_STEPS = "serving.decode_steps"          # batched decode steps
-DECODE_BATCH = "serving.decode_batch"          # real rows per decode step
-KV_OCCUPANCY = "serving.kv_occupancy"          # used share of the KV arena
-PREEMPTIONS = "serving.preemptions"            # sequences evicted
-STREAM_RESUMES = "serving.stream_resumes"      # submits with resume_from > 0
-STREAM_ERRORS = "serving.stream_errors"        # streams ended by an error
+REQUESTS = "serving.requests"
+REJECTED = "serving.rejected"
+DEADLINE_EXPIRED = "serving.deadline_expired"
+ERRORS = "serving.errors"
+BATCH_ERRORS = "serving.batch_errors"
+BATCHES = "serving.batches"
+PADDING_WASTE = "serving.padding_waste"
+BATCH_SIZE = "serving.batch_size"
+QUEUE_MS = "serving.queue_ms"
+TOTAL_MS = "serving.total_ms"
+QUEUE_DEPTH = "serving.queue_depth"
+DEDUP_HITS = "serving.dedup_hits"
+SHED = "serving.shed"
+HEDGES = "serving.hedges"
+HEDGE_WASTED = "serving.hedge_wasted"
+FLEET_RETRIES = "serving.fleet_retries"
+REPLICA_EJECTIONS = "serving.replica_ejections"
+REPLICA_REJOINS = "serving.replica_rejoins"
+STREAMS = "serving.streams"
+TTFT_MS = "serving.ttft_ms"
+ITL_MS = "serving.itl_ms"
+TOKENS = "serving.tokens"
+PREFILL_TOKENS = "serving.prefill_tokens"
+PREFILL_CHUNKS = "serving.prefill_chunks"
+DECODE_STEPS = "serving.decode_steps"
+DECODE_BATCH = "serving.decode_batch"
+KV_OCCUPANCY = "serving.kv_occupancy"
+PREEMPTIONS = "serving.preemptions"
+STREAM_RESUMES = "serving.stream_resumes"
+STREAM_ERRORS = "serving.stream_errors"
 
 _COUNTERS = (REQUESTS, REJECTED, DEADLINE_EXPIRED, ERRORS, BATCH_ERRORS,
-             BATCHES, PADDING_WASTE, DEDUP_HITS, STREAMS, TOKENS,
+             BATCHES, PADDING_WASTE, DEDUP_HITS, HEDGES, HEDGE_WASTED,
+             FLEET_RETRIES, REPLICA_REJOINS, STREAMS, TOKENS,
              PREFILL_TOKENS, PREFILL_CHUNKS, DECODE_STEPS, PREEMPTIONS,
              STREAM_RESUMES, STREAM_ERRORS)
 _GAUGES = (QUEUE_DEPTH, KV_OCCUPANCY)
 _HISTOGRAMS = (BATCH_SIZE, QUEUE_MS, TOTAL_MS, TTFT_MS, ITL_MS, DECODE_BATCH)
 
 
-def reservoir_quantile(sorted_vals, q: float):
-    """Nearest-rank quantile over a sorted sequence, None when empty."""
-    if not sorted_vals:
-        return None
-    idx = min(len(sorted_vals) - 1,
-              max(0, int(round(q * (len(sorted_vals) - 1)))))
-    return sorted_vals[idx]
+def inc(name: str, n: int = 1, **labels) -> None:
+    _obs.counter(name, **labels).inc(n)
 
 
-class Counter:
-    """Monotonically increasing count."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self._value = 0
-        self._lock = threading.Lock()
-
-    def inc(self, n: int = 1) -> None:
-        if n < 0:
-            raise ValueError("counter %r cannot decrease (n=%r)"
-                             % (self.name, n))
-        with self._lock:
-            self._value += n
-
-    @property
-    def value(self):
-        return self._value
+def observe(name: str, v) -> None:
+    _obs.histogram(name).observe(v)
 
 
-class Gauge:
-    """Last-written value."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self._value = 0.0
-        self._lock = threading.Lock()
-
-    def set(self, v) -> None:
-        with self._lock:
-            self._value = v
-
-    @property
-    def value(self):
-        return self._value
+def set_gauge(name: str, v) -> None:
+    _obs.gauge(name).set(v)
 
 
-class Histogram:
-    """Exact count/sum/min/max and a bounded uniform reservoir."""
-
-    RESERVOIR = 512
-
-    def __init__(self, name: str):
-        self.name = name
-        self.count = 0
-        self.sum = 0.0
-        self.min: Optional[float] = None
-        self.max: Optional[float] = None
-        self._reservoir: List[float] = []
-        self._rng = random.Random(0x5EED)
-        self._lock = threading.Lock()
-
-    def observe(self, v) -> None:
-        self.observe_many((v,))
-
-    def observe_many(self, vs) -> None:
-        """Observe each of ``vs`` in turn, under one lock."""
-        with self._lock:
-            for v in vs:
-                v = float(v)
-                self.count += 1
-                self.sum += v
-                self.min = v if self.min is None else min(self.min, v)
-                self.max = v if self.max is None else max(self.max, v)
-                if len(self._reservoir) < self.RESERVOIR:
-                    self._reservoir.append(v)
-                else:
-                    j = int(self._rng.random() * self.count)
-                    if j < self.RESERVOIR:
-                        self._reservoir[j] = v
-
-    def snapshot(self) -> Dict:
-        with self._lock:
-            s = sorted(self._reservoir)
-            out = {"count": self.count, "sum": self.sum, "min": self.min,
-                   "max": self.max,
-                   "mean": (self.sum / self.count) if self.count else None}
-        for q, tag in ((0.5, "p50"), (0.9, "p90"), (0.99, "p99")):
-            out[tag] = reservoir_quantile(s, q)
-        return out
+def set_queue_depth(n: int) -> None:
+    _obs.gauge(QUEUE_DEPTH).set(n)
 
 
-class MetricsRegistry:
-    """Get-or-create store of named metrics, thread-safe."""
+def _snapshot(reg: MetricsRegistry) -> dict:
+    out = {name: reg.counter_value(name) for name in _COUNTERS}
+    for name in _GAUGES:
+        out[name] = reg.gauge_value(name)
+    for name in _HISTOGRAMS:
+        out[name] = reg.histogram(name).snapshot()
+    return out
+
+
+def snapshot() -> dict:
+    """The serving counters, gauges and latency histograms of the process
+    registry as a plain dict (the fleet router's ``stats()``)."""
+    return _snapshot(_obs.metrics())
+
+
+class EngineMetrics:
+    """One engine's view: each write lands in the process registry and in
+    this engine's own, which ``snapshot()`` (the engine's ``stats()``)
+    reads."""
 
     def __init__(self):
-        self._lock = threading.Lock()
-        self._metrics: Dict[str, object] = {}
-
-    def _get(self, cls, name: str):
-        with self._lock:
-            m = self._metrics.get(name)
-            if m is None:
-                m = self._metrics[name] = cls(name)
-        if not isinstance(m, cls):
-            raise TypeError("metric %r is a %s, not a %s"
-                            % (name, type(m).__name__, cls.__name__))
-        return m
-
-    def counter(self, name: str) -> Counter:
-        return self._get(Counter, name)
-
-    def gauge(self, name: str) -> Gauge:
-        return self._get(Gauge, name)
-
-    def histogram(self, name: str) -> Histogram:
-        return self._get(Histogram, name)
+        self._own = MetricsRegistry()
 
     def inc(self, name: str, n: int = 1) -> None:
-        self.counter(name).inc(n)
+        self._own.counter(name).inc(n)
+        inc(name, n)
 
     def observe(self, name: str, v) -> None:
-        self.histogram(name).observe(v)
+        self._own.histogram(name).observe(v)
+        observe(name, v)
+
+    def observe_many(self, name: str, vs) -> None:
+        self._own.histogram(name).observe_many(vs)
+        _obs.histogram(name).observe_many(vs)
 
     def set_gauge(self, name: str, v) -> None:
-        self.gauge(name).set(v)
+        self._own.gauge(name).set(v)
+        set_gauge(name, v)
 
     def set_queue_depth(self, n: int) -> None:
         self.set_gauge(QUEUE_DEPTH, n)
 
-    def snapshot(self) -> Dict:
-        """The serving counters, gauges and latency histograms as a plain
-        dict (the ``stats()`` payload of either engine)."""
-        out = {name: self.counter(name).value for name in _COUNTERS}
-        for name in _GAUGES:
-            out[name] = self.gauge(name).value
-        for name in _HISTOGRAMS:
-            out[name] = self.histogram(name).snapshot()
-        return out
+    def snapshot(self) -> dict:
+        return _snapshot(self._own)

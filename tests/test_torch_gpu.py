@@ -2453,3 +2453,127 @@ def test_slice17_moving_average_swaps_the_captured_buffers(cuda):
     for a, b in zip(out["card"], out["cpu"]):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
     assert np.abs(out["card"][1] - out["card"][2]).max() > 1e-6
+
+
+# -- slice 18: the serving front ----------------------------------------------
+
+def test_slice18_fc_is_captured_in_a_replay(cuda, tmp_path):
+    """The fc ops FcFusePass emits run inside the predictor's captured
+    graph: one capture, no fallback, the card interpreter's answer within
+    1e-6 relative, and the passes-off predictor's within 1e-5."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[-1, 3, 16], dtype="float32")
+        h = fluid.layers.fc(x, 32, num_flatten_dims=2, act="relu")
+        y = fluid.layers.fc(h, 8, num_flatten_dims=2)
+    exe = fluid.Executor()
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        fluid.io.save_inference_model(str(tmp_path), ["x"], [y], exe,
+                                      main_program=main)
+    pred = create_paddle_predictor(AnalysisConfig(str(tmp_path)))
+    assert [op.type for op in pred._program.global_block().ops] == [
+        "fc", "fc"]
+    cfg = AnalysisConfig(str(tmp_path))
+    cfg.switch_ir_optim(False)
+    off = create_paddle_predictor(cfg)
+    xv = np.random.RandomState(5).randn(4, 3, 16).astype("float32")
+    ce.reset_counters()
+    outs = [pred.run({"x": xv})[0].data for _ in range(4)]
+    c = ce.counters()
+    assert c["executor.jit_traces"] == 1
+    assert c["executor.compile_fallbacks"] == 0
+    (interp,) = pred._exe._core.run_program(pred._program, pred._scope,
+                                            {"x": xv}, pred._fetch_vars)
+    for o in outs:
+        np.testing.assert_allclose(o, interp, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(outs[-1], off.run({"x": xv})[0].data,
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_slice18_folded_conv_runs_k5_bitwise_twice(cuda, tmp_path):
+    """A conv+BN folded by ConvBnFusePass on the card: the filter and its
+    bn_fold_bias stay on the card, the conv runs K5 (one launch a run)
+    and two runs give the same bits; the answer is the passes-off
+    predictor's within 1e-4 of scale."""
+    import importlib
+
+    resnet = importlib.import_module("paddle_tpu_torch.models.resnet")
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.data(name="img", shape=[-1, 8, 8, 128],
+                         dtype="float32")
+        y = resnet._conv_bn(img, 128, 3, 1, act="relu", is_test=True,
+                            data_format="NHWC")
+    rng = np.random.RandomState(6)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for op in main.global_block().ops:
+            if op.type == "batch_norm":
+                for slot in ("Mean", "Variance", "Scale", "Bias"):
+                    (n,) = op.input(slot)
+                    v = rng.uniform(0.5, 1.5, 128).astype("float32")
+                    scope.find_var(n).get_tensor().set(
+                        torch.from_numpy(v).to(cuda))
+        fluid.io.save_inference_model(str(tmp_path), ["img"], [y], exe,
+                                      main_program=main)
+    fluid.set_flags({"FLAGS_use_pallas_conv": "all"})
+    try:
+        pred = create_paddle_predictor(AnalysisConfig(str(tmp_path)))
+        cfg = AnalysisConfig(str(tmp_path))
+        cfg.switch_ir_optim(False)
+        off = create_paddle_predictor(cfg)
+        types = [op.type for op in pred._program.global_block().ops]
+        assert types == ["conv2d", "relu"], types
+        conv = pred._program.global_block().ops[0]
+        (bias,) = conv.input("Bias")
+        assert bias.endswith(".bn_fold_bias")
+        for n in (bias, conv.input("Filter")[0]):
+            assert pred._scope.find_var(n).get_tensor().array.is_cuda
+        xv = rng.randn(4, 8, 8, 128).astype("float32")
+        support.reset_launch_counts()
+        a = pred._exe._core.run_program(pred._program, pred._scope,
+                                        {"img": xv}, pred._fetch_vars)[0]
+        b = pred._exe._core.run_program(pred._program, pred._scope,
+                                        {"img": xv}, pred._fetch_vars)[0]
+        assert support.launch_counts()["conv2d_bn_act"] == 2
+        assert a.tobytes() == b.tobytes()
+        (want,) = off.run({"img": xv})
+        scale = max(float(np.abs(want.data).max()), 1.0)
+        np.testing.assert_allclose(a, want.data, rtol=0, atol=1e-4 * scale)
+    finally:
+        fluid.set_flags({"FLAGS_use_pallas_conv": "off"})
+
+
+def test_slice18_generate_on_the_card_is_the_in_process_stream(cuda):
+    """POST /generate on a decode engine on the card streams, bit for bit,
+    the tokens and finish event the engine gives in process, K6 running
+    under both."""
+    import json
+    import urllib.request
+
+    from paddle_tpu_torch.serving import start_http_server
+
+    eng = DecodeEngine(_decode_cfg(fluid.CUDAPlace(0))).start()
+    server, _ = start_http_server(eng, port=0)
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    try:
+        for i, (prompt, n) in enumerate((([5, 6, 7], 24),
+                                         ([3] * 40, 16))):
+            want = list(eng.submit(prompt, max_tokens=n,
+                                   request_id="in-%d" % i))
+            before = support.launch_counts()["paged_decode_attention"]
+            req = urllib.request.Request(
+                base + "/generate",
+                json.dumps({"prompt": prompt, "max_tokens": n}).encode(),
+                {"X-Request-Id": "http-%d" % i}, method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                got = [json.loads(ln) for ln in r if ln.strip()]
+            assert got == want
+            assert support.launch_counts()["paged_decode_attention"] > before
+    finally:
+        server.shutdown()
+        server.server_close()
+        eng.stop()

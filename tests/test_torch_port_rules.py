@@ -244,3 +244,54 @@ def test_slice17_module_imports_no_jax(module):
                          cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+_SLICE18_MODULES = ("ir.py", "distributed/__init__.py",
+                    "distributed/fault.py", "observability/__init__.py",
+                    "observability/registry.py", "observability/tracing.py",
+                    "observability/distributed.py",
+                    "observability/flight.py", "serving/http.py",
+                    "serving/fleet.py", "serving/metrics.py",
+                    "inference/__init__.py")
+
+_IMPORT_SLICE18 = r"""
+import importlib, sys
+module = sys.argv[1]
+name = module[:-3].replace("/", ".")
+if name.endswith(".__init__"):
+    name = name[:-len(".__init__")]
+importlib.import_module("paddle_tpu_torch." + name)
+from paddle_tpu_torch import inference, ir, observability, serving
+for name in ("start_http_server", "serve", "ServingHTTPServer",
+             "FleetRouter", "FleetConfig", "RequestShed",
+             "ReplicaUnavailable"):
+    assert hasattr(serving, name), name
+for name in ("create_predictor", "ZeroCopyTensor", "Predictor"):
+    assert hasattr(inference, name), name
+for name in ("FcFusePass", "ConvBnFusePass", "apply_passes"):
+    assert hasattr(ir, name), name
+for name in ("dump_prometheus", "counter", "enable", "reset"):
+    assert hasattr(observability, name), name
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("module", _SLICE18_MODULES)
+def test_slice18_module_imports_no_jax(module):
+    """Each module of the serving-front slice names neither jax nor the
+    JAX package in an import line, loads alone without pulling either in,
+    and says nothing is still to come that this slice brought."""
+    with open(os.path.join(REPO, "paddle_tpu_torch", module)) as f:
+        text = f.read()
+    imports = [ln.strip() for ln in text.splitlines()
+               if ln.strip().startswith(("import ", "from "))]
+    assert not [ln for ln in imports if ln.split()[1].split(".")[0] in (
+        "jax", "jaxlib", "paddle_tpu")], (module, imports)
+    assert "later slice" not in text and "come later" not in text, module
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _IMPORT_SLICE18, module],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

@@ -13,8 +13,8 @@ A small version of the BERT encoder (2 layers, 2 heads, d_model 32, d_ff
     Executor the JAX Executor's fetch;
 (d) a model saved by the port loads and predicts the same in paddle_tpu.
 
-Tolerance 1e-4 (float32; the JAX predictor fuses mul + add into fc and
-XLA reorders sums, the port runs the ops as saved).
+Tolerance 1e-4 (float32; both predictors fuse mul + add into fc, and XLA
+sums in another order).
 """
 import numpy as np
 import pytest
