@@ -494,12 +494,33 @@ lines each:
    streams; tokens/s, TTFT and ITL p50/p99 (the client's clock) beside
    phase 13's, K6 by replica (each layers x (decode steps + prefill
    chunks)) and K7 once an engine;
-54. one JSON line {"kernels": [...]} with each kernel's launches on the
+54. control flow on the captured route: P1 alone (a while node of 37
+   trips against the host loop, bitwise; a launch's time beside the
+   launch floor); phase 41's recurrence forward (its clone for test, B
+   128, D 512, 50 trips) captured once as a while node: no fallback, no
+   condition read in 8 replays, bitwise against the card's interpreter,
+   within 1e-5 of the CPU, ms a trip against the interpreter's, P1
+   exactly 51 a run; the recurrence as a @declarative function over a
+   fed trip count, one capture replayed at 50, 17 and 0 trips, each
+   equal to the interpreter; at B 16, D 32 a scalar conditional_block
+   both ways from one capture, a nested while, a zero-trip while and
+   layers.cond within 1e-5 of the CPU; the declines by name (while_grad,
+   IfElse, the array loop as the JAX package's reasons; a dropout in a
+   while body declined on the card and counted);
+55. bench.py's dygraph_bert encoder (12/768/12, batch 32 x seq 128,
+   flash) as one Layer, traced with TracedLayer.trace, saved with its
+   save_inference_model and served by create_paddle_predictor on the
+   card: one capture, no fallback, K1 exactly 12 a dispatch, answers
+   within 1e-5 of scale of the dygraph forward on the card; the same
+   forward under @declarative gives them too; ms a batch served against
+   the eager forward;
+56. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside, the dygraph, recipe, seq2seq, while,
    sentiment, book_*, bert_proto, checkpoint, rnn_search, serving_ir,
-   serving_http, resnet_infer, decode_http and fleet_generate paths too),
-   error, times and bound;
-55. the last line: {"ok": true, "device": {...}}.
+   serving_http, resnet_infer, decode_http, fleet_generate,
+   control_flow and dygraph_deploy paths too), error, times and bound,
+   P1 (graph_conditional, the port's own kernel) among them;
+57. the last line: {"ok": true, "device": {...}}.
 
 Phases 43-45 run the book's scripts as the book does, with those knobs
 unset (phase 45 sets PADDLE_TPU_FUSED_OPTIMIZER for its SGD twins). Every
@@ -5463,7 +5484,8 @@ def phase_while(fluid, support):
     torch.cuda.synchronize()
     fwd_ms = (time.perf_counter() - t0) / len(feeds) * 1e3
     log("phase 41 while forward alone (is_test, no snapshots): %.3f ms a "
-        "run, %.4f ms a trip (one condition read a trip); card %s"
+        "run, %.4f ms a trip (the captured route, a while node: the timed "
+        "runs hold its capture; phase 54 times the replays); card %s"
         % (fwd_ms, fwd_ms / cfg["trips"], card_line()))
     others = {}
     for name, build, trips, feeds_c in control_flow_cases(fluid, rng):
@@ -7819,6 +7841,569 @@ def phase_decode_http(fluid, support, specs, outs, decode_run,
     return http_counts, fleet_counts, run
 
 
+# -- phases 54-55: control flow captured; a dygraph model converted --------
+
+CF_TRIPS = (50, 17, 0)     # one capture of the @declarative loop replayed
+CF_REPLAYS = 8             # timed replays of the captured forward while
+CF_NARROW = dict(batch=16, width=32)
+CF_RTOL = 1e-5             # card against CPU, relative to the value's scale
+P1_TRIPS = 37
+RNG_LOOP_DECLINE = "while>dropout (rng in a captured loop)"
+
+
+def p1_check(support, floor_ms):
+    """P1 alone: a while node of P1_TRIPS trips (x <- x / 2 + 1, i += 1)
+    against its plain version, the host loop, from the same values; then
+    a launch of the set kernel timed as phase 2 times the probe."""
+    from paddle_tpu_torch.core.cuda_graph import CapturedGraph, GraphCache
+    from paddle_tpu_torch.ops.cuda import graph_conditional as p1
+
+    dev = torch.device("cuda")
+    n = torch.tensor([P1_TRIPS], dtype=torch.int64, device=dev)
+    x0 = torch.randn(4096, generator=torch.Generator().manual_seed(SEED),
+                     dtype=torch.float32).to(dev)
+
+    def step(x, i):
+        return x * 0.5 + 1.0, i + 1
+
+    state = {"x": x0.clone(), "i": torch.zeros(1, dtype=torch.int64,
+                                               device=dev)}
+
+    def plain_body():
+        state["x"], state["i"] = step(state["x"], state["i"])
+
+    plain_trips = p1.host_while(lambda: state["i"] < n, plain_body)
+    xb, ib = x0.clone(), torch.zeros(1, dtype=torch.int64, device=dev)
+    trips = support.TripCounter(dev)
+    graph, cache = CapturedGraph(), GraphCache(dev)
+
+    def body():
+        with graph.conditional(ib < n, True, trips) as new_cond:
+            nx, ni = step(xb, ib)
+            xb.copy_(nx)
+            ib.copy_(ni)
+            new_cond.append(ib < n)
+
+    graph.capture(cache, body)
+    graph.launch()
+    torch.cuda.synchronize()
+    err = (xb - state["x"]).abs().max().item()
+    runs = trips.flush()
+    if err != 0.0 or int(ib.item()) != P1_TRIPS or plain_trips != P1_TRIPS \
+            or runs != P1_TRIPS:
+        raise RuntimeError("phase 54 P1: while node against the host loop: "
+                           "err %g, trips %d / %d / %d, want %d"
+                           % (err, int(ib.item()), plain_trips, runs,
+                              P1_TRIPS))
+    cond = torch.ones(1, dtype=torch.bool, device=dev)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():  # count only: a launch outside a graph sets no handle
+        p1.set_condition(0, cond, count, stream, set_handle=False)
+
+    ms = time_ms(launch, iters=1000)
+    dev_ms = device_ms_per_call(launch)
+    plain_ms = time_ms(lambda: p1.condition_value(cond), iters=1000)
+    # one byte read, one int64 read and written
+    b_ms, b_by = bound(1 + 16, 1, PEAK_FLOPS[torch.float32])
+    cache.clear()
+    log("phase 54 P1 while node (%d trips) against the host loop: "
+        "max_abs_err %g; a set launch %.5f ms issued back to back, device "
+        "time %s, the host read of a condition (the plain version, a trip) "
+        "%.5f ms; bound %.7f ms by %s, the launch floor %s; card %s"
+        % (P1_TRIPS, err, ms, fmt_ms(dev_ms), plain_ms, b_ms, b_by,
+           fmt_ms(floor_ms), card_line()))
+    return {"name": "graph_conditional", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/graph_conditional.cu",
+            "replaces": "paddle_tpu/core/compiler_engine.py:255",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "device_ms": dev_ms, "launch_floor_device_ms": floor_ms,
+            "kernel_of": "the port itself (P1): not the port of a Pallas "
+                         "kernel; the JAX package lowers while to "
+                         "lax.while_loop (compiler_engine.py:255-289)",
+            "ms_covers": "host issue of back-to-back launches (CUDA "
+                         "events); device_ms is the kernel's own time; "
+                         "plain_ms is a host read of the condition",
+            "bound_covers": "bound_ms from the bytes; a launch takes at "
+                            "least launch_floor_device_ms"}
+
+
+def h_name(program):
+    """The recurrence's h: what its loss averages."""
+    return next(op.input("X")[0] for op in program.global_block().ops
+                if op.type == "reduce_mean")
+
+
+def cf_forward_cases(fluid):
+    """(name, build, feeds, want route) at CF_NARROW: forward programs,
+    each run on the card (eager, capture, replays) against the CPU."""
+    L = fluid.layers
+    B, D = CF_NARROW["batch"], CF_NARROW["width"]
+
+    def cond_block():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data(name="x", shape=[B, D], dtype="float32")
+            f = fluid.data(name="flag", shape=[1], dtype="bool")
+            y = L.tanh(x)
+            blk = main.current_block()
+            sub = main._create_block()
+            L.assign(L.scale(y, 3.0), output=y)
+            main._rollback()
+            blk.append_op("conditional_block", inputs={"Cond": [f]},
+                          outputs={}, attrs={"sub_block": sub,
+                                             "is_scalar_condition": True})
+        return main, startup, [y]
+
+    def nested():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data(name="x", shape=[B, D], dtype="float32")
+            w = L.create_parameter([D, D], "float32", name="w_nested")
+            h = L.assign(x)
+            i = L.fill_constant([1], "int64", 0)
+            j = L.fill_constant([1], "int64", 0)
+            n = L.fill_constant([1], "int64", 3)
+            m = L.fill_constant([1], "int64", 4)
+            c = L.less_than(i, n)
+            with L.While(c).block():
+                L.assign(L.fill_constant([1], "int64", 0), output=j)
+                c2 = L.less_than(j, m)
+                with L.While(c2).block():
+                    L.assign(L.tanh(L.matmul(h, w)), output=h)
+                    L.increment(j, value=1, in_place=True)
+                    L.less_than(j, m, cond=c2)
+                L.assign(L.elementwise_add(h, x), output=h)
+                L.increment(i, value=1, in_place=True)
+                L.less_than(i, n, cond=c)
+        return main, startup, [h, i, j]
+
+    def zero_trip():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data(name="x", shape=[B, D], dtype="float32")
+            w = L.create_parameter([D, D], "float32", name="w_zero")
+            h = L.matmul(x, w)
+            i = L.fill_constant([1], "int64", 5)
+            n = L.fill_constant([1], "int64", 3)
+            c = L.less_than(i, n)
+            with L.While(c).block():
+                L.assign(L.scale(h, scale=2.0), output=h)
+                L.increment(i, value=1, in_place=True)
+                L.less_than(i, n, cond=c)
+        return main, startup, [h, i]
+
+    def select():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data(name="x", shape=[B, D], dtype="float32")
+            p = fluid.data(name="p", shape=[B, D], dtype="bool")
+            out = L.cond(p, lambda: L.tanh(x), lambda: L.scale(x, 3.0))
+        return main, startup, [out]
+
+    rng = np.random.RandomState(SEED + 54)
+    xs = [rng.randn(B, D).astype("float32") for _ in range(4)]
+    return [
+        ("conditional_block both ways", cond_block,
+         [{"x": x, "flag": np.array([k % 2 == 0])}
+          for k, x in enumerate(xs)]),
+        ("nested while", nested, [{"x": x} for x in xs]),
+        ("zero-trip while", zero_trip, [{"x": x} for x in xs]),
+        ("layers.cond", select,
+         [{"x": x, "p": rng.rand(B, D) > 0.5} for x in xs]),
+    ]
+
+
+def cf_card_against_cpu(fluid, exe, name, build, feeds):
+    """``build()``'s forward program a feed a run on the card (``exe``)
+    and on the CPU from the same weights: the largest gap of scale, and
+    the card's counters."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+
+    main, startup, fetch = build()
+    cpu = fluid.Executor(fluid.CPUPlace())
+    s_cpu, s_card = fluid.Scope(), fluid.Scope()
+    cpu.run(startup, scope=s_cpu)
+    init = {v.name: s_cpu.find_var(v.name).get_tensor().numpy()
+            for v in main.global_block().vars.values()
+            if v.persistable and s_cpu.find_var(v.name) is not None}
+    exe.run(startup, scope=s_card)
+    fluid.io.scope_from_numpy(s_card, init, fluid.CUDAPlace(0))
+    ce.reset_counters()
+    gap = 0.0
+    for feed in feeds:
+        card = exe.run(main, feed=feed, fetch_list=fetch, scope=s_card)
+        want = cpu.run(main, feed=feed, fetch_list=fetch, scope=s_cpu)
+        gap = max([gap] + [rel_gap(c, w) for c, w in zip(card, want)])
+    c = ce.counters()
+    check_one_capture("phase 54 " + name, c)
+    if gap > CF_RTOL:
+        raise RuntimeError("phase 54 %s: card and CPU differ by %g"
+                           % (name, gap))
+    return gap, c
+
+
+def phase_control_flow(fluid, support, floor_ms):
+    """Phase 54: control flow on the captured route. P1 against the host
+    loop; phase 41's recurrence forward (its clone for test, WHILE_SHAPE)
+    captured once with a while node: no fallback, no condition read in a
+    replay, bitwise against the card's interpreter, within CF_RTOL of the
+    CPU, ms a trip against the interpreter's; the recurrence as a
+    @declarative function looping over a fed trip count, one capture
+    replayed at CF_TRIPS; a scalar conditional_block both ways from one
+    capture, a nested while, a zero-trip while and layers.cond against
+    the CPU; the declines by name."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+
+    p1k = p1_check(support, floor_ms)
+    cfg = WHILE_SHAPE
+    exe = new_card_executor(fluid, support)
+    rng = np.random.RandomState(SEED + 63)
+    feeds = [{"x": rng.randn(cfg["batch"], cfg["width"]).astype("float32")}
+             for _ in range(2)]
+    w0 = (rng.randn(cfg["width"], cfg["width"])
+          / np.sqrt(cfg["width"])).astype("float32")
+    main, startup, loss, _ = while_script(fluid, cfg)
+    test = main.clone(for_test=True)
+    fetch = [h_name(test), loss.name]
+    if ce.untraceable_reasons(test.global_block()):
+        raise RuntimeError("phase 54: the forward while is declined: %s"
+                           % ce.untraceable_reasons(test.global_block()))
+    scopes = {}
+    for side, e in (("cpu", fluid.Executor(fluid.CPUPlace())),
+                    ("interp", exe), ("captured", exe)):
+        scopes[side] = fluid.Scope()
+        e.run(startup, scope=scopes[side])
+        fluid.io.scope_from_numpy(scopes[side], {"w_while": w0},
+                                  fluid.CPUPlace() if side == "cpu"
+                                  else fluid.CUDAPlace(0))
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        test, feed=feeds[0], fetch_list=fetch, scope=scopes["cpu"])
+
+    def interp():
+        return exe._core.run_program(test, scopes["interp"], feeds[0],
+                                     fetch, True)
+
+    def captured():
+        return exe.run(test, feed=feeds[0], fetch_list=fetch,
+                       scope=scopes["captured"])
+
+    interp()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CF_REPLAYS):
+        got_i = interp()
+    torch.cuda.synchronize()
+    interp_ms = (time.perf_counter() - t0) / CF_REPLAYS * 1e3
+    support.reset_launch_counts()
+    ce.reset_counters()
+    captured()                      # eager: builds, reads its conditions
+    captured()                      # the capture
+    torch.cuda.synchronize()
+    eager_reads = ce.counters()["executor.condition_reads"]
+    t0 = time.perf_counter()
+    for _ in range(CF_REPLAYS):
+        got_c = captured()
+    torch.cuda.synchronize()
+    cap_ms = (time.perf_counter() - t0) / CF_REPLAYS * 1e3
+    c = ce.counters()
+    counts = support.launch_counts()
+    check_one_capture("phase 54 forward while", c)
+    replay_reads = c["executor.condition_reads"] - eager_reads
+    bitwise = all(np.array_equal(a, b) for a, b in zip(got_c, got_i))
+    cpu_gap = max(rel_gap(a, b) for a, b in zip(got_c, cpu))
+    p1_want = (CF_REPLAYS + 1) * (cfg["trips"] + 1)
+    log("phase 54 forward while (B %d, D %d, %d trips, clone for test) "
+        "captured: %d capture, %d fallbacks, %d condition reads in %d "
+        "replays (%d in the eager run); %.3f ms a run, %.4f ms a trip, "
+        "against the interpreter's %.3f ms, %.4f ms a trip (%.1fx); "
+        "bitwise against the card's interpreter: %s; CPU gap %.3g (limit "
+        "%g); P1 %d launches (want %d: a set before the node and one a "
+        "trip, each replay and the capture's own run); card %s"
+        % (cfg["batch"], cfg["width"], cfg["trips"], c["executor.jit_traces"],
+           c["executor.compile_fallbacks"], replay_reads, CF_REPLAYS,
+           eager_reads, cap_ms, cap_ms / cfg["trips"], interp_ms,
+           interp_ms / cfg["trips"], interp_ms / cap_ms, bitwise, cpu_gap,
+           CF_RTOL, counts.get("graph_conditional", 0), p1_want,
+           card_line()))
+    if replay_reads or not bitwise or cpu_gap > CF_RTOL or \
+            counts.get("graph_conditional", 0) != p1_want:
+        raise RuntimeError("phase 54 forward while: reads %d, bitwise %s, "
+                           "CPU gap %g, P1 %s" % (
+                               replay_reads, bitwise, cpu_gap,
+                               counts.get("graph_conditional")))
+    decl = cf_declarative(fluid, support, cfg, w0, feeds[0]["x"])
+    others = {}
+    for name, build, fs in cf_forward_cases(fluid):
+        gap, cc = cf_card_against_cpu(fluid, exe, name, build, fs)
+        others[name] = {"cpu_gap": gap,
+                        "condition_reads": cc["executor.condition_reads"]}
+        log("phase 54 %s: one capture over %d runs (the first eager), CPU "
+            "gap %.3g (limit %g), %d condition reads (the eager run's)"
+            % (name, len(fs), gap, CF_RTOL, cc["executor.condition_reads"]))
+    declined = cf_declines(fluid, exe, cfg)
+    exe.close()
+    run = {"forward_while": {
+        "captured_ms": cap_ms, "captured_ms_a_trip": cap_ms / cfg["trips"],
+        "interpreted_ms": interp_ms,
+        "interpreted_ms_a_trip": interp_ms / cfg["trips"],
+        "replay_condition_reads": replay_reads, "bitwise": bitwise,
+        "cpu_gap": cpu_gap, "p1_launches": counts.get("graph_conditional")},
+        "declarative": decl, **others, "declined": declined}
+    return counts, p1k, run
+
+
+def cf_declarative(fluid, support, cfg, w0, x):
+    """The recurrence as a @declarative function, ``for _ in range(n)``
+    over a fed trip count: one capture replayed at CF_TRIPS, each against
+    the card's interpreter on the same program."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+    from paddle_tpu_torch.dygraph import dygraph_to_static as d2s
+
+    L = fluid.layers
+
+    @fluid.dygraph.declarative
+    def recur(x, w, n):
+        h = x * 0.0
+        for _ in range(n):
+            h = L.tanh(L.elementwise_add(L.matmul(h, w), x))
+        return h
+
+    res = {}
+    with fluid.dygraph.guard():
+        ce.reset_counters()
+        calls = [CF_TRIPS[0]] + list(CF_TRIPS)
+        for k, trips in enumerate(calls):
+            n = np.array([trips], dtype="int64")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = recur(x, w0, n).numpy()
+            ms = (time.perf_counter() - t0) * 1e3
+            entry = recur._cache_lookup((x, w0, n))
+            feed = dict(zip(entry["feeds"], (x, w0, n)))
+            want = d2s._shared_executor()._core.run_program(
+                entry["program"], fluid.Scope(), feed, entry["fetches"],
+                True)[0]
+            same = np.array_equal(out, want)
+            res.setdefault("runs", []).append(
+                {"trips": trips, "ms": ms, "bitwise": same})
+            if not same:
+                raise RuntimeError("phase 54 @declarative at %d trips: the "
+                                   "replay differs from the interpreter by "
+                                   "%g" % (trips, rel_gap(out, want)))
+        c = ce.counters()
+        types = [op.type for op in entry["program"].global_block().ops]
+    check_one_capture("phase 54 @declarative", c)
+    if len(recur._cache) != 1 or "while" not in types:
+        raise RuntimeError("phase 54 @declarative: %d programs, ops %s"
+                           % (len(recur._cache), types))
+    log("phase 54 @declarative recurrence (for _ in range(n), n fed): one "
+        "program (%d ops, a while), %d capture over trip counts %s, each "
+        "equal to the interpreter bitwise; ms a call %s; card %s"
+        % (len(types), c["executor.jit_traces"], calls,
+           ["%.2f" % r["ms"] for r in res["runs"]], card_line()))
+    return res
+
+
+def cf_declines(fluid, exe, cfg):
+    """What stays on the interpreter, by name: phase 41's training
+    program (while_grad), IfElse, the array loop (their reasons, as the
+    JAX package's), and on the card a dropout in a while body, declined
+    by name and counted."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+
+    named = {}
+    rng = np.random.RandomState(SEED + 55)
+    train = while_script(fluid, dict(cfg, batch=4, width=8, trips=3))[0]
+    named["while_grad"] = ce.untraceable_reasons(train.global_block())
+    for name, build, _, _ in control_flow_cases(fluid, rng):
+        if name in ("IfElse", "array loop"):
+            named[name] = ce.untraceable_reasons(build()[0].global_block())
+    if not all(named.values()):
+        raise RuntimeError("phase 54: a declined case has no reason: %s"
+                           % named)
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[64, 64], dtype="float32")
+        h = L.assign(x)
+        i = L.fill_constant([1], "int64", 0)
+        n = L.fill_constant([1], "int64", 3)
+        c = L.less_than(i, n)
+        with L.While(c).block():
+            L.assign(L.dropout(h, 0.5, dropout_implementation=
+                               "upscale_in_train"), output=h)
+            L.increment(i, value=1, in_place=True)
+            L.less_than(i, n, cond=c)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    ce.reset_counters()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        out = exe.run(main, feed={"x": np.ones((64, 64), "float32")},
+                      fetch_list=[h], scope=scope)[0]
+    c, d = ce.counters(), ce.declines()
+    if c["executor.compile_fallbacks"] != 1 or d.get(RNG_LOOP_DECLINE) != 1 \
+            or not np.isfinite(out).all():
+        raise RuntimeError("phase 54: the RNG loop: counters %s, declines "
+                           "%s" % (c, d))
+    named["rng loop"] = [RNG_LOOP_DECLINE]
+    log("phase 54 declined by name (interpreted, as the JAX package does "
+        "or, for the RNG loop, where a captured body would replay one "
+        "mask): %s" % json.dumps(named))
+    return named
+
+
+DY_SERVE_RUNS = 5          # timed batches, each way
+DY_SERVE_RTOL = 1e-5       # served against the dygraph forward, of scale
+
+
+def dy_bert_encoder(fluid, batch, seq, n_layers, d_model, n_heads, vocab,
+                    seed=SEED + 31):
+    """dy_bert_script's encoder (bench.py's dygraph_bert) with
+    attention="flash", as one Layer: (ids, position ids) -> the last
+    layer's hidden states."""
+    D, L = fluid.dygraph, fluid.layers
+    head = d_model // n_heads
+
+    class Encoder(D.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = D.Embedding(size=[vocab, d_model])
+            self.pos = D.Embedding(size=[seq, d_model])
+            self.blocks = []
+            for i in range(n_layers):
+                b = {"q": D.Linear(d_model, d_model),
+                     "k": D.Linear(d_model, d_model),
+                     "v": D.Linear(d_model, d_model),
+                     "o": D.Linear(d_model, d_model),
+                     "ln1": D.LayerNorm(d_model),
+                     "f1": D.Linear(d_model, d_model * 4, act="gelu"),
+                     "f2": D.Linear(d_model * 4, d_model),
+                     "ln2": D.LayerNorm(d_model)}
+                for k, lyr in b.items():
+                    self.add_sublayer("b%d_%s" % (i, k), lyr)
+                self.blocks.append(b)
+
+        def forward(self, ids, pids):
+            def heads_of(t):
+                t = L.reshape(t, [batch, seq, n_heads, head])
+                return L.transpose(t, [0, 2, 1, 3])
+
+            x = self.emb(ids) + self.pos(pids)
+            for b in self.blocks:
+                ctx = L.flash_attention(heads_of(b["q"](x)),
+                                        heads_of(b["k"](x)),
+                                        heads_of(b["v"](x)))
+                ctx = L.reshape(L.transpose(ctx, [0, 2, 1, 3]),
+                                [batch, seq, d_model])
+                x = b["ln1"](x + b["o"](ctx))
+                x = b["ln2"](x + b["f2"](b["f1"](x)))
+            return x
+
+    enc = Encoder()
+    dy_weights(enc.parameters(), seed)
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, vocab, (batch, seq)).astype("int64")
+    pids = np.tile(np.arange(seq), (batch, 1)).astype("int64")
+    return enc, ids, pids
+
+
+def phase_dygraph_deploy(fluid, support):
+    """Phase 55: bench.py's dygraph_bert encoder at its width (DY_BERT,
+    flash attention) as one Layer: traced with TracedLayer.trace, saved
+    with save_inference_model and served by create_paddle_predictor on
+    the card: captured, no fallback, K1 exactly 12 a dispatch, answers
+    within DY_SERVE_RTOL of the dygraph forward on the card; the same
+    forward under @declarative gives the same answers; traced serving ms
+    a batch against the eager dygraph forward."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+
+    cfg = DY_BERT
+    with fluid.dygraph.guard(lazy=False):
+        enc, ids, pids = dy_bert_encoder(
+            fluid, cfg["batch"], cfg["seq"], cfg["n_layers"],
+            cfg["d_model"], cfg["n_heads"], cfg["vocab"])
+        iv, pv = fluid.dygraph.to_variable(ids), \
+            fluid.dygraph.to_variable(pids)
+        with fluid.dygraph.no_grad():
+            eager = enc(iv, pv).numpy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DY_SERVE_RUNS):
+                enc(iv, pv).numpy()
+            eager_ms = (time.perf_counter() - t0) / DY_SERVE_RUNS * 1e3
+        n_params = sum(int(np.prod(p.shape)) for p in enc.parameters())
+        outs, traced = fluid.dygraph.TracedLayer.trace(enc, [iv, pv])
+        traced_gap = rel_gap(outs[0].numpy(), eager)
+        types = [op.type for op in traced.program.global_block().ops]
+        d = tempfile.mkdtemp(prefix="phase55-")
+        t0 = time.perf_counter()
+        traced.save_inference_model(d)
+        save_s = time.perf_counter() - t0
+
+        @fluid.dygraph.declarative
+        def forward(ids, pids):
+            return enc(ids, pids)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the trace path, as expected
+            decl = [forward(iv, pv).numpy() for _ in range(3)]
+        decl_gap = max(rel_gap(o, eager) for o in decl)
+        decl_kind = [e["kind"] for e in forward._cache.values()]
+    del enc, traced, outs
+    gc.collect()
+    t0 = time.perf_counter()
+    pred = create_paddle_predictor(AnalysisConfig(d))
+    load_s = time.perf_counter() - t0
+    feed = {pred.get_input_names()[0]: ids, pred.get_input_names()[1]: pids}
+    pred.run(feed)                     # eager
+    support.reset_launch_counts()
+    ce.reset_counters()
+    served = [pred.run(feed)[0].data for _ in range(2)]  # capture, replay
+    counts = support.launch_counts()
+    c = ce.counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DY_SERVE_RUNS):
+        pred.run(feed)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) / DY_SERVE_RUNS * 1e3
+    serve_gap = max(rel_gap(s, eager) for s in served)
+    k1 = counts.get("flash_attention_forward", 0)
+    log("phase 55 dygraph BERT-base encoder (%d layers, d %d, %d heads, "
+        "batch %d x seq %d, flash; %d parameters) traced into %d ops (%d "
+        "flash_attention),"
+        " saved in %.2f s, loaded in %.2f s; served on the card: %d "
+        "capture, %d fallbacks, K1 %d in 2 dispatches; against the dygraph "
+        "forward: traced %.3g, served %.3g, @declarative (%s) %.3g (limit "
+        "%g); %.3f ms a batch served against %.3f ms eager (%.2fx); card %s"
+        % (cfg["n_layers"], cfg["d_model"], cfg["n_heads"], cfg["batch"],
+           cfg["seq"], n_params, len(types), types.count("flash_attention"),
+           save_s,
+           load_s, c["executor.jit_traces"], c["executor.compile_fallbacks"],
+           k1, traced_gap, serve_gap, decl_kind, decl_gap, DY_SERVE_RTOL,
+           serve_ms, eager_ms, eager_ms / serve_ms, card_line()))
+    check_one_capture("phase 55 served", c)
+    if k1 != 2 * cfg["n_layers"] or max(serve_gap, decl_gap, traced_gap) \
+            > DY_SERVE_RTOL or not np.isfinite(served[0]).all():
+        raise RuntimeError("phase 55: K1 %d, gaps traced %g served %g "
+                           "declarative %g" % (k1, traced_gap, serve_gap,
+                                               decl_gap))
+    import shutil
+
+    shutil.rmtree(d, ignore_errors=True)
+    return counts, {"serve_ms": serve_ms, "eager_ms": eager_ms,
+                    "save_s": save_s, "load_s": load_s,
+                    "served_gap": serve_gap, "declarative_gap": decl_gap,
+                    "ops": len(types), "k1_a_dispatch": k1 // 2,
+                    "parameters": n_params}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -7926,6 +8511,12 @@ def main() -> int:
     resnet_infer, resnet_infer_run = phase_resnet_infer(fluid, support)
     decode_http, fleet_gen, decode_http_run = phase_decode_http(
         fluid, support, specs, outs, paged["decode_path"])
+    # control flow on the captured route; a dygraph model deployed
+    cf_counts, p1k, cf_run = phase_control_flow(fluid, support,
+                                                probe["launch_floor_device_ms"])
+    deploy_counts, deploy_run = phase_dygraph_deploy(fluid, support)
+    log("phases 54-55 %s" % json.dumps(
+        {"control_flow": cf_run, "dygraph_deploy": deploy_run}))
     log("phases 51-53 %s" % json.dumps(
         {"serving_http": http_run, "resnet_infer": resnet_infer_run,
          "decode_http": decode_http_run}))
@@ -7957,7 +8548,7 @@ def main() -> int:
     conv["bf16_on_path_covers"] = (
         "device time a launch of K5's bfloat16 form, from one replay of "
         "phase 21's ResNet-50 AMP step (44 launches)")
-    kernels = (probe, flash, k2, k3, k4, conv, paged)
+    kernels = (probe, flash, k2, k3, k4, conv, paged, p1k)
     for kern in kernels:
         by_path = {"serving": serving.get(kern["name"], 0),
                    "training": training.get(kern["name"], 0),
@@ -7995,7 +8586,9 @@ def main() -> int:
                    "serving_http": serving_http.get(kern["name"], 0),
                    "resnet_infer": resnet_infer.get(kern["name"], 0),
                    "decode_http": decode_http.get(kern["name"], 0),
-                   "fleet_generate": fleet_gen.get(kern["name"], 0)}
+                   "fleet_generate": fleet_gen.get(kern["name"], 0),
+                   "control_flow": cf_counts.get(kern["name"], 0),
+                   "dygraph_deploy": deploy_counts.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

@@ -48,23 +48,48 @@ package's names and results (``_program_version``, ``_analyze``,
 The counters keep the JAX package's names in ``COUNTERS`` (the
 observability registry is not ported yet): ``executor.compiles`` (new
 step functions), ``executor.jit_traces`` (captures),
-``executor.compile_fallbacks`` and ``executor.steps``, the fusion
+``executor.compile_fallbacks``, ``executor.steps`` and
+``executor.condition_reads`` (an eager run's host reads of a control-flow
+condition), the fusion
 passes' ``fusion.epilogue_chains`` and ``fusion.optimizer_groups``
 (``core/fusion.py``), and the LoD lowering's ``lod_lowering.lowered``
 (lowered clones built) and ``lod_lowering.declines`` (each named in
 ``declines()``; ``core/lod_lowering.py``).
 
-Control flow: the analysis walks ``while`` / ``conditional_block``
-sub-blocks as the JAX package does, but where the JAX package lowers them
-to ``lax.while_loop`` / ``lax.cond`` this route declines them: a CUDA
-graph cannot hold a trip count the data decides. ``untraceable_reasons``
-names each such op (``"while (control flow)"``), the executor counts the
-program in ``executor.compile_fallbacks`` and runs it on the interpreter,
-whose host ops (``ops/control_flow_ops.py``) run the body once a trip in
-a child scope, reading the condition off the card once a trip. The
-results are those of the JAX package's compiled route. A graph of the
-body replayed a trip, and CUDA graph conditional nodes, are later work
-(ROADMAP.md).
+Control flow, as the JAX package's ``_trace_while`` /
+``_trace_conditional_block``: a ``while`` or a scalar ``conditional_block``
+runs its sub-block as a sub-step over a carry, ``{Condition}`` and the
+parent vars the body writes (``block_rw``), that the body's values replace
+at the end of each trip; the vars it only reads are closed over, its
+temporaries stay inside. A run that is eager (every run on the CPU, the
+first of a key on the card) reads the condition on the host each trip and
+checks each carry's shape and type against its value before the loop. A
+captured step holds the loop as a CUDA graph ``while`` node (an ``if`` node
+for ``conditional_block``; ``ops/cuda/graph_conditional``, P1, through
+``CapturedGraph.conditional``): its carry lives in buffers made before the
+node, the body copies each new value into its buffer at the end of a trip
+(through a temporary where the value aliases a buffer: a body that swaps
+two carries) and sets the handle from the new condition, so a replay reads
+no condition on the host. A false ``if`` leaves the carry as it was, as
+``lax.cond``'s false branch. Each node keeps a trip counter on the card
+(``ops/cuda/support.TripCounter``), so the launch counts of its body stay
+exact. On the card, an eager run whose body did not run (a zero-trip loop,
+a false ``if``) runs it once aside, so that the capture meets no op for the
+first time and a carry that would change shape shows before it.
+
+What the JAX package meets as an error at trace time is declined here by
+``Untraceable``, before anything is written to the scope: a non-scalar
+``conditional_block`` (the one ``IfElse`` builds), a carry that is not a
+tensor or whose shape or type changes across trips, a condition that is
+not one value, and, on the card, an RNG op in a ``while`` body (``"while>
+dropout (rng in a captured loop)"``: a captured body would replay one
+Philox offset, and so one mask, every trip). The executor counts the
+program in ``executor.compile_fallbacks``, names it in ``declines()``,
+warns and interprets it. An eager run gives each trip of a loop its own
+RNG stream (the step's seed plus ``0x9E3779B9`` times the trip, as the JAX
+package's). ``while_grad`` and ``conditional_block_grad`` are host ops, so
+a training program through a ``while`` still takes the interpreter, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -92,11 +117,13 @@ COUNTERS: Dict[str, int] = {"executor.compiles": 0,
                             "executor.jit_traces": 0,
                             "executor.compile_fallbacks": 0,
                             "executor.steps": 0,
+                            "executor.condition_reads": 0,
                             "fusion.epilogue_chains": 0,
                             "fusion.optimizer_groups": 0,
                             "lod_lowering.lowered": 0,
                             "lod_lowering.declines": 0}
-# each LoD-lowering decline by name ("<op type>: <reason>")
+# each decline by name: the LoD lowering's ("<op type>: <reason>") and the
+# whole-program route's (``Untraceable``)
 DECLINES: Dict[str, int] = {}
 _counters_lock = threading.Lock()
 
@@ -118,10 +145,12 @@ def reset_counters() -> None:
         DECLINES.clear()
 
 
-def count_decline(name: str) -> None:
-    """One LoD-lowering decline, by name."""
+def count_decline(name: str, counter: Optional[str] =
+                  "lod_lowering.declines") -> None:
+    """One decline, by name, also counted in ``counter`` when given."""
     with _counters_lock:
-        COUNTERS["lod_lowering.declines"] += 1
+        if counter is not None:
+            COUNTERS[counter] += 1
         DECLINES[name] = DECLINES.get(name, 0) + 1
 
 
@@ -279,9 +308,8 @@ def block_is_traceable(block) -> bool:
 
 def untraceable_reasons(block) -> List[str]:
     """Blocking op types (with reason tags) that keep this block off the
-    whole-program route; the executor's fallback warning names them. Over
-    the JAX package's reasons, every while and conditional_block op with
-    a sub-block blocks (``"while (control flow)"``)."""
+    whole-program route; the executor's fallback warning names them. A
+    while or conditional_block blocks only for what its sub-block holds."""
     infos = OpInfoMap.instance()
     fold_idxs = _fold_plan(block)[0]
     reasons: List[str] = []
@@ -291,7 +319,6 @@ def untraceable_reasons(block) -> List[str]:
             if sb is None:
                 reasons.append("%s (no sub_block)" % op.type)
             else:
-                reasons.append("%s (control flow)" % op.type)
                 reasons.extend("%s>%s" % (op.type, r)
                                for r in untraceable_reasons(sb))
             continue
@@ -339,64 +366,131 @@ def _fold_block_values(block) -> Dict[str, torch.Tensor]:
 
 # -- execution ----------------------------------------------------------------
 
-_RUN, _FOLDED, _CONST = 0, 1, 2
+_RUN, _FOLDED, _CONST, _WHILE, _IF = 0, 1, 2, 3, 4
+_MAX_TRIPS = 10_000_000
+_TRIP_SALT = 0x9E3779B9
 
 
-class _Step:
-    """The step function of one (program version, feed names, fetch names,
-    state names): the block's ops with their attrs, what each one drops
-    after it (the eager-deletion plan), the folded values on the device,
-    and the RNG ops."""
+class Untraceable(NotImplementedError):
+    """What the JAX package meets as an error at trace time: the program
+    takes the interpreter, counted and named (``name``)."""
 
-    def __init__(self, key, block, device, feed_names, fetch_names,
-                 state_names, out_state_names):
-        self.key = key
-        self.device = device
-        self.fetch_names = fetch_names
-        self.state_names = state_names
-        self.out_state_names = out_state_names
+    def __init__(self, name: str):
+        super().__init__(name)
+        self.name = name
+
+
+class _Node:
+    """A while or scalar conditional_block: its condition, the names its
+    body writes (the carry is those of them defined before it, and the
+    condition) and its body."""
+
+    def __init__(self, kind, op, cond_name, writes, body):
+        self.kind = kind
+        self.op = op
+        self.cond_name = cond_name
+        self.writes = writes
+        self.body = body
+
+
+def _as_condition(t, op) -> torch.Tensor:
+    if not isinstance(t, torch.Tensor) or t.numel() != 1:
+        raise Untraceable("%s (condition of shape %s, not one value)" % (
+            op.type, tuple(t.shape) if isinstance(t, torch.Tensor)
+            else type(t).__name__))
+    return t
+
+
+def _host_true(t: torch.Tensor) -> bool:
+    """An eager run's read of a loop's or an if's condition on the host
+    (counted: a replay makes none)."""
+    inc("executor.condition_reads")
+    return bool(t.reshape(-1)[0].item())
+
+
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
+class _Block:
+    """One block's ops as the step runs them: the block's own (with attrs,
+    folded values and what each op drops after it) and, at each while or
+    scalar conditional_block, a ``_Node`` over its sub-block. ``step`` is
+    the ``_Step`` that collects every RNG op and node of its blocks."""
+
+    def __init__(self, block, device, step, drops_plan, in_loop=False):
         infos = OpInfoMap.instance()
         fold_idxs, _, _ = _fold_plan(block)
         # uploaded once, outside any graph
         fold_values = {n: v.to(device)
                        for n, v in _fold_block_values(block).items()}
         const_idxs = _const_plan(block) - fold_idxs
-        plan = CoreExecutor.build_gc_plan(
-            block, set(feed_names) | set(fetch_names) | set(out_state_names))
-        self.ops = []  # (kind, index, op, info, attrs, outputs, drops)
-        self.rng_ops = {}  # index -> (op, attrs)
+        self.device = device
+        self.ops = []  # (kind, op, info, attrs, outputs or node, drops)
         for i, op in enumerate(block.ops):
-            drops = tuple(plan.get(i, ()))
+            drops = tuple(drops_plan.get(i, ()))
+            if op.type in ("while", "conditional_block"):
+                self.ops.append((*self._node(op, device, step, in_loop),
+                                 drops))
+                continue
             if i in fold_idxs:
                 outs = {n: fold_values[n] for n in op.output_arg_names if n}
-                self.ops.append((_FOLDED, i, op, None, None, outs, drops))
+                self.ops.append((_FOLDED, op, None, None, outs, drops))
                 continue
             info = infos.get(op.type)
             attrs = op_attrs(info, op, device)
             if info.needs_rng:
-                self.rng_ops[i] = (op, attrs)
+                if in_loop and device.type == "cuda":
+                    raise Untraceable("while>%s (rng in a captured loop)"
+                                      % op.type)
+                step.rng_ops[id(op)] = (op, attrs)
             kind = _CONST if i in const_idxs else _RUN
-            self.ops.append((kind, i, op, info, attrs, None, drops))
+            if kind == _CONST:
+                step.const_ops.append((op, info, attrs))
+            self.ops.append((kind, op, info, attrs, None, drops))
 
-    def run(self, env: Dict, rng, gens: Optional[Dict] = None,
-            consts: Optional[Dict] = None) -> None:
-        """Walk the ops over ``env``. Eager (``gens`` None): each RNG op gets
-        a fresh generator seeded as the interpreter seeds it. Under capture:
-        the graph's registered generators, and the ops that read nothing
-        take their values from ``consts``."""
-        for kind, i, op, info, attrs, outs, drops in self.ops:
+    @staticmethod
+    def _node(op, device, step, in_loop):
+        sub = op.attrs["sub_block"]
+        if op.type == "while":
+            kind, cond_name, in_loop = _WHILE, op.input("Condition")[0], True
+        else:
+            if not op.attrs.get("is_scalar_condition", True):
+                raise Untraceable(
+                    "conditional_block (non-scalar condition)")
+            kind, cond_name = _IF, op.input("Cond")[0]
+        node = _Node(kind, op, cond_name, frozenset(block_rw(sub)[0]),
+                     _Block(sub, device, step, {}, in_loop))
+        step.nodes.append(node)
+        return kind, op, None, None, node
+
+    def run(self, env: Dict, rng, graph=None, salt: int = 0) -> None:
+        """Walk the ops over ``env``. Eager (``graph`` None): each RNG op
+        gets a fresh generator seeded as the interpreter seeds it, plus
+        ``salt`` in a loop's body. Under capture: ``graph``'s registered
+        generators, and the ops that read nothing take their values from
+        ``graph.consts``."""
+        for kind, op, info, attrs, outs, drops in self.ops:
             if kind == _FOLDED:
                 env.update(outs)
-            elif kind == _CONST and consts is not None:
-                env.update(consts[i])
+            elif kind == _CONST and graph is not None:
+                env.update(graph.consts[id(op)])
+            elif kind in (_WHILE, _IF):
+                if graph is None:
+                    self._run_node_eager(outs, env, rng, salt)
+                else:
+                    self._run_node_captured(outs, env, graph)
             else:
                 if info.needs_rng:
                     attrs = dict(attrs)
-                    if gens is not None:
-                        attrs[GENERATOR_ATTR] = gens[i]
+                    if graph is not None:
+                        attrs[GENERATOR_ATTR] = graph.gens[id(op)]
                     else:
+                        seed = rng_seed(rng, attrs, op)
+                        if salt and not int(attrs.get("seed", 0) or 0) > 0:
+                            seed = (seed + salt) & 0xFFFFFFFF
                         gen = torch.Generator(device=self.device)
-                        gen.manual_seed(rng_seed(rng, attrs, op))
+                        gen.manual_seed(seed)
                         attrs[GENERATOR_ATTR] = gen
                 ins = gather_inputs(info, op, env.get)
                 outs = call_op(info, op, ins, attrs, "compiled trace")
@@ -405,15 +499,121 @@ class _Step:
             for n in drops:
                 env.pop(n, None)
 
+    @staticmethod
+    def _carry(node: _Node, env: Dict) -> Dict[str, torch.Tensor]:
+        names = set(n for n in node.writes if n in env)
+        if node.kind == _WHILE:
+            if node.cond_name not in env:
+                raise Untraceable("while Condition %r not traced"
+                                  % node.cond_name)
+            names.add(node.cond_name)
+        carry = {}
+        for n in sorted(names):
+            if not isinstance(env[n], torch.Tensor):
+                raise Untraceable("%s>carry %r is a %s, not a tensor" % (
+                    node.op.type, n, type(env[n]).__name__))
+            carry[n] = env[n]
+        return carry
+
+    @staticmethod
+    def _take(node: _Node, carry: Dict, benv: Dict) -> Dict:
+        """The body's new value of each carry, each checked against the
+        value before the node."""
+        new = {}
+        for n, old in carry.items():
+            v = benv.get(n)
+            if not isinstance(v, torch.Tensor) or v.shape != old.shape \
+                    or v.dtype != old.dtype:
+                raise Untraceable(
+                    "%s>carry %r changes from %s %s to %s" % (
+                        node.op.type, n, tuple(old.shape), old.dtype,
+                        "%s %s" % (tuple(v.shape), v.dtype)
+                        if isinstance(v, torch.Tensor)
+                        else type(v).__name__))
+            new[n] = v
+        return new
+
+    def _run_node_eager(self, node: _Node, env: Dict, rng, salt) -> None:
+        carry = self._carry(node, env)
+        if node.kind == _IF:
+            taken = _host_true(_as_condition(env[node.cond_name], node.op))
+            if taken or self.device.type == "cuda":
+                benv = dict(env)
+                node.body.run(benv, rng, salt=salt)
+                new = self._take(node, carry, benv)
+                if taken:
+                    env.update(new)
+            return
+        trips = 0
+        while _host_true(_as_condition(env[node.cond_name], node.op)):
+            trips += 1
+            if trips > _MAX_TRIPS:
+                raise RuntimeError("while op exceeded max trip count")
+            benv = dict(env)
+            node.body.run(benv, rng,
+                          salt=(salt + _TRIP_SALT * trips) & 0xFFFFFFFF)
+            env.update(self._take(node, carry, benv))
+        if trips == 0 and self.device.type == "cuda":
+            # aside: so that the capture meets no op for the first time
+            benv = dict(env)
+            node.body.run(benv, rng, salt=salt)
+            self._take(node, carry, benv)
+
+    def _run_node_captured(self, node: _Node, env: Dict, graph) -> None:
+        carry = self._carry(node, env)
+        bufs = {n: v.clone() for n, v in carry.items()}
+        cond = bufs[node.cond_name] if node.kind == _WHILE else \
+            _as_condition(env[node.cond_name], node.op)
+        with graph.conditional(cond, node.kind == _WHILE,
+                               graph.trips[id(node)]) as new_cond:
+            benv = dict(env)
+            benv.update(bufs)
+            node.body.run(benv, None, graph=graph)
+            new = {n: v for n, v in self._take(node, bufs, benv).items()
+                   if not (v is bufs[n] or same_memory(v, bufs[n]))}
+            # a value that aliases a carry's buffer (a body that swaps
+            # two carries) is read before any buffer is written
+            for n, v in list(new.items()):
+                if any(_overlaps(v, b) for b in bufs.values()):
+                    new[n] = v.clone()
+            for n, v in new.items():
+                bufs[n].copy_(v)
+            if node.kind == _WHILE:
+                new_cond.append(bufs[node.cond_name])
+        env.update(bufs)
+
+
+class _Step:
+    """The step function of one (program version, feed names, fetch names,
+    state names): the global block's ``_Block`` (its ops with their
+    attrs, what each one drops after it, the folded values on the device
+    and its control-flow nodes over their sub-blocks), its RNG ops and its
+    ops that read nothing, the sub-blocks' included."""
+
+    def __init__(self, key, block, device, feed_names, fetch_names,
+                 state_names, out_state_names):
+        self.key = key
+        self.device = device
+        self.fetch_names = fetch_names
+        self.state_names = state_names
+        self.out_state_names = out_state_names
+        self.rng_ops: Dict[int, Tuple] = {}  # id(op) -> (op, attrs)
+        self.const_ops: List[Tuple] = []  # (op, info, attrs)
+        self.nodes: List[_Node] = []
+        plan = CoreExecutor.build_gc_plan(
+            block, set(feed_names) | set(fetch_names) | set(out_state_names))
+        self.block = _Block(block, device, self, plan)
+
+    def run(self, env: Dict, rng, graph=None) -> None:
+        self.block.run(env, rng, graph)
+
     def run_consts(self) -> Dict[int, Dict[str, torch.Tensor]]:
-        """The outputs of the ops that read nothing, run once now."""
-        consts = {}
-        for kind, i, op, info, attrs, _, _ in self.ops:
-            if kind == _CONST:
-                outs = call_op(info, op, gather_inputs(info, op, dict().get),
-                               attrs, "compiled trace")
-                consts[i] = dict(output_pairs(info, op, outs))
-        return consts
+        """The outputs of the ops that read nothing, run once now, by
+        ``id(op)``."""
+        return {id(op): dict(output_pairs(info, op, call_op(
+                    info, op, gather_inputs(info, op, dict().get), attrs,
+                    "compiled trace")))
+                for op, info, attrs in self.const_ops}
 
 
 def _scope_tensor(scope: Scope, name: str):
@@ -427,10 +627,13 @@ def _scope_tensor(scope: Scope, name: str):
 class _Graph(CapturedGraph):
     """One captured step: the graph, the static feed and state buffers it
     reads and writes, its fetches (in its pool), the generators it draws
-    from and the kernel launches it makes."""
+    from, the trip counter of each control-flow node and the kernel
+    launches it makes."""
 
     def __init__(self, step: _Step, core, scope: Scope,
                  feeds: Dict[str, torch.Tensor]):
+        from ..ops.cuda.support import TripCounter
+
         dev = core.device
         self.scope = weakref.ref(scope)
         self.state: Dict[str, torch.Tensor] = {}
@@ -448,15 +651,15 @@ class _Graph(CapturedGraph):
                       for n, v in feeds.items()}
         for n, v in feeds.items():
             self.feeds[n].copy_(v)
-        self.gens = {i: torch.Generator(device=dev) for i in step.rng_ops}
-        # outside the graph, on the current stream, before the capture's
-        # synchronize
+        self.gens = {k: torch.Generator(device=dev) for k in step.rng_ops}
+        # outside the graph, before the capture's synchronize
+        self.trips = {id(node): TripCounter(dev) for node in step.nodes}
         self.consts = step.run_consts()
         env = {n: self.state[n] for n in step.state_names}
         env.update(self.feeds)
 
         def body():
-            step.run(env, None, gens=self.gens, consts=self.consts)
+            step.run(env, None, graph=self)
             for n in step.out_state_names:
                 new, buf = env.get(n), self.state[n]
                 if new is None or new is buf or same_memory(new, buf):
@@ -493,8 +696,8 @@ class _Graph(CapturedGraph):
     def replay(self, step: _Step, core, feeds: Dict[str, torch.Tensor]):
         for n, v in feeds.items():
             self.feeds[n].copy_(v)
-        for i, (op, attrs) in step.rng_ops.items():
-            self.gens[i].manual_seed(rng_seed(core.rng, attrs, op))
+        for k, (op, attrs) in step.rng_ops.items():
+            self.gens[k].manual_seed(rng_seed(core.rng, attrs, op))
         self.launch()
 
 
@@ -555,11 +758,11 @@ def run_compiled_program(core, program, scope: Scope, feed: Dict,
     out_state_names = tuple(sorted(set(state_names) | persist_written))
     step = compile_program(core, program, feed_names, fetch_names,
                            state_names, out_state_names)
-    inc("executor.steps")
     if core.device.type == "cuda":
         outs = _run_on_card(core, step, scope, feed_vals)
     else:
         outs = _run_eager(core, step, scope, feed_vals)
+    inc("executor.steps")
 
     results = []
     for name in fetch_names:

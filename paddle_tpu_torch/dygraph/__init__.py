@@ -3,9 +3,11 @@
 Counterpart of ``paddle_tpu/dygraph/``: ``guard``, ``to_variable``,
 ``Layer`` and the ``nn`` layers, the tracer and its tape autograd
 (``backward``, ``grad``), the lazy queue (one flush a step; on the card a
-CUDA graph a step), learning-rate decays and ``save_dygraph`` /
-``load_dygraph``. ``DataParallel``, ``TracedLayer``, dygraph-to-static and
-the rest of ``nn`` come with later slices (ROADMAP.md).
+CUDA graph a step), learning-rate decays, ``save_dygraph`` /
+``load_dygraph``, ``TracedLayer`` (``jit``) and dygraph-to-static
+(``ast_transform``, ``dygraph_to_static``: ``ProgramTranslator``,
+``declarative``, ``to_static``). ``DataParallel`` waits for the
+collectives (ROADMAP.md).
 """
 from .base import (  # noqa: F401
     disable_dygraph,
@@ -30,4 +32,11 @@ from .learning_rate_scheduler import (  # noqa: F401
     NoamDecay,
     PiecewiseDecay,
     PolynomialDecay,
+)
+from .jit import TracedLayer  # noqa: F401
+from . import dygraph_to_static  # noqa: F401
+from .dygraph_to_static import (  # noqa: F401
+    ProgramTranslator,
+    declarative,
+    to_static,
 )

@@ -21,6 +21,14 @@ Lazy mode (``guard(lazy=True)``, ``lazy.py``): ops, pullbacks, grad sums
 and optimizer updates queue on the ``LazyEngine``; shapes come from the
 op run on ``meta`` tensors, cached per signature.
 
+Program recording (the reference's imperative/jit program_desc_tracer.cc;
+``paddle_tpu/dygraph/tracer.py:222-262``): between
+``start_program_recording(program)`` and ``stop_program_recording()``
+every op the tracer runs is also appended to the program's global block,
+with its vars (a parameter as a persistable var), so that ``TracedLayer``
+and dygraph-to-static's trace path record a layer in one run. Recording
+runs ops eagerly, the lazy queue settled first.
+
 RNG: an op marked ``needs_rng`` draws from a ``torch.Generator`` on the
 tracer's device seeded with the tracer's per-op seed (its ``seed`` attr
 when set, else a counter that starts at a random value), as the JAX
@@ -208,10 +216,49 @@ class Tracer:
         self._aval_cache: Dict = {}
         # (aval_cache_key, stop-gradient pattern) -> wrt positions
         self._wrt_cache: Dict = {}
+        self._recording_program = None
 
     def flush(self):
         if self.lazy_engine is not None:
             self.lazy_engine.flush()
+
+    # -- program recording -----------------------------------------------
+    def start_program_recording(self, program):
+        self.flush()
+        self._recording_program = program
+
+    def stop_program_recording(self):
+        prog = self._recording_program
+        self._recording_program = None
+        return prog
+
+    def _record_var(self, vb: VarBase, block) -> str:
+        if not block.has_var_local(vb.name):
+            shape = vb.shape
+            dtype = vb.dtype if shape is not None else "float32"
+            if isinstance(vb, ParamBase):
+                v = block.create_var(name=vb.name, shape=shape, dtype=dtype,
+                                     persistable=True)
+                v.stop_gradient = vb.stop_gradient
+            else:
+                block.create_var(name=vb.name, shape=shape, dtype=dtype)
+        return vb.name
+
+    def _record_op(self, op_type, var_map, result, attrs):
+        block = self._recording_program.global_block()
+        ins = {}
+        for slot, vs in var_map.items():
+            if vs is None:
+                continue
+            ins[slot] = [self._record_var(v, block)
+                         for v in (vs if isinstance(vs, list) else [vs])]
+        outs = {slot: [self._record_var(v, block) for v in vs]
+                for slot, vs in result.items()}
+        clean = {k: v for k, v in (attrs or {}).items()
+                 if k not in (BOUND_OUTPUTS_ATTR, DEVICE_ATTR,
+                              GENERATOR_ATTR)}
+        block.append_op(op_type, inputs=ins, outputs=outs, attrs=clean,
+                        infer_shape=False)
 
     # -- parameter registry (LayerHelper uses this in dygraph mode) -------
     def register_parameter(self, p: ParamBase):
@@ -288,10 +335,10 @@ class Tracer:
         if info.host_fn is not None:
             raise RuntimeError("host op %r is not usable in dygraph"
                                % op_type)
-        if self.lazy_engine is not None:
+        if self.lazy_engine is not None and self._recording_program is None:
             return self._trace_op_lazy(info, op_type, inputs, outputs,
                                        attrs, stop_gradient)
-
+        given = attrs
         var_map: Dict[str, object] = {}
         in_map: Dict[str, object] = {}
         for slot in info.inputs:
@@ -343,6 +390,8 @@ class Tracer:
         if requires_grad:
             self.tape.append(TapeRecord(op_type, in_vars, out_vars,
                                         leaves=leaves, outs=list(flat)))
+        if self._recording_program is not None:
+            self._record_op(op_type, var_map, result, given)
         return result
 
     def _trace_op_lazy(self, info, op_type, inputs, outputs, attrs,
@@ -476,6 +525,12 @@ class Tracer:
     def trace_getitem(self, var: VarBase, idx):
         """``var[idx]`` traced eagerly (a static index under lazy dygraph
         queues instead: ``_trace_getitem_lazy``)."""
+        if self._recording_program is not None:
+            from ..core.enforce import UnimplementedError
+
+            raise UnimplementedError(
+                "tensor slicing (__getitem__) inside a program-recorded "
+                "trace is not supported yet — use layers.slice")
         leaf = var._force().detach().requires_grad_(True)
         with torch.enable_grad():
             out = leaf[idx]

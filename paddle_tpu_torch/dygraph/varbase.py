@@ -207,10 +207,12 @@ class VarBase:
             idx = idx._force()
         tracer = current_tracer()
         if tracer is not None and tracer.lazy_engine is not None \
+                and tracer._recording_program is None \
                 and Tracer._static_index(idx):
             # queue the subscript: a flush here would defeat lazy mode
             return tracer._trace_getitem_lazy(self, idx)
-        if not self.stop_gradient and tracer is not None:
+        if tracer is not None and (not self.stop_gradient or
+                                   tracer._recording_program is not None):
             return tracer.trace_getitem(self, idx)
         return VarBase(self._force()[idx], stop_gradient=self.stop_gradient)
 

@@ -11,10 +11,16 @@ under ``PADDLE_TPU_FUSED_EPILOGUE``, then the fused optimizer update under
 - the op-by-op ``core.CoreExecutor``, under ``FLAGS_check_nan_inf`` (which
   it checks after every op), for a
   program that ``untraceable_reasons`` names a blocking op in (a host op
-  that does not fold, an op that is not registered, a LoD op), and for a
-  LoD feed into a program without LoD ops. A program of 64 or more ops
-  that falls to it warns, naming the blocking ops; every fallback counts
-  ``executor.compile_fallbacks``, once a program version.
+  that does not fold, an op that is not registered, a LoD op), for a
+  LoD feed into a program without LoD ops, and for a program the route
+  declines once it has looked at its control flow (``Untraceable``: a
+  non-scalar ``conditional_block``, a loop carry that changes shape or
+  type, an RNG op in a ``while`` on the card), named in ``declines()``,
+  before anything is written to the scope, as the JAX executor takes
+  what fails its trace. A program of 64 or more ops that falls to it
+  warns, naming the blocking ops, as does every declined one; every
+  fallback counts ``executor.compile_fallbacks``, once a program
+  version.
 
 A program with LoD feeds and LoD ops first tries the LoD lowering
 (``core/lod_lowering``, the JAX executor's ``_lod_lowered``): a lowered
@@ -105,6 +111,14 @@ class Executor:
                                 "interpretation (%s)" % (program._uid, e))
                             self._compile_fallbacks[ver] = repr(e)
                             _ce.inc("executor.compile_fallbacks")
+                        except _ce.Untraceable as e:
+                            warnings.warn(
+                                "program %s falls back to op-by-op "
+                                "interpretation (whole-program compile "
+                                "failed: %r)" % (program._uid, e))
+                            self._compile_fallbacks[ver] = repr(e)
+                            _ce.inc("executor.compile_fallbacks")
+                            _ce.count_decline(e.name, counter=None)
                     else:
                         lowered = self._lod_lowered(program, feed,
                                                     fetch_list)

@@ -91,3 +91,12 @@ def monkey_patch_variable(cls=None):
     cls.__le__ = _cmp_op("less_equal")
     cls.__gt__ = _cmp_op("greater_than")
     cls.__ge__ = _cmp_op("greater_equal")
+
+    def _bool(self):
+        raise TypeError(
+            "A static-graph Variable has no boolean value at graph-build "
+            "time. Inside @declarative functions, tensor `if`/`while` are "
+            "converted automatically unless the branch early-returns; "
+            "otherwise use fluid.layers.cond / fluid.layers.While.")
+
+    cls.__bool__ = _bool

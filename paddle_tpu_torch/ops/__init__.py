@@ -16,6 +16,7 @@ from . import math_ops  # noqa: F401
 from . import matmul_ops  # noqa: F401
 from . import metrics_ops  # noqa: F401
 from . import misc_ops  # noqa: F401
+from . import nn_tail_ops  # noqa: F401
 from . import norm_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import rank_table_ops  # noqa: F401

@@ -20,7 +20,11 @@ launches its kernel, so a run can show that it went through the kernels.
 A launch on a stream that is capturing a CUDA graph runs nothing: inside
 ``recording_launches(stream)`` it is recorded instead of counted, and the
 graph's owner adds the record on every replay (``count_replay``), so that
-``launch_counts()`` counts the kernels the card ran.
+``launch_counts()`` counts the kernels the card ran. A conditional node's
+body runs a number of times the host does not know: its launches are
+recorded once (``recording_launches`` on the body's stream) into a
+``TripCounter``, whose device-side count of the body's runs is read when
+the counts are asked for (``launch_counts`` / ``reset_launch_counts``).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import os
 import shutil
 import subprocess
 import threading
+import weakref
 from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable, Iterator
@@ -40,7 +45,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("probe", "flash_attention", "flash_attention_bwd",
-           "fused_optimizer", "conv2d_bn_act", "paged_attention")
+           "fused_optimizer", "conv2d_bn_act", "paged_attention",
+           "graph_conditional")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -117,12 +123,50 @@ def count_replay(launches: Dict[str, int]) -> None:
         launch_counter(name).add(n)
 
 
+class TripCounter:
+    """The runs of one conditional node's body, counted on the card (the
+    set kernel adds one at the end of each run), and the launches one run
+    makes (``launches``, recorded at the capture). ``flush`` reads the
+    count and adds the launches of the runs since the last read."""
+
+    def __init__(self, device):
+        self.count = torch.zeros(1, dtype=torch.int64, device=device)
+        self.launches: Dict[str, int] = {}
+        self._read = 0
+        with _trip_lock:
+            _trip_counters.add(self)
+
+    def flush(self) -> int:
+        """Count the body's launches since the last flush; returns the
+        runs of the body so far."""
+        runs = int(self.count.item())
+        with _trip_lock:
+            new, self._read = runs - self._read, runs
+        if new:
+            for name, n in self.launches.items():
+                launch_counter(name).add(n * new)
+        return runs
+
+
+_trip_counters: "weakref.WeakSet" = weakref.WeakSet()
+_trip_lock = threading.Lock()
+
+
+def _flush_trips() -> None:
+    with _trip_lock:
+        counters = list(_trip_counters)
+    for tc in counters:
+        tc.flush()
+
+
 def reset_launch_counts() -> None:
+    _flush_trips()
     for counter in COUNTERS.values():
         counter.reset()
 
 
 def launch_counts() -> Dict[str, int]:
+    _flush_trips()
     return {name: c.value for name, c in COUNTERS.items()}
 
 

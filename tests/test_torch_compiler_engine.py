@@ -169,12 +169,10 @@ def test_analysis_matches_the_jax_package(name):
     assert pce._analyze(pmain) == jce._analyze(jmain)
     jb, pb = jmain.global_block(), pmain.global_block()
     assert pce._fold_plan(pb) == jce._fold_plan(jb)
-    # the port also declines control flow, which the JAX package lowers
-    # to lax.while_loop: "loop" holds a while
+    # "loop" holds a while: a while blocks only for what its body holds,
+    # in both packages
     assert jce.untraceable_reasons(jb) == BLOCKED.get(name, [])
-    assert pce.untraceable_reasons(pb) == sorted(
-        BLOCKED.get(name, []) + (["while (control flow)"]
-                                 if name == "loop" else []))
+    assert pce.untraceable_reasons(pb) == BLOCKED.get(name, [])
     folds = {"bert": 1, "range": 1}.get(name, 0)
     assert len(pce._fold_plan(pb)[0]) == folds
     if name == "loop":

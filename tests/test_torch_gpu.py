@@ -100,9 +100,14 @@ cells ``lstm_unit``, ``gru_unit``, ``cudnn_lstm``, forward and, where it
 has one, grad) gives its CPU result on the same inputs, within 1e-5 of the
 output's scale in float32 (TF32 off; products summed in another order)
 and exactly for integer and boolean outputs; ``top_k`` breaks planted ties
-lower index first on a row of 77,090 candidates; a ``while`` program takes
-the interpreter (one counted fallback, no capture) and, trained through
-``while_grad``, gives the CPU's losses and weights within 1e-5; the
+lower index first on a row of 77,090 candidates; a ``while`` program
+trained through ``while_grad`` takes the interpreter (one counted
+fallback, no capture) and gives the CPU's losses and weights within 1e-5;
+a forward ``while`` is a captured while node (slice 19: bitwise against
+the card's interpreter, one capture replayed at 50, 17 and 0 trips, no
+condition read in a replay, exact launch counts through its body), a
+scalar ``conditional_block`` an if node, a dropout in a loop declined by
+name; the
 seq2seq beam decode at batch 8 gives the CPU's ids and scores within
 1e-5 (random weights, no near-tie at the beam's edge at this seed).
 """
@@ -2577,3 +2582,241 @@ def test_slice18_generate_on_the_card_is_the_in_process_stream(cuda):
         server.shutdown()
         server.server_close()
         eng.stop()
+
+
+# -- slice 19: control flow on the captured route -----------------------------
+
+def _fed_loop(B=8, D=16):
+    """h <- tanh(h W + x), n times, n fed: a forward while."""
+    main, startup = fluid.Program(), fluid.Program()
+    L = fluid.layers
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[B, D], dtype="float32")
+        n = fluid.data(name="n", shape=[1], dtype="int64")
+        w = L.create_parameter([D, D], "float32", name="w_loop")
+        h = L.fill_constant([B, D], "float32", 0.0)
+        i = L.fill_constant([1], "int64", 0)
+        cond = L.less_than(i, n)
+        with L.While(cond).block():
+            L.assign(L.tanh(L.elementwise_add(L.matmul(h, w), x)), h)
+            L.increment(i, value=1, in_place=True)
+            L.less_than(i, n, cond=cond)
+    return main, startup, [h, i]
+
+
+def _loop_feed(trips, B=8, D=16):
+    return {"x": np.random.RandomState(trips).randn(B, D).astype("float32"),
+            "n": np.array([trips], dtype="int64")}
+
+
+def test_slice19_while_node_is_the_card_interpreter_bitwise(cuda):
+    """The captured while node runs the interpreter's kernels in its
+    order: its fetches equal the interpreter's on the card bit for bit,
+    and a replay reads no condition on the host."""
+    main, startup, fetch = _fed_loop()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    s1, s2 = fluid.Scope(), fluid.Scope()
+    exe.run(startup, scope=s1)
+    w = s1.find_var("w_loop").get_tensor().numpy()
+    exe.run(startup, scope=s2)
+    fluid.io.scope_from_numpy(s2, {"w_loop": w}, fluid.CUDAPlace(0))
+    feed = _loop_feed(9)
+    ce.reset_counters()
+    for _ in range(2):  # eager, then the capture
+        exe.run(main, feed=feed, fetch_list=fetch, scope=s1)
+    reads = ce.counters()["executor.condition_reads"]
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=s1)
+    c = ce.counters()
+    assert (c["executor.jit_traces"], c["executor.compile_fallbacks"]) == \
+        (1, 0)
+    assert c["executor.condition_reads"] == reads == 10  # the eager run's
+    want = exe._core.run_program(main, s2, feed, fetch, True)
+    for g, wv in zip(got, want):
+        assert np.asarray(g).tobytes() == np.asarray(wv).tobytes()
+    exe.close()
+
+
+def test_slice19_one_capture_replays_three_trip_counts(cuda):
+    """One capture holds a trip count the data decides: replays at 50, 17
+    and 0 trips each give the interpreter's answer, with no recapture."""
+    main, startup, fetch = _fed_loop()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope, ref = fluid.Scope(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    w = scope.find_var("w_loop").get_tensor().numpy()
+    exe.run(startup, scope=ref)
+    fluid.io.scope_from_numpy(ref, {"w_loop": w}, fluid.CUDAPlace(0))
+    ce.reset_counters()
+    for trips in (50, 50, 17, 0, 50):
+        feed = _loop_feed(trips)
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        want = exe._core.run_program(main, ref, feed, fetch, True)
+        assert int(np.asarray(got[1]).reshape(-1)[0]) == trips
+        for g, wv in zip(got, want):
+            assert np.asarray(g).tobytes() == np.asarray(wv).tobytes()
+    assert ce.counters()["executor.jit_traces"] == 1
+    exe.close()
+
+
+def _if_program(D=16):
+    main, startup = fluid.Program(), fluid.Program()
+    L = fluid.layers
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[4, D], dtype="float32")
+        flag = fluid.data(name="flag", shape=[1], dtype="bool")
+        y = L.tanh(x)
+        blk = main.current_block()
+        sub = main._create_block()
+        L.assign(L.scale(y, scale=3.0, bias=1.0), output=y)
+        main._rollback()
+        blk.append_op("conditional_block", inputs={"Cond": [flag]},
+                      outputs={}, attrs={"sub_block": sub,
+                                         "is_scalar_condition": True})
+    return main, startup, [y]
+
+
+def test_slice19_if_node_both_ways(cuda):
+    """A scalar conditional_block is an if node: one capture answers
+    either way as the CPU does; a false condition leaves y as it was."""
+    main, startup, fetch = _if_program()
+    card, cpu = fluid.Executor(fluid.CUDAPlace(0)), \
+        fluid.Executor(fluid.CPUPlace())
+    sc, sp = fluid.Scope(), fluid.Scope()
+    card.run(startup, scope=sc)
+    cpu.run(startup, scope=sp)
+    ce.reset_counters()
+    x = np.random.RandomState(0).randn(4, 16).astype("float32")
+    for flag in (True, False, True, False):
+        feed = {"x": x, "flag": np.array([flag])}
+        (got,) = card.run(main, feed=feed, fetch_list=fetch, scope=sc)
+        (want,) = cpu.run(main, feed=feed, fetch_list=fetch, scope=sp)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        base = np.tanh(x)
+        np.testing.assert_allclose(got, base * 3 + 1 if flag else base,
+                                   rtol=1e-5, atol=1e-6)
+    c = ce.counters()
+    assert (c["executor.jit_traces"], c["executor.compile_fallbacks"]) == \
+        (1, 0)
+    card.close()
+
+
+def test_slice19_p1_against_its_host_loop(cuda):
+    """P1: a while node captured by hand gives the plain host loop's
+    values and trips bit for bit; its trip counter counts the body's
+    runs over replays."""
+    from paddle_tpu_torch.core.cuda_graph import CapturedGraph, GraphCache
+    from paddle_tpu_torch.ops.cuda import graph_conditional as p1
+
+    n = torch.tensor([13], dtype=torch.int64, device=cuda)
+    x0 = torch.randn(1000, device=cuda)
+    state = {"x": x0.clone(), "i": torch.zeros(1, dtype=torch.int64,
+                                               device=cuda)}
+
+    def plain():
+        state["x"], state["i"] = state["x"] * 0.5 + 1.0, state["i"] + 1
+
+    assert p1.host_while(lambda: state["i"] < n, plain) == 13
+    xb, ib = x0.clone(), torch.zeros(1, dtype=torch.int64, device=cuda)
+    trips = support.TripCounter(cuda)
+    graph, cache = CapturedGraph(), GraphCache(cuda)
+
+    def body():
+        with graph.conditional(ib < n, True, trips) as new_cond:
+            xb.copy_(xb * 0.5 + 1.0)
+            ib.copy_(ib + 1)
+            new_cond.append(ib < n)
+
+    graph.capture(cache, body)
+    for _ in range(3):
+        xb.copy_(x0)
+        ib.zero_()
+        graph.launch()
+    torch.cuda.synchronize()
+    assert torch.equal(xb, state["x"]) and int(ib.item()) == 13
+    assert trips.flush() == 39
+    cache.clear()
+
+
+def test_slice19_rng_in_a_captured_loop_is_declined_by_name(cuda):
+    """A dropout in a while body would replay one Philox offset, so one
+    mask, every trip of a captured loop: the card declines the program
+    by name, counts it and interprets it."""
+    main, startup = fluid.Program(), fluid.Program()
+    L = fluid.layers
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[8, 8], dtype="float32")
+        h = L.assign(x)
+        i = L.fill_constant([1], "int64", 0)
+        n = L.fill_constant([1], "int64", 2)
+        c = L.less_than(i, n)
+        with L.While(c).block():
+            L.assign(L.dropout(h, 0.5), output=h)
+            L.increment(i, value=1, in_place=True)
+            L.less_than(i, n, cond=c)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    ce.reset_counters()
+    with pytest.warns(UserWarning, match="falls back"):
+        exe.run(main, feed={"x": np.ones((8, 8), "float32")},
+                fetch_list=[h], scope=scope)
+    assert ce.declines() == {"while>dropout (rng in a captured loop)": 1}
+    c = ce.counters()
+    assert c["executor.compile_fallbacks"] == 1
+    assert c["executor.jit_traces"] == 0
+    exe.close()
+
+
+def test_slice19_launch_counts_through_a_while_body_are_exact(cuda):
+    """K1 in a while body launches once a trip: the trip counter keeps
+    the counts exact over replays (K1 trips x runs; P1 a set before the
+    node and one a trip, each run)."""
+    B, H, S, D, T = 2, 2, 64, 64, 5
+    main, startup = fluid.Program(), fluid.Program()
+    L = fluid.layers
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        q = fluid.data(name="q", shape=[B, H, S, D], dtype="float32")
+        k = fluid.data(name="k", shape=[B, H, S, D], dtype="float32")
+        h = L.assign(q)
+        i = L.fill_constant([1], "int64", 0)
+        n = L.fill_constant([1], "int64", T)
+        c = L.less_than(i, n)
+        with L.While(c).block():
+            L.assign(L.flash_attention(h, k, k), output=h)
+            L.increment(i, value=1, in_place=True)
+            L.less_than(i, n, cond=c)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {"q": rng.randn(B, H, S, D).astype("float32"),
+            "k": rng.randn(B, H, S, D).astype("float32")}
+    exe.run(main, feed=feed, fetch_list=[h], scope=scope)  # eager
+    support.reset_launch_counts()
+    ce.reset_counters()
+    for _ in range(4):  # the capture, then 3 replays
+        exe.run(main, feed=feed, fetch_list=[h], scope=scope)
+    counts = support.launch_counts()
+    assert ce.counters()["executor.jit_traces"] == 1
+    assert counts["flash_attention_forward"] == 4 * T
+    assert counts["graph_conditional"] == 4 * (1 + T)
+    exe.close()
+
+
+def test_slice19_a_failed_conditional_capture_raises(cuda):
+    """A conditional node begun on a stream that is not capturing raises
+    with the CUDA error; the engine's route has no fallback to the host
+    loop for a condition on the card."""
+    from paddle_tpu_torch.ops.cuda import graph_conditional as p1
+
+    cond = torch.ones(1, dtype=torch.bool, device=cuda)
+    side = p1.create_stream()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            p1.begin(torch.cuda.current_stream().cuda_stream, side, True,
+                     cond)
+        with pytest.raises(ValueError, match="one value"):
+            p1.begin(torch.cuda.current_stream().cuda_stream, side, True,
+                     torch.ones(2, dtype=torch.bool, device=cuda))
+    finally:
+        p1.destroy_stream(side)

@@ -295,3 +295,61 @@ def test_slice18_module_imports_no_jax(module):
                          cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+_SLICE19_MODULES = ("ops/cuda/graph_conditional.py", "ops/cuda/support.py",
+                    "core/cuda_graph.py", "core/compiler_engine.py",
+                    "executor.py", "dygraph/tracer.py", "dygraph/varbase.py",
+                    "dygraph/jit.py", "dygraph/ast_transform.py",
+                    "dygraph/dygraph_to_static.py", "dygraph/__init__.py",
+                    "dygraph/nn.py", "layers/math_op_patch.py",
+                    "ops/nn_tail_ops.py")
+
+_IMPORT_SLICE19 = r"""
+import importlib, sys
+for module in sys.argv[1:]:
+    importlib.import_module("paddle_tpu_torch." + module[:-3].replace(
+        "/", "."))
+from paddle_tpu_torch import dygraph
+from paddle_tpu_torch.ops.cuda import support
+for name in ("TracedLayer", "ProgramTranslator", "declarative",
+             "to_static", "dygraph_to_static"):
+    assert hasattr(dygraph, name), name
+assert "graph_conditional" in support.SOURCES
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+assert not bad, bad
+"""
+
+
+def _code_names(text):
+    """The names a module's code uses: its NAME tokens, not its strings
+    or comments."""
+    import io
+    import tokenize
+
+    return {tok.string for tok in tokenize.generate_tokens(
+        io.StringIO(text).readline) if tok.type == tokenize.NAME}
+
+
+@pytest.mark.parametrize("module", _SLICE19_MODULES)
+def test_slice19_module_names_no_jax(module):
+    """Each module of the control-flow and dygraph-to-static slice names
+    neither jax nor the JAX package in its code (its docstrings point at
+    the JAX package's files) and says nothing is still to come that this
+    slice brought."""
+    with open(os.path.join(REPO, "paddle_tpu_torch", module)) as f:
+        text = f.read()
+    assert not _code_names(text) & {"jax", "jnp", "jaxlib", "lax",
+                                    "paddle_tpu"}, module
+    assert "later slice" not in text and "later work" not in text, module
+
+
+def test_slice19_modules_import_no_jax():
+    """The slice's modules load, with the names it exports, without
+    pulling jax or the JAX package in."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _IMPORT_SLICE19,
+                          *_SLICE19_MODULES], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
