@@ -514,13 +514,41 @@ lines each:
    within 1e-5 of scale of the dygraph forward on the card; the same
    forward under @declarative gives them too; ms a batch served against
    the eager forward;
-56. one JSON line {"kernels": [...]} with each kernel's launches on the
+56. data parallelism: gpt_long at full width (2 layers, d 1024, 16
+   heads, Adam, float32) over 2 replicas on the card,
+   CompiledProgram(...).with_data_parallel(places=[CUDAPlace(0)] * 2),
+   the batch of 2 x 4096 split one sequence a replica, with
+   PADDLE_TPU_FUSED_OPTIMIZER unset (left set, the single-chip pass's
+   rewrite is refused by name: shown first on a narrow twin), four ways:
+   per-grad allreduce, bucketed (4 MB), bucketed int8 and
+   PADDLE_TPU_SHARDED_UPDATE on K4; each an eager step, a capture
+   (every replica and the reductions in one CUDA graph) and replays:
+   losses against the one-replica full-batch steps on the card (1e-4
+   relative, int8 1e-2), both replicas' parameters bitwise equal after
+   every step and never one buffer, per-grad and bucketed bitwise equal
+   to each other (torch's deterministic algorithms on for the phase: the
+   embedding grad's index_add_ sums in no fixed order otherwise), K1-K4
+   exact; the mesh, step ms, tokens/s, collective bytes by kind,
+   captures and declines, the peak;
+57. ResNet-50 NHWC (224, batch 128 as 2 x 64, FLAGS_use_pallas_conv=all)
+   under BuildStrategy.sync_batch_norm over 2 replicas: the first step's
+   loss and every batch norm's MeanOut / VarianceOut against the
+   one-replica batch-128 step, the convs that stay on K5, step ms and
+   images/s;
+58. two processes started by paddle_tpu_torch.distributed.launch run
+   tests/dist_worker_dp_torch.py on the card (dygraph DataParallel and
+   the static program over the process world; gloo on a one-card
+   machine, which NCCL refuses to share between ranks, NCCL on more):
+   per-step losses against the single-process full-batch run, both
+   ranks' parameters bitwise equal, the static program's capture
+   declined by name under gloo;
+59. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside, the dygraph, recipe, seq2seq, while,
    sentiment, book_*, bert_proto, checkpoint, rnn_search, serving_ir,
    serving_http, resnet_infer, decode_http, fleet_generate,
-   control_flow and dygraph_deploy paths too), error, times and bound,
-   P1 (graph_conditional, the port's own kernel) among them;
-57. the last line: {"ok": true, "device": {...}}.
+   control_flow, dygraph_deploy and dp_* paths too), error, times and
+   bound, P1 (graph_conditional, the port's own kernel) among them;
+60. the last line: {"ok": true, "device": {...}}.
 
 Phases 43-45 run the book's scripts as the book does, with those knobs
 unset (phase 45 sets PADDLE_TPU_FUSED_OPTIMIZER for its SGD twins). Every
@@ -540,6 +568,7 @@ CUDA device it exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -3531,15 +3560,17 @@ def phase_wide_deep(fluid, support, fo):
     return counts, run
 
 
-def k4_at_path(fo, op, phase, path):
+def k4_at_path(fo, op, phase, path, shards=1):
     """K4's adam at the flat size of a training path's one
-    fused_optimizer op (``path`` names it in the log line): bitwise
+    fused_optimizer op, or a replica's 1/``shards`` of a
+    ``c_sharded_update`` op's padded flat size (``path`` names it in the
+    log line): bitwise
     against its plain version, then rounds of
     K4, torch._fused_adam_, torch._fused_adam_, K4 on the same buffers
     (medians and spreads), each one's device time a launch, and the
     bytes bound (param, m1 and m2 read and written, grad read: 28 bytes
     an element)."""
-    n = op.attrs["padded_size"]
+    n = op.attrs["padded_size"] // shards
     if op.attrs["op_type"] != "adam":
         raise RuntimeError("expected adam, got %s" % op.attrs)
     p, grad, m1, m2, lr, b1p, b2p, attrs = k4_case(fo, "adam", n, False,
@@ -8404,6 +8435,756 @@ def phase_dygraph_deploy(fluid, support):
                     "parameters": n_params}
 
 
+# -- phases 56-58: data parallelism --------------------------------------------
+
+DP_REPLICAS = 2
+DP_STEPS = 3          # checked steps: an eager one, the capture, a replay
+DP_TIMED = 3          # timed replays after them
+# losses of the replicas' mean against the one-replica full-batch steps:
+# float32 sums in other orders (a batch of 2 as 2 x 1, grads summed over
+# the replicas); int8 quantizes every grad to 1/127 of its bucket's
+# largest magnitude, which moves Adam's steps
+DP_LOSS_RTOL = 1e-5
+DP_INT8_RTOL = 1e-3
+# the state after the checked steps against the one-replica reference's,
+# as norms: |p - p_ref| / |p_ref - p_init| over every parameter, and
+# |m - m_ref| / |m_ref| over each Adam moment; limits from the sound
+# variants' and the planted faults' readings (PERF.md, PR 20)
+DP_PARAM_RTOL = 1e-3
+DP_MOMENT_RTOL = 1e-4
+DP_INT8_PARAM_RTOL = 0.3
+DP_INT8_MOMENT_RTOL = 0.1
+# planted reduction faults, each run like the bucketed variant, which the
+# gates above must fail: one replica's grads dropped (the scale kept), and
+# the sum doubled (the 1/n loss-grad scale missing at n = 2)
+DP_PLANTS = ("half_batch", "doubled")
+# K1-K3 at a replica's attention shape (batch 1 of gpt_long's 2), causal
+DP_ATTN = (1, 16, 4096, 64)
+# sync batch norm against the one-replica batch: E[x^2] - mean^2 against
+# the two-pass variance, relative to each statistic's largest magnitude
+DP_BN_TOL = 1e-3
+# ResNet-50 in float32 is ill-conditioned from its random start: one
+# replica's step on the same batch with its halves swapped (the sums in
+# another order, nothing else) moves the first update by percents. So the
+# replicas' losses of 1 + DP_STEPS steps and their parameters after the
+# first step are held to one replica's within DP_RESNET_NOISE_X times
+# that swapped run's own gaps (or the floors below, if larger)
+DP_RESNET_NOISE_X = 3.0
+DP_RESNET_LOSS_RTOL = 1e-5
+DP_RESNET_PARAM_RTOL = 1e-3
+# the multi-process phase: the ranks' losses against one process's
+DP_MP_RTOL = 1e-5
+DP_MP_TIMEOUT = 600
+DP_MP_DEVICE = "cuda"
+DP_VARIANTS = (("per_grad", {"PADDLE_TPU_BUCKET_MB": "0"}),
+               ("bucketed", {}),
+               ("int8", {"PADDLE_TPU_QUANT_ALLREDUCE": "int8"}),
+               ("sharded_update", {"PADDLE_TPU_SHARDED_UPDATE": "1"}))
+DP_KNOBS = ("PADDLE_TPU_BUCKET_MB", "PADDLE_TPU_QUANT_ALLREDUCE",
+            "PADDLE_TPU_SHARDED_UPDATE") + FAST_PATHS
+
+
+class dp_env:
+    """The data-parallel phases' knobs: bench.py's fast paths unset (the
+    single-chip fused optimizer is refused on a mesh), the variant's set;
+    the earlier values back after."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.pop(k, None) for k in DP_KNOBS}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k in DP_KNOBS:
+            os.environ.pop(k, None)
+            if self.saved[k] is not None:
+                os.environ[k] = self.saved[k]
+
+
+class dp_plant:
+    """A planted fault in the in-process reduction (``ReplicaGroup.psum``)
+    for phase 56's negative controls: ``half_batch`` gives every replica
+    n times replica 0's grads (the others' dropped, the scale kept);
+    ``doubled`` gives twice the sum."""
+
+    def __init__(self, kind):
+        self.kind = kind
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops.collective_ops import ReplicaGroup
+
+        self.orig = orig = ReplicaGroup.psum
+        if self.kind == "half_batch":
+            def psum(group, xs):
+                return group._spread(xs[0] * group.nranks)
+        else:
+            def psum(group, xs):
+                return [y * 2 for y in orig(group, xs)]
+        ReplicaGroup.psum = psum
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops.collective_ops import ReplicaGroup
+
+        ReplicaGroup.psum = self.orig
+
+
+def card_snapshot(main, scope):
+    return {p.name: scope.find_var(p.name).get_tensor().array.clone()
+            for p in main.all_parameters()}
+
+
+def load_snapshot(fluid, scope, snap):
+    for k, v in snap.items():
+        scope.var(k).set(fluid.LoDTensor(v.clone()))
+
+
+def dp_state(main, scope):
+    """(parameters, {param: (Moment1, Moment2)}) cloned from the scope
+    (replica 0's): a parameter's moments from its adam op, or its slice of
+    the flat state under the sharded update."""
+    def get(name):
+        return scope.find_var(name).get_tensor().array
+
+    params = card_snapshot(main, scope)
+    moments = {}
+    for op in main.global_block().ops:
+        if op.type == "adam":
+            moments[op.input("Param")[0]] = tuple(
+                get(op.input(s)[0]).reshape(-1).clone()
+                for s in ("Moment1", "Moment2"))
+        elif op.type == "c_sharded_update":
+            flat = [get(op.input(s)[0]).reshape(-1)
+                    for s in ("StateA", "StateB")]
+            off = 0
+            for name in op.input("Param"):
+                k = params[name].numel()
+                moments[name] = tuple(f[off:off + k].clone() for f in flat)
+                off += k
+    return params, moments
+
+
+def norm_gap(pairs):
+    """|a - b| / |c| over the concatenation of (a, b, c) triples."""
+    num = den = 0.0
+    for a, b, c in pairs:
+        num += float(torch.linalg.vector_norm((a - b).double()) ** 2)
+        den += float(torch.linalg.vector_norm(c.double()) ** 2)
+    return (num / den) ** 0.5 if den else float("inf")
+
+
+def state_gaps(got, ref, init):
+    """(parameter gap, moment gap) of ``got`` to the reference ``ref``,
+    both ``dp_state`` pairs; ``init`` the parameters before the steps."""
+    gp, gm = got
+    rp, rm = ref
+    p_gap = norm_gap((gp[k], rp[k], rp[k] - init[k]) for k in rp)
+    m_gap = (norm_gap((a, b, b) for k in rm for a, b in zip(gm[k], rm[k]))
+             if rm else None)
+    return p_gap, m_gap
+
+
+def replicas_agree(engine, exe, names, what):
+    """Every replica's tensor of each name bitwise equal, no two one
+    buffer."""
+    for name in names:
+        vals = engine.replica_values(exe, name)
+        if len(vals) != DP_REPLICAS or \
+                len({v.data_ptr() for v in vals}) != len(vals):
+            raise RuntimeError("%s: %r held by %d replicas in %d buffers"
+                               % (what, name, len(vals),
+                                  len({v.data_ptr() for v in vals})))
+        for v in vals[1:]:
+            if not torch.equal(v, vals[0]):
+                raise RuntimeError("%s: replicas' %r differ by %g"
+                                   % (what, name,
+                                      (v - vals[0]).abs().max().item()))
+
+
+def dp_refusal(fluid):
+    """The single-chip fused-optimizer rewrite, left on, refused on the
+    mesh: a narrow gpt run once through Executor.run under
+    PADDLE_TPU_FUSED_OPTIMIZER=1, then with_data_parallel."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import engine
+
+    with dp_env(PADDLE_TPU_FUSED_OPTIMIZER="1"):
+        main, startup, loss, _ = gpt.build_gpt_long(
+            1, 64, 128, 2, 2, 128, seed=SEED + 60, use_bf16=False)
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        rng = np.random.RandomState(SEED + 60)
+        exe.run(main, feed=gpt.random_batch(rng, 1, 64, 128),
+                fetch_list=[loss], scope=scope)
+        cp = fluid.CompiledProgram(main).with_data_parallel(
+            loss.name, places=[fluid.CUDAPlace(0)] * DP_REPLICAS)
+        try:
+            exe.run(cp, feed=gpt.random_batch(rng, 2, 64, 128),
+                    fetch_list=[loss], scope=scope)
+        except ValueError as e:
+            if str(e) != engine.FUSED_OPTIMIZER_REFUSAL:
+                raise
+            log("phase 56 PADDLE_TPU_FUSED_OPTIMIZER left set: the "
+                "single-chip rewrite (%d fused_optimizer group) refused on "
+                "%d replicas: %r" % (main._fused_optimizer_groups,
+                                     DP_REPLICAS, str(e)))
+        else:
+            raise RuntimeError("phase 56: the fused-optimizer program ran "
+                               "on the mesh")
+        exe.close()
+
+
+def dp_steps(fluid, support, engine, exe, cp, scope, feed, loss, params,
+             what, state=None, timed=DP_TIMED):
+    """DP_STEPS checked steps (the replicas' parameters compared after
+    each; ``state(scope)`` read after the last), then ``timed`` timed
+    replays; the counts zeroed just before the first and read just after
+    the last."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    support.reset_launch_counts()
+    ce.reset_counters()
+    losses = []
+    for _ in range(DP_STEPS):
+        (out,) = exe.run(cp, feed=feed, fetch_list=[loss], scope=scope,
+                         return_numpy=False)
+        out = out.numpy().reshape(-1)
+        if out.size != DP_REPLICAS:
+            raise RuntimeError("%s: fetched %d losses, want one a replica"
+                               % (what, out.size))
+        losses.append(float(out.astype(np.float64).mean()))
+        replicas_agree(engine, exe, params, what)
+    snap = state(scope) if state is not None else None
+    step_ms = None
+    if timed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            exe.run(cp, feed=feed, fetch_list=[loss], scope=scope,
+                    return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / timed * 1e3
+        replicas_agree(engine, exe, params, what)
+    return {"losses": losses, "step_ms": step_ms, "state": snap,
+            "counts": support.launch_counts(), "counters": ce.counters(),
+            "declines": ce.declines(),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_dp_gpt(fluid, support):
+    """Phase 56: gpt_long over 2 replicas on the card, four ways, against
+    the one-replica full-batch steps (timed under the same settings), the
+    planted faults the gates must fail, and K4 at a replica's shard."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
+    from paddle_tpu_torch.parallel import engine
+
+    dp_refusal(fluid)
+    # the embedding grad's index_add_ sums in no fixed order on the card;
+    # its deterministic form makes two runs comparable bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        counts, run, op = dp_gpt_runs(fluid, support, engine, gpt)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    run["k4"] = k4_at_path(fo, op, 56, "dp gpt_long replica shard",
+                           shards=DP_REPLICAS)
+    return counts, run
+
+
+def dp_gpt_reference(fluid, gpt, cfg, feed, build_kw):
+    """One replica on the full batch: DP_STEPS steps (losses, state), then
+    DP_TIMED timed replays, under the variants' settings."""
+    main, startup, loss, _ = gpt.build_gpt_long(
+        cfg["batch"], **build_kw, seed=SEED + 1, use_bf16=False)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = card_snapshot(main, scope)
+    losses = []
+    for _ in range(DP_STEPS):
+        (out,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        losses.append(float(np.asarray(out).reshape(-1)[0]))
+    state = dp_state(main, scope)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / DP_TIMED * 1e3
+    exe.close()
+    return init, losses, state, step_ms
+
+
+def dp_gpt_runs(fluid, support, engine, gpt):
+    cfg = dict(gpt.GPT_LONG)
+    full, per = cfg["batch"], cfg["batch"] // DP_REPLICAS
+    tokens = full * cfg["seq_len"]
+    feed = gpt.random_batch(np.random.RandomState(SEED + 61), full,
+                            cfg["seq_len"], cfg["vocab"])
+    build_kw = {k: v for k, v in cfg.items() if k != "batch"}
+    with dp_env():
+        init, ref, ref_state, ref_ms = dp_gpt_reference(fluid, gpt, cfg,
+                                                        feed, build_kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 56 gpt_long one replica, batch %d x %d, float32, Adam, the "
+        "variants' settings (fast paths off, deterministic algorithms on): "
+        "losses %s; step %.3f ms, %.1f tokens/s; card %s"
+        % (full, cfg["seq_len"], ", ".join("%.6f" % x for x in ref),
+           ref_ms, tokens / ref_ms * 1e3, card_line()))
+
+    def one(name, env, plant=None):
+        with dp_env(**env):
+            main, startup, loss, _ = gpt.build_gpt_long(
+                per, **build_kw, seed=SEED + 1, use_bf16=False)
+            params = [p.name for p in main.all_parameters()]
+            exe = fluid.Executor()
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            load_snapshot(fluid, scope, init)
+            cp = fluid.CompiledProgram(main).with_data_parallel(
+                loss.name, places=[fluid.CUDAPlace(0)] * DP_REPLICAS)
+            with (dp_plant(plant) if plant else contextlib.nullcontext()):
+                r = dp_steps(fluid, support, engine, exe, cp, scope, feed,
+                             loss, params, "phase 56 " + name,
+                             state=lambda sc: dp_state(main, sc),
+                             timed=0 if plant else DP_TIMED)
+            r["types"] = sorted({op.type for op in main.global_block().ops
+                                 if op.type.startswith("c_")})
+            r["coll"] = engine._estimate_collective_bytes(main, scope)
+            r["op"] = [op for op in main.global_block().ops
+                       if op.type == "c_sharded_update"]
+            exe.close()
+            del exe, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["loss_gap"] = max(abs(a - b) / abs(b)
+                            for a, b in zip(r["losses"], ref))
+        r["param_gap"], r["moment_gap"] = state_gaps(r["state"], ref_state,
+                                                     init)
+        return r
+
+    runs, counts_all, kept = {}, {}, {}
+    for name, env in DP_VARIANTS:
+        r = one(name, env)
+        steps = DP_STEPS + DP_TIMED
+        want = {"flash_attention_forward": 4 * DP_REPLICAS * steps,
+                "flash_attention_backward_dq": 2 * DP_REPLICAS * steps,
+                "flash_attention_backward_dkv": 2 * DP_REPLICAS * steps,
+                "fused_optimizer_update": (DP_REPLICAS * steps
+                                           if name == "sharded_update"
+                                           else 0)}
+        c = r["counts"]
+        bad = {k: (c.get(k, 0), n) for k, n in want.items()
+               if c.get(k, 0) != n}
+        int8 = name == "int8"
+        tol = DP_INT8_RTOL if int8 else DP_LOSS_RTOL
+        p_tol = DP_INT8_PARAM_RTOL if int8 else DP_PARAM_RTOL
+        m_tol = DP_INT8_MOMENT_RTOL if int8 else DP_MOMENT_RTOL
+        log("phase 56 dp gpt_long %s: mesh %d replicas on 1 card "
+            "(in-process, rank-order reductions), collectives %s, bytes a "
+            "step by kind %s (exact %d); losses %s, largest gap to one "
+            "replica %.3g (limit %g); state after %d steps against one "
+            "replica's: parameters %.3g (limit %g), Adam moments %.3g "
+            "(limit %g); step %.3f ms (one replica's %.3f), %.1f tokens/s; "
+            "captures %d, fallbacks %d, declines %s; launches %s; "
+            "max_memory_allocated %d; card %s"
+            % (name, DP_REPLICAS, r["types"],
+               json.dumps(r["coll"]["bytes"]), r["coll"]["bytes_exact"],
+               ", ".join("%.6f" % x for x in r["losses"]), r["loss_gap"],
+               tol, DP_STEPS, r["param_gap"], p_tol, r["moment_gap"], m_tol,
+               r["step_ms"], ref_ms, tokens / r["step_ms"] * 1e3,
+               r["counters"]["executor.jit_traces"],
+               r["counters"]["executor.compile_fallbacks"],
+               json.dumps(r["declines"]), json.dumps(c), r["peak_bytes"],
+               card_line()))
+        if bad or r["loss_gap"] > tol or r["param_gap"] > p_tol or \
+                r["moment_gap"] > m_tol or not np.isfinite(r["losses"]).all():
+            raise RuntimeError("phase 56 %s: launches (got, want) %s, loss "
+                               "gap %g, parameter gap %g, moment gap %g"
+                               % (name, bad, r["loss_gap"], r["param_gap"],
+                                  r["moment_gap"]))
+        check_one_capture("phase 56 " + name, r["counters"])
+        if name in ("per_grad", "bucketed"):
+            kept[name] = r["state"][0]
+        if name == "sharded_update":
+            (op,) = r["op"]
+        runs[name] = {"step_ms": r["step_ms"], "losses": r["losses"],
+                      "tokens_per_s": tokens / r["step_ms"] * 1e3,
+                      "collective_bytes": r["coll"]["bytes"],
+                      "peak_bytes": r["peak_bytes"],
+                      "loss_gap": r["loss_gap"],
+                      "param_gap": r["param_gap"],
+                      "moment_gap": r["moment_gap"]}
+        counts_all[name] = c
+        del r
+    if runs["per_grad"]["losses"] != runs["bucketed"]["losses"] or any(
+            not torch.equal(kept["per_grad"][k], kept["bucketed"][k])
+            for k in kept["per_grad"]):
+        raise RuntimeError("phase 56: per-grad and bucketed runs differ")
+    log("phase 56 per-grad and bucketed runs bitwise equal (losses and %d "
+        "parameters)" % len(kept["per_grad"]))
+    del kept
+    plants = {}
+    for plant in DP_PLANTS:
+        r = one("planted " + plant, {}, plant)
+        caught = [k for k, v, lim in (
+            ("loss", r["loss_gap"], DP_LOSS_RTOL),
+            ("parameters", r["param_gap"], DP_PARAM_RTOL),
+            ("moments", r["moment_gap"], DP_MOMENT_RTOL)) if v > lim]
+        plants[plant] = {"loss_gap": r["loss_gap"],
+                         "param_gap": r["param_gap"],
+                         "moment_gap": r["moment_gap"], "caught_by": caught,
+                         "over_int8_limits": [k for k, v, lim in (
+                             ("loss", r["loss_gap"], DP_INT8_RTOL),
+                             ("parameters", r["param_gap"],
+                              DP_INT8_PARAM_RTOL),
+                             ("moments", r["moment_gap"],
+                              DP_INT8_MOMENT_RTOL)) if v > lim]}
+        log("phase 56 planted fault %s (bucketed, %d steps): loss gap %.3g, "
+            "parameters %.3g, moments %.3g: caught by %s; over the int8 "
+            "limits %s" % (plant, DP_STEPS, r["loss_gap"], r["param_gap"],
+                           r["moment_gap"], caught,
+                           plants[plant]["over_int8_limits"]))
+        if not caught:
+            raise RuntimeError("phase 56: the planted %s fault passed every "
+                               "gate" % plant)
+        del r
+    counts = {}
+    for c in counts_all.values():
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts, {"reference_losses": ref, "reference_step_ms": ref_ms,
+                    "replicas": DP_REPLICAS, "planted": plants, **runs}, op
+
+
+def bn_stats(main):
+    return [n for op in main.global_block().ops if op.type == "batch_norm"
+            for n in op.output("MeanOut") + op.output("VarianceOut")]
+
+
+def k5_at_batch(fluid, k5, batch, phase):
+    """K5 float32 at every routed conv shape of ResNet-50 at ``batch``
+    against its plain version (K5_TOL of the output's scale), timed; the
+    sums over the routed convs of one forward, with their bound."""
+    shapes = resnet_routed_convs(fluid, batch)
+    out = {"batch": batch, "shapes": len(shapes),
+           "convs": sum(c[-1] for c in shapes), "ms": 0.0, "plain_ms": 0.0,
+           "max_abs_err": 0.0, "rel_err_max": 0.0}
+    work = [0.0, 0.0]
+    for i, (xs, ws, stride, pad, count) in enumerate(shapes):
+        x, w, _, y, err, rel = k5_check(k5, xs, ws, stride, pad,
+                                        torch.float32, False, seed=90 + i)
+        out["ms"] += count * time_ms(lambda: k5.conv2d_bn_act(
+            x, w, stride=stride, padding=pad), iters=10, warmup=2)
+        out["plain_ms"] += count * time_ms(
+            lambda: k5.conv2d_bn_act_reference(x, w, stride=stride,
+                                               padding=pad),
+            iters=3, warmup=1)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["rel_err_max"] = max(out["rel_err_max"], rel)
+        nbytes, flops = k5_work(xs, ws, stride, pad)
+        work[0] += count * nbytes
+        work[1] += count * flops
+        del x, w, y
+    torch.cuda.empty_cache()
+    out["bound_ms"], out["bound_by"] = bound(*work, PEAK_FLOPS[torch.float32])
+    log("phase %d K5 float32 at ResNet-50's %d routed convs of batch %d (%d "
+        "shapes), each against its plain version: largest error %g, %g of "
+        "the output's scale (limit %g); summed %.3f ms (plain %.3f, bound "
+        "%.3f by %s); card %s"
+        % (phase, out["convs"], batch, out["shapes"], out["max_abs_err"],
+           out["rel_err_max"], K5_TOL[torch.float32], out["ms"],
+           out["plain_ms"], out["bound_ms"], out["bound_by"], card_line()))
+    return out
+
+
+class local_bn_backward:
+    """The planted fault of phase 57: the JAX package's sync batch norm,
+    whose grad ops are left untagged (each replica's backward takes its
+    own statistics)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.parallel import transpiler
+
+        self.orig = orig = transpiler.mark_sync_batch_norm
+
+        def forward_only(program, enable=True):
+            orig(program, enable)
+            for block in program.blocks:
+                for op in block.ops:
+                    if op.type == "batch_norm_grad":
+                        op.attrs.pop("_sync_stats", None)
+
+        transpiler.mark_sync_batch_norm = forward_only
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.parallel import transpiler
+
+        transpiler.mark_sync_batch_norm = self.orig
+
+
+def resnet_one_replica(fluid, build_resnet_train, feed, init):
+    """One replica on the whole batch, 1 + DP_STEPS steps from ``init``:
+    (losses, the first step's statistics, the parameters after it)."""
+    main, startup, loss = build_resnet_train(RESNET_BATCH, seed=SEED + 4)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    if init is None:
+        init = {n: scope.find_var(n).get_tensor().array.clone()
+                for n in bn_stats(main) + [p.name for p in
+                                           main.all_parameters()]}
+    else:
+        load_snapshot(fluid, scope, init)
+    losses = []
+    for i in range(1 + DP_STEPS):
+        (out,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        losses.append(float(np.asarray(out).reshape(-1)[0]))
+        if i == 0:
+            stats = {n: scope.find_var(n).get_tensor().array.clone()
+                     for n in bn_stats(main)}
+            first = card_snapshot(main, scope)
+    exe.close()
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    return init, losses, stats, first
+
+
+def resnet_dp(fluid, support, engine, build_resnet_train, feed, init,
+              timed):
+    """2 x 64 under sync batch norm from ``init``: the first (eager)
+    step's statistics and parameters, then dp_steps (``timed`` replays)."""
+    main, startup, loss = build_resnet_train(RESNET_BATCH // DP_REPLICAS,
+                                             seed=SEED + 4)
+    params = [p.name for p in main.all_parameters()]
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    load_snapshot(fluid, scope, init)
+    bs = fluid.BuildStrategy()
+    bs.sync_batch_norm = True
+    cp = fluid.CompiledProgram(main).with_data_parallel(
+        loss.name, build_strategy=bs,
+        places=[fluid.CUDAPlace(0)] * DP_REPLICAS)
+    (out,) = exe.run(cp, feed=feed, fetch_list=[loss], scope=scope)
+    first_loss = float(np.asarray(out, dtype=np.float64).mean())
+    stats = {n: scope.find_var(n).get_tensor().array.clone()
+             for n in bn_stats(main)}
+    first = card_snapshot(main, scope)
+    replicas_agree(engine, exe, params + bn_stats(main),
+                   "phase 57 first step")
+    r = dp_steps(fluid, support, engine, exe, cp, scope, feed, loss,
+                 params, "phase 57", timed=timed)
+    r["coll"] = engine._estimate_collective_bytes(main, scope)
+    r["tagged"] = sum(1 for op in main.global_block().ops
+                      if op.type == "batch_norm_grad"
+                      and op.attrs.get("_sync_stats"))
+    exe.close()
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    r.update(losses=[first_loss] + r["losses"], stats=stats, first=first)
+    return r
+
+
+def phase_dp_resnet(fluid, support):
+    """Phase 57: ResNet-50 NHWC batch 128 as 2 x 64 under sync batch norm
+    against one replica's batch-128 steps: the first step's statistics,
+    every step's loss and the parameters after the first step (the
+    backward reduces the grad statistics over the replicas), each within
+    DP_RESNET_NOISE_X times one replica's own gap under a swapped batch;
+    the planted local-statistics backward beside it; then K5 at the
+    replicas' batch-64 conv shapes against its plain version."""
+    from paddle_tpu_torch.models.resnet import build_resnet_train, random_batch
+    from paddle_tpu_torch.ops.cuda import conv as k5
+    from paddle_tpu_torch.parallel import engine
+
+    fluid.set_flags({"FLAGS_use_pallas_conv": "all"})
+    feed = random_batch(np.random.RandomState(SEED + 62), RESNET_BATCH)
+    half = RESNET_BATCH // 2
+    swapped = {k: np.concatenate([v[half:], v[:half]])
+               for k, v in feed.items()}
+    with dp_env():
+        init, ref_losses, ref_stats, ref_first = resnet_one_replica(
+            fluid, build_resnet_train, feed, None)
+        _, sw_losses, _, sw_first = resnet_one_replica(
+            fluid, build_resnet_train, swapped, init)
+        r = resnet_dp(fluid, support, engine, build_resnet_train, feed,
+                      init, DP_TIMED)
+        with local_bn_backward():
+            plant = resnet_dp(fluid, support, engine, build_resnet_train,
+                              feed, init, 0)
+
+    def gaps(losses, first):
+        return (max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+                norm_gap((first[k], ref_first[k], ref_first[k] - init[k])
+                         for k in ref_first))
+
+    noise_loss, noise_param = gaps(sw_losses, sw_first)
+    loss_lim = max(DP_RESNET_LOSS_RTOL, DP_RESNET_NOISE_X * noise_loss)
+    param_lim = max(DP_RESNET_PARAM_RTOL, DP_RESNET_NOISE_X * noise_param)
+    loss_gap, param_gap = gaps(r["losses"], r["first"])
+    plant_loss, plant_param = gaps(plant["losses"], plant["first"])
+    stat_gap = max((r["stats"][n] - ref_stats[n]).abs().max().item()
+                   / max(ref_stats[n].abs().max().item(), 1e-6)
+                   for n in ref_stats)
+    c = r["counts"]
+    steps = DP_STEPS + DP_TIMED
+    k5n = c.get("conv2d_bn_act", 0)
+    on_k5 = k5n / (steps * DP_REPLICAS)
+    per = RESNET_BATCH // DP_REPLICAS
+    log("phase 57 ResNet-50 NHWC batch %d as %d x %d, sync batch norm "
+        "(%d batch norms, %d grad ops reducing too), "
+        "FLAGS_use_pallas_conv=all: losses of %d steps %s against one "
+        "replica's %s: largest gap %.3g (limit %.3g); parameters after the "
+        "first step %.3g of its update (limit %.3g); one replica with its "
+        "batch's halves swapped: %.3g and %.3g (the limits are %g times "
+        "these, floors %g and %g); planted local-statistics backward: "
+        "%.3g and %.3g (%s); first step's MeanOut / VarianceOut largest gap "
+        "%.3g of scale (limit %g); %.4g convs a replica on K5 (%d launches "
+        "in %d steps); step %.3f ms, %.2f images/s; bytes a step by kind "
+        "%s; captures %d, fallbacks %d; max_memory_allocated %d; card %s"
+        % (RESNET_BATCH, DP_REPLICAS, per, len(ref_stats) // 2, r["tagged"],
+           len(r["losses"]), ", ".join("%.6f" % x for x in r["losses"]),
+           ", ".join("%.6f" % x for x in ref_losses), loss_gap, loss_lim,
+           param_gap, param_lim, noise_loss, noise_param, DP_RESNET_NOISE_X,
+           DP_RESNET_LOSS_RTOL, DP_RESNET_PARAM_RTOL, plant_loss,
+           plant_param,
+           "over the limits" if plant_loss > loss_lim or
+           plant_param > param_lim else "within the limits",
+           stat_gap, DP_BN_TOL, on_k5, k5n, steps, r["step_ms"],
+           RESNET_BATCH / r["step_ms"] * 1e3, json.dumps(r["coll"]["bytes"]),
+           r["counters"]["executor.jit_traces"],
+           r["counters"]["executor.compile_fallbacks"], r["peak_bytes"],
+           card_line()))
+    check_one_capture("phase 57", r["counters"])
+    if loss_gap > loss_lim or param_gap > param_lim or \
+            stat_gap > DP_BN_TOL or plant["tagged"] or \
+            r["tagged"] != len(ref_stats) // 2 or \
+            not k5n or k5n % (steps * DP_REPLICAS) or \
+            not np.isfinite(r["losses"]).all():
+        raise RuntimeError("phase 57: loss gap %g (limit %g), parameter gap "
+                           "%g (limit %g), statistics gap %g, %d grad ops "
+                           "tagged, K5 %d"
+                           % (loss_gap, loss_lim, param_gap, param_lim,
+                              stat_gap, r["tagged"], k5n))
+    k5_dp = k5_at_batch(fluid, k5, per, 57)
+    return c, {"reference_losses": ref_losses, "losses": r["losses"],
+               "loss_gap": loss_gap, "param_gap": param_gap,
+               "swapped_loss_gap": noise_loss,
+               "swapped_param_gap": noise_param,
+               "planted_local_backward": {"loss_gap": plant_loss,
+                                          "param_gap": plant_param},
+               "bn_gap": stat_gap, "convs_on_k5": on_k5,
+               "step_ms": r["step_ms"],
+               "images_per_s": RESNET_BATCH / r["step_ms"] * 1e3,
+               "peak_bytes": r["peak_bytes"], "k5": k5_dp}
+
+
+def fluid_place_of(device):
+    import paddle_tpu_torch as fluid
+
+    return fluid.CUDAPlace(0) if device == "cuda" else fluid.CPUPlace()
+
+
+def phase_dp_multiprocess():
+    """Phase 58: two ranks through the port's launcher on the card against
+    the worker's models run once in this process on the full batch; a
+    failed rank fails the phase."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    worker = os.path.join(here, "tests", "dist_worker_dp_torch.py")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PADDLE_", "FLAGS_selected"))}
+    env.update(PADDLE_DP_DEVICE=DP_MP_DEVICE,
+               PYTHONPATH=here + os.pathsep + env.get("PYTHONPATH", ""))
+    d = tempfile.mkdtemp(prefix="phase58-")
+    try:
+        # the one-process oracle runs the worker's two models here
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location("dp_worker", worker)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        from paddle_tpu_torch.dygraph.parallel import ParallelEnv
+
+        where = fluid_place_of(DP_MP_DEVICE)
+        t0 = time.perf_counter()
+        one = ParallelEnv()
+        if one.nranks != 1:
+            raise RuntimeError("phase 58: this process is a rank of a job")
+        oracle = {"losses": mod.dygraph_losses(one, where, {}),
+                  "static_losses": mod.static_losses(one, where, {})}
+        one_s = time.perf_counter() - t0
+        import socket
+
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        os.makedirs(os.path.join(d, "two"))
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m",
+                        "paddle_tpu_torch.distributed.launch",
+                        "--nproc_per_node=2", "--started_port=%d" % port,
+                        "--log_dir=%s" % os.path.join(d, "logs"), worker,
+                        os.path.join(d, "two")], env=env, check=True,
+                       timeout=DP_MP_TIMEOUT, cwd=here)
+        two_s = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(d, "two", "rank%d.json" % r)))
+                 for r in (0, 1)]
+        params = [np.load(os.path.join(d, "two", "rank%d.npz" % r))
+                  for r in (0, 1)]
+        backend = ranks[0]["backend"]
+        dy_gap = max(abs(a - b) / abs(b) for a, b in zip(
+            np.mean([r["losses"] for r in ranks], 0), oracle["losses"]))
+        st_gap = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(
+            r["static_losses"], oracle["static_losses"]))
+        same = all(np.array_equal(params[0][k], params[1][k])
+                   for k in params[0].files)
+        declines = ranks[0]["declines"]
+        why = ("the machine shows %d card(s), and NCCL refuses two ranks "
+               "on one card" % torch.cuda.device_count()
+               if backend == "gloo" else "a card a rank")
+        log("phase 58 two ranks through paddle_tpu_torch.distributed.launch "
+            "on the card, backend %s (%s): dygraph DataParallel losses "
+            "(mean of the ranks) gap %.3g, static program over the process "
+            "world gap %.3g (limit %g) to one process's full batch; both "
+            "ranks' %d parameters bitwise equal: %s; declines %s; launches "
+            "by rank %s; %.1f s for the pair, %.1f s for the oracle in "
+            "this process; "
+            "card %s"
+            % (backend, why, dy_gap, st_gap, DP_MP_RTOL, len(params[0].files),
+               same, json.dumps(declines),
+               json.dumps([r.get("launches") for r in ranks]), two_s, one_s,
+               card_line()))
+        want_decline = "c_bucket_allreduce (gloo collective: not capturable)"
+        if max(dy_gap, st_gap) > DP_MP_RTOL or not same or (
+                backend == "gloo" and want_decline not in declines):
+            raise RuntimeError("phase 58: gaps %g %g, params equal %s, "
+                               "declines %s" % (dy_gap, st_gap, same,
+                                                declines))
+        counts = {}
+        for r in ranks:
+            for k, v in (r.get("launches") or {}).items():
+                counts[k] = counts.get(k, 0) + v
+        return counts, {"backend": backend, "dygraph_gap": dy_gap,
+                        "static_gap": st_gap, "pair_s": two_s,
+                        "oracle_s": one_s}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -8517,6 +9298,21 @@ def main() -> int:
     deploy_counts, deploy_run = phase_dygraph_deploy(fluid, support)
     log("phases 54-55 %s" % json.dumps(
         {"control_flow": cf_run, "dygraph_deploy": deploy_run}))
+    # data parallelism: gpt_long and ResNet-50 over 2 replicas on the
+    # card, then two processes through the launcher
+    dp_gpt, dp_gpt_run = phase_dp_gpt(fluid, support)
+    k4["dp_shard"] = dp_gpt_run["k4"]
+    fwd = k1_check(fa, DP_ATTN, None, True, torch.float32, 56, timed=True,
+                   phase=56)
+    bwd = bwd_check(fa, DP_ATTN, None, True, torch.float32, 66, timed=True,
+                    phase=56)
+    attention_rows(flash, k2, k3, "dp_replica_shape", "causal", fwd, bwd)
+    dp_resnet, dp_resnet_run = phase_dp_resnet(fluid, support)
+    conv["dp_replica_shape"] = dp_resnet_run["k5"]
+    dp_mp, dp_mp_run = phase_dp_multiprocess()
+    log("phases 56-58 %s" % json.dumps(
+        {"dp_gpt": dp_gpt_run, "dp_resnet": dp_resnet_run,
+         "dp_multiprocess": dp_mp_run}))
     log("phases 51-53 %s" % json.dumps(
         {"serving_http": http_run, "resnet_infer": resnet_infer_run,
          "decode_http": decode_http_run}))
@@ -8588,7 +9384,10 @@ def main() -> int:
                    "decode_http": decode_http.get(kern["name"], 0),
                    "fleet_generate": fleet_gen.get(kern["name"], 0),
                    "control_flow": cf_counts.get(kern["name"], 0),
-                   "dygraph_deploy": deploy_counts.get(kern["name"], 0)}
+                   "dygraph_deploy": deploy_counts.get(kern["name"], 0),
+                   "dp_gpt": dp_gpt.get(kern["name"], 0),
+                   "dp_resnet": dp_resnet.get(kern["name"], 0),
+                   "dp_multiprocess": dp_mp.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

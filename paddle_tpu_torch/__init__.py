@@ -18,6 +18,8 @@ from .core import (CPUPlace, CUDAPlace, LoDTensor,  # noqa: F401
                    scope_guard)
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .executor import Executor  # noqa: F401
+from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
+                       ExecutionStrategy)
 from .framework import (Parameter, Program, Variable,  # noqa: F401
                         default_main_program, default_startup_program,
                         program_guard)
@@ -45,3 +47,5 @@ from .lod_tensor import (create_lod_tensor,  # noqa: F401
                          create_random_int_lodtensor)
 from .data_feeder import DataFeeder  # noqa: F401
 from .utils import unique_name  # noqa: F401
+from . import parallel  # noqa: F401
+from . import incubate  # noqa: F401

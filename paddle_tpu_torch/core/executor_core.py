@@ -219,12 +219,17 @@ class CoreExecutor:
         self.steps: "OrderedDict" = OrderedDict()
         self.graphs = GraphCache(self.device)
         self.warm: "OrderedDict" = OrderedDict()
+        # the data-parallel engine's runs (parallel/engine.py)
+        self.dp_runs: Dict = {}
+        self.dp_last = None
 
     def close(self) -> None:
         """Drop the step functions and free the captured graphs."""
         self.graphs.clear()
         self.warm.clear()
         self.steps.clear()
+        self.dp_runs.clear()
+        self.dp_last = None
 
     def _read_var(self, scope: Scope, name: str):
         if name in _UNBOUND:

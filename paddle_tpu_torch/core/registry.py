@@ -96,6 +96,12 @@ class OpInfo:
         # a deterministic host op whose output depends only on its inputs:
         # with constant inputs the compiler engine evaluates it once
         self.const_foldable = const_foldable
+        # a collective's form over the replicas of one process
+        # (``set_group_form``): ``group_of(attrs)`` names the group its
+        # attrs reach, ``group_fn(ins_list, attrs, group)`` runs the op for
+        # every local replica at once
+        self.group_of: Optional[Callable] = None
+        self.group_fn: Optional[Callable] = None
 
     def input_slot(self, name) -> Optional[Slot]:
         for s in self.inputs:
@@ -196,6 +202,18 @@ def register_host_op(type: str, inputs: Sequence[Slot],
     return deco
 
 
+def set_group_form(type: str, group_of: Callable,
+                   group_fn: Callable) -> None:
+    """Give a registered op its form over the replicas of one process: the
+    data-parallel engine (``parallel/engine.py``) walks the replicas in
+    lockstep and, where ``group_of(attrs)`` names a group of replicas in
+    this process, calls ``group_fn(ins_list, attrs, group)`` once, with
+    each replica's inputs, for each replica's outputs."""
+    info = OpInfoMap.instance()._map[type]
+    info.group_of = group_of
+    info.group_fn = group_fn
+
+
 # -- the auto-VJP grad op ------------------------------------------------------
 
 # grad op types whose fn torch can differentiate again, the auto-VJP or a
@@ -250,74 +268,95 @@ def _vjp_grad_impl(info: OpInfo, ins: Dict, attrs: Dict):
     and pull the outputs' grads back through it. A missing output grad
     counts as zeros; an input the outputs do not depend on gets zeros.
     Integer inputs are never differentiated."""
+    return vjp_grad_group(info, [ins], attrs,
+                          lambda rebuilt, a: [info.fn(rebuilt[0], a)])[0]
+
+
+def vjp_grad_group(info: OpInfo, ins_list: List[Dict], attrs: Dict,
+                   run_forward: Callable) -> List[Dict]:
+    """``_vjp_grad_impl`` over the replicas of a group form at once:
+    ``run_forward(rebuilt_list, fwd_attrs)`` runs the forward of every
+    replica (one graph where the replicas share a reduction), and every
+    replica's output grads pull back through that graph in one
+    ``torch.autograd.grad``, so that a replica's input grads take the
+    paths through the other replicas' outputs too."""
     bound = set(attrs.get(BOUND_OUTPUTS_ATTR) or ())
-    fwd_ins = {s.name: ins.get(s.name) for s in info.inputs}
-
-    # (slot, index or None) leaves to differentiate with respect to
-    wrt: List[Tuple[str, Optional[int]]] = []
-    for s in info.inputs:
-        want = (not bound) or (s.name + GRAD_SUFFIX) in bound
-        v = fwd_ins.get(s.name)
-        if s.no_grad or not want or v is None:
-            continue
-        if s.duplicable:
-            wrt.extend((s.name, i) for i, x in enumerate(v) if _is_float(x))
-        elif _is_float(v):
-            wrt.append((s.name, None))
-    if not wrt:
-        return {}
-
     fwd_attrs = {k: v for k, v in attrs.items() if k != BOUND_OUTPUTS_ATTR}
-    rebuilt = {s.name: (list(fwd_ins[s.name]) if s.duplicable
-                        and fwd_ins.get(s.name) is not None
-                        else fwd_ins.get(s.name)) for s in info.inputs}
     # Run as the grad op of a grad op (grad of grad), this call's inputs
     # already carry the outer call's graph (one leaf per slot, made by the
     # outer call): keep it, and build a graph of this backward too, so
     # that the outer call can differentiate it.
     nested = any(isinstance(t, torch.Tensor) and t.requires_grad
-                 for v in ins.values()
+                 for ins in ins_list for v in ins.values()
                  for t in (v if isinstance(v, list) else [v]))
-    leaves = []
-    for n, i in wrt:
-        x = rebuilt[n] if i is None else rebuilt[n][i]
-        if not x.requires_grad:
-            x = x.detach().requires_grad_(True)
-        leaves.append(x)
-        if i is None:
-            rebuilt[n] = x
-        else:
-            rebuilt[n][i] = x
+    wrts, rebuilts, leaves = [], [], []
+    for ins in ins_list:
+        fwd_ins = {s.name: ins.get(s.name) for s in info.inputs}
+        # (slot, index or None) leaves to differentiate with respect to
+        wrt: List[Tuple[str, Optional[int]]] = []
+        for s in info.inputs:
+            want = (not bound) or (s.name + GRAD_SUFFIX) in bound
+            v = fwd_ins.get(s.name)
+            if s.no_grad or not want or v is None:
+                continue
+            if s.duplicable:
+                wrt.extend((s.name, i) for i, x in enumerate(v)
+                           if _is_float(x))
+            elif _is_float(v):
+                wrt.append((s.name, None))
+        rebuilt = {s.name: (list(fwd_ins[s.name]) if s.duplicable
+                            and fwd_ins.get(s.name) is not None
+                            else fwd_ins.get(s.name)) for s in info.inputs}
+        for n, i in wrt:
+            x = rebuilt[n] if i is None else rebuilt[n][i]
+            if not x.requires_grad:
+                x = x.detach().requires_grad_(True)
+            leaves.append(x)
+            if i is None:
+                rebuilt[n] = x
+            else:
+                rebuilt[n][i] = x
+        wrts.append(wrt)
+        rebuilts.append(rebuilt)
+    if not leaves:
+        return [{} for _ in ins_list]
     with torch.enable_grad():
-        outs = info.fn(rebuilt, fwd_attrs)
+        outs_list = run_forward(rebuilts, fwd_attrs)
 
     # each produced output that depends on a leaf, with its cotangent
     # (reshaped to the output: the loss grad is [1] where mean gives 0-d)
     ys, cots = [], []
-    for s in info.outputs:
-        o = outs.get(s.name)
-        if o is None:
-            continue
-        g = ins.get(s.name + GRAD_SUFFIX)
-        os_ = o if s.duplicable else [o]
-        gs = (g if g is not None else [None] * len(os_)) if s.duplicable \
-            else [g]
-        for y, gy in zip(os_, gs):
-            if not (isinstance(y, torch.Tensor) and y.requires_grad):
+    for ins, outs in zip(ins_list, outs_list):
+        for s in info.outputs:
+            o = outs.get(s.name)
+            if o is None:
                 continue
-            ys.append(y)
-            cots.append(torch.zeros_like(y) if gy is None
-                        else gy.to(y.dtype).reshape(y.shape))
+            g = ins.get(s.name + GRAD_SUFFIX)
+            os_ = o if s.duplicable else [o]
+            gs = (g if g is not None else [None] * len(os_)) \
+                if s.duplicable else [g]
+            for y, gy in zip(os_, gs):
+                if not (isinstance(y, torch.Tensor) and y.requires_grad):
+                    continue
+                ys.append(y)
+                cots.append(torch.zeros_like(y) if gy is None
+                            else gy.to(y.dtype).reshape(y.shape))
     grads = (torch.autograd.grad(ys, leaves, cots, allow_unused=True,
                                  create_graph=nested)
              if ys else [None] * len(leaves))
 
-    result: Dict[str, object] = {}
-    for (n, i), x, g in zip(wrt, leaves, grads):
-        g = torch.zeros_like(x) if g is None else g
-        key = n + GRAD_SUFFIX
-        if info.input_slot(n).duplicable:
-            result.setdefault(key, [None] * len(fwd_ins[n]))[i] = g
-        else:
-            result[key] = g
-    return result
+    results: List[Dict] = []
+    k = 0
+    for ins, wrt in zip(ins_list, wrts):
+        result: Dict[str, object] = {}
+        for n, i in wrt:
+            x, g = leaves[k], grads[k]
+            k += 1
+            g = torch.zeros_like(x) if g is None else g
+            key = n + GRAD_SUFFIX
+            if info.input_slot(n).duplicable:
+                result.setdefault(key, [None] * len(ins[n]))[i] = g
+            else:
+                result[key] = g
+        results.append(result)
+    return results

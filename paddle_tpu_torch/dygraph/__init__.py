@@ -6,8 +6,7 @@ Counterpart of ``paddle_tpu/dygraph/``: ``guard``, ``to_variable``,
 CUDA graph a step), learning-rate decays, ``save_dygraph`` /
 ``load_dygraph``, ``TracedLayer`` (``jit``) and dygraph-to-static
 (``ast_transform``, ``dygraph_to_static``: ``ProgramTranslator``,
-``declarative``, ``to_static``). ``DataParallel`` waits for the
-collectives (ROADMAP.md).
+``declarative``, ``to_static``) and ``DataParallel`` (``parallel``).
 """
 from .base import (  # noqa: F401
     disable_dygraph,
@@ -34,6 +33,9 @@ from .learning_rate_scheduler import (  # noqa: F401
     PolynomialDecay,
 )
 from .jit import TracedLayer  # noqa: F401
+from . import parallel  # noqa: F401
+from .parallel import (DataParallel, Env, ParallelEnv,  # noqa: F401
+                       prepare_context)
 from . import dygraph_to_static  # noqa: F401
 from .dygraph_to_static import (  # noqa: F401
     ProgramTranslator,

@@ -1,6 +1,10 @@
 """``Executor`` — the user-facing program runner.
 
-Counterpart of ``paddle_tpu/executor.py``. ``run`` applies the single-chip
+Counterpart of ``paddle_tpu/executor.py``. A ``CompiledProgram``
+(``compiler.py``) routes as in the JAX package: one marked
+``with_data_parallel`` runs on the data-parallel engine
+(``parallel/engine.py``), any other runs its plain program. Otherwise
+``run`` applies the single-chip
 fusion rewrites a program asks for (``core.fusion``: the fused epilogues
 under ``PADDLE_TPU_FUSED_EPILOGUE``, then the fused optimizer update under
 ``PADDLE_TPU_FUSED_OPTIMIZER``), then dispatches to either
@@ -94,6 +98,15 @@ class Executor:
             program = framework.default_main_program()
         feed = feed or {}
         fetch_list = list(fetch_list or [])
+        from .compiler import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            if not program._is_data_parallel:
+                return self.run(program._program, feed, fetch_list,
+                                scope=scope, return_numpy=return_numpy)
+            with self._lock:
+                return program._run(self, feed, fetch_list, scope,
+                                    return_numpy)
         with self._lock:
             maybe_rewrite_single_chip(program, scope, self.device)
             # FLAGS_check_nan_inf needs the per-op interpreter

@@ -3,6 +3,7 @@
 from . import activation_ops  # noqa: F401
 from . import amp_ops  # noqa: F401
 from . import beam_search_ops  # noqa: F401
+from . import collective_ops  # noqa: F401
 from . import compare_ops  # noqa: F401
 from . import control_flow_ops  # noqa: F401
 from . import conv_ops  # noqa: F401

@@ -9,8 +9,15 @@ the latter the inverse standard deviation. It is written out in plain torch
 ops in the JAX package's order, not ``F.batch_norm``: the running update is
 ``running * momentum + batch * (1 - momentum)`` with the biased batch
 variance, where torch's ``momentum`` weights the new value and its
-running variance is unbiased. Cross-replica statistics (``_sync_stats``)
-raise until the parallel package is ported.
+running variance is unbiased. Cross-replica statistics (``_sync_stats``,
+``BuildStrategy.sync_batch_norm``) take the JAX package's math: the
+pmean of the local mean and of the local E[x^2], var = E[x^2] - mean^2.
+Its grad op reduces over the replicas too: ``batch_norm_grad``'s form over
+the replicas of one process differentiates every replica's forward as one
+graph through the shared statistics, and across processes the psum
+differentiates as a psum of the cotangents. So the replicas' input grads
+are the full batch's, as the reference's ``sync_batch_norm_op.cu`` grad
+gives them; the JAX package's grad takes local statistics there.
 
 ``layer_norm`` normalises over the dims from ``begin_norm_axis`` on, then
 scales and shifts; ``Mean`` and ``Variance`` are flattened over the leading
@@ -34,7 +41,8 @@ import math
 
 import torch
 
-from ..core.registry import GENERATOR_ATTR, In, Out, register_op
+from ..core.registry import (GENERATOR_ATTR, In, OpInfoMap, Out,
+                             register_op, set_group_form, vjp_grad_group)
 
 
 @register_op(
@@ -67,45 +75,105 @@ from ..core.registry import GENERATOR_ATTR, In, Out, register_op
     },
 )
 def _batch_norm(ins, attrs):
-    x = ins["X"]
-    scale, bias = ins["Scale"], ins["Bias"]
-    mean, var = ins["Mean"], ins["Variance"]
+    group = _sync_group(attrs)
+    if group is not None and group.in_process:
+        raise RuntimeError("batch_norm with _sync_stats reached one replica "
+                           "of an in-process group outside the replica walk")
+    return _batch_norm_group([ins], attrs, group)[0]
+
+
+def _sync_group(attrs):
+    """The group a sync batch norm's statistics reduce over, else None."""
+    if not attrs.get("_sync_stats") or attrs.get("is_test", False) or \
+            attrs.get("use_global_stats", False):
+        return None
+    from .collective_ops import axis_for_ring
+
+    return axis_for_ring(attrs.get("_sync_ring_id", 0))
+
+
+def _batch_norm_group(ins_list, attrs, group):
     eps = attrs.get("epsilon", 1e-5)
     momentum = attrs.get("momentum", 0.9)
     layout = attrs.get("data_layout", "NCHW")
     use_global = attrs.get("is_test", False) or attrs.get(
         "use_global_stats", False)
+    x0 = ins_list[0]["X"]
+    c_axis = 1 if layout == "NCHW" else x0.dim() - 1
+    red = tuple(i for i in range(x0.dim()) if i != c_axis)
+    bshape = [1] * x0.dim()
+    bshape[c_axis] = x0.shape[c_axis]
 
-    c_axis = 1 if layout == "NCHW" else x.dim() - 1
-    red = tuple(i for i in range(x.dim()) if i != c_axis)
-    bshape = [1] * x.dim()
-    bshape[c_axis] = x.shape[c_axis]
+    if group is not None:
+        # pmean of the local mean and of the local E[x^2]
+        n = group.nranks
+        means = _psum(group, [ins["X"].mean(dim=red) for ins in ins_list])
+        sqs = _psum(group, [ins["X"].square().mean(dim=red)
+                            for ins in ins_list])
+        stats = [(m / n, s / n - (m / n).square())
+                 for m, s in zip(means, sqs)]
+    outs = []
+    for r, ins in enumerate(ins_list):
+        x = ins["X"]
+        scale, bias = ins["Scale"], ins["Bias"]
+        mean, var = ins["Mean"], ins["Variance"]
+        if use_global:
+            use_mean, use_var = mean, var
+            mean_out, var_out = mean, var
+        else:
+            if group is not None:
+                use_mean, use_var = stats[r]
+            else:
+                use_mean = x.mean(dim=red)
+                use_var = (x - use_mean.reshape(bshape)).square().mean(
+                    dim=red)
+            mean_out = mean * momentum + use_mean * (1 - momentum)
+            var_out = var * momentum + use_var * (1 - momentum)
+        inv_std = torch.rsqrt(use_var + eps)
+        y = ((x - use_mean.reshape(bshape))
+             * (scale * inv_std).reshape(bshape) + bias.reshape(bshape))
+        outs.append({
+            "Y": y,
+            "MeanOut": mean_out,
+            "VarianceOut": var_out,
+            "SavedMean": use_mean,
+            "SavedVariance": inv_std,  # the reference saves the inverse std
+            "ReserveSpace": None,
+        })
+    return outs
 
-    if use_global:
-        use_mean, use_var = mean, var
-        mean_out, var_out = mean, var
-    else:
-        if attrs.get("_sync_stats"):
-            raise NotImplementedError(
-                "batch_norm with cross-replica statistics (_sync_stats) "
-                "needs the parallel package, not yet ported (ROADMAP.md, "
-                "queue 1)")
-        use_mean = x.mean(dim=red)
-        use_var = (x - use_mean.reshape(bshape)).square().mean(dim=red)
-        mean_out = mean * momentum + use_mean * (1 - momentum)
-        var_out = var * momentum + use_var * (1 - momentum)
 
-    inv_std = torch.rsqrt(use_var + eps)
-    y = ((x - use_mean.reshape(bshape)) * (scale * inv_std).reshape(bshape)
-         + bias.reshape(bshape))
-    return {
-        "Y": y,
-        "MeanOut": mean_out,
-        "VarianceOut": var_out,
-        "SavedMean": use_mean,
-        "SavedVariance": inv_std,  # the reference saves the inverse std
-        "ReserveSpace": None,
-    }
+class _ProcessPsum(torch.autograd.Function):
+    """psum over a process group whose grad is the psum of the
+    cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.psum([x])[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.psum([g.contiguous()])[0], None
+
+
+def _psum(group, xs):
+    """The group's psum, differentiable: in one process its rank-order sum
+    is torch ops already."""
+    if group.in_process or not torch.is_grad_enabled():
+        return group.psum(xs)
+    return [_ProcessPsum.apply(x, group) for x in xs]
+
+
+def _batch_norm_grad_group(ins_list, attrs, group):
+    """The auto-VJP of every replica's sync batch norm as one graph."""
+    return vjp_grad_group(
+        OpInfoMap.instance().get("batch_norm"), ins_list, attrs,
+        lambda rebuilt, a: _batch_norm_group(rebuilt, a, group))
+
+
+set_group_form("batch_norm", _sync_group, _batch_norm_group)
+set_group_form("batch_norm_grad", _sync_group, _batch_norm_grad_group)
 
 
 @register_op(

@@ -1,0 +1,629 @@
+"""Data-parallel execution engine: ``CompiledProgram.with_data_parallel``.
+
+Counterpart of ``paddle_tpu/parallel/engine.py`` (the reference's
+ParallelExecutor), for the data axis. The JAX engine wraps the step in one
+``shard_map`` over a 1-D mesh; here the replicas of this process run the
+same step function (``core/compiler_engine``'s ``_Step``) in lockstep, one
+env each:
+
+- the program is transpiled as the JAX engine does it: the loss grad
+  scaled by 1/n (``GradientScaleStrategy.CoeffNumDevice``), a
+  ``c_allreduce_sum`` before the optimizer for every grad, the batch norms
+  marked under ``BuildStrategy.sync_batch_norm``, then
+  ``collectives.maybe_rewrite_collectives`` (buckets, quantization, the
+  sharded update);
+- feeds are split on the batch axis, one shard a replica; params and state
+  are replicated, each replica with its own tensors (replica 0's are the
+  scope's, the others copies made once and kept), and a var the rewrites
+  shard over the data axis (the sharded update's flat state, an error
+  feedback residual) is held whole in the scope, each replica updating its
+  1/n slice in place;
+- every op runs once a replica, except a collective (and a sync batch
+  norm): it runs once for all replicas through its form over the group
+  (``ops/collective_ops``), which reduces in rank order;
+- fetches come back stacked ``[n, ...]``, as ParallelExecutor merges them.
+
+On the card the first run of a program and shapes is eager, the second
+captures every replica's step and the reductions between them into one
+CUDA graph (on ``core.graphs``, the executor's pool), later runs replay it,
+as on the single-replica route. The route declines a capture by name
+(counted in ``executor.compile_fallbacks``, named in
+``compiler_engine.declines()``) and runs every step eagerly for: replicas on more
+than one card (a graph holds one), control flow across replicas, and a
+collective over a gloo process group (gloo is not capturable).
+
+Over a ``torch.distributed`` world (``default_mesh()`` in a process the
+launcher started; ``distributed/launch.py``) each process runs one replica
+on its own batch shard and the collectives call ``torch.distributed`` on
+the group; fetches are gathered from every process.
+
+A program the single-chip fused-optimizer pass rewrote is refused on more
+than one replica, with the JAX engine's message: its grads would dodge the
+reduction. The sharded update is the data-parallel form of that fusion.
+
+``_estimate_collective_bytes`` counts each step's collective traffic by
+kind; with the observability layer armed the engine adds it to
+``parallel.collective_ops{kind=}`` / ``parallel.collective_bytes{kind=}``
+(and ``parallel.steps``, ``parallel.step_ms``, ``parallel.compiles``).
+"""
+from __future__ import annotations
+
+import time
+import warnings
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from ..core import compiler_engine as _ce
+from ..core.compiler_engine import (_CONST, _FOLDED, _IF, _WHILE,
+                                    _analyze, _scope_tensor,
+                                    compile_program)
+from ..core.cuda_graph import CapturedGraph, same_memory
+from ..core.enforce import annotate_op_error
+from ..core.executor_core import (_UNBOUND, call_op, gather_inputs,
+                                  output_pairs, rng_seed)
+from ..core.registry import DEVICE_ATTR, GENERATOR_ATTR
+from ..core.scope import Scope
+from ..core.tensor import LoDTensor, stage_feed
+from ..ops.collective_ops import (ProcessGroupAxis, ReplicaGroup,
+                                  mesh_axes_guard, ring_axis_guard)
+from .mesh_utils import Mesh, default_mesh, make_mesh, mesh_key
+from .transpiler import insert_allreduce_ops
+
+# replica r > 0 of an RNG op draws from its seed plus r times this
+_REPLICA_SALT = 0x9E3779B1
+
+FUSED_OPTIMIZER_REFUSAL = (
+    "program was rewritten by the single-chip fused-optimizer "
+    "pass; unset PADDLE_TPU_FUSED_OPTIMIZER before running it "
+    "on a multi-replica mesh (use PADDLE_TPU_SHARDED_UPDATE "
+    "there instead)")
+
+
+# -- collective traffic --------------------------------------------------------
+
+def _var_nbytes(block, state, name: str) -> Tuple[int, int]:
+    """(bytes, itemsize) of a var through ``collectives._numel_and_dtype``;
+    an unknown shape counts 0 bytes."""
+    from .collectives import _numel_and_dtype, itemsize
+
+    n, dtype = _numel_and_dtype(block, state, name)
+    item = itemsize(dtype or "float32")
+    return (0 if n is None else n * item), item
+
+
+# collective op type -> traffic kind (substring match)
+_COLLECTIVE_KINDS = (
+    ("bucket_allreduce", "allreduce"), ("sharded_update", None),
+    ("allreduce", "allreduce"), ("allgather", "allgather"),
+    ("reducescatter", "reducescatter"), ("broadcast", "broadcast"),
+)
+
+
+def _quant_wire_itemsize(attrs, exact_itemsize: int,
+                         native: bool = False) -> int:
+    """Per-element payload width of a (maybe quantized) collective: what
+    the reduction here moves, or with ``native`` what a native quantized
+    collective would."""
+    from ..ops.collective_ops import QUANT_PSUM_ITEMSIZE, QUANT_WIRE_ITEMSIZE
+
+    table = QUANT_WIRE_ITEMSIZE if native else QUANT_PSUM_ITEMSIZE
+    wire = table.get(attrs.get("quant", "none"))
+    return exact_itemsize if wire is None else wire
+
+
+def _estimate_collective_bytes(program, state, native_wire: bool = False
+                               ) -> Dict:
+    """Per-kind collective traffic of a step of the transpiled program:
+    ``{"ops": {kind: n}, "bytes": {kind: wire bytes}, "ops_total",
+    "bytes_total", "bytes_exact"}``. Wire bytes charge bf16 payloads 2
+    bytes an element and int8 codes 4 (summed in int32); ``native_wire``
+    charges int8 1 byte."""
+    block = program.global_block()
+    ops_by_kind: Dict[str, int] = {}
+    bytes_by_kind: Dict[str, int] = {}
+    exact_total = 0
+
+    def _add(kind, n_ops, wire_bytes, exact_bytes):
+        nonlocal exact_total
+        ops_by_kind[kind] = ops_by_kind.get(kind, 0) + n_ops
+        bytes_by_kind[kind] = bytes_by_kind.get(kind, 0) + wire_bytes
+        exact_total += exact_bytes
+
+    for op in block.ops:
+        if not op.type.startswith("c_") or op.type.endswith("_await"):
+            continue
+        kind = next((k for sub, k in _COLLECTIVE_KINDS if sub in op.type),
+                    "skip")
+        if kind == "skip":
+            continue
+        if op.type == "c_sharded_update":
+            padded = int(op.attrs.get("padded_size", 0))
+            pname = op.input("Param")[0] if op.input("Param") else None
+            _, item = _var_nbytes(block, state, pname) if pname else (0, 4)
+            wire_item = _quant_wire_itemsize(op.attrs, item, native_wire)
+            _add("allreduce", 1, padded * wire_item, padded * item)
+            _add("allgather", 1, padded * item, padded * item)
+            continue
+        bucket = op.type.startswith("c_bucket_allreduce")
+        names = [n for n in (op.input("X") if bucket
+                             else op.input_arg_names) if n]
+        exact = sum(_var_nbytes(block, state, n)[0] for n in names)
+        if bucket:
+            item = _var_nbytes(block, state, names[0])[1] if names else 4
+            wire_item = _quant_wire_itemsize(op.attrs, item, native_wire)
+            _add(kind, 1, int(exact * wire_item / item), exact)
+        else:
+            _add(kind, 1, exact, exact)
+    return {"ops": ops_by_kind, "bytes": bytes_by_kind,
+            "ops_total": sum(ops_by_kind.values()),
+            "bytes_total": sum(bytes_by_kind.values()),
+            "bytes_exact": exact_total}
+
+
+# -- the replica walk ----------------------------------------------------------
+
+def _replica_seed(seed: int, attrs, r: int) -> int:
+    if r == 0 or int(attrs.get("seed", 0) or 0) > 0:
+        return seed
+    return (seed + r * _REPLICA_SALT) & 0xFFFFFFFF
+
+
+def _walk(block, envs: List[Dict], devices, rng, graph=None) -> None:
+    """Run ``block`` (a ``compiler_engine._Block``) for every replica in
+    lockstep: each op once a replica, a collective once for all of them
+    through its form over the group its attrs reach."""
+    n = len(envs)
+    for kind, op, info, attrs, outs, drops in block.ops:
+        if kind == _FOLDED:
+            for env, dev in zip(envs, devices):
+                env.update({k: v if v.device == dev else v.to(dev)
+                            for k, v in outs.items()})
+        elif kind == _CONST and graph is not None:
+            for r, env in enumerate(envs):
+                env.update(graph.consts[r][id(op)])
+        elif kind in (_WHILE, _IF):
+            for env in envs:
+                block._run_node_eager(outs, env, rng, 0)
+        else:
+            group = info.group_of(attrs) if info.group_fn is not None \
+                else None
+            if group is not None and group.in_process:
+                ins_list = [gather_inputs(info, op, env.get) for env in envs]
+                try:
+                    outs_list = info.group_fn(ins_list, attrs, group)
+                except Exception as e:
+                    annotate_op_error(e, op, "data parallel")
+                    raise
+                for env, o in zip(envs, outs_list):
+                    for k, v in output_pairs(info, op, o):
+                        env[k] = v
+            else:
+                for r in range(n):
+                    a = attrs
+                    if devices[r] != attrs.get(DEVICE_ATTR):
+                        a = dict(a)
+                        a[DEVICE_ATTR] = devices[r]
+                    if info.needs_rng:
+                        a = dict(a)
+                        if graph is not None:
+                            a[GENERATOR_ATTR] = graph.gens[r][id(op)]
+                        else:
+                            gen = torch.Generator(device=devices[r])
+                            gen.manual_seed(_replica_seed(
+                                rng_seed(rng, attrs, op), attrs, r))
+                            a[GENERATOR_ATTR] = gen
+                    ins = gather_inputs(info, op, envs[r].get)
+                    o = call_op(info, op, ins, a, "data parallel")
+                    for k, v in output_pairs(info, op, o):
+                        envs[r][k] = v
+        for env in envs:
+            for k in drops:
+                env.pop(k, None)
+
+
+class _DPRun:
+    """One (step, mesh, scope): its group, the shard layout, the replicas'
+    copies of the replicated state (eager runs), the traffic estimate."""
+
+    def __init__(self, step, devices, group, sharded, coll_est):
+        self.step = step
+        self.devices = devices
+        self.group = group
+        self.sharded = sharded  # names held 1/n a replica
+        self.coll_est = coll_est
+        self.copies: Dict[str, Tuple] = {}  # name -> (scope tensor, reps)
+        self.capturable = None  # None: not decided; else (bool, reason)
+        self.graph = None  # the graph the last step replayed, if any
+
+    @property
+    def n(self) -> int:
+        return len(self.devices)
+
+    def guards(self, ring_val_axes):
+        ring = {0: self.group, -1: self.group} if self.group else {}
+        axes = {a: self.group for a in ring_val_axes} if self.group else {}
+        return ring_axis_guard(ring), mesh_axes_guard(axes)
+
+    def replica_state(self, scope: Scope, name: str) -> List[torch.Tensor]:
+        t = _scope_tensor(scope, name)
+        if name in self.sharded:
+            return [c if c.device == d else c.to(d)
+                    for c, d in zip(t.chunk(self.n), self.devices)]
+        hit = self.copies.get(name)
+        if hit is not None and hit[0] is t:
+            return hit[1]
+        d0 = self.devices[0]
+        reps = [t if t.device == d0 else t.to(d0)]
+        reps += [t.to(d, copy=True) for d in self.devices[1:]]
+        self.copies[name] = (t, reps)
+        return reps
+
+    def write_back(self, scope: Scope, envs: List[Dict]) -> None:
+        for name in self.step.out_state_names:
+            vals = [env.get(name) for env in envs]
+            if any(v is None for v in vals):
+                continue
+            if name in self.sharded:
+                t = _scope_tensor(scope, name)
+                if isinstance(t, torch.Tensor) and all(
+                        same_memory(v, c)
+                        for v, c in zip(vals, t.chunk(self.n))):
+                    continue
+                dev = vals[0].device
+                scope.var(name).set(LoDTensor(torch.cat(
+                    [v.to(dev) for v in vals])))
+                continue
+            scope.var(name).set(LoDTensor(vals[0]))
+            self.copies[name] = (vals[0], vals)
+
+
+class _DPGraph(CapturedGraph):
+    """Every replica's step captured into one graph on one card: the static
+    feed buffers a replica, the state buffers (replica 0's the scope's,
+    the others copies; a sharded var's replicas slices of the scope's
+    tensor), the generators a replica and op, the fetches."""
+
+    def __init__(self, run: _DPRun, core, scope: Scope, feeds, axes):
+        step = run.step
+        dev = run.devices[0]
+        n = run.n
+        self.scope_ref = scope
+        self.state0: Dict[str, torch.Tensor] = {}
+        self.bufs: List[Dict[str, torch.Tensor]] = [{} for _ in range(n)]
+        for name in step.out_state_names:
+            t = _scope_tensor(scope, name)
+            if not isinstance(t, torch.Tensor):
+                raise RuntimeError(
+                    "variable %r must be initialized in scope before the "
+                    "step is captured" % name)
+            if t.device != dev:
+                t = t.to(dev)
+                scope.var(name).set(LoDTensor(t))
+            self.state0[name] = t
+            if name in run.sharded:
+                for r, c in enumerate(t.chunk(n)):
+                    self.bufs[r][name] = c
+            else:
+                self.bufs[0][name] = t
+                for r in range(1, n):
+                    self.bufs[r][name] = t.clone()
+        self.feeds = [{k: v.to(dev, copy=True) for k, v in f.items()}
+                      for f in feeds]
+        self.gens = [{k: torch.Generator(device=dev) for k in step.rng_ops}
+                     for _ in range(n)]
+        self.consts = [step.run_consts() for _ in range(n)]
+        envs = []
+        for r in range(n):
+            env = {k: self.bufs[r][k] for k in step.state_names}
+            env.update(self.feeds[r])
+            envs.append(env)
+
+        def body():
+            g_ring, g_axes = run.guards(axes)
+            with g_ring, g_axes:
+                _walk(step.block, envs, run.devices, None, graph=self)
+            for r in range(n):
+                for name in step.out_state_names:
+                    new, buf = envs[r].get(name), self.bufs[r][name]
+                    if new is None or new is buf or same_memory(new, buf):
+                        continue
+                    if new.shape != buf.shape or new.dtype != buf.dtype:
+                        raise RuntimeError(
+                            "state %r changes from %s %s to %s %s in one "
+                            "step; a captured step keeps its state's "
+                            "shapes" % (name, tuple(buf.shape), buf.dtype,
+                                        tuple(new.shape), new.dtype))
+                    buf.copy_(new)
+
+        self.capture(core.graphs, body,
+                     [g for gens in self.gens for g in gens.values()])
+        self.fetches = [{k: env[k] for k in step.fetch_names if k in env}
+                        for env in envs]
+
+    def stage_state(self, run: _DPRun, scope: Scope) -> bool:
+        """Copy the scope vars replaced since the last run into every
+        replica's buffers. False when a shape or type changed."""
+        stale = []
+        for name in run.step.state_names:
+            t = _scope_tensor(scope, name)
+            buf = self.state0[name]
+            if t is buf:
+                continue
+            if not isinstance(t, torch.Tensor) or t.shape != buf.shape \
+                    or t.dtype != buf.dtype:
+                return False
+            stale.append((name, t))
+        for name, t in stale:
+            self.state0[name].copy_(t)
+            if name not in run.sharded:
+                for r in range(1, run.n):
+                    self.bufs[r][name].copy_(t)
+        return True
+
+    def replay(self, run: _DPRun, core, feeds) -> None:
+        for r, f in enumerate(feeds):
+            for k, v in f.items():
+                self.feeds[r][k].copy_(v)
+        for k, (op, attrs) in run.step.rng_ops.items():
+            seed = rng_seed(core.rng, attrs, op)
+            for r in range(run.n):
+                self.gens[r][k].manual_seed(_replica_seed(seed, attrs, r))
+        self.launch()
+
+
+def _capture_decline(run: _DPRun, program, axes):
+    """The name a capture of this run is declined under, else None."""
+    if len(set(run.devices)) > 1:
+        return ("data parallel (replicas on %d cards: a graph holds one)"
+                % len(set(run.devices)))
+    if run.step.nodes:
+        return "data parallel>%s (control flow across replicas)" % \
+            run.step.nodes[0].op.type
+    if isinstance(run.group, ProcessGroupAxis) and \
+            run.group.backend == "gloo":
+        g_ring, g_axes = run.guards(axes)
+        with g_ring, g_axes:
+            for kind, op, info, attrs, _, _ in run.step.block.ops:
+                if info is not None and info.group_fn is not None and \
+                        info.group_of(attrs) is not None:
+                    return "%s (gloo collective: not capturable)" % op.type
+    return None
+
+
+def _run_replicas(core, run: _DPRun, program, scope, feeds, axes):
+    """One step of every local replica; returns each replica's fetches."""
+    step = run.step
+    on_card = run.devices[0].type == "cuda"
+    if on_card:
+        if run.capturable is None:
+            why = _capture_decline(run, program, axes)
+            run.capturable = (why is None, why)
+            if why is not None:
+                _ce.inc("executor.compile_fallbacks")
+                _ce.count_decline(why, counter=None)
+                warnings.warn("data-parallel program %s runs every step "
+                              "eagerly: capture declined (%s)"
+                              % (program._uid, why))
+        if run.capturable[0]:
+            sig = ("dp", step.key, id(scope),
+                   tuple(str(d) for d in run.devices), tuple(
+                (k, tuple(v.shape), v.dtype)
+                for k, v in sorted(feeds[0].items())))
+            graph = core.graphs.get(sig)
+            if graph is not None and (graph.scope_ref is not scope
+                                      or not graph.stage_state(run, scope)):
+                core.graphs.drop(sig)
+                core.warm.pop(sig, None)
+                graph = None
+            if graph is not None or sig in core.warm:
+                if graph is None:
+                    _ce.inc("executor.jit_traces")
+                    graph = _DPGraph(run, core, scope, feeds, axes)
+                    core.graphs.put(sig, graph)
+                graph.replay(run, core, feeds)
+                run.graph = graph
+                core.rng.advance()
+                for name, buf in graph.state0.items():
+                    var = scope.var(name)
+                    h = var.raw()
+                    if not (isinstance(h, LoDTensor) and h.array is buf):
+                        var.set(LoDTensor(buf))
+                return graph.fetches
+            _ce._lru_put(core.warm, sig, True, _ce._ANALYSIS_CAP)
+    run.graph = None
+    envs = [{} for _ in range(run.n)]
+    for name in step.state_names:
+        for env, t in zip(envs, run.replica_state(scope, name)):
+            env[name] = t
+    for env, f, d in zip(envs, feeds, run.devices):
+        env.update({k: v.to(d, copy=True) for k, v in f.items()})
+    g_ring, g_axes = run.guards(axes)
+    with g_ring, g_axes:
+        _walk(step.block, envs, run.devices, core.rng)
+    core.rng.advance()
+    run.write_back(scope, envs)
+    return [{k: env[k] for k in step.fetch_names if k in env}
+            for env in envs]
+
+
+def replica_values(executor, name: str) -> List[torch.Tensor]:
+    """Each local replica's tensor of the state var ``name`` after the
+    executor's last data-parallel step (replica 0's is the scope's; a
+    sharded var's are its slices)."""
+    run = executor._core.dp_last
+    if run is None:
+        raise RuntimeError("the executor ran no data-parallel step")
+    if run.graph is not None:
+        return [bufs[name] for bufs in run.graph.bufs]
+    if name in run.sharded:
+        raise ValueError("%r is sharded over the replicas" % name)
+    return list(run.copies[name][1])
+
+
+def _resolve_mesh(core, places, mesh, axis_name) -> Mesh:
+    if mesh is None and isinstance(places, Mesh):
+        mesh, places = places, None
+    if mesh is not None:
+        return mesh
+    if places:
+        return make_mesh([len(places)], [axis_name], list(places))
+    from ..core.place import CPUPlace, CUDAPlace
+    from .mesh_utils import _world
+
+    cuda = core.device.type == "cuda"
+    here = CUDAPlace(core.device.index or 0) if cuda else CPUPlace()
+    # one replica a card, or this process's place in a world
+    return default_mesh(None, axis_name,
+                        place=here if (_world() or not cuda) else None)
+
+
+def _split_feed(name, value, n: int) -> List[torch.Tensor]:
+    if isinstance(value, LoDTensor):
+        if value.lod():
+            raise NotImplementedError(
+                "feed %r carries LoD: data parallelism takes dense feeds"
+                % name)
+        value = value.array
+    t = stage_feed(value)
+    if n == 1:
+        return [t]
+    if t.dim() == 0 or t.shape[0] % n:
+        raise ValueError("feed %r of batch %s does not split over %d "
+                         "replicas" % (name, tuple(t.shape), n))
+    return list(t.chunk(n))
+
+
+def run_data_parallel(core, program, scope: Scope, feed: Dict,
+                      fetch_list: Sequence, loss_name=None, places=None,
+                      build_strategy=None, return_numpy=True,
+                      mesh=None, axis_name="dp"):
+    """One data-parallel step of ``program`` over the mesh ``places`` (a
+    ``Mesh`` or a list of places; default: one replica a visible card, or
+    a process of a ``torch.distributed`` world). ``feed`` carries the full
+    batch in one process and each process's own shard over a world.
+    Returns each fetch stacked over the replicas."""
+    mesh = _resolve_mesh(core, places, mesh, axis_name)
+    nranks = mesh.world_size()
+    multiproc = mesh.spans_processes
+    shard_specs = dict(getattr(program, "_var_shard_specs", None) or {})
+    if getattr(program, "_feed_shard_specs", None) or any(
+            a not in mesh.axis_names for spec in shard_specs.values()
+            for a in spec if a):
+        raise NotImplementedError(
+            "hybrid shard specs (model axes) are not ported: the port "
+            "runs data parallelism only")
+    data_axes = tuple(a for a in (getattr(program, "_data_axes", None)
+                                  or (axis_name,)) if a in mesh.axis_names)
+    if not data_axes:
+        data_axes = (mesh.axis_names[0],)
+    if len(data_axes) != 1 or len(mesh.axis_names) != 1:
+        raise NotImplementedError("a data-parallel mesh has one axis; got "
+                                  "%s" % (mesh.axis_names,))
+
+    sync_bn = bool(build_strategy is not None and getattr(
+        build_strategy, "sync_batch_norm", False))
+    if build_strategy is not None and hasattr(build_strategy,
+                                              "_warn_inert"):
+        build_strategy._warn_inert()
+    # One and Customized leave the loss-grad scale to the user
+    scale_loss = (build_strategy is None or getattr(
+        build_strategy, "gradient_scale_strategy", 0) == 0)
+    if nranks > 1 and getattr(program, "_fused_optimizer_groups", 0):
+        raise ValueError(FUSED_OPTIMIZER_REFUSAL)
+    if nranks > 1:
+        skip_axes = getattr(program, "_allreduce_skip_grads", None) or {}
+        insert_allreduce_ops(
+            program, nranks, scale_loss=scale_loss,
+            skip_grads={g for g, axes in skip_axes.items()
+                        if set(axes) & set(data_axes)})
+        from .transpiler import mark_sync_batch_norm
+
+        mark_sync_batch_norm(program, sync_bn)
+        from .collectives import maybe_rewrite_collectives
+
+        maybe_rewrite_collectives(program, scope, nranks, data_axes,
+                                  build_strategy=build_strategy,
+                                  multiproc=multiproc)
+        shard_specs = dict(getattr(program, "_var_shard_specs", None)
+                           or {})
+
+    devices = mesh.devices
+    if multiproc:
+        group = ProcessGroupAxis(None if mesh.process_group == "world"
+                                 else mesh.process_group)
+    else:
+        group = ReplicaGroup(devices) if nranks > 1 else None
+    n_local = len(devices)
+
+    fetch_names = tuple(f if isinstance(f, str) else f.name
+                        for f in fetch_list)
+    split = {k: _split_feed(k, v, n_local) for k, v in (feed or {}).items()}
+    feeds = [{k: parts[r] for k, parts in split.items()}
+             for r in range(n_local)]
+    feed_names = tuple(sorted(split))
+
+    read_first, _, persist_written = _analyze(program)
+    state_names = []
+    for name in sorted(read_first - set(feed_names)):
+        if name in _UNBOUND:
+            continue
+        if not isinstance(_scope_tensor(scope, name), torch.Tensor):
+            raise RuntimeError("var %r must be fed or initialized" % name)
+        state_names.append(name)
+    state_names = tuple(state_names)
+    out_state_names = tuple(sorted(set(state_names) | persist_written))
+    step = compile_program(core, program, feed_names, fetch_names,
+                           state_names, out_state_names)
+
+    from .. import observability as _obs
+
+    runs = core.dp_runs
+    key = (step.key, mesh_key(mesh), tuple(str(d) for d in devices),
+           sync_bn, id(scope))
+    run = runs.get(key)
+    if run is None:
+        _obs.inc("parallel.compiles")
+        sharded = frozenset(k for k, spec in shard_specs.items()
+                            if spec and spec[0] in data_axes)
+        run = _DPRun(step, devices, group, sharded,
+                     _estimate_collective_bytes(program, scope))
+        if len(runs) >= 64:
+            runs.pop(next(iter(runs)))
+        runs[key] = run
+
+    core.dp_last = run
+    t_step = time.perf_counter() if _obs.enabled() else None
+    outs = _run_replicas(core, run, program, scope, feeds, data_axes)
+    _ce.inc("executor.steps")
+    if t_step is not None:
+        coll = run.coll_est
+        _obs.inc("parallel.steps")
+        _obs.observe("parallel.step_ms",
+                     (time.perf_counter() - t_step) * 1e3)
+        _obs.inc("parallel.collective_ops", coll["ops_total"])
+        _obs.inc("parallel.collective_bytes", coll["bytes_total"])
+        for k, n in coll["ops"].items():
+            _obs.inc("parallel.collective_ops", n, kind=k)
+        for k, b in coll["bytes"].items():
+            _obs.inc("parallel.collective_bytes", b, kind=k)
+        saved = coll["bytes_exact"] - coll["bytes_total"]
+        if saved > 0:
+            _obs.inc("parallel.collective_bytes_saved", saved)
+
+    results = []
+    for name in fetch_names:
+        vals = [o.get(name) for o in outs]
+        if any(v is None for v in vals):
+            t = _scope_tensor(scope, name)
+            if t is None:
+                raise RuntimeError("fetch variable %r not produced" % name)
+            vals = [t] * n_local
+        dev = vals[0].device
+        if multiproc:
+            stacked = group.all_gather([vals[0]])[0]
+        else:
+            stacked = torch.stack([v.to(dev) for v in vals])
+        t = LoDTensor(stacked)
+        results.append(t.numpy() if return_numpy else t)
+    return results

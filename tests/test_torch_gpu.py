@@ -110,6 +110,15 @@ scalar ``conditional_block`` an if node, a dropout in a loop declined by
 name; the
 seq2seq beam decode at batch 8 gives the CPU's ids and scores within
 1e-5 (random weights, no near-tie at the beam's edge at this seed).
+
+Data parallelism on the card (slice 20): a narrow gpt over
+``[CUDAPlace(0)] * 2`` captures both replicas once, keeps their
+parameters bitwise equal and in separate buffers after every step, and
+its replicas' mean loss stays within 1e-4 of one replica's full batch;
+``c_sharded_update`` runs K4 on each replica's shard, bitwise its plain
+version on the same shards; a program the single-chip fused optimizer
+rewrote is refused on two replicas; two gloo ranks on one card decline
+the static program's capture by the collective's name.
 """
 import gc
 import threading
@@ -2820,3 +2829,272 @@ def test_slice19_a_failed_conditional_capture_raises(cuda):
                      torch.ones(2, dtype=torch.bool, device=cuda))
     finally:
         p1.destroy_stream(side)
+
+
+# -- slice 20: data parallelism on the card ----------------------------------
+
+
+def _slice20_gpt(batch, env):
+    import os
+
+    for k in ("PADDLE_TPU_BUCKET_MB", "PADDLE_TPU_SHARDED_UPDATE",
+              "PADDLE_TPU_QUANT_ALLREDUCE", "PADDLE_TPU_FUSED_OPTIMIZER"):
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    return gpt.build_gpt_long(batch, 64, 128, 2, 2, 128, seed=3,
+                              use_bf16=False)
+
+
+@pytest.mark.parametrize("env", [{}, {"PADDLE_TPU_SHARDED_UPDATE": "1"}],
+                         ids=["bucketed", "sharded_update"])
+def test_slice20_two_replicas_on_one_card_stay_bitwise_equal(cuda, env):
+    """A narrow gpt over [CUDAPlace(0)] * 2: an eager step, one capture of
+    both replicas and the reductions, replays; after every step both
+    replicas' parameters are bitwise equal and never one buffer; the
+    mean of the replicas' losses within 1e-4 of one replica's full batch;
+    K1 8 and K4 2 (sharded) a step."""
+    import os
+
+    from paddle_tpu_torch.parallel import engine
+
+    try:
+        rng = np.random.RandomState(0)
+        feed = gpt.random_batch(rng, 2, 64, 128)
+        main, startup, loss, _ = _slice20_gpt(2, env)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        init = {p.name: np.array(scope.find_var(p.name).get_tensor())
+                for p in main.all_parameters()}
+        ref = [float(np.asarray(exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope)[0]).ravel()[0])
+               for _ in range(4)]
+        main, startup, loss, _ = _slice20_gpt(1, env)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        fluid.io.scope_from_numpy(scope, init, fluid.CUDAPlace(0))
+        cp = fluid.CompiledProgram(main).with_data_parallel(
+            loss.name, places=[fluid.CUDAPlace(0)] * 2)
+        support.reset_launch_counts()
+        ce.reset_counters()
+        got = []
+        for _ in range(4):
+            (out,) = exe.run(cp, feed=feed, fetch_list=[loss], scope=scope)
+            got.append(float(np.asarray(out, np.float64).mean()))
+            for p in main.all_parameters():
+                a, b = engine.replica_values(exe, p.name)
+                assert a.data_ptr() != b.data_ptr()
+                assert torch.equal(a, b), p.name
+        counts = support.launch_counts()
+        assert ce.counters()["executor.jit_traces"] == 1
+        assert not ce.declines()
+        np.testing.assert_allclose(got, ref, rtol=1e-4)
+        assert counts["flash_attention_forward"] == 4 * 2 * 4
+        assert counts["fused_optimizer_update"] == (
+            2 * 4 if env else 0)
+        exe.close()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def test_slice20_sync_batch_norm_backward_on_the_card(cuda):
+    """A small NHWC conv-bn net under sync batch norm over
+    [CUDAPlace(0)] * 2, captured: three steps give one replica's losses
+    and parameters on the whole batch (the backward reduces the grad
+    statistics over the replicas), within 1e-5 relative losses and 1e-5
+    absolute parameters, TF32 off."""
+    L = fluid.layers
+
+    def build(batch):
+        main, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = 5
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            img = fluid.data(name="img", shape=[batch, 8, 8, 4],
+                             dtype="float32")
+            lbl = fluid.data(name="lbl", shape=[batch, 1], dtype="int64")
+            h = L.conv2d(img, 8, 3, padding=1, bias_attr=False,
+                         data_format="NHWC")
+            h = L.batch_norm(h, act="relu", data_layout="NHWC")
+            h = L.pool2d(h, pool_type="avg", global_pooling=True,
+                         data_format="NHWC")
+            pred = L.fc(h, size=10, act="softmax")
+            loss = L.mean(L.cross_entropy(pred, lbl))
+            fluid.optimizer.MomentumOptimizer(0.1, 0.9).minimize(loss)
+        return main, startup, loss
+
+    rng = np.random.RandomState(13)
+    feed = {"img": (rng.randn(16, 8, 8, 4) * 2 + 1).astype("float32"),
+            "lbl": rng.randint(0, 10, (16, 1)).astype("int64")}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for reps in (1, 2):
+            main, startup, loss = build(16 // reps)
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            prog = main
+            if reps == 1:
+                init = {p.name: np.array(scope.find_var(p.name).get_tensor())
+                        for p in main.all_parameters()}
+            else:
+                fluid.io.scope_from_numpy(scope, init, fluid.CUDAPlace(0))
+                bs = fluid.BuildStrategy()
+                bs.sync_batch_norm = True
+                prog = fluid.CompiledProgram(main).with_data_parallel(
+                    loss.name, build_strategy=bs,
+                    places=[fluid.CUDAPlace(0)] * 2)
+                ce.reset_counters()
+            losses = [float(np.asarray(exe.run(prog, feed=feed,
+                                               fetch_list=[loss],
+                                               scope=scope)[0],
+                                       np.float64).mean())
+                      for _ in range(3)]
+            runs.append((losses, {p.name: np.array(
+                scope.find_var(p.name).get_tensor())
+                for p in main.all_parameters()}))
+            exe.close()
+        assert ce.counters()["executor.jit_traces"] == 1
+        np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-5)
+        for k, v in runs[0][1].items():
+            np.testing.assert_allclose(runs[1][1][k], v, rtol=0, atol=1e-5,
+                                       err_msg=k)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def test_slice20_sharded_update_on_k4_against_its_plain_version(cuda):
+    """c_sharded_update's form over 2 replicas on the card: each replica's
+    1/2 shard through K4 (an uneven total padded to an even size), the
+    parameters and state bitwise equal to the plain version on the same
+    shards on the card."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    from paddle_tpu_torch.ops.collective_ops import ReplicaGroup
+
+    info = OpInfoMap.instance().get("c_sharded_update")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    shapes = [(33, 7), (5,), (19, 3)]
+    total = sum(int(np.prod(s)) for s in shapes)
+    padded = total + (total % 2)
+    params = [torch.randn(s, generator=gen) for s in shapes]
+    m1 = torch.randn(padded, generator=gen).abs() * 1e-3
+    m2 = torch.randn(padded, generator=gen).abs() * 1e-5
+    attrs = {"op_type": "adam", "shard_axis": "dp", "nranks": 2,
+             "padded_size": padded, "quant": "none", "beta1": 0.9,
+             "beta2": 0.999, "epsilon": 1e-8}
+    grads = [[torch.randn(s, generator=gen) for s in shapes]
+             for _ in range(2)]
+    lr = torch.tensor([1e-3])
+    pows = (torch.tensor([0.9 ** 3]), torch.tensor([0.999 ** 3]))
+
+    def ins(r, dev):
+        half = padded // 2
+        return {"Param": [p.to(dev) for p in params],
+                "Grad": [g.to(dev) for g in grads[r]],
+                "LearningRate": lr.to(dev),
+                "StateA": m1[r * half:(r + 1) * half].clone().to(dev),
+                "StateB": m2[r * half:(r + 1) * half].clone().to(dev),
+                "Beta1Pow": [pows[0].to(dev)] * len(shapes),
+                "Beta2Pow": [pows[1].to(dev)] * len(shapes)}
+
+    before = fo.LAUNCHES.value
+    ins_k = [ins(r, cuda) for r in range(2)]
+    outs = info.group_fn(ins_k, attrs, ReplicaGroup([cuda, cuda]))
+    torch.cuda.synchronize()
+    assert fo.LAUNCHES.value == before + 2
+    # the plain version on the same shards, on the card
+    g_sum = torch.cat([torch.cat([g.reshape(-1) for g in grads[0]]) +
+                       torch.cat([g.reshape(-1) for g in grads[1]]),
+                       torch.zeros(padded - total)]).to(cuda)
+    p_flat = torch.cat([torch.cat([p.reshape(-1) for p in params]),
+                        torch.zeros(padded - total)]).to(cuda)
+    half = padded // 2
+    new_p = []
+    for r in range(2):
+        sl = slice(r * half, (r + 1) * half)
+        p_new, a, b = fo.fused_optimizer_update_reference(
+            "adam", attrs, p_flat[sl], g_sum[sl], lr.to(cuda).reshape(()),
+            m1[sl].to(cuda), m2[sl].to(cuda), pows[0].to(cuda).reshape(()),
+            pows[1].to(cuda).reshape(()))
+        assert torch.equal(outs[r]["StateAOut"], a)
+        assert torch.equal(outs[r]["StateBOut"], b)
+        new_p.append(p_new)
+    flat = torch.cat(new_p)[:total]
+    for r in range(2):
+        got = torch.cat([p.reshape(-1) for p in outs[r]["ParamOut"]])
+        assert torch.equal(got, flat)
+
+
+def test_slice20_fused_optimizer_program_refused_on_the_mesh(cuda):
+    """The single-chip fused-optimizer rewrite (K4's flat layout on the
+    card) is refused on two replicas, with the JAX engine's message."""
+    import os
+
+    from paddle_tpu_torch.parallel import engine
+
+    try:
+        main, startup, loss, _ = _slice20_gpt(
+            1, {"PADDLE_TPU_FUSED_OPTIMIZER": "1"})
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        rng = np.random.RandomState(0)
+        exe.run(main, feed=gpt.random_batch(rng, 1, 64, 128),
+                fetch_list=[loss], scope=scope)
+        assert main._fused_optimizer_groups == 1
+        cp = fluid.CompiledProgram(main).with_data_parallel(
+            loss.name, places=[fluid.CUDAPlace(0)] * 2)
+        with pytest.raises(ValueError) as e:
+            exe.run(cp, feed=gpt.random_batch(rng, 2, 64, 128),
+                    fetch_list=[loss], scope=scope)
+        assert str(e.value) == engine.FUSED_OPTIMIZER_REFUSAL
+        exe.close()
+    finally:
+        os.environ.pop("PADDLE_TPU_FUSED_OPTIMIZER", None)
+
+
+def test_slice20_gloo_collective_capture_is_declined_by_name(cuda,
+                                                             tmp_path):
+    """Two ranks over gloo on one card (the launcher, the dygraph and
+    static workers of tests/dist_worker_dp_torch.py): the static program's
+    capture is declined by the collective's name and counted, every step
+    runs eagerly, and the ranks agree with one process bit for bit in
+    their parameters."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    worker = os.path.join(repo, "tests", "dist_worker_dp_torch.py")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PADDLE_", "FLAGS_selected"))}
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two or more cards: the ranks take NCCL, not gloo")
+    env.update(PADDLE_DP_DEVICE="cuda",
+               PYTHONPATH=repo + os.pathsep + env.get("PYTHONPATH", ""))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node=2", "--started_port=%d" % port, worker,
+         str(tmp_path)], env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ranks = [json.loads((tmp_path / ("rank%d.json" % r)).read_text())
+             for r in (0, 1)]
+    for r in ranks:
+        assert r["backend"] == "gloo"
+        assert r["declines"] == {
+            "c_bucket_allreduce (gloo collective: not capturable)": 1}
+        assert r["counters"]["executor.jit_traces"] == 0
+        assert r["launches"]["probe_add_one"] == 1
+    params = [np.load(tmp_path / ("rank%d.npz" % r)) for r in (0, 1)]
+    for k in params[0].files:
+        assert np.array_equal(params[0][k], params[1][k]), k

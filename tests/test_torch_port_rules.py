@@ -353,3 +353,77 @@ def test_slice19_modules_import_no_jax():
                           *_SLICE19_MODULES], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+_SLICE20_MODULES = ("compiler.py", "executor.py", "parallel/__init__.py",
+                    "parallel/mesh_utils.py", "parallel/engine.py",
+                    "parallel/transpiler.py", "parallel/collectives.py",
+                    "parallel/scheduling.py", "ops/collective_ops.py",
+                    "ops/norm_ops.py", "core/registry.py",
+                    "dygraph/parallel.py", "distributed/__init__.py",
+                    "distributed/launch.py", "incubate/__init__.py",
+                    "incubate/fleet/__init__.py",
+                    "incubate/fleet/base/__init__.py",
+                    "incubate/fleet/base/fleet_base.py",
+                    "incubate/fleet/base/role_maker.py",
+                    "incubate/fleet/collective/__init__.py")
+
+_IMPORT_SLICE20 = r"""
+import importlib, sys
+for module in sys.argv[1:]:
+    name = module[:-3].replace("/", ".")
+    if name.endswith(".__init__") or name == "__init__":
+        name = name[:-len(".__init__")]
+    importlib.import_module("paddle_tpu_torch." + name)
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch import dygraph, parallel
+from paddle_tpu_torch.incubate.fleet.collective import fleet
+for name in ("CompiledProgram", "BuildStrategy", "ExecutionStrategy"):
+    assert hasattr(fluid, name), name
+for name in ("DataParallel", "prepare_context", "ParallelEnv"):
+    assert hasattr(dygraph, name), name
+for name in ("run_data_parallel", "make_mesh", "default_mesh",
+             "insert_allreduce_ops"):
+    assert hasattr(parallel, name), name
+assert fleet.distributed_optimizer
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("module", _SLICE20_MODULES)
+def test_slice20_module_names_no_jax(module):
+    """Each module of the data-parallel slice names neither jax nor the
+    JAX package in its code and imports none of it, and says nothing is
+    still to come that this slice brought."""
+    with open(os.path.join(REPO, "paddle_tpu_torch", module)) as f:
+        text = f.read()
+    assert not _code_names(text) & {"jax", "jnp", "jaxlib", "lax",
+                                    "paddle_tpu", "shard_map"}, module
+    assert "later slice" not in text and "waits for the" not in text, \
+        module
+
+
+def test_slice20_modules_import_no_jax():
+    """The slice's modules load, with the names they export, without
+    pulling jax or the JAX package in."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _IMPORT_SLICE20,
+                          *_SLICE20_MODULES], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_slice20_a_default_mesh_is_the_card():
+    """A mesh given no places names the card: on a host without one,
+    using it raises; the CPU replicas are asked for by name."""
+    _needs_cardless_host()
+    from paddle_tpu_torch.parallel import default_mesh, make_mesh
+
+    for mesh in (make_mesh([2], ["dp"]), default_mesh(2)):
+        assert mesh.places == [fluid.CUDAPlace(0)] * 2
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh.devices
+    assert make_mesh([8], ["dp"], [fluid.CPUPlace()]).devices == \
+        [torch.device("cpu")] * 8

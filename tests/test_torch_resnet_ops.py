@@ -272,13 +272,41 @@ def test_batch_norm_five_outputs_and_grad(fmt, mode):
 
 
 def test_batch_norm_sync_stats_raises():
-    x = torch.ones(2, 3, 2, 2)
+    """``_sync_stats`` outside a group of replicas takes the local
+    statistics (the JAX op's axis None); inside an in-process group the
+    one-replica function raises (the engine's replica walk runs the
+    group form), and the group form normalizes every replica with the
+    group mean of the local means and of the local E[x^2]."""
+    from paddle_tpu_torch.ops.collective_ops import (ReplicaGroup,
+                                                     ring_axis_guard)
+
     info = OpInfoMap.instance().get("batch_norm")
     attrs = dict(info.attrs, _sync_stats=True)
-    ins = {"X": x, "Scale": torch.ones(3), "Bias": torch.zeros(3),
-           "Mean": torch.zeros(3), "Variance": torch.ones(3)}
-    with pytest.raises(NotImplementedError, match="parallel"):
-        info.fn(ins, attrs)
+    xs = [torch.from_numpy(_f(2, 3, 2, 2)) for _ in range(2)]
+
+    def ins(x):
+        return {"X": x, "Scale": torch.ones(3), "Bias": torch.zeros(3),
+                "Mean": torch.zeros(3), "Variance": torch.ones(3)}
+
+    local = info.fn(ins(xs[0]), attrs)
+    plain = info.fn(ins(xs[0]), dict(info.attrs))
+    for k in ("Y", "MeanOut", "VarianceOut"):
+        assert torch.equal(local[k], plain[k])
+    group = ReplicaGroup(["cpu", "cpu"])
+    with ring_axis_guard({0: group}):
+        with pytest.raises(RuntimeError, match="replica"):
+            info.fn(ins(xs[0]), attrs)
+        outs = info.group_fn([ins(x) for x in xs], attrs, group)
+    both = torch.cat(xs).double()
+    mean = both.mean(dim=(0, 2, 3))
+    var = both.square().mean(dim=(0, 2, 3)) - mean.square()
+    for o in outs:
+        np.testing.assert_allclose(o["SavedMean"], mean, rtol=1e-5)
+        np.testing.assert_allclose(o["MeanOut"], 0.1 * mean, rtol=1e-5,
+                                   atol=1e-7)
+        np.testing.assert_allclose(o["VarianceOut"], 0.9 + 0.1 * var,
+                                   rtol=1e-5)
+    assert torch.equal(outs[0]["MeanOut"], outs[1]["MeanOut"])
 
 
 def test_relu_and_its_grad_at_zero():
