@@ -542,13 +542,46 @@ lines each:
    per-step losses against the single-process full-batch run, both
    ranks' parameters bitwise equal, the static program's capture
    declined by name under gloo;
-59. one JSON line {"kernels": [...]} with each kernel's launches on the
+59. sequence parallelism: gpt_long at full width (float32 Adam 1e-4,
+   fast paths off, layer_norm per token: bench.py's normalizes over S x
+   D, which a sequence split changes) on one sequence of 8192 tokens over
+   sp=2 through
+   DistributedStrategy.sequence_parallel, the program built at a
+   replica's 4096 (feed_shard_specs ids (None, "sp"), lbl ("sp", None)),
+   its attention ring attention; an eager step, the capture, a replay
+   and a timed step; losses and the state after 3 steps against the same
+   sequence on one replica through K1-K3 (causal, S 8192) with phase
+   56's limits; step ms, tokens/s, the peak, the ring's bytes; ring,
+   Ulysses, dense and K1 at (1, 16, 8192, 64), one forward each, and
+   replica 0's share of the causal ring against replica 1's (about
+   half);
+60. pipeline parallelism: gpt_long at full width in 2 stages
+   (PipelineOptimizer, cut after layer 1) on pp=2 replicas through
+   CompiledProgram over a pp mesh, 2 microbatches of 1 x 4096; losses
+   and the state after 3 steps against the single-device
+   PipelineOptimizer route (2 runs, the update on the second), K1-K3
+   launches by stage (one each a stage and microbatch), step ms,
+   tokens/s, the bubble fraction, the peak; the step runs eagerly and
+   its decline, "pipeline (eager stages)", must be counted once;
+61. dp2 x pp2 x mp2 in one program (bench.py's _mc_3d_config: V 2048,
+   then the uneven vocab 17 padded to 18), 8 replicas on the card,
+   against single-device microbatch accumulation (k = dp x n_micro); the
+   mp replicas' grads of the replicated params equal bit for bit; the
+   lookup grad planted as one graph over the mp replicas (the overcount)
+   must read over the parameter limit;
+62. expert parallelism: the switch_moe program of
+   __graft_entry__._dryrun_ep at ep=4, 2 steps against the dense run of
+   the same program (the same tokens dropped);
+63. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside, the dygraph, recipe, seq2seq, while,
    sentiment, book_*, bert_proto, checkpoint, rnn_search, serving_ir,
    serving_http, resnet_infer, decode_http, fleet_generate,
-   control_flow, dygraph_deploy and dp_* paths too), error, times and
-   bound, P1 (graph_conditional, the port's own kernel) among them;
-60. the last line: {"ok": true, "device": {...}}.
+   control_flow, dygraph_deploy, dp_* and hybrid_* paths too; hybrid_sp
+   counts the sp mesh's steps alone: its ring blocks are torch.matmul,
+   and the one-replica oracle's K1-K3 launches are printed in phase 59's
+   line only), error, times and bound, P1 (graph_conditional, the port's
+   own kernel) among them;
+64. the last line: {"ok": true, "device": {...}}.
 
 Phases 43-45 run the book's scripts as the book does, with those knobs
 unset (phase 45 sets PADDLE_TPU_FUSED_OPTIMIZER for its SGD twins). Every
@@ -571,6 +604,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -8542,14 +8576,15 @@ def load_snapshot(fluid, scope, snap):
 
 def dp_state(main, scope):
     """(parameters, {param: (Moment1, Moment2)}) cloned from the scope
-    (replica 0's): a parameter's moments from its adam op, or its slice of
-    the flat state under the sharded update."""
+    (replica 0's): a parameter's moments from its adam op (in any block: a
+    PipelineOptimizer's update is a sub-block), or its slice of the flat
+    state under the sharded update."""
     def get(name):
         return scope.find_var(name).get_tensor().array
 
     params = card_snapshot(main, scope)
     moments = {}
-    for op in main.global_block().ops:
+    for op in (op for b in main.blocks for op in b.ops):
         if op.type == "adam":
             moments[op.input("Param")[0]] = tuple(
                 get(op.input(s)[0]).reshape(-1).clone()
@@ -8877,7 +8912,7 @@ def k5_at_batch(fluid, k5, batch, phase):
     shapes = resnet_routed_convs(fluid, batch)
     out = {"batch": batch, "shapes": len(shapes),
            "convs": sum(c[-1] for c in shapes), "ms": 0.0, "plain_ms": 0.0,
-           "max_abs_err": 0.0, "rel_err_max": 0.0}
+           "library_ms": 0.0, "max_abs_err": 0.0, "rel_err_max": 0.0}
     work = [0.0, 0.0]
     for i, (xs, ws, stride, pad, count) in enumerate(shapes):
         x, w, _, y, err, rel = k5_check(k5, xs, ws, stride, pad,
@@ -8888,6 +8923,14 @@ def k5_at_batch(fluid, k5, batch, phase):
             lambda: k5.conv2d_bn_act_reference(x, w, stride=stride,
                                                padding=pad),
             iters=3, warmup=1)
+        # cuDNN on the same tensors as channels-last views, as phase 9
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        out["library_ms"] += count * time_ms(
+            lambda: torch.nn.functional.conv2d(xc, wc, None, stride, pad),
+            iters=10, warmup=2)
+        del xc, wc
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out["rel_err_max"] = max(out["rel_err_max"], rel)
         nbytes, flops = k5_work(xs, ws, stride, pad)
@@ -8898,11 +8941,12 @@ def k5_at_batch(fluid, k5, batch, phase):
     out["bound_ms"], out["bound_by"] = bound(*work, PEAK_FLOPS[torch.float32])
     log("phase %d K5 float32 at ResNet-50's %d routed convs of batch %d (%d "
         "shapes), each against its plain version: largest error %g, %g of "
-        "the output's scale (limit %g); summed %.3f ms (plain %.3f, bound "
-        "%.3f by %s); card %s"
+        "the output's scale (limit %g); summed %.3f ms (plain %.3f, cuDNN "
+        "%.3f, bound %.3f by %s); card %s"
         % (phase, out["convs"], batch, out["shapes"], out["max_abs_err"],
            out["rel_err_max"], K5_TOL[torch.float32], out["ms"],
-           out["plain_ms"], out["bound_ms"], out["bound_by"], card_line()))
+           out["plain_ms"], out["library_ms"], out["bound_ms"],
+           out["bound_by"], card_line()))
     return out
 
 
@@ -9185,6 +9229,611 @@ def phase_dp_multiprocess():
         shutil.rmtree(d, ignore_errors=True)
 
 
+# -- phases 59-62: the hybrid axes ---------------------------------------------
+
+# phase 59: gpt_long's one sequence of 8192 tokens over sp=2 (4096 a
+# replica), against the same sequence on one replica through K1-K3
+SP = 2
+SP_SEQ = 8192
+SP_ATTN = (1, 16, SP_SEQ, 64)  # the layer's attention, one forward
+HYBRID_DEVICE = "cuda"
+# phase 60: gpt_long in 2 stages (cut after layer 1) on pp=2 replicas, 2
+# microbatches of 1 x 4096 (gpt_long's own batch of 2 x 4096)
+PP = 2
+PP_MICRO = 2
+# phases 59-60: checked steps (an eager one, the capture, a replay), then
+# one timed step: 4 steps
+HYBRID_STEPS = 3
+HYBRID_TIMED = 1
+# phase 61: bench.py's _mc_3d_config (dp2 x pp2 x mp2, V 2048, D 64, H
+# 256, 2 microbatches of 32, Momentum 0.1 / 0.9), then the uneven vocab
+# of __graft_entry__._dryrun_dp_pp_mp (V 17 padded to 18, D 8, H 12, mb
+# 4, targets of 6)
+MESH_3D = ([2, 2, 2], ["dp", "pp", "mp"])
+CFG_3D = ({"V": 2048, "D": 64, "H": 256, "mb": 32, "tgt": 16, "layers": 2},
+          {"V": 17, "D": 8, "H": 12, "mb": 4, "tgt": 6, "layers": 1})
+# phase 62: __graft_entry__._dryrun_ep's switch_moe program at ep=4
+EP = 4
+# phases 61-62 against their oracles: the JAX tests' limits (loss and
+# parameters within 1e-4 relative; parameters by the norm ratio of
+# state_gaps); the overcount of phase 61 reads mp - 1 = 1 over its scale
+HYBRID_LOSS_RTOL = 1e-4
+HYBRID_PARAM_RTOL = 1e-4
+
+
+def gpt_hybrid(fluid, gpt, seq, optimizer_fn=None, begin_norm_axis=1):
+    """gpt_long at full width, batch 1, float32 Adam 1e-4, from SEED + 59.
+    bench.py's gpt_long normalizes each layer_norm over (S, D) (the
+    layer's default begin_norm_axis 1, a Scale of S x D): a sequence split
+    would change that model. Phase 59 takes it per token
+    (``begin_norm_axis=2``, a Scale of D), under which the split is
+    exact."""
+    cfg = gpt.GPT_LONG
+    return gpt.build_gpt_long(
+        1, seq, d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+        n_layers=cfg["n_layers"], vocab=cfg["vocab"], learning_rate=1e-4,
+        seed=SEED + 59, use_bf16=False, optimizer_fn=optimizer_fn,
+        begin_norm_axis=begin_norm_axis)[:3]
+
+
+def hybrid_mesh(fluid, shape, names):
+    from paddle_tpu_torch.parallel.mesh_utils import make_mesh
+
+    return make_mesh(shape, names, [fluid.CUDAPlace(0)] * math.prod(shape))
+
+
+def sp_attention_times(fluid):
+    """Ring, Ulysses, dense and K1 at the layer's shape (1, 16, 8192, 64),
+    causal, one forward each; replica 0's and replica 1's share of the
+    ring timed apart (the causal skip halves replica 0's)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.parallel.ring_attention import (
+        reference_attention, ring_attend, ring_attention, ring_rotations,
+        sequence_parallel_attention)
+
+    g = torch.Generator(device=HYBRID_DEVICE).manual_seed(SEED + 590)
+    q, k, v = (torch.randn(SP_ATTN, generator=g, device=HYBRID_DEVICE)
+               for _ in range(3))
+    qs, ks, vs = (list(t.chunk(SP, dim=2)) for t in (q, k, v))
+    out = {"shape": list(SP_ATTN),
+           "ring_ms": time_ms(lambda: sequence_parallel_attention(
+               q, k, v, SP, causal=True), iters=3, warmup=1),
+           "ulysses_ms": time_ms(lambda: sequence_parallel_attention(
+               q, k, v, SP, mode="ulysses", causal=True), iters=3, warmup=1),
+           "dense_ms": time_ms(lambda: reference_attention(
+               q, k, v, causal=True), iters=3, warmup=1),
+           "k1_ms": time_ms(lambda: fa.flash_attention(q, k, v, True),
+                            iters=5, warmup=2)}
+    held = ring_rotations(ks, vs)
+    share = [time_ms(lambda i=i: ring_attend(
+        i, qs[i], [(hk[i], hv[i]) for hk, hv in held], True),
+        iters=3, warmup=1) for i in range(SP)]
+    out["replica_ms"] = share
+    out["replica0_share"] = share[0] / share[1]
+    ring = torch.cat(ring_attention(qs, ks, vs, True), dim=2)
+    dense = reference_attention(q, k, v, causal=True)
+    out["ring_vs_dense_err"] = (ring - dense).abs().max().item()
+    # the ring moves each K/V shard past the n - 1 other replicas
+    shard = q.numel() // SP * q.element_size()
+    out["ring_bytes_a_call"] = (SP - 1) * 2 * shard
+    del q, k, v, qs, ks, vs, held, ring, dense
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hybrid_sp(fluid, support):
+    """Phase 59: gpt_long's one sequence of 8192 tokens over sp=2 through
+    DistributedStrategy.sequence_parallel, the program built at a
+    replica's 4096; against the same sequence on one replica (K1-K3,
+    causal, S 8192) from the same start."""
+    from paddle_tpu_torch.incubate.fleet.collective import (
+        CollectiveOptimizer, DistributedStrategy)
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import engine
+
+    feed = gpt.random_batch(np.random.RandomState(SEED + 59), 1, SP_SEQ,
+                            gpt.GPT_LONG["vocab"])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with dp_env():
+            main, startup, loss = gpt_hybrid(fluid, gpt, SP_SEQ,
+                                             begin_norm_axis=2)
+            exe = fluid.Executor()
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            init = card_snapshot(main, scope)
+            support.reset_launch_counts()
+            ref = [float(np.asarray(exe.run(main, feed=feed,
+                                            fetch_list=[loss],
+                                            scope=scope)[0]).reshape(-1)[0])
+                   for _ in range(HYBRID_STEPS)]
+            ref_state = dp_state(main, scope)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HYBRID_TIMED):
+                exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                        return_numpy=False)
+            torch.cuda.synchronize()
+            ref_ms = (time.perf_counter() - t0) / HYBRID_TIMED * 1e3
+            ref_counts = support.launch_counts()
+            exe.close()
+            del exe, scope
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            def sp_opt():
+                strat = DistributedStrategy()
+                strat.sequence_parallel = True
+                strat.sp_degree = SP
+                strat.feed_shard_specs = {"ids": (None, "sp"),
+                                          "lbl": ("sp", None)}
+                return CollectiveOptimizer(
+                    fluid.optimizer.AdamOptimizer(1e-4), strat)
+
+            main, startup, loss = gpt_hybrid(fluid, gpt, SP_SEQ // SP,
+                                             sp_opt, begin_norm_axis=2)
+            rings = sum(op.type == "c_ring_attention"
+                        for op in main.global_block().ops)
+            exe = fluid.Executor()
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            load_snapshot(fluid, scope, init)
+            cp = fluid.CompiledProgram(main).with_data_parallel(
+                loss.name, places=hybrid_mesh(fluid, [SP], ["sp"]))
+            r = dp_steps(fluid, support, engine, exe, cp, scope, feed, loss,
+                         [p.name for p in main.all_parameters()],
+                         "phase 59", state=lambda sc: dp_state(main, sc),
+                         timed=HYBRID_TIMED)
+            exe.close()
+            del exe, scope
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref))
+    p_gap, m_gap = state_gaps(r["state"], ref_state, init)
+    attn = sp_attention_times(fluid)
+    run = {"seq": SP_SEQ, "sp": SP, "ring_ops": rings,
+           "losses": r["losses"], "reference_losses": ref,
+           "loss_gap": loss_gap, "param_gap": p_gap, "moment_gap": m_gap,
+           "step_ms": r["step_ms"], "reference_step_ms": ref_ms,
+           "tokens_per_s": SP_SEQ / r["step_ms"] * 1e3,
+           "reference_tokens_per_s": SP_SEQ / ref_ms * 1e3,
+           "peak_bytes": r["peak_bytes"],
+           "ring_bytes_a_step": attn["ring_bytes_a_call"] * 2 * rings,
+           "attention": attn, "counts": r["counts"],
+           "reference_counts": ref_counts, "declines": r["declines"]}
+    log("phase 59 gpt_long one sequence of %d tokens over sp=%d (%d a "
+        "replica, %d ring attention ops), float32 Adam 1e-4: losses %s "
+        "against one replica's (K1-K3 at S %d) %s, largest gap %.3g (limit "
+        "%g); state after %d steps: parameters %.3g (limit %g), Adam "
+        "moments %.3g (limit %g); step %.3f ms, %.1f tokens/s (one "
+        "replica's %.3f ms, %.1f tokens/s); max_memory_allocated %d; ring "
+        "bytes a call %d, a step %d (forward and the grad's recompute); "
+        "captures %d, fallbacks %d, declines %s; launches %s (the "
+        "one-replica oracle's, not counted for the path, %s); card %s"
+        % (SP_SEQ, SP, SP_SEQ // SP, rings,
+           ", ".join("%.6f" % x for x in r["losses"]), SP_SEQ,
+           ", ".join("%.6f" % x for x in ref), loss_gap, DP_LOSS_RTOL,
+           HYBRID_STEPS, p_gap, DP_PARAM_RTOL, m_gap, DP_MOMENT_RTOL,
+           r["step_ms"], run["tokens_per_s"], ref_ms,
+           run["reference_tokens_per_s"], r["peak_bytes"],
+           attn["ring_bytes_a_call"], run["ring_bytes_a_step"],
+           r["counters"]["executor.jit_traces"],
+           r["counters"]["executor.compile_fallbacks"],
+           json.dumps(r["declines"]), json.dumps(r["counts"]),
+           json.dumps(ref_counts), card_line()))
+    log("phase 59 attention at %s, causal, one forward: ring over sp=%d "
+        "%.3f ms (replica 0 %.3f ms, replica 1 %.3f ms: share %.3f), "
+        "Ulysses %.3f ms, dense %.3f ms, K1 %.3f ms; ring against dense "
+        "%.3g; card %s"
+        % (attn["shape"], SP, attn["ring_ms"], attn["replica_ms"][0],
+           attn["replica_ms"][1], attn["replica0_share"],
+           attn["ulysses_ms"], attn["dense_ms"], attn["k1_ms"],
+           attn["ring_vs_dense_err"], card_line()))
+    if rings != gpt.GPT_LONG["n_layers"] or loss_gap > DP_LOSS_RTOL or \
+            p_gap > DP_PARAM_RTOL or m_gap > DP_MOMENT_RTOL or \
+            not np.isfinite(r["losses"]).all():
+        raise RuntimeError("phase 59: ring ops %d, loss gap %g, parameter "
+                           "gap %g, moment gap %g"
+                           % (rings, loss_gap, p_gap, m_gap))
+    if not 0.35 < attn["replica0_share"] < 0.65:
+        raise RuntimeError("phase 59: replica 0's share of the causal ring "
+                           "is %.3f of replica 1's, not about half"
+                           % attn["replica0_share"])
+    check_one_capture("phase 59", r["counters"])
+    return r["counts"], run
+
+
+def pipeline_optimizer_after_layer1(fluid):
+    """``PipelineOptimizer`` over Adam 1e-4 whose cut is layer 1's output
+    (the input of layer 2's first layer_norm), found at minimize."""
+    from paddle_tpu_torch.optimizer import PipelineOptimizer
+
+    class CutAfterLayer1(PipelineOptimizer):
+        def minimize(self, loss, *args, **kw):
+            lns = [op for op in loss.block.program.global_block().ops
+                   if op.type == "layer_norm"]
+            self._cut_list = [[lns[2].input("X")[0]]]
+            return super().minimize(loss, *args, **kw)
+
+    return CutAfterLayer1(fluid.optimizer.AdamOptimizer(1e-4),
+                          num_microbatches=PP_MICRO)
+
+
+class stage_launches:
+    """Kernel launches by pipeline stage: ``engine._walk`` wrapped to read
+    the launch counts around each stage's walk."""
+
+    def __init__(self, support, main):
+        from paddle_tpu_torch.parallel import pipeline
+
+        meta = main._pipeline_meta
+        stages = pipeline.split_forward_at_cuts(main, meta["cut_list"],
+                                                meta["n_fwd_ops"])
+        extra, bwd, _ = pipeline._split_backward(main, meta, stages)
+        self.where = {}
+        for s, ops in enumerate(stages):
+            self.where[ops[0]._id] = "stage%d forward" % s
+        for s, ops in enumerate(bwd):
+            if ops:
+                self.where[ops[0]._id] = "stage%d backward" % s
+        self.support = support
+        self.by = {}
+
+    def __enter__(self):
+        from paddle_tpu_torch.parallel import engine
+
+        self.orig = orig = engine._walk
+
+        def walk(block, *a, **kw):
+            before = self.support.launch_counts()
+            orig(block, *a, **kw)
+            after = self.support.launch_counts()
+            key = self.where.get(block.ops[0][1]._id) if block.ops else None
+            if key is None:
+                return
+            d = self.by.setdefault(key, {})
+            for k, n in after.items():
+                if n - before.get(k, 0):
+                    d[k] = d.get(k, 0) + n - before.get(k, 0)
+
+        engine._walk = walk
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.parallel import engine
+
+        engine._walk = self.orig
+
+
+def phase_hybrid_pp(fluid, support):
+    """Phase 60: gpt_long at full width in 2 stages on pp=2 replicas
+    (PipelineOptimizer, cut after layer 1), 2 microbatches of 1 x 4096
+    through CompiledProgram over a pp mesh; against the single-device
+    PipelineOptimizer route (2 runs of one microbatch, the update on the
+    second) from the same start."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import pipeline
+
+    cfg = gpt.GPT_LONG
+    seq = cfg["seq_len"]
+    feed = gpt.random_batch(np.random.RandomState(SEED + 60), PP_MICRO, seq,
+                            cfg["vocab"])
+    mbs = [{"ids": feed["ids"][m:m + 1],
+            "lbl": feed["lbl"][m * seq:(m + 1) * seq]}
+           for m in range(PP_MICRO)]
+    tokens = PP_MICRO * seq
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with dp_env():
+            main, startup, loss = gpt_hybrid(
+                fluid, gpt, seq,
+                lambda: pipeline_optimizer_after_layer1(fluid))
+            exe = fluid.Executor()
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            init = card_snapshot(main, scope)
+            ref = []
+            for _ in range(HYBRID_STEPS):
+                ls = [float(np.asarray(exe.run(
+                    main, feed=f, fetch_list=[loss],
+                    scope=scope)[0]).reshape(-1)[0]) for f in mbs]
+                ref.append(float(np.mean(ls)))
+            ref_state = dp_state(main, scope)
+            exe.close()
+            del exe, scope
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            exe = fluid.Executor()
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            load_snapshot(fluid, scope, init)
+            cp = fluid.CompiledProgram(main).with_data_parallel(
+                loss.name, places=hybrid_mesh(fluid, [PP], ["pp"]))
+            torch.cuda.reset_peak_memory_stats()
+            ce.reset_counters()
+            support.reset_launch_counts()
+            losses = []
+            with stage_launches(support, main) as by_stage:
+                for _ in range(HYBRID_STEPS):
+                    (out,) = exe.run(cp, feed=feed, fetch_list=[loss],
+                                     scope=scope)
+                    losses.append(float(np.asarray(out).reshape(-1)[0]))
+            state = dp_state(main, scope)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HYBRID_TIMED):
+                exe.run(cp, feed=feed, fetch_list=[loss], scope=scope,
+                        return_numpy=False)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / HYBRID_TIMED * 1e3
+            counts = support.launch_counts()
+            declines = ce.declines()
+            peak = torch.cuda.max_memory_allocated()
+            stats = pipeline.pipeline_stats()
+            exe.close()
+            del exe, scope
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    p_gap, m_gap = state_gaps(state, ref_state, init)
+    run = {"stages": stats["stages"], "microbatches": stats["microbatches"],
+           "bubble_fraction": stats["bubble_fraction"],
+           "boundary_bytes": stats["boundary_bytes"],
+           "losses": losses, "reference_losses": ref, "loss_gap": loss_gap,
+           "param_gap": p_gap, "moment_gap": m_gap, "step_ms": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3, "peak_bytes": peak,
+           "launches_by_stage": by_stage.by, "counts": counts,
+           "declines": declines}
+    log("phase 60 gpt_long in %d stages on pp=%d (cut after layer 1), %d "
+        "microbatches of 1 x %d, float32 Adam 1e-4: losses %s against the "
+        "single-device PipelineOptimizer route's %s, largest gap %.3g "
+        "(limit %g); state after %d steps: parameters %.3g (limit %g), "
+        "Adam moments %.3g (limit %g); step %.3f ms, %.1f tokens/s, bubble "
+        "fraction %.4f, boundary bytes a microbatch %s; "
+        "max_memory_allocated %d; launches by stage over %d steps %s; "
+        "declines %s; card %s"
+        % (stats["stages"], PP, PP_MICRO, seq,
+           ", ".join("%.6f" % x for x in losses),
+           ", ".join("%.6f" % x for x in ref), loss_gap, DP_LOSS_RTOL,
+           HYBRID_STEPS, p_gap, DP_PARAM_RTOL, m_gap, DP_MOMENT_RTOL,
+           step_ms, run["tokens_per_s"], stats["bubble_fraction"],
+           stats["boundary_bytes"], peak, HYBRID_STEPS,
+           json.dumps(by_stage.by), json.dumps(declines), card_line()))
+    if declines.get(pipeline.EAGER_DECLINE) != 1:
+        raise RuntimeError("phase 60: the eager pipeline step's decline "
+                           "counted %s, want once" % json.dumps(declines))
+    want = HYBRID_STEPS * PP_MICRO  # one flash op a stage and microbatch
+    for s in range(PP):
+        f = by_stage.by.get("stage%d forward" % s, {})
+        b = by_stage.by.get("stage%d backward" % s, {})
+        if f.get("flash_attention_forward") != want or \
+                b.get("flash_attention_backward_dq") != want or \
+                b.get("flash_attention_backward_dkv") != want:
+            raise RuntimeError("phase 60 stage %d: K1-K3 launches %s / %s, "
+                               "want %d each" % (s, f, b, want))
+    if loss_gap > DP_LOSS_RTOL or p_gap > DP_PARAM_RTOL or \
+            m_gap > DP_MOMENT_RTOL or not np.isfinite(losses).all():
+        raise RuntimeError("phase 60: loss gap %g, parameter gap %g, "
+                           "moment gap %g" % (loss_gap, p_gap, m_gap))
+    return counts, run
+
+
+def program_3d(fluid, cfg, k):
+    """bench.py's _mc_3d_config program (or the dry run's, by ``cfg``)
+    under the port, ``k`` microbatches."""
+    from paddle_tpu_torch.incubate.fleet.collective import (
+        CollectiveOptimizer, DistributedStrategy)
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED + 61
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.data(name="ids", shape=[cfg["mb"], 1], dtype="int64")
+        tgt = fluid.data(name="tgt", shape=[cfg["mb"], cfg["tgt"]],
+                         dtype="float32")
+        emb = L.embedding(ids, size=[cfg["V"], cfg["D"]],
+                          param_attr=fluid.ParamAttr(name="emb_w"))
+        h1 = L.fc(emb, size=cfg["H"], act="relu")
+        h = h1
+        for _ in range(cfg["layers"] - 1):
+            h = L.fc(h, size=cfg["H"], act="relu")
+        pred = L.fc(h, size=cfg["tgt"])
+        loss = L.reduce_mean(L.square(L.elementwise_sub(pred, tgt)))
+        strat = DistributedStrategy()
+        strat.sharded_embedding = True
+        strat.mp_degree = MESH_3D[0][2]
+        strat.pipeline = True
+        strat.pipeline_cut_list = [[h1]]
+        strat.pipeline_num_microbatches = k
+        CollectiveOptimizer(fluid.optimizer.MomentumOptimizer(0.1, 0.9),
+                            strat).minimize(loss, startup_program=startup)
+    return main, startup, loss
+
+
+def run_3d(fluid, support, cfg, overcount=False):
+    """One step of dp2 x pp2 x mp2 against single-device accumulation
+    (k = dp x n_micro) from the same start: (loss gap, parameter gap,
+    model-replica gap, counts, step ms)."""
+    from paddle_tpu_torch.core.registry import (OpInfoMap, set_group_form,
+                                                vjp_grad_group)
+    from paddle_tpu_torch.parallel import pipeline
+
+    dp, n_micro = MESH_3D[0][0], 2
+    B = dp * n_micro * cfg["mb"]
+    rng = np.random.RandomState(SEED + 61)
+    ids = rng.randint(0, cfg["V"], (B, 1)).astype("int64")
+    tgt = rng.randn(B, cfg["tgt"]).astype("float32")
+    rmain, rstart, rloss = program_3d(fluid, cfg, dp * n_micro)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(rstart, scope=scope)
+    params = [p.name for p in rmain.all_parameters()]
+    init = {n: scope.find_var(n).get_tensor().array.clone() for n in params}
+    mb = cfg["mb"]
+    ref = float(np.mean([float(np.asarray(exe.run(
+        rmain, feed={"ids": ids[m * mb:(m + 1) * mb],
+                     "tgt": tgt[m * mb:(m + 1) * mb]},
+        fetch_list=[rloss], scope=scope)[0]).reshape(-1)[0])
+        for m in range(dp * n_micro)]))
+    ref_p = {n: scope.find_var(n).get_tensor().array.clone() for n in params}
+    exe.close()
+
+    main, startup, loss = program_3d(fluid, cfg, n_micro)
+    padded = tuple(main.global_block().var("emb_w").shape)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    load_snapshot(fluid, scope, init)
+    cp = fluid.CompiledProgram(main).with_data_parallel(
+        loss.name, places=hybrid_mesh(fluid, *MESH_3D))
+    grad = OpInfoMap.instance().get("c_sharded_lookup_grad")
+    kept = (grad.group_of, grad.group_fn)
+    if overcount:
+        info = OpInfoMap.instance().get("c_sharded_lookup")
+        set_group_form("c_sharded_lookup_grad", kept[0],
+                       lambda ins, a, g: vjp_grad_group(
+                           info, ins, a,
+                           lambda rb, fa: info.group_fn(rb, fa, g)))
+    support.reset_launch_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (out,) = exe.run(cp, feed={"ids": ids, "tgt": tgt},
+                         fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        set_group_form("c_sharded_lookup_grad", *kept)
+    counts = support.launch_counts()
+    got = {n: scope.find_var(n).get_tensor().array.clone() for n in params}
+    exe.close()
+    lm = float(np.asarray(out).reshape(-1)[0])
+    p_gap = norm_gap((got[k], ref_p[k], ref_p[k] - init[k]) for k in params)
+    return {"loss": lm, "reference_loss": ref,
+            "loss_gap": abs(lm - ref) / abs(ref), "param_gap": p_gap,
+            "model_replica_gap": pipeline.pipeline_stats()[
+                "model_replica_gap"], "padded_table": list(padded),
+            "step_ms": step_ms}, counts
+
+
+def phase_hybrid_3d(fluid, support):
+    """Phase 61: dp2 x pp2 x mp2 in one program (bench.py's
+    _mc_3d_config, then the uneven vocab 17 -> 18), 8 replicas on the
+    card, against single-device microbatch accumulation, the fast paths
+    unset; the planted mp overcount of the lookup grad must read over the
+    limit."""
+    runs, counts = {}, {}
+    for name, cfg in zip(("mc_3d", "uneven_vocab"), CFG_3D):
+        with dp_env():
+            r, c = run_3d(fluid, support, cfg)
+        runs[name] = r
+        for k, n in c.items():
+            counts[k] = counts.get(k, 0) + n
+        log("phase 61 dp2 x pp2 x mp2 %s (V %d, table %s, D %d, H %d, 2 "
+            "microbatches of %d, Momentum 0.1 / 0.9), 8 replicas on the "
+            "card: loss %.6f against accumulation's %.6f, gap %.3g (limit "
+            "%g); parameters %.3g (limit %g); mp replicas' grads of the "
+            "replicated params apart by %g; step %.3f ms; card %s"
+            % (name, cfg["V"], r["padded_table"], cfg["D"], cfg["H"],
+               cfg["mb"], r["loss"], r["reference_loss"], r["loss_gap"],
+               HYBRID_LOSS_RTOL, r["param_gap"], HYBRID_PARAM_RTOL,
+               r["model_replica_gap"], r["step_ms"], card_line()))
+        if r["loss_gap"] > HYBRID_LOSS_RTOL or \
+                r["param_gap"] > HYBRID_PARAM_RTOL or \
+                r["model_replica_gap"] != 0:
+            raise RuntimeError("phase 61 %s: %s" % (name, r))
+    with dp_env():
+        bad, _ = run_3d(fluid, support, CFG_3D[0], overcount=True)
+    runs["planted_overcount"] = bad
+    log("phase 61 planted fault: the lookup grad as one graph over the mp "
+        "replicas (each block takes every replica's cotangent): parameters "
+        "%.3g against the limit %g, loss %.3g; card %s"
+        % (bad["param_gap"], HYBRID_PARAM_RTOL, bad["loss_gap"],
+           card_line()))
+    if bad["param_gap"] <= HYBRID_PARAM_RTOL:
+        raise RuntimeError("phase 61: the planted mp overcount passed the "
+                           "parameter gate (%g)" % bad["param_gap"])
+    return counts, runs
+
+
+def phase_hybrid_ep(fluid, support):
+    """Phase 62: __graft_entry__._dryrun_ep's switch_moe program at ep=4
+    through DistributedStrategy.expert_parallel, 2 steps over 4 replicas
+    on the card, against the dense run of the same program (the routing
+    in 4 chunks: the same tokens dropped) from the same start; the fast
+    paths unset, as in phases 56-61 (the single-chip fused optimizer is
+    refused on a mesh)."""
+    with dp_env():
+        return hybrid_ep_runs(fluid, support)
+
+
+def hybrid_ep_runs(fluid, support):
+    from paddle_tpu_torch.incubate.fleet.collective import (
+        CollectiveOptimizer, DistributedStrategy)
+
+    T, D, H, E = 8 * EP, 6, 8, 2 * EP
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED + 62
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.data(name="x", shape=[T, D], dtype="float32")
+        tgt = fluid.data(name="tgt", shape=[T, D], dtype="float32")
+        y = fluid.layers.switch_moe(x, num_experts=E, hidden_dim=H,
+                                    capacity_factor=2.0)
+        loss = fluid.layers.reduce_mean(
+            fluid.layers.square(fluid.layers.elementwise_sub(y, tgt)))
+        strat = DistributedStrategy()
+        strat.expert_parallel = True
+        strat.ep_degree = EP
+        CollectiveOptimizer(fluid.optimizer.SGDOptimizer(0.05),
+                            strat).minimize(loss)
+    rng = np.random.RandomState(SEED + 62)
+    feeds = [{"x": rng.randn(T, D).astype("float32"),
+              "tgt": rng.randn(T, D).astype("float32")} for _ in range(2)]
+    params = [p.name for p in main.all_parameters()]
+    out = {}
+    for name in ("dense", "mesh"):
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if name == "dense":
+            init = {n: scope.find_var(n).get_tensor().array.clone()
+                    for n in params}
+            prog = main
+        else:
+            load_snapshot(fluid, scope, init)
+            prog = fluid.CompiledProgram(main).with_data_parallel(
+                loss.name, places=hybrid_mesh(fluid, [EP], ["ep"]))
+        support.reset_launch_counts()
+        losses = [float(np.asarray(exe.run(prog, feed=f, fetch_list=[loss],
+                                           scope=scope)[0],
+                                   dtype=np.float64).mean())
+                  for f in feeds]
+        out[name] = (losses, {n: scope.find_var(n).get_tensor().array.clone()
+                              for n in params}, support.launch_counts())
+        exe.close()
+    (dl, dp_, _), (ml, mp_, counts) = out["dense"], out["mesh"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(ml, dl))
+    p_gap = norm_gap((mp_[k], dp_[k], dp_[k] - init[k]) for k in params)
+    log("phase 62 switch_moe at ep=%d (T %d, D %d, H %d, %d experts, "
+        "capacity factor 2), 2 SGD steps over %d replicas on the card: "
+        "losses %s against the dense run's %s, gap %.3g (limit %g); "
+        "parameters %.3g (limit %g); card %s"
+        % (EP, T, D, H, E, EP, ", ".join("%.6f" % x for x in ml),
+           ", ".join("%.6f" % x for x in dl), loss_gap, HYBRID_LOSS_RTOL,
+           p_gap, HYBRID_PARAM_RTOL, card_line()))
+    if loss_gap > HYBRID_LOSS_RTOL or p_gap > HYBRID_PARAM_RTOL:
+        raise RuntimeError("phase 62: loss gap %g, parameter gap %g"
+                           % (loss_gap, p_gap))
+    return counts, {"losses": ml, "dense_losses": dl, "loss_gap": loss_gap,
+                    "param_gap": p_gap}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -9313,6 +9962,14 @@ def main() -> int:
     log("phases 56-58 %s" % json.dumps(
         {"dp_gpt": dp_gpt_run, "dp_resnet": dp_resnet_run,
          "dp_multiprocess": dp_mp_run}))
+    # the hybrid axes: sequence, pipeline, dp x pp x mp, expert
+    hy_sp, hy_sp_run = phase_hybrid_sp(fluid, support)
+    hy_pp, hy_pp_run = phase_hybrid_pp(fluid, support)
+    hy_3d, hy_3d_run = phase_hybrid_3d(fluid, support)
+    hy_ep, hy_ep_run = phase_hybrid_ep(fluid, support)
+    log("phases 59-62 %s" % json.dumps(
+        {"hybrid_sp": hy_sp_run, "hybrid_pp": hy_pp_run,
+         "hybrid_3d": hy_3d_run, "hybrid_ep": hy_ep_run}))
     log("phases 51-53 %s" % json.dumps(
         {"serving_http": http_run, "resnet_infer": resnet_infer_run,
          "decode_http": decode_http_run}))
@@ -9387,7 +10044,11 @@ def main() -> int:
                    "dygraph_deploy": deploy_counts.get(kern["name"], 0),
                    "dp_gpt": dp_gpt.get(kern["name"], 0),
                    "dp_resnet": dp_resnet.get(kern["name"], 0),
-                   "dp_multiprocess": dp_mp.get(kern["name"], 0)}
+                   "dp_multiprocess": dp_mp.get(kern["name"], 0),
+                   "hybrid_sp": hy_sp.get(kern["name"], 0),
+                   "hybrid_pp": hy_pp.get(kern["name"], 0),
+                   "hybrid_3d": hy_3d.get(kern["name"], 0),
+                   "hybrid_ep": hy_ep.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

@@ -13,18 +13,19 @@ This package imports neither ``jax`` nor anything of ``paddle_tpu``.
 ROADMAP.md lists what is ported and what is still to come.
 """
 from . import framework  # noqa: F401
-from .core import (CPUPlace, CUDAPlace, LoDTensor,  # noqa: F401
-                   LoDTensorArray, Scope, TPUPlace, global_scope,
-                   scope_guard)
+from .core import (CPUPlace, CUDAPinnedPlace, CUDAPlace,  # noqa: F401
+                   LoDTensor, LoDTensorArray, Scope, TPUPlace,
+                   global_scope, scope_guard)
+from .core import enforce  # noqa: F401
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .executor import Executor  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
 from .framework import (Parameter, Program, Variable,  # noqa: F401
                         default_main_program, default_startup_program,
-                        program_guard)
+                        in_dygraph_mode, program_guard)
 from . import initializer  # noqa: F401
-from .param_attr import ParamAttr  # noqa: F401
+from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from . import layers  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import regularizer  # noqa: F401
@@ -49,3 +50,12 @@ from .data_feeder import DataFeeder  # noqa: F401
 from .utils import unique_name  # noqa: F401
 from . import parallel  # noqa: F401
 from . import incubate  # noqa: F401
+from . import ir  # noqa: F401
+from .ir import IrGraph  # noqa: F401
+
+
+def set_global_seed(seed: int):
+    """Seed the default main and startup programs (their RNG ops draw from
+    ``random_seed``), as ``paddle_tpu.set_global_seed`` does."""
+    default_main_program().random_seed = seed
+    default_startup_program().random_seed = seed

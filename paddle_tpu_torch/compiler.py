@@ -111,6 +111,19 @@ class CompiledProgram:
             return executor.run(self._program, feed=feed,
                                 fetch_list=fetch_list, scope=scope,
                                 return_numpy=return_numpy)
+        # a pipelined program (PipelineOptimizer's metadata) over a mesh
+        # with a pp axis takes the pipeline engine: dp replicas of the
+        # pipeline and the model axes inside the stages
+        from .parallel.mesh_utils import Mesh
+
+        mesh = self._places if isinstance(self._places, Mesh) else None
+        if mesh is not None and "pp" in mesh.axis_names and \
+                getattr(self._program, "_pipeline_meta", None):
+            from .parallel.pipeline import run_pipeline_parallel
+
+            return run_pipeline_parallel(
+                executor._core, self._program, scope, feed, fetch_list,
+                mesh=mesh, return_numpy=return_numpy)
         from .parallel.engine import run_data_parallel
 
         return run_data_parallel(

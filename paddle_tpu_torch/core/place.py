@@ -44,6 +44,12 @@ class CPUPlace(Place):
         return torch.device("cpu")
 
 
+class CUDAPinnedPlace(CPUPlace):
+    """Page-locked host memory; the tensors it names live on the CPU."""
+
+    kind = "cpu_pinned"
+
+
 class CUDAPlace(Place):
     """The accelerator place: ``cuda:<device_id>``."""
 

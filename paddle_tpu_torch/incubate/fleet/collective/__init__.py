@@ -1,29 +1,43 @@
 """Collective fleet mode (the reference's ``incubate/fleet/collective``:
 ``Collective(Fleet)``, ``CollectiveOptimizer``, ``DistributedStrategy``).
 
-Counterpart of ``paddle_tpu/incubate/fleet/collective/__init__.py`` for
-data parallelism: ``fleet.distributed_optimizer(opt, strategy).minimize``
-runs the optimizer's minimize, then the collective transpiler (the loss
-grad scaled by 1/nranks and a ``c_allreduce_sum`` for every grad; LocalSGD's
-parameter averaging under ``use_local_sgd``), and ``fleet.main_program``
-is the program compiled ``with_data_parallel``. ``nranks`` is the fleet's
-``worker_num()``: the launcher's ``PADDLE_TRAINERS_NUM``, or a
-``UserDefinedRoleMaker``'s count. The hybrid knobs (sharded embedding,
-sequence, expert and pipeline parallelism) come with the hybrid slice
-(ROADMAP.md): setting one raises.
+Counterpart of ``paddle_tpu/incubate/fleet/collective/__init__.py``:
+``fleet.distributed_optimizer(opt, strategy).minimize`` runs the hybrid
+passes the strategy asks for (before the backward, so that it
+differentiates through the collective-aware ops), the optimizer's
+minimize (wrapped in ``PipelineOptimizer`` under ``pipeline``), then the
+collective transpiler (the loss grad scaled by 1/nranks and a
+``c_allreduce_sum`` for every grad but those sharded over a data axis;
+LocalSGD's parameter averaging under ``use_local_sgd``), and
+``fleet.main_program`` is the program compiled ``with_data_parallel``.
+``nranks`` is the fleet's ``worker_num()``: the launcher's
+``PADDLE_TRAINERS_NUM``, or a ``UserDefinedRoleMaker``'s count.
 """
 from __future__ import annotations
 
 from ....compiler import BuildStrategy, CompiledProgram, ExecutionStrategy
 from ..base.fleet_base import DistributedOptimizer, Fleet
 
-_HYBRID_KNOBS = ("sharded_embedding", "sequence_parallel",
-                 "expert_parallel", "pipeline")
-
 
 class DistributedStrategy:
     """The knobs (the reference's DistributedStrategy extends
-    BuildStrategy): LocalSGD, recompute and AMP among them."""
+    BuildStrategy): LocalSGD, recompute and AMP among them, and the hybrid
+    axes, each a program pass:
+
+    - ``sharded_embedding`` (+ ``mp_degree``): every embedding table
+      row-sharded over an ``mp`` axis;
+    - ``sequence_parallel`` (+ ``sp_degree``, ``feed_shard_specs``):
+      attention as ring attention over an ``sp`` axis;
+      ``feed_shard_specs`` gives the feeds' layouts, e.g. ``{"x": ("dp",
+      None, "sp")}``;
+    - ``expert_parallel`` (+ ``ep_degree``): MoE experts sharded over an
+      ``ep`` axis;
+    - ``pipeline`` (+ ``pipeline_cut_list``,
+      ``pipeline_num_microbatches``): stages over a ``pp`` axis, with a
+      data axis of stage replicas and the model axes inside the stages.
+
+    The rewritten program still runs densely on one device (the ops fall
+    back to exact dense math)."""
 
     def __init__(self):
         self.build_strategy = BuildStrategy()
@@ -102,18 +116,30 @@ class CollectiveOptimizer(DistributedOptimizer):
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        from ....parallel.transpiler import (insert_allreduce_ops,
+        from ....parallel.transpiler import (apply_expert_parallel,
+                                             apply_sequence_parallel,
+                                             apply_sharded_embedding,
+                                             insert_allreduce_ops,
                                              insert_local_sgd_ops,
                                              shard_optimizer_state)
 
         opt = self._optimizer
         strategy = self._strategy
         program = loss.block.program
-        on = [k for k in _HYBRID_KNOBS if getattr(strategy, k, False)]
-        if on:
-            raise NotImplementedError(
-                "DistributedStrategy.%s: the hybrid axes are not ported"
-                % on[0])
+        if getattr(strategy, "sharded_embedding", False):
+            from .... import framework
+
+            apply_sharded_embedding(
+                program, "mp", int(strategy.mp_degree or 0),
+                startup_program=(startup_program
+                                 or framework.default_startup_program()))
+        if getattr(strategy, "sequence_parallel", False):
+            apply_sequence_parallel(
+                program, "sp", int(strategy.sp_degree or 0),
+                feed_specs=getattr(strategy, "feed_shard_specs", None))
+        if getattr(strategy, "expert_parallel", False):
+            apply_expert_parallel(program, "ep",
+                                  int(strategy.ep_degree or 1))
         if getattr(strategy, "use_amp", False):
             from ....contrib import mixed_precision as mp
 
@@ -123,12 +149,27 @@ class CollectiveOptimizer(DistributedOptimizer):
 
             opt = RecomputeOptimizer(opt)
             opt._set_checkpoints(strategy.recompute_checkpoints)
+        if getattr(strategy, "pipeline", False):
+            from ....optimizer import PipelineOptimizer
+
+            opt = PipelineOptimizer(
+                opt, cut_list=strategy.pipeline_cut_list,
+                num_microbatches=int(
+                    strategy.pipeline_num_microbatches or 1))
         optimize_ops, params_grads = opt.minimize(
             loss, startup_program, parameter_list, no_grad_set)
         shard_optimizer_state(program)
         nranks = self._fleet.worker_num() if self._fleet else 1
         if nranks > 1:
-            insert_allreduce_ops(program, nranks)
+            # skip only the grads sharded over a data axis
+            skip_axes = getattr(program, "_allreduce_skip_grads",
+                                None) or {}
+            data_axes = set(getattr(program, "_data_axes", None)
+                            or ("dp",))
+            insert_allreduce_ops(
+                program, nranks,
+                skip_grads={g for g, axes in skip_axes.items()
+                            if set(axes) & data_axes})
             if getattr(strategy, "use_local_sgd", False):
                 insert_local_sgd_ops(program, nranks,
                                      strategy.local_sgd_k_steps)

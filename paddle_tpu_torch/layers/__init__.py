@@ -24,6 +24,5 @@ from .tensor import __all__ as _tensor_all
 
 monkey_patch_variable()
 
-__all__ = (["data", "fluid_data", "cross_entropy",
-            "softmax_with_cross_entropy"] + _extras_all + _nn_all + _ops_all
+__all__ = (["data", "fluid_data"] + _loss_all + _extras_all + _nn_all + _ops_all
            + _seq_all + _tensor_all + _cf_all + _lrs_all + _rnn_all)

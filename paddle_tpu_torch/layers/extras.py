@@ -4,8 +4,10 @@
 (:714), ``cos_sim`` (:186), ``linear_chain_crf`` (:623), ``crf_decoding``
 (:654), ``chunk_eval`` (:1012), ``size`` (:322), ``is_empty`` (:333),
 ``while_loop`` (:436), ``sequence_reverse`` (:581),
-``get_tensor_from_selected_rows`` (:592) and ``merge_selected_rows``
-(:596) of ``paddle_tpu/layers/extras.py``: the same ops, slots, attrs and
+``get_tensor_from_selected_rows`` (:592), ``merge_selected_rows``
+(:596), ``bilinear_tensor_product`` (:166), ``row_conv`` (:233), ``sum``
+(:345), ``spectral_norm`` (:805) and ``switch_moe`` (:978) of
+``paddle_tpu/layers/extras.py``: the same ops, slots, attrs and
 parameter names. ``is_empty`` counts the elements through ``shape`` and
 ``reduce_prod``, as the JAX layer does, not through the ``is_empty`` op;
 ``while_loop`` is a ``While`` whose body assigns the new loop vars over
@@ -22,7 +24,8 @@ __all__ = ["flash_attention", "gru_unit", "lstm_unit", "Print",
            "im2sequence", "cos_sim", "linear_chain_crf", "crf_decoding",
            "chunk_eval", "size", "is_empty", "while_loop",
            "sequence_reverse", "get_tensor_from_selected_rows",
-           "merge_selected_rows"]
+           "merge_selected_rows", "sum", "row_conv", "spectral_norm",
+           "bilinear_tensor_product", "switch_moe"]
 
 
 def flash_attention(q, k, v, causal=False, scale=0.0, lengths=None):
@@ -344,4 +347,106 @@ def merge_selected_rows(x, name=None):
         type="selected_rows", dtype=x.dtype)
     helper.append_op("merge_selected_rows", inputs={"X": [x]},
                      outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    helper = LayerHelper("bilinear_tensor_product", input=x,
+                         param_attr=param_attr, bias_attr=bias_attr)
+    dtype = helper.input_dtype()
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[size, int(x.shape[1]), int(y.shape[1])], dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [x], "Y": [y], "Weight": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[1, size], dtype=dtype,
+            is_bias=True)]
+    helper.append_op("bilinear_tensor_product", inputs=inputs,
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper("row_conv", input=input, param_attr=param_attr)
+    dtype = helper.input_dtype()
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[future_context_size + 1, int(input.shape[-1])], dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("row_conv", inputs={"X": [input], "Filter": [w]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def sum(x):
+    """Elementwise sum of a list of tensors (the ``sum`` op; not
+    ``reduce_sum``)."""
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    helper = LayerHelper("sum", input=xs[0])
+    out = helper.create_variable_for_type_inference(xs[0].dtype)
+    helper.append_op("sum", inputs={"X": list(xs)}, outputs={"Out": [out]},
+                     infer_shape=False)
+    return out
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """``weight`` over its largest singular value by power iteration; U
+    and V are persistable, drawn from Normal(0, 1) in the startup."""
+    from ..initializer import NormalInitializer
+
+    helper = LayerHelper("spectral_norm", input=weight)
+    h = int(weight.shape[dim])
+    w = 1
+    for i, s in enumerate(weight.shape):
+        if i != dim:
+            w *= int(s)
+    uv = []
+    for key, n in (("spectral_norm_u", h), ("spectral_norm_v", w)):
+        var = helper.main_program.global_block().create_var(
+            name=framework.unique_name.generate(key), shape=(n,),
+            dtype="float32", persistable=True)
+        var.stop_gradient = True
+        helper.set_variable_initializer(var, NormalInitializer(0.0, 1.0))
+        uv.append(var)
+    u, v = uv
+    out = helper.create_variable_for_type_inference(weight.dtype)
+    helper.append_op("spectral_norm",
+                     inputs={"Weight": [weight], "U": [u], "V": [v]},
+                     outputs={"Out": [out], "UOut": [u], "VOut": [v]},
+                     attrs={"dim": dim, "power_iters": power_iters,
+                            "eps": eps},
+                     infer_shape=False)
+    out.shape = tuple(weight.shape)
+    return out
+
+
+def switch_moe(input, num_experts, hidden_dim, capacity_factor=1.0,
+               num_groups=1, param_attr=None, name=None):
+    """Switch-routed mixture-of-experts FFN over ``[T, D]`` tokens: top-1
+    gating, a fixed capacity per expert, overflow tokens dropped. The
+    ``moe`` op; ``apply_expert_parallel`` shards its experts over an
+    ``ep`` axis (``parallel/moe.py``)."""
+    helper = LayerHelper("moe", input=input, param_attr=param_attr,
+                         name=name)
+    dtype = helper.input_dtype()
+    d = int(input.shape[-1])
+    gate_w = helper.create_parameter(
+        attr=helper.param_attr, shape=[d, num_experts], dtype=dtype)
+    w_in = helper.create_parameter(
+        attr=helper.param_attr, shape=[num_experts, d, hidden_dim],
+        dtype=dtype)
+    w_out = helper.create_parameter(
+        attr=helper.param_attr, shape=[num_experts, hidden_dim, d],
+        dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "moe",
+        inputs={"X": [input], "GateW": [gate_w], "WIn": [w_in],
+                "WOut": [w_out]},
+        outputs={"Out": [out]},
+        attrs={"shard_axis": "", "num_groups": int(num_groups),
+               "capacity_factor": float(capacity_factor)})
     return out

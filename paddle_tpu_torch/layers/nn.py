@@ -31,7 +31,8 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
            "stack", "one_hot", "topk", "reduce_mean", "reduce_max",
            "reduce_min", "where", "split", "shape", "reduce_prod",
            "reduce_all", "reduce_any", "elementwise_max", "elementwise_pow",
-           "gaussian_random", "uniform_random"]
+           "gaussian_random", "uniform_random", "mul", "conv2d_transpose",
+           "conv3d", "instance_norm", "group_norm", "prelu"]
 
 
 def _pair(x, n=2):
@@ -508,3 +509,145 @@ def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0,
                    name=None):
     return _random("uniform_random", shape, dtype, name, min=min, max=max,
                    seed=seed)
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """Transposed 2-D convolution (NCHW), filter ``[C, num_filters /
+    groups, KH, KW]``; ``filter_size`` follows from ``output_size`` when
+    not given."""
+    helper = LayerHelper("conv2d_transpose", input=input,
+                         param_attr=param_attr, bias_attr=bias_attr, act=act,
+                         name=name)
+    dtype = input.dtype
+    groups = groups or 1
+    stride, padding, dilation = _pair(stride), _pair(padding), \
+        _pair(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size or filter_size must be given")
+        output_size = _pair(output_size)
+        h, w_ = input.shape[2], input.shape[3]
+        filter_size = [
+            output_size[0] - (h - 1) * stride[0] + 2 * padding[0],
+            output_size[1] - (w_ - 1) * stride[1] + 2 * padding[1]]
+    else:
+        filter_size = _pair(filter_size)
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[input.shape[1], num_filters // groups] + filter_size,
+        dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "conv2d_transpose", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": stride, "paddings": padding,
+               "dilations": dilation, "groups": groups,
+               "use_cudnn": use_cudnn})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """3-D convolution (NCDHW), filter ``[num_filters, C / groups, KD, KH,
+    KW]``."""
+    helper = LayerHelper("conv3d", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    groups = groups or 1
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[num_filters, input.shape[1] // groups]
+        + _pair(filter_size, 3), dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "conv3d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _pair(stride, 3), "paddings": _pair(padding, 3),
+               "dilations": _pair(dilation, 3), "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm", input=input,
+                         param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    dtype = input.dtype
+    shape = [input.shape[1]]
+    scale = helper.create_parameter(
+        attr=helper.param_attr, shape=shape, dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=shape,
+                                   dtype=dtype, is_bias=True)
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "instance_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias]},
+        outputs={"Y": [out], "SavedMean": [saved_mean],
+                 "SavedVariance": [saved_var]},
+        attrs={"epsilon": epsilon})
+    return out
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    shape = [input.shape[1]]
+    inputs = {"X": [input]}
+    if helper.param_attr is not False:
+        inputs["Scale"] = [helper.create_parameter(
+            attr=helper.param_attr, shape=shape, dtype=dtype,
+            default_initializer=ConstantInitializer(1.0))]
+    if helper.bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=shape, dtype=dtype, is_bias=True)]
+    mean_out = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    var_out = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "group_norm", inputs=inputs,
+        outputs={"Y": [out], "Mean": [mean_out], "Variance": [var_out]},
+        attrs={"epsilon": epsilon, "groups": groups,
+               "data_layout": data_layout})
+    return helper.append_activation(out)
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    helper = LayerHelper("prelu", input=x, param_attr=param_attr, name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(
+        attr=helper.param_attr, shape=alpha_shape, dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out

@@ -38,10 +38,13 @@ GPT_LONG = dict(batch=2, seq_len=4096, d_model=1024, n_heads=16,
 
 def build_gpt_long(batch, seq_len, d_model=1024, n_heads=16, n_layers=2,
                    vocab=8192, learning_rate=1e-4, seed=0, use_bf16=True,
-                   optimizer_fn=None, recompute=False):
+                   optimizer_fn=None, recompute=False, begin_norm_axis=1):
     """(main, startup, loss, params_grads) of the training program, built
     under fresh names; ``seed`` is the startup program's random seed,
-    ``use_bf16`` wraps the optimizer in ``mp.decorate``."""
+    ``use_bf16`` wraps the optimizer in ``mp.decorate``.
+    ``begin_norm_axis`` is the layer norms' (bench.py's 1 normalizes over
+    the sequence and the width together; 2 normalizes each token, which a
+    split of the sequence leaves exact)."""
     head = d_model // n_heads
     main, startup = framework.Program(), framework.Program()
     startup.random_seed = seed
@@ -52,7 +55,7 @@ def build_gpt_long(batch, seq_len, d_model=1024, n_heads=16, n_layers=2,
         x = layers.embedding(ids, size=(vocab, d_model))
         checkpoints = []
         for _ in range(n_layers):
-            h = layers.layer_norm(x)
+            h = layers.layer_norm(x, begin_norm_axis=begin_norm_axis)
             q = layers.fc(h, d_model, num_flatten_dims=2)
             k = layers.fc(h, d_model, num_flatten_dims=2)
             v = layers.fc(h, d_model, num_flatten_dims=2)
@@ -66,11 +69,12 @@ def build_gpt_long(batch, seq_len, d_model=1024, n_heads=16, n_layers=2,
             ctx = layers.transpose(ctx, [0, 2, 1, 3])
             ctx = layers.reshape(ctx, [batch, seq_len, d_model])
             x = x + layers.fc(ctx, d_model, num_flatten_dims=2)
-            m = layers.layer_norm(x)
+            m = layers.layer_norm(x, begin_norm_axis=begin_norm_axis)
             m = layers.fc(m, d_model * 4, num_flatten_dims=2, act="gelu")
             x = x + layers.fc(m, d_model, num_flatten_dims=2)
             checkpoints.append(x)
-        logits = layers.fc(layers.layer_norm(x), vocab, num_flatten_dims=2)
+        logits = layers.fc(layers.layer_norm(
+            x, begin_norm_axis=begin_norm_axis), vocab, num_flatten_dims=2)
         loss = layers.mean(layers.softmax_with_cross_entropy(
             layers.reshape(logits, [batch * seq_len, vocab]), lbl))
         opt = (optimizer_fn() if optimizer_fn is not None

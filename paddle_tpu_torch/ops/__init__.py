@@ -11,6 +11,7 @@ from . import crf_ops  # noqa: F401
 from . import elementwise_ops  # noqa: F401
 from . import eval_ops  # noqa: F401
 from . import fused_ops  # noqa: F401
+from . import hybrid_parallel_ops  # noqa: F401
 from . import io_ops  # noqa: F401
 from . import loss_ops  # noqa: F401
 from . import math_ops  # noqa: F401

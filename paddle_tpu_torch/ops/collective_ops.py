@@ -14,13 +14,20 @@ names a *group* of replicas:
   (``((x0 + x1) + x2) + ...``), so a run is reproducible bit for bit and a
   concat-then-sum is elementwise the sum-then-concat. Each replica gets its
   own copy of the result: replicas never share a buffer.
+- ``AxisGroups``: a named axis of a mesh of several axes (or a set of
+  axes): one ``ReplicaGroup`` a subgroup, the replicas that differ only on
+  that axis. The engine runs a collective once a subgroup.
 - ``ProcessGroupAxis``: one replica a process, the group a
   ``torch.distributed`` process group (gloo for CPU tensors, NCCL across
   distinct cards); the op calls the ``torch.distributed`` collective.
 
 ``ring_axis_guard`` maps ring ids to groups while the engine runs a step,
 as the JAX engine maps them to mesh axis names; ``mesh_axes_guard`` names
-the live axes and their groups (``c_sharded_update``'s ``shard_axis``).
+the live axes and their groups (``c_sharded_update``'s ``shard_axis``, the
+hybrid ops' ``shard_axis``): an op over a live axis runs through its form
+over the subgroup that holds each replica, where ``axis_index`` is the
+replica's position and ``ppermute`` the ring rotation ``r -> r + 1 mod
+n`` (``lax.axis_index`` and ``lax.ppermute`` in the JAX package).
 Outside both (one replica, world 1) every collective is the identity, as
 in the JAX package; ``c_sharded_update`` then runs its dense form. The
 host ops (``c_gen_nccl_id``, ``c_comm_init``, ``c_sync_calc_stream``,
@@ -60,8 +67,18 @@ class ReplicaGroup:
         self.devices = [torch.device(d) for d in devices]
         self.nranks = len(self.devices)
 
+    def parts(self):
+        """(replica positions, group) of each subgroup: here one."""
+        return [(list(range(self.nranks)), self)]
+
     def axis_index(self, local: int) -> int:
         return local
+
+    def ppermute(self, xs, shift: int = 1):
+        """The ring rotation: replica r gets ``xs[(r - shift) % n]``."""
+        n = self.nranks
+        return [xs[(r - shift) % n].to(d, copy=True)
+                for r, d in enumerate(self.devices)]
 
     def _spread(self, acc: torch.Tensor) -> List[torch.Tensor]:
         return [acc if r == 0 else acc.to(d, copy=True)
@@ -98,6 +115,22 @@ class ReplicaGroup:
         """``xs[r]`` is ``[n, ...]``; replica r gets ``[xs[i][r] for i]``."""
         return [torch.stack([x[r].to(d) for x in xs])
                 for r, d in enumerate(self.devices)]
+
+
+class AxisGroups:
+    """A named axis (or set of axes) over replicas walked in lockstep: one
+    ``ReplicaGroup`` a subgroup. ``subgroups`` lists each subgroup's
+    replica positions, in rank order."""
+
+    in_process = True
+
+    def __init__(self, subgroups, devices):
+        self.subgroups = [list(g) for g in subgroups]
+        self.groups = [ReplicaGroup([devices[r] for r in g])
+                       for g in self.subgroups]
+
+    def parts(self):
+        return list(zip(self.subgroups, self.groups))
 
 
 class ProcessGroupAxis:

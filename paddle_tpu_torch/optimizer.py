@@ -24,8 +24,11 @@ step. ``ExponentialMovingAverage`` (:864), ``ModelAverage`` (:947) and
 ``LookaheadOptimizer`` (:1011) append their averaging ops after the
 update; the first two swap the parameters for their averages under
 ``apply()`` and back under ``restore()``, in place (the tensors keep their
-addresses, so a captured step reads the swapped values). ``DGCMomentum``
-and ``Pipeline`` come with later slices (ROADMAP.md).
+addresses, so a captured step reads the swapped values).
+``PipelineOptimizer`` (:658) accumulates the grads of ``num_microbatches``
+runs and updates in a ``conditional_block`` every k-th run, and records
+the stage split that ``parallel/pipeline.py`` runs over a ``pp`` axis.
+``DGCMomentum`` comes with a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
            "Adadelta", "AdadeltaOptimizer", "RMSProp", "RMSPropOptimizer",
            "Ftrl", "FtrlOptimizer", "LambOptimizer", "RecomputeOptimizer",
            "ExponentialMovingAverage", "ModelAverage",
-           "LookaheadOptimizer"]
+           "LookaheadOptimizer", "PipelineOptimizer"]
 
 
 class Optimizer:
@@ -556,6 +559,133 @@ class RecomputeOptimizer(Optimizer):
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
         return self.apply_gradients(params_grads), params_grads
+
+
+class PipelineOptimizer:
+    """Synchronous (GPipe) pipeline training around another optimizer.
+
+    On one device it is gradient accumulation over ``num_microbatches``:
+    each run feeds one microbatch, the grads of the loss scaled by 1/k add
+    into ``<param>.pipe_acc`` and the wrapped optimizer's update (with the
+    accumulators zeroed after it) runs in a ``conditional_block`` every
+    k-th run. ``minimize`` records ``program._pipeline_meta`` (the cut
+    list, the forward op count, k, the loss, the params, their
+    accumulators and the update ops), which
+    ``parallel.pipeline.run_pipeline_parallel`` runs as stages over a
+    ``pp`` mesh axis. ``place_list`` and ``concurrency_list`` are taken
+    for the API: the mesh places the stages."""
+
+    def __init__(self, optimizer, cut_list=None, place_list=None,
+                 concurrency_list=None, queue_size=30, sync_steps=1,
+                 start_cpu_core_id=0, num_microbatches=None):
+        self._optimizer = optimizer
+        self._cut_list = cut_list
+        self._place_list = place_list
+        self._num_microbatches = num_microbatches or max(
+            len(cut_list) + 1 if cut_list else 1, 1)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        program = loss.block.program
+        # the update ops go to the current block of the default program:
+        # make it this one
+        with framework.program_guard(program):
+            return self._minimize(loss, startup_program, parameter_list,
+                                  no_grad_set, int(self._num_microbatches),
+                                  program, program.global_block())
+
+    def _minimize(self, loss, startup_program, parameter_list, no_grad_set,
+                  k, program, block):
+        from .core.dtypes import dtype_to_enum
+        from .layers import tensor as layers_tensor
+
+        n_fwd_ops = len(block.ops)
+        scaled = loss
+        if k > 1:
+            scaled = block.create_var(
+                name=unique_name.generate(loss.name + ".pipe"),
+                shape=loss.shape, dtype=loss.dtype)
+            block.append_op("scale", inputs={"X": [loss]},
+                            outputs={"Out": [scaled]},
+                            attrs={"scale": 1.0 / k}, infer_shape=False)
+        params_grads = self._optimizer.backward(
+            scaled, startup_program, parameter_list, no_grad_set)
+        if k <= 1:
+            n_before = len(block.ops)
+            optimize_ops = self._optimizer.apply_gradients(params_grads)
+            self._record_pipeline_meta(
+                program, loss, n_fwd_ops, k,
+                {p.name: g.name for p, g in params_grads if g is not None},
+                list(block.ops[n_before:]))
+            return optimize_ops, params_grads
+
+        with program._optimized_guard():
+            step = layers_tensor.create_global_var(
+                name=unique_name.generate("pipe_step"), shape=[1],
+                dtype="int32", value=0, persistable=True)
+            block.append_op("increment", inputs={"X": [step]},
+                            outputs={"Out": [step]}, attrs={"step": 1.0},
+                            infer_shape=False)
+            accum_pg = []
+            for p, g in params_grads:
+                if g is None:
+                    accum_pg.append((p, g))
+                    continue
+                acc = layers_tensor.create_global_var(
+                    name=p.name + ".pipe_acc", shape=p.shape, dtype=p.dtype,
+                    value=0.0, persistable=True)
+                block.append_op("elementwise_add",
+                                inputs={"X": [acc], "Y": [g]},
+                                outputs={"Out": [acc]}, attrs={"axis": -1},
+                                infer_shape=False)
+                accum_pg.append((p, acc))
+            kconst = layers_tensor.fill_constant([1], "int32", k)
+            zero = layers_tensor.fill_constant([1], "int32", 0)
+            mod = block.create_var(name=unique_name.generate("pipe_mod"),
+                                   shape=(1,), dtype="int32")
+            block.append_op("elementwise_mod",
+                            inputs={"X": [step], "Y": [kconst]},
+                            outputs={"Out": [mod]}, attrs={"axis": -1},
+                            infer_shape=False)
+            cond = block.create_var(name=unique_name.generate("pipe_cond"),
+                                    shape=(1,), dtype="bool")
+            block.append_op("equal", inputs={"X": [mod], "Y": [zero]},
+                            outputs={"Out": [cond]}, infer_shape=False)
+            sub = program._create_block()
+            try:
+                optimize_ops = self._optimizer.apply_gradients(accum_pg)
+                for p, acc in accum_pg:
+                    if acc is None:
+                        continue
+                    sub.append_op(
+                        "fill_constant", inputs={},
+                        outputs={"Out": [acc.name]},
+                        attrs={"shape": list(acc.shape), "value": 0.0,
+                               "dtype": dtype_to_enum(acc.dtype)},
+                        infer_shape=False)
+            finally:
+                program._rollback()
+            block.append_op(
+                "conditional_block", inputs={"Cond": [cond]}, outputs={},
+                attrs={"sub_block": sub, "is_scalar_condition": True},
+                infer_shape=False)
+        self._record_pipeline_meta(
+            program, loss, n_fwd_ops, k,
+            {p.name: acc.name for p, acc in accum_pg if acc is not None},
+            list(sub.ops))
+        return optimize_ops, params_grads
+
+    def _record_pipeline_meta(self, program, loss, n_fwd_ops, k, acc_map,
+                              update_ops):
+        program._pipeline_meta = {
+            "cut_list": self._cut_list or [],
+            "num_microbatches": k,
+            "n_fwd_ops": n_fwd_ops,
+            "loss": loss.name,
+            "params": list(acc_map),
+            "acc_map": dict(acc_map),
+            "update_ops": update_ops,
+        }
 
 
 class _ParamSwapper:

@@ -1,27 +1,38 @@
-"""Data-parallel execution engine: ``CompiledProgram.with_data_parallel``.
+"""Mesh execution engine: ``CompiledProgram.with_data_parallel``.
 
 Counterpart of ``paddle_tpu/parallel/engine.py`` (the reference's
-ParallelExecutor), for the data axis. The JAX engine wraps the step in one
-``shard_map`` over a 1-D mesh; here the replicas of this process run the
-same step function (``core/compiler_engine``'s ``_Step``) in lockstep, one
-env each:
+ParallelExecutor), for the data axes and the model axes. The JAX engine
+wraps the step in one ``shard_map`` over the mesh; here the replicas of
+this process run the same step function (``core/compiler_engine``'s
+``_Step``) in lockstep, one env each:
 
 - the program is transpiled as the JAX engine does it: the loss grad
-  scaled by 1/n (``GradientScaleStrategy.CoeffNumDevice``), a
-  ``c_allreduce_sum`` before the optimizer for every grad, the batch norms
-  marked under ``BuildStrategy.sync_batch_norm``, then
+  scaled by 1 / (the replicas over the data axes)
+  (``GradientScaleStrategy.CoeffNumDevice``), a ``c_allreduce_sum`` over
+  the data axes before the optimizer for every grad but those of params
+  sharded over a data axis, the batch norms marked under
+  ``BuildStrategy.sync_batch_norm``, then
   ``collectives.maybe_rewrite_collectives`` (buckets, quantization, the
   sharded update);
-- feeds are split on the batch axis, one shard a replica; params and state
-  are replicated, each replica with its own tensors (replica 0's are the
-  scope's, the others copies made once and kept), and a var the rewrites
-  shard over the data axis (the sharded update's flat state, an error
-  feedback residual) is held whole in the scope, each replica updating its
-  1/n slice in place;
-- every op runs once a replica, except a collective (and a sync batch
-  norm): it runs once for all replicas through its form over the group
-  (``ops/collective_ops``), which reduces in rank order;
-- fetches come back stacked ``[n, ...]``, as ParallelExecutor merges them.
+- the data axes are those the program's ``_data_axes`` declares (the
+  hybrid passes merge theirs in; default the engine's ``axis_name``) and
+  the mesh has. A pure model-parallel mesh has none: its feeds are
+  replicated and it does no allreduce. Promoting a model axis to a data
+  axis would split the feeds and drop cross-shard grad shares;
+- a feed splits on the dims its ``_feed_shard_specs`` entry names
+  (default: the batch over the first data axis), one block a replica;
+- a var under ``_var_shard_specs`` is held as one block a replica (the
+  scope keeps it whole: blocks are views of it where no other replica
+  holds the same block, else copies), params and other state are
+  replicated, each replica with its own tensors (replica 0's are the
+  scope's, the others copies made once and kept);
+- every op runs once a replica, except an op with a form over a group (a
+  collective, a sync batch norm, a hybrid op over a live ``shard_axis``):
+  it runs once a subgroup of its axis (``ops/collective_ops.AxisGroups``),
+  which reduces in rank order;
+- fetches come back stacked over the data axes ``[n_data, ...]`` (one
+  replica a data coordinate), as ParallelExecutor merges them; with no
+  data axis, the one value.
 
 On the card the first run of a program and shapes is eager, the second
 captures every replica's step and the reductions between them into one
@@ -30,12 +41,15 @@ as on the single-replica route. The route declines a capture by name
 (counted in ``executor.compile_fallbacks``, named in
 ``compiler_engine.declines()``) and runs every step eagerly for: replicas on more
 than one card (a graph holds one), control flow across replicas, and a
-collective over a gloo process group (gloo is not capturable).
+collective over a gloo process group (gloo is not capturable). A host op
+the step cannot hold (``lookup_table_sparse_grad``, say) is refused before
+any replica runs, with the JAX engine's words.
 
 Over a ``torch.distributed`` world (``default_mesh()`` in a process the
 launcher started; ``distributed/launch.py``) each process runs one replica
 on its own batch shard and the collectives call ``torch.distributed`` on
-the group; fetches are gathered from every process.
+the group; fetches are gathered from every process. Hybrid shard specs
+over such a mesh are refused, as in the JAX engine.
 
 A program the single-chip fused-optimizer pass rewrote is refused on more
 than one replica, with the JAX engine's message: its grads would dodge the
@@ -48,6 +62,7 @@ kind; with the observability layer armed the engine adds it to
 """
 from __future__ import annotations
 
+import math
 import time
 import warnings
 from typing import Dict, List, Sequence, Tuple
@@ -56,16 +71,16 @@ import torch
 
 from ..core import compiler_engine as _ce
 from ..core.compiler_engine import (_CONST, _FOLDED, _IF, _WHILE,
-                                    _analyze, _scope_tensor,
+                                    _analyze, _fold_plan, _scope_tensor,
                                     compile_program)
 from ..core.cuda_graph import CapturedGraph, same_memory
 from ..core.enforce import annotate_op_error
 from ..core.executor_core import (_UNBOUND, call_op, gather_inputs,
                                   output_pairs, rng_seed)
-from ..core.registry import DEVICE_ATTR, GENERATOR_ATTR
+from ..core.registry import DEVICE_ATTR, GENERATOR_ATTR, OpInfoMap
 from ..core.scope import Scope
 from ..core.tensor import LoDTensor, stage_feed
-from ..ops.collective_ops import (ProcessGroupAxis, ReplicaGroup,
+from ..ops.collective_ops import (AxisGroups, ProcessGroupAxis,
                                   mesh_axes_guard, ring_axis_guard)
 from .mesh_utils import Mesh, default_mesh, make_mesh, mesh_key
 from .transpiler import insert_allreduce_ops
@@ -169,11 +184,15 @@ def _replica_seed(seed: int, attrs, r: int) -> int:
     return (seed + r * _REPLICA_SALT) & 0xFFFFFFFF
 
 
-def _walk(block, envs: List[Dict], devices, rng, graph=None) -> None:
+def _walk(block, envs: List[Dict], devices, rng, graph=None,
+          salts=None) -> None:
     """Run ``block`` (a ``compiler_engine._Block``) for every replica in
-    lockstep: each op once a replica, a collective once for all of them
-    through its form over the group its attrs reach."""
+    lockstep: each op once a replica, an op with a group form once a
+    subgroup of the group its attrs reach. ``salts`` (default: the
+    replica's position) seeds each replica's RNG ops: replicas of one data
+    coordinate draw the same numbers."""
     n = len(envs)
+    salts = list(range(n)) if salts is None else salts
     for kind, op, info, attrs, outs, drops in block.ops:
         if kind == _FOLDED:
             for env, dev in zip(envs, devices):
@@ -190,14 +209,16 @@ def _walk(block, envs: List[Dict], devices, rng, graph=None) -> None:
                 else None
             if group is not None and group.in_process:
                 ins_list = [gather_inputs(info, op, env.get) for env in envs]
-                try:
-                    outs_list = info.group_fn(ins_list, attrs, group)
-                except Exception as e:
-                    annotate_op_error(e, op, "data parallel")
-                    raise
-                for env, o in zip(envs, outs_list):
-                    for k, v in output_pairs(info, op, o):
-                        env[k] = v
+                for ranks, g in group.parts():
+                    try:
+                        sub = info.group_fn([ins_list[r] for r in ranks],
+                                            attrs, g)
+                    except Exception as e:
+                        annotate_op_error(e, op, "data parallel")
+                        raise
+                    for r, o in zip(ranks, sub):
+                        for k, v in output_pairs(info, op, o):
+                            envs[r][k] = v
             else:
                 for r in range(n):
                     a = attrs
@@ -211,7 +232,7 @@ def _walk(block, envs: List[Dict], devices, rng, graph=None) -> None:
                         else:
                             gen = torch.Generator(device=devices[r])
                             gen.manual_seed(_replica_seed(
-                                rng_seed(rng, attrs, op), attrs, r))
+                                rng_seed(rng, attrs, op), attrs, salts[r]))
                             a[GENERATOR_ATTR] = gen
                     ins = gather_inputs(info, op, envs[r].get)
                     o = call_op(info, op, ins, a, "data parallel")
@@ -222,16 +243,77 @@ def _walk(block, envs: List[Dict], devices, rng, graph=None) -> None:
                 env.pop(k, None)
 
 
-class _DPRun:
-    """One (step, mesh, scope): its group, the shard layout, the replicas'
-    copies of the replicated state (eager runs), the traffic estimate."""
+def refuse_host_ops(block) -> None:
+    """Raise the JAX engine's ``NotImplementedError`` at the first host op
+    of ``block`` (or of a sub-block) that does not fold to constants: a
+    replica's step cannot hold it."""
+    infos = OpInfoMap.instance()
+    fold_idxs = _fold_plan(block)[0]
+    for i, op in enumerate(block.ops):
+        sub = op.attrs.get("sub_block")
+        if op.type in ("while", "conditional_block"):
+            if sub is not None:
+                refuse_host_ops(sub)
+            continue
+        if i in fold_idxs or not infos.has(op.type):
+            continue
+        if infos.get(op.type).host_fn is not None:
+            raise NotImplementedError(
+                "host op %r cannot be traced (not const-foldable here)"
+                % op.type)
 
-    def __init__(self, step, devices, group, sharded, coll_est):
+
+# -- the layout of a var over the mesh -----------------------------------------
+
+def take_block(t: torch.Tensor, spec, coords: Dict[str, int],
+               shape: Dict[str, int]) -> torch.Tensor:
+    """The block of ``t`` a replica at ``coords`` holds under ``spec`` (the
+    mesh axis of each dim, None where the dim is whole): a view."""
+    for d, a in enumerate(spec or ()):
+        if a:
+            n = shape[a]
+            if t.shape[d] % n:
+                raise ValueError(
+                    "dim %d of %s does not split over the %d replicas of "
+                    "axis %r" % (d, tuple(t.shape), n, a))
+            t = t.narrow(d, coords[a] * (t.shape[d] // n), t.shape[d] // n)
+    return t
+
+
+def _block_key(spec, coords) -> Tuple:
+    return tuple(coords[a] for a in (spec or ()) if a)
+
+
+class _DPRun:
+    """One (step, mesh, scope): its groups, the layout of its sharded vars,
+    the replicas' copies of the replicated state (eager runs), the traffic
+    estimate."""
+
+    def __init__(self, step, mesh, devices, group, axis_groups, sharded,
+                 data_axes, coll_est):
         self.step = step
         self.devices = devices
-        self.group = group
-        self.sharded = sharded  # names held 1/n a replica
+        self.group = group  # the data axes' group (ring 0), or None
+        self.axis_groups = axis_groups  # mesh axis name -> group
+        self.sharded = sharded  # name -> spec, held as blocks
         self.coll_est = coll_est
+        self.shape = dict(mesh.shape)
+        self.coords = [mesh.coords(r) for r in range(len(devices))] \
+            if not mesh.spans_processes else [
+                {a: 0 for a in mesh.axis_names}]
+        model = [a for a in mesh.axis_names if a not in data_axes]
+        # the replicas a fetch stacks over: one a data coordinate
+        self.fetch_ranks = [r for r, c in enumerate(self.coords)
+                            if all(c[a] == 0 for a in model)]
+        self.stack_fetches = bool(data_axes) or mesh.spans_processes
+        # RNG salt: the data coordinate (model replicas draw alike)
+        self.salts = []
+        for c in self.coords:
+            k = 0
+            for a in mesh.axis_names:
+                if a in data_axes:
+                    k = k * self.shape[a] + c[a]
+            self.salts.append(k)
         self.copies: Dict[str, Tuple] = {}  # name -> (scope tensor, reps)
         self.capturable = None  # None: not decided; else (bool, reason)
         self.graph = None  # the graph the last step replayed, if any
@@ -240,16 +322,55 @@ class _DPRun:
     def n(self) -> int:
         return len(self.devices)
 
-    def guards(self, ring_val_axes):
+    def guards(self):
         ring = {0: self.group, -1: self.group} if self.group else {}
-        axes = {a: self.group for a in ring_val_axes} if self.group else {}
-        return ring_axis_guard(ring), mesh_axes_guard(axes)
+        return ring_axis_guard(ring), mesh_axes_guard(self.axis_groups)
+
+    def blocks(self, t: torch.Tensor, name: str) -> List[torch.Tensor]:
+        """Each replica's block of the sharded var ``name`` (whole ``t``):
+        a view for the first replica holding a block, a copy for the
+        others, each on its replica's device."""
+        spec = self.sharded[name]
+        seen, out = set(), []
+        for c, d in zip(self.coords, self.devices):
+            b = take_block(t, spec, c, self.shape)
+            key = _block_key(spec, c)
+            if key in seen:
+                b = b.to(d, copy=True)
+            else:
+                seen.add(key)
+                b = b if b.device == d else b.to(d)
+            out.append(b)
+        return out
+
+    def assemble(self, name: str, vals, like: torch.Tensor):
+        """The whole var from the replicas' blocks (the first holder of
+        each), or None where they are still views of ``like``."""
+        spec = self.sharded[name]
+        firsts, seen = [], set()
+        for c, v in zip(self.coords, vals):
+            key = _block_key(spec, c)
+            if key not in seen:
+                seen.add(key)
+                firsts.append((c, v))
+        if isinstance(like, torch.Tensor) and all(
+                same_memory(v, take_block(like, spec, c, self.shape))
+                for c, v in firsts):
+            return None
+        dev = vals[0].device
+        full = list(vals[0].shape)
+        for d, a in enumerate(spec or ()):
+            if a:
+                full[d] *= self.shape[a]
+        out = torch.empty(full, dtype=vals[0].dtype, device=dev)
+        for c, v in firsts:
+            take_block(out, spec, c, self.shape).copy_(v.to(dev))
+        return out
 
     def replica_state(self, scope: Scope, name: str) -> List[torch.Tensor]:
         t = _scope_tensor(scope, name)
         if name in self.sharded:
-            return [c if c.device == d else c.to(d)
-                    for c, d in zip(t.chunk(self.n), self.devices)]
+            return self.blocks(t, name)
         hit = self.copies.get(name)
         if hit is not None and hit[0] is t:
             return hit[1]
@@ -265,14 +386,10 @@ class _DPRun:
             if any(v is None for v in vals):
                 continue
             if name in self.sharded:
-                t = _scope_tensor(scope, name)
-                if isinstance(t, torch.Tensor) and all(
-                        same_memory(v, c)
-                        for v, c in zip(vals, t.chunk(self.n))):
-                    continue
-                dev = vals[0].device
-                scope.var(name).set(LoDTensor(torch.cat(
-                    [v.to(dev) for v in vals])))
+                whole = self.assemble(name, vals,
+                                      _scope_tensor(scope, name))
+                if whole is not None:
+                    scope.var(name).set(LoDTensor(whole))
                 continue
             scope.var(name).set(LoDTensor(vals[0]))
             self.copies[name] = (vals[0], vals)
@@ -284,7 +401,7 @@ class _DPGraph(CapturedGraph):
     the others copies; a sharded var's replicas slices of the scope's
     tensor), the generators a replica and op, the fetches."""
 
-    def __init__(self, run: _DPRun, core, scope: Scope, feeds, axes):
+    def __init__(self, run: _DPRun, core, scope: Scope, feeds):
         step = run.step
         dev = run.devices[0]
         n = run.n
@@ -302,8 +419,8 @@ class _DPGraph(CapturedGraph):
                 scope.var(name).set(LoDTensor(t))
             self.state0[name] = t
             if name in run.sharded:
-                for r, c in enumerate(t.chunk(n)):
-                    self.bufs[r][name] = c
+                for r, b in enumerate(run.blocks(t, name)):
+                    self.bufs[r][name] = b
             else:
                 self.bufs[0][name] = t
                 for r in range(1, n):
@@ -320,9 +437,10 @@ class _DPGraph(CapturedGraph):
             envs.append(env)
 
         def body():
-            g_ring, g_axes = run.guards(axes)
+            g_ring, g_axes = run.guards()
             with g_ring, g_axes:
-                _walk(step.block, envs, run.devices, None, graph=self)
+                _walk(step.block, envs, run.devices, None, graph=self,
+                      salts=run.salts)
             for r in range(n):
                 for name in step.out_state_names:
                     new, buf = envs[r].get(name), self.bufs[r][name]
@@ -356,7 +474,13 @@ class _DPGraph(CapturedGraph):
             stale.append((name, t))
         for name, t in stale:
             self.state0[name].copy_(t)
-            if name not in run.sharded:
+            if name in run.sharded:
+                for r, c in enumerate(run.coords):
+                    view = take_block(self.state0[name], run.sharded[name],
+                                      c, run.shape)
+                    if not same_memory(self.bufs[r][name], view):
+                        self.bufs[r][name].copy_(view)
+            else:
                 for r in range(1, run.n):
                     self.bufs[r][name].copy_(t)
         return True
@@ -368,11 +492,12 @@ class _DPGraph(CapturedGraph):
         for k, (op, attrs) in run.step.rng_ops.items():
             seed = rng_seed(core.rng, attrs, op)
             for r in range(run.n):
-                self.gens[r][k].manual_seed(_replica_seed(seed, attrs, r))
+                self.gens[r][k].manual_seed(
+                    _replica_seed(seed, attrs, run.salts[r]))
         self.launch()
 
 
-def _capture_decline(run: _DPRun, program, axes):
+def _capture_decline(run: _DPRun):
     """The name a capture of this run is declined under, else None."""
     if len(set(run.devices)) > 1:
         return ("data parallel (replicas on %d cards: a graph holds one)"
@@ -382,7 +507,7 @@ def _capture_decline(run: _DPRun, program, axes):
             run.step.nodes[0].op.type
     if isinstance(run.group, ProcessGroupAxis) and \
             run.group.backend == "gloo":
-        g_ring, g_axes = run.guards(axes)
+        g_ring, g_axes = run.guards()
         with g_ring, g_axes:
             for kind, op, info, attrs, _, _ in run.step.block.ops:
                 if info is not None and info.group_fn is not None and \
@@ -391,13 +516,13 @@ def _capture_decline(run: _DPRun, program, axes):
     return None
 
 
-def _run_replicas(core, run: _DPRun, program, scope, feeds, axes):
+def _run_replicas(core, run: _DPRun, program, scope, feeds):
     """One step of every local replica; returns each replica's fetches."""
     step = run.step
     on_card = run.devices[0].type == "cuda"
     if on_card:
         if run.capturable is None:
-            why = _capture_decline(run, program, axes)
+            why = _capture_decline(run)
             run.capturable = (why is None, why)
             if why is not None:
                 _ce.inc("executor.compile_fallbacks")
@@ -419,7 +544,7 @@ def _run_replicas(core, run: _DPRun, program, scope, feeds, axes):
             if graph is not None or sig in core.warm:
                 if graph is None:
                     _ce.inc("executor.jit_traces")
-                    graph = _DPGraph(run, core, scope, feeds, axes)
+                    graph = _DPGraph(run, core, scope, feeds)
                     core.graphs.put(sig, graph)
                 graph.replay(run, core, feeds)
                 run.graph = graph
@@ -438,9 +563,9 @@ def _run_replicas(core, run: _DPRun, program, scope, feeds, axes):
             env[name] = t
     for env, f, d in zip(envs, feeds, run.devices):
         env.update({k: v.to(d, copy=True) for k, v in f.items()})
-    g_ring, g_axes = run.guards(axes)
+    g_ring, g_axes = run.guards()
     with g_ring, g_axes:
-        _walk(step.block, envs, run.devices, core.rng)
+        _walk(step.block, envs, run.devices, core.rng, salts=run.salts)
     core.rng.advance()
     run.write_back(scope, envs)
     return [{k: env[k] for k in step.fetch_names if k in env}
@@ -450,7 +575,7 @@ def _run_replicas(core, run: _DPRun, program, scope, feeds, axes):
 def replica_values(executor, name: str) -> List[torch.Tensor]:
     """Each local replica's tensor of the state var ``name`` after the
     executor's last data-parallel step (replica 0's is the scope's; a
-    sharded var's are its slices)."""
+    sharded var's are its blocks)."""
     run = executor._core.dp_last
     if run is None:
         raise RuntimeError("the executor ran no data-parallel step")
@@ -478,48 +603,70 @@ def _resolve_mesh(core, places, mesh, axis_name) -> Mesh:
                         place=here if (_world() or not cuda) else None)
 
 
-def _split_feed(name, value, n: int) -> List[torch.Tensor]:
+def _feed_tensor(name, value) -> torch.Tensor:
     if isinstance(value, LoDTensor):
         if value.lod():
             raise NotImplementedError(
                 "feed %r carries LoD: data parallelism takes dense feeds"
                 % name)
         value = value.array
-    t = stage_feed(value)
-    if n == 1:
-        return [t]
-    if t.dim() == 0 or t.shape[0] % n:
-        raise ValueError("feed %r of batch %s does not split over %d "
-                         "replicas" % (name, tuple(t.shape), n))
-    return list(t.chunk(n))
+    return stage_feed(value)
+
+
+def _split_feed(name, t: torch.Tensor, spec, run: _DPRun
+                ) -> List[torch.Tensor]:
+    """Each replica's block of a feed under ``spec``."""
+    if not any(spec):
+        return [t] * run.n
+    for d, a in enumerate(spec):
+        if a and (t.dim() <= d or t.shape[d] % run.shape[a]):
+            raise ValueError("feed %r of batch %s does not split over %d "
+                             "replicas" % (name, tuple(t.shape),
+                                           run.shape[a]))
+    return [take_block(t, spec, c, run.shape) for c in run.coords]
+
+
+def _mesh_layout(program, mesh: Mesh, axis_name: str = "dp"):
+    """(data axes, var shard specs, feed shard specs) of ``program`` over
+    ``mesh``, checked as the JAX engine checks them."""
+    shard_specs = dict(getattr(program, "_var_shard_specs", None) or {})
+    feed_specs = dict(getattr(program, "_feed_shard_specs", None) or {})
+    mesh_axes = set(mesh.axis_names)
+    data_axes = tuple(a for a in (getattr(program, "_data_axes", None)
+                                  or (axis_name,)) if a in mesh_axes)
+    # a pure model-parallel mesh has no data axis: the batch is
+    # replicated and the grads need no allreduce
+    shard_axes_used = {a for spec in shard_specs.values() for a in spec if a}
+    if not data_axes and mesh.axis_names[0] not in shard_axes_used:
+        data_axes = (mesh.axis_names[0],)
+    for n, spec in list(shard_specs.items()) + list(feed_specs.items()):
+        for a in spec:
+            if a is not None and a not in mesh_axes:
+                raise ValueError(
+                    "var %r sharded over axis %r absent from mesh axes %s"
+                    % (n, a, sorted(mesh_axes)))
+    if mesh.spans_processes and (shard_specs or feed_specs):
+        raise NotImplementedError(
+            "hybrid shard specs over a multi-process mesh")
+    return data_axes, shard_specs, feed_specs
 
 
 def run_data_parallel(core, program, scope: Scope, feed: Dict,
                       fetch_list: Sequence, loss_name=None, places=None,
                       build_strategy=None, return_numpy=True,
                       mesh=None, axis_name="dp"):
-    """One data-parallel step of ``program`` over the mesh ``places`` (a
-    ``Mesh`` or a list of places; default: one replica a visible card, or
-    a process of a ``torch.distributed`` world). ``feed`` carries the full
-    batch in one process and each process's own shard over a world.
-    Returns each fetch stacked over the replicas."""
+    """One step of ``program`` over the mesh ``places`` (a ``Mesh`` of one
+    or more named axes, or a list of places; default: one replica a
+    visible card, or a process of a ``torch.distributed`` world). ``feed``
+    carries the full batch in one process and each process's own shard
+    over a world. Returns each fetch stacked over the data axes."""
     mesh = _resolve_mesh(core, places, mesh, axis_name)
     nranks = mesh.world_size()
     multiproc = mesh.spans_processes
-    shard_specs = dict(getattr(program, "_var_shard_specs", None) or {})
-    if getattr(program, "_feed_shard_specs", None) or any(
-            a not in mesh.axis_names for spec in shard_specs.values()
-            for a in spec if a):
-        raise NotImplementedError(
-            "hybrid shard specs (model axes) are not ported: the port "
-            "runs data parallelism only")
-    data_axes = tuple(a for a in (getattr(program, "_data_axes", None)
-                                  or (axis_name,)) if a in mesh.axis_names)
-    if not data_axes:
-        data_axes = (mesh.axis_names[0],)
-    if len(data_axes) != 1 or len(mesh.axis_names) != 1:
-        raise NotImplementedError("a data-parallel mesh has one axis; got "
-                                  "%s" % (mesh.axis_names,))
+    data_axes, shard_specs, feed_specs = _mesh_layout(program, mesh,
+                                                      axis_name)
+    data_nranks = math.prod(mesh.shape[a] for a in data_axes) \
+        if not multiproc else nranks
 
     sync_bn = bool(build_strategy is not None and getattr(
         build_strategy, "sync_batch_norm", False))
@@ -534,7 +681,7 @@ def run_data_parallel(core, program, scope: Scope, feed: Dict,
     if nranks > 1:
         skip_axes = getattr(program, "_allreduce_skip_grads", None) or {}
         insert_allreduce_ops(
-            program, nranks, scale_loss=scale_loss,
+            program, data_nranks, scale_loss=scale_loss,
             skip_grads={g for g, axes in skip_axes.items()
                         if set(axes) & set(data_axes)})
         from .transpiler import mark_sync_batch_norm
@@ -542,26 +689,31 @@ def run_data_parallel(core, program, scope: Scope, feed: Dict,
         mark_sync_batch_norm(program, sync_bn)
         from .collectives import maybe_rewrite_collectives
 
-        maybe_rewrite_collectives(program, scope, nranks, data_axes,
+        maybe_rewrite_collectives(program, scope, data_nranks, data_axes,
                                   build_strategy=build_strategy,
                                   multiproc=multiproc)
         shard_specs = dict(getattr(program, "_var_shard_specs", None)
                            or {})
+    refuse_host_ops(program.global_block())
 
     devices = mesh.devices
     if multiproc:
         group = ProcessGroupAxis(None if mesh.process_group == "world"
                                  else mesh.process_group)
+        axis_groups = {a: group for a in data_axes}
+    elif nranks > 1:
+        axis_groups = {a: AxisGroups(mesh.axis_groups([a]), devices)
+                       for a in mesh.axis_names}
+        group = (AxisGroups(mesh.axis_groups(data_axes), devices)
+                 if data_axes else None)
     else:
-        group = ReplicaGroup(devices) if nranks > 1 else None
+        group, axis_groups = None, {}
     n_local = len(devices)
 
     fetch_names = tuple(f if isinstance(f, str) else f.name
                         for f in fetch_list)
-    split = {k: _split_feed(k, v, n_local) for k, v in (feed or {}).items()}
-    feeds = [{k: parts[r] for k, parts in split.items()}
-             for r in range(n_local)]
-    feed_names = tuple(sorted(split))
+    feed_vals = {k: _feed_tensor(k, v) for k, v in (feed or {}).items()}
+    feed_names = tuple(sorted(feed_vals))
 
     read_first, _, persist_written = _analyze(program)
     state_names = []
@@ -580,21 +732,29 @@ def run_data_parallel(core, program, scope: Scope, feed: Dict,
 
     runs = core.dp_runs
     key = (step.key, mesh_key(mesh), tuple(str(d) for d in devices),
-           sync_bn, id(scope))
+           sync_bn, id(scope), data_axes,
+           tuple(sorted(shard_specs.items())),
+           tuple(sorted(feed_specs.items())))
     run = runs.get(key)
     if run is None:
         _obs.inc("parallel.compiles")
-        sharded = frozenset(k for k, spec in shard_specs.items()
-                            if spec and spec[0] in data_axes)
-        run = _DPRun(step, devices, group, sharded,
-                     _estimate_collective_bytes(program, scope))
+        sharded = {k: tuple(spec) for k, spec in shard_specs.items()
+                   if any(spec) and k in set(out_state_names)}
+        run = _DPRun(step, mesh, devices, group, axis_groups, sharded,
+                     data_axes, _estimate_collective_bytes(program, scope))
         if len(runs) >= 64:
             runs.pop(next(iter(runs)))
         runs[key] = run
 
+    default_spec = (data_axes[0],) if data_axes and n_local > 1 else ()
+    split = {k: _split_feed(k, v, feed_specs.get(k, default_spec), run)
+             for k, v in feed_vals.items()}
+    feeds = [{k: parts[r] for k, parts in split.items()}
+             for r in range(n_local)]
+
     core.dp_last = run
     t_step = time.perf_counter() if _obs.enabled() else None
-    outs = _run_replicas(core, run, program, scope, feeds, data_axes)
+    outs = _run_replicas(core, run, program, scope, feeds)
     _ce.inc("executor.steps")
     if t_step is not None:
         coll = run.coll_est
@@ -613,17 +773,19 @@ def run_data_parallel(core, program, scope: Scope, feed: Dict,
 
     results = []
     for name in fetch_names:
-        vals = [o.get(name) for o in outs]
+        vals = [outs[r].get(name) for r in run.fetch_ranks]
         if any(v is None for v in vals):
             t = _scope_tensor(scope, name)
             if t is None:
                 raise RuntimeError("fetch variable %r not produced" % name)
-            vals = [t] * n_local
+            vals = [t] * len(run.fetch_ranks)
         dev = vals[0].device
         if multiproc:
             stacked = group.all_gather([vals[0]])[0]
-        else:
+        elif run.stack_fetches:
             stacked = torch.stack([v.to(dev) for v in vals])
+        else:
+            stacked = vals[0]
         t = LoDTensor(stacked)
         results.append(t.numpy() if return_numpy else t)
     return results

@@ -1,7 +1,12 @@
 """Mesh construction helpers.
 
 Counterpart of ``paddle_tpu/parallel/mesh_utils.py``. A mesh is a list of
-places with axis names and a shape: ``make_mesh([2], ["dp"], places)``.
+places with axis names and a shape: ``make_mesh([2], ["dp"], places)``, or
+several named axes, ``make_mesh([2, 2, 2], ["dp", "pp", "mp"])``. Replica
+r sits at ``coords(r)`` (row-major over the shape, as the JAX package
+reshapes its devices), and ``axis_groups(axes)`` are the subgroups of an
+axis (or of several): the replicas that differ only on those axes, each in
+rank order.
 A place may appear more than once (``[CUDAPlace(0)] * 2`` runs two
 replicas on one card, ``[CPUPlace()] * 8`` eight on the CPU). A mesh over
 a ``torch.distributed`` world (``process_group`` set) names one replica
@@ -10,7 +15,7 @@ a process: each process holds its own place, and the group spans them.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,6 +48,30 @@ class Mesh:
         group = (None if self.process_group == "world"
                  else self.process_group)
         return dist.get_world_size(group)
+
+    def coords(self, r: int) -> Dict[str, int]:
+        """Replica ``r``'s coordinate on every axis."""
+        out = {}
+        for name in reversed(self.axis_names):
+            size = self.shape[name]
+            out[name] = r % size
+            r //= size
+        return {a: out[a] for a in self.axis_names}
+
+    def axis_groups(self, axes: Sequence[str],
+                    members: Optional[Sequence[int]] = None
+                    ) -> List[List[int]]:
+        """The subgroups of ``axes`` among ``members`` (default: every
+        replica): replicas that agree on every other axis, each subgroup
+        in rank order, the subgroups in the order of their first rank."""
+        axes = set(axes)
+        groups: Dict[Tuple, List[int]] = {}
+        for r in (range(self.world_size()) if members is None
+                  else members):
+            c = self.coords(r)
+            key = tuple(c[a] for a in self.axis_names if a not in axes)
+            groups.setdefault(key, []).append(r)
+        return list(groups.values())
 
     @property
     def devices(self):

@@ -1,13 +1,25 @@
-"""Collective program rewrites: the data-parallel passes.
+"""Collective program rewrites.
 
-Counterpart of the data-parallel half of ``paddle_tpu/parallel/
-transpiler.py`` (the reference's ``transpiler/collective.py``: GradAllReduce
-scales the loss grad by 1/nranks and allreduces every grad an optimizer op
-reads; LocalSGD averages the parameters). ``ring_id`` stays in the op
-attrs; at run time the engine maps it to a group of replicas. The hybrid
-passes (sharded embedding, sequence and expert parallelism) come with the
-hybrid slice (ROADMAP.md), and the contract check around each pass with
-the analysis package.
+Counterpart of ``paddle_tpu/parallel/transpiler.py``: the data-parallel
+passes (the reference's ``transpiler/collective.py``: GradAllReduce scales
+the loss grad by 1/nranks and allreduces every grad an optimizer op reads;
+LocalSGD averages the parameters) and the hybrid passes
+(``:113-316``), which swap a user's ops for their collective-aware twins
+(``ops/hybrid_parallel_ops.py``) before the backward is built:
+``apply_sharded_embedding`` (``lookup_table`` -> ``c_sharded_lookup``
+over ``mp``), ``apply_sequence_parallel`` (``flash_attention`` ->
+``c_ring_attention`` over ``sp``) and ``apply_expert_parallel`` (``moe``
+over ``ep``). Each records the mesh layout on the program:
+
+- ``_var_shard_specs``: var name -> the mesh axis of each dim;
+- ``_feed_shard_specs``: feed name -> the mesh axis of each dim;
+- ``_data_axes``: the axes the batch splits over (the loss-grad scale and
+  the allreduce), merged by every pass, never overwritten;
+- ``_allreduce_skip_grads``: the grads of sharded params and their axes.
+
+``ring_id`` stays in the op attrs; at run time the engine maps it to a
+group of replicas. The contract check around each pass comes with the
+analysis package.
 """
 from __future__ import annotations
 
@@ -87,6 +99,25 @@ def insert_local_sgd_ops(program, nranks: int, k_steps: int = 1,
     return params
 
 
+def _mark_shard(program, name: str, spec):
+    specs = getattr(program, "_var_shard_specs", None)
+    if specs is None:
+        specs = program._var_shard_specs = {}
+    specs[name] = tuple(spec)
+
+
+def _skip_grad(program, grad_name: str, axes):
+    """Record that ``grad_name`` belongs to a param sharded over ``axes``.
+    The engine skips its data-axis allreduce only where the shard axis is
+    a data axis (expert parallel: the all-to-all's transpose already sums
+    every shard's share); a grad sharded over a model axis (an ``mp``
+    table block under dp x mp) still needs the psum over dp."""
+    skips = getattr(program, "_allreduce_skip_grads", None)
+    if skips is None:
+        skips = program._allreduce_skip_grads = {}
+    skips[grad_name] = tuple(a for a in axes if a)
+
+
 def _bump_version(program):
     # attr-only rewrites must still invalidate the version-keyed caches
     program._next_op_id()
@@ -99,6 +130,160 @@ def _merge_data_axes(program, axes):
         if a not in cur:
             cur.append(a)
     program._data_axes = tuple(cur)
+
+
+def apply_sharded_embedding(program, axis: str = "mp", degree: int = 0,
+                            startup_program=None):
+    """Tensor parallelism for embedding tables: every ``lookup_table[_v2]``
+    becomes ``c_sharded_lookup`` with its table row-sharded over ``axis``.
+    Call before ``minimize()``. Returns the sharded table names.
+
+    An uneven vocab (V % degree != 0) pads the table to the next multiple
+    of ``degree`` in both programs (the pad rows are never looked up: their
+    grads are zero and the optimizer leaves them at their init), which is
+    why the startup program must be given then. ``is_sparse=True`` becomes
+    a dense row-sharded grad, with a warning."""
+    block = program.global_block()
+    tables = []
+    for op in block.ops:
+        if op.type not in ("lookup_table", "lookup_table_v2"):
+            continue
+        w = op.input("W")[0]
+        v = block._find_var_recursive(w)
+        vocab = int(v.shape[0]) if v is not None and v.shape else 0
+        if degree and vocab and vocab % degree:
+            v_pad = -(-vocab // degree) * degree
+            if startup_program is None:
+                raise ValueError(
+                    "sharded embedding %r: vocab %d not divisible by "
+                    "mp degree %d — pass startup_program so the table "
+                    "can be padded to %d rows"
+                    % (w, v.shape[0], degree, v_pad))
+            _pad_table_rows(program, startup_program, w, v, v_pad)
+        if op.attrs.get("is_sparse"):
+            import warnings
+
+            warnings.warn(
+                "sharded embedding %r: is_sparse=True becomes a dense "
+                "row-sharded gradient under tensor parallelism" % w)
+        squeeze = op.type == "lookup_table"  # v2 keeps the trailing dim
+        op.type = "c_sharded_lookup"
+        op.attrs = {"shard_axis": axis,
+                    "padding_idx": int(op.attrs.get("padding_idx", -1)),
+                    "squeeze_last": squeeze,
+                    "vocab_size": vocab}  # the vocab before padding
+        _mark_shard(program, w, (axis,))
+        _skip_grad(program, w + GRAD_SUFFIX, (axis,))
+        tables.append(w)
+    _merge_data_axes(program, ("dp",))
+    _bump_version(program)
+    return tables
+
+
+def _pad_table_rows(program, startup_program, name, var, v_pad):
+    """Grow an embedding var to ``v_pad`` rows in both programs: the var
+    shapes and every init op's ``shape`` attr."""
+    new_shape = (v_pad,) + tuple(var.shape[1:])
+    var.shape = new_shape
+    for blk in (startup_program.global_block(), program.global_block()):
+        for op in blk.ops:
+            if name in op.output_arg_names and "shape" in op.attrs:
+                op.attrs["shape"] = list(new_shape)
+    sv = startup_program.global_block()._find_var_recursive(name)
+    if sv is not None:
+        sv.shape = new_shape
+
+
+def apply_sequence_parallel(program, axis: str = "sp", degree: int = 0,
+                            feed_specs=None):
+    """Sequence parallelism: every ``flash_attention`` becomes
+    ``c_ring_attention`` over ``axis``. ``feed_specs`` gives the feeds'
+    layouts over the mesh, e.g. ``{"x": ("dp", None, "sp")}`` for ``[B, H,
+    S, D]``. A ``Lengths`` input is batch-aligned: it is pinned to ``dp``
+    (so an sp-only mesh fails on the missing axis, where it would mask
+    with the wrong example's length). ``degree`` checks that the
+    attention's sequence divides. Call before ``minimize()``.
+
+    A ``layer_norm`` over several axes (``begin_norm_axis`` short of the
+    last, as bench.py's gpt_long normalizes over S x D) is warned of: where
+    its axes take in the split sequence, each replica normalizes its own
+    block, which is not the dense model. The JAX pass takes such a program
+    without a word; ROADMAP.md lists it as a fault of both packages."""
+    import warnings
+
+    block = program.global_block()
+    for op in block.ops:
+        if op.type != "layer_norm":
+            continue
+        x = block._find_var_recursive(op.input("X")[0])
+        rank = len(x.shape) if x is not None and x.shape else 0
+        axis0 = int(op.attrs.get("begin_norm_axis", 1))
+        if rank >= 3 and axis0 < rank - 1:
+            warnings.warn(
+                "sequence parallel: layer_norm over axes %d..%d of %r "
+                "(shape %s): if the split sequence is among them, each "
+                "replica normalizes its own block and the model is not "
+                "the dense one — normalize each token (begin_norm_axis "
+                "%d)" % (axis0, rank - 1, op.input("X")[0],
+                         list(x.shape), rank - 1))
+    n = 0
+    for op in block.ops:
+        if op.type != "flash_attention":
+            continue
+        for ln in op.input("Lengths"):
+            fs = getattr(program, "_feed_shard_specs", None)
+            if fs is None:
+                fs = program._feed_shard_specs = {}
+            fs.setdefault(ln, ("dp",))
+        if degree:
+            q = block._find_var_recursive(op.input("Q")[0])
+            if (q is not None and q.shape is not None and len(q.shape) >= 3
+                    and q.shape[2] and q.shape[2] % degree):
+                raise ValueError(
+                    "sequence parallel: attention seq len %d not "
+                    "divisible by sp degree %d (Q=%r)"
+                    % (q.shape[2], degree, op.input("Q")[0]))
+        op.type = "c_ring_attention"
+        op.attrs = {"shard_axis": axis,
+                    "causal": bool(op.attrs.get("causal")),
+                    "scale": float(op.attrs.get("scale", 0.0))}
+        n += 1
+    if feed_specs:
+        fs = getattr(program, "_feed_shard_specs", None)
+        if fs is None:
+            fs = program._feed_shard_specs = {}
+        fs.update({k: tuple(v) for k, v in feed_specs.items()})
+    _merge_data_axes(program, ("dp", axis))
+    _bump_version(program)
+    return n
+
+
+def apply_expert_parallel(program, axis: str = "ep", degree: int = 1):
+    """Expert parallelism: every ``moe`` op's experts shard over ``axis``
+    and its tokens (the batch) split over the same axis; two all-to-alls
+    route the slots. A dense run of the program routes in ``degree``
+    chunks, so both drop the same tokens. Call before ``minimize()``."""
+    block = program.global_block()
+    experts = []
+    for op in block.ops:
+        if op.type != "moe":
+            continue
+        w_in, w_out = op.input("WIn")[0], op.input("WOut")[0]
+        for w in (w_in, w_out):
+            v = block._find_var_recursive(w)
+            if v is not None and v.shape and v.shape[0] % degree:
+                raise ValueError(
+                    "expert parallel %r: %d experts not divisible by "
+                    "ep degree %d" % (w, v.shape[0], degree))
+            _mark_shard(program, w, (axis,))
+            _skip_grad(program, w + GRAD_SUFFIX, (axis,))
+        op.attrs = dict(op.attrs)
+        op.attrs["shard_axis"] = axis
+        op.attrs["num_groups"] = int(degree)
+        experts.append((w_in, w_out))
+    _merge_data_axes(program, (axis,))
+    _bump_version(program)
+    return experts
 
 
 def shard_optimizer_state(program):

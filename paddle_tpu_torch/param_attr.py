@@ -1,4 +1,5 @@
-"""ParamAttr (counterpart of ``paddle_tpu/param_attr.py``)."""
+"""ParamAttr and WeightNormParamAttr (counterpart of
+``paddle_tpu/param_attr.py``)."""
 from __future__ import annotations
 
 from .initializer import Initializer
@@ -43,3 +44,14 @@ class ParamAttr:
                 "regularizer": self.regularizer,
                 "trainable": self.trainable,
                 "do_model_average": self.do_model_average}
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A ParamAttr that names the weight-norm dim (``paddle_tpu/param_attr.py
+    :65``). The layer helper makes the same one parameter from it as from
+    a ParamAttr, as the JAX package's helper does, so a program builds the
+    same ops and parameters in both packages."""
+
+    def __init__(self, dim=None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim

@@ -459,11 +459,22 @@ def test_fleet_collective_api():
     ops = [op.type for op in main.global_block().ops]
     assert ops.count("c_allreduce_sum") == 2
     assert isinstance(fleet.main_program, fluid.CompiledProgram)
+    # the hybrid knobs run (they raised before the hybrid axes were
+    # ported): pipeline wraps the optimizer in PipelineOptimizer
     strategy = DistributedStrategy()
     strategy.pipeline = True
-    with pytest.raises(NotImplementedError):
+    strategy.pipeline_num_microbatches = 2
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[4, 16], dtype="float32")
+        h = fluid.layers.fc(x, 8)
+        loss = fluid.layers.mean(fluid.layers.fc(h, 3))
+        strategy.pipeline_cut_list = [[h]]
         fleet.distributed_optimizer(fluid.optimizer.SGD(0.1),
                                     strategy).minimize(loss)
+    assert main._pipeline_meta["num_microbatches"] == 2
+    assert [op.type for op in main.global_block().ops].count(
+        "conditional_block") == 1
     with pytest.raises(NotImplementedError):
         fleet.init_server()
 
@@ -489,3 +500,53 @@ def test_fetches_stack_over_replicas_as_the_jax_mesh():
     assert np.asarray(out).size == 1
     assert "c_allreduce_sum" not in [op.type for op in
                                      main.global_block().ops]
+
+
+def sparse_embedding_mlp(pkg, batch):
+    main, startup = pkg.Program(), pkg.Program()
+    startup.random_seed = 3
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        ids = pkg.data(name="ids", shape=[batch, 1], dtype="int64")
+        lbl = pkg.data(name="lbl", shape=[batch, 1], dtype="int64")
+        emb = pkg.layers.embedding(ids, size=[32, 8], is_sparse=True)
+        h = pkg.layers.fc(emb, size=16, act="relu")
+        pred = pkg.layers.fc(h, size=10, act="softmax")
+        loss = pkg.layers.mean(pkg.layers.cross_entropy(pred, lbl))
+        pkg.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return main, startup, loss
+
+
+def test_a_host_op_is_refused_before_any_replica_runs():
+    """``lookup_table_sparse_grad`` (a host op, not const-foldable) under
+    ``with_data_parallel``: both packages raise NotImplementedError naming
+    it, and the port's scope is untouched (no replica ran)."""
+    rng = np.random.RandomState(0)
+    feed = {"ids": rng.randint(0, 32, (16, 1)).astype("int64"),
+            "lbl": rng.randint(0, 10, (16, 1)).astype("int64")}
+    errors = []
+    main, startup, loss = sparse_embedding_mlp(jfluid, 4)
+    exe, scope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
+    with jfluid.scope_guard(scope):
+        exe.run(startup)
+        cp = jfluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, places=jax_mesh([4], ["dp"]))
+        with pytest.raises(NotImplementedError) as e:
+            exe.run(cp, feed=feed, fetch_list=[loss])
+        errors.append(str(e.value))
+
+    main, startup, loss = sparse_embedding_mlp(fluid, 4)
+    exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    exe.run(startup, scope=scope)
+    before = persistables(main, scope, fluid)
+    cp = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, places=[fluid.CPUPlace()] * 4)
+    with pytest.raises(NotImplementedError) as e:
+        exe.run(cp, feed=feed, fetch_list=[loss], scope=scope)
+    errors.append(str(e.value))
+    want = ("host op 'lookup_table_sparse_grad' cannot be traced (not "
+            "const-foldable here)")
+    assert want in errors[0] and errors[1] == want
+    assert exe._core.dp_last is None
+    after = persistables(main, scope, fluid)
+    for k, v in before.items():
+        np.testing.assert_array_equal(after[k], v)

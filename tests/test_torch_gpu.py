@@ -119,6 +119,14 @@ its replicas' mean loss stays within 1e-4 of one replica's full batch;
 version on the same shards; a program the single-chip fused optimizer
 rewrote is refused on two replicas; two gloo ranks on one card decline
 the static program's capture by the collective's name.
+
+The hybrid axes on the card (slice 21): ``c_ring_attention``'s form over
+4 sp replicas (causal, key lengths) within 2e-5 of the dense reference in
+float32 and 5e-2 in bfloat16; ``c_sharded_lookup``'s grad form takes each
+block's own hit rows (the blocks together the dense grad within 1e-6,
+two runs the same bits); a dp x mp step's capture replays its eager step
+bit for bit from the same state; a pipelined step runs eagerly and
+counts its decline, ``pipeline (eager stages)``, once.
 """
 import gc
 import threading
@@ -3098,3 +3106,143 @@ def test_slice20_gloo_collective_capture_is_declined_by_name(cuda,
     params = [np.load(tmp_path / ("rank%d.npz" % r)) for r in (0, 1)]
     for k in params[0].files:
         assert np.array_equal(params[0][k], params[1][k]), k
+
+
+# -- slice 21: the hybrid axes on the card -------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slice21_ring_group_form_against_reference_attention(cuda, dtype):
+    """c_ring_attention's form over an sp subgroup of 4 replicas on the card
+    (causal, key lengths) against the dense reference_attention: float32
+    within 2e-5, bfloat16 within 5e-2 of the float32 oracle."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    from paddle_tpu_torch.ops.collective_ops import ReplicaGroup
+    from paddle_tpu_torch.parallel.ring_attention import reference_attention
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v = (torch.randn(2, 4, 64, 32, generator=g, device="cuda")
+               for _ in range(3))
+    lens = torch.tensor([64, 23], dtype=torch.int32, device="cuda")
+    dt = getattr(torch, dtype)
+    ins = [{"Q": a.to(dt), "K": b.to(dt), "V": c.to(dt), "Lengths": lens}
+           for a, b, c in zip(q.chunk(4, 2), k.chunk(4, 2), v.chunk(4, 2))]
+    info = OpInfoMap.instance().get("c_ring_attention")
+    outs = info.group_fn(ins, {"causal": True, "scale": 0.0},
+                         ReplicaGroup(["cuda"] * 4))
+    got = torch.cat([o["Out"] for o in outs], dim=2)
+    assert got.dtype == dt and got.is_cuda
+    ref = reference_attention(q, k, v, causal=True, lengths=lens)
+    tol = 2e-5 if dtype == "float32" else 5e-2
+    assert (got.float() - ref).abs().max().item() <= tol
+
+
+def test_slice21_sharded_lookup_grad_on_the_card(cuda):
+    """c_sharded_lookup_grad's form over an mp subgroup of 2 on the card:
+    each block takes its own hit rows of this replica's cotangent (ids
+    repeated), the blocks together the dense lookup's grad, and two runs
+    give the same bits."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    from paddle_tpu_torch.ops.collective_ops import ReplicaGroup
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    w = torch.randn(18, 8, generator=g, device="cuda")
+    ids = torch.tensor([[0], [9], [17], [9], [3], [9]], device="cuda")
+    ct = torch.randn(6, 8, generator=g, device="cuda")
+    grad = OpInfoMap.instance().get("c_sharded_lookup_grad")
+    ins = [{"W": blk, "Ids": ids, "Out@GRAD": ct} for blk in w.chunk(2)]
+    attrs = {"shard_axis": "mp", "padding_idx": -1, "squeeze_last": True}
+    runs = [torch.cat([o["W@GRAD"] for o in grad.group_fn(
+        ins, attrs, ReplicaGroup(["cuda"] * 2))]) for _ in range(2)]
+    want = torch.zeros_like(w).index_add_(0, ids.reshape(-1), ct)
+    assert torch.equal(runs[0], runs[1])
+    assert (runs[0] - want).abs().max().item() <= 1e-6
+
+
+def test_slice21_captured_hybrid_step_replays_its_eager_step(cuda):
+    """A dp x mp step (a row-sharded table and an fc over 4 replicas on
+    the card): the eager step and the captured one from the same state and
+    feed give the same bits, the capture taken once, no decline."""
+    from paddle_tpu_torch.incubate.fleet.collective import (
+        CollectiveOptimizer, DistributedStrategy)
+    from paddle_tpu_torch.parallel.mesh_utils import make_mesh
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.data(name="ids", shape=[8, 1], dtype="int64")
+        tgt = fluid.data(name="tgt", shape=[8, 4], dtype="float32")
+        emb = fluid.layers.embedding(ids, size=[16, 8],
+                                     param_attr=fluid.ParamAttr(name="emb"))
+        pred = fluid.layers.fc(emb, size=4)
+        loss = fluid.layers.reduce_mean(fluid.layers.square(
+            fluid.layers.elementwise_sub(pred, tgt)))
+        strat = DistributedStrategy()
+        strat.sharded_embedding = True
+        strat.mp_degree = 2
+        CollectiveOptimizer(fluid.optimizer.MomentumOptimizer(0.1, 0.9),
+                            strat).minimize(loss)
+    rng = np.random.RandomState(23)
+    feed = {"ids": rng.randint(0, 16, (16, 1)).astype("int64"),
+            "tgt": rng.randn(16, 4).astype("float32")}
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = [v.name for v in main.global_block().vars.values()
+             if v.persistable]
+    cp = fluid.CompiledProgram(main).with_data_parallel(
+        loss.name, places=make_mesh([2, 2], ["dp", "mp"],
+                                    [fluid.CUDAPlace(0)] * 4))
+    ce.reset_counters()
+    states, losses = [], []
+    for _ in range(2):  # the eager step, then the capture (and replay)
+        before = {n: scope.find_var(n).get_tensor().array.clone()
+                  for n in names if scope.find_var(n) is not None}
+        (out,) = exe.run(cp, feed=feed, fetch_list=[loss], scope=scope)
+        losses.append(np.asarray(out))
+        states.append({n: scope.find_var(n).get_tensor().array.clone()
+                       for n in before})
+        # back to the same state for the next step
+        for n, t in before.items():
+            scope.find_var(n).get_tensor().array.copy_(t)
+    assert ce.counters()["executor.jit_traces"] == 1
+    assert not ce.declines()
+    np.testing.assert_array_equal(losses[0], losses[1])
+    for n in states[0]:
+        assert torch.equal(states[0][n], states[1][n]), n
+    exe.close()
+
+
+def test_slice21_eager_pipeline_step_names_its_decline(cuda):
+    """A pipelined program over a pp mesh on the card runs its stages
+    eagerly: its first step counts the decline ``pipeline (eager
+    stages)`` once, in ``executor.compile_fallbacks`` too, and a second
+    step of the same program on the same mesh does not count it again."""
+    from paddle_tpu_torch.parallel import pipeline
+    from paddle_tpu_torch.parallel.mesh_utils import make_mesh
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[4, 12], dtype="float32")
+        label = fluid.data(name="label", shape=[4, 1], dtype="int64")
+        h1 = fluid.layers.fc(x, size=16, act="relu")
+        pred = fluid.layers.fc(h1, size=10, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
+        fluid.optimizer.PipelineOptimizer(
+            fluid.optimizer.MomentumOptimizer(0.1, 0.9), cut_list=[[h1]],
+            num_microbatches=2).minimize(loss)
+    rng = np.random.RandomState(24)
+    feed = {"x": rng.randn(8, 12).astype("float32"),
+            "label": rng.randint(0, 10, (8, 1)).astype("int64")}
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    cp = fluid.CompiledProgram(main).with_data_parallel(
+        loss.name, places=make_mesh([2], ["pp"], [fluid.CUDAPlace(0)] * 2))
+    ce.reset_counters()
+    with pytest.warns(UserWarning, match="capture declined"):
+        (first,) = exe.run(cp, feed=feed, fetch_list=[loss], scope=scope)
+    (second,) = exe.run(cp, feed=feed, fetch_list=[loss], scope=scope)
+    assert ce.declines() == {pipeline.EAGER_DECLINE: 1}
+    assert ce.counters()["executor.compile_fallbacks"] == 1
+    assert np.isfinite(first).all() and np.isfinite(second).all()
+    exe.close()
