@@ -543,9 +543,9 @@ lines each:
    ranks' parameters bitwise equal, the static program's capture
    declined by name under gloo;
 59. sequence parallelism: gpt_long at full width (float32 Adam 1e-4,
-   fast paths off, layer_norm per token: bench.py's normalizes over S x
-   D, which a sequence split changes) on one sequence of 8192 tokens over
-   sp=2 through
+   fast paths off, bench.py's layer_norm over S x D, which the pass gives
+   its form over the sp group) on one sequence of 8192 tokens over sp=2
+   through
    DistributedStrategy.sequence_parallel, the program built at a
    replica's 4096 (feed_shard_specs ids (None, "sp"), lbl ("sp", None)),
    its attention ring attention; an eager step, the capture, a replay
@@ -572,16 +572,34 @@ lines each:
 62. expert parallelism: the switch_moe program of
    __graft_entry__._dryrun_ep at ep=4, 2 steps against the dense run of
    the same program (the same tokens dropped);
-63. one JSON line {"kernels": [...]} with each kernel's launches on the
+63. a profiled step: gpt_long as bench.py runs it (bf16 AMP, the fast
+   paths) for 4 steps inside fluid.profiler.profiler("All", ...) with
+   PADDLE_TPU_VERIFY_IR, PADDLE_TPU_PROFILE, PADDLE_TPU_SAMPLE_EVERY=2
+   and a metrics dir (the dumper, the span spool); then profile_step
+   and device_profile_step on the same program: host and device phase
+   ms and their agreement, the critical path beside the replay step,
+   program_flops and mfu_est against the H100's bf16 peak, the profiler
+   table's K1-K4 rows, the verifier's findings (no error), the sampled
+   captures (no error), the spool, the /metrics families; the state
+   bitwise untouched by the profiles, the launches those of the steps
+   and the samples, a device fold;
+64. DGC: gpt_long in float32 under DGCMomentumOptimizer (the DGC paper's
+   warm-up sparsities) on one card, its sgd ops one K4 group
+   (PADDLE_TPU_FUSED_OPTIMIZER), each dgc op of the first post-rampup
+   step bitwise to its plain CPU function; over 2 replicas with
+   PADDLE_TPU_VERIFY_IR, the first loss against one card's (1e-5), the
+   replicas' parameters bitwise; profile_step over that mesh (overlap,
+   exposed collective ms), the state untouched;
+65. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside, the dygraph, recipe, seq2seq, while,
    sentiment, book_*, bert_proto, checkpoint, rnn_search, serving_ir,
    serving_http, resnet_infer, decode_http, fleet_generate,
-   control_flow, dygraph_deploy, dp_* and hybrid_* paths too; hybrid_sp
-   counts the sp mesh's steps alone: its ring blocks are torch.matmul,
-   and the one-replica oracle's K1-K3 launches are printed in phase 59's
-   line only), error, times and bound, P1 (graph_conditional, the port's
-   own kernel) among them;
-64. the last line: {"ok": true, "device": {...}}.
+   control_flow, dygraph_deploy, dp_*, hybrid_*, profiled_gpt, dgc and
+   dgc_dp paths too; hybrid_sp counts the sp mesh's steps alone: its
+   ring blocks are torch.matmul, and the one-replica oracle's K1-K3
+   launches are printed in phase 59's line only), error, times and
+   bound, P1 (graph_conditional, the port's own kernel) among them;
+66. the last line: {"ok": true, "device": {...}}.
 
 Phases 43-45 run the book's scripts as the book does, with those knobs
 unset (phase 45 sets PADDLE_TPU_FUSED_OPTIMIZER for its SGD twins). Every
@@ -9264,10 +9282,10 @@ HYBRID_PARAM_RTOL = 1e-4
 def gpt_hybrid(fluid, gpt, seq, optimizer_fn=None, begin_norm_axis=1):
     """gpt_long at full width, batch 1, float32 Adam 1e-4, from SEED + 59.
     bench.py's gpt_long normalizes each layer_norm over (S, D) (the
-    layer's default begin_norm_axis 1, a Scale of S x D): a sequence split
-    would change that model. Phase 59 takes it per token
-    (``begin_norm_axis=2``, a Scale of D), under which the split is
-    exact."""
+    layer's default begin_norm_axis 1, a Scale of S x D); under sequence
+    parallelism the pass gives those norms their form over the sp group
+    (the whole row's statistics, the Scale of S x D held a sequence block
+    a replica), so the split program is the dense model."""
     cfg = gpt.GPT_LONG
     return gpt.build_gpt_long(
         1, seq, d_model=cfg["d_model"], n_heads=cfg["n_heads"],
@@ -9324,7 +9342,8 @@ def sp_attention_times(fluid):
 def phase_hybrid_sp(fluid, support):
     """Phase 59: gpt_long's one sequence of 8192 tokens over sp=2 through
     DistributedStrategy.sequence_parallel, the program built at a
-    replica's 4096; against the same sequence on one replica (K1-K3,
+    replica's 4096, its layer norms over S x D as bench.py's (their form
+    over the sp group); against the same sequence on one replica (K1-K3,
     causal, S 8192) from the same start."""
     from paddle_tpu_torch.incubate.fleet.collective import (
         CollectiveOptimizer, DistributedStrategy)
@@ -9336,8 +9355,7 @@ def phase_hybrid_sp(fluid, support):
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with dp_env():
-            main, startup, loss = gpt_hybrid(fluid, gpt, SP_SEQ,
-                                             begin_norm_axis=2)
+            main, startup, loss = gpt_hybrid(fluid, gpt, SP_SEQ)
             exe = fluid.Executor()
             scope = fluid.Scope()
             exe.run(startup, scope=scope)
@@ -9371,7 +9389,7 @@ def phase_hybrid_sp(fluid, support):
                     fluid.optimizer.AdamOptimizer(1e-4), strat)
 
             main, startup, loss = gpt_hybrid(fluid, gpt, SP_SEQ // SP,
-                                             sp_opt, begin_norm_axis=2)
+                                             sp_opt)
             rings = sum(op.type == "c_ring_attention"
                         for op in main.global_block().ops)
             exe = fluid.Executor()
@@ -9380,8 +9398,12 @@ def phase_hybrid_sp(fluid, support):
             load_snapshot(fluid, scope, init)
             cp = fluid.CompiledProgram(main).with_data_parallel(
                 loss.name, places=hybrid_mesh(fluid, [SP], ["sp"]))
+            # the layer norms' Scale and Bias are held a sequence block a
+            # replica: every other parameter is replicated
+            sharded = getattr(main, "_var_shard_specs", None) or {}
             r = dp_steps(fluid, support, engine, exe, cp, scope, feed, loss,
-                         [p.name for p in main.all_parameters()],
+                         [p.name for p in main.all_parameters()
+                          if p.name not in sharded],
                          "phase 59", state=lambda sc: dp_state(main, sc),
                          timed=HYBRID_TIMED)
             exe.close()
@@ -9834,6 +9856,448 @@ def hybrid_ep_runs(fluid, support):
                     "param_gap": p_gap}
 
 
+# -- phases 63-64: a profiled step and deep gradient compression ---------------
+
+# phase 63: gpt_long as bench.py builds it (bf16 AMP, the three fast-path
+# knobs) under fluid.profiler, every knob of the observability layer set
+PROFILED_STEPS = 4
+PROFILE_SAMPLE_EVERY = 2
+# the port's kernels of the training path, as the profiler table names them
+TABLE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel", "fused_update_kernel")
+# phase 64: DGCMomentumOptimizer over gpt_long in float32 (the DGC paper's
+# warm-up sparsities, from the rampup's first step over 4 steps)
+DGC = dict(learning_rate=1e-4, momentum=0.9, rampup_begin_step=1,
+           rampup_step=4, sparsity=[0.75, 0.9375, 0.984375, 0.996, 0.999])
+DGC_STEPS = 4
+
+
+class obs_env:
+    """Phase 63's knobs (PADDLE_TPU_VERIFY_IR, PADDLE_TPU_PROFILE,
+    PADDLE_TPU_SAMPLE_EVERY, PADDLE_TPU_METRICS_DIR), the layer, the
+    dumper and the span spool armed; all put back after."""
+
+    KEYS = ("PADDLE_TPU_VERIFY_IR", "PADDLE_TPU_PROFILE",
+            "PADDLE_TPU_SAMPLE_EVERY", "PADDLE_TPU_METRICS_DIR")
+
+    def __init__(self, metrics_dir, sample_every):
+        self.env = {"PADDLE_TPU_VERIFY_IR": "1", "PADDLE_TPU_PROFILE": "1",
+                    "PADDLE_TPU_SAMPLE_EVERY": str(sample_every),
+                    "PADDLE_TPU_METRICS_DIR": metrics_dir}
+
+    def __enter__(self):
+        from paddle_tpu_torch import observability as obs
+        from paddle_tpu_torch.observability import capture, distributed
+        from paddle_tpu_torch.observability import profiler as prof
+
+        self.saved = {k: os.environ.get(k) for k in self.KEYS}
+        os.environ.update(self.env)
+        obs.enable()
+        obs.reset()
+        distributed.arm(self.env["PADDLE_TPU_METRICS_DIR"])
+        capture.rearm()
+        prof.enable_annotation()
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch import observability as obs
+        from paddle_tpu_torch.observability import capture, distributed
+        from paddle_tpu_torch.observability import profiler as prof
+
+        distributed.disarm()
+        prof.disable_annotation()
+        obs.disable()
+        for k, v in self.saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        capture.rearm()
+
+
+def persistable_snapshot(main, scope):
+    """Every initialized persistable of ``main`` in ``scope``, cloned."""
+    out = {}
+    for v in main.list_vars():
+        var = scope.find_var(v.name) if v.persistable else None
+        if var is not None and var.is_initialized():
+            t = var.get_tensor().array
+            if isinstance(t, torch.Tensor):
+                out[v.name] = t.clone()
+    return out
+
+
+def bitwise_same(before, after, what):
+    """Raise unless ``after`` holds every tensor of ``before`` bit for
+    bit."""
+    bad = [n for n, t in before.items()
+           if n not in after or not torch.equal(after[n], t)]
+    if bad:
+        raise RuntimeError("%s moved the training state: %s"
+                           % (what, bad[:5]))
+    return len(before)
+
+
+def phase_profiled_gpt(fluid, support):
+    """Phase 63: gpt_long (bf16 AMP, bench.py's fast paths) for
+    PROFILED_STEPS steps inside ``fluid.profiler.profiler('All', ...)``
+    with every observability knob set, then ``profile_step`` and
+    ``device_profile_step`` on the same program; the state bitwise
+    untouched by them, the launches those of the steps and the sampled
+    captures, no capture error, a device fold."""
+    import shutil
+
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.core import compiler_engine as ce
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.observability import capture, device_trace
+    from paddle_tpu_torch.observability import distributed, spool, tracing
+    from paddle_tpu_torch.observability import profiler as prof
+
+    bench_fast_paths()
+    cfg = gpt.GPT_LONG
+    feed = gpt.random_batch(np.random.RandomState(SEED + 63), cfg["batch"],
+                            cfg["seq_len"], cfg["vocab"])
+    tmp = tempfile.mkdtemp(prefix="ptt_phase63_")
+    try:
+        with obs_env(os.path.join(tmp, "metrics"), PROFILE_SAMPLE_EVERY):
+            main, startup, loss, _ = gpt.build_gpt_long(
+                **cfg, seed=SEED + 63, use_bf16=True)
+            exe = fluid.Executor()
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            obs.reset()
+            support.reset_launch_counts()
+            ce.reset_counters()
+            trace_path = os.path.join(tmp, "profile.json")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with fluid.profiler.profiler("All", "total", trace_path):
+                losses = [float(np.asarray(exe.run(
+                    main, feed=feed, fetch_list=[loss], scope=scope)[0])
+                    .reshape(-1)[0]) for _ in range(PROFILED_STEPS)]
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - t0
+            counts = support.launch_counts()
+            sampled = capture.history("executor")
+            table = [k for k in fluid.profiler.device_kernels()
+                     if any(f in k[0] for f in TABLE_KERNELS)]
+            # the step alone: replays, sampling off
+            os.environ["PADDLE_TPU_SAMPLE_EVERY"] = "0"
+            capture.rearm()
+            step_ms = time_ms(lambda: exe.run(main, feed=feed,
+                                              fetch_list=[loss],
+                                              scope=scope,
+                                              return_numpy=False),
+                              iters=3, warmup=1)
+            before = persistable_snapshot(main, scope)
+            host = prof.profile_step(main, scope, feed)
+            dev = device_trace.device_profile_step(main, scope, feed,
+                                                   steps=2)
+            torch.cuda.synchronize()
+            n_state = bitwise_same(before, persistable_snapshot(main, scope),
+                                   "phase 63 profile_step and "
+                                   "device_profile_step")
+            findings = analysis.verify_program(
+                main, fetch_names=[loss.name], raise_on_error=False)
+            errors = [f for f in findings if f.severity == "error"]
+            checks = {k.split("rewrite=")[1].rstrip("}"): v
+                      for k, v in obs.metrics().snapshot()[
+                          "counters"].items()
+                      if k.startswith("analysis.pass_checks")}
+            flops = prof.program_flops(main)
+            cap_errors = obs.counter_value("capture.errors",
+                                           engine="executor") or 0
+            cap_samples = obs.counter_value("capture.samples",
+                                            engine="executor") or 0
+            distributed.dump_process()
+            base = os.path.splitext(os.path.basename(
+                distributed.dump_path()))[0]
+            sp = tracing.spool()
+            segments = spool.spool_files(os.path.join(tmp, "metrics"), base)
+            sp_stats = sp.stats() if sp is not None else {}
+            families = sorted({line.split()[2] for line in
+                               obs.dump_prometheus().splitlines()
+                               if line.startswith("# TYPE paddle_tpu_")
+                               and line.split()[2][11:].startswith(
+                                   ("executor", "fusion", "lod_lowering"))})
+            exe.close()
+        del exe, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    per_step = {"flash_attention_forward": 4,
+                "flash_attention_backward_dq": 2,
+                "flash_attention_backward_dkv": 2,
+                "fused_optimizer_update": 1}
+    want = {k: n * PROFILED_STEPS + sum(s.get("launches", {}).get(k, 0)
+                                        for s in sampled)
+            for k, n in per_step.items()}
+    mfu = prof.mfu_est(flops["total"], step_ms / 1e3, bf16=True)
+    cross = device_trace.cross_check(
+        {k: v for k, v in host["phase_ms"].items() if k != "collective"},
+        dev["device_phase_ms"] if dev else {})
+    run = {"losses": losses, "window_s": window_s, "step_ms": step_ms,
+           "host_phase_ms": host["phase_ms"],
+           "device_phase_ms": dev and dev["device_phase_ms"],
+           "agreement": cross["agreement"],
+           "per_phase_agreement": {k: v["agreement"] for k, v in
+                                   cross["per_phase"].items()},
+           "critical_path_ms": host["critical_path_ms"],
+           "profile_step_ms": host["step_ms"],
+           "profile_peak_bytes": host["peak_bytes"],
+           "device_critical_path_ms": dev and dev["critical_path_ms"],
+           "device_unattributed_ms": dev and dev["unattributed_ms"],
+           "kernel_records": dev and dev["kernel_records"],
+           "device_launches": dev and dev["launches"],
+           "device_own_kernel_records": dev and dev["own_kernel_records"],
+           "program_flops": flops["total"],
+           "flops_by_category": flops["by_category"], "mfu_est": mfu,
+           "peak_flops_bf16": prof.peak_flops(True),
+           "table_kernels": [list(k) for k in table],
+           "verify_errors": len(errors),
+           "verify_warnings": len(findings) - len(errors),
+           "pass_checks": checks, "samples": cap_samples,
+           "sampled": sampled, "capture_errors": cap_errors,
+           "spool_files": len(segments), "spool": sp_stats,
+           "metrics_families": families, "state_tensors": n_state,
+           "counts": counts, "want": want}
+    log("phase 63 gpt_long bf16 AMP, %d steps under fluid.profiler "
+        "('All') with PADDLE_TPU_VERIFY_IR, PADDLE_TPU_PROFILE, "
+        "PADDLE_TPU_SAMPLE_EVERY=%d and a metrics dir: losses %s, window "
+        "%.3f s; step %.3f ms (replays, sampling off); card %s"
+        % (PROFILED_STEPS, PROFILE_SAMPLE_EVERY,
+           ", ".join("%.6f" % x for x in losses), window_s, step_ms,
+           card_line()))
+    for name, calls, ms in table:
+        log("phase 63 profiler table   %-60s %5d x  %10.3f ms device"
+            % (name[:60], calls, ms))
+    log("phase 63 phases (ms), host (profile_step: captured prefixes, CUDA "
+        "events) against device (device_profile_step: 2 eager walks, "
+        "CUPTI): %s; agreement %s (per phase %s); critical path %.3f ms "
+        "host, %s device, beside the measured step %.3f ms; profile peak "
+        "%s bytes; device unattributed %s ms, %s kernel records, launches "
+        "of the port's kernels %s beside their records %s"
+        % (json.dumps({k: [host["phase_ms"].get(k),
+                           (dev or {}).get("device_phase_ms", {}).get(k)]
+                       for k in ("forward", "backward", "optimizer")}),
+           cross["agreement"], json.dumps(run["per_phase_agreement"]),
+           host["critical_path_ms"], run["device_critical_path_ms"],
+           step_ms, host["peak_bytes"], run["device_unattributed_ms"],
+           run["kernel_records"], json.dumps(run["device_launches"]),
+           json.dumps(run["device_own_kernel_records"])))
+    log("phase 63 program_flops %d a step (%s); mfu_est %.4f against the "
+        "H100's bf16 peak %.4g FLOP/s; verifier: %d errors, %d warnings, "
+        "pass checks %s; sampled captures %d (errors %d): %s; spool files "
+        "%d (%s); /metrics families %s; launches %s (want %s)"
+        % (flops["total"], json.dumps(flops["by_category"]), mfu or 0.0,
+           prof.peak_flops(True), len(errors), run["verify_warnings"],
+           json.dumps(checks), cap_samples, cap_errors,
+           json.dumps(sampled), len(segments), json.dumps(sp_stats),
+           families, json.dumps(counts), json.dumps(want)))
+    bad = {k: (counts.get(k, 0), n) for k, n in want.items()
+           if counts.get(k, 0) != n}
+    if bad or errors or cap_errors or dev is None or \
+            cap_samples != PROFILED_STEPS // PROFILE_SAMPLE_EVERY or \
+            not segments or not np.isfinite(losses).all() or \
+            not any(f.startswith("paddle_tpu_executor") for f in families) \
+            or not any(f.startswith("paddle_tpu_fusion") for f in families):
+        raise RuntimeError(
+            "phase 63: launches (got, want) %s, verifier errors %s, capture "
+            "errors %d, samples %d, device fold %s, spool files %d, "
+            "families %s, losses %s" % (bad, errors[:3], cap_errors,
+                                        cap_samples, dev is not None,
+                                        len(segments), families, losses))
+    return counts, run
+
+
+def dgc_gpt(fluid, gpt, seed, replicas=1):
+    """gpt_long at full width in float32 under DGCMomentumOptimizer, built
+    at a replica's share of the batch."""
+    cfg = dict(gpt.GPT_LONG)
+    cfg["batch"] //= replicas
+    return gpt.build_gpt_long(
+        **cfg, seed=seed, use_bf16=False,
+        optimizer_fn=lambda: fluid.optimizer.DGCMomentumOptimizer(**DGC))
+
+
+def dgc_ops_check(fluid, main, scope0, feed, fetched):
+    """Each dgc op's outputs of the first step (post-rampup: the counter
+    reads 1; ``fetched``: its EncodeGrad, UOut and VOut by var name)
+    against the op's plain function on the CPU, from the same inputs: the
+    grads of the ops before the first dgc op, run on the card from the
+    state before the step. The same entries selected, every output
+    bitwise."""
+    from paddle_tpu_torch.core.compiler_engine import run_compiled_program
+    from paddle_tpu_torch.core.executor_core import CoreExecutor
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    from paddle_tpu_torch.observability import profiler as prof
+
+    ops = main.global_block().ops
+    dgcs = [op for op in ops if op.type == "dgc"]
+    first = ops.index(dgcs[0])
+    grads = [op.input("Grad")[0] for op in dgcs]
+    sub = prof._sub_program(main, list(range(first)))
+    core = CoreExecutor(next(iter(fetched.values())).device)
+    g_vals = run_compiled_program(core, sub, scope0, feed, grads,
+                                  return_numpy=False)
+    core.close()
+    fn = OpInfoMap.instance().get("dgc").fn
+    total = kept = 0
+    for op, g in zip(dgcs, g_vals):
+        ins = {"U": torch.zeros(g.array.shape), "V": torch.zeros(
+            g.array.shape), "Grad": g.array.cpu(),
+            "CurrentStep": torch.ones(1)}
+        want = fn(ins, dict(op.attrs))
+        got = {k: fetched[op.output(k)[0]].cpu()
+               for k in ("EncodeGrad", "UOut", "VOut")}
+        for k, t in got.items():
+            if not torch.equal(t.reshape(want[k].shape), want[k]):
+                raise RuntimeError(
+                    "phase 64: dgc %s of %r differs from the CPU function "
+                    "(%d entries, selected %d against %d)"
+                    % (k, op.input("Grad")[0],
+                       int((t.reshape(want[k].shape) != want[k]).sum()),
+                       int((got["EncodeGrad"] != 0).sum()),
+                       int((want["EncodeGrad"] != 0).sum())))
+        total += want["EncodeGrad"].numel()
+        kept += int((want["EncodeGrad"] != 0).sum())
+    return {"ops": len(dgcs), "elements": total, "selected": kept}
+
+
+def phase_dgc(fluid, support):
+    """Phase 64: gpt_long in float32 under DGCMomentumOptimizer (a) on one
+    card, its sgd ops folded into K4 by PADDLE_TPU_FUSED_OPTIMIZER, each
+    dgc op of the first post-rampup step held bitwise to its plain CPU
+    function; (b) over 2 replicas on the card with PADDLE_TPU_VERIFY_IR
+    (the dp passes' contracts), the replicas' parameters bitwise equal;
+    (c) profile_step over (b)'s mesh."""
+    from paddle_tpu_torch.core import compiler_engine as ce
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.observability import profiler as prof
+    from paddle_tpu_torch.parallel import engine
+
+    cfg = gpt.GPT_LONG
+    feed = gpt.random_batch(np.random.RandomState(SEED + 64), cfg["batch"],
+                            cfg["seq_len"], cfg["vocab"])
+    verify = os.environ.get("PADDLE_TPU_VERIFY_IR")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with dp_env(PADDLE_TPU_FUSED_OPTIMIZER="1"):
+            main, startup, loss, _ = dgc_gpt(fluid, gpt, SEED + 64)
+            enc = [op.output("EncodeGrad")[0]
+                   for op in main.global_block().ops if op.type == "dgc"]
+            exe = fluid.Executor()
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            init = persistable_snapshot(main, scope)
+            scope0 = fluid.Scope()
+            for n, t in init.items():
+                scope0.var(n).set(fluid.LoDTensor(t.clone()))
+            support.reset_launch_counts()
+            ce.reset_counters()
+            outs = exe.run(main, feed=feed, fetch_list=[loss] + enc,
+                           scope=scope, return_numpy=False)
+            fetched = {n: o.array.clone() for n, o in zip(enc, outs[1:])}
+            for op in main.global_block().ops:
+                if op.type == "dgc":
+                    for k in ("UOut", "VOut"):
+                        n = op.output(k)[0]
+                        fetched[n] = scope.find_var(
+                            n).get_tensor().array.clone()
+            losses = [float(outs[0].numpy().reshape(-1)[0])]
+            for _ in range(DGC_STEPS - 1):
+                losses.append(float(np.asarray(exe.run(
+                    main, feed=feed, fetch_list=[loss],
+                    scope=scope)[0]).reshape(-1)[0]))
+            counts = support.launch_counts()
+            # after the counted window: its grads run the kernels too
+            checked = dgc_ops_check(fluid, main, scope0, feed, fetched)
+            groups = [op for op in main.global_block().ops
+                      if op.type == "fused_optimizer"]
+            counters = ce.counters()
+            exe.close()
+            del exe, scope, scope0
+        os.environ["PADDLE_TPU_VERIFY_IR"] = "1"
+        with dp_env():
+            main, startup, loss, _ = dgc_gpt(fluid, gpt, SEED + 64,
+                                             DP_REPLICAS)
+            exe = fluid.Executor()
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            for n, t in init.items():
+                scope.var(n).set(fluid.LoDTensor(t.clone()))
+            places = [fluid.CUDAPlace(0)] * DP_REPLICAS
+            cp = fluid.CompiledProgram(main).with_data_parallel(
+                loss.name, places=places)
+            r = dp_steps(fluid, support, engine, exe, cp, scope, feed, loss,
+                         [p.name for p in main.all_parameters()],
+                         "phase 64", timed=0)
+            before = persistable_snapshot(main, scope)
+            mesh_prof = prof.profile_step(main, scope, feed, mesh=places)
+            torch.cuda.synchronize()
+            bitwise_same(before, persistable_snapshot(main, scope),
+                         "phase 64 profile_step over the mesh")
+            exe.close()
+            del exe, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        os.environ.pop("PADDLE_TPU_VERIFY_IR", None)
+        if verify is not None:
+            os.environ["PADDLE_TPU_VERIFY_IR"] = verify
+    want = {"flash_attention_forward": 4 * DGC_STEPS,
+            "flash_attention_backward_dq": 2 * DGC_STEPS,
+            "flash_attention_backward_dkv": 2 * DGC_STEPS,
+            "fused_optimizer_update": DGC_STEPS}
+    loss_gap = abs(r["losses"][0] - losses[0]) / abs(losses[0])
+    run = {"losses": losses, "dp_losses": r["losses"], "checked": checked,
+           "groups": len(groups), "counters": counters,
+           "dp_first_loss_gap": loss_gap, "dp_counts": r["counts"],
+           "dp_declines": r["declines"],
+           "overlap_frac": mesh_prof["overlap_frac"],
+           "exposed_collective_ms": mesh_prof["exposed_collective_ms"],
+           "collective_ms": mesh_prof["collective_ms"],
+           "mesh_step_ms": mesh_prof["step_ms"],
+           "mesh_phase_ms": mesh_prof["phase_ms"],
+           "mesh_per_bucket": mesh_prof["per_bucket"],
+           "mesh_peak_bytes": mesh_prof["peak_bytes"]}
+    log("phase 64 gpt_long float32 under DGCMomentumOptimizer %s: %d "
+        "steps on one card, losses %s; its sgd ops folded into %d "
+        "fused_optimizer group (K4, sgd); the %d dgc ops of the first "
+        "post-rampup step bitwise equal to their plain CPU function "
+        "(%d of %d entries selected); launches %s (want %s); card %s"
+        % (json.dumps(DGC), DGC_STEPS,
+           ", ".join("%.6f" % x for x in losses), len(groups),
+           checked["ops"], checked["selected"], checked["elements"],
+           json.dumps(counts), json.dumps(want), card_line()))
+    log("phase 64 over %d replicas with PADDLE_TPU_VERIFY_IR: losses %s, "
+        "first loss against one card's %.3g (limit %g), the replicas' "
+        "parameters bitwise equal after each step (each keeps its own u "
+        "and v: the allreduce lands on the encoded grad); launches %s; "
+        "profile_step over the mesh: step %.3f ms, phases %s, serial "
+        "collective %.3f ms, exposed %s ms, overlap_frac %s, peak %s"
+        % (DP_REPLICAS, ", ".join("%.6f" % x for x in r["losses"]),
+           loss_gap, DP_LOSS_RTOL, json.dumps(r["counts"]),
+           mesh_prof["step_ms"], json.dumps(mesh_prof["phase_ms"]),
+           mesh_prof["collective_ms"], mesh_prof["exposed_collective_ms"],
+           mesh_prof["overlap_frac"], mesh_prof["peak_bytes"]))
+    bad = {k: (counts.get(k, 0), n) for k, n in want.items()
+           if counts.get(k, 0) != n}
+    if bad or len(groups) != 1 or groups[0].attrs["op_type"] != "sgd" or \
+            loss_gap > DP_LOSS_RTOL or \
+            not np.isfinite(losses + r["losses"]).all() or \
+            mesh_prof["collective_ms"] <= 0:
+        raise RuntimeError(
+            "phase 64: launches (got, want) %s, fused groups %d, first "
+            "loss gap %g, losses %s / %s, mesh collective %s ms"
+            % (bad, len(groups), loss_gap, losses, r["losses"],
+               mesh_prof["collective_ms"]))
+    return counts, r["counts"], run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -9970,6 +10434,13 @@ def main() -> int:
     log("phases 59-62 %s" % json.dumps(
         {"hybrid_sp": hy_sp_run, "hybrid_pp": hy_pp_run,
          "hybrid_3d": hy_3d_run, "hybrid_ep": hy_ep_run}))
+    # profiling and analysis; deep gradient compression
+    t_63 = time.perf_counter()
+    profiled, profiled_run = phase_profiled_gpt(fluid, support)
+    dgc_counts, dgc_dp_counts, dgc_run = phase_dgc(fluid, support)
+    log("phases 63-64 %.1f s %s" % (
+        time.perf_counter() - t_63, json.dumps(
+            {"profiled_gpt": profiled_run, "dgc": dgc_run}, default=str)))
     log("phases 51-53 %s" % json.dumps(
         {"serving_http": http_run, "resnet_infer": resnet_infer_run,
          "decode_http": decode_http_run}))
@@ -10048,7 +10519,10 @@ def main() -> int:
                    "hybrid_sp": hy_sp.get(kern["name"], 0),
                    "hybrid_pp": hy_pp.get(kern["name"], 0),
                    "hybrid_3d": hy_3d.get(kern["name"], 0),
-                   "hybrid_ep": hy_ep.get(kern["name"], 0)}
+                   "hybrid_ep": hy_ep.get(kern["name"], 0),
+                   "profiled_gpt": profiled.get(kern["name"], 0),
+                   "dgc": dgc_counts.get(kern["name"], 0),
+                   "dgc_dp": dgc_dp_counts.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

@@ -43,6 +43,7 @@ from . import inference  # noqa: F401
 from . import serving  # noqa: F401
 from . import dygraph  # noqa: F401
 from . import nets  # noqa: F401
+from . import profiler  # noqa: F401
 from . import lod_tensor  # noqa: F401
 from .lod_tensor import (create_lod_tensor,  # noqa: F401
                          create_random_int_lodtensor)

@@ -45,16 +45,22 @@ package's names and results (``_program_version``, ``_analyze``,
   how many stay captured are ``core/cuda_graph``'s, shared with the lazy
   dygraph queue.
 
-The counters keep the JAX package's names in ``COUNTERS`` (the
-observability registry is not ported yet): ``executor.compiles`` (new
+The counters keep the JAX package's names: ``executor.compiles`` (new
 step functions), ``executor.jit_traces`` (captures),
 ``executor.compile_fallbacks``, ``executor.steps`` and
 ``executor.condition_reads`` (an eager run's host reads of a control-flow
-condition), the fusion
-passes' ``fusion.epilogue_chains`` and ``fusion.optimizer_groups``
-(``core/fusion.py``), and the LoD lowering's ``lod_lowering.lowered``
-(lowered clones built) and ``lod_lowering.declines`` (each named in
-``declines()``; ``core/lod_lowering.py``).
+condition), the fusion passes' ``fusion.epilogue_chains`` and
+``fusion.optimizer_groups`` (``core/fusion.py``), and the LoD lowering's
+``lod_lowering.lowered`` (lowered clones built) and
+``lod_lowering.declines`` (each named in ``declines()``;
+``core/lod_lowering.py``). ``inc`` counts each in ``COUNTERS``
+(``counters()``, always on) and in the observability registry while it is
+armed, where ``GET /metrics`` serves them; a compiled run also records
+``executor.steps{path=compiled}``, the ``executor.feed_ms`` and
+``executor.step_ms`` histograms and a ``compiled_step`` span, as the JAX
+package does. Armed by ``PADDLE_TPU_PROFILE`` (``observability.profiler.
+enable_annotation``), a step function built then wraps each op of its
+walk in a ``torch.profiler.record_function("<phase>/<op_type>")`` range.
 
 Control flow, as the JAX package's ``_trace_while`` /
 ``_trace_conditional_block``: a ``while`` or a scalar ``conditional_block``
@@ -94,13 +100,16 @@ the JAX package.
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
+from .. import observability as _obs
 from ..framework import block_rw
+from ..observability import profiler as _profiler
 from . import flags
 from .cuda_graph import CapturedGraph, same_memory
 from .executor_core import (_UNBOUND, CoreExecutor, call_op, gather_inputs,
@@ -128,9 +137,10 @@ DECLINES: Dict[str, int] = {}
 _counters_lock = threading.Lock()
 
 
-def inc(name: str, n: int = 1) -> None:
+def inc(name: str, n: int = 1, **labels) -> None:
     with _counters_lock:
         COUNTERS[name] = COUNTERS.get(name, 0) + n
+    _obs.inc(name, n, **labels)
 
 
 def counters() -> Dict[str, int]:
@@ -152,6 +162,8 @@ def count_decline(name: str, counter: Optional[str] =
         if counter is not None:
             COUNTERS[counter] += 1
         DECLINES[name] = DECLINES.get(name, 0) + 1
+    if counter is not None:
+        _obs.inc(counter, decline=name)
 
 
 def declines() -> Dict[str, int]:
@@ -426,6 +438,8 @@ class _Block:
                        for n, v in _fold_block_values(block).items()}
         const_idxs = _const_plan(block) - fold_idxs
         self.device = device
+        # "<phase>/<op_type>" an op while phase annotation is armed
+        self.labels = _profiler.trace_annotation(block, block.ops)
         self.ops = []  # (kind, op, info, attrs, outputs or node, drops)
         for i, op in enumerate(block.ops):
             drops = tuple(drops_plan.get(i, ()))
@@ -470,34 +484,43 @@ class _Block:
         ``salt`` in a loop's body. Under capture: ``graph``'s registered
         generators, and the ops that read nothing take their values from
         ``graph.consts``."""
-        for kind, op, info, attrs, outs, drops in self.ops:
-            if kind == _FOLDED:
-                env.update(outs)
-            elif kind == _CONST and graph is not None:
-                env.update(graph.consts[id(op)])
-            elif kind in (_WHILE, _IF):
-                if graph is None:
-                    self._run_node_eager(outs, env, rng, salt)
-                else:
-                    self._run_node_captured(outs, env, graph)
+        if self.labels is not None:
+            for label, entry in zip(self.labels, self.ops):
+                with torch.profiler.record_function(label):
+                    self._run_entry(entry, env, rng, graph, salt)
+            return
+        for entry in self.ops:
+            self._run_entry(entry, env, rng, graph, salt)
+
+    def _run_entry(self, entry, env: Dict, rng, graph, salt: int) -> None:
+        kind, op, info, attrs, outs, drops = entry
+        if kind == _FOLDED:
+            env.update(outs)
+        elif kind == _CONST and graph is not None:
+            env.update(graph.consts[id(op)])
+        elif kind in (_WHILE, _IF):
+            if graph is None:
+                self._run_node_eager(outs, env, rng, salt)
             else:
-                if info.needs_rng:
-                    attrs = dict(attrs)
-                    if graph is not None:
-                        attrs[GENERATOR_ATTR] = graph.gens[id(op)]
-                    else:
-                        seed = rng_seed(rng, attrs, op)
-                        if salt and not int(attrs.get("seed", 0) or 0) > 0:
-                            seed = (seed + salt) & 0xFFFFFFFF
-                        gen = torch.Generator(device=self.device)
-                        gen.manual_seed(seed)
-                        attrs[GENERATOR_ATTR] = gen
-                ins = gather_inputs(info, op, env.get)
-                outs = call_op(info, op, ins, attrs, "compiled trace")
-                for n, v in output_pairs(info, op, outs):
-                    env[n] = v
-            for n in drops:
-                env.pop(n, None)
+                self._run_node_captured(outs, env, graph)
+        else:
+            if info.needs_rng:
+                attrs = dict(attrs)
+                if graph is not None:
+                    attrs[GENERATOR_ATTR] = graph.gens[id(op)]
+                else:
+                    seed = rng_seed(rng, attrs, op)
+                    if salt and not int(attrs.get("seed", 0) or 0) > 0:
+                        seed = (seed + salt) & 0xFFFFFFFF
+                    gen = torch.Generator(device=self.device)
+                    gen.manual_seed(seed)
+                    attrs[GENERATOR_ATTR] = gen
+            ins = gather_inputs(info, op, env.get)
+            outs = call_op(info, op, ins, attrs, "compiled trace")
+            for n, v in output_pairs(info, op, outs):
+                env[n] = v
+        for n in drops:
+            env.pop(n, None)
 
     @staticmethod
     def _carry(node: _Node, env: Dict) -> Dict[str, torch.Tensor]:
@@ -740,8 +763,12 @@ def run_compiled_program(core, program, scope: Scope, feed: Dict,
                          fetch_list: Sequence, return_numpy: bool = True):
     fetch_names = tuple(f if isinstance(f, str) else f.name
                         for f in fetch_list)
+    t_feed = time.perf_counter() if _obs.enabled() else None
     feed_vals = _stage_feeds(feed)
     feed_names = tuple(sorted(feed_vals))
+    if t_feed is not None:
+        _obs.observe("executor.feed_ms",
+                     (time.perf_counter() - t_feed) * 1e3)
 
     read_first, _, persist_written = _analyze(program)
     state_names = []
@@ -758,11 +785,17 @@ def run_compiled_program(core, program, scope: Scope, feed: Dict,
     out_state_names = tuple(sorted(set(state_names) | persist_written))
     step = compile_program(core, program, feed_names, fetch_names,
                            state_names, out_state_names)
-    if core.device.type == "cuda":
-        outs = _run_on_card(core, step, scope, feed_vals)
-    else:
-        outs = _run_eager(core, step, scope, feed_vals)
-    inc("executor.steps")
+    t_step = time.perf_counter() if _obs.enabled() else None
+    with _obs.tracing.span("compiled_step", cat="step"):
+        if core.device.type == "cuda":
+            outs = _run_on_card(core, step, scope, feed_vals)
+        else:
+            outs = _run_eager(core, step, scope, feed_vals)
+    inc("executor.steps", path="compiled")
+    if t_step is not None:
+        _obs.observe("executor.step_ms",
+                     (time.perf_counter() - t_step) * 1e3,
+                     path="compiled")
 
     results = []
     for name in fetch_names:

@@ -28,11 +28,13 @@ Knobs, read at a program's first run and baked in (``bench.py``'s
 
 ``maybe_rewrite_single_chip`` applies the epilogue pass first, then the
 optimizer pass, as the JAX package does. Each pass counts what it fused
-in ``compiler_engine.COUNTERS`` (``fusion.epilogue_chains``,
-``fusion.optimizer_groups``) and moves the program's version on, so the
-step functions and captured graphs key on the rewritten program. The JAX
-package's ``checked_rewrite`` contract check is not ported yet
-(ROADMAP.md).
+(``compiler_engine.inc``: ``fusion.epilogue_chains``,
+``fusion.optimizer_groups``, in the registry too while it is armed) and
+moves the program's version on, so the step functions and captured graphs
+key on the rewritten program. Both are ``checked_rewrite`` passes: under
+``PADDLE_TPU_VERIFY_IR`` their contracts (``analysis/contracts.py``:
+``fused_epilogue``, ``fused_optimizer``) run around them and the program
+is verified after.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ import torch
 
 from . import compiler_engine as _ce
 from .tensor import LoDTensor
+from ..analysis.contracts import checked_rewrite
 
 __all__ = ["fused_optimizer_mode", "fused_optimizer_enabled",
            "fused_epilogue_enabled", "maybe_rewrite_single_chip",
@@ -184,6 +187,7 @@ def resync_sharded_state(program, scope) -> int:
     return n
 
 
+@checked_rewrite("fused_optimizer")
 def apply_fused_optimizer(program, scope, device: torch.device,
                           layout: str = "auto") -> int:
     """Rewrite each supported optimizer instance's per-param update ops
@@ -345,6 +349,7 @@ def _first_backward_index(ops) -> int:
     return len(ops)
 
 
+@checked_rewrite("fused_epilogue")
 def apply_fused_epilogues(program) -> int:
     """Collapse adjacent forward epilogue chains into the fused ops:
 
@@ -422,6 +427,7 @@ def apply_fused_epilogues(program) -> int:
                 {"X": op_a.input("X"), "Y": op_a.input("Y")},
                 outputs, attrs)
         elif op_b.type == "layer_norm" and op_b.input("X") == [a_out] \
+                and not op_b.attrs.get("shard_axis") \
                 and len(op_b.output("Y")) == 1 \
                 and op_b.output("Y")[0] in single:
             outputs = {"Out": op_b.output("Y"), "AddOut": [a_out],

@@ -505,6 +505,16 @@ class LazyEngine:
         else:
             # a new structure: on the card, a new eager run and capture
             # of the whole queued step (signature churn shows here)
+            from ..analysis import verify_enabled
+
+            if verify_enabled():
+                # the wiring of the graph about to run, checked once a
+                # structure (PADDLE_TPU_VERIFY_IR)
+                from ..analysis import verify_lazy_graph
+
+                verify_lazy_graph([nd.wiring for nd in nodes],
+                                  [len(nd.outs) for nd in nodes], len(ext),
+                                  needed)
             _inc("lazy.recompiles")
             plan = _Plan(nodes, tuple(modes), needed, dict(pairs),
                          tuple(sorted(seeds)))

@@ -55,6 +55,7 @@ from .core import lod_lowering as _ll
 from .core.flags import flag
 from .core.fusion import maybe_rewrite_single_chip
 from .core.tensor import LoDTensor
+from .observability import capture as _capture
 
 
 class Executor:
@@ -115,9 +116,12 @@ class Executor:
                 if ver not in self._compile_fallbacks:
                     if self._can_whole_compile(program):
                         try:
-                            return _ce.run_compiled_program(
+                            out = _ce.run_compiled_program(
                                 self._core, program, scope, feed,
                                 fetch_list, return_numpy)
+                            _capture.maybe_sample_step(
+                                "executor", program, scope, feed)
+                            return out
                         except _ce.LoDFeed as e:
                             warnings.warn(
                                 "program %s falls back to op-by-op "
@@ -136,9 +140,12 @@ class Executor:
                         lowered = self._lod_lowered(program, feed,
                                                     fetch_list)
                         if lowered is not None:
-                            return _ce.run_compiled_program(
+                            out = _ce.run_compiled_program(
                                 self._core, lowered[0], scope, lowered[1],
                                 fetch_list, return_numpy)
+                            _capture.maybe_sample_step(
+                                "executor", lowered[0], scope, lowered[1])
+                            return out
                         self._interpreted(program, ver)
             return self._core.run_program(program, scope, feed, fetch_list,
                                           return_numpy)

@@ -134,9 +134,13 @@ class CollectiveOptimizer(DistributedOptimizer):
                 startup_program=(startup_program
                                  or framework.default_startup_program()))
         if getattr(strategy, "sequence_parallel", False):
+            from .... import framework
+
             apply_sequence_parallel(
                 program, "sp", int(strategy.sp_degree or 0),
-                feed_specs=getattr(strategy, "feed_shard_specs", None))
+                feed_specs=getattr(strategy, "feed_shard_specs", None),
+                startup_program=(startup_program
+                                 or framework.default_startup_program()))
         if getattr(strategy, "expert_parallel", False):
             apply_expert_parallel(program, "ep",
                                   int(strategy.ep_degree or 1))

@@ -415,6 +415,7 @@ def load_inference_model(dirname, executor, model_filename=None,
     with open(json_path) as f:
         model = json.load(f)
     program = _deserialize_program(model)
+    _verify_loaded_program(program, model.get("fetch_names", []))
     params_path = os.path.join(dirname, params_filename or "__params__.npz")
     if not os.path.exists(params_path) and os.path.exists(
             params_path + ".npz"):
@@ -432,6 +433,17 @@ def load_inference_model(dirname, executor, model_filename=None,
     return program, list(model.get("feed_names", [])), fetch_vars
 
 
+def _verify_loaded_program(program, fetch_names):
+    """Verify a program just read from disk (``PADDLE_TPU_VERIFY_IR``;
+    off, one probe): a model file corrupted on disk, or saved by a faulty
+    rewrite, fails here with the op and the invariant named, not at its
+    first run."""
+    from .analysis import maybe_verify_program
+
+    maybe_verify_program(program, where="io.load_inference_model",
+                         fetch_names=list(fetch_names))
+
+
 def _load_proto(dirname, executor, model_filename, params_filename):
     """A reference-format directory: the protobuf ``__model__`` and the
     persistables as tensor streams, one file a var or one combined file
@@ -446,6 +458,7 @@ def _load_proto(dirname, executor, model_filename, params_filename):
     with open(model_path, "rb") as f:
         program, feed_names, fetch_names = \
             proto_format.proto_bytes_to_program(f.read())
+    _verify_loaded_program(program, fetch_names)
     names = sorted(v.name for v in program.list_vars() if is_persistable(v))
     dtypes = _desc_dtypes(program)
     scope = global_scope()

@@ -16,24 +16,33 @@ Armed, the span buffer (``tracing``) records too: the HTTP front's
 ``serving.request`` spans and the engine's ``serving.dispatch`` spans
 under their propagated trace ids (``distributed``).
 
-Submodules: ``registry``, ``tracing``, ``distributed`` (trace context),
-``flight`` (the bounded ring of recent events). The JAX package's
-profiler, spool, job-level merge and steering stay there for now
-(ROADMAP queue 1 item 11).
+Submodules: ``registry``, ``tracing`` (the span buffer, the
+``fluid.profiler`` sessions, the chrome trace), ``distributed`` (trace
+context and the per-process dumper), ``flight`` (the bounded ring of
+recent events), ``profiler`` (the step profiler, FLOPs and the session
+API), ``device_trace`` (a ``torch.profiler`` trace folded into phases),
+``capture`` (``PADDLE_TPU_SAMPLE_EVERY``), ``spool`` (the span spool) and
+``timeseries`` (windowed series). A set ``PADDLE_TPU_METRICS_DIR`` arms
+the layer and the dumper. The JAX package's job-level merge and steering
+stay there for now (ROADMAP.md).
 """
 from __future__ import annotations
 
 import os
 import sys
 
-from . import distributed, flight, tracing  # noqa: F401
+from . import distributed, flight, spool, timeseries, tracing  # noqa: F401
+from . import capture, device_trace, profiler  # noqa: F401
 from .registry import Counter, Gauge, Histogram, MetricsRegistry  # noqa: F401
+from .tracing import span  # noqa: F401
 
 __all__ = ["enable", "disable", "enabled", "metrics", "counter", "gauge",
            "histogram", "inc", "set_gauge", "observe", "counter_value",
-           "gauge_value", "dump", "dump_prometheus", "reset",
+           "gauge_value", "span", "dump", "dump_prometheus",
+           "chrome_trace", "write_chrome_trace", "reset",
            "MetricsRegistry", "Counter", "Gauge", "Histogram",
-           "flight", "distributed", "tracing"]
+           "flight", "distributed", "tracing", "profiler", "spool",
+           "timeseries", "capture", "device_trace"]
 
 _registry = MetricsRegistry()
 _enabled = False
@@ -129,10 +138,30 @@ def dump_prometheus() -> str:
     return dump(fmt="prometheus")
 
 
+def _profiler_events():
+    """The last finished ``fluid.profiler`` session's events (a live
+    session's spans are in the buffer already)."""
+    if tracing.profiler_session_active():
+        return []
+    return profiler.get_trace_events()
+
+
+def chrome_trace() -> dict:
+    """Perfetto-loadable ``trace_event`` JSON of the span buffer and the
+    last ``fluid.profiler`` session."""
+    return tracing.chrome_trace(extra_events=_profiler_events())
+
+
+def write_chrome_trace(path: str) -> str:
+    return tracing.write_chrome_trace(path, extra_events=_profiler_events())
+
+
 def reset() -> None:
-    """Clear every metric and buffered span (the armed state is kept)."""
+    """Clear every metric, buffered span and the last profiler session's
+    snapshot (the armed state is kept)."""
     _registry.reset()
     tracing.clear()
+    del profiler._last_trace[:]
 
 
 def _init_from_env() -> None:
@@ -141,6 +170,9 @@ def _init_from_env() -> None:
         raw = os.environ.get("PADDLE_TPU_METRICS", "")
     if raw.lower() in ("1", "true", "yes", "on"):
         enable()
+    if distributed.metrics_dir() is not None:
+        enable()
+        distributed.arm_from_env()
 
 
 _init_from_env()

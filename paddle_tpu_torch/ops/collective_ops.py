@@ -259,6 +259,12 @@ def group_for_axis(name: Optional[str]):
 
 
 def _ring_group(attrs):
+    # ``_mesh_axis``: a reduction over one named axis of the mesh alone
+    # (the data-parallel pass's allreduce of a grad sharded over another
+    # data axis)
+    axis = attrs.get("_mesh_axis")
+    if axis:
+        return group_for_axis(axis)
     return axis_for_ring(attrs.get("ring_id", 0))
 
 

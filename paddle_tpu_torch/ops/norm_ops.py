@@ -21,7 +21,11 @@ gives them; the JAX package's grad takes local statistics there.
 
 ``layer_norm`` normalises over the dims from ``begin_norm_axis`` on, then
 scales and shifts; ``Mean`` and ``Variance`` are flattened over the leading
-dims.
+dims. Where those dims take in a sequence that sequence parallelism split
+(``shard_axis``, set by ``parallel/transpiler.apply_sequence_parallel``),
+its form over the replicas takes the statistics of the whole row, and its
+grad op differentiates every replica's forward as one graph, as sync
+batch norm's does.
 
 ``dropout`` keeps an element with probability ``1 - dropout_prob``: its
 ``Mask`` (X's type, 1 kept, 0 dropped) comes from uniform draws of the
@@ -185,21 +189,74 @@ set_group_form("batch_norm_grad", _sync_group, _batch_norm_grad_group)
     attrs={"epsilon": 1e-5, "begin_norm_axis": 1},
 )
 def _layer_norm(ins, attrs):
-    x = ins["X"]
+    group = _seq_group(attrs)
+    if group is not None and group.in_process:
+        raise RuntimeError("layer_norm over a split sequence reached one "
+                           "replica outside the replica walk")
+    return _layer_norm_group([ins], attrs, group)[0]
+
+
+def _seq_group(attrs):
+    """The group a layer norm over a split sequence reduces over (its
+    ``shard_axis``, set by the sequence-parallel pass), else None."""
+    from .collective_ops import group_for_axis
+
+    return group_for_axis(attrs.get("shard_axis") or None)
+
+
+def _layer_norm_group(ins_list, attrs, group):
+    """Each replica holds one block of the normalized row (its share of
+    the sequence) and the Scale and Bias blocks that go with it. Over a
+    group the mean is the psum of the replicas' sums over the whole
+    row's count, and the variance the psum of their sums of squared
+    deviations from that mean, so every replica normalizes by the
+    statistics of the whole row, as the dense op does (two passes, as
+    the dense op takes them)."""
     eps = attrs.get("epsilon", 1e-5)
     axis = attrs.get("begin_norm_axis", 1)
-    red = tuple(range(axis, x.dim()))
-    mean = x.mean(dim=red, keepdim=True)
-    var = (x - mean).square().mean(dim=red, keepdim=True)
-    y = (x - mean) * torch.rsqrt(var + eps)
-    norm_shape = (1,) * axis + tuple(x.shape[axis:])
-    if ins.get("Scale") is not None:
-        y = y * ins["Scale"].reshape(norm_shape)
-    if ins.get("Bias") is not None:
-        y = y + ins["Bias"].reshape(norm_shape)
-    lead = math.prod(x.shape[:axis])
-    return {"Y": y, "Mean": mean.reshape(lead),
-            "Variance": var.reshape(lead)}
+    x0 = ins_list[0]["X"]
+    red = tuple(range(axis, x0.dim()))
+    if group is None:
+        stats = [None] * len(ins_list)
+    else:
+        count = math.prod(x0.shape[axis:]) * group.nranks
+        sums = _psum(group, [ins["X"].sum(dim=red, keepdim=True)
+                             for ins in ins_list])
+        means = [s / count for s in sums]
+        sqs = _psum(group, [(ins["X"] - m).square().sum(dim=red,
+                                                        keepdim=True)
+                            for ins, m in zip(ins_list, means)])
+        stats = [(m, q / count) for m, q in zip(means, sqs)]
+    outs = []
+    for ins, st in zip(ins_list, stats):
+        x = ins["X"]
+        if st is None:
+            mean = x.mean(dim=red, keepdim=True)
+            var = (x - mean).square().mean(dim=red, keepdim=True)
+        else:
+            mean, var = st
+        y = (x - mean) * torch.rsqrt(var + eps)
+        norm_shape = (1,) * axis + tuple(x.shape[axis:])
+        if ins.get("Scale") is not None:
+            y = y * ins["Scale"].reshape(norm_shape)
+        if ins.get("Bias") is not None:
+            y = y + ins["Bias"].reshape(norm_shape)
+        lead = math.prod(x.shape[:axis])
+        outs.append({"Y": y, "Mean": mean.reshape(lead),
+                     "Variance": var.reshape(lead)})
+    return outs
+
+
+def _layer_norm_grad_group(ins_list, attrs, group):
+    """The auto-VJP of every replica's layer norm as one graph through the
+    shared statistics."""
+    return vjp_grad_group(
+        OpInfoMap.instance().get("layer_norm"), ins_list, attrs,
+        lambda rebuilt, a: _layer_norm_group(rebuilt, a, group))
+
+
+set_group_form("layer_norm", _seq_group, _layer_norm_group)
+set_group_form("layer_norm_grad", _seq_group, _layer_norm_grad_group)
 
 
 @register_op(

@@ -1,6 +1,8 @@
 """Optimizer update ops: ``sgd``, ``momentum``, ``lars_momentum``,
 ``adam``, ``adamw``, ``adamax``, ``adagrad``, ``decayed_adagrad``,
-``adadelta``, ``rmsprop``, ``ftrl``, ``lamb``, ``dpsgd`` and
+``adadelta``, ``rmsprop``, ``ftrl``, ``lamb``, ``dpsgd``, the deep
+gradient compression ops ``dgc``, ``dgc_momentum`` and
+``dgc_clip_by_norm`` (``:528-586``, ``:673-724``) and
 ``fused_optimizer``; and the parameter-averaging ops ``ema_accumulate``,
 ``ema_adaptive_decay``, ``lookahead_update`` and
 ``model_average_accumulate`` (``paddle_tpu/ops/optimizer_ops.py:590-669``)
@@ -324,6 +326,137 @@ def _dpsgd(ins, attrs):
 
 _op("dpsgd", ["Param", "Grad", "LearningRate"], ["ParamOut"],
     {"clip": 10.0, "batch_size": 16.0, "sigma": 1.0, "seed": 0}, _dpsgd)
+
+
+def _step_of(t):
+    return t.reshape(()).to(torch.float32)
+
+
+def _dgc_momentum(ins, attrs):
+    """Momentum before the DGC rampup step, plain SGD after, the grad
+    divided by ``nranks`` (the reference's ``dgc_momentum_op.h``). A
+    negative rampup step disables the update (its early return)."""
+    rampup = float(attrs.get("rampup_begin_step", 0.0))
+    if rampup < 0:
+        return {"ParamOut": ins["Param"], "VelocityOut": ins["Velocity"],
+                "Grad_out": ins["Grad"]}
+    mu = attrs.get("mu", 0.9)
+    g = ins["Grad"] / ins["nranks"].reshape(()).to(torch.float32)
+    before_rampup = _step_of(ins["current_step"]) < rampup
+    v = mu * ins["Velocity"] + g
+    if attrs.get("use_nesterov", False):
+        p_momentum = ins["Param"] - (g + mu * v) * _lr(ins)
+    else:
+        p_momentum = ins["Param"] - _lr(ins) * v
+    p_sgd = ins["Param"] - _lr(ins) * g
+    return {"ParamOut": torch.where(before_rampup, p_momentum, p_sgd),
+            "VelocityOut": torch.where(before_rampup, v, ins["Velocity"]),
+            "Grad_out": g}
+
+
+_op("dgc_momentum",
+    ["Param", "Grad", "Velocity", "LearningRate", "current_step", "nranks"],
+    ["ParamOut", "VelocityOut", "Grad_out"],
+    {"mu": 0.9, "use_nesterov": False, "rampup_begin_step": 0.0},
+    _dgc_momentum)
+
+
+@register_op(
+    "dgc_clip_by_norm",
+    inputs=[In("X"), In("current_step", no_grad=True)],
+    outputs=[Out("Out")],
+    attrs={"max_norm": 1.0, "rampup_begin_step": 0.0},
+    grad=None,
+)
+def _dgc_clip_by_norm(ins, attrs):
+    """``clip_by_norm`` from the DGC rampup step on, X as it is before
+    (``dgc_clip_by_norm_op.h``); a negative rampup step disables it."""
+    x = ins["X"]
+    rampup = float(attrs.get("rampup_begin_step", 0.0))
+    if rampup < 0:
+        return {"Out": x}
+    max_norm = attrs.get("max_norm", 1.0)
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    clipped = torch.where(norm > max_norm, x * (max_norm / norm), x)
+    return {"Out": torch.where(_step_of(ins["current_step"]) >= rampup,
+                               clipped, x)}
+
+
+def dgc_threshold(flat_abs, s_now):
+    """The ``s_now`` quantile of ``flat_abs`` with linear interpolation,
+    in float32 as ``jnp.quantile`` takes it: position ``s * (n - 1)``,
+    the two order statistics around it from one sort, weighted by the
+    fraction. ``torch.quantile`` refuses more than 2^24 elements (BERT's
+    word embedding has 23.4 M) and needs ``s`` on the host; a sort and a
+    gather need neither, so the op captures."""
+    n = flat_abs.numel()
+    srt = torch.sort(flat_abs).values
+    # n - 1 in float32, as JAX takes it (n rounded first: above 2^24 the
+    # position and the clamp move with it); the gather clamps its index
+    last = torch.full((), float(n), dtype=torch.float32,
+                      device=flat_abs.device) - 1.0
+    q = s_now * last
+    low, high = torch.floor(q), torch.ceil(q)
+    high_w = q - low
+    low_w = 1.0 - high_w
+
+    def at(pos):
+        i = torch.minimum(torch.maximum(pos, torch.zeros_like(pos)), last)
+        return srt.index_select(
+            0, i.to(torch.int64).clamp(0, n - 1).reshape(1))
+
+    return (at(low) * low_w + at(high) * high_w).reshape(())
+
+
+@register_op(
+    "dgc",
+    inputs=[In("U", no_grad=True), In("V", no_grad=True),
+            In("Grad", no_grad=True), In("CurrentStep", no_grad=True)],
+    outputs=[Out("UOut"), Out("VOut"), Out("EncodeGrad"),
+             Out("GradOut")],
+    attrs={"m": 0.9, "use_nesterov": False, "sparsity": [0.999],
+           "rampup_begin_step": 0.0, "rampup_step": 1.0},
+    grad=None,
+)
+def _dgc(ins, attrs):
+    """Deep gradient compression (the reference's ``dgc_op.h``): momentum
+    correction (u = m u + g), velocity accumulation (v = v + u), and the
+    entries whose |v| reaches the threshold (the sparsity's quantile of
+    |v|) selected: they leave as ``EncodeGrad`` (dense, zeros elsewhere)
+    and are zeroed in u and v; the others wait there. Before
+    ``rampup_begin_step`` every entry is selected. The sparsity walks its
+    list over ``rampup_step`` steps, then holds the last. An entry tied
+    with the threshold is selected (``>=``)."""
+    m = attrs.get("m", 0.9)
+    g = ins["Grad"]
+    if attrs.get("use_nesterov", False):
+        u = m * (ins["U"] + g)
+        v = ins["V"] + u + g
+    else:
+        u = m * ins["U"] + g
+        v = ins["V"] + u
+    dev = v.device
+    step = _step_of(ins["CurrentStep"])
+    sparsity = [float(x) for x in attrs.get("sparsity", [0.999])] or \
+        [0.999]
+    # float32 scalars made on the device (a fill, no host copy: the op
+    # runs inside a captured step)
+    f32 = lambda x: torch.full((), x, dtype=torch.float32,  # noqa: E731
+                               device=dev)
+    begin = f32(float(attrs.get("rampup_begin_step", 0.0)))
+    period = f32(max(float(attrs.get("rampup_step", 1.0)), 1.0))
+    prog = torch.clamp((step - begin) / period, f32(0.0), f32(1.0 - 1e-6))
+    idx = (prog * f32(float(len(sparsity)))).to(torch.int32)
+    s_now = f32(sparsity[0])
+    for k, s in enumerate(sparsity[1:], start=1):
+        s_now = torch.where(idx == k, f32(s), s_now)
+    thresh = dgc_threshold(v.abs().reshape(-1), s_now)
+    mask = (v.abs() >= thresh) | (step < begin)
+    zero = torch.zeros((), dtype=v.dtype, device=dev)
+    encoded = torch.where(mask, v, zero)
+    return {"UOut": torch.where(mask, zero, u),
+            "VOut": torch.where(mask, zero, v),
+            "EncodeGrad": encoded, "GradOut": encoded}
 
 
 @register_op(

@@ -47,7 +47,8 @@ __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
            "AdagradOptimizer", "Adam", "AdamOptimizer", "AdamW", "Adamax",
            "AdamaxOptimizer", "DpsgdOptimizer", "DecayedAdagradOptimizer",
            "Adadelta", "AdadeltaOptimizer", "RMSProp", "RMSPropOptimizer",
-           "Ftrl", "FtrlOptimizer", "LambOptimizer", "RecomputeOptimizer",
+           "Ftrl", "FtrlOptimizer", "LambOptimizer", "DGCMomentumOptimizer",
+           "RecomputeOptimizer",
            "ExponentialMovingAverage", "ModelAverage",
            "LookaheadOptimizer", "PipelineOptimizer"]
 
@@ -514,6 +515,88 @@ class LambOptimizer(AdamOptimizer):
 
     def _extra_attrs(self):
         return {"weight_decay": self._weight_decay}
+
+
+class DGCMomentumOptimizer(Optimizer):
+    """Momentum with deep gradient compression (Lin et al. 2018; the
+    reference's ``DGCMomentumOptimizer`` and ``dgc_op``): each parameter's
+    ``dgc`` op keeps the small entries of its velocity back until they
+    reach the sparsity's threshold, and a plain ``sgd`` applies the
+    selected ones (the momentum lives in the ``dgc_u`` accumulator). A
+    persistable ``dgc_step`` counts the steps. ``GradOut`` is bound to the
+    grad var (the reference's in-place ``Grad_out``): the JAX package binds
+    it to the encoded var beside ``EncodeGrad``, an op writing one var
+    through two outputs, which its own IR verifier refuses under data
+    parallelism. Under data parallelism the
+    engine's allreduce lands on the encoded grad, before the ``sgd``, as
+    in the JAX package and the reference: each replica keeps its own u and
+    v. The card's collectives are dense, so this keeps the algorithm, not
+    the sparse wire format."""
+
+    _type = "momentum"
+
+    def __init__(self, learning_rate, momentum, rampup_begin_step,
+                 rampup_step=1, sparsity=(0.999,), use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+        self._rampup_begin_step = rampup_begin_step
+        self._rampup_step = rampup_step
+        self._sparsity = list(sparsity)
+        self._global_step_var = None
+
+    def _create_accumulators(self, block, parameters):
+        from .layers import tensor as layers_tensor
+
+        for p in parameters:
+            self._add_accumulator("dgc_u", p)
+            self._add_accumulator("dgc_v", p)
+        if self._global_step_var is None:
+            self._global_step_var = layers_tensor.create_global_var(
+                name=unique_name.generate("dgc_step"),
+                shape=[1], value=0, dtype="float32", persistable=True)
+            block.append_op("increment",
+                            inputs={"X": [self._global_step_var]},
+                            outputs={"Out": [self._global_step_var]},
+                            attrs={"step": 1.0}, infer_shape=False)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        u = self._get_accumulator("dgc_u", p)
+        v = self._get_accumulator("dgc_v", p)
+        encoded = block.create_var(
+            name=unique_name.generate(p.name + "_dgc_enc"),
+            shape=p.shape, dtype=p.dtype)
+        block.append_op(
+            "dgc",
+            inputs={"U": [u], "V": [v], "Grad": [g],
+                    "CurrentStep": [self._global_step_var]},
+            outputs={"UOut": [u], "VOut": [v], "EncodeGrad": [encoded],
+                     "GradOut": [g]},
+            attrs={"m": self._momentum,
+                   "use_nesterov": self._use_nesterov,
+                   "sparsity": self._sparsity,
+                   "rampup_begin_step": float(self._rampup_begin_step),
+                   "rampup_step": float(self._rampup_step)},
+            infer_shape=False)
+        self._pending_sgd.append(
+            (p, encoded, self._create_param_lr(param_and_grad)))
+        return block.ops[-1]
+
+    def _create_optimization_pass(self, params_grads):
+        self._pending_sgd = []
+        return super()._create_optimization_pass(params_grads)
+
+    def _finish_update(self, block, params_grads):
+        # every dgc op first, then the sgd ops in a row, so that the fused
+        # optimizer pass can fold them into one group (K4's sgd form); the
+        # JAX package interleaves them, and its pass spares the group
+        for p, encoded, lr in self._pending_sgd:
+            block.append_op("sgd",
+                            inputs={"Param": [p], "Grad": [encoded],
+                                    "LearningRate": [lr]},
+                            outputs={"ParamOut": [p]}, infer_shape=False)
 
 
 class RecomputeOptimizer(Optimizer):

@@ -54,6 +54,7 @@ from ..core.lod_lowering import _grad_base
 from ..core.tensor import LoDTensor
 from ..ops.collective_ops import QUANT_WIRE_ITEMSIZE, SHARDED_UPDATE_SLOTS
 from .transpiler import _bump_version, _merge_data_axes
+from ..analysis.contracts import checked_rewrite
 
 DEFAULT_BUCKET_MB = 4.0
 
@@ -232,6 +233,7 @@ def plan_buckets(items, bucket_bytes: int):
     return buckets
 
 
+@checked_rewrite("bucket_allreduce")
 def bucket_allreduce_ops(program, bucket_bytes: int = 4 << 20,
                          quant: str = "none", scope=None,
                          plan: str = "size") -> int:
@@ -320,6 +322,7 @@ def _flat_device(scope, names, block):
     return torch.device("cpu")
 
 
+@checked_rewrite("sharded_update")
 def apply_sharded_weight_update(program, scope, nranks: int,
                                 axis: str = "dp",
                                 quant: str = "none") -> int:

@@ -62,6 +62,7 @@ kind; with the observability layer armed the engine adds it to
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 import warnings
@@ -184,6 +185,9 @@ def _replica_seed(seed: int, attrs, r: int) -> int:
     return (seed + r * _REPLICA_SALT) & 0xFFFFFFFF
 
 
+_NO_RANGE = contextlib.nullcontext()
+
+
 def _walk(block, envs: List[Dict], devices, rng, graph=None,
           salts=None) -> None:
     """Run ``block`` (a ``compiler_engine._Block``) for every replica in
@@ -193,54 +197,59 @@ def _walk(block, envs: List[Dict], devices, rng, graph=None,
     coordinate draw the same numbers."""
     n = len(envs)
     salts = list(range(n)) if salts is None else salts
-    for kind, op, info, attrs, outs, drops in block.ops:
-        if kind == _FOLDED:
-            for env, dev in zip(envs, devices):
-                env.update({k: v if v.device == dev else v.to(dev)
-                            for k, v in outs.items()})
-        elif kind == _CONST and graph is not None:
-            for r, env in enumerate(envs):
-                env.update(graph.consts[r][id(op)])
-        elif kind in (_WHILE, _IF):
-            for env in envs:
-                block._run_node_eager(outs, env, rng, 0)
-        else:
-            group = info.group_of(attrs) if info.group_fn is not None \
-                else None
-            if group is not None and group.in_process:
-                ins_list = [gather_inputs(info, op, env.get) for env in envs]
-                for ranks, g in group.parts():
-                    try:
-                        sub = info.group_fn([ins_list[r] for r in ranks],
-                                            attrs, g)
-                    except Exception as e:
-                        annotate_op_error(e, op, "data parallel")
-                        raise
-                    for r, o in zip(ranks, sub):
+    # "<phase>/<op_type>" ranges while phase annotation is armed
+    labels = getattr(block, "labels", None)
+    for i, (kind, op, info, attrs, outs, drops) in enumerate(block.ops):
+        with (torch.profiler.record_function(labels[i])
+              if labels is not None else _NO_RANGE):
+            if kind == _FOLDED:
+                for env, dev in zip(envs, devices):
+                    env.update({k: v if v.device == dev else v.to(dev)
+                                for k, v in outs.items()})
+            elif kind == _CONST and graph is not None:
+                for r, env in enumerate(envs):
+                    env.update(graph.consts[r][id(op)])
+            elif kind in (_WHILE, _IF):
+                for env in envs:
+                    block._run_node_eager(outs, env, rng, 0)
+            else:
+                group = info.group_of(attrs) if info.group_fn is not None \
+                    else None
+                if group is not None and group.in_process:
+                    ins_list = [gather_inputs(info, op, env.get)
+                                for env in envs]
+                    for ranks, g in group.parts():
+                        try:
+                            sub = info.group_fn([ins_list[r] for r in ranks],
+                                                attrs, g)
+                        except Exception as e:
+                            annotate_op_error(e, op, "data parallel")
+                            raise
+                        for r, o in zip(ranks, sub):
+                            for k, v in output_pairs(info, op, o):
+                                envs[r][k] = v
+                else:
+                    for r in range(n):
+                        a = attrs
+                        if devices[r] != attrs.get(DEVICE_ATTR):
+                            a = dict(a)
+                            a[DEVICE_ATTR] = devices[r]
+                        if info.needs_rng:
+                            a = dict(a)
+                            if graph is not None:
+                                a[GENERATOR_ATTR] = graph.gens[r][id(op)]
+                            else:
+                                gen = torch.Generator(device=devices[r])
+                                gen.manual_seed(_replica_seed(
+                                    rng_seed(rng, attrs, op), attrs, salts[r]))
+                                a[GENERATOR_ATTR] = gen
+                        ins = gather_inputs(info, op, envs[r].get)
+                        o = call_op(info, op, ins, a, "data parallel")
                         for k, v in output_pairs(info, op, o):
                             envs[r][k] = v
-            else:
-                for r in range(n):
-                    a = attrs
-                    if devices[r] != attrs.get(DEVICE_ATTR):
-                        a = dict(a)
-                        a[DEVICE_ATTR] = devices[r]
-                    if info.needs_rng:
-                        a = dict(a)
-                        if graph is not None:
-                            a[GENERATOR_ATTR] = graph.gens[r][id(op)]
-                        else:
-                            gen = torch.Generator(device=devices[r])
-                            gen.manual_seed(_replica_seed(
-                                rng_seed(rng, attrs, op), attrs, salts[r]))
-                            a[GENERATOR_ATTR] = gen
-                    ins = gather_inputs(info, op, envs[r].get)
-                    o = call_op(info, op, ins, a, "data parallel")
-                    for k, v in output_pairs(info, op, o):
-                        envs[r][k] = v
-        for env in envs:
-            for k in drops:
-                env.pop(k, None)
+            for env in envs:
+                for k in drops:
+                    env.pop(k, None)
 
 
 def refuse_host_ops(block) -> None:
@@ -680,10 +689,19 @@ def run_data_parallel(core, program, scope: Scope, feed: Dict,
         raise ValueError(FUSED_OPTIMIZER_REFUSAL)
     if nranks > 1:
         skip_axes = getattr(program, "_allreduce_skip_grads", None) or {}
+        skipped = {g for g, axes in skip_axes.items()
+                   if set(axes) & set(data_axes)}
+        # a grad sharded over one data axis that still sums over the
+        # others (a layer norm's Scale over a split sequence, under dp)
+        rest = skipped & set(getattr(program, "_allreduce_rest_grads",
+                                     None) or ())
+        axis_grads = {g: tuple(a for a in data_axes
+                               if a not in skip_axes[g]
+                               and mesh.shape[a] > 1) for g in rest}
         insert_allreduce_ops(
             program, data_nranks, scale_loss=scale_loss,
-            skip_grads={g for g, axes in skip_axes.items()
-                        if set(axes) & set(data_axes)})
+            skip_grads=skipped,
+            axis_grads={g: a for g, a in axis_grads.items() if a})
         from .transpiler import mark_sync_batch_norm
 
         mark_sync_batch_norm(program, sync_bn)
@@ -737,6 +755,14 @@ def run_data_parallel(core, program, scope: Scope, feed: Dict,
            tuple(sorted(feed_specs.items())))
     run = runs.get(key)
     if run is None:
+        # the first run of this (program, mesh): verify the rewritten
+        # program and its collective schedule before any replica runs
+        # (PADDLE_TPU_VERIFY_IR; a later run never reaches this branch)
+        from ..analysis import maybe_verify_program
+
+        maybe_verify_program(program, where="parallel.engine",
+                             fetch_names=fetch_names, nranks=nranks,
+                             scope=scope)
         _obs.inc("parallel.compiles")
         sharded = {k: tuple(spec) for k, spec in shard_specs.items()
                    if any(spec) and k in set(out_state_names)}
@@ -754,8 +780,13 @@ def run_data_parallel(core, program, scope: Scope, feed: Dict,
 
     core.dp_last = run
     t_step = time.perf_counter() if _obs.enabled() else None
-    outs = _run_replicas(core, run, program, scope, feeds)
-    _ce.inc("executor.steps")
+    with _obs.tracing.span("parallel/step", cat="step", replicas=run.n):
+        outs = _run_replicas(core, run, program, scope, feeds)
+    _ce.inc("executor.steps", path="parallel")
+    from ..observability import capture as _capture
+
+    _capture.maybe_sample_step("parallel", program, scope, feed,
+                               mesh=mesh, axis_name=axis_name)
     if t_step is not None:
         coll = run.coll_est
         _obs.inc("parallel.steps")

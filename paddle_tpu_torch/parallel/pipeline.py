@@ -133,7 +133,10 @@ class _StageOps:
     """A stage's op list as ``engine._walk`` runs it."""
 
     def __init__(self, ops, device):
+        from ..observability.profiler import trace_annotation
+
         infos = OpInfoMap.instance()
+        self.labels = trace_annotation(None, list(ops))
         self.ops = []
         for op in ops:
             if op.type in ("while", "conditional_block"):
@@ -239,6 +242,7 @@ def _pipeline_axes(program, mesh, axis_name):
 # run eagerly, one walk a stage and microbatch (no capture yet)
 EAGER_DECLINE = "pipeline (eager stages)"
 _DECLINED: Set[Tuple] = set()  # (program uid, mesh key) counted once
+_VERIFIED: Set[Tuple] = set()  # (program uid, version, mesh key)
 
 
 def pipeline_stats() -> Dict:
@@ -284,6 +288,17 @@ def run_pipeline_parallel(core, program, scope: Scope, feed: Dict,
     dp = mesh.shape[dp_axis] if dp_axis else 1
     block = program.global_block()
     refuse_host_ops(block)
+    from ..analysis import maybe_verify_program, verify_enabled
+
+    vkey = (program._uid, program._op_id, mesh_key(mesh))
+    if verify_enabled() and vkey not in _VERIFIED:
+        # the stage split and the program, once a (program version, mesh)
+        from ..analysis.contracts import check_pipeline_split
+
+        check_pipeline_split(program, stages, meta["n_fwd_ops"])
+        maybe_verify_program(program, where="parallel.pipeline",
+                             scope=scope)
+        _VERIFIED.add(vkey)
     if mesh.devices[0].type == "cuda" and \
             (program._uid, mesh_key(mesh)) not in _DECLINED:
         _DECLINED.add((program._uid, mesh_key(mesh)))
@@ -382,7 +397,9 @@ def run_pipeline_parallel(core, program, scope: Scope, feed: Dict,
     def run(s, ops_block, m):
         mem = members[s]
         salts = [m * len(mem) + j for j in range(len(mem))]
-        with mesh_axes_guard(guards[s]):
+        with _obs.tracing.span("pipeline/stage", cat="stage", stage=s,
+                               microbatch=m), \
+                mesh_axes_guard(guards[s]):
             _walk(ops_block, envs[s][m], [devices[r] for r in mem],
                   core.rng, salts=salts)
 
@@ -436,6 +453,10 @@ def run_pipeline_parallel(core, program, scope: Scope, feed: Dict,
                 acc_stage[p] = s
             envs[s][m] = None  # this microbatch's activations are done
     step_ms = (time.perf_counter() - t0) * 1e3
+    if _obs.tracing.active():
+        _obs.tracing._record("pipeline/step", t0 * 1e6, step_ms * 1e3,
+                             "step", {"stages": n_stages,
+                                      "microbatches": n_micro})
 
     # the mean over the data axis, the sharded blocks assembled
     def global_grad(p):

@@ -26,6 +26,7 @@ from ..core.dtypes import to_torch_dtype
 from ..core.tensor import LoDTensor
 from ..ops.collective_ops import QUANT_WIRE_ITEMSIZE
 from .transpiler import _bump_version
+from ..analysis.contracts import checked_rewrite
 
 __all__ = [
     "reduce_strategy_mode", "async_collectives_enabled",
@@ -104,6 +105,7 @@ def _bucket_numel(block, scope, op) -> Optional[int]:
     return total
 
 
+@checked_rewrite("bucket_quant")
 def configure_bucket_quant(program, scope, nranks: int, axis: str,
                            modes=None, error_feedback: bool = False,
                            materialize: bool = True) -> int:

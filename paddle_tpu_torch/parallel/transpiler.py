@@ -18,14 +18,14 @@ over ``ep``). Each records the mesh layout on the program:
 - ``_allreduce_skip_grads``: the grads of sharded params and their axes.
 
 ``ring_id`` stays in the op attrs; at run time the engine maps it to a
-group of replicas. The contract check around each pass comes with the
-analysis package.
+group of replicas.
 """
 from __future__ import annotations
 
 from typing import Set
 
 from ..core.registry import GRAD_SUFFIX
+from ..analysis.contracts import checked_rewrite
 
 OPTIMIZER_OP_TYPES = {
     "sgd", "momentum", "lars_momentum", "adam", "adamw", "adamax", "adagrad",
@@ -49,17 +49,22 @@ def _new_op(program, block, type, inputs, outputs, attrs):
     return op
 
 
+@checked_rewrite("insert_allreduce")
 def insert_allreduce_ops(program, nranks: int, ring_id: int = 0,
-                         scale_loss: bool = True, skip_grads=None):
+                         scale_loss: bool = True, skip_grads=None,
+                         axis_grads=None):
     """Rewrite a training program for data parallelism: scale the loss
     grad by 1/nranks and allreduce every grad an optimizer op consumes, in
     place, just before its first optimizer op. Returns the set of grads
     allreduced. A program is rewritten at most once (fleet may transpile
-    before the engine sees it). ``skip_grads`` are left alone."""
+    before the engine sees it). ``skip_grads`` are left alone;
+    ``axis_grads`` (grad -> mesh axes) sum over those axes alone, one
+    axis after the other."""
     if getattr(program, "_grads_allreduced", False):
         return set()
     program._grads_allreduced = True
     skip = set(skip_grads or ())
+    per_axis = dict(axis_grads or {})
     block = program.global_block()
     if scale_loss:
         for op in block.ops:
@@ -70,7 +75,18 @@ def insert_allreduce_ops(program, nranks: int, ring_id: int = 0,
     for op in block.ops:
         if op.type in OPTIMIZER_OP_TYPES:
             for g in op.input("Grad"):
-                if g in skip or g in grad_names:
+                if g in grad_names:
+                    continue
+                if g in per_axis:
+                    grad_names.add(g)
+                    for a in per_axis[g]:
+                        new_ops.append(_new_op(
+                            program, block, "c_allreduce_sum", {"X": [g]},
+                            {"Out": [g]},
+                            {"ring_id": ring_id, "use_calc_stream": True,
+                             "_mesh_axis": a}))
+                    continue
+                if g in skip:
                     continue
                 grad_names.add(g)
                 new_ops.append(_new_op(
@@ -132,6 +148,7 @@ def _merge_data_axes(program, axes):
     program._data_axes = tuple(cur)
 
 
+@checked_rewrite("sharded_embedding")
 def apply_sharded_embedding(program, axis: str = "mp", degree: int = 0,
                             startup_program=None):
     """Tensor parallelism for embedding tables: every ``lookup_table[_v2]``
@@ -159,7 +176,9 @@ def apply_sharded_embedding(program, axis: str = "mp", degree: int = 0,
                     "mp degree %d — pass startup_program so the table "
                     "can be padded to %d rows"
                     % (w, v.shape[0], degree, v_pad))
-            _pad_table_rows(program, startup_program, w, v, v_pad)
+            # grow the table to v_pad rows in both programs
+            _resize_var(program, startup_program, w, v,
+                        (v_pad,) + tuple(v.shape[1:]))
         if op.attrs.get("is_sparse"):
             import warnings
 
@@ -180,22 +199,22 @@ def apply_sharded_embedding(program, axis: str = "mp", degree: int = 0,
     return tables
 
 
-def _pad_table_rows(program, startup_program, name, var, v_pad):
-    """Grow an embedding var to ``v_pad`` rows in both programs: the var
+def _resize_var(program, startup_program, name, var, new_shape):
+    """Give ``name`` the shape ``new_shape`` in both programs: the var
     shapes and every init op's ``shape`` attr."""
-    new_shape = (v_pad,) + tuple(var.shape[1:])
-    var.shape = new_shape
+    var.shape = tuple(new_shape)
     for blk in (startup_program.global_block(), program.global_block()):
         for op in blk.ops:
             if name in op.output_arg_names and "shape" in op.attrs:
                 op.attrs["shape"] = list(new_shape)
     sv = startup_program.global_block()._find_var_recursive(name)
     if sv is not None:
-        sv.shape = new_shape
+        sv.shape = tuple(new_shape)
 
 
+@checked_rewrite("sequence_parallel")
 def apply_sequence_parallel(program, axis: str = "sp", degree: int = 0,
-                            feed_specs=None):
+                            feed_specs=None, startup_program=None):
     """Sequence parallelism: every ``flash_attention`` becomes
     ``c_ring_attention`` over ``axis``. ``feed_specs`` gives the feeds'
     layouts over the mesh, e.g. ``{"x": ("dp", None, "sp")}`` for ``[B, H,
@@ -204,28 +223,46 @@ def apply_sequence_parallel(program, axis: str = "sp", degree: int = 0,
     with the wrong example's length). ``degree`` checks that the
     attention's sequence divides. Call before ``minimize()``.
 
-    A ``layer_norm`` over several axes (``begin_norm_axis`` short of the
-    last, as bench.py's gpt_long normalizes over S x D) is warned of: where
-    its axes take in the split sequence, each replica normalizes its own
-    block, which is not the dense model. The JAX pass takes such a program
-    without a word; ROADMAP.md lists it as a fault of both packages."""
-    import warnings
-
+    A ``layer_norm`` whose axes take in the sequence (``begin_norm_axis``
+    1 over ``[B, S, ...]``, as bench.py's gpt_long normalizes over S x D)
+    gets its form over ``axis`` (``shard_axis``): its statistics are the
+    whole row's. Its Scale and Bias become vars of the dense model's
+    shape (``degree`` times the replica's share, in ``startup_program``
+    too, default the current one), held as one sequence block a replica
+    (``_var_shard_specs``); their grads skip the sum over ``axis`` and sum
+    over the other data axes. The program is then the dense model, whose
+    persistables it takes unchanged. The JAX pass leaves such a norm as
+    it is, so that each replica normalizes its own block: ROADMAP.md
+    lists that as a fault of the JAX package."""
     block = program.global_block()
     for op in block.ops:
         if op.type != "layer_norm":
             continue
         x = block._find_var_recursive(op.input("X")[0])
         rank = len(x.shape) if x is not None and x.shape else 0
-        axis0 = int(op.attrs.get("begin_norm_axis", 1))
-        if rank >= 3 and axis0 < rank - 1:
-            warnings.warn(
-                "sequence parallel: layer_norm over axes %d..%d of %r "
-                "(shape %s): if the split sequence is among them, each "
-                "replica normalizes its own block and the model is not "
-                "the dense one — normalize each token (begin_norm_axis "
-                "%d)" % (axis0, rank - 1, op.input("X")[0],
-                         list(x.shape), rank - 1))
+        if rank < 3 or int(op.attrs.get("begin_norm_axis", 1)) > 1:
+            continue
+        if not degree:
+            raise ValueError(
+                "sequence parallel: layer_norm over the sequence of %r "
+                "needs the sp degree, to give its Scale and Bias the dense "
+                "model's shape" % op.input("X")[0])
+        if startup_program is None:
+            from .. import framework
+
+            startup_program = framework.default_startup_program()
+        op.attrs = dict(op.attrs)
+        op.attrs["shard_axis"] = axis
+        for name in op.input("Scale") + op.input("Bias"):
+            v = block._find_var_recursive(name)
+            _resize_var(program, startup_program, name, v,
+                        (int(v.shape[0]) * degree,))
+            _mark_shard(program, name, (axis,))
+            _skip_grad(program, name + GRAD_SUFFIX, (axis,))
+            rest = getattr(program, "_allreduce_rest_grads", None)
+            if rest is None:
+                rest = program._allreduce_rest_grads = set()
+            rest.add(name + GRAD_SUFFIX)
     n = 0
     for op in block.ops:
         if op.type != "flash_attention":
@@ -258,6 +295,7 @@ def apply_sequence_parallel(program, axis: str = "sp", degree: int = 0,
     return n
 
 
+@checked_rewrite("expert_parallel")
 def apply_expert_parallel(program, axis: str = "ep", degree: int = 1):
     """Expert parallelism: every ``moe`` op's experts shard over ``axis``
     and its tokens (the batch) split over the same axis; two all-to-alls

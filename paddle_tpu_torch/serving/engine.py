@@ -135,6 +135,16 @@ class ServingEngine:
                 raise EngineStopped("engine cannot be restarted")
             if self._started:
                 return self
+            # verify the program this engine is about to serve
+            # (PADDLE_TPU_VERIFY_IR), before any worker thread exists
+            prog = getattr(self._predictor, "_program", None)
+            if prog is not None:
+                from ..analysis import maybe_verify_program
+
+                fetch = [v.name for v in getattr(
+                    self._predictor, "_fetch_vars", None) or []]
+                maybe_verify_program(prog, where="serving.engine",
+                                     fetch_names=fetch or None)
             if self.config.warmup:
                 self._warming = True
                 try:

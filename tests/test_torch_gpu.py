@@ -3246,3 +3246,163 @@ def test_slice21_eager_pipeline_step_names_its_decline(cuda):
     assert ce.counters()["executor.compile_fallbacks"] == 1
     assert np.isfinite(first).all() and np.isfinite(second).all()
     exe.close()
+
+
+# -- slice 22: DGC, the step profiler, the device trace, the sp layer norm ---
+
+@pytest.mark.parametrize("n", [64 * 33, (1 << 24) + 4099])
+def test_slice22_dgc_on_the_card_against_its_plain_version(cuda, n):
+    """The dgc op on card tensors against its plain function on the same
+    values on the CPU, past the rampup (the walk's third sparsity) and
+    over 2^24 elements: the same entries selected, every output the same
+    bits."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+
+    fn = OpInfoMap.instance().get("dgc").fn
+    g = torch.Generator(device="cuda").manual_seed(22)
+    ins = {"U": torch.randn(n, generator=g, device="cuda") * 0.1,
+           "V": torch.randn(n, generator=g, device="cuda") * 0.1,
+           "Grad": torch.randn(n, generator=g, device="cuda"),
+           "CurrentStep": torch.full((1,), 3.0, device="cuda")}
+    attrs = {"m": 0.9, "use_nesterov": False,
+             "sparsity": [0.75, 0.9375, 0.984375, 0.996, 0.999],
+             "rampup_begin_step": 1.0, "rampup_step": 4.0}
+    got = fn(ins, dict(attrs))
+    want = fn({k: v.cpu() for k, v in ins.items()}, dict(attrs))
+    assert torch.equal(got["EncodeGrad"].cpu() != 0,
+                       want["EncodeGrad"] != 0)
+    for k in ("UOut", "VOut", "EncodeGrad", "GradOut"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    kept = int((want["EncodeGrad"] != 0).sum())
+    assert abs(kept - round(n * (1 - 0.984375))) <= 1
+
+
+def slice22_mlp(opt="adam"):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[64, 32], dtype="float32")
+        y = fluid.data(name="y", shape=[64, 1], dtype="int64")
+        h = fluid.layers.fc(x, 128, act="relu")
+        pred = fluid.layers.fc(h, 10, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, y))
+        fluid.optimizer.AdamOptimizer(1e-3).minimize(loss)
+    rng = np.random.RandomState(22)
+    feed = {"x": rng.rand(64, 32).astype("float32"),
+            "y": rng.randint(0, 10, (64, 1)).astype("int64")}
+    return main, startup, loss, feed
+
+
+def slice22_state(main, scope):
+    return {v.name: scope.find_var(v.name).get_tensor().array.clone()
+            for v in main.list_vars() if v.persistable
+            and scope.find_var(v.name) is not None
+            and scope.find_var(v.name).is_initialized()}
+
+
+def test_slice22_profile_step_leaves_the_state_on_the_card(cuda,
+                                                           monkeypatch):
+    """profile_step on the card (K4's flat adam): captured prefixes timed
+    with CUDA events, the state (parameters, the flat moments) bit for bit
+    as it was, its graphs' pool given back."""
+    from paddle_tpu_torch.observability import profiler as prof
+
+    monkeypatch.setenv("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+    main, startup, loss, feed = slice22_mlp()
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    before = slice22_state(main, scope)
+    assert any(n.startswith("fused_opt_") for n in before)
+    rep = prof.profile_step(main, scope, feed)
+    after = slice22_state(main, scope)
+    for n, t in before.items():
+        assert torch.equal(after[n], t), n
+    assert rep["timing"] == "cuda graph replays, cuda events"
+    assert set(rep["phase_ms"]) == {"forward", "backward", "optimizer"}
+    assert rep["peak_bytes"] > 0 and rep["step_ms"] > 0
+    assert rep["launches"].get("fused_optimizer_update", 0) >= 1
+    exe.close()
+
+
+def test_slice22_device_fold_on_the_card(cuda):
+    """device_profile_step on the card: a fold that is not None, each of
+    the step's phases with device time, the kernel records seen beside
+    the launches of the port's kernels."""
+    from paddle_tpu_torch.observability import device_trace
+    from paddle_tpu_torch.observability import profiler as prof
+
+    main, startup, loss, feed = slice22_mlp()
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    dev = device_trace.device_profile_step(main, scope, feed, steps=2)
+    assert dev is not None
+    assert {"forward", "backward", "optimizer"} <= set(
+        dev["device_phase_ms"])
+    assert all(ms > 0 for ms in dev["device_phase_ms"].values())
+    assert dev["kernel_records"] >= dev["n_attributed"] > 0
+    assert not prof.annotating()
+    exe.close()
+
+
+def test_slice22_sp_layer_norm_over_s_x_d_against_the_dense_run(cuda):
+    """A narrow gpt (2 layers, d 64, one head of 64, S 128) whose layer
+    norms span S x D, under sp=2 on the card against its dense program on
+    the card from the same start: the first loss within 1e-5 relative,
+    the parameters after 2 steps within 1e-3 of their change, as a norm
+    ratio over all of them (phase 59's limit: Adam moves a weight whose
+    grad is rounding noise by about its rate, so no one tensor's ratio
+    means much)."""
+    from paddle_tpu_torch.incubate.fleet.collective import (
+        CollectiveOptimizer, DistributedStrategy)
+    from paddle_tpu_torch.parallel.mesh_utils import make_mesh
+
+    S, vocab = 128, 128
+    kw = dict(d_model=64, n_heads=1, n_layers=2, vocab=vocab,
+              learning_rate=1e-3, seed=22, use_bf16=False)
+
+    def sp_opt():
+        strat = DistributedStrategy()
+        strat.sequence_parallel = True
+        strat.sp_degree = 2
+        strat.feed_shard_specs = {"ids": (None, "sp"), "lbl": ("sp", None)}
+        return CollectiveOptimizer(fluid.optimizer.AdamOptimizer(1e-3),
+                                   strat)
+
+    rng = np.random.RandomState(22)
+    feeds = [gpt.random_batch(rng, 1, S, vocab) for _ in range(2)]
+    runs = []
+    for sp in (0, 2):
+        main, startup, loss, _ = gpt.build_gpt_long(
+            1, S // (sp or 1), optimizer_fn=sp_opt if sp else None, **kw)
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        if sp:
+            assert sum(op.attrs.get("shard_axis") == "sp"
+                       for op in main.global_block().ops
+                       if op.type == "layer_norm") == 5
+            for n, t in runs[0][2].items():
+                scope.var(n).set(fluid.LoDTensor(t.clone()))
+            prog = fluid.CompiledProgram(main).with_data_parallel(
+                loss.name, places=make_mesh([2], ["sp"],
+                                            [fluid.CUDAPlace(0)] * 2))
+        else:
+            prog = main
+        init = {p.name: scope.find_var(p.name).get_tensor().array.clone()
+                for p in main.all_parameters()}
+        losses = [float(np.asarray(exe.run(prog, feed=f, fetch_list=[loss],
+                                           scope=scope)[0]).mean())
+                  for f in feeds]
+        params = {p.name: scope.find_var(p.name).get_tensor().array.clone()
+                  for p in main.all_parameters()}
+        runs.append((losses, params, init))
+        exe.close()
+    (dl, dp, d0), (sl, spp, _) = runs
+    assert abs(sl[0] - dl[0]) / abs(dl[0]) < 1e-5
+    assert all(spp[n].shape == want.shape for n, want in dp.items())
+    gap = sum(float((spp[n] - want).double().norm()) ** 2
+              for n, want in dp.items())
+    change = sum(float((want - d0[n]).double().norm()) ** 2
+                 for n, want in dp.items())
+    assert (gap / change) ** 0.5 <= 1e-3

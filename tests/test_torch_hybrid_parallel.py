@@ -13,7 +13,8 @@ embedding over dp x mp, an mp-only mesh and an uneven vocab; ring
 attention over dp x sp; expert parallelism over ep; dp x pp x mp in one
 program against single-device microbatch accumulation; a ragged pipeline
 batch refused; a narrow gpt (2 layers, d 64, S 64) under sp=2, and its
-layer norm over S x D, which sp changes in both packages; and the
+layer norm over S x D, which the port's pass keeps the dense model (the
+JAX pass does not); and the
 ``mp``-fold overcount of a one-graph lookup grad, which must fail the
 parameter check.
 
@@ -454,61 +455,82 @@ def test_narrow_gpt_over_sp2_matches_jax_mesh():
                    atol=GT.PARAM_ATOL_PER_STEP * len(feeds))
 
 
-@pytest.mark.parametrize("begin_norm_axis", [2, 1])
-def test_sp_keeps_the_dense_model_only_with_a_per_token_layer_norm(
-        begin_norm_axis):
-    """bench.py's layer norm over S x D (``begin_norm_axis=1``) under sp=2:
-    each replica normalizes its own half of the sequence, another model
-    than the dense one. Both packages' passes take it alike (the port
-    meets the JAX mesh), and both miss the dense program's first loss, at
-    the full sequence on one device from the same start, by more than ten
-    times the limit that the per-token norm (2) meets (2.5e-4 against
-    1e-5 here). The port's pass warns of
-    the S x D norm. A fault of both packages (ROADMAP.md, queue 3)."""
-    import warnings
+def train_port(main, startup, loss, init, feeds, places=None):
+    """The port's run of ``main`` from its own startup, then ``init``'s
+    arrays of the same shapes carried in: (losses, persistables)."""
+    exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    exe.run(startup, scope=scope)
+    pvars = main.global_block().vars
+    carry({n: a for n, a in init.items()
+           if n in pvars and tuple(pvars[n].shape) == a.shape}, main, scope)
+    prog = main if places is None else fluid.CompiledProgram(
+        main).with_data_parallel(loss_name=loss.name, places=places)
+    losses = [np.asarray(exe.run(prog, feed=f, fetch_list=[loss],
+                                 scope=scope)[0]) for f in feeds]
+    return losses, persistables(main, scope)
 
+
+@pytest.mark.parametrize("begin_norm_axis", [2, 1])
+def test_sp_keeps_the_dense_model_with_a_layer_norm_over_the_sequence(
+        begin_norm_axis):
+    """The narrow gpt under sp=2 against the dense program (the full
+    sequence on one device) from the same start: the first loss within
+    1e-5 relative and the state after two steps within the per-token
+    case's limits, whether the layer norms normalize each token (2) or
+    the whole S x D row as bench.py's do (1). The port's pass gives an
+    S x D norm its form over the sp group (the statistics of the whole
+    row; Scale and Bias of the dense shape, a sequence block a replica).
+    The JAX mesh's reading stands beside it: it meets the port per token,
+    and with the S x D norm it normalizes each replica's half on its own,
+    another model, which misses the dense first loss by more than ten
+    times the limit (2.5e-4 against 1e-5 here; ROADMAP.md's faults of the
+    JAX package that the port does not copy)."""
     import test_torch_training as GT
 
     S, vocab = 64, 128
     rng = np.random.RandomState(23)
     feeds = [{"ids": rng.randint(0, vocab, (1, S)).astype("int64"),
-              "lbl": rng.randint(0, vocab, (S, 1)).astype("int64")}]
-    build = lambda pkg: gpt_sp(pkg, S // 2,  # noqa: E731
-                               begin_norm_axis=begin_norm_axis)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        jl, pl, js, ps, _, _ = run_both(build, feeds, [2], ["sp"])
-    warned = [w for w in caught if "layer_norm over axes" in str(w.message)]
-    assert bool(warned) == (begin_norm_axis == 1)
-    assert_matches(jl, pl, js, ps, loss_rtol=GT.LOSS_RTOL, rtol=0,
-                   atol=GT.PARAM_ATOL_PER_STEP)
-
-    # the dense program from the JAX startup (an S x D norm's scale and
-    # bias are S x D there: their constant start, ones and zeros)
-    jmain, jstart, _ = build(jfluid)
+              "lbl": rng.randint(0, vocab, (S, 1)).astype("int64")}
+             for _ in range(2)]
+    build = lambda pkg, **kw: gpt_sp(  # noqa: E731
+        pkg, kw.pop("seq", S // 2), begin_norm_axis=begin_norm_axis, **kw)
+    jmain, jstart, jloss = build(jfluid)
     jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
     with jfluid.scope_guard(jscope):
         jexe.run(jstart)
         init = persistables(jmain, jscope)
-    dmain, dstart, dloss = gpt_sp(fluid, S, sp=0,
-                                  begin_norm_axis=begin_norm_axis)
-    pexe, pscope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
-    pexe.run(dstart, scope=pscope)
-    dvars = dmain.global_block().vars
-    same = {n: a for n, a in init.items()
-            if n in dvars and tuple(dvars[n].shape) == a.shape}
-    apart = set(init) - set(same)
-    assert bool(apart) == (begin_norm_axis == 1)
-    assert all(n.startswith("layer_norm") for n in apart), apart
-    carry(same, dmain, pscope)
-    dense = float(np.asarray(pexe.run(dmain, feed=feeds[0],
-                                      fetch_list=[dloss],
-                                      scope=pscope)[0]).mean())
+        cp = jfluid.CompiledProgram(jmain).with_data_parallel(
+            loss_name=jloss.name, places=jax_mesh([2], ["sp"]))
+        jl = [np.asarray(jexe.run(cp, feed=f, fetch_list=[jloss])[0])
+              for f in feeds]
+    js = persistables(jmain, jscope)
+
+    pmain, pstart, ploss = build(fluid)
+    norms = [op for op in pmain.global_block().ops
+             if op.type == "layer_norm"]
+    spans = begin_norm_axis == 1
+    assert all(bool(op.attrs.get("shard_axis")) == spans for op in norms)
+    pl, ps = train_port(pmain, pstart, ploss, init, feeds, make_mesh(
+        [2], ["sp"], [fluid.CPUPlace()] * 2))
+    dl, ds = train_port(*build(fluid, seq=S, sp=0), init, feeds)
+
+    dense = float(np.mean(dl[0]))
     gap = abs(float(np.mean(pl[0])) - dense) / abs(dense)
-    if begin_norm_axis == 2:
-        assert gap < LOSS_RTOL, gap
+    jgap = abs(float(np.mean(jl[0])) - dense) / abs(dense)
+    assert gap < LOSS_RTOL, (gap, jgap)
+    for name, want in ds.items():
+        if want.dtype.kind == "f":
+            np.testing.assert_allclose(
+                ps[name], want, rtol=0,
+                atol=GT.PARAM_ATOL_PER_STEP * len(feeds), err_msg=name)
+    if spans:
+        # the dense model's Scale and Bias, whole in the scope
+        assert all(ps[n].shape == ds[n].shape for n in ds
+                   if n.startswith("layer_norm"))
+        assert jgap > 10 * LOSS_RTOL, jgap
     else:
-        assert gap > 10 * LOSS_RTOL, gap
+        assert_matches(jl, pl, js, ps, loss_rtol=GT.LOSS_RTOL, rtol=0,
+                       atol=GT.PARAM_ATOL_PER_STEP * len(feeds))
 
 
 def test_an_overcounted_lookup_grad_fails_the_parameter_check():
