@@ -8690,11 +8690,11 @@ def dp_refusal(fluid):
 
 
 def dp_steps(fluid, support, engine, exe, cp, scope, feed, loss, params,
-             what, state=None, timed=DP_TIMED):
+             what, state=None, timed=DP_TIMED, after_first=None):
     """DP_STEPS checked steps (the replicas' parameters compared after
-    each; ``state(scope)`` read after the last), then ``timed`` timed
-    replays; the counts zeroed just before the first and read just after
-    the last."""
+    each; ``after_first()`` called after the first, ``state(scope)`` read
+    after the last), then ``timed`` timed replays; the counts zeroed just
+    before the first and read just after the last."""
     from paddle_tpu_torch.core import compiler_engine as ce
 
     gc.collect()
@@ -8712,6 +8712,8 @@ def dp_steps(fluid, support, engine, exe, cp, scope, feed, loss, params,
                                % (what, out.size))
         losses.append(float(out.astype(np.float64).mean()))
         replicas_agree(engine, exe, params, what)
+        if after_first is not None and len(losses) == 1:
+            after_first()
     snap = state(scope) if state is not None else None
     step_ms = None
     if timed:
@@ -9874,11 +9876,13 @@ DGC_STEPS = 4
 
 class obs_env:
     """Phase 63's knobs (PADDLE_TPU_VERIFY_IR, PADDLE_TPU_PROFILE,
-    PADDLE_TPU_SAMPLE_EVERY, PADDLE_TPU_METRICS_DIR), the layer, the
-    dumper and the span spool armed; all put back after."""
+    PADDLE_TPU_SAMPLE_EVERY, PADDLE_TPU_METRICS_DIR; the phase sets
+    PADDLE_TPU_DEVICE_TRACE itself), the layer, the dumper and the span
+    spool armed; all put back after."""
 
     KEYS = ("PADDLE_TPU_VERIFY_IR", "PADDLE_TPU_PROFILE",
-            "PADDLE_TPU_SAMPLE_EVERY", "PADDLE_TPU_METRICS_DIR")
+            "PADDLE_TPU_SAMPLE_EVERY", "PADDLE_TPU_METRICS_DIR",
+            "PADDLE_TPU_DEVICE_TRACE")
 
     def __init__(self, metrics_dir, sample_every):
         self.env = {"PADDLE_TPU_VERIFY_IR": "1", "PADDLE_TPU_PROFILE": "1",
@@ -9982,6 +9986,15 @@ def phase_profiled_gpt(fluid, support):
             sampled = capture.history("executor")
             table = [k for k in fluid.profiler.device_kernels()
                      if any(f in k[0] for f in TABLE_KERNELS)]
+            # PADDLE_TPU_DEVICE_TRACE, outside the session (whose
+            # torch.profiler holds the trace): the next sample carries the
+            # device phases beside the host's, with their agreement
+            os.environ["PADDLE_TPU_DEVICE_TRACE"] = "1"
+            for _ in range(PROFILE_SAMPLE_EVERY):
+                exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                        return_numpy=False)
+            os.environ.pop("PADDLE_TPU_DEVICE_TRACE")
+            traced = capture.history("executor")[-1]
             # the step alone: replays, sampling off
             os.environ["PADDLE_TPU_SAMPLE_EVERY"] = "0"
             capture.rearm()
@@ -10060,6 +10073,7 @@ def phase_profiled_gpt(fluid, support):
            "verify_warnings": len(findings) - len(errors),
            "pass_checks": checks, "samples": cap_samples,
            "sampled": sampled, "capture_errors": cap_errors,
+           "traced_sample": traced,
            "spool_files": len(segments), "spool": sp_stats,
            "metrics_families": families, "state_tensors": n_state,
            "counts": counts, "want": want}
@@ -10096,19 +10110,27 @@ def phase_profiled_gpt(fluid, support):
            json.dumps(checks), cap_samples, cap_errors,
            json.dumps(sampled), len(segments), json.dumps(sp_stats),
            families, json.dumps(counts), json.dumps(want)))
+    log("phase 63 PADDLE_TPU_DEVICE_TRACE=1, %d more steps: the sampled "
+        "capture of step %d carries its device profile (one traced eager "
+        "walk): host-device agreement %s, capture %s ms, device launches %s"
+        % (PROFILE_SAMPLE_EVERY, traced["step"],
+           traced.get("host_device_agreement"), traced.get("capture_ms"),
+           json.dumps(traced.get("device_launches"))))
     bad = {k: (counts.get(k, 0), n) for k, n in want.items()
            if counts.get(k, 0) != n}
-    if bad or errors or cap_errors or dev is None or \
-            cap_samples != PROFILED_STEPS // PROFILE_SAMPLE_EVERY or \
+    traced_ok = traced["step"] == PROFILED_STEPS + PROFILE_SAMPLE_EVERY \
+        and isinstance(traced.get("host_device_agreement"), float)
+    if bad or errors or cap_errors or dev is None or not traced_ok or \
+            cap_samples != PROFILED_STEPS // PROFILE_SAMPLE_EVERY + 1 or \
             not segments or not np.isfinite(losses).all() or \
             not any(f.startswith("paddle_tpu_executor") for f in families) \
             or not any(f.startswith("paddle_tpu_fusion") for f in families):
         raise RuntimeError(
             "phase 63: launches (got, want) %s, verifier errors %s, capture "
-            "errors %d, samples %d, device fold %s, spool files %d, "
-            "families %s, losses %s" % (bad, errors[:3], cap_errors,
-                                        cap_samples, dev is not None,
-                                        len(segments), families, losses))
+            "errors %d, samples %d, device fold %s, the traced sample %s, "
+            "spool files %d, families %s, losses %s"
+            % (bad, errors[:3], cap_errors, cap_samples, dev is not None,
+               json.dumps(traced), len(segments), families, losses))
     return counts, run
 
 
@@ -10166,13 +10188,69 @@ def dgc_ops_check(fluid, main, scope0, feed, fetched):
     return {"ops": len(dgcs), "elements": total, "selected": kept}
 
 
+def dgc_dp_update_check(fluid, gpt, init, feed, got):
+    """Phase 64 (b)'s first update over DP_REPLICAS replicas (``got``: the
+    parameters after it) against a plain one: each replica's grads of its
+    share of the batch, from a fresh build at that share (no data-parallel
+    rewrite) cut before its first dgc op and run on the card from the state
+    before the step (``init``); the dgc op's plain function on each, on
+    the card (part (a) holds it bitwise to the CPU's); the encoded grads
+    summed over the replicas and scaled by 1/replicas (the loss of the
+    mean over replicas), then sgd at the rate, on the CPU. Returns
+    (the norm ratio |p - p_ref| / |p_ref - p_init| over every parameter,
+    the same against the update without the 1/replicas scale: phase 56's
+    planted doubled sum)."""
+    from paddle_tpu_torch.core.compiler_engine import run_compiled_program
+    from paddle_tpu_torch.core.executor_core import CoreExecutor
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    from paddle_tpu_torch.observability import profiler as prof
+
+    main, _, _, _ = dgc_gpt(fluid, gpt, SEED + 64, DP_REPLICAS)
+    ops = main.global_block().ops
+    dgcs = [op for op in ops if op.type == "dgc"]
+    grads = [op.input("Grad")[0] for op in dgcs]
+    param_of = {op.input("Grad")[0]: op.input("Param")[0] for op in ops
+                if op.type == "sgd"}
+    sub = prof._sub_program(main, list(range(ops.index(dgcs[0]))))
+    scope0 = fluid.Scope()
+    for n, t in init.items():
+        scope0.var(n).set(fluid.LoDTensor(t.clone()))
+    core = CoreExecutor(next(iter(init.values())).device)
+    fn = OpInfoMap.instance().get("dgc").fn
+    enc_sum = {}
+    for r in range(DP_REPLICAS):
+        part = {k: np.split(v, DP_REPLICAS)[r] for k, v in feed.items()}
+        g_vals = run_compiled_program(core, sub, scope0, part, grads,
+                                      return_numpy=False)
+        for op, g in zip(dgcs, g_vals):
+            grad = g.array
+            enc = fn({"U": torch.zeros_like(grad),
+                      "V": torch.zeros_like(grad), "Grad": grad,
+                      "CurrentStep": torch.ones(1, device=grad.device)},
+                     dict(op.attrs))["EncodeGrad"].cpu()
+            name = op.output("EncodeGrad")[0]
+            enc_sum[name] = enc_sum[name] + enc if name in enc_sum else enc
+    core.close()
+    lr = DGC["learning_rate"]
+    sound, doubled = [], []
+    for enc_name, total in enc_sum.items():
+        p = param_of[enc_name]
+        p0, p1 = init[p].cpu(), got[p].cpu()
+        ref = p0 - lr * (total / DP_REPLICAS)
+        bad = p0 - lr * total
+        sound.append((p1, ref, ref - p0))
+        doubled.append((p1, bad, bad - p0))
+    return norm_gap(sound), norm_gap(doubled)
+
+
 def phase_dgc(fluid, support):
     """Phase 64: gpt_long in float32 under DGCMomentumOptimizer (a) on one
     card, its sgd ops folded into K4 by PADDLE_TPU_FUSED_OPTIMIZER, each
     dgc op of the first post-rampup step held bitwise to its plain CPU
     function; (b) over 2 replicas on the card with PADDLE_TPU_VERIFY_IR
-    (the dp passes' contracts), the replicas' parameters bitwise equal;
-    (c) profile_step over (b)'s mesh."""
+    (the dp passes' contracts), the replicas' parameters bitwise equal,
+    the first update held to a plain one (``dgc_dp_update_check``) within
+    phase 56's parameter limit; (c) profile_step over (b)'s mesh."""
     from paddle_tpu_torch.core import compiler_engine as ce
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.observability import profiler as prof
@@ -10231,9 +10309,13 @@ def phase_dgc(fluid, support):
             places = [fluid.CUDAPlace(0)] * DP_REPLICAS
             cp = fluid.CompiledProgram(main).with_data_parallel(
                 loss.name, places=places)
+            pnames = [p.name for p in main.all_parameters()]
+            first = {}
             r = dp_steps(fluid, support, engine, exe, cp, scope, feed, loss,
-                         [p.name for p in main.all_parameters()],
-                         "phase 64", timed=0)
+                         pnames, "phase 64", timed=0,
+                         after_first=lambda: first.update({
+                             n: engine.replica_values(exe, n)[0].clone()
+                             for n in pnames}))
             before = persistable_snapshot(main, scope)
             mesh_prof = prof.profile_step(main, scope, feed, mesh=places)
             torch.cuda.synchronize()
@@ -10241,6 +10323,9 @@ def phase_dgc(fluid, support):
                          "phase 64 profile_step over the mesh")
             exe.close()
             del exe, scope
+            # after the counted window: its grads run the kernels too
+            update_gap, doubled_gap = dgc_dp_update_check(fluid, gpt, init,
+                                                          feed, first)
         gc.collect()
         torch.cuda.empty_cache()
     finally:
@@ -10256,6 +10341,8 @@ def phase_dgc(fluid, support):
     run = {"losses": losses, "dp_losses": r["losses"], "checked": checked,
            "groups": len(groups), "counters": counters,
            "dp_first_loss_gap": loss_gap, "dp_counts": r["counts"],
+           "dp_first_update_gap": update_gap,
+           "dp_doubled_update_gap": doubled_gap,
            "dp_declines": r["declines"],
            "overlap_frac": mesh_prof["overlap_frac"],
            "exposed_collective_ms": mesh_prof["exposed_collective_ms"],
@@ -10276,25 +10363,33 @@ def phase_dgc(fluid, support):
     log("phase 64 over %d replicas with PADDLE_TPU_VERIFY_IR: losses %s, "
         "first loss against one card's %.3g (limit %g), the replicas' "
         "parameters bitwise equal after each step (each keeps its own u "
-        "and v: the allreduce lands on the encoded grad); launches %s; "
+        "and v: the allreduce lands on the encoded grad); the first update "
+        "against the plain one (each replica's grads through the dgc op's "
+        "plain function, summed, 1/%d, sgd) %.3g as a norm ratio (limit "
+        "%g), "
+        "against the update without the 1/%d scale %.3g (must exceed the "
+        "limit); launches %s; "
         "profile_step over the mesh: step %.3f ms, phases %s, serial "
         "collective %.3f ms, exposed %s ms, overlap_frac %s, peak %s"
         % (DP_REPLICAS, ", ".join("%.6f" % x for x in r["losses"]),
-           loss_gap, DP_LOSS_RTOL, json.dumps(r["counts"]),
+           loss_gap, DP_LOSS_RTOL, DP_REPLICAS, update_gap, DP_PARAM_RTOL,
+           DP_REPLICAS, doubled_gap, json.dumps(r["counts"]),
            mesh_prof["step_ms"], json.dumps(mesh_prof["phase_ms"]),
            mesh_prof["collective_ms"], mesh_prof["exposed_collective_ms"],
            mesh_prof["overlap_frac"], mesh_prof["peak_bytes"]))
     bad = {k: (counts.get(k, 0), n) for k, n in want.items()
            if counts.get(k, 0) != n}
     if bad or len(groups) != 1 or groups[0].attrs["op_type"] != "sgd" or \
-            loss_gap > DP_LOSS_RTOL or \
+            loss_gap > DP_LOSS_RTOL or update_gap > DP_PARAM_RTOL or \
+            doubled_gap <= DP_PARAM_RTOL or \
             not np.isfinite(losses + r["losses"]).all() or \
             mesh_prof["collective_ms"] <= 0:
         raise RuntimeError(
             "phase 64: launches (got, want) %s, fused groups %d, first "
-            "loss gap %g, losses %s / %s, mesh collective %s ms"
-            % (bad, len(groups), loss_gap, losses, r["losses"],
-               mesh_prof["collective_ms"]))
+            "loss gap %g, first update gap %g (doubled sum %g), losses "
+            "%s / %s, mesh collective %s ms"
+            % (bad, len(groups), loss_gap, update_gap, doubled_gap, losses,
+               r["losses"], mesh_prof["collective_ms"]))
     return counts, r["counts"], run
 
 

@@ -14,6 +14,9 @@ compact summaries.
   ``capture.errors{engine=}`` and recorded in the flight ring (the JAX
   package's library contract; a caller that must not miss one reads the
   counter).
+- ``PADDLE_TPU_DEVICE_TRACE=1`` adds the sample's device profile
+  (``device_trace.device_profile_step``, one traced eager walk) to its
+  report: device phase ms and their agreement with the host's.
 - The report does not carry the process-dump schema:
   ``distributed.load_dumps`` skips it, ``load_sampled_profiles`` reads it.
 """
@@ -29,6 +32,10 @@ __all__ = ["sample_every", "sampling_enabled", "maybe_sample_step",
 
 SAMPLED_PROFILE_SCHEMA = "sampled_profile_v1"
 HISTORY_CAP = 32
+# the step profiler's budget for one sampled capture (``profile_step``'s
+# ``budget_s``), and the traced eager walks of its device profile
+SAMPLE_BUDGET_S = 20.0
+SAMPLE_TRACE_STEPS = 1
 
 # memoized knob: None = env not read yet, 0 = off, N>0 = every Nth step.
 # A single module-global load keeps the disabled hook sub-µs.
@@ -112,16 +119,17 @@ def maybe_sample_step(kind: str, program=None, scope=None, feed=None,
 
 
 def _capture(kind, step, program, scope, feed, mesh, axis_name):
+    from . import device_trace as _dtr
     from . import inc as _inc
     from . import flight as _flight
     from . import profiler as _prof
 
-    budget = float(os.environ.get("PADDLE_TPU_SAMPLE_BUDGET_S", "20")
-                   or 20)
     t0 = time.monotonic()
     report = _prof.profile_step(program, scope, feed, mesh=mesh,
                                 axis_name=axis_name, repeats=1,
-                                budget_s=budget, max_bucket_cuts=6)
+                                budget_s=SAMPLE_BUDGET_S, max_bucket_cuts=6)
+    if _dtr.capture_enabled():
+        _device_block(report, program, scope, feed, mesh, axis_name)
     capture_ms = (time.monotonic() - t0) * 1e3
     _inc("capture.samples", engine=kind)
     _flight.record("capture.sampled", engine=kind, step=step,
@@ -138,6 +146,42 @@ def _capture(kind, step, program, scope, feed, mesh, axis_name):
     return report
 
 
+def _device_block(report, program, scope, feed, mesh, axis_name):
+    """``PADDLE_TPU_DEVICE_TRACE``: the sample's device profile
+    (``device_trace.device_profile_step``) joins its report beside the host
+    phases, with their agreement, as the JAX package's bench records carry
+    it. An empty trace (no phase-attributed kernel: the CPU) leaves the host
+    numbers alone and says so, as does a live ``fluid.profiler`` session,
+    whose ``torch.profiler`` holds the trace; a failed one fails the
+    capture (``capture.errors``)."""
+    from . import device_trace as _dtr
+    from . import profiler as _prof
+
+    if _prof._torch_prof is not None:
+        report["device_trace"] = {"status": "skipped",
+                                  "reason": "a profiler session is live"}
+        return
+    dev = _dtr.device_profile_step(program, scope, feed, mesh=mesh,
+                                   axis_name=axis_name,
+                                   steps=SAMPLE_TRACE_STEPS)
+    if dev is None:
+        report["device_trace"] = {"status": "empty", "fallback": "host"}
+        return
+    cc = _dtr.cross_check(report.get("phase_ms") or {},
+                          dev["device_phase_ms"])
+    report.update({
+        "device_phase_ms": dev["device_phase_ms"],
+        "device_overlap_frac": dev["overlap_frac"],
+        "device_critical_path_ms": dev["critical_path_ms"],
+        "device_exposed_collective_ms": dev["exposed_collective_ms"],
+        "host_device_agreement": cc["agreement"],
+        "agreement_per_phase": cc["per_phase"],
+        "device_trace": {k: dev[k] for k in (
+            "n_events", "n_attributed", "unattributed_ms", "kernel_records",
+            "steps", "source", "launches", "own_kernel_records")},
+    })
+
+
 def _summary(step, report, capture_ms):
     out = {"step": step, "wrote_at": time.time(),
            "capture_ms": round(capture_ms, 3)}
@@ -149,6 +193,9 @@ def _summary(step, report, capture_ms):
             out[k] = v
     if report.get("launches"):
         out["launches"] = dict(report["launches"])
+    dev_launches = (report.get("device_trace") or {}).get("launches")
+    if dev_launches:
+        out["device_launches"] = dict(dev_launches)
     return out
 
 

@@ -40,8 +40,9 @@ bytes bound before (``PERF.md``), so both are printed.
 ``min(host, device) / max(host, device)`` and a duration-weighted
 overall ``agreement``, the JAX package's.
 
-``PADDLE_TPU_DEVICE_TRACE=1`` arms the capture where a caller asks
-``capture_enabled()``; unset, one env read.
+``PADDLE_TPU_DEVICE_TRACE=1`` adds this profile to every sampled capture
+(``capture.maybe_sample_step``, under ``PADDLE_TPU_SAMPLE_EVERY``), beside
+its host phases with their agreement; unset, one env read a sample.
 """
 from __future__ import annotations
 

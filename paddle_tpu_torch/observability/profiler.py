@@ -575,6 +575,10 @@ def _time_call(fn, device, core, repeats: int):
 # is linear in its bytes there
 _MICROBENCH_MAX_ELEMS = 4 << 20
 
+# seconds a profile spends before it stops adding optional cuts (the bucket
+# prefixes, the feed's time); a caller asks for another with ``budget_s``
+PROFILE_BUDGET_S = 120.0
+
 
 def _bench_collective(group, devices, numel: int, dtype: str, kind: str,
                       repeats: int) -> float:
@@ -633,8 +637,7 @@ def profile_step(program, scope, feed: Dict, mesh=None,
     import torch
 
     if budget_s is None:
-        budget_s = float(os.environ.get("PADDLE_TPU_PROFILE_BUDGET_S",
-                                        "120") or 120)
+        budget_s = PROFILE_BUDGET_S
     deadline = time.monotonic() + budget_s
 
     ctx = _exec_inputs(program, scope, feed, mesh=mesh,

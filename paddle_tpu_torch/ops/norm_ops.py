@@ -47,6 +47,7 @@ import torch
 
 from ..core.registry import (GENERATOR_ATTR, In, OpInfoMap, Out,
                              register_op, set_group_form, vjp_grad_group)
+from .collective_ops import group_for_axis
 
 
 @register_op(
@@ -199,8 +200,6 @@ def _layer_norm(ins, attrs):
 def _seq_group(attrs):
     """The group a layer norm over a split sequence reduces over (its
     ``shard_axis``, set by the sequence-parallel pass), else None."""
-    from .collective_ops import group_for_axis
-
     return group_for_axis(attrs.get("shard_axis") or None)
 
 

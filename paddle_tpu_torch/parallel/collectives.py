@@ -193,9 +193,12 @@ def maybe_rewrite_collectives(program, scope, nranks: int, data_axes,
 
 
 def _pergrad_allreduce_indices(ops) -> List[int]:
+    """The per-grad ``c_allreduce_sum`` ops over the whole data group: a
+    bucket and the sharded update reduce over that group, so a sum over
+    one named axis alone (``_mesh_axis``) keeps its own op."""
     out = []
     for i, op in enumerate(ops):
-        if op.type != "c_allreduce_sum":
+        if op.type != "c_allreduce_sum" or op.attrs.get("_mesh_axis"):
             continue
         x, o = op.input("X"), op.output("Out")
         if len(x) == 1 and x == o:

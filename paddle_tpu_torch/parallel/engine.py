@@ -70,6 +70,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from .. import observability as _obs
 from ..core import compiler_engine as _ce
 from ..core.compiler_engine import (_CONST, _FOLDED, _IF, _WHILE,
                                     _analyze, _fold_plan, _scope_tensor,
@@ -83,6 +84,7 @@ from ..core.scope import Scope
 from ..core.tensor import LoDTensor, stage_feed
 from ..ops.collective_ops import (AxisGroups, ProcessGroupAxis,
                                   mesh_axes_guard, ring_axis_guard)
+from ..observability import capture as _capture
 from .mesh_utils import Mesh, default_mesh, make_mesh, mesh_key
 from .transpiler import insert_allreduce_ops
 
@@ -746,8 +748,6 @@ def run_data_parallel(core, program, scope: Scope, feed: Dict,
     step = compile_program(core, program, feed_names, fetch_names,
                            state_names, out_state_names)
 
-    from .. import observability as _obs
-
     runs = core.dp_runs
     key = (step.key, mesh_key(mesh), tuple(str(d) for d in devices),
            sync_bn, id(scope), data_axes,
@@ -783,8 +783,6 @@ def run_data_parallel(core, program, scope: Scope, feed: Dict,
     with _obs.tracing.span("parallel/step", cat="step", replicas=run.n):
         outs = _run_replicas(core, run, program, scope, feeds)
     _ce.inc("executor.steps", path="parallel")
-    from ..observability import capture as _capture
-
     _capture.maybe_sample_step("parallel", program, scope, feed,
                                mesh=mesh, axis_name=axis_name)
     if t_step is not None:

@@ -387,22 +387,30 @@ def test_engine_refuses_an_axis_absent_from_the_mesh():
 
 
 def gpt_sp(pkg, seq_len, d_model=64, n_heads=4, n_layers=2, vocab=128,
-           sp=2, lr=1e-4, begin_norm_axis=2):
-    """bench.py's gpt_long script at batch 1, built at a replica's share of
-    the sequence (``seq_len``) as ``per_replica_build`` builds it, its
-    attention turned into ring attention over ``sp`` by the fleet's
-    sequence-parallel pass (``sp=0``: the dense program, plain Adam). Its
-    layer norms normalize each token (``begin_norm_axis=2``) unless told
+           sp=2, lr=1e-4, begin_norm_axis=2, batch=1, dp=1):
+    """bench.py's gpt_long script, built at a replica's share of the batch
+    (``batch``) and of the sequence (``seq_len``) as ``per_replica_build``
+    builds it, its attention turned into ring attention over ``sp`` by the
+    fleet's sequence-parallel pass (``sp=0``: the dense program, plain
+    Adam), its batch split over ``dp`` replicas when ``dp`` > 1. Its layer
+    norms normalize each token (``begin_norm_axis=2``) unless told
     otherwise: bench.py's default (1) normalizes over the sequence and the
     width together, which a sequence split changes (the model of
-    chip_smoke.py's phase 59)."""
+    chip_smoke.py's phase 59). At batch 1 on no dp axis the labels are
+    fed flat, ``[seq_len, 1]``; else ``[batch, seq_len, 1]``, so that they
+    split over dp and sp as the ids do."""
     L = pkg.layers
     head = d_model // n_heads
+    flat_labels = batch == 1 and dp == 1
     main, startup = pkg.Program(), pkg.Program()
     startup.random_seed = 1
     with pkg.unique_name.guard(), pkg.program_guard(main, startup):
-        ids = pkg.data(name="ids", shape=[1, seq_len], dtype="int64")
-        lbl = pkg.data(name="lbl", shape=[seq_len, 1], dtype="int64")
+        ids = pkg.data(name="ids", shape=[batch, seq_len], dtype="int64")
+        if flat_labels:
+            lbl = pkg.data(name="lbl", shape=[seq_len, 1], dtype="int64")
+        else:
+            lbl = L.reshape(pkg.data(name="lbl", shape=[batch, seq_len, 1],
+                                     dtype="int64"), [batch * seq_len, 1])
         x = L.embedding(ids, size=(vocab, d_model))
         for _ in range(n_layers):
             h = L.layer_norm(x, begin_norm_axis=begin_norm_axis)
@@ -410,13 +418,13 @@ def gpt_sp(pkg, seq_len, d_model=64, n_heads=4, n_layers=2, vocab=128,
                        for _ in range(3))
 
             def heads(t):
-                t = L.reshape(t, [1, seq_len, n_heads, head])
+                t = L.reshape(t, [batch, seq_len, n_heads, head])
                 return L.transpose(t, [0, 2, 1, 3])
 
             ctx = L.flash_attention(heads(q), heads(k), heads(v),
                                     causal=True)
             ctx = L.reshape(L.transpose(ctx, [0, 2, 1, 3]),
-                            [1, seq_len, d_model])
+                            [batch, seq_len, d_model])
             x = x + L.fc(ctx, d_model, num_flatten_dims=2)
             m = L.fc(L.layer_norm(x, begin_norm_axis=begin_norm_axis), d_model * 4,
                      num_flatten_dims=2,
@@ -425,13 +433,16 @@ def gpt_sp(pkg, seq_len, d_model=64, n_heads=4, n_layers=2, vocab=128,
         logits = L.fc(L.layer_norm(x, begin_norm_axis=begin_norm_axis), vocab,
                       num_flatten_dims=2)
         loss = L.mean(L.softmax_with_cross_entropy(
-            L.reshape(logits, [seq_len, vocab]), lbl))
+            L.reshape(logits, [batch * seq_len, vocab]), lbl))
         if not sp:
             pkg.optimizer.AdamOptimizer(lr).minimize(loss)
             return main, startup, loss
+        on_dp = "dp" if dp > 1 else None
         minimize(pkg, pkg.optimizer.AdamOptimizer(lr), strategy(
             pkg, sequence_parallel=True, sp_degree=sp,
-            feed_shard_specs={"ids": (None, "sp"), "lbl": ("sp", None)}),
+            feed_shard_specs={
+                "ids": (on_dp, "sp"),
+                "lbl": ("sp", None) if flat_labels else (on_dp, "sp", None)}),
             loss)
     return main, startup, loss
 
@@ -470,15 +481,51 @@ def train_port(main, startup, loss, init, feeds, places=None):
     return losses, persistables(main, scope)
 
 
+def train_jax_dense(main, startup, loss, init, feeds):
+    """The JAX package's run of the dense ``main`` on one CPU device from
+    its own startup, then ``init``'s arrays of the same shapes carried in
+    (the rest, the layer norms' Scale and Bias, start at their constant
+    initializers in both packages): (losses, persistables)."""
+    exe, scope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
+    with jfluid.scope_guard(scope):
+        exe.run(startup)
+        jvars = main.global_block().vars
+        for n, a in init.items():
+            if n in jvars and tuple(jvars[n].shape) == a.shape:
+                scope.var(n).get_tensor().set(a)
+        losses = [np.asarray(exe.run(main, feed=f, fetch_list=[loss])[0])
+                  for f in feeds]
+    return losses, persistables(main, scope)
+
+
+def assert_keeps_the_dense_model(pl, ps, dl, ds, steps):
+    """The port's sp run against the JAX dense one: the replicas' mean
+    first loss within 1e-5 relative, every float persistable within
+    ``PARAM_ATOL_PER_STEP`` a step and of the dense shape. Returns the
+    first loss's gap."""
+    import test_torch_training as GT
+
+    dense = float(np.mean(dl[0]))
+    gap = abs(float(np.mean(pl[0])) - dense) / abs(dense)
+    assert gap < LOSS_RTOL, gap
+    for name, want in ds.items():
+        if want.dtype.kind == "f":
+            assert ps[name].shape == want.shape, name
+            np.testing.assert_allclose(
+                ps[name], want, rtol=0,
+                atol=GT.PARAM_ATOL_PER_STEP * steps, err_msg=name)
+    return gap
+
+
 @pytest.mark.parametrize("begin_norm_axis", [2, 1])
 def test_sp_keeps_the_dense_model_with_a_layer_norm_over_the_sequence(
         begin_norm_axis):
-    """The narrow gpt under sp=2 against the dense program (the full
-    sequence on one device) from the same start: the first loss within
-    1e-5 relative and the state after two steps within the per-token
-    case's limits, whether the layer norms normalize each token (2) or
-    the whole S x D row as bench.py's do (1). The port's pass gives an
-    S x D norm its form over the sp group (the statistics of the whole
+    """The narrow gpt under sp=2 against the JAX package's dense program
+    (the full sequence on one CPU device) from the same start: the first
+    loss within 1e-5 relative and the state after two steps within the
+    per-token case's limits, whether the layer norms normalize each token
+    (2) or the whole S x D row as bench.py's do (1). The port's pass gives
+    an S x D norm its form over the sp group (the statistics of the whole
     row; Scale and Bias of the dense shape, a sequence block a replica).
     The JAX mesh's reading stands beside it: it meets the port per token,
     and with the S x D norm it normalizes each replica's half on its own,
@@ -512,25 +559,66 @@ def test_sp_keeps_the_dense_model_with_a_layer_norm_over_the_sequence(
     assert all(bool(op.attrs.get("shard_axis")) == spans for op in norms)
     pl, ps = train_port(pmain, pstart, ploss, init, feeds, make_mesh(
         [2], ["sp"], [fluid.CPUPlace()] * 2))
-    dl, ds = train_port(*build(fluid, seq=S, sp=0), init, feeds)
+    dl, ds = train_jax_dense(*build(jfluid, seq=S, sp=0), init, feeds)
 
-    dense = float(np.mean(dl[0]))
-    gap = abs(float(np.mean(pl[0])) - dense) / abs(dense)
-    jgap = abs(float(np.mean(jl[0])) - dense) / abs(dense)
-    assert gap < LOSS_RTOL, (gap, jgap)
-    for name, want in ds.items():
-        if want.dtype.kind == "f":
-            np.testing.assert_allclose(
-                ps[name], want, rtol=0,
-                atol=GT.PARAM_ATOL_PER_STEP * len(feeds), err_msg=name)
+    assert_keeps_the_dense_model(pl, ps, dl, ds, len(feeds))
     if spans:
         # the dense model's Scale and Bias, whole in the scope
-        assert all(ps[n].shape == ds[n].shape for n in ds
-                   if n.startswith("layer_norm"))
+        assert any(n.startswith("layer_norm") for n in ds)
+        dense = float(np.mean(dl[0]))
+        jgap = abs(float(np.mean(jl[0])) - dense) / abs(dense)
         assert jgap > 10 * LOSS_RTOL, jgap
     else:
         assert_matches(jl, pl, js, ps, loss_rtol=GT.LOSS_RTOL, rtol=0,
                        atol=GT.PARAM_ATOL_PER_STEP * len(feeds))
+
+
+def test_dp_sp_layer_norm_over_the_sequence_sums_its_scale_over_dp_alone():
+    """The narrow gpt with bench.py's S x D layer norms over dp(2) x sp(2)
+    against the JAX package's dense program (the batch of 2 and the whole
+    sequence on one CPU device) from the same start: the replicas' mean
+    first loss within 1e-5 relative, the state after two steps within
+    ``PARAM_ATOL_PER_STEP`` a step. Each replica holds its sequence block
+    of every Scale and Bias, so their grads are summed over dp alone: one
+    ``c_allreduce_sum`` each, on the ``dp`` axis, none over sp or the
+    whole mesh."""
+    S, B, vocab = 64, 2, 128
+    rng = np.random.RandomState(29)
+    feeds = [{"ids": rng.randint(0, vocab, (B, S)).astype("int64"),
+              "lbl": rng.randint(0, vocab, (B, S, 1)).astype("int64")}
+             for _ in range(2)]
+    dmain, dstart, dloss = gpt_sp(jfluid, S, sp=0, batch=B,
+                                  begin_norm_axis=1)
+    jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
+    with jfluid.scope_guard(jscope):
+        jexe.run(dstart)
+        init = persistables(dmain, jscope)
+    dl, ds = train_jax_dense(dmain, dstart, dloss, init, feeds)
+
+    pmain, pstart, ploss = gpt_sp(fluid, S // 2, sp=2, batch=B // 2, dp=2,
+                                  begin_norm_axis=1)
+    pl, ps = train_port(pmain, pstart, ploss, init, feeds, make_mesh(
+        [2, 2], ["dp", "sp"], [fluid.CPUPlace()] * 4))
+    assert pmain._data_axes == ("dp", "sp")
+    assert pl[0].shape == (4,)
+    assert_keeps_the_dense_model(pl, ps, dl, ds, len(feeds))
+
+    ops = pmain.global_block().ops
+    norms = [op for op in ops if op.type == "layer_norm"]
+    assert len(norms) == 5 and all(op.attrs.get("shard_axis") == "sp"
+                                   for op in norms)
+    affine = {op.input(k)[0] + "@GRAD" for op in norms
+              for k in ("Scale", "Bias")}
+    reductions = {}
+    for op in ops:
+        if op.type == "c_allreduce_sum" and op.input("X")[0] in affine:
+            reductions.setdefault(op.input("X")[0], []).append(
+                op.attrs.get("_mesh_axis"))
+    assert reductions == {g: ["dp"] for g in affine}, reductions
+    # every other grad is summed over the whole mesh, on no one axis
+    assert all(not op.attrs.get("_mesh_axis") for op in ops
+               if op.type == "c_allreduce_sum"
+               and op.input("X")[0] not in affine)
 
 
 def test_an_overcounted_lookup_grad_fails_the_parameter_check():
