@@ -590,16 +590,37 @@ lines each:
    PADDLE_TPU_VERIFY_IR, the first loss against one card's (1e-5), the
    replicas' parameters bitwise; profile_step over that mesh (overlap,
    exposed collective ms), the state untouched;
-65. one JSON line {"kernels": [...]} with each kernel's launches on the
+65. placement: gpt_long (phase 56's float32 Adam net) over 2 replicas on
+   the card; profile_step of the hand-knob run (4 MB buckets, ring), the
+   placement search on that report (its cost model must be fitted), the
+   winner applied through PADDLE_TPU_PLACEMENT_PLAN, then the tree
+   spelling, the async split and PADDLE_TPU_BUCKET_PLAN=profile forced
+   once each: 4 steps a run, the replicas bitwise, losses and state
+   within phase 56's limits of one replica's full batch, the exact
+   spellings bit for bit the hand run; measured step ms beside the
+   predicted; planted faults (a tree without its all-gather, a plan
+   whose digest does not match) must fail;
+66. steering: phase 4's BERT-base served to bursts of 1-3 one-row
+   requests through the incumbent ServingEngine (default_ladder(8)); a
+   steering daemon over its dumps proposes the serving_ladder steerer's
+   ladder exactly once under a sustained padding breach and never under
+   an oscillating one; run_canary compares the proposal's engine with
+   the incumbent (p50, p99, padding) and audits its decision; the
+   answers within phase 4's 1e-3; the lazy queue's key-cap policy
+   doubling a cap of 4 under 8 batch sizes (no recapture after it);
+   phase 58's two-rank job, run with a metrics dir, merged into one
+   trace and read by tools/torch_ft_timeline.py;
+67. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside, the dygraph, recipe, seq2seq, while,
    sentiment, book_*, bert_proto, checkpoint, rnn_search, serving_ir,
    serving_http, resnet_infer, decode_http, fleet_generate,
-   control_flow, dygraph_deploy, dp_*, hybrid_*, profiled_gpt, dgc and
-   dgc_dp paths too; hybrid_sp counts the sp mesh's steps alone: its
-   ring blocks are torch.matmul, and the one-replica oracle's K1-K3
-   launches are printed in phase 59's line only), error, times and
-   bound, P1 (graph_conditional, the port's own kernel) among them;
-66. the last line: {"ok": true, "device": {...}}.
+   control_flow, dygraph_deploy, dp_*, hybrid_*, profiled_gpt, dgc,
+   dgc_dp, placement and steering paths too; hybrid_sp counts the sp
+   mesh's steps alone: its ring blocks are torch.matmul, and the
+   one-replica oracle's K1-K3 launches are printed in phase 59's line
+   only), error, times and bound, P1 (graph_conditional, the port's own
+   kernel) among them;
+68. the last line: {"ok": true, "device": {...}}.
 
 Phases 43-45 run the book's scripts as the book does, with those knobs
 unset (phase 45 sets PADDLE_TPU_FUSED_OPTIMIZER for its SGD twins). Every
@@ -8533,7 +8554,10 @@ DP_VARIANTS = (("per_grad", {"PADDLE_TPU_BUCKET_MB": "0"}),
                ("int8", {"PADDLE_TPU_QUANT_ALLREDUCE": "int8"}),
                ("sharded_update", {"PADDLE_TPU_SHARDED_UPDATE": "1"}))
 DP_KNOBS = ("PADDLE_TPU_BUCKET_MB", "PADDLE_TPU_QUANT_ALLREDUCE",
-            "PADDLE_TPU_SHARDED_UPDATE") + FAST_PATHS
+            "PADDLE_TPU_SHARDED_UPDATE", "PADDLE_TPU_REDUCE_STRATEGY",
+            "PADDLE_TPU_ASYNC_COLLECTIVES", "PADDLE_TPU_BUCKET_PLAN",
+            "PADDLE_TPU_BUCKET_PROFILE", "PADDLE_TPU_PLACEMENT_PLAN",
+            "PADDLE_TPU_QUANT_ERROR_FEEDBACK") + FAST_PATHS
 
 
 class dp_env:
@@ -8690,8 +8714,9 @@ def dp_refusal(fluid):
 
 
 def dp_steps(fluid, support, engine, exe, cp, scope, feed, loss, params,
-             what, state=None, timed=DP_TIMED, after_first=None):
-    """DP_STEPS checked steps (the replicas' parameters compared after
+             what, state=None, timed=DP_TIMED, after_first=None,
+             steps=DP_STEPS):
+    """``steps`` checked steps (the replicas' parameters compared after
     each; ``after_first()`` called after the first, ``state(scope)`` read
     after the last), then ``timed`` timed replays; the counts zeroed just
     before the first and read just after the last."""
@@ -8703,7 +8728,7 @@ def dp_steps(fluid, support, engine, exe, cp, scope, feed, loss, params,
     support.reset_launch_counts()
     ce.reset_counters()
     losses = []
-    for _ in range(DP_STEPS):
+    for _ in range(steps):
         (out,) = exe.run(cp, feed=feed, fetch_list=[loss], scope=scope,
                          return_numpy=False)
         out = out.numpy().reshape(-1)
@@ -8752,8 +8777,8 @@ def phase_dp_gpt(fluid, support):
     return counts, run
 
 
-def dp_gpt_reference(fluid, gpt, cfg, feed, build_kw):
-    """One replica on the full batch: DP_STEPS steps (losses, state), then
+def dp_gpt_reference(fluid, gpt, cfg, feed, build_kw, steps=DP_STEPS):
+    """One replica on the full batch: ``steps`` steps (losses, state), then
     DP_TIMED timed replays, under the variants' settings."""
     main, startup, loss, _ = gpt.build_gpt_long(
         cfg["batch"], **build_kw, seed=SEED + 1, use_bf16=False)
@@ -8762,7 +8787,7 @@ def dp_gpt_reference(fluid, gpt, cfg, feed, build_kw):
     exe.run(startup, scope=scope)
     init = card_snapshot(main, scope)
     losses = []
-    for _ in range(DP_STEPS):
+    for _ in range(steps):
         (out,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
         losses.append(float(np.asarray(out).reshape(-1)[0]))
     state = dp_state(main, scope)
@@ -9077,16 +9102,24 @@ def phase_dp_resnet(fluid, support):
     half = RESNET_BATCH // 2
     swapped = {k: np.concatenate([v[half:], v[:half]])
                for k, v in feed.items()}
-    with dp_env():
-        init, ref_losses, ref_stats, ref_first = resnet_one_replica(
-            fluid, build_resnet_train, feed, None)
-        _, sw_losses, _, sw_first = resnet_one_replica(
-            fluid, build_resnet_train, swapped, init)
-        r = resnet_dp(fluid, support, engine, build_resnet_train, feed,
-                      init, DP_TIMED)
-        with local_bn_backward():
-            plant = resnet_dp(fluid, support, engine, build_resnet_train,
-                              feed, init, 0)
+    # cuDNN's default backward algorithms of the convs off K5 sum in no
+    # fixed order, which moved a run's third and fourth losses by ~1e-3
+    # from one run to the next (the one replica's too): the gates below
+    # compare runs, so every run takes the deterministic algorithms
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with dp_env():
+            init, ref_losses, ref_stats, ref_first = resnet_one_replica(
+                fluid, build_resnet_train, feed, None)
+            _, sw_losses, _, sw_first = resnet_one_replica(
+                fluid, build_resnet_train, swapped, init)
+            r = resnet_dp(fluid, support, engine, build_resnet_train, feed,
+                          init, DP_TIMED)
+            with local_bn_backward():
+                plant = resnet_dp(fluid, support, engine,
+                                  build_resnet_train, feed, init, 0)
+    finally:
+        torch.use_deterministic_algorithms(False)
 
     def gaps(losses, first):
         return (max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
@@ -9160,10 +9193,12 @@ def fluid_place_of(device):
     return fluid.CUDAPlace(0) if device == "cuda" else fluid.CPUPlace()
 
 
-def phase_dp_multiprocess():
+def phase_dp_multiprocess(metrics_dir=None):
     """Phase 58: two ranks through the port's launcher on the card against
     the worker's models run once in this process on the full batch; a
-    failed rank fails the phase."""
+    failed rank fails the phase. With ``metrics_dir`` the job runs with
+    that PADDLE_TPU_METRICS_DIR: every process dumps there and the
+    launcher merges the dumps at teardown (phase 66 reads them)."""
     import shutil
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -9172,6 +9207,8 @@ def phase_dp_multiprocess():
            if not k.startswith(("PADDLE_", "FLAGS_selected"))}
     env.update(PADDLE_DP_DEVICE=DP_MP_DEVICE,
                PYTHONPATH=here + os.pathsep + env.get("PYTHONPATH", ""))
+    if metrics_dir:
+        env["PADDLE_TPU_METRICS_DIR"] = metrics_dir
     d = tempfile.mkdtemp(prefix="phase58-")
     try:
         # the one-process oracle runs the worker's two models here
@@ -10393,6 +10430,683 @@ def phase_dgc(fluid, support):
     return counts, r["counts"], run
 
 
+# -- phases 65-66: the half of observability that acts ------------------------
+
+# phase 65: gpt_long (phase 56's float32 Adam net) over 2 replicas on one
+# card: the hand-knob run and its profile_step report, the placement search
+# on that report, the winner applied through PADDLE_TPU_PLACEMENT_PLAN, and
+# each schedule path forced once by its knob
+PLACEMENT_STEPS = 4     # checked steps a run: eager, capture, two replays
+PLACEMENT_TIMED = 2     # timed replays after them
+PLACEMENT_HAND = {"PADDLE_TPU_BUCKET_MB": "4"}   # 4 MB buckets, ring
+PLACEMENT_FORCED = (("tree", {"PADDLE_TPU_REDUCE_STRATEGY": "tree"}),
+                    ("async", {"PADDLE_TPU_ASYNC_COLLECTIVES": "1"}),
+                    ("profile_buckets", {"PADDLE_TPU_BUCKET_PLAN":
+                                         "profile"}))
+# phase 66: phase 4's BERT-base served to bursts of 1-3 one-row requests
+STEER_REQUESTS = 256
+STEER_BURST = (1, 3)
+STEER_WINDOW_BURSTS = 8   # bursts a daemon window: the rule's min batches
+STEER_SUSTAINED = 5       # breached windows after the baseline
+STEER_OSCILLATING = 6     # windows alternating clean and breached
+LAZY_CAP = 4              # the lazy queue's key cap before the policy
+LAZY_SHAPES = 8           # batch sizes cycled through it
+LAZY_CYCLES = 2           # cycles a measured window
+
+
+class tree_without_gather:
+    """Phase 65's planted fault: the tree spelling's all-gather skipped,
+    each replica keeping its own shard of the sum (zeros elsewhere)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import collective_ops
+
+        self.orig = collective_ops._tree_gather
+
+        def no_gather(shards, group, numel):
+            out = []
+            for r, sh in enumerate(shards):
+                full = torch.zeros(group.nranks * sh.numel(), dtype=sh.dtype,
+                                   device=sh.device)
+                full[r * sh.numel():(r + 1) * sh.numel()] = sh
+                out.append(full[:numel])
+            return out
+
+        collective_ops._tree_gather = no_gather
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import collective_ops
+
+        collective_ops._tree_gather = self.orig
+
+
+def placement_run(fluid, support, engine, gpt, per, build_kw, init, feed,
+                  name, env, plant=None, profile=False):
+    """One data-parallel run of gpt_long under ``env``: PLACEMENT_STEPS
+    checked steps (the replicas bitwise after each), PLACEMENT_TIMED timed
+    replays, the state after; ``profile`` adds ``profile_step`` over the
+    mesh after the counted window. Under a planted fault a check that
+    fails is recorded in ``caught``."""
+    from paddle_tpu_torch.observability import profiler as prof
+
+    r = {"caught": None}
+    with dp_env(**env):
+        main, startup, loss, _ = gpt.build_gpt_long(
+            per, **build_kw, seed=SEED + 1, use_bf16=False)
+        params = [p.name for p in main.all_parameters()]
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        load_snapshot(fluid, scope, init)
+        places = [fluid.CUDAPlace(0)] * DP_REPLICAS
+        cp = fluid.CompiledProgram(main).with_data_parallel(loss.name,
+                                                            places=places)
+        try:
+            with (plant() if plant else contextlib.nullcontext()):
+                r.update(dp_steps(fluid, support, engine, exe, cp, scope,
+                                  feed, loss, params, "phase 65 " + name,
+                                  state=lambda sc: dp_state(main, sc),
+                                  timed=0 if plant else PLACEMENT_TIMED,
+                                  steps=PLACEMENT_STEPS))
+        except RuntimeError as e:
+            if plant is None:
+                raise
+            r["caught"] = str(e)[:160]
+        if profile:
+            r["report"] = prof.profile_step(main, scope, feed, mesh=places)
+        ops = main.global_block().ops
+        r["types"] = [op.type for op in ops if op.type.startswith("c_")]
+        r["strategies"] = sorted({op.attrs.get("strategy", "ring")
+                                  for op in ops
+                                  if op.type.startswith("c_bucket_allreduce")
+                                  and op.type != "c_bucket_allreduce_await"})
+        r["bucket_plan"] = {k: v for k, v in (getattr(
+            main, "_bucket_plan", None) or {}).items() if k != "anchors"}
+        r["async_schedule"] = getattr(main, "_async_schedule", None)
+        r["placement_plan"] = getattr(main, "_placement_plan", None)
+        exe.close()
+        del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def placement_gate(name, r, ref, ref_state, init, quant):
+    """The run's losses and state against one replica's full batch under
+    phase 56's limits (its int8 limits for a compressed payload); returns
+    the gaps, raising past them."""
+    r["loss_gap"] = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref))
+    r["param_gap"], r["moment_gap"] = state_gaps(r.pop("state"), ref_state,
+                                                 init)
+    tol, p_tol, m_tol = ((DP_INT8_RTOL, DP_INT8_PARAM_RTOL,
+                          DP_INT8_MOMENT_RTOL) if quant else
+                         (DP_LOSS_RTOL, DP_PARAM_RTOL, DP_MOMENT_RTOL))
+    if r["loss_gap"] > tol or r["param_gap"] > p_tol or \
+            r["moment_gap"] > m_tol or not np.isfinite(r["losses"]).all():
+        raise RuntimeError("phase 65 %s: loss gap %g (limit %g), parameter "
+                           "gap %g (%g), moment gap %g (%g)"
+                           % (name, r["loss_gap"], tol, r["param_gap"], p_tol,
+                              r["moment_gap"], m_tol))
+    return tol, p_tol, m_tol
+
+
+def phase_placement(fluid, support):
+    """Phase 65: placement on gpt_long over 2 replicas on one card. The
+    hand-knob run (4 MB buckets, ring) and its profile_step report; the
+    placement search on that report, whose cost model must be fitted (an
+    analytic model fails the phase); the winner applied through
+    PADDLE_TPU_PLACEMENT_PLAN; the tree spelling, the async split and the
+    profile bucket plan forced once each by their knobs. Every run keeps
+    its replicas bitwise equal and its losses and state within phase 56's
+    limits of one replica's full batch; the exact spellings give the hand
+    run's losses bit for bit. Two planted faults: a tree that skips its
+    all-gather must leave the replicas apart, and a plan whose digest does
+    not match its contents must be refused."""
+    from paddle_tpu_torch import placement
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import engine
+    from paddle_tpu_torch.placement import plan as plan_mod
+
+    t_phase = time.perf_counter()
+    cfg = dict(gpt.GPT_LONG)
+    full, per = cfg["batch"], cfg["batch"] // DP_REPLICAS
+    tokens = full * cfg["seq_len"]
+    feed = gpt.random_batch(np.random.RandomState(SEED + 65), full,
+                            cfg["seq_len"], cfg["vocab"])
+    build_kw = {k: v for k, v in cfg.items() if k != "batch"}
+    d = tempfile.mkdtemp(prefix="phase65-")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with dp_env():
+            init, ref, ref_state, ref_ms = dp_gpt_reference(
+                fluid, gpt, cfg, feed, build_kw, steps=PLACEMENT_STEPS)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def run(name, env, **kw):
+            return placement_run(fluid, support, engine, gpt, per, build_kw,
+                                 init, feed, name, env, **kw)
+
+        runs = {}
+        hand = run("hand knobs", PLACEMENT_HAND, profile=True)
+        report = hand.pop("report")
+        placement_gate("hand knobs", hand, ref, ref_state, init, False)
+        runs["hand"] = hand
+        rpath = os.path.join(d, "report.json")
+        with open(rpath, "w") as f:
+            json.dump(report, f, default=str)
+
+        def build():
+            main, _, loss, _ = gpt.build_gpt_long(
+                per, **build_kw, seed=SEED + 1, use_bf16=False)
+            return main, loss.name
+
+        t0 = time.perf_counter()
+        plan, audit = placement.search_placement(
+            build, DP_REPLICAS, report=report, model="gpt_long")
+        search_s = time.perf_counter() - t0
+        if plan is None or audit["cost_provenance"] != "fitted" or \
+                plan.cost_provenance != "fitted":
+            raise RuntimeError("phase 65: the search's model is %s, its "
+                               "plan %s: an analytic model fails the phase"
+                               % (audit["cost_provenance"],
+                                  plan and plan.cost_provenance))
+        incumbent = [c for c in audit["candidates"]
+                     if c["bucket"] == {"plan": "size", "bucket_mb": 4.0}
+                     and not c["sharded_update"] and c["strategy"] == "ring"
+                     and c["quant"]["mode"] == "none"
+                     and not c["quant"]["buckets"]
+                     and not c["async_collectives"]]
+        incumbent_ms = incumbent[0]["predicted_step_ms"]
+        ppath = os.path.join(d, "plan.json")
+        placement.save_plan(plan, ppath)
+        w = audit["winner"]
+        quant = plan.quant_mode != "none" or bool(plan.quant_buckets)
+        log("phase 65 search on the hand run's profile_step report (%d "
+            "buckets measured, overlap_frac %s, step %.3f ms): %d candidates"
+            ", %d verified, %d pruned, %d deduplicated, %d rejected, %d "
+            "unsupported meshes %s, %.2f s, none run before the gate (%d); "
+            "cost model %s; winner %s: mesh %s, sharded_update %s, bucket "
+            "%s, strategy %s, quant %s, error feedback %s, async %s; "
+            "predicted step %.3f ms, the incumbent's (the hand knobs) %.3f "
+            "ms; card %s"
+            % (len(report["per_bucket"]), report["overlap_frac"],
+               report["step_ms"], audit["enumerated"], audit["verified"],
+               audit["pruned"], audit["deduped"], audit["rejected"],
+               len(audit["unsupported"]),
+               [u["mesh"] for u in audit["unsupported"]], search_s,
+               audit["traced_before_verify"], audit["cost_provenance"],
+               plan.digest, w["mesh"], w["sharded_update"], w["bucket"],
+               w["strategy"], w["quant"]["mode"],
+               w["quant"]["error_feedback"], w["async_collectives"],
+               plan.predicted_step_ms, incumbent_ms, card_line()))
+        winner = run("winner", {"PADDLE_TPU_PLACEMENT_PLAN": ppath})
+        placement_gate("winner", winner, ref, ref_state, init, quant)
+        if (winner["placement_plan"] or {}).get("plan_digest") != \
+                plan.digest:
+            raise RuntimeError("phase 65: the engine applied %s, not the "
+                               "plan %s" % (winner["placement_plan"],
+                                            plan.digest))
+        runs["winner"] = winner
+        for name, env in PLACEMENT_FORCED:
+            if name == "profile_buckets":
+                env = dict(env, PADDLE_TPU_BUCKET_PROFILE=rpath)
+            r = run(name, dict(PLACEMENT_HAND, **env))
+            placement_gate(name, r, ref, ref_state, init, False)
+            runs[name] = r
+        planted = run("planted tree without its all-gather",
+                      dict(PLACEMENT_HAND, PADDLE_TPU_REDUCE_STRATEGY="tree"),
+                      plant=tree_without_gather)
+        bad = os.path.join(d, "edited.json")
+        with open(ppath) as f:
+            doc = json.load(f)
+        doc["strategy"] = "tree" if doc["strategy"] != "tree" else "ring"
+        with open(bad, "w") as f:
+            json.dump(doc, f)
+        try:
+            placement.load_plan(bad)
+            refused = None
+        except ValueError as e:
+            refused = str(e)[:120]
+        os.environ[plan_mod.PLAN_ENV] = bad
+        try:
+            degraded = plan_mod.active_plan()
+        finally:
+            os.environ.pop(plan_mod.PLAN_ENV, None)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+
+    # the exact spellings: the hand run's losses bit for bit
+    checks = {
+        "tree": runs["tree"]["strategies"] == ["tree"],
+        "async": runs["async"]["types"].count("c_bucket_allreduce_start")
+        >= 1 and (runs["async"]["async_schedule"] or {}).get("split", 0)
+        >= 1,
+        "profile_buckets": runs["profile_buckets"]["bucket_plan"].get(
+            "mode") == "profile"}
+    for name in ("tree", "async", "profile_buckets"):
+        if runs[name]["losses"] != runs["hand"]["losses"]:
+            checks[name] = False
+    exact = not quant and not plan.sharded_update
+    if exact and runs["winner"]["losses"] != runs["hand"]["losses"]:
+        checks["winner"] = False
+    counts, steps_all = {}, PLACEMENT_STEPS + PLACEMENT_TIMED
+    for name, r in runs.items():
+        c = r["counts"]
+        want = {"flash_attention_forward": 4 * DP_REPLICAS * steps_all,
+                "flash_attention_backward_dq": 2 * DP_REPLICAS * steps_all,
+                "flash_attention_backward_dkv": 2 * DP_REPLICAS * steps_all,
+                "fused_optimizer_update": (
+                    DP_REPLICAS * steps_all if name == "winner"
+                    and plan.sharded_update else 0)}
+        wrong = {k: (c.get(k, 0), n) for k, n in want.items()
+                 if c.get(k, 0) != n}
+        if wrong:
+            checks["launches " + name] = False
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        log("phase 65 %s: collectives %s (strategies %s), bucket plan %s, "
+            "async split %s, plan %s; losses %s, gap to one replica %.3g, "
+            "parameters %.3g, Adam moments %.3g; measured step %.3f ms "
+            "(%.1f tokens/s)%s; launches %s%s"
+            % (name, sorted(set(r["types"])), r["strategies"],
+               json.dumps(r["bucket_plan"]), json.dumps(r["async_schedule"]),
+               (r["placement_plan"] or {}).get("plan_digest"),
+               ", ".join("%.6f" % x for x in r["losses"]), r["loss_gap"],
+               r["param_gap"], r["moment_gap"], r["step_ms"],
+               tokens / r["step_ms"] * 1e3,
+               " against the predicted %.3f ms" % plan.predicted_step_ms
+               if name == "winner" else
+               " against the incumbent's predicted %.3f ms" % incumbent_ms
+               if name == "hand" else "", json.dumps(c),
+               "" if not wrong else " WRONG (got, want) %s" % wrong))
+    checks["planted tree"] = planted["caught"] is not None
+    checks["edited plan refused"] = refused is not None and \
+        "digest mismatch" in refused and degraded is None
+    phase_s = time.perf_counter() - t_phase
+    log("phase 65 planted faults: the tree without its all-gather %s; the "
+        "plan edited without its digest: load_plan %s, the engine's "
+        "active_plan %s; one replica's full batch: losses %s, step %.3f "
+        "ms; %.1f s for the phase; card %s"
+        % ("caught: " + planted["caught"] if planted["caught"]
+           else "NOT CAUGHT", "refused: " + str(refused), degraded,
+           ", ".join("%.6f" % x for x in ref), ref_ms, phase_s, card_line()))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError("phase 65: failed %s" % failed)
+    agreement = min(plan.predicted_step_ms, runs["winner"]["step_ms"]) / \
+        max(plan.predicted_step_ms, runs["winner"]["step_ms"])
+    return counts, {
+        "candidates": audit["enumerated"], "verified": audit["verified"],
+        "pruned": audit["pruned"], "deduplicated": audit["deduped"],
+        "unsupported": len(audit["unsupported"]),
+        "cost_provenance": audit["cost_provenance"],
+        "winner": {"digest": plan.digest, "mesh": w["mesh"],
+                   "sharded_update": w["sharded_update"],
+                   "bucket": w["bucket"], "strategy": w["strategy"],
+                   "quant": w["quant"]["mode"],
+                   "async": w["async_collectives"]},
+        "predicted_step_ms": plan.predicted_step_ms,
+        "incumbent_predicted_step_ms": incumbent_ms,
+        "placement_agreement": agreement, "search_s": search_s,
+        "reference_step_ms": ref_ms,
+        "runs": {k: {"step_ms": r["step_ms"], "loss_gap": r["loss_gap"],
+                     "param_gap": r["param_gap"],
+                     "moment_gap": r["moment_gap"]}
+                 for k, r in runs.items()},
+        "planted_tree_caught": planted["caught"], "phase_s": phase_s}
+
+
+def one_row_requests(rng, n):
+    return [{"src_ids": rng.randint(0, BERT["vocab_size"],
+                                    (1, SEQ_LEN)).astype("int64"),
+             "pos_ids": np.arange(SEQ_LEN).reshape(1, -1).astype("int64"),
+             "lengths": rng.randint(1, SEQ_LEN + 1, 1).astype("int32")}
+            for _ in range(n)]
+
+
+def serve_in_bursts(engine, reqs, sizes):
+    """Each burst's requests submitted at once and waited for before the
+    next; returns (answers, latencies in s, wall s)."""
+    outs, lat, i = [], [], 0
+    t0 = time.perf_counter()
+    for k in sizes:
+        subs = [(time.perf_counter(), engine.submit(f))
+                for f in reqs[i:i + k]]
+        i += k
+        for t_sub, fut in subs:
+            outs.append(fut.result(timeout=600))
+            lat.append(time.perf_counter() - t_sub)
+    return outs, lat, time.perf_counter() - t0
+
+
+def serving_record(engine, lat, rows):
+    """The comparator's record of a serving window: p50 / p99 latency and
+    the padded share of the rows dispatched."""
+    st = engine.stats()
+    waste = float(st.get("serving.padding_waste", 0))
+    p50, p99 = pcts(lat)[:2]
+    return {"extras": {"bert_serving": {
+        "p50_ms": p50, "p99_ms": p99,
+        "serving_padding_waste_frac": waste / (waste + rows)}}}
+
+
+def daemon_windows(fluid, engine, reqs, sizes_of, rule_ctx, metrics_dir,
+                   n_windows):
+    """A steering daemon over ``metrics_dir``, polled once after each of
+    ``n_windows`` serving windows (``sizes_of(i)`` the window's burst
+    sizes); the engine's counters of each window are dumped into the
+    directory (the registry reset before it). Returns the proposals of
+    each poll."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import distributed as dist
+    from paddle_tpu_torch.observability import steering_daemon as sd
+
+    rule = sd.WatchRule(
+        "serving_padding_waste",
+        sd.counter_ratio("serving.padding_waste", "serving.batches",
+                         min_den=STEER_WINDOW_BURSTS),
+        direction=-1, threshold=0.25, floor=0.10, steerer="serving_ladder")
+    daemon = sd.SteeringDaemon(metrics_dir, rules=[rule], hysteresis=2,
+                               cooldown=3, context=rule_ctx)
+    props = []
+    for i in range(n_windows):
+        obs.reset()
+        # a window that pads nothing reads 0 padded rows, not none
+        obs.counter("serving.padding_waste")
+        sizes = sizes_of(i)
+        serve_in_bursts(engine, reqs[:sum(sizes)], sizes)
+        dist.dump_process(os.path.join(metrics_dir, "serving-0.json"))
+        props.append(daemon.poll_once())
+    return props
+
+
+def lazy_policy_check(fluid):
+    """A dygraph MLP under the lazy queue with a key cap of LAZY_CAP, fed
+    LAZY_SHAPES batch sizes in turn (a working set over the cap: every
+    flush a new structure); the ``lazy_policy`` steerer's plan applied;
+    then the same traffic. Returns the counters before and after."""
+    from paddle_tpu_torch.dygraph import lazy as lz
+    from paddle_tpu_torch.observability import steering
+
+    D = fluid.dygraph
+    kept = lz.LazyEngine.JIT_CACHE_CAP
+    lz.LazyEngine.JIT_CACHE_CAP = LAZY_CAP
+    rng = np.random.RandomState(SEED + 66)
+    try:
+        with D.guard(lazy=True):
+            l1, l2 = D.Linear(32, 64, act="relu"), D.Linear(64, 10)
+            params = l1.parameters() + l2.parameters()
+            dy_weights(params, SEED + 66)
+            opt = fluid.optimizer.SGD(0.01, parameter_list=params)
+            feeds = [(rng.rand(b, 32).astype("float32"),
+                      rng.randint(0, 10, (b, 1)).astype("int64"))
+                     for b in range(1, LAZY_SHAPES + 1)]
+
+            def cycle():
+                for x, y in feeds:
+                    loss = fluid.layers.mean(
+                        fluid.layers.softmax_with_cross_entropy(
+                            l2(l1(D.to_variable(x))), D.to_variable(y)))
+                    loss.backward()
+                    opt.minimize(loss, parameter_list=params)
+                    for p in params:
+                        p.clear_gradient()
+                    float(loss.numpy().reshape(-1)[0])
+
+            def window():
+                lz.reset_counters()
+                for _ in range(LAZY_CYCLES):
+                    cycle()
+                return lz.counters()
+
+            cycle()
+            before = window()
+            plan = steering.steer("lazy_policy", None,
+                                  recompiles=before["lazy.recompiles"],
+                                  cache_hits=before["lazy.cache_hits"],
+                                  cache_cap=LAZY_CAP)
+            cap = lz.apply_lazy_policy(plan)
+            cycle()
+            cycle()  # a key's second flush captures
+            after = window()
+    finally:
+        lz.LazyEngine.JIT_CACHE_CAP = kept
+    return plan, cap, before, after
+
+
+def job_merge_check(metrics_dir):
+    """Phase 58's job dumps merged: every process in ``metrics.json``,
+    both ranks' spans and flight events in ``trace.json`` on the
+    launcher's clock, and ``tools/torch_ft_timeline.py``'s reading."""
+    import importlib.util
+    import io
+
+    from paddle_tpu_torch.observability import distributed as dist
+
+    mpath, tpath = dist.merge_job_dir(metrics_dir)
+    if mpath is None:
+        raise RuntimeError("phase 66: no dumps in %s" % metrics_dir)
+    merged = json.load(open(mpath))
+    trace = json.load(open(tpath))
+    procs = sorted(merged["processes"])
+    pids = {e["args"]["name"]: e["pid"] for e in trace["traceEvents"]
+            if e.get("ph") == "M"}
+    by = {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") != "M":
+            by.setdefault(e["pid"], []).append(e)
+    spans = {p: sum(1 for e in by.get(pids.get(p), ()) if e["ph"] == "X")
+             for p in procs}
+    flights = {p: sorted({e["name"] for e in by.get(pids.get(p), ())
+                          if e.get("cat") == "flight"}) for p in procs}
+    launcher = [e["ts"] for e in by.get(pids.get("launcher-0"), ())]
+    ts = [e["ts"] for e in trace["traceEvents"] if e.get("ph") != "M"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "torch_ft_timeline", os.path.join(here, "tools",
+                                          "torch_ft_timeline.py"))
+    tl = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tl)
+    out = io.StringIO()
+    n_lines = tl.print_postmortem(metrics_dir, out=out)
+    text = out.getvalue()
+    ok = ({"launcher-0", "trainer-0", "trainer-1"} <= set(procs)
+          and all(spans[p] > 0 and flights[p] for p in ("trainer-0",
+                                                        "trainer-1"))
+          and ts == sorted(ts) and bool(launcher)
+          and min(ts) >= min(launcher) - 600e6 and max(ts) <= max(launcher)
+          and all(merged["processes"][p]["clock_skew_us"] is not None
+                  for p in ("trainer-0", "trainer-1"))
+          and n_lines > 0 and "trainer-1" in text and "launch.done" in text)
+    return ok, {"processes": procs, "spans": spans, "flight_kinds": flights,
+                "clock_skew_us": {p: merged["processes"][p]["clock_skew_us"]
+                                  for p in procs},
+                "trace_events": len(ts), "timeline_lines": n_lines,
+                "counters_total": len(merged["counters_total"])}
+
+
+def phase_steering(fluid, support, mp_metrics_dir=None):
+    """Phase 66: steering and the canary on serving, the lazy policy, the
+    job merge. Phase 4's BERT-base serves bursts of 1-3 one-row requests
+    through the incumbent ServingEngine (default_ladder(8)); a steering
+    daemon over the metrics directory the engine's counters are dumped
+    into proposes the ``serving_ladder`` steerer's ladder, fitted to the
+    rows of those batches, exactly once under a sustained breach of the
+    padding rule and never under an oscillating one; run_canary serves the
+    same traffic through a ServingEngine on the proposal, compares the
+    two with the comparator (p50 and p99 latency, padding) and writes its
+    audit entry; the proposal's answers must equal the incumbent's within
+    phase 4's 1e-3. Then the lazy queue's key-cap policy, and phase 58's
+    two-rank job (run here when not given) merged into one trace."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.core import compiler_engine as ce
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.observability import canary
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    from paddle_tpu_torch.serving import batcher
+    from paddle_tpu_torch.serving import metrics as sm
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 66)
+    reqs = one_row_requests(rng, STEER_REQUESTS)
+    sizes, n = [], 0
+    while n < STEER_REQUESTS:
+        k = min(int(rng.randint(STEER_BURST[0], STEER_BURST[1] + 1)),
+                STEER_REQUESTS - n)
+        sizes.append(k)
+        n += k
+    cfg_kw = dict(max_batch_size=MAX_BATCH, max_queue=STEER_REQUESTS)
+    d = tempfile.mkdtemp(prefix="phase66-")
+    served = {}
+    try:
+        build_and_save(fluid, os.path.join(d, "model"))
+        support.reset_launch_counts()
+        ce.reset_counters()
+        pred = create_paddle_predictor(AnalysisConfig(os.path.join(d,
+                                                                   "model")))
+
+        def serve(ladder, tag):
+            engine = ServingEngine(pred, ServingConfig(ladder=ladder,
+                                                       **cfg_kw))
+            engine.start()
+            outs, lat, wall = serve_in_bursts(engine, reqs, sizes)
+            served[tag] = (outs, engine.metrics.samples(sm.BATCH_SIZE))
+            rec = serving_record(engine, lat, STEER_REQUESTS)
+            engine.stop()
+            return rec, engine
+
+        incumbent, _ = serve(None, "incumbent")
+        rows = served["incumbent"][1]
+        # the daemon, through a third engine on the incumbent's ladder
+        engine = ServingEngine(pred, ServingConfig(**cfg_kw))
+        engine.start()
+        ctx = {"serving_ladder": {"max_batch_size": MAX_BATCH,
+                                  "batch_rows": rows}}
+        clean = [1] * STEER_WINDOW_BURSTS      # one-row batches: no padding
+        padded = [3] * STEER_WINDOW_BURSTS    # 3 rows pad to 4
+        os.makedirs(os.path.join(d, "sustained"))
+        os.makedirs(os.path.join(d, "oscillating"))
+        sustained = daemon_windows(
+            fluid, engine, reqs, lambda i: padded if i else clean, ctx,
+            os.path.join(d, "sustained"), 1 + STEER_SUSTAINED)
+        oscillating = daemon_windows(
+            fluid, engine, reqs, lambda i: padded if i % 2 else clean, ctx,
+            os.path.join(d, "oscillating"), STEER_OSCILLATING)
+        engine.stop()
+        proposals = [p for ps in sustained for p in ps]
+        osc = [p for ps in oscillating for p in ps]
+        if len(proposals) != 1 or osc:
+            raise RuntimeError("phase 66: the daemon proposed %d times under "
+                               "the sustained breach (want 1) and %d under "
+                               "the oscillating one (want 0)"
+                               % (len(proposals), len(osc)))
+        proposal = proposals[0]
+        audit = canary.AuditTrail(d)
+        store = canary.PlanStore(d, "serving_ladder")
+        decision = canary.run_canary(
+            proposal, incumbent,
+            lambda plan: serve(tuple(plan), "proposal")[0],
+            plan_store=store, audit=audit,
+            require_improvement="serving_padding_waste_frac")
+        counts = support.launch_counts()
+        counters = ce.counters()
+        entry = audit.entries()[-1]
+        gap = max(float(np.abs(next(iter(a.values()))
+                               - next(iter(b.values()))).max())
+                  for a, b in zip(served["proposal"][0],
+                                  served["incumbent"][0]))
+        ladder = tuple(proposal["plan"])
+        if ladder != batcher.plan_ladder(MAX_BATCH, rows):
+            raise RuntimeError("phase 66: the proposal %s is not the ladder "
+                               "fitted to the observed rows" % (ladder,))
+        if entry["plan_digest"] != decision.plan_digest or \
+                (store.active_digest() == decision.plan_digest) != \
+                decision.promoted or not gap <= CPU_TOL:
+            raise RuntimeError("phase 66: audit %s, store %s, decision %s, "
+                               "answers %g apart (limit %g)"
+                               % (entry["plan_digest"],
+                                  store.active_digest(), decision, gap,
+                                  CPU_TOL))
+        cmp_rows = {r["metric"]: (r["base"], r["head"], r["regressed"])
+                    for r in decision.comparison.to_dict()["rows"]}
+        log("phase 66 BERT-base serving %d one-row requests in %d bursts of "
+            "%d-%d: the incumbent (ladder %s) %s; the steering daemon over "
+            "its dumps proposed once under %d sustained breached windows "
+            "(proposals a poll %s) and never under %d oscillating ones "
+            "(%s); the proposal: the serving_ladder steerer's ladder %s "
+            "fitted to %d observed batch rows, digest %s; the canary %s "
+            "(%s): p50 / p99 ms and padding share incumbent -> proposal %s;"
+            " audit entry #%d %s, the active plan %s; the proposal's "
+            "answers against the incumbent's %.3g (limit %g); K1 launches "
+            "%d; captures %d; card %s"
+            % (STEER_REQUESTS, len(sizes), STEER_BURST[0], STEER_BURST[1],
+               batcher.default_ladder(MAX_BATCH),
+               json.dumps(incumbent["extras"]["bert_serving"]),
+               STEER_SUSTAINED, [len(p) for p in sustained],
+               STEER_OSCILLATING, [len(p) for p in oscillating], ladder,
+               len(rows), decision.plan_digest[:12], decision.decision,
+               decision.reason, json.dumps(cmp_rows), entry["seq"],
+               json.dumps({k: entry[k] for k in (
+                   "decision", "reason", "steerer", "verdict",
+                   "regressions", "regressed_metrics")}),
+               store.active_digest(), gap, CPU_TOL,
+               counts.get("flash_attention_forward", 0),
+               counters["executor.jit_traces"], card_line()))
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+
+    plan, cap, before, after = lazy_policy_check(fluid)
+    log("phase 66 lazy dygraph MLP, %d batch sizes in turn under a key cap "
+        "of %d: lazy.recompiles %d, lazy.cache_hits %d, captures %d over "
+        "%d cycles; the lazy_policy plan %s applied (cap %d); after it, "
+        "lazy.recompiles %d, lazy.cache_hits %d, captures %d, replays %d"
+        % (LAZY_SHAPES, LAZY_CAP, before["lazy.recompiles"],
+           before["lazy.cache_hits"], before["lazy.captures"], LAZY_CYCLES,
+           json.dumps(plan), cap, after["lazy.recompiles"],
+           after["lazy.cache_hits"], after["lazy.captures"],
+           after["lazy.replays"]))
+    if cap != 2 * LAZY_CAP or before["lazy.recompiles"] != \
+            LAZY_CYCLES * LAZY_SHAPES or after["lazy.recompiles"] or \
+            after["lazy.captures"]:
+        raise RuntimeError("phase 66: lazy policy cap %d, before %s, after "
+                           "%s" % (cap, before, after))
+
+    own = mp_metrics_dir is None
+    if own:
+        mp_metrics_dir = tempfile.mkdtemp(prefix="phase66-job-")
+        phase_dp_multiprocess(mp_metrics_dir)
+    try:
+        ok, merge = job_merge_check(mp_metrics_dir)
+    finally:
+        import shutil
+
+        shutil.rmtree(mp_metrics_dir, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log("phase 66 phase 58's two-rank job merged (PADDLE_TPU_METRICS_DIR "
+        "through the launcher, merge_job_dir): %s; tools/torch_ft_timeline."
+        "py read it; %.1f s for the phase; card %s"
+        % (json.dumps(merge), phase_s, card_line()))
+    if not ok:
+        raise RuntimeError("phase 66: the job merge %s" % merge)
+    obs.reset()
+    return counts, {"decision": decision.decision,
+                    "reason": decision.reason, "ladder": list(ladder),
+                    "incumbent": incumbent["extras"]["bert_serving"],
+                    "audit_seq": entry["seq"], "answers_gap": gap,
+                    "lazy_before": before, "lazy_after": after,
+                    "lazy_cap": cap, "merge": merge, "phase_s": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -10517,7 +11231,9 @@ def main() -> int:
     attention_rows(flash, k2, k3, "dp_replica_shape", "causal", fwd, bwd)
     dp_resnet, dp_resnet_run = phase_dp_resnet(fluid, support)
     conv["dp_replica_shape"] = dp_resnet_run["k5"]
-    dp_mp, dp_mp_run = phase_dp_multiprocess()
+    # the job's dumps and its merge are read again by phase 66
+    mp_metrics = tempfile.mkdtemp(prefix="phase58-metrics-")
+    dp_mp, dp_mp_run = phase_dp_multiprocess(mp_metrics)
     log("phases 56-58 %s" % json.dumps(
         {"dp_gpt": dp_gpt_run, "dp_resnet": dp_resnet_run,
          "dp_multiprocess": dp_mp_run}))
@@ -10536,6 +11252,14 @@ def main() -> int:
     log("phases 63-64 %.1f s %s" % (
         time.perf_counter() - t_63, json.dumps(
             {"profiled_gpt": profiled_run, "dgc": dgc_run}, default=str)))
+    # the half of observability that acts: placement, steering, the canary
+    t_65 = time.perf_counter()
+    placed, placed_run = phase_placement(fluid, support)
+    steered, steered_run = phase_steering(fluid, support, mp_metrics)
+    log("phases 65-66 %.1f s %s" % (
+        time.perf_counter() - t_65, json.dumps(
+            {"placement": placed_run, "steering": steered_run},
+            default=str)))
     log("phases 51-53 %s" % json.dumps(
         {"serving_http": http_run, "resnet_infer": resnet_infer_run,
          "decode_http": decode_http_run}))
@@ -10617,7 +11341,9 @@ def main() -> int:
                    "hybrid_ep": hy_ep.get(kern["name"], 0),
                    "profiled_gpt": profiled.get(kern["name"], 0),
                    "dgc": dgc_counts.get(kern["name"], 0),
-                   "dgc_dp": dgc_dp_counts.get(kern["name"], 0)}
+                   "dgc_dp": dgc_dp_counts.get(kern["name"], 0),
+                   "placement": placed.get(kern["name"], 0),
+                   "steering": steered.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

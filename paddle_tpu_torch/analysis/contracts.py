@@ -23,12 +23,14 @@ The contracts of the rewrites the port performs:
   exactly one ``fused_optimizer`` op, and a spared param keeps its op;
 - ``fused_epilogue``: no written var is lost and the program never grows;
 - ``bucket_quant``: attrs and residual slots only, each residual wired
-  consistently.
+  consistently;
+- ``async_collective``: the async split reduces each grad exactly once (by
+  its await), every start has one await after it, no op writes a member
+  between the pair, and no new reader comes before a grad's reduction;
+- ``reduction_swap``: attrs only, each a registered spelling (the float
+  bound of a spelling is ``reassociation_bound``).
 
-The JAX package's ``async_collective`` and ``reduction_swap`` contracts
-guard rewrites the port accepts as knobs and leaves undone
-(``parallel/scheduling.unchanged_knobs``); they come with those rewrites
-(ROADMAP.md). ``check_pipeline_split`` checks the pipeline's stage split:
+``check_pipeline_split`` checks the pipeline's stage split:
 the stages tile the forward ops in order, none empty.
 """
 from __future__ import annotations
@@ -40,7 +42,7 @@ from .verifier import IRVerificationError
 
 __all__ = ["ContractViolation", "RewriteContract", "register_contract",
            "contract_for", "checked_rewrite", "reduced_grad_entries",
-           "check_pipeline_split"]
+           "check_pipeline_split", "reassociation_bound"]
 
 
 class ContractViolation(IRVerificationError):
@@ -409,6 +411,171 @@ class _FusedEpilogueContract(RewriteContract):
                   % (state["n_ops"], len(block.ops)))
 
 
+class _AsyncCollectiveContract(RewriteContract):
+    """parallel/scheduling.py schedule_async_collectives: every grad a
+    fused bucket reduced must still be reduced exactly once (now by the
+    await half), every start/await pair must be properly bracketed
+    (start before await, Pending written once and consumed by exactly
+    one await), and no NEW reader may slip in front of a grad's
+    reduction — the consumer barrier survives the split."""
+
+    name = "async_collective"
+
+    def pre(self, program):
+        entries = reduced_grad_entries(program)
+        block = program.global_block()
+        pre_readers: Dict[str, frozenset] = {}
+        for g, es in entries.items():
+            first = min(i for i, _ in es)
+            pre_readers[g] = frozenset(
+                op._id for op in block.ops[:first]
+                if g in op.input_arg_names)
+        multiset = sorted((g, len(es)) for g, es in entries.items())
+        return {"multiset": multiset, "pre_readers": pre_readers}
+
+    def post(self, program, state) -> None:
+        entries = reduced_grad_entries(program)
+        multiset = sorted((g, len(es)) for g, es in entries.items())
+        if multiset != state["multiset"]:
+            before = dict(state["multiset"])
+            after = dict(multiset)
+            _viol(self.name,
+                  "multiset of reduced grads changed: lost %s, gained "
+                  "%s — an async split must re-cover every grad via "
+                  "its await"
+                  % (sorted(set(before) - set(after)),
+                     sorted(set(after) - set(before))))
+        block = program.global_block()
+        starts: Dict[str, int] = {}   # pending name -> start index
+        start_ids = set()
+        awaited: Dict[str, int] = {}  # pending name -> await count
+        for i, op in enumerate(block.ops):
+            if op.type == "c_bucket_allreduce_start":
+                start_ids.add(op._id)
+                p = op.output("Pending")
+                if len(p) != 1:
+                    _viol(self.name,
+                          "start op #%d binds %d Pending outputs (want "
+                          "exactly 1)" % (i, len(p)))
+                if p[0] in starts:
+                    _viol(self.name,
+                          "Pending var %r written by two start ops "
+                          "(#%d and #%d)" % (p[0], starts[p[0]], i))
+                starts[p[0]] = i
+            elif op.type == "c_bucket_allreduce_await":
+                pending = op.input("Pending")
+                if not pending:
+                    _viol(self.name,
+                          "await op #%d binds no Pending input — "
+                          "nothing to slice the reduced values from"
+                          % i)
+                p = pending[0]
+                si = starts.get(p)
+                if si is None:
+                    _viol(self.name,
+                          "await op #%d consumes Pending %r with no "
+                          "earlier start op — the slice would read "
+                          "garbage (use-before-start)" % (i, p))
+                if sorted(op.input("X")) != sorted(op.output("Out")):
+                    _viol(self.name,
+                          "await op #%d rebinds outputs %s != members "
+                          "%s — some member grad would keep its "
+                          "UNREDUCED value"
+                          % (i, sorted(op.output("Out")),
+                             sorted(op.input("X"))))
+                if si is not None:
+                    members = set(op.input("X"))
+                    for j in range(si + 1, i):
+                        mid = block.ops[j]
+                        if mid.type == "c_bucket_allreduce_await":
+                            continue
+                        hit = members & set(mid.output_arg_names)
+                        if hit:
+                            _viol(self.name,
+                                  "op #%d (%s) WRITES member grad(s) "
+                                  "%s between the start (#%d) and its "
+                                  "await (#%d) — the await would "
+                                  "clobber that write with a "
+                                  "reduction of the stale value"
+                                  % (j, mid.type, sorted(hit), si, i))
+                awaited[p] = awaited.get(p, 0) + 1
+        orphans = sorted(set(starts) - set(awaited))
+        if orphans:
+            _viol(self.name,
+                  "start op(s) for Pending %s have no await — their "
+                  "member grads are never written back (the optimizer "
+                  "would apply UNREDUCED gradients)" % orphans)
+        multi = sorted(p for p, n in awaited.items() if n > 1)
+        if multi:
+            _viol(self.name,
+                  "Pending %s consumed by multiple awaits" % multi)
+        # consumer barrier: new readers ahead of a grad's reduction may
+        # only be the start ops the split itself inserted
+        for g, es in entries.items():
+            first = min(i for i, _ in es)
+            readers_now = {op._id for op in block.ops[:first]
+                           if g in op.input_arg_names}
+            leaked = readers_now \
+                - set(state["pre_readers"].get(g, frozenset())) \
+                - start_ids
+            if leaked:
+                ops_by_id = {op._id: (i, op.type)
+                             for i, op in enumerate(block.ops)}
+                _viol(self.name,
+                      "consumer-barrier ordering broken for grad %r: "
+                      "op(s) %s now read it BEFORE its reduction at op "
+                      "#%d — they would see an unreduced value"
+                      % (g, sorted(ops_by_id[x] for x in leaked),
+                         first))
+
+
+class _ReductionSwapContract(RewriteContract):
+    """parallel/scheduling.py swap_reduction_strategy: attr-only — the
+    op sequence (identities, types, slot bindings) must be untouched
+    and every strategy attr must name a registered spelling. Numerically
+    a spelling is the ring's sum in another association: integer payloads
+    (int8 codes) exactly, float ones within ``reassociation_bound`` of
+    it (``tree`` gives the ring's bits)."""
+
+    name = "reduction_swap"
+
+    def pre(self, program):
+        block = program.global_block()
+        seq = [(op._id, op.type,
+                tuple(sorted((k, tuple(v)) for k, v in op.inputs.items())),
+                tuple(sorted((k, tuple(v)) for k, v in
+                             op.outputs.items())))
+               for op in block.ops]
+        return {"seq": seq}
+
+    def post(self, program, state) -> None:
+        from ..ops.collective_ops import REDUCTION_STRATEGIES
+
+        block = program.global_block()
+        seq = [(op._id, op.type,
+                tuple(sorted((k, tuple(v)) for k, v in op.inputs.items())),
+                tuple(sorted((k, tuple(v)) for k, v in
+                             op.outputs.items())))
+               for op in block.ops]
+        if seq != state["seq"]:
+            _viol(self.name,
+                  "reduction swap changed the op sequence/bindings — "
+                  "the pass may only flip strategy attrs (op count %d "
+                  "-> %d)" % (len(state["seq"]), len(seq)))
+        for i, op in enumerate(block.ops):
+            if op.type not in ("c_bucket_allreduce",
+                               "c_bucket_allreduce_start"):
+                continue
+            s = op.attrs.get("strategy", "ring")
+            if s not in REDUCTION_STRATEGIES:
+                _viol(self.name,
+                      "op #%d (%s) carries unknown reduction strategy "
+                      "%r — the op would raise at its first run "
+                      "(want one of %s)"
+                      % (i, op.type, s,
+                         ", ".join(REDUCTION_STRATEGIES)))
+
+
 class _BucketQuantContract(RewriteContract):
     """``parallel/scheduling.configure_bucket_quant``: attr/slot-only —
     the op sequence is untouched, quant values are registered modes,
@@ -493,6 +660,16 @@ register_contract(_ShardedUpdateContract())
 register_contract(_FusedOptimizerContract())
 register_contract(_FusedEpilogueContract())
 register_contract(_BucketQuantContract())
+register_contract(_AsyncCollectiveContract())
+register_contract(_ReductionSwapContract())
+
+
+def reassociation_bound(abs_sum, nranks: int, eps: float):
+    """How far two spellings of one float sum of ``nranks`` terms may lie
+    apart, elementwise: each is within ``(n - 1) * eps * sum_i |x_i|`` of
+    the exact sum, so the two within twice that. ``abs_sum`` is
+    ``sum_i |x_i|``, ``eps`` the dtype's machine epsilon."""
+    return 2.0 * max(0, int(nranks) - 1) * float(eps) * abs_sum
 
 
 # ---------------------------------------------------------------------------

@@ -157,13 +157,16 @@ def reset_counters() -> None:
 
 def count_decline(name: str, counter: Optional[str] =
                   "lod_lowering.declines") -> None:
-    """One decline, by name, also counted in ``counter`` when given."""
+    """One decline, by name, also counted in ``counter`` when given, and
+    a ``executor.decline`` flight event (a route decision a postmortem
+    wants)."""
     with _counters_lock:
         if counter is not None:
             COUNTERS[counter] += 1
         DECLINES[name] = DECLINES.get(name, 0) + 1
     if counter is not None:
         _obs.inc(counter, decline=name)
+    _obs.flight.record("executor.decline", decline=name)
 
 
 def declines() -> Dict[str, int]:

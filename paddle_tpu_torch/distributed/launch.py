@@ -1,5 +1,5 @@
 """Launch a collective (data-parallel) training job: one worker process a
-rank on this node.
+rank on this node, and optionally a steering daemon beside them.
 
 Counterpart of the collective half of ``paddle_tpu/distributed/launch.py``
 (the reference's ``distributed/launch.py``): ``--nproc_per_node`` workers,
@@ -12,20 +12,34 @@ The launcher supervises them: a worker that exits nonzero is relaunched
 up to ``--max_restarts`` times (default 0: the other ranks of a collective
 job wait in a collective for the dead one, so a failure brings the job
 down), then every worker is stopped and the launcher exits with the
-failed rank's code. The parameter-server, serving and steering roles of
-the JAX launcher are not ported.
+failed rank's code.
+
+Job telemetry: with ``PADDLE_TPU_METRICS_DIR`` set the launcher clears the
+directory's stale dumps, dumps as ``launcher-<node_rank>``, mints one job
+trace id (``PADDLE_TPU_TRACE_ID``) for every rank, runs the clock
+handshake with each child (``observability.distributed``) and, at
+teardown, merges every process's dump into ``metrics.json`` and
+``trace.json`` (``merge_job_dir``). ``--steering`` supervises a steering
+daemon (``observability/steering_daemon.py``) over that directory, polled
+every ``--steering_interval`` seconds: it proposes plans and applies none.
+The parameter-server and serving roles of the JAX launcher are not ported.
 
 Usage:  python -m paddle_tpu_torch.distributed.launch --nproc_per_node=2 \\
-            [--started_port=6170] [--log_dir=DIR] train.py --your-args
+            [--started_port=6170] [--log_dir=DIR] [--steering] \\
+            train.py --your-args
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import signal
 import subprocess
 import sys
 import time
+
+from ..observability import distributed as _dobs
+from ..observability import flight as _flight
 
 __all__ = ["launch", "get_cluster_env"]
 
@@ -44,6 +58,13 @@ def _parse_args(argv=None):
                        "PADDLE_LAUNCH_MAX_RESTARTS", "0")),
                    help="relaunches per rank after an abnormal exit "
                         "before the job is brought down")
+    p.add_argument("--steering", action="store_true",
+                   help="supervise a steering daemon over the job's "
+                        "PADDLE_TPU_METRICS_DIR: it watches the merged "
+                        "telemetry and writes proposed plans, applying "
+                        "none")
+    p.add_argument("--steering_interval", type=float, default=5.0,
+                   help="seconds between steering-daemon polls")
     p.add_argument("training_script")
     p.add_argument("training_script_args", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
@@ -70,28 +91,91 @@ def _log(msg: str) -> None:
 
 
 class _Worker:
-    """One supervised rank: its command, env, restarts and log."""
+    """One supervised process: its command, env, restarts, log and the
+    clock handshake's bookkeeping."""
 
-    def __init__(self, local_rank: int, cmd, env, log_dir):
+    def __init__(self, local_rank: int, cmd, env, log_dir,
+                 role: str = "trainer", metrics_dir=None, global_rank=None):
         self.local_rank = local_rank
+        # the rank the child dumps under (``process_identity`` reads the
+        # global PADDLE_TRAINER_ID): its clock record carries that name
+        self.global_rank = (local_rank if global_rank is None
+                            else int(global_rank))
         self.cmd = list(cmd)
         self.env = dict(env)
         self.log_dir = log_dir
+        self.role = role
+        self.metrics_dir = metrics_dir
         self.restarts = 0
         self.proc: subprocess.Popen = None
         self._fp = None
+        # the ping file this incarnation writes, its dump name, the spawn
+        # time and the last poll that saw no ping (on the launcher's clock)
+        self.clock_ping_path = None
+        self.clock_proc = None
+        self.spawned_at_us = None
+        self.last_absent_poll_us = None
+
+    def _proc_base(self) -> str:
+        """The name this incarnation dumps under."""
+        base = "%s-%d" % (self.role, self.global_rank)
+        if self.restarts:
+            base += ".r%d" % self.restarts
+        return base
 
     def spawn(self) -> None:
         env = dict(self.env)
         env["PADDLE_RESTART_COUNT"] = str(self.restarts)
+        if self.metrics_dir:
+            self.clock_proc = self._proc_base()
+            self.clock_ping_path = os.path.join(
+                self.metrics_dir, self.clock_proc + ".clockping")
+            env[_dobs.CLOCK_PING_ENV] = self.clock_ping_path
         self.close_log()
         out = None
         if self.log_dir:
-            self._fp = open(os.path.join(
-                self.log_dir, "workerlog.%d" % self.local_rank), "a")
+            name = ("steeringlog.%d" if self.role == "steering"
+                    else "workerlog.%d") % self.local_rank
+            self._fp = open(os.path.join(self.log_dir, name), "a")
             out = self._fp
+        self.spawned_at_us = time.time() * 1e6
+        self.last_absent_poll_us = None
         self.proc = subprocess.Popen(self.cmd, env=env, stdout=out,
                                      stderr=out)
+        _flight.record("launch.spawn", role=self.role,
+                       rank=self.local_rank, restart=self.restarts,
+                       pid=self.proc.pid)
+
+    def poll_clock_ping(self) -> None:
+        """Finish the clock handshake once the child's ping file exists:
+        record its skew against the launcher's clock, remove the file."""
+        path = self.clock_ping_path
+        if not path:
+            return
+        if not os.path.exists(path):
+            # the ping comes after now: the skew's window shrinks to one
+            # poll period
+            self.last_absent_poll_us = time.time() * 1e6
+            return
+        try:
+            with open(path, "r", encoding="utf-8") as f:
+                child_wall = float(json.load(f).get("wall_us") or 0.0)
+        except (OSError, ValueError):
+            return  # a torn write: the next poll reads the whole file
+        self.clock_ping_path = None
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+        if child_wall and self.spawned_at_us:
+            t0 = max(self.spawned_at_us,
+                     self.last_absent_poll_us or self.spawned_at_us)
+            skew, unc = _dobs.record_clock_offset(
+                self.metrics_dir, self.clock_proc, child_wall, t0,
+                time.time() * 1e6)
+            _flight.record("launch.clock_sync", role=self.role,
+                           rank=self.local_rank, skew_us=round(skew),
+                           uncertainty_us=round(unc))
 
     def close_log(self) -> None:
         if self._fp is not None:
@@ -104,6 +188,18 @@ def launch(args=None) -> int:
     node_ips = [ip for ip in args.ips.split(",") if ip]
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
+    metrics_dir = _dobs.metrics_dir()
+    if metrics_dir:
+        # the launcher dumps too, and the job starts from an empty
+        # directory: a merge must not read another job's dumps
+        _dobs.set_identity("launcher", args.node_rank)
+        removed = _dobs.clear_stale_dumps(metrics_dir)
+        if removed:
+            _log("cleared %d stale dump(s) from %s" % (removed, metrics_dir))
+        _dobs.arm(metrics_dir)
+        # one job trace id, in every worker's env: each rank derives the
+        # same round span from it (``distributed.fleet_round_args``)
+        os.environ.setdefault(_dobs.JOB_TRACE_ENV, os.urandom(8).hex())
     cmd = [sys.executable, "-u", args.training_script] + \
         list(args.training_script_args)
     workers = []
@@ -112,16 +208,41 @@ def launch(args=None) -> int:
         env.update(get_cluster_env(node_ips, args.node_rank,
                                    args.nproc_per_node, args.started_port,
                                    local_rank))
-        workers.append(_Worker(local_rank, cmd, env, args.log_dir))
+        env["PADDLE_ROLE"] = "trainer"  # its dump's name: trainer-<rank>
+        workers.append(_Worker(
+            local_rank, cmd, env, args.log_dir, metrics_dir=metrics_dir,
+            global_rank=int(env["PADDLE_TRAINER_ID"])))
+    servers = []
+    if args.steering:
+        if not metrics_dir:
+            _log("--steering ignored: PADDLE_TPU_METRICS_DIR is unset (the "
+                 "daemon watches the job's merged dumps)")
+        else:
+            # supervised as a server: relaunched on a crash (it only
+            # reads telemetry and writes proposals), stopped after the
+            # trainers
+            pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))))
+            env = dict(os.environ)
+            env["PYTHONPATH"] = pkg_root + os.pathsep + \
+                env.get("PYTHONPATH", "")
+            env.update({"PADDLE_ROLE": "steering", "PADDLE_TRAINER_ID": "0",
+                        "PADDLE_TPU_METRICS_DIR": metrics_dir})
+            servers.append(_Worker(
+                0, [sys.executable, "-u", "-m",
+                    "paddle_tpu_torch.observability.steering_daemon",
+                    "--interval", str(args.steering_interval)],
+                env, args.log_dir, role="steering",
+                metrics_dir=metrics_dir))
 
     def _terminate_all(sig=signal.SIGTERM):
-        for w in workers:
+        for w in workers + servers:
             if w.proc is not None and w.proc.poll() is None:
                 try:
                     w.proc.send_signal(sig)
                 except OSError:
                     pass
-        for w in workers:
+        for w in workers + servers:
             if w.proc is not None:
                 try:
                     w.proc.wait(timeout=10)
@@ -132,10 +253,32 @@ def launch(args=None) -> int:
     live = set(range(args.nproc_per_node))
     rc = 0
     try:
+        for s in servers:
+            s.spawn()
         for w in workers:
             w.spawn()
         while live:
             time.sleep(0.1)
+            for w in workers + servers:
+                w.poll_clock_ping()
+            for s in servers:
+                code = s.proc.poll()
+                if code is None or code == 0:
+                    continue
+                _flight.record("launch.exit", role=s.role,
+                               rank=s.local_rank, code=code)
+                if s.restarts >= args.max_restarts:
+                    _log("%s exited %d; restart budget (%d) spent: "
+                         "bringing the job down"
+                         % (s.role, code, args.max_restarts))
+                    rc = code if code > 0 else 1
+                    _terminate_all()
+                    live = set()
+                    break
+                s.restarts += 1
+                _log("%s exited %d; relaunching (restart %d/%d)"
+                     % (s.role, code, s.restarts, args.max_restarts))
+                s.spawn()
             for w in workers:
                 if w.local_rank not in live:
                     continue
@@ -145,6 +288,8 @@ def launch(args=None) -> int:
                 if code == 0:
                     live.discard(w.local_rank)
                     continue
+                _flight.record("launch.exit", role="trainer",
+                               rank=w.local_rank, code=code)
                 if w.restarts >= args.max_restarts:
                     _log("rank %d exited %d; restart budget (%d) spent: "
                          "bringing the job down"
@@ -159,11 +304,43 @@ def launch(args=None) -> int:
                 w.spawn()
         return rc
     except KeyboardInterrupt:
+        rc = 1
         _terminate_all()
         return 1
     finally:
-        for w in workers:
+        # the trainers are done: stop the daemon
+        for s in servers:
+            if s.proc is not None and s.proc.poll() is None:
+                try:
+                    s.proc.terminate()
+                except OSError:
+                    pass
+        for s in servers:
+            if s.proc is not None:
+                try:
+                    s.proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    s.proc.kill()
+                    s.proc.wait()
+        for w in workers + servers:
             w.close_log()
+        if metrics_dir:
+            # one merged picture even of a job whose children were
+            # killed: their periodic and at-exit dumps, and the exits the
+            # launcher saw, on the shared wall clock
+            _flight.record("launch.done", rc=rc if sys.exc_info()[0] is None
+                           else 1)
+            try:
+                for w in workers + servers:
+                    w.poll_clock_ping()
+                _dobs.dump_process()
+                mpath, tpath = _dobs.merge_job_dir(metrics_dir)
+                if mpath:
+                    _log("merged job telemetry: %s + %s" % (mpath, tpath))
+            except Exception as e:  # noqa: BLE001 telemetry must not fail
+                # a job
+                _log("job telemetry merge failed: %s: %s"
+                     % (type(e).__name__, e))
 
 
 def main():

@@ -50,10 +50,17 @@ the key. Eagerly it draws from a generator seeded with it; a captured
 graph registers one generator per RNG node and seeds it before every
 replay, so a replay draws the step's own numbers.
 
-Counters (``COUNTERS``, as ``core/compiler_engine`` keeps its own):
-``lazy.flushes``, ``lazy.graph_nodes`` (nodes flushed), ``lazy.recompiles``
-(a new structural key), ``lazy.cache_hits``, and on the card
-``lazy.captures`` and ``lazy.replays``.
+Counters (``COUNTERS``, as ``core/compiler_engine`` keeps its own, each
+also counted in the observability registry, so a process's dump carries
+them): ``lazy.flushes``, ``lazy.graph_nodes`` (nodes flushed),
+``lazy.recompiles`` (a new structural key), ``lazy.cache_hits``, and on
+the card ``lazy.captures`` and ``lazy.replays``.
+
+Policy steering: a ``JIT_CACHE_CAP`` below the working set of keys turns
+the steady state into evictions and recaptures (``lazy.recompiles`` grows,
+``lazy.cache_hits`` stalls). ``plan_lazy_policy`` turns those counts into
+``{"jit_cache_cap": N}`` (the ``lazy_policy`` steerer), and
+``apply_lazy_policy`` installs a promoted plan.
 """
 from __future__ import annotations
 
@@ -64,10 +71,12 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from .. import observability as _obs
 from ..core.cuda_graph import CapturedGraph, GraphCache, same_memory
 
 __all__ = ["PendingValue", "LazyEngine", "is_pending", "aval_of",
-           "counters", "reset_counters"]
+           "counters", "reset_counters", "plan_lazy_policy",
+           "apply_lazy_policy", "JIT_CACHE_CAP_MAX"]
 
 COUNTERS: Dict[str, int] = {"lazy.flushes": 0, "lazy.graph_nodes": 0,
                             "lazy.recompiles": 0, "lazy.cache_hits": 0,
@@ -78,6 +87,7 @@ _counters_lock = threading.Lock()
 def _inc(name: str, n: int = 1) -> None:
     with _counters_lock:
         COUNTERS[name] += n
+    _obs.inc(name, n)
 
 
 def counters() -> Dict[str, int]:
@@ -562,3 +572,58 @@ class LazyEngine:
         caller's ``torch.cuda.empty_cache()``)."""
         self.graphs.clear()
         self._jit_cache.clear()
+
+
+# -- the recapture-against-reuse policy --------------------------------------------
+
+JIT_CACHE_CAP_MAX = 512
+
+
+def plan_lazy_policy(recompiles, cache_hits, cache_cap=None):
+    """A structural-key cap from observed recompile and hit counts: double
+    the cap (up to ``JIT_CACHE_CAP_MAX``) while recompiles are most of the
+    flushes and outnumber the cap (a working set larger than the cache);
+    keep it otherwise."""
+    cap = int(cache_cap if cache_cap is not None
+              else LazyEngine.JIT_CACHE_CAP)
+    r, h = max(0, int(recompiles)), max(0, int(cache_hits))
+    total = r + h
+    frac = (r / total) if total else 0.0
+    new_cap = cap
+    if total and frac > 0.5 and r > cap:
+        new_cap = min(JIT_CACHE_CAP_MAX, cap * 2)
+    return {"jit_cache_cap": new_cap, "prev_cap": cap,
+            "recompile_frac": round(frac, 6),
+            "recompiles": r, "cache_hits": h}
+
+
+def _steer_lazy_policy(report, recompiles=None, cache_hits=None,
+                       cache_cap=None, **_ctx):
+    """``steer("lazy_policy", report, ...)``: the counts come from the
+    context (the daemon reads them off merged counters), else from this
+    process's ``counters()``."""
+    if recompiles is None or cache_hits is None:
+        c = counters()
+        recompiles = c["lazy.recompiles"]
+        cache_hits = c["lazy.cache_hits"]
+    return plan_lazy_policy(recompiles, cache_hits, cache_cap=cache_cap)
+
+
+def apply_lazy_policy(plan, engine_cls=None):
+    """Install a promoted policy plan: the class-level structural-key cap
+    (a canary's apply and rollback hooks call it with the proposed and the
+    incumbent plan)."""
+    cls = engine_cls or LazyEngine
+    cap = int(plan["jit_cache_cap"])
+    if not 1 <= cap <= JIT_CACHE_CAP_MAX:
+        raise ValueError("jit_cache_cap %d outside [1, %d]"
+                         % (cap, JIT_CACHE_CAP_MAX))
+    cls.JIT_CACHE_CAP = cap
+    return cap
+
+
+from ..observability import steering as _steering  # noqa: E402
+
+_steering.register_steerer(
+    "lazy_policy", _steer_lazy_policy,
+    "structural-key cap of the lazy queue from its flush counters")

@@ -295,15 +295,23 @@ def _deserialize_program(data: Dict) -> framework.Program:
 
 
 def _prune_for_inference(program, fetch_names):
-    """Keep only the ops on the path to the fetches."""
+    """Keep only the ops on the path to the fetches: every op that writes
+    a needed var, a ``while`` or ``conditional_block`` whose sub-block
+    writes one included, and what each kept op reads (a loop's reads are
+    its body's too). The JAX package's prune (``paddle_tpu/io.py:238``)
+    looks at an op's own outputs only, so it drops a loop that rewrites
+    the fetch target and the loaded model answers without it."""
+    from .analysis.verifier import _op_reads_writes
+
     pruned = program.clone(for_test=True)
     block = pruned.global_block()
     needed = set(fetch_names)
     keep = []
     for op in reversed(block.ops):
-        if any(n in needed for n in op.output_arg_names):
+        reads, writes = _op_reads_writes(op)
+        if any(n in needed for n in writes):
             keep.append(op)
-            needed.update(op.input_arg_names)
+            needed.update(reads)
     block.ops = list(reversed(keep))
     return pruned
 

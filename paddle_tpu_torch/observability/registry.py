@@ -163,6 +163,12 @@ class Histogram(_Metric):
             s = sorted(self._reservoir)
         return reservoir_quantile(s, q)
 
+    def samples(self) -> List[float]:
+        """The reservoir's values (all of them up to ``RESERVOIR``
+        observations), in the order they landed."""
+        with self._lock:
+            return list(self._reservoir)
+
     def snapshot(self) -> Dict:
         with self._lock:
             s = sorted(self._reservoir)

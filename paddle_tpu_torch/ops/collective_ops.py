@@ -35,7 +35,13 @@ host ops (``c_gen_nccl_id``, ``c_comm_init``, ``c_sync_calc_stream``,
 bodies: ``torch.distributed.init_process_group`` is the rendezvous
 (``dygraph/parallel.prepare_context``).
 
-``quantized_psum`` is the JAX function over a group: ``bf16`` sums the
+``strategy_psum`` spells a reduction over a group as ``ring`` (the one
+rank-order sum), ``tree`` (a reduce-scatter and then an all-gather: the
+ring's bits) or ``two_stage`` (one sum over each data axis of the mesh in
+turn, ``ReplicaGroup.stages``). ``c_bucket_allreduce_start`` /
+``c_bucket_allreduce_await`` split a bucket reduction: over a process group
+the start issues it with ``async_op=True`` and the await waits on its work
+handle. ``quantized_psum`` is the JAX function over a group: ``bf16`` sums the
 payload in bfloat16; ``int8`` scales every replica by the same step (the
 group's max of the local absmax, / 127), rounds half to even into
 [-127, 127] and sums the codes in int32, with EQuARX error feedback when a
@@ -63,9 +69,12 @@ class ReplicaGroup:
 
     in_process = True
 
-    def __init__(self, devices):
+    def __init__(self, devices, stages=None):
         self.devices = [torch.device(d) for d in devices]
         self.nranks = len(self.devices)
+        # the two-stage spelling's stages: for each data axis of the mesh,
+        # the positions in this group that differ only on that axis
+        self.stages = stages
 
     def parts(self):
         """(replica positions, group) of each subgroup: here one."""
@@ -124,13 +133,32 @@ class AxisGroups:
 
     in_process = True
 
-    def __init__(self, subgroups, devices):
+    def __init__(self, subgroups, devices, stage_axes=None):
+        """``stage_axes``: one list of subgroups (replica ranks) a mesh axis
+        the group spans, in the order a two-stage reduction sums over
+        them."""
         self.subgroups = [list(g) for g in subgroups]
-        self.groups = [ReplicaGroup([devices[r] for r in g])
+        self.groups = [ReplicaGroup([devices[r] for r in g],
+                                    _stages_of(g, stage_axes))
                        for g in self.subgroups]
 
     def parts(self):
         return list(zip(self.subgroups, self.groups))
+
+
+def _stages_of(ranks, stage_axes):
+    """Each axis's partition of ``ranks`` into positions of the group; None
+    when fewer than two axes split it (two stages would be one)."""
+    if not stage_axes:
+        return None
+    pos = {r: i for i, r in enumerate(ranks)}
+    stages = []
+    for parts in stage_axes:
+        stage = [[pos[r] for r in part if r in pos] for part in parts]
+        stage = [p for p in stage if p]
+        if any(len(p) > 1 for p in stage):
+            stages.append(stage)
+    return stages if len(stages) > 1 else None
 
 
 class ProcessGroupAxis:
@@ -461,38 +489,88 @@ QUANT_WIRE_ITEMSIZE = {"none": None, "bf16": 2, "int8": 1}
 # int8 codes are summed in int32 (4 bytes an element)
 QUANT_PSUM_ITEMSIZE = {"none": None, "bf16": 2, "int8": 4}
 
-def quantized_psum(xs, group, quant="none", residuals=None):
-    """psum of one tensor a replica with an optional compressed payload
-    (``paddle_tpu/ops/collective_ops.py:quantized_psum``). With
-    ``residuals`` (one a replica) returns ``(reduced, new_residuals)``.
-    The JAX function's ``strategy`` spellings (tree, two_stage) are not
-    taken: over one group every spelling is the same rank-order sum."""
-    if quant in (None, "", "none"):
-        out = group.psum(xs)
-        return out if residuals is None else (out, list(residuals))
-    srcs = (list(xs) if residuals is None
-            else [x + r for x, r in zip(xs, residuals)])
+# the spellings of one reduction (the placement search's swap dimension):
+#   ring       the one rank-order sum over the group
+#   tree       a reduce-scatter and then an all-gather over the group (the
+#              ring's bits: each shard is the rank-order sum of its slice)
+#   two_stage  one sum over each data axis of the mesh in turn (another
+#              association of the sum; the ring where one axis spans the
+#              group)
+REDUCTION_STRATEGIES = ("ring", "tree", "two_stage")
+
+
+def _tree_gather(shards, group, numel):
+    """The all-gather half of the tree spelling: every replica's shard,
+    stacked, cut back to ``numel``."""
+    return [g.reshape(-1)[:numel] for g in group.all_gather(shards)]
+
+
+def strategy_psum(xs, group, strategy="ring"):
+    """The sum of ``xs`` (one tensor a replica) over ``group``, spelled per
+    ``strategy`` (``REDUCTION_STRATEGIES``). Integer payloads are exact
+    under every spelling."""
+    if strategy in (None, "", "auto", "ring"):
+        return group.psum(xs)
+    if strategy == "tree":
+        n = group.nranks
+        numel = xs[0].numel()
+        pad = (-numel) % n
+        flats = [x.reshape(-1) if not pad else torch.cat(
+            [x.reshape(-1), x.new_zeros(pad)]) for x in xs]
+        full = _tree_gather(group.psum_scatter(flats), group, numel)
+        return [f.reshape(x.shape) for f, x in zip(full, xs)]
+    if strategy == "two_stage":
+        stages = getattr(group, "stages", None)
+        if not stages:
+            return group.psum(xs)
+        out = list(xs)
+        for stage in stages:
+            nxt = list(out)
+            for pos in stage:
+                sub = ReplicaGroup([group.devices[p] for p in pos])
+                for p, y in zip(pos, sub.psum([out[p] for p in pos])):
+                    nxt[p] = y
+            out = nxt
+        return out
+    raise ValueError("unknown reduction strategy %r (want one of %s)"
+                     % (strategy, ", ".join(REDUCTION_STRATEGIES)))
+
+
+def _quantize(srcs, group, quant):
+    """(payloads, finish, new residuals of srcs) of a compressed reduction:
+    ``finish(reduced payloads)`` widens the sums back."""
     if quant == "bf16":
         qs = [s.to(torch.bfloat16) for s in srcs]
-        out = [o.to(x.dtype) for o, x in
-               zip(group.psum(qs), xs)]
-        if residuals is None:
-            return out
-        return out, [s - q.to(x.dtype) for s, q, x in zip(srcs, qs, xs)]
+        return (qs, lambda ys: [y.to(s.dtype) for y, s in zip(ys, srcs)],
+                [s - q.to(s.dtype) for s, q in zip(srcs, qs)])
     if quant == "int8":
         absmax = group.pmax([s.abs().max() for s in srcs])
         scales = [torch.where(a > 0, a / 127.0,
-                              torch.ones_like(a)).to(x.dtype)
-                  for a, x in zip(absmax, xs)]
+                              torch.ones_like(a)).to(s.dtype)
+                  for a, s in zip(absmax, srcs)]
         qs = [torch.clamp(torch.round(s / sc), -127, 127).to(torch.int32)
               for s, sc in zip(srcs, scales)]
-        out = [o.to(x.dtype) * sc for o, x, sc in
-               zip(group.psum(qs), xs, scales)]
-        if residuals is None:
-            return out
-        return out, [s - q.to(x.dtype) * sc
-                     for s, q, x, sc in zip(srcs, qs, xs, scales)]
+        return (qs, lambda ys: [y.to(s.dtype) * sc
+                                for y, s, sc in zip(ys, srcs, scales)],
+                [s - q.to(s.dtype) * sc
+                 for s, q, sc in zip(srcs, qs, scales)])
     raise ValueError("unknown quantized-allreduce mode %r" % (quant,))
+
+
+def quantized_psum(xs, group, quant="none", residuals=None,
+                   strategy="ring"):
+    """psum of one tensor a replica with an optional compressed payload
+    (``paddle_tpu/ops/collective_ops.py:quantized_psum``), spelled per
+    ``strategy``. With ``residuals`` (one a replica) returns ``(reduced,
+    new_residuals)``."""
+    if quant in (None, "", "none"):
+        out = strategy_psum(xs, group, strategy)
+        return out if residuals is None else (out, list(residuals))
+    srcs = (list(xs) if residuals is None
+            else [x + r for x, r in zip(xs, residuals)])
+    qs, finish, new_res = _quantize(srcs, group, quant)
+    out = finish(strategy_psum(qs, group, strategy))
+    return out if residuals is None else (out, new_res)
 
 
 def _flat_concat(xs):
@@ -519,9 +597,10 @@ def _bucket_reduce(ins_list, attrs, group):
     if group is None:
         return flats, residuals
     quant = attrs.get("quant", "none")
+    strategy = attrs.get("strategy", "ring")
     if residuals is not None:
-        return quantized_psum(flats, group, quant, residuals)
-    return quantized_psum(flats, group, quant), None
+        return quantized_psum(flats, group, quant, residuals, strategy)
+    return quantized_psum(flats, group, quant, strategy=strategy), None
 
 
 @register_collective(
@@ -533,10 +612,9 @@ def _bucket_reduce(ins_list, attrs, group):
            "use_calc_stream": True})
 def _c_bucket_allreduce(ins_list, attrs, group):
     """N same-dtype grads coalesced into one flat psum (the bucketed form
-    of N per-grad ``c_allreduce_sum`` ops); a bound Residual arms error
-    feedback. With no group: the identity, the residual untouched. The
-    ``strategy`` attr is kept for the JAX op's attrs; any spelling is the
-    one rank-order sum."""
+    of N per-grad ``c_allreduce_sum`` ops), spelled per its ``strategy``;
+    a bound Residual arms error feedback. With no group: the identity, the
+    residual untouched."""
     if group is None:
         return [{"Out": list(ins["X"]), "ResidualOut": ins.get("Residual")}
                 for ins in ins_list]
@@ -544,6 +622,100 @@ def _c_bucket_allreduce(ins_list, attrs, group):
     return [{"Out": _slice_back(red, ins["X"]),
              "ResidualOut": None if new_res is None else new_res[r]}
             for r, (red, ins) in enumerate(zip(reds, ins_list))]
+
+
+# the reductions a start op issued over a process group and its await has
+# not waited on: id(Pending) -> (Pending, work handle, finish)
+_IN_FLIGHT: Dict[int, tuple] = {}
+
+
+def _start_in_flight(ins, attrs, group):
+    """Issue one replica's bucket reduction over a ``torch.distributed``
+    group with ``async_op=True``; the await op waits on its handle. The
+    int8 scale (a max over the group) is agreed on before the sum is
+    issued."""
+    import torch.distributed as dist
+
+    flat = _flat_concat(ins["X"])
+    residual = ins.get("Residual")
+    src = flat if residual is None else flat + residual
+    quant = attrs.get("quant", "none")
+    if quant in (None, "", "none"):
+        payload, finish, new_res = src.clone(), (lambda y: y), residual
+    else:
+        (payload,), fin, (new_res,) = _quantize([src], group, quant)
+        if residual is None:
+            new_res = None
+        finish = (lambda y, _fin=fin: _fin([y])[0])
+    strategy = attrs.get("strategy", "ring")
+    if strategy not in REDUCTION_STRATEGIES:
+        raise ValueError("unknown reduction strategy %r" % (strategy,))
+    if strategy == "tree":
+        # the reduce-scatter half in flight (gloo has no reduce_scatter:
+        # the sum, of which each rank keeps its slice), the all-gather at
+        # the await
+        n, numel = group.nranks, payload.numel()
+        pad = (-numel) % n
+        if pad:
+            payload = torch.cat([payload, payload.new_zeros(pad)])
+        reduce_fin = finish
+
+        def finish(y, _n=n, _numel=numel):
+            shard = y.chunk(_n)[group.rank].clone()
+            return reduce_fin(_tree_gather([shard], group, _numel)[0])
+    work = dist.all_reduce(payload, group=group.group, async_op=True)
+    _IN_FLIGHT[id(payload)] = (payload, work, finish)
+    return {"Pending": payload, "ResidualOut": new_res}
+
+
+def _landed(pending):
+    """The reduced flat of a Pending buffer: waited on and widened when a
+    start op left it in flight, else the buffer itself."""
+    entry = _IN_FLIGHT.get(id(pending))
+    if entry is None or entry[0] is not pending:
+        return pending
+    del _IN_FLIGHT[id(pending)]
+    entry[1].wait()
+    return entry[2](pending)
+
+
+@register_collective(
+    "c_bucket_allreduce_start",
+    inputs=[In("X", duplicable=True), In("Residual", dispensable=True)],
+    outputs=[Out("Pending"), Out("ResidualOut", dispensable=True)],
+    attrs={"ring_id": 0, "quant": "none", "strategy": "ring",
+           "use_calc_stream": True})
+def _c_bucket_allreduce_start(ins_list, attrs, group):
+    """The first half of an async bucket reduction
+    (``parallel/scheduling.schedule_async_collectives``): the flat
+    reduction of the bucket into ``Pending``, which the matching
+    ``c_bucket_allreduce_await`` slices back into the grads before their
+    first later use. Over the replicas of one process the reduction
+    completes here; over a process group it is issued with
+    ``async_op=True`` and completes at the await. With no group
+    ``Pending`` is the unreduced concat (the identity)."""
+    if group is None:
+        return [{"Pending": _flat_concat(ins["X"]),
+                 "ResidualOut": ins.get("Residual")} for ins in ins_list]
+    if not group.in_process:
+        return [_start_in_flight(ins, attrs, group) for ins in ins_list]
+    reds, new_res = _bucket_reduce(ins_list, attrs, group)
+    return [{"Pending": red,
+             "ResidualOut": None if new_res is None else new_res[r]}
+            for r, red in enumerate(reds)]
+
+
+@register_collective(
+    "c_bucket_allreduce_await",
+    inputs=[In("Pending"), In("X", duplicable=True)],
+    outputs=[Out("Out", duplicable=True)],
+    attrs={"ring_id": 0, "use_calc_stream": True})
+def _c_bucket_allreduce_await(ins_list, attrs, group):
+    """The second half: waits on the start's reduction where it is in
+    flight and slices ``Pending`` back into the member grads. It carries
+    no payload of its own (X is read for the members' shapes)."""
+    return [{"Out": _slice_back(_landed(ins["Pending"]), ins["X"])}
+            for ins in ins_list]
 
 
 # state slots each sharded-update optimizer carries, in (StateA, StateB)

@@ -26,15 +26,16 @@ Knobs, read at a program's first data-parallel run and baked in:
 ``PADDLE_TPU_QUANT_ALLREDUCE``  ``bf16`` | ``int8`` (default off: exact)
 ``PADDLE_TPU_SHARDED_UPDATE``   ``1`` enables, ``0`` forces off (over the
                                 BuildStrategy knob either way)
-``PADDLE_TPU_BUCKET_PLAN``      ``size`` (default); ``profile`` is accepted
-                                and plans by size
+``PADDLE_TPU_BUCKET_PLAN``      ``size`` (default) | ``profile``: bucket
+                                boundaries from the saved step-profile
+                                report ``PADDLE_TPU_BUCKET_PROFILE`` names
+                                (``plan_buckets_profile``; the size plan
+                                where the report does not fit the program)
+``PADDLE_TPU_PLACEMENT_PLAN``   a searched plan (``placement/``): it decides
+                                every knob above and the schedule knobs of
+                                ``parallel/scheduling.py`` at once
 ==============================  ============================================
 
-The JAX package's profile-guided plan (``plan_buckets_profile`` over the
-report its profiler writes, ``PADDLE_TPU_BUCKET_PROFILE``), its searched
-placement plan (``PADDLE_TPU_PLACEMENT_PLAN``) and its steering registry
-are not ported: the port has no profiler that writes such a report, and
-the hand knobs above decide.
 ``resync_sharded_state`` is ``core.fusion``'s (one copy of the rule).
 """
 from __future__ import annotations
@@ -87,8 +88,9 @@ def quant_mode() -> str:
 
 
 def bucket_plan_mode() -> str:
-    """``PADDLE_TPU_BUCKET_PLAN``: ``size`` (default) or ``profile`` (the
-    size plan all the same: ``scheduling.unchanged_knobs``)."""
+    """``PADDLE_TPU_BUCKET_PLAN``: ``size`` (default: the byte-capped greedy
+    plan) or ``profile`` (boundaries chosen against the saved
+    ``profile_step`` report ``PADDLE_TPU_BUCKET_PROFILE`` names)."""
     raw = os.environ.get("PADDLE_TPU_BUCKET_PLAN", "").strip().lower()
     if raw in ("", "size", "static"):
         return "size"
@@ -96,6 +98,18 @@ def bucket_plan_mode() -> str:
         return "profile"
     raise ValueError(
         "PADDLE_TPU_BUCKET_PLAN=%r (want size or profile)" % raw)
+
+
+def load_profile_report(path: Optional[str] = None) -> Optional[Dict]:
+    """The saved step-profile report a profile plan reads (a
+    ``profile_step`` dict or a record wrapping one): ``per_bucket``
+    (measured cost against bytes) and ``backward_segments`` (measured
+    backward time by compute position). None when the path is unset or
+    unreadable or the document lacks those fields: the caller then plans
+    by size (``observability.steering.load_report``)."""
+    from ..observability import steering
+
+    return steering.load_report(path)
 
 
 def sharded_update_enabled(build_strategy=None) -> bool:
@@ -154,25 +168,51 @@ def itemsize(dtype) -> int:
 
 def maybe_rewrite_collectives(program, scope, nranks: int, data_axes,
                               build_strategy=None, multiproc=False) -> None:
-    """Engine entry point: the sharded-update pass (opt-in), then the
-    bucketing of the per-grad allreduces left, then per-bucket
-    quantization with error feedback (``scheduling``). Every pass runs
-    once a program; the knobs are read at the program's first
-    data-parallel run, and the schedule knobs the port leaves without
-    effect are warned of once."""
+    """Engine entry point: the sharded-update pass (opt-in), the bucketing
+    of the per-grad allreduces left, then the schedule shaping of
+    ``scheduling`` (the reduction spelling, per-bucket quantization with
+    error feedback, the async start / await split). Every pass runs once a
+    program; the knobs are read at the program's first data-parallel run.
+    With ``PADDLE_TPU_PLACEMENT_PLAN`` set, a searched plan
+    (``placement/``) decides all of them in place of the hand knobs. A
+    plan that does not fit is skipped whole and counted in
+    ``placement.plan_skipped{reason=}``: its mesh is not this one
+    (``mesh_mismatch``), or its sharded update cannot run on this
+    topology (``unsupported_topology``); an unreadable plan is counted by
+    ``placement.plan.active_plan`` (``unreadable``)."""
     if nranks <= 1 or not data_axes:
         return
-    quant = quant_mode()
-    if sharded_update_enabled(build_strategy) and len(data_axes) == 1 \
-            and not multiproc:
+    from .. import observability as _obs
+    from ..placement.plan import active_plan
+
+    pplan = active_plan()
+    if pplan is not None and not pplan.matches(nranks, data_axes):
+        _obs.inc("placement.plan_skipped", reason="mesh_mismatch")
+        pplan = None
+    if pplan is not None and pplan.sharded_update \
+            and (len(data_axes) != 1 or multiproc):
+        # never the bucket / strategy half without the update it was
+        # priced with
+        _obs.inc("placement.plan_skipped", reason="unsupported_topology")
+        pplan = None
+    quant = pplan.quant_mode if pplan is not None else quant_mode()
+    use_sharded = (pplan.sharded_update if pplan is not None
+                   else sharded_update_enabled(build_strategy))
+    if use_sharded and len(data_axes) == 1 and not multiproc:
         apply_sharded_weight_update(program, scope, nranks,
                                     axis=data_axes[0], quant=quant)
     resync_sharded_state(program, scope)
-    mb = bucket_mb(build_strategy)
-    plan = bucket_plan_mode()
+    if pplan is not None:
+        mb, plan, report = (pplan.bucket_mb, pplan.bucket_plan_mode,
+                            pplan.report)
+    else:
+        mb = bucket_mb(build_strategy)
+        plan = bucket_plan_mode()
+        report = load_profile_report() if plan == "profile" else None
     if mb > 0:
         bucket_allreduce_ops(program, bucket_bytes=int(mb * (1 << 20)),
-                             quant=quant, scope=scope, plan=plan)
+                             quant=quant, scope=scope, plan=plan,
+                             report=report)
     elif quant != "none":
         # quantization without coalescing: one-member bucket ops
         bucket_allreduce_ops(program, bucket_bytes=0, quant=quant,
@@ -180,13 +220,37 @@ def maybe_rewrite_collectives(program, scope, nranks: int, data_axes,
     if getattr(program, "_placement_shaped", False):
         return
     program._placement_shaped = True
-    from .scheduling import (configure_bucket_quant, quant_error_feedback,
-                             warn_unchanged_knobs)
+    from .scheduling import (async_collectives_enabled,
+                             configure_bucket_quant, quant_error_feedback,
+                             reduce_strategy_mode,
+                             schedule_async_collectives,
+                             swap_reduction_strategy)
 
-    warn_unchanged_knobs(plan)
-    if quant_error_feedback():
+    strategy = pplan.strategy if pplan is not None \
+        else reduce_strategy_mode()
+    if strategy != "ring":
+        swap_reduction_strategy(program, strategy)
+    ef = pplan.error_feedback if pplan is not None \
+        else quant_error_feedback()
+    qmodes = pplan.quant_buckets if pplan is not None else None
+    if ef or qmodes:
         configure_bucket_quant(program, scope, nranks, data_axes[0],
-                               error_feedback=True)
+                               modes=qmodes, error_feedback=ef)
+    do_async = pplan.async_collectives if pplan is not None \
+        else async_collectives_enabled()
+    if do_async:
+        schedule_async_collectives(program, report=report, scope=scope)
+    if pplan is not None:
+        program._placement_plan = pplan.summary()
+        _obs.inc("placement.plan_applied")
+    # the schedule this program got, for a job's postmortem
+    bp = getattr(program, "_bucket_plan", None) or {}
+    _obs.flight.record(
+        "parallel.schedule", nranks=int(nranks), strategy=strategy,
+        buckets=bp.get("n_buckets", 0), bucket_plan=bp.get("mode"),
+        async_split=(getattr(program, "_async_schedule", None)
+                     or {}).get("split", 0),
+        plan_digest=pplan.digest if pplan is not None else None)
 
 
 # -- bucketed allreduce -----------------------------------------------------------
@@ -236,15 +300,89 @@ def plan_buckets(items, bucket_bytes: int):
     return buckets
 
 
+# a profile-planned bucket's predicted cost stays under this share of the
+# measured backward compute left after its availability point
+PROFILE_PLAN_BUDGET_FRAC = 0.5
+
+
+def _fit_cost_model(report) -> Optional[Tuple[float, float]]:
+    """(intercept ms, ms a byte) fitted to the report's measured per-bucket
+    costs (``placement.cost_model``'s line: one point's intercept is 10%
+    of its cost, so splitting is never free)."""
+    from ..placement.cost_model import _fit_line
+
+    return _fit_line([(float(b.get("bytes") or 0),
+                       float(b.get("collective_ms") or 0))
+                      for b in report.get("per_bucket") or []])
+
+
+def plan_buckets_profile(items, report, bucket_bytes: int,
+                         compute_pos) -> Optional[List[Dict]]:
+    """Bucketing from measured timing. ``items`` is ``plan_buckets``'s
+    list; ``compute_pos(op_index)`` maps an anchor to its position in the
+    collective-free op sequence (the report's ``backward_segments``
+    coordinates, the same under any bucket plan). A bucket's predicted cost
+    (the fitted ``a + b * bytes``) stays under
+    ``PROFILE_PLAN_BUDGET_FRAC`` of the backward compute measured after
+    its availability point; grads with nothing left to hide behind merge
+    into one tail bucket a key. The byte cap and the first-consumer order
+    still bind. None when the report gives no cost model (the caller plans
+    by size)."""
+    model = _fit_cost_model(report)
+    segs = [s for s in (report.get("backward_segments") or [])
+            if isinstance(s, (list, tuple)) and len(s) == 3]
+    if model is None or not segs:
+        return None
+    icept, slope = model
+
+    def cost(nbytes):
+        return icept + slope * nbytes
+
+    def hide(pos):
+        return sum(float(ms) for _s, e, ms in segs if e > pos)
+
+    frac = PROFILE_PLAN_BUDGET_FRAC
+    buckets: List[Dict] = []
+    open_by_key: Dict = {}
+    tail_by_key: Dict = {}
+    for anchor, first_use, key, nbytes, idx in sorted(items):
+        pos = compute_pos(anchor)
+        budget = hide(pos)
+        hideable = budget > 0.0 and cost(nbytes) - icept < budget
+        store = open_by_key if hideable else tail_by_key
+        b = store.get(key)
+        if b is not None:
+            new_anchor = max(b["anchor"], anchor)
+            fits_cap = (bucket_bytes > 0
+                        and b["bytes"] + nbytes <= bucket_bytes)
+            ordered = (new_anchor + 1 <= min(b["min_use"], first_use))
+            fits_budget = (not hideable) or (
+                cost(b["bytes"] + nbytes)
+                <= frac * hide(compute_pos(new_anchor)))
+            if not (fits_cap and ordered and fits_budget):
+                b = None
+        if b is None:
+            b = {"members": [], "bytes": 0, "anchor": -1,
+                 "min_use": first_use, "key": key}
+            buckets.append(b)
+            store[key] = b
+        b["members"].append(idx)
+        b["bytes"] += nbytes
+        b["anchor"] = max(b["anchor"], anchor)
+        b["min_use"] = min(b["min_use"], first_use)
+    return buckets
+
+
 @checked_rewrite("bucket_allreduce")
 def bucket_allreduce_ops(program, bucket_bytes: int = 4 << 20,
                          quant: str = "none", scope=None,
-                         plan: str = "size") -> int:
+                         plan: str = "size", report=None) -> int:
     """Coalesce the per-grad ``c_allreduce_sum`` ops into
     ``c_bucket_allreduce`` ops at each bucket's availability point; returns
     the number of bucket ops (0: nothing done). ``bucket_bytes <= 0`` is
-    one bucket a grad (quantization without coalescing). ``plan`` is the
-    plan asked for, recorded; every plan is the size plan."""
+    one bucket a grad (quantization without coalescing). ``plan="profile"``
+    with a ``report`` chooses the boundaries by ``plan_buckets_profile``
+    (the size plan when the report was measured on another program)."""
     if getattr(program, "_allreduce_bucketed", False):
         return 0
     program._allreduce_bucketed = True
@@ -283,12 +421,35 @@ def bucket_allreduce_ops(program, bucket_bytes: int = 4 << 20,
     if not items:
         return 0
 
-    buckets = plan_buckets(items, bucket_bytes)
+    mode_used = "size"
+    buckets = None
+    if plan == "profile" and report is not None:
+        # positions in the collective-free op sequence, the report's
+        # coordinates; a report of another program shape is ignored
+        cpos = []
+        k = 0
+        for op in ops:
+            cpos.append(k)
+            if not op.type.startswith("c_"):
+                k += 1
+        if int(report.get("n_compute") or -1) == k:
+            def compute_pos(anchor):
+                if anchor < 0:
+                    return 0
+                return cpos[anchor] + (
+                    0 if ops[anchor].type.startswith("c_") else 1)
+
+            buckets = plan_buckets_profile(items, report, bucket_bytes,
+                                           compute_pos)
+            if buckets is not None:
+                mode_used = "profile"
+    if buckets is None:
+        buckets = plan_buckets(items, bucket_bytes)
     from .. import observability as _obs
 
-    _obs.inc("parallel.bucket_plan", mode="size")
+    _obs.inc("parallel.bucket_plan", mode=mode_used)
     program._bucket_plan = {
-        "requested": plan, "mode": "size",
+        "requested": plan, "mode": mode_used,
         "n_buckets": len(buckets),
         "bucket_bytes": [b["bytes"] for b in buckets],
         "anchors": [b["anchor"] for b in buckets],
@@ -450,3 +611,23 @@ def apply_sharded_weight_update(program, scope, nranks: int,
     _merge_data_axes(program, (axis,))
     _bump_version(program)
     return n_groups
+
+
+# -- steering ---------------------------------------------------------------------
+
+
+def _steer_bucket_layout(report, items=None, bucket_bytes=4 << 20,
+                         compute_pos=None, **_ctx):
+    """``steer("bucket_layout", report, items=..., compute_pos=...)``: the
+    measured bucket layout, or None where the report or the context cannot
+    drive one (the caller plans by size)."""
+    if report is None or items is None or compute_pos is None:
+        return None
+    return plan_buckets_profile(items, report, bucket_bytes, compute_pos)
+
+
+from ..observability import steering as _steering  # noqa: E402
+
+_steering.register_steerer(
+    "bucket_layout", _steer_bucket_layout,
+    "profile-guided gradient-bucket boundaries")

@@ -516,6 +516,11 @@ def _capture_decline(run: _DPRun):
     if run.step.nodes:
         return "data parallel>%s (control flow across replicas)" % \
             run.step.nodes[0].op.type
+    if isinstance(run.group, ProcessGroupAxis) and any(
+            op.type == "c_bucket_allreduce_start"
+            for _, op, _, _, _, _ in run.step.block.ops):
+        return ("c_bucket_allreduce_start (an async reduction's work "
+                "handle: not capturable)")
     if isinstance(run.group, ProcessGroupAxis) and \
             run.group.backend == "gloo":
         g_ring, g_axes = run.guards()
@@ -724,7 +729,8 @@ def run_data_parallel(core, program, scope: Scope, feed: Dict,
     elif nranks > 1:
         axis_groups = {a: AxisGroups(mesh.axis_groups([a]), devices)
                        for a in mesh.axis_names}
-        group = (AxisGroups(mesh.axis_groups(data_axes), devices)
+        group = (AxisGroups(mesh.axis_groups(data_axes), devices,
+                            [mesh.axis_groups([a]) for a in data_axes])
                  if data_axes else None)
     else:
         group, axis_groups = None, {}

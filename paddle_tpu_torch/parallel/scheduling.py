@@ -1,44 +1,55 @@
-"""Collective-schedule knobs over an already-bucketed program.
+"""Collective-schedule rewrites over an already-bucketed program.
 
-Counterpart of ``paddle_tpu/parallel/scheduling.py``:
+Counterpart of ``paddle_tpu/parallel/scheduling.py``: three
+``@checked_rewrite`` passes, the vocabulary the placement search
+(``placement/``) enumerates, each also set by a knob:
 
+- ``schedule_async_collectives`` (``PADDLE_TPU_ASYNC_COLLECTIVES=1``):
+  each ``c_bucket_allreduce`` splits into a ``c_bucket_allreduce_start``
+  at the bucket's availability point, which reduces into a ``Pending``
+  buffer, and a ``c_bucket_allreduce_await`` just before the first op
+  that touches a member grad, which slices it back. Over the replicas of
+  one process the start completes the reduction where it is issued; over
+  a ``torch.distributed`` group it issues it with ``async_op=True`` and
+  the await waits on its work handle, so the ops between the pair run
+  while the reduction is in flight. With a profile report a bucket with
+  no measured backward compute left after it stays whole.
+- ``swap_reduction_strategy`` (``PADDLE_TPU_REDUCE_STRATEGY=ring|tree|
+  two_stage``): re-spells every bucket reduction without moving an op
+  (``ops.collective_ops.strategy_psum``): ``ring`` the one rank-order
+  sum, ``tree`` a reduce-scatter and then an all-gather (the ring's bits),
+  ``two_stage`` one sum over each data axis of the mesh in turn (another
+  association of the same sum: within
+  ``analysis.contracts.reassociation_bound`` of the ring's).
 - ``configure_bucket_quant`` (``PADDLE_TPU_QUANT_ERROR_FEEDBACK=1``): the
   ``quant`` attr per bucket op and, for quantized buckets under error
   feedback, a Residual var sharded over the data axis, one rounding-error
   shard a replica.
-- ``PADDLE_TPU_REDUCE_STRATEGY=ring|tree|two_stage`` and
-  ``PADDLE_TPU_ASYNC_COLLECTIVES=1`` are accepted and leave the program as
-  it is (``unchanged_knobs``), as ``BuildStrategy``'s subsumed knobs do.
-  The replicas of one process sum in rank order whatever the spelling, so
-  tree and two-stage would give the ring's bits, and across processes they
-  would add traffic; a start / await split overlaps nothing while each
-  reduction completes where it is issued (no async work handles here).
 """
 from __future__ import annotations
 
+import bisect
 import os
-import warnings
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from ..core.dtypes import to_torch_dtype
 from ..core.tensor import LoDTensor
-from ..ops.collective_ops import QUANT_WIRE_ITEMSIZE
+from ..ops.collective_ops import QUANT_WIRE_ITEMSIZE, REDUCTION_STRATEGIES
 from .transpiler import _bump_version
 from ..analysis.contracts import checked_rewrite
 
 __all__ = [
     "reduce_strategy_mode", "async_collectives_enabled",
-    "quant_error_feedback", "configure_bucket_quant", "unchanged_knobs",
-    "warn_unchanged_knobs", "BUCKET_OP_TYPES", "REDUCTION_STRATEGIES",
+    "quant_error_feedback", "swap_reduction_strategy",
+    "configure_bucket_quant", "schedule_async_collectives",
+    "BUCKET_OP_TYPES", "REDUCTION_STRATEGIES",
 ]
 
-# ops a quant reconfiguration may touch
-BUCKET_OP_TYPES = ("c_bucket_allreduce",)
-
-# the JAX package's reduction spellings, accepted by the knob
-REDUCTION_STRATEGIES = ("ring", "tree", "two_stage")
+# ops a strategy or quant reconfiguration may touch; the await carries no
+# payload and no strategy (it slices the Pending buffer back)
+BUCKET_OP_TYPES = ("c_bucket_allreduce", "c_bucket_allreduce_start")
 
 _TRUTHY = ("1", "true", "yes", "on")
 
@@ -55,6 +66,8 @@ def reduce_strategy_mode() -> str:
 
 
 def async_collectives_enabled() -> bool:
+    """``PADDLE_TPU_ASYNC_COLLECTIVES=1``: split bucket reductions into
+    start / await pairs at a program's first data-parallel run."""
     raw = os.environ.get("PADDLE_TPU_ASYNC_COLLECTIVES", "").strip()
     return raw.lower() in _TRUTHY
 
@@ -64,33 +77,32 @@ def quant_error_feedback() -> bool:
     return raw.lower() in _TRUTHY
 
 
-def unchanged_knobs(plan: str = "size") -> List[str]:
-    """The schedule knobs set in the environment that the port accepts and
-    leaves without effect: a tree or two-stage reduction spelling, the
-    async split, and ``plan`` (``PADDLE_TPU_BUCKET_PLAN``) ``profile``,
-    which plans by size (no profiler of the port writes the report)."""
-    out = []
-    if reduce_strategy_mode() != "ring":
-        out.append("PADDLE_TPU_REDUCE_STRATEGY=" + reduce_strategy_mode())
-    if async_collectives_enabled():
-        out.append("PADDLE_TPU_ASYNC_COLLECTIVES=1")
-    if plan == "profile":
-        out.append("PADDLE_TPU_BUCKET_PLAN=profile")
-    return out
+# -- the reduction swap -----------------------------------------------------------
 
 
-_WARNED = set()
+@checked_rewrite("reduction_swap")
+def swap_reduction_strategy(program, strategy: str) -> int:
+    """Re-spell every bucket reduction with ``strategy``: attrs only, no op
+    added, removed or moved (the contract holds exactly that). Returns the
+    number of ops re-spelled."""
+    if strategy not in REDUCTION_STRATEGIES:
+        raise ValueError("unknown reduction strategy %r (want one of %s)"
+                         % (strategy, ", ".join(REDUCTION_STRATEGIES)))
+    n = 0
+    changed = False
+    for op in program.global_block().ops:
+        if op.type not in BUCKET_OP_TYPES:
+            continue
+        if op.attrs.get("strategy", "ring") != strategy:
+            op.attrs["strategy"] = strategy
+            changed = True
+        n += 1
+    if changed:
+        _bump_version(program)
+    return n
 
 
-def warn_unchanged_knobs(plan: str = "size") -> List[str]:
-    """Warn once a process for each knob ``unchanged_knobs`` names."""
-    knobs = unchanged_knobs(plan)
-    for k in knobs:
-        if k not in _WARNED:
-            _WARNED.add(k)
-            warnings.warn("%s is accepted and leaves the program unchanged"
-                          % k, stacklevel=3)
-    return knobs
+# -- per-bucket quantization and error-feedback residuals ----------------------------
 
 
 def _bucket_numel(block, scope, op) -> Optional[int]:
@@ -161,3 +173,127 @@ def configure_bucket_quant(program, scope, nranks: int, axis: str,
     if touched:
         _bump_version(program)
     return touched
+
+
+# -- the async start / await split ---------------------------------------------------
+
+
+def _measured_slack_ok(report, compute_pos, anchor_idx) -> bool:
+    """With a report: is measured backward compute left after this
+    bucket's availability point? A tail bucket (none left) stays whole."""
+    if report is None:
+        return True
+    segs = [s for s in (report.get("backward_segments") or [])
+            if isinstance(s, (list, tuple)) and len(s) == 3]
+    if not segs:
+        return True
+    pos = compute_pos[anchor_idx]
+    return any(float(ms) > 0 and end > pos for _s, end, ms in segs)
+
+
+@checked_rewrite("async_collective")
+def schedule_async_collectives(program, report=None, scope=None) -> int:
+    """Split each ``c_bucket_allreduce`` into a start / await pair: the
+    start stays at the bucket's availability point, the await lands just
+    before the first later op that touches a member grad (a reader would
+    see the unreduced value; a writer between the pair would be overwritten
+    by the await). A bucket with no room (its first toucher follows it, or
+    the report measures no backward compute after it) stays whole. Returns
+    the number of buckets split; ``program._async_schedule`` records the
+    decision."""
+    if getattr(program, "_async_scheduled", False):
+        return 0
+    program._async_scheduled = True
+    from .. import framework
+    from .collectives import _numel_and_dtype
+
+    block = program.global_block()
+    ops = block.ops
+    cand = [i for i, op in enumerate(ops) if op.type == "c_bucket_allreduce"]
+    if not cand:
+        program._async_schedule = {"split": 0, "kept": 0}
+        return 0
+    touched_at: Dict[str, List[int]] = {}
+    for j, op in enumerate(ops):
+        for nm in set(op.input_arg_names) | set(op.output_arg_names):
+            touched_at.setdefault(nm, []).append(j)
+    # positions in the collective-free op sequence, the report's
+    # coordinates; a report of another program shape is ignored
+    compute_pos = []
+    k = 0
+    for op in ops:
+        compute_pos.append(k)
+        if not op.type.startswith("c_"):
+            k += 1
+    if report is not None and int(report.get("n_compute") or -1) != k:
+        report = None
+
+    split = kept = 0
+    replace_at: Dict[int, object] = {}  # bucket index -> its start op
+    before: Dict[int, List] = {}  # op index -> the awaits placed before it
+    tail: List = []  # awaits with no later toucher
+    for i in cand:
+        op = ops[i]
+        members = op.input("X")
+        first_use = len(ops)
+        for g in members:
+            c = touched_at.get(g, ())
+            kk = bisect.bisect_right(c, i)
+            if kk < len(c):
+                first_use = min(first_use, c[kk])
+        total, dtype, unknown = 0, None, False
+        for g in members:
+            n_el, dt = _numel_and_dtype(block, scope, g)
+            if n_el is None:
+                unknown = True
+                break
+            total += n_el
+            dtype = dtype or dt
+        if (unknown or first_use <= i + 1
+                or not _measured_slack_ok(report, compute_pos, i)):
+            kept += 1
+            continue
+        pname = "bucket_ar_pending_%d" % op._id
+        pv = block.create_var(name=pname, shape=(int(total),),
+                              dtype=dtype or "float32")
+        pv.stop_gradient = True
+        s_in = {"X": list(members)}
+        s_out = {"Pending": [pname]}
+        if op.input("Residual"):
+            s_in["Residual"] = list(op.input("Residual"))
+            s_out["ResidualOut"] = list(op.output("ResidualOut"))
+        start = framework.Operator(
+            block, "c_bucket_allreduce_start", s_in, s_out,
+            {"ring_id": op.attrs.get("ring_id", 0),
+             "quant": op.attrs.get("quant", "none"),
+             "strategy": op.attrs.get("strategy", "ring"),
+             "use_calc_stream": True})
+        start._id = program._next_op_id()
+        await_op = framework.Operator(
+            block, "c_bucket_allreduce_await",
+            {"Pending": [pname], "X": list(members)},
+            {"Out": list(members)},
+            {"ring_id": op.attrs.get("ring_id", 0),
+             "use_calc_stream": True})
+        await_op._id = program._next_op_id()
+        replace_at[i] = start
+        if first_use < len(ops):
+            before.setdefault(first_use, []).append(await_op)
+        else:
+            tail.append(await_op)
+        split += 1
+    if split:
+        new_ops = []
+        for i, op in enumerate(ops):
+            new_ops.extend(before.get(i, ()))
+            new_ops.append(replace_at.get(i, op))
+        new_ops.extend(tail)
+        block.ops = new_ops
+        _bump_version(program)
+    program._async_schedule = {"split": split, "kept": kept}
+    from .. import observability as _obs
+
+    _obs.inc("parallel.async_buckets", split, state="split")
+    if kept:
+        _obs.inc("parallel.async_buckets", kept, state="kept")
+    return split

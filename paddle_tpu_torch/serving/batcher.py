@@ -7,8 +7,8 @@ arrivals into one feed, padded up to a fixed ladder of batch sizes
 ladder bounds the set of shapes the kernels see, which warmup covers
 before traffic arrives; results are sliced back per request so callers
 never see the padding. ``plan_ladder`` fits a ladder to observed
-real-rows-per-batch; the JAX package's steering hook that calls it waits
-for the rest of its observability (ROADMAP queue 1 item 11).
+real-rows-per-batch; the ``serving_ladder`` steerer calls it with the rows
+a replica's traffic gave its batches.
 """
 from __future__ import annotations
 
@@ -242,3 +242,26 @@ def plan_ladder(max_batch_size: int, batch_rows: Sequence[int],
             ladder = tuple(sorted(set(ladder) | {max_batch_size}))
     BatchPolicy(max_batch_size=max_batch_size, ladder=ladder)  # validate
     return ladder
+
+
+def _steer_serving_ladder(report, max_batch_size=None,
+                          batch_rows=None, max_rungs=6, **_ctx):
+    """``steer("serving_ladder", report, max_batch_size=...,
+    batch_rows=...)``: the report may be None (this steerer reads live
+    traffic, not a step profile). The plan is the ladder tuple, which
+    ``BatchPolicy(ladder=...)`` applies."""
+    if max_batch_size is None:
+        raise ValueError("serving_ladder steerer needs "
+                         "max_batch_size=<cap> in context")
+    if not batch_rows:
+        raise ValueError("serving_ladder steerer needs "
+                         "batch_rows=<observed real rows per batch>")
+    return plan_ladder(int(max_batch_size), batch_rows,
+                       max_rungs=int(max_rungs))
+
+
+from ..observability import steering as _steering  # noqa: E402
+
+_steering.register_steerer(
+    "serving_ladder", _steer_serving_ladder,
+    "bucket ladder replanned from the rows of observed batches")

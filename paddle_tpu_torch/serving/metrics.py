@@ -172,3 +172,9 @@ class EngineMetrics:
 
     def snapshot(self) -> dict:
         return _snapshot(self._own)
+
+    def samples(self, name: str) -> list:
+        """This engine's values of histogram ``name`` (its reservoir): the
+        real rows of each batch for ``serving.batch_size``, which the
+        ``serving_ladder`` steerer fits a ladder to."""
+        return self._own.histogram(name).samples()

@@ -88,6 +88,11 @@ def dygraph_losses(env, where, params):
     return losses
 
 
+# the collective ops of the static program after its first run (the
+# schedule knobs of the environment shape them)
+STATIC_C_OPS = []
+
+
 def static_losses(env, where, params):
     rank, nranks = env.local_rank, env.nranks
     batch = FULL_BATCH // nranks
@@ -120,6 +125,8 @@ def static_losses(env, where, params):
     for p in main.all_parameters():
         params["static_" + p.name] = np.array(
             scope.find_var(p.name).get_tensor())
+    STATIC_C_OPS[:] = [op.type for op in main.global_block().ops
+                       if op.type.startswith("c_")]
     return losses
 
 
@@ -131,6 +138,7 @@ def main():
     result = {"rank": env.local_rank, "nranks": env.nranks,
               "losses": dygraph_losses(env, where, params),
               "static_losses": static_losses(env, where, params),
+              "static_c_ops": STATIC_C_OPS,
               "counters": ce.counters(), "declines": ce.declines()}
     if env.nranks > 1:
         import torch.distributed as dist

@@ -22,7 +22,7 @@ import torch
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.core.tensor import LoDTensor
-from paddle_tpu_torch.parallel import collectives, scheduling
+from paddle_tpu_torch.parallel import collectives
 
 KNOBS = ("PADDLE_TPU_BUCKET_MB", "PADDLE_TPU_QUANT_ALLREDUCE",
          "PADDLE_TPU_SHARDED_UPDATE", "PADDLE_TPU_BUCKET_PLAN",
@@ -499,10 +499,19 @@ def test_bucket_plan_knob_parsing(monkeypatch):
 
 
 def test_profile_plan_bit_for_bit(tmp_path):
-    """``PADDLE_TPU_BUCKET_PLAN=profile`` with a well-formed report is
-    accepted, warned of, and plans by size: the same program and bits as
-    the default plan, and bit for bit with the per-grad path."""
-    report = {"n_compute": 12, "backward_segments": [[4, 12, 10.0]],
+    """``PADDLE_TPU_BUCKET_PLAN=profile`` with a report shaped for the
+    model (its compute positions from the plain program) plans from the
+    measurement: its cost line is steep enough that one bucket of all four
+    grads passes the hide budget, so the plan splits them where the size
+    plan makes one bucket, and stays bit for bit with the per-grad path."""
+    from paddle_tpu_torch.observability.profiler import classify_ops
+
+    main, _, _ = _build(_momentum, (32, 10), 8, 16)
+    phases = classify_ops(main.global_block())
+    fwd_end = sum(1 for p in phases if p == "forward")
+    bwd_end = sum(1 for p in phases if p in ("forward", "backward"))
+    report = {"n_compute": len(phases),
+              "backward_segments": [[fwd_end, bwd_end, 10.0]],
               "per_bucket": [{"bytes": 256, "collective_ms": 1.0}]}
     rpt = tmp_path / "report.json"
     rpt.write_text(json.dumps(report))
@@ -510,13 +519,13 @@ def test_profile_plan_bit_for_bit(tmp_path):
     base_loss, base, t0 = _run_mesh({"PADDLE_TPU_BUCKET_MB": "0"},
                                     _momentum, snap)
     _, _, t_default = _run_mesh({}, _momentum, snap)
-    with pytest.warns(UserWarning, match="PADDLE_TPU_BUCKET_PLAN=profile"):
-        scheduling._WARNED.discard("PADDLE_TPU_BUCKET_PLAN=profile")
-        prof_loss, prof_state, t1 = _run_mesh(
-            {"PADDLE_TPU_BUCKET_PLAN": "profile",
-             "PADDLE_TPU_BUCKET_PROFILE": str(rpt)}, _momentum, snap)
+    prof_loss, prof_state, t1 = _run_mesh(
+        {"PADDLE_TPU_BUCKET_PLAN": "profile",
+         "PADDLE_TPU_BUCKET_PROFILE": str(rpt)}, _momentum, snap)
     assert t0.count("c_allreduce_sum") == 4
-    assert t1 == t_default and "c_allreduce_sum" not in t1
+    assert t_default.count("c_bucket_allreduce") == 1
+    assert "c_allreduce_sum" not in t1
+    assert t1.count("c_bucket_allreduce") >= 2
     assert prof_loss == base_loss
     _assert_params_equal(base, prof_state)
 
@@ -599,9 +608,11 @@ def test_collective_op_matches_the_jax_op(op_type, attrs):
     {"PADDLE_TPU_REDUCE_STRATEGY": "two_stage"},
 ], ids=["async", "tree", "two_stage"])
 def test_schedule_shaping_is_bit_for_bit(env, monkeypatch):
-    """The async split and the tree and two-stage spellings are accepted,
-    warned of, and leave the bucketed program as it is: the same op list
-    as without the knob, bit for bit with the per-grad path."""
+    """The async split and the tree and two-stage spellings reshape the
+    bucketed program (start / await pairs; each bucket op's ``strategy``)
+    and stay bit for bit with the per-grad path over one data axis: the
+    split reduces the same flat sum, the tree's shards are the rank-order
+    sums of their slices, and two stages over one axis are the ring."""
     snap = {}
     base_loss, base, _ = _run_mesh({"PADDLE_TPU_BUCKET_MB": "0"},
                                    _momentum, snap)
@@ -609,12 +620,17 @@ def test_schedule_shaping_is_bit_for_bit(env, monkeypatch):
                               _momentum, snap)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    (knob,) = scheduling.unchanged_knobs()
-    scheduling._WARNED.discard(knob)
-    with pytest.warns(UserWarning, match=knob):
-        got_loss, got, t = _run_mesh({"PADDLE_TPU_BUCKET_MB": "0.00001"},
-                                     _momentum, snap)
-    assert t == t_plain and set(t) == {"c_bucket_allreduce"}
+    got_loss, got, t = _run_mesh({"PADDLE_TPU_BUCKET_MB": "0.00001"},
+                                 _momentum, snap)
+    if "PADDLE_TPU_ASYNC_COLLECTIVES" in env:
+        assert t.count("c_bucket_allreduce_start") >= 2
+        assert t.count("c_bucket_allreduce_await") == \
+            t.count("c_bucket_allreduce_start")
+        # a bucket whose first reader follows it stays whole
+        assert t.count("c_bucket_allreduce") + \
+            t.count("c_bucket_allreduce_start") == len(t_plain)
+    else:
+        assert t == t_plain and set(t) == {"c_bucket_allreduce"}
     assert got_loss == base_loss
     _assert_params_equal(base, got)
 

@@ -183,7 +183,8 @@ def test_dgc_clip_by_norm_gated(step):
         np.testing.assert_allclose(p["Out"], j["Out"], rtol=UPDATE_RTOL)
 
 
-def dgc_mlp(pkg, batch, sparsity=(0.75,), rampup_begin=0):
+def dgc_mlp(pkg, batch, sparsity=(0.75,), rampup_begin=0,
+            learning_rate=0.05):
     """``TestDGCMomentum``'s regression net, widened by a hidden layer."""
     main, startup = pkg.Program(), pkg.Program()
     with pkg.unique_name.guard(), pkg.program_guard(main, startup):
@@ -193,7 +194,7 @@ def dgc_mlp(pkg, batch, sparsity=(0.75,), rampup_begin=0):
         pred = pkg.layers.fc(h, 1)
         loss = pkg.layers.mean(pkg.layers.square_error_cost(pred, y))
         pkg.optimizer.DGCMomentumOptimizer(
-            learning_rate=0.05, momentum=0.9,
+            learning_rate=learning_rate, momentum=0.9,
             rampup_begin_step=rampup_begin, rampup_step=4,
             sparsity=list(sparsity)).minimize(loss)
     return main, startup, loss
@@ -244,16 +245,29 @@ def assert_state_close(jstate, pstate):
                                        atol=PARAM_ATOL, err_msg=name)
 
 
+# the one-device run's rate: at 0.05 with momentum 0.9 this net's loss
+# rises at some starts of the JAX startup's RNG (3 of seeds 0-23 end
+# above their first loss; over 24 steps it diverges at every start); at
+# 0.02 the mean of the last three losses falls below that of the first
+# three at all 24 (``starts()``, this file's script mode)
+DGC_RATE = 0.02
+
+
 def test_dgc_trains_as_the_jax_package_on_one_device():
-    """12 steps over the rampup (begin 1, 4 steps over SPARSITY)."""
+    """12 steps over the rampup (begin 1, 4 steps over SPARSITY) from a
+    seeded JAX startup. Each step's batch is new, so single losses swing
+    with the batch: the loss falls when the mean of the last three is
+    below the mean of the first three."""
     feeds = dgc_feeds(12, 16)
     (jl, js), (pl, ps), _ = LS.train_both(
         lambda pkg: (lambda m, s, l: (m, s, [l]))(
-            *dgc_mlp(pkg, 16, SPARSITY, 1)), feeds)
+            *dgc_mlp(pkg, 16, SPARSITY, 1, learning_rate=DGC_RATE)),
+        feeds, jax_seed=3)
     for j, p in zip(jl, pl):
         np.testing.assert_allclose(p[0], j[0], rtol=LOSS_RTOL)
     assert_state_close(js, ps)
-    assert float(np.mean(pl[-1][0])) < float(np.mean(pl[0][0]))
+    losses = [float(np.mean(p[0])) for p in pl]
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]), losses
 
 
 def test_dgc_over_four_replicas_matches_the_jax_mesh(monkeypatch):
@@ -266,6 +280,7 @@ def test_dgc_over_four_replicas_matches_the_jax_mesh(monkeypatch):
     jmain, jstart, jloss = dgc_mlp(jfluid, 32, SPARSITY, 1)
     pmain, _, ploss = dgc_mlp(fluid, 32, SPARSITY, 1)
     jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
+    jexe._core.rng.seed = 9
     with jfluid.scope_guard(jscope):
         jexe.run(jstart)
         pscope = fluid.Scope()
@@ -329,3 +344,31 @@ def test_fused_optimizer_folds_the_dgc_sgd_ops(monkeypatch):
         np.testing.assert_array_equal(a[0], b[0])
     for k, v in runs["0"][1].items():
         np.testing.assert_array_equal(runs["flat"][1][k], v, err_msg=k)
+
+
+def starts(rates=(0.05, DGC_RATE), seeds=range(24), steps=12):
+    """The one-device run's claim at each start of the JAX executor's RNG:
+    (rate, seed, mean of the first three losses, of the last three, the
+    first and the last loss), the port's, as the test trains it
+    (``steps=24`` shows the divergence at 0.05)."""
+    feeds = dgc_feeds(steps, 16)
+    out = []
+    for rate in rates:
+        for seed in seeds:
+            _, (pl, _), _ = LS.train_both(
+                lambda pkg: (lambda m, s, l: (m, s, [l]))(
+                    *dgc_mlp(pkg, 16, SPARSITY, 1, learning_rate=rate)),
+                feeds, jax_seed=seed)
+            losses = [float(np.mean(p[0])) for p in pl]
+            out.append((rate, seed, float(np.mean(losses[:3])),
+                        float(np.mean(losses[-3:])), losses[0], losses[-1]))
+    return out
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_dgc.py
+    for rate, seed, first, last, l0, l1 in starts():
+        print("rate %g seed %2d: first three %.3f, last three %.3f (%s); "
+              "first %.3f, last %.3f (%s)"
+              % (rate, seed, first, last, "falls" if last < first
+                 else "RISES", l0, l1, "falls" if l1 < l0 else "rises"))

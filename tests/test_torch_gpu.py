@@ -127,6 +127,15 @@ block's own hit rows (the blocks together the dense grad within 1e-6,
 two runs the same bits); a dp x mp step's capture replays its eager step
 bit for bit from the same state; a pipelined step runs eagerly and
 counts its decline, ``pipeline (eager stages)``, once.
+
+Placement and steering on the card (slice 23): over two replicas of a
+narrow gpt the tree spelling, the async split and the profile bucket plan
+(from the card's own profile_step report) train the ring's losses bit for
+bit; a tree that skips its all-gather leaves the replicas apart; the
+card's report fits the search's cost model and the winner applies through
+PADDLE_TPU_PLACEMENT_PLAN; a canary serves the serving_ladder proposal's
+answers within 1e-5 of the incumbent's and audits its decision; the lazy
+key-cap policy stops recaptures.
 """
 import gc
 import threading
@@ -3424,3 +3433,208 @@ def test_slice22_sp_layer_norm_over_s_x_d_against_the_dense_run(cuda):
     limit = SP_PARAM_ATOL_PER_STEP * len(feeds)
     assert all(g <= limit for g in gaps.values()), {
         n: g for n, g in gaps.items() if g > limit}
+
+
+# -- slice 23: placement, steering and the canary on the card ------------------
+
+_SLICE23_KNOBS = ("PADDLE_TPU_BUCKET_MB", "PADDLE_TPU_SHARDED_UPDATE",
+                  "PADDLE_TPU_QUANT_ALLREDUCE", "PADDLE_TPU_FUSED_OPTIMIZER",
+                  "PADDLE_TPU_REDUCE_STRATEGY",
+                  "PADDLE_TPU_ASYNC_COLLECTIVES", "PADDLE_TPU_BUCKET_PLAN",
+                  "PADDLE_TPU_BUCKET_PROFILE", "PADDLE_TPU_PLACEMENT_PLAN")
+
+
+def _slice23_run(env, init=None, steps=3, profile=False, plant=None):
+    """The narrow gpt over [CUDAPlace(0)] * 2 under ``env``: losses, the
+    program, the profile report (``profile``); the replicas' parameters
+    compared after each step (a difference raises)."""
+    import contextlib
+    import os
+
+    from paddle_tpu_torch.observability import profiler as prof
+    from paddle_tpu_torch.parallel import engine
+
+    for k in _SLICE23_KNOBS:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        main, startup, loss, _ = gpt.build_gpt_long(1, 64, 128, 2, 2, 128,
+                                                    seed=23, use_bf16=False)
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        if init is not None:
+            fluid.io.scope_from_numpy(scope, init, fluid.CUDAPlace(0))
+        places = [fluid.CUDAPlace(0)] * 2
+        cp = fluid.CompiledProgram(main).with_data_parallel(loss.name,
+                                                            places=places)
+        feed = gpt.random_batch(np.random.RandomState(23), 2, 64, 128)
+        losses = []
+        with (plant() if plant else contextlib.nullcontext()):
+            for _ in range(steps):
+                (out,) = exe.run(cp, feed=feed, fetch_list=[loss],
+                                 scope=scope)
+                losses.append(np.asarray(out).copy())
+                for p in main.all_parameters():
+                    a, b = engine.replica_values(exe, p.name)
+                    if not torch.equal(a, b):
+                        raise AssertionError("replicas differ: " + p.name)
+        rep = prof.profile_step(main, scope, feed, mesh=places) \
+            if profile else None
+        exe.close()
+        return losses, main, rep
+    finally:
+        for k in _SLICE23_KNOBS:
+            os.environ.pop(k, None)
+
+
+def _slice23_init():
+    main, startup, _, _ = gpt.build_gpt_long(1, 64, 128, 2, 2, 128, seed=23,
+                                             use_bf16=False)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {p.name: np.array(scope.find_var(p.name).get_tensor())
+            for p in main.all_parameters()}
+    exe.close()
+    return init
+
+
+def test_slice23_spellings_and_the_split_give_the_ring_s_bits(cuda,
+                                                              tmp_path):
+    """Over two replicas on the card, the tree spelling, the async split
+    and the profile bucket plan (from the card's own profile_step report)
+    train the ring's 4 MB-bucket losses bit for bit, the replicas bitwise
+    after every step."""
+    import json
+
+    init = _slice23_init()
+    base, _, rep = _slice23_run({"PADDLE_TPU_BUCKET_MB": "0.01"}, init,
+                                profile=True)
+    path = tmp_path / "report.json"
+    path.write_text(json.dumps(rep, default=str))
+    for env, check in (
+            ({"PADDLE_TPU_REDUCE_STRATEGY": "tree"},
+             lambda m: {op.attrs["strategy"] for op in m.global_block().ops
+                        if op.type == "c_bucket_allreduce"} == {"tree"}),
+            ({"PADDLE_TPU_ASYNC_COLLECTIVES": "1"},
+             lambda m: m._async_schedule["split"] >= 1),
+            ({"PADDLE_TPU_BUCKET_PLAN": "profile",
+              "PADDLE_TPU_BUCKET_PROFILE": str(path)},
+             lambda m: m._bucket_plan["mode"] == "profile")):
+        got, main, _ = _slice23_run(dict(env, PADDLE_TPU_BUCKET_MB="0.01"),
+                                    init)
+        assert check(main), env
+        for a, b in zip(got, base):
+            assert np.array_equal(a, b), env
+
+
+def test_slice23_a_tree_without_its_all_gather_leaves_the_replicas_apart(
+        cuda):
+    import chip_smoke
+
+    with pytest.raises(AssertionError, match="replicas differ"):
+        _slice23_run({"PADDLE_TPU_REDUCE_STRATEGY": "tree"}, _slice23_init(),
+                     plant=chip_smoke.tree_without_gather)
+
+
+def test_slice23_a_card_report_fits_the_search_and_the_plan_applies(
+        cuda, tmp_path, monkeypatch):
+    """profile_step over the card's mesh fits the cost model (provenance
+    ``fitted``); the winner, saved and named by PADDLE_TPU_PLACEMENT_PLAN,
+    is the plan the engine records, its losses within 1e-5 of the ring's
+    (bitwise unless it compresses the payload or shards the update)."""
+    from paddle_tpu_torch import placement
+
+    init = _slice23_init()
+    base, _, rep = _slice23_run({"PADDLE_TPU_BUCKET_MB": "4"}, init,
+                                profile=True)
+
+    def build():
+        main, _, loss, _ = gpt.build_gpt_long(1, 64, 128, 2, 2, 128,
+                                              seed=23, use_bf16=False)
+        return main, loss.name
+
+    plan, audit = placement.search_placement(build, 2, report=rep)
+    assert audit["cost_provenance"] == "fitted"
+    assert plan.cost_provenance == "fitted" and plan.predicted_step_ms > 0
+    path = str(tmp_path / "plan.json")
+    placement.save_plan(plan, path)
+    got, main, _ = _slice23_run({"PADDLE_TPU_PLACEMENT_PLAN": path}, init)
+    assert main._placement_plan["plan_digest"] == plan.digest
+    np.testing.assert_allclose(np.mean(got, 1), np.mean(base, 1), rtol=1e-5)
+
+
+def test_slice23_canary_on_the_card_serves_the_proposal_s_answers(
+        cuda, tmp_path):
+    """A narrow encoder served on the card through the incumbent ladder
+    and the serving_ladder steerer's proposal fitted to its batch rows:
+    the proposal's answers within 1e-5 of the incumbent's scale, and
+    run_canary's decision audited (the pointer installed only on a
+    promotion)."""
+    from paddle_tpu_torch.observability import canary, steering
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    from paddle_tpu_torch.serving import metrics as sm
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[-1, 32], dtype="float32")
+        y = fluid.layers.fc(fluid.layers.fc(x, 64, act="relu"), 16)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        fluid.io.save_inference_model(str(tmp_path / "m"), ["x"], [y], exe,
+                                      main_program=main)
+    pred = create_paddle_predictor(AnalysisConfig(str(tmp_path / "m")))
+    rng = np.random.RandomState(23)
+    reqs = [{"x": rng.rand(1, 32).astype("float32")} for _ in range(60)]
+    sizes = [1 + i % 3 for i in range(30)]
+
+    def serve(ladder):
+        eng = ServingEngine(pred, ServingConfig(max_batch_size=8,
+                                                ladder=ladder))
+        eng.start()
+        outs, lat, i = [], [], 0
+        for k in sizes:
+            futs = [eng.submit(f) for f in reqs[i:i + k]]
+            i += k
+            outs += [next(iter(f.result(timeout=60).values())) for f in futs]
+        rows = eng.metrics.samples(sm.BATCH_SIZE)
+        st = eng.stats()
+        eng.stop()
+        waste = float(st["serving.padding_waste"])
+        rec = {"extras": {"s": {"serving_padding_waste_frac":
+                                waste / (waste + i)}}}
+        return outs, rows, rec
+
+    inc_outs, rows, inc_rec = serve(None)
+    ladder = steering.steer("serving_ladder", None, max_batch_size=8,
+                            batch_rows=rows)
+    got = {}
+
+    def measure(plan):
+        got["outs"], _, rec = serve(tuple(plan))
+        return rec
+
+    audit = canary.AuditTrail(str(tmp_path))
+    store = canary.PlanStore(str(tmp_path), "serving_ladder")
+    dec = canary.run_canary({"plan": list(ladder),
+                             "steerer": "serving_ladder"}, inc_rec, measure,
+                            plan_store=store, audit=audit)
+    entry = audit.entries()[-1]
+    assert entry["plan_digest"] == dec.plan_digest
+    assert (store.active_digest() == dec.plan_digest) == dec.promoted
+    scale = max(float(np.abs(o).max()) for o in inc_outs)
+    for a, b in zip(got["outs"], inc_outs):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * scale)
+
+
+def test_slice23_the_lazy_policy_stops_recaptures_on_the_card(cuda):
+    """A lazy dygraph MLP fed 8 batch sizes under a key cap of 4 recompiles
+    every flush; the lazy_policy plan doubles the cap, and after it the
+    keys capture once and replay: no recompile, no capture."""
+    import chip_smoke
+
+    plan, cap, before, after = chip_smoke.lazy_policy_check(fluid)
+    assert cap == 8 and plan["prev_cap"] == 4
+    assert before["lazy.recompiles"] == 16 and before["lazy.cache_hits"] == 0
+    assert after["lazy.recompiles"] == 0 and after["lazy.captures"] == 0
+    assert after["lazy.replays"] == 16

@@ -674,10 +674,11 @@ def test_a_while_body_reading_its_carries_verifies_clean():
 
 
 def test_a_block_no_op_runs_is_not_verified():
-    """An inference save whose prune dropped the ``while`` (both packages
-    prune it when the loop rewrites the fetch target) leaves a body no op
-    runs: the port's verifier names it with a warning and verifies the
-    rest, where the JAX verifier flags the dead body's reads."""
+    """A program whose ``while`` was taken out leaves a body no op runs
+    (the JAX package's inference save does that when the loop rewrites
+    the fetch target; the port's save keeps the loop): the port's
+    verifier names it with a warning and verifies the rest, where the JAX
+    verifier flags the dead body's reads."""
     import test_torch_predictor_ir as PI
 
     main, _, _ = PI._while_program(fluid)

@@ -282,6 +282,55 @@ def test_a_program_with_sub_blocks_runs_as_saved(tmp_path):
                                   off.run(feed)[0].data)
 
 
+def test_a_saved_while_that_rewrites_the_fetch_answers_as_unsaved(
+        tmp_path, monkeypatch):
+    """``_while_program``'s fetch ``acc`` is rewritten by the loop's body.
+    The port's save keeps the ``while`` and what it reads, so the
+    reloaded model answers bitwise as the unsaved program does (2h + 3h).
+    The JAX package's save keeps the ops up to ``acc``'s first writer
+    only: its reloaded model has no ``while`` and answers 2h (loaded with
+    its verifier off, which refuses the dead body's reads)."""
+    feed = {"x": np.arange(8, dtype="float32").reshape(2, 4) - 3.5}
+    main, startup, acc = _while_program(fluid)
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    (want,) = exe.run(main, feed=feed, fetch_list=[acc], scope=scope)
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(str(tmp_path / "port"), ["x"], [acc],
+                                      exe, main_program=main)
+        prog, feeds, fetches = fluid.io.load_inference_model(
+            str(tmp_path / "port"), exe)
+        (got,) = exe.run(prog, feed=feed, fetch_list=fetches)
+    assert "while" in [op.type for op in prog.global_block().ops]
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    for ir_optim in (True, False):
+        np.testing.assert_array_equal(
+            _port(str(tmp_path / "port"), ir_optim).run(feed)[0].data,
+            np.asarray(want))
+    # the JAX package's save of the same program from the same weights
+    jmain, jstartup, jacc = _while_program(jfluid)
+    jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
+    jexe.run(jstartup, scope=jscope)
+    for v in jmain.global_block().vars.values():
+        if v.persistable and scope.find_var(v.name) is not None:
+            jscope.var(v.name).get_tensor()._array = jnp.asarray(
+                np.asarray(scope.find_var(v.name).get_tensor()))
+    (jwant,) = jexe.run(jmain, feed=feed, fetch_list=[jacc], scope=jscope)
+    np.testing.assert_allclose(np.asarray(jwant), np.asarray(want),
+                               rtol=1e-6)
+    monkeypatch.setenv("PADDLE_TPU_VERIFY_IR", "0")
+    with jfluid.scope_guard(jscope):
+        jfluid.io.save_inference_model(str(tmp_path / "jax"), ["x"], [jacc],
+                                       jexe, main_program=jmain)
+        jprog, _, jfetches = jfluid.io.load_inference_model(
+            str(tmp_path / "jax"), jexe)
+        (jgot,) = jexe.run(jprog, feed=feed, fetch_list=jfetches)
+    assert "while" not in [op.type for op in jprog.global_block().ops]
+    h = np.asarray(jwant) / 5.0
+    np.testing.assert_allclose(np.asarray(jgot), 2.0 * h, rtol=1e-6)
+
+
 # -- tests/test_serving.py's zero-copy cases, through the port --------------
 
 def _build_predictor(tmpdir, dim=6, classes=3):

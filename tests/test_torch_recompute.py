@@ -316,7 +316,8 @@ def test_gradients_matches_the_jax_package():
     pmain, _, _ = _gradients_program(fluid)
     assert LS.op_seq(pmain) == LS.op_seq(jmain)
     feed = {"x": np.random.RandomState(2).randn(4, 3).astype("float32")}
-    (j, _), (p, _), _ = LS.train_both(_gradients_program, [feed])
+    (j, _), (p, _), _ = LS.train_both(_gradients_program, [feed],
+                                    jax_seed=37)
     assert len(p[0]) == 3
     _assert_grads_close(p[0], j[0], 1e-5)
 
