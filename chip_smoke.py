@@ -610,17 +610,39 @@ lines each:
    doubling a cap of 4 under 8 batch sizes (no recapture after it);
    phase 58's two-rank job, run with a metrics dir, merged into one
    trace and read by tools/torch_ft_timeline.py;
-67. one JSON line {"kernels": [...]} with each kernel's launches on the
+67. the parameter server in sync mode: bench.py's Wide&Deep at full
+   width, its 26 tables row-sliced over 2 pservers (CPU processes), 2
+   trainers on the card, through paddle_tpu_torch.distributed.launch
+   (--server_script, --pserver_endpoints, --pserver_shards); 4 rounds
+   held against the untranspiled program in this process on the card
+   (sparse tables, the grad of the trainers' summed half-batch losses,
+   the servers' start); each trainer's first round, loss and pushes,
+   against the untranspiled program at its half batch on the rows it
+   pulled, and every pushed row on its server after the last round,
+   with its Adam moments and the beta powers, against a replay of the
+   recorded pushes, which must fail with one push left out; step ms,
+   examples/s, rows pulled and pushed, RPC bytes and host copies a
+   trainer step, the card's idle share of a profiled step; K7 launched in
+   each trainer;
+68. the same model over 2 async pservers through the Communicator, each
+   trainer's InMemoryDataset globally shuffled between the trainers and
+   trained by train_from_dataset (every record kept once), with the
+   launcher's serving role beside it (2 replicas of phase 4's BERT-base
+   behind a FleetRouter, 8 requests at once within 1e-4 of this process's
+   predictor); then geo-SGD in this process, its Adam ops folded into
+   K4 (once a step) and its deltas shipped to an in-process pserver,
+   and K4 at that path's flat size;
+69. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside, the dygraph, recipe, seq2seq, while,
    sentiment, book_*, bert_proto, checkpoint, rnn_search, serving_ir,
    serving_http, resnet_infer, decode_http, fleet_generate,
    control_flow, dygraph_deploy, dp_*, hybrid_*, profiled_gpt, dgc,
-   dgc_dp, placement and steering paths too; hybrid_sp counts the sp
-   mesh's steps alone: its ring blocks are torch.matmul, and the
+   dgc_dp, placement, steering and ps_* paths too; hybrid_sp counts the
+   sp mesh's steps alone: its ring blocks are torch.matmul, and the
    one-replica oracle's K1-K3 launches are printed in phase 59's line
    only), error, times and bound, P1 (graph_conditional, the port's own
    kernel) among them;
-68. the last line: {"ok": true, "device": {...}}.
+70. the last line: {"ok": true, "device": {...}}.
 
 Phases 43-45 run the book's scripts as the book does, with those knobs
 unset (phase 45 sets PADDLE_TPU_FUSED_OPTIMIZER for its SGD twins). Every
@@ -11107,6 +11129,409 @@ def phase_steering(fluid, support, mp_metrics_dir=None):
                     "lazy_cap": cap, "merge": merge, "phase_s": phase_s}
 
 
+# -- phases 67-68: the parameter server -----------------------------------------
+#
+# phase 67: bench.py's Wide&Deep at full width, its 26 tables row-sliced over
+# 2 pservers (CPU processes, as their script asks), 2 trainers on the card,
+# through the port's launcher in sync mode: a few rounds held against the
+# untranspiled program run in this process on the card over the global
+# batch, from the servers' start (pulled by trainer 0 into init.npz); each
+# trainer's first round, loss and pushes, against the untranspiled program
+# at its half batch on the rows it pulled, and every pushed row on its server
+# after the last round, with its Adam moments, against a replay of the
+# trainers' recorded pushes (the losses see few pushed rows)
+#
+# phase 68: the same model over 2 async pservers through the Communicator,
+# each trainer's InMemoryDataset globally shuffled between the two trainers
+# and trained through train_from_dataset, and beside them the launcher's
+# serving role: 2 replicas of phase 4's BERT-base behind a FleetRouter; then
+# geo-SGD in this process, its Adam ops folded into K4 by bench.py's knobs
+PS_CFG = dict(batch=2048, vocab=100000, slots=26, dense_dim=13, embed=16,
+              hidden=[64, 32], lr=1e-3)
+PS_STEPS = 4
+PS_TIMEOUT = 600
+# the trainers' mean loss a round against the global batch's: the round
+# protocol applies the dense grads' sum once a round, as the reference's
+# grad of the trainers' summed half-batch losses does, but a table takes
+# each trainer's push as its own Adam step, in arrival order, and a push
+# is round-free (as in pslib and the JAX package): another trainer's may
+# land before a pull, in the first round too. Two Adam steps of a half
+# grad where the reference takes one of the sum (at lr 1e-3 over 4 rounds:
+# 4.5e-6 to 5.4e-6 on an H100, up to 8.2e-5 at the narrow width on the CPU)
+PS_MEAN_RTOL = 2e-4
+# each trainer's first round (its loss; its merged pushes, largest error
+# over the largest grad) against the untranspiled program at its half
+# batch on the rows it pulled: the same rows and batch, float32 sums in
+# another order
+PS_FIRST_RTOL = 1e-5
+PS_GRAD_RTOL = 1e-4
+# the servers' pushed rows against the replay (both on the host, the same
+# float32 Adam): a thousandth of an Adam step of lr for a param, moments
+# relative to their largest; the beta powers relative. A replay without
+# one push must read over PS_PLANTED_MIN on every table and server
+PS_REPLAY_TOL = 1e-3
+PS_POWS_TOL = 1e-6
+PS_PLANTED_MIN = 0.1
+# async records: a trainer's part of the MultiSlot data (two parts)
+PS_ASYNC_RECORDS = 3072
+PS_SERVING_REQUESTS = 8
+# replica outputs against this process's predictor on the same model: the
+# replicas batch the requests otherwise (float32 GEMMs of other shapes)
+PS_SERVING_RTOL = 1e-4
+GEO_STEPS = 4
+GEO_PUSH_NUMS = 2
+
+
+def ps_worker_module():
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "tests", "dist_worker_wide_deep_ps_torch.py")
+    spec = importlib.util.spec_from_file_location("wd_ps_worker", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.CFG.update(PS_CFG)
+    return mod, path
+
+
+def free_endpoints(n):
+    import socket
+
+    socks, eps = [], []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        eps.append("127.0.0.1:%d" % s.getsockname()[1])
+    for s in socks:
+        s.close()
+    return eps
+
+
+def ps_job(phase, worker, mode, out, extra_env=None, extra_args=()):
+    """One launcher job: 2 pservers and 2 trainers of ``worker``; returns
+    (each trainer's result, the pserver endpoints, seconds). A failed
+    process fails the phase."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    pservers = free_endpoints(2)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PADDLE_", "FLAGS_selected"))}
+    env.update(PS_WD_CFG=json.dumps(PS_CFG), PS_WD_MODE=mode,
+               PS_WD_STEPS=str(PS_STEPS), PS_WD_OUT=out, PS_TEST_PSERVERS=",".join(pservers),
+               PYTHONPATH=here + os.pathsep + env.get("PYTHONPATH", ""))
+    env.update(extra_env or {})
+    logs = os.path.join(out, "logs")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node=2",
+         "--started_port=%s" % free_endpoints(1)[0].split(":")[1],
+         "--log_dir=%s" % logs, "--server_script", worker,
+         "--pserver_endpoints", ",".join(pservers), "--pserver_shards=2",
+         *extra_args, worker], env=env, timeout=PS_TIMEOUT, cwd=here)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        for name in sorted(os.listdir(logs)):
+            with open(os.path.join(logs, name)) as f:
+                log("phase %d %s:\n%s" % (phase, name, f.read()[-3000:]))
+        raise RuntimeError("phase %d: the launcher exited %d"
+                           % (phase, res.returncode))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, "trainer%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    for r, got in enumerate(ranks):
+        if got["launches"].get("probe_add_one", 0) < 1:
+            raise RuntimeError("phase %d: trainer %d launched no K7 (%s)"
+                               % (phase, r, got["launches"]))
+    return ranks, pservers, seconds
+
+
+def phase_ps_sync(fluid, support):
+    """Phase 67: sync PS at full width through the launcher, held against
+    the reference; the trainers' numbers a step."""
+    import shutil
+
+    mod, worker = ps_worker_module()
+    out = tempfile.mkdtemp(prefix="phase67-")
+    try:
+        ranks, pservers, job_s = ps_job(67, worker, "sync", out)
+        t0 = time.perf_counter()
+        exe = new_card_executor(fluid, support)
+        ref = mod.reference_run(exe, PS_STEPS, out)
+        first_gap, grad_gap, moved = mod.check_first_round(
+            exe, out, [r["losses"][0] for r in ranks])
+        exe.close()
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replay = mod.check_table_pushes(out, 2, PS_STEPS)
+        # a planted fault: trainer 1's last push left out of the replay
+        planted = mod.check_table_pushes(out, 2, PS_STEPS,
+                                         drop={(1, PS_STEPS - 1)})
+        replay_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    got = np.mean([r["losses"] for r in ranks], axis=0)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    # the first round (both trainers' steps run at once) pays the first
+    # run of every op: the later rounds are the step
+    step_ms = float(np.median([ms for r in ranks for ms in r["step_ms"][1:]]))
+    per = {k: float(np.mean([r["per_step"][k] for r in ranks]))
+           for k in ranks[0]["per_step"]}
+    idle_sh = [r.get("idle_share") for r in ranks]
+    run = {"losses": got.tolist(), "reference_losses": ref,
+           "gaps": gaps, "step_ms": step_ms,
+           "examples_per_s": PS_CFG["batch"] / step_ms * 1e3,
+           "per_trainer_step": per, "idle_share": idle_sh,
+           "profiled_step_ms": [r.get("profiled_step_ms") for r in ranks],
+           "launches": [r["launches"] for r in ranks],
+           "trainer_setup_s": [r["setup_s"] for r in ranks],
+           "trainer_ready_s": [r["ready_s"] for r in ranks],
+           "trainer_process_s": [r["process_s"] for r in ranks],
+           "job_s": job_s, "reference_s": ref_s,
+           "first_round_loss_gap": first_gap,
+           "first_round_push_gap": grad_gap,
+           "first_round_rows_moved": moved, "replay": replay,
+           "planted_replay": planted, "replay_s": replay_s}
+    log("phase 67 sync PS: Wide&Deep %s over pservers %s (CPU) and 2 "
+        "trainers on the card through paddle_tpu_torch.distributed.launch: "
+        "mean trainer losses %s against the reference's %s (gaps %s; limit "
+        "%g); step %.2f ms median, %.1f examples/s; a "
+        "trainer a step: rows pulled %.0f, pushed %.0f, RPC bytes %.0f, "
+        "host-to-device copies %.1f (%.0f bytes), device-to-host %.1f (%.0f "
+        "bytes); card idle share of a profiled step %s (%s ms); launches %s; "
+        "job %.1f s (trainers ready after %s s, done after %s s), reference "
+        "%.1f s; card %s"
+        % (json.dumps(PS_CFG), pservers, ["%.6f" % x for x in got],
+           ["%.6f" % x for x in ref], ["%.3g" % g for g in gaps],
+           PS_MEAN_RTOL, step_ms, run["examples_per_s"],
+           per["rows_pulled"], per["rows_pushed"], per["rpc_bytes"],
+           per["h2d"], per["h2d_bytes"], per["d2h"], per["d2h_bytes"],
+           idle_sh, run["profiled_step_ms"], json.dumps(run["launches"]),
+           job_s, ["%.1f" % x for x in run["trainer_ready_s"]],
+           ["%.1f" % x for x in run["trainer_process_s"]], ref_s,
+           card_line()))
+    log("phase 67 sparse pushes: each trainer's first round against the "
+        "untranspiled program at its half batch on the rows it pulled (%d "
+        "of them moved by the other trainer's push first): loss %.3g (limit "
+        "%g), pushes against the 26 table grads %.3g (limit %g); every "
+        "pushed row on its server after round %d with its Adam "
+        "moments, and the beta powers, against the replay of the recorded "
+        "pushes (each its own Adam step, the best of each round's 2 "
+        "orders) over %d table slices: rows %.3g (limit %g Adam steps of "
+        "lr), powers %.3g (limit %g); planted (trainer 1's last push left "
+        "out): rows %.3g at least (limit over %g), powers %.3g; %.1f s"
+        % (moved, first_gap, PS_FIRST_RTOL, grad_gap, PS_GRAD_RTOL,
+           PS_STEPS, replay["pairs"],
+           replay["rows"], PS_REPLAY_TOL, replay["pows"], PS_POWS_TOL,
+           planted["rows_least"], PS_PLANTED_MIN, planted["pows"],
+           replay_s))
+    if not np.isfinite(got).all() or not max(gaps) <= PS_MEAN_RTOL:
+        raise RuntimeError("phase 67: losses %s against %s" % (got, ref))
+    if not first_gap <= PS_FIRST_RTOL or not grad_gap <= PS_GRAD_RTOL \
+            or replay["pairs"] != 2 * PS_CFG["slots"] \
+            or not replay["rows"] <= PS_REPLAY_TOL \
+            or not replay["pows"] <= PS_POWS_TOL \
+            or not planted["rows_least"] > PS_PLANTED_MIN \
+            or not planted["pows"] > PS_POWS_TOL:
+        raise RuntimeError("phase 67: pushes: first round %s / %s, replay "
+                           "%s, planted %s" % (first_gap, grad_gap, replay,
+                                               planted))
+    counts = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    return counts, run
+
+
+def write_multislot_parts(d, mod, n):
+    """Two MultiSlot parts of Wide&Deep records (13 dense, 26 ids, a label
+    the first id decides); a record's global index rides as its last id,
+    so a shuffle's records can be counted."""
+    rng = np.random.RandomState(SEED + 68)
+    c = PS_CFG
+    for part in range(2):
+        with open(os.path.join(d, "part-%d" % part), "w") as f:
+            for i in range(n):
+                ids = rng.randint(0, c["vocab"], c["slots"])
+                ids[-1] = part * n + i
+                dense = rng.rand(c["dense_dim"])
+                f.write("%d %s %d %s 1 %d\n" % (
+                    c["dense_dim"], " ".join("%.6g" % v for v in dense),
+                    c["slots"], " ".join(str(v) for v in ids), ids[0] % 2))
+
+
+def phase_ps_async_serving(fluid, support):
+    """Phase 68, first half: async PS through the Communicator fed by the
+    two trainers' globally shuffled InMemoryDatasets, with the launcher's
+    serving role beside it."""
+    import shutil
+
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+
+    mod, worker = ps_worker_module()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="phase68-")
+    try:
+        data = os.path.join(out, "data")
+        os.makedirs(data)
+        write_multislot_parts(data, mod, PS_ASYNC_RECORDS)
+        model = os.path.join(out, "model")
+        build_and_save(fluid, model)
+        reqs = make_requests(np.random.RandomState(SEED + 69))[
+            :PS_SERVING_REQUESTS]
+        np.savez(os.path.join(out, "requests.npz"), **{
+            "%d/%s" % (i, k): v for i, r in enumerate(reqs)
+            for k, v in r.items()})
+        serving_eps = free_endpoints(2)
+        ranks, pservers, job_s = ps_job(
+            68, worker, "async", out,
+            {"PS_WD_DATA": data,
+             "PADDLE_SHUFFLE_ENDPOINTS": ",".join(free_endpoints(2)),
+             "PS_SERVING_MODEL": model,
+             "PS_SERVING_REQUESTS": os.path.join(out, "requests.npz")},
+            ["--serving_script",
+             os.path.join(here, "tests", "dist_worker_serving_torch.py"),
+             "--serving_endpoints", ",".join(serving_eps)])
+        served = np.load(os.path.join(out, "serving_out.npz"))
+        pred = create_paddle_predictor(AnalysisConfig(model))
+        serve_gap = 0.0
+        for i, feed in enumerate(reqs):
+            for t in pred.run(feed):
+                a = np.asarray(t.data)
+                b = served["%d/%s" % (i, t.name)]
+                scale = max(float(np.abs(a).max()), 1e-30)
+                serve_gap = max(serve_gap,
+                                float(np.abs(a - b).max()) / scale)
+        del pred
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    ids = sorted(ranks[0]["record_ids"] + ranks[1]["record_ids"])
+    moved = [len({i // PS_ASYNC_RECORDS for i in r["record_ids"]})
+             for r in ranks]
+    losses = [r["losses"] for r in ranks]
+    per = {k: float(np.mean([r["per_step"][k] for r in ranks]))
+           for k in ranks[0]["per_step"]}
+    srv = ranks[0]["serving"]
+    run = {"records": [r["records_after"] for r in ranks],
+           "steps": [r["steps"] for r in ranks],
+           "losses": losses, "step_ms": [r["step_ms"][0] for r in ranks],
+           "shuffle_s": [r["shuffle_s"] for r in ranks],
+           "communicator_pushes": [r["communicator_pushes"] for r in ranks],
+           "per_trainer_step": per, "serving": srv,
+           "serving_gap": serve_gap,
+           "launches": [r["launches"] for r in ranks], "job_s": job_s}
+    log("phase 68 async PS through the Communicator over pservers %s, "
+        "each trainer's InMemoryDataset (%d records a part) globally "
+        "shuffled between the 2 trainers (records after %s, origins a "
+        "trainer %s, %.2f s) and trained by train_from_dataset: steps %s, "
+        "losses %s, step %s ms, Communicator pushes %s; a trainer a step: "
+        "rows pulled %.0f, pushed %.0f, RPC bytes %.0f, host-to-device "
+        "copies %.1f, device-to-host %.1f; beside it the launcher's serving "
+        "role: %d replicas of phase 4's BERT-base behind a FleetRouter, %d "
+        "requests at once, latency ms %s, served by replica %s, outputs "
+        "within %.3g of this process's predictor (limit %g); launches %s; "
+        "job %.1f s; "
+        "card %s"
+        % (pservers, PS_ASYNC_RECORDS, run["records"], moved,
+           max(run["shuffle_s"]), run["steps"],
+           [["%.4f" % x for x in ls] for ls in losses], run["step_ms"],
+           run["communicator_pushes"], per["rows_pulled"],
+           per["rows_pushed"], per["rpc_bytes"], per["h2d"], per["d2h"],
+           srv["replicas"], srv["requests"],
+           ["%.1f" % x for x in srv["latency_ms"]],
+           srv["served_by_replica"], serve_gap, PS_SERVING_RTOL,
+           json.dumps(run["launches"]), job_s, card_line()))
+    if ids != list(range(2 * PS_ASYNC_RECORDS)) or min(moved) < 2:
+        raise RuntimeError("phase 68: the shuffle lost, repeated or kept "
+                           "records (%d ids, origins %s)" % (len(ids), moved))
+    if min(run["steps"]) < 1 or not all(
+            np.isfinite(ls).all() for ls in losses) \
+            or min(run["communicator_pushes"]) < 1:
+        raise RuntimeError("phase 68: async training %s" % run)
+    if srv["requests"] != PS_SERVING_REQUESTS \
+            or serve_gap > PS_SERVING_RTOL:
+        raise RuntimeError("phase 68: serving %s, gap %g" % (srv, serve_gap))
+    counts = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    return counts, run
+
+
+def phase_ps_geo(fluid, support, fo):
+    """Phase 68, second half: geo-SGD in this process: the trainer on the
+    card keeps its Adam ops (bench.py's knobs fold them into one
+    fused_optimizer op: K4 once a step) and every GEO_PUSH_NUMS steps
+    ships its deltas to an in-process pserver on the CPU (geo_send has no
+    RPC route, in either package); then K4 at the path's flat size."""
+    from paddle_tpu_torch import transpiler
+    from paddle_tpu_torch.ops import distributed_ops
+
+    mod, _ = ps_worker_module()
+    bench_fast_paths()
+    distributed_ops.reset_emulated_servers()
+    distributed_ops.reset_geo_counters()
+    main, startup, loss = mod.build(PS_CFG["batch"], is_distributed=False)
+    cfg = transpiler.DistributeTranspilerConfig()
+    cfg.geo_sgd_need_push_nums = GEO_PUSH_NUMS
+    t = transpiler.GeoSgdTranspiler(cfg)
+    ep = "127.0.0.1:%d" % 6174
+    t.transpile(0, program=main, startup_program=startup, pservers=ep,
+                trainers=1)
+    support.reset_launch_counts()
+    exe = new_card_executor(fluid, support)
+    scope, sscope = fluid.Scope(), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    sexe = fluid.Executor(fluid.CPUPlace())
+    names = [p for p, _g in t.params_grads]
+    with fluid.scope_guard(sscope):
+        for n in names:  # the server starts where the trainer starts
+            sscope.var(n).get_tensor().set(
+                scope.find_var(n).get_tensor().array.cpu().clone())
+        sexe.run(t.get_pserver_program(ep))
+    losses, step_ms = [], []
+    with fluid.scope_guard(scope):
+        for feed in mod.global_batches(GEO_STEPS, seed=SEED + 70):
+            t0 = time.perf_counter()
+            (l,) = exe.run(main, feed=feed, fetch_list=[loss])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(l).ravel()[0]))
+    counts = support.launch_counts()
+    gap = max(float((sscope.find_var(n).get_tensor().array
+                     - scope.find_var(n).get_tensor().array.cpu()).abs()
+                    .max()) for n in names)
+    ops = [op.type for op in main.global_block().ops]
+    (op,) = [op for op in main.global_block().ops
+             if op.type == "fused_optimizer"]
+    run = {"losses": losses, "step_ms": step_ms,
+           "k4": counts.get("fused_optimizer_update", 0),
+           "fused_ops": ops.count("fused_optimizer"),
+           "adam_ops": ops.count("adam"),
+           "geo_send_ops": ops.count("geo_send"),
+           "server_gap": gap}
+    log("phase 68 geo-SGD: Wide&Deep at full width on the card, deltas "
+        "every %d of %d steps to an in-process pserver on the CPU: losses "
+        "%s, step ms %s; the program's Adam ops folded into %d "
+        "fused_optimizer op (K4 %d launches, want %d), %d geo_send ops; the "
+        "server's params against the trainer's after the last push: %.3g "
+        "(exact sums: (p0 + d1) + d2 telescopes to float32 rounding); card "
+        "%s"
+        % (GEO_PUSH_NUMS, GEO_STEPS, ["%.6f" % x for x in losses],
+           ["%.1f" % x for x in step_ms], run["fused_ops"], run["k4"],
+           GEO_STEPS, run["geo_send_ops"], gap, card_line()))
+    if run["k4"] != GEO_STEPS or run["fused_ops"] != 1 \
+            or run["adam_ops"] or gap > 1e-5 \
+            or not np.isfinite(losses).all():
+        raise RuntimeError("phase 68 geo: %s" % run)
+    run["k4_at_path"] = k4_at_path(fo, op, 68, "geo-SGD Wide&Deep")
+    distributed_ops.reset_emulated_servers()
+    exe.close()
+    return counts, run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -11260,6 +11685,16 @@ def main() -> int:
         time.perf_counter() - t_65, json.dumps(
             {"placement": placed_run, "steering": steered_run},
             default=str)))
+    # the parameter server: sync, async with the dataset and serving roles,
+    # geo-SGD
+    t_67 = time.perf_counter()
+    ps_sync, ps_sync_run = phase_ps_sync(fluid, support)
+    ps_async, ps_async_run = phase_ps_async_serving(fluid, support)
+    ps_geo, ps_geo_run = phase_ps_geo(fluid, support, fo)
+    log("phases 67-68 %.1f s %s" % (
+        time.perf_counter() - t_67, json.dumps(
+            {"ps_sync": ps_sync_run, "ps_async": ps_async_run,
+             "ps_geo": ps_geo_run}, default=str)))
     log("phases 51-53 %s" % json.dumps(
         {"serving_http": http_run, "resnet_infer": resnet_infer_run,
          "decode_http": decode_http_run}))
@@ -11343,7 +11778,10 @@ def main() -> int:
                    "dgc": dgc_counts.get(kern["name"], 0),
                    "dgc_dp": dgc_dp_counts.get(kern["name"], 0),
                    "placement": placed.get(kern["name"], 0),
-                   "steering": steered.get(kern["name"], 0)}
+                   "steering": steered.get(kern["name"], 0),
+                   "ps_sync": ps_sync.get(kern["name"], 0),
+                   "ps_async": ps_async.get(kern["name"], 0),
+                   "ps_geo": ps_geo.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

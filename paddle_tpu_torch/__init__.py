@@ -53,6 +53,15 @@ from . import parallel  # noqa: F401
 from . import incubate  # noqa: F401
 from . import ir  # noqa: F401
 from .ir import IrGraph  # noqa: F401
+from .async_executor import AsyncExecutor, DataFeedDesc  # noqa: F401
+from . import trainer_factory  # noqa: F401
+from . import communicator  # noqa: F401
+from .communicator import Communicator  # noqa: F401
+from . import dataset_module  # noqa: F401
+from .dataset_module import DatasetFactory  # noqa: F401
+from . import transpiler  # noqa: F401
+from .transpiler import (DistributeTranspiler,  # noqa: F401
+                         DistributeTranspilerConfig)
 
 
 def set_global_seed(seed: int):

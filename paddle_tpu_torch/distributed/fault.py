@@ -3,10 +3,11 @@
 Counterpart of the injector of ``paddle_tpu/distributed/fault.py:92-490``:
 the part the fleet router's transport calls (``serving/fleet.py`` routes
 every frame it sends and every reply it reads through
-``get_injector()``), so a test or a drill can drop, delay, duplicate,
-truncate or sever fleet RPCs on demand, seeded so a failing run replays.
-The rest of the JAX package's ``distributed/`` (the parameter server and
-its RPC layer) is not ported.
+``get_injector()``), and so does the parameter server's socket RPC
+(``ps_rpc.py``), so a test or a drill can drop, delay, duplicate,
+truncate or sever fleet and PS RPCs on demand, seeded so a failing run
+replays. ``clock_skew`` and ``random_plan`` (the lease drills) are not
+ported yet.
 
 Grammar (``PADDLE_TPU_FAULTS``)::
 

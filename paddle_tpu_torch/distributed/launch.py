@@ -1,9 +1,10 @@
-"""Launch a collective (data-parallel) training job: one worker process a
-rank on this node, and optionally a steering daemon beside them.
+"""Launch a training job: one worker process a rank on this node, and
+beside them the job's parameter servers, serving replicas and a steering
+daemon when asked.
 
-Counterpart of the collective half of ``paddle_tpu/distributed/launch.py``
-(the reference's ``distributed/launch.py``): ``--nproc_per_node`` workers,
-each started with the PADDLE_* env contract (``get_cluster_env``:
+Counterpart of ``paddle_tpu/distributed/launch.py`` (the reference's
+``distributed/launch.py``): ``--nproc_per_node`` workers, each started
+with the PADDLE_* env contract (``get_cluster_env``:
 ``PADDLE_TRAINER_ID``, ``PADDLE_TRAINERS_NUM``,
 ``PADDLE_TRAINER_ENDPOINTS``, ``PADDLE_CURRENT_ENDPOINT``,
 ``FLAGS_selected_gpus``), which ``dygraph.parallel.prepare_context`` turns
@@ -12,7 +13,33 @@ The launcher supervises them: a worker that exits nonzero is relaunched
 up to ``--max_restarts`` times (default 0: the other ranks of a collective
 job wait in a collective for the dead one, so a failure brings the job
 down), then every worker is stopped and the launcher exits with the
-failed rank's code.
+failed rank's code. Every child is a new process (``subprocess``): the
+launcher never forks a process that holds CUDA.
+
+Parameter servers: ``--server_script=serve.py`` with
+``--pserver_endpoints=ep0,ep1`` and ``--pserver_shards=2`` starts one
+server process an endpoint, one primary a shard (env contract:
+``PADDLE_ROLE=pserver``, ``PADDLE_PSERVER_ENDPOINTS`` = its shard's
+group, ``PADDLE_PSERVER_SHARDS``, ``PADDLE_PSERVER_SHARD``,
+``PADDLE_PSERVER_INDEX``, ``PADDLE_PSERVER_GLOBAL_INDEX``,
+``PSERVER_ENDPOINT`` = its own endpoint, ``PADDLE_TRAINERS_NUM``).
+Trainers get the full list in ``PADDLE_PSERVER_ENDPOINTS`` and the count
+in ``PADDLE_PSERVER_SHARDS`` (``ps_shard.client_from_env``). A group of
+more than one endpoint (backups), ``--ps_witness_endpoints``,
+``--ps_durable_dir`` and ``--restore`` raise ``NotImplementedError``:
+replication, witnesses and durable rounds are not ported yet, and a
+pserver that dies brings the job down (no rejoin protocol).
+
+Serving replicas: ``--serving_script=replica.py`` with
+``--serving_replicas=N`` starts N replica processes (env contract:
+``PADDLE_ROLE=serving``, ``PADDLE_SERVING_REPLICAS``,
+``PADDLE_SERVING_REPLICA_INDEX``, ``PADDLE_SERVING_ENDPOINTS`` = the
+``host:port`` list, from ``--serving_endpoints`` or
+``--serving_started_port`` + i, ``PADDLE_SERVING_ENDPOINT`` = its own).
+A replica is stateless: one that dies is relaunched in place (within
+``--max_restarts``) and rejoins the fleet router's rotation once its
+``/healthz`` answers. Trainers see ``PADDLE_SERVING_ENDPOINTS`` too.
+Servers and replicas serve until every trainer exits, then are stopped.
 
 Job telemetry: with ``PADDLE_TPU_METRICS_DIR`` set the launcher clears the
 directory's stale dumps, dumps as ``launcher-<node_rank>``, mints one job
@@ -22,10 +49,12 @@ teardown, merges every process's dump into ``metrics.json`` and
 ``trace.json`` (``merge_job_dir``). ``--steering`` supervises a steering
 daemon (``observability/steering_daemon.py``) over that directory, polled
 every ``--steering_interval`` seconds: it proposes plans and applies none.
-The parameter-server and serving roles of the JAX launcher are not ported.
 
 Usage:  python -m paddle_tpu_torch.distributed.launch --nproc_per_node=2 \\
             [--started_port=6170] [--log_dir=DIR] [--steering] \\
+            [--server_script=serve.py --pserver_endpoints=ep0,ep1 \\
+             --pserver_shards=2] \\
+            [--serving_script=replica.py --serving_replicas=2] \\
             train.py --your-args
 """
 from __future__ import annotations
@@ -58,6 +87,36 @@ def _parse_args(argv=None):
                        "PADDLE_LAUNCH_MAX_RESTARTS", "0")),
                    help="relaunches per rank after an abnormal exit "
                         "before the job is brought down")
+    p.add_argument("--server_script", default=None,
+                   help="script run once per --pserver_endpoints entry "
+                        "as a parameter-server process")
+    p.add_argument("--pserver_endpoints", default="",
+                   help="comma-separated pserver endpoints, one primary "
+                        "a shard (requires --server_script)")
+    p.add_argument("--pserver_shards", type=int,
+                   default=int(os.environ.get("PADDLE_PSERVER_SHARDS",
+                                              "1")),
+                   help="slice --pserver_endpoints into this many "
+                        "groups (key-range sharded PS); each group must "
+                        "be one endpoint: backups are not ported")
+    p.add_argument("--ps_durable_dir",
+                   default=os.environ.get("PADDLE_PS_DURABLE_DIR", ""),
+                   help="durable PS rounds: not ported (raises)")
+    p.add_argument("--restore", action="store_true",
+                   help="cold restart from --ps_durable_dir: not ported "
+                        "(raises)")
+    p.add_argument("--ps_witness_endpoints", default="",
+                   help="external quorum witnesses: not ported (raises)")
+    p.add_argument("--serving_script", default=None,
+                   help="script run once per serving replica as a "
+                        "stateless serving process")
+    p.add_argument("--serving_replicas", type=int, default=0,
+                   help="number of serving replicas (requires "
+                        "--serving_script)")
+    p.add_argument("--serving_endpoints", default="",
+                   help="comma-separated host:port per replica "
+                        "(default: 127.0.0.1:<serving_started_port>+i)")
+    p.add_argument("--serving_started_port", type=int, default=8200)
     p.add_argument("--steering", action="store_true",
                    help="supervise a steering daemon over the job's "
                         "PADDLE_TPU_METRICS_DIR: it watches the merged "
@@ -134,8 +193,10 @@ class _Worker:
         self.close_log()
         out = None
         if self.log_dir:
-            name = ("steeringlog.%d" if self.role == "steering"
-                    else "workerlog.%d") % self.local_rank
+            name = {"pserver": "serverlog.%d",
+                    "serving": "servinglog.%d",
+                    "steering": "steeringlog.%d"}.get(
+                        self.role, "workerlog.%d") % self.local_rank
             self._fp = open(os.path.join(self.log_dir, name), "a")
             out = self._fp
         self.spawned_at_us = time.time() * 1e6
@@ -183,6 +244,58 @@ class _Worker:
             self._fp = None
 
 
+def _pserver_groups(args):
+    """(endpoints, one group of endpoints a shard), checked: a group must
+    be one primary, and the survivability flags are refused by name."""
+    if getattr(args, "ps_witness_endpoints", ""):
+        raise NotImplementedError(
+            "--ps_witness_endpoints: PSWitness and the witness quorum are "
+            "not ported to paddle_tpu_torch yet")
+    if getattr(args, "ps_durable_dir", "") or getattr(args, "restore",
+                                                       False):
+        raise NotImplementedError(
+            "--ps_durable_dir / --restore: durable PS rounds and the cold "
+            "restart are not ported to paddle_tpu_torch yet")
+    eps = [e.strip() for e in (getattr(args, "pserver_endpoints", "")
+                               or "").split(",") if e.strip()]
+    if not eps:
+        return [], []
+    if not getattr(args, "server_script", None):
+        raise SystemExit("--pserver_endpoints requires --server_script")
+    from .ps_shard import split_endpoint_groups
+
+    try:
+        groups = split_endpoint_groups(
+            eps, max(1, int(getattr(args, "pserver_shards", 1))))
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if any(len(g) > 1 for g in groups):
+        raise NotImplementedError(
+            "--pserver_endpoints with backups (%d endpoint(s) in %d "
+            "shard(s)): replication to backups is not ported to "
+            "paddle_tpu_torch yet; give one endpoint a shard "
+            "(--pserver_shards=%d)" % (len(eps), len(groups), len(eps)))
+    return eps, groups
+
+
+def _serving_endpoints(args):
+    n = max(0, int(getattr(args, "serving_replicas", 0) or 0))
+    eps = [e.strip() for e in (getattr(args, "serving_endpoints", "")
+                               or "").split(",") if e.strip()]
+    if eps and not n:
+        n = len(eps)
+    if n and not getattr(args, "serving_script", None):
+        raise SystemExit("--serving_replicas/--serving_endpoints "
+                         "require --serving_script")
+    if n and not eps:
+        eps = ["127.0.0.1:%d" % (args.serving_started_port + i)
+               for i in range(n)]
+    if n and len(eps) != n:
+        raise SystemExit("--serving_endpoints names %d endpoint(s) for "
+                         "%d replicas" % (len(eps), n))
+    return eps
+
+
 def launch(args=None) -> int:
     args = args if args is not None else _parse_args()
     node_ips = [ip for ip in args.ips.split(",") if ip]
@@ -200,8 +313,23 @@ def launch(args=None) -> int:
         # one job trace id, in every worker's env: each rank derives the
         # same round span from it (``distributed.fleet_round_args``)
         os.environ.setdefault(_dobs.JOB_TRACE_ENV, os.urandom(8).hex())
+    pserver_eps, shard_groups = _pserver_groups(args)
+    serving_eps = _serving_endpoints(args)
+    # children import the package even when it runs from a checkout (the
+    # script's directory replaces the launcher's cwd on sys.path)
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+    def child_env(extra):
+        env = dict(os.environ)
+        env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH",
+                                                            "")
+        env.update(extra)
+        return env
+
     cmd = [sys.executable, "-u", args.training_script] + \
         list(args.training_script_args)
+    nranks = len(node_ips) * args.nproc_per_node
     workers = []
     for local_rank in range(args.nproc_per_node):
         env = dict(os.environ)
@@ -209,10 +337,44 @@ def launch(args=None) -> int:
                                    args.nproc_per_node, args.started_port,
                                    local_rank))
         env["PADDLE_ROLE"] = "trainer"  # its dump's name: trainer-<rank>
+        if pserver_eps:
+            env["PADDLE_PSERVER_ENDPOINTS"] = ",".join(pserver_eps)
+            env["PADDLE_PSERVER_SHARDS"] = str(len(shard_groups))
+        if serving_eps:
+            # a trainer that sends traffic builds its FleetRouter from it
+            env["PADDLE_SERVING_ENDPOINTS"] = ",".join(serving_eps)
         workers.append(_Worker(
             local_rank, cmd, env, args.log_dir, metrics_dir=metrics_dir,
             global_rank=int(env["PADDLE_TRAINER_ID"])))
     servers = []
+    for shard, group in enumerate(shard_groups):
+        for i, ep in enumerate(group):
+            servers.append(_Worker(
+                pserver_eps.index(ep),
+                [sys.executable, "-u", args.server_script],
+                child_env({
+                    "PADDLE_ROLE": "pserver",
+                    "PADDLE_PSERVER_ENDPOINTS": ",".join(group),
+                    "PADDLE_PSERVER_SHARDS": str(len(shard_groups)),
+                    "PADDLE_PSERVER_SHARD": str(shard),
+                    "PADDLE_PSERVER_INDEX": str(i),
+                    "PADDLE_PSERVER_GLOBAL_INDEX":
+                        str(pserver_eps.index(ep)),
+                    "PSERVER_ENDPOINT": ep,
+                    "PADDLE_TRAINERS_NUM": str(nranks)}),
+                args.log_dir, role="pserver", metrics_dir=metrics_dir))
+    for i, ep in enumerate(serving_eps):
+        # stateless: a relaunch needs no rejoin protocol, the router
+        # re-admits the endpoint once /healthz answers
+        servers.append(_Worker(
+            i, [sys.executable, "-u", args.serving_script],
+            child_env({
+                "PADDLE_ROLE": "serving",
+                "PADDLE_SERVING_REPLICAS": str(len(serving_eps)),
+                "PADDLE_SERVING_REPLICA_INDEX": str(i),
+                "PADDLE_SERVING_ENDPOINTS": ",".join(serving_eps),
+                "PADDLE_SERVING_ENDPOINT": ep}),
+            args.log_dir, role="serving", metrics_dir=metrics_dir))
     if args.steering:
         if not metrics_dir:
             _log("--steering ignored: PADDLE_TPU_METRICS_DIR is unset (the "
@@ -221,13 +383,9 @@ def launch(args=None) -> int:
             # supervised as a server: relaunched on a crash (it only
             # reads telemetry and writes proposals), stopped after the
             # trainers
-            pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__))))
-            env = dict(os.environ)
-            env["PYTHONPATH"] = pkg_root + os.pathsep + \
-                env.get("PYTHONPATH", "")
-            env.update({"PADDLE_ROLE": "steering", "PADDLE_TRAINER_ID": "0",
-                        "PADDLE_TPU_METRICS_DIR": metrics_dir})
+            env = child_env({"PADDLE_ROLE": "steering",
+                             "PADDLE_TRAINER_ID": "0",
+                             "PADDLE_TPU_METRICS_DIR": metrics_dir})
             servers.append(_Worker(
                 0, [sys.executable, "-u", "-m",
                     "paddle_tpu_torch.observability.steering_daemon",
@@ -267,6 +425,16 @@ def launch(args=None) -> int:
                     continue
                 _flight.record("launch.exit", role=s.role,
                                rank=s.local_rank, code=code)
+                if s.role == "pserver":
+                    # its state is gone, and the catch-up of a rejoining
+                    # server is not ported: the job cannot go on
+                    _log("pserver %d exited %d; a relaunched server "
+                         "cannot rejoin (not ported): bringing the job "
+                         "down" % (s.local_rank, code))
+                    rc = code if code > 0 else 1
+                    _terminate_all()
+                    live = set()
+                    break
                 if s.restarts >= args.max_restarts:
                     _log("%s exited %d; restart budget (%d) spent: "
                          "bringing the job down"

@@ -74,9 +74,57 @@ class Executor:
         self._lod_lowered_cache: Dict = {}
         self._lod_declined: set = set()
         self._interpreted_versions: set = set()
+        # program version -> its for_test clone (infer_from_dataset)
+        self._infer_clone_cache: Dict = {}
         # one step at a time: a captured graph's static buffers are shared
         self._lock = threading.RLock()
         self._closed = False
+
+    # -- Dataset-driven training (the reference's train_from_dataset) ------
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """Dataset-driven training through the trainer / device-worker
+        stack (``trainer_factory``): N Hogwild workers over disjoint
+        dataset shards, one shared scope, one shared step. The worker
+        class and the debug dumps come from ``program._fleet_opt``, as the
+        reference's opt_info does."""
+        from .trainer_factory import TrainerDesc, TrainerFactory
+
+        scope = scope if scope is not None else global_scope()
+        program = program or framework.default_main_program()
+        if dataset is None:
+            raise ValueError("dataset is required")
+        desc = TrainerDesc()
+        desc.thread_num = int(thread) or getattr(dataset, "_thread_num",
+                                                 0) or 1
+        desc.fetch_vars = fetch_list or []
+        desc.fetch_info = fetch_info or []
+        desc.print_period = print_period
+        desc.debug = debug
+        fleet_opt = getattr(program, "_fleet_opt", None) or {}
+        desc.device_worker = fleet_opt.get("worker_class", "Hogwild")
+        desc.dump_fields = list(fleet_opt.get("dump_fields", []))
+        desc.dump_fields_path = fleet_opt.get("dump_fields_path", "")
+        desc.dump_param = list(fleet_opt.get("dump_param", []))
+        trainer = TrainerFactory().create_trainer(desc)
+        return trainer.run(program, dataset, scope, self)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """A dataset pass that changes no parameter: it runs the
+        program's for_test clone (backward and optimizer ops pruned),
+        cached a program version so every epoch reuses one step."""
+        program = program or framework.default_main_program()
+        ver = _ce._program_version(program)
+        clone = self._infer_clone_cache.get(ver)
+        if clone is None:
+            clone = program.clone(for_test=True)
+            self._infer_clone_cache[ver] = clone
+        return self.train_from_dataset(
+            clone, dataset, scope, thread, debug, fetch_list,
+            fetch_info, print_period)
 
     @property
     def runs_to_capture(self) -> int:

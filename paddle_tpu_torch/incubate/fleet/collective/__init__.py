@@ -77,13 +77,11 @@ class Collective(Fleet):
 
     def init_server(self, model_dir=None):
         raise NotImplementedError(
-            "Collective mode has no servers; the parameter-server mode is "
-            "not ported")
+            "Collective mode has no servers; use the transpiler PS mode")
 
     def run_server(self):
         raise NotImplementedError(
-            "Collective mode has no servers; the parameter-server mode is "
-            "not ported")
+            "Collective mode has no servers; use the transpiler PS mode")
 
     def stop_worker(self):
         pass

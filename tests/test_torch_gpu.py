@@ -136,6 +136,15 @@ card's report fits the search's cost model and the winner applies through
 PADDLE_TPU_PLACEMENT_PLAN; a canary serves the serving_ladder proposal's
 answers within 1e-5 of the incumbent's and audits its decision; the lazy
 key-cap policy stops recaptures.
+
+The parameter server on the card (slice 24): two sync rounds of a narrow
+Wide&Deep, its tables row-sliced over two in-process pservers on the CPU,
+with the trainer on the card give the CPU trainer's losses and every
+server's state within 1e-5 (TF32 off; products summed in another order),
+the trainer's host copies counted at the PS ops; a geo-SGD trainer's
+Adam ops fold into one fused_optimizer op under
+PADDLE_TPU_FUSED_OPTIMIZER, K4 runs once a step and its delta pushes
+leave the server's params at the trainer's, within 1e-5 of the CPU run.
 """
 import gc
 import threading
@@ -3638,3 +3647,153 @@ def test_slice23_the_lazy_policy_stops_recaptures_on_the_card(cuda):
     assert before["lazy.recompiles"] == 16 and before["lazy.cache_hits"] == 0
     assert after["lazy.recompiles"] == 0 and after["lazy.captures"] == 0
     assert after["lazy.replays"] == 16
+
+
+# -- slice 24: the parameter server -------------------------------------------
+
+def _slice24_wide_deep(is_distributed=True):
+    from paddle_tpu_torch import models
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        dense = fluid.data(name="dense", shape=[32, 4], dtype="float32")
+        sparse = fluid.data(name="sparse", shape=[32, 3], dtype="int64")
+        label = fluid.data(name="label", shape=[32, 1], dtype="int64")
+        pred = models.wide_deep(dense, sparse, vocab_size=50, embed_dim=8,
+                                hidden_sizes=(16,),
+                                is_distributed=is_distributed)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
+        fluid.optimizer.AdamOptimizer(1e-2).minimize(loss)
+    return main, startup, loss
+
+
+def _slice24_feeds(n):
+    rng = np.random.RandomState(7)
+    out = []
+    for _ in range(n):
+        sparse = rng.randint(0, 50, (32, 3)).astype("int64")
+        out.append({"dense": rng.rand(32, 4).astype("float32"),
+                    "sparse": sparse, "label": sparse[:, :1] % 2})
+    return out
+
+
+def _slice24_state(scope):
+    return {n: scope.find_var(n).get_tensor().array.detach().cpu().numpy()
+            .copy() for n in scope.local_var_names()
+            if scope.find_var(n).is_initialized()
+            and isinstance(getattr(scope.find_var(n).raw(), "array", None),
+                           torch.Tensor)}
+
+
+def _slice24_sync(trainer_place, start=None):
+    from paddle_tpu_torch.distributed import ps_rpc
+    from paddle_tpu_torch.ops import distributed_ops
+
+    distributed_ops.reset_emulated_servers()
+    eps = ["127.0.0.1:7164", "127.0.0.1:7165"]
+    main, startup, loss = _slice24_wide_deep()
+    t = fluid.DistributeTranspiler()
+    t.transpile(0, program=main, startup_program=startup,
+                pservers=",".join(eps), trainers=1)
+    sexe = fluid.Executor(fluid.CPUPlace())
+    sscopes, starts = {}, {}
+    for ep in eps:
+        ps = t.get_pserver_program(ep)
+        sscopes[ep] = fluid.Scope()
+        with fluid.scope_guard(sscopes[ep]):
+            sexe.run(t.get_startup_program(ep, ps))
+            if start is not None:
+                for n, a in start[ep].items():
+                    sscopes[ep].var(n).get_tensor().set(torch.from_numpy(a))
+            starts[ep] = _slice24_state(sscopes[ep])
+            sexe.run(ps)
+    exe = fluid.Executor(trainer_place)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        if start is not None:
+            for n, a in start["trainer"].items():
+                scope.var(n).get_tensor().set(
+                    torch.from_numpy(a).to(exe.device))
+        starts["trainer"] = _slice24_state(scope)
+        ps_rpc.reset_copy_counts()
+        losses = [float(np.asarray(exe.run(
+            main, feed=f, fetch_list=[loss])[0]).ravel()[0])
+            for f in _slice24_feeds(2)]
+        copies = ps_rpc.copy_counts()
+    return losses, {ep: _slice24_state(sscopes[ep]) for ep in eps}, \
+        starts, copies
+
+
+def test_slice24_a_sync_round_on_the_card_is_the_cpu_round(cuda):
+    cpu = _slice24_sync(fluid.CPUPlace())
+    card = _slice24_sync(fluid.CUDAPlace(0), start=cpu[2])
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
+    for ep, state in cpu[1].items():
+        for n, a in state.items():
+            if "@GRAD" in n:
+                continue
+            np.testing.assert_allclose(card[1][ep][n], a, rtol=1e-5,
+                                       atol=1e-6, err_msg=n)
+    # the card's trainer copies only at the PS ops: the ids down and the
+    # pulled rows up at each lookup, grads down at each push and send,
+    # params up at each recv
+    assert cpu[3]["h2d"] == cpu[3]["d2h"] == 0
+    assert card[3]["h2d"] > 0 and card[3]["d2h"] > 0
+
+
+def test_slice24_k4_on_the_geo_trainer_update(cuda, monkeypatch):
+    from paddle_tpu_torch import transpiler
+    from paddle_tpu_torch.ops import distributed_ops
+
+    monkeypatch.setenv("PADDLE_TPU_FUSED_OPTIMIZER", "1")
+
+    def run(place, start=None):
+        distributed_ops.reset_emulated_servers()
+        distributed_ops.reset_geo_counters()
+        main, startup, loss = _slice24_wide_deep(is_distributed=False)
+        cfg = transpiler.DistributeTranspilerConfig()
+        cfg.geo_sgd_need_push_nums = 2
+        t = transpiler.GeoSgdTranspiler(cfg)
+        t.transpile(0, program=main, startup_program=startup,
+                    pservers="127.0.0.1:7166", trainers=1)
+        exe = fluid.Executor(place)
+        scope, sscope = fluid.Scope(), fluid.Scope()
+        names = [p for p, _g in t.params_grads]
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            if start is not None:
+                for n in names:
+                    for v in (n, n + ".geo.snapshot"):
+                        scope.var(v).get_tensor().set(
+                            torch.from_numpy(start[n]).to(exe.device))
+        with fluid.scope_guard(sscope):
+            for n in names:
+                sscope.var(n).get_tensor().set(
+                    scope.find_var(n).get_tensor().array.cpu().clone())
+            fluid.Executor(fluid.CPUPlace()).run(
+                t.get_pserver_program("127.0.0.1:7166"))
+        init = {n: scope.find_var(n).get_tensor().numpy().copy()
+                for n in names}
+        support.reset_launch_counts()
+        with fluid.scope_guard(scope):
+            losses = [float(np.asarray(exe.run(
+                main, feed=f, fetch_list=[loss])[0]).ravel()[0])
+                for f in _slice24_feeds(4)]
+        k4 = support.launch_counts()["fused_optimizer_update"]
+        ops = [op.type for op in main.global_block().ops]
+        server = {n: sscope.find_var(n).get_tensor().numpy() for n in names}
+        trainer = {n: scope.find_var(n).get_tensor().numpy()
+                   for n in names}
+        return losses, k4, ops, server, trainer, init
+
+    cpu = run(fluid.CPUPlace())
+    card = run(fluid.CUDAPlace(0), start=cpu[5])
+    assert card[2].count("fused_optimizer") == 1 and "adam" not in card[2]
+    assert card[1] == 4  # K4 once a step
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
+    for n in card[3]:
+        np.testing.assert_allclose(card[3][n], card[4][n], rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_allclose(card[3][n], cpu[3][n], rtol=1e-5,
+                                   atol=1e-6)

@@ -427,3 +427,68 @@ def test_slice20_a_default_mesh_is_the_card():
             mesh.devices
     assert make_mesh([8], ["dp"], [fluid.CPUPlace()]).devices == \
         [torch.device("cpu")] * 8
+
+
+# the parameter-server slice: Tentpole §1's fifteen modules
+_SLICE24_MODULES = [
+    "transpiler/__init__.py", "transpiler/distribute_transpiler.py",
+    "ops/distributed_ops.py", "distributed/ps_rpc.py",
+    "distributed/ps_shard.py", "communicator.py",
+    "transpiler/geo_sgd_transpiler.py", "transpiler/fl_transpiler.py",
+    "distributed/launch.py", "distributed/record_shuffle.py",
+    "dataset_module.py", "trainer_factory.py", "async_executor.py",
+    "incubate/fleet/utils/fleet_util.py", "incubate/fleet/utils/hdfs.py",
+    "core/fs.py",
+]
+
+_IMPORT_SLICE24 = r"""
+import importlib, sys
+mods = sys.argv[1:]
+for m in mods:
+    importlib.import_module("paddle_tpu_torch." + m[:-3].replace("/", ".")
+                            .replace(".__init__", ""))
+import paddle_tpu_torch as fluid
+for name in ("DistributeTranspiler", "DistributeTranspilerConfig",
+             "Communicator", "DatasetFactory", "AsyncExecutor",
+             "DataFeedDesc", "transpiler", "dataset_module",
+             "trainer_factory", "communicator"):
+    assert hasattr(fluid, name), name
+assert callable(fluid.Executor.train_from_dataset)
+assert callable(fluid.Executor.infer_from_dataset)
+for name in ("HashName", "RoundRobin", "GeoSgdTranspiler",
+             "FlDistributeTranspiler", "memory_optimize", "release_memory"):
+    assert hasattr(fluid.transpiler, name), name
+from paddle_tpu_torch.incubate.fleet.utils import FleetUtil, HDFSClient
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("module", _SLICE24_MODULES)
+def test_slice24_module_names_no_jax(module):
+    """Each module of the parameter-server slice names neither jax nor
+    the JAX package in its code."""
+    with open(os.path.join(REPO, "paddle_tpu_torch", module)) as f:
+        text = f.read()
+    assert not _code_names(text) & {"jax", "jnp", "jaxlib", "lax",
+                                    "paddle_tpu"}, module
+
+
+def test_slice24_modules_import_no_jax():
+    """The slice's modules load, and ``import paddle_tpu_torch as fluid``
+    reaches the PS names, without pulling jax or the JAX package in."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _IMPORT_SLICE24,
+                          *_SLICE24_MODULES], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_slice24_fleet_servers_name_the_transpiler_mode():
+    from paddle_tpu_torch.incubate.fleet.collective import fleet
+
+    for call in (fleet.init_server, fleet.run_server):
+        with pytest.raises(NotImplementedError,
+                           match="use the transpiler PS mode"):
+            call()

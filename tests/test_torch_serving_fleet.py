@@ -798,6 +798,17 @@ class _Fleet:
         self.held[j].gate.set()
         return j
 
+    def wait_rotation(self, dead):
+        """Wait until the router routes to every replica but ``dead``: a
+        loaded host can time out two health probes of a live replica in
+        a row, and the router then ejects it until its next good probe;
+        a stream started in that window finds no replica and ends with
+        ``replica_unavailable`` after ``max_attempts`` short naps (the
+        router's own behaviour, the same in the JAX package)."""
+        _until(lambda: all(r.routable != (i == dead) for i, r in
+                           enumerate(self.router.replicas)),
+               "the router's rotation without replica %d" % dead)
+
     def close(self):
         if self.router is not None:
             self.router.stop()
@@ -838,8 +849,11 @@ class TestFleetStreaming:
             assert killed is not None
             assert [t["index"] for t in got] == list(range(n))
             assert fin["reason"] == "max_tokens"
+            f.wait_rotation(killed)
             redo = list(f.router.generate([5, 6, 7], max_tokens=n,
                                           request_id="f2"))
+            assert redo[-1]["type"] == "finish"
+            assert redo[-1]["reason"] == "max_tokens", redo[-1]
             assert [t["token"] for t in got] == \
                 [x["token"] for x in redo if x["type"] == "token"]
             assert f.router.stats()[sm.STREAM_RESUMES] >= 1
