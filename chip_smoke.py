@@ -632,17 +632,40 @@ lines each:
    predictor); then geo-SGD in this process, its Adam ops folded into
    K4 (once a step) and its deltas shipped to an in-process pserver,
    and K4 at that path's flat size;
-69. one JSON line {"kernels": [...]} with each kernel's launches on the
+69. the survivable parameter server: phase 67's model over 2 shard groups
+   of a primary and a backup each (4 CPU pservers), a PSWitness, a 1.5 s
+   lease and a durable round store (--pserver_shards 2,
+   --ps_witness_endpoints, --ps_durable_dir), 2 trainers on the card.
+   Run A: a seeded round (2 or 3) starts with shard 0's primary
+   SIGKILLed; its backup wins the election with the witness's grant,
+   the trainers fail over and replay, the launcher relaunches the dead
+   server, which rejoins and catches up; after round 3 the state is read
+   back. Run B: once round 3 is durable on both shards the whole job is
+   SIGKILLed and relaunched with --restore; it trains rounds 4-6 from the
+   job's restore cut. Run C, in B's restored job: after round 4 the
+   ps_migrate_range steerer proposes a hot row range of one table from
+   the job's own merged dumps (the feeds send a tenth of every slot's
+   ids to the top eighth of shard 0's rows) and it moves to shard 1.
+   Each run's losses held to the untranspiled program; every pushed row,
+   with its Adam moments and the beta powers, bitwise to the replay of
+   the pushes (A: the promoted backup's shard after round 3; B: the
+   restored job after round 6, the moved range a group of its own); a
+   replay without round 2's or 3's pushes (a backup that skipped that
+   delta round; a restore one round short) must read over 0.1 Adam
+   steps; failover, lease, catch-up, replication, durable and restore
+   numbers printed; K7 launched in each trainer;
+70. one JSON line {"kernels": [...]} with each kernel's launches on the
    main paths (by path beside, the dygraph, recipe, seq2seq, while,
    sentiment, book_*, bert_proto, checkpoint, rnn_search, serving_ir,
    serving_http, resnet_infer, decode_http, fleet_generate,
    control_flow, dygraph_deploy, dp_*, hybrid_*, profiled_gpt, dgc,
-   dgc_dp, placement, steering and ps_* paths too; hybrid_sp counts the
+   dgc_dp, placement, steering, ps_* and ps_survive paths too; hybrid_sp
+   counts the
    sp mesh's steps alone: its ring blocks are torch.matmul, and the
    one-replica oracle's K1-K3 launches are printed in phase 59's line
    only), error, times and bound, P1 (graph_conditional, the port's own
    kernel) among them;
-70. the last line: {"ok": true, "device": {...}}.
+71. the last line: {"ok": true, "device": {...}}.
 
 Phases 43-45 run the book's scripts as the book does, with those knobs
 unset (phase 45 sets PADDLE_TPU_FUSED_OPTIMIZER for its SGD twins). Every
@@ -11532,6 +11555,451 @@ def phase_ps_geo(fluid, support, fo):
     return counts, run
 
 
+# -- phase 69: the survivable parameter server ----------------------------------
+#
+# phase 67's Wide&Deep at full width over 2 shard groups of a primary and a
+# backup each (4 CPU pserver processes), a PSWitness, a 1.5 s lease and a
+# durable round store, 2 trainers on the card through the launcher; the
+# feeds send a tenth of every slot's ids to a hot row window of shard 0.
+# One job, launched twice. Run A: a seeded round (2 or 3) starts with shard
+# 0's primary SIGKILLed: its backup wins the election with the witness's
+# grant, the trainers fail over and replay, the launcher relaunches the
+# dead server, which rejoins and catches up; after round 3 the trainers
+# read the state back. Run B: once round 3 is durable on both shards the
+# whole job is SIGKILLed and relaunched with --restore; it trains rounds
+# 4-6 from the job's restore cut. Run C, in B's restored job: after round
+# 4 the ps_migrate_range steerer's hot range (from the job's own merged
+# dumps) moves from shard 0 to shard 1; it executes at round 5's apply,
+# and round 6 reaches the moved rows on shard 1. Every run's losses are
+# held to the untranspiled program, every pushed row, with its moments
+# and beta powers, bitwise to the replay of the pushes
+SURV_STEPS = 6
+# a tenth of every slot's ids from the top eighth of shard 0's rows
+SURV_HOT = (43750, 50000, 0.1)
+SURV_LEASE_MS = 1500
+SURV_TIMEOUT = 480
+# the planted faults must read over this (Adam steps of lr): a replay
+# missing one round's pushes (a backup that skipped that delta round, a
+# restore one round short)
+SURV_PLANTED_MIN = 0.1
+
+
+def surv_hot(cfg):
+    """The hot window of ``SURV_HOT`` at ``cfg``'s vocab."""
+    v = cfg["vocab"] / float(PS_CFG["vocab"])
+    return int(SURV_HOT[0] * v), int(SURV_HOT[1] * v), SURV_HOT[2]
+
+
+def survive_env(out, cfg, primaries, extra):
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PADDLE_", "FLAGS_selected"))}
+    env.update(
+        PS_WD_CFG=json.dumps(cfg), PS_WD_MODE="sync", PS_WD_SURVIVE="1",
+        PS_WD_STEPS=str(SURV_STEPS), PS_WD_OUT=out,
+        PS_WD_HOT="%d,%d,%g" % surv_hot(cfg),
+        PS_TEST_PSERVERS=",".join(primaries),
+        PADDLE_PS_LEASE_MS=str(SURV_LEASE_MS),
+        # a trainer starts once every server answers (the worker waits),
+        # so a dead server's endpoint is given up within 2 s
+        PADDLE_PS_RPC_DEADLINE="120", PADDLE_PS_CONNECT_TIMEOUT="2",
+        PADDLE_PS_FAILOVER_CONNECT_TIMEOUT="2",
+        PADDLE_TPU_METRICS_DIR=os.path.join(out, "metrics"),
+        PADDLE_TPU_DUMP_PERIOD="0.5",
+        PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.update(extra)
+    return env
+
+
+def survive_cmd(worker, out, eps, witness, restore=False):
+    return [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+            "--nproc_per_node=2",
+            "--started_port=%s" % free_endpoints(1)[0].split(":")[1],
+            "--log_dir=%s" % os.path.join(out, "logs"),
+            "--max_restarts=1", "--server_script", worker,
+            "--pserver_endpoints", ",".join(eps), "--pserver_shards=2",
+            "--ps_witness_endpoints", witness,
+            "--ps_durable_dir", os.path.join(out, "durable"),
+            *(["--restore"] if restore else []), worker]
+
+
+def survive_logs(phase, out):
+    logs = os.path.join(out, "logs")
+    for name in sorted(os.listdir(logs)):
+        with open(os.path.join(logs, name)) as f:
+            log("phase %d %s:\n%s" % (phase, name, f.read()[-3000:]))
+
+
+def survive_results(out):
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, "trainer%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def survive_telemetry(mdir):
+    """The job's merged counters and histograms, and its flight events on
+    the launcher's clock (``t_us``)."""
+    from paddle_tpu_torch.observability import distributed as dist
+
+    with open(os.path.join(mdir, dist.MERGED_METRICS_NAME)) as f:
+        merged = json.load(f)
+    events = []
+    for doc in dist.load_dumps(mdir):
+        inc = int(doc.get("incarnation", 0) or 0)
+        for t_us, kind, fields in dist.doc_flight_events(doc):
+            events.append({"t_us": t_us, "proc": doc["proc"],
+                           "incarnation": inc, "kind": kind,
+                           "fields": fields})
+    events.sort(key=lambda e: e["t_us"])
+    hists = {}
+    for sec in (merged.get("processes") or {}).values():
+        for name, h in ((sec.get("metrics") or {}).get("histograms")
+                        or {}).items():
+            cur = hists.setdefault(name, {"count": 0, "sum": 0.0})
+            cur["count"] += h.get("count") or 0
+            cur["sum"] += h.get("sum") or 0.0
+    return merged.get("counters_total") or {}, hists, events
+
+
+def hist_mean(hists, name, exclude=None):
+    """The mean of histogram ``name`` (a family name with ``{`` matches
+    every series of the family whose labels hold ``name``'s, merged);
+    ``exclude`` drops the series whose name holds it."""
+    if name in hists:
+        h = hists[name]
+        return h["sum"] / h["count"] if h["count"] else None
+    fam, _, want = name.partition("{")
+    want = [x for x in want.rstrip("}").split(",") if x]
+    n = tot = 0.0
+    for key, h in hists.items():
+        kf, _, labels = key.partition("{")
+        if kf != fam or (exclude and exclude in key) \
+                or not all(x in labels.rstrip("}").split(",")
+                           for x in want):
+            continue
+        n += h["count"]
+        tot += h["sum"]
+    return tot / n if n else None
+
+
+def survive_numbers(totals, hists, rounds):
+    """A run's replication and durable numbers from its merged counters;
+    ``rounds`` is the rounds each shard applied (the held rounds around
+    the training included), and the bytes are a shard's a round."""
+    full_b = totals.get("ps.replication_bytes{mode=full}", 0)
+    delta_b = totals.get("ps.replication_bytes{mode=delta}", 0)
+    anchors = totals.get("ps.anchor_rounds", 0)
+    deltas = totals.get("ps.delta_rounds", 0)
+    dur = {m: totals.get("checkpoint.round_bytes{mode=%s}" % m, 0)
+           for m in ("full", "delta")}
+    return {
+        "anchor_rounds": anchors, "delta_rounds": deltas,
+        "anchor_bytes_a_round": full_b / anchors if anchors else None,
+        "delta_bytes_a_round": delta_b / deltas if deltas else None,
+        "durable_bytes_a_round": (dur["full"] + dur["delta"]) / (2 * rounds),
+        "durable_ms_full": hist_mean(hists, "ps.durable_ms{mode=full}"),
+        "durable_ms_delta": hist_mean(hists, "ps.durable_ms{mode=delta}"),
+        "catchup_ms": hist_mean(hists, "ps.catchup_ms"),
+        "catchup_bytes": totals.get("ps.catchup_bytes", 0),
+        "restore_ms": hist_mean(hists, "checkpoint.restore_ms"),
+        "lease_expiries": sum(v for k, v in totals.items()
+                              if k.startswith("ps.lease_expiries")),
+        "promotions": totals.get("ps.promotions", 0),
+        "witness_votes": sum(v for k, v in totals.items()
+                             if k.startswith("ps.witness_votes")),
+        "failovers": sum(v for k, v in totals.items()
+                         if k.startswith("ps.failovers")),
+        # where a round goes: the primary's apply (the replication in
+        # it), its parts, the tables' Adam, and the trainers' rpcs
+        "round_apply_ms": hist_mean(hists, "ps.apply_ms{table=_round}"),
+        "replicate_ms_full": hist_mean(hists, "ps.replicate_ms{mode=full}"),
+        "replicate_ms_delta": hist_mean(hists,
+                                        "ps.replicate_ms{mode=delta}"),
+        "digest_ms_a_round": totals.get("ps.digest_ms", 0)
+        / max(1, anchors + deltas),
+        "table_push_apply_ms": hist_mean(hists, "ps.apply_ms{",
+                                         exclude="table=_round"),
+        "push_rpc_ms": hist_mean(hists, "rpc.latency_ms{method=push_sparse}"),
+        "pull_rpc_ms": hist_mean(hists, "rpc.latency_ms{method=pull_sparse}"),
+        "barrier_rpc_ms": hist_mean(hists,
+                                    "rpc.latency_ms{method=send_barrier}"),
+        "replicate_rpc_ms": hist_mean(hists,
+                                      "rpc.latency_ms{method=replicate}"),
+    }
+
+
+def survive_parts(num):
+    return {k: num[k] for k in (
+        "round_apply_ms", "replicate_ms_full", "replicate_ms_delta",
+        "digest_ms_a_round", "table_push_apply_ms", "push_rpc_ms",
+        "pull_rpc_ms", "barrier_rpc_ms", "replicate_rpc_ms")}
+
+
+def survive_check(mod, out, ranks, ref, steps, drop, final):
+    """Losses against the reference (the rounds each run trained), the
+    replay of the first ``steps`` rounds against the state ``final``
+    bitwise and the planted fault over its limit."""
+    gaps = []
+    for i in range(steps):
+        got = [r["losses"].get(str(i)) for r in ranks]
+        if all(x is not None for x in got):
+            gaps.append(abs(float(np.mean(got)) - ref[i]) / abs(ref[i]))
+    t0 = time.perf_counter()
+    replay, planted = mod.check_survive_pushes(out, 2, steps,
+                                               drops=((), drop),
+                                               final=final)
+    return {"loss_gaps": gaps, "replay": replay, "planted": planted,
+            "check_s": time.perf_counter() - t0}
+
+
+def survive_gate(name, chk):
+    r, p = chk["replay"], chk["planted"]
+    if not chk["loss_gaps"] or not max(chk["loss_gaps"]) <= PS_MEAN_RTOL \
+            or r["rows"] != 0.0 or r["pows"] != 0.0 \
+            or not p["rows_least"] > SURV_PLANTED_MIN:
+        raise RuntimeError("phase 69 %s: %s" % (name, chk))
+
+
+def phase_ps_survive(fluid, support, cfg=None, device="cuda",
+                     ps67_round_ms=None):
+    """Phase 69: the survivable PS at full width through the launcher, its
+    three runs held to the reference and the replay; their measurements
+    (``ps67_round_ms``: phase 67's round, printed beside this one's)."""
+    import importlib.util
+    import shutil
+    import signal
+
+    from paddle_tpu_torch.checkpoint import RoundStore
+
+    cfg = dict(PS_CFG if cfg is None else cfg)
+    here = os.path.dirname(os.path.abspath(__file__))
+    mod, worker = ps_worker_module()
+    mod.CFG.update(cfg)
+    spec = importlib.util.spec_from_file_location(
+        "torch_chaos_drill", os.path.join(here, "tools",
+                                          "torch_chaos_drill.py"))
+    drill = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(drill)
+    sched = drill.make_schedule(SEED + 69, SURV_STEPS, shards=2)
+    # a round of the three before run B's kill, 2 or 3
+    kill_at = 2 + (sched["server_kill_round"] - 1) % 2
+    extra = {"PS_WD_DEVICE": device}
+    t_phase = time.perf_counter()
+    outs, counts = [], {}
+    try:
+        # -- run A: shard 0's primary killed before round 2 or 3, its
+        # backup promoted, the trainers failed over, the dead server
+        # relaunched and caught up; after round 3 the state is read back
+        # and run B kills the whole job once that round is durable
+        out = tempfile.mkdtemp(prefix="phase69-")
+        outs.append(out)
+        mdir = os.path.join(out, "metrics")
+        eps, wit = free_endpoints(4), free_endpoints(1)[0]
+        prim = [eps[0], eps[2]]
+        env = survive_env(out, cfg, prim, dict(
+            extra, PS_WD_KILL_AT=str(kill_at), PS_WD_KILL_EP=eps[0],
+            PS_WD_PAUSE_AFTER="3", PS_WD_MIGRATE_AFTER="4"))
+        t0 = time.perf_counter()
+        job = subprocess.Popen(survive_cmd(worker, out, eps, wit),
+                               env=env, cwd=here, start_new_session=True)
+        durable = os.path.join(out, "durable")
+        try:
+            deadline = time.time() + SURV_TIMEOUT
+            while True:
+                if job.poll() is not None:
+                    survive_logs(69, out)
+                    raise RuntimeError("phase 69 run A: the job exited %d "
+                                       "before its kill" % job.returncode)
+                if time.time() > deadline:
+                    raise RuntimeError("phase 69 run A: no pause")
+                paused = [os.path.join(out, "paused%d.json" % r)
+                          for r in range(2)]
+                if all(os.path.exists(x) for x in paused):
+                    with open(os.path.join(out, "progress0.json")) as f:
+                        want = json.load(f)["2"]["server_round"]
+                    if all(want in RoundStore(durable, k).restorable_rounds()
+                           for k in range(2)):
+                        break
+                time.sleep(0.2)
+            # the paused job's periodic dumps land (the telemetry of run
+            # A is read from them) before the kill
+            time.sleep(3 * float(env["PADDLE_TPU_DUMP_PERIOD"]))
+            kill_wall = time.time()
+            os.killpg(job.pid, signal.SIGKILL)
+        finally:
+            if job.poll() is None:
+                os.killpg(job.pid, signal.SIGKILL)
+            job.wait(timeout=60)
+        job_a = time.perf_counter() - t0
+        ranks_a = []
+        for r in range(2):
+            with open(os.path.join(out, "paused%d.json" % r)) as f:
+                ranks_a.append(json.load(f))
+        from paddle_tpu_torch.observability import distributed as dist
+
+        dist.merge_job_dir(mdir)  # the dead incarnation's dumps, merged
+        totals, hists, events = survive_telemetry(mdir)
+        events = [e for e in events if e["incarnation"] == 0]
+        # 2 held rounds before the training, 3 steps, 2 held rounds to
+        # read the state back
+        num_a = survive_numbers(totals, hists, 7)
+        kill_us = ranks_a[0]["kill_wall"] * 1e6
+        promo = next((e for e in events if e["kind"] == "ps.promotion"
+                      and e["fields"].get("endpoint") == eps[1]), None)
+        expiry = next((e for e in events
+                       if e["kind"] == "ps.lease_expired"
+                       and e["fields"].get("endpoint") == eps[1]
+                       and e["t_us"] >= kill_us), None)
+        applied = next((e for e in events
+                        if e["kind"] == "ps.round_applied"
+                        and promo is not None
+                        and e["proc"] == promo["proc"]
+                        and e["t_us"] > promo["t_us"]), None)
+        num_a.update({
+            "kill_round": kill_at, "job_s": job_a,
+            "failover_ms": (applied["t_us"] - kill_us) / 1e3
+            if applied else None,
+            "lease_expiry_to_promotion_ms":
+                (promo["t_us"] - expiry["t_us"]) / 1e3
+                if promo and expiry else None,
+            "caught_up_wait_s": ranks_a[0]["caught_up_s"],
+            "caught_up": ranks_a[0]["caught_up"]})
+        # -- run B (and C): relaunched with --restore, rounds 4-6 from the
+        # job's cut; after round 4 the steerer's hot range moves
+        t0 = time.perf_counter()
+        relaunch_wall = time.time()
+        res = subprocess.run(
+            survive_cmd(worker, out, eps, wit, restore=True),
+            env=env, timeout=SURV_TIMEOUT, cwd=here)
+        job_b = time.perf_counter() - t0
+        if res.returncode != 0:
+            survive_logs(69, out)
+            raise RuntimeError("phase 69 run B: the restored job exited %d"
+                               % res.returncode)
+        ranks_b = survive_results(out)
+        with open(os.path.join(durable, "job.json")) as f:
+            job_doc = json.load(f)
+        totals, hists, events = survive_telemetry(mdir)
+        # 2 held rounds before, 3 steps, 2 held rounds after
+        num_b = survive_numbers(totals, hists, 7)
+        first_round = min(min(float(v) for v in r["round_wall"].values())
+                          for r in ranks_b)
+        mig = ranks_b[0].get("migration") or {}
+        moved = {r: (x.get("shard_map") or {}) for r, x in
+                 enumerate(ranks_b)}
+        num_b.update({
+            "restore_cut": job_doc.get("restore_round"),
+            "incarnation": job_doc.get("incarnation"),
+            "resumed_at_step": [r["start_step"] for r in ranks_b],
+            "job_s": job_b, "kill_to_relaunch_s": relaunch_wall - kill_wall,
+            "trainer_ready_s": [r.get("ready_s") for r in ranks_b],
+            "cold_restart_to_first_round_ms":
+                (first_round - relaunch_wall) * 1e3,
+            "migration_plan": mig.get("plan"),
+            "adopted_maps": moved,
+            "migration_bytes": totals.get(
+                "ps.migration_bytes{kind=range}", 0)})
+        # -- the reference and the checks ---------------------------------
+        t0 = time.perf_counter()
+        exe = (new_card_executor(fluid, support) if device == "cuda"
+               else fluid.Executor(fluid.CPUPlace()))
+        orig = mod.global_batches
+        mod.global_batches = lambda steps, seed=24: orig(
+            steps, seed, hot=surv_hot(cfg))
+        try:
+            ref = mod.reference_run(exe, SURV_STEPS, out)
+        finally:
+            mod.global_batches = orig
+        if device == "cuda":
+            exe.close()
+        ref_s = time.perf_counter() - t0
+        # run A: the state read back after round 3 (the promoted backup
+        # serving shard 0), against the replay of rounds 1-3
+        chk_a = survive_check(mod, out, ranks_a, ref, 3,
+                              {(r, kill_at - 1) for r in range(2)}, "mid")
+        # run B: the restored job's state after round 6
+        chk_b = survive_check(mod, out, ranks_b, ref, SURV_STEPS,
+                              {(r, 2) for r in range(2)}, "final")
+        for r in ranks_a + ranks_b:
+            for k, v in r["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+    finally:
+        for d in outs:
+            shutil.rmtree(d, ignore_errors=True)
+    step_ms = float(np.median([ms for r in ranks_a + ranks_b
+                               for i, ms in r["step_ms"].items()
+                               if int(i) != r["start_step"]]))
+    run = {"cfg": cfg, "schedule_seed": sched["seed"], "run_a": num_a,
+           "run_b": num_b, "check_a": chk_a, "check_b": chk_b,
+           "reference_s": ref_s, "step_ms": step_ms,
+           "launches": counts, "phase_s": time.perf_counter() - t_phase}
+    log("phase 69 survivable PS: Wide&Deep %s over 2 groups of a primary "
+        "and a backup (4 CPU pservers), a witness, a %d ms lease and a "
+        "durable round store, 2 trainers on %s through the launcher. Run "
+        "A (shard 0's primary SIGKILLed before round %d): failover %s ms "
+        "(kill to the promoted backup's first applied round), lease expiry "
+        "to promotion %s ms, %s promotion(s), witness votes %s; the "
+        "relaunched server caught up in %s ms (%s bytes); a round shipped "
+        "%s bytes as an anchor, %s as a delta (%s anchors, %s deltas); "
+        "durable %s bytes a round (anchor %s ms, delta %s ms); a round's "
+        "parts (ms): %s; %.1f s to the whole-job kill after round 3. Run "
+        "B (cut at server round %s, incarnation %s, resumed at steps %s): "
+        "restore %s ms, relaunch to the first round %.0f ms, delta %s "
+        "bytes a round, parts %s; run C (in B's restored job) moved %s (%s "
+        "bytes), adopted maps %s; %.1f s (trainers ready after %s s). A "
+        "round %.2f ms median (phase 67's %s ms); launches %s; %.1f s; "
+        "card %s"
+        % (json.dumps(cfg), SURV_LEASE_MS, device, kill_at,
+           num_a["failover_ms"], num_a["lease_expiry_to_promotion_ms"],
+           num_a["promotions"], num_a["witness_votes"], num_a["catchup_ms"],
+           num_a["catchup_bytes"], num_a["anchor_bytes_a_round"],
+           num_a["delta_bytes_a_round"], num_a["anchor_rounds"],
+           num_a["delta_rounds"], num_a["durable_bytes_a_round"],
+           num_a["durable_ms_full"], num_a["durable_ms_delta"],
+           json.dumps(survive_parts(num_a)), num_a["job_s"],
+           num_b["restore_cut"], num_b["incarnation"],
+           num_b["resumed_at_step"], num_b["restore_ms"],
+           num_b["cold_restart_to_first_round_ms"],
+           num_b["delta_bytes_a_round"], json.dumps(survive_parts(num_b)),
+           json.dumps(num_b["migration_plan"]), num_b["migration_bytes"],
+           json.dumps(num_b["adopted_maps"]), num_b["job_s"],
+           num_b["trainer_ready_s"], step_ms, ps67_round_ms,
+           json.dumps(counts), run["phase_s"],
+           card_line() if device == "cuda" else "cpu"))
+    log("phase 69 gates: losses against the untranspiled program (limit "
+        "%g): A %s, B %s; every pushed row, its moments and beta powers "
+        "against the replay of the pushes, bitwise (limit 0): A (after "
+        "round 3, the promoted backup serving shard 0) rows %.3g, powers "
+        "%.3g over %d groups; B (the restored job after round 6, the moved "
+        "range a group of its own) rows %.3g, powers %.3g over %d groups; "
+        "planted (limit over %g Adam steps): A without round %d's pushes "
+        "(a backup that skipped that delta round) %.3g at least, B without "
+        "round 3's (a restore one round short) %.3g at least; checks %.1f "
+        "+ %.1f s, reference %.1f s"
+        % (PS_MEAN_RTOL, ["%.3g" % g for g in chk_a["loss_gaps"]],
+           ["%.3g" % g for g in chk_b["loss_gaps"]],
+           chk_a["replay"]["rows"], chk_a["replay"]["pows"],
+           chk_a["replay"]["groups"], chk_b["replay"]["rows"],
+           chk_b["replay"]["pows"], chk_b["replay"]["groups"],
+           SURV_PLANTED_MIN, kill_at, chk_a["planted"]["rows_least"],
+           chk_b["planted"]["rows_least"], chk_a["check_s"],
+           chk_b["check_s"], ref_s))
+    survive_gate("run A", chk_a)
+    survive_gate("run B", chk_b)
+    if num_a["promotions"] < 1 or num_a["failover_ms"] is None \
+            or not all(v.get("caught_up")
+                       for v in num_a["caught_up"].values()):
+        raise RuntimeError("phase 69 run A: %s" % num_a)
+    if num_b["restore_cut"] is None or num_b["resumed_at_step"] != [3, 3] \
+            or not num_b["migration_plan"] \
+            or not all((m.get("version") or 0) >= 1
+                       for m in num_b["adopted_maps"].values()):
+        raise RuntimeError("phase 69 run B: %s" % num_b)
+    return counts, run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -11695,6 +12163,10 @@ def main() -> int:
         time.perf_counter() - t_67, json.dumps(
             {"ps_sync": ps_sync_run, "ps_async": ps_async_run,
              "ps_geo": ps_geo_run}, default=str)))
+    # the survivable parameter server: failover, cold restart, migration
+    ps_survive, ps_survive_run = phase_ps_survive(
+        fluid, support, ps67_round_ms=ps_sync_run["step_ms"])
+    log("phase 69 %s" % json.dumps(ps_survive_run, default=str))
     log("phases 51-53 %s" % json.dumps(
         {"serving_http": http_run, "resnet_infer": resnet_infer_run,
          "decode_http": decode_http_run}))
@@ -11781,7 +12253,8 @@ def main() -> int:
                    "steering": steered.get(kern["name"], 0),
                    "ps_sync": ps_sync.get(kern["name"], 0),
                    "ps_async": ps_async.get(kern["name"], 0),
-                   "ps_geo": ps_geo.get(kern["name"], 0)}
+                   "ps_geo": ps_geo.get(kern["name"], 0),
+                   "ps_survive": ps_survive.get(kern["name"], 0)}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
         if kern["launches"] == 0:

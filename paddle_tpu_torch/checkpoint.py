@@ -1,6 +1,6 @@
 """Atomic, verifiable, rotated checkpoints.
 
-Counterpart of ``paddle_tpu/checkpoint.py:73-589`` and ``:862-881``, with
+Counterpart of ``paddle_tpu/checkpoint.py``, with
 the same files, manifest and layout, so a checkpoint written by either
 package verifies and loads in the other. The contract:
 
@@ -30,9 +30,11 @@ manifest and atomic writes: there is one copy of that code.
 
 ``checkpoint.save_ms`` / ``checkpoint.bytes`` / ``checkpoint.delta_bytes``
 / ``checkpoint.shards_reused`` / ``checkpoint.corrupt`` record into the
-observability registry unconditionally, as in the JAX package. The
-round-fenced ``RoundStore`` and
-the ``job_*`` restore functions come with the parameter server.
+observability registry unconditionally, as in the JAX package, and so
+does ``checkpoint.round_bytes{mode=}`` of the round-fenced
+``RoundStore`` that the parameter server's durable rounds write
+(``job_restore_round`` and the job manifest serve the launcher's cold
+restart).
 """
 from __future__ import annotations
 
@@ -48,16 +50,23 @@ from typing import Callable, Dict, List, Optional
 from . import observability as _obs
 from .observability import flight as _flight
 
-__all__ = ["CheckpointCorrupt", "MANIFEST_NAME", "SCOPE_VARS_NAME",
+__all__ = ["CheckpointCorrupt", "RestoreMissingShard", "MANIFEST_NAME",
+           "SCOPE_VARS_NAME", "ROUND_PREFIX", "JOB_MANIFEST_NAME",
            "atomic_write_bytes", "atomic_checkpoint_dir",
            "makedirs_durable", "write_manifest", "verify_manifest",
-           "manifest_extra", "load_scope_snapshot", "CheckpointManager",
+           "manifest_extra", "load_scope_snapshot", "RoundStore",
+           "job_restore_round", "job_has_durable_state",
+           "read_job_manifest", "write_job_manifest", "CheckpointManager",
            "save_checkpoint", "load_checkpoint"]
 
 MANIFEST_NAME = "__manifest__.json"
 SCOPE_VARS_NAME = "__vars__.json"  # file name -> var name (snapshots)
 _LATEST_NAME = "latest"
 _CKPT_PREFIX = "ckpt-"
+ROUND_PREFIX = "round-"         # RoundStore frame dirs
+_ROUND_BLOB = "blob.bin"        # the frame's concatenated var payload
+_OPLOG_NAME = "oplog.jsonl"     # async-mode op tail (RoundStore)
+JOB_MANIFEST_NAME = "job.json"  # whole-job restore manifest (launcher)
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -65,6 +74,20 @@ class CheckpointCorrupt(RuntimeError):
     sha256 mismatch, unreadable manifest). Callers holding older rotations
     should fall back; callers without one should fail loudly rather than
     train from garbage."""
+
+
+class RestoreMissingShard(RuntimeError):
+    """Whole-job restore needs a round that exists on EVERY shard, and
+    this shard contributed none: its durable dir is missing, or every
+    round frame in it is torn/corrupt. Names the shard so the operator
+    knows which group's disk to recover (a mixed cut must never be
+    loaded silently)."""
+
+    def __init__(self, shard: int, root: str, why: str):
+        self.shard = int(shard)
+        super().__init__(
+            "cannot restore the job: shard %d has no usable durable "
+            "rounds under %r (%s)" % (self.shard, root, why))
 
 
 def _observe(name: str, v) -> None:
@@ -543,6 +566,290 @@ class CheckpointManager:
         raise CheckpointCorrupt(
             "every checkpoint at or before step %d under %r failed "
             "verification: %s" % (step, self.root, "; ".join(errors)))
+
+
+# -- round-fenced durable snapshots -----------------------------------------
+#
+# Live replication survives the loss of one server of a group; the loss
+# of a whole group, or of the whole job, needs state on disk cut at a
+# round boundary. ``RoundStore`` keeps, per shard group, the frame the
+# primary ships to its backups at each round (full anchors every
+# ``PADDLE_PS_ANCHOR_EVERY`` rounds, row or chunk deltas between), in
+# the JAX package's layout byte for byte, so either package restores a
+# directory the other wrote. ``job_restore_round`` is the newest round
+# every shard can restore: never a mixed cut.
+
+
+class RoundStore:
+    """Durable round frames for ONE shard group::
+
+        root/shard-<k>/
+          round-41/  blob.bin  __manifest__.json   (mode=full anchor)
+          round-42/  blob.bin  __manifest__.json   (mode=delta, base 41)
+          oplog.jsonl                              (async op tail)
+
+    Each frame dir is written atomically (manifest last, rename in,
+    parent fsynced) with the frame metadata — round, mode, base round,
+    fencing epoch, dedup watermark, var headers, and the shard-map /
+    migration extras — in the manifest's ``extra``; ``blob.bin`` is
+    the concatenated var payload. A frame is *restorable* when its own
+    manifest verifies AND (for deltas) its base round is restorable —
+    a torn newest frame therefore silently falls back to the previous
+    complete round instead of failing restore. Retention keeps the
+    newest ``keep_anchors`` anchor chains (fallback needs at least the
+    previous one)."""
+
+    def __init__(self, root: str, shard: int = 0,
+                 keep_anchors: Optional[int] = None):
+        self.root = os.path.abspath(root)
+        self.shard = int(shard)
+        self.dir = os.path.join(self.root, "shard-%d" % self.shard)
+        if keep_anchors is None:
+            keep_anchors = int(os.environ.get(
+                "PADDLE_PS_DURABLE_KEEP_ANCHORS", "2"))
+        self.keep_anchors = max(2, int(keep_anchors))
+        self._oplog_path = os.path.join(self.dir, _OPLOG_NAME)
+        self._oplog_fp = None
+        self._meta_cache: Dict[int, Optional[Dict]] = {}
+
+    # -- layout ------------------------------------------------------------
+
+    def round_dir(self, round_no: int) -> str:
+        return os.path.join(self.dir,
+                            "%s%d" % (ROUND_PREFIX, int(round_no)))
+
+    def rounds(self) -> List[int]:
+        """Renamed-into-place round numbers, ascending (temp/trash
+        dirs are invisible by construction)."""
+        if not os.path.isdir(self.dir):
+            return []
+        out = []
+        for fn in os.listdir(self.dir):
+            if not fn.startswith(ROUND_PREFIX):
+                continue
+            tail = fn[len(ROUND_PREFIX):]
+            if tail.isdigit() and os.path.isdir(
+                    os.path.join(self.dir, fn)):
+                out.append(int(tail))
+        return sorted(out)
+
+    def meta(self, round_no: int) -> Optional[Dict]:
+        """Verified frame metadata for ``round_no`` (None when the
+        frame is absent, torn, or corrupt). Verification results are
+        cached — a frame dir is immutable once renamed into place."""
+        round_no = int(round_no)
+        if round_no in self._meta_cache:
+            return self._meta_cache[round_no]
+        d = self.round_dir(round_no)
+        meta: Optional[Dict] = None
+        try:
+            verify_manifest(d, required=True)
+            meta = manifest_extra(d)
+        except CheckpointCorrupt:
+            _count("checkpoint.corrupt")
+            meta = None
+        self._meta_cache[round_no] = meta
+        return meta
+
+    # -- persist -----------------------------------------------------------
+
+    def put_round(self, round_no: int, headers: List[Dict], raw: bytes,
+                  watermark: Dict, mode: str = "full",
+                  base_round: Optional[int] = None, epoch: int = 0,
+                  extra: Optional[Dict] = None) -> str:
+        """Persist one applied round's replication frame atomically.
+        ``checkpoint.round_bytes{mode=}`` counts the payload — CI
+        watches that delta rounds stay a sliver of anchors."""
+        meta = {"round": int(round_no), "mode": str(mode),
+                "base_round": (-1 if base_round is None
+                               else int(base_round)),
+                "epoch": int(epoch), "shard": self.shard,
+                "watermark": {str(k): int(v)
+                              for k, v in (watermark or {}).items()},
+                "vars": list(headers)}
+        if extra:
+            meta["repl_extra"] = extra
+        final = self.round_dir(round_no)
+        with atomic_checkpoint_dir(final, extra=meta) as tmp:
+            atomic_write_bytes(os.path.join(tmp, _ROUND_BLOB), raw)
+        self._meta_cache[int(round_no)] = meta
+        _count("checkpoint.round_bytes", len(raw), mode=str(mode))
+        self._prune()
+        return final
+
+    def _prune(self) -> None:
+        """Drop frames older than the ``keep_anchors``-newest anchor
+        (every kept anchor's delta chain stays whole — restore may
+        legitimately fall back to the PREVIOUS chain)."""
+        rounds = self.rounds()
+        anchors = [r for r in rounds
+                   if (self.meta(r) or {}).get("mode") == "full"]
+        if len(anchors) <= self.keep_anchors:
+            return
+        floor = anchors[-self.keep_anchors]
+        for r in rounds:
+            if r < floor:
+                shutil.rmtree(self.round_dir(r), ignore_errors=True)
+                self._meta_cache.pop(r, None)
+
+    # -- restore -----------------------------------------------------------
+
+    def restorable_rounds(self) -> List[int]:
+        """Rounds whose whole anchor→delta chain verifies, ascending —
+        the rounds this shard can contribute to a job-wide cut. A
+        delta whose base is missing/corrupt (or whose own frame is
+        torn) drops out, along with everything chained past it."""
+        good: set = set()
+        for r in self.rounds():
+            m = self.meta(r)
+            if m is None:
+                continue
+            if m.get("mode") == "full":
+                good.add(r)
+            elif int(m.get("base_round", -2)) == r - 1 and (r - 1) in good:
+                good.add(r)
+        return sorted(good)
+
+    def load_round(self, target: int, apply_fn) -> int:
+        """Replay the newest anchor chain ending at ``target``:
+        ``apply_fn(meta, raw)`` is called for the anchor and every
+        delta after it in order, with the same splice semantics a
+        replication backup uses. Raises ``CheckpointCorrupt`` when
+        ``target`` is not restorable here."""
+        target = int(target)
+        if target not in set(self.restorable_rounds()):
+            raise CheckpointCorrupt(
+                "shard %d cannot restore round %d from %r (rounds on "
+                "disk: %s)" % (self.shard, target, self.dir,
+                               self.rounds()))
+        chain = []
+        r = target
+        while True:
+            m = self.meta(r)
+            chain.append((r, m))
+            if m.get("mode") == "full":
+                break
+            r -= 1
+        for r, m in reversed(chain):
+            with open(os.path.join(self.round_dir(r), _ROUND_BLOB),
+                      "rb") as f:
+                raw = f.read()
+            apply_fn(m, raw)
+        return target
+
+    # -- async op tail (geo / async mode) ----------------------------------
+
+    def append_op(self, entry: Dict) -> None:
+        """Durably append one applied async op (flush + fsync: the op
+        was acked to the client — it must survive a whole-job kill).
+        ``entry`` carries the op payload plus its dedup token and the
+        synthetic round that will fold it (``round``); the tail is
+        truncated whenever that round's frame lands."""
+        makedirs_durable(self.dir)
+        if self._oplog_fp is None:
+            self._oplog_fp = open(self._oplog_path, "ab")
+        self._oplog_fp.write(
+            (json.dumps(entry, sort_keys=True) + "\n").encode())
+        self._oplog_fp.flush()
+        os.fsync(self._oplog_fp.fileno())
+
+    def clear_ops_through(self, round_no: int) -> None:
+        """Drop logged ops folded into round ``round_no``'s frame (they
+        are now covered by the frame itself)."""
+        keep = [e for e in self.pending_ops()
+                if int(e.get("round", 0)) > int(round_no)]
+        if self._oplog_fp is not None:
+            self._oplog_fp.close()
+            self._oplog_fp = None
+        if not keep and os.path.exists(self._oplog_path):
+            os.unlink(self._oplog_path)
+            _fsync_dir(self.dir)
+            return
+        if keep:
+            atomic_write_bytes(
+                self._oplog_path,
+                b"".join((json.dumps(e, sort_keys=True) + "\n").encode()
+                         for e in keep))
+
+    def pending_ops(self, after_round: Optional[int] = None) -> List[Dict]:
+        """Logged ops newer than ``after_round`` (all of them when
+        None), oldest first; a torn final line (killed mid-append) is
+        ignored — that op was never acked durable."""
+        out = []
+        try:
+            with open(self._oplog_path, "rb") as f:
+                for line in f:
+                    try:
+                        e = json.loads(line.decode("utf-8"))
+                    except ValueError:
+                        continue  # torn tail
+                    if after_round is None \
+                            or int(e.get("round", 0)) > int(after_round):
+                        out.append(e)
+        except OSError:
+            return []
+        return out
+
+
+def job_restore_round(root: str, expected_shards: int) -> Optional[int]:
+    """The newest round restorable on EVERY shard group under
+    ``root`` — the only cut a whole-job cold restart may load. Walks
+    each shard round-aware (torn newest frames fall out of that
+    shard's restorable set, pulling the job cut back with them).
+    Raises the typed ``RestoreMissingShard`` — naming the shard — when
+    a group's durable dir is missing or holds no complete round; a
+    mixed or partial restore must never happen silently. Returns None
+    only when no round is common to all shards (shouldn't happen with
+    per-round persistence; callers treat it as nothing-to-restore)."""
+    common: Optional[set] = None
+    for k in range(max(1, int(expected_shards))):
+        store = RoundStore(root, k)
+        if not os.path.isdir(store.dir):
+            raise RestoreMissingShard(
+                k, root, "durable dir %r does not exist" % store.dir)
+        good = set(store.restorable_rounds())
+        if not good:
+            raise RestoreMissingShard(
+                k, root, "no complete round frame (all torn or corrupt)")
+        common = good if common is None else (common & good)
+    if not common:
+        return None
+    return max(common)
+
+
+def job_has_durable_state(root: str) -> bool:
+    """True when ANY shard group left round frames under ``root`` —
+    the launcher's restore auto-detect probe (cheap: no verification)."""
+    if not root or not os.path.isdir(root):
+        return False
+    for fn in os.listdir(root):
+        d = os.path.join(root, fn)
+        if fn.startswith("shard-") and os.path.isdir(d):
+            for sub in os.listdir(d):
+                if sub.startswith(ROUND_PREFIX) and os.path.isdir(
+                        os.path.join(d, sub)):
+                    return True
+    return False
+
+
+def read_job_manifest(root: str) -> Dict:
+    """The launcher-written ``job.json`` under the durable root ({}
+    when absent/unreadable): incarnation counter + the restore cut the
+    job booted from."""
+    try:
+        with open(os.path.join(root, JOB_MANIFEST_NAME), "r",
+                  encoding="utf-8") as f:
+            doc = json.load(f)
+        return doc if isinstance(doc, dict) else {}
+    except (OSError, ValueError):
+        return {}
+
+
+def write_job_manifest(root: str, doc: Dict) -> str:
+    path = os.path.join(root, JOB_MANIFEST_NAME)
+    atomic_write_bytes(path, json.dumps(
+        doc, indent=1, sort_keys=True).encode())
+    return path
 
 
 def save_checkpoint(executor, root: str, step: int, main_program=None,

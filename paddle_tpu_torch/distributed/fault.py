@@ -6,8 +6,9 @@ every frame it sends and every reply it reads through
 ``get_injector()``), and so does the parameter server's socket RPC
 (``ps_rpc.py``), so a test or a drill can drop, delay, duplicate,
 truncate or sever fleet and PS RPCs on demand, seeded so a failing run
-replays. ``clock_skew`` and ``random_plan`` (the lease drills) are not
-ported yet.
+replays. ``clock_skew`` is the one clock every lease deadline and
+election timer of the parameter server reads, and ``random_plan`` draws
+the seeded drop / dup / delay / partition plans of the chaos drills.
 
 Grammar (``PADDLE_TPU_FAULTS``)::
 
@@ -28,6 +29,10 @@ sever), close (sever without transmitting); ``recv``: drop (the reader
 sees silence), delay, close. A ``partition`` rule blackholes frames to
 one peer (or, for an ``A|B`` pair, between the two processes whose
 identity, ``set_identity`` or ``PADDLE_TPU_FAULT_IDENTITY``, is A or B).
+A ``clock_jitter:<prob>:<ms>`` rule skews this process's lease clock: a
+constant offset drawn once in ``[-ms, +ms]`` (seeded by the seed and the
+process identity) plus, with probability ``prob`` on each read, a fresh
+jitter in the same range.
 
 Every injected fault increments ``fault.injected{side=,kind=}`` in the
 observability registry (unconditionally) and records a ``fault.injected``
@@ -35,6 +40,7 @@ flight event naming the peer.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 import random
 import socket
@@ -47,7 +53,8 @@ from ..observability import flight as _flight
 
 __all__ = ["FaultRule", "FaultInjector", "FaultInjected",
            "get_injector", "reset_injector", "parse_plan",
-           "set_identity", "get_identity"]
+           "random_plan", "set_identity", "get_identity",
+           "clock_skew"]
 
 _SIDES = ("send", "recv", "any")
 _KINDS = ("drop", "delay", "dup", "truncate", "close", "partition",
@@ -166,6 +173,58 @@ def _count(side: str, kind: str, **fields) -> None:
     _flight.record("fault.injected", side=side, kind=kind, **fields)
 
 
+# the menu of randomized chaos schedules: only faults that retry and
+# dedupe absorb. close / truncate sever the connection, which at a
+# drill's probabilities would spend the retry budget and fail over a
+# healthy primary; they stay material for directed tests.
+_RANDOM_MENU = (
+    ("send", "drop", (0.01, 0.05), None),
+    ("send", "dup", (0.01, 0.05), None),
+    ("send", "delay", (0.02, 0.10), (5.0, 30.0)),
+    ("recv", "drop", (0.01, 0.04), None),
+    ("recv", "delay", (0.02, 0.10), (5.0, 30.0)),
+    ("any", "delay", (0.02, 0.08), (5.0, 20.0)),
+)
+
+
+def clock_skew() -> float:
+    """The clock offset (seconds) the lease and election timers apply
+    right now; 0.0 without an injector or a ``clock_jitter`` rule."""
+    inj = get_injector()
+    if inj is None or not inj.clock_rules:
+        return 0.0
+    return inj.clock_skew_s()
+
+
+def random_plan(rng: random.Random, max_rules: int = 3,
+                partition_peers=None, clock_jitter_ms=None) -> str:
+    """A seeded ``PADDLE_TPU_FAULTS`` plan drawn from the recoverable
+    menu: the same ``rng`` state gives the same plan (and the JAX
+    package's ``random_plan`` draws the same one). ``partition_peers``
+    (``"A|B"`` pairs) adds one hard ``partition:1`` rule for a pair the
+    rng picks; ``clock_jitter_ms`` appends ``clock_jitter:0.5:<ms>``
+    after the other draws, using no rng."""
+    n = rng.randint(1, max(1, int(max_rules)))
+    picks = rng.sample(range(len(_RANDOM_MENU)), min(n, len(_RANDOM_MENU)))
+    specs = []
+    for i in sorted(picks):
+        side, kind, (plo, phi), prange = _RANDOM_MENU[i]
+        prob = round(rng.uniform(plo, phi), 4)
+        if prange is None:
+            specs.append("%s.%s:%g" % (side, kind, prob))
+        else:
+            param = round(rng.uniform(*prange), 1)
+            specs.append("%s.%s:%g:%g" % (side, kind, prob, param))
+    if partition_peers:
+        pair = partition_peers[rng.randrange(len(partition_peers))]
+        specs.append("partition:1:%s" % pair)
+    if clock_jitter_ms:
+        specs.append("clock_jitter:0.5:%g" % float(clock_jitter_ms))
+    plan = ",".join(specs)
+    parse_plan(plan)  # a drawn plan always parses
+    return plan
+
+
 # -- process identity (partition rules) -------------------------------------
 
 _identity: Optional[str] = None
@@ -209,7 +268,10 @@ class FaultInjector:
         self.clock_rules = [r for r in rules
                             if r.kind == "clock_jitter"]
         self._rng = random.Random(seed)
+        self._seed = int(seed)
         self._lock = threading.Lock()
+        # the per-process constant skew, drawn at the first clock read
+        self._clock_skew_s: Optional[float] = None
 
     @classmethod
     def from_env(cls) -> Optional["FaultInjector"]:
@@ -265,6 +327,35 @@ class FaultInjector:
                 _count(side, "partition", peer=peer)
                 return True
         return False
+
+    # -- the clock hook (the PS lease and election timers read it) --------
+
+    def clock_skew_s(self) -> float:
+        """How far (seconds) this process's lease clock is off right
+        now: the per-process constant skew plus, with each rule's
+        probability, a fresh jitter. 0.0 without ``clock_jitter``."""
+        if not self.clock_rules:
+            return 0.0
+        with self._lock:
+            if self._clock_skew_s is None:
+                ident = get_identity() or ""
+                h = int.from_bytes(
+                    hashlib.blake2b(
+                        ("%d|%s" % (self._seed, ident)).encode(),
+                        digest_size=8).digest(), "big")
+                srng = random.Random(h)
+                skew = 0.0
+                for r in self.clock_rules:
+                    skew += srng.uniform(-r.param, r.param) / 1e3
+                self._clock_skew_s = skew
+                _flight.record("fault.clock_skew", identity=ident,
+                               skew_ms=round(skew * 1e3, 1))
+            off = self._clock_skew_s
+            for r in self.clock_rules:
+                if self._rng.random() < r.prob:
+                    off += self._rng.uniform(-r.param, r.param) / 1e3
+                    _count("any", "clock_jitter")
+        return off
 
     # -- frame hooks (the fleet router's transport calls them) -----------
 

@@ -17,18 +17,34 @@ failed rank's code. Every child is a new process (``subprocess``): the
 launcher never forks a process that holds CUDA.
 
 Parameter servers: ``--server_script=serve.py`` with
-``--pserver_endpoints=ep0,ep1`` and ``--pserver_shards=2`` starts one
-server process an endpoint, one primary a shard (env contract:
+``--pserver_endpoints=ep0,ep1,ep2,ep3`` and ``--pserver_shards=2`` starts
+one server process an endpoint, the endpoints sliced into contiguous
+groups of a primary and its backups, one group a shard (env contract:
 ``PADDLE_ROLE=pserver``, ``PADDLE_PSERVER_ENDPOINTS`` = its shard's
 group, ``PADDLE_PSERVER_SHARDS``, ``PADDLE_PSERVER_SHARD``,
 ``PADDLE_PSERVER_INDEX``, ``PADDLE_PSERVER_GLOBAL_INDEX``,
-``PSERVER_ENDPOINT`` = its own endpoint, ``PADDLE_TRAINERS_NUM``).
-Trainers get the full list in ``PADDLE_PSERVER_ENDPOINTS`` and the count
-in ``PADDLE_PSERVER_SHARDS`` (``ps_shard.client_from_env``). A group of
-more than one endpoint (backups), ``--ps_witness_endpoints``,
-``--ps_durable_dir`` and ``--restore`` raise ``NotImplementedError``:
-replication, witnesses and durable rounds are not ported yet, and a
-pserver that dies brings the job down (no rejoin protocol).
+``PSERVER_ENDPOINT`` = its own endpoint, ``PADDLE_TRAINERS_NUM``,
+``PADDLE_PS_WITNESSES``). Trainers get the full list in
+``PADDLE_PSERVER_ENDPOINTS`` and the count in ``PADDLE_PSERVER_SHARDS``
+(``ps_shard.client_from_env``). A server of a group with backups that
+dies is relaunched (within ``--max_restarts``) with
+``PADDLE_PS_REJOIN=1``: it comes back as a backup that catches up from
+the group's active server, never as a primary. A server of a group of
+one holds the only copy of its shard, so its death brings the job down.
+``--ps_witness_endpoints`` starts one ``PSWitness`` process an endpoint
+(``--server_script`` run with ``PADDLE_ROLE=witness``), whose grant every
+election then needs.
+
+Durable rounds: ``--ps_durable_dir=DIR`` gives every server
+``PADDLE_PS_DURABLE_DIR`` (the active primary of each group writes its
+round frames there) and keeps ``job.json`` (the incarnation and the
+restore cut). When DIR holds round frames, or with ``--restore``, the
+launch is a cold restart: the cut is the newest round every shard can
+restore (``checkpoint.job_restore_round``; ``RestoreMissingShard`` names
+a shard without one), every server restores it (``PADDLE_PS_RESTORE=1``,
+``PADDLE_PS_RESTORE_ROUND``) and every trainer gets
+``PADDLE_PS_RESTORE_ROUND`` to resume after it. ``PADDLE_INCARNATION``
+counts the launches of the job.
 
 Serving replicas: ``--serving_script=replica.py`` with
 ``--serving_replicas=N`` starts N replica processes (env contract:
@@ -53,7 +69,8 @@ every ``--steering_interval`` seconds: it proposes plans and applies none.
 Usage:  python -m paddle_tpu_torch.distributed.launch --nproc_per_node=2 \\
             [--started_port=6170] [--log_dir=DIR] [--steering] \\
             [--server_script=serve.py --pserver_endpoints=ep0,ep1 \\
-             --pserver_shards=2] \\
+             --pserver_shards=2 [--ps_witness_endpoints=ep] \\
+             [--ps_durable_dir=DIR [--restore]]] \\
             [--serving_script=replica.py --serving_replicas=2] \\
             train.py --your-args
 """
@@ -91,22 +108,32 @@ def _parse_args(argv=None):
                    help="script run once per --pserver_endpoints entry "
                         "as a parameter-server process")
     p.add_argument("--pserver_endpoints", default="",
-                   help="comma-separated pserver endpoints, one primary "
-                        "a shard (requires --server_script)")
+                   help="comma-separated pserver endpoints, a primary "
+                        "and its backups a shard (requires "
+                        "--server_script)")
     p.add_argument("--pserver_shards", type=int,
                    default=int(os.environ.get("PADDLE_PSERVER_SHARDS",
                                               "1")),
                    help="slice --pserver_endpoints into this many "
-                        "groups (key-range sharded PS); each group must "
-                        "be one endpoint: backups are not ported")
+                        "contiguous primary+backup groups (key-range "
+                        "sharded PS; the endpoint count must divide "
+                        "evenly)")
     p.add_argument("--ps_durable_dir",
                    default=os.environ.get("PADDLE_PS_DURABLE_DIR", ""),
-                   help="durable PS rounds: not ported (raises)")
+                   help="root of the round-fenced durable PS rounds: "
+                        "each shard's primary writes its applied rounds "
+                        "here, and a cold restart resumes from the "
+                        "newest round present on every shard")
     p.add_argument("--restore", action="store_true",
-                   help="cold restart from --ps_durable_dir: not ported "
-                        "(raises)")
+                   help="cold restart from --ps_durable_dir (detected "
+                        "by itself when the directory holds round "
+                        "frames; with this flag an empty or "
+                        "unrestorable directory is an error)")
     p.add_argument("--ps_witness_endpoints", default="",
-                   help="external quorum witnesses: not ported (raises)")
+                   help="comma-separated external quorum witness "
+                        "endpoints: one --server_script process each, "
+                        "with PADDLE_ROLE=witness; every pserver's "
+                        "election then needs a live witness grant")
     p.add_argument("--serving_script", default=None,
                    help="script run once per serving replica as a "
                         "stateless serving process")
@@ -174,6 +201,7 @@ class _Worker:
         self.clock_proc = None
         self.spawned_at_us = None
         self.last_absent_poll_us = None
+        self.group_size = 1  # a pserver's group: itself and its backups
 
     def _proc_base(self) -> str:
         """The name this incarnation dumps under."""
@@ -185,6 +213,11 @@ class _Worker:
     def spawn(self) -> None:
         env = dict(self.env)
         env["PADDLE_RESTART_COUNT"] = str(self.restarts)
+        if self.role == "pserver" and self.restarts > 0:
+            # a relaunched server comes back as a catching-up backup: the
+            # trainers have failed over, and a second primary would split
+            # the brain
+            env["PADDLE_PS_REJOIN"] = "1"
         if self.metrics_dir:
             self.clock_proc = self._proc_base()
             self.clock_ping_path = os.path.join(
@@ -195,6 +228,7 @@ class _Worker:
         if self.log_dir:
             name = {"pserver": "serverlog.%d",
                     "serving": "servinglog.%d",
+                    "witness": "witnesslog.%d",
                     "steering": "steeringlog.%d"}.get(
                         self.role, "workerlog.%d") % self.local_rank
             self._fp = open(os.path.join(self.log_dir, name), "a")
@@ -245,23 +279,19 @@ class _Worker:
 
 
 def _pserver_groups(args):
-    """(endpoints, one group of endpoints a shard), checked: a group must
-    be one primary, and the survivability flags are refused by name."""
-    if getattr(args, "ps_witness_endpoints", ""):
-        raise NotImplementedError(
-            "--ps_witness_endpoints: PSWitness and the witness quorum are "
-            "not ported to paddle_tpu_torch yet")
-    if getattr(args, "ps_durable_dir", "") or getattr(args, "restore",
-                                                       False):
-        raise NotImplementedError(
-            "--ps_durable_dir / --restore: durable PS rounds and the cold "
-            "restart are not ported to paddle_tpu_torch yet")
+    """(endpoints, one group of endpoints a shard, witness endpoints)."""
     eps = [e.strip() for e in (getattr(args, "pserver_endpoints", "")
                                or "").split(",") if e.strip()]
+    witnesses = [e.strip() for e in (getattr(
+        args, "ps_witness_endpoints", "") or "").split(",") if e.strip()]
+    if (eps or witnesses) and not getattr(args, "server_script", None):
+        raise SystemExit("--pserver_endpoints / --ps_witness_endpoints "
+                         "require --server_script")
+    if witnesses and not eps:
+        raise SystemExit("--ps_witness_endpoints requires "
+                         "--pserver_endpoints")
     if not eps:
-        return [], []
-    if not getattr(args, "server_script", None):
-        raise SystemExit("--pserver_endpoints requires --server_script")
+        return [], [], []
     from .ps_shard import split_endpoint_groups
 
     try:
@@ -269,13 +299,40 @@ def _pserver_groups(args):
             eps, max(1, int(getattr(args, "pserver_shards", 1))))
     except ValueError as e:
         raise SystemExit(str(e))
-    if any(len(g) > 1 for g in groups):
-        raise NotImplementedError(
-            "--pserver_endpoints with backups (%d endpoint(s) in %d "
-            "shard(s)): replication to backups is not ported to "
-            "paddle_tpu_torch yet; give one endpoint a shard "
-            "(--pserver_shards=%d)" % (len(eps), len(groups), len(eps)))
-    return eps, groups
+    return eps, groups, witnesses
+
+
+def _restore_cut(args, pserver_eps, nshards):
+    """Decide, before anything spawns, whether this launch is a fresh
+    start or a cold restart: the restore cut (or None), after bumping the
+    incarnation in the durable root's ``job.json``. The cut is the newest
+    round restorable on every shard, never a mixed one."""
+    root = (getattr(args, "ps_durable_dir", "") or "").strip()
+    if getattr(args, "restore", False) and not root:
+        raise SystemExit("--restore requires --ps_durable_dir")
+    if not root or not pserver_eps:
+        if root:
+            raise SystemExit("--ps_durable_dir requires "
+                             "--pserver_endpoints")
+        return None, None
+    from .. import checkpoint as _ckpt
+
+    prev = _ckpt.read_job_manifest(root)
+    cut = None
+    if getattr(args, "restore", False) \
+            or _ckpt.job_has_durable_state(root):
+        # RestoreMissingShard names a shard without a usable round
+        cut = _ckpt.job_restore_round(root, nshards)
+    incarnation = int(prev.get("incarnation", -1)) + 1
+    _ckpt.write_job_manifest(root, {
+        "incarnation": incarnation, "restore_round": cut,
+        "shards": nshards, "endpoints": pserver_eps})
+    # every child env and the launcher's own dump carry it
+    os.environ["PADDLE_INCARNATION"] = str(incarnation)
+    if cut is not None:
+        _log("cold restart: incarnation %d resumes from durable round %d "
+             "(%s)" % (incarnation, cut, root))
+    return root, cut
 
 
 def _serving_endpoints(args):
@@ -301,19 +358,31 @@ def launch(args=None) -> int:
     node_ips = [ip for ip in args.ips.split(",") if ip]
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
+    pserver_eps, shard_groups, witness_eps = _pserver_groups(args)
+    durable_root, restore_round = _restore_cut(args, pserver_eps,
+                                               len(shard_groups))
     metrics_dir = _dobs.metrics_dir()
     if metrics_dir:
-        # the launcher dumps too, and the job starts from an empty
-        # directory: a merge must not read another job's dumps
+        # the launcher dumps too, and a fresh job starts from an empty
+        # directory: a merge must not read another job's dumps. A cold
+        # restart keeps the dead incarnation's dumps (its postmortem);
+        # this incarnation's carry their own suffix
         _dobs.set_identity("launcher", args.node_rank)
-        removed = _dobs.clear_stale_dumps(metrics_dir)
-        if removed:
-            _log("cleared %d stale dump(s) from %s" % (removed, metrics_dir))
+        if restore_round is None:
+            removed = _dobs.clear_stale_dumps(metrics_dir)
+            if removed:
+                _log("cleared %d stale dump(s) from %s"
+                     % (removed, metrics_dir))
         _dobs.arm(metrics_dir)
+        if restore_round is not None:
+            _flight.record("launch.cold_start",
+                           incarnation=int(os.environ[
+                               "PADDLE_INCARNATION"]),
+                           restore_round=restore_round,
+                           shards=len(shard_groups))
         # one job trace id, in every worker's env: each rank derives the
         # same round span from it (``distributed.fleet_round_args``)
         os.environ.setdefault(_dobs.JOB_TRACE_ENV, os.urandom(8).hex())
-    pserver_eps, shard_groups = _pserver_groups(args)
     serving_eps = _serving_endpoints(args)
     # children import the package even when it runs from a checkout (the
     # script's directory replaces the launcher's cwd on sys.path)
@@ -340,6 +409,9 @@ def launch(args=None) -> int:
         if pserver_eps:
             env["PADDLE_PSERVER_ENDPOINTS"] = ",".join(pserver_eps)
             env["PADDLE_PSERVER_SHARDS"] = str(len(shard_groups))
+        if restore_round is not None:
+            # the trainer resumes after the job's cut
+            env["PADDLE_PS_RESTORE_ROUND"] = str(restore_round)
         if serving_eps:
             # a trainer that sends traffic builds its FleetRouter from it
             env["PADDLE_SERVING_ENDPOINTS"] = ",".join(serving_eps)
@@ -349,20 +421,42 @@ def launch(args=None) -> int:
     servers = []
     for shard, group in enumerate(shard_groups):
         for i, ep in enumerate(group):
-            servers.append(_Worker(
-                pserver_eps.index(ep),
-                [sys.executable, "-u", args.server_script],
-                child_env({
-                    "PADDLE_ROLE": "pserver",
-                    "PADDLE_PSERVER_ENDPOINTS": ",".join(group),
-                    "PADDLE_PSERVER_SHARDS": str(len(shard_groups)),
-                    "PADDLE_PSERVER_SHARD": str(shard),
-                    "PADDLE_PSERVER_INDEX": str(i),
-                    "PADDLE_PSERVER_GLOBAL_INDEX":
-                        str(pserver_eps.index(ep)),
-                    "PSERVER_ENDPOINT": ep,
-                    "PADDLE_TRAINERS_NUM": str(nranks)}),
-                args.log_dir, role="pserver", metrics_dir=metrics_dir))
+            extra = {
+                "PADDLE_ROLE": "pserver",
+                # each server sees only its group; the witnesses serve
+                # every shard (their lease views are keyed by shard)
+                "PADDLE_PS_WITNESSES": ",".join(witness_eps),
+                "PADDLE_PSERVER_ENDPOINTS": ",".join(group),
+                "PADDLE_PSERVER_SHARDS": str(len(shard_groups)),
+                "PADDLE_PSERVER_SHARD": str(shard),
+                "PADDLE_PSERVER_INDEX": str(i),
+                "PADDLE_PSERVER_GLOBAL_INDEX": str(pserver_eps.index(ep)),
+                "PSERVER_ENDPOINT": ep,
+                "PADDLE_TRAINERS_NUM": str(nranks)}
+            if durable_root:
+                extra["PADDLE_PS_DURABLE_DIR"] = durable_root
+            if restore_round is not None:
+                # every member restores the job's cut, never its own
+                # newest round, and fences the dead incarnation out
+                extra["PADDLE_PS_RESTORE"] = "1"
+                extra["PADDLE_PS_RESTORE_ROUND"] = str(restore_round)
+            w = _Worker(pserver_eps.index(ep),
+                        [sys.executable, "-u", args.server_script],
+                        child_env(extra), args.log_dir, role="pserver",
+                        metrics_dir=metrics_dir)
+            w.group_size = len(group)
+            servers.append(w)
+    for i, ep in enumerate(witness_eps):
+        # a witness holds no parameter state: relaunched like a replica
+        servers.append(_Worker(
+            len(pserver_eps) + i,
+            [sys.executable, "-u", args.server_script],
+            child_env({"PADDLE_ROLE": "witness",
+                       "PSERVER_ENDPOINT": ep,
+                       "PADDLE_PS_WITNESSES": ",".join(witness_eps),
+                       "PADDLE_TRAINER_ID": str(i)}),
+            args.log_dir, role="witness", metrics_dir=metrics_dir,
+            global_rank=i))
     for i, ep in enumerate(serving_eps):
         # stateless: a relaunch needs no rejoin protocol, the router
         # re-admits the endpoint once /healthz answers
@@ -425,12 +519,11 @@ def launch(args=None) -> int:
                     continue
                 _flight.record("launch.exit", role=s.role,
                                rank=s.local_rank, code=code)
-                if s.role == "pserver":
-                    # its state is gone, and the catch-up of a rejoining
-                    # server is not ported: the job cannot go on
-                    _log("pserver %d exited %d; a relaunched server "
-                         "cannot rejoin (not ported): bringing the job "
-                         "down" % (s.local_rank, code))
+                if s.role == "pserver" and s.group_size < 2:
+                    # the only copy of its shard is gone: a relaunch has
+                    # no group to catch up from
+                    _log("pserver %d exited %d; its group has no backup: "
+                         "bringing the job down" % (s.local_rank, code))
                     rc = code if code > 0 else 1
                     _terminate_all()
                     live = set()
@@ -444,8 +537,11 @@ def launch(args=None) -> int:
                     live = set()
                     break
                 s.restarts += 1
-                _log("%s exited %d; relaunching (restart %d/%d)"
-                     % (s.role, code, s.restarts, args.max_restarts))
+                _log("%s %d exited %d; relaunching%s (restart %d/%d)"
+                     % (s.role, s.local_rank, code,
+                        " as a catching-up backup"
+                        if s.role == "pserver" else "",
+                        s.restarts, args.max_restarts))
                 s.spawn()
             for w in workers:
                 if w.local_rank not in live:

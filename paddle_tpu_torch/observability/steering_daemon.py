@@ -424,7 +424,8 @@ def _import_consumers() -> None:
     for mod in ("paddle_tpu_torch.parallel.collectives",
                 "paddle_tpu_torch.serving.batcher",
                 "paddle_tpu_torch.dygraph.lazy",
-                "paddle_tpu_torch.placement.search"):
+                "paddle_tpu_torch.placement.search",
+                "paddle_tpu_torch.observability.ps_steering"):
         try:
             __import__(mod)
         except Exception:

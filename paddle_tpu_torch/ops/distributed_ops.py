@@ -19,18 +19,28 @@ copy counted by ``ps_rpc.copy_counts``:
 - ``distributed_lookup_table``: the ids down, the pulled rows up.
 The table ops count the rows they pull and push (``ps.rows_pulled`` /
 ``ps.rows_pushed`` in the observability registry).
+
+A table's rows live where the transpiler sliced them until a row range
+migrates (``ps_shard.ShardedPSClient.migrate_range``, or the donor
+primary's ``migrate_range`` rpc): the donor then answers a pull or push of
+the moved rows with ``wrong_shard`` and its shard map, and the ops adopt
+the map (``adopt_shard_map``, newest version wins) and route those rows to
+their new owner from then on; a push re-sends only the redirected slice,
+so every row is applied once. The endpoints of an op are the shard
+groups' primaries in shard order, the order the map's shard indexes name.
 """
 from __future__ import annotations
 
 import os
+import threading
 import weakref
 from typing import Dict
 
 import numpy as np
 
 from ..core.registry import In, Out, register_host_op
-from ..distributed.ps_rpc import (_counter, gather_rows, host_array,
-                                  selected_rows, write_array)
+from ..distributed.ps_rpc import (WrongShard, _counter, gather_rows,
+                                  host_array, selected_rows, write_array)
 
 # endpoint -> dict(executor=, scope=, grad_to_block=)
 _EMULATED_SERVERS: Dict[str, dict] = {}
@@ -38,6 +48,7 @@ _EMULATED_SERVERS: Dict[str, dict] = {}
 
 def reset_emulated_servers():
     _EMULATED_SERVERS.clear()
+    reset_shard_map()
     # drop the cached RPC clients too: a fresh server on a reused
     # endpoint must not inherit a dead connection
     from ..distributed.ps_rpc import PSClient
@@ -68,15 +79,25 @@ def _listen_and_serv(executor, op, scope):
     drive the optimize blocks at once), or, with
     ``PADDLE_PSERVER_RPC=1``, a TCP server that blocks serving the round
     protocol until a shutdown message (the reference's
-    listen_and_serv_op.cc)."""
+    listen_and_serv_op.cc). A backup runs its primary's program: when
+    ``PSERVER_ENDPOINT`` is a later member of the group
+    (``PADDLE_PSERVER_ENDPOINTS``) whose primary the op names, the server
+    listens on it. The server's survivability knobs come from the env
+    (``ps_rpc.PSServer``); a range migrating in keeps the recipient's own
+    optimize block for its table (``block_factory``)."""
     grad_to_block = _grad_to_block(op)
     if os.environ.get("PADDLE_PSERVER_RPC") == "1":
-        from ..distributed.ps_rpc import PSServer
+        from ..distributed.ps_rpc import PSServer, _endpoints_from_env
 
-        server = PSServer(op.attrs["endpoint"], executor, scope,
-                          grad_to_block,
+        ep = op.attrs["endpoint"]
+        own = os.environ.get("PSERVER_ENDPOINT", "")
+        group = _endpoints_from_env()
+        if own and own != ep and group and group[0] == ep and own in group:
+            ep = own
+        server = PSServer(ep, executor, scope, grad_to_block,
                           fanin=int(op.attrs.get("Fanin", 1)),
-                          sync_mode=bool(op.attrs.get("sync_mode", True)))
+                          sync_mode=bool(op.attrs.get("sync_mode", True)),
+                          block_factory=grad_to_block.get)
         server.serve_forever()
         return
     _EMULATED_SERVERS[op.attrs["endpoint"]] = {
@@ -88,8 +109,8 @@ def _listen_and_serv(executor, op, scope):
 
 def _rpc_client(ep):
     """The client of one endpoint. ``PADDLE_PSERVER_ENDPOINTS`` sliced by
-    ``PADDLE_PSERVER_SHARDS`` names the groups: a group of more than one
-    endpoint (a primary and its backups) is refused by ``PSClient``."""
+    ``PADDLE_PSERVER_SHARDS`` names the groups: the client of a group's
+    primary gets the whole chain (its backups), to fail over along it."""
     from ..distributed.ps_rpc import PSClient, _endpoints_from_env
     from ..distributed.ps_shard import (shards_from_env,
                                         split_endpoint_groups)
@@ -100,8 +121,57 @@ def _rpc_client(ep):
             if group and group[0] == ep:
                 ep = ",".join(group)
                 break
-    return PSClient.for_endpoint(
+    c = PSClient.for_endpoint(
         ep, trainer_id=int(os.environ.get("PADDLE_TRAINER_ID", "0")))
+    if _SHARD_MAP["version"]:
+        # the adopted map's version rides every rpc (``mv``): a
+        # recipient commits a staged range only for a client that saw
+        # the donor's bump
+        c._map_version_hint = _SHARD_MAP["version"]
+    return c
+
+
+# -- migrated row ranges -------------------------------------------------------
+
+# the adopted shard map: its version and, per table, the moved ranges
+# [(global lo, global hi, owner shard, owner-local id of lo)], newest last
+_SHARD_MAP: Dict = {"version": 0, "ranges": {}}
+_SHARD_MAP_LOCK = threading.Lock()
+
+
+def adopt_shard_map(payload) -> bool:
+    """Adopt a server's shard map when it is newer than the adopted one;
+    True when it was."""
+    if not isinstance(payload, dict):
+        return False
+    ver = int(payload.get("version", 0))
+    with _SHARD_MAP_LOCK:
+        if ver <= _SHARD_MAP["version"]:
+            return False
+        _SHARD_MAP["version"] = ver
+        _SHARD_MAP["ranges"] = {
+            str(t): [tuple(int(x) for x in r[:4]) for r in rs]
+            for t, rs in (payload.get("ranges") or {}).items()}
+    from ..distributed.ps_rpc import PSClient
+
+    with PSClient._lock:
+        for c in PSClient._clients.values():
+            c._map_version_hint = ver
+    return True
+
+
+def shard_map() -> Dict:
+    """A copy of the adopted shard map."""
+    with _SHARD_MAP_LOCK:
+        return {"version": _SHARD_MAP["version"],
+                "ranges": {t: list(rs)
+                           for t, rs in _SHARD_MAP["ranges"].items()}}
+
+
+def reset_shard_map() -> None:
+    with _SHARD_MAP_LOCK:
+        _SHARD_MAP["version"] = 0
+        _SHARD_MAP["ranges"] = {}
 
 
 def deliver_grad(name, ep, val, trainer_id=None):
@@ -220,15 +290,58 @@ def _fetch_barrier(executor, op, scope):
 # grads back; the server applies its optimize sub-block a push.
 
 
-def _table_partition(ids_flat, starts, counts):
-    """Yield (ep_index, mask, local_rows) per hosting server. ``ids_flat``
-    may be int32 (the JAX package's ids with x64 off) or int64: the rows
-    are the same either way."""
-    ids_flat = np.asarray(ids_flat).astype(np.int64)
+def _table_partition(ids_flat, starts, counts, table=None):
+    """Yield (ep_index, mask, local_rows) per hosting server: the
+    transpiler's row slices, then the adopted moved ranges of ``table``.
+    ``ids_flat`` may be int32 (the JAX package's ids with x64 off) or
+    int64: the rows are the same either way."""
+    ids = np.asarray(ids_flat).astype(np.int64)
+    owner = np.full(ids.shape, -1, dtype=np.int64)
+    local = np.zeros(ids.shape, dtype=np.int64)
     for k, (s, c) in enumerate(zip(starts, counts)):
-        mask = (ids_flat >= s) & (ids_flat < s + c)
+        m = (ids >= s) & (ids < s + c)
+        owner[m] = k
+        local[m] = ids[m] - s
+    if table is not None:
+        with _SHARD_MAP_LOCK:
+            moved = list(_SHARD_MAP["ranges"].get(table, ()))
+        for lo, hi, shard, base in moved:
+            m = (ids >= lo) & (ids < hi)
+            owner[m] = shard
+            local[m] = base + ids[m] - lo
+    for k in range(len(starts)):
+        mask = owner == k
         if mask.any():
-            yield k, mask, (ids_flat[mask] - s).astype(np.int64)
+            yield k, mask, local[mask]
+
+
+def pull_table_rows(table, ids, starts, counts, endpoints, width,
+                    dtype="float32", var=None) -> np.ndarray:
+    """Rows ``ids`` (global) of ``var`` (default ``table``, or one of its
+    row-sliced companions) from the servers holding them, routed by the
+    transpiler's slices and the adopted moved ranges of ``table``; a
+    ``wrong_shard`` answer adopts the server's map and the pull re-runs
+    (a pull is idempotent)."""
+    flat = np.asarray(ids).reshape(-1).astype(np.int64)
+    var = var or table
+    for _ in range(len(endpoints) + 2):
+        out = np.zeros((flat.size, int(width)), dtype=np.dtype(dtype))
+        try:
+            for k, mask, local in _table_partition(flat, starts, counts,
+                                                   table):
+                ep = endpoints[k]
+                server = _EMULATED_SERVERS.get(ep)
+                if server is not None:
+                    out[mask] = _emulated_pull(server, var, local)
+                else:
+                    out[mask] = _rpc_client(ep).pull_sparse(var, local)
+            return out
+        except WrongShard as e:
+            adopt_shard_map(e.shard_map)
+    raise RuntimeError("pull of %r still redirected after %d wrong_shard "
+                       "answers (map version %d)"
+                       % (table, len(endpoints) + 2,
+                          _SHARD_MAP["version"]))
 
 
 def _emulated_pull(server, name, local_rows):
@@ -268,20 +381,11 @@ def _distributed_lookup_table(executor, op, scope):
     out_shape = (tuple(ids.shape[:-1]) if squeeze else tuple(ids.shape))
     flat = ids.reshape(-1).astype(np.int64)
     d = int(op.attrs["embed_dim"])
-    table = op.attrs["table_name"]
-    eps = op.attrs["endpoints"]
-    out = np.zeros((flat.size, d),
-                   dtype=np.dtype(op.attrs.get("dtype", "float32")))
     _counter("ps.rows_pulled").inc(int(flat.size))
-    for k, mask, local in _table_partition(
-            flat, op.attrs["row_starts"], op.attrs["row_counts"]):
-        ep = eps[k]
-        server = _EMULATED_SERVERS.get(ep)
-        if server is not None:
-            rows = _emulated_pull(server, table, local)
-        else:
-            rows = _rpc_client(ep).pull_sparse(table, local)
-        out[mask] = rows
+    out = pull_table_rows(op.attrs["table_name"], flat,
+                          op.attrs["row_starts"], op.attrs["row_counts"],
+                          op.attrs["endpoints"], d,
+                          op.attrs.get("dtype", "float32"))
     pad = int(op.attrs.get("padding_idx", -1))
     if pad >= 0:
         out[flat == pad] = 0.0
@@ -317,15 +421,34 @@ def _distributed_push_sparse(executor, op, scope):
     gname = op.attrs.get("grad_name") or (table + "@GRAD")
     eps = op.attrs["endpoints"]
     _counter("ps.rows_pushed").inc(int(uniq.size))
-    for k, mask, local in _table_partition(
-            uniq, op.attrs["row_starts"], op.attrs["row_counts"]):
-        ep = eps[k]
-        server = _EMULATED_SERVERS.get(ep)
-        if server is not None:
-            _emulated_push(server, gname, table, local, merged[mask])
-        else:
-            _rpc_client(ep).push_sparse(gname, local, merged[mask],
-                                        param=table)
+    # a server answering ``wrong_shard`` applied none of its slice (the
+    # redirect is all or nothing): only that slice is pushed again, under
+    # the adopted map
+    pending = np.arange(uniq.size, dtype=np.int64)
+    for _ in range(len(eps) + 2):
+        if not pending.size:
+            return
+        redirected = []
+        for k, mask, local in _table_partition(
+                uniq[pending], op.attrs["row_starts"],
+                op.attrs["row_counts"], table):
+            ep = eps[k]
+            sel = pending[mask]
+            server = _EMULATED_SERVERS.get(ep)
+            if server is not None:
+                _emulated_push(server, gname, table, local, merged[sel])
+                continue
+            try:
+                _rpc_client(ep).push_sparse(gname, local, merged[sel],
+                                            param=table)
+            except WrongShard as e:
+                adopt_shard_map(e.shard_map)
+                redirected.append(sel)
+        pending = (np.concatenate(redirected) if redirected
+                   else np.empty(0, dtype=np.int64))
+    raise RuntimeError("push of %r: %d rows still redirected after %d "
+                       "wrong_shard answers" % (table, pending.size,
+                                                len(eps) + 2))
 
 
 # scope -> {table@epmap: count}; weak keys, so a dead trainer scope's

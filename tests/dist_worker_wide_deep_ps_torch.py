@@ -1,4 +1,4 @@
-"""Worker of ``chip_smoke.py``'s parameter-server phases (67-68): bench.py's
+"""Worker of ``chip_smoke.py``'s parameter-server phases (67-69): bench.py's
 Wide&Deep with its tables row-sliced over the pservers, as a pserver or a
 trainer under the port's launcher (``PADDLE_ROLE``).
 
@@ -35,6 +35,19 @@ With ``PADDLE_SERVING_ENDPOINTS`` set (the launcher's serving role beside
 the PS job), trainer 0 also sends the requests of ``PS_SERVING_REQUESTS``
 (an npz) through a ``FleetRouter`` over the replicas and writes their
 outputs to ``serving_out.npz``.
+
+``PS_WD_SURVIVE=1`` (phase 69, sync): the launcher's groups are a
+primary and its backups (a backup serves its primary's program), a
+``witness`` role serves a ``PSWitness``, and the trainers run
+``train_survive``: the steps' records outlive a kill (``pushes<rank>.npz``,
+``progress<rank>.json``), a cold-restarted trainer resumes after the
+job's restore cut, and the knobs ``PS_WD_KILL_AT`` / ``PS_WD_KILL_EP``
+(kill a server before a step), ``PS_WD_PAUSE_AFTER`` (after a step,
+read the state back and wait to be killed), ``PS_WD_MIGRATE_AFTER``
+(migrate the steerer's hot range after a step) and ``PS_WD_HOT`` (a hot
+row range in the feeds) drive the drills. After the last step every server must answer caught up; the
+final state is pulled by global row, wherever the row lives
+(``final<rank>.npz``), for ``check_survive_pushes``.
 """
 import json
 import os
@@ -160,13 +173,31 @@ def check_first_round(exe, out_dir, first_losses):
     return loss_gap, grad_gap, moved
 
 
-def global_batches(steps, seed=24):
+def global_batches(steps, seed=24, hot=None):
     """bench.py's feeds (``models.wide_deep.random_batch``) at the global
-    batch, one a round."""
+    batch, one a round. ``hot`` = (lo, hi, share): that share of every
+    slot's ids is redrawn from rows [lo, hi) (a hot row range)."""
     rng = np.random.RandomState(seed)
-    return [random_batch(
+    feeds = [random_batch(
         rng, CFG["batch"], CFG["vocab"], CFG["slots"], CFG["dense_dim"])
         for _ in range(steps)]
+    if hot:
+        lo, hi, share = hot
+        hrng = np.random.RandomState(seed + 1)
+        for f in feeds:
+            ids = f["sparse"]
+            pick = hrng.random_sample(ids.shape) < share
+            ids[pick] = hrng.randint(lo, hi, size=int(pick.sum()))
+    return feeds
+
+
+def hot_window():
+    """``PS_WD_HOT`` = "lo,hi,share" (the survivable phase's hot rows)."""
+    raw = os.environ.get("PS_WD_HOT", "")
+    if not raw:
+        return None
+    lo, hi, share = raw.split(",")
+    return int(lo), int(hi), float(share)
 
 
 def half(feed, rank, trainers):
@@ -215,25 +246,48 @@ def idle_share(fn):
 
 
 def serve_pserver(pservers, trainers):
+    """Serve this endpoint's slice. A backup (a later member of its group,
+    ``PADDLE_PSERVER_ENDPOINTS``) runs its primary's program: the
+    transpiler knows the primaries only, and ``listen_and_serv`` listens
+    on ``PSERVER_ENDPOINT``. In the survivable phase the server also
+    writes its pid (``pid-<host>_<port>`` in ``PS_WD_OUT``) for the
+    trainer that kills it."""
     ep = os.environ["PSERVER_ENDPOINT"]
     os.environ["PADDLE_PSERVER_RPC"] = "1"
+    group = [e for e in os.environ.get("PADDLE_PSERVER_ENDPOINTS",
+                                       "").split(",") if e]
+    prog_ep = group[0] if ep in group else ep
+    if SURVIVE:
+        with open(pid_path(ep), "w") as f:
+            f.write(str(os.getpid()))
     t = transpile(pservers, trainers, 0)[0]
-    ps = t.get_pserver_program(ep)
+    ps = t.get_pserver_program(prog_ep)
     exe = fluid.Executor(fluid.CPUPlace())
     exe._core.rng.seed = 123
-    exe.run(t.get_startup_program(ep, ps))
+    exe.run(t.get_startup_program(prog_ep, ps))
     exe.run(ps)  # serves until the launcher stops this process
+
+
+def pid_path(ep):
+    return os.path.join(os.environ["PS_WD_OUT"],
+                        "pid-%s" % ep.replace(":", "_"))
+
+
+def ps_client(ep):
+    """The trainer's client of the server (group) whose primary is ``ep``:
+    the PS ops' own cached client, over the group's whole chain."""
+    from paddle_tpu_torch.ops.distributed_ops import _rpc_client
+
+    return _rpc_client(ep)
 
 
 def held_round(t, rank, fn):
     """Run ``fn`` inside an empty sync round (a get_param waits out an open
     round), then hold every trainer in a second empty round until each has
     run its ``fn``: a table push is round-free."""
-    from paddle_tpu_torch.distributed.ps_rpc import PSClient
-
     def barrier(kind):
         for ep in t.pserver_endpoints:
-            getattr(PSClient.for_endpoint(ep, rank), kind)()
+            getattr(ps_client(ep), kind)()
 
     barrier("send_barrier")
     fn()
@@ -242,11 +296,12 @@ def held_round(t, rank, fn):
     barrier("fetch_barrier")
 
 
-def take_server_state(t, scope, exe, rank, out_dir):
+def take_server_state(t, scope, exe, rank, out_dir, write_init=True):
     """Every dense param from its server into this trainer's scope. In sync
     mode trainer 0 also writes the whole start (dense params and tables)
-    to init.npz, inside a held round."""
-    from paddle_tpu_torch.distributed.ps_rpc import PSClient, write_array
+    to init.npz, inside a held round (``write_init``; a trainer resumed
+    after a cold restart writes none)."""
+    from paddle_tpu_torch.distributed.ps_rpc import write_array
 
     eps = t.pserver_endpoints
     state = {}
@@ -255,16 +310,15 @@ def take_server_state(t, scope, exe, rank, out_dir):
         for p, _g in t.params_grads:
             if p in t.dense_blocks:  # sliced: a row block a server
                 arr = np.concatenate([
-                    PSClient.for_endpoint(e["ep"], rank).get_param(
+                    ps_client(e["ep"]).get_param(
                         e["pname"]) for e in t.dense_blocks[p]])
             else:
-                arr = PSClient.for_endpoint(t.param_to_ep[p],
-                                            rank).get_param(p)
+                arr = ps_client(t.param_to_ep[p]).get_param(p)
             write_array(exe._core, scope, p, arr)
             state[p] = arr
-        if MODE == "sync" and rank == 0:
+        if MODE == "sync" and rank == 0 and write_init:
             for w, tb in t.dist_tables.items():
-                parts = [PSClient.for_endpoint(eps[k], rank).pull_sparse(
+                parts = [ps_client(eps[k]).pull_sparse(
                     w, np.arange(c)) for k, c in enumerate(tb["counts"])
                     if c]
                 state[w] = np.concatenate(parts)
@@ -327,8 +381,6 @@ def take_final_state(t, rank, out_dir, rec):
     """After the last sync round: each dist table's rows that this trainer
     pushed, with their Adam moments and the table's beta powers, from
     every server (``final<rank>.npz``)."""
-    from paddle_tpu_torch.distributed.ps_rpc import PSClient
-
     eps = t.pserver_endpoints
     state = {}
 
@@ -340,7 +392,7 @@ def take_final_state(t, rank, out_dir, rec):
                     if op.type == "adam" and op.input("Param")[0] in \
                             t.dist_tables:
                         slots[op.input("Param")[0]] = op
-            cl = PSClient.for_endpoint(ep, rank)
+            cl = ps_client(ep)
             for w, tb in t.dist_tables.items():
                 s, c = tb["starts"][k], tb["counts"][k]
                 ids = np.concatenate([v for key, v in rec.items()
@@ -551,6 +603,398 @@ def train_sync(t, exe, scope, loss, rank, trainers, steps):
         rec
 
 
+# -- the survivable PS (phase 69) ----------------------------------------------
+
+SURVIVE = os.environ.get("PS_WD_SURVIVE") == "1"
+
+
+def _save_npz(path, arrays):
+    """np.savez by tmp + rename: a SIGKILLed trainer leaves the last whole
+    file, never a torn one."""
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def _load_npz(path):
+    if not os.path.exists(path):
+        return {}
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _kill_server(ep):
+    import signal
+
+    with open(pid_path(ep)) as f:
+        pid = int(f.read())
+    os.kill(pid, signal.SIGKILL)
+    return time.time()
+
+
+def _propose_and_migrate(t, out):
+    """The hot range, from the job's own merged dumps: the ``ps_migrate_range``
+    steerer's plan over the servers' row-heat census, applied through the
+    donor group's primary (it runs at the donor's next round apply)."""
+    from paddle_tpu_torch.distributed.ps_shard import split_endpoint_groups
+    from paddle_tpu_torch.observability import distributed as dist
+    from paddle_tpu_torch.observability import ps_steering
+
+    mdir = os.environ["PADDLE_TPU_METRICS_DIR"]
+    # every server's periodic dump lands before the merge
+    time.sleep(2.5 * float(os.environ.get("PADDLE_TPU_DUMP_PERIOD", "0.5")))
+    mpath, _ = dist.merge_job_dir(mdir)
+    with open(mpath) as f:
+        doc = json.load(f)
+    eps = t.pserver_endpoints
+    plan = ps_steering.propose_migrate_range(
+        doc=doc, height=CFG["vocab"], nshards=len(eps), by="row_heat")
+    src = plan["lo"] - t.dist_tables[plan["table"]]["starts"][
+        plan["from_shard"]]
+    groups = split_endpoint_groups(
+        os.environ["PADDLE_PSERVER_ENDPOINTS"].split(","), len(eps))
+    resp = ps_client(eps[plan["from_shard"]]).migrate_range(
+        plan["table"], plan["lo"], plan["hi"], src,
+        src + plan["hi"] - plan["lo"], plan["to_shard"],
+        ",".join(groups[plan["to_shard"]]))
+    out["migration"] = {"plan": plan, "begin": resp, "wall": time.time()}
+
+
+def wait_caught_up(timeout=120.0):
+    """Until every server of every group answers caught up (a relaunched
+    one has rejoined): (seconds waited, the answers)."""
+    from paddle_tpu_torch.distributed.ps_rpc import _bare_rpc
+
+    eps = os.environ["PADDLE_PSERVER_ENDPOINTS"].split(",")
+    t0 = time.time()
+    while True:
+        got = {}
+        for ep in eps:
+            try:
+                got[ep] = _bare_rpc(ep, {"kind": "repl_status"}, timeout=2.0)
+            except (OSError, ValueError):
+                got[ep] = {}
+        if all(r.get("caught_up") for r in got.values()) \
+                or time.time() - t0 > timeout:
+            return time.time() - t0, {
+                ep: {k: r.get(k) for k in ("active", "caught_up", "round",
+                                           "epoch")}
+                for ep, r in got.items()}
+        time.sleep(0.2)
+
+
+def wait_servers_up(timeout=600.0):
+    """Until every server of every group answers ``repl_status`` (they boot
+    beside the trainers): the clients' connect window can then be short,
+    so a dead server is given up at once."""
+    from paddle_tpu_torch.distributed.ps_rpc import _bare_rpc
+
+    deadline = time.time() + timeout
+    for ep in os.environ["PADDLE_PSERVER_ENDPOINTS"].split(","):
+        while True:
+            try:
+                _bare_rpc(ep, {"kind": "repl_status"}, timeout=2.0)
+                break
+            except (OSError, ValueError):
+                if time.time() > deadline:
+                    raise RuntimeError("pserver %s never answered" % ep)
+                time.sleep(0.2)
+
+
+def train_survive(t, exe, scope, loss, rank, trainers, steps, out_dir):
+    """Sync rounds through the survivable PS. The records outlive a kill of
+    the whole job: the pushes (``pushes<rank>.npz``) and each step's server
+    round (``progress<rank>.json``) are rewritten after every step, and a
+    relaunch after a cold restart resumes at the step after the job's
+    restore cut (``PADDLE_PS_RESTORE_ROUND``). ``PS_WD_KILL_AT`` /
+    ``PS_WD_KILL_EP``: trainer 0 SIGKILLs that server before that step
+    (1-based). ``PS_WD_PAUSE_AFTER``: after that step each trainer waits
+    until every server is caught up, pulls the state so far
+    (``mid<rank>.npz``), writes ``paused<rank>.json`` and waits to be
+    killed. ``PS_WD_MIGRATE_AFTER``: after that step trainer 0 migrates
+    the steerer's hot range."""
+    feeds = [half(f, rank, trainers)
+             for f in global_batches(steps, hot=hot_window())]
+    main = t.get_trainer_program()
+    keep_in_scope(main, [
+        n for op in main.global_block().ops
+        if op.type in ("distributed_push_sparse", "distributed_lookup_table")
+        for n in op.input_arg_names + op.output_arg_names])
+    eps = t.pserver_endpoints
+    push_path = os.path.join(out_dir, "pushes%d.npz" % rank)
+    prog_path = os.path.join(out_dir, "progress%d.json" % rank)
+    progress = {}
+    if os.path.exists(prog_path):
+        with open(prog_path) as f:
+            progress = {int(k): v for k, v in json.load(f).items()}
+    rec = _load_npz(push_path)
+    cut = int(os.environ.get("PADDLE_PS_RESTORE_ROUND") or 0)
+    start = 0
+    if cut:
+        done = [i for i, p in progress.items() if p["server_round"] <= cut]
+        start = max(done) + 1 if done else 0
+        rec = {k: v for k, v in rec.items() if int(k.split("/")[0]) < start}
+    kill_at = int(os.environ.get("PS_WD_KILL_AT") or 0)
+    pause_after = int(os.environ.get("PS_WD_PAUSE_AFTER") or 0)
+    migrate_after = int(os.environ.get("PS_WD_MIGRATE_AFTER") or 0)
+    first = int(os.environ.get("PADDLE_RESTART_COUNT", "0")) == 0
+    out = {"start_step": start, "losses": {}, "step_ms": {},
+           "round_wall": {}}
+    for i in range(start, steps):
+        if rank == 0 and first and kill_at == i + 1:
+            out["kill_wall"] = _kill_server(os.environ["PS_WD_KILL_EP"])
+        t0 = time.perf_counter()
+        (l,) = exe.run(main, feed=feeds[i], fetch_list=[loss], scope=scope)
+        out["step_ms"][i] = (time.perf_counter() - t0) * 1e3
+        out["round_wall"][i] = time.time()
+        out["losses"][i] = float(np.asarray(l).ravel()[0])
+        record_round(rec, i, main, exe, scope)
+        _save_npz(push_path, rec)
+        progress[i] = {"server_round": ps_client(eps[0])._round,
+                       "wall": time.time()}
+        with open(prog_path + ".tmp", "w") as f:
+            json.dump(progress, f)
+        os.replace(prog_path + ".tmp", prog_path)
+        if rank == 0 and migrate_after == i + 1:
+            _propose_and_migrate(t, out)
+        if pause_after == i + 1:
+            # every server serves again (a relaunched one caught up), the
+            # state so far is read back, and chip_smoke.py kills the job
+            out["caught_up_s"], out["caught_up"] = wait_caught_up()
+            take_final_state_global(t, rank, out_dir, rec, name="mid")
+            from paddle_tpu_torch.ops.cuda import support
+
+            out["launches"] = support.launch_counts()
+            with open(os.path.join(out_dir, "paused%d.json" % rank),
+                      "w") as f:
+                json.dump(out, f)
+            time.sleep(3600)
+    out["caught_up_s"], out["caught_up"] = wait_caught_up()
+    from paddle_tpu_torch.ops import distributed_ops
+
+    out["shard_map"] = distributed_ops.shard_map()
+    return out, rec
+
+
+def take_final_state_global(t, rank, out_dir, rec, name="final"):
+    """Every row this trainer pushed so far, by global id, with its Adam
+    moments, pulled from where it lives now (the adopted moved ranges
+    included), its owner shard, whether it moved, and every shard's beta
+    powers (``<name><rank>.npz``)."""
+    from paddle_tpu_torch.ops import distributed_ops as dops
+
+    eps = t.pserver_endpoints
+    slots = {}
+    for blk in t.get_pserver_program(eps[0]).blocks[1:]:
+        for op in blk.ops:
+            if op.type == "adam" and op.input("Param")[0] in t.dist_tables:
+                slots[op.input("Param")[0]] = op
+    state = {}
+
+    def pull():
+        for w, tb in t.dist_tables.items():
+            ids = np.unique(np.concatenate(
+                [v for k, v in rec.items() if k.endswith("/%s/ids" % w)])
+                .astype(np.int64))
+            op = slots[w]
+            args = (ids, tb["starts"], tb["counts"], eps, tb["dim"])
+            # the param first: a wrong_shard answer adopts the map the
+            # moments are then routed by
+            state[w + "/param"] = dops.pull_table_rows(w, *args)
+            for slot in ("Moment1", "Moment2"):
+                state[w + "/" + slot] = dops.pull_table_rows(
+                    w, *args, var=op.input(slot)[0])
+            owner = np.full(ids.shape, -1, np.int64)
+            for k, mask, _local in dops._table_partition(
+                    ids, tb["starts"], tb["counts"], w):
+                owner[mask] = k
+            moved = np.zeros(ids.shape, bool)
+            for lo, hi, _s, _b in dops.shard_map()["ranges"].get(w, ()):
+                moved |= (ids >= lo) & (ids < hi)
+            state[w + "/rows"] = ids
+            state[w + "/owner"] = owner
+            state[w + "/moved"] = moved
+            for k, ep in enumerate(eps):
+                for slot in ("Beta1Pow", "Beta2Pow"):
+                    state["%s/%s/%d" % (w, slot, k)] = \
+                        ps_client(ep).get_param(op.input(slot)[0])
+
+    held_round(t, rank, pull)
+    _save_npz(os.path.join(out_dir, "%s%d.npz" % (name, rank)), state)
+
+
+def check_survive_pushes(out_dir, trainers, steps, drops=((),),
+                         final="final"):
+    """Every pushed row of every table, where it lives after the last
+    round, against a replay of the recorded pushes from init.npz, each
+    push one Adam step of the server holding the row (the non-lazy Adam
+    steps every row of its slice a push). The rows are grouped by
+    (table, final owner, moved): each group's two pushes of a round arrive
+    in either order on its server, so the order of every round is found
+    on a few probe rows (every combination), then the whole group is
+    replayed in that order. Every push reaches every shard (asserted).
+    Each entry of ``drops`` is a replay: the (trainer, step) pushes it
+    leaves out (a planted fault), the files read once for all. Returns,
+    a replay, the worst scores over the groups (param in Adam steps of
+    lr, moments relative to their largest, beta powers relative), the
+    least rows score, and the number of groups."""
+    import itertools
+
+    import torch
+
+    init = _load_npz(os.path.join(out_dir, "init.npz"))
+    recs = [_load_npz(os.path.join(out_dir, "pushes%d.npz" % r))
+            for r in range(trainers)]
+    finals = [_load_npz(os.path.join(out_dir, "%s%d.npz" % (final, r)))
+              for r in range(trainers)]
+    lr = torch.tensor([CFG["lr"]], dtype=torch.float32).reshape(())
+    worsts = [{"rows": 0.0, "rows_least": np.inf, "pows": 0.0, "groups": 0}
+              for _ in drops]
+    tables = sorted({k.split("/")[0] for k in finals[0]})
+    for w in tables:
+        rows = np.unique(np.concatenate([f[w + "/rows"] for f in finals]))
+        got = {}
+        for f in finals:
+            pos = np.searchsorted(rows, f[w + "/rows"])
+            for slot in ("param", "Moment1", "Moment2", "owner", "moved"):
+                arr = got.setdefault(slot, np.zeros(
+                    (rows.size,) + f[w + "/" + slot].shape[1:],
+                    f[w + "/" + slot].dtype))
+                arr[pos] = f[w + "/" + slot]
+        merged = {}
+        for r in range(trainers):
+            for step in range(steps):
+                ids = recs[r]["%d/%s/ids" % (step, w)]
+                if ids.size == 0:
+                    raise RuntimeError("push (%d, %d) of %s reached no "
+                                       "shard" % (r, step, w))
+                merged[(r, step)] = merged_push(
+                    ids, recs[r]["%d/%s/grad" % (step, w)])
+        groups = sorted({(int(o), bool(m))
+                         for o, m in zip(got["owner"], got["moved"])})
+        for owner, mv in groups:
+            sel = np.nonzero((got["owner"] == owner)
+                             & (got["moved"] == mv))[0]
+            grows = rows[sel]
+
+            # each push's grad on the group's rows, once (zero where the
+            # push had none of them: the non-lazy step still moves them)
+            gfull = {}
+            for key, (uniq, m) in merged.items():
+                g = np.zeros((grows.size, m.shape[1]), np.float32)
+                hit = np.isin(uniq, grows)
+                g[np.searchsorted(grows, uniq[hit])] = m[hit]
+                gfull[key] = torch.from_numpy(g)
+
+            def replay(sub, order, drop):
+                d = init[w].shape[1]
+                n = int(np.arange(grows.size)[sub].size)
+                st = (torch.from_numpy(init[w][grows[sub]]),
+                      torch.zeros((n, d)), torch.zeros((n, d)),
+                      torch.tensor(ADAM_BETAS[0], dtype=torch.float32),
+                      torch.tensor(ADAM_BETAS[1], dtype=torch.float32))
+                for step, flip in enumerate(order):
+                    gs = [gfull[(r, step)][sub] for r in range(trainers)
+                          if (r, step) not in drop]
+                    for g in (gs[::-1] if flip else gs):
+                        st = _adam_step(*st, g, lr)
+                return st
+
+            k = str(owner)
+            want = {"param": got["param"][sel],
+                    "Moment1": got["Moment1"][sel],
+                    "Moment2": got["Moment2"][sel],
+                    "Beta1Pow": finals[0]["%s/Beta1Pow/%s" % (w, k)],
+                    "Beta2Pow": finals[0]["%s/Beta2Pow/%s" % (w, k)]}
+
+            def score(st, sub=slice(None)):
+                p, m1, m2, b1p, b2p = st
+                wt = {n: torch.from_numpy(np.asarray(want[n][sub]))
+                      for n in ("param", "Moment1", "Moment2")}
+                r_score = max(
+                    float((p - wt["param"]).abs().max() / lr),
+                    float((m1 - wt["Moment1"]).abs().max()
+                          / wt["Moment1"].abs().max().clamp_min(1e-30)),
+                    float((m2 - wt["Moment2"]).abs().max()
+                          / wt["Moment2"].abs().max().clamp_min(1e-30)))
+                p_score = max(
+                    float((b1p - float(want["Beta1Pow"].reshape(())))
+                          .abs() / b1p),
+                    float((b2p - float(want["Beta2Pow"].reshape(())))
+                          .abs() / b2p))
+                return r_score, p_score
+
+            def all_orders_scores(sub, drop):
+                """Each combination of round orders' distance from the
+                servers' state on rows ``sub`` (0 where it matches)."""
+                n_orders = 2 ** steps
+                p = torch.from_numpy(init[w][grows[sub]]).expand(
+                    n_orders, -1, -1).clone()
+                st = (p, torch.zeros_like(p), torch.zeros_like(p),
+                      torch.full((n_orders, 1, 1), ADAM_BETAS[0]),
+                      torch.full((n_orders, 1, 1), ADAM_BETAS[1]))
+                for step in range(steps):
+                    gs = [gfull[(r, step)][sub] for r in range(trainers)
+                          if (r, step) not in drop]
+                    a = st
+                    for g in gs:
+                        a = _adam_step(*a, g, lr)
+                    if len(gs) < 2:
+                        st = a
+                        continue
+                    b = st
+                    for g in gs[::-1]:
+                        b = _adam_step(*b, g, lr)
+                    flip = torch.tensor(
+                        [(c >> (steps - 1 - step)) & 1
+                         for c in range(n_orders)],
+                        dtype=torch.bool).reshape(-1, 1, 1)
+                    st = tuple(torch.where(flip, y, x)
+                               for x, y in zip(a, b))
+                p, m1, m2, b1p, b2p = st
+                wt = {n: torch.from_numpy(np.asarray(want[n][sub]))
+                      for n in ("param", "Moment1", "Moment2")}
+                return ((p - wt["param"]).abs().amax((1, 2))
+                        + (m1 - wt["Moment1"]).abs().amax((1, 2))
+                        + (m2 - wt["Moment2"]).abs().amax((1, 2))
+                        + (b1p.reshape(-1) - float(
+                            want["Beta1Pow"].reshape(()))).abs()
+                        + (b2p.reshape(-1) - float(
+                            want["Beta2Pow"].reshape(()))).abs()).numpy()
+
+            # the order of every round, from probe rows each round's
+            # pushes touched (an untouched row cannot tell the orders
+            # apart): every combination of orders at once, on a leading
+            # axis, then the whole group in the matching one
+            pick = set(range(min(16, grows.size)))
+            for step in range(steps):
+                for r in range(trainers):
+                    hit = np.nonzero(np.isin(grows,
+                                             merged[(r, step)][0]))[0]
+                    pick.update(hit[:4].tolist())
+            probe = np.array(sorted(pick), dtype=np.int64)
+            orders = list(itertools.product((False, True), repeat=steps))
+            for drop, worst in zip(drops, worsts):
+                dist = all_orders_scores(probe, drop)
+                # the best on the probe first, then any other that
+                # matched it
+                tries = [int(np.argmin(dist))] + [
+                    int(i) for i in np.nonzero(dist == 0)[0]
+                    if int(i) != int(np.argmin(dist))][:7]
+                r_score, p_score = np.inf, np.inf
+                for i in tries:
+                    sc = score(replay(slice(None), orders[i], drop))
+                    if sc < (r_score, p_score):
+                        r_score, p_score = sc
+                    if sc == (0.0, 0.0):
+                        break
+                worst["rows"] = max(worst["rows"], r_score)
+                worst["rows_least"] = min(worst["rows_least"], r_score)
+                worst["pows"] = max(worst["pows"], p_score)
+                worst["groups"] += 1
+    return worsts
+
+
 def train_async(t, exe, scope, loss, rank, out_dir):
     """Load this rank's part, shuffle it over the trainers, train it through
     the Communicator; the losses come from the dump fields."""
@@ -599,6 +1043,11 @@ def main():
     import torch
 
     role = os.environ["PADDLE_ROLE"]
+    if role == "witness":
+        from paddle_tpu_torch.distributed.ps_rpc import PSWitness
+
+        PSWitness(os.environ["PSERVER_ENDPOINT"]).serve_forever()
+        return
     pservers = os.environ["PS_TEST_PSERVERS"].split(",")
     trainers = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
     # the host's cores go to the servers' CPU math: a trainer's math is
@@ -626,10 +1075,18 @@ def main():
     with fluid.scope_guard(scope):
         exe.run(startup)
     setup["startup"] = time.perf_counter() - T_START
-    take_server_state(t, scope, exe, rank, out_dir)
+    resumed = bool(os.environ.get("PADDLE_PS_RESTORE_ROUND"))
+    if SURVIVE:
+        wait_servers_up()
+    take_server_state(t, scope, exe, rank, out_dir, write_init=not resumed)
     ready_s = time.perf_counter() - T_START
     reset_copy_counts()
-    if MODE == "sync":
+    if SURVIVE:
+        steps = int(os.environ.get("PS_WD_STEPS", "6"))
+        result, rec = train_survive(t, exe, scope, loss, rank, trainers,
+                                    steps, out_dir)
+        take_final_state_global(t, rank, out_dir, rec)
+    elif MODE == "sync":
         steps = int(os.environ.get("PS_WD_STEPS", "4"))
         losses, step_ms, ps, rec = train_sync(t, exe, scope, loss, rank,
                                               trainers, steps)

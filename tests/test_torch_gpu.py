@@ -145,6 +145,12 @@ the trainer's host copies counted at the PS ops; a geo-SGD trainer's
 Adam ops fold into one fused_optimizer op under
 PADDLE_TPU_FUSED_OPTIMIZER, K4 runs once a step and its delta pushes
 leave the server's params at the trainer's, within 1e-5 of the CPU run.
+
+The survivable parameter server on the card (slice 25): a primary and a
+backup whose executors hold their state on the card, the primary stopped
+after round 2 of 4: the promoted backup's tables, moments and params are
+bitwise the unkilled group's, and the servers copied their card state
+down to hash and ship it (``copy_counts``).
 """
 import gc
 import threading
@@ -3797,3 +3803,108 @@ def test_slice24_k4_on_the_geo_trainer_update(cuda, monkeypatch):
                                    atol=1e-7)
         np.testing.assert_allclose(card[3][n], cpu[3][n], rtol=1e-5,
                                    atol=1e-6)
+
+
+# -- slice 25: the survivable parameter server --------------------------------
+
+def _slice25_group_run(place, kill_after=None, rounds=4):
+    """A primary + backup group of in-process ``PSServer``s over the
+    pserver program of ``_slice24_wide_deep`` (its tables' sparse Adam and
+    the dense blocks), their executors and scopes on ``place``, and one
+    trainer on ``place`` through the transpiled program. ``kill_after``:
+    the primary stops after that round and the backup takes over. Returns
+    the serving member's state, the trainer's losses and the copies."""
+    import os
+    import socket
+
+    from paddle_tpu_torch.distributed import ps_rpc
+    from paddle_tpu_torch.ops import distributed_ops
+
+    def free():
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        return "127.0.0.1:%d" % port
+
+    distributed_ops.reset_emulated_servers()
+    eps = [free(), free()]
+    saved = {k: os.environ.get(k) for k in (
+        "PADDLE_PSERVER_ENDPOINTS", "PADDLE_PSERVER_SHARDS",
+        "PADDLE_PS_LEASE_MS", "PADDLE_PS_FAILOVER_CONNECT_TIMEOUT",
+        "PADDLE_PS_CONNECT_TIMEOUT")}
+    os.environ.update({"PADDLE_PSERVER_ENDPOINTS": ",".join(eps),
+                       "PADDLE_PSERVER_SHARDS": "1",
+                       "PADDLE_PS_LEASE_MS": "600",
+                       "PADDLE_PS_CONNECT_TIMEOUT": "2",
+                       "PADDLE_PS_FAILOVER_CONNECT_TIMEOUT": "1"})
+    servers = []
+    try:
+        main, startup, loss = _slice24_wide_deep()
+        t = fluid.DistributeTranspiler()
+        t.transpile(0, program=main, startup_program=startup,
+                    pservers=eps[0], trainers=1)
+        ps = t.get_pserver_program(eps[0])
+        lsv = [op for op in ps.global_block().ops
+               if op.type == "listen_and_serv"][0]
+        for ep in eps:
+            sexe = fluid.Executor(place)
+            sexe._core.rng.seed = 123
+            scope = fluid.Scope()
+            with fluid.scope_guard(scope):
+                sexe.run(t.get_startup_program(eps[0], ps))
+            srv = ps_rpc.PSServer(ep, sexe._core, scope,
+                                  distributed_ops._grad_to_block(lsv),
+                                  fanin=1)
+            srv.start_background()
+            servers.append((srv, scope))
+        exe = fluid.Executor(place)
+        exe._core.rng.seed = 7
+        tscope = fluid.Scope()
+        with fluid.scope_guard(tscope):
+            exe.run(startup)
+        ps_rpc.reset_copy_counts()
+        losses = []
+        with fluid.scope_guard(tscope):
+            for i, f in enumerate(_slice24_feeds(rounds)):
+                losses.append(float(np.asarray(exe.run(
+                    main, feed=f, fetch_list=[loss])[0]).ravel()[0]))
+                if kill_after == i + 1:
+                    servers[0][0].stop()
+        copies = ps_rpc.copy_counts()
+        serving = servers[1] if kill_after else servers[0]
+        assert serving[0]._active_role()
+        if kill_after:
+            assert serving[0]._promoted
+        return _slice24_state(serving[1]), losses, copies
+    finally:
+        for srv, _ in servers:
+            srv.stop()
+        ps_rpc.PSClient.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def test_slice25_a_card_group_fails_over_bitwise(cuda):
+    """A group whose executors hold their state on the card: the primary
+    stops after round 2 of 4, the backup (its state streamed from the
+    card through host copies) wins the election and the trainer fails
+    over. The promoted backup's tables, moments and dense params are
+    bitwise the unkilled group's, and the servers copied their card
+    state down to hash and ship it (``copy_counts``)."""
+    place = fluid.CUDAPlace(0)
+    clean, clean_losses, _ = _slice25_group_run(place)
+    got, losses, copies = _slice25_group_run(place, kill_after=2)
+    assert losses == clean_losses
+    assert set(got) == set(clean)
+    for n, a in clean.items():
+        assert got[n].tobytes() == a.tobytes(), n
+    # every replicated round reads the primary's scope down: at least the
+    # tables a round for rounds 1-2
+    table_bytes = sum(a.nbytes for n, a in clean.items()
+                      if n.startswith("embedding"))
+    assert copies["d2h_bytes"] >= 2 * table_bytes, copies
+    assert copies["h2d"] > 0

@@ -7,11 +7,10 @@ the CPU, over loopback, and across the packages.
   against a hung server.
 - Heartbeat eviction: a silent trainer leaves the fanin and the survivor's
   round completes; ``ps.evictions`` counts it.
-- The survivability half of the JAX module raises ``NotImplementedError``
-  by name: a server given backups, ``rejoin``, witnesses, a lease or a
-  ``durable_dir``; a client of a failover chain and its refused calls;
-  ``ShardedPSClient``'s migrations; ``PSWitness``; the launcher's backup,
-  witness and durable flags; and a refused kind arriving on the wire.
+- The launcher's shard groups (the survivability half, backups,
+  witnesses and durable rounds, is tested in
+  ``test_torch_survivable_ps.py``, ``test_torch_ps_failover.py`` and
+  ``test_torch_ps_cross_package.py``).
 - Wire parity: the same rpc sequence (sync rounds, async grads, sparse
   pulls and pushes, a heartbeat) gives a port client the same answers,
   bitwise, as a JAX client from a JAX ``PSServer``, and a JAX client the
@@ -164,10 +163,12 @@ def test_rpc_malformed_message_and_dedupe():
             ps_rpc._send_msg(conn, dict(msg, **extra), g.tobytes())
             resp, _ = ps_rpc._recv_msg(conn)
             assert resp["ok"] is True
-        # an older seq of a live cid is a stale duplicate: never run
+        # an older seq of a live cid never runs: seq 0 is at or below
+        # the replicated watermark (0 for a cid no round carried), so it
+        # answers ``replayed``, as the JAX package's server does
         ps_rpc._send_msg(conn, dict(msg, cid="bb", seq=0), g.tobytes())
         resp, _ = ps_rpc._recv_msg(conn)
-        assert resp.get("stale") is True
+        assert resp.get("replayed") is True
         ps_rpc._send_msg(conn, {"kind": "send_barrier", "trainer_id": 5,
                                 "seq": 2, "cid": "bb"})
         resp, _ = ps_rpc._recv_msg(conn)
@@ -228,63 +229,7 @@ def test_heartbeat_eviction_completes_the_survivors_round():
         server.stop()
 
 
-# -- the survivability half: refused by name ----------------------------------
-
-@pytest.mark.parametrize("kw,part", [
-    ({"endpoints": ["E", "127.0.0.1:1"]}, "replication to backups"),
-    ({"rejoin": True}, "rejoining server"),
-    ({"witnesses": ["127.0.0.1:2"]}, "PSWitness"),
-    ({"lease_ms": 1500.0}, "leases and the quorum election"),
-    ({"durable_dir": "/nonexistent"}, "durable rounds"),
-    ({"block_factory": object()}, "live migration"),
-])
-def test_server_refuses_survivability_knobs(kw, part):
-    ep = _ep()
-    if "endpoints" in kw:
-        kw = dict(kw, endpoints=[ep] + kw["endpoints"][1:])
-    exe = fluid.Executor(fluid.CPUPlace())._core
-    with pytest.raises(NotImplementedError, match=part):
-        PSServer(ep, exe, fluid.Scope(), {}, **kw)
-
-
-def test_client_and_router_refuse_survivability_calls():
-    server, ep, exe, scope = _sgd_server(fluid, np.zeros(2, "float32"))
-    try:
-        with pytest.raises(NotImplementedError, match="failover"):
-            PSClient(ep + ",127.0.0.1:1")
-        c = PSClient(ep, trainer_id=0)
-        for call, part in ((lambda: c.replicate(1, [], b"", {}),
-                            "replication"),
-                           (c.repl_status, "replication"),
-                           (lambda: c.migrate("w", 1, "x:1"),
-                            "live migration"),
-                           (lambda: c.migrate_range("t", 0, 1, 0, 1, 1,
-                                                    "x:1"),
-                            "range migration"),
-                           (lambda: c.seed_round(3), "durable rounds")):
-            with pytest.raises(NotImplementedError, match=part):
-                call()
-        sc = ps_shard.ShardedPSClient([ep])
-        for call, part in ((lambda: sc.migrate("w", 0), "live migration"),
-                           (lambda: sc.migrate_range("t", 0, 1, 0, 4),
-                            "range migration"),
-                           (lambda: sc.apply_shard_map({"version": 1}),
-                            "shard map")):
-            with pytest.raises(NotImplementedError, match=part):
-                call()
-        with pytest.raises(NotImplementedError, match="PSWitness"):
-            ps_rpc.PSWitness(_ep())
-        # a refused kind on the wire (from a JAX client) answers by name
-        jc = jrpc.PSClient(ep, trainer_id=0)
-        with pytest.raises(RuntimeError, match="not ported"):
-            jc.repl_status()
-        jc.close()
-        sc.close()
-        c.shutdown_server()
-        c.close()
-    finally:
-        server.stop()
-
+# -- the launcher -------------------------------------------------------------
 
 def _launch_args(**kw):
     base = dict(pserver_endpoints="", server_script="serve.py",
@@ -294,23 +239,11 @@ def _launch_args(**kw):
     return argparse.Namespace(**base)
 
 
-@pytest.mark.parametrize("kw,part", [
-    ({"pserver_endpoints": "a:1,b:2"}, "backups"),
-    ({"pserver_endpoints": "a:1,b:2,c:3,d:4", "pserver_shards": 2},
-     "backups"),
-    ({"ps_witness_endpoints": "w:1"}, "PSWitness"),
-    ({"ps_durable_dir": "/x"}, "durable PS rounds"),
-    ({"restore": True}, "durable PS rounds"),
-])
-def test_launcher_refuses_survivability_flags(kw, part):
-    with pytest.raises(NotImplementedError, match=part):
-        plaunch._pserver_groups(_launch_args(**kw))
-
-
 def test_launcher_one_primary_a_shard():
-    eps, groups = plaunch._pserver_groups(_launch_args(
+    eps, groups, witnesses = plaunch._pserver_groups(_launch_args(
         pserver_endpoints="a:1,b:2", pserver_shards=2))
     assert eps == ["a:1", "b:2"] and groups == [["a:1"], ["b:2"]]
+    assert witnesses == []
 
 
 # -- wire parity --------------------------------------------------------------

@@ -1,14 +1,16 @@
-"""Phases 67 and 68 of ``chip_smoke.py`` alone, on one CUDA card.
+"""Phases 67, 68 and 69 of ``chip_smoke.py`` alone, on one CUDA card.
 
-    python3 tools/torch_parameter_server.py [--repeat N] [67 68 geo]
+    python3 tools/torch_parameter_server.py [--repeat N] [67 68 geo 69]
 
 Builds the port's kernels (``support.build()``), then runs phase 67 (sync
 PS: bench.py's Wide&Deep at full width over 2 pservers and 2 trainers on
 the card through the launcher, held against the untranspiled program),
 phase 68 (the async PS through the Communicator fed by globally shuffled
 InMemoryDatasets, with the launcher's serving role beside it) and
-``geo`` (phase 68's geo-SGD half: K4 on the geo trainer's update), or the
-ones named (default all), each ``--repeat`` times. Prints each phase's
+``geo`` (phase 68's geo-SGD half: K4 on the geo trainer's update) and
+phase 69 (the survivable PS: a primary killed and failed over, the whole
+job killed and cold-restored, a hot row range migrated), or the ones named
+(default all), each ``--repeat`` times. Prints each phase's
 lines and its seconds, then one JSON line of every phase's numbers.
 """
 import argparse
@@ -40,7 +42,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
-    which = args.which or ["67", "68", "geo"]
+    which = args.which or ["67", "68", "geo", "69"]
     t0 = time.time()
     support.build()
     support.ensure_kernels(torch.device("cuda"))
@@ -48,7 +50,8 @@ def main() -> int:
           flush=True)
     phases = {"67": lambda: cs.phase_ps_sync(fluid, support),
               "68": lambda: cs.phase_ps_async_serving(fluid, support),
-              "geo": lambda: cs.phase_ps_geo(fluid, support, fo)}
+              "geo": lambda: cs.phase_ps_geo(fluid, support, fo),
+              "69": lambda: cs.phase_ps_survive(fluid, support)}
     out = {}
     for ph in which:
         for i in range(max(1, args.repeat)):
